@@ -1,0 +1,19 @@
+"""distributed_forecasting_tpu_torch — the PyTorch/CUDA port of the forecasting framework.
+
+A second package beside ``distributed_forecasting_tpu`` (the JAX reference,
+which it never imports).  Module paths mirror the reference so each
+counterpart is easy to find; inside, the code is plain PyTorch: functions on
+tensors, frozen dataclasses of tensors for parameters, an explicit
+``device`` at every entry point.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``; without a card they raise
+(:func:`~distributed_forecasting_tpu_torch.utils.device.resolve_device`).
+
+Layer map of what is ported so far (the Holt-Winters main path):
+  - data plane ......... :mod:`distributed_forecasting_tpu_torch.data`
+  - model .............. :mod:`distributed_forecasting_tpu_torch.models`
+  - kernels ............ :mod:`distributed_forecasting_tpu_torch.ops`
+                         (CUDA C++ sources under ``csrc/``)
+  - fit/CV engine ...... :mod:`distributed_forecasting_tpu_torch.engine`
+  - batched serving .... :mod:`distributed_forecasting_tpu_torch.serving`
+  - weights across ..... :mod:`distributed_forecasting_tpu_torch.convert`
+"""

@@ -1,0 +1,113 @@
+"""Rolling-origin cross-validation (port of the reference's ``engine/cv.py``,
+``calibrate=False`` route).
+
+Prophet's ``cross_validation(horizon, period, initial)`` protocol: cutoffs
+every ``period`` steps after ``initial`` steps of history; each cutoff fits
+on rows [0, c] and scores rows (c, c + horizon]; metrics average over
+cutoffs.  Train masks differ per cutoff and everything else is shared, so
+the cutoff axis is folded into the series axis: all C cutoffs x S series fit
+as one (C·S, T) batch — one candidate-scoring kernel launch per CV pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+
+from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
+from distributed_forecasting_tpu_torch.models import get_model
+from distributed_forecasting_tpu_torch.ops import metrics as metrics_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class CVConfig:
+    horizon: int = 90   # steps scored after each cutoff
+    period: int = 360   # steps between cutoffs
+    initial: int = 730  # minimum history before the first cutoff
+
+
+def cutoff_indices(n_time: int, cv: CVConfig) -> List[int]:
+    """Host-side list of cutoff row indices: cutoff c trains on rows [0, c]
+    and scores rows (c, c + horizon]; every cutoff has a full horizon."""
+    cuts = []
+    c = cv.initial - 1
+    while c + cv.horizon < n_time:
+        cuts.append(c)
+        c += cv.period
+    if not cuts:
+        raise ValueError(
+            f"series too short for CV: T={n_time}, initial={cv.initial}, "
+            f"horizon={cv.horizon}"
+        )
+    return cuts
+
+
+def cv_windows(mask, day, cuts, horizon):
+    """Rolling-origin window tensors on the batch's device:
+    ``(train_masks, eval_masks, t_ends)``, shapes ((C, S, T), (C, S, T), (C,))."""
+    T = day.shape[0]
+    idx = torch.arange(T, device=mask.device)
+    cuts_t = torch.as_tensor(cuts, device=mask.device)
+    within = idx[None, :] <= cuts_t[:, None]               # (C, T)
+    train_masks = mask[None] * within[:, None, :]
+    in_eval = (~within) & (idx[None, :] <= cuts_t[:, None] + horizon)
+    eval_masks = mask[None] * in_eval[:, None, :]
+    t_ends = day[cuts_t].to(torch.float32)
+    return train_masks, eval_masks, t_ends
+
+
+def _cv_metric_means(y, yhat, lo, hi, eval_masks, train_masks, mase_m=7):
+    """Per-series CV-mean metrics from the (C, S, T) paths, MASE against
+    each cutoff's own training window."""
+    y_b = y[None].expand_as(yhat)
+    per_cut = metrics_ops.compute_all(y_b, yhat, eval_masks, lo=lo, hi=hi)
+    per_cut["mase"] = metrics_ops.mase(y_b, yhat, eval_masks, train_masks,
+                                       m=mase_m)
+    return {name: torch.mean(v, dim=0) for name, v in per_cut.items()}
+
+
+def cross_validate(
+    batch: SeriesBatch,
+    model: str,
+    config=None,
+    cv: CVConfig = CVConfig(),
+    xreg=None,
+    calibrate: bool = False,
+):
+    """Per-series CV-mean metrics — mse, rmse, mae, mape, smape, mdape,
+    coverage, mase — each an (S,) tensor, plus ``"_n_cutoffs"`` (int).
+
+    ``calibrate=True`` (split-conformal band scales) waits for the port of
+    ``engine/calibrate``; exogenous regressors for a family that takes them.
+    """
+    if calibrate:
+        raise NotImplementedError(
+            "cross_validate(calibrate=True) is not ported yet "
+            "(ROADMAP Queue 1: calibrate)"
+        )
+    fns = get_model(model)
+    if xreg is not None:
+        raise ValueError(
+            f"model {model!r} does not accept exogenous regressors "
+            f"(no ported family does yet)"
+        )
+    config = config if config is not None else fns.config_cls()
+    y, mask, day = batch.y, batch.mask, batch.day
+    S, T = y.shape
+    cuts = cutoff_indices(T, cv)
+    C = len(cuts)
+    train_masks, eval_masks, t_ends = cv_windows(mask, day, cuts, cv.horizon)
+
+    # cutoff-major rows: row c*S + s is series s trained up to cutoff c
+    params = fns.fit(y.repeat(C, 1), train_masks.reshape(C * S, T), day, config)
+    yhat, lo, hi = fns.forecast(params, day, t_ends.repeat_interleave(S),
+                                config)
+    yhat, lo, hi = (x.reshape(C, S, T) for x in (yhat, lo, hi))
+    out = _cv_metric_means(
+        y, yhat, lo, hi, eval_masks, train_masks,
+        mase_m=metrics_ops.seasonal_naive_lag(batch.freq),
+    )
+    out["_n_cutoffs"] = C
+    return out

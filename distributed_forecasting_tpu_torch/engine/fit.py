@@ -1,0 +1,168 @@
+"""The fit engine: one batched fit + forecast for every series (port of the
+reference's ``engine/fit.py`` main path).
+
+Per-series fault tolerance follows the reference's fail-safe: a series whose
+forecast has a non-finite value, or with too little history, is flagged
+not-ok and its path replaced by a seasonal-naive fallback with a band that
+widens with lead time.  ``forecast_frame`` assembles the output schema
+``[ds, store, item, y, yhat, yhat_upper, yhat_lower, training_date]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from distributed_forecasting_tpu_torch.data.tensorize import (
+    SeriesBatch,
+    ordinals_to_dates,
+)
+from distributed_forecasting_tpu_torch.models import get_model
+
+# a series needs at least this many observed points for its fit to be
+# trusted (else the seasonal-naive fallback)
+DEFAULT_MIN_POINTS = 14
+
+
+@dataclasses.dataclass(frozen=True)
+class ForecastResult:
+    yhat: torch.Tensor     # (S, T_all)
+    lo: torch.Tensor       # (S, T_all)
+    hi: torch.Tensor       # (S, T_all)
+    ok: torch.Tensor       # (S,) bool — fit healthy (fail-safe flag)
+    day_all: torch.Tensor  # (T_all,) absolute day grid (history + horizon)
+
+
+def seasonal_naive(y, mask, horizon: int, season: int = 7):
+    """(S, T) history -> (S, T + horizon): the history itself, then the last
+    ``season`` values tiled (unobserved ones replaced by the series mean)."""
+    tail = y[:, -season:]
+    tail_mask = mask[:, -season:]
+    mean = torch.sum(y * mask, dim=1) / torch.clamp_min(torch.sum(mask, dim=1), 1.0)
+    cycle = torch.where(tail_mask > 0, tail, mean[:, None])  # (S, season)
+    reps = -(-horizon // season)
+    fut = cycle.repeat(1, reps)[:, :horizon]
+    return torch.cat([y, fut], dim=1)
+
+
+def seasonal_naive_sigma(y, mask, season: int = 7):
+    """Per-series residual scale of the seasonal-naive predictor: RMS of the
+    observed lag-``season`` differences; falls back to the masked std, then
+    to 1.0, so the band is never zero-width."""
+    d = y[:, season:] - y[:, :-season]
+    m = mask[:, season:] * mask[:, :-season]
+    n = torch.sum(m, dim=1)
+    ssq = torch.sum((d * m) ** 2, dim=1)
+    sigma = torch.sqrt(ssq / torch.clamp_min(n, 1.0))
+    cnt = torch.clamp_min(torch.sum(mask, dim=1), 1.0)
+    mean = torch.sum(y * mask, dim=1) / cnt
+    var = torch.sum(((y - mean[:, None]) * mask) ** 2, dim=1) / cnt
+    sigma = torch.where(n > 0, sigma, torch.sqrt(var))
+    return torch.where((n > 0) | (var > 0), torch.clamp_min(sigma, 1e-6), 1.0)
+
+
+def health_fallback(y, mask, yhat, lo, hi, horizon: int, min_points: int,
+                    season: int = 7):
+    """Flag series with a non-finite forecast or fewer than ``min_points``
+    observations, and splice the seasonal-naive fallback into them with a
+    95% band whose variance grows one innovation per season ahead.
+    Returns ``(yhat, lo, hi, ok)``."""
+    finite = (
+        torch.all(torch.isfinite(yhat), dim=1)
+        & torch.all(torch.isfinite(lo), dim=1)
+        & torch.all(torch.isfinite(hi), dim=1)
+    )
+    enough = torch.sum(mask, dim=1) >= min_points
+    ok = finite & enough
+
+    fb = seasonal_naive(y, mask, horizon, season=season)
+    fb_sigma = seasonal_naive_sigma(y, mask, season=season)
+    T = y.shape[1]
+    h_fut = torch.arange(1, horizon + 1, dtype=torch.float32, device=y.device)
+    widen = torch.cat([y.new_ones(T), torch.sqrt(torch.ceil(h_fut / season))])
+    band = 1.96 * fb_sigma[:, None] * widen[None, :]
+    keep = ok[:, None]
+    return (torch.where(keep, yhat, fb), torch.where(keep, lo, fb - band),
+            torch.where(keep, hi, fb + band), ok)
+
+
+def day_grid(day, horizon: int):
+    """History + horizon day grid on the batch's device (the day axis is
+    contiguous: tensorize builds it with arange)."""
+    return day[0] + torch.arange(day.shape[0] + horizon, dtype=day.dtype,
+                                 device=day.device)
+
+
+def fit_forecast(
+    batch: SeriesBatch,
+    model: str,
+    config=None,
+    horizon: int = 90,
+    min_points: int = DEFAULT_MIN_POINTS,
+    xreg=None,
+) -> Tuple[object, ForecastResult]:
+    """Fit every series of ``batch`` and forecast ``horizon`` steps past the
+    end of history, on the batch's device.  Returns ``(params, result)``.
+
+    Exogenous regressors belong to families not ported yet; ``xreg`` raises.
+    """
+    fns = get_model(model)
+    if xreg is not None:
+        raise ValueError(
+            f"model {model!r} does not accept exogenous regressors "
+            f"(no ported family does yet)"
+        )
+    config = config if config is not None else fns.config_cls()
+    y, mask, day = batch.y, batch.mask, batch.day
+    day_all = day_grid(day, horizon)
+    t_end = day[-1].to(torch.float32)
+    params = fns.fit(y, mask, day, config)
+    yhat, lo, hi = fns.forecast(params, day_all, t_end, config)
+    yhat, lo, hi, ok = health_fallback(y, mask, yhat, lo, hi, horizon,
+                                       min_points)
+    return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
+                                  day_all=day_all)
+
+
+def long_frame_skeleton(keys, key_names, day_all, freq: str = "D") -> dict:
+    """``[ds, *keys]`` columns of a long (series x day) table."""
+    keys = np.asarray(keys)
+    day_np = day_all.cpu().numpy() if torch.is_tensor(day_all) else day_all
+    T_all = int(day_np.shape[0])
+    dates = ordinals_to_dates(np.asarray(day_np, dtype="int64"), freq)
+    frame = {"ds": np.tile(dates.values, keys.shape[0])}
+    for j, name in enumerate(key_names):
+        frame[name] = np.repeat(keys[:, j], T_all)
+    return frame
+
+
+def forecast_frame(
+    batch: SeriesBatch,
+    result: ForecastResult,
+    training_date: Optional[str] = None,
+) -> pd.DataFrame:
+    """Long output table ``[ds, store, item, y, yhat, yhat_upper,
+    yhat_lower, training_date]``."""
+    S = batch.n_series
+    T_all = int(result.day_all.shape[0])
+    T_hist = batch.n_time
+    y_full = np.full((S, T_all), np.nan)
+    y_hist = batch.y.cpu().numpy()
+    m_hist = batch.mask.cpu().numpy() > 0
+    y_full[:, :T_hist] = np.where(m_hist, y_hist, np.nan)
+
+    frame = long_frame_skeleton(batch.keys, batch.key_names, result.day_all,
+                                freq=batch.freq)
+    frame["y"] = y_full.reshape(-1)
+    frame["yhat"] = result.yhat.cpu().numpy().reshape(-1)
+    frame["yhat_upper"] = result.hi.cpu().numpy().reshape(-1)
+    frame["yhat_lower"] = result.lo.cpu().numpy().reshape(-1)
+    df = pd.DataFrame(frame)
+    df["training_date"] = pd.Timestamp(
+        training_date if training_date else pd.Timestamp.now().date()
+    )
+    return df

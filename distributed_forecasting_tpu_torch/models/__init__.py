@@ -1,0 +1,9 @@
+from distributed_forecasting_tpu_torch.models.base import (
+    MODEL_REGISTRY,
+    get_model,
+    register_model,
+)
+from distributed_forecasting_tpu_torch.models import holt_winters  # noqa: F401 (registration)
+from distributed_forecasting_tpu_torch.models.holt_winters import HoltWintersConfig
+
+__all__ = ["MODEL_REGISTRY", "get_model", "register_model", "HoltWintersConfig"]

@@ -1,0 +1,81 @@
+"""Model protocol + registry (port of the reference's ``models/base.py``).
+
+Every model family exposes the same two functions over a *batch* of series:
+
+    fit(y, mask, day, config)               -> params (frozen dataclass of
+                                               tensors; leaves lead with the
+                                               series axis S)
+    forecast(params, day_all, t_end, config) -> (yhat, lo, hi), each
+                                               (S, len(day_all))
+
+``day_all`` covers history + horizon; ``t_end`` is the last *training* day
+(a scalar, or one per series), where forecast uncertainty starts.  No family
+ported so far draws random numbers, so the contract carries no generator.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+MODEL_REGISTRY: dict = {}
+
+
+def _ndtri(p, device) -> torch.Tensor:
+    """Standard-normal quantile of ``p`` (float or sequence) in float32."""
+    return torch.special.ndtri(torch.as_tensor(p, dtype=torch.float32,
+                                               device=device))
+
+
+def gaussian_quantiles(forecast_fn: Callable) -> Callable:
+    """Exact quantile forecaster for families whose predictive is Gaussian in
+    data space (``hi = yhat + z·sd``); the per-step sd is recovered from the
+    upper bound.  Returns (S, Q, T_all)."""
+
+    def forecast_quantiles(params, day_all, t_end, config,
+                           quantiles=(0.1, 0.5, 0.9)):
+        if not quantiles or not all(0.0 < q < 1.0 for q in quantiles):
+            raise ValueError(
+                f"quantiles must lie in (0, 1), got {quantiles!r}"
+            )
+        yhat, lo, hi = forecast_fn(params, day_all, t_end, config)
+        z_w = _ndtri(0.5 + config.interval_width / 2.0, yhat.device)
+        sd = (hi - yhat) / z_w
+        zq = _ndtri(tuple(quantiles), yhat.device)
+        return yhat[:, None, :] + zq[None, :, None] * sd[:, None, :]
+
+    return forecast_quantiles
+
+
+def history_splice(fitted, future, day_all, day0, h):
+    """The (S, T_all) forecast path over history + future days: in-sample
+    days (``h <= 0``) gather the one-step fitted path by day offset from
+    ``day0``; future days take ``future``."""
+    S, T_fit = fitted.shape
+    hist_idx = torch.clamp(
+        (day_all.to(torch.float32) - day0).to(torch.int64), 0, T_fit - 1
+    )
+    hist = torch.gather(fitted, 1, hist_idx.expand(S, -1))
+    return torch.where(h > 0.0, future, hist)
+
+
+class ModelFns(NamedTuple):
+    fit: Callable
+    forecast: Callable
+    config_cls: type
+    # (params, day_all, t_end, config, quantiles) -> (S, Q, T_all)
+    forecast_quantiles: Callable = None
+
+
+def register_model(name: str, fit: Callable, forecast: Callable,
+                   config_cls: type, forecast_quantiles: Callable = None):
+    MODEL_REGISTRY[name] = ModelFns(fit=fit, forecast=forecast,
+                                    config_cls=config_cls,
+                                    forecast_quantiles=forecast_quantiles)
+
+
+def get_model(name: str) -> ModelFns:
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name]

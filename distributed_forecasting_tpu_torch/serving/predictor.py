@@ -1,0 +1,317 @@
+"""Batched inference model: one artifact for all series, one forecast per
+request (port of the reference's ``serving/predictor.py`` core).
+
+:class:`BatchForecaster` holds the fitted parameters of every series plus the
+key table; ``predict`` selects the requested series by key, gathers their
+parameter rows and runs one batched forecast on the parameters' device.
+Unknown keys raise (or are skipped).  The artifact directory has the
+reference's layout — ``params.npz``, ``forecaster.json`` and an optional
+``interval_scale.npy`` — so artifacts load in either package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import pandas as pd
+import torch
+
+from distributed_forecasting_tpu_torch.convert import (
+    params_class,
+    params_from_numpy,
+    params_to_numpy,
+    params_type_name,
+)
+from distributed_forecasting_tpu_torch.data.tensorize import ordinals_to_dates
+from distributed_forecasting_tpu_torch.engine.calibrate import apply_interval_scale
+from distributed_forecasting_tpu_torch.models import get_model
+from distributed_forecasting_tpu_torch.utils.config import freeze, to_jsonable
+from distributed_forecasting_tpu_torch.utils.device import resolve_device
+
+_PARAMS_FILE = "params.npz"
+_META_FILE = "forecaster.json"
+_SCALE_FILE = "interval_scale.npy"
+
+
+def save_params_npz(path: str, params) -> str:
+    """Write a param dataclass as one ``.npz`` of its fields; returns the
+    ``params_type`` string to record beside it."""
+    np.savez(path, **params_to_numpy(params))
+    return params_type_name(params)
+
+
+def load_params_npz(path: str, params_type: str, device=None):
+    """Rebuild a param dataclass from its ``.npz`` on ``device``; the
+    recorded ``params_type`` is looked up in ``convert.PARAMS_TYPES``."""
+    cls = params_class(params_type)
+    with np.load(path) as z:
+        fields = {k: z[k] for k in z.files}
+    return params_from_numpy(cls, fields, device)
+
+
+class UnknownSeriesError(KeyError):
+    pass
+
+
+def quantile_columns(quantiles) -> list:
+    """Column names for quantile result frames (``q0.1``, ``q0.5``, ...)."""
+    return [f"q{float(q):g}" for q in quantiles]
+
+
+def _ladder_value(k: int) -> int:
+    """Smallest pow2x3 ladder value >= k: 1, 2, 3, 4, 6, 8, 12, 16, 24, ...
+    (request sizes round up to these, so a server sees O(log S) shapes)."""
+    if k <= 1:
+        return 1
+    p = 1 << (k - 1).bit_length()
+    three_quarters = 3 * (p >> 2)
+    return three_quarters if three_quarters >= k else p
+
+
+class BatchForecaster:
+    """Loads once, predicts every requested series in one batched call."""
+
+    def __init__(
+        self,
+        model: str,
+        config,
+        params,
+        keys: np.ndarray,
+        key_names: tuple,
+        day0: int,
+        day1: int,
+        interval_scale: Optional[np.ndarray] = None,
+        freq: str = "D",
+    ):
+        self.model = model
+        self.config = config
+        self.params = params
+        self.keys = np.asarray(keys)
+        self.key_names = tuple(key_names)
+        self.day0 = int(day0)  # first training period ordinal
+        self.day1 = int(day1)  # last training period ordinal
+        self.freq = str(freq)
+        # (S,) per-series conformal band scale, applied to both half-bands
+        self.interval_scale = (
+            None if interval_scale is None
+            else np.asarray(interval_scale, dtype=np.float32)
+        )
+        if self.interval_scale is not None and (
+            self.interval_scale.shape != (self.keys.shape[0],)
+        ):
+            raise ValueError(
+                f"interval_scale must be ({self.keys.shape[0]},) — one scale "
+                f"per trained series — got {self.interval_scale.shape}"
+            )
+        self._index = {tuple(k): i for i, k in enumerate(self.keys.tolist())}
+
+    @property
+    def device(self) -> torch.device:
+        first = dataclasses.fields(self.params)[0].name
+        return getattr(self.params, first).device
+
+    @property
+    def n_series(self) -> int:
+        return int(self.keys.shape[0])
+
+    @property
+    def serving_schema(self) -> str:
+        return (
+            "ds date, "
+            + ", ".join(f"{k} int" for k in self.key_names)
+            + ", yhat double, yhat_upper double, yhat_lower double"
+        )
+
+    # -- construction / persistence ------------------------------------------
+    @classmethod
+    def from_fit(cls, batch, params, model: str, config,
+                 interval_scale=None) -> "BatchForecaster":
+        day0, day1 = batch.day[[0, -1]].tolist()
+        return cls(model=model, config=config, params=params, keys=batch.keys,
+                   key_names=batch.key_names, day0=day0, day1=day1,
+                   interval_scale=interval_scale, freq=batch.freq)
+
+    def save(self, directory: str) -> None:
+        os.makedirs(directory, exist_ok=True)
+        params_type = save_params_npz(os.path.join(directory, _PARAMS_FILE),
+                                      self.params)
+        scale_path = os.path.join(directory, _SCALE_FILE)
+        if self.interval_scale is not None:
+            np.save(scale_path, self.interval_scale)
+        elif os.path.exists(scale_path):
+            # a reused directory must not keep a previous run's scales
+            os.remove(scale_path)
+        meta = {
+            "params_type": params_type,
+            "model": self.model,
+            "config": dataclasses.asdict(self.config),
+            "key_names": list(self.key_names),
+            "keys": self.keys.tolist(),
+            "day0": self.day0,
+            "day1": self.day1,
+            "freq": self.freq,
+            "serving_schema": self.serving_schema,
+        }
+        with open(os.path.join(directory, _META_FILE), "w") as f:
+            json.dump(meta, f, indent=2,
+                      default=lambda x: to_jsonable(x, strict=True))
+
+    @classmethod
+    def load(cls, directory: str, device=None) -> "BatchForecaster":
+        """Load an artifact directory (written by this package or by the
+        reference) onto ``device`` (``cuda`` unless the caller asks for
+        the CPU)."""
+        dev = resolve_device(device)
+        with open(os.path.join(directory, _META_FILE)) as f:
+            meta = json.load(f)
+        params = load_params_npz(os.path.join(directory, _PARAMS_FILE),
+                                 meta["params_type"], dev)
+        fns = get_model(meta["model"])
+        config = fns.config_cls(
+            **{k: freeze(v) for k, v in meta["config"].items()}
+        )
+        scale_path = os.path.join(directory, _SCALE_FILE)
+        interval_scale = np.load(scale_path) if os.path.exists(scale_path) else None
+        return cls(
+            model=meta["model"], config=config, params=params,
+            keys=np.asarray(meta["keys"], dtype=np.int64),
+            key_names=tuple(meta["key_names"]), day0=meta["day0"],
+            day1=meta["day1"], interval_scale=interval_scale,
+            freq=meta.get("freq", "D"),
+        )
+
+    # -- inference -------------------------------------------------------------
+    def series_indices(self, request: pd.DataFrame,
+                       on_missing: str = "raise") -> np.ndarray:
+        """Row of every requested series, in first-occurrence order."""
+        if on_missing not in ("raise", "skip"):
+            raise ValueError(
+                f"on_missing must be 'raise' or 'skip', got {on_missing!r}"
+            )
+        cols = [np.asarray(request[name].to_numpy()) for name in self.key_names]
+        idx, seen = [], set()
+        for i in range(len(request)):
+            key = tuple(int(c[i]) for c in cols)
+            if key in seen:
+                continue
+            seen.add(key)
+            if key in self._index:
+                idx.append(self._index[key])
+            elif on_missing == "raise":
+                raise UnknownSeriesError(
+                    f"series {dict(zip(self.key_names, key))} was not in the "
+                    f"training set ({len(self._index)} known series)"
+                )
+        return np.asarray(idx, dtype=np.int64)
+
+    def gather_params(self, sidx: np.ndarray):
+        """Row-gather the requested series out of the parameters: fields
+        whose leading axis is the series axis are indexed, others pass."""
+        S = self.n_series
+        take = torch.as_tensor(sidx, dtype=torch.long, device=self.device)
+        return type(self.params)(**{
+            f.name: (v[take] if v.dim() >= 1 and v.shape[0] == S else v)
+            for f in dataclasses.fields(self.params)
+            for v in (getattr(self.params, f.name),)
+        })
+
+    def _bucket(self, k: int) -> int:
+        """Request-size bucket: next pow2x3 ladder value, capped at S."""
+        return max(min(_ladder_value(k), self.n_series), k)
+
+    def _prepare_request(self, request, horizon, on_missing):
+        """Resolve series, pad the request to its bucket (pad rows repeat
+        the first series and are dropped by the caller), gather parameters
+        and scales, and build the full history + horizon day grid."""
+        sidx = self.series_indices(request, on_missing=on_missing)
+        if sidx.size == 0:
+            return sidx, None, None, None
+        bucket = self._bucket(int(sidx.size))
+        padded = np.concatenate(
+            [sidx, np.full(bucket - sidx.size, sidx[0], sidx.dtype)]
+        )
+        day_all = torch.arange(self.day0, self.day1 + horizon + 1,
+                               dtype=torch.int32, device=self.device)
+        scale = (None if self.interval_scale is None else torch.as_tensor(
+            self.interval_scale[padded], device=self.device))
+        return sidx, self.gather_params(padded), day_all, scale
+
+    def _frame_skeleton(self, sidx, day_all):
+        """ds + key columns for a long result frame over ``day_all``."""
+        T = day_all.shape[0]
+        dates = ordinals_to_dates(day_all.cpu().numpy().astype("int64"),
+                                  self.freq)
+        frame = {"ds": np.tile(dates.values, len(sidx))}
+        for j, name in enumerate(self.key_names):
+            frame[name] = np.repeat(self.keys[sidx, j], T)
+        return frame
+
+    def predict(self, request: pd.DataFrame, horizon: int = 90,
+                include_history: bool = False,
+                on_missing: str = "raise") -> pd.DataFrame:
+        """Forecast every requested series ``horizon`` steps past the end of
+        training.  ``request`` needs the key columns only."""
+        sidx, params, day_all, scale = self._prepare_request(
+            request, horizon, on_missing)
+        if sidx.size == 0:
+            return pd.DataFrame(
+                columns=["ds", *self.key_names, "yhat", "yhat_upper", "yhat_lower"]
+            )
+        fns = get_model(self.model)
+        k = int(sidx.size)
+        yhat, lo, hi = fns.forecast(params, day_all, float(self.day1),
+                                    self.config)
+        yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale)
+        if not include_history:
+            day_all = day_all[-horizon:]
+            yhat, lo, hi = yhat[:, -horizon:], lo[:, -horizon:], hi[:, -horizon:]
+        frame = self._frame_skeleton(sidx, day_all)
+        frame["yhat"] = yhat[:k].cpu().numpy().reshape(-1)
+        frame["yhat_upper"] = hi[:k].cpu().numpy().reshape(-1)
+        frame["yhat_lower"] = lo[:k].cpu().numpy().reshape(-1)
+        return pd.DataFrame(frame)
+
+    def predict_quantiles(self, request: pd.DataFrame,
+                          quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
+                          include_history: bool = False,
+                          on_missing: str = "raise") -> pd.DataFrame:
+        """Probabilistic forecast: one column per quantile level (``q0.1``,
+        ``q0.5``, ...), priced from the predictive distribution the central
+        interval uses."""
+        fns = get_model(self.model)
+        if fns.forecast_quantiles is None:
+            raise ValueError(
+                f"model {self.model!r} registered no quantile forecast "
+                f"implementation"
+            )
+        quantiles = tuple(float(q) for q in quantiles)
+        sidx, params, day_all, scale = self._prepare_request(
+            request, horizon, on_missing)
+        qcols = quantile_columns(quantiles)
+        if sidx.size == 0:
+            return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
+        k = int(sidx.size)
+        # conformal scaling spreads every level around the median, so the
+        # median is priced alongside when calibration is on
+        priced = quantiles
+        if scale is not None and 0.5 not in priced:
+            priced = tuple(sorted((*priced, 0.5)))
+        yq = fns.forecast_quantiles(params, day_all, float(self.day1),
+                                    self.config, priced)  # (bucket, Q, T_all)
+        if scale is not None:
+            med = yq[:, priced.index(0.5), :][:, None, :]
+            yq = med + scale[:, None, None] * (yq - med)
+        if priced != quantiles:
+            yq = yq[:, [priced.index(q) for q in quantiles], :]
+        if not include_history:
+            day_all = day_all[-horizon:]
+            yq = yq[:, :, -horizon:]
+        yq = yq[:k].cpu().numpy()
+        frame = self._frame_skeleton(sidx, day_all)
+        for qi, col in enumerate(qcols):
+            frame[col] = yq[:, qi, :].reshape(-1)
+        return pd.DataFrame(frame)

@@ -1,0 +1,30 @@
+"""Device choice for every entry point of the port.
+
+The port runs on the card.  ``resolve_device(None)`` is ``cuda`` and raises
+when no CUDA device is visible — there is no quiet fall-back to the CPU,
+because a CPU run measures PyTorch's CPU kernels, not the port.  The CPU is
+used only when a caller asks for it (``device="cpu"``), as the tests do.
+
+Float32 matrix products and convolutions are pinned to full float32 here
+(TF32 off for both cuBLAS and cuDNN): the JAX reference computes in float32,
+and TF32 keeps only about three decimal digits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda`` (raises without a card); else the named device,
+    which must exist."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; the port runs on the card — pass "
+            "device='cpu' to run on the CPU explicitly"
+        )
+    return dev

@@ -9,6 +9,9 @@ import name disagree, SURVEY.md §0).
 from setuptools import find_packages, setup
 
 PACKAGE = "distributed_forecasting_tpu"
+# the PyTorch/CUDA port (imports torch, never jax); its CUDA sources ship as
+# package data and are compiled on first use on the machine with the card
+PORT = "distributed_forecasting_tpu_torch"
 
 setup(
     name="distributed-forecasting-tpu",
@@ -17,7 +20,8 @@ setup(
         "TPU-native fine-grained demand forecasting: batched per-series "
         "seasonal-trend fits compiled with XLA, sharded over device meshes"
     ),
-    packages=find_packages(include=[PACKAGE, f"{PACKAGE}.*"]),
+    packages=find_packages(include=[PACKAGE, f"{PACKAGE}.*", PORT, f"{PORT}.*"]),
+    package_data={PORT: ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -29,6 +33,8 @@ setup(
     extras_require={
         "local": ["pyarrow", "scikit-learn"],
         "test": ["pytest", "pytest-cov"],
+        # the PyTorch/CUDA port; its kernels need nvcc and ninja at first use
+        "torch": ["torch>=2.4", "ninja"],
         # real-MLflow interop lane: the adapters in tracking/mlflow_compat.py
         # run against an actual mlflow file/sqlite store
         # (tests/optional/test_mlflow_real.py; CI job mlflowInterop)

@@ -1,0 +1,109 @@
+"""The port stands alone: no JAX, no reference package, no quiet CPU runs.
+
+- No module of ``distributed_forecasting_tpu_torch`` and not
+  ``chip_smoke.py`` imports ``jax``/``jaxlib`` or
+  ``distributed_forecasting_tpu`` (an AST scan of every import).
+- Importing the whole port in a fresh interpreter leaves ``jax`` out of
+  ``sys.modules``.
+- Every entry point that places tensors raises when no CUDA device is
+  visible, unless the caller passes ``device="cpu"``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "distributed_forecasting_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "distributed_forecasting_tpu")
+
+torch.set_num_threads(1)
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    files = _port_sources()
+    assert len(files) > 15 and os.path.exists(files[0])
+    bad = [(os.path.relpath(p, ROOT), mod) for p in files
+           for mod in _imported_modules(p)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_importing_the_port_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import distributed_forecasting_tpu_torch.convert\n"
+        "import distributed_forecasting_tpu_torch.data\n"
+        "import distributed_forecasting_tpu_torch.engine\n"
+        "import distributed_forecasting_tpu_torch.ops._build\n"
+        "import distributed_forecasting_tpu_torch.serving\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.fixture()
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
+    from distributed_forecasting_tpu_torch import convert, data
+    from distributed_forecasting_tpu_torch.engine import fit_forecast
+    from distributed_forecasting_tpu_torch.models import HoltWintersConfig
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+
+    df = data.synthetic_store_item_sales(n_stores=1, n_items=2, n_days=40)
+    calls = {
+        "tensorize": lambda d: data.tensorize(df, device=d),
+        "synthetic_series_batch": lambda d: data.synthetic_series_batch(
+            n_stores=1, n_items=2, n_days=40, device=d),
+        "hw_params_from_numpy": lambda d: convert.hw_params_from_numpy(
+            {"alpha": np.ones(2, np.float32)}, device=d),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(None)
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            call("cuda")
+    # the same calls on request run on the CPU
+    batch = calls["tensorize"]("cpu")
+    assert batch.y.device.type == "cpu"
+    params, _ = fit_forecast(batch, "holt_winters", horizon=5)
+    fc = BatchForecaster.from_fit(batch, params, "holt_winters",
+                                  HoltWintersConfig())
+    fc.save(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchForecaster.load(str(tmp_path))
+    assert BatchForecaster.load(str(tmp_path), device="cpu").device.type == "cpu"
