@@ -14,8 +14,9 @@ so the exit code is not 0:
   2. build    every kernel built from csrc/ (seconds)
   3. kernels  each kernel against its plain twin on the card at the main
               path's shapes (default grid, damped grid, 10% more cells
-              masked, a 30-day season), rtol 1e-5 / atol 1e-6, argmins equal
-              or near ties within that tolerance
+              masked, a 30-day season, and the CV pass's 1,500 rows with the
+              three cutoffs' train masks), rtol 1e-5 / atol 1e-6, argmins
+              equal or near ties within that tolerance
   4. main     the main path with the launch counters set to 0 just before it
               and read just after: every kernel must have launched
   5. checks   what came out is right: finite, the expected shapes and key
@@ -50,11 +51,14 @@ DATA = os.path.join(ROOT, "datasets", "store_item_demand.csv.gz")
 RTOL, ATOL = 1e-5, 1e-6
 # H100 SXM published peaks: HBM bytes/s, float32 (non-tensor-core) FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
-# float32 operations of one Holt-Winters filter step (csrc/hw_score.cu)
-HW_FLOP_PER_STEP = 20
+# float32 operations of one Holt-Winters filter step (csrc/hw_score.cu), and
+# of a masked (predict-only) step: phi * b, l + phi * b
+HW_FLOP_PER_STEP, HW_MASKED_FLOP = 20, 2
 REPS = 5
 # the committed dataset: 500 (store, item) series x 1,826 days
 SHAPE = (500, 1826)
+# rolling-origin CV: 3 cutoffs at T = 1,826 (engine.CVConfig's fields)
+CV = dict(initial=730, period=360, horizon=90)
 
 
 def emit(phase: str, **fields) -> None:
@@ -87,13 +91,18 @@ def cuda_ms(fn, reps: int = REPS, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def hw_bound_ms(S: int, T: int, C: int, m: int) -> tuple:
-    """Least time for the scoring kernel's work: each input read once and
-    the output written once at HBM rate, or its float32 operations at the
-    float32 peak, whichever is larger."""
+def hw_bound_ms(mask, C: int, m: int) -> tuple:
+    """Least time for the scoring kernel's work on this ``mask``: each input
+    read once and the output written once at HBM rate, or its float32
+    operations at the float32 peak, whichever is larger.  An observed step
+    needs the whole update; a masked step only advances the level by the
+    damped trend (two operations)."""
+    S, T = mask.shape
+    n_obs = int((mask > 0).sum())
     nbytes = 4 * (2 * S * T + 4 * C + 2 * S + S * m + S * C)
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = HW_FLOP_PER_STEP * S * C * T / F32_FLOPS * 1e3
+    ops = C * (HW_FLOP_PER_STEP * n_obs + HW_MASKED_FLOP * (S * T - n_obs))
+    t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -115,20 +124,34 @@ def compare_scores(got, want) -> dict:
             "pass": close and near}
 
 
-def kernel_cases(batch, hw, fs) -> dict:
+def cv_inputs(batch, cv):
+    """The CV pass's kernel inputs: the series repeated once per cutoff and
+    each cutoff's train mask, ``(C*S, T)`` rows, as ``cross_validate`` gives
+    them to the kernel (each row ends in a masked run of predict-only steps)."""
+    T = batch.n_time
+    cuts = cv.cutoff_indices(T, cv.CVConfig(**CV))
+    train_masks = cv.cv_windows(batch.mask, batch.day, cuts, CV["horizon"])[0]
+    return batch.y.repeat(len(cuts), 1), train_masks.reshape(-1, T)
+
+
+def kernel_cases(batch, port) -> dict:
     """Phase 3: the kernel against its twin on the card."""
+    hw, fs = port["hw"], port["fs"]
     rng = np.random.default_rng(0)
     drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
                             .astype(np.float32)).to(batch.y.device)
+    full = batch.y * batch.mask
     cases = {
-        "default_C96": (hw.HoltWintersConfig(), batch.mask),
-        "damped_C288": (hw.HoltWintersConfig(damped=True), batch.mask),
-        "masked_10pct": (hw.HoltWintersConfig(), batch.mask * drop),
-        "season_m30": (hw.HoltWintersConfig(season_length=30), batch.mask),
+        "default_C96": (hw.HoltWintersConfig(), full, batch.mask),
+        "damped_C288": (hw.HoltWintersConfig(damped=True), full, batch.mask),
+        "masked_10pct": (hw.HoltWintersConfig(), full * drop,
+                         batch.mask * drop),
+        "season_m30": (hw.HoltWintersConfig(season_length=30), full,
+                       batch.mask),
+        "cv_1500": (hw.HoltWintersConfig(), *cv_inputs(batch, port["cv"])),
     }
     out = {}
-    for name, (cfg, mask) in cases.items():
-        y = batch.y * mask
+    for name, (cfg, y, mask) in cases.items():
         grid = hw._candidate_grid(cfg, device=y.device)
         got = fs.hw_score(y, mask, *grid, cfg.season_length)
         torch.cuda.synchronize()
@@ -155,8 +178,7 @@ def main_path(port, tmp: str) -> dict:
                                          horizon=90)
     frame = engine.forecast_frame(batch, result)
     metrics = engine.cross_validate(batch, "holt_winters", config=cfg,
-                                    cv=engine.CVConfig(horizon=90, period=360,
-                                                       initial=730))
+                                    cv=engine.CVConfig(**CV))
     fc = serving.BatchForecaster.from_fit(batch, params, "holt_winters", cfg)
     fc.save(tmp)
     loaded = serving.BatchForecaster.load(tmp)
@@ -252,16 +274,16 @@ def timings(run, port, card_line: str) -> dict:
         init = [x.contiguous() for x in hw._init_state(
             y, mask, cfg.season_length, "additive")]
         ms = cuda_ms(lambda: fs._hw_score_cuda(y, mask, *grid, *init), inner=20)
-        shape = [int(y.shape[0]), int(y.shape[1]), int(grid[0].numel()),
-                 cfg.season_length]
-        bound, by = hw_bound_ms(*shape)
+        C = int(grid[0].numel())
+        bound, by = hw_bound_ms(mask, C, cfg.season_length)
+        shape = [int(y.shape[0]), int(y.shape[1]), C, cfg.season_length]
         return {"ms": ms, "bound_ms": bound, "bound_by": by, "shape": shape}
 
     k = {"fit": kernel(y, mask, cfg),
-         "cv": kernel(y.repeat(3, 1), mask.repeat(3, 1), cfg),
+         "cv": kernel(*cv_inputs(batch, port["cv"]), cfg),
          "damped": kernel(y, mask, hw.HoltWintersConfig(damped=True))}
     grid = hw._candidate_grid(cfg, device=y.device)
-    cv = engine.CVConfig(horizon=90, period=360, initial=730)
+    cv = engine.CVConfig(**CV)
     fc = port["serving"].BatchForecaster.from_fit(batch, p, "holt_winters", cfg)
     req = _request(batch.keys)
     t = {
@@ -286,6 +308,7 @@ def main() -> int:
         return 1
     # the port comes from this checkout: without it, fail before any output
     from distributed_forecasting_tpu_torch import data, engine, serving
+    from distributed_forecasting_tpu_torch.engine import cv
     from distributed_forecasting_tpu_torch.models import holt_winters as hw
     from distributed_forecasting_tpu_torch.ops import _build, fused_scan as fs
 
@@ -295,13 +318,13 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     print(card_line, flush=True)
 
-    port = dict(data=data, engine=engine, serving=serving, hw=hw, fs=fs)
+    port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs)
     t0 = time.perf_counter()
     _build.hw_score_library()
     emit("build", kernels=["hw_score"], seconds=time.perf_counter() - t0)
 
     batch = data.tensorize(data.load_sales_csv(DATA))
-    cases = kernel_cases(batch, hw, fs)
+    cases = kernel_cases(batch, port)
 
     fs.hw_score.launches = 0  # counters to 0 just before the main path
     with tempfile.TemporaryDirectory() as tmp:
@@ -320,7 +343,7 @@ def main() -> int:
         "source": "distributed_forecasting_tpu_torch/csrc/hw_score.cu",
         "replaces": "distributed_forecasting_tpu/ops/fused_scan.py:199",
         "launches": launches,
-        "max_abs_err": cases["default_C96"]["max_abs_err"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": t["kernel_ms"],
         "plain_ms": t["twin_ms"],
         "bound_ms": t["bound_ms"],

@@ -197,9 +197,7 @@ def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
 
     which = config.filter
     if which == "auto":
-        which = select_filter(y.device.type, int(y.shape[0]), int(y.shape[1]),
-                              lanes=int(A.shape[0])) \
-            if mode == "additive" else "scan"
+        which = select_filter(y.device.type) if mode == "additive" else "scan"
     if which == "pallas":
         if mode != "additive":
             raise ValueError("filter='pallas' supports additive seasonality only")

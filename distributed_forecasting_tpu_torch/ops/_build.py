@@ -3,9 +3,12 @@
 Each kernel source under ``csrc/`` exposes a plain C launcher, so it needs
 none of PyTorch's headers and ``nvcc`` compiles it in seconds.  The library
 is built with ``torch.utils.cpp_extension.load`` (ninja, content-cached)
-into ``build/torch_kernels/`` beside the package and read with ``ctypes``;
-tensors pass as ``data_ptr()`` integers and the stream as PyTorch's current
-CUDA stream.  Nothing here runs at import: the first launch builds.
+and read with ``ctypes``; tensors pass as ``data_ptr()`` integers and the
+stream as PyTorch's current CUDA stream.  In a checkout of the repo the
+library goes to ``build/torch_kernels/`` at the checkout's root; an
+installed copy of the package builds into PyTorch's own extensions
+directory (``TORCH_EXTENSIONS_DIR``, or its default under the user's
+cache).  Nothing here runs at import: the first launch builds.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import os
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+_ROOT = os.path.dirname(_PKG)
+# a checkout holds setup.py beside the package; site-packages does not
+BUILD_DIR = (os.path.join(_ROOT, "build", "torch_kernels")
+             if os.path.isfile(os.path.join(_ROOT, "setup.py")) else None)
 
 # sm_90a: Hopper with its architecture-specific instructions.  No fast
 # math, and no fused multiply-add contraction (--fmad=false): every float
@@ -31,7 +37,8 @@ def build(name: str, sources) -> str:
     library ``name`` and return its path."""
     from torch.utils.cpp_extension import load
 
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    if BUILD_DIR is not None:
+        os.makedirs(BUILD_DIR, exist_ok=True)
     return load(
         name=name,
         sources=[os.path.join(CSRC, s) for s in sources],

@@ -25,16 +25,15 @@ _WARP = 32
 _SMEM_LIMIT = 232_448
 
 
-def select_filter(device_type: str, n_series: int, n_time: int,
-                  lanes: int = 1) -> str:
-    """Pick the candidate-scoring solver for a (device, S, T, lanes) shape.
+def select_filter(device_type: str) -> str:
+    """Pick the candidate-scoring solver for a device type.
 
     Returns ``'pallas'`` — the reference's name for the scoring kernel,
     which on the card is the hand-written CUDA kernel — for ``cuda``, and
     ``'scan'`` otherwise (off the card the kernel's plain twin is exactly
     the scan's arithmetic, so scanning is the honest choice).  ``'pscan'``
-    is never chosen: that solver is not ported.  The shape arguments are
-    kept so the signature matches the reference's heuristic.
+    is never chosen: that solver is not ported.  Unlike the reference's
+    heuristic this one reads no shape: no choice here depends on one.
     """
     return "pallas" if device_type == "cuda" else "scan"
 

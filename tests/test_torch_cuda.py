@@ -52,6 +52,23 @@ def test_kernel_equals_twin(dev, cfg):
     assert torch.equal(got, want)
 
 
+def test_kernel_equals_twin_on_cv_train_masks(dev):
+    # the CV pass's rows: each cutoff's history ends in a long masked run of
+    # predict-only steps
+    from distributed_forecasting_tpu_torch.engine import cv
+
+    y, mask = _workload(4, 300, dev, seed=5)
+    day = torch.arange(16_000, 16_300, dtype=torch.int32, device=dev)
+    conf = cv.CVConfig(initial=120, period=60, horizon=30)
+    cuts = cv.cutoff_indices(300, conf)
+    train = cv.cv_windows(mask, day, cuts, conf.horizon)[0].reshape(-1, 300)
+    y_cv = y.repeat(len(cuts), 1)
+    grid = hw._candidate_grid(hw.HoltWintersConfig(), device=dev)
+    got = fs.hw_score(y_cv, train, *grid, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fs.hw_score_reference(y_cv, train, *grid, 7))
+
+
 def test_kernel_fit_equals_scan_fit(dev):
     y, mask = _workload(7, 150, dev, seed=3)
     day = torch.arange(16_000, 16_150, dtype=torch.int32, device=dev)
