@@ -5,26 +5,32 @@
 Drives the port's main path once, on the card, at the reference workload's
 full size — the committed ``datasets/store_item_demand.csv.gz`` (500 store x
 item series, 1,826 days): load -> tensorize -> Holt-Winters fit + forecast
-(candidates scored by the hand-written CUDA kernel) -> fail-safe ->
-forecast frame -> rolling-origin CV (730/360/90) -> artifact save/load ->
-batched predict.  Phases, each printing one JSON line; any failure raises,
-so the exit code is not 0:
+(candidates scored by the ``hw_score`` CUDA kernel, the winner refit by the
+``hw_filter`` CUDA kernel) -> fail-safe -> forecast frame -> rolling-origin CV
+(730/360/90) -> artifact save/load -> batched predict.  Phases, each printing
+one JSON line; any failure raises, so the exit code is not 0:
 
   1. device   the card's name, and its name and power limit from nvidia-smi
-  2. build    every kernel built from csrc/ (seconds)
+  2. build    every kernel built from csrc/ in one build call (seconds)
   3. kernels  each kernel against its plain twin on the card at the main
-              path's shapes (default grid, damped grid, 10% more cells
-              masked, a 30-day season, and the CV pass's 1,500 rows with the
-              three cutoffs' train masks), rtol 1e-5 / atol 1e-6, argmins
-              equal or near ties within that tolerance
+              path's shapes.  hw_score (default grid, damped grid, 10% more
+              cells masked, a 30-day season, and the CV pass's 1,500 rows
+              with the three cutoffs' train masks): rtol 1e-5 / atol 1e-6,
+              argmins equal or near ties within that tolerance.  hw_filter
+              (the winners of the default and the damped grid, the
+              multiplicative mode, a 30-day season, the CV pass's 1,500
+              rows): bitwise equal to _filter in path, states and MSE
   4. main     the main path with the launch counters set to 0 just before it
               and read just after: every kernel must have launched
   5. checks   what came out is right: finite, the expected shapes and key
               order, the kernel-scored fit bitwise the scan-scored fit where
               the argmins agree, and a 20-series run equal to the same run on
               the CPU within float32 tolerance
-  6. times    CUDA-event medians of 5 runs after a warm-up: kernel, twin,
-              winner refit, fit_forecast, the CV pass, one 500-series predict
+  6. times    CUDA-event medians of 5 runs after a warm-up: both kernels at
+              the fit, CV and damped shapes beside their bounds, both twins,
+              fit_forecast broken down into scoring, refit, forecast and
+              fail-safe, the CV pass, one 500-series predict, and the
+              device's idle share over one fit_forecast (torch.profiler)
 
 The line before the last lists the kernels (launches, error, times, bound);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -51,9 +57,6 @@ DATA = os.path.join(ROOT, "datasets", "store_item_demand.csv.gz")
 RTOL, ATOL = 1e-5, 1e-6
 # H100 SXM published peaks: HBM bytes/s, float32 (non-tensor-core) FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
-# float32 operations of one Holt-Winters filter step (csrc/hw_score.cu), and
-# of a masked (predict-only) step: phi * b, l + phi * b
-HW_FLOP_PER_STEP, HW_MASKED_FLOP = 20, 2
 REPS = 5
 # the committed dataset: 500 (store, item) series x 1,826 days
 SHAPE = (500, 1826)
@@ -91,17 +94,12 @@ def cuda_ms(fn, reps: int = REPS, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def hw_bound_ms(mask, C: int, m: int) -> tuple:
-    """Least time for the scoring kernel's work on this ``mask``: each input
-    read once and the output written once at HBM rate, or its float32
-    operations at the float32 peak, whichever is larger.  An observed step
-    needs the whole update; a masked step only advances the level by the
-    damped trend (two operations)."""
-    S, T = mask.shape
-    n_obs = int((mask > 0).sum())
-    nbytes = 4 * (2 * S * T + 4 * C + 2 * S + S * m + S * C)
+def bound_ms(work: tuple) -> tuple:
+    """Least time for ``(operations, bytes)`` of work: the bytes at HBM rate
+    or the float32 operations at the float32 peak, whichever is larger (the
+    counts come from ops/fused_scan.hw_score_work / hw_filter_work)."""
+    ops, nbytes = work
     t_bytes = nbytes / HBM_BPS * 1e3
-    ops = C * (HW_FLOP_PER_STEP * n_obs + HW_MASKED_FLOP * (S * T - n_obs))
     t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -134,8 +132,24 @@ def cv_inputs(batch, cv):
     return batch.y.repeat(len(cuts), 1), train_masks.reshape(-1, T)
 
 
+def compare_filter(got, want) -> dict:
+    """hw_filter vs _filter: bitwise in every output (path, final states,
+    MSE), with the largest difference for the record."""
+    (l, b, s), mse, path = got
+    (l2, b2, s2), mse2, path2 = want
+    pairs = {"level": (l, l2), "trend": (b, b2), "season": (s, s2),
+             "mse": (mse, mse2), "fitted": (path, path2)}
+    equal = {k: bool(a.shape == w.shape and torch.equal(a, w))
+             for k, (a, w) in pairs.items()}
+    err = max(float((a - w).abs().nan_to_num(float("inf")).max())
+              if a.numel() else 0.0 for a, w in pairs.values())
+    return {"max_abs_err": err, "bitwise": all(equal.values()), **equal,
+            "pass": all(equal.values())}
+
+
 def kernel_cases(batch, port) -> dict:
-    """Phase 3: the kernel against its twin on the card."""
+    """Phase 3: each kernel against its twin on the card.  hw_filter refits
+    the winners of the kernel's own scores, as ``fit`` does."""
     hw, fs = port["hw"], port["fs"]
     rng = np.random.default_rng(0)
     drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
@@ -150,7 +164,7 @@ def kernel_cases(batch, port) -> dict:
                        batch.mask),
         "cv_1500": (hw.HoltWintersConfig(), *cv_inputs(batch, port["cv"])),
     }
-    out = {}
+    out, winners = {"hw_score": {}, "hw_filter": {}}, {}
     for name, (cfg, y, mask) in cases.items():
         grid = hw._candidate_grid(cfg, device=y.device)
         got = fs.hw_score(y, mask, *grid, cfg.season_length)
@@ -159,10 +173,31 @@ def kernel_cases(batch, port) -> dict:
         res = compare_scores(got, want)
         res.update(S=int(y.shape[0]), T=int(y.shape[1]),
                    C=int(grid[0].numel()), m=cfg.season_length)
-        emit("kernel_vs_twin", case=name, **res)
+        emit("kernel_vs_twin", kernel="hw_score", case=name, **res)
         if not res["pass"]:
             raise AssertionError(f"hw_score disagrees with its twin: {name}")
-        out[name] = res
+        out["hw_score"][name] = res
+        best = got.argmin(1)
+        winners[name] = (y, mask, tuple(x[best] for x in grid),
+                         cfg.season_length)
+
+    refits = {
+        "fit_default_winners": (*winners["default_C96"], "additive"),
+        "fit_damped_winners": (*winners["damped_C288"], "additive"),
+        "fit_multiplicative": (*winners["default_C96"], "multiplicative"),
+        "season_m30": (*winners["season_m30"], "additive"),
+        "cv_1500": (*winners["cv_1500"], "additive"),
+    }
+    for name, (y, mask, (a, b, g, p), m, mode) in refits.items():
+        got = fs.hw_filter(y, mask, a, b, g, p, m, mode)
+        torch.cuda.synchronize()
+        want = hw._filter(y, mask, a, b, g, m, mode, p)
+        res = compare_filter(got, want)
+        res.update(S=int(y.shape[0]), T=int(y.shape[1]), m=m, mode=mode)
+        emit("kernel_vs_twin", kernel="hw_filter", case=name, **res)
+        if not res["pass"]:
+            raise AssertionError(f"hw_filter disagrees with its twin: {name}")
+        out["hw_filter"][name] = res
     return out
 
 
@@ -227,7 +262,7 @@ def check_outputs(run, port) -> None:
          cv_cutoffs=3, cv_means=means, seconds=run["seconds"])
 
     # the kernel-scored fit is bitwise the scan-scored fit where the winning
-    # candidates agree (the winner refit is the same sequential filter)
+    # candidates agree (both refit the winner exactly, through hw_filter)
     p_k = run["params"]
     p_s = hw.fit(batch.y, batch.mask, batch.day,
                  hw.HoltWintersConfig(filter="scan"))
@@ -259,47 +294,153 @@ def check_outputs(run, port) -> None:
     emit("gpu_vs_cpu_20_series", max_abs_diff=worst, tol=f"1e-5 + 1e-5*{scale}")
 
 
+def fit_forecast_stages(batch, port, cfg, horizon: int = 90) -> dict:
+    """``engine.fit_forecast`` for the Holt-Winters model, step for step as
+    ``fit`` and ``fit_forecast`` run it, with a CUDA event between the
+    stages: scoring (initial states, row ends, hw_score), refit (argmin,
+    winners, hw_filter), forecast, fail-safe.  Milliseconds per stage."""
+    engine, hw, fs = port["engine"], port["hw"], port["fs"]
+    from distributed_forecasting_tpu_torch.engine import fit as fit_mod
+
+    y, mask, day = batch.y, batch.mask, batch.day
+    m = cfg.season_length
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    grid = hw._candidate_grid(cfg, device=y.device)
+    msec = fs.hw_score(y, mask, *grid, m)
+    ev[1].record()
+    best = torch.argmin(msec, dim=1)
+    a, b, g, p = (x[best] for x in grid)
+    (l, t, s), mse, fitted = fs.hw_filter(y, mask, a, b, g, p, m,
+                                          cfg.seasonality_mode)
+    params = hw.HWParams(alpha=a, beta=b, gamma=g, phi=p, level=l, trend=t,
+                         season=s, sigma=torch.sqrt(mse), fitted=fitted,
+                         day0=day[0].to(torch.float32),
+                         t_fit_end=day[-1].to(torch.float32))
+    ev[2].record()
+    day_all = fit_mod.day_grid(day, horizon)
+    yhat, lo, hi = hw.forecast(params, day_all, day[-1].to(torch.float32), cfg)
+    ev[3].record()
+    fit_mod.health_fallback(y, mask, yhat, lo, hi, horizon,
+                            fit_mod.DEFAULT_MIN_POINTS)
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("scoring", "refit", "forecast", "fail_safe")
+    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+
+
+def idle_share(fn) -> dict:
+    """The device's busy time (union of kernel intervals in a torch.profiler
+    trace) over the host wall time of one ``fn()`` ending in a synchronize,
+    and the traced durations of the port's own kernels in it.  Reports
+    ``not measured`` if the trace holds no device time (the profiler is
+    optional on the card's machine; the rest of the run does not rest on
+    it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+        own = {k: [(e.time_range.end - e.time_range.start) / 1e3
+                   for e in device if f"{k}_kernel" in e.name]
+               for k in KERNELS}
+    except Exception as exc:  # noqa: BLE001 — reported, not hidden
+        return {"idle_share": "not measured", "reason": repr(exc)}
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans or busy <= 0:
+        return {"idle_share": "not measured", "reason": "no device time"}
+    busy_ms = busy / 1e3
+    return {"idle_share": 1.0 - busy_ms / wall, "device_busy_ms": busy_ms,
+            "wall_ms_profiled": wall, "device_events": len(spans),
+            "kernel_ms": own}
+
+
 def timings(run, port, card_line: str) -> dict:
-    """Phase 6: device times at the main path's shapes.  The kernel alone
-    (initial states computed beforehand) is timed over 20 back-to-back
-    launches per sample, with y and mask warm in the 50 MB L2 as they are
-    after ``_init_state`` reads them on the main path."""
+    """Phase 6: device times at the main path's shapes.  Each kernel alone
+    is timed over 20 back-to-back launches per sample, its arguments checked
+    and bound beforehand (``_hw_*_launcher``) so that the host only launches
+    and the device's queue stays ahead of it, with y and mask warm in the
+    50 MB L2 as they are after ``_init_state`` reads them on the main
+    path."""
     engine, hw, fs = port["engine"], port["hw"], port["fs"]
     batch = run["batch"]
     y, mask, p = batch.y, batch.mask, run["params"]
     cfg = hw.HoltWintersConfig(filter="auto")
+    cv_y, cv_mask = cv_inputs(batch, port["cv"])
 
-    def kernel(y, mask, cfg):
+    def inputs(y, mask, cfg):
         grid = hw._candidate_grid(cfg, device=y.device)
-        init = [x.contiguous() for x in hw._init_state(
-            y, mask, cfg.season_length, "additive")]
-        ms = cuda_ms(lambda: fs._hw_score_cuda(y, mask, *grid, *init), inner=20)
-        C = int(grid[0].numel())
-        bound, by = hw_bound_ms(mask, C, cfg.season_length)
-        shape = [int(y.shape[0]), int(y.shape[1]), C, cfg.season_length]
-        return {"ms": ms, "bound_ms": bound, "bound_by": by, "shape": shape}
+        m = cfg.season_length
+        init = [x.contiguous() for x in hw._init_state(y, mask, m, "additive")]
+        best = fs.hw_score(y, mask, *grid, m).argmin(1)
+        return grid, init, tuple(x[best] for x in grid), m
 
-    k = {"fit": kernel(y, mask, cfg),
-         "cv": kernel(*cv_inputs(batch, port["cv"]), cfg),
-         "damped": kernel(y, mask, hw.HoltWintersConfig(damped=True))}
+    def score(y, mask, cfg):
+        grid, init, _, m = inputs(y, mask, cfg)
+        launch, _ = fs._hw_score_launcher(y, mask, *grid, *init)
+        ms = cuda_ms(launch, inner=20)
+        C = int(grid[0].numel())
+        bound, by = bound_ms(fs.hw_score_work(mask, C, m))
+        return {"ms": ms, "bound_ms": bound, "bound_by": by,
+                "shape": [int(y.shape[0]), int(y.shape[1]), C, m]}
+
+    def refit(y, mask, cfg):
+        _, init, won, m = inputs(y, mask, cfg)
+        launch, _ = fs._hw_filter_launcher(y, mask, *won, *init, "additive")
+        ms = cuda_ms(launch, inner=20)
+        S, T = (int(d) for d in y.shape)
+        bound, by = bound_ms(fs.hw_filter_work(S, T, m))
+        return {"ms": ms, "bound_ms": bound, "bound_by": by, "shape": [S, T, m]}
+
+    shapes = {"fit": (y, mask, cfg), "cv": (cv_y, cv_mask, cfg),
+              "damped": (y, mask, hw.HoltWintersConfig(damped=True))}
+    k_score = {k: score(*v) for k, v in shapes.items()}
+    k_filter = {k: refit(*v) for k, v in shapes.items()}
     grid = hw._candidate_grid(cfg, device=y.device)
     cv = engine.CVConfig(**CV)
     fc = port["serving"].BatchForecaster.from_fit(batch, p, "holt_winters", cfg)
     req = _request(batch.keys)
+    fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
+        batch, "holt_winters", config=cfg, horizon=90)
+    stages = [fit_forecast_stages(batch, port, cfg) for _ in range(REPS + 1)][1:]
     t = {
-        "twin_ms": cuda_ms(lambda: fs.hw_score_reference(y, mask, *grid, 7)),
-        "winner_refit_ms": cuda_ms(lambda: hw._filter(
+        "hw_score_twin_ms": cuda_ms(lambda: fs.hw_score_reference(
+            y, mask, *grid, 7)),
+        "hw_filter_twin_ms": cuda_ms(lambda: hw._filter(
             y, mask, p.alpha, p.beta, p.gamma, 7, "additive", p.phi)),
-        "fit_forecast_ms": cuda_ms(lambda: engine.fit_forecast(
-            batch, "holt_winters", config=cfg, horizon=90)),
+        "fit_forecast_ms": cuda_ms(fit_forecast),
+        "fit_forecast_stages_ms": {k: statistics.median(s[k] for s in stages)
+                                   for k in stages[0]},
         "cv_pass_ms": cuda_ms(lambda: engine.cross_validate(
             batch, "holt_winters", config=cfg, cv=cv)),
         "predict_500_ms": cuda_ms(lambda: fc.predict(req)),
     }
+    fit_forecast()
+    t["fit_forecast_profile"] = idle_share(fit_forecast)
     emit("times", card=card_line, reps=REPS, statistic="median",
-         kernel=k, **t)
-    return dict(t, kernel_ms=k["fit"]["ms"], bound_ms=k["fit"]["bound_ms"],
-                bound_by=k["fit"]["bound_by"])
+         hw_score=k_score, hw_filter=k_filter, **t)
+    return dict(t, hw_score=k_score["fit"], hw_filter=k_filter["fit"])
+
+
+KERNELS = {
+    "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
+                 "distributed_forecasting_tpu/ops/fused_scan.py:199"),
+    # no Pallas origin: the reference's lax.scan filter
+    "hw_filter": ("distributed_forecasting_tpu_torch/csrc/hw_filter.cu",
+                  "distributed_forecasting_tpu/models/holt_winters.py:170"),
+}
 
 
 def main() -> int:
@@ -320,36 +461,43 @@ def main() -> int:
 
     port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs)
     t0 = time.perf_counter()
-    _build.hw_score_library()
-    emit("build", kernels=["hw_score"], seconds=time.perf_counter() - t0)
+    _build.library()
+    emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
+         seconds=time.perf_counter() - t0)
 
     batch = data.tensorize(data.load_sales_csv(DATA))
     cases = kernel_cases(batch, port)
 
-    fs.hw_score.launches = 0  # counters to 0 just before the main path
+    counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter}
+    for fn in counters.values():  # counters to 0 just before the main path
+        fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         run = main_path(port, tmp)
-    launches = fs.hw_score.launches  # ... and read just after
-    emit("launches", hw_score=launches, expected="1 per fit_forecast + 1 per CV pass")
-    if launches < 1:
-        raise AssertionError("the main path never launched hw_score")
+    launches = {k: fn.launches for k, fn in counters.items()}  # ... and after
+    emit("launches", **launches,
+         expected="each: 1 per fit_forecast + 1 per CV pass")
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the main path never launched {k}")
 
     check_outputs(run, port)
     t = timings(run, port, card_line)
 
+    plain = {"hw_score": t["hw_score_twin_ms"],
+             "hw_filter": t["hw_filter_twin_ms"]}
     print(json.dumps({"kernels": [{
-        "name": "hw_score",
+        "name": k,
         "route": "cuda",
-        "source": "distributed_forecasting_tpu_torch/csrc/hw_score.cu",
-        "replaces": "distributed_forecasting_tpu/ops/fused_scan.py:199",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-        "ms": t["kernel_ms"],
-        "plain_ms": t["twin_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
+        "source": src,
+        "replaces": origin,
+        "launches": launches[k],
+        "max_abs_err": max(c["max_abs_err"] for c in cases[k].values()),
+        "ms": t[k]["ms"],
+        "plain_ms": plain[k],
+        "bound_ms": t[k]["bound_ms"],
+        "bound_by": t[k]["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    } for k, (src, origin) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -9,10 +9,13 @@ grid search: every (alpha, beta, gamma[, phi]) candidate is one more lane.
 
 Fit is two passes.  Pass 1 scores every candidate by masked one-step-ahead
 MSE — on the card with the hand-written CUDA kernel
-(:func:`~distributed_forecasting_tpu_torch.ops.fused_scan.hw_score`), or with
-:func:`_filter` over the (S, C) lanes.  Pass 2 refits the winner with
-:func:`_filter`, collecting the fitted path, so whichever pass 1 ran, the
-returned state is the product of the one step body :func:`_hw_step`.
+(:func:`~distributed_forecasting_tpu_torch.ops.fused_scan.hw_score`,
+tolerance-grade), or with :func:`_filter` over the (S, C) lanes.  Pass 2
+refits the winner, collecting the fitted path, with
+:func:`~distributed_forecasting_tpu_torch.ops.fused_scan.hw_filter`: on the
+card a CUDA kernel bitwise equal to :func:`_filter`, on the CPU
+:func:`_filter` itself.  So whichever pass 1 ran, the returned state is the
+product of the one step body :func:`_hw_step`.
 
 Missing observations (mask == 0) take the predict-only branch, which still
 advances the level by ``phi * trend``.  Forecast intervals use the HW(A,A)
@@ -33,7 +36,11 @@ from distributed_forecasting_tpu_torch.models.base import (
     history_splice,
     register_model,
 )
-from distributed_forecasting_tpu_torch.ops.fused_scan import hw_score, select_filter
+from distributed_forecasting_tpu_torch.ops.fused_scan import (
+    hw_filter,
+    hw_score,
+    select_filter,
+)
 
 _EPS = 1e-6
 
@@ -60,7 +67,8 @@ class HoltWintersConfig:
     #   'pscan'  — the parallel-prefix solver, not ported yet (raises);
     #   'auto'   — ops/fused_scan.select_filter: 'pallas' on cuda, else
     #              'scan'; multiplicative always scans.
-    # The winner is refit with :func:`_filter` whatever scored it.
+    # The winner is refit exactly (ops/fused_scan.hw_filter, :func:`_filter`'s
+    # arithmetic) whatever scored it.
     filter: str = "scan"  # 'scan' | 'pscan' | 'pallas' | 'auto'
 
 
@@ -218,7 +226,7 @@ def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
 
     best = torch.argmin(msec, dim=1)  # (S,)
     a, b, g, p = A[best], B[best], G[best], P[best]
-    (l, t, s), mse, fitted = _filter(y, mask, a, b, g, m, mode, p)
+    (l, t, s), mse, fitted = hw_filter(y, mask, a, b, g, p, m, mode)
     return HWParams(
         alpha=a, beta=b, gamma=g, phi=p, level=l, trend=t, season=s,
         sigma=torch.sqrt(mse), fitted=fitted,

@@ -27,7 +27,9 @@ BUILD_DIR = (os.path.join(_ROOT, "build", "torch_kernels")
 # sm_90a: Hopper with its architecture-specific instructions.  No fast
 # math, and no fused multiply-add contraction (--fmad=false): every float
 # operation rounds on its own, exactly as the plain PyTorch twin's
-# elementwise ops do, so the kernel reproduces the twin's scores.
+# elementwise ops do, so the refit kernel (csrc/hw_filter.cu) reproduces its
+# twin bit for bit.  The scoring kernel writes its multiply-adds out as
+# __fmaf_rn where it wants them.
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17"]
 
@@ -48,14 +50,25 @@ def build(name: str, sources) -> str:
     )
 
 
+# every kernel source, built into one library by one build call (ninja runs
+# one nvcc per source, in parallel)
+SOURCES = ["hw_score.cu", "hw_filter.cu"]
+
+
 @functools.lru_cache(maxsize=None)
-def hw_score_library() -> ctypes.CDLL:
-    """The Holt-Winters scoring kernel's library, built on first call."""
-    lib = ctypes.CDLL(build("dftt_hw_score", ["hw_score.cu"]))
+def library() -> ctypes.CDLL:
+    """The port's kernel library (every source in ``SOURCES``), built on
+    first call."""
+    lib = ctypes.CDLL(build("dftt_kernels", SOURCES))
     lib.hw_score_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
-    lib.hw_score_launch.restype = ctypes.c_int
-    lib.hw_score_error_string.argtypes = [ctypes.c_int]
-    lib.hw_score_error_string.restype = ctypes.c_char_p
+    lib.hw_filter_launch.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    for name in ("hw_score", "hw_filter"):
+        getattr(lib, f"{name}_launch").restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib

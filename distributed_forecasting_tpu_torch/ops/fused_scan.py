@@ -1,28 +1,55 @@
-"""Candidate scoring for the Holt-Winters grid search: the hand-written CUDA
-kernel, its plain twin, and the ``filter='auto'`` heuristic.
+"""The Holt-Winters filter's hand-written CUDA kernels, their plain twins, and
+the ``filter='auto'`` heuristic.
 
 :func:`hw_score` replaces the reference's Pallas TPU kernel
 (``distributed_forecasting_tpu/ops/fused_scan.py::hw_score``).  For every
 (series, candidate) pair it computes the masked one-step-ahead MSE of the
 additive Holt-Winters filter with trend damping.  Only the argmin over
-candidates consumes it; the winner is refit with the sequential filter
-(``models/holt_winters._filter``), so scoring only has to agree with the
-filter to float32 tolerance.  On a CUDA tensor :func:`hw_score` launches the
-kernel in ``csrc/hw_score.cu`` (see the note there for its design and
-bound) or raises; on a CPU tensor it runs :func:`hw_score_reference`, the
-same arithmetic in plain PyTorch.
+candidates consumes it, and the winner is refit exactly, so scoring is
+tolerance-grade: the kernel (``csrc/hw_score.cu``) contracts its error sum
+into fused multiply-adds and stops each row after its last observed step, and
+agrees with its twin :func:`hw_score_reference` within rtol 1e-5 / atol 1e-6,
+not bit for bit.
+
+:func:`hw_filter` is the winner refit: one candidate per row, the final
+state, the MSE and the fitted path.  It replaces the reference's ``lax.scan``
+filter (no Pallas origin).  Its kernel (``csrc/hw_filter.cu``) is bitwise
+equal to its twin ``models/holt_winters._filter``: the refit's state is what
+forecasting and serving read.
+
+On a CUDA tensor each wrapper launches its kernel (see the note at the top of
+each source for its design and bound) or raises; on a CPU tensor it runs the
+plain twin.
 """
 
 from __future__ import annotations
 
 import torch
 
-# candidates per thread block at most: four warps.  The kernel keeps the
-# seasonal state of every thread in shared memory, m * threads * 4 bytes.
-_MAX_BLOCK = 128
+# hw_score geometry, mirrored from csrc/hw_score.cu: K candidates per thread,
+# one warp per 32 * K candidates, at most four warps (one series) per block,
+# the staging buffers' bytes, and the season lengths whose states live in
+# registers (any other keeps them in shared memory, m * K * threads * 4 bytes)
+_K = 3
 _WARP = 32
+_MAX_WARPS = 4
+_STAGE_BYTES = 2 * 2 * 520 * 4
+_REGISTER_SEASONS = (7,)
+# hw_filter, mirrored from csrc/hw_filter.cu: 32 rows per block, ten
+# [32][65] staging tiles, and a shared-memory season of m * 32 * 4 bytes
+_FILTER_ROWS = 32
+_FILTER_TILE_BYTES = 10 * 32 * 65 * 4
 # dynamic shared memory one block may use on Hopper (227 KB)
 _SMEM_LIMIT = 232_448
+
+# float32 operations (an FMA counts two) of one hw_score step per candidate:
+# observed (the note in csrc/hw_score.cu), and masked (phi * b, l + phi * b);
+# plus one per observed row step for the observed count n
+HW_SCORE_OPS_OBSERVED = 19
+HW_SCORE_OPS_MASKED = 2
+# float32 operations of one hw_filter step (the twin's, both branches and the
+# error terms; selects not counted)
+HW_FILTER_OPS_STEP = 20
 
 
 def select_filter(device_type: str) -> str:
@@ -40,8 +67,7 @@ def select_filter(device_type: str) -> str:
 
 def hw_score_reference(y, mask, alpha, beta, gamma, phi, m: int):
     """Plain-PyTorch twin of :func:`hw_score`: the sequential filter over the
-    (S, C) lanes (one Python loop over T), returning the (S, C) masked MSE.
-    Same inputs, same arithmetic, step for step, as the CUDA kernel."""
+    (S, C) lanes (one Python loop over T), returning the (S, C) masked MSE."""
     from distributed_forecasting_tpu_torch.models.holt_winters import _filter
 
     _, mse, _ = _filter(y, mask, alpha[None], beta[None], gamma[None], m,
@@ -49,72 +75,144 @@ def hw_score_reference(y, mask, alpha, beta, gamma, phi, m: int):
     return mse
 
 
-def _block_threads(n_cand: int, m: int) -> tuple:
-    """(threads per block, candidate blocks per series) for C candidates and
-    season length m: the fewest blocks of at most 128 threads, split evenly
-    and rounded up to whole warps (96 -> one block of 96; 288 -> three of
-    96), then cut to what fits the seasonal state in shared memory."""
-    n_blk = -(-n_cand // _MAX_BLOCK)
-    per_block = -(-n_cand // n_blk)
-    bc = -(-per_block // _WARP) * _WARP
-    fit = (_SMEM_LIMIT // (4 * m)) // _WARP * _WARP
+def row_ends(mask):
+    """(S,) int32: one past each row's last observed step (0 for a row with
+    none).  The scoring kernel stops there: trailing masked steps change
+    neither a score's error sum nor its observed count."""
+    S, T = mask.shape
+    if T == 0:
+        return torch.zeros(S, dtype=torch.int32, device=mask.device)
+    steps = torch.arange(1, T + 1, dtype=torch.int32, device=mask.device)
+    return torch.where(mask > 0, steps, 0).amax(1).to(torch.int32)
+
+
+def hw_score_work(mask, n_cand: int, m: int) -> tuple:
+    """(float32 operations, bytes) that scoring ``n_cand`` candidates needs on
+    this ``mask``: per candidate, 19 operations an observed step and 2 a
+    masked step before the row's last observed step (0 after it), plus one
+    per observed row step for the count; bytes, each input read once and the
+    (S, C) scores written once."""
+    S, T = mask.shape
+    n_obs = int((mask > 0).sum())
+    n_masked = int(row_ends(mask).sum()) - n_obs
+    ops = (n_cand * (HW_SCORE_OPS_OBSERVED * n_obs
+                     + HW_SCORE_OPS_MASKED * n_masked) + n_obs)
+    nbytes = 4 * (2 * S * T + 4 * n_cand + 2 * S + S * m + S * n_cand)
+    return ops, nbytes
+
+
+def hw_filter_work(S: int, T: int, m: int) -> tuple:
+    """(float32 operations, bytes) of the winner refit of S rows: every step
+    runs (trailing masked steps too); y and mask read, the path written, the
+    per-row parameters and states read and written once."""
+    ops = HW_FILTER_OPS_STEP * S * T
+    nbytes = 4 * (3 * S * T + 8 * S + 2 * S * m + S)
+    return ops, nbytes
+
+
+def _score_geometry(n_cand: int, m: int) -> tuple:
+    """(threads per block, blocks per series, season in registers) of the
+    scoring kernel for C candidates and season length m.
+
+    One warp takes 32 * K candidates of one series; a series' warps are
+    split evenly over the fewest blocks of at most four (96 -> one warp,
+    288 -> one block of three).  A season length with a register instance
+    needs only the staging buffers; any other keeps K seasonal states per
+    thread in shared memory, and the block is cut to the warps that fit."""
+    warps = -(-n_cand // (_K * _WARP))
+    n_blk = -(-warps // _MAX_WARPS)
+    threads = -(-warps // n_blk) * _WARP
+    if m in _REGISTER_SEASONS:
+        return threads, n_blk, True
+    per_thread = 4 * m * _K
+    fit = (_SMEM_LIMIT - _STAGE_BYTES) // per_thread // _WARP * _WARP
     if fit < _WARP:
         raise ValueError(
-            f"season_length={m} needs {4 * m * _WARP} bytes of shared memory "
-            f"for one warp of candidates; the card allows {_SMEM_LIMIT} per "
-            f"block (m <= {_SMEM_LIMIT // (4 * _WARP)})"
+            f"season_length={m} needs {per_thread * _WARP + _STAGE_BYTES} "
+            f"bytes of shared memory for one warp of candidates; the card "
+            f"allows {_SMEM_LIMIT} per block "
+            f"(m <= {(_SMEM_LIMIT - _STAGE_BYTES) // (4 * _K * _WARP)})"
         )
-    bc = min(bc, fit)
-    return bc, -(-n_cand // bc)
+    threads = min(threads, fit)
+    return threads, -(-(warps * _WARP) // threads), False
 
 
-def _hw_score_cuda(y, mask, alpha, beta, gamma, phi, l0, b0, s0):
-    """Launch the CUDA kernel on PyTorch's current stream: (S, C) float32
-    scores from the series (y, mask), the candidates (alpha..phi) and the
-    initial states (l0, b0, s0).  Checks what the kernel assumes, raises on
-    a refused launch, counts the launch on ``hw_score.launches``."""
+def _check(kernel: str, dev, expected: dict) -> None:
+    """Raise unless every tensor is float32 on ``dev``, contiguous, of its
+    shape."""
+    for name, (x, shape) in expected.items():
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError(
+                f"{kernel}: {name} must be float32 on {dev}, got "
+                f"{x.dtype} on {x.device}"
+            )
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {shape} tensor, got "
+                f"{tuple(x.shape)} (contiguous={x.is_contiguous()})"
+            )
+
+
+def _ptr(x):
     import ctypes
 
-    from distributed_forecasting_tpu_torch.ops._build import hw_score_library
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _stream(dev):
+    import ctypes
+
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _hw_score_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0):
+    """Check what the scoring kernel assumes (y and mask 16-byte aligned, as
+    its staging copies read them), allocate its output and bind its
+    arguments: returns ``(launch, out)``, where ``launch()`` launches it on
+    the stream that was PyTorch's current one when it was bound, raises on a
+    refused launch and counts the launch on ``hw_score.launches``."""
+    from distributed_forecasting_tpu_torch.ops._build import library
 
     S, T = y.shape
     C = alpha.shape[0]
     m = s0.shape[1]
     dev = y.device
-    expected = {"y": (y, (S, T)), "mask": (mask, (S, T)),
-                "alpha": (alpha, (C,)), "beta": (beta, (C,)),
-                "gamma": (gamma, (C,)), "phi": (phi, (C,)),
-                "l0": (l0, (S,)), "b0": (b0, (S,)), "s0": (s0, (S, m))}
-    for name, (x, shape) in expected.items():
-        if x.device != dev or x.dtype != torch.float32:
-            raise ValueError(
-                f"hw_score: {name} must be float32 on {dev}, got "
-                f"{x.dtype} on {x.device}"
-            )
-        if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(
-                f"hw_score: {name} must be a contiguous {shape} tensor, got "
-                f"{tuple(x.shape)} (contiguous={x.is_contiguous()})"
-            )
-    if S == 0 or C == 0:
-        return y.new_empty((S, C))
-    bc, n_blk = _block_threads(C, m)
+    _check("hw_score", dev, {
+        "y": (y, (S, T)), "mask": (mask, (S, T)), "alpha": (alpha, (C,)),
+        "beta": (beta, (C,)), "gamma": (gamma, (C,)), "phi": (phi, (C,)),
+        "l0": (l0, (S,)), "b0": (b0, (S,)), "s0": (s0, (S, m))})
+    if y.data_ptr() % 16 or mask.data_ptr() % 16:
+        raise ValueError("hw_score: y and mask must start on a 16-byte boundary")
     out = torch.empty((S, C), dtype=torch.float32, device=dev)
-    lib = hw_score_library()
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hw_score_launch(
-            ptr(y), ptr(mask), ptr(alpha), ptr(beta), ptr(gamma), ptr(phi),
-            ptr(l0), ptr(b0), ptr(s0), ptr(out),
-            S, T, C, m, bc, n_blk, ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"hw_score kernel launch failed: {lib.hw_score_error_string(err).decode()}"
-            f" (S={S}, T={T}, C={C}, m={m}, threads={bc}, blocks={n_blk})"
-        )
-    hw_score.launches += 1
+    if S == 0 or C == 0:
+        return (lambda: None), out
+    threads, n_blk, _ = _score_geometry(C, m)
+    t_end = row_ends(mask)
+    lib = library()
+    tensors = (y, mask, alpha, beta, gamma, phi, l0, b0, s0, t_end, out)
+    args = [*map(_ptr, tensors), S, T, C, m, threads, n_blk, _stream(dev)]
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.hw_score_launch(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"hw_score kernel launch failed: "
+                f"{lib.hw_score_error_string(err).decode()} (S={S}, T={T}, "
+                f"C={C}, m={m}, threads={threads}, blocks={n_blk})"
+            )
+        hw_score.launches += 1
+
+    launch.tensors = tensors  # the bound pointers stay valid while launch lives
+    return launch, out
+
+
+def _hw_score_cuda(y, mask, alpha, beta, gamma, phi, l0, b0, s0):
+    """Launch the scoring kernel: (S, C) float32 scores from the series (y,
+    mask), the candidates (alpha..phi) and the initial states (l0, b0,
+    s0)."""
+    launch, out = _hw_score_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0)
+    launch()
     return out
 
 
@@ -129,7 +227,8 @@ def hw_score(y, mask, alpha, beta, gamma, phi, m: int):
     computed once per series before the launch.
 
     CUDA tensors launch the kernel (``csrc/hw_score.cu``) or raise; CPU
-    tensors run the plain twin :func:`hw_score_reference`.
+    tensors run the plain twin :func:`hw_score_reference`.  The kernel's
+    scores agree with the twin's within rtol 1e-5 / atol 1e-6.
     """
     if y.device.type == "cpu":
         return hw_score_reference(y, mask, alpha, beta, gamma, phi, m)
@@ -137,10 +236,94 @@ def hw_score(y, mask, alpha, beta, gamma, phi, m: int):
         raise ValueError(f"hw_score runs on cuda or cpu, got {y.device}")
     from distributed_forecasting_tpu_torch.models.holt_winters import _init_state
 
+    # the staging copies read whole aligned 16-byte segments
+    y, mask = (x.clone() if x.data_ptr() % 16 else x for x in (y, mask))
     l0, b0, s0 = _init_state(y, mask, m, "additive")
     return _hw_score_cuda(y, mask, alpha, beta, gamma, phi,
                           l0.contiguous(), b0.contiguous(), s0.contiguous())
 
 
-# launches of the CUDA kernel in this process (the CPU twin never counts)
+def _hw_filter_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0, mode):
+    """Check what the refit kernel assumes, allocate its outputs and bind its
+    arguments: returns ``(launch, ((level, trend, season), mse, fitted))``,
+    where ``launch()`` launches it on the stream that was PyTorch's current
+    one when it was bound, raises on a refused launch and counts the launch
+    on ``hw_filter.launches``."""
+    from distributed_forecasting_tpu_torch.ops._build import library
+
+    S, T = y.shape
+    m = s0.shape[1]
+    dev = y.device
+    _check("hw_filter", dev, {
+        "y": (y, (S, T)), "mask": (mask, (S, T)), "alpha": (alpha, (S,)),
+        "beta": (beta, (S,)), "gamma": (gamma, (S,)), "phi": (phi, (S,)),
+        "l0": (l0, (S,)), "b0": (b0, (S,)), "s0": (s0, (S, m))})
+    if mode not in ("additive", "multiplicative"):
+        raise ValueError(f"hw_filter: unknown seasonality mode {mode!r}")
+    smem = _FILTER_TILE_BYTES + 4 * m * _FILTER_ROWS
+    if m != 7 and smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"hw_filter: season_length={m} needs {smem} bytes of shared "
+            f"memory; the card allows {_SMEM_LIMIT} per block"
+        )
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    level, trend, mse, season, fitted = new(S), new(S), new(S), new(S, m), new(S, T)
+    result = ((level, trend, season), mse, fitted)
+    if S == 0:
+        return (lambda: None), result
+    lib = library()
+    tensors = (y, mask, alpha, beta, gamma, phi, l0, b0, s0, level, trend,
+               season, mse, fitted)
+    args = [*map(_ptr, tensors), S, T, m, int(mode == "multiplicative"),
+            _stream(dev)]
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.hw_filter_launch(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"hw_filter kernel launch failed: "
+                f"{lib.hw_filter_error_string(err).decode()} (S={S}, T={T}, "
+                f"m={m}, mode={mode})"
+            )
+        hw_filter.launches += 1
+
+    launch.tensors = tensors  # the bound pointers stay valid while launch lives
+    return launch, result
+
+
+def _hw_filter_cuda(y, mask, alpha, beta, gamma, phi, l0, b0, s0, mode):
+    """Launch the refit kernel: ``((level, trend, season), mse, fitted)``."""
+    launch, result = _hw_filter_launcher(y, mask, alpha, beta, gamma, phi,
+                                         l0, b0, s0, mode)
+    launch()
+    return result
+
+
+def hw_filter(y, mask, alpha, beta, gamma, phi, m: int, mode: str):
+    """Refit one candidate per row: the Holt-Winters filter over the whole
+    history with the fitted path.
+
+    y, mask: (S, T); alpha/beta/gamma/phi: (S,), the row's own parameters.
+    Returns ``((level, trend, season (S, m)), mse (S,), fitted (S, T))``, what
+    ``models/holt_winters._filter(..., keep_path=True)`` returns for (S,)
+    lanes.  CUDA tensors launch the kernel (``csrc/hw_filter.cu``, bitwise
+    equal to the twin) or raise; CPU tensors run the twin ``_filter``.
+    """
+    from distributed_forecasting_tpu_torch.models.holt_winters import (
+        _filter,
+        _init_state,
+    )
+
+    if y.device.type == "cpu":
+        return _filter(y, mask, alpha, beta, gamma, m, mode, phi)
+    if y.device.type != "cuda":
+        raise ValueError(f"hw_filter runs on cuda or cpu, got {y.device}")
+    l0, b0, s0 = _init_state(y, mask, m, mode)
+    return _hw_filter_cuda(y, mask, alpha, beta, gamma, phi, l0.contiguous(),
+                           b0.contiguous(), s0.contiguous(), mode)
+
+
+# launches of each CUDA kernel in this process (the CPU twins never count)
 hw_score.launches = 0
+hw_filter.launches = 0

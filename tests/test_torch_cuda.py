@@ -1,12 +1,17 @@
-"""The port's CUDA kernel on the card (skips where there is no CUDA device).
+"""The port's CUDA kernels on the card (skips where there is no CUDA device).
 
 Run on a machine with an H100 (and nvcc) with
-``python -m pytest tests/test_torch_cuda.py -m cuda``.  Imports only torch
-and the port.
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.  Imports
+only torch and the port.
 
-The kernel is built without multiply-add contraction and repeats its plain
-twin's float32 operations in the same order, so the scores are held to the
-twin bitwise; the fit the kernel scores is then bitwise the scan-scored fit.
+Scoring (``hw_score``) is tolerance-grade: the kernel contracts its
+multiply-adds and stops each row after its last observed step, so its scores
+are held to the plain twin within rtol 1e-5 / atol 1e-6 (the reference's own
+kernel-vs-scan bound) and its argmins must equal the twin's or be near ties
+within that tolerance; they are not bitwise equal.  The winner refit
+(``hw_filter``) is built without contraction and repeats its twin's float32
+operations in order, so it is held to ``_filter`` bit for bit; the fit the
+kernel scores is then bitwise the scan-scored fit wherever the winners agree.
 """
 
 import dataclasses
@@ -19,11 +24,13 @@ from distributed_forecasting_tpu_torch.ops import fused_scan as fs
 
 pytestmark = pytest.mark.cuda
 
+RTOL, ATOL = 1e-5, 1e-6
+
 
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -34,6 +41,27 @@ def _workload(S, T, dev, seed=0):
     return (y * mask).to(dev), mask.to(dev)
 
 
+def _cv_rows(dev, S=4, T=300, seed=5):
+    # the CV pass's rows: each cutoff's history ends in a long masked run of
+    # predict-only steps
+    from distributed_forecasting_tpu_torch.engine import cv
+
+    y, mask = _workload(S, T, dev, seed=seed)
+    day = torch.arange(16_000, 16_000 + T, dtype=torch.int32, device=dev)
+    conf = cv.CVConfig(initial=120, period=60, horizon=30)
+    cuts = cv.cutoff_indices(T, conf)
+    train = cv.cv_windows(mask, day, cuts, conf.horizon)[0].reshape(-1, T)
+    return y.repeat(len(cuts), 1), train
+
+
+def _assert_scores_close(got, want):
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    a_got, a_want = got.argmin(1), want.argmin(1)
+    rows = torch.nonzero(a_got != a_want).flatten()
+    w_got, w_want = want[rows, a_got[rows]], want[rows, a_want[rows]]
+    assert bool(((w_got - w_want).abs() <= ATOL + RTOL * w_want.abs()).all())
+
+
 @pytest.mark.parametrize("cfg", [
     hw.HoltWintersConfig(),
     hw.HoltWintersConfig(damped=True),
@@ -42,31 +70,30 @@ def _workload(S, T, dev, seed=0):
 ], ids=["default", "damped", "m30", "m365"])
 def test_kernel_equals_twin(dev, cfg):
     m = cfg.season_length
-    y, mask = _workload(5, max(3 * m, 200), dev)
+    y, mask = _workload(5, max(3 * m, 1200), dev)
     grid = hw._candidate_grid(cfg, device=dev)
     before = fs.hw_score.launches
     got = fs.hw_score(y, mask, *grid, m)
     torch.cuda.synchronize()
     assert fs.hw_score.launches == before + 1
-    want = fs.hw_score_reference(y, mask, *grid, m)
-    assert torch.equal(got, want)
+    _assert_scores_close(got, fs.hw_score_reference(y, mask, *grid, m))
 
 
 def test_kernel_equals_twin_on_cv_train_masks(dev):
-    # the CV pass's rows: each cutoff's history ends in a long masked run of
-    # predict-only steps
-    from distributed_forecasting_tpu_torch.engine import cv
-
-    y, mask = _workload(4, 300, dev, seed=5)
-    day = torch.arange(16_000, 16_300, dtype=torch.int32, device=dev)
-    conf = cv.CVConfig(initial=120, period=60, horizon=30)
-    cuts = cv.cutoff_indices(300, conf)
-    train = cv.cv_windows(mask, day, cuts, conf.horizon)[0].reshape(-1, 300)
-    y_cv = y.repeat(len(cuts), 1)
+    y_cv, train = _cv_rows(dev)
     grid = hw._candidate_grid(hw.HoltWintersConfig(), device=dev)
     got = fs.hw_score(y_cv, train, *grid, 7)
     torch.cuda.synchronize()
-    assert torch.equal(got, fs.hw_score_reference(y_cv, train, *grid, 7))
+    _assert_scores_close(got, fs.hw_score_reference(y_cv, train, *grid, 7))
+
+
+def test_kernel_scores_a_row_view_off_the_16_byte_boundary(dev):
+    # rows start anywhere: a view one row in starts 4 * T bytes on
+    y, mask = _workload(6, 301, dev, seed=2)
+    grid = hw._candidate_grid(hw.HoltWintersConfig(), device=dev)
+    got = fs.hw_score(y[1:], mask[1:], *grid, 7)
+    torch.cuda.synchronize()
+    _assert_scores_close(got, fs.hw_score_reference(y[1:], mask[1:], *grid, 7))
 
 
 def test_kernel_fit_equals_scan_fit(dev):
@@ -76,8 +103,15 @@ def test_kernel_fit_equals_scan_fit(dev):
         cfg = hw.HoltWintersConfig(filter="auto", damped=damped)
         p_k = hw.fit(y, mask, day, cfg)
         p_s = hw.fit(y, mask, day, dataclasses.replace(cfg, filter="scan"))
+        same = torch.ones(7, dtype=torch.bool, device=dev)
+        for f in ("alpha", "beta", "gamma", "phi"):
+            same &= getattr(p_k, f) == getattr(p_s, f)
+        assert bool(same.any())
         for f in dataclasses.fields(p_k):
-            assert torch.equal(getattr(p_k, f.name), getattr(p_s, f.name)), f.name
+            a, b = getattr(p_k, f.name), getattr(p_s, f.name)
+            if a.dim() and a.shape[0] == 7:
+                a, b = a[same], b[same]
+            assert torch.equal(a, b), f.name
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -88,3 +122,65 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     grid[0] = grid[0].double()
     with pytest.raises(ValueError, match="float32"):
         fs.hw_score(y, mask, *grid, 7)
+
+
+def _winners(S, dev, damped=False, seed=0):
+    # one grid candidate per row, as fit's argmin picks them
+    grid = hw._candidate_grid(hw.HoltWintersConfig(damped=damped), device=dev)
+    g = torch.Generator().manual_seed(seed)
+    best = torch.randint(0, grid[0].numel(), (S,), generator=g).to(dev)
+    return tuple(x[best] for x in grid)
+
+
+def _assert_filter_equals_twin(y, mask, params, m, mode):
+    before = fs.hw_filter.launches
+    (l, b, s), mse, path = fs.hw_filter(y, mask, *params, m, mode)
+    torch.cuda.synchronize()
+    assert fs.hw_filter.launches == before + 1
+    a, be, g, p = params
+    (l2, b2, s2), mse2, path2 = hw._filter(y, mask, a, be, g, m, mode, p)
+    for got, want in ((l, l2), (b, b2), (s, s2), (mse, mse2), (path, path2)):
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,mode,damped", [
+    (7, "additive", False),
+    (7, "additive", True),
+    (7, "multiplicative", False),
+    (30, "additive", True),
+    (30, "multiplicative", False),
+    (365, "additive", False),
+], ids=["m7", "m7_damped", "m7_mult", "m30_damped", "m30_mult", "m365"])
+def test_filter_kernel_equals_twin_bitwise(dev, m, mode, damped):
+    S = 70  # three blocks, the last one part-full
+    y, mask = _workload(S, max(3 * m, 500), dev, seed=m)
+    _assert_filter_equals_twin(y, mask, _winners(S, dev, damped), m, mode)
+
+
+@pytest.mark.parametrize("mode", ["additive", "multiplicative"])
+def test_filter_kernel_equals_twin_on_cv_train_masks(dev, mode):
+    y_cv, train = _cv_rows(dev)
+    S = y_cv.shape[0]
+    _assert_filter_equals_twin(y_cv, train, _winners(S, dev, seed=1), 7, mode)
+
+
+def test_fit_refits_through_the_filter_kernel(dev):
+    y, mask = _workload(5, 120, dev, seed=4)
+    day = torch.arange(16_000, 16_120, dtype=torch.int32, device=dev)
+    before = (fs.hw_score.launches, fs.hw_filter.launches)
+    hw.fit(y, mask, day, hw.HoltWintersConfig(filter="auto"))
+    assert (fs.hw_score.launches, fs.hw_filter.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_filter_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    y, mask = _workload(3, 40, dev)
+    params = list(_winners(3, dev))
+    l0, b0, s0 = hw._init_state(y, mask, 7, "additive")
+    with pytest.raises(ValueError, match="contiguous"):
+        fs._hw_filter_cuda(y.t().contiguous().t(), mask, *params,
+                           l0, b0, s0.contiguous(), "additive")
+    params[1] = params[1].double()
+    with pytest.raises(ValueError, match="float32"):
+        fs.hw_filter(y, mask, *params, 7, "additive")

@@ -151,17 +151,19 @@ def test_select_filter_routes_cuda_to_the_kernel():
 
 
 @pytest.mark.parametrize("n_cand,m,want", [
-    (96, 7, (96, 1)),     # default grid: one block of three warps
-    (288, 7, (96, 3)),    # damped grid: three even blocks
-    (4, 7, (32, 1)),      # a tiny grid still fills one warp
-    (96, 365, (96, 1)),   # season_length 'auto' at a year: 140 KB
-    (288, 600, (96, 3)),  # 600 * 96 * 4 = 230 KB still fits
+    (96, 7, (32, 1, True)),      # default grid: one warp, season in registers
+    (288, 7, (96, 1, True)),     # damped grid: one block of three warps
+    (4, 7, (32, 1, True)),       # a tiny grid still fills one warp
+    (96, 365, (32, 1, False)),   # season_length 'auto' at a year: 148 KB
+    (288, 365, (32, 3, False)),  # two warps of a year overflow: one a block
+    (96, 30, (32, 1, False)),    # a monthly season in shared memory
+    (288, 30, (96, 1, False)),   # ... three warps of it still fit one block
 ])
 def test_block_shape(n_cand, m, want):
-    assert tfs._block_threads(n_cand, m) == want
+    assert tfs._score_geometry(n_cand, m) == want
 
 
 def test_block_shape_cuts_threads_to_fit_and_raises_past_the_limit():
-    assert tfs._block_threads(128, 500) == (96, 2)
+    assert tfs._score_geometry(128, 500) == (32, 2, False)
     with pytest.raises(ValueError, match="shared memory"):
-        tfs._block_threads(96, 2000)
+        tfs._score_geometry(96, 2000)
