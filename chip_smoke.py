@@ -29,7 +29,8 @@ one JSON line; any failure raises, so the exit code is not 0:
   6. times    CUDA-event medians of 5 runs after a warm-up: both kernels at
               the fit, CV and damped shapes beside their bounds, both twins,
               fit_forecast broken down into scoring, refit, forecast and
-              fail-safe, the CV pass, one 500-series predict, and the
+              fail-safe (a staged copy of it whose outputs must equal
+              fit_forecast's), the CV pass, one 500-series predict, and the
               device's idle share over one fit_forecast (torch.profiler)
 
 The line before the last lists the kernels (launches, error, times, bound);
@@ -294,12 +295,14 @@ def check_outputs(run, port) -> None:
     emit("gpu_vs_cpu_20_series", max_abs_diff=worst, tol=f"1e-5 + 1e-5*{scale}")
 
 
-def fit_forecast_stages(batch, port, cfg, horizon: int = 90) -> dict:
+def fit_forecast_stages(batch, port, cfg, horizon: int = 90) -> tuple:
     """``engine.fit_forecast`` for the Holt-Winters model, step for step as
     ``fit`` and ``fit_forecast`` run it, with a CUDA event between the
     stages: scoring (initial states, row ends, hw_score), refit (argmin,
-    winners, hw_filter), forecast, fail-safe.  Milliseconds per stage."""
-    engine, hw, fs = port["engine"], port["hw"], port["fs"]
+    winners, hw_filter), forecast, fail-safe.  Returns (milliseconds per
+    stage, (params, result)); ``check_stages`` holds the outputs to
+    ``fit_forecast``'s, so that this copy cannot drift from it."""
+    hw, fs = port["hw"], port["fs"]
     from distributed_forecasting_tpu_torch.engine import fit as fit_mod
 
     y, mask, day = batch.y, batch.mask, batch.day
@@ -321,12 +324,24 @@ def fit_forecast_stages(batch, port, cfg, horizon: int = 90) -> dict:
     day_all = fit_mod.day_grid(day, horizon)
     yhat, lo, hi = hw.forecast(params, day_all, day[-1].to(torch.float32), cfg)
     ev[3].record()
-    fit_mod.health_fallback(y, mask, yhat, lo, hi, horizon,
-                            fit_mod.DEFAULT_MIN_POINTS)
+    result = fit_mod.health_fallback(y, mask, yhat, lo, hi, horizon,
+                                     fit_mod.DEFAULT_MIN_POINTS)
     ev[4].record()
     torch.cuda.synchronize()
     names = ("scoring", "refit", "forecast", "fail_safe")
-    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+    ms = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+    return ms, (params, result)
+
+
+def check_stages(staged, params, result) -> None:
+    """The staged copy's outputs equal ``fit_forecast``'s bit for bit (NaN
+    where it has NaN): every fitted parameter, and yhat, lo, hi, ok."""
+    p_s, r_s = staged
+    pairs = [(getattr(p_s, f.name), getattr(params, f.name))
+             for f in dataclasses.fields(params)]
+    pairs += list(zip(r_s, (result.yhat, result.lo, result.hi, result.ok)))
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 def idle_share(fn) -> dict:
@@ -414,7 +429,9 @@ def timings(run, port, card_line: str) -> dict:
     req = _request(batch.keys)
     fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
         batch, "holt_winters", config=cfg, horizon=90)
-    stages = [fit_forecast_stages(batch, port, cfg) for _ in range(REPS + 1)][1:]
+    runs = [fit_forecast_stages(batch, port, cfg) for _ in range(REPS + 1)]
+    check_stages(runs[0][1], *fit_forecast())
+    stages = [ms for ms, _ in runs[1:]]
     t = {
         "hw_score_twin_ms": cuda_ms(lambda: fs.hw_score_reference(
             y, mask, *grid, 7)),

@@ -58,6 +58,9 @@ constexpr int AHEAD = RING - 1;  // chunks staged ahead of the consumer
 // y[RING], mask[RING], path[2]: chunk c's path tile is c % 2
 constexpr int TILE_FLOATS = (2 * RING + 2) * TILE;
 constexpr float EPS = 1e-6f;           // holt_winters._EPS
+// the launcher's status when a season does not fit shared memory (CUDA's
+// own error codes are never negative)
+constexpr int HW_SEASON_TOO_LONG = -1;
 
 template <int M>
 struct Chunk {
@@ -292,9 +295,10 @@ int launch(const float* y, const float* mask, const float* alpha,
 
 // C launcher read through ctypes (ops/_build.py).  `multiplicative` selects
 // the seasonality mode (0 additive, 1 multiplicative).  Launches on `stream`
-// and returns cudaGetLastError() of the launch (0 on success); the wrapper
-// (ops/fused_scan._hw_filter_cuda) checks shapes, types and contiguity first
-// and refuses a season too long for shared memory.
+// and returns cudaGetLastError() of the launch (0 on success), or
+// HW_SEASON_TOO_LONG when the tiles and a shared-memory season do not fit
+// the device's shared memory; the wrapper (ops/fused_scan._hw_filter_cuda)
+// checks shapes, types and contiguity first.
 extern "C" int hw_filter_launch(const float* y, const float* mask,
                                 const float* alpha, const float* beta,
                                 const float* gamma, const float* phi,
@@ -306,6 +310,17 @@ extern "C" int hw_filter_launch(const float* y, const float* mask,
   if (S <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   size_t smem = TILE_FLOATS * sizeof(float);
+  if (m != 7) {
+    int dev = 0, limit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (smem + static_cast<size_t>(m) * ROWS * sizeof(float) >
+        static_cast<size_t>(limit))
+      return HW_SEASON_TOO_LONG;
+  }
   if (m == 7)
     return multiplicative
                ? launch<7, true>(y, mask, alpha, beta, gamma, phi, l0, b0, s0,
@@ -325,5 +340,7 @@ extern "C" int hw_filter_launch(const float* y, const float* mask,
 }
 
 extern "C" const char* hw_filter_error_string(int err) {
+  if (err == HW_SEASON_TOO_LONG)
+    return "the season does not fit in one block's shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -18,14 +18,18 @@
 //   b' = beta * (l' - l) + (1 - beta) * pb
 //   e  = (y - pred) * mask;  sse = fma(e, e, sse)
 // 19 float operations (the FMA counts two) in 18 instructions per
-// candidate (17 where the mask is 1: the multiply by it is dropped), plus
-// n += mask once per series.  The recursion (l, b, s) rounds
-// exactly as the twin's does; only the error sum contracts.  Contracting the
-// recursion too (three more FMAs) was tried: where a candidate's filter
-// diverges (the m = 30 grid on the committed data has such candidates, with
-// scores near 4e8), each rounding difference grows with the state, and the
-// scores drifted 4.9e-5 relative from the twin's, past the tolerance.  The
-// error sum adds non-negative terms, so its rounding stays within it.
+// candidate, 18 in 17 where the mask is exactly 1 (the multiply by it is
+// dropped), plus n += mask once per series.  The recursion (l, b, s) rounds
+// exactly as the twin's does; only the error sum contracts.  Two shorter
+// forms were tried and break the tolerance: contracting the recursion too
+// (three more FMAs), and the error-correction form of the same step
+//   e = y - pred;  l' = lp + alpha e;  s' = s + gamma (1 - alpha) e;
+//   b' = pb + beta alpha e         (12 operations with the error sum)
+// Where a candidate's filter diverges (the m = 30 grid on the committed data
+// has such candidates, with scores near 4e8), each rounding difference grows
+// with the state, and the scores drift about 5e-5 relative from the twin's
+// (PERF.md).  The error sum adds non-negative terms, so its rounding stays
+// within the tolerance.
 // A masked step (mask <= 0) takes the predict-only branch:
 //   pb = phi * b;  l = l + pb;  b = pb       (season untouched, 2 operations)
 // which is what the twin's select gives (its error term is 0 * finite).
@@ -53,18 +57,21 @@
 //     reads each group of 7 steps' y and mask into registers first, and a
 //     group whose mask is 1 at every step runs as straight-line code (and
 //     drops the multiply by the mask, exact at 1), so one step's
-//     independent work overlaps the previous step's chain;
+//     independent work overlaps the previous step's chain (with a branch
+//     per step instead, the fit shape takes 1.2x as long: PERF.md);
 //   - each row stops after its last observed step (t_end from the wrapper):
 //     trailing masked steps change neither sse nor n.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor
 // cores), counted by ops/fused_scan.hw_score_work from the run's mask: at the
-// fit shape (S 500, T 1,826, C 96, every step observed) 19 * 87.6 M + 0.9 M
-// = 1.67 GFLOP -> 24.9 us; bytes (y, mask, grid, states, scores) 7.5 MB ->
-// 2.2 us.  So it is bound by operations.  Instruction issue sets a floor
-// above that: one warp step is ~3 * 17 + ~3 instructions (loads, n), 500
-// warps on 528 schedulers at one instruction a cycle, 1,826 steps: ~50 us at
-// 1.98 GHz.
+// fit shape (S 500, T 1,826, C 96, every step observed with weight 1)
+// 18 * 87.6 M + 0.9 M = 1.58 GFLOP -> 23.6 us; bytes (y, mask, grid,
+// states, scores) 7.5 MB -> 2.2 us.  So it is bound by operations.  The
+// 12-operation form above would put the bound at 15.7 us, but its scores
+// miss the tolerance, so the bound counts the form that meets it.
+// Instruction issue sets a floor above that: one warp step is ~3 * 17 + ~3
+// instructions (loads, n), 500 warps on 528 schedulers at one instruction a
+// cycle, 1,826 steps: ~50 us at 1.98 GHz.
 // Measured times stand beside the bound in PERF.md.
 
 #include <cuda_runtime.h>
@@ -77,6 +84,9 @@ constexpr int K = 3;          // candidates per thread
 constexpr int CHUNK = 512;    // steps per staged chunk (a multiple of M below)
 constexpr int BUF = 520;      // floats per staged array: a chunk + alignment
 constexpr int STAGE_FLOATS = 2 * 2 * BUF;  // [buffer][y | mask][BUF]
+// the launcher's status when a season does not fit shared memory (CUDA's
+// own error codes are never negative)
+constexpr int HW_SEASON_TOO_LONG = -1;
 
 template <int M>
 struct Chunk {
@@ -330,32 +340,51 @@ int launch(const float* y, const float* mask, const float* alpha,
 
 }  // namespace
 
-// C launcher read through ctypes (ops/_build.py).  Launches on `stream` and
-// returns cudaGetLastError() of the launch (0 on success).  The wrapper
-// (ops/fused_scan._hw_score_cuda) checks shapes, types, contiguity and the
-// 16-byte alignment of y and mask first, and picks the geometry
-// (ops/fused_scan._score_geometry, which mirrors K, BUF and the register
-// instance here).
+// C launcher read through ctypes (ops/_build.py).  Picks the geometry from
+// (C, m): one warp per 32 * K candidates, a series' warps split evenly over
+// the fewest blocks of at most four (96 -> one warp, 288 -> one block of
+// three); a shared-memory season cuts the block to the warps whose states
+// fit.  Launches on `stream` and returns cudaGetLastError() of the launch (0
+// on success), or HW_SEASON_TOO_LONG when not even one warp's season fits
+// the device's shared memory.  The wrapper (ops/fused_scan._hw_score_cuda)
+// checks shapes, types, contiguity and the 16-byte alignment of y and mask.
 extern "C" int hw_score_launch(const float* y, const float* mask,
                                const float* alpha, const float* beta,
                                const float* gamma, const float* phi,
                                const float* l0, const float* b0,
                                const float* s0, const int* t_end, float* out,
-                               int S, int T, int C, int m, int threads,
-                               int cand_blocks, void* stream) {
-  if (threads % 32 != 0 || threads < 32 || threads > 128 ||
-      static_cast<long long>(threads) * cand_blocks * K < C)
+                               int S, int T, int C, int m, void* stream) {
+  if (S <= 0 || C <= 0 || m <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = (C + 32 * K - 1) / (32 * K);
+  int blocks = (warps + 3) / 4;
+  int threads = (warps + blocks - 1) / blocks * 32;
   size_t smem = STAGE_FLOATS * sizeof(float);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m == 7)
     return launch<7>(y, mask, alpha, beta, gamma, phi, l0, b0, s0, t_end, out,
-                     S, T, C, m, threads, cand_blocks, smem, st);
-  smem += static_cast<size_t>(m) * K * threads * sizeof(float);
+                     S, T, C, m, threads, blocks, smem, st);
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t per_thread = static_cast<size_t>(m) * K * sizeof(float);
+  const size_t room = static_cast<size_t>(limit) > smem ? limit - smem : 0;
+  const int fit = static_cast<int>(room / per_thread / 32 * 32);
+  if (fit < 32) return HW_SEASON_TOO_LONG;
+  if (threads > fit) {
+    threads = fit;
+    blocks = (warps * 32 + threads - 1) / threads;
+  }
+  smem += per_thread * threads;
   return launch<0>(y, mask, alpha, beta, gamma, phi, l0, b0, s0, t_end, out,
-                   S, T, C, m, threads, cand_blocks, smem, st);
+                   S, T, C, m, threads, blocks, smem, st);
 }
 
 extern "C" const char* hw_score_error_string(int err) {
+  if (err == HW_SEASON_TOO_LONG)
+    return "the season does not fit in one block's shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -61,7 +61,7 @@ def library() -> ctypes.CDLL:
     first call."""
     lib = ctypes.CDLL(build("dftt_kernels", SOURCES))
     lib.hw_score_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.hw_filter_launch.argtypes = (
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

@@ -26,26 +26,12 @@ from __future__ import annotations
 
 import torch
 
-# hw_score geometry, mirrored from csrc/hw_score.cu: K candidates per thread,
-# one warp per 32 * K candidates, at most four warps (one series) per block,
-# the staging buffers' bytes, and the season lengths whose states live in
-# registers (any other keeps them in shared memory, m * K * threads * 4 bytes)
-_K = 3
-_WARP = 32
-_MAX_WARPS = 4
-_STAGE_BYTES = 2 * 2 * 520 * 4
-_REGISTER_SEASONS = (7,)
-# hw_filter, mirrored from csrc/hw_filter.cu: 32 rows per block, ten
-# [32][65] staging tiles, and a shared-memory season of m * 32 * 4 bytes
-_FILTER_ROWS = 32
-_FILTER_TILE_BYTES = 10 * 32 * 65 * 4
-# dynamic shared memory one block may use on Hopper (227 KB)
-_SMEM_LIMIT = 232_448
-
-# float32 operations (an FMA counts two) of one hw_score step per candidate:
-# observed (the note in csrc/hw_score.cu), and masked (phi * b, l + phi * b);
-# plus one per observed row step for the observed count n
-HW_SCORE_OPS_OBSERVED = 19
+# float32 operations (an FMA counts two) of one hw_score step per candidate
+# (the note in csrc/hw_score.cu): observed with a mask of exactly 1, observed
+# with any other weight (one more: the error times the mask), and masked
+# (phi * b, l + phi * b); plus one per observed row step for the count n
+HW_SCORE_OPS_UNIT = 18
+HW_SCORE_OPS_WEIGHTED = 19
 HW_SCORE_OPS_MASKED = 2
 # float32 operations of one hw_filter step (the twin's, both branches and the
 # error terms; selects not counted)
@@ -88,14 +74,17 @@ def row_ends(mask):
 
 def hw_score_work(mask, n_cand: int, m: int) -> tuple:
     """(float32 operations, bytes) that scoring ``n_cand`` candidates needs on
-    this ``mask``: per candidate, 19 operations an observed step and 2 a
-    masked step before the row's last observed step (0 after it), plus one
-    per observed row step for the count; bytes, each input read once and the
-    (S, C) scores written once."""
+    this ``mask``: per candidate, 18 operations an observed step with a mask
+    of exactly 1, 19 one with any other weight, and 2 a masked step before
+    the row's last observed step (0 after it), plus one per observed row
+    step for the count; bytes, each input read once and the (S, C) scores
+    written once."""
     S, T = mask.shape
     n_obs = int((mask > 0).sum())
+    n_unit = int((mask == 1).sum())
     n_masked = int(row_ends(mask).sum()) - n_obs
-    ops = (n_cand * (HW_SCORE_OPS_OBSERVED * n_obs
+    ops = (n_cand * (HW_SCORE_OPS_UNIT * n_unit
+                     + HW_SCORE_OPS_WEIGHTED * (n_obs - n_unit)
                      + HW_SCORE_OPS_MASKED * n_masked) + n_obs)
     nbytes = 4 * (2 * S * T + 4 * n_cand + 2 * S + S * m + S * n_cand)
     return ops, nbytes
@@ -108,33 +97,6 @@ def hw_filter_work(S: int, T: int, m: int) -> tuple:
     ops = HW_FILTER_OPS_STEP * S * T
     nbytes = 4 * (3 * S * T + 8 * S + 2 * S * m + S)
     return ops, nbytes
-
-
-def _score_geometry(n_cand: int, m: int) -> tuple:
-    """(threads per block, blocks per series, season in registers) of the
-    scoring kernel for C candidates and season length m.
-
-    One warp takes 32 * K candidates of one series; a series' warps are
-    split evenly over the fewest blocks of at most four (96 -> one warp,
-    288 -> one block of three).  A season length with a register instance
-    needs only the staging buffers; any other keeps K seasonal states per
-    thread in shared memory, and the block is cut to the warps that fit."""
-    warps = -(-n_cand // (_K * _WARP))
-    n_blk = -(-warps // _MAX_WARPS)
-    threads = -(-warps // n_blk) * _WARP
-    if m in _REGISTER_SEASONS:
-        return threads, n_blk, True
-    per_thread = 4 * m * _K
-    fit = (_SMEM_LIMIT - _STAGE_BYTES) // per_thread // _WARP * _WARP
-    if fit < _WARP:
-        raise ValueError(
-            f"season_length={m} needs {per_thread * _WARP + _STAGE_BYTES} "
-            f"bytes of shared memory for one warp of candidates; the card "
-            f"allows {_SMEM_LIMIT} per block "
-            f"(m <= {(_SMEM_LIMIT - _STAGE_BYTES) // (4 * _K * _WARP)})"
-        )
-    threads = min(threads, fit)
-    return threads, -(-(warps * _WARP) // threads), False
 
 
 def _check(kernel: str, dev, expected: dict) -> None:
@@ -165,6 +127,18 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _raise_on(kernel: str, lib, err: int, detail: str) -> None:
+    """Raise for a launcher's non-zero status: ValueError where the launcher
+    refused the arguments (a negative status: a season too long for shared
+    memory), RuntimeError for a CUDA error."""
+    if err == 0:
+        return
+    msg = getattr(lib, f"{kernel}_error_string")(err).decode()
+    if err < 0:
+        raise ValueError(f"{kernel}: {msg} ({detail})")
+    raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({detail})")
+
+
 def _hw_score_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0):
     """Check what the scoring kernel assumes (y and mask 16-byte aligned, as
     its staging copies read them), allocate its output and bind its
@@ -186,21 +160,16 @@ def _hw_score_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0):
     out = torch.empty((S, C), dtype=torch.float32, device=dev)
     if S == 0 or C == 0:
         return (lambda: None), out
-    threads, n_blk, _ = _score_geometry(C, m)
     t_end = row_ends(mask)
     lib = library()
     tensors = (y, mask, alpha, beta, gamma, phi, l0, b0, s0, t_end, out)
-    args = [*map(_ptr, tensors), S, T, C, m, threads, n_blk, _stream(dev)]
+    args = [*map(_ptr, tensors), S, T, C, m, _stream(dev)]
 
     def launch():
         with torch.cuda.device(dev):
             err = lib.hw_score_launch(*args)
-        if err != 0:
-            raise RuntimeError(
-                f"hw_score kernel launch failed: "
-                f"{lib.hw_score_error_string(err).decode()} (S={S}, T={T}, "
-                f"C={C}, m={m}, threads={threads}, blocks={n_blk})"
-            )
+        _raise_on("hw_score", lib, err,
+                  f"S={S}, T={T}, C={C}, season_length={m}")
         hw_score.launches += 1
 
     launch.tensors = tensors  # the bound pointers stay valid while launch lives
@@ -260,12 +229,6 @@ def _hw_filter_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0, mode):
         "l0": (l0, (S,)), "b0": (b0, (S,)), "s0": (s0, (S, m))})
     if mode not in ("additive", "multiplicative"):
         raise ValueError(f"hw_filter: unknown seasonality mode {mode!r}")
-    smem = _FILTER_TILE_BYTES + 4 * m * _FILTER_ROWS
-    if m != 7 and smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"hw_filter: season_length={m} needs {smem} bytes of shared "
-            f"memory; the card allows {_SMEM_LIMIT} per block"
-        )
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     level, trend, mse, season, fitted = new(S), new(S), new(S), new(S, m), new(S, T)
     result = ((level, trend, season), mse, fitted)
@@ -280,12 +243,8 @@ def _hw_filter_launcher(y, mask, alpha, beta, gamma, phi, l0, b0, s0, mode):
     def launch():
         with torch.cuda.device(dev):
             err = lib.hw_filter_launch(*args)
-        if err != 0:
-            raise RuntimeError(
-                f"hw_filter kernel launch failed: "
-                f"{lib.hw_filter_error_string(err).decode()} (S={S}, T={T}, "
-                f"m={m}, mode={mode})"
-            )
+        _raise_on("hw_filter", lib, err,
+                  f"S={S}, T={T}, season_length={m}, mode={mode}")
         hw_filter.launches += 1
 
     launch.tensors = tensors  # the bound pointers stay valid while launch lives

@@ -1,7 +1,7 @@
 """What the compiler made of the port's kernels: registers, spills and shared
 memory from ``ptxas -v``, and the loops of each kernel's SASS.
 
-    python -m distributed_forecasting_tpu_torch.ops.kernel_report [OUT_DIR]
+    python scripts/cuda_kernel_report.py [OUT_DIR]
 
 Compiles every source in ``ops/_build.SOURCES`` with the library's own flags
 to a cubin under OUT_DIR (default: a temporary directory), then prints one
@@ -23,7 +23,9 @@ import subprocess
 import sys
 import tempfile
 
-from distributed_forecasting_tpu_torch.ops._build import CSRC, CUDA_FLAGS, SOURCES
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from distributed_forecasting_tpu_torch.ops._build import CSRC, CUDA_FLAGS, SOURCES  # noqa: E402
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _FUNC = re.compile(r"Function : (\S+)")

@@ -79,6 +79,33 @@ def test_kernel_equals_twin(dev, cfg):
     _assert_scores_close(got, fs.hw_score_reference(y, mask, *grid, m))
 
 
+@pytest.mark.parametrize("n_cand,m", [
+    (4, 7),      # a tiny grid still fills one warp
+    (288, 30),   # three warps of a monthly season fit one block
+    (288, 365),  # a year: one warp a block, three blocks a series
+    (128, 500),  # the block cut to one warp, two blocks a series
+])
+def test_kernel_equals_twin_where_the_launcher_shapes_the_grid(dev, n_cand, m):
+    # the launcher picks threads and blocks from (C, m); every shape it
+    # picks must score every candidate
+    y, mask = _workload(3, 2 * m + 50, dev, seed=n_cand)
+    g = torch.Generator().manual_seed(m)
+    grid = [(lo + (hi - lo) * torch.rand(n_cand, generator=g)).to(dev)
+            for lo, hi in ((0.05, 0.95), (0.01, 0.4), (0.05, 0.6), (0.8, 1.0))]
+    got = fs.hw_score(y, mask, *grid, m)
+    torch.cuda.synchronize()
+    _assert_scores_close(got, fs.hw_score_reference(y, mask, *grid, m))
+
+
+def test_kernels_refuse_a_season_past_shared_memory(dev):
+    y, mask = _workload(2, 4100, dev)
+    grid = hw._candidate_grid(hw.HoltWintersConfig(), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.hw_score(y, mask, *grid, 2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.hw_filter(y, mask, *_winners(2, dev), 2000, "additive")
+
+
 def test_kernel_equals_twin_on_cv_train_masks(dev):
     y_cv, train = _cv_rows(dev)
     grid = hw._candidate_grid(hw.HoltWintersConfig(), device=dev)

@@ -93,6 +93,9 @@ CASES = {
     "multiplicative_m7": (7, "multiplicative", False, 6, 400, 5),
     "multiplicative_damped_m12": (12, "multiplicative", True, 5, 360, 6),
     "additive_m30": (30, "additive", False, 4, 300, 7),
+    "damped_m30": (30, "additive", True, 4, 300, 8),
+    "multiplicative_m30": (30, "multiplicative", False, 4, 300, 9),
+    "additive_m365": (365, "additive", False, 2, 800, 10),
 }
 
 
@@ -160,20 +163,34 @@ def test_row_ends():
     assert tfs.row_ends(torch.zeros(2, 0)).tolist() == [0, 0]
 
 
-def test_work_count_matches_a_hand_count():
-    # row 0: observed 0, 1, 4 (a gap of 2 masked steps), a tail of 3 masked
-    # row 1: observed 0..7, no tail; row 2: nothing observed
-    mask = torch.tensor([
-        [1, 1, 0, 0, 1, 0, 0, 0],
-        [1, 1, 1, 1, 1, 1, 1, 1],
-        [0, 0, 0, 0, 0, 0, 0, 0],
-    ], dtype=torch.float32)
+WORK_CASES = {
+    # name: (mask, hand-counted operations per candidate and in all, for C)
+    # row 0: observed 0, 1, 4 (a gap of 2 masked steps), a tail of 3 masked;
+    # row 1: observed 0..7, no tail; row 2: nothing observed.  11 observed
+    # steps of weight 1 x (18 per candidate + 1 for n), 2 masked steps before
+    # a row's last observation x 2 per candidate; tails and row 2 cost 0
+    "gap_and_tail": ([[1, 1, 0, 0, 1, 0, 0, 0],
+                      [1, 1, 1, 1, 1, 1, 1, 1],
+                      [0, 0, 0, 0, 0, 0, 0, 0]],
+                     lambda C: 11 * (18 * C + 1) + 2 * 2 * C),
+    # weights other than 1 cost one more (the error times the mask): one
+    # unit step, two weighted ones, one masked step between them, a tail
+    "weights": ([[0.5, 1, 0, 2, 0]],
+                lambda C: 18 * C + 2 * 19 * C + 2 * C + 3),
+    "nothing_observed": ([[0, 0, 0], [0, 0, 0]], lambda C: 0),
+    "empty_history": (torch.zeros(2, 0), lambda C: 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WORK_CASES))
+def test_work_count_matches_a_hand_count(case):
+    mask, want = WORK_CASES[case]
+    mask = torch.as_tensor(mask, dtype=torch.float32)
+    S, T = mask.shape
     C, m = 5, 7
     ops, nbytes = tfs.hw_score_work(mask, C, m)
-    # 11 observed steps x (19 per candidate + 1 for n), 2 masked steps before
-    # a row's last observation x 2 per candidate; tails and row 2 cost 0
-    assert ops == 11 * (19 * C + 1) + 2 * 2 * C
-    assert nbytes == 4 * (2 * 3 * 8 + 4 * C + 2 * 3 + 3 * m + 3 * C)
+    assert ops == want(C)
+    assert nbytes == 4 * (2 * S * T + 4 * C + 2 * S + S * m + S * C)
 
 
 def test_filter_work_count():
@@ -181,3 +198,10 @@ def test_filter_work_count():
     assert ops == 20 * 500 * 1826
     # y, mask read and the path written dominate: ~11 MB at the fit shape
     assert nbytes == 4 * (3 * 500 * 1826 + 9 * 500 + 2 * 500 * 7)
+
+
+def test_wrapper_refuses_a_device_it_does_not_run_on():
+    y, mask = (torch.from_numpy(a).to("meta") for a in _workload(2, 30, 7, seed=0))
+    params = (torch.full((2,), 0.5, device="meta"),) * 4
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfs.hw_filter(y, mask, *params, 7, "additive")

@@ -94,7 +94,7 @@ def test_twin_matches_reference_pallas_interpret_and_scan(case):
     np.testing.assert_array_equal(got.argmin(1), want_scan.argmin(1))
 
 
-@pytest.mark.parametrize("m", [7, 12])
+@pytest.mark.parametrize("m", [7, 12, 30])
 def test_twin_matches_reference_scan_longer_history(m):
     # longer T than the interpreter allows: the reference's scan only
     y, mask = _workload(6, 400, m, seed=m)
@@ -150,20 +150,8 @@ def test_select_filter_routes_cuda_to_the_kernel():
     assert tfs.select_filter("cpu") == "scan"
 
 
-@pytest.mark.parametrize("n_cand,m,want", [
-    (96, 7, (32, 1, True)),      # default grid: one warp, season in registers
-    (288, 7, (96, 1, True)),     # damped grid: one block of three warps
-    (4, 7, (32, 1, True)),       # a tiny grid still fills one warp
-    (96, 365, (32, 1, False)),   # season_length 'auto' at a year: 148 KB
-    (288, 365, (32, 3, False)),  # two warps of a year overflow: one a block
-    (96, 30, (32, 1, False)),    # a monthly season in shared memory
-    (288, 30, (96, 1, False)),   # ... three warps of it still fit one block
-])
-def test_block_shape(n_cand, m, want):
-    assert tfs._score_geometry(n_cand, m) == want
-
-
-def test_block_shape_cuts_threads_to_fit_and_raises_past_the_limit():
-    assert tfs._score_geometry(128, 500) == (32, 2, False)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfs._score_geometry(96, 2000)
+def test_wrapper_refuses_a_device_it_does_not_run_on():
+    y, mask = (torch.from_numpy(a).to("meta") for a in _workload(2, 30, 7, seed=0))
+    grid = [x.to("meta") for x in thw._candidate_grid(thw.HoltWintersConfig())]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfs.hw_score(y, mask, *grid, 7)
