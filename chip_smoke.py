@@ -2,13 +2,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once, on the card, at the reference workload's
-full size — the committed ``datasets/store_item_demand.csv.gz`` (500 store x
-item series, 1,826 days): load -> tensorize -> Holt-Winters fit + forecast
-(candidates scored by the ``hw_score`` CUDA kernel, the winner refit by the
-``hw_filter`` CUDA kernel) -> fail-safe -> forecast frame -> rolling-origin CV
-(730/360/90) -> artifact save/load -> batched predict.  Phases, each printing
-one JSON line; any failure raises, so the exit code is not 0:
+Drives the port's two main paths once, on the card, at the reference
+workload's full size — the committed ``datasets/store_item_demand.csv.gz``
+(500 store x item series, 1,826 days):
+
+  * Holt-Winters: load -> tensorize -> fit + forecast (candidates scored by
+    the ``hw_score`` CUDA kernel, the winner refit by the ``hw_filter`` CUDA
+    kernel) -> fail-safe -> forecast frame -> rolling-origin CV (730/360/90)
+    -> artifact save/load -> batched predict;
+  * the curve model (``model: prophet``, the default configuration:
+    multiplicative seasonality, US holidays, F = 61 features): the same
+    path, its Gram one cuBLAS GEMM and its solve cuSOLVER's batched
+    Cholesky with cuBLAS triangular solves (no hand kernel).
+
+Phases, each printing one JSON line; any failure raises, so the exit code
+is not 0:
 
   1. device   the card's name, and its name and power limit from nvidia-smi
   2. build    every kernel built from csrc/ in one build call (seconds)
@@ -19,19 +27,34 @@ one JSON line; any failure raises, so the exit code is not 0:
               argmins equal or near ties within that tolerance.  hw_filter
               (the winners of the default and the damped grid, the
               multiplicative mode, a 30-day season, the CV pass's 1,500
-              rows): bitwise equal to _filter in path, states and MSE
-  4. main     the main path with the launch counters set to 0 just before it
-              and read just after: every kernel must have launched
+              rows): bitwise equal to _filter in path, states and MSE.
+              The curve model's library solve against the floored Cholesky
+              twin (the CPU route, run here on the card) on the fit's 500
+              and the CV pass's 1,500 systems: beta and the fitted path
+              within 10 * cond(A) * 2^-24 of each row's scale, no failed
+              factorization, and no host sync in the solve
+  4. main     each main path with the launch counters set to 0 just before
+              it and read just after: every kernel must have launched on
+              the Holt-Winters path (the curve path launches none of them)
   5. checks   what came out is right: finite, the expected shapes and key
-              order, the kernel-scored fit bitwise the scan-scored fit where
-              the argmins agree, and a 20-series run equal to the same run on
-              the CPU within float32 tolerance
-  6. times    CUDA-event medians of 5 runs after a warm-up: both kernels at
-              the fit, CV and damped shapes beside their bounds, both twins,
-              fit_forecast broken down into scoring, refit, forecast and
-              fail-safe (a staged copy of it whose outputs must equal
-              fit_forecast's), the CV pass, one 500-series predict, and the
-              device's idle share over one fit_forecast (torch.profiler)
+              order, bands ordered, 3 CV cutoffs with finite means; the
+              kernel-scored HW fit bitwise the scan-scored fit where the
+              argmins agree; a 20-series run of each path equal to the same
+              run on the CPU (HW within float32 tolerance, the curve model
+              within 10 * cond(A) * 2^-24), ok flags equal
+  6. times    CUDA-event medians of 5 runs after a warm-up.  Holt-Winters:
+              both kernels at the fit, CV and damped shapes beside their
+              bounds, both twins, fit_forecast broken down into scoring,
+              refit, forecast and fail-safe (a staged copy of it whose
+              outputs must equal fit_forecast's), the CV pass, one
+              500-series predict, and the device's idle share over one
+              fit_forecast (torch.profiler).  The curve model: fit_forecast
+              and its stages (design, Gram, solve, residual scale,
+              forecast, fail-safe; a staged copy held bitwise to it), the
+              CV pass, one 500-series predict, the Gram and the solve alone
+              at the fit and CV shapes beside their bounds (and the
+              ``einsum`` Gram), and the device's idle share and library
+              launches over one fit_forecast and one CV pass
 
 The line before the last lists the kernels (launches, error, times, bound);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -234,33 +257,11 @@ def _request(keys):
 
 
 def check_outputs(run, port) -> None:
-    """Phase 5: what came out of the main path is right."""
+    """Phase 5: what came out of the Holt-Winters main path is right."""
     engine, hw = port["engine"], port["hw"]
-    batch, frame, res = run["batch"], run["frame"], run["result"]
-    S, T = batch.n_series, batch.n_time
-    assert (S, T) == SHAPE, (S, T)
-    assert len(frame) == S * (T + 90), len(frame)
-    vals = frame[["yhat", "yhat_upper", "yhat_lower"]].to_numpy()
-    assert np.isfinite(vals).all()
-    assert (frame["yhat_lower"] <= frame["yhat_upper"]).all()
-    n_ok = int(res.ok.sum())
-    means = {k: float(torch.nanmean(v)) for k, v in run["metrics"].items()
-             if not k.startswith("_")}
-    assert all(np.isfinite(v) for v in means.values()), means
-    assert run["metrics"]["_n_cutoffs"] == 3
-    for k, keys in run["requests"].items():
-        out = run["answers"][k]
-        assert len(out) == 90 * len(keys)
-        assert np.isfinite(out[["yhat", "yhat_upper", "yhat_lower"]]
-                           .to_numpy()).all()
-        got = out[["store", "item"]].to_numpy()[::90]
-        np.testing.assert_array_equal(got, keys)
-    q = run["quantiles"]
-    assert len(q) == 90 * len(run["requests"][17])
-    assert np.isfinite(q[["q0.1", "q0.5", "q0.9"]].to_numpy()).all()
-    assert ((q["q0.1"] <= q["q0.5"]) & (q["q0.5"] <= q["q0.9"])).all()
-    emit("main_path", series=S, days=T, frame_rows=len(frame), ok=n_ok,
-         cv_cutoffs=3, cv_means=means, seconds=run["seconds"])
+    batch = run["batch"]
+    S = batch.n_series
+    check_frames(run, "main_path")
 
     # the kernel-scored fit is bitwise the scan-scored fit where the winning
     # candidates agree (both refit the winner exactly, through hw_filter)
@@ -344,10 +345,12 @@ def check_stages(staged, params, result) -> None:
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
-def idle_share(fn) -> dict:
+def idle_share(fn, top_n: int = 0) -> dict:
     """The device's busy time (union of kernel intervals in a torch.profiler
     trace) over the host wall time of one ``fn()`` ending in a synchronize,
-    and the traced durations of the port's own kernels in it.  Reports
+    the traced durations of the port's own kernels in it, the device events
+    counted and timed by kind (:data:`EVENT_KINDS`), and the ``top_n``
+    device event names by time with their counts.  Reports
     ``not measured`` if the trace holds no device time (the profiler is
     optional on the card's machine; the rest of the run does not rest on
     it)."""
@@ -367,6 +370,10 @@ def idle_share(fn) -> dict:
         own = {k: [(e.time_range.end - e.time_range.start) / 1e3
                    for e in device if f"{k}_kernel" in e.name]
                for k in KERNELS}
+        names = {}
+        for e in device:
+            n, ms = names.get(e.name, (0, 0.0))
+            names[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
     except Exception as exc:  # noqa: BLE001 — reported, not hidden
         return {"idle_share": "not measured", "reason": repr(exc)}
     busy, end = 0.0, float("-inf")
@@ -377,9 +384,31 @@ def idle_share(fn) -> dict:
     if not spans or busy <= 0:
         return {"idle_share": "not measured", "reason": "no device time"}
     busy_ms = busy / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:top_n]
+    by_kind = {}
+    for name, (n, ms) in names.items():
+        kind = next((k for k, keys in EVENT_KINDS.items()
+                     if any(key in name for key in keys)), "other")
+        c, t = by_kind.get(kind, (0, 0.0))
+        by_kind[kind] = (c + n, t + ms)
     return {"idle_share": 1.0 - busy_ms / wall, "device_busy_ms": busy_ms,
             "wall_ms_profiled": wall, "device_events": len(spans),
-            "kernel_ms": own}
+            "kernel_ms": own,
+            "events_by_kind": {k: {"count": n, "ms": ms}
+                               for k, (n, ms) in sorted(by_kind.items())},
+            "top_device_events": [{"name": k[:120], "count": n, "ms": ms}
+                                  for k, (n, ms) in top]}
+
+
+# device events by library or kind, matched on the kernel's name in order
+EVENT_KINDS = {
+    "gemm (cuBLAS)": ("gemm", "gemv"),
+    "potrf (cuSOLVER)": ("potrf",),
+    "trsm (cuBLAS)": ("trsm",),
+    "sort": ("Sort", "sort"),
+    "memcpy/memset": ("Memcpy", "Memset"),
+    "hand kernels": ("hw_score_kernel", "hw_filter_kernel"),
+}
 
 
 def timings(run, port, card_line: str) -> dict:
@@ -451,6 +480,272 @@ def timings(run, port, card_line: str) -> dict:
     return dict(t, hw_score=k_score["fit"], hw_filter=k_filter["fit"])
 
 
+# -- the curve model (model: prophet, the default configuration) -------------
+
+F32_EPS = 2.0 ** -24  # float32 unit roundoff
+DEFERRED = []  # failures that let the measurements run first
+
+
+def curve_config(batch, port):
+    """The default configuration as the training task builds it: the task
+    conf's ``holidays: US`` resolved over the batch's dates + the horizon."""
+    conf = port["training"]._resolve_holidays_conf(
+        {"seasonality_mode": "multiplicative", "holidays": "US"}, batch, 90)
+    return port["pg"].CurveModelConfig(**conf)
+
+
+def curve_systems(y, mask, day, cfg, port):
+    """The penalized normal equations ``fit`` solves for these rows, built
+    by the same functions: (X, A, b)."""
+    pg, solve = port["pg"], port["solve"]
+    zn, _, _ = pg._fit_target(y, mask, cfg)
+    X, layout = pg._design(day, day[0].to(torch.float32),
+                           day[-1].to(torch.float32), cfg)
+    lam = pg._prior_precision(layout, cfg, device=y.device)
+    A, b = solve.normal_equations(X, zn, mask, lam)
+    return X, A, b
+
+
+def cond_tolerance(A) -> tuple:
+    """(10 * max cond(A) * 2^-24, max cond): the relative error a backward
+    stable float32 solve of these systems may show, with room for 10 ulp."""
+    kappa = float(torch.linalg.cond(A.double()).max())
+    return 10.0 * kappa * F32_EPS, kappa
+
+
+def curve_solve_cases(batch, port) -> dict:
+    """Phase 3 for the curve model: the library solve (cuSOLVER potrf +
+    cuBLAS trsm) against the floored Cholesky twin, on the card, at the
+    fit's 500 and the CV pass's 1,500 systems; failed factorizations
+    counted; the solve run under CUDA's sync check."""
+    solve = port["solve"]
+    cfg = curve_config(batch, port)
+    out = {}
+    for name, (y, mask) in {"fit_500": (batch.y, batch.mask),
+                            "cv_1500": cv_inputs(batch, port["cv"])}.items():
+        X, A, b = curve_systems(y, mask, batch.day, cfg, port)
+        _, info = torch.linalg.cholesky_ex(A)
+        failed = int((info != 0).sum())
+        got = solve.batched_cho_solve(A, b)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            solve.batched_cho_solve(A, b)
+            synced = False
+        except RuntimeError:
+            synced = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = solve._solve_cholesky_floored(A, b)
+        tol, kappa = cond_tolerance(A)
+        res = {"S": int(A.shape[0]), "F": int(A.shape[1]), "cond_max": kappa,
+               "tol_rel": tol, "failed_factorizations": failed,
+               "host_sync_in_solve": synced}
+        ok = failed == 0
+        for what, g, w in (("beta", got, want), ("path", got @ X.T, want @ X.T)):
+            rel = float(((g - w).abs().amax(1) / w.abs().amax(1)).max())
+            res[f"{what}_max_rel_err"] = rel
+            ok = ok and rel <= tol
+        res["max_abs_err"] = float((got - want).abs().max())
+        res["pass"] = ok
+        emit("curve_solve_vs_twin", case=name, **res)
+        if synced:  # the measurements still run; main() fails at the end
+            DEFERRED.append(f"the library solve synced with the host: {name}")
+        if not ok:
+            raise AssertionError(f"curve solve disagrees with its twin: {name}")
+        out[name] = res
+    return out
+
+
+def curve_main_path(port, tmp: str) -> dict:
+    """Phase 4 for the curve model: its main path, start to end."""
+    data, engine, serving = port["data"], port["engine"], port["serving"]
+    t0 = time.perf_counter()
+    batch = data.tensorize(data.load_sales_csv(DATA))
+    cfg = curve_config(batch, port)
+    params, result = engine.fit_forecast(batch, "prophet", config=cfg,
+                                         horizon=90)
+    frame = engine.forecast_frame(batch, result)
+    metrics = engine.cross_validate(batch, "prophet", config=cfg,
+                                    cv=engine.CVConfig(**CV))
+    fc = serving.BatchForecaster.from_fit(batch, params, "prophet", cfg)
+    fc.save(tmp)
+    loaded = serving.BatchForecaster.load(tmp)
+    assert loaded.config == cfg
+    rng = np.random.default_rng(2)
+    requests = {k: batch.keys[rng.permutation(batch.n_series)[:k]]
+                for k in (1, 17, 500)}
+    answers = {k: loaded.predict(_request(keys)) for k, keys in requests.items()}
+    quantiles = loaded.predict_quantiles(_request(requests[17]))
+    torch.cuda.synchronize()
+    return dict(batch=batch, cfg=cfg, params=params, result=result,
+                frame=frame, metrics=metrics, requests=requests,
+                answers=answers, quantiles=quantiles,
+                seconds=time.perf_counter() - t0)
+
+
+def check_frames(run, phase: str) -> dict:
+    """The checks both main paths share: frame size and finiteness, ordered
+    bands, 3 CV cutoffs with finite means, predict's rows and key order,
+    quantiles finite and ordered.  Emits and returns the summary."""
+    batch, frame, res = run["batch"], run["frame"], run["result"]
+    S, T = batch.n_series, batch.n_time
+    assert (S, T) == SHAPE, (S, T)
+    assert len(frame) == S * (T + 90), len(frame)
+    vals = frame[["yhat", "yhat_upper", "yhat_lower"]].to_numpy()
+    assert np.isfinite(vals).all()
+    assert (frame["yhat_lower"] <= frame["yhat_upper"]).all()
+    means = {k: float(torch.nanmean(v)) for k, v in run["metrics"].items()
+             if not k.startswith("_")}
+    assert all(np.isfinite(v) for v in means.values()), means
+    assert run["metrics"]["_n_cutoffs"] == 3
+    for k, keys in run["requests"].items():
+        out = run["answers"][k]
+        assert len(out) == 90 * len(keys)
+        assert np.isfinite(out[["yhat", "yhat_upper", "yhat_lower"]]
+                           .to_numpy()).all()
+        assert (out["yhat_lower"] <= out["yhat_upper"]).all()
+        got = out[["store", "item"]].to_numpy()[::90]
+        np.testing.assert_array_equal(got, keys)
+    q = run["quantiles"]
+    assert len(q) == 90 * len(run["requests"][17])
+    assert np.isfinite(q[["q0.1", "q0.5", "q0.9"]].to_numpy()).all()
+    assert ((q["q0.1"] <= q["q0.5"]) & (q["q0.5"] <= q["q0.9"])).all()
+    summary = dict(series=S, days=T, frame_rows=len(frame),
+                   ok=int(res.ok.sum()), cv_cutoffs=3, cv_means=means,
+                   seconds=run["seconds"])
+    emit(phase, **summary)
+    return summary
+
+
+def check_curve_outputs(run, port) -> None:
+    """Phase 5 for the curve model."""
+    engine = port["engine"]
+    check_frames(run, "curve_main_path")
+    sub = run["batch"].take_series(range(20))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    cfg = run["cfg"]
+    _, r_gpu = engine.fit_forecast(sub, "prophet", config=cfg, horizon=90)
+    _, r_cpu = engine.fit_forecast(cpu, "prophet", config=cfg, horizon=90)
+    assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
+    tol, kappa = cond_tolerance(curve_systems(sub.y, sub.mask, sub.day, cfg,
+                                              port)[1])
+    worst = 0.0
+    for k in ("yhat", "lo", "hi"):
+        a, b = getattr(r_gpu, k).cpu(), getattr(r_cpu, k)
+        rel = float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+        assert rel <= tol, (k, rel, tol)
+        worst = max(worst, rel)
+    emit("curve_gpu_vs_cpu_20_series", max_rel_diff=worst, tol_rel=tol,
+         cond_max=kappa)
+
+
+def curve_stages(batch, port, cfg, horizon: int = 90) -> tuple:
+    """``engine.fit_forecast`` for the curve model (l2, no regressors, no
+    AR: the default configuration), step for step as ``fit`` and
+    ``fit_forecast`` run it, with a CUDA event between the stages: design
+    (fit-space target, design matrix, prior precision), Gram (normal
+    equations), solve, residual scale, forecast, fail-safe.  Returns
+    (milliseconds per stage, (params, result)); ``check_curve_stages`` holds
+    the outputs bitwise to ``fit_forecast``'s."""
+    pg, solve = port["pg"], port["solve"]
+    from distributed_forecasting_tpu_torch.engine import fit as fit_mod
+
+    y, mask, day = batch.y, batch.mask, batch.day
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    ev[0].record()
+    t0, t1 = day[0].to(torch.float32), day[-1].to(torch.float32)
+    zn, y_scale, cap = pg._fit_target(y, mask, cfg)
+    X, layout = pg._design(day, t0, t1, cfg)
+    lam = pg._prior_precision(layout, cfg, device=y.device)
+    ev[1].record()
+    A, b = solve.normal_equations(X, zn, mask, lam)
+    ev[2].record()
+    beta = solve.batched_cho_solve(A, b)
+    ev[3].record()
+    sigma = solve.weighted_residual_scale(X, zn, mask, beta)
+    params = pg.CurveParams(
+        beta=beta, sigma=sigma, y_scale=y_scale, cap=cap, t0=t0, t1=t1,
+        **pg._no_regressors(y.device), **pg._no_ar(y.device))
+    ev[4].record()
+    day_all = fit_mod.day_grid(day, horizon)
+    yhat, lo, hi = pg.forecast(params, day_all, day[-1].to(torch.float32), cfg)
+    ev[5].record()
+    result = fit_mod.health_fallback(y, mask, yhat, lo, hi, horizon,
+                                     fit_mod.DEFAULT_MIN_POINTS)
+    ev[6].record()
+    torch.cuda.synchronize()
+    names = ("design", "gram", "solve", "residual_scale", "forecast",
+             "fail_safe")
+    ms = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+    return ms, (params, result)
+
+
+def curve_timings(run, port, card_line: str) -> dict:
+    """Phase 6 for the curve model."""
+    engine, solve, pg = port["engine"], port["solve"], port["pg"]
+    batch, cfg = run["batch"], run["cfg"]
+    cv = engine.CVConfig(**CV)
+    fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
+        batch, "prophet", config=cfg, horizon=90)
+    cv_pass = lambda: engine.cross_validate(  # noqa: E731
+        batch, "prophet", config=cfg, cv=cv)
+    runs = [curve_stages(batch, port, cfg) for _ in range(REPS + 1)]
+    check_stages(runs[0][1], *fit_forecast())
+    stages = [ms for ms, _ in runs[1:]]
+
+    def lib(y, mask):
+        """The Gram and the solve alone at these rows, beside their bounds,
+        and the einsum Gram (one PyTorch call: the library yardstick)."""
+        X, A, b = curve_systems(y, mask, batch.day, cfg, port)
+        S, F = int(A.shape[0]), int(A.shape[1])
+        T = int(X.shape[0])
+        g_bound, g_by = bound_ms(solve.gram_work(S, T, F))
+        s_bound, s_by = bound_ms(solve.cho_solve_work(S, F))
+        g_ms = cuda_ms(lambda: solve.masked_gram(X, mask), inner=20)
+        return {
+            "shape": [S, T, F],
+            "gram_ms": g_ms, "gram_bound_ms": g_bound, "gram_bound_by": g_by,
+            "gram_share_of_bound": g_bound / g_ms,
+            "gram_einsum_ms": cuda_ms(lambda: torch.einsum(
+                "st,tf,tg->sfg", mask, X, X), inner=5),
+            "solve_ms": cuda_ms(lambda: solve.batched_cho_solve(A, b),
+                                inner=20),
+            "potrf_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(A), inner=20),
+            "solve_bound_ms": s_bound, "solve_bound_by": s_by,
+            "solve_twin_ms": cuda_ms(
+                lambda: solve._solve_cholesky_floored(A, b)),
+        }
+
+    shapes = {"fit": (batch.y, batch.mask), "cv": cv_inputs(batch, port["cv"])}
+    library = {k: lib(*v) for k, v in shapes.items()}
+    for v in library.values():
+        v["solve_share_of_bound"] = v["solve_bound_ms"] / v["solve_ms"]
+    X = pg._design(batch.day, batch.day[0].float(), batch.day[-1].float(),
+                   cfg)[0]
+    fc = port["serving"].BatchForecaster.from_fit(batch, run["params"],
+                                                  "prophet", cfg)
+    req = _request(batch.keys)
+    t = {
+        "fit_forecast_ms": cuda_ms(fit_forecast),
+        "fit_forecast_stages_ms": {k: statistics.median(s[k] for s in stages)
+                                   for k in stages[0]},
+        "cv_pass_ms": cuda_ms(cv_pass),
+        "predict_500_ms": cuda_ms(lambda: fc.predict(req)),
+        "design_ms": cuda_ms(lambda: pg._design(
+            batch.day, batch.day[0].float(), batch.day[-1].float(), cfg)),
+        "F": int(X.shape[1]),
+        "library": library,
+    }
+    fit_forecast()
+    t["fit_forecast_profile"] = idle_share(fit_forecast, top_n=12)
+    cv_pass()
+    t["cv_pass_profile"] = idle_share(cv_pass, top_n=12)
+    emit("curve_times", card=card_line, reps=REPS, statistic="median", **t)
+    return t
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -468,7 +763,10 @@ def main() -> int:
     from distributed_forecasting_tpu_torch import data, engine, serving
     from distributed_forecasting_tpu_torch.engine import cv
     from distributed_forecasting_tpu_torch.models import holt_winters as hw
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
     from distributed_forecasting_tpu_torch.ops import _build, fused_scan as fs
+    from distributed_forecasting_tpu_torch.ops import solve
+    from distributed_forecasting_tpu_torch.pipelines import training
 
     card_line = card()
     name = torch.cuda.get_device_name(0)
@@ -476,7 +774,8 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     print(card_line, flush=True)
 
-    port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs)
+    port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
+                pg=pg, solve=solve, training=training)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -484,6 +783,7 @@ def main() -> int:
 
     batch = data.tensorize(data.load_sales_csv(DATA))
     cases = kernel_cases(batch, port)
+    curve_solve_cases(batch, port)
 
     counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter}
     for fn in counters.values():  # counters to 0 just before the main path
@@ -499,6 +799,18 @@ def main() -> int:
 
     check_outputs(run, port)
     t = timings(run, port, card_line)
+
+    for fn in counters.values():  # the curve path: counters to 0 again
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        curve_run = curve_main_path(port, tmp)
+    emit("launches", path="curve", **{k: fn.launches for k, fn in
+                                      counters.items()},
+         expected="0: the curve path runs no hand kernel")
+    check_curve_outputs(curve_run, port)
+    curve_timings(curve_run, port, card_line)
+    if DEFERRED:
+        raise AssertionError("; ".join(DEFERRED))
 
     plain = {"hw_score": t["hw_score_twin_ms"],
              "hw_filter": t["hw_filter_twin_ms"]}

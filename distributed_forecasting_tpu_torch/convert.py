@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.models.holt_winters import HWParams
+from distributed_forecasting_tpu_torch.models.prophet_glm import CurveParams
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
 
 # artifact params_type -> the port's class.  The reference's names come
@@ -22,6 +23,7 @@ from distributed_forecasting_tpu_torch.utils.device import resolve_device
 # loads it.
 PARAMS_TYPES = {
     "distributed_forecasting_tpu.models.holt_winters:HWParams": HWParams,
+    "distributed_forecasting_tpu.models.prophet_glm:CurveParams": CurveParams,
 }
 _TYPE_NAMES = {cls: name for name, cls in PARAMS_TYPES.items()}
 
@@ -53,7 +55,8 @@ def params_from_numpy(cls, fields: dict, device=None):
     Floating arrays become float32 (the reference's only float type).
     Fields the class declares but ``fields`` lacks are back-filled from the
     class's ``_LEGACY_DEFAULTS`` (e.g. ``phi = 1`` for HW artifacts saved
-    before the damped trend); any other missing field raises."""
+    before the damped trend, the empty regressor and AR fields of a curve
+    model); any other missing field raises."""
     dev = resolve_device(device)
     tensors = {}
     for k, v in fields.items():
@@ -82,4 +85,14 @@ def hw_params_from_numpy(fields: dict, device=None) -> HWParams:
 
 def hw_params_to_numpy(params: HWParams) -> dict:
     """The port's ``HWParams`` -> numpy fields the reference's takes."""
+    return params_to_numpy(params)
+
+
+def curve_params_from_numpy(fields: dict, device=None) -> CurveParams:
+    """The reference's ``CurveParams`` fields (numpy arrays) -> the port's."""
+    return params_from_numpy(CurveParams, fields, device)
+
+
+def curve_params_to_numpy(params: CurveParams) -> dict:
+    """The port's ``CurveParams`` -> numpy fields the reference's takes."""
     return params_to_numpy(params)

@@ -6,7 +6,9 @@ every ``period`` steps after ``initial`` steps of history; each cutoff fits
 on rows [0, c] and scores rows (c, c + horizon]; metrics average over
 cutoffs.  Train masks differ per cutoff and everything else is shared, so
 the cutoff axis is folded into the series axis: all C cutoffs x S series fit
-as one (C·S, T) batch — one candidate-scoring kernel launch per CV pass.
+as one (C·S, T) batch — one fit and one forecast per CV pass (for
+Holt-Winters one launch of each kernel; for the curve model one Gram GEMM
+and one batched solve).
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def _cv_metric_means(y, yhat, lo, hi, eval_masks, train_masks, mase_m=7):
 
 def cross_validate(
     batch: SeriesBatch,
-    model: str,
+    model: str = "prophet",
     config=None,
     cv: CVConfig = CVConfig(),
     xreg=None,
@@ -79,21 +81,30 @@ def cross_validate(
     """Per-series CV-mean metrics — mse, rmse, mae, mape, smape, mdape,
     coverage, mase — each an (S,) tensor, plus ``"_n_cutoffs"`` (int).
 
-    ``calibrate=True`` (split-conformal band scales) waits for the port of
-    ``engine/calibrate``; exogenous regressors for a family that takes them.
+    ``xreg``: regressor values for a config with ``n_regressors > 0``,
+    (T, R) or (S, T, R) over the history (a longer, history + horizon
+    tensor is trimmed: CV scores inside the history).  Per-series
+    regressors re-standardize under each cutoff's train mask, as a fit at
+    that cutoff would.  ``calibrate=True`` (split-conformal band scales)
+    waits for the port of ``engine/calibrate``.
     """
     if calibrate:
         raise NotImplementedError(
             "cross_validate(calibrate=True) is not ported yet "
             "(ROADMAP Queue 1: calibrate)"
         )
+    from distributed_forecasting_tpu_torch.engine.fit import (
+        validate_changepoint_days,
+        validate_grid_cadence,
+        validate_xreg,
+    )
+
     fns = get_model(model)
-    if xreg is not None:
-        raise ValueError(
-            f"model {model!r} does not accept exogenous regressors "
-            f"(no ported family does yet)"
-        )
     config = config if config is not None else fns.config_cls()
+    validate_grid_cadence(model, batch)
+    validate_changepoint_days(config, batch.day)
+    xreg = validate_xreg(fns, model, config, xreg, None, "cross_validate",
+                         trim_to=batch.n_time)
     y, mask, day = batch.y, batch.mask, batch.day
     S, T = y.shape
     cuts = cutoff_indices(T, cv)
@@ -101,9 +112,14 @@ def cross_validate(
     train_masks, eval_masks, t_ends = cv_windows(mask, day, cuts, cv.horizon)
 
     # cutoff-major rows: row c*S + s is series s trained up to cutoff c
-    params = fns.fit(y.repeat(C, 1), train_masks.reshape(C * S, T), day, config)
+    kw = {}
+    if xreg is not None:
+        xreg = xreg.to(y.device)
+        kw["xreg"] = xreg.repeat(C, 1, 1) if xreg.dim() == 3 else xreg
+    params = fns.fit(y.repeat(C, 1), train_masks.reshape(C * S, T), day,
+                     config, **kw)
     yhat, lo, hi = fns.forecast(params, day, t_ends.repeat_interleave(S),
-                                config)
+                                config, **kw)
     yhat, lo, hi = (x.reshape(C, S, T) for x in (yhat, lo, hi))
     out = _cv_metric_means(
         y, yhat, lo, hi, eval_masks, train_masks,

@@ -97,9 +97,82 @@ def day_grid(day, horizon: int):
                                  device=day.device)
 
 
+def validate_xreg(fns, model: str, config, xreg, expected_T, what: str,
+                  trim_to=None):
+    """Entry-point validation of exogenous-regressor tensors, shared by
+    ``fit_forecast`` and ``cross_validate``.  Returns the float32 tensor, or
+    None when no regressors are in play.  ``expected_T``: the required time
+    length; ``trim_to`` instead requires at least that many steps and trims
+    to them (the CV contract)."""
+    if xreg is None:
+        if config is not None and getattr(config, "n_regressors", 0):
+            raise ValueError(
+                f"config.n_regressors={config.n_regressors} but no xreg "
+                f"was passed to {what}"
+            )
+        return None
+    if not fns.supports_xreg:
+        raise ValueError(
+            f"model {model!r} does not accept exogenous regressors; "
+            f"use the curve model ('prophet')"
+        )
+    xreg = torch.as_tensor(xreg, dtype=torch.float32)
+    if xreg.dim() not in (2, 3):
+        raise ValueError(
+            f"xreg must be (T, R) shared or (S, T, R) per-series, got "
+            f"{xreg.dim()}-D"
+        )
+    if expected_T is not None and xreg.shape[-2] != expected_T:
+        raise ValueError(
+            f"xreg time axis is {xreg.shape[-2]}, expected history + "
+            f"horizon = {expected_T} (future regressor values must be known)"
+        )
+    if trim_to is not None:
+        if xreg.shape[-2] < trim_to:
+            raise ValueError(
+                f"xreg time axis is {xreg.shape[-2]}, expected at least the "
+                f"history length {trim_to}"
+            )
+        xreg = xreg[:trim_to] if xreg.dim() == 2 else xreg[:, :trim_to]
+    return xreg
+
+
+_CALENDAR_DAILY_MODELS = frozenset({"prophet", "curve", "prophet_ar"})
+
+
+def validate_grid_cadence(model: str, batch) -> None:
+    """The curve family's weekly/yearly Fourier periods and holiday day
+    math are calendar-daily: on a week or month grid they would silently
+    fit a 7-week "weekly" cycle, so such a batch raises."""
+    if model in _CALENDAR_DAILY_MODELS and getattr(batch, "freq", "D") != "D":
+        raise ValueError(
+            f"model {model!r} is calendar-daily (weekly/yearly Fourier, "
+            f"holiday day-math) but the batch's grid cadence is "
+            f"{batch.freq!r}; use a cadence-agnostic family "
+            f"(holt_winters) or tensorize at freq='D'"
+        )
+
+
+def validate_changepoint_days(config, day) -> None:
+    """Explicit changepoint sites must fall within the training days
+    (Prophet's 'Changepoints must fall within training data'); catches raw
+    ``toordinal()`` values, ~719163 days past the range."""
+    days = getattr(config, "changepoint_days", ()) if config is not None else ()
+    if not days:
+        return
+    lo, hi = int(day[0]), int(day[-1])
+    bad = [int(d) for d in days if not lo <= int(d) <= hi]
+    if bad:
+        raise ValueError(
+            f"changepoint_days {bad} fall outside the training data "
+            f"(day range [{lo}, {hi}]); days are unix epoch days — "
+            f"pd.Timestamp(d).toordinal() - 719163"
+        )
+
+
 def fit_forecast(
     batch: SeriesBatch,
-    model: str,
+    model: str = "prophet",
     config=None,
     horizon: int = 90,
     min_points: int = DEFAULT_MIN_POINTS,
@@ -108,20 +181,29 @@ def fit_forecast(
     """Fit every series of ``batch`` and forecast ``horizon`` steps past the
     end of history, on the batch's device.  Returns ``(params, result)``.
 
-    Exogenous regressors belong to families not ported yet; ``xreg`` raises.
+    ``xreg``: exogenous regressor values over history AND horizon,
+    (T + horizon, R) shared or (S, T + horizon, R) per series, for a model
+    that takes them (the curve model, with ``config.n_regressors == R``):
+    the fit sees the history slice, the forecast the whole window.
     """
     fns = get_model(model)
-    if xreg is not None:
-        raise ValueError(
-            f"model {model!r} does not accept exogenous regressors "
-            f"(no ported family does yet)"
-        )
+    validate_grid_cadence(model, batch)
     config = config if config is not None else fns.config_cls()
     y, mask, day = batch.y, batch.mask, batch.day
+    validate_changepoint_days(config, day)
+    xreg = validate_xreg(fns, model, config, xreg, batch.n_time + horizon,
+                         "fit_forecast")
     day_all = day_grid(day, horizon)
     t_end = day[-1].to(torch.float32)
-    params = fns.fit(y, mask, day, config)
-    yhat, lo, hi = fns.forecast(params, day_all, t_end, config)
+    if xreg is not None:
+        xreg = xreg.to(y.device)
+        T = batch.n_time
+        params = fns.fit(y, mask, day, config,
+                         xreg=xreg[:T] if xreg.dim() == 2 else xreg[:, :T])
+        yhat, lo, hi = fns.forecast(params, day_all, t_end, config, xreg=xreg)
+    else:
+        params = fns.fit(y, mask, day, config)
+        yhat, lo, hi = fns.forecast(params, day_all, t_end, config)
     yhat, lo, hi, ok = health_fallback(y, mask, yhat, lo, hi, horizon,
                                        min_points)
     return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,

@@ -11,6 +11,8 @@ Every model family exposes the same two functions over a *batch* of series:
 ``day_all`` covers history + horizon; ``t_end`` is the last *training* day
 (a scalar, or one per series), where forecast uncertainty starts.  No family
 ported so far draws random numbers, so the contract carries no generator.
+Families registered with ``supports_xreg`` (the curve model) also take
+``xreg=`` exogenous regressor values in ``fit`` and ``forecast``.
 """
 
 from __future__ import annotations
@@ -66,13 +68,16 @@ class ModelFns(NamedTuple):
     config_cls: type
     # (params, day_all, t_end, config, quantiles) -> (S, Q, T_all)
     forecast_quantiles: Callable = None
+    supports_xreg: bool = False
 
 
 def register_model(name: str, fit: Callable, forecast: Callable,
-                   config_cls: type, forecast_quantiles: Callable = None):
+                   config_cls: type, forecast_quantiles: Callable = None,
+                   supports_xreg: bool = False):
     MODEL_REGISTRY[name] = ModelFns(fit=fit, forecast=forecast,
                                     config_cls=config_cls,
-                                    forecast_quantiles=forecast_quantiles)
+                                    forecast_quantiles=forecast_quantiles,
+                                    supports_xreg=supports_xreg)
 
 
 def get_model(name: str) -> ModelFns:

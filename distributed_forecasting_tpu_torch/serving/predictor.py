@@ -210,7 +210,9 @@ class BatchForecaster:
 
     def gather_params(self, sidx: np.ndarray):
         """Row-gather the requested series out of the parameters: fields
-        whose leading axis is the series axis are indexed, others pass."""
+        whose leading axis is the series axis are indexed, others (0-d
+        fields such as the curve model's ``t0``/``t1``, its empty (0, 0)
+        regressor and AR fields) pass."""
         S = self.n_series
         take = torch.as_tensor(sidx, dtype=torch.long, device=self.device)
         return type(self.params)(**{
@@ -222,6 +224,15 @@ class BatchForecaster:
     def _bucket(self, k: int) -> int:
         """Request-size bucket: next pow2x3 ladder value, capped at S."""
         return max(min(_ladder_value(k), self.n_series), k)
+
+    def _refuse_regressors(self, xreg) -> None:
+        """Serving a regressor model needs the future regressor values
+        gathered per request: not ported yet."""
+        if xreg is not None or getattr(self.config, "n_regressors", 0):
+            raise NotImplementedError(
+                "predict with exogenous regressors (xreg) is not ported yet "
+                "(ROADMAP Queue 1: serving with xreg)"
+            )
 
     def _prepare_request(self, request, horizon, on_missing):
         """Resolve series, pad the request to its bucket (pad rows repeat
@@ -252,9 +263,11 @@ class BatchForecaster:
 
     def predict(self, request: pd.DataFrame, horizon: int = 90,
                 include_history: bool = False,
-                on_missing: str = "raise") -> pd.DataFrame:
+                on_missing: str = "raise", xreg=None) -> pd.DataFrame:
         """Forecast every requested series ``horizon`` steps past the end of
-        training.  ``request`` needs the key columns only."""
+        training.  ``request`` needs the key columns only; ``xreg`` (a
+        regressor model's future values) is not ported yet and raises."""
+        self._refuse_regressors(xreg)
         sidx, params, day_all, scale = self._prepare_request(
             request, horizon, on_missing)
         if sidx.size == 0:
@@ -278,10 +291,12 @@ class BatchForecaster:
     def predict_quantiles(self, request: pd.DataFrame,
                           quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
                           include_history: bool = False,
-                          on_missing: str = "raise") -> pd.DataFrame:
+                          on_missing: str = "raise",
+                          xreg=None) -> pd.DataFrame:
         """Probabilistic forecast: one column per quantile level (``q0.1``,
         ``q0.5``, ...), priced from the predictive distribution the central
         interval uses."""
+        self._refuse_regressors(xreg)
         fns = get_model(self.model)
         if fns.forecast_quantiles is None:
             raise ValueError(

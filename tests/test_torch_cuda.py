@@ -12,6 +12,13 @@ within that tolerance; they are not bitwise equal.  The winner refit
 (``hw_filter``) is built without contraction and repeats its twin's float32
 operations in order, so it is held to ``_filter`` bit for bit; the fit the
 kernel scores is then bitwise the scan-scored fit wherever the winners agree.
+
+The curve model runs no hand kernel: its Gram is one cuBLAS GEMM and its
+solve cuSOLVER's batched Cholesky with cuBLAS triangular solves.  Those are
+held to the floored Cholesky twin (the CPU route) on the card at the main
+path's shapes, within ``10 * cond(A) * 2^-24`` of each row's scale; an
+indefinite system must come out NaN and be flagged by the fail-safe; the
+Gram must build no (S, T, F) intermediate; the solve must not sync.
 """
 
 import dataclasses
@@ -211,3 +218,99 @@ def test_filter_wrapper_refuses_what_the_kernel_does_not_take(dev):
     params[1] = params[1].double()
     with pytest.raises(ValueError, match="float32"):
         fs.hw_filter(y, mask, *params, 7, "additive")
+
+
+# -- the curve model's library route -----------------------------------------
+
+def _curve_systems(dev, cv_rows=False):
+    """The normal equations of the default configuration on the committed
+    dataset: 500 series (or the CV pass's 1,500 rows) x 1,826 days."""
+    import os
+
+    from distributed_forecasting_tpu_torch import data
+    from distributed_forecasting_tpu_torch.engine import cv
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
+    from distributed_forecasting_tpu_torch.ops import solve
+    from distributed_forecasting_tpu_torch.pipelines.training import (
+        _resolve_holidays_conf,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csv = os.path.join(root, "datasets", "store_item_demand.csv.gz")
+    b = data.tensorize(data.load_sales_csv(csv), device=dev)
+    cfg = pg.CurveModelConfig(**_resolve_holidays_conf({"holidays": "US"}, b, 90))
+    y, mask = b.y, b.mask
+    if cv_rows:
+        cuts = cv.cutoff_indices(b.n_time, cv.CVConfig())
+        mask = cv.cv_windows(mask, b.day, cuts, 90)[0].reshape(-1, b.n_time)
+        y = y.repeat(len(cuts), 1)
+    zn, _, _ = pg._fit_target(y, mask, cfg)
+    X, layout = pg._design(b.day, b.day[0].float(), b.day[-1].float(), cfg)
+    lam = pg._prior_precision(layout, cfg, device=dev)
+    A, rhs = solve.normal_equations(X, zn, mask, lam)
+    return X, A, rhs
+
+
+@pytest.mark.parametrize("cv_rows", [False, True], ids=["fit_500", "cv_1500"])
+def test_cusolver_route_equals_floored_twin(dev, cv_rows):
+    from distributed_forecasting_tpu_torch.ops import solve
+
+    X, A, rhs = _curve_systems(dev, cv_rows)
+    _, info = torch.linalg.cholesky_ex(A)
+    assert int((info != 0).sum()) == 0
+    got = solve.batched_cho_solve(A, rhs)
+    want = solve._solve_cholesky_floored(A, rhs)
+    tol = 10 * float(torch.linalg.cond(A.double()).max()) * 2.0**-24
+    for g, w in ((got, want), (got @ X.T, want @ X.T)):
+        scale = w.abs().amax(dim=1, keepdim=True)
+        assert bool(((g - w).abs() <= tol * scale).all()), tol
+
+
+def test_indefinite_system_is_nan_and_flagged(dev):
+    from distributed_forecasting_tpu_torch.engine.fit import health_fallback
+    from distributed_forecasting_tpu_torch.ops import solve
+
+    g = torch.Generator().manual_seed(0)
+    M = torch.randn(4, 6, 6, generator=g)
+    A = (M @ M.mT + 6 * torch.eye(6)).to(dev)
+    A[2] = -A[2]  # not definite: potrf stops at its first pivot
+    x = solve.batched_cho_solve(A, torch.ones(4, 6, device=dev))
+    assert bool(torch.isnan(x[2]).all())
+    assert bool(torch.isfinite(x[[0, 1, 3]]).all())
+    path = x @ torch.ones(6, 20, device=dev)
+    y = torch.ones(4, 15, device=dev)
+    _, _, _, ok = health_fallback(y, torch.ones_like(y), path, path, path, 5,
+                                  min_points=10)
+    assert ok.tolist() == [True, True, False, True]
+
+
+def test_gram_builds_no_series_by_time_by_feature_tensor(dev):
+    from distributed_forecasting_tpu_torch.ops import solve
+
+    S, T, F = 500, 1826, 61
+    X = torch.randn(T, F, device=dev)
+    w = (torch.rand(S, T, device=dev) > 0.1).float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    G = solve.masked_gram(X, w)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < S * T * F * 4 / 4, peak  # a quarter of the (S, T, F) size
+    want = torch.einsum("st,tf,tg->sfg", w.double(), X.double(), X.double())
+    torch.testing.assert_close(G.double(), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_solve_makes_no_host_sync(dev):
+    from distributed_forecasting_tpu_torch.ops import solve
+
+    X, A, rhs = _curve_systems(dev)
+    solve.batched_cho_solve(A, rhs)  # warm the libraries' handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solve.batched_cho_solve(A, rhs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

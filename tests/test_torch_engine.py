@@ -9,6 +9,8 @@ test_torch_hw_score.py); CV metric means, which average squared and
 percentage errors of those forecasts, within rtol 1e-4.
 """
 
+import dataclasses
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -162,3 +164,130 @@ def test_cross_validate_calibrate_waits_for_its_port(batches):
     _, tb = batches
     with pytest.raises(NotImplementedError, match="calibrate"):
         tcv.cross_validate(tb, "holt_winters", calibrate=True)
+
+
+# -- the curve model (model: prophet, the default) ---------------------------
+#
+# Forecasts within 2e-4 of each row's scale on healthy rows (the float32
+# solves' beta differences: see test_torch_prophet.py), the fallback rows as
+# above; CV metric means, averages of those forecasts' errors, within rtol
+# 1e-3, and coverage (a fraction of points inside the band) within one
+# point in a cutoff's window of 30 days.  The CV runs without the yearly
+# terms: at the first cutoff only 200 days are observed, where a 365.25-day
+# wave is nearly collinear with the trend; with yearly order 10 (4) the
+# system's condition number is ~1.5e6 (~8e5), and both packages' float32
+# solves land ~0.14 (~0.01) log units from the float64 solution 30 days
+# out, in different directions.  Without it the condition number is ~140.
+
+from distributed_forecasting_tpu.models import prophet_glm as jpg  # noqa: E402
+from distributed_forecasting_tpu.pipelines import training as jtrain  # noqa: E402
+from distributed_forecasting_tpu_torch.models import prophet_glm as tpg  # noqa: E402
+from distributed_forecasting_tpu_torch.pipelines import training as ttrain  # noqa: E402
+
+CURVE_RTOL = 2e-4
+
+
+def _curve_configs(jb, tb):
+    conf = {"seasonality_mode": "multiplicative", "holidays": "US"}
+    jconf = jtrain._resolve_holidays_conf(conf, jb, HORIZON)
+    tconf = ttrain._resolve_holidays_conf(conf, tb, HORIZON)
+    return jpg.CurveModelConfig(**jconf), tpg.CurveModelConfig(**tconf)
+
+
+@pytest.mark.parametrize("conf", [
+    None,
+    {"holidays": "US", "seasonality_mode": "multiplicative"},
+    {"holidays": {"calendar": "US", "lower_window": 1, "upper_window": 1,
+                  "custom": {"promo": ["2016-11-25", "2017-01-03"]}}},
+    {"holidays": (("x", (16000, 16001)),)},
+])
+def test_resolve_holidays_conf_matches_reference(batches, conf):
+    jb, tb = batches
+    assert (ttrain._resolve_holidays_conf(conf, tb, HORIZON)
+            == jtrain._resolve_holidays_conf(conf, jb, HORIZON))
+
+
+def test_resolve_holidays_conf_rejects_empty_calendar(batches):
+    _, tb = batches
+    with pytest.raises(ValueError, match="empty calendar"):
+        ttrain._resolve_holidays_conf({"holidays": {}}, tb, HORIZON)
+
+
+def _assert_rows_close(got, want, rtol):
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    np.testing.assert_array_less(np.abs(got - want),
+                                 np.broadcast_to(rtol * scale + 1e-6, want.shape))
+
+
+@pytest.mark.parametrize("xreg", [None, "shared", "per_series"])
+def test_curve_fit_forecast_matches_reference(batches, xreg):
+    jb, tb = batches
+    jc, tc = _curve_configs(jb, tb)
+    S, T = tb.y.shape
+    rng = np.random.default_rng(2)
+    x = None
+    if xreg is not None:
+        shape = (T + HORIZON, 2) if xreg == "shared" else (S, T + HORIZON, 2)
+        x = rng.normal(size=shape).astype(np.float32)
+        jc = dataclasses.replace(jc, n_regressors=2)
+        tc = dataclasses.replace(tc, n_regressors=2)
+    _, jr = jfit.fit_forecast(jb, model="prophet", config=jc, horizon=HORIZON,
+                              autoprep=False, xreg=x)
+    _, tr = tfit.fit_forecast(tb, config=tc, horizon=HORIZON,
+                              xreg=None if x is None else torch.from_numpy(x))
+    ok = tr.ok.numpy()
+    np.testing.assert_array_equal(ok, np.asarray(jr.ok))
+    assert ok[:-1].all() and not ok[-1]
+    off = _reference_band_steps_off(T)
+    keep = np.setdiff1d(np.arange(T + HORIZON), off)
+    for k in ("yhat", "lo", "hi"):
+        got, want = getattr(tr, k).numpy(), np.asarray(getattr(jr, k))
+        _assert_rows_close(got[ok], want[ok], CURVE_RTOL)
+        cols = keep if k != "yhat" else slice(None)
+        _assert_rows_close(got[~ok][:, cols], want[~ok][:, cols], 1e-5)
+
+
+@pytest.mark.parametrize("xreg", [None, "per_series"])
+def test_curve_cross_validate_matches_reference(batches, xreg):
+    jb, tb = batches
+    jc, tc = _curve_configs(jb, tb)
+    jc = dataclasses.replace(jc, yearly_order=0)
+    tc = dataclasses.replace(tc, yearly_order=0)
+    x = None
+    if xreg is not None:
+        x = np.random.default_rng(3).normal(
+            size=(tb.n_series, tb.n_time + HORIZON, 1)).astype(np.float32)
+        jc = dataclasses.replace(jc, n_regressors=1)
+        tc = dataclasses.replace(tc, n_regressors=1)
+    cv = dict(initial=200, period=60, horizon=30)
+    want = jcv.cross_validate(jb, model="prophet", config=jc,
+                              cv=jcv.CVConfig(**cv), xreg=x)
+    got = tcv.cross_validate(tb, config=tc, cv=tcv.CVConfig(**cv),
+                             xreg=None if x is None else torch.from_numpy(x))
+    assert got["_n_cutoffs"] == want["_n_cutoffs"] == 3
+    assert set(got) == set(want)
+    for k in sorted(set(got) - {"_n_cutoffs", "coverage"}):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-3, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(got["coverage"].numpy(),
+                               np.asarray(want["coverage"]), atol=1 / 30 / 3)
+
+
+def test_curve_guards_match_reference(batches):
+    jb, tb = batches
+    weekly = dataclasses.replace(tb, freq="W")
+    with pytest.raises(ValueError, match="calendar-daily"):
+        tfit.fit_forecast(weekly)
+    with pytest.raises(ValueError, match="calendar-daily"):
+        tcv.cross_validate(weekly)
+    cfg = tpg.CurveModelConfig(changepoint_days=(int(tb.day[5]), 800_000))
+    with pytest.raises(ValueError, match="outside the training data"):
+        tfit.fit_forecast(tb, config=cfg)
+    with pytest.raises(ValueError, match="history length"):
+        tcv.cross_validate(tb, config=tpg.CurveModelConfig(n_regressors=1),
+                           xreg=torch.zeros(10, 1))
+    with pytest.raises(ValueError, match="history \\+ horizon"):
+        tfit.fit_forecast(tb, config=tpg.CurveModelConfig(n_regressors=1),
+                          xreg=torch.zeros(tb.n_time, 1))
+    with pytest.raises(ValueError, match="no xreg"):
+        tfit.fit_forecast(tb, config=tpg.CurveModelConfig(n_regressors=1))

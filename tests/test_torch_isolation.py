@@ -62,6 +62,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.data\n"
         "import distributed_forecasting_tpu_torch.engine\n"
         "import distributed_forecasting_tpu_torch.ops._build\n"
+        "import distributed_forecasting_tpu_torch.pipelines.training\n"
         "import distributed_forecasting_tpu_torch.serving\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -91,6 +92,8 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
             n_stores=1, n_items=2, n_days=40, device=d),
         "hw_params_from_numpy": lambda d: convert.hw_params_from_numpy(
             {"alpha": np.ones(2, np.float32)}, device=d),
+        "curve_params_from_numpy": lambda d: convert.curve_params_from_numpy(
+            {"beta": np.ones((2, 3), np.float32)}, device=d),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -128,3 +128,91 @@ def test_unknown_params_type_is_refused(tmp_path):
         tpred.load_params_npz(str(tmp_path / "p.npz"),
                               "distributed_forecasting_tpu.models.arima:ArimaParams",
                               device="cpu")
+
+
+# -- curve-model artifacts (model: prophet) -----------------------------------
+#
+# The reference's own parameters serve through the port: only the forecast
+# arithmetic differs (exp, ndtri, the Fourier sin/cos by an ulp): rtol 1e-5.
+
+from distributed_forecasting_tpu.models import prophet_glm as jpg  # noqa: E402
+from distributed_forecasting_tpu.pipelines import training as jtrain  # noqa: E402
+from distributed_forecasting_tpu_torch.models import prophet_glm as tpg  # noqa: E402
+from distributed_forecasting_tpu_torch.pipelines import training as ttrain  # noqa: E402
+
+
+def _curve_conf(batch, training):
+    return training._resolve_holidays_conf(
+        {"holidays": "US", "extra_seasonalities": (("monthly", 30.5, 3, 2.0),)},
+        batch, 20)
+
+
+@pytest.mark.parametrize("model,ar", [("prophet", 0), ("prophet_ar", 1)])
+def test_reference_curve_artifact_serves_like_reference(sales, tmp_path, model,
+                                                        ar):
+    jb = jdata.tensorize(sales)
+    conf = _curve_conf(jb, jtrain)
+    cls = jpg.CurveModelConfigAR if model == "prophet_ar" else jpg.CurveModelConfig
+    cfg = cls(**conf, ar_order=ar)
+    params, _ = jfit.fit_forecast(jb, model=model, config=cfg, horizon=20,
+                                  autoprep=False)
+    jfc = jpred.BatchForecaster.from_fit(jb, params, model, cfg)
+    jfc.save(str(tmp_path))
+    tfc = tpred.BatchForecaster.load(str(tmp_path), device="cpu")
+    assert tfc.config.holidays == cfg.holidays
+    assert tfc.config.extra_seasonalities == cfg.extra_seasonalities
+    assert isinstance(tfc.params, tpg.CurveParams)
+    req = _request(jfc.keys[[4, 0, 9]])
+    scale = float(np.abs(np.asarray(jb.y)).max())
+    _assert_frames_match(tfc.predict(req, horizon=20, include_history=True),
+                         jfc.predict(req, horizon=20, include_history=True),
+                         scale, ("yhat", "yhat_upper", "yhat_lower"))
+    _assert_frames_match(tfc.predict_quantiles(req, horizon=20),
+                         jfc.predict_quantiles(req, horizon=20),
+                         scale, ("q0.1", "q0.5", "q0.9"))
+
+
+def test_port_curve_artifact_loads_in_reference(sales, tmp_path):
+    tb = tdata.tensorize(sales, device="cpu")
+    cfg = tpg.CurveModelConfig(**_curve_conf(tb, ttrain))
+    params, _ = tfit.fit_forecast(tb, config=cfg, horizon=20)
+    fc = tpred.BatchForecaster.from_fit(tb, params, "prophet", cfg)
+    fc.save(str(tmp_path))
+    back = tpred.BatchForecaster.load(str(tmp_path), device="cpu")
+    assert back.config == cfg
+    req = _request(tb.keys[[7, 2, 11, 2]])
+    pd.testing.assert_frame_equal(back.predict(req), fc.predict(req))
+    ref = jpred.BatchForecaster.load(str(tmp_path))
+    assert isinstance(ref.params, jpg.CurveParams)
+    scale = float(tb.y.abs().max())
+    _assert_frames_match(fc.predict(req, include_history=True),
+                         ref.predict(req, include_history=True), scale,
+                         ("yhat", "yhat_upper", "yhat_lower"))
+    _assert_frames_match(fc.predict_quantiles(req), ref.predict_quantiles(req),
+                         scale, ("q0.1", "q0.5", "q0.9"))
+
+
+def test_curve_gather_params_passes_scalars_and_empty_fields(sales):
+    tb = tdata.tensorize(sales, device="cpu")
+    cfg = tpg.CurveModelConfig()
+    params, _ = tfit.fit_forecast(tb, config=cfg, horizon=20)
+    fc = tpred.BatchForecaster.from_fit(tb, params, "prophet", cfg)
+    sub = fc.gather_params(np.array([3, 3, 1]))
+    assert sub.beta.shape == (3, params.beta.shape[1])
+    assert torch.equal(sub.t0, params.t0) and torch.equal(sub.t1, params.t1)
+    assert sub.reg_mu.shape == (0, 0) and sub.ar_phi.shape == (0, 0)
+    torch.testing.assert_close(sub.sigma, params.sigma[[3, 3, 1]])
+
+
+def test_curve_regressor_serving_waits_for_its_port(sales):
+    tb = tdata.tensorize(sales, device="cpu")
+    T = tb.n_time
+    cfg = tpg.CurveModelConfig(n_regressors=1)
+    params, _ = tfit.fit_forecast(tb, config=cfg, horizon=20,
+                                  xreg=torch.zeros(T + 20, 1))
+    fc = tpred.BatchForecaster.from_fit(tb, params, "prophet", cfg)
+    req = _request(tb.keys[[0]])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fc.predict(req)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fc.predict_quantiles(req, xreg=torch.zeros(T + 90, 1))
