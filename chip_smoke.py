@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths once, on the card, at the reference
+Drives the port's main paths once, on the card, at the reference
 workload's full size — the committed ``datasets/store_item_demand.csv.gz``
-(500 store x item series, 1,826 days):
+(500 store x item series, 1,826 days) — and the system's own workflow at
+its own size:
 
   * Holt-Winters: load -> tensorize -> fit + forecast (candidates scored by
     the ``hw_score`` CUDA kernel, the winner refit by the ``hw_filter`` CUDA
@@ -13,7 +14,11 @@ workload's full size — the committed ``datasets/store_item_demand.csv.gz``
   * the curve model (``model: prophet``, the default configuration:
     multiplicative seasonality, US holidays, F = 61 features): the same
     path, its Gram one cuBLAS GEMM and its solve cuSOLVER's batched
-    Cholesky with cuBLAS triangular solves (no hand kernel).
+    Cholesky with cuBLAS triangular solves (no hand kernel);
+  * ``conf/workflows.yml``'s ``forecasting-e2e`` through the port's workflow
+    runner: catalog -> ingest (10 stores x 50 items x 1,826 synthetic days)
+    -> train (the curve model, CV 730/360/90, split-conformal bands) ->
+    deploy -> inference, without its monitor node (not ported).
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -55,6 +60,22 @@ is not 0:
               at the fit and CV shapes beside their bounds (and the
               ``einsum`` Gram), and the device's idle share and library
               launches over one fit_forecast and one CV pass
+  7. workflow forecasting-e2e minus monitor, in a temporary env.root, with
+              the launch counters set to 0 before it (its curve model
+              launches no hand kernel).  Checks: every task OK; the train
+              run's batch, forecast and conformal scales on the card; the
+              forecast and inference tables' keys, dates and rows, finite,
+              lo <= yhat <= hi; 500 finite positive scales;
+              val_coverage_calibrated logged beside val_coverage; version 1
+              registered, tagged model_family prophet, in Staging; the
+              registered artifact predicting the train run's artifact's
+              frame, the inference table, and the train run's forecast
+              within 1e-5.  Times: per task, the train run's phase_* and
+              fit_seconds, the device's idle share over the train task's
+              dispatch stage, and the conformal scale alone at the CV shape
+              beside its bound (its sorts counted, no host sync).  A
+              20-series cross_validate(calibrate=True) on the card equals
+              the CPU's: ranks equal, scales within their scores' change
 
 The line before the last lists the kernels (launches, error, times, bound);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -746,6 +767,289 @@ def curve_timings(run, port, card_line: str) -> dict:
     return t
 
 
+# -- the forecasting-e2e workflow: catalog -> ingest -> train with conformal
+# bands -> deploy -> inference, through the port's workflow runner -----------
+
+WORKFLOWS = os.path.join(ROOT, "conf", "workflows.yml")
+E2E = "forecasting-e2e"
+TASKS = ["catalog", "etl", "train", "deploy", "inference"]
+
+
+def e2e_spec(port) -> dict:
+    """``conf/workflows.yml``'s forecasting-e2e as the runner reads it,
+    without its monitor node (the port has no monitor task yet) and with
+    its conf_file paths made absolute."""
+    spec = port["config"].load_conf(WORKFLOWS)
+    spec["workflows"] = [w for w in spec["workflows"] if w["name"] == E2E]
+    wf = spec["workflows"][0]
+    wf["tasks"] = [t for t in wf["tasks"] if t["task"] != "monitor"]
+    for t in wf["tasks"]:
+        if t.get("conf_file"):
+            t["conf_file"] = os.path.join(ROOT, t["conf_file"])
+    return spec
+
+
+def task_conf(spec, task: str) -> dict:
+    return next(t["conf"] for t in spec["workflows"][0]["tasks"]
+                if t["task"] == task)
+
+
+class DeviceSpy:
+    """Records the device of the batch, the forecast and the conformal
+    scales that the training pipeline's ``fit_forecast`` and
+    ``cross_validate`` see and return, without waiting for the device."""
+
+    def __init__(self, training):
+        self.training, self.devices = training, {}
+
+    def __enter__(self):
+        tr, seen = self.training, self.devices
+        self._orig = fit_forecast, cross_validate = (tr.fit_forecast,
+                                                     tr.cross_validate)
+
+        def fit_spy(batch, **kw):
+            params, result = fit_forecast(batch, **kw)
+            seen.update(batch=batch.y.device.type,
+                        forecast=result.yhat.device.type)
+            return params, result
+
+        def cv_spy(batch, **kw):
+            out = cross_validate(batch, **kw)
+            seen["interval_scale"] = out["_interval_scale"].device.type
+            return out
+
+        tr.fit_forecast, tr.cross_validate = fit_spy, cv_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.training.fit_forecast, self.training.cross_validate = self._orig
+
+
+def workflow_main_path(port, root: str, spec: dict, device="cuda") -> dict:
+    """Phase 7's main path: the workflow, start to end, on ``device``."""
+    t0 = time.perf_counter()
+    with DeviceSpy(port["training"]) as spy:
+        results = port["runner"].WorkflowRunner(
+            spec, env={"root": root}, device=device).run(E2E)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return dict(results=results, devices=spy.devices,
+                seconds=time.perf_counter() - t0)
+
+
+def _store(port, root):
+    """The workflow's catalog, tracker and registry under ``root``."""
+    t = port["tracking"]
+    return (port["data"].DatasetCatalog(os.path.join(root, "warehouse")),
+            t.FileTracker(os.path.join(root, "mlruns")),
+            t.ModelRegistry(os.path.join(root, "registry")))
+
+
+def _check_table(df, keys, dates, what: str) -> None:
+    """Rows are every key over ``dates``, in key-major order; the values
+    finite and ordered lo <= yhat <= hi."""
+    S, D = len(keys), len(dates)
+    assert len(df) == S * D, (what, len(df), S * D)
+    np.testing.assert_array_equal(df[["store", "item"]].to_numpy()[::D], keys)
+    np.testing.assert_array_equal(
+        df["ds"].to_numpy().reshape(S, D),
+        np.broadcast_to(dates.values, (S, D)))
+    vals = df[["yhat", "yhat_upper", "yhat_lower"]].to_numpy()
+    assert np.isfinite(vals).all(), what
+    assert (df["yhat_lower"] <= df["yhat"]).all(), what
+    assert (df["yhat"] <= df["yhat_upper"]).all(), what
+
+
+def check_workflow(run, port, root: str, spec: dict, device="cuda") -> dict:
+    """Phase 7's checks: every task OK, the train run on the card, both
+    tables' keys, dates, rows and values, the 500 conformal scales, the
+    calibrated coverage logged beside the raw, the registered version and
+    its tags and stage, and the registered artifact predicting what the
+    train run's artifact predicts."""
+    results = run["results"]
+    assert list(results) == TASKS, list(results)
+    assert all(r["status"] == "OK" for r in results.values()), results
+    assert run["devices"] == {"batch": device, "forecast": device,
+                              "interval_scale": device}, run["devices"]
+    synth = task_conf(spec, "ingest")["input"]["synthetic"]
+    tr = task_conf(spec, "train")
+    horizon = int(tr["training"]["horizon"])
+    h_inf = int(task_conf(spec, "inference")["inference"]["horizon"])
+    S = int(synth["n_stores"]) * int(synth["n_items"])
+    T = int(synth["n_days"])
+    catalog, tracker, registry = _store(port, root)
+    keys = np.array([(s, i) for s in range(1, synth["n_stores"] + 1)
+                     for i in range(1, synth["n_items"] + 1)])
+    dates = pd.date_range("2013-01-01", periods=T + horizon)
+    forecasts = catalog.read_table(tr["output"]["table"])
+    _check_table(forecasts, keys, dates, "forecast table")
+    inf_conf = task_conf(spec, "inference")
+    served = catalog.read_table(inf_conf["output"]["table"])
+    _check_table(served, keys, dates[T:T + h_inf], "inference table")
+
+    summary = results["train"]["result"]
+    assert summary["n_series"] == S and summary["n_failed"] == 0, summary
+    train_run = tracker.get_run(summary["experiment_id"], summary["run_id"])
+    metrics = train_run.metrics()
+    assert {"val_coverage", "val_coverage_calibrated"} <= set(metrics)
+    table = pd.read_parquet(train_run.artifact_path("series_metrics.parquet"))
+    scales = table["interval_scale"].to_numpy()
+    assert scales.shape == (S,) and np.isfinite(scales).all()
+    assert (scales > 0).all()
+
+    model_name = inf_conf["inference"]["model_name"]
+    version = registry.latest_version(model_name)
+    assert (version.version, version.stage) == (1, "Staging"), version
+    assert version.tags["model_family"] == "prophet", version.tags
+    registered, _ = port["serving"].resolve_from_registry(
+        registry, model_name, device=device)
+    trained = port["serving"].load_forecaster(
+        train_run.artifact_path("forecaster"), device=device)
+    request = pd.DataFrame(keys, columns=["store", "item"])
+    got = registered.predict(request, horizon=h_inf)
+    pd.testing.assert_frame_equal(got, trained.predict(request, horizon=h_inf))
+    # (the table's parquet round trip changes the ds unit, not the dates)
+    pd.testing.assert_frame_equal(got, served[got.columns], check_dtype=False)
+    # the train run's own forecast over the same days, within float32
+    future = forecasts.groupby(["store", "item"], sort=False).nth(
+        list(range(T, T + h_inf)))
+    for col in ("yhat", "yhat_upper", "yhat_lower"):
+        a = got[col].to_numpy().reshape(S, -1)
+        b = future[col].to_numpy().reshape(S, -1)
+        scale = np.abs(b).max(axis=1, keepdims=True)
+        assert (np.abs(a - b) <= 1e-5 * scale).all(), col
+    out = dict(
+        tasks_seconds={k: r["seconds"] for k, r in results.items()},
+        seconds=run["seconds"], series=S, days=T,
+        forecast_rows=len(forecasts), inference_rows=len(served),
+        fit_seconds=metrics["fit_seconds"],
+        phases={k: v for k, v in metrics.items() if k.startswith("phase_")},
+        val_coverage=metrics["val_coverage"],
+        val_coverage_calibrated=metrics["val_coverage_calibrated"],
+        interval_scale_mean=metrics["interval_scale_mean"],
+        interval_scale_range=[float(scales.min()), float(scales.max())],
+        registry={"version": version.version, "stage": version.stage,
+                  "model_family": version.tags["model_family"]},
+        devices=run["devices"])
+    emit("workflow", **out)
+    return out
+
+
+def train_stages(port, root: str, spec: dict, device="cuda"):
+    """The workflow's train task as its pipeline runs it, stage by stage,
+    with the arguments the train task passes."""
+    from distributed_forecasting_tpu_torch.tasks.train import (
+        fine_grained_options,
+    )
+
+    catalog, tracker, _ = _store(port, root)
+    pipe = port["training"].TrainingPipeline(catalog, tracker, device=device)
+    return pipe.fine_grained_stages(
+        **fine_grained_options(task_conf(spec, "train")))
+
+
+def cv_paths(port, batch, config, cv_conf):
+    cv = port["cv"]
+    cuts = cv.cutoff_indices(batch.n_time, cv.CVConfig(**cv_conf))
+    return cv._cv_paths(batch, "prophet", config, cuts, cv_conf["horizon"])
+
+
+def conformal_vs_cpu(port, batch, config, cv_conf, n: int = 20) -> dict:
+    """A 20-series ``cross_validate(calibrate=True)`` on the card and on
+    the CPU: the CV paths within the tolerance their conditioning gives
+    (10 * cond(A) * 2^-24 of each row's scale), the conformal ranks equal,
+    and each scale within the largest change of the scores it is an order
+    statistic of (of every series' scores where the pooled one stands in)."""
+    cal, cv = port["cal"], port["cv"]
+    sub = batch.take_series(range(n))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    cvc = cv.CVConfig(**cv_conf)
+    out_gpu = cv.cross_validate(sub, "prophet", config=config, cv=cvc,
+                                calibrate=True)
+    out_cpu = cv.cross_validate(cpu, "prophet", config=config, cv=cvc,
+                                calibrate=True)
+    paths = {}
+    for name, b in (("gpu", sub), ("cpu", cpu)):
+        yhat, _, hi, em, _ = cv_paths(port, b, config, cv_conf)
+        half = hi - yhat
+        obs = (em > 0) & (half > 1e-6 * (yhat.abs() + 1e-9))
+        r = torch.where(obs, (b.y[None] - yhat).abs() / half.clamp_min(1e-9),
+                        0.0)
+        n_obs = obs.sum((0, 2)).float()
+        width = torch.full((), cal.config_interval_width(config),
+                           dtype=torch.float32, device=n_obs.device)
+        paths[name] = dict(yhat=yhat.cpu(), hi=hi.cpu(), obs=obs.cpu(),
+                           r=r.cpu(), n=n_obs.cpu(),
+                           k=cal._conformal_rank(n_obs, width).cpu())
+    g, c = paths["gpu"], paths["cpu"]
+    assert torch.equal(g["obs"], c["obs"]) and torch.equal(g["k"], c["k"])
+    assert cv_conf == CV, cv_conf  # cv_inputs builds CV's windows
+    _, A, _ = curve_systems(*cv_inputs(sub, port["cv"]), sub.day, config, port)
+    tol, kappa = cond_tolerance(A)
+    worst_path = 0.0
+    for k in ("yhat", "hi"):
+        a, b = g[k].reshape(-1, g[k].shape[-1]), c[k].reshape(-1, c[k].shape[-1])
+        rel = float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+        assert rel <= tol, (k, rel, tol)
+        worst_path = max(worst_path, rel)
+    diff = (g["r"] - c["r"]).abs()
+    per_series = diff.amax((0, 2))
+    bound = torch.where(c["n"] >= 30, per_series, diff.max())
+    s_gpu, s_cpu = out_gpu["_interval_scale"].cpu(), out_cpu["_interval_scale"]
+    err = (s_gpu - s_cpu).abs()
+    assert bool((err <= bound + F32_EPS * 2 * s_cpu.abs()).all()), (err, bound)
+    res = dict(series=n, ranks_equal=True, path_max_rel_diff=worst_path,
+               path_tol_rel=tol, cond_max=kappa,
+               scale_max_abs_diff=float(err.max()),
+               scale_bound_max=float(bound.max()))
+    emit("workflow_gpu_vs_cpu_20_series", **res)
+    return res
+
+
+def workflow_timings(port, root: str, spec: dict, card_line: str) -> dict:
+    """Phase 7's times: the device's idle share over the train task's
+    dispatch stage (the CV pass with its conformal scales, the fit, the
+    calibrated bands), and the conformal scale alone at the CV shape beside
+    its bound, with its sort launches, and run under CUDA's sync check."""
+    cal = port["cal"]
+    prep, dispatch, _ = train_stages(port, root, spec)
+    state = prep()
+    dispatch(dict(state))  # warm-up
+    torch.cuda.synchronize()
+    profile = idle_share(lambda: dispatch(dict(state)), top_n=12)
+    batch, config = state["batch"], state["config"]
+    cv_conf = task_conf(spec, "train")["training"]["cv"]
+    yhat, _, hi, em, _ = cv_paths(port, batch, config, cv_conf)
+    width = cal.config_interval_width(config)
+    scale = lambda: cal.conformal_scale_from_paths(  # noqa: E731
+        batch.y, yhat, hi, em, interval_width=width)
+    C, S, T = (int(d) for d in yhat.shape)
+    bound, by = bound_ms(cal.conformal_scale_work(C, S, T))
+    ms = cuda_ms(scale, inner=20)
+    scale_profile = idle_share(scale, top_n=6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scale()
+        synced = False
+    except RuntimeError:
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if synced:  # the measurements still run; main() fails at the end
+        DEFERRED.append("the conformal scale synced with the host")
+    t = dict(dispatch_profile=profile,
+             conformal={"shape": [C, S, T], "ms": ms, "bound_ms": bound,
+                        "bound_by": by, "share_of_bound": bound / ms,
+                        "host_sync": synced,
+                        "events_by_kind": scale_profile.get("events_by_kind"),
+                        "top_device_events": scale_profile.get(
+                            "top_device_events")})
+    emit("workflow_times", card=card_line, reps=REPS, statistic="median", **t)
+    return dict(t, state=state, cv_conf=cv_conf)
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -767,6 +1071,10 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.ops import _build, fused_scan as fs
     from distributed_forecasting_tpu_torch.ops import solve
     from distributed_forecasting_tpu_torch.pipelines import training
+    from distributed_forecasting_tpu_torch import tracking
+    from distributed_forecasting_tpu_torch.engine import calibrate as cal
+    from distributed_forecasting_tpu_torch.utils import config
+    from distributed_forecasting_tpu_torch.workflows import runner
 
     card_line = card()
     name = torch.cuda.get_device_name(0)
@@ -775,7 +1083,8 @@ def main() -> int:
     print(card_line, flush=True)
 
     port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
-                pg=pg, solve=solve, training=training)
+                pg=pg, solve=solve, training=training, tracking=tracking,
+                cal=cal, config=config, runner=runner)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -809,6 +1118,19 @@ def main() -> int:
          expected="0: the curve path runs no hand kernel")
     check_curve_outputs(curve_run, port)
     curve_timings(curve_run, port, card_line)
+
+    spec = e2e_spec(port)
+    with tempfile.TemporaryDirectory() as root:
+        for fn in counters.values():  # the workflow path: counters to 0
+            fn.launches = 0
+        wf_run = workflow_main_path(port, root, spec)
+        emit("launches", path="workflow", **{k: fn.launches for k, fn in
+                                             counters.items()},
+             expected="0: the workflow's curve model runs no hand kernel")
+        check_workflow(wf_run, port, root, spec)
+        wt = workflow_timings(port, root, spec, card_line)
+        conformal_vs_cpu(port, wt["state"]["batch"], wt["state"]["config"],
+                         wt["cv_conf"])
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
 

@@ -4,18 +4,26 @@ from distributed_forecasting_tpu_torch.data.tensorize import (
     period_ordinals,
     tensorize,
 )
+from distributed_forecasting_tpu_torch.data.catalog import (
+    DatasetCatalog,
+    TableNotFoundError,
+)
 from distributed_forecasting_tpu_torch.data.dataset import (
     load_sales_csv,
+    load_sales_parquet,
     synthetic_series_batch,
     synthetic_store_item_sales,
 )
 
 __all__ = [
+    "DatasetCatalog",
+    "TableNotFoundError",
     "SeriesBatch",
     "ordinals_to_dates",
     "period_ordinals",
     "tensorize",
     "load_sales_csv",
+    "load_sales_parquet",
     "synthetic_series_batch",
     "synthetic_store_item_sales",
 ]

@@ -1,7 +1,7 @@
 """Dataset ingestion + synthetic data generation (port of the reference's
 ``data/dataset.py``, pandas path).
 
-:func:`load_sales_csv` reads the ``(date, store, item, sales)`` long format;
+:func:`load_sales_csv` and :func:`load_sales_parquet` read the ``(date, store, item, sales)`` long format;
 :func:`synthetic_store_item_sales` generates a Kaggle-store-item-demand-shaped
 table with known structure (piecewise-linear trend, weekly + yearly
 multiplicative seasonality, lognormal noise) from a numpy seed — the same
@@ -34,6 +34,10 @@ def load_sales_csv(path: str) -> pd.DataFrame:
     """Read the ``train.csv`` long format (``.csv.gz`` too — pandas
     decompresses it)."""
     return _coerce_sales_frame(pd.read_csv(path))
+
+
+def load_sales_parquet(path: str) -> pd.DataFrame:
+    return _coerce_sales_frame(pd.read_parquet(path))
 
 
 def synthetic_store_item_sales(

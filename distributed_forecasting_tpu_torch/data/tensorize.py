@@ -63,6 +63,9 @@ class SeriesBatch:
             self.start_date, periods=self.n_time, freq=self.freq
         ).to_timestamp()
 
+    def key_frame(self) -> pd.DataFrame:
+        return pd.DataFrame(np.asarray(self.keys), columns=list(self.key_names))
+
     def pad_series_to(self, n: int) -> "SeriesBatch":
         """Pad the series axis up to ``n`` with mask=0 rows (keys -1)."""
         s = self.n_series

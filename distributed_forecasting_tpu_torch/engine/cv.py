@@ -1,5 +1,5 @@
-"""Rolling-origin cross-validation (port of the reference's ``engine/cv.py``,
-``calibrate=False`` route).
+"""Rolling-origin cross-validation (port of the reference's ``engine/cv.py``:
+the metric means, with or without split-conformal calibration).
 
 Prophet's ``cross_validation(horizon, period, initial)`` protocol: cutoffs
 every ``period`` steps after ``initial`` steps of history; each cutoff fits
@@ -8,7 +8,8 @@ cutoffs.  Train masks differ per cutoff and everything else is shared, so
 the cutoff axis is folded into the series axis: all C cutoffs x S series fit
 as one (C·S, T) batch — one fit and one forecast per CV pass (for
 Holt-Winters one launch of each kernel; for the curve model one Gram GEMM
-and one batched solve).
+and one batched solve).  ``calibrate=True`` adds the per-series conformal
+band scale (``engine/calibrate``) from the same paths.
 """
 
 from __future__ import annotations
@@ -70,6 +71,72 @@ def _cv_metric_means(y, yhat, lo, hi, eval_masks, train_masks, mase_m=7):
     return {name: torch.mean(v, dim=0) for name, v in per_cut.items()}
 
 
+def _cv_entry(batch: SeriesBatch, model: str, config, xreg, what: str):
+    """Entry validation shared by every CV route: the grid cadence,
+    explicit changepoint days and regressor tensors.  Returns
+    ``(config, xreg)``."""
+    from distributed_forecasting_tpu_torch.engine.fit import (
+        validate_changepoint_days,
+        validate_grid_cadence,
+        validate_xreg,
+    )
+
+    fns = get_model(model)
+    config = config if config is not None else fns.config_cls()
+    validate_grid_cadence(model, batch)
+    validate_changepoint_days(config, batch.day)
+    xreg = validate_xreg(fns, model, config, xreg, None, what,
+                         trim_to=batch.n_time)
+    return config, xreg
+
+
+def _cv_paths(batch: SeriesBatch, model: str, config, cuts, horizon: int,
+              xreg=None):
+    """Every cutoff's forecast paths and windows:
+    ``(yhat, lo, hi, eval_masks, train_masks)``, each (C, S, T), from one
+    fit and one forecast over the cutoff-major (C·S, T) rows."""
+    fns = get_model(model)
+    y, mask, day = batch.y, batch.mask, batch.day
+    S, T = y.shape
+    C = len(cuts)
+    train_masks, eval_masks, t_ends = cv_windows(mask, day, cuts, horizon)
+
+    # cutoff-major rows: row c*S + s is series s trained up to cutoff c
+    kw = {}
+    if xreg is not None:
+        xreg = xreg.to(y.device)
+        kw["xreg"] = xreg.repeat(C, 1, 1) if xreg.dim() == 3 else xreg
+    params = fns.fit(y.repeat(C, 1), train_masks.reshape(C * S, T), day,
+                     config, **kw)
+    yhat, lo, hi = fns.forecast(params, day, t_ends.repeat_interleave(S),
+                                config, **kw)
+    yhat, lo, hi = (x.reshape(C, S, T) for x in (yhat, lo, hi))
+    return yhat, lo, hi, eval_masks, train_masks
+
+
+def _calibration_outputs(y, yhat, lo, hi, eval_masks, model: str, config):
+    """Conformal scale and the calibrated band's CV coverage from the
+    (C, S, T) paths: ``(scale (S,), coverage (S,))``."""
+    from distributed_forecasting_tpu_torch.engine.calibrate import (
+        apply_interval_scale,
+        config_interval_width,
+        conformal_scale_from_paths,
+    )
+
+    scale = conformal_scale_from_paths(
+        y, yhat, hi, eval_masks,
+        interval_width=config_interval_width(config),
+    )
+    # the (S, 1) scale broadcasts against the (C, S, T) paths directly
+    _, lo_c, hi_c = apply_interval_scale(
+        yhat, lo, hi, scale, floor=get_model(model).band_floor
+    )
+    y_b = y[None].expand_as(yhat)
+    cov_c = torch.mean(metrics_ops.coverage(y_b, lo_c, hi_c, eval_masks),
+                       dim=0)
+    return scale, cov_c
+
+
 def cross_validate(
     batch: SeriesBatch,
     model: str = "prophet",
@@ -85,45 +152,23 @@ def cross_validate(
     (T, R) or (S, T, R) over the history (a longer, history + horizon
     tensor is trimmed: CV scores inside the history).  Per-series
     regressors re-standardize under each cutoff's train mask, as a fit at
-    that cutoff would.  ``calibrate=True`` (split-conformal band scales)
-    waits for the port of ``engine/calibrate``.
+    that cutoff would.
+
+    ``calibrate=True`` adds ``"_interval_scale"``, the (S,) split-conformal
+    band scale from the same paths (``engine/calibrate``), and
+    ``"_coverage_calibrated"``, the CV coverage of the band it scales.
     """
-    if calibrate:
-        raise NotImplementedError(
-            "cross_validate(calibrate=True) is not ported yet "
-            "(ROADMAP Queue 1: calibrate)"
-        )
-    from distributed_forecasting_tpu_torch.engine.fit import (
-        validate_changepoint_days,
-        validate_grid_cadence,
-        validate_xreg,
-    )
-
-    fns = get_model(model)
-    config = config if config is not None else fns.config_cls()
-    validate_grid_cadence(model, batch)
-    validate_changepoint_days(config, batch.day)
-    xreg = validate_xreg(fns, model, config, xreg, None, "cross_validate",
-                         trim_to=batch.n_time)
-    y, mask, day = batch.y, batch.mask, batch.day
-    S, T = y.shape
-    cuts = cutoff_indices(T, cv)
-    C = len(cuts)
-    train_masks, eval_masks, t_ends = cv_windows(mask, day, cuts, cv.horizon)
-
-    # cutoff-major rows: row c*S + s is series s trained up to cutoff c
-    kw = {}
-    if xreg is not None:
-        xreg = xreg.to(y.device)
-        kw["xreg"] = xreg.repeat(C, 1, 1) if xreg.dim() == 3 else xreg
-    params = fns.fit(y.repeat(C, 1), train_masks.reshape(C * S, T), day,
-                     config, **kw)
-    yhat, lo, hi = fns.forecast(params, day, t_ends.repeat_interleave(S),
-                                config, **kw)
-    yhat, lo, hi = (x.reshape(C, S, T) for x in (yhat, lo, hi))
+    config, xreg = _cv_entry(batch, model, config, xreg, "cross_validate")
+    cuts = cutoff_indices(batch.n_time, cv)
+    yhat, lo, hi, eval_masks, train_masks = _cv_paths(
+        batch, model, config, cuts, cv.horizon, xreg)
     out = _cv_metric_means(
-        y, yhat, lo, hi, eval_masks, train_masks,
+        batch.y, yhat, lo, hi, eval_masks, train_masks,
         mase_m=metrics_ops.seasonal_naive_lag(batch.freq),
     )
-    out["_n_cutoffs"] = C
+    out["_n_cutoffs"] = len(cuts)
+    if calibrate:
+        out["_interval_scale"], out["_coverage_calibrated"] = (
+            _calibration_outputs(batch.y, yhat, lo, hi, eval_masks, model,
+                                 config))
     return out

@@ -17,7 +17,7 @@ Families registered with ``supports_xreg`` (the curve model) also take
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -69,15 +69,22 @@ class ModelFns(NamedTuple):
     # (params, day_all, t_end, config, quantiles) -> (S, Q, T_all)
     forecast_quantiles: Callable = None
     supports_xreg: bool = False
+    # hard floor the family enforces on its lower band (the reference's
+    # croston clamps demand at 0); band post-processing (conformal scaling,
+    # engine/calibrate) re-applies it after widening.  No ported family
+    # sets one.
+    band_floor: Optional[float] = None
 
 
 def register_model(name: str, fit: Callable, forecast: Callable,
                    config_cls: type, forecast_quantiles: Callable = None,
-                   supports_xreg: bool = False):
+                   supports_xreg: bool = False,
+                   band_floor: Optional[float] = None):
     MODEL_REGISTRY[name] = ModelFns(fit=fit, forecast=forecast,
                                     config_cls=config_cls,
                                     forecast_quantiles=forecast_quantiles,
-                                    supports_xreg=supports_xreg)
+                                    supports_xreg=supports_xreg,
+                                    band_floor=band_floor)
 
 
 def get_model(name: str) -> ModelFns:

@@ -1,16 +1,123 @@
-"""Training-pipeline helpers (port of the reference's
-``pipelines/training.py``).  Only the conf resolution the curve model's
-default configuration needs is ported so far: :func:`_resolve_holidays_conf`.
-The pipeline itself waits for its slice (ROADMAP Queue 1, P6).
+"""Training pipeline (port of the reference's ``pipelines/training.py``,
+the plain fine-grained path).
+
+:meth:`TrainingPipeline.fine_grained` is the headline per-(store, item)
+workload: history -> tensorize -> rolling-origin CV (optionally with
+split-conformal band calibration) -> one batched fit + forecast -> one
+tracked run (params, aggregate metrics, the per-series metric table, the
+serving artifact) -> the forecast table.
+
+It runs in three stages, as the reference's serial path does: ``prep``
+(read, tensorize, resolve the config), ``dispatch`` (the CV pass and the
+fit, launched on the card) and ``complete`` (every host pull, then the
+tracking and table writes).  The reference's executor, which overlaps the
+stages of several experiments, is not ported (ROADMAP Queue 1: P11); its
+contract makes the pipelined path byte-identical to this one.
+
+Options the port does not run yet raise ``NotImplementedError`` naming the
+ROADMAP item that ports them; none is ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import pandas as pd
 
 from distributed_forecasting_tpu_torch.data import holidays as H
+from distributed_forecasting_tpu_torch.data.catalog import DatasetCatalog
+from distributed_forecasting_tpu_torch.data.tensorize import tensorize
+from distributed_forecasting_tpu_torch.engine.calibrate import (
+    apply_interval_scale,
+)
+from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
+from distributed_forecasting_tpu_torch.engine.fit import (
+    fit_forecast,
+    forecast_frame,
+)
+from distributed_forecasting_tpu_torch.models.base import (
+    MODEL_REGISTRY,
+    get_model,
+)
+from distributed_forecasting_tpu_torch.serving.predictor import BatchForecaster
+from distributed_forecasting_tpu_torch.tracking import FileTracker
+from distributed_forecasting_tpu_torch.utils.config import freeze
+from distributed_forecasting_tpu_torch.utils.device import resolve_device
+from distributed_forecasting_tpu_torch.utils.logging import get_logger
+from distributed_forecasting_tpu_torch.utils.profiling import (
+    PhaseTimer,
+    device_trace,
+)
+
+_METRICS = ("mse", "rmse", "mae", "mape", "smape", "mdape", "coverage",
+            "mase")
+
+# per-series drill-down runs: warn above this count (O(S) host loop)
+_PER_SERIES_RUNS_WARN = 2000
+
+# model families of the reference that the port has not ported yet
+_UNPORTED_FAMILIES = frozenset({"theta", "croston", "arima", "arnet"})
+_CALENDAR_DAILY_FAMILIES = frozenset({"prophet", "curve", "prophet_ar"})
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1: {item})")
+
+
+def _comparability_params(batch, cv):
+    """The CV protocol and data span behind this run's ``val_*`` metrics:
+    scores measured on different history windows or CV configs are not
+    comparable, and a promotion gate reads these to tell.  ``cv``: the
+    CVConfig that ran; None when CV was skipped."""
+    dates = batch.dates()
+    return {
+        "cv_protocol": (f"{cv.initial}/{cv.period}/{cv.horizon}"
+                        if cv is not None else "none"),
+        "data_span": (f"{dates[0].date()}..{dates[-1].date()}"
+                      f":{getattr(batch, 'freq', 'D')}"),
+    }
+
+
+def _config_from_conf(model: str, model_conf: Optional[Dict[str, Any]]):
+    fns = get_model(model)
+    # YAML sequences arrive as lists; configs stay hashable
+    return fns.config_cls(
+        **{k: freeze(v) for k, v in (model_conf or {}).items()}
+    )
+
+
+def _check_cadence(freq: str, model: str, model_conf) -> None:
+    """The curve model's weekly/yearly Fourier terms and holiday calendars
+    are calendar-daily: on a week or month grid they raise here rather
+    than fit a 7-step "weekly" cycle."""
+    if freq == "D":
+        return
+    if model in _CALENDAR_DAILY_FAMILIES:
+        raise ValueError(
+            f"training.freq={freq!r}: the curve model's seasonalities are "
+            f"calendar-daily; use a cadence-agnostic family (holt_winters) "
+            f"or freq: D (conf names [{model!r}])"
+        )
+    if isinstance((model_conf or {}).get("holidays"), (str, dict)):
+        raise ValueError(
+            f"training.freq={freq!r}: holiday calendars are daily; "
+            f"use freq: D"
+        )
+
+
+def _resolve_model_conf(model_conf: Optional[Dict[str, Any]], batch,
+                        horizon: int) -> Optional[Dict[str, Any]]:
+    """The conf translations applied before a config is built: a named
+    holiday calendar.  ``season_length: auto`` needs season detection,
+    which is not ported."""
+    if (model_conf or {}).get("season_length") == "auto":
+        raise _not_ported("season_length: auto (engine/season.py)", "P8")
+    return _resolve_holidays_conf(model_conf, batch, horizon)
 
 
 def _resolve_holidays_conf(
@@ -53,3 +160,305 @@ def _resolve_holidays_conf(
         start, end, calendar=(name or "none"), custom=custom,
         lower_window=lower, upper_window=upper)
     return out
+
+
+class TrainingPipeline:
+    """The fine-grained training path on ``device`` (``cuda`` unless the
+    caller asks for the CPU)."""
+
+    def __init__(self, catalog: DatasetCatalog, tracker: FileTracker,
+                 device=None):
+        self.catalog = catalog
+        self.tracker = tracker
+        self.device = resolve_device(device)
+        self.logger = get_logger("TrainingPipeline")
+
+    # ------------------------------------------------------------------ fine
+    def fine_grained(self, source_table: str, output_table: str,
+                     **options) -> Dict[str, Any]:
+        """Run the fine-grained path: ``prep``, ``dispatch`` and ``complete``
+        in order (:meth:`fine_grained_stages` takes the same arguments).
+        Returns the run summary: ids, table version, series counts,
+        ``fit_seconds`` and the logged metrics."""
+        prep, dispatch, complete = self.fine_grained_stages(
+            source_table, output_table, **options)
+        return complete(dispatch(prep()))
+
+    def fine_grained_stages(
+        self,
+        source_table: str,
+        output_table: str,
+        model: str = "prophet",
+        model_conf: Optional[Dict[str, Any]] = None,
+        cv_conf: Optional[Dict[str, Any]] = None,
+        experiment: str = "finegrain_forecasting",
+        horizon: int = 90,
+        key_cols=("store", "item"),
+        run_cross_validation: bool = True,
+        per_series_runs: bool = False,
+        tuning: Optional[Dict[str, Any]] = None,
+        trace_dir: Optional[str] = None,
+        bucketed: bool = False,
+        regressors: Optional[Dict[str, Any]] = None,
+        cv_artifact: bool = False,
+        calibrate_intervals: bool = False,
+        freq: str = "D",
+    ):
+        """Validate the options and return the path's three stages:
+        ``prep() -> state`` (read, tensorize, config), ``dispatch(state) ->
+        state`` (the CV pass and the fit, launched on the device, and the
+        calibrated bands) and ``complete(state) -> summary`` (the host
+        pulls, then the tracked run, the artifact and the table)."""
+        tuned = bool(tuning and tuning.get("enabled"))
+        # the reference's checks of invalid combinations, as they are
+        if regressors:
+            if model in ("auto", "blend"):
+                raise ValueError(
+                    f"training.regressors is not supported together with "
+                    f"model={model!r} — the non-curve families in the "
+                    f"selection/blend pool cannot use covariates; fit the "
+                    f"curve model directly with regressors"
+                )
+            if model in MODEL_REGISTRY and not get_model(model).supports_xreg:
+                raise ValueError(
+                    f"model {model!r} does not accept exogenous regressors; "
+                    f"use the curve model ('prophet')"
+                )
+        if cv_artifact and (model in ("auto", "blend") or tuned):
+            raise ValueError(
+                "training.cv_artifact is only supported on the plain "
+                "fine-grained path (not model='auto'/'blend' or "
+                "tuning.enabled)"
+            )
+        if calibrate_intervals:
+            if model == "auto" or tuned:
+                raise ValueError(
+                    "training.calibrate_intervals is supported on the plain "
+                    "and model='blend' paths (not model='auto' or "
+                    "tuning.enabled)"
+                )
+            if bucketed:
+                raise ValueError(
+                    "training.calibrate_intervals is not supported together "
+                    "with training.bucketed — the bucketed artifact has no "
+                    "shared series axis to carry per-series scales"
+                )
+            if not run_cross_validation and model != "blend":
+                raise ValueError(
+                    "training.calibrate_intervals requires "
+                    "run_cross_validation: the CV residuals ARE the "
+                    "calibration set"
+                )
+        # what the port does not run yet
+        if tuned:
+            raise _not_ported("tuning.enabled (engine/hyper.py)", "P8")
+        if model in ("auto", "blend"):
+            raise _not_ported(f"model: {model} (engine/select.py, "
+                              f"engine/blend.py)", "P8")
+        if model in _UNPORTED_FAMILIES:
+            raise _not_ported(f"model: {model}", "P8")
+        if bucketed:
+            raise _not_ported("training.bucketed (fit_forecast_bucketed)",
+                              "Slice 4")
+        if regressors:
+            raise _not_ported("training.regressors (tensorize_regressors)",
+                              "Slice 4")
+        if cv_artifact:
+            raise _not_ported("training.cv_artifact (cv_forecast_frame)",
+                              "Slice 4")
+        _check_cadence(freq, model, model_conf)
+
+        def prep() -> Dict[str, Any]:
+            timer = PhaseTimer()
+            with timer.phase("read"):
+                df = self.catalog.read_table(source_table)
+            with timer.phase("tensorize"):
+                batch = tensorize(df, key_cols=key_cols, freq=freq,
+                                  device=self.device)
+            # config after tensorize: a named holiday calendar resolves over
+            # the batch's actual date range (+ horizon)
+            config = _config_from_conf(
+                model, _resolve_model_conf(model_conf, batch, horizon))
+            self.logger.info(
+                "fine-grained fit: %d series x %d days, model=%s on %s",
+                batch.n_series, batch.n_time, model, self.device,
+            )
+            return {"timer": timer, "batch": batch, "config": config}
+
+        def dispatch(state: Dict[str, Any]) -> Dict[str, Any]:
+            timer, batch, config = state["timer"], state["batch"], state["config"]
+            t_start = time.time()
+            cv = CVConfig(**(cv_conf or {})) if run_cross_validation else None
+            cv_metrics = None
+            # CUDA launches are asynchronous: these phases time the host
+            # side; the device's time lands in fit_seconds at the pulls
+            with device_trace(trace_dir):
+                if run_cross_validation:
+                    with timer.phase("cross_validation"):
+                        cv_metrics = cross_validate(
+                            batch, model=model, config=config, cv=cv,
+                            calibrate=calibrate_intervals,
+                        )
+                with timer.phase("fit_forecast"):
+                    params, result = fit_forecast(
+                        batch, model=model, config=config, horizon=horizon,
+                    )
+            interval_scale = None
+            if calibrate_intervals:
+                # the table and the artifact ship the calibrated bands; the
+                # logged val_coverage stays the raw band's, beside
+                # val_coverage_calibrated
+                interval_scale = cv_metrics["_interval_scale"]
+                _, lo_c, hi_c = apply_interval_scale(
+                    result.yhat, result.lo, result.hi, interval_scale,
+                    floor=get_model(model).band_floor,
+                )
+                result = dataclasses.replace(result, lo=lo_c, hi=hi_c)
+            state.update(t_start=t_start, cv=cv, cv_metrics=cv_metrics,
+                         params=params, result=result,
+                         interval_scale=interval_scale)
+            return state
+
+        def complete(state: Dict[str, Any]) -> Dict[str, Any]:
+            timer, batch = state["timer"], state["batch"]
+            config, params, result = state["config"], state["params"], state["result"]
+            cv, cv_metrics = state["cv"], state["cv_metrics"]
+            # every host pull of the run, first: fit_seconds spans the
+            # device work
+            ok = result.ok.cpu().numpy()
+            cv_host = None
+            if cv_metrics is not None:
+                cv_host = {k: v.cpu().numpy() for k, v in cv_metrics.items()
+                           if not k.startswith("_")}
+            scales = cov_c = None
+            if state["interval_scale"] is not None:
+                scales = state["interval_scale"].cpu().numpy()
+                cov_c = cv_metrics["_coverage_calibrated"].cpu().numpy()
+            fit_seconds = time.time() - state["t_start"]
+
+            n_failed = int((~ok).sum())
+            if n_failed == batch.n_series:
+                raise RuntimeError("no series trained successfully")
+
+            eid = self.tracker.create_experiment(experiment)
+            with self.tracker.start_run(
+                eid,
+                run_name=f"batched_{model}_fit",
+                tags={"model": model, "partial_model": str(n_failed > 0)},
+            ) as run:
+                from distributed_forecasting_tpu_torch.models import (
+                    prophet_glm,
+                )
+
+                if model in ("prophet", "curve"):
+                    run.log_params(prophet_glm.extract_params(params, config))
+                else:
+                    run.log_params(dataclasses.asdict(config))
+                run.log_params(
+                    {
+                        "n_series": batch.n_series,
+                        "n_time": batch.n_time,
+                        "horizon": horizon,
+                        "n_failed_series": n_failed,
+                        # the host data plane that built the tensor: the
+                        # port has the numpy path only (the reference's
+                        # name for it is "pandas")
+                        "tensorize_backend": "pandas",
+                        **_comparability_params(batch, cv),
+                    }
+                )
+                agg = {"fit_seconds": fit_seconds,
+                       "series_per_second":
+                           batch.n_series / max(fit_seconds, 1e-9)}
+                agg.update(timer.metrics())
+                series_table = batch.key_frame()
+                series_table["fit_ok"] = ok
+                if cv_host is not None:
+                    for name in _METRICS:
+                        vals = cv_host[name]
+                        series_table[name] = vals
+                        # nanmean: a per-series NaN (mase on a constant
+                        # training window) must not poison the aggregate
+                        agg[f"val_{name}"] = (float(np.nanmean(vals[ok]))
+                                              if ok.any() else float("nan"))
+                    agg["n_cv_cutoffs"] = cv_metrics["_n_cutoffs"]
+                if scales is not None:
+                    series_table["interval_scale"] = scales
+                    agg["interval_scale_mean"] = (float(np.mean(scales[ok]))
+                                                  if ok.any() else float("nan"))
+                    series_table["coverage_calibrated"] = cov_c
+                    agg["val_coverage_calibrated"] = (
+                        float(np.mean(cov_c[ok])) if ok.any() else float("nan"))
+                run.log_metrics(agg)
+                run.log_table("series_metrics.parquet", series_table)
+
+                forecaster = BatchForecaster.from_fit(
+                    batch, params, model, config, interval_scale=scales)
+                forecaster.save(run.artifact_path("forecaster"))
+
+                if per_series_runs:
+                    self._log_per_series_runs(eid, series_table, run.run_id)
+                run_id = run.run_id
+
+            table_df = forecast_frame(batch, result)
+            version = self.catalog.save_table(output_table, table_df)
+            self.logger.info(
+                "wrote %s (version %s): %d rows; fit %.2fs (%.1f series/s); "
+                "%d/%d series ok",
+                output_table, version, len(table_df), fit_seconds,
+                agg["series_per_second"], batch.n_series - n_failed,
+                batch.n_series,
+            )
+            if n_failed:
+                self.logger.warning(
+                    "partial model: %d series fell back", n_failed)
+            return {
+                "experiment_id": eid,
+                "run_id": run_id,
+                "table_version": version,
+                "n_series": batch.n_series,
+                "n_failed": n_failed,
+                "fit_seconds": fit_seconds,
+                "metrics": dict(agg),
+            }
+
+        return prep, dispatch, complete
+
+    def _log_per_series_runs(self, eid: str, series_table: pd.DataFrame,
+                             parent: str):
+        """Optional drill-down: one run per series, named
+        ``run_item_{item}_store_{store}``, linking the parent run's batched
+        artifact and the series' row in it, with its CV metrics.  An O(S)
+        host loop: warns above ``_PER_SERIES_RUNS_WARN`` series and raises
+        above ``DFTPU_PER_SERIES_RUNS_MAX`` (default 20,000)."""
+        n = len(series_table)
+        cap = int(os.environ.get("DFTPU_PER_SERIES_RUNS_MAX", "20000"))
+        if n > cap:
+            raise ValueError(
+                f"per_series_runs requested for {n} series, above the "
+                f"{cap}-run cap: one filesystem run-dir per series does not "
+                f"scale. The parent run's series_metrics.parquet artifact "
+                f"already holds every per-series metric; raise "
+                f"DFTPU_PER_SERIES_RUNS_MAX to override."
+            )
+        if n > _PER_SERIES_RUNS_WARN:
+            self.logger.warning(
+                "per_series_runs: creating %d tracker run directories (an "
+                "O(S) host loop) — prefer the batched run's "
+                "series_metrics.parquet at this scale", n,
+            )
+        rows = []
+        for i, row in enumerate(series_table.itertuples(index=False)):
+            d = row._asdict()
+            rows.append({
+                "run_name": f"run_item_{d.get('item')}_store_{d.get('store')}",
+                "tags": {
+                    "parent_run_id": parent,
+                    "artifact_run_id": parent,
+                    "artifact_path": "forecaster",
+                    "series_index": str(i),
+                },
+                "metrics": {k: float(v) for k, v in d.items()
+                            if k in _METRICS and np.isfinite(v)},
+            })
+        self.tracker.log_runs_batch(eid, rows)

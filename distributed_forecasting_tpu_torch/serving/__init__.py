@@ -1,6 +1,11 @@
+from distributed_forecasting_tpu_torch.serving.loader import (
+    load_forecaster,
+    resolve_from_registry,
+)
 from distributed_forecasting_tpu_torch.serving.predictor import (
     BatchForecaster,
     UnknownSeriesError,
 )
 
-__all__ = ["BatchForecaster", "UnknownSeriesError"]
+__all__ = ["BatchForecaster", "UnknownSeriesError", "load_forecaster",
+           "resolve_from_registry"]

@@ -119,6 +119,11 @@ class BatchForecaster:
         return int(self.keys.shape[0])
 
     @property
+    def family(self) -> str:
+        """The registry's ``model_family`` tag (the deploy task sets it)."""
+        return self.model
+
+    @property
     def serving_schema(self) -> str:
         return (
             "ds date, "

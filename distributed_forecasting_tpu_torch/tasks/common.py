@@ -1,0 +1,150 @@
+"""Task ABC — the job harness (port of the reference's ``tasks/common.py``).
+
+Conf comes from ``--conf-file`` YAML (unknown arguments pass through) or an
+injected dict; the infrastructure handles — dataset catalog, tracker,
+registry — are built lazily from the conf's ``env:`` section:
+
+    env:
+      root: ./dftpu_store               # default root of the three below
+      warehouse: /path/to/warehouse     # DatasetCatalog root
+      tracking:  /path/to/mlruns        # FileTracker root
+      registry:  /path/to/registry      # ModelRegistry root
+
+A task runs on ``device``: ``cuda`` unless the caller asks for the CPU,
+with ``device="cpu"`` or, from the command line, the reference's own switch
+``DFTPU_PLATFORM=cpu``.  It passes the device to the training pipeline and
+to every forecaster it loads.
+
+The reference's other top-level conf blocks:
+  * ``compile_cache:`` and ``pipeline:`` change no result (a compile cache,
+    and an executor byte-identical to the serial path); they are accepted
+    and logged as having no effect in the port yet (ROADMAP Queue 1: P11);
+  * ``distributed:``, ``precision: {bf16_scoring: true}`` and any
+    ``engine.{windowed, autoprep, gradfit, automl}`` with ``enabled: true``
+    change what runs; they raise ``NotImplementedError`` naming their item.
+"""
+
+from __future__ import annotations
+
+import os
+from abc import ABC, abstractmethod
+from typing import Any, Dict, Optional
+
+from distributed_forecasting_tpu_torch.data.catalog import DatasetCatalog
+from distributed_forecasting_tpu_torch.tracking import FileTracker, ModelRegistry
+from distributed_forecasting_tpu_torch.utils.config import parse_conf_args
+from distributed_forecasting_tpu_torch.utils.device import (
+    platform_device,
+    resolve_device,
+)
+from distributed_forecasting_tpu_torch.utils.logging import get_logger
+
+_DEFAULT_ROOT = "./dftpu_store"
+
+# engine: blocks -> the reference module and the ROADMAP item porting it
+_ENGINE_BLOCKS = {
+    "windowed": ("engine/windowed.py", "P9"),
+    "autoprep": ("engine/autoprep.py", "P10"),
+    "gradfit": ("engine/gradfit.py", "P8"),
+    "automl": ("engine/select.py, engine/hyper.py", "P8"),
+}
+_PRECISION_KEYS = frozenset({"bf16_scoring"})
+
+
+def _check_unported_blocks(conf: Dict[str, Any], logger) -> None:
+    """Refuse the conf blocks that would change what runs; log the
+    result-neutral ones."""
+    if conf.get("distributed"):
+        raise NotImplementedError(
+            "distributed: multi-process bring-up (parallel/*) is not ported "
+            "yet (ROADMAP Queue 1: P12)")
+    for block, what in (("compile_cache", "the compile cache "
+                                          "(engine/compile_cache.py)"),
+                        ("pipeline", "the pipelined executor "
+                                     "(engine/executor.py)")):
+        if conf.get(block) is not None:
+            logger.info("%s: accepted; %s is not ported, so the block has no "
+                        "effect in the port yet (ROADMAP Queue 1: P11)",
+                        block, what)
+    pr = conf.get("precision")
+    if pr is not None:
+        unknown = set(pr) - _PRECISION_KEYS
+        if unknown:
+            raise ValueError(
+                f"unknown precision conf key(s) {sorted(unknown)}; "
+                f"valid: {sorted(_PRECISION_KEYS)}")
+        if pr.get("bf16_scoring"):
+            raise NotImplementedError(
+                "precision.bf16_scoring: true (ops/precision.py) is not "
+                "ported yet (ROADMAP Queue 1: P8)")
+    eng = conf.get("engine")
+    if eng is not None:
+        unknown = set(eng) - set(_ENGINE_BLOCKS)
+        if unknown:
+            raise ValueError(
+                f"unknown engine conf key(s) {sorted(unknown)}; "
+                f"valid: {sorted(_ENGINE_BLOCKS)}")
+        for name, (module, item) in _ENGINE_BLOCKS.items():
+            if (eng.get(name) or {}).get("enabled"):
+                raise NotImplementedError(
+                    f"engine.{name}.enabled: true ({module}) is not ported "
+                    f"yet (ROADMAP Queue 1: {item})")
+
+
+class Task(ABC):
+    def __init__(
+        self,
+        init_conf: Optional[Dict[str, Any]] = None,
+        catalog: Optional[DatasetCatalog] = None,
+        tracker: Optional[FileTracker] = None,
+        registry: Optional[ModelRegistry] = None,
+        device=None,
+    ):
+        self.logger = get_logger(self.__class__.__name__)
+        self.device = resolve_device(platform_device(device))
+        if init_conf is not None:
+            self.conf = init_conf
+        else:
+            self.conf = parse_conf_args()
+        self._log_conf()
+        conf = self.conf if isinstance(self.conf, dict) else {}
+        env = conf.get("env", {})
+        root = env.get("root", _DEFAULT_ROOT)
+        self._catalog = catalog
+        self._tracker = tracker
+        self._registry = registry
+        self._paths = {
+            "warehouse": env.get("warehouse", os.path.join(root, "warehouse")),
+            "tracking": env.get("tracking", os.path.join(root, "mlruns")),
+            "registry": env.get("registry", os.path.join(root, "registry")),
+        }
+        _check_unported_blocks(conf, self.logger)
+
+    # lazy infra handles ----------------------------------------------------
+    @property
+    def catalog(self) -> DatasetCatalog:
+        if self._catalog is None:
+            self._catalog = DatasetCatalog(self._paths["warehouse"])
+        return self._catalog
+
+    @property
+    def tracker(self) -> FileTracker:
+        if self._tracker is None:
+            self._tracker = FileTracker(self._paths["tracking"])
+        return self._tracker
+
+    @property
+    def registry(self) -> ModelRegistry:
+        if self._registry is None:
+            self._registry = ModelRegistry(self._paths["registry"])
+        return self._registry
+
+    def _log_conf(self) -> None:
+        self.logger.info("Launching task on %s with configuration:",
+                         self.device)
+        for key, item in (self.conf or {}).items():
+            self.logger.info("\t%s: %s", key, item)
+
+    @abstractmethod
+    def launch(self) -> Any:
+        """Run the task's business logic."""

@@ -1,0 +1,93 @@
+"""Training task: the fine-grained fit as a job (port of the reference's
+``tasks/train.py``), wired through :class:`TrainingPipeline` on the task's
+device.  Conf::
+
+    input:
+      table: hackathon.sales.raw
+    output:
+      table: hackathon.sales.finegrain_forecasts
+    training:
+      model: prophet                # prophet | curve | prophet_ar |
+                                    #   holt_winters
+      model_conf: {...}             # fields of the model's config dataclass;
+                                    # the curve model also takes a named
+                                    # holiday calendar (holidays: US, or
+                                    # {calendar: US, lower_window: 1,
+                                    #  upper_window: 1, custom: {...}})
+      cv: {initial: 730, period: 360, horizon: 90}
+      horizon: 90
+      freq: D                       # D | W | M (the curve model is daily)
+      experiment: finegrain_forecasting
+      run_cross_validation: true
+      per_series_runs: false
+      calibrate_intervals: false    # split-conformal band calibration from
+                                    # the CV residuals (engine/calibrate)
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: ``path: allocated``, ``model: auto | blend`` and the theta, croston,
+arima and arnet families, ``tuning.enabled``, ``bucketed``,
+``regressors``, ``cv_artifact``.
+"""
+
+from __future__ import annotations
+
+from distributed_forecasting_tpu_torch.pipelines.training import TrainingPipeline
+from distributed_forecasting_tpu_torch.tasks.common import Task
+
+
+class TrainTask(Task):
+    def launch(self) -> dict:
+        tr = self.conf.get("training", {})
+        path = tr.get("path", "fine_grained")
+        if path == "allocated":
+            if tr.get("regressors"):
+                raise ValueError(
+                    "training.regressors is not supported on the allocated "
+                    "path — covariates would be fit at item level and then "
+                    "ratio-scaled; use path: fine_grained"
+                )
+            if tr.get("calibrate_intervals"):
+                raise ValueError(
+                    "training.calibrate_intervals is not supported on the "
+                    "allocated path (item-level bands are ratio-scaled to "
+                    "stores, so per-series CV calibration does not apply); "
+                    "use path: fine_grained"
+                )
+            raise NotImplementedError(
+                "training.path: allocated (TrainingPipeline.allocated) is not "
+                "ported yet (ROADMAP Queue 1: P6, the allocated path)")
+        pipeline = TrainingPipeline(self.catalog, self.tracker,
+                                    device=self.device)
+        return pipeline.fine_grained(**fine_grained_options(self.conf))
+
+
+def fine_grained_options(conf: dict) -> dict:
+    """The fine-grained path's arguments from a train task conf."""
+    inp = conf.get("input", {})
+    out = conf.get("output", {})
+    tr = conf.get("training", {})
+    return dict(
+        source_table=inp.get("table", "hackathon.sales.raw"),
+        output_table=out.get("table", "hackathon.sales.finegrain_forecasts"),
+        model=tr.get("model", "prophet"),
+        model_conf=tr.get("model_conf"),
+        cv_conf=tr.get("cv"),
+        experiment=tr.get("experiment", "finegrain_forecasting"),
+        horizon=int(tr.get("horizon", 90)),
+        run_cross_validation=bool(tr.get("run_cross_validation", True)),
+        per_series_runs=bool(tr.get("per_series_runs", False)),
+        tuning=tr.get("tuning"),
+        bucketed=bool(tr.get("bucketed", False)),
+        regressors=tr.get("regressors"),
+        cv_artifact=bool(tr.get("cv_artifact", False)),
+        calibrate_intervals=bool(tr.get("calibrate_intervals", False)),
+        freq=str(tr.get("freq", "D")),
+    )
+
+
+def entrypoint():
+    TrainTask().launch()
+
+
+if __name__ == "__main__":
+    entrypoint()

@@ -1,12 +1,39 @@
-"""Config value helpers the serving artifact needs: ``to_jsonable`` and
-``freeze`` (own copies of the reference's ``utils/config.py`` helpers, so
-the port never imports the JAX package)."""
+"""Layered YAML config and config value helpers (own copies of the
+reference's ``utils/config.py``, so the port never imports the JAX
+package):
+
+  * ``load_conf`` reads one YAML file; ``parse_conf_args`` reads
+    ``--conf-file <path>`` with ``parse_known_args`` (a job runner's other
+    arguments pass through), and a missing file is an empty conf;
+  * ``to_jsonable`` and ``freeze`` turn config values into JSON and into
+    hashable values.
+"""
 
 from __future__ import annotations
 
+import argparse
 from collections.abc import Mapping
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import yaml
+
+
+def load_conf(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def parse_conf_args(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--conf-file", dest="conf_file", default=None)
+    ns, _unknown = p.parse_known_args(argv)
+    if ns.conf_file is None:
+        return {}
+    try:
+        return load_conf(ns.conf_file)
+    except FileNotFoundError:
+        return {}
 
 
 class FrozenMap(Mapping):

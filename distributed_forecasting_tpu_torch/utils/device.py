@@ -12,6 +12,8 @@ and TF32 keeps only about three decimal digits.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -28,3 +30,25 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+# DFTPU_PLATFORM values the port honours (the reference's CPU switch)
+_PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def platform_device(device=None):
+    """The device a task or workflow asked for: ``device`` when given, else
+    the ``DFTPU_PLATFORM`` environment variable (``cpu``, or ``cuda`` /
+    ``gpu``), else None (the card).  Only the task layer reads the
+    variable; library entry points take ``device`` alone."""
+    if device is not None:
+        return device
+    plat = os.environ.get("DFTPU_PLATFORM")
+    if not plat:
+        return None
+    if plat not in _PLATFORMS:
+        raise ValueError(
+            f"DFTPU_PLATFORM={plat!r} is not a platform of the port; "
+            f"valid: {sorted(_PLATFORMS)}"
+        )
+    return _PLATFORMS[plat]

@@ -314,3 +314,42 @@ def test_solve_makes_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# -- split-conformal calibration (engine/calibrate): torch.sort and gathers,
+# no hand kernel.  The same float32 scores on both devices give the same
+# ranks and, up to one rounding of the division, the same scales.
+
+def _conformal_paths(dev, C=3, S=64, T=400, seed=9):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.round(40 + 8 * torch.randn(S, T, generator=g))
+    yhat = y[None] + 3 * torch.randn(C, S, T, generator=g)
+    hi = yhat + (5 + torch.randn(C, S, T, generator=g)).abs()
+    em = (torch.rand(C, S, T, generator=g) < 0.2).float()
+    em[:, :4] = 0.0                      # empty: pooled
+    em[:, 4:8] = em[:, 4:8] * (torch.rand(S, T, generator=g)[4:8] < 0.05)
+    hi[:, 8] = yhat[:, 8]                # degenerate band
+    return [x.to(dev) for x in (y, yhat, hi, em)]
+
+
+def test_conformal_scale_on_the_card_equals_cpu(dev):
+    from distributed_forecasting_tpu_torch.engine import calibrate as cal
+
+    paths = _conformal_paths(dev)
+    got = cal.conformal_scale_from_paths(*paths)
+    want = cal.conformal_scale_from_paths(*(x.cpu() for x in paths))
+    torch.testing.assert_close(got.cpu(), want, rtol=2.0 ** -23, atol=0)
+    assert torch.isfinite(got).all() and (got > 0).all()
+
+
+def test_conformal_scale_makes_no_host_sync(dev):
+    from distributed_forecasting_tpu_torch.engine import calibrate as cal
+
+    paths = _conformal_paths(dev)
+    cal.conformal_scale_from_paths(*paths)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cal.conformal_scale_from_paths(*paths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -161,9 +161,20 @@ def test_cross_validate_matches_reference(batches, filt, monkeypatch):
 
 
 def test_cross_validate_calibrate_waits_for_its_port(batches):
+    """The calibrate route is ported (its parity with the reference is in
+    test_torch_calibrate.py): it adds the conformal scale and the
+    calibrated coverage, and leaves every metric mean as it was."""
     _, tb = batches
-    with pytest.raises(NotImplementedError, match="calibrate"):
-        tcv.cross_validate(tb, "holt_winters", calibrate=True)
+    cv = tcv.CVConfig(initial=200, period=60, horizon=30)
+    plain = tcv.cross_validate(tb, "holt_winters", cv=cv)
+    out = tcv.cross_validate(tb, "holt_winters", cv=cv, calibrate=True)
+    assert set(out) - set(plain) == {"_interval_scale", "_coverage_calibrated"}
+    for k in set(plain) - {"_n_cutoffs"}:
+        torch.testing.assert_close(out[k], plain[k], rtol=0, atol=0,
+                                   equal_nan=True)
+    scale = out["_interval_scale"]
+    assert scale.shape == (16,)
+    assert torch.isfinite(scale).all() and (scale > 0).all()
 
 
 # -- the curve model (model: prophet, the default) ---------------------------

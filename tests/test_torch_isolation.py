@@ -64,6 +64,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.ops._build\n"
         "import distributed_forecasting_tpu_torch.pipelines.training\n"
         "import distributed_forecasting_tpu_torch.serving\n"
+        "import distributed_forecasting_tpu_torch.tasks\n"
+        "import distributed_forecasting_tpu_torch.tracking\n"
+        "import distributed_forecasting_tpu_torch.workflows.runner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -110,3 +113,44 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchForecaster.load(str(tmp_path))
     assert BatchForecaster.load(str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_task_layer_refuses_to_run_without_a_card(no_cuda, tmp_path,
+                                                  monkeypatch):
+    """Task, TrainingPipeline and WorkflowRunner resolve their device when
+    built: without a card they raise unless asked for the CPU, by argument
+    or by the DFTPU_PLATFORM switch."""
+    from distributed_forecasting_tpu_torch.data import DatasetCatalog
+    from distributed_forecasting_tpu_torch.pipelines.training import (
+        TrainingPipeline,
+    )
+    from distributed_forecasting_tpu_torch.tasks import CatalogTask
+    from distributed_forecasting_tpu_torch.tracking import FileTracker
+    from distributed_forecasting_tpu_torch.workflows import WorkflowRunner
+
+    monkeypatch.delenv("DFTPU_PLATFORM", raising=False)
+    conf = {"env": {"root": str(tmp_path)}}
+    catalog = DatasetCatalog(str(tmp_path / "w"))
+    tracker = FileTracker(str(tmp_path / "t"))
+    calls = {
+        "Task": lambda d: CatalogTask(init_conf=conf, device=d),
+        "TrainingPipeline": lambda d: TrainingPipeline(catalog, tracker,
+                                                       device=d),
+        "WorkflowRunner": lambda d: WorkflowRunner({"workflows": []},
+                                                   device=d),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(None)
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            call("cuda")
+        assert call("cpu").device.type == "cpu"
+    monkeypatch.setenv("DFTPU_PLATFORM", "cpu")
+    assert calls["Task"](None).device.type == "cpu"
+    assert calls["WorkflowRunner"](None).device.type == "cpu"
+    # the switch is the task layer's: library entry points ignore it
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls["TrainingPipeline"](None)
+    monkeypatch.setenv("DFTPU_PLATFORM", "gpu")
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        calls["Task"](None)

@@ -1,0 +1,502 @@
+"""Port parity: the ``forecasting-e2e`` workflow (catalog -> ingest -> train
+with conformal bands -> deploy -> inference) through both packages' task
+layers, on the CPU, at the reference task tests' size
+(``tests/unit/test_tasks.py``: 2 stores x 3 items x 800 days, CV
+400/180/60, calibrated).
+
+Both runs load ``conf/workflows.yml`` and change the spec in memory only:
+the ingest size, the CV windows, and (for the parity runs) without the
+``monitor`` node, whose task type the port has not ported.
+
+Host-side results are equal: table keys, dates, row counts, the logged
+parameter keys and values (but ``tensorize_backend``, which names each
+package's own data plane), the run's metric names, the series table's keys
+and ``fit_ok``, the registry's tags and stage.  Forecast values agree
+within 5e-4 of each series' scale: the curve model's float32 normal
+equations differ between the packages by up to ~1e-4 of the path's scale
+(test_torch_prophet.py), and the band's conformal scale moves by up to its
+scores' change (test_torch_calibrate.py), here ~1e-4 relative.  CV metric
+means agree within rtol 1e-3; the calibrated coverage within one point per
+series and cutoff (the point on the band's edge).
+
+One test per option the port does not run yet checks that it raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+import copy
+import logging
+import os
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+import yaml
+
+from distributed_forecasting_tpu.workflows import runner as jrunner
+from distributed_forecasting_tpu_torch import tasks as ttasks
+from distributed_forecasting_tpu_torch.serving import loader as tloader
+from distributed_forecasting_tpu_torch.workflows import runner as trunner
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL = 5e-4
+MODEL = "ForecastingBatchModel"
+
+
+def _spec(monitor: bool = False):
+    with open(os.path.join(ROOT, "conf", "workflows.yml")) as f:
+        spec = yaml.safe_load(f)
+    spec["workflows"] = [w for w in spec["workflows"]
+                         if w["name"] == "forecasting-e2e"]
+    wf = spec["workflows"][0]
+    for node in wf["tasks"]:
+        if node["task"] == "ingest":
+            node["conf"]["input"]["synthetic"] = {
+                "n_stores": 2, "n_items": 3, "n_days": 800, "seed": 5}
+        if node["task"] == "train":
+            node["conf"]["training"]["cv"] = {
+                "initial": 400, "period": 180, "horizon": 60}
+    if not monitor:
+        wf["tasks"] = [t for t in wf["tasks"] if t["task"] != "monitor"]
+    return spec
+
+
+def _conf_file_paths(spec):
+    """conf_file entries are relative to the repo root."""
+    for node in spec["workflows"][0]["tasks"]:
+        if node.get("conf_file"):
+            node["conf_file"] = os.path.join(ROOT, node["conf_file"])
+    return spec
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    roots = {k: str(tmp_path_factory.mktemp(k)) for k in ("ref", "port")}
+    spec = _conf_file_paths(_spec())
+    want = jrunner.WorkflowRunner(copy.deepcopy(spec),
+                                  env={"root": roots["ref"]}).run()
+    got = trunner.WorkflowRunner(copy.deepcopy(spec), env={"root": roots["port"]},
+                                 device="cpu").run()
+    return {"ref": (want, roots["ref"]), "port": (got, roots["port"])}
+
+
+def _handles(root):
+    from distributed_forecasting_tpu_torch.data import DatasetCatalog
+    from distributed_forecasting_tpu_torch.tracking import (
+        FileTracker,
+        ModelRegistry,
+    )
+
+    return (DatasetCatalog(os.path.join(root, "warehouse")),
+            FileTracker(os.path.join(root, "mlruns")),
+            ModelRegistry(os.path.join(root, "registry")))
+
+
+def _run(root, result):
+    _, tracker, _ = _handles(root)
+    train = result["train"]["result"]
+    return tracker.get_run(train["experiment_id"], train["run_id"])
+
+
+def test_every_task_runs_ok(runs):
+    for name in ("ref", "port"):
+        results, _ = runs[name]
+        assert list(results) == ["catalog", "etl", "train", "deploy",
+                                 "inference"]
+        assert all(r["status"] == "OK" for r in results.values())
+    got, want = runs["port"][0], runs["ref"][0]
+    for k in ("n_series", "n_failed"):
+        assert got["train"]["result"][k] == want["train"]["result"][k]
+    assert got["train"]["result"]["n_series"] == 6
+    assert got["deploy"]["result"]["version"] == 1
+    assert got["inference"]["result"]["rows"] == want["inference"]["result"][
+        "rows"] == 6 * 90
+
+
+def _rows_close(got, want, cols, keys):
+    """Values per series within RTOL of the series' own scale."""
+    for col in cols:
+        g = got[col].to_numpy().reshape(len(keys), -1)
+        w = want[col].to_numpy().reshape(len(keys), -1)
+        scale = np.nanmax(np.abs(w), axis=1, keepdims=True)
+        np.testing.assert_array_less(
+            np.abs(g - w), np.broadcast_to(RTOL * scale + 1e-6, w.shape),
+            err_msg=col)
+
+
+@pytest.mark.parametrize("table", ["hackathon.sales.finegrain_forecasts",
+                                   "hackathon.sales.test_finegrain_forecasts"])
+def test_tables_match_reference(runs, table):
+    got = _handles(runs["port"][1])[0].read_table(table)
+    want = _handles(runs["ref"][1])[0].read_table(table)
+    assert list(got.columns) == list(want.columns)
+    assert len(got) == len(want)
+    exact = [c for c in ("ds", "store", "item", "y", "training_date")
+             if c in want.columns]
+    pd.testing.assert_frame_equal(got[exact], want[exact])
+    vals = ["yhat", "yhat_upper", "yhat_lower"]
+    assert np.isfinite(got[vals].to_numpy()).all()
+    assert (got["yhat_lower"] <= got["yhat"]).all()
+    assert (got["yhat"] <= got["yhat_upper"]).all()
+    keys = want[["store", "item"]].drop_duplicates().to_numpy()
+    _rows_close(got, want, vals, keys)
+
+
+def test_run_params_metrics_and_series_table_match_reference(runs):
+    got, want = (_run(runs[k][1], runs[k][0]) for k in ("port", "ref"))
+    gp, wp = got.params(), want.params()
+    assert set(gp) == set(wp)
+    assert gp.pop("tensorize_backend") == "pandas"
+    wp.pop("tensorize_backend")
+    assert gp == wp
+    # metric names: the reference's executor adds its stage timings
+    gm, wm = got.metrics(), want.metrics()
+    assert set(gm) == {k for k in wm if not k.startswith("pipeline_")}
+    assert gm["n_cv_cutoffs"] == wm["n_cv_cutoffs"] == 2
+    for k in ("val_mse", "val_rmse", "val_mae", "val_mape", "val_smape",
+              "val_mdape", "val_mase", "interval_scale_mean"):
+        np.testing.assert_allclose(gm[k], wm[k], rtol=1e-3, err_msg=k)
+    assert got.meta()["tags"] == want.meta()["tags"]
+    assert got.meta()["run_name"] == want.meta()["run_name"]
+
+    gt = pd.read_parquet(got.artifact_path("series_metrics.parquet"))
+    wt = pd.read_parquet(want.artifact_path("series_metrics.parquet"))
+    assert list(gt.columns) == list(wt.columns)
+    pd.testing.assert_frame_equal(gt[["store", "item", "fit_ok"]],
+                                  wt[["store", "item", "fit_ok"]])
+    for col in ("mse", "rmse", "mae", "mape", "smape", "mdape", "mase",
+                "interval_scale"):
+        np.testing.assert_allclose(gt[col], wt[col], rtol=1e-3, err_msg=col)
+    # coverage: fractions of 60-day windows, 2 cutoffs
+    flip = 1.0 / (2 * 60) + 1e-6
+    for col in ("coverage", "coverage_calibrated"):
+        np.testing.assert_array_less(np.abs(gt[col] - wt[col]), flip,
+                                     err_msg=col)
+    assert (gt["interval_scale"] > 0).all()
+    np.testing.assert_allclose(gm["val_coverage_calibrated"],
+                               wm["val_coverage_calibrated"], atol=flip)
+
+
+def test_artifact_and_registry_match_reference(runs):
+    got_reg, want_reg = (_handles(runs[k][1])[2] for k in ("port", "ref"))
+    g = got_reg.latest_version(MODEL)
+    w = want_reg.latest_version(MODEL)
+    assert (g.version, g.stage) == (w.version, w.stage) == (1, "Staging")
+    assert g.tags == w.tags
+    assert g.tags["model_family"] == "prophet"
+    files = sorted(os.listdir(os.path.join(g.artifact_dir)))
+    assert files == sorted(os.listdir(w.artifact_dir))
+    # the registered artifact loads in either package and predicts alike
+    from distributed_forecasting_tpu.serving import (
+        load_forecaster as jload,
+    )
+
+    request = pd.DataFrame({"store": [2, 1], "item": [3, 1]})
+    for art in (g.artifact_dir, w.artifact_dir):
+        p = tloader.load_forecaster(art, device="cpu").predict(request,
+                                                               horizon=30)
+        r = jload(art).predict(request, horizon=30)
+        pd.testing.assert_frame_equal(p[["ds", "store", "item"]],
+                                      r[["ds", "store", "item"]])
+        _rows_close(p, r, ["yhat", "yhat_upper", "yhat_lower"],
+                    request.to_numpy())
+
+
+def test_shipped_bands_are_the_calibrated_ones(runs):
+    """The train task's table and artifact carry the CV-conformal bands:
+    the artifact's scales are the series table's, and the served band is
+    the raw band scaled by them."""
+    root = runs["port"][1]
+    run = _run(root, runs["port"][0])
+    art = run.artifact_path("forecaster")
+    scale = np.load(os.path.join(art, "interval_scale.npy"))
+    table = pd.read_parquet(run.artifact_path("series_metrics.parquet"))
+    np.testing.assert_array_equal(scale, table["interval_scale"].to_numpy(
+        np.float32))
+    assert not np.allclose(scale, 1.0)
+    fc = tloader.load_forecaster(art, device="cpu")
+    request = table[["store", "item"]]
+    cal = fc.predict(request, horizon=90)
+    fc.interval_scale = None
+    raw = fc.predict(request, horizon=90)
+    s = np.repeat(scale, 90)
+    np.testing.assert_allclose(
+        cal["yhat_upper"] - cal["yhat"], s * (raw["yhat_upper"] - raw["yhat"]),
+        rtol=1e-5, atol=1e-4)
+    forecasts = _handles(root)[0].read_table(
+        "hackathon.sales.finegrain_forecasts")
+    last = forecasts.groupby(["store", "item"]).tail(90)
+    np.testing.assert_allclose(last["yhat_upper"].to_numpy(),
+                               cal["yhat_upper"].to_numpy(), rtol=1e-5)
+
+
+def test_quantile_inference_matches_reference(runs, tmp_path):
+    conf = {"input": {"table": "hackathon.sales.raw"},
+            "output": {"table": "hackathon.sales.q_forecasts"},
+            "inference": {"model_name": MODEL, "horizon": 30,
+                          "quantiles": [0.1, 0.5, 0.9], "promote_to": None}}
+    out = {}
+    for name, mod in (("port", ttasks), ("ref", None)):
+        root = runs[name][1]
+        env = {"env": {"root": root}}
+        if mod is None:
+            from distributed_forecasting_tpu.tasks import InferenceTask
+            task = InferenceTask(init_conf={**env, **conf})
+        else:
+            task = mod.InferenceTask(init_conf={**env, **conf}, device="cpu")
+        assert task.launch()["rows"] == 6 * 30
+        out[name] = task.catalog.read_table("hackathon.sales.q_forecasts")
+    got, want = out["port"], out["ref"]
+    assert list(got.columns) == list(want.columns)
+    pd.testing.assert_frame_equal(got[["ds", "store", "item"]],
+                                  want[["ds", "store", "item"]])
+    _rows_close(got, want, ["q0.1", "q0.5", "q0.9"],
+                want[["store", "item"]].drop_duplicates().to_numpy())
+    assert (got["q0.1"] <= got["q0.5"]).all() and (
+        got["q0.5"] <= got["q0.9"]).all()
+
+
+def test_workflow_stops_at_monitor_like_the_reference(tmp_path):
+    spec = _conf_file_paths(_spec(monitor=True))
+    with pytest.raises(trunner.WorkflowError,
+                       match="unknown task type 'monitor'") as err:
+        trunner.WorkflowRunner(spec, env={"root": str(tmp_path)},
+                               device="cpu").run("forecasting-e2e")
+    assert "known: ['catalog', 'deploy', 'inference', 'ingest', 'train']" in (
+        str(err.value))
+    # the five ported tasks ran before it
+    reg = _handles(str(tmp_path))[2]
+    assert reg.latest_version(MODEL).stage == "Staging"
+
+
+def test_cli_honours_the_platform_switch(tmp_path, monkeypatch):
+    spec = _conf_file_paths(_spec(monitor=True))
+    path = tmp_path / "workflows.yml"
+    path.write_text(yaml.safe_dump(spec))
+    monkeypatch.setenv("DFTPU_PLATFORM", "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(trunner.WorkflowError, match="'monitor'"):
+        trunner.main(["-f", str(path), "-w", "forecasting-e2e",
+                      "--env-root", str(tmp_path / "root")])
+    assert _handles(str(tmp_path / "root"))[2].latest_version(MODEL)
+    monkeypatch.setenv("DFTPU_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="DFTPU_PLATFORM"):
+        trunner.WorkflowRunner(spec)
+
+
+def test_task_types_are_the_ported_five():
+    assert sorted(ttasks.TASK_TYPES) == ["catalog", "deploy", "inference",
+                                         "ingest", "train"]
+    for mod in ("catalog", "ingest", "train", "deploy", "inference"):
+        module = __import__(f"distributed_forecasting_tpu_torch.tasks.{mod}",
+                            fromlist=["entrypoint"])
+        assert callable(module.entrypoint)
+
+
+# -- options the port does not run yet ---------------------------------------
+
+def _train_conf(root, **training):
+    base = {"model": "prophet", "horizon": 30,
+            "cv": {"initial": 400, "period": 180, "horizon": 60}}
+    return {"env": {"root": root},
+            "input": {"table": "hackathon.sales.raw"},
+            "output": {"table": "hackathon.sales.finegrain_forecasts"},
+            "training": {**base, **training}}
+
+
+@pytest.fixture(scope="module")
+def ingested(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("ingested"))
+    ttasks.IngestTask(init_conf={
+        "env": {"root": root},
+        "input": {"synthetic": {"n_stores": 1, "n_items": 2, "n_days": 500}},
+        "output": {"table": "hackathon.sales.raw"}}, device="cpu").launch()
+    return root
+
+
+@pytest.mark.parametrize("training, item", [
+    ({"path": "allocated"}, "P6, the allocated path"),
+    ({"model": "auto"}, "P8"),
+    ({"model": "blend", "calibrate_intervals": True}, "P8"),
+    ({"model": "arima"}, "P8"),
+    ({"model": "croston"}, "P8"),
+    ({"tuning": {"enabled": True}}, "P8"),
+    ({"bucketed": True}, "Slice 4"),
+    ({"regressors": {"table": "hackathon.sales.promo", "columns": ["p"]}},
+     "Slice 4"),
+    ({"cv_artifact": True}, "Slice 4"),
+    ({"model": "holt_winters", "model_conf": {"season_length": "auto"}},
+     "P8"),
+], ids=["allocated", "auto", "blend", "arima", "croston", "tuning",
+        "bucketed", "regressors", "cv_artifact", "season_auto"])
+def test_unported_training_options_raise(ingested, training, item):
+    task = ttasks.TrainTask(init_conf=_train_conf(ingested, **training),
+                            device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1: {item}"):
+        task.launch()
+
+
+@pytest.mark.parametrize("training, match", [
+    ({"calibrate_intervals": True, "bucketed": True}, "bucketed"),
+    ({"calibrate_intervals": True, "run_cross_validation": False},
+     "run_cross_validation"),
+    ({"model": "auto", "calibrate_intervals": True}, "calibrate_intervals"),
+    ({"path": "allocated", "calibrate_intervals": True}, "allocated"),
+    ({"model": "holt_winters",
+      "regressors": {"table": "t.s.x", "columns": ["p"]}},
+     "does not accept exogenous"),
+    ({"cv_artifact": True, "tuning": {"enabled": True}}, "cv_artifact"),
+    ({"freq": "W"}, "calendar-daily"),
+], ids=["calibrate_bucketed", "calibrate_without_cv", "calibrate_auto",
+        "calibrate_allocated", "regressors_hw", "cv_artifact_tuned",
+        "weekly_curve"])
+def test_invalid_combinations_raise_the_references_errors(ingested, training,
+                                                          match):
+    task = ttasks.TrainTask(init_conf=_train_conf(ingested, **training),
+                            device="cpu")
+    with pytest.raises(ValueError, match=match):
+        task.launch()
+
+
+@pytest.mark.parametrize("conf, item", [
+    ({"distributed": {"num_processes": 2}}, "P12"),
+    ({"precision": {"bf16_scoring": True}}, "P8"),
+    ({"engine": {"windowed": {"enabled": True}}}, "P9"),
+    ({"engine": {"autoprep": {"enabled": True}}}, "P10"),
+    ({"engine": {"gradfit": {"enabled": True}}}, "P8"),
+    ({"engine": {"automl": {"enabled": True}}}, "P8"),
+], ids=["distributed", "bf16", "windowed", "autoprep", "gradfit", "automl"])
+def test_unported_task_blocks_raise(tmp_path, conf, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1: {item}"):
+        ttasks.CatalogTask(init_conf={"env": {"root": str(tmp_path)}, **conf},
+                           device="cpu")
+
+
+def test_result_neutral_blocks_are_accepted_and_logged(ingested):
+    """The training conf's own blocks (conf/tasks/train_config.yml):
+    compile_cache and pipeline are logged as having no effect yet; the
+    engine blocks, all disabled there, pass."""
+    with open(os.path.join(ROOT, "conf", "tasks", "train_config.yml")) as f:
+        conf = yaml.safe_load(f)
+    conf["env"] = {"root": ingested}
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("TrainTask")
+    logger.addHandler(handler)
+    try:
+        ttasks.TrainTask(init_conf=conf, device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    text = [r.getMessage() for r in records]
+    for block in ("compile_cache", "pipeline"):
+        assert any(m.startswith(f"{block}: accepted") and "P11" in m
+                   for m in text), text
+    with pytest.raises(ValueError, match="unknown engine conf key"):
+        ttasks.TrainTask(init_conf={**conf, "engine": {"turbo": {}}},
+                         device="cpu")
+    with pytest.raises(ValueError, match="unknown precision conf key"):
+        ttasks.TrainTask(init_conf={**conf, "precision": {"bf16": True}},
+                         device="cpu")
+
+
+@pytest.mark.parametrize("meta, item", [
+    ("ensemble.json", "P8"), ("blend.json", "P8"),
+    ("buckets.json", "Slice 4"),
+], ids=["ensemble", "blend", "bucketed"])
+def test_composite_artifacts_refuse_to_load(tmp_path, meta, item):
+    (tmp_path / meta).write_text("{}")
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1: {item}"):
+        tloader.load_forecaster(str(tmp_path), device="cpu")
+
+
+def test_inference_regressors_raise(runs):
+    conf = {"env": {"root": runs["port"][1]},
+            "inference": {"model_name": MODEL,
+                          "regressors": {"table": "t.s.x", "columns": ["p"]}}}
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Queue 1: Slice 4"):
+        ttasks.InferenceTask(init_conf=conf, device="cpu").launch()
+
+
+# -- the ingest task's quality report and the conf loaders --------------------
+
+def _feed(kind):
+    from distributed_forecasting_tpu_torch.data import (
+        synthetic_store_item_sales,
+    )
+
+    df = synthetic_store_item_sales(n_stores=2, n_items=2, n_days=120, seed=3)
+    if kind == "duplicates":
+        df = pd.concat([df, df.head(5)], ignore_index=True)
+    elif kind == "bad_values":
+        df.loc[[3, 7], "sales"] = [-1.0, np.nan]
+    elif kind == "gaps":
+        df = df[df.index % 3 == 0].reset_index(drop=True)
+    elif kind == "constant_short":
+        df = df[df["date"] < df["date"].min() + pd.Timedelta(days=30)].copy()
+        df.loc[df["item"] == 1, "sales"] = 4.0
+    elif kind == "empty":
+        df = df.head(0)
+    return df
+
+
+@pytest.mark.parametrize("kind", ["clean", "duplicates", "bad_values",
+                                  "gaps", "constant_short", "empty"])
+@pytest.mark.parametrize("freq", ["D", "W"])
+def test_quality_report_matches_reference(kind, freq):
+    from distributed_forecasting_tpu.data.quality import (
+        quality_report as jreport,
+    )
+    from distributed_forecasting_tpu_torch.data.quality import (
+        quality_report as treport,
+    )
+
+    df = _feed(kind)
+    got = treport(df, min_days=10 if freq == "W" else 60, freq=freq)
+    want = jreport(df, min_days=10 if freq == "W" else 60, freq=freq)
+    assert got.to_dict() == want.to_dict()
+    assert got.ok == want.ok == (not got.issues)
+    # a daily feed checked at weekly precision has same-week duplicates
+    assert got.ok == (kind == "clean" and freq == "D")
+
+
+def test_conf_loaders_match_reference(tmp_path):
+    from distributed_forecasting_tpu.utils import config as jconfig
+    from distributed_forecasting_tpu_torch.utils import config as tconfig
+
+    path = tmp_path / "c.yml"
+    path.write_text("training: {model: prophet, cv: {initial: 730}}\n")
+    argv = ["--conf-file", str(path), "--job-id", "7"]
+    assert tconfig.parse_conf_args(argv) == jconfig.parse_conf_args(argv) == {
+        "training": {"model": "prophet", "cv": {"initial": 730}}}
+    for argv in ([], ["--conf-file", str(tmp_path / "missing.yml")]):
+        assert tconfig.parse_conf_args(argv) == jconfig.parse_conf_args(argv) == {}
+    (tmp_path / "empty.yml").write_text("")
+    assert tconfig.load_conf(str(tmp_path / "empty.yml")) == {}
+    spec = os.path.join(ROOT, "conf", "workflows.yml")
+    assert tconfig.load_conf(spec) == jconfig.load_conf(spec)
+
+
+def test_phase_timer_and_device_trace(tmp_path):
+    from distributed_forecasting_tpu_torch.utils.profiling import (
+        PhaseTimer,
+        device_trace,
+    )
+
+    timer = PhaseTimer()
+    for _ in range(2):
+        with timer.phase("fit"):
+            torch.ones(8).sum()
+    assert list(timer.metrics()) == ["phase_fit_seconds"]
+    assert timer.total() >= 0.0
+    with device_trace(None):
+        pass
+    with device_trace(str(tmp_path / "trace")):
+        torch.ones(64).cumsum(0)
+    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
