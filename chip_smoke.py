@@ -18,7 +18,14 @@ its own size:
   * ``conf/workflows.yml``'s ``forecasting-e2e`` through the port's workflow
     runner: catalog -> ingest (10 stores x 50 items x 1,826 synthetic days)
     -> train (the curve model, CV 730/360/90, split-conformal bands) ->
-    deploy -> inference, without its monitor node (not ported).
+    deploy -> inference, without its monitor node (not ported);
+  * its ``real-data-e2e`` (the committed dataset through the CSV ingest)
+    and ``forecasting-blend`` (4 x 25 x 1,096 synthetic days, Holt-Winters
+    at ``season_length: auto``, then promote): train with ``model: blend``
+    over prophet, holt_winters and croston — each family's CV pass for the
+    weights, the pooled CV pass for the conformal scale, one full-history
+    fit each; the Holt-Winters member on both hand kernels — deploy,
+    inference, without the monitor node.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -33,6 +40,8 @@ is not 0:
               (the winners of the default and the damped grid, the
               multiplicative mode, a 30-day season, the CV pass's 1,500
               rows): bitwise equal to _filter in path, states and MSE.
+              Phase 8 adds the same two checks on every call the pooled
+              train tasks make (see ``pooled_kernel_cases``).
               The curve model's library solve against the floored Cholesky
               twin (the CPU route, run here on the card) on the fit's 500
               and the CV pass's 1,500 systems: beta and the fitted path
@@ -76,6 +85,30 @@ is not 0:
               beside its bound (its sorts counted, no host sync).  A
               20-series cross_validate(calibrate=True) on the card equals
               the CPU's: ranks equal, scales within their scores' change
+  8. blend    real-data-e2e minus monitor, then forecasting-blend twice in
+              one env.root (the second promote decides by its rule against
+              the first run's champion), each workflow five times in all
+              for the per-task medians, with the launch counters set to 0
+              as each train task starts: both kernels must launch in every
+              one (3 each).  The first train task of each workflow records
+              its hw_score and hw_filter calls (forecasting-blend's at
+              100 x 1,096 and the CV pass's 200 rows, the detected m = 7),
+              and each output the path got is held against its twin on the
+              same inputs, as phase 3 holds it.  Checks: every task OK on
+              the card; the weights finite and each series' summing to 1;
+              the tables' keys, dates, finite values, lo <= yhat <= hi (the
+              pooled band's floor, when its members declare one); the conformal
+              scales finite and positive; the registered version's family
+              tag and stage; the registered artifact predicting the
+              inference table and the train run's forecast within 1e-5;
+              the season detected on the committed dataset (and by
+              forecasting-blend's ``season_length: auto``) is 7; a
+              20-series ``fit_forecast_blend(calibrate=True)`` on the card
+              agrees with the CPU (see ``pool_vs_cpu``).  Times: per task
+              and ``fit_seconds`` (medians of 5 runs), the train task's
+              dispatch stage (CUDA events, median of 5; idle share; the
+              host syncs PyTorch reports), the croston recurrence at the
+              fit and CV shapes beside its bounds, and season detection
 
 The line before the last lists the kernels (launches, error, times, bound);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -167,13 +200,14 @@ def compare_scores(got, want) -> dict:
             "pass": close and near}
 
 
-def cv_inputs(batch, cv):
+def cv_inputs(batch, cv, cv_conf=CV):
     """The CV pass's kernel inputs: the series repeated once per cutoff and
     each cutoff's train mask, ``(C*S, T)`` rows, as ``cross_validate`` gives
     them to the kernel (each row ends in a masked run of predict-only steps)."""
     T = batch.n_time
-    cuts = cv.cutoff_indices(T, cv.CVConfig(**CV))
-    train_masks = cv.cv_windows(batch.mask, batch.day, cuts, CV["horizon"])[0]
+    cuts = cv.cutoff_indices(T, cv.CVConfig(**cv_conf))
+    train_masks = cv.cv_windows(batch.mask, batch.day, cuts,
+                                cv_conf["horizon"])[0]
     return batch.y.repeat(len(cuts), 1), train_masks.reshape(-1, T)
 
 
@@ -190,6 +224,34 @@ def compare_filter(got, want) -> dict:
               if a.numel() else 0.0 for a, w in pairs.values())
     return {"max_abs_err": err, "bitwise": all(equal.values()), **equal,
             "pass": all(equal.values())}
+
+
+def score_case(port, case: str, args, got) -> dict:
+    """hw_score's output ``got`` on ``args`` (y, mask, alpha, beta, gamma,
+    phi, m) against hw_score_reference on the same inputs; raises on a
+    disagreement."""
+    y, mask, a, b, g, p, m = args
+    want = port["fs"].hw_score_reference(y, mask, a, b, g, p, m)
+    res = compare_scores(got, want)
+    res.update(S=int(y.shape[0]), T=int(y.shape[1]), C=int(a.numel()), m=m)
+    emit("kernel_vs_twin", kernel="hw_score", case=case, **res)
+    if not res["pass"]:
+        raise AssertionError(f"hw_score disagrees with its twin: {case}")
+    return res
+
+
+def filter_case(port, case: str, args, got) -> dict:
+    """hw_filter's output ``got`` on ``args`` (y, mask, alpha, beta, gamma,
+    phi, m, mode) against _filter on the same inputs; raises on a
+    disagreement."""
+    y, mask, a, b, g, p, m, mode = args
+    want = port["hw"]._filter(y, mask, a, b, g, m, mode, p)
+    res = compare_filter(got, want)
+    res.update(S=int(y.shape[0]), T=int(y.shape[1]), m=m, mode=mode)
+    emit("kernel_vs_twin", kernel="hw_filter", case=case, **res)
+    if not res["pass"]:
+        raise AssertionError(f"hw_filter disagrees with its twin: {case}")
+    return res
 
 
 def kernel_cases(batch, port) -> dict:
@@ -211,19 +273,13 @@ def kernel_cases(batch, port) -> dict:
     }
     out, winners = {"hw_score": {}, "hw_filter": {}}, {}
     for name, (cfg, y, mask) in cases.items():
-        grid = hw._candidate_grid(cfg, device=y.device)
-        got = fs.hw_score(y, mask, *grid, cfg.season_length)
+        args = (y, mask, *hw._candidate_grid(cfg, device=y.device),
+                cfg.season_length)
+        got = fs.hw_score(*args)
         torch.cuda.synchronize()
-        want = fs.hw_score_reference(y, mask, *grid, cfg.season_length)
-        res = compare_scores(got, want)
-        res.update(S=int(y.shape[0]), T=int(y.shape[1]),
-                   C=int(grid[0].numel()), m=cfg.season_length)
-        emit("kernel_vs_twin", kernel="hw_score", case=name, **res)
-        if not res["pass"]:
-            raise AssertionError(f"hw_score disagrees with its twin: {name}")
-        out["hw_score"][name] = res
+        out["hw_score"][name] = score_case(port, name, args, got)
         best = got.argmin(1)
-        winners[name] = (y, mask, tuple(x[best] for x in grid),
+        winners[name] = (y, mask, *(x[best] for x in args[2:6]),
                          cfg.season_length)
 
     refits = {
@@ -233,16 +289,10 @@ def kernel_cases(batch, port) -> dict:
         "season_m30": (*winners["season_m30"], "additive"),
         "cv_1500": (*winners["cv_1500"], "additive"),
     }
-    for name, (y, mask, (a, b, g, p), m, mode) in refits.items():
-        got = fs.hw_filter(y, mask, a, b, g, p, m, mode)
+    for name, args in refits.items():
+        got = fs.hw_filter(*args)
         torch.cuda.synchronize()
-        want = hw._filter(y, mask, a, b, g, m, mode, p)
-        res = compare_filter(got, want)
-        res.update(S=int(y.shape[0]), T=int(y.shape[1]), m=m, mode=mode)
-        emit("kernel_vs_twin", kernel="hw_filter", case=name, **res)
-        if not res["pass"]:
-            raise AssertionError(f"hw_filter disagrees with its twin: {name}")
-        out["hw_filter"][name] = res
+        out["hw_filter"][name] = filter_case(port, name, args, got)
     return out
 
 
@@ -775,17 +825,20 @@ E2E = "forecasting-e2e"
 TASKS = ["catalog", "etl", "train", "deploy", "inference"]
 
 
-def e2e_spec(port) -> dict:
-    """``conf/workflows.yml``'s forecasting-e2e as the runner reads it,
+def e2e_spec(port, name: str = E2E) -> dict:
+    """``conf/workflows.yml``'s workflow ``name`` as the runner reads it,
     without its monitor node (the port has no monitor task yet) and with
-    its conf_file paths made absolute."""
+    its conf_file and input paths made absolute."""
     spec = port["config"].load_conf(WORKFLOWS)
-    spec["workflows"] = [w for w in spec["workflows"] if w["name"] == E2E]
+    spec["workflows"] = [w for w in spec["workflows"] if w["name"] == name]
     wf = spec["workflows"][0]
     wf["tasks"] = [t for t in wf["tasks"] if t["task"] != "monitor"]
     for t in wf["tasks"]:
         if t.get("conf_file"):
             t["conf_file"] = os.path.join(ROOT, t["conf_file"])
+        inp = t.get("conf", {}).get("input", {})
+        if inp.get("path"):
+            inp["path"] = os.path.join(ROOT, inp["path"])
     return spec
 
 
@@ -1050,6 +1103,445 @@ def workflow_timings(port, root: str, spec: dict, card_line: str) -> dict:
     return dict(t, state=state, cv_conf=cv_conf)
 
 
+# -- phase 8: the pooled workflows, real-data-e2e and forecasting-blend ------
+
+REAL = "real-data-e2e"
+BLEND = "forecasting-blend"
+POOLED_TASKS = {REAL: TASKS, BLEND: TASKS + ["promote"]}
+# the croston recurrence's dependent chain per step: the size (and interval)
+# update, a multiply, an add and a select, ~16 cycles; T such steps at the
+# card's 1.98 GHz boost clock, whatever the width (as hw_filter.cu:37-43
+# reckons its own chain)
+CROSTON_CHAIN_CYCLES = 16
+CLOCK_HZ = 1.98e9
+
+
+class PoolSpy:
+    """For each train task of a pooled workflow: sets the launch counters
+    to 0 as the training pipeline starts and reads them as it returns, and
+    records the devices of the batch and the blended forecast, and the
+    member configs the blend was given.  With ``hw`` (the
+    Holt-Winters module) it also records every hw_score and hw_filter call
+    that module makes, inputs and output, for :func:`pooled_kernel_cases`."""
+
+    def __init__(self, training, counters, hw=None):
+        self.training, self.counters, self.hw = training, counters, hw
+        self.launches, self.devices, self.configs = [], {}, {}
+        self.calls = {"hw_score": [], "hw_filter": []}
+
+    def __enter__(self):
+        tr, spy = self.training, self
+        self._orig = fine, blend = (tr.TrainingPipeline.fine_grained,
+                                    tr.fit_forecast_blend)
+
+        def fine_spy(pipe, *a, **kw):
+            for fn in spy.counters.values():
+                fn.launches = 0
+            out = fine(pipe, *a, **kw)
+            spy.launches.append({k: fn.launches
+                                 for k, fn in spy.counters.items()})
+            return out
+
+        def blend_spy(batch, **kw):
+            params, pool, result = blend(batch, **kw)
+            spy.devices.update(batch=batch.y.device.type,
+                               forecast=result.yhat.device.type)
+            spy.configs = kw.get("configs") or {}
+            return params, pool, result
+
+        def recorder(name, fn):
+            def call(*args):
+                out = fn(*args)
+                spy.calls[name].append((args, out))
+                return out
+            return call
+
+        tr.TrainingPipeline.fine_grained = fine_spy
+        tr.fit_forecast_blend = blend_spy
+        if self.hw is not None:
+            self._hw = (self.hw.hw_score, self.hw.hw_filter)
+            self.hw.hw_score = recorder("hw_score", self._hw[0])
+            self.hw.hw_filter = recorder("hw_filter", self._hw[1])
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.training
+        tr.TrainingPipeline.fine_grained, tr.fit_forecast_blend = self._orig
+        if self.hw is not None:
+            self.hw.hw_score, self.hw.hw_filter = self._hw
+
+
+def pooled_run(port, root: str, spec: dict, counters,
+               record: bool = False) -> dict:
+    """One run of a pooled workflow in ``root``, on the card; with
+    ``record``, the train task's kernel calls and member configs too."""
+    name = spec["workflows"][0]["name"]
+    t0 = time.perf_counter()
+    with PoolSpy(port["training"], counters,
+                 port["hw"] if record else None) as spy:
+        results = port["runner"].WorkflowRunner(
+            spec, env={"root": root}, device="cuda").run(name)
+    torch.cuda.synchronize()
+    assert len(spy.launches) == 1, spy.launches
+    out = dict(results=results, devices=spy.devices,
+               launches=spy.launches[0], seconds=time.perf_counter() - t0)
+    if record:
+        out.update(calls=spy.calls, configs=spy.configs)
+    return out
+
+
+def pooled_kernel_cases(port, run, path: str) -> dict:
+    """Phase 8's kernel cases: every hw_score and hw_filter call the train
+    task of ``path`` made (its CV rows and its full history, at the season
+    it detected or was given and the default grid), the output the path
+    got held against the twin on the same inputs, as phase 3 holds it."""
+    out = {"hw_score": {}, "hw_filter": {}}
+    for kernel, case in (("hw_score", score_case),
+                         ("hw_filter", filter_case)):
+        calls = run["calls"][kernel]
+        assert len(calls) == run["launches"][kernel], (kernel, len(calls))
+        for i, (args, got) in enumerate(calls):
+            name = f"{path}_call{i}_{args[0].shape[0]}x{args[0].shape[1]}"
+            out[kernel][name] = case(port, name, args, got)
+    return out
+
+
+def check_pooled(run, port, root: str, spec: dict, version: int) -> dict:
+    """Phase 8's checks of one pooled run: every task OK on the card, both
+    hand kernels launched by the train task, the forecast and inference
+    tables (keys, dates, finite, lo <= yhat <= hi), the weights (finite,
+    each series' summing to 1), the pooled band's floor, the conformal
+    scales, the registered version, its family tag and stage, and the
+    registered artifact reproducing the train run's forecast within
+    1e-5."""
+    name = spec["workflows"][0]["name"]
+    results = run["results"]
+    assert list(results) == POOLED_TASKS[name], list(results)
+    assert all(r["status"] == "OK" for r in results.values()), results
+    assert run["devices"] == {"batch": "cuda", "forecast": "cuda"}, run
+    for k, n in run["launches"].items():
+        assert n >= 1, f"the {name} train task never launched {k}"
+    catalog, tracker, registry = _store(port, root)
+    tr = task_conf(spec, "train")
+    horizon = int(tr["training"]["horizon"])
+    summary = results["train"]["result"]
+    train_run = tracker.get_run(summary["experiment_id"], summary["run_id"])
+    table = pd.read_parquet(train_run.artifact_path("series_metrics.parquet"))
+    keys = table[["store", "item"]].to_numpy()
+    S = len(keys)
+    assert summary["n_series"] == S, summary
+    families = tr["training"]["model_conf"]["families"]
+    weights = table[[f"weight_{f}" for f in families]].to_numpy()
+    assert np.isfinite(weights).all() and (weights >= 0).all()
+    assert np.abs(weights.sum(axis=1) - 1.0).max() <= 1e-9
+    scales = table["interval_scale"].to_numpy()
+    assert np.isfinite(scales).all() and (scales > 0).all()
+    forecasts = catalog.read_table(tr["output"]["table"])
+    T = len(forecasts) // S - horizon
+    dates = pd.DatetimeIndex(forecasts["ds"].iloc[:T + horizon])
+    _check_table(forecasts, keys, dates, f"{name} forecast table")
+    inf_conf = task_conf(spec, "inference")
+    h_inf = int(inf_conf["inference"]["horizon"])
+    served = catalog.read_table(inf_conf["output"]["table"])
+    # the inference task keeps its input's first-occurrence key order
+    served_keys = served[["store", "item"]].drop_duplicates().to_numpy()
+    _check_table(served, served_keys, dates[T:T + h_inf],
+                 f"{name} inference table")
+    row = {tuple(k): i for i, k in enumerate(keys.tolist())}
+    order = np.asarray([row[tuple(k)] for k in served_keys.tolist()])
+    assert sorted(order.tolist()) == list(range(S))
+    floor = port["blend"].blend_band_floor(families)
+    if floor is not None:
+        assert (forecasts["yhat_lower"] >= floor).all()
+
+    model_name = inf_conf["inference"]["model_name"]
+    v = registry.get_version(model_name, version)
+    family = "blend:" + ",".join(families)
+    assert v.tags["model_family"] == family, v.tags
+    registered, latest = port["serving"].resolve_from_registry(
+        registry, model_name, device="cuda")
+    assert latest.version == version, latest
+    assert type(registered).__name__ == "BlendedForecaster"
+    hw_member = registered.forecasters["holt_winters"]
+    request = pd.DataFrame(served_keys, columns=["store", "item"])
+    got = registered.predict(request, horizon=h_inf)
+    pd.testing.assert_frame_equal(got, served[got.columns], check_dtype=False)
+    future = forecasts.groupby(["store", "item"], sort=False).nth(
+        list(range(T, T + h_inf)))
+    for col in ("yhat", "yhat_upper", "yhat_lower"):
+        a = got[col].to_numpy().reshape(S, -1)
+        b = future[col].to_numpy().reshape(S, -1)[order]
+        scale = np.abs(b).max(axis=1, keepdims=True)
+        assert (np.abs(a - b) <= 1e-5 * scale).all(), col
+    metrics = train_run.metrics()
+    out = dict(
+        workflow=name, tasks_seconds={k: r["seconds"]
+                                      for k, r in results.items()},
+        seconds=run["seconds"], series=S, days=T, launches=run["launches"],
+        fit_seconds=metrics["fit_seconds"],
+        val_smape=metrics["val_smape"],
+        mean_weights={f: metrics[f"mean_weight_{f}"] for f in families},
+        interval_scale_range=[float(scales.min()), float(scales.max())],
+        pooled_band_floor=floor, season_length=hw_member.config.season_length,
+        registry={"version": v.version, "stage": latest.stage,
+                  "model_family": family})
+    if "promote" in results:
+        out["promote"] = results["promote"]["result"]
+    return out
+
+
+def check_promote(first: dict, second: dict, spec: dict) -> dict:
+    """The second forecasting-blend run's promote decides by its rule
+    against the first run's champion."""
+    pr = task_conf(spec, "promote")["promote"]
+    p1, p2 = first["promote"], second["promote"]
+    assert p1["promoted"] and p1["baseline_value"] is None, p1
+    assert p2["candidate_version"] == 2 and p2["baseline_value"] is not None
+    assert p2["baseline_value"] == first["val_smape"], (p2, first)
+    assert pr["rule"] == "not_worse", pr
+    b, c = p2["baseline_value"], p2["candidate_value"]
+    assert p2["promoted"] == (c <= b + float(pr["tolerance"]) * abs(b)), p2
+    assert second["registry"]["stage"] == (
+        "Production" if p2["promoted"] else "Staging"), second
+    return {"first": p1, "second": p2}
+
+
+# each recurrence family's limit on the relative card-vs-CPU change of its
+# CV score: float32 elementwise recurrences (Holt-Winters: the kernel is
+# bitwise its twin, so the devices differ only in how the twin's arithmetic
+# rounds; croston: the same selects and FMAs) drift apart by a few ulp a
+# step; 1e-5 is ~80 ulp.  The curve member's comes from its conditioning.
+POOL_RTOL = {"holt_winters": 1e-5, "croston": 1e-5}
+
+
+def pooled_ratios(port, batch, pool, configs, cv_conf) -> dict:
+    """The pooled band's conformal scores on ``batch``'s device, rebuilt
+    from each member's CV paths with ``pool``'s weights as
+    ``engine/blend._blend_conformal_scale`` builds them; the scale
+    recomputed from them must equal ``pool.interval_scale`` bit for bit, so
+    that this copy cannot drift from it."""
+    cvm, cal = port["cv"], port["cal"]
+    cuts = cvm.cutoff_indices(batch.n_time, cvm.CVConfig(**cv_conf))
+    w = torch.as_tensor(pool.weights, dtype=torch.float32,
+                        device=batch.y.device)
+    yhat_b = up_b = em = None
+    for i, f in enumerate(pool.models):
+        config, _ = cvm._cv_entry(batch, f, configs.get(f), None, "pool")
+        yhat, _, hi, e, _ = cvm._cv_paths(batch, f, config, cuts,
+                                          cv_conf["horizon"])
+        wf = w[:, i][None, :, None]
+        if yhat_b is None:
+            yhat_b, up_b, em = wf * yhat, wf * (hi - yhat), e
+        else:
+            yhat_b, up_b = yhat_b + wf * yhat, up_b + wf * (hi - yhat)
+    width = cal.config_interval_width(config)
+    hi_b = yhat_b + up_b
+    scale = cal.conformal_scale_from_paths(batch.y, yhat_b, hi_b, em,
+                                           interval_width=width)
+    assert np.array_equal(scale.cpu().numpy(), pool.interval_scale)
+    half = hi_b - yhat_b
+    obs = (em > 0) & (half > 1e-6 * (yhat_b.abs() + 1e-9))
+    r = torch.where(obs, (batch.y[None] - yhat_b).abs()
+                    / half.clamp_min(1e-9), 0.0)
+    n_obs = obs.sum((0, 2)).float()
+    k = cal._conformal_rank(n_obs, torch.full(
+        (), width, dtype=torch.float32, device=n_obs.device))
+    return dict(obs=obs.cpu(), r=r.cpu(), n=n_obs.cpu(), k=k.cpu())
+
+
+def pool_vs_cpu(port, batch, spec: dict, configs: dict, n: int = 20) -> dict:
+    """A 20-series ``fit_forecast_blend(calibrate=True)`` on the card and on
+    the CPU, with the train task's pool, member configs and CV.  Each
+    family's scores within its own limit: :data:`POOL_RTOL` for the
+    recurrences, and for the curve member 10 cond(A) 2^-24 of its CV
+    systems (phase 3's bound on its paths).  The argmax-weight family equal
+    wherever a series' best and second-best scores are more than twice the
+    largest limit apart; weights within 2 d w + 1e-7 of each other, d the
+    row's own largest relative score change (weights move by at most 2 d
+    for a relative change d of the scores); the pooled conformal ranks
+    equal and each scale within the largest change of the pooled scores it
+    is an order statistic of (of every series' scores where the pooled one
+    stands in), as phase 7 holds the curve model's; ok flags equal."""
+    blend, cvm = port["blend"], port["cv"]
+    tr = task_conf(spec, "train")["training"]
+    families = tuple(tr["model_conf"]["families"])
+    sub = batch.take_series(range(n))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    kw = dict(models=families, configs=configs, cv=cvm.CVConfig(**tr["cv"]),
+              horizon=int(tr["horizon"]), calibrate=True)
+    _, b_gpu, r_gpu = blend.fit_forecast_blend(sub, **kw)
+    _, b_cpu, r_cpu = blend.fit_forecast_blend(cpu, **kw)
+
+    limits = dict(POOL_RTOL)
+    curve, _ = cvm._cv_entry(sub, "prophet", configs.get("prophet"), None,
+                             "pool")
+    _, A, _ = curve_systems(*cv_inputs(sub, cvm, tr["cv"]), sub.day, curve,
+                            port)
+    limits["prophet"], kappa = cond_tolerance(A)
+    g = b_gpu.scores[list(families)].to_numpy()
+    c = b_cpu.scores[list(families)].to_numpy()
+    assert np.isfinite(g).all() and np.isfinite(c).all()
+    rel = np.abs(g - c) / np.abs(c)
+    for i, f in enumerate(families):
+        assert rel[:, i].max() <= limits[f], (f, rel[:, i].max(), limits[f])
+    srt = np.sort(c, axis=1)
+    apart = (srt[:, 1] - srt[:, 0]) > 2 * max(limits.values()) * srt[:, 0]
+    a_gpu = b_gpu.weights.argmax(axis=1)
+    a_cpu = b_cpu.weights.argmax(axis=1)
+    assert (a_gpu[apart] == a_cpu[apart]).all()
+    d = rel.max(axis=1, keepdims=True)
+    wdiff = np.abs(b_gpu.weights - b_cpu.weights)
+    assert (wdiff <= 2 * d * b_cpu.weights + 1e-7).all(), wdiff.max()
+
+    pg = pooled_ratios(port, sub, b_gpu, configs, tr["cv"])
+    pc = pooled_ratios(port, cpu, b_cpu, configs, tr["cv"])
+    assert torch.equal(pg["obs"], pc["obs"]) and torch.equal(pg["k"], pc["k"])
+    diff = (pg["r"] - pc["r"]).abs()
+    bound = torch.where(pc["n"] >= 30, diff.amax((0, 2)), diff.max()).numpy()
+    s_gpu, s_cpu = b_gpu.interval_scale, b_cpu.interval_scale
+    err = np.abs(s_gpu - s_cpu)
+    assert (err <= bound + F32_EPS * 2 * np.abs(s_cpu)).all(), (err, bound)
+    assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
+    res = dict(series=n, families=list(families),
+               score_max_rel_diff={f: float(rel[:, i].max())
+                                   for i, f in enumerate(families)},
+               score_limit_rel=limits, curve_cond_max=kappa,
+               argmax_equal_where_apart=int(apart.sum()),
+               weight_max_abs_diff=float(wdiff.max()),
+               scale_max_abs_diff=float(err.max()),
+               scale_bound_max=float(bound.max()),
+               scale_max_rel_diff=float((err / s_cpu).max()),
+               argmax_counts={f: int((a_gpu == i).sum())
+                              for i, f in enumerate(families)})
+    emit("blend_gpu_vs_cpu_20_series", **res)
+    return res
+
+
+def count_syncs(fn) -> list:
+    """Every host sync PyTorch reports while ``fn()`` runs
+    (``set_sync_debug_mode("warn")``), as the calling file:line."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def pooled_timings(port, root: str, spec: dict, card_line: str) -> dict:
+    """Phase 8's device times on the real dataset: the train task's dispatch
+    stage (CUDA events, median of 5; the device's idle share; its host
+    syncs), the croston recurrence at the fit and CV shapes beside its
+    bounds, and season detection (the ACF alone on the card, and the whole
+    detection with its host pull)."""
+    cr, season, cvm = port["croston"], port["season"], port["cv"]
+    prep, dispatch, _ = train_stages(port, root, spec)
+    state = prep()
+    batch = state["batch"]
+    dispatch(dict(state))  # warm-up
+    t = {"dispatch_ms": cuda_ms(lambda: dispatch(dict(state))),
+         "dispatch_profile": idle_share(lambda: dispatch(dict(state)),
+                                        top_n=12),
+         "dispatch_host_syncs": count_syncs(lambda: dispatch(dict(state)))}
+    cv_conf = task_conf(spec, "train")["training"]["cv"]
+    cuts = cvm.cutoff_indices(batch.n_time, cvm.CVConfig(**cv_conf))
+    train_masks = cvm.cv_windows(batch.mask, batch.day, cuts,
+                                 cv_conf["horizon"])[0]
+    shapes = {"fit": (batch.y, batch.mask),
+              "cv": (batch.y.repeat(len(cuts), 1),
+                     train_masks.reshape(-1, batch.n_time))}
+    cfg = cr.CrostonConfig()
+    t["croston"] = {}
+    for k, (y, mask) in shapes.items():
+        S, T = (int(d) for d in y.shape)
+        fit = lambda: cr.fit(y, mask, batch.day, cfg)  # noqa: E731
+        bound, by = bound_ms(cr.fit_work(S, T))
+        prof = idle_share(fit)
+        t["croston"][k] = {
+            "shape": [S, T], "ms": cuda_ms(fit), "bound_ms": bound,
+            "bound_by": by,
+            "serial_chain_ms": T * CROSTON_CHAIN_CYCLES / CLOCK_HZ * 1e3,
+            "device_events": prof.get("device_events"),
+            "idle_share": prof["idle_share"]}
+    max_lag = season.clamp_max_lag(400, batch.n_time)
+    acf = lambda: season.acf_scores_impl(batch.y, batch.mask, max_lag)  # noqa: E731
+    bound, by = bound_ms(season.acf_work(batch.n_series, batch.n_time,
+                                         max_lag))
+    detect = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        period = season.detect_season_length(batch)
+        detect.append((time.perf_counter() - t0) * 1e3)
+    assert period == 7, period
+    t["season"] = {"shape": [batch.n_series, batch.n_time, max_lag],
+                   "acf_ms": cuda_ms(acf), "bound_ms": bound, "bound_by": by,
+                   "acf_device_events": idle_share(acf).get("device_events"),
+                   "detect_ms_host": statistics.median(detect),
+                   "detected": period}
+    emit("blend_times", card=card_line, reps=REPS, statistic="median", **t)
+    return dict(t, batch=batch)
+
+
+def pooled_phase(port, counters, card_line: str) -> dict:
+    """Phase 8: real-data-e2e minus monitor, then forecasting-blend twice
+    in one env root (the second promote against the first's champion),
+    each five times in all for the per-task medians; the first train task
+    of each workflow's kernel calls against their twins; checks, times,
+    and the 20-series card-vs-CPU blend."""
+    out = {"launches": {k: 0 for k in counters},
+           "cases": {k: {} for k in counters}}
+    runs = {}
+    for name in (REAL, BLEND):
+        spec = e2e_spec(port, name)
+        with tempfile.TemporaryDirectory() as root:
+            first = pooled_run(port, root, spec, counters, record=True)
+            for k, res in pooled_kernel_cases(port, first, name).items():
+                out["cases"][k].update(res)
+            checked = [check_pooled(first, port, root, spec, 1)]
+            if name == BLEND:
+                checked.append(check_pooled(
+                    pooled_run(port, root, spec, counters), port, root, spec,
+                    2))
+                out["promote"] = check_promote(*checked, spec)
+                emit("blend_promote", **out["promote"])
+            if name == REAL:
+                timed = pooled_timings(port, root, spec, card_line)
+                out["gpu_vs_cpu"] = pool_vs_cpu(port, timed.pop("batch"),
+                                                spec, first["configs"])
+                out["times"] = timed
+            del first
+        while len(checked) < REPS:
+            with tempfile.TemporaryDirectory() as root:
+                checked.append(check_pooled(
+                    pooled_run(port, root, spec, counters), port, root, spec,
+                    1))
+        runs[name] = checked
+        for c in checked:
+            for k, n in c["launches"].items():
+                out["launches"][k] += n
+        emit("launches", path=name, per_train_task=[c["launches"]
+                                                   for c in checked],
+             expected="each kernel >= 1 a train task: 3 each (the CV pass "
+                      "for the weights, the pooled CV pass, the fit)")
+        med = lambda key: statistics.median(c[key] for c in checked)  # noqa: E731
+        emit("blend_workflow", **checked[0], runs=len(checked),
+             median_seconds=med("seconds"), median_fit_seconds=med(
+                 "fit_seconds"),
+             median_tasks_seconds={k: statistics.median(
+                 c["tasks_seconds"][k] for c in checked)
+                 for k in checked[0]["tasks_seconds"]})
+    assert runs[BLEND][0]["season_length"] == 7, runs[BLEND][0]
+    out["runs"] = runs
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -1072,7 +1564,9 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.ops import solve
     from distributed_forecasting_tpu_torch.pipelines import training
     from distributed_forecasting_tpu_torch import tracking
+    from distributed_forecasting_tpu_torch.engine import blend, season
     from distributed_forecasting_tpu_torch.engine import calibrate as cal
+    from distributed_forecasting_tpu_torch.models import croston
     from distributed_forecasting_tpu_torch.utils import config
     from distributed_forecasting_tpu_torch.workflows import runner
 
@@ -1084,7 +1578,8 @@ def main() -> int:
 
     port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
                 pg=pg, solve=solve, training=training, tracking=tracking,
-                cal=cal, config=config, runner=runner)
+                cal=cal, config=config, runner=runner, blend=blend,
+                croston=croston, season=season)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -1131,6 +1626,7 @@ def main() -> int:
         wt = workflow_timings(port, root, spec, card_line)
         conformal_vs_cpu(port, wt["state"]["batch"], wt["state"]["config"],
                          wt["cv_conf"])
+    pooled = pooled_phase(port, counters, card_line)
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
 
@@ -1141,8 +1637,9 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": origin,
-        "launches": launches[k],
-        "max_abs_err": max(c["max_abs_err"] for c in cases[k].values()),
+        "launches": launches[k] + pooled["launches"][k],
+        "max_abs_err": max(c["max_abs_err"] for c in (
+            *cases[k].values(), *pooled["cases"][k].values())),
         "ms": t[k]["ms"],
         "plain_ms": plain[k],
         "bound_ms": t[k]["bound_ms"],

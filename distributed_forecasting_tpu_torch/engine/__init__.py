@@ -1,9 +1,15 @@
+from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
 from distributed_forecasting_tpu_torch.engine.fit import (
     ForecastResult,
     fit_forecast,
     forecast_frame,
 )
+from distributed_forecasting_tpu_torch.engine.select import (
+    fit_forecast_auto,
+    select_model,
+)
 
 __all__ = ["CVConfig", "cross_validate", "ForecastResult", "fit_forecast",
-           "forecast_frame"]
+           "fit_forecast_auto", "fit_forecast_blend", "forecast_frame",
+           "select_model"]

@@ -30,10 +30,12 @@ def _ndtri(p, device) -> torch.Tensor:
                                                device=device))
 
 
-def gaussian_quantiles(forecast_fn: Callable) -> Callable:
+def gaussian_quantiles(forecast_fn: Callable, floor=None) -> Callable:
     """Exact quantile forecaster for families whose predictive is Gaussian in
     data space (``hi = yhat + z·sd``); the per-step sd is recovered from the
-    upper bound.  Returns (S, Q, T_all)."""
+    upper bound, which no family clamps, and ``floor`` (croston's
+    non-negative demand) then clamps every priced level.  Returns
+    (S, Q, T_all)."""
 
     def forecast_quantiles(params, day_all, t_end, config,
                            quantiles=(0.1, 0.5, 0.9)):
@@ -45,7 +47,8 @@ def gaussian_quantiles(forecast_fn: Callable) -> Callable:
         z_w = _ndtri(0.5 + config.interval_width / 2.0, yhat.device)
         sd = (hi - yhat) / z_w
         zq = _ndtri(tuple(quantiles), yhat.device)
-        return yhat[:, None, :] + zq[None, :, None] * sd[:, None, :]
+        yq = yhat[:, None, :] + zq[None, :, None] * sd[:, None, :]
+        return yq if floor is None else torch.clamp_min(yq, floor)
 
     return forecast_quantiles
 
@@ -69,10 +72,10 @@ class ModelFns(NamedTuple):
     # (params, day_all, t_end, config, quantiles) -> (S, Q, T_all)
     forecast_quantiles: Callable = None
     supports_xreg: bool = False
-    # hard floor the family enforces on its lower band (the reference's
-    # croston clamps demand at 0); band post-processing (conformal scaling,
-    # engine/calibrate) re-applies it after widening.  No ported family
-    # sets one.
+    # hard floor the family enforces on its lower band (croston clamps
+    # demand at 0); band post-processing (conformal scaling,
+    # engine/calibrate, the blend's pooled band) re-applies it after
+    # widening
     band_floor: Optional[float] = None
 
 
@@ -87,7 +90,21 @@ def register_model(name: str, fit: Callable, forecast: Callable,
                                     band_floor=band_floor)
 
 
+# families of the reference the port has not ported yet
+UNPORTED_FAMILIES = frozenset({"theta", "arima", "arnet"})
+
+
 def get_model(name: str) -> ModelFns:
+    if name in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model family {name!r} is not ported yet (ROADMAP Queue 1: P8)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]
+
+
+def require_models(names) -> None:
+    """Check every family of a pool before any work starts: an unported one
+    raises ``NotImplementedError``, an unknown one ``KeyError``."""
+    for name in names:
+        get_model(name)

@@ -68,8 +68,11 @@ class HoltWintersConfig:
     #   'auto'   — ops/fused_scan.select_filter: 'pallas' on cuda, else
     #              'scan'; multiplicative always scans.
     # The winner is refit exactly (ops/fused_scan.hw_filter, :func:`_filter`'s
-    # arithmetic) whatever scored it.
-    filter: str = "scan"  # 'scan' | 'pscan' | 'pallas' | 'auto'
+    # arithmetic) whatever scored it.  The default is 'auto' where the
+    # reference's is 'scan': the reference's scan is one compiled program,
+    # and its counterpart on the card is the kernel, not a Python loop of
+    # ~30 launches a step; on the CPU 'auto' is 'scan', the same arithmetic.
+    filter: str = "auto"  # 'scan' | 'pscan' | 'pallas' | 'auto'
 
 
 @dataclasses.dataclass(frozen=True)

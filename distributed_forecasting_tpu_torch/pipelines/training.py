@@ -1,11 +1,15 @@
-"""Training pipeline (port of the reference's ``pipelines/training.py``,
-the plain fine-grained path).
+"""Training pipeline (port of the reference's ``pipelines/training.py``:
+the fine-grained path, plain and over a pool of families).
 
 :meth:`TrainingPipeline.fine_grained` is the headline per-(store, item)
 workload: history -> tensorize -> rolling-origin CV (optionally with
 split-conformal band calibration) -> one batched fit + forecast -> one
 tracked run (params, aggregate metrics, the per-series metric table, the
-serving artifact) -> the forecast table.
+serving artifact) -> the forecast table.  ``model: auto`` serves each
+series from the family that won its CV (``engine/select``), ``model:
+blend`` from the per-series weighted pool of all of them
+(``engine/blend``); their artifacts are the composite forecasters of
+``serving/ensemble``.
 
 It runs in three stages, as the reference's serial path does: ``prep``
 (read, tensorize, resolve the config), ``dispatch`` (the CV pass and the
@@ -34,14 +38,27 @@ from distributed_forecasting_tpu_torch.data.tensorize import tensorize
 from distributed_forecasting_tpu_torch.engine.calibrate import (
     apply_interval_scale,
 )
+from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
 from distributed_forecasting_tpu_torch.engine.fit import (
     fit_forecast,
     forecast_frame,
 )
+from distributed_forecasting_tpu_torch.engine.season import (
+    detect_season_length,
+)
+from distributed_forecasting_tpu_torch.engine.select import (
+    DEFAULT_FAMILIES,
+    fit_forecast_auto,
+)
 from distributed_forecasting_tpu_torch.models.base import (
     MODEL_REGISTRY,
     get_model,
+    require_models,
+)
+from distributed_forecasting_tpu_torch.serving.ensemble import (
+    BlendedForecaster,
+    MultiModelForecaster,
 )
 from distributed_forecasting_tpu_torch.serving.predictor import BatchForecaster
 from distributed_forecasting_tpu_torch.tracking import FileTracker
@@ -59,8 +76,6 @@ _METRICS = ("mse", "rmse", "mae", "mape", "smape", "mdape", "coverage",
 # per-series drill-down runs: warn above this count (O(S) host loop)
 _PER_SERIES_RUNS_WARN = 2000
 
-# model families of the reference that the port has not ported yet
-_UNPORTED_FAMILIES = frozenset({"theta", "croston", "arima", "arnet"})
 _CALENDAR_DAILY_FAMILIES = frozenset({"prophet", "curve", "prophet_ar"})
 
 
@@ -91,17 +106,28 @@ def _config_from_conf(model: str, model_conf: Optional[Dict[str, Any]]):
     )
 
 
+def _pool_families(model: str, model_conf) -> tuple:
+    """The families of a ``model: auto | blend`` pool (the conf's
+    ``families``, else the default pool); empty for a single model."""
+    if model not in ("auto", "blend"):
+        return ()
+    return tuple((model_conf or {}).get("families", DEFAULT_FAMILIES))
+
+
 def _check_cadence(freq: str, model: str, model_conf) -> None:
     """The curve model's weekly/yearly Fourier terms and holiday calendars
-    are calendar-daily: on a week or month grid they raise here rather
-    than fit a 7-step "weekly" cycle."""
+    are calendar-daily: on a week or month grid they raise here, also when
+    the curve model is in a pool, rather than fit a 7-step "weekly"
+    cycle."""
     if freq == "D":
         return
-    if model in _CALENDAR_DAILY_FAMILIES:
+    bad = ({model} | set(_pool_families(model, model_conf))) & (
+        _CALENDAR_DAILY_FAMILIES)
+    if bad:
         raise ValueError(
             f"training.freq={freq!r}: the curve model's seasonalities are "
-            f"calendar-daily; use a cadence-agnostic family (holt_winters) "
-            f"or freq: D (conf names [{model!r}])"
+            f"calendar-daily; use the cadence-agnostic families "
+            f"(holt_winters/croston) or freq: D (conf names {sorted(bad)})"
         )
     if isinstance((model_conf or {}).get("holidays"), (str, dict)):
         raise ValueError(
@@ -112,12 +138,26 @@ def _check_cadence(freq: str, model: str, model_conf) -> None:
 
 def _resolve_model_conf(model_conf: Optional[Dict[str, Any]], batch,
                         horizon: int) -> Optional[Dict[str, Any]]:
-    """The conf translations applied before a config is built: a named
-    holiday calendar.  ``season_length: auto`` needs season detection,
-    which is not ported."""
-    if (model_conf or {}).get("season_length") == "auto":
-        raise _not_ported("season_length: auto (engine/season.py)", "P8")
-    return _resolve_holidays_conf(model_conf, batch, horizon)
+    """The conf translations applied before a config is built, on every
+    path (plain, and each member of a pool): a named holiday calendar and
+    ``season_length: auto``."""
+    return _resolve_season_conf(
+        _resolve_holidays_conf(model_conf, batch, horizon), batch)
+
+
+def _resolve_season_conf(
+    model_conf: Optional[Dict[str, Any]], batch
+) -> Optional[Dict[str, Any]]:
+    """Turn ``season_length: auto`` into the batch's detected dominant
+    period (``engine/season``), a plain int: the config field is static.
+    With no detectable period the default follows the grid's cadence: 7
+    days, 52 weeks or 12 months."""
+    if not model_conf or model_conf.get("season_length") != "auto":
+        return model_conf
+    out = dict(model_conf)
+    default = {"D": 7, "W": 52, "M": 12}.get(batch.freq, 7)
+    out["season_length"] = detect_season_length(batch, default=default)
+    return out
 
 
 def _resolve_holidays_conf(
@@ -249,14 +289,17 @@ class TrainingPipeline:
                     "run_cross_validation: the CV residuals ARE the "
                     "calibration set"
                 )
-        # what the port does not run yet
+        # what the port does not run yet; every family of a pool is checked
+        # here, before any data is read
         if tuned:
             raise _not_ported("tuning.enabled (engine/hyper.py)", "P8")
-        if model in ("auto", "blend"):
-            raise _not_ported(f"model: {model} (engine/select.py, "
-                              f"engine/blend.py)", "P8")
-        if model in _UNPORTED_FAMILIES:
-            raise _not_ported(f"model: {model}", "P8")
+        pool = _pool_families(model, model_conf)
+        require_models(pool or (model,))
+        if bucketed and pool:
+            raise ValueError(
+                f"training.bucketed is not supported together with "
+                f"model={model!r} — pooled fits run on the shared grid"
+            )
         if bucketed:
             raise _not_ported("training.bucketed (fit_forecast_bucketed)",
                               "Slice 4")
@@ -267,6 +310,11 @@ class TrainingPipeline:
             raise _not_ported("training.cv_artifact (cv_forecast_frame)",
                               "Slice 4")
         _check_cadence(freq, model, model_conf)
+        if pool:
+            return self._pool_stages(
+                model, pool, source_table, output_table, model_conf, cv_conf,
+                experiment, horizon, key_cols, freq, calibrate_intervals,
+                trace_dir)
 
         def prep() -> Dict[str, Any]:
             timer = PhaseTimer()
@@ -279,6 +327,9 @@ class TrainingPipeline:
             # the batch's actual date range (+ horizon)
             config = _config_from_conf(
                 model, _resolve_model_conf(model_conf, batch, horizon))
+            if (model_conf or {}).get("season_length") == "auto":
+                self.logger.info("season_length: auto -> detected period %d",
+                                 config.season_length)
             self.logger.info(
                 "fine-grained fit: %d series x %d days, model=%s on %s",
                 batch.n_series, batch.n_time, model, self.device,
@@ -423,6 +474,192 @@ class TrainingPipeline:
             }
 
         return prep, dispatch, complete
+
+    # ------------------------------------------------------- pooled families
+    def _pool_stages(self, model, families, source_table, output_table,
+                     model_conf, cv_conf, experiment, horizon, key_cols, freq,
+                     calibrate_intervals, trace_dir):
+        """The stages of ``model: auto`` (each series' CV winner,
+        ``engine/select``) and ``model: blend`` (the inverse-CV-error pool,
+        ``engine/blend``).  ``model_conf`` may carry ``{"families": [...],
+        "metric": ..., "temperature": ... (blend), "configs": {family:
+        {...}}}``; each family's conf resolves as the plain path's does."""
+        mc = model_conf or {}
+        metric = mc.get("metric", "smape")
+        temperature = float(mc.get("temperature", 1.0))
+
+        def prep() -> Dict[str, Any]:
+            cv = CVConfig(**(cv_conf or {}))
+            df = self.catalog.read_table(source_table)
+            batch = tensorize(df, key_cols=key_cols, freq=freq,
+                              device=self.device)
+            configs = {}
+            for name, c in (mc.get("configs") or {}).items():
+                configs[name] = _config_from_conf(
+                    name, _resolve_model_conf(c, batch, horizon))
+                if (c or {}).get("season_length") == "auto":
+                    self.logger.info(
+                        "%s season_length: auto -> detected period %d",
+                        name, configs[name].season_length)
+            self.logger.info(
+                "%s fit: %d series x %d days over %s on %s", model,
+                batch.n_series, batch.n_time, list(families), self.device)
+            return {"cv": cv, "batch": batch, "configs": configs}
+
+        def dispatch(state: Dict[str, Any]) -> Dict[str, Any]:
+            t_start = time.time()
+            kw = dict(models=families, configs=state["configs"],
+                      metric=metric, cv=state["cv"], horizon=horizon)
+            with device_trace(trace_dir):
+                if model == "blend":
+                    params_by_family, pool, result = fit_forecast_blend(
+                        state["batch"], temperature=temperature,
+                        calibrate=calibrate_intervals, **kw)
+                else:
+                    params_by_family, pool, result = fit_forecast_auto(
+                        state["batch"], **kw)
+            state.update(t_start=t_start, params_by_family=params_by_family,
+                         pool=pool, result=result)
+            return state
+
+        def complete(state: Dict[str, Any]) -> Dict[str, Any]:
+            # the host pull first: fit_seconds spans the device work
+            ok = state["result"].ok.cpu().numpy()
+            fit_seconds = time.time() - state["t_start"]
+            eid = self.tracker.create_experiment(experiment)
+            args = (eid, state["batch"], state["cv"], state["configs"],
+                    state["params_by_family"], state["pool"], state["result"],
+                    ok, fit_seconds, families, metric)
+            if model == "blend":
+                return self._complete_blend(*args, temperature, horizon,
+                                            output_table)
+            return self._complete_auto(*args, horizon, output_table)
+
+        return prep, dispatch, complete
+
+    def _complete_auto(self, eid, batch, cv, configs, params_by_family,
+                       selection, result, ok, fit_seconds, families, metric,
+                       horizon, output_table) -> Dict[str, Any]:
+        with self.tracker.start_run(
+            eid, run_name="auto_select_fit",
+            tags={"model": "auto", "families": ",".join(families)},
+        ) as run:
+            run.log_params({
+                "families": list(families),
+                "selection_metric": metric,
+                "n_series": batch.n_series,
+                "horizon": horizon,
+                **_comparability_params(batch, cv),
+            })
+            counts = selection.counts()
+            valid = selection.valid
+            # over the series with at least one finite CV score
+            val_metric = (float(np.mean(selection.best_score[valid]))
+                          if valid.any() else float("nan"))
+            run.log_metrics({
+                f"val_{metric}": val_metric,
+                "n_invalid_series": float((~valid).sum()),
+                "fit_seconds": fit_seconds,
+                **{f"n_chosen_{name}": float(counts.get(name, 0))
+                   for name in families},
+            })
+            series_table = batch.key_frame()
+            series_table["chosen_model"] = selection.chosen
+            series_table[f"best_{metric}"] = selection.best_score
+            for name in families:
+                series_table[f"{metric}_{name}"] = (
+                    selection.scores[name].to_numpy())
+            run.log_table("series_metrics.parquet", series_table)
+            MultiModelForecaster.from_fit(
+                batch, params_by_family, configs, selection
+            ).save(run.artifact_path("forecaster"))
+            run_id = run.run_id
+
+        version = self.catalog.save_table(output_table,
+                                          forecast_frame(batch, result))
+        self.logger.info(
+            "auto-select fit: %d series over %s in %.2fs (chosen: %s) -> "
+            "%s v%s", batch.n_series, list(families), fit_seconds, counts,
+            output_table, version)
+        return {
+            "experiment_id": eid,
+            "run_id": run_id,
+            "table_version": version,
+            "n_series": batch.n_series,
+            "n_failed": int((~ok).sum()),
+            "fit_seconds": fit_seconds,
+            "chosen_counts": counts,
+            "metrics": {f"val_{metric}": val_metric},
+        }
+
+    def _complete_blend(self, eid, batch, cv, configs, params_by_family,
+                        blend, result, ok, fit_seconds, families, metric,
+                        temperature, horizon, output_table) -> Dict[str, Any]:
+        with self.tracker.start_run(
+            eid, run_name="blended_fit",
+            tags={"model": "blend", "families": ",".join(families)},
+        ) as run:
+            run.log_params({
+                "families": list(families),
+                "blend_metric": metric,
+                "temperature": temperature,
+                "n_series": batch.n_series,
+                "horizon": horizon,
+                **_comparability_params(batch, cv),
+            })
+            valid = blend.valid
+            # the pool's CV score as the weighted member scores (the pool's
+            # own CV error is at most this for a convex metric): what the
+            # promotion gate compares.  A row with no finite score is NaN,
+            # not nansum's "perfect" 0
+            score_mat = blend.scores[list(blend.models)].to_numpy(float)
+            blended_score = np.where(
+                valid, np.nansum(blend.weights * score_mat, axis=1), np.nan)
+            val_metric = (float(np.nanmean(blended_score[valid]))
+                          if valid.any() else float("nan"))
+            run.log_metrics({
+                f"val_{metric}": val_metric,
+                "n_invalid_series": float((~valid).sum()),
+                "fit_seconds": fit_seconds,
+                **{f"mean_weight_{name}": w
+                   for name, w in blend.mean_weights().items()},
+            })
+            series_table = batch.key_frame()
+            series_table[f"blended_{metric}"] = blended_score
+            if blend.interval_scale is not None:
+                series_table["interval_scale"] = blend.interval_scale
+                run.log_metrics({"interval_scale_mean": float(
+                    np.nanmean(blend.interval_scale[valid])
+                ) if valid.any() else float("nan")})
+            for i, name in enumerate(blend.models):
+                series_table[f"weight_{name}"] = blend.weights[:, i]
+                series_table[f"{metric}_{name}"] = blend.scores[name].to_numpy()
+            run.log_table("series_metrics.parquet", series_table)
+            BlendedForecaster.from_fit(
+                batch, params_by_family, configs, blend
+            ).save(run.artifact_path("forecaster"))
+            run_id = run.run_id
+
+        version = self.catalog.save_table(output_table,
+                                          forecast_frame(batch, result))
+        mean_weights = blend.mean_weights()
+        self.logger.info(
+            "blended fit: %d series over %s in %.2fs (mean weights: %s) -> "
+            "%s v%s", batch.n_series, list(families), fit_seconds,
+            {k: round(v, 3) for k, v in mean_weights.items()}, output_table,
+            version)
+        return {
+            "experiment_id": eid,
+            "run_id": run_id,
+            "table_version": version,
+            "n_series": batch.n_series,
+            "n_failed": int((~ok).sum()),
+            "fit_seconds": fit_seconds,
+            "mean_weights": mean_weights,
+            "metrics": {f"val_{metric}": val_metric,
+                        **{f"mean_weight_{k}": v
+                           for k, v in mean_weights.items()}},
+        }
 
     def _log_per_series_runs(self, eid: str, series_table: pd.DataFrame,
                              parent: str):

@@ -1,3 +1,7 @@
+from distributed_forecasting_tpu_torch.serving.ensemble import (
+    BlendedForecaster,
+    MultiModelForecaster,
+)
 from distributed_forecasting_tpu_torch.serving.loader import (
     load_forecaster,
     resolve_from_registry,
@@ -7,5 +11,5 @@ from distributed_forecasting_tpu_torch.serving.predictor import (
     UnknownSeriesError,
 )
 
-__all__ = ["BatchForecaster", "UnknownSeriesError", "load_forecaster",
-           "resolve_from_registry"]
+__all__ = ["BatchForecaster", "BlendedForecaster", "MultiModelForecaster",
+           "UnknownSeriesError", "load_forecaster", "resolve_from_registry"]

@@ -2,10 +2,11 @@
 ``resolve_from_registry`` (the reference keeps both in its HTTP server
 module, ``serving/server.py``; the port has no server, so they live here).
 
-Only single-family :class:`BatchForecaster` artifacts load.  The reference's
-composite artifacts — mixed-family, blended and span-bucketed — are
-recognised by their metadata file and refused, naming the ROADMAP item that
-ports them.
+An artifact directory is recognised by its metadata file, as the reference
+does: ``ensemble.json`` (mixed-family), ``blend.json`` (blended), else a
+single-family :class:`BatchForecaster`.  Span-bucketed artifacts
+(``buckets.json``) are refused, naming the ROADMAP item that ports them.
+A composite whose members fail to load raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -13,28 +14,26 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from distributed_forecasting_tpu_torch.serving.ensemble import (
+    BlendedForecaster,
+    MultiModelForecaster,
+)
 from distributed_forecasting_tpu_torch.serving.predictor import BatchForecaster
 
-# metadata file of each composite artifact -> the ROADMAP item porting it
-_COMPOSITE = {
-    "ensemble.json": "mixed-family artifacts, serving/ensemble.py "
-                     "(ROADMAP Queue 1: P8)",
-    "blend.json": "blended artifacts, engine/blend.py and serving/ensemble.py "
-                  "(ROADMAP Queue 1: P8)",
-    "buckets.json": "span-bucketed artifacts, serving/bucketed.py "
-                    "(ROADMAP Queue 1: Slice 4, fit_forecast_bucketed)",
-}
 
-
-def load_forecaster(artifact_dir: str, device=None) -> BatchForecaster:
+def load_forecaster(artifact_dir: str, device=None):
     """Load the serving artifact in ``artifact_dir`` onto ``device``
     (``cuda`` unless the caller asks for the CPU)."""
-    for meta, item in _COMPOSITE.items():
-        if os.path.exists(os.path.join(artifact_dir, meta)):
-            raise NotImplementedError(
-                f"{artifact_dir} holds {meta}: loading {item} is not ported "
-                f"yet"
-            )
+    if os.path.exists(os.path.join(artifact_dir, "ensemble.json")):
+        return MultiModelForecaster.load(artifact_dir, device=device)
+    if os.path.exists(os.path.join(artifact_dir, "blend.json")):
+        return BlendedForecaster.load(artifact_dir, device=device)
+    if os.path.exists(os.path.join(artifact_dir, "buckets.json")):
+        raise NotImplementedError(
+            f"{artifact_dir} holds buckets.json: loading span-bucketed "
+            f"artifacts, serving/bucketed.py (ROADMAP Queue 1: Slice 4, "
+            f"fit_forecast_bucketed) is not ported yet"
+        )
     return BatchForecaster.load(artifact_dir, device=device)
 
 

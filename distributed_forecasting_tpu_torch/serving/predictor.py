@@ -283,7 +283,8 @@ class BatchForecaster:
         k = int(sidx.size)
         yhat, lo, hi = fns.forecast(params, day_all, float(self.day1),
                                     self.config)
-        yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale)
+        yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
+                                            floor=fns.band_floor)
         if not include_history:
             day_all = day_all[-horizon:]
             yhat, lo, hi = yhat[:, -horizon:], lo[:, -horizon:], hi[:, -horizon:]
@@ -325,6 +326,9 @@ class BatchForecaster:
         if scale is not None:
             med = yq[:, priced.index(0.5), :][:, None, :]
             yq = med + scale[:, None, None] * (yq - med)
+            if fns.band_floor is not None:
+                # widening must not undo the family's clamp of the levels
+                yq = torch.clamp_min(yq, fns.band_floor)
         if priced != quantiles:
             yq = yq[:, [priced.index(q) for q in quantiles], :]
         if not include_history:

@@ -8,12 +8,19 @@ device.  Conf::
       table: hackathon.sales.finegrain_forecasts
     training:
       model: prophet                # prophet | curve | prophet_ar |
-                                    #   holt_winters
+                                    #   holt_winters | croston | auto
+                                    #   (per-series best-of) | blend
+                                    #   (per-series inverse-CV-error pool)
       model_conf: {...}             # fields of the model's config dataclass;
                                     # the curve model also takes a named
                                     # holiday calendar (holidays: US, or
                                     # {calendar: US, lower_window: 1,
-                                    #  upper_window: 1, custom: {...}})
+                                    #  upper_window: 1, custom: {...}});
+                                    # holt_winters takes season_length:
+                                    # auto (the detected period).  For auto
+                                    # and blend: {families: [...], metric:
+                                    # smape, temperature: 1.0 (blend),
+                                    # configs: {family: {...}}}
       cv: {initial: 730, period: 360, horizon: 90}
       horizon: 90
       freq: D                       # D | W | M (the curve model is daily)
@@ -21,12 +28,13 @@ device.  Conf::
       run_cross_validation: true
       per_series_runs: false
       calibrate_intervals: false    # split-conformal band calibration from
-                                    # the CV residuals (engine/calibrate)
+                                    # the CV residuals (engine/calibrate;
+                                    # for blend, of the pooled band)
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``path: allocated``, ``model: auto | blend`` and the theta, croston,
-arima and arnet families, ``tuning.enabled``, ``bucketed``,
-``regressors``, ``cv_artifact``.
+item: ``path: allocated``, the theta, arima and arnet families (also in a
+pool: ``model: auto`` with the default families raises), ``tuning.enabled``,
+``bucketed``, ``regressors``, ``cv_artifact``.
 """
 
 from __future__ import annotations

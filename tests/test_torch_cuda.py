@@ -353,3 +353,60 @@ def test_conformal_scale_makes_no_host_sync(dev):
         cal.conformal_scale_from_paths(*paths)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# -- the pooled families (model: blend | auto) --------------------------------
+
+def _pool_batch(dev, S=24, T=400):
+    from distributed_forecasting_tpu_torch import data
+
+    df = data.synthetic_store_item_sales(n_stores=3, n_items=S // 3,
+                                         n_days=T, seed=2)
+    df["sales"] = df["sales"].round()
+    df.loc[df["item"] == 1, "sales"] = 0.0  # one intermittent item a store
+    df.loc[(df["item"] == 1) & (df.index % 9 == 0), "sales"] = 5.0
+    return data.tensorize(df, device=dev)
+
+
+def test_blend_on_the_card_launches_both_kernels_three_times(dev):
+    """The holt_winters member scores and refits through the kernels in each
+    of the blend's three passes (its CV for the weights, the pooled CV for
+    the conformal scale, the full-history fit), at its default config."""
+    from distributed_forecasting_tpu_torch.engine import blend, cv
+
+    b = _pool_batch(dev)
+    before = (fs.hw_score.launches, fs.hw_filter.launches)
+    _, pool, res = blend.fit_forecast_blend(
+        b, models=("holt_winters", "croston"), horizon=30, calibrate=True,
+        cv=cv.CVConfig(initial=200, period=60, horizon=30))
+    assert (fs.hw_score.launches - before[0],
+            fs.hw_filter.launches - before[1]) == (3, 3)
+    assert res.yhat.device.type == "cuda"
+    assert pool.interval_scale.shape == (b.n_series,)
+
+
+def test_croston_on_the_card_equals_the_cpu(dev):
+    """The recurrence runs the same float32 operations on either device:
+    equal within rtol 1e-6 / atol 1e-6 of the data's scale (the initial
+    means and the squared-error sum reduce in a different order)."""
+    from distributed_forecasting_tpu_torch.models import croston as cr
+
+    b = _pool_batch(dev)
+    for variant in ("croston", "sba", "tsb"):
+        cfg = cr.CrostonConfig(variant=variant)
+        got = cr.fit(b.y, b.mask, b.day, cfg)
+        want = cr.fit(b.y.cpu(), b.mask.cpu(), b.day.cpu(), cfg)
+        scale = float(b.y.abs().max())
+        for f in ("z_level", "p_level", "sigma", "fitted"):
+            torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                       rtol=1e-6, atol=1e-6 * scale)
+
+
+def test_season_detection_on_the_card_equals_the_cpu(dev):
+    from distributed_forecasting_tpu_torch.engine import season
+
+    b = _pool_batch(dev)
+    got = season.acf_scores_impl(b.y, b.mask, 133)
+    want = season.acf_scores_impl(b.y.cpu(), b.mask.cpu(), 133)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    assert season.detect_season_length(b) == 7

@@ -21,6 +21,17 @@ series and cutoff (the point on the band's edge).
 
 One test per option the port does not run yet checks that it raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+The ``forecasting-blend`` workflow (train with ``model: blend`` over
+prophet, holt_winters at ``season_length: auto`` and croston, calibrated ->
+deploy -> inference -> promote) runs through both packages at 2 x 3 x 400
+days, CV 200/60/30, horizon 30, and once more with ``model: auto``.  The
+curve member runs without yearly terms there: at a 200-day first cutoff the
+yearly wave is nearly collinear with the trend and the float32 normal
+equations are ill-conditioned (test_torch_engine.py).  Forecasts agree
+within 5e-4 of each series' scale (as above), the logged CV scores and
+weights within rtol 1e-3 (the curve member's scores, test_torch_blend.py).
+The promote task's decisions and tags are equal.
 """
 
 import copy
@@ -264,8 +275,8 @@ def test_workflow_stops_at_monitor_like_the_reference(tmp_path):
                        match="unknown task type 'monitor'") as err:
         trunner.WorkflowRunner(spec, env={"root": str(tmp_path)},
                                device="cpu").run("forecasting-e2e")
-    assert "known: ['catalog', 'deploy', 'inference', 'ingest', 'train']" in (
-        str(err.value))
+    assert ("known: ['catalog', 'deploy', 'inference', 'ingest', 'promote', "
+            "'train']") in str(err.value)
     # the five ported tasks ran before it
     reg = _handles(str(tmp_path))[2]
     assert reg.latest_version(MODEL).stage == "Staging"
@@ -288,8 +299,9 @@ def test_cli_honours_the_platform_switch(tmp_path, monkeypatch):
 
 def test_task_types_are_the_ported_five():
     assert sorted(ttasks.TASK_TYPES) == ["catalog", "deploy", "inference",
-                                         "ingest", "train"]
-    for mod in ("catalog", "ingest", "train", "deploy", "inference"):
+                                         "ingest", "promote", "train"]
+    for mod in ("catalog", "ingest", "train", "deploy", "inference",
+                "promote"):
         module = __import__(f"distributed_forecasting_tpu_torch.tasks.{mod}",
                             fromlist=["entrypoint"])
         assert callable(module.entrypoint)
@@ -321,14 +333,16 @@ def ingested(tmp_path_factory):
     ({"model": "auto"}, "P8"),
     ({"model": "blend", "calibrate_intervals": True}, "P8"),
     ({"model": "arima"}, "P8"),
-    ({"model": "croston"}, "P8"),
+    ({"model": "blend", "model_conf": {"families": ["croston", "theta"]}},
+     "P8"),
     ({"tuning": {"enabled": True}}, "P8"),
     ({"bucketed": True}, "Slice 4"),
     ({"regressors": {"table": "hackathon.sales.promo", "columns": ["p"]}},
      "Slice 4"),
     ({"cv_artifact": True}, "Slice 4"),
-    ({"model": "holt_winters", "model_conf": {"season_length": "auto"}},
-     "P8"),
+    ({"model": "auto", "model_conf": {
+        "families": ["holt_winters", "arima"],
+        "configs": {"holt_winters": {"season_length": "auto"}}}}, "P8"),
 ], ids=["allocated", "auto", "blend", "arima", "croston", "tuning",
         "bucketed", "regressors", "cv_artifact", "season_auto"])
 def test_unported_training_options_raise(ingested, training, item):
@@ -404,14 +418,16 @@ def test_result_neutral_blocks_are_accepted_and_logged(ingested):
                          device="cpu")
 
 
-@pytest.mark.parametrize("meta, item", [
-    ("ensemble.json", "P8"), ("blend.json", "P8"),
-    ("buckets.json", "Slice 4"),
+@pytest.mark.parametrize("meta, error, match", [
+    ("ensemble.json", KeyError, "models"), ("blend.json", KeyError, "models"),
+    ("buckets.json", NotImplementedError, "ROADMAP Queue 1: Slice 4"),
 ], ids=["ensemble", "blend", "bucketed"])
-def test_composite_artifacts_refuse_to_load(tmp_path, meta, item):
+def test_composite_artifacts_refuse_to_load(tmp_path, meta, error, match):
+    """A composite artifact is recognised by its metadata file: a broken
+    one raises (it never loads as a single-family artifact), a bucketed one
+    is not ported."""
     (tmp_path / meta).write_text("{}")
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1: {item}"):
+    with pytest.raises(error, match=match):
         tloader.load_forecaster(str(tmp_path), device="cpu")
 
 
@@ -500,3 +516,250 @@ def test_phase_timer_and_device_trace(tmp_path):
     with device_trace(str(tmp_path / "trace")):
         torch.ones(64).cumsum(0)
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+
+
+# -- forecasting-blend: model blend | auto, and the promote task -------------
+
+BLEND_MODEL = "ForecastingBlendModel"
+BLEND_TASKS = ["catalog", "etl", "train", "deploy", "inference", "promote"]
+
+
+def _blend_spec(model="blend"):
+    """``forecasting-blend`` at the test size; ``model: auto`` runs the
+    same pool without calibration (the reference refuses it there)."""
+    with open(os.path.join(ROOT, "conf", "workflows.yml")) as f:
+        spec = yaml.safe_load(f)
+    spec["workflows"] = [w for w in spec["workflows"]
+                         if w["name"] == "forecasting-blend"]
+    for node in spec["workflows"][0]["tasks"]:
+        conf = node.get("conf", {})
+        if node["task"] == "ingest":
+            conf["input"]["synthetic"] = {
+                "n_stores": 2, "n_items": 3, "n_days": 400, "seed": 5}
+        if node["task"] == "train":
+            tr = conf["training"]
+            tr.update(model=model, horizon=30,
+                      cv={"initial": 200, "period": 60, "horizon": 30})
+            tr["model_conf"]["configs"]["prophet"] = {"yearly_order": 0}
+            if model == "auto":
+                tr["calibrate_intervals"] = False
+        if node["task"] == "inference":
+            conf["inference"]["horizon"] = 30
+    return _conf_file_paths(spec)
+
+
+@pytest.fixture(scope="module")
+def blend_runs(tmp_path_factory):
+    out = {}
+    for model in ("blend", "auto"):
+        spec = _blend_spec(model)
+        for name, runner, kw in (("ref", jrunner, {}),
+                                 ("port", trunner, {"device": "cpu"})):
+            root = str(tmp_path_factory.mktemp(f"{model}_{name}"))
+            res = runner.WorkflowRunner(copy.deepcopy(spec),
+                                        env={"root": root}, **kw).run()
+            out[model, name] = (res, root)
+    return out
+
+
+@pytest.mark.parametrize("model", ["blend", "auto"])
+def test_pooled_workflow_runs_like_the_reference(blend_runs, model):
+    (got, root), (want, _) = blend_runs[model, "port"], blend_runs[model,
+                                                                    "ref"]
+    for res in (got, want):
+        assert list(res) == BLEND_TASKS
+        assert all(r["status"] == "OK" for r in res.values())
+    g, w = got["train"]["result"], want["train"]["result"]
+    assert (g["n_series"], g["n_failed"]) == (w["n_series"], w["n_failed"])
+    assert set(g) == set(w)
+    for k in g["metrics"]:
+        np.testing.assert_allclose(g["metrics"][k], w["metrics"][k],
+                                   rtol=1e-3, err_msg=k)
+    if model == "auto":
+        assert g["chosen_counts"] == w["chosen_counts"]
+    p, r = got["promote"]["result"], want["promote"]["result"]
+    assert p["promoted"] and r["promoted"]
+    assert p["reason"] == r["reason"] == "no champion in Production yet"
+    catalog, tracker, registry = _handles(root)
+    v = registry.latest_version(BLEND_MODEL)
+    assert (v.version, v.stage) == (1, "Production")
+    fam = "blend:prophet,holt_winters,croston" if model == "blend" else (
+        "auto:" + ",".join(sorted(g["chosen_counts"])))
+    assert v.tags["model_family"] == fam
+    assert v.tags["promotion_decision"] == "promoted"
+    ref_v = _handles(blend_runs[model, "ref"][1])[2].latest_version(
+        BLEND_MODEL)
+    # the logged metric, printed to 6 digits, within its tolerance
+    value = "promotion_candidate_value"
+    np.testing.assert_allclose(float(v.tags.pop(value)),
+                               float(ref_v.tags.pop(value)), rtol=1e-3)
+    assert v.tags == ref_v.tags
+    for table in ("hackathon.sales.blend_forecasts",
+                  "hackathon.sales.test_blend_forecasts"):
+        gt = catalog.read_table(table)
+        wt = _handles(blend_runs[model, "ref"][1])[0].read_table(table)
+        assert list(gt.columns) == list(wt.columns)
+        pd.testing.assert_frame_equal(gt[["ds", "store", "item"]],
+                                      wt[["ds", "store", "item"]])
+        _rows_close(gt, wt, ["yhat", "yhat_upper", "yhat_lower"],
+                    wt[["store", "item"]].drop_duplicates().to_numpy())
+
+
+@pytest.mark.parametrize("model", ["blend", "auto"])
+def test_pooled_run_logs_what_the_reference_logs(blend_runs, model):
+    runs = {k: _run(blend_runs[model, k][1], blend_runs[model, k][0])
+            for k in ("port", "ref")}
+    got, want = runs["port"], runs["ref"]
+    assert got.params() == want.params()
+    assert got.meta()["tags"] == want.meta()["tags"]
+    assert got.meta()["run_name"] == want.meta()["run_name"]
+    gm, wm = got.metrics(), want.metrics()
+    assert set(gm) == {k for k in wm if not k.startswith("pipeline_")}
+    for k in gm:
+        if k != "fit_seconds":
+            np.testing.assert_allclose(gm[k], wm[k], rtol=1e-3, err_msg=k)
+    gt = pd.read_parquet(got.artifact_path("series_metrics.parquet"))
+    wt = pd.read_parquet(want.artifact_path("series_metrics.parquet"))
+    assert list(gt.columns) == list(wt.columns)
+    exact = ["store", "item"] + (["chosen_model"] if model == "auto" else [])
+    pd.testing.assert_frame_equal(gt[exact], wt[exact])
+    rest = [c for c in gt.columns if c not in exact]
+    np.testing.assert_allclose(gt[rest].to_numpy(float),
+                               wt[rest].to_numpy(float), rtol=1e-3)
+    meta = "blend.json" if model == "blend" else "ensemble.json"
+    art = got.artifact_path("forecaster")
+    assert sorted(os.listdir(art)) == sorted(
+        os.listdir(want.artifact_path("forecaster")))
+    assert meta in os.listdir(art)
+    if model == "blend":
+        # season_length: auto resolved to the synthetic data's weekly cycle
+        fc = tloader.load_forecaster(art, device="cpu")
+        assert fc.forecasters["holt_winters"].config.season_length == 7
+        assert gt["interval_scale"].gt(0).all()
+        w = gt[[f"weight_{f}" for f in ("prophet", "holt_winters",
+                                        "croston")]].to_numpy()
+        np.testing.assert_allclose(w.sum(axis=1), 1.0, rtol=1e-6)
+
+
+def _promote(root, package, **promote):
+    conf = {"env": {"root": root},
+            "promote": {"model_name": BLEND_MODEL, **promote}}
+    if package == "ref":
+        from distributed_forecasting_tpu.tasks.promote import PromoteTask
+
+        return PromoteTask(init_conf=conf).launch()
+    return ttasks.PromoteTask(init_conf=conf, device="cpu").launch()
+
+
+def _second_candidate(root, package):
+    """Register the train run once more, as a retrain would, in Staging."""
+    conf = {"env": {"root": root},
+            "deploy": {"experiment": "blend_forecasting",
+                       "model_name": BLEND_MODEL}}
+    if package == "ref":
+        from distributed_forecasting_tpu.tasks.deploy import DeployTask
+
+        v = DeployTask(init_conf=conf).launch()["version"]
+    else:
+        v = ttasks.DeployTask(init_conf=conf, device="cpu").launch()["version"]
+    _handles(root)[2].transition_stage(BLEND_MODEL, v, "Staging")
+    return v
+
+
+@pytest.mark.parametrize("rule, tolerance, promoted", [
+    ("not_worse", 0.02, True), ("improved", 0.0, False)],
+    ids=["not_worse", "improved"])
+def test_promote_rules_match_reference(blend_runs, tmp_path, rule,
+                                       tolerance, promoted):
+    """A second candidate with the champion's own metric: ``not_worse``
+    promotes it, ``improved`` rejects it; decisions and tags as the
+    reference's, each package on its own copy of the store."""
+    import shutil
+
+    out = {}
+    for package in ("port", "ref"):
+        root = str(tmp_path / package)
+        shutil.copytree(blend_runs["blend", package][1], root)
+        v = _second_candidate(root, package)
+        res = _promote(root, package, rule=rule, tolerance=tolerance)
+        assert res["candidate_version"] == v == 2
+        assert res["promoted"] is promoted
+        assert res["baseline_value"] == res["candidate_value"]
+        reg = _handles(root)[2]
+        out[package] = (res, reg.get_version(BLEND_MODEL, 2))
+    (g, gv), (w, wv) = out["port"], out["ref"]
+    assert g["reason"].split(":")[0] == w["reason"].split(":")[0]
+    assert gv.stage == wv.stage == ("Production" if promoted else "Staging")
+    tags = {k: v for k, v in gv.tags.items() if k.startswith("promotion_")}
+    assert tags["promotion_decision"] == (
+        "promoted" if promoted else "rejected")
+    assert tags["promotion_baseline_version"] == "1"
+    assert set(tags) == {k for k in wv.tags if k.startswith("promotion_")}
+    if not promoted:
+        with pytest.raises(RuntimeError, match="promotion gate failed"):
+            _promote(str(tmp_path / "port"), "port", rule=rule,
+                     candidate_version=2, fail_on_reject=True)
+
+
+def test_promote_refuses_a_nan_metric_and_bad_confs(blend_runs, tmp_path):
+    import json
+    import shutil
+
+    root = str(tmp_path / "store")
+    shutil.copytree(blend_runs["blend", "port"][1], root)
+    v = _second_candidate(root, "port")
+    # a candidate that already holds the target stage
+    with pytest.raises(ValueError, match="already holds Production"):
+        _promote(root, "port", candidate_version=1)
+    with pytest.raises(ValueError, match="unknown promote.rule"):
+        _promote(root, "port", rule="better")
+    with pytest.raises(KeyError, match="has no metric 'val_nope'"):
+        _promote(root, "port", metric="val_nope")
+    # both versions point at one run: its metric goes NaN for both
+    _, tracker, registry = _handles(root)
+    run = tracker.get_run(tracker.get_experiment_by_name("blend_forecasting"),
+                          registry.get_version(BLEND_MODEL, v).run_id)
+    path = os.path.join(run._dir, "metrics.json")
+    with open(path) as f:
+        metrics = json.load(f)
+    metrics["val_smape"] = [[0, float("nan")]]
+    with open(path, "w") as f:
+        json.dump(metrics, f)
+    with pytest.raises(ValueError, match="non-finite val_smape"):
+        _promote(root, "port")
+    assert registry.get_version(BLEND_MODEL, v).stage == "Staging"
+
+
+def test_auto_with_default_families_raises_before_any_fit(tmp_path,
+                                                          monkeypatch):
+    """The default pool holds theta and arima: the train task refuses it
+    before reading its input (the table here does not exist) or running
+    any CV pass."""
+    from distributed_forecasting_tpu_torch.engine import select as tselect
+
+    calls = []
+    monkeypatch.setattr(tselect, "cross_validate",
+                        lambda *a, **k: calls.append(1))
+    conf = {"env": {"root": str(tmp_path)},
+            "input": {"table": "no.such.table"},
+            "training": {"model": "auto"}}
+    with pytest.raises(NotImplementedError,
+                       match=r"'theta' is not ported yet \(ROADMAP Queue 1: "
+                             r"P8\)"):
+        ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    conf["training"] = {"model": "blend", "model_conf": {
+        "families": ["prophet", "arima"]}}
+    with pytest.raises(NotImplementedError, match="'arima'"):
+        ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    assert calls == []
+
+
+def test_pooled_cadence_and_bucketed_refusals(ingested):
+    conf = _train_conf(ingested, model="blend", freq="W",
+                       model_conf={"families": ["prophet", "croston"]})
+    with pytest.raises(ValueError, match=r"calendar-daily.*\['prophet'\]"):
+        ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    conf = _train_conf(ingested, model="auto", bucketed=True,
+                       model_conf={"families": ["croston"]})
+    with pytest.raises(ValueError, match="pooled fits run on the shared grid"):
+        ttasks.TrainTask(init_conf=conf, device="cpu").launch()
