@@ -18,14 +18,20 @@ its own size:
   * ``conf/workflows.yml``'s ``forecasting-e2e`` through the port's workflow
     runner: catalog -> ingest (10 stores x 50 items x 1,826 synthetic days)
     -> train (the curve model, CV 730/360/90, split-conformal bands) ->
-    deploy -> inference, without its monitor node (not ported);
+    deploy -> inference -> monitor (profile, anomalies, drift from the
+    table's second version on, degradation);
   * its ``real-data-e2e`` (the committed dataset through the CSV ingest)
     and ``forecasting-blend`` (4 x 25 x 1,096 synthetic days, Holt-Winters
     at ``season_length: auto``, then promote): train with ``model: blend``
     over prophet, holt_winters and croston — each family's CV pass for the
     weights, the pooled CV pass for the conformal scale, one full-history
     fit each; the Holt-Winters member on both hand kernels — deploy,
-    inference, without the monitor node.
+    inference, then monitor or promote;
+  * its ``allocated-baseline`` (the 500 synthetic series summed to 50
+    items, one curve-model fit per item, store shares applied on the host)
+    and ``hierarchical-m5`` (the committed dataset: theta at every one of
+    the 500 bottoms, then the reconcile task's theta fit and CV of all 561
+    hierarchy nodes and the MinT solve with CV weights, horizon 28).
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -69,26 +75,32 @@ is not 0:
               at the fit and CV shapes beside their bounds (and the
               ``einsum`` Gram), and the device's idle share and library
               launches over one fit_forecast and one CV pass
-  7. workflow forecasting-e2e minus monitor, in a temporary env.root, with
-              the launch counters set to 0 before it (its curve model
+  7. workflow forecasting-e2e, twice in a temporary env.root, with
+              the launch counters set to 0 before each run (its curve model
               launches no hand kernel).  Checks: every task OK; the train
               run's batch, forecast and conformal scales on the card; the
               forecast and inference tables' keys, dates and rows, finite,
               lo <= yhat <= hi; 500 finite positive scales;
-              val_coverage_calibrated logged beside val_coverage; version 1
-              registered, tagged model_family prophet, in Staging; the
-              registered artifact predicting the train run's artifact's
+              val_coverage_calibrated logged beside val_coverage; the run's
+              version registered, tagged model_family prophet, in Staging;
+              the registered artifact predicting the train run's artifact's
               frame, the inference table, and the train run's forecast
-              within 1e-5.  Times: per task, the train run's phase_* and
-              fit_seconds, the device's idle share over the train task's
-              dispatch stage, and the conformal scale alone at the CV shape
-              beside its bound (its sorts counted, no host sync).  A
+              within 1e-5; the monitor's summary and its tables (the drift
+              report on the second run only).  Times: per task, the train
+              run's phase_* and fit_seconds, the device's idle share over
+              the train task's dispatch stage, and the conformal scale alone
+              at the CV shape beside its bound (its sorts counted, no host
+              sync).  A
               20-series cross_validate(calibrate=True) on the card equals
               the CPU's: ranks equal, scales within their scores' change
-  8. blend    real-data-e2e minus monitor, then forecasting-blend twice in
+  8. blend    real-data-e2e five times in one env.root (the monitor scans
+              drift from the second run on; then the monitor task rerun on
+              the CPU over the same stored table must write equal tables,
+              and its four scans are timed), then forecasting-blend twice in
               one env.root (the second promote decides by its rule against
-              the first run's champion), each workflow five times in all
-              for the per-task medians, with the launch counters set to 0
+              the first run's champion) and three more times, each workflow
+              five times in all for the per-task medians, with the launch
+              counters set to 0
               as each train task starts: both kernels must launch in every
               one (3 each).  The first train task of each workflow records
               its hw_score and hw_filter calls (forecasting-blend's at
@@ -109,6 +121,22 @@ is not 0:
               dispatch stage (CUDA events, median of 5; idle share; the
               host syncs PyTorch reports), the croston recurrence at the
               fit and CV shapes beside its bounds, and season detection
+  9. complete allocated-baseline and hierarchical-m5, each five times in
+              one env.root, the launch counters set to 0 before each run
+              (neither launches a hand kernel).  Checks: every task OK on the
+              card; the allocated table's columns and rows are the
+              reference's, each item's store shares sum to 1 and each
+              store's future rows are the item artifact's forecast times its
+              share; the reconciled table has 561 nodes x 28 days in the
+              reference's node order, coherent within the float32 summation
+              bound, and the MinT solve agrees with a float64 numpy solve
+              within 10 cond(G) 2^-24; a 20-node theta fit and forecast on
+              the card agrees with the CPU (winners equal where the SSEs are
+              apart); a 20-series blend over [holt_winters, theta, croston]
+              agrees with the CPU (see ``pool_check``) and launches both
+              kernels.  Times: per task (medians of 5), the SES loop and the
+              theta fit at the fit and CV shapes (launches, idle share, host
+              syncs, bounds), and the MinT solve at n = 500
 
 The line before the last lists the kernels (launches, error, times, bound);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -823,16 +851,15 @@ def curve_timings(run, port, card_line: str) -> dict:
 WORKFLOWS = os.path.join(ROOT, "conf", "workflows.yml")
 E2E = "forecasting-e2e"
 TASKS = ["catalog", "etl", "train", "deploy", "inference"]
+E2E_TASKS = TASKS + ["monitor"]
 
 
 def e2e_spec(port, name: str = E2E) -> dict:
     """``conf/workflows.yml``'s workflow ``name`` as the runner reads it,
-    without its monitor node (the port has no monitor task yet) and with
-    its conf_file and input paths made absolute."""
+    every node of it, with its conf_file and input paths made absolute."""
     spec = port["config"].load_conf(WORKFLOWS)
     spec["workflows"] = [w for w in spec["workflows"] if w["name"] == name]
     wf = spec["workflows"][0]
-    wf["tasks"] = [t for t in wf["tasks"] if t["task"] != "monitor"]
     for t in wf["tasks"]:
         if t.get("conf_file"):
             t["conf_file"] = os.path.join(ROOT, t["conf_file"])
@@ -879,11 +906,13 @@ class DeviceSpy:
 
 
 def workflow_main_path(port, root: str, spec: dict, device="cuda") -> dict:
-    """Phase 7's main path: the workflow, start to end, on ``device``."""
+    """A workflow of ``spec``, start to end, on ``device``, with the devices
+    the training pipeline's fit and CV saw."""
     t0 = time.perf_counter()
     with DeviceSpy(port["training"]) as spy:
         results = port["runner"].WorkflowRunner(
-            spec, env={"root": root}, device=device).run(E2E)
+            spec, env={"root": root}, device=device).run(
+                spec["workflows"][0]["name"])
     if device == "cuda":
         torch.cuda.synchronize()
     return dict(results=results, devices=spy.devices,
@@ -913,14 +942,40 @@ def _check_table(df, keys, dates, what: str) -> None:
     assert (df["yhat"] <= df["yhat_upper"]).all(), what
 
 
-def check_workflow(run, port, root: str, spec: dict, device="cuda") -> dict:
+def check_monitor(results, port, root: str, spec: dict, version: int) -> dict:
+    """The monitor node's checks: its summary, and the tables it wrote over
+    the monitored table's current version — the profile, the flagged rows,
+    the degradation report, and from the table's second version on the
+    drift report (on the first the task skips the scan)."""
+    mc = task_conf(spec, "monitor")["monitor"]
+    out = results["monitor"]["result"]
+    catalog = _store(port, root)[0]
+    table = mc["table"]
+    assert len(catalog.table_versions(table)) == version
+    assert out["monitor"] == mc["name"] and out["rows"] > 0, out
+    assert np.isfinite(out["daily_mape_mean"]), out
+    assert ("n_drifted" in out) == (version >= 2), (version, out)
+    profile = catalog.read_table(f"{table}_profile_metrics")
+    assert len(profile) == out["rows"]
+    flagged = catalog.read_table(f"{table}_anomalies")
+    assert len(flagged) == out["n_anomalies"] and flagged["is_anomaly"].all()
+    report = catalog.read_table(f"{table}_degradation")
+    assert int(report["degraded"].sum()) == out["n_degraded"]
+    if version >= 2:
+        drift = catalog.read_table(f"{table}_drift")
+        assert int(drift["drifted"].sum()) == out["n_drifted"]
+    return out
+
+
+def check_workflow(run, port, root: str, spec: dict, device="cuda",
+                   version: int = 1) -> dict:
     """Phase 7's checks: every task OK, the train run on the card, both
     tables' keys, dates, rows and values, the 500 conformal scales, the
     calibrated coverage logged beside the raw, the registered version and
-    its tags and stage, and the registered artifact predicting what the
-    train run's artifact predicts."""
+    its tags and stage, the registered artifact predicting what the train
+    run's artifact predicts, and the monitor's summary and tables."""
     results = run["results"]
-    assert list(results) == TASKS, list(results)
+    assert list(results) == E2E_TASKS, list(results)
     assert all(r["status"] == "OK" for r in results.values()), results
     assert run["devices"] == {"batch": device, "forecast": device,
                               "interval_scale": device}, run["devices"]
@@ -951,8 +1006,10 @@ def check_workflow(run, port, root: str, spec: dict, device="cuda") -> dict:
     assert (scales > 0).all()
 
     model_name = inf_conf["inference"]["model_name"]
+    registered_version = version
     version = registry.latest_version(model_name)
-    assert (version.version, version.stage) == (1, "Staging"), version
+    assert (version.version, version.stage) == (registered_version,
+                                                "Staging"), version
     assert version.tags["model_family"] == "prophet", version.tags
     registered, _ = port["serving"].resolve_from_registry(
         registry, model_name, device=device)
@@ -983,7 +1040,8 @@ def check_workflow(run, port, root: str, spec: dict, device="cuda") -> dict:
         interval_scale_range=[float(scales.min()), float(scales.max())],
         registry={"version": version.version, "stage": version.stage,
                   "model_family": version.tags["model_family"]},
-        devices=run["devices"])
+        devices=run["devices"],
+        monitor=check_monitor(results, port, root, spec, registered_version))
     emit("workflow", **out)
     return out
 
@@ -1107,7 +1165,7 @@ def workflow_timings(port, root: str, spec: dict, card_line: str) -> dict:
 
 REAL = "real-data-e2e"
 BLEND = "forecasting-blend"
-POOLED_TASKS = {REAL: TASKS, BLEND: TASKS + ["promote"]}
+POOLED_TASKS = {REAL: E2E_TASKS, BLEND: TASKS + ["promote"]}
 # the croston recurrence's dependent chain per step: the size (and interval)
 # update, a multiply, an add and a select, ~16 cycles; T such steps at the
 # card's 1.98 GHz boost clock, whatever the width (as hw_filter.cu:37-43
@@ -1287,6 +1345,8 @@ def check_pooled(run, port, root: str, spec: dict, version: int) -> dict:
                   "model_family": family})
     if "promote" in results:
         out["promote"] = results["promote"]["result"]
+    if "monitor" in results:
+        out["monitor"] = check_monitor(results, port, root, spec, version)
     return out
 
 
@@ -1309,9 +1369,13 @@ def check_promote(first: dict, second: dict, spec: dict) -> dict:
 # each recurrence family's limit on the relative card-vs-CPU change of its
 # CV score: float32 elementwise recurrences (Holt-Winters: the kernel is
 # bitwise its twin, so the devices differ only in how the twin's arithmetic
-# rounds; croston: the same selects and FMAs) drift apart by a few ulp a
-# step; 1e-5 is ~80 ulp.  The curve member's comes from its conditioning.
-POOL_RTOL = {"holt_winters": 1e-5, "croston": 1e-5}
+# rounds; croston and theta's SES: the same selects and FMAs; theta's slot
+# sums and trend moments reduce in another order) drift apart by a few ulp
+# a step; 1e-5 is ~80 ulp.  The curve member's comes from its conditioning.
+POOL_RTOL = {"holt_winters": 1e-5, "croston": 1e-5, "theta": 1e-5}
+# theta's alpha winner is held equal where a row's best two SSEs differ by
+# more than this (ten times the score limit), as tests/test_torch_theta.py
+THETA_TIE_RTOL = 1e-4
 
 
 def pooled_ratios(port, batch, pool, configs, cv_conf) -> dict:
@@ -1350,37 +1414,73 @@ def pooled_ratios(port, batch, pool, configs, cv_conf) -> dict:
 
 
 def pool_vs_cpu(port, batch, spec: dict, configs: dict, n: int = 20) -> dict:
-    """A 20-series ``fit_forecast_blend(calibrate=True)`` on the card and on
-    the CPU, with the train task's pool, member configs and CV.  Each
-    family's scores within its own limit: :data:`POOL_RTOL` for the
-    recurrences, and for the curve member 10 cond(A) 2^-24 of its CV
-    systems (phase 3's bound on its paths).  The argmax-weight family equal
-    wherever a series' best and second-best scores are more than twice the
-    largest limit apart; weights within 2 d w + 1e-7 of each other, d the
-    row's own largest relative score change (weights move by at most 2 d
-    for a relative change d of the scores); the pooled conformal ranks
-    equal and each scale within the largest change of the pooled scores it
-    is an order statistic of (of every series' scores where the pooled one
-    stands in), as phase 7 holds the curve model's; ok flags equal."""
-    blend, cvm = port["blend"], port["cv"]
+    """Phase 8's 20-series card-vs-CPU blend, with the train task's pool,
+    member configs, CV and horizon (:func:`pool_check`)."""
     tr = task_conf(spec, "train")["training"]
-    families = tuple(tr["model_conf"]["families"])
+    return pool_check(port, batch, tuple(tr["model_conf"]["families"]),
+                      configs, tr["cv"], int(tr["horizon"]), n,
+                      "blend_gpu_vs_cpu_20_series")
+
+
+def theta_apart(port, y, mask, day, config) -> np.ndarray:
+    """(S,) True where a row's best two theta alpha SSEs (computed on
+    ``y``'s device) differ by more than ``THETA_TIE_RTOL`` relative:
+    there the winner is held equal across devices; below it either is
+    accepted, and the row's theta paths are not compared."""
+    sse = port["theta"].candidate_sses(y, mask, day, config)
+    s = np.sort(sse.double().cpu().numpy(), axis=1)
+    return (s[:, 1] - s[:, 0]) > THETA_TIE_RTOL * np.maximum(s[:, 0], 1e-30)
+
+
+def pool_check(port, batch, families, configs: dict, cv_conf: dict,
+               horizon: int, n: int, line: str, counters=None) -> dict:
+    """A 20-series ``fit_forecast_blend(calibrate=True)`` on the card and on
+    the CPU.  Each family's scores within its own limit: :data:`POOL_RTOL`
+    for the recurrences, and for the curve member 10 cond(A) 2^-24 of its
+    CV systems (phase 3's bound on its paths).  With theta in the pool the
+    comparison covers the rows whose theta alpha winners are apart in the
+    fit and in every CV cutoff (:func:`theta_apart`).  The argmax-weight
+    family equal wherever a series' best and second-best scores are more
+    than twice the largest limit apart; weights within 2 d w + 1e-7 of each
+    other, d the row's own largest relative score change (weights move by
+    at most 2 d for a relative change d of the scores); the pooled
+    conformal ranks equal and each scale within the largest change of the
+    pooled scores it is an order statistic of (of every series' scores
+    where the pooled one stands in), as phase 7 holds the curve model's;
+    ok flags equal.  With ``counters``, they are set to 0 just before the
+    card's blend and read just after it (the checks' own recomputation of
+    the CV paths is not counted)."""
+    blend, cvm = port["blend"], port["cv"]
     sub = batch.take_series(range(n))
     cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
                               day=sub.day.cpu())
-    kw = dict(models=families, configs=configs, cv=cvm.CVConfig(**tr["cv"]),
-              horizon=int(tr["horizon"]), calibrate=True)
+    kw = dict(models=families, configs=configs, cv=cvm.CVConfig(**cv_conf),
+              horizon=horizon, calibrate=True)
+    for fn in (counters or {}).values():
+        fn.launches = 0
     _, b_gpu, r_gpu = blend.fit_forecast_blend(sub, **kw)
+    launches = {k: fn.launches for k, fn in (counters or {}).items()}
     _, b_cpu, r_cpu = blend.fit_forecast_blend(cpu, **kw)
 
-    limits = dict(POOL_RTOL)
-    curve, _ = cvm._cv_entry(sub, "prophet", configs.get("prophet"), None,
-                             "pool")
-    _, A, _ = curve_systems(*cv_inputs(sub, cvm, tr["cv"]), sub.day, curve,
-                            port)
-    limits["prophet"], kappa = cond_tolerance(A)
-    g = b_gpu.scores[list(families)].to_numpy()
-    c = b_cpu.scores[list(families)].to_numpy()
+    limits = {f: POOL_RTOL[f] for f in families if f in POOL_RTOL}
+    kappa = None
+    if "prophet" in families:
+        curve, _ = cvm._cv_entry(sub, "prophet", configs.get("prophet"),
+                                 None, "pool")
+        _, A, _ = curve_systems(*cv_inputs(sub, cvm, cv_conf), sub.day,
+                                curve, port)
+        limits["prophet"], kappa = cond_tolerance(A)
+    rows = np.ones(n, bool)
+    if "theta" in families:
+        config = configs.get("theta") or port["theta"].ThetaConfig()
+        y_cv, m_cv = cv_inputs(cpu, cvm, cv_conf)
+        C = y_cv.shape[0] // n
+        rows = theta_apart(port, cpu.y, cpu.mask, cpu.day, config)
+        rows &= theta_apart(port, y_cv, m_cv, cpu.day, config).reshape(
+            C, n).all(0)
+        assert rows.sum() >= n // 2, rows
+    g = b_gpu.scores[list(families)].to_numpy()[rows]
+    c = b_cpu.scores[list(families)].to_numpy()[rows]
     assert np.isfinite(g).all() and np.isfinite(c).all()
     rel = np.abs(g - c) / np.abs(c)
     for i, f in enumerate(families):
@@ -1389,21 +1489,24 @@ def pool_vs_cpu(port, batch, spec: dict, configs: dict, n: int = 20) -> dict:
     apart = (srt[:, 1] - srt[:, 0]) > 2 * max(limits.values()) * srt[:, 0]
     a_gpu = b_gpu.weights.argmax(axis=1)
     a_cpu = b_cpu.weights.argmax(axis=1)
-    assert (a_gpu[apart] == a_cpu[apart]).all()
+    assert (a_gpu[rows][apart] == a_cpu[rows][apart]).all()
     d = rel.max(axis=1, keepdims=True)
-    wdiff = np.abs(b_gpu.weights - b_cpu.weights)
-    assert (wdiff <= 2 * d * b_cpu.weights + 1e-7).all(), wdiff.max()
+    wdiff = np.abs(b_gpu.weights - b_cpu.weights)[rows]
+    assert (wdiff <= 2 * d * b_cpu.weights[rows] + 1e-7).all(), wdiff.max()
 
-    pg = pooled_ratios(port, sub, b_gpu, configs, tr["cv"])
-    pc = pooled_ratios(port, cpu, b_cpu, configs, tr["cv"])
-    assert torch.equal(pg["obs"], pc["obs"]) and torch.equal(pg["k"], pc["k"])
+    pg = pooled_ratios(port, sub, b_gpu, configs, cv_conf)
+    pc = pooled_ratios(port, cpu, b_cpu, configs, cv_conf)
+    assert torch.equal(pg["obs"][:, rows], pc["obs"][:, rows])
+    assert torch.equal(pg["k"][rows], pc["k"][rows])
     diff = (pg["r"] - pc["r"]).abs()
-    bound = torch.where(pc["n"] >= 30, diff.amax((0, 2)), diff.max()).numpy()
-    s_gpu, s_cpu = b_gpu.interval_scale, b_cpu.interval_scale
+    bound = torch.where(pc["n"][rows] >= 30, diff[:, rows].amax((0, 2)),
+                        diff.max()).numpy()
+    s_gpu, s_cpu = b_gpu.interval_scale[rows], b_cpu.interval_scale[rows]
     err = np.abs(s_gpu - s_cpu)
     assert (err <= bound + F32_EPS * 2 * np.abs(s_cpu)).all(), (err, bound)
     assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
-    res = dict(series=n, families=list(families),
+    res = dict(series=n, families=list(families), launches=launches,
+               rows_compared=int(rows.sum()),
                score_max_rel_diff={f: float(rel[:, i].max())
                                    for i, f in enumerate(families)},
                score_limit_rel=limits, curve_cond_max=kappa,
@@ -1414,7 +1517,7 @@ def pool_vs_cpu(port, batch, spec: dict, configs: dict, n: int = 20) -> dict:
                scale_max_rel_diff=float((err / s_cpu).max()),
                argmax_counts={f: int((a_gpu == i).sum())
                               for i, f in enumerate(families)})
-    emit("blend_gpu_vs_cpu_20_series", **res)
+    emit(line, **res)
     return res
 
 
@@ -1489,12 +1592,61 @@ def pooled_timings(port, root: str, spec: dict, card_line: str) -> dict:
     return dict(t, batch=batch)
 
 
+def monitor_rerun(port, root: str, spec: dict, card_line: str) -> dict:
+    """The monitor node of the workflow run last in ``root``, run again as
+    a task on the CPU over the same stored forecast table: its summary and
+    its four output tables (profile, flagged rows, drift, degradation)
+    must equal the card run's.  Then each of the four scans timed as the
+    task calls it (host clock, median of 5: pandas and numpy on the host,
+    its table write included)."""
+    mon = port["monitoring"]
+    node = next(t for t in spec["workflows"][0]["tasks"]
+                if t["task"] == "monitor")
+    conf = {**node["conf"], "env": {"root": root}}
+    mc = conf["monitor"]
+    table = mc["table"]
+    catalog = _store(port, root)[0]
+    outputs = [f"{table}_{k}" for k in ("profile_metrics", "anomalies",
+                                        "drift", "degradation")]
+    card = {t: catalog.read_table(t) for t in outputs}
+    summary = port["tasks"].MonitorTask(init_conf=conf, device="cpu").launch()
+    for t in outputs:
+        assert len(catalog.table_versions(t)) >= 2, t
+        pd.testing.assert_frame_equal(catalog.read_table(t), card[t])
+    cfg = mon.MonitorConfig(name=mc["name"], table=table)
+    df = catalog.read_table(table)
+    profile = mon.run_monitor(catalog, cfg, df=df)
+    scans = {
+        "profile": lambda: mon.run_monitor(catalog, cfg, df=df),
+        "anomalies": lambda: mon.detect_anomalies(catalog, table, df=df),
+        "drift": lambda: mon.drift_report(
+            catalog, table, slicing_cols=cfg.slicing_cols, df=df),
+        "degradation": lambda: mon.degradation_report(catalog, cfg,
+                                                      profile=profile),
+    }
+    times = {}
+    for k, fn in scans.items():
+        samples = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        times[k] = statistics.median(samples)
+    out = {"workflow": spec["workflows"][0]["name"], "table": table,
+           "rows": len(df), "versions": len(catalog.table_versions(table)),
+           "cpu_rerun_equal": True, "summary": summary,
+           "scan_ms_host": times}
+    emit("monitor", card=card_line, reps=REPS, statistic="median", **out)
+    return out
+
+
 def pooled_phase(port, counters, card_line: str) -> dict:
-    """Phase 8: real-data-e2e minus monitor, then forecasting-blend twice
-    in one env root (the second promote against the first's champion),
-    each five times in all for the per-task medians; the first train task
-    of each workflow's kernel calls against their twins; checks, times,
-    and the 20-series card-vs-CPU blend."""
+    """Phase 8: real-data-e2e (five runs in one env root, the monitor's
+    drift scan from the second on, then its monitor rerun on the CPU),
+    then forecasting-blend twice in one env root (the second promote
+    against the first's champion) and three more times, for the per-task
+    medians; the first train task of each workflow's kernel calls against
+    their twins; checks, times, and the 20-series card-vs-CPU blend."""
     out = {"launches": {k: 0 for k in counters},
            "cases": {k: {} for k in counters}}
     runs = {}
@@ -1516,6 +1668,13 @@ def pooled_phase(port, counters, card_line: str) -> dict:
                 out["gpu_vs_cpu"] = pool_vs_cpu(port, timed.pop("batch"),
                                                 spec, first["configs"])
                 out["times"] = timed
+                # the repeats share the root: from the second run on the
+                # monitored table has a baseline and the drift scan runs
+                while len(checked) < REPS:
+                    checked.append(check_pooled(
+                        pooled_run(port, root, spec, counters), port, root,
+                        spec, len(checked) + 1))
+                out["monitor"] = monitor_rerun(port, root, spec, card_line)
             del first
         while len(checked) < REPS:
             with tempfile.TemporaryDirectory() as root:
@@ -1539,6 +1698,354 @@ def pooled_phase(port, counters, card_line: str) -> dict:
                  for k in checked[0]["tasks_seconds"]})
     assert runs[BLEND][0]["season_length"] == 7, runs[BLEND][0]
     out["runs"] = runs
+    return out
+
+
+# -- phase 9: allocated-baseline and hierarchical-m5, at their own sizes -----
+
+ALLOC = "allocated-baseline"
+HIER = "hierarchical-m5"
+# the reference's allocated table (pipelines/training.py allocated)
+ALLOC_COLUMNS = ["ds", "store", "item", "y", "yhat", "yhat_upper",
+                 "yhat_lower", "training_date"]
+# the SES step's dependent chain: (1 - alpha) * level, the add and the
+# select, ~12 cycles; T such steps at the boost clock, whatever the width
+# (as hw_filter.cu:37-43 reckons its own chain)
+SES_CHAIN_CYCLES = 12
+
+
+class MintSpy:
+    """Records every MinT solve the reconcile task makes: the hierarchy,
+    the base forecasts, the error variances and the revision."""
+
+    def __init__(self, rec):
+        self.rec, self.calls = rec, []
+
+    def __enter__(self):
+        orig = self._orig = self.rec.reconcile_forecasts
+
+        def spy(h, base, error_var=None):
+            out = orig(h, base, error_var=error_var)
+            self.calls.append((h, base, error_var, out))
+            return out
+
+        self.rec.reconcile_forecasts = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.reconcile_forecasts = self._orig
+
+
+def complete_run(port, root: str, spec: dict, counters) -> dict:
+    """One run of a phase 9 workflow in ``root`` on the card, the launch
+    counters set to 0 just before it and read just after, with the devices
+    the training pipeline saw and the MinT solves it made."""
+    for fn in counters.values():
+        fn.launches = 0
+    with MintSpy(port["reconcile_task"]) as mint:
+        run = workflow_main_path(port, root, spec)
+    run["launches"] = {k: fn.launches for k, fn in counters.items()}
+    run["mint"] = mint.calls
+    return run
+
+
+def _nodes(spec) -> list:
+    return [t["name"] for t in spec["workflows"][0]["tasks"]]
+
+
+def check_allocated(run, port, root: str, spec: dict) -> dict:
+    """allocated-baseline: every task OK; the item-level fit on the card; the
+    table with the reference's columns and a row per (store, item) and day
+    of history + horizon, finite and ordered; each item's store shares
+    summing to 1; and each store's future rows the item artifact's
+    forecast times its share (within 1e-5 of the row's scale)."""
+    results = run["results"]
+    assert list(results) == _nodes(spec), list(results)
+    assert all(r["status"] == "OK" for r in results.values()), results
+    assert run["devices"] == {"batch": "cuda", "forecast": "cuda"}, run
+    catalog, tracker, _ = _store(port, root)
+    raw = catalog.read_table(task_conf(spec, "ingest")["output"]["table"])
+    tr = task_conf(spec, "train")
+    horizon = int(tr["training"]["horizon"])
+    table = catalog.read_table(tr["output"]["table"])
+    assert list(table.columns) == ALLOC_COLUMNS, list(table.columns)
+    pairs = raw[["store", "item"]].drop_duplicates()
+    T = raw["date"].nunique()
+    assert len(table) == len(pairs) * (T + horizon), len(table)
+    vals = table[["yhat", "yhat_upper", "yhat_lower"]].to_numpy()
+    assert np.isfinite(vals).all()
+    assert (table["yhat_lower"] <= table["yhat"]).all()
+    assert (table["yhat"] <= table["yhat_upper"]).all()
+    totals = raw.groupby(["store", "item"])["sales"].sum()
+    share = totals / totals.groupby(level="item").transform("sum")
+    share_sums = share.groupby(level="item").sum().to_numpy()
+    assert np.abs(share_sums - 1.0).max() <= 1e-12
+    summary = results[_nodes(spec)[-1]]["result"]
+    items = np.sort(raw["item"].unique())
+    assert summary["n_items"] == len(items), summary
+    train_run = tracker.get_run(summary["experiment_id"], summary["run_id"])
+    fc = port["serving"].load_forecaster(
+        train_run.artifact_path("forecaster"), device="cuda")
+    assert fc.key_names == ("item",), fc.key_names
+    item_fc = fc.predict(pd.DataFrame({"item": items}), horizon=horizon)
+    future = table[table["ds"] > raw["date"].max()]
+    merged = future.merge(item_fc, on=["ds", "item"], suffixes=("", "_item"))
+    assert len(merged) == len(pairs) * horizon, len(merged)
+    ratio = share.loc[list(zip(merged["store"], merged["item"]))].to_numpy()
+    worst = 0.0
+    for col in ("yhat", "yhat_upper", "yhat_lower"):
+        want = merged[f"{col}_item"].to_numpy() * ratio
+        scale = pd.Series(np.abs(want)).groupby(
+            [merged["store"], merged["item"]]).transform("max").to_numpy()
+        err = np.abs(merged[col].to_numpy() - want)
+        assert (err <= 1e-5 * scale).all(), col
+        worst = max(worst, float((err / np.maximum(scale, 1e-30)).max()))
+    return dict(workflow=ALLOC, seconds=run["seconds"],
+                tasks_seconds={k: r["seconds"] for k, r in results.items()},
+                n_items=len(items), rows=len(table), launches=run["launches"],
+                share_sum_max_err=float(np.abs(share_sums - 1.0).max()),
+                artifact_vs_table_max_rel=worst)
+
+
+def mint64(S_mat, base, var) -> tuple:
+    """The MinT system solved in float64 with numpy: (revision, cond(G))."""
+    S = S_mat.astype(np.float64)
+    w_inv = 1.0 / np.maximum(var.astype(np.float64), 1e-12)
+    SW = S * w_inv[:, None]
+    G = S.T @ SW + 1e-8 * np.eye(S.shape[1])
+    x = np.linalg.solve(G, SW.T @ base.astype(np.float64))
+    return S @ x, float(np.linalg.cond(G))
+
+
+def check_hierarchical(run, port, root: str, spec: dict) -> dict:
+    """hierarchical-m5: every task OK; the theta fit on the card (500
+    series, finite ordered bands over history + 28 days); the reconciled
+    table of 561 nodes x 28 days in the reference's node order, finite and
+    coherent — its aggregates within the float32 summation bound
+    ``n_bottom 2^-24 max|y|`` of the sums of its bottoms; and the one MinT
+    solve, run on the card, within ``10 cond(G) 2^-24`` of the forecasts'
+    scale of a float64 numpy solve of the same system."""
+    results = run["results"]
+    assert list(results) == _nodes(spec), list(results)
+    assert all(r["status"] == "OK" for r in results.values()), results
+    assert run["devices"] == {"batch": "cuda", "forecast": "cuda"}, run
+    catalog = _store(port, root)[0]
+    tr = task_conf(spec, "train")
+    horizon = int(tr["training"]["horizon"])
+    train = results["train"]["result"]
+    forecasts = catalog.read_table(tr["output"]["table"])
+    S = train["n_series"]
+    T = len(forecasts) // S - horizon
+    assert len(forecasts) == S * (T + horizon)
+    vals = forecasts[["yhat", "yhat_upper", "yhat_lower"]].to_numpy()
+    assert np.isfinite(vals).all()
+    assert (forecasts["yhat_lower"] <= forecasts["yhat"]).all()
+    assert (forecasts["yhat"] <= forecasts["yhat_upper"]).all()
+
+    rc = task_conf(spec, "reconcile")
+    rec = results["reconcile"]["result"]
+    assert len(run["mint"]) == 1, len(run["mint"])
+    h, base, var, revised = run["mint"][0]
+    n_nodes, H = h.n_nodes, int(rc["reconcile"]["horizon"])
+    assert rec["n_nodes"] == n_nodes == 1 + len(h.stores) + len(h.items) + S
+    assert (rec["method"], rec["weights"], rec["model"], rec["n_days"]) == (
+        "mint", "cv", "theta", H), rec
+    assert base.device.type == var.device.type == revised.device.type == (
+        "cuda")
+    table = catalog.read_table(rc["output"]["table"])
+    assert list(table.columns) == ["ds", "node", "yhat", "method"]
+    assert len(table) == n_nodes * H and (table["method"] == "mint_cv").all()
+    assert table["node"].to_numpy()[::H].tolist() == h.node_labels()
+    last = pd.Timestamp(forecasts["ds"].iloc[T - 1])
+    np.testing.assert_array_equal(
+        table["ds"].to_numpy()[:H],
+        pd.date_range(last + pd.Timedelta(days=1), periods=H).values)
+    y = table["yhat"].to_numpy(np.float64).reshape(n_nodes, H)
+    assert np.isfinite(y).all()
+    coh = float(np.abs(h.S_mat.astype(np.float64) @ y[-S:] - y).max())
+    coh_bound = S * F32_EPS * float(np.abs(y).max())
+    assert coh <= coh_bound, (coh, coh_bound)
+    exact, cond = mint64(h.S_mat, base.cpu().numpy(), var.cpu().numpy())
+    scale = float(np.abs(exact).max())
+    mint_err = float(np.abs(revised.cpu().numpy() - exact).max())
+    mint_tol = 10 * cond * F32_EPS * scale
+    assert mint_err <= mint_tol, (mint_err, mint_tol)
+    np.testing.assert_array_equal(revised.cpu().numpy().reshape(-1),
+                                  table["yhat"].to_numpy(np.float32))
+    return dict(workflow=HIER, seconds=run["seconds"],
+                tasks_seconds={k: r["seconds"] for k, r in results.items()},
+                series=S, days=T, nodes=n_nodes, horizon=H,
+                launches=run["launches"], n_failed=train["n_failed"],
+                coherency_error=coh, coherency_bound=coh_bound,
+                coherency_rel=coh / float(np.abs(y).max()),
+                coherency_error_card=float(port["reconcile"].coherency_error(
+                    h, revised)),
+                mint_vs_float64_max_abs=mint_err, mint_tol=mint_tol,
+                mint_cond=cond,
+                error_var_range=[float(var.min()), float(var.max())])
+
+
+def theta_vs_cpu(port, nodes, n: int = 20) -> dict:
+    """A 20-node theta ``fit_forecast`` on the card and on the CPU (the
+    total, the stores and the first items of the hierarchy): alpha winners
+    equal where a node's best two SSEs are apart (:func:`theta_apart`),
+    and there every fitted parameter, the path and the band within rtol
+    1e-5 / atol 1e-5 of the node's scale (the SES steps are the same
+    float32 operations on both; the slot sums and the trend's moments
+    reduce in another order); ok flags equal."""
+    th = port["theta"]
+    sub = nodes.take_series(range(n))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    cfg = th.ThetaConfig()
+    out = {}
+    for name, b in (("gpu", sub), ("cpu", cpu)):
+        params, res = port["engine"].fit_forecast(b, "theta", config=cfg,
+                                                  horizon=28)
+        out[name] = (params, res)
+    apart = theta_apart(port, cpu.y, cpu.mask, cpu.day, cfg)
+    assert apart.sum() >= n // 2, apart
+    (pg, rg), (pc, rc) = out["gpu"], out["cpu"]
+    np.testing.assert_array_equal(pg.alpha.cpu().numpy()[apart],
+                                  pc.alpha.numpy()[apart])
+    scale = cpu.y.abs().amax(1).numpy()[apart][:, None]
+    worst = 0.0
+    pairs = [(getattr(pg, f).cpu(), getattr(pc, f))
+             for f in ("level", "sigma", "intercept", "slope", "fitted")]
+    pairs += [(getattr(rg, k).cpu(), getattr(rc, k))
+              for k in ("yhat", "lo", "hi")]
+    for a, b in pairs:
+        a = a.numpy()[apart].reshape(int(apart.sum()), -1)
+        b = b.numpy()[apart].reshape(int(apart.sum()), -1)
+        err = np.abs(a - b)
+        assert (err <= 1e-5 * np.abs(b) + 1e-5 * scale).all(), err.max()
+        worst = max(worst, float((err / scale).max()))
+    assert torch.equal(rg.ok.cpu(), rc.ok)
+    res = dict(nodes=n, winners_apart=int(apart.sum()),
+               alpha_equal_where_apart=True, max_rel_diff=worst)
+    emit("theta_gpu_vs_cpu_20_nodes", **res)
+    return res
+
+
+def complete_timings(port, batch, nodes, mint_call, card_line: str) -> dict:
+    """Phase 9's device times (CUDA events, median of 5): the SES loop
+    alone (``models/theta.ses_paths``, 7 alphas) and the whole theta fit at
+    the train task's shape (500 x 1,826) and at the reconcile task's CV
+    shape (561 nodes x 3 cutoffs = 1,683 rows), each with its launches and
+    the device's idle share (torch.profiler), its host syncs, and its
+    bounds (bytes, and the serial chain); the MinT solve at n = 500 with
+    its bound."""
+    th, cvm = port["theta"], port["cv"]
+    cfg = th.ThetaConfig()
+    cuts = cvm.cutoff_indices(nodes.n_time, cvm.CVConfig())
+    train = cvm.cv_windows(nodes.mask, nodes.day, cuts,
+                           cvm.CVConfig().horizon)[0]
+    shapes = {"fit": (batch.y, batch.mask),
+              "cv": (nodes.y.repeat(len(cuts), 1),
+                     train.reshape(-1, nodes.n_time))}
+    alphas = torch.tensor(cfg.alphas, device=batch.y.device)
+    A = len(cfg.alphas)
+    t = {"ses": {}, "theta_fit": {}}
+    for k, (y, mask) in shapes.items():
+        S, T = (int(d) for d in y.shape)
+        z = th._lines(y, mask, batch.day, cfg)[5]
+        ses = lambda: th.ses_paths(z, mask, alphas)  # noqa: E731
+        fit = lambda: th.fit(y, mask, batch.day, cfg)  # noqa: E731
+        bound, by = bound_ms(th.ses_work(S, T, A))
+        prof = idle_share(ses)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fit()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        t["ses"][k] = {
+            "shape": [S, T, A], "ms": cuda_ms(ses), "bound_ms": bound,
+            "bound_by": by,
+            "serial_chain_ms": T * SES_CHAIN_CYCLES / CLOCK_HZ * 1e3,
+            "device_events": prof.get("device_events"),
+            "launches_per_step": (prof["device_events"] / T
+                                  if isinstance(prof.get("device_events"), int)
+                                  else "not measured"),
+            "idle_share": prof["idle_share"],
+            "host_syncs": count_syncs(ses),
+            "buffer_bytes": 4 * (T + 1) * S * A}
+        fprof = idle_share(fit)
+        t["theta_fit"][k] = {
+            "shape": [S, T], "ms": cuda_ms(fit),
+            "device_events": fprof.get("device_events"),
+            "idle_share": fprof["idle_share"],
+            "host_syncs": count_syncs(fit),
+            "peak_bytes": int(peak)}
+    h, base_fc, var, _ = mint_call
+    mint = lambda: port["reconcile"].reconcile_forecasts(  # noqa: E731
+        h, base_fc, var)
+    bound, by = bound_ms(port["reconcile"].mint_work(
+        h.n_nodes, h.n_bottom, int(base_fc.shape[1])))
+    mprof = idle_share(mint)
+    t["mint"] = {"shape": [h.n_nodes, h.n_bottom, int(base_fc.shape[1])],
+                 "ms": cuda_ms(mint), "bound_ms": bound, "bound_by": by,
+                 "device_events": mprof.get("device_events"),
+                 "idle_share": mprof["idle_share"],
+                 "host_syncs": count_syncs(mint)}
+    emit("complete_times", card=card_line, reps=REPS, statistic="median", **t)
+    return t
+
+
+def complete_phase(port, counters, card_line: str) -> dict:
+    """Phase 9: allocated-baseline and hierarchical-m5 at their own sizes,
+    each five times in one env root, the launch counters set to 0 before
+    each run (neither launches a hand kernel: the curve model and theta);
+    checks, per-task medians, the SES loop's and the MinT solve's times, a
+    20-node theta card-vs-CPU run, and a 20-series blend over
+    [holt_winters, theta, croston] on the card against the CPU, which
+    launches both hand kernels."""
+    out = {"launches": {k: 0 for k in counters}}
+    for name, check in ((ALLOC, check_allocated),
+                        (HIER, check_hierarchical)):
+        spec = e2e_spec(port, name)
+        with tempfile.TemporaryDirectory() as root:
+            checked = []
+            for _ in range(REPS):
+                run = complete_run(port, root, spec, counters)
+                checked.append(check(run, port, root, spec))
+            if name == HIER:
+                catalog = _store(port, root)[0]
+                hist = catalog.read_table(
+                    task_conf(spec, "ingest")["output"]["table"])
+                batch = port["data"].tensorize(hist)
+                h = port["reconcile"].Hierarchy.from_keys(batch.keys)
+                nodes = port["reconcile_task"].mint_node_batch(batch, h)
+                out["theta_vs_cpu"] = theta_vs_cpu(port, nodes)
+                out["times"] = complete_timings(port, batch, nodes,
+                                                run["mint"][0], card_line)
+                del run
+        for c in checked:
+            assert all(n == 0 for n in c["launches"].values()), c["launches"]
+        emit("launches", path=name, per_run=[c["launches"] for c in checked],
+             expected="0: the curve model and theta run no hand kernel")
+        med = lambda key: statistics.median(c[key] for c in checked)  # noqa: E731
+        emit("complete_workflow", **checked[0], runs=len(checked),
+             median_seconds=med("seconds"),
+             median_tasks_seconds={k: statistics.median(
+                 c["tasks_seconds"][k] for c in checked)
+                 for k in checked[0]["tasks_seconds"]})
+        out[name] = checked
+
+    # theta beside holt_winters and croston in a pool: both kernels launch
+    pool = ("holt_winters", "theta", "croston")
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
+    out["theta_pool"] = pool_check(port, batch, pool, {}, CV, 90, 20,
+                                   "theta_pool_gpu_vs_cpu_20_series",
+                                   counters=counters)
+    launched = out["theta_pool"]["launches"]
+    emit("launches", path="theta_pool", **launched,
+         expected="3 each: the CV pass for the weights, the pooled CV pass, "
+                  "the fit")
+    for k, n in launched.items():
+        if n < 1:
+            raise AssertionError(f"the theta pool never launched {k}")
+        out["launches"][k] += n
     return out
 
 
@@ -1566,7 +2073,10 @@ def main() -> int:
     from distributed_forecasting_tpu_torch import tracking
     from distributed_forecasting_tpu_torch.engine import blend, season
     from distributed_forecasting_tpu_torch.engine import calibrate as cal
-    from distributed_forecasting_tpu_torch.models import croston
+    from distributed_forecasting_tpu_torch.models import croston, theta
+    from distributed_forecasting_tpu_torch import monitoring, tasks
+    from distributed_forecasting_tpu_torch.reconcile import hierarchy
+    from distributed_forecasting_tpu_torch.tasks import reconcile as rec_task
     from distributed_forecasting_tpu_torch.utils import config
     from distributed_forecasting_tpu_torch.workflows import runner
 
@@ -1579,7 +2089,9 @@ def main() -> int:
     port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
                 pg=pg, solve=solve, training=training, tracking=tracking,
                 cal=cal, config=config, runner=runner, blend=blend,
-                croston=croston, season=season)
+                croston=croston, season=season, theta=theta,
+                monitoring=monitoring, tasks=tasks, reconcile=hierarchy,
+                reconcile_task=rec_task)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -1616,17 +2128,21 @@ def main() -> int:
 
     spec = e2e_spec(port)
     with tempfile.TemporaryDirectory() as root:
-        for fn in counters.values():  # the workflow path: counters to 0
-            fn.launches = 0
-        wf_run = workflow_main_path(port, root, spec)
-        emit("launches", path="workflow", **{k: fn.launches for k, fn in
-                                             counters.items()},
-             expected="0: the workflow's curve model runs no hand kernel")
-        check_workflow(wf_run, port, root, spec)
+        # twice in one env root: the second run's monitor scans drift
+        # against the first run's forecast table
+        for version in (1, 2):
+            for fn in counters.values():  # the workflow path: counters to 0
+                fn.launches = 0
+            wf_run = workflow_main_path(port, root, spec)
+            emit("launches", path="workflow", **{k: fn.launches for k, fn in
+                                                 counters.items()},
+                 expected="0: the workflow's curve model runs no hand kernel")
+            check_workflow(wf_run, port, root, spec, version=version)
         wt = workflow_timings(port, root, spec, card_line)
         conformal_vs_cpu(port, wt["state"]["batch"], wt["state"]["config"],
                          wt["cv_conf"])
     pooled = pooled_phase(port, counters, card_line)
+    complete = complete_phase(port, counters, card_line)
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
 
@@ -1637,7 +2153,8 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": origin,
-        "launches": launches[k] + pooled["launches"][k],
+        "launches": (launches[k] + pooled["launches"][k]
+                     + complete["launches"][k]),
         "max_abs_err": max(c["max_abs_err"] for c in (
             *cases[k].values(), *pooled["cases"][k].values())),
         "ms": t[k]["ms"],

@@ -8,12 +8,17 @@ tensors, frozen dataclasses of tensors for parameters, an explicit
 caller passes ``device="cpu"``; without a card they raise
 (:func:`~distributed_forecasting_tpu_torch.utils.device.resolve_device`).
 
-Layer map of what is ported so far (the Holt-Winters main path):
+Layer map of what is ported so far:
   - data plane ......... :mod:`distributed_forecasting_tpu_torch.data`
-  - model .............. :mod:`distributed_forecasting_tpu_torch.models`
+  - models ............. :mod:`distributed_forecasting_tpu_torch.models`
   - kernels ............ :mod:`distributed_forecasting_tpu_torch.ops`
                          (CUDA C++ sources under ``csrc/``)
   - fit/CV engine ...... :mod:`distributed_forecasting_tpu_torch.engine`
+  - reconciliation ..... :mod:`distributed_forecasting_tpu_torch.reconcile`
   - batched serving .... :mod:`distributed_forecasting_tpu_torch.serving`
+  - monitoring ......... :mod:`distributed_forecasting_tpu_torch.monitoring`
+  - pipelines, tasks ... :mod:`distributed_forecasting_tpu_torch.pipelines`,
+                         :mod:`distributed_forecasting_tpu_torch.tasks`,
+                         :mod:`distributed_forecasting_tpu_torch.workflows`
   - weights across ..... :mod:`distributed_forecasting_tpu_torch.convert`
 """

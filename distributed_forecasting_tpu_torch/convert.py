@@ -17,6 +17,7 @@ import torch
 from distributed_forecasting_tpu_torch.models.croston import CrostonParams
 from distributed_forecasting_tpu_torch.models.holt_winters import HWParams
 from distributed_forecasting_tpu_torch.models.prophet_glm import CurveParams
+from distributed_forecasting_tpu_torch.models.theta import ThetaParams
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
 
 # artifact params_type -> the port's class.  The reference's names come
@@ -26,6 +27,7 @@ PARAMS_TYPES = {
     "distributed_forecasting_tpu.models.croston:CrostonParams": CrostonParams,
     "distributed_forecasting_tpu.models.holt_winters:HWParams": HWParams,
     "distributed_forecasting_tpu.models.prophet_glm:CurveParams": CurveParams,
+    "distributed_forecasting_tpu.models.theta:ThetaParams": ThetaParams,
 }
 _TYPE_NAMES = {cls: name for name, cls in PARAMS_TYPES.items()}
 
@@ -107,4 +109,14 @@ def croston_params_from_numpy(fields: dict, device=None) -> CrostonParams:
 
 def croston_params_to_numpy(params: CrostonParams) -> dict:
     """The port's ``CrostonParams`` -> numpy fields the reference's takes."""
+    return params_to_numpy(params)
+
+
+def theta_params_from_numpy(fields: dict, device=None) -> ThetaParams:
+    """The reference's ``ThetaParams`` fields (numpy arrays) -> the port's."""
+    return params_from_numpy(ThetaParams, fields, device)
+
+
+def theta_params_to_numpy(params: ThetaParams) -> dict:
+    """The port's ``ThetaParams`` -> numpy fields the reference's takes."""
     return params_to_numpy(params)

@@ -1,5 +1,6 @@
 """Training pipeline (port of the reference's ``pipelines/training.py``:
-the fine-grained path, plain and over a pool of families).
+the fine-grained path, plain and over a pool of families, and the
+allocated path).
 
 :meth:`TrainingPipeline.fine_grained` is the headline per-(store, item)
 workload: history -> tensorize -> rolling-origin CV (optionally with
@@ -9,14 +10,16 @@ serving artifact) -> the forecast table.  ``model: auto`` serves each
 series from the family that won its CV (``engine/select``), ``model:
 blend`` from the per-series weighted pool of all of them
 (``engine/blend``); their artifacts are the composite forecasters of
-``serving/ensemble``.
+``serving/ensemble``.  :meth:`TrainingPipeline.allocated` fits one model
+per item and scales the item forecasts to stores by historical share.
 
-It runs in three stages, as the reference's serial path does: ``prep``
-(read, tensorize, resolve the config), ``dispatch`` (the CV pass and the
-fit, launched on the card) and ``complete`` (every host pull, then the
-tracking and table writes).  The reference's executor, which overlaps the
-stages of several experiments, is not ported (ROADMAP Queue 1: P11); its
-contract makes the pipelined path byte-identical to this one.
+The fine-grained path runs in three stages, as the reference's serial
+path does: ``prep`` (read, tensorize, resolve the config), ``dispatch``
+(the CV pass and the fit, launched on the card) and ``complete`` (every
+host pull, then the tracking and table writes).  The reference's
+executor, which overlaps the stages of several experiments, is not ported
+(ROADMAP Queue 1: P11); its contract makes the pipelined path
+byte-identical to this one.
 
 Options the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; none is ignored.
@@ -203,8 +206,8 @@ def _resolve_holidays_conf(
 
 
 class TrainingPipeline:
-    """The fine-grained training path on ``device`` (``cuda`` unless the
-    caller asks for the CPU)."""
+    """The fine-grained and allocated training paths on ``device``
+    (``cuda`` unless the caller asks for the CPU)."""
 
     def __init__(self, catalog: DatasetCatalog, tracker: FileTracker,
                  device=None):
@@ -659,6 +662,70 @@ class TrainingPipeline:
             "metrics": {f"val_{metric}": val_metric,
                         **{f"mean_weight_{k}": v
                            for k, v in mean_weights.items()}},
+        }
+
+    # ------------------------------------------------------------- allocated
+    def allocated(
+        self,
+        source_table: str,
+        output_table: str,
+        model: str = "prophet",
+        model_conf: Optional[Dict[str, Any]] = None,
+        experiment: str = "allocated_forecasting",
+        horizon: int = 90,
+        freq: str = "D",
+    ) -> Dict[str, Any]:
+        """Item-level fit + store-share allocation: sum sales per item
+        across stores, fit one model per item (one batched fit on the
+        device), compute each store's historical share ``sales / SUM(sales)
+        OVER (PARTITION BY item)`` and scale the item forecasts down to
+        (store, item) rows on the host.  The tracked run's artifact is the
+        item-level ``BatchForecaster`` (key ``item``)."""
+        _check_cadence(freq, model, model_conf)
+        get_model(model)  # an unported family raises before any read
+        df = self.catalog.read_table(source_table)
+
+        item_df = df.groupby(["date", "item"], as_index=False)["sales"].sum()
+        batch = tensorize(item_df, key_cols=("item",), freq=freq,
+                          device=self.device)
+        config = _config_from_conf(
+            model, _resolve_model_conf(model_conf, batch, horizon))
+        params, result = fit_forecast(batch, model=model, config=config,
+                                      horizon=horizon)
+        item_fc = forecast_frame(batch, result)  # [ds, item, y, yhat, ...]
+
+        # store share of each item's historical sales
+        totals = df.groupby(["store", "item"], as_index=False)["sales"].sum()
+        item_totals = totals.groupby("item")["sales"].transform("sum")
+        totals["ratio"] = totals["sales"] / item_totals
+        ratios = totals[["store", "item", "ratio"]]
+
+        merged = item_fc.merge(ratios, on="item", how="inner")
+        for col in ("y", "yhat", "yhat_upper", "yhat_lower"):
+            merged[col] = merged[col] * merged["ratio"]
+        out = merged[
+            ["ds", "store", "item", "y", "yhat", "yhat_upper", "yhat_lower",
+             "training_date"]
+        ]
+
+        eid = self.tracker.create_experiment(experiment)
+        with self.tracker.start_run(eid,
+                                    run_name=f"allocated_{model}_fit") as run:
+            run.log_params({"n_items": batch.n_series, "horizon": horizon})
+            forecaster = BatchForecaster.from_fit(batch, params, model, config)
+            forecaster.save(run.artifact_path("forecaster"))
+            run_id = run.run_id
+
+        version = self.catalog.save_table(output_table, out)
+        self.logger.info(
+            "allocated forecasts: %d items -> %d (store,item) rows -> %s v%s",
+            batch.n_series, len(out), output_table, version,
+        )
+        return {
+            "experiment_id": eid,
+            "run_id": run_id,
+            "table_version": version,
+            "n_items": batch.n_series,
         }
 
     def _log_per_series_runs(self, eid: str, series_table: pd.DataFrame,

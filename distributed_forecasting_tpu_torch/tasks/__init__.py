@@ -4,16 +4,21 @@ from distributed_forecasting_tpu_torch.tasks.ingest import IngestTask
 from distributed_forecasting_tpu_torch.tasks.train import TrainTask
 from distributed_forecasting_tpu_torch.tasks.deploy import DeployTask
 from distributed_forecasting_tpu_torch.tasks.inference import InferenceTask
+from distributed_forecasting_tpu_torch.tasks.sample_ml import SampleMLTask
+from distributed_forecasting_tpu_torch.tasks.monitor import MonitorTask
 from distributed_forecasting_tpu_torch.tasks.promote import PromoteTask
+from distributed_forecasting_tpu_torch.tasks.reconcile import ReconcileTask
 
-# the task types the port runs; the reference's others (monitor,
-# reconcile, sample_ml, serve, fleet) are not ported yet (ROADMAP Queue 1)
+# every task type of the reference's runner
 TASK_TYPES = {
+    "reconcile": ReconcileTask,
     "catalog": CatalogTask,
     "ingest": IngestTask,
     "train": TrainTask,
     "deploy": DeployTask,
     "inference": InferenceTask,
+    "sample_ml": SampleMLTask,
+    "monitor": MonitorTask,
     "promote": PromoteTask,
 }
 
@@ -24,6 +29,9 @@ __all__ = [
     "TrainTask",
     "DeployTask",
     "InferenceTask",
+    "SampleMLTask",
     "PromoteTask",
+    "MonitorTask",
+    "ReconcileTask",
     "TASK_TYPES",
 ]

@@ -8,7 +8,7 @@ device.  Conf::
       table: hackathon.sales.finegrain_forecasts
     training:
       model: prophet                # prophet | curve | prophet_ar |
-                                    #   holt_winters | croston | auto
+                                    #   holt_winters | croston | theta | auto
                                     #   (per-series best-of) | blend
                                     #   (per-series inverse-CV-error pool)
       model_conf: {...}             # fields of the model's config dataclass;
@@ -30,11 +30,14 @@ device.  Conf::
       calibrate_intervals: false    # split-conformal band calibration from
                                     # the CV residuals (engine/calibrate;
                                     # for blend, of the pooled band)
+      path: fine_grained            # or 'allocated' (item-level fit scaled
+                                    # to stores by historical share; not
+                                    # with regressors or calibrate_intervals)
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``path: allocated``, the theta, arima and arnet families (also in a
-pool: ``model: auto`` with the default families raises), ``tuning.enabled``,
-``bucketed``, ``regressors``, ``cv_artifact``.
+item: the arima and arnet families (also in a pool: ``model: auto`` with
+the default families raises, for arima), ``tuning.enabled``, ``bucketed``,
+``regressors``, ``cv_artifact``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from distributed_forecasting_tpu_torch.tasks.common import Task
 class TrainTask(Task):
     def launch(self) -> dict:
         tr = self.conf.get("training", {})
+        pipeline = TrainingPipeline(self.catalog, self.tracker,
+                                    device=self.device)
         path = tr.get("path", "fine_grained")
         if path == "allocated":
             if tr.get("regressors"):
@@ -61,12 +66,24 @@ class TrainTask(Task):
                     "stores, so per-series CV calibration does not apply); "
                     "use path: fine_grained"
                 )
-            raise NotImplementedError(
-                "training.path: allocated (TrainingPipeline.allocated) is not "
-                "ported yet (ROADMAP Queue 1: P6, the allocated path)")
-        pipeline = TrainingPipeline(self.catalog, self.tracker,
-                                    device=self.device)
+            return pipeline.allocated(**allocated_options(self.conf))
         return pipeline.fine_grained(**fine_grained_options(self.conf))
+
+
+def allocated_options(conf: dict) -> dict:
+    """The allocated path's arguments from a train task conf."""
+    inp = conf.get("input", {})
+    out = conf.get("output", {})
+    tr = conf.get("training", {})
+    return dict(
+        source_table=inp.get("table", "hackathon.sales.raw"),
+        output_table=out.get("table", "hackathon.sales.allocated_forecasts"),
+        model=tr.get("model", "prophet"),
+        model_conf=tr.get("model_conf"),
+        experiment=tr.get("experiment", "allocated_forecasting"),
+        horizon=int(tr.get("horizon", 90)),
+        freq=str(tr.get("freq", "D")),
+    )
 
 
 def fine_grained_options(conf: dict) -> dict:

@@ -8,9 +8,9 @@ topological, in-process execution of task nodes with explicit
 
 Every task runs on the runner's device: ``cuda`` unless the caller asks for
 the CPU (``device="cpu"``, or ``DFTPU_PLATFORM=cpu`` on the command line).
-A node whose task type the port has not ported stops the workflow there
-with a :class:`WorkflowError` naming the type, after the nodes before it
-ran.
+The port knows every task type of the reference's runner; a node with any
+other type stops the workflow there with a :class:`WorkflowError` naming
+it, after the nodes before it ran.
 
 Workflow YAML::
 

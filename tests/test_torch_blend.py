@@ -332,9 +332,11 @@ def test_unported_family_raises_before_any_cv(batches, monkeypatch):
                         lambda *a, **k: calls.append(1))
     for fn in (tselect.select_model, tselect.fit_forecast_auto,
                tblend.fit_forecast_blend):
+        # the default families hold arima, the one of them not ported
         with pytest.raises(NotImplementedError,
-                           match=r"'theta'.*ROADMAP Queue 1: P8"):
-            fn(tb)  # the default families hold theta and arima
+                           match=r"'arima'.*ROADMAP Queue 1: P8") as err:
+            fn(tb)
+        assert "theta" not in str(err.value)
         with pytest.raises(NotImplementedError, match="'arima'"):
             fn(tb, models=("croston", "arima"))
     with pytest.raises(KeyError, match="unknown model"):
@@ -466,3 +468,58 @@ def test_broken_composite_raises(composites, tmp_path):
             tloader.load_forecaster(composites["blend"]["port"],
                                     device="cpu").forecasters,
             np.ones((3, 3)), models=FAMILIES)
+
+
+# -- a pool holding theta -----------------------------------------------------
+
+THETA_POOL = ("holt_winters", "theta", "croston")
+
+
+def test_pool_with_theta_matches_reference(batches):
+    """``[holt_winters, theta, croston]``: theta's CV scores as the other
+    recurrences', within 1e-5 relative, on the series whose theta alpha
+    winner is apart from the runner-up in every cutoff (test_torch_theta's
+    TIE_RTOL; elsewhere another alpha is another path and either is
+    accepted); weights within ``2 d w``, forecasts within PATH_RTOL of each
+    series' scale and the pooled scale within SCALE_RTOL on those series."""
+    from test_torch_theta import _apart as theta_apart
+    from test_torch_theta import _candidate_sses
+
+    from distributed_forecasting_tpu.models import theta as jth
+    from distributed_forecasting_tpu_torch.models import theta as tth
+
+    jb, tb = batches
+    jc, tc = _configs()
+    jc = {"holt_winters": jc["holt_winters"], "theta": jth.ThetaConfig(),
+          "croston": jc["croston"]}
+    tc = {"holt_winters": tc["holt_winters"], "theta": tth.ThetaConfig(),
+          "croston": tc["croston"]}
+    kw = dict(models=THETA_POOL, horizon=HORIZON, calibrate=True)
+    jp, jbl, jr = jblend.fit_forecast_blend(jb, configs=jc,
+                                            cv=jcv.CVConfig(**CV), **kw)
+    tp, tbl, tr = tblend.fit_forecast_blend(tb, configs=tc,
+                                            cv=tcv.CVConfig(**CV), **kw)
+    assert set(tp) == set(jp) == set(THETA_POOL)
+    S, T = tb.y.shape
+    cuts = tcv.cutoff_indices(T, tcv.CVConfig(**CV))
+    train = tcv.cv_windows(tb.mask, tb.day, cuts, CV["horizon"])[0]
+    apart = np.ones(S, bool)
+    for mask in (tb.mask, *train):
+        apart &= theta_apart(_candidate_sses(
+            tb.y.numpy(), mask.numpy(), tb.day.numpy(), tth.ThetaConfig()))
+    rows = apart & np.asarray(jbl.valid)
+    assert rows.sum() >= 8, rows
+    g = tbl.scores[list(THETA_POOL)].to_numpy(np.float64)[rows]
+    w = np.asarray(jbl.scores[list(THETA_POOL)].to_numpy(np.float64))[rows]
+    np.testing.assert_allclose(g, w, rtol=1e-5)
+    d = (np.abs(g - w) / np.abs(w)).max(axis=1)
+    tol = 2 * d[:, None] * np.abs(jbl.weights[rows]) + 1e-7
+    assert (np.abs(tbl.weights[rows] - jbl.weights[rows]) <= tol).all()
+    assert (tbl.weights[rows, 1] > 0.05).any()  # theta carries weight
+    np.testing.assert_array_equal(tr.ok.numpy(), np.asarray(jr.ok))
+    ok = tr.ok.numpy() & rows
+    for k in ("yhat", "lo", "hi"):
+        _rows_close(getattr(tr, k).numpy(), getattr(jr, k), PATH_RTOL, ok)
+    np.testing.assert_allclose(tbl.interval_scale[rows],
+                               np.asarray(jbl.interval_scale)[rows],
+                               rtol=SCALE_RTOL)

@@ -5,8 +5,9 @@ layers, on the CPU, at the reference task tests' size
 400/180/60, calibrated).
 
 Both runs load ``conf/workflows.yml`` and change the spec in memory only:
-the ingest size, the CV windows, and (for the parity runs) without the
-``monitor`` node, whose task type the port has not ported.
+the ingest size and the CV windows; the parity fixture runs without the
+``monitor`` node (test_torch_monitor.py holds the monitor's tables to the
+reference's), and one test runs the workflow with it to its end.
 
 Host-side results are equal: table keys, dates, row counts, the logged
 parameter keys and values (but ``tensorize_backend``, which names each
@@ -32,6 +33,16 @@ equations are ill-conditioned (test_torch_engine.py).  Forecasts agree
 within 5e-4 of each series' scale (as above), the logged CV scores and
 weights within rtol 1e-3 (the curve member's scores, test_torch_blend.py).
 The promote task's decisions and tags are equal.
+
+The allocated path (``allocated-baseline``'s train task) runs through both
+packages at 2 stores x 4 items x 400 days, horizon 30: the curve model on
+the item-level batch, without yearly terms (a 365.25-day wave over 400
+days is nearly collinear with the trend, and the float32 normal equations
+are ill-conditioned, test_torch_engine.py).  Its table's keys, dates and
+store shares are equal, its values within 5e-4 of each series' scale.
+``sample_ml`` logs the reference's r2 (scikit-learn on the same table).
+Each of the five workflows of ``conf/workflows.yml`` runs its task
+sequence to its end through the port's runner at 2 x 4 x 400 days.
 """
 
 import copy
@@ -76,9 +87,10 @@ def _spec(monitor: bool = False):
 
 def _conf_file_paths(spec):
     """conf_file entries are relative to the repo root."""
-    for node in spec["workflows"][0]["tasks"]:
-        if node.get("conf_file"):
-            node["conf_file"] = os.path.join(ROOT, node["conf_file"])
+    for wf in spec["workflows"]:
+        for node in wf["tasks"]:
+            if node.get("conf_file"):
+                node["conf_file"] = os.path.join(ROOT, node["conf_file"])
     return spec
 
 
@@ -270,27 +282,40 @@ def test_quantile_inference_matches_reference(runs, tmp_path):
 
 
 def test_workflow_stops_at_monitor_like_the_reference(tmp_path):
+    """The monitor node no longer stops the workflow: it runs to its end,
+    as the reference's does.  A node of a task type neither package knows
+    stops it there, after the nodes before it ran."""
     spec = _conf_file_paths(_spec(monitor=True))
+    res = trunner.WorkflowRunner(copy.deepcopy(spec),
+                                 env={"root": str(tmp_path)},
+                                 device="cpu").run("forecasting-e2e")
+    assert list(res) == ["catalog", "etl", "train", "deploy", "inference",
+                         "monitor"]
+    assert all(r["status"] == "OK" for r in res.values())
+    assert "n_drifted" not in res["monitor"]["result"]  # the first version
+    spec["workflows"][0]["tasks"].append(
+        {"name": "serve", "task": "serve", "depends_on": ["monitor"]})
     with pytest.raises(trunner.WorkflowError,
-                       match="unknown task type 'monitor'") as err:
-        trunner.WorkflowRunner(spec, env={"root": str(tmp_path)},
+                       match="unknown task type 'serve'") as err:
+        trunner.WorkflowRunner(spec, env={"root": str(tmp_path / "b")},
                                device="cpu").run("forecasting-e2e")
-    assert ("known: ['catalog', 'deploy', 'inference', 'ingest', 'promote', "
-            "'train']") in str(err.value)
-    # the five ported tasks ran before it
-    reg = _handles(str(tmp_path))[2]
+    assert str(sorted(ttasks.TASK_TYPES)) in str(err.value)
+    reg = _handles(str(tmp_path / "b"))[2]
     assert reg.latest_version(MODEL).stage == "Staging"
 
 
-def test_cli_honours_the_platform_switch(tmp_path, monkeypatch):
+def test_cli_honours_the_platform_switch(tmp_path, monkeypatch, capsys):
     spec = _conf_file_paths(_spec(monitor=True))
     path = tmp_path / "workflows.yml"
     path.write_text(yaml.safe_dump(spec))
     monkeypatch.setenv("DFTPU_PLATFORM", "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(trunner.WorkflowError, match="'monitor'"):
-        trunner.main(["-f", str(path), "-w", "forecasting-e2e",
-                      "--env-root", str(tmp_path / "root")])
+    trunner.main(["-f", str(path), "-w", "forecasting-e2e",
+                  "--env-root", str(tmp_path / "root")])
+    printed = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in printed] == [
+        "catalog", "etl", "train", "deploy", "inference", "monitor"]
+    assert all(": OK (" in line for line in printed)
     assert _handles(str(tmp_path / "root"))[2].latest_version(MODEL)
     monkeypatch.setenv("DFTPU_PLATFORM", "tpu")
     with pytest.raises(ValueError, match="DFTPU_PLATFORM"):
@@ -298,10 +323,14 @@ def test_cli_honours_the_platform_switch(tmp_path, monkeypatch):
 
 
 def test_task_types_are_the_ported_five():
-    assert sorted(ttasks.TASK_TYPES) == ["catalog", "deploy", "inference",
-                                         "ingest", "promote", "train"]
+    """Every task type of the reference's runner, nine in all."""
+    from distributed_forecasting_tpu.tasks import TASK_TYPES as REF_TYPES
+
+    assert sorted(ttasks.TASK_TYPES) == sorted(REF_TYPES) == [
+        "catalog", "deploy", "inference", "ingest", "monitor", "promote",
+        "reconcile", "sample_ml", "train"]
     for mod in ("catalog", "ingest", "train", "deploy", "inference",
-                "promote"):
+                "promote", "monitor", "reconcile", "sample_ml"):
         module = __import__(f"distributed_forecasting_tpu_torch.tasks.{mod}",
                             fromlist=["entrypoint"])
         assert callable(module.entrypoint)
@@ -329,12 +358,12 @@ def ingested(tmp_path_factory):
 
 
 @pytest.mark.parametrize("training, item", [
-    ({"path": "allocated"}, "P6, the allocated path"),
+    ({"path": "allocated", "model": "arima"}, "P8"),
     ({"model": "auto"}, "P8"),
     ({"model": "blend", "calibrate_intervals": True}, "P8"),
     ({"model": "arima"}, "P8"),
-    ({"model": "blend", "model_conf": {"families": ["croston", "theta"]}},
-     "P8"),
+    ({"model": "blend", "model_conf": {"families": ["croston", "theta",
+                                                     "arima"]}}, "P8"),
     ({"tuning": {"enabled": True}}, "P8"),
     ({"bucketed": True}, "Slice 4"),
     ({"regressors": {"table": "hackathon.sales.promo", "columns": ["p"]}},
@@ -732,9 +761,9 @@ def test_promote_refuses_a_nan_metric_and_bad_confs(blend_runs, tmp_path):
 
 def test_auto_with_default_families_raises_before_any_fit(tmp_path,
                                                           monkeypatch):
-    """The default pool holds theta and arima: the train task refuses it
-    before reading its input (the table here does not exist) or running
-    any CV pass."""
+    """The default pool holds arima, the one family of it not ported: the
+    train task refuses it, naming arima alone, before reading its input
+    (the table here does not exist) or running any CV pass."""
     from distributed_forecasting_tpu_torch.engine import select as tselect
 
     calls = []
@@ -744,9 +773,10 @@ def test_auto_with_default_families_raises_before_any_fit(tmp_path,
             "input": {"table": "no.such.table"},
             "training": {"model": "auto"}}
     with pytest.raises(NotImplementedError,
-                       match=r"'theta' is not ported yet \(ROADMAP Queue 1: "
-                             r"P8\)"):
+                       match=r"'arima' is not ported yet \(ROADMAP Queue 1: "
+                             r"P8\)") as err:
         ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    assert "theta" not in str(err.value)
     conf["training"] = {"model": "blend", "model_conf": {
         "families": ["prophet", "arima"]}}
     with pytest.raises(NotImplementedError, match="'arima'"):
@@ -763,3 +793,170 @@ def test_pooled_cadence_and_bucketed_refusals(ingested):
                        model_conf={"families": ["croston"]})
     with pytest.raises(ValueError, match="pooled fits run on the shared grid"):
         ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+
+
+# -- the allocated path, sample_ml, and every workflow to its end ------------
+
+ALLOC_TRAINING = {"path": "allocated", "model": "prophet", "horizon": 30,
+                  "model_conf": {"yearly_order": 0}}
+
+
+def _ingest_and(root, package, task, conf):
+    """Ingest 2 stores x 4 items x 400 days into ``root``, then launch
+    ``task`` (a task type name) of ``package`` with ``conf``."""
+    from distributed_forecasting_tpu import tasks as jtasks
+
+    env = {"env": {"root": root}}
+    types = jtasks.TASK_TYPES if package == "ref" else ttasks.TASK_TYPES
+    kw = {} if package == "ref" else {"device": "cpu"}
+    types["ingest"](init_conf={
+        **env, "input": {"synthetic": {"n_stores": 2, "n_items": 4,
+                                       "n_days": 400, "seed": 5}},
+        "output": {"table": "hackathon.sales.raw"}}, **kw).launch()
+    return types[task](init_conf={**env, **conf}, **kw).launch()
+
+
+@pytest.fixture(scope="module")
+def allocated_runs(tmp_path_factory):
+    conf = {"input": {"table": "hackathon.sales.raw"},
+            "output": {"table": "hackathon.sales.allocated_forecasts"},
+            "training": ALLOC_TRAINING}
+    out = {}
+    for package in ("ref", "port"):
+        root = str(tmp_path_factory.mktemp(f"alloc_{package}"))
+        out[package] = (_ingest_and(root, package, "train", conf), root)
+    return out
+
+
+def test_allocated_path_matches_reference(allocated_runs):
+    (got, groot), (want, wroot) = allocated_runs["port"], allocated_runs["ref"]
+    assert set(got) == set(want)
+    assert got["n_items"] == want["n_items"] == 4
+    table = "hackathon.sales.allocated_forecasts"
+    g = _handles(groot)[0].read_table(table)
+    w = _handles(wroot)[0].read_table(table)
+    assert list(g.columns) == list(w.columns) == [
+        "ds", "store", "item", "y", "yhat", "yhat_upper", "yhat_lower",
+        "training_date"]
+    assert len(g) == len(w) == 8 * 430
+    exact = ["ds", "store", "item", "y", "training_date"]
+    pd.testing.assert_frame_equal(g[exact], w[exact])
+    keys = w[["store", "item"]].drop_duplicates().to_numpy()
+    g = g.sort_values(["store", "item", "ds"]).reset_index(drop=True)
+    w = w.sort_values(["store", "item", "ds"]).reset_index(drop=True)
+    _rows_close(g, w, ["yhat", "yhat_upper", "yhat_lower"], keys)
+    assert np.isfinite(g[["yhat", "yhat_upper", "yhat_lower"]]).all().all()
+
+    # each store's rows are the item forecast times its historical share,
+    # and the shares of an item sum to 1
+    raw = _handles(groot)[0].read_table("hackathon.sales.raw")
+    totals = raw.groupby(["store", "item"])["sales"].sum()
+    share = totals / totals.groupby(level="item").transform("sum")
+    np.testing.assert_allclose(share.groupby(level="item").sum(), 1.0,
+                               rtol=1e-12)
+    _, tracker, _ = _handles(groot)
+    run = tracker.get_run(got["experiment_id"], got["run_id"])
+    assert run.params() == {"n_items": 4, "horizon": 30}
+    assert run.meta()["run_name"] == "allocated_prophet_fit"
+    fc = tloader.load_forecaster(run.artifact_path("forecaster"),
+                                 device="cpu")
+    assert fc.key_names == ("item",)
+    items = pd.DataFrame({"item": [1, 2, 3, 4]})
+    item_fc = fc.predict(items, horizon=30)
+    future = g[g["ds"] > raw["date"].max()]
+    merged = future.merge(item_fc, on=["ds", "item"], suffixes=("", "_item"))
+    assert len(merged) == 8 * 30
+    ratio = share.loc[list(zip(merged["store"], merged["item"]))].to_numpy()
+    np.testing.assert_allclose(merged["yhat"], merged["yhat_item"] * ratio,
+                               rtol=1e-5)
+
+
+def test_allocated_artifact_serves_in_either_package(allocated_runs):
+    """The item-keyed artifact (``key_names=("item",)``) written by each
+    package predicts alike in both."""
+    from distributed_forecasting_tpu.serving import load_forecaster as jload
+
+    items = pd.DataFrame({"item": [3, 1]})
+    for package in ("port", "ref"):
+        summary, root = allocated_runs[package]
+        run = _handles(root)[1].get_run(summary["experiment_id"],
+                                        summary["run_id"])
+        art = run.artifact_path("forecaster")
+        p = tloader.load_forecaster(art, device="cpu").predict(items,
+                                                               horizon=30)
+        r = jload(art).predict(items, horizon=30)
+        assert list(p.columns) == list(r.columns) == [
+            "ds", "item", "yhat", "yhat_upper", "yhat_lower"]
+        pd.testing.assert_frame_equal(p[["ds", "item"]], r[["ds", "item"]])
+        _rows_close(p, r, ["yhat", "yhat_upper", "yhat_lower"],
+                    items.to_numpy())
+
+
+def test_sample_ml_matches_reference(tmp_path):
+    conf = {"input": {"table": "hackathon.sales.raw"},
+            "experiment": "sample_ml"}
+    r2 = {}
+    for package in ("port", "ref"):
+        root = str(tmp_path / package)
+        r2[package] = _ingest_and(root, package, "sample_ml", conf)
+        tracker = _handles(root)[1]
+        runs = tracker.search_runs(tracker.get_experiment_by_name(
+            "sample_ml"))
+        assert len(runs) == 1
+        assert runs[0].params() == {"n_estimators": 25, "rows": 8 * 400}
+        assert runs[0].metrics()["r2"] == r2[package]
+    assert r2["port"] == r2["ref"]
+    assert 0.0 < r2["port"] <= 1.0
+
+
+def _small_workflows():
+    """Every workflow of conf/workflows.yml at 2 x 4 x 400 days: synthetic
+    ingest in place of the committed dataset, CV 200/60/30, horizons of at
+    most 30 days, the curve model without yearly terms (see above)."""
+    with open(os.path.join(ROOT, "conf", "workflows.yml")) as f:
+        spec = yaml.safe_load(f)
+    for wf in spec["workflows"]:
+        for node in wf["tasks"]:
+            conf = node.get("conf", {})
+            if node["task"] == "ingest":
+                conf["input"] = {"synthetic": {
+                    "n_stores": 2, "n_items": 4, "n_days": 400, "seed": 3}}
+            if node["task"] == "train":
+                tr = conf["training"]
+                tr["horizon"] = min(int(tr["horizon"]), 30)
+                if "cv" in tr:
+                    tr["cv"] = {"initial": 200, "period": 60, "horizon": 30}
+                if tr["model"] == "prophet":
+                    tr["model_conf"] = {"yearly_order": 0}
+                if tr["model"] == "blend":
+                    tr["model_conf"].setdefault("configs", {})[
+                        "prophet"] = {"yearly_order": 0}
+            if node["task"] == "reconcile":
+                conf["reconcile"]["cv"] = {"initial": 200, "period": 60,
+                                           "horizon": 30}
+            if node["task"] == "inference":
+                conf["inference"]["horizon"] = 30
+    return _conf_file_paths(spec)
+
+
+WORKFLOWS = ["forecasting-e2e", "forecasting-blend", "real-data-e2e",
+             "hierarchical-m5", "allocated-baseline"]
+
+
+@pytest.mark.parametrize("name", WORKFLOWS)
+def test_every_workflow_runs_to_its_end(tmp_path, name):
+    spec = _small_workflows()
+    assert [w["name"] for w in spec["workflows"]] == WORKFLOWS
+    nodes = next(w["tasks"] for w in spec["workflows"] if w["name"] == name)
+    res = trunner.WorkflowRunner(spec, env={"root": str(tmp_path)},
+                                 device="cpu").run(name)
+    assert list(res) == [n["name"] for n in nodes]
+    assert all(r["status"] == "OK" for r in res.values())
+    last = res[nodes[-1]["name"]]["result"]
+    if name == "hierarchical-m5":
+        assert (last["method"], last["weights"], last["n_nodes"],
+                last["n_days"]) == ("mint", "cv", 1 + 2 + 4 + 8, 28)
+    if name == "allocated-baseline":
+        assert last["n_items"] == 4
+    if nodes[-1]["task"] == "monitor":
+        assert last["rows"] > 0 and "n_anomalies" in last
