@@ -31,7 +31,14 @@ its own size:
     items, one curve-model fit per item, store shares applied on the host)
     and ``hierarchical-m5`` (the committed dataset: theta at every one of
     the 500 bottoms, then the reconcile task's theta fit and CV of all 561
-    hierarchy nodes and the MinT solve with CV weights, horizon 28).
+    hierarchy nodes and the MinT solve with CV weights, horizon 28);
+  * the arima family on the committed dataset: fit_forecast(model="arima")
+    at its default (2, 1, 1) — the Hannan-Rissanen estimate, the Kalman
+    pass on the ``arima_filter`` CUDA kernel, the forecast on the
+    ``arima_predict`` kernel — CV, artifact and predict; ``order: auto``
+    over the 22 orders of its ladder; and ``model: auto`` with no
+    ``families`` key (prophet, holt_winters, theta, croston, arima) through
+    the runner: real-data-e2e's etl, then train, deploy and inference.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -137,6 +144,27 @@ is not 0:
               kernels.  Times: per task (medians of 5), the SES loop and the
               theta fit at the fit and CV shapes (launches, idle share, host
               syncs, bounds), and the MinT solve at n = 500
+
+ 10. arima    arima_filter against its twin, bit for bit, at the fit shape
+              (2, 1, 1), the CV pass's 1,500 rows, d = 0, 10% more cells
+              masked, weekly seasonal P = Q = 1 (r = 8) and m = 52 with
+              P = 1 (r = 52, the shared-memory path); arima_predict at
+              H = 91 and at a serving grid longer than the fit grid (2,001);
+              both refuse r = 70 with ValueError.  The arima main path with
+              every counter set to 0 just before it and read just after
+              (both arima kernels must launch); checks as phase 5's and a
+              20-series card-vs-CPU run within 1e-3 of each output's scale;
+              times: both kernels beside their bounds and their twins (once),
+              fit_forecast and the CV pass (idle share, host syncs), one HW
+              ``filter='pscan'`` and one ``kalman='pscan'`` fit with their
+              peak memory.  ``order: auto`` on the committed dataset (all 22
+              orders; wall time; on 20 series the card and the CPU pick the
+              same order where the best two are apart by 1e-3).  Then
+              ``model: auto`` with the default families three times in one
+              env.root: every task OK, hw_score, hw_filter and arima_filter
+              launched in every train task, all five families scored per
+              series, the registered artifact predicting the inference table
+              and the train run's forecast; per-task medians
 
 The line before the last lists the kernels (launches, error, times, bound);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -506,7 +534,8 @@ EVENT_KINDS = {
     "trsm (cuBLAS)": ("trsm",),
     "sort": ("Sort", "sort"),
     "memcpy/memset": ("Memcpy", "Memset"),
-    "hand kernels": ("hw_score_kernel", "hw_filter_kernel"),
+    "hand kernels": ("hw_score_kernel", "hw_filter_kernel",
+                     "arima_filter_kernel", "arima_predict_kernel"),
 }
 
 
@@ -2049,12 +2078,534 @@ def complete_phase(port, counters, card_line: str) -> dict:
     return out
 
 
+# -- phase 10: the arima family, order: auto, and model: auto's default pool -
+
+ARIMA_KERNELS = ("arima_filter", "arima_predict")
+# the Kalman step's dependent chain at r = 2: the floor of P_00, one IEEE
+# division (the gain), the rank-one update and the next P_00, ~50 cycles;
+# T such steps at the boost clock, whatever the width (csrc/arima_kalman.cu)
+ARIMA_CHAIN_CYCLES = 50
+# card against CPU, the whole arima path: the HR estimate's solves
+# (cuSOLVER's LU on the card, the pivoted LU twin on the CPU) and its Gram
+# reductions round differently, and the Kalman pass carries the change
+# through T steps; held per row at the limit tests/test_torch_cuda.py holds
+# the same comparison to (1e-4; measured on the H100 up to 3.3e-5 a row)
+ARIMA_REL = 1e-4
+# order: auto's winner is held equal across devices where its best two
+# batch-mean scores differ by more than this, relative
+ORDER_TIE_RTOL = 1e-3
+AUTO = "model-auto-default-families"
+AUTO_TASKS = ["catalog", "etl", "train", "deploy", "inference"]
+DEFAULT_POOL = ("prophet", "holt_winters", "theta", "croston", "arima")
+
+
+def arima_args(port, y, mask, cfg) -> tuple:
+    """The arguments ``fit`` gives ``arima_filter`` for ``cfg`` on (y,
+    mask): the centered differenced series, its HR coefficients, the mean,
+    r and d."""
+    ar = port["arima"]
+    lags = ar._lag_sets(cfg)
+    zc, zmask, mean = ar._centered(y, mask, cfg.d)
+    K = max(cfg.hr_ar_order, lags[2] + lags[3] + cfg.m)
+    phi, theta = ar._hannan_rissanen(zc, zmask, *lags, K)
+    return (zc.contiguous(), zmask.contiguous(), y.contiguous(),
+            mask.contiguous(), phi.contiguous(), theta.contiguous(),
+            mean.contiguous(), ar._effective_r(cfg), cfg.d)
+
+
+def compare_bitwise(pairs: dict) -> dict:
+    """Kernel vs twin outputs, bit for bit (NaN where the twin has NaN),
+    with the largest difference for the record."""
+    equal = {k: bool(a.shape == w.shape and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(w, nan=0.0))
+        and torch.equal(a.isnan(), w.isnan())) for k, (a, w) in pairs.items()}
+    err = max(float((a - w).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+              for a, w in pairs.values())
+    return {"max_abs_err": err, "bitwise": all(equal.values()),
+            "unequal": [k for k, v in equal.items() if not v],
+            "pass": all(equal.values())}
+
+
+def arima_filter_case(port, case: str, args) -> dict:
+    """arima_filter on ``args`` against its twin on the same inputs, bit for
+    bit (the kernel repeats the twin's float32 operations in order, built
+    without contraction); raises on a disagreement."""
+    kal = port["kalman"]
+    got = kal.arima_filter(*args)
+    want = kal.arima_filter_reference(*args)
+    torch.cuda.synchronize()
+    res = compare_bitwise({k: (g, w) for k, g, w in zip(
+        kal.FilterOutputs._fields, got, want) if w is not None})
+    res.update(S=int(args[0].shape[0]), T=int(args[0].shape[1]), r=args[7],
+               d=args[8], p=int(args[4].shape[1]), q=int(args[5].shape[1]))
+    emit("kernel_vs_twin", kernel="arima_filter", case=case, **res)
+    if not res["pass"]:
+        raise AssertionError(f"arima_filter disagrees with its twin: {case}")
+    return res
+
+
+def arima_predict_case(port, case: str, args, H: int) -> dict:
+    """arima_predict from the filter's final state against its twin, bit for
+    bit; raises on a disagreement."""
+    kal = port["kalman"]
+    out = kal.arima_filter(*args)
+    sigma2 = out.ssq / torch.clamp_min(out.n, 1.0)
+    pargs = (args[4], args[5], out.a_T, out.P_T, sigma2, args[7], H)
+    got = kal.arima_predict(*pargs)
+    want = kal.arima_predict_reference(*pargs)
+    torch.cuda.synchronize()
+    res = compare_bitwise({"zf": (got[0], want[0]), "vf": (got[1], want[1])})
+    res.update(S=int(args[0].shape[0]), H=H, r=args[7])
+    emit("kernel_vs_twin", kernel="arima_predict", case=case, **res)
+    if not res["pass"]:
+        raise AssertionError(f"arima_predict disagrees with its twin: {case}")
+    return res
+
+
+def arima_kernel_cases(batch, port) -> dict:
+    """Phase 10's kernel cases at the main path's shapes: the fit (2, 1, 1),
+    the CV pass's 1,500 rows with the cutoffs' train masks, d = 0, 10% more
+    cells masked, weekly seasonal P = Q = 1 (r = 8), m = 52 with P = 1
+    (r = 52, the shared-memory path); the forecast recursion at H = 91 and
+    at a serving grid longer than the fit grid (H = 2,001); and the
+    ValueError for an r past the kernels' limit."""
+    ar = port["arima"]
+    rng = np.random.default_rng(0)
+    drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
+                            .astype(np.float32)).to(batch.y.device)
+    full = batch.y * batch.mask
+    cv_y, cv_mask = cv_inputs(batch, port["cv"])
+    cases = {
+        "fit_211": (ar.ArimaConfig(), full, batch.mask),
+        "cv_1500": (ar.ArimaConfig(), cv_y, cv_mask),
+        "d0_201": (ar.ArimaConfig(p=2, d=0, q=1), full, batch.mask),
+        "masked_10pct": (ar.ArimaConfig(), full * drop, batch.mask * drop),
+        "seasonal_r8": (ar.ArimaConfig(p=1, q=1, P=1, Q=1, m=7), full,
+                        batch.mask),
+        "warp_r52": (ar.ArimaConfig(p=1, q=1, P=1, m=52), full, batch.mask),
+    }
+    out = {"arima_filter": {}, "arima_predict": {}}
+    args = {}
+    for name, (cfg, y, mask) in cases.items():
+        args[name] = arima_args(port, y, mask, cfg)
+        out["arima_filter"][name] = arima_filter_case(port, name, args[name])
+    for name, key, H in (("fit_H91", "fit_211", 91),
+                         ("serving_H2001", "fit_211", 2001),
+                         ("seasonal_r8_H91", "seasonal_r8", 91),
+                         ("warp_r52_H91", "warp_r52", 91)):
+        out["arima_predict"][name] = arima_predict_case(port, name, args[key],
+                                                        H)
+    big = arima_args(port, full[:4], batch.mask[:4],
+                     ar.ArimaConfig(p=1, q=1, P=1, m=70))
+    for kernel, call in (
+            ("arima_filter", lambda: port["kalman"].arima_filter(*big)),
+            ("arima_predict", lambda: port["kalman"].arima_predict(
+                big[4], big[5], torch.zeros(4, 70, device=full.device),
+                torch.zeros(4, 70, 70, device=full.device),
+                torch.ones(4, device=full.device), 70, 10))):
+        try:
+            call()
+        except ValueError as exc:
+            assert "limit of 64" in str(exc), exc
+            emit("kernel_refuses", kernel=kernel, r=70, error=str(exc))
+        else:
+            raise AssertionError(f"{kernel} took r = 70")
+    return out
+
+
+def arima_main_path(port, tmp: str) -> dict:
+    """Phase 10's main path: load -> tensorize -> fit_forecast(model=
+    "arima") -> fail-safe -> forecast frame -> CV -> artifact save/load ->
+    a 500-series predict."""
+    data, engine, ar, serving = (port["data"], port["engine"], port["arima"],
+                                 port["serving"])
+    t0 = time.perf_counter()
+    batch = data.tensorize(data.load_sales_csv(DATA))
+    cfg = ar.ArimaConfig()
+    params, result = engine.fit_forecast(batch, "arima", config=cfg,
+                                         horizon=90)
+    frame = engine.forecast_frame(batch, result)
+    metrics = engine.cross_validate(batch, "arima", config=cfg,
+                                    cv=engine.CVConfig(**CV))
+    fc = serving.BatchForecaster.from_fit(batch, params, "arima", cfg)
+    fc.save(tmp)
+    loaded = serving.BatchForecaster.load(tmp)
+    rng = np.random.default_rng(1)
+    requests = {k: batch.keys[rng.permutation(batch.n_series)[:k]]
+                for k in (1, 17, 500)}
+    answers = {k: loaded.predict(_request(keys)) for k, keys in requests.items()}
+    quantiles = loaded.predict_quantiles(_request(requests[17]))
+    torch.cuda.synchronize()
+    return dict(batch=batch, params=params, result=result, frame=frame,
+                metrics=metrics, requests=requests, answers=answers,
+                quantiles=quantiles, seconds=time.perf_counter() - t0)
+
+
+def arima_vs_cpu(port, batch, n: int = 20) -> dict:
+    """A 20-series arima fit_forecast on the card and on the CPU: every row
+    of every output within ARIMA_REL of that row's own scale (its largest
+    magnitude, at least 1: the unit of the dimensionless coefficients, where
+    a phi near 0 carries the solves' absolute rounding), ok flags equal."""
+    engine = port["engine"]
+    sub = batch.take_series(range(n))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    p_gpu, r_gpu = engine.fit_forecast(sub, "arima", horizon=90)
+    p_cpu, r_cpu = engine.fit_forecast(cpu, "arima", horizon=90)
+    assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
+    worst = {}
+    pairs = [(k, getattr(r_gpu, k), getattr(r_cpu, k))
+             for k in ("yhat", "lo", "hi")]
+    pairs += [(f.name, getattr(p_gpu, f.name), getattr(p_cpu, f.name))
+              for f in dataclasses.fields(p_cpu)]
+    for k, a, b in pairs:
+        if not b.numel():
+            continue
+        rows = b.shape[0] if b.dim() and b.shape[0] == n else 1
+        a, b = a.cpu().reshape(rows, -1), b.reshape(rows, -1)
+        err = (a - b).abs().amax(dim=1)
+        scale = b.abs().amax(dim=1).clamp_min(1.0)
+        bad = err > ARIMA_REL * scale
+        assert not bad.any(), (k, err[bad].tolist(), scale[bad].tolist())
+        worst[k] = float((err / scale).max())
+    res = dict(series=n, max_rel_to_scale=worst, limit=ARIMA_REL)
+    emit("arima_gpu_vs_cpu_20_series", **res)
+    return res
+
+
+def check_arima_outputs(run, port) -> dict:
+    """Phase 10's output checks: the frames, shapes and bands (as phase 5's),
+    every parameter finite, the CV means finite, the 20-series card-vs-CPU
+    run."""
+    check_frames(run, "arima_main_path")
+    p = run["params"]
+    for f in dataclasses.fields(p):
+        assert torch.isfinite(getattr(p, f.name)).all(), f.name
+    S, T = run["batch"].y.shape
+    assert tuple(p.fitted.shape) == (S, T) and tuple(p.P_last.shape) == (
+        S, 2, 2)
+    return arima_vs_cpu(port, run["batch"])
+
+
+def order_auto(port, batch, counters) -> dict:
+    """``order: auto`` on the committed dataset, all 22 orders of the
+    default ladder, on the card (wall time, one pull of the table at its
+    end), with every launch counter set to 0 just before it and read just
+    after; then on 20 series, card and CPU: the same order where their best
+    two scores differ by more than ORDER_TIE_RTOL relative."""
+    order, cvm = port["order"], port["cv"]
+    cv = cvm.CVConfig(**CV)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    best, rows = order.select_arima_order(batch, cv=cv)
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    assert len(rows) == 22 and all(np.isfinite(r[1]) for r in rows), rows
+    sub = batch.take_series(range(20))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    b_gpu, r_gpu = order.select_arima_order(sub, cv=cv)
+    b_cpu, r_cpu = order.select_arima_order(cpu, cv=cv)
+    scores = sorted(r[1] for r in r_cpu)
+    apart = scores[1] - scores[0] > ORDER_TIE_RTOL * scores[0]
+    if apart:
+        assert b_gpu == b_cpu, (b_gpu, b_cpu)
+    g, c = ({o: s for o, s, _ in r} for r in (r_gpu, r_cpu))
+    rel = max(abs(g[o] - c[o]) / abs(c[o]) for o in c)
+    res = dict(selected=list(best), seconds=wall, orders=len(rows),
+               launches=launched, table=[[list(o), s, n] for o, s, n in rows[:5]],
+               worst=[list(rows[-1][0]), rows[-1][1]],
+               cpu_vs_gpu_20={"gpu": list(b_gpu), "cpu": list(b_cpu),
+                              "best_two_apart": bool(apart),
+                              "score_max_rel_diff": rel})
+    emit("order_auto", **res)
+    return res
+
+
+def auto_spec(port) -> dict:
+    """``model: auto`` with no ``families`` key on the committed dataset:
+    real-data-e2e's catalog and etl (the CSV ingest), then train, deploy and
+    inference, built in code (conf/workflows.yml is read, not edited)."""
+    spec = e2e_spec(port, REAL)
+    wf = spec["workflows"][0]
+    wf["name"] = AUTO
+    wf["tasks"] = [t for t in wf["tasks"] if t["task"] != "monitor"]
+    tr = task_conf(spec, "train")["training"]
+    tr["model"] = "auto"
+    tr.pop("model_conf", None)
+    tr.pop("calibrate_intervals", None)  # auto refuses calibration
+    tr["experiment"] = "auto_forecasting"
+    task_conf(spec, "deploy")["deploy"].update(
+        experiment="auto_forecasting", model_name="ForecastingAutoModel")
+    task_conf(spec, "inference")["inference"]["model_name"] = (
+        "ForecastingAutoModel")
+    return spec
+
+
+def auto_run(port, root: str, spec: dict, counters) -> dict:
+    """One run of the auto workflow in ``root`` on the card, every launch
+    counter set to 0 as the train task starts and read as it returns."""
+    t0 = time.perf_counter()
+    with PoolSpy(port["training"], counters) as spy:
+        results = port["runner"].WorkflowRunner(
+            spec, env={"root": root}, device="cuda").run(AUTO)
+    torch.cuda.synchronize()
+    assert len(spy.launches) == 1, spy.launches
+    return dict(results=results, launches=spy.launches[0],
+                seconds=time.perf_counter() - t0)
+
+
+def check_auto(run, port, root: str, spec: dict, version: int) -> dict:
+    """Every task OK; hw_score, hw_filter and arima_filter launched by the
+    train task; the per-series table scores all five default families and
+    names each series' winner among them; the registered artifact (a
+    mixed-family forecaster) predicts the inference table within 1e-5 (the
+    parquet round trip) and the train run's forecast within 1e-5 of each
+    row's scale."""
+    results = run["results"]
+    assert list(results) == AUTO_TASKS, list(results)
+    assert all(r["status"] == "OK" for r in results.values()), results
+    for k in ("hw_score", "hw_filter", "arima_filter"):
+        assert run["launches"][k] >= 1, (k, run["launches"])
+    catalog, tracker, registry = _store(port, root)
+    tr = task_conf(spec, "train")
+    horizon = int(tr["training"]["horizon"])
+    summary = results["train"]["result"]
+    train_run = tracker.get_run(summary["experiment_id"], summary["run_id"])
+    assert train_run.params()["families"] == list(DEFAULT_POOL)
+    table = pd.read_parquet(train_run.artifact_path("series_metrics.parquet"))
+    for f in DEFAULT_POOL:
+        assert np.isfinite(table[f"smape_{f}"]).all(), f
+    assert set(table["chosen_model"]) <= set(DEFAULT_POOL)
+    keys = table[["store", "item"]].to_numpy()
+    S = len(keys)
+    forecasts = catalog.read_table(tr["output"]["table"])
+    T = len(forecasts) // S - horizon
+    dates = pd.DatetimeIndex(forecasts["ds"].iloc[:T + horizon])
+    _check_table(forecasts, keys, dates, "auto forecast table")
+    inf_conf = task_conf(spec, "inference")
+    h_inf = int(inf_conf["inference"]["horizon"])
+    served = catalog.read_table(inf_conf["output"]["table"])
+    served_keys = served[["store", "item"]].drop_duplicates().to_numpy()
+    _check_table(served, served_keys, dates[T:T + h_inf],
+                 "auto inference table")
+    row = {tuple(k): i for i, k in enumerate(keys.tolist())}
+    order = np.asarray([row[tuple(k)] for k in served_keys.tolist()])
+    model_name = inf_conf["inference"]["model_name"]
+    registered, latest = port["serving"].resolve_from_registry(
+        registry, model_name, device="cuda")
+    assert latest.version == version, latest
+    assert type(registered).__name__ == "MultiModelForecaster"
+    request = pd.DataFrame(served_keys, columns=["store", "item"])
+    got = registered.predict(request, horizon=h_inf)
+    cols = ["ds", "store", "item", "yhat", "yhat_upper", "yhat_lower"]
+    pd.testing.assert_frame_equal(got[cols], served[cols], check_dtype=False)
+    future = forecasts.groupby(["store", "item"], sort=False).nth(
+        list(range(T, T + h_inf)))
+    for col in ("yhat", "yhat_upper", "yhat_lower"):
+        a = got[col].to_numpy().reshape(S, -1)
+        b = future[col].to_numpy().reshape(S, -1)[order]
+        scale = np.abs(b).max(axis=1, keepdims=True)
+        assert (np.abs(a - b) <= 1e-5 * scale).all(), col
+    metrics = train_run.metrics()
+    out = dict(workflow=AUTO, seconds=run["seconds"],
+               tasks_seconds={k: r["seconds"] for k, r in results.items()},
+               launches=run["launches"], fit_seconds=metrics["fit_seconds"],
+               val_smape=metrics["val_smape"],
+               chosen={f: int(metrics[f"n_chosen_{f}"]) for f in DEFAULT_POOL},
+               registry={"version": latest.version, "stage": latest.stage,
+                         "model_family": latest.tags.get("model_family")})
+    emit("auto_workflow", **out)
+    return out
+
+
+def once_ms(fn) -> float:
+    """Device time of one ``fn()`` between two CUDA events (a plain twin's
+    Python loop: too slow to repeat)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def peak_mib(fn) -> tuple:
+    """(host wall ms, peak device memory MiB) of one ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return wall, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def arima_timings(run, port, card_line: str) -> dict:
+    """Phase 10's device times: both kernels at the fit shape (and
+    arima_filter at the CV shape) beside their bounds and their twins' time
+    (once) — each kernel alone over 20 back-to-back launches a sample, its
+    arguments checked and bound beforehand (``_arima_*_launcher``) so that
+    the host only launches — the Hannan-Rissanen estimate alone at both
+    shapes (launches, idle share, host syncs, bound), the arima fit_forecast and CV pass (idle share, host syncs),
+    and one HW ``filter='pscan'`` fit and one ``kalman='pscan'`` arima fit
+    at (500, 1,826) with their peak memory."""
+    engine, ar, hw, kal = (port["engine"], port["arima"], port["hw"],
+                           port["kalman"])
+    batch = run["batch"]
+    y, mask = batch.y * batch.mask, batch.mask
+    cfg = ar.ArimaConfig()
+    cv = engine.CVConfig(**CV)
+    k = {}
+    for name, (yy, mm) in (("fit", (y, mask)),
+                           ("cv", cv_inputs(batch, port["cv"]))):
+        args = arima_args(port, yy, mm, cfg)
+        S, T = (int(d) for d in yy.shape)
+        bound, by = bound_ms(kal.arima_filter_work(S, T, args[7], args[8]))
+        launch, _ = kal._arima_filter_launcher(*args)
+        k[name] = {"shape": [S, T, args[7], args[8]],
+                   "ms": cuda_ms(launch, inner=20),
+                   "bound_ms": bound, "bound_by": by,
+                   "serial_chain_ms": T * ARIMA_CHAIN_CYCLES / CLOCK_HZ * 1e3}
+        if name == "fit":
+            fit_args = args
+    # the kernel at other orders, on the fit shape: d = 0, r = 1 and 3, the
+    # weekly seasonal r = 8 and the shared-memory path's r = 52
+    for name, order in (("d0_201", dict(p=2, d=0, q=1)),
+                        ("r1_110", dict(p=1, q=0)), ("r3_312", dict(p=3, q=2)),
+                        ("seasonal_r8", dict(p=1, q=1, P=1, Q=1, m=7)),
+                        ("warp_r52", dict(p=1, q=1, P=1, m=52))):
+        args = arima_args(port, y, mask, ar.ArimaConfig(**order))
+        launch, _ = kal._arima_filter_launcher(*args)
+        k[name] = {"shape": [batch.n_series, batch.n_time, args[7], args[8]],
+                   "ms": cuda_ms(launch, inner=5)}
+    twin_filter = once_ms(lambda: kal.arima_filter_reference(*fit_args))
+    out = kal.arima_filter(*fit_args)
+    sigma2 = out.ssq / torch.clamp_min(out.n, 1.0)
+    pargs = (fit_args[4], fit_args[5], out.a_T, out.P_T, sigma2, 2, 91)
+    bound, by = bound_ms(kal.arima_predict_work(batch.n_series, 91, 2))
+    launch, _ = kal._arima_predict_launcher(*pargs)
+    predict = {"shape": [batch.n_series, 91, 2],
+               "ms": cuda_ms(launch, inner=20),
+               "bound_ms": bound, "bound_by": by}
+    twin_predict = once_ms(lambda: kal.arima_predict_reference(*pargs))
+    # the Hannan-Rissanen estimate alone, at the fit and CV shapes
+    hr = {}
+    for name, (yy, mm) in (("fit", (y, mask)),
+                           ("cv", cv_inputs(batch, port["cv"]))):
+        ar_lags, ma_lags, p_eff, q_eff = ar._lag_sets(cfg)
+        zc, zmask, _ = ar._centered(yy, mm, cfg.d)
+        K = max(cfg.hr_ar_order, p_eff + q_eff + cfg.m)
+        est = lambda: ar._hannan_rissanen(  # noqa: E731
+            zc, zmask, ar_lags, ma_lags, p_eff, q_eff, K)
+        S, T = (int(d) for d in yy.shape)
+        bound, by = bound_ms(ar.hr_work(S, T, K, len(ar_lags) + len(ma_lags)))
+        prof = idle_share(est)
+        hr[name] = {"shape": [S, T, K], "ms": cuda_ms(est), "bound_ms": bound,
+                    "bound_by": by, "device_events": prof.get("device_events"),
+                    "idle_share": prof["idle_share"],
+                    "host_syncs": count_syncs(est)}
+    fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
+        batch, "arima", config=cfg, horizon=90)
+    cv_pass = lambda: engine.cross_validate(  # noqa: E731
+        batch, "arima", config=cfg, cv=cv)
+    t = {"arima_filter": k, "arima_predict": predict, "hannan_rissanen": hr,
+         "arima_filter_twin_ms": twin_filter,
+         "arima_predict_twin_ms": twin_predict,
+         "fit_forecast_ms": cuda_ms(fit_forecast),
+         "fit_forecast_profile": idle_share(fit_forecast, top_n=8),
+         "fit_forecast_host_syncs": count_syncs(fit_forecast),
+         "cv_pass_ms": cuda_ms(cv_pass),
+         "cv_pass_profile": idle_share(cv_pass),
+         "cv_pass_host_syncs": count_syncs(cv_pass)}
+    hw_ms, hw_mib = peak_mib(lambda: hw.fit(
+        batch.y, batch.mask, batch.day, hw.HoltWintersConfig(filter="pscan")))
+    ar_ms, ar_mib = peak_mib(lambda: ar.fit(
+        batch.y, batch.mask, batch.day, ar.ArimaConfig(kalman="pscan")))
+    t["pscan"] = {"hw_filter_pscan_fit": {"ms_host": hw_ms,
+                                          "peak_mib": hw_mib},
+                  "arima_kalman_pscan_fit": {"ms_host": ar_ms,
+                                             "peak_mib": ar_mib}}
+    emit("arima_times", card=card_line, reps=REPS, statistic="median", **t)
+    return t
+
+
+def arima_phase(port, card_line: str) -> dict:
+    """Phase 10: the arima kernels against their twins, the arima main path
+    with every launch counter set to 0 just before it and read just after
+    (both arima kernels must launch), its checks and times, ``order: auto``
+    on the committed dataset, and ``model: auto`` with the default families
+    through the runner three times in one env root (hw_score, hw_filter and
+    arima_filter must launch in every train task)."""
+    fs, kal = port["fs"], port["kalman"]
+    counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter,
+                "arima_filter": kal.arima_filter,
+                "arima_predict": kal.arima_predict}
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
+    cases = arima_kernel_cases(batch, port)
+
+    out = {"cases": cases, "launches": {k: 0 for k in ARIMA_KERNELS}}
+    for fn in counters.values():  # counters to 0 just before the main path
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        run = arima_main_path(port, tmp)
+    launched = {k: fn.launches for k, fn in counters.items()}  # ... and after
+    emit("launches", path="arima", **launched,
+         expected="arima_filter and arima_predict: 1 per fit_forecast + 1 "
+                  "per CV pass, arima_predict 1 per predict")
+    for k in ARIMA_KERNELS:
+        if launched[k] < 1:
+            raise AssertionError(f"the arima main path never launched {k}")
+        out["launches"][k] += launched[k]
+    out["gpu_vs_cpu"] = check_arima_outputs(run, port)
+    out["times"] = arima_timings(run, port, card_line)
+
+    out["order"] = order_auto(port, batch, counters)
+    launched = out["order"]["launches"]
+    emit("launches", path="order_auto", **launched,
+         expected="arima_filter and arima_predict: 1 per CV pass, one pass "
+                  "for each of the 22 orders on 500 series")
+    for k in ARIMA_KERNELS:
+        assert launched[k] == 22, (k, launched)
+        out["launches"][k] += launched[k]
+
+    spec = auto_spec(port)
+    checked = []
+    with tempfile.TemporaryDirectory() as root:
+        for version in (1, 2, 3):
+            checked.append(check_auto(auto_run(port, root, spec, counters),
+                                      port, root, spec, version))
+    for c in checked:
+        for k in ARIMA_KERNELS:
+            out["launches"][k] += c["launches"][k]
+    med = lambda key: statistics.median(c[key] for c in checked)  # noqa: E731
+    emit("auto_times", card=card_line, runs=len(checked),
+         median_seconds=med("seconds"), median_fit_seconds=med("fit_seconds"),
+         median_tasks_seconds={k: statistics.median(
+             c["tasks_seconds"][k] for c in checked)
+             for k in checked[0]["tasks_seconds"]},
+         launches_per_train_task=[c["launches"] for c in checked])
+    out["auto"] = checked
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
     # no Pallas origin: the reference's lax.scan filter
     "hw_filter": ("distributed_forecasting_tpu_torch/csrc/hw_filter.cu",
                   "distributed_forecasting_tpu/models/holt_winters.py:170"),
+    # no Pallas origin: the reference's Kalman lax.scan (and, for d = 1, the
+    # integration scan) and the forecast's predict-only lax.scan
+    "arima_filter": ("distributed_forecasting_tpu_torch/csrc/arima_kalman.cu",
+                     "distributed_forecasting_tpu/models/arima.py:224"),
+    "arima_predict": ("distributed_forecasting_tpu_torch/csrc/arima_kalman.cu",
+                      "distributed_forecasting_tpu/models/arima.py:587"),
 }
 
 
@@ -2073,7 +2624,9 @@ def main() -> int:
     from distributed_forecasting_tpu_torch import tracking
     from distributed_forecasting_tpu_torch.engine import blend, season
     from distributed_forecasting_tpu_torch.engine import calibrate as cal
-    from distributed_forecasting_tpu_torch.models import croston, theta
+    from distributed_forecasting_tpu_torch.models import arima, croston, theta
+    from distributed_forecasting_tpu_torch.engine import order
+    from distributed_forecasting_tpu_torch.ops import kalman
     from distributed_forecasting_tpu_torch import monitoring, tasks
     from distributed_forecasting_tpu_torch.reconcile import hierarchy
     from distributed_forecasting_tpu_torch.tasks import reconcile as rec_task
@@ -2091,7 +2644,8 @@ def main() -> int:
                 cal=cal, config=config, runner=runner, blend=blend,
                 croston=croston, season=season, theta=theta,
                 monitoring=monitoring, tasks=tasks, reconcile=hierarchy,
-                reconcile_task=rec_task)
+                reconcile_task=rec_task, arima=arima, kalman=kalman,
+                order=order)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -2143,25 +2697,29 @@ def main() -> int:
                          wt["cv_conf"])
     pooled = pooled_phase(port, counters, card_line)
     complete = complete_phase(port, counters, card_line)
+    arima_out = arima_phase(port, card_line)
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
 
-    plain = {"hw_score": t["hw_score_twin_ms"],
-             "hw_filter": t["hw_filter_twin_ms"]}
+    at = arima_out["times"]
+    rows = {k: dict(launches=(launches[k] + pooled["launches"][k]
+                              + complete["launches"][k]),
+                    max_abs_err=max(c["max_abs_err"] for c in (
+                        *cases[k].values(), *pooled["cases"][k].values())),
+                    ms=t[k]["ms"], plain_ms=t[f"{k}_twin_ms"],
+                    bound_ms=t[k]["bound_ms"], bound_by=t[k]["bound_by"])
+            for k in ("hw_score", "hw_filter")}
+    for k, timed in (("arima_filter", at["arima_filter"]["fit"]),
+                     ("arima_predict", at["arima_predict"])):
+        rows[k] = dict(launches=arima_out["launches"][k],
+                       max_abs_err=max(c["max_abs_err"] for c in
+                                       arima_out["cases"][k].values()),
+                       ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],
+                       bound_ms=timed["bound_ms"], bound_by=timed["bound_by"])
+    # no single PyTorch call runs either filter, so no library time
     print(json.dumps({"kernels": [{
-        "name": k,
-        "route": "cuda",
-        "source": src,
-        "replaces": origin,
-        "launches": (launches[k] + pooled["launches"][k]
-                     + complete["launches"][k]),
-        "max_abs_err": max(c["max_abs_err"] for c in (
-            *cases[k].values(), *pooled["cases"][k].values())),
-        "ms": t[k]["ms"],
-        "plain_ms": plain[k],
-        "bound_ms": t[k]["bound_ms"],
-        "bound_by": t[k]["bound_by"],
-        "library_ms": None,
+        "name": k, "route": "cuda", "source": src, "replaces": origin,
+        **rows[k], "library_ms": None,
     } for k, (src, origin) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

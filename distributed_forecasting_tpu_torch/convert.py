@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from distributed_forecasting_tpu_torch.models.arima import ArimaParams
 from distributed_forecasting_tpu_torch.models.croston import CrostonParams
 from distributed_forecasting_tpu_torch.models.holt_winters import HWParams
 from distributed_forecasting_tpu_torch.models.prophet_glm import CurveParams
@@ -24,6 +25,7 @@ from distributed_forecasting_tpu_torch.utils.device import resolve_device
 # first: an artifact the port writes records them too, so either package
 # loads it.
 PARAMS_TYPES = {
+    "distributed_forecasting_tpu.models.arima:ArimaParams": ArimaParams,
     "distributed_forecasting_tpu.models.croston:CrostonParams": CrostonParams,
     "distributed_forecasting_tpu.models.holt_winters:HWParams": HWParams,
     "distributed_forecasting_tpu.models.prophet_glm:CurveParams": CurveParams,
@@ -99,6 +101,16 @@ def curve_params_from_numpy(fields: dict, device=None) -> CurveParams:
 
 def curve_params_to_numpy(params: CurveParams) -> dict:
     """The port's ``CurveParams`` -> numpy fields the reference's takes."""
+    return params_to_numpy(params)
+
+
+def arima_params_from_numpy(fields: dict, device=None) -> ArimaParams:
+    """The reference's ``ArimaParams`` fields (numpy arrays) -> the port's."""
+    return params_from_numpy(ArimaParams, fields, device)
+
+
+def arima_params_to_numpy(params: ArimaParams) -> dict:
+    """The port's ``ArimaParams`` -> numpy fields the reference's takes."""
     return params_to_numpy(params)
 
 

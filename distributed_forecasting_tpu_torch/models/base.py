@@ -91,7 +91,7 @@ def register_model(name: str, fit: Callable, forecast: Callable,
 
 
 # families of the reference the port has not ported yet
-UNPORTED_FAMILIES = frozenset({"arima", "arnet"})
+UNPORTED_FAMILIES = frozenset({"arnet"})
 
 
 def get_model(name: str) -> ModelFns:

@@ -10,7 +10,9 @@ grid search: every (alpha, beta, gamma[, phi]) candidate is one more lane.
 Fit is two passes.  Pass 1 scores every candidate by masked one-step-ahead
 MSE — on the card with the hand-written CUDA kernel
 (:func:`~distributed_forecasting_tpu_torch.ops.fused_scan.hw_score`,
-tolerance-grade), or with :func:`_filter` over the (S, C) lanes.  Pass 2
+tolerance-grade), with :func:`_filter` over the (S, C) lanes, or with the
+parallel prefix over time (:func:`parallel_filter`, ``filter='pscan'``,
+within float tolerance of :func:`_filter`).  Pass 2
 refits the winner, collecting the fitted path, with
 :func:`~distributed_forecasting_tpu_torch.ops.fused_scan.hw_filter`: on the
 card a CUDA kernel bitwise equal to :func:`_filter`, on the CPU
@@ -41,6 +43,7 @@ from distributed_forecasting_tpu_torch.ops.fused_scan import (
     hw_score,
     select_filter,
 )
+from distributed_forecasting_tpu_torch.ops.pscan import affine_scan
 
 _EPS = 1e-6
 
@@ -64,7 +67,9 @@ class HoltWintersConfig:
     #              hand-written CUDA kernel (ops/fused_scan.hw_score, additive
     #              only), on the CPU its plain twin.  The name is kept so
     #              configs in artifacts written by the reference load as-is;
-    #   'pscan'  — the parallel-prefix solver, not ported yet (raises);
+    #   'pscan'  — :func:`parallel_filter`, the parallel prefix over time
+    #              (ops/pscan.affine_scan; additive only), one candidate at
+    #              a time;
     #   'auto'   — ops/fused_scan.select_filter: 'pallas' on cuda, else
     #              'scan'; multiplicative always scans.
     # The winner is refit exactly (ops/fused_scan.hw_filter, :func:`_filter`'s
@@ -178,6 +183,75 @@ def _filter(y, mask, alpha, beta, gamma, m, mode, phi, keep_path=True):
     return (l, b, s.movedim(0, -1)), mse, preds
 
 
+def _affine_elems(y, mask, alpha, beta, gamma, m, phi=1.0):
+    """The additive HW update as per-step affine maps ``x_t = A_t x_{t-1} +
+    c_t`` over the state x = [l, b, s_0..s_{m-1}] (d = m + 2), for every
+    row: y, mask (S, T); alpha/beta/gamma/phi scalars or (S,).  Returns
+    (A (T, S, d, d), c (T, S, d), x0 (S, d), e (T, m) one-hot slots)."""
+    S, T = y.shape
+    dev, dt = y.device, y.dtype
+    d = m + 2
+    as_lane = lambda x: torch.as_tensor(x, dtype=dt, device=dev).expand(S)  # noqa: E731
+    a, be, g, f = (as_lane(x)[None, :, None] for x in (alpha, beta, gamma, phi))
+    eye_m = torch.eye(m, dtype=dt, device=dev)
+    e = eye_m[torch.arange(T, device=dev) % m]               # (T, m)
+    es = e[:, None, :].expand(T, S, m)
+    full = lambda v: v.expand(T, S, 1)  # noqa: E731
+
+    # observed-update matrix rows (affine in the previous state; f = phi):
+    #   l' = (1-a) l + (1-a)f b - a s_i             + a y
+    #   b' = -ab l + f(b(1-a)+(1-b)) b - ab s_i     + ab y
+    #   s_i' = -g(1-a) l - g(1-a)f b + (ga+1-g)s_i  + g(1-a) y ; s_j'=s_j
+    row_l = torch.cat([full(1 - a), full((1 - a) * f), -a * es], dim=2)
+    bb = (be * (1 - a) + (1 - be)) * f
+    row_b = torch.cat([full(-a * be), full(bb), -a * be * es], dim=2)
+    s_rows = (eye_m + es[..., :, None]
+              * ((g * a + 1 - g - 1.0)[..., None] * es[..., None, :]))
+    s_lb = es[..., :, None] * torch.stack(
+        [full(-g * (1 - a)), full(-g * (1 - a) * f)], dim=-1)
+    A_obs = torch.cat([row_l[:, :, None, :], row_b[:, :, None, :],
+                       torch.cat([s_lb, s_rows], dim=3)], dim=2)  # (T, S, d, d)
+    yt = y.t()[..., None]                                     # (T, S, 1)
+    c_obs = torch.cat([a * yt, a * be * yt, es * (g * (1 - a) * yt)], dim=2)
+
+    A_pred = torch.zeros((S, d, d), dtype=dt, device=dev)
+    A_pred[:, 0, 0] = 1.0
+    A_pred[:, 0, 1] = f[0, :, 0]
+    A_pred[:, 1, 1] = f[0, :, 0]
+    A_pred[:, 2:, 2:] = eye_m
+    obs = (mask.t() > 0)[..., None]                           # (T, S, 1)
+    A = torch.where(obs[..., None], A_obs, A_pred[None])
+    c = torch.where(obs, c_obs, 0.0)
+
+    l0, b0, s0 = _init_state(y, mask, m, "additive")
+    x0 = torch.cat([l0[:, None], b0[:, None], s0], dim=1)
+    return A, c, x0, e
+
+
+def _filter_outputs(states, x0, e, y, mask, phi):
+    """``((l, b, s), mse, preds)`` from the scanned (T, S, d) state
+    trajectory, as :func:`_filter` returns them for (S,) lanes."""
+    prev = torch.cat([x0[None], states[:-1]], dim=0)         # state before t
+    phi = torch.as_tensor(phi, dtype=y.dtype, device=y.device)
+    preds = (prev[..., 0] + phi * prev[..., 1]
+             + torch.sum(prev[..., 2:] * e[:, None, :], dim=2)).t()
+    err = (y - preds) * mask
+    n = torch.clamp_min(torch.sum(mask, dim=1), 1.0)
+    mse = torch.sum(err * err, dim=1) / n
+    xT = states[-1]
+    return (xT[:, 0], xT[:, 1], xT[:, 2:]), mse, preds
+
+
+def parallel_filter(y, mask, alpha, beta, gamma, m, phi=1.0):
+    """Additive HW filter of every row by a parallel prefix over time
+    (``ops/pscan.affine_scan``, O(log T) depth).  y, mask: (S, T);
+    alpha/beta/gamma/phi scalars or (S,).  Returns ``((l, b, s), mse,
+    preds)`` as :func:`_filter` does, within float tolerance of it."""
+    A, c, x0, e = _affine_elems(y, mask, alpha, beta, gamma, m, phi)
+    states = affine_scan(A, c, x0)                            # (T, S, d)
+    return _filter_outputs(states, x0, e, y, mask, phi)
+
+
 def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
     """Float32 grid of ``num`` points, each the float64 value rounded once."""
     return torch.from_numpy(np.linspace(start, stop, num).astype(np.float32)).to(device)
@@ -217,10 +291,16 @@ def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
         _, msec, _ = _filter(y, mask, A[None], B[None], G[None], m, mode,
                              P[None], keep_path=False)
     elif which == "pscan":
-        raise NotImplementedError(
-            "filter='pscan' is not ported yet (ROADMAP Queue 1: pscan); "
-            "use 'scan', 'pallas' or 'auto'"
-        )
+        if mode != "additive":
+            raise ValueError(
+                "filter='pscan' supports additive seasonality only "
+                "(the multiplicative update is not affine in the state)"
+            )
+        # one candidate at a time: the (T, S, d, d) maps of all C candidates
+        # at once would take C times the memory
+        msec = torch.stack([
+            parallel_filter(y, mask, A[c], B[c], G[c], m, P[c])[1]
+            for c in range(A.shape[0])], dim=1)
     else:
         raise ValueError(
             f"unknown filter {config.filter!r}; "

@@ -27,8 +27,9 @@ BUILD_DIR = (os.path.join(_ROOT, "build", "torch_kernels")
 # sm_90a: Hopper with its architecture-specific instructions.  No fast
 # math, and no fused multiply-add contraction (--fmad=false): every float
 # operation rounds on its own, exactly as the plain PyTorch twin's
-# elementwise ops do, so the refit kernel (csrc/hw_filter.cu) reproduces its
-# twin bit for bit.  The scoring kernel writes its multiply-adds out as
+# elementwise ops do, so the refit kernel (csrc/hw_filter.cu) and the ARIMA
+# kernels (csrc/arima_kalman.cu) reproduce their twins bit for bit.  The
+# scoring kernel writes its multiply-adds out as
 # __fmaf_rn where it wants them.
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17"]
@@ -52,7 +53,7 @@ def build(name: str, sources) -> str:
 
 # every kernel source, built into one library by one build call (ninja runs
 # one nvcc per source, in parallel)
-SOURCES = ["hw_score.cu", "hw_filter.cu"]
+SOURCES = ["hw_score.cu", "hw_filter.cu", "arima_kalman.cu"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,7 +67,13 @@ def library() -> ctypes.CDLL:
     lib.hw_filter_launch.argtypes = (
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
-    for name in ("hw_score", "hw_filter"):
+    lib.arima_filter_launch.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    lib.arima_predict_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    for name in ("hw_score", "hw_filter", "arima_filter", "arima_predict"):
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]

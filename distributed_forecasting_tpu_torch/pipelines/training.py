@@ -47,6 +47,7 @@ from distributed_forecasting_tpu_torch.engine.fit import (
     fit_forecast,
     forecast_frame,
 )
+from distributed_forecasting_tpu_torch.engine.order import resolve_order_conf
 from distributed_forecasting_tpu_torch.engine.season import (
     detect_season_length,
 )
@@ -54,6 +55,7 @@ from distributed_forecasting_tpu_torch.engine.select import (
     DEFAULT_FAMILIES,
     fit_forecast_auto,
 )
+from distributed_forecasting_tpu_torch.models.arima import _MLE_NOT_PORTED
 from distributed_forecasting_tpu_torch.models.base import (
     MODEL_REGISTRY,
     get_model,
@@ -130,7 +132,8 @@ def _check_cadence(freq: str, model: str, model_conf) -> None:
         raise ValueError(
             f"training.freq={freq!r}: the curve model's seasonalities are "
             f"calendar-daily; use the cadence-agnostic families "
-            f"(holt_winters/croston) or freq: D (conf names {sorted(bad)})"
+            f"(holt_winters/arima/theta/croston) or freq: D (conf names "
+            f"{sorted(bad)})"
         )
     if isinstance((model_conf or {}).get("holidays"), (str, dict)):
         raise ValueError(
@@ -139,13 +142,37 @@ def _check_cadence(freq: str, model: str, model_conf) -> None:
         )
 
 
-def _resolve_model_conf(model_conf: Optional[Dict[str, Any]], batch,
-                        horizon: int) -> Optional[Dict[str, Any]]:
+def _resolve_model_conf(model: str, model_conf: Optional[Dict[str, Any]],
+                        batch, horizon: int,
+                        cv_conf: Optional[Dict[str, Any]] = None
+                        ) -> Optional[Dict[str, Any]]:
     """The conf translations applied before a config is built, on every
-    path (plain, and each member of a pool): a named holiday calendar and
-    ``season_length: auto``."""
-    return _resolve_season_conf(
+    path (plain, allocated, and each member of a pool): a named holiday
+    calendar, ``season_length: auto`` and arima's ``order: auto`` (or
+    ``order: [p, d, q]``; selected by CV under ``cv_conf``)."""
+    out = _resolve_season_conf(
         _resolve_holidays_conf(model_conf, batch, horizon), batch)
+    # any order* key: resolve_order_conf owns the refusal of
+    # order_candidates / order_metric without an order
+    if model == "arima" and any(
+            k in (out or {}) for k in ("order", "order_candidates",
+                                       "order_metric")):
+        out = resolve_order_conf(out, batch, cv_conf)
+    return out
+
+
+def _refuse_unported_conf(model: str, model_conf, pool: tuple) -> None:
+    """Options of a ported family that the port does not run yet raise here,
+    before any data is read: arima's ``method: mle``, plain or as the
+    arima member of a pool."""
+    if model == "arima":
+        confs = [model_conf]
+    elif "arima" in pool:
+        confs = [((model_conf or {}).get("configs") or {}).get("arima")]
+    else:
+        confs = []
+    if any((c or {}).get("method") == "mle" for c in confs):
+        raise NotImplementedError(_MLE_NOT_PORTED)
 
 
 def _resolve_season_conf(
@@ -298,6 +325,7 @@ class TrainingPipeline:
             raise _not_ported("tuning.enabled (engine/hyper.py)", "P8")
         pool = _pool_families(model, model_conf)
         require_models(pool or (model,))
+        _refuse_unported_conf(model, model_conf, pool)
         if bucketed and pool:
             raise ValueError(
                 f"training.bucketed is not supported together with "
@@ -329,10 +357,15 @@ class TrainingPipeline:
             # config after tensorize: a named holiday calendar resolves over
             # the batch's actual date range (+ horizon)
             config = _config_from_conf(
-                model, _resolve_model_conf(model_conf, batch, horizon))
+                model, _resolve_model_conf(model, model_conf, batch, horizon,
+                                           cv_conf))
             if (model_conf or {}).get("season_length") == "auto":
                 self.logger.info("season_length: auto -> detected period %d",
                                  config.season_length)
+            if (model_conf or {}).get("order") == "auto":
+                self.logger.info(
+                    "arima order: auto -> selected (p, d, q) = (%d, %d, %d)",
+                    config.p, config.d, config.q)
             self.logger.info(
                 "fine-grained fit: %d series x %d days, model=%s on %s",
                 batch.n_series, batch.n_time, model, self.device,
@@ -499,7 +532,8 @@ class TrainingPipeline:
             configs = {}
             for name, c in (mc.get("configs") or {}).items():
                 configs[name] = _config_from_conf(
-                    name, _resolve_model_conf(c, batch, horizon))
+                    name, _resolve_model_conf(name, c, batch, horizon,
+                                              cv_conf))
                 if (c or {}).get("season_length") == "auto":
                     self.logger.info(
                         "%s season_length: auto -> detected period %d",
@@ -683,13 +717,14 @@ class TrainingPipeline:
         item-level ``BatchForecaster`` (key ``item``)."""
         _check_cadence(freq, model, model_conf)
         get_model(model)  # an unported family raises before any read
+        _refuse_unported_conf(model, model_conf, ())
         df = self.catalog.read_table(source_table)
 
         item_df = df.groupby(["date", "item"], as_index=False)["sales"].sum()
         batch = tensorize(item_df, key_cols=("item",), freq=freq,
                           device=self.device)
         config = _config_from_conf(
-            model, _resolve_model_conf(model_conf, batch, horizon))
+            model, _resolve_model_conf(model, model_conf, batch, horizon))
         params, result = fit_forecast(batch, model=model, config=config,
                                       horizon=horizon)
         item_fc = forecast_frame(batch, result)  # [ds, item, y, yhat, ...]

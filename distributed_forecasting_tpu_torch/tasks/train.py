@@ -8,16 +8,23 @@ device.  Conf::
       table: hackathon.sales.finegrain_forecasts
     training:
       model: prophet                # prophet | curve | prophet_ar |
-                                    #   holt_winters | croston | theta | auto
-                                    #   (per-series best-of) | blend
-                                    #   (per-series inverse-CV-error pool)
+                                    #   holt_winters | croston | theta |
+                                    #   arima | auto (per-series best-of) |
+                                    #   blend (per-series inverse-CV-error
+                                    #   pool); auto and blend default to
+                                    #   prophet, holt_winters, theta,
+                                    #   croston and arima
       model_conf: {...}             # fields of the model's config dataclass;
                                     # the curve model also takes a named
                                     # holiday calendar (holidays: US, or
                                     # {calendar: US, lower_window: 1,
                                     #  upper_window: 1, custom: {...}});
                                     # holt_winters takes season_length:
-                                    # auto (the detected period).  For auto
+                                    # auto (the detected period); arima
+                                    # takes order: auto (the CV winner of
+                                    # 22 orders, or order_candidates, by
+                                    # order_metric) or order: [p, d, q].
+                                    # For auto
                                     # and blend: {families: [...], metric:
                                     # smape, temperature: 1.0 (blend),
                                     # configs: {family: {...}}}
@@ -35,9 +42,9 @@ device.  Conf::
                                     # with regressors or calibrate_intervals)
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the arima and arnet families (also in a pool: ``model: auto`` with
-the default families raises, for arima), ``tuning.enabled``, ``bucketed``,
-``regressors``, ``cv_artifact``.
+item before any data is read: the arnet family (also in a pool), arima's
+``method: mle``, ``tuning.enabled``, ``bucketed``, ``regressors``,
+``cv_artifact``.
 """
 
 from __future__ import annotations

@@ -332,13 +332,14 @@ def test_unported_family_raises_before_any_cv(batches, monkeypatch):
                         lambda *a, **k: calls.append(1))
     for fn in (tselect.select_model, tselect.fit_forecast_auto,
                tblend.fit_forecast_blend):
-        # the default families hold arima, the one of them not ported
+        # arnet is the reference family still unported: beside the default
+        # families, it alone is named
         with pytest.raises(NotImplementedError,
-                           match=r"'arima'.*ROADMAP Queue 1: P8") as err:
-            fn(tb)
-        assert "theta" not in str(err.value)
-        with pytest.raises(NotImplementedError, match="'arima'"):
-            fn(tb, models=("croston", "arima"))
+                           match=r"'arnet'.*ROADMAP Queue 1: P8") as err:
+            fn(tb, models=(*tselect.DEFAULT_FAMILIES, "arnet"))
+        assert "arima" not in str(err.value)
+        with pytest.raises(NotImplementedError, match="'arnet'"):
+            fn(tb, models=("croston", "arnet"))
     with pytest.raises(KeyError, match="unknown model"):
         tselect.select_model(tb, models=("croston", "nope"))
     assert calls == []

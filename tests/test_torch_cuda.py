@@ -410,3 +410,123 @@ def test_season_detection_on_the_card_equals_the_cpu(dev):
     want = season.acf_scores_impl(b.y.cpu(), b.mask.cpu(), 133)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
     assert season.detect_season_length(b) == 7
+
+
+# -- the arima family's kernels (csrc/arima_kalman.cu) ------------------------
+#
+# Both kernels repeat their twins' float32 operations in order, with no
+# contraction (the structured products of models/arima, IEEE division, logf):
+# held to the twins bit for bit.
+
+def _arima_inputs(dev, cfg, S=6, T=300, seed=3, leading=25):
+    from distributed_forecasting_tpu_torch.models import arima
+
+    y, mask = _workload(S, T, dev, seed=seed)
+    mask[0, :leading] = 0.0  # a leading masked stretch: y_first
+    mask[1, -20:] = 0.0      # a trailing one: the level carried forward
+    y = y * mask
+    g = torch.Generator().manual_seed(seed)
+    ar, ma, p, q = arima._lag_sets(cfg)
+    phi = (0.8 * torch.rand(S, p, generator=g) - 0.4) / max(len(ar), 1)
+    theta = (0.8 * torch.rand(S, q, generator=g) - 0.4) / max(len(ma), 1)
+    zc, zmask, mean = arima._centered(y, mask, cfg.d)
+    return (zc.contiguous(), zmask.contiguous(), y, mask, phi.to(dev),
+            theta.to(dev), mean.contiguous(), arima._effective_r(cfg), cfg.d)
+
+
+ARIMA_CASES = {
+    "211": dict(p=2, d=1, q=1),
+    "d0": dict(p=1, d=0, q=2),
+    "seasonal_r8": dict(p=1, d=1, q=1, P=1, Q=1, m=7),
+    "warp_r13": dict(p=1, d=1, q=1, P=1, m=13),
+}
+
+
+@pytest.mark.parametrize("case", list(ARIMA_CASES))
+def test_arima_filter_kernel_equals_twin_bitwise(dev, case):
+    from distributed_forecasting_tpu_torch.models import arima
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    args = _arima_inputs(dev, arima.ArimaConfig(**ARIMA_CASES[case]))
+    before = kalman.arima_filter.launches
+    got = kalman.arima_filter(*args)
+    want = kalman.arima_filter_reference(*args)
+    torch.cuda.synchronize()
+    assert kalman.arima_filter.launches == before + 1
+    for name, g, w in zip(kalman.FilterOutputs._fields, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and torch.equal(g, w), name
+
+
+def test_arima_filter_kernel_equals_twin_on_cv_train_masks(dev):
+    from distributed_forecasting_tpu_torch.models import arima
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    y, train = _cv_rows(dev)
+    zc, zmask, mean = arima._centered(y, train, 1)
+    S = y.shape[0]
+    phi = torch.full((S, 2), 0.2, device=dev)
+    theta = torch.full((S, 1), -0.3, device=dev)
+    args = (zc.contiguous(), zmask.contiguous(), y, train, phi, theta,
+            mean.contiguous(), 2, 1)
+    for g, w in zip(kalman.arima_filter(*args),
+                    kalman.arima_filter_reference(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["211", "seasonal_r8", "warp_r13"])
+def test_arima_predict_kernel_equals_twin_bitwise(dev, case):
+    from distributed_forecasting_tpu_torch.models import arima
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    cfg = arima.ArimaConfig(**ARIMA_CASES[case])
+    args = _arima_inputs(dev, cfg)
+    out = kalman.arima_filter_reference(*args)
+    sigma2 = out.ssq / torch.clamp_min(out.n, 1.0)
+    pargs = (args[4], args[5], out.a_T, out.P_T, sigma2, args[7])
+    for H in (1, 91, 400):
+        before = kalman.arima_predict.launches
+        got = kalman.arima_predict(*pargs, H)
+        want = kalman.arima_predict_reference(*pargs, H)
+        torch.cuda.synchronize()
+        assert kalman.arima_predict.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_arima_kernels_refuse_an_r_past_their_limit(dev):
+    from distributed_forecasting_tpu_torch.models import arima
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    cfg = arima.ArimaConfig(p=1, d=1, q=1, P=1, m=70)
+    args = _arima_inputs(dev, cfg, S=2, T=200)
+    assert args[7] == 70
+    with pytest.raises(ValueError, match="limit of 64"):
+        kalman.arima_filter(*args)
+    with pytest.raises(ValueError, match="limit of 64"):
+        kalman.arima_predict(args[4], args[5],
+                             torch.zeros(2, 70, device=dev),
+                             torch.zeros(2, 70, 70, device=dev),
+                             torch.ones(2, device=dev), 70, 10)
+
+
+def test_arima_fit_on_the_card_equals_the_cpu(dev):
+    """fit_forecast launches both kernels once; the HR estimate's solves
+    (cuSOLVER on the card, the pivoted LU twin on the CPU) move the
+    coefficients by float32 rounding: within 1e-4 of each output's scale."""
+    from distributed_forecasting_tpu_torch.engine import fit
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    b = _pool_batch(dev)
+    before = (kalman.arima_filter.launches, kalman.arima_predict.launches)
+    params, res = fit.fit_forecast(b, "arima", horizon=30)
+    assert (kalman.arima_filter.launches - before[0],
+            kalman.arima_predict.launches - before[1]) == (1, 1)
+    cpu = dataclasses.replace(b, y=b.y.cpu(), mask=b.mask.cpu(),
+                              day=b.day.cpu())
+    _, want = fit.fit_forecast(cpu, "arima", horizon=30)
+    for name in ("yhat", "lo", "hi"):
+        w = getattr(want, name)
+        torch.testing.assert_close(getattr(res, name).cpu(), w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))

@@ -117,9 +117,12 @@ def test_multiplicative_fit_matches_reference_and_kernel_route_raises():
 
 
 def test_pscan_and_unknown_filters_raise():
+    """filter='pscan' is additive only (the multiplicative update is not
+    affine in the state), as in the reference."""
     y, mask, day = (torch.from_numpy(a) for a in _workload(S=2, T=40))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thw.fit(y, mask, day, thw.HoltWintersConfig(filter="pscan"))
+    with pytest.raises(ValueError, match="additive"):
+        thw.fit(y, mask, day, thw.HoltWintersConfig(
+            filter="pscan", seasonality_mode="multiplicative"))
     with pytest.raises(ValueError, match="unknown filter"):
         thw.fit(y, mask, day, thw.HoltWintersConfig(filter="kernel"))
 

@@ -137,11 +137,11 @@ def test_cadence_defaults_match_reference(freq, period, expect):
     jb = jdata.tensorize(df, freq=freq)
     tb = tdata.tensorize(df, freq=freq, device="cpu")
     want = jtraining._resolve_season_conf(conf, jb)
-    got = ttraining._resolve_model_conf(conf, tb, 30)
+    got = ttraining._resolve_model_conf("holt_winters", conf, tb, 30)
     assert got == want == {"season_length": expect, "n_alpha": 3}
     # other values pass through untouched
-    assert ttraining._resolve_model_conf({"season_length": 12}, tb, 30) == {
-        "season_length": 12}
+    assert ttraining._resolve_model_conf(
+        "holt_winters", {"season_length": 12}, tb, 30) == {"season_length": 12}
 
 
 def test_short_batch_takes_the_default():

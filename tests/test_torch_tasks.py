@@ -357,23 +357,36 @@ def ingested(tmp_path_factory):
     return root
 
 
+# arnet is the family still unported; arima's method: mle is its option
+# still unported.  Every case raises before the task reads its input.
+MLE = "P8, ArimaConfig.method='mle'"
+
+
 @pytest.mark.parametrize("training, item", [
-    ({"path": "allocated", "model": "arima"}, "P8"),
-    ({"model": "auto"}, "P8"),
-    ({"model": "blend", "calibrate_intervals": True}, "P8"),
-    ({"model": "arima"}, "P8"),
+    ({"path": "allocated", "model": "arnet"}, "P8"),
+    ({"model": "auto", "model_conf": {"families": ["holt_winters",
+                                                   "arnet"]}}, "P8"),
+    ({"model": "blend", "calibrate_intervals": True,
+      "model_conf": {"families": ["croston", "arnet"]}}, "P8"),
+    ({"model": "arima", "model_conf": {"method": "mle"}}, MLE),
     ({"model": "blend", "model_conf": {"families": ["croston", "theta",
-                                                     "arima"]}}, "P8"),
+                                                     "arnet"]}}, "P8"),
     ({"tuning": {"enabled": True}}, "P8"),
     ({"bucketed": True}, "Slice 4"),
     ({"regressors": {"table": "hackathon.sales.promo", "columns": ["p"]}},
      "Slice 4"),
     ({"cv_artifact": True}, "Slice 4"),
     ({"model": "auto", "model_conf": {
-        "families": ["holt_winters", "arima"],
+        "families": ["holt_winters", "arnet"],
         "configs": {"holt_winters": {"season_length": "auto"}}}}, "P8"),
+    ({"model": "arnet"}, "P8"),
+    ({"path": "allocated", "model": "arima",
+      "model_conf": {"method": "mle"}}, MLE),
+    ({"model": "auto", "model_conf": {"configs": {"arima": {
+        "method": "mle"}}}}, MLE),
 ], ids=["allocated", "auto", "blend", "arima", "croston", "tuning",
-        "bucketed", "regressors", "cv_artifact", "season_auto"])
+        "bucketed", "regressors", "cv_artifact", "season_auto", "arnet",
+        "allocated_mle", "auto_mle"])
 def test_unported_training_options_raise(ingested, training, item):
     task = ttasks.TrainTask(init_conf=_train_conf(ingested, **training),
                             device="cpu")
@@ -761,9 +774,10 @@ def test_promote_refuses_a_nan_metric_and_bad_confs(blend_runs, tmp_path):
 
 def test_auto_with_default_families_raises_before_any_fit(tmp_path,
                                                           monkeypatch):
-    """The default pool holds arima, the one family of it not ported: the
-    train task refuses it, naming arima alone, before reading its input
-    (the table here does not exist) or running any CV pass."""
+    """The default pool runs through the port since arima came in; arnet,
+    the one reference family still unported, added to it is refused by the
+    train task, naming arnet alone, before the task reads its input (the
+    table here does not exist) or runs any CV pass."""
     from distributed_forecasting_tpu_torch.engine import select as tselect
 
     calls = []
@@ -771,17 +785,61 @@ def test_auto_with_default_families_raises_before_any_fit(tmp_path,
                         lambda *a, **k: calls.append(1))
     conf = {"env": {"root": str(tmp_path)},
             "input": {"table": "no.such.table"},
-            "training": {"model": "auto"}}
+            "training": {"model": "auto", "model_conf": {
+                "families": [*tselect.DEFAULT_FAMILIES, "arnet"]}}}
     with pytest.raises(NotImplementedError,
-                       match=r"'arima' is not ported yet \(ROADMAP Queue 1: "
+                       match=r"'arnet' is not ported yet \(ROADMAP Queue 1: "
                              r"P8\)") as err:
         ttasks.TrainTask(init_conf=conf, device="cpu").launch()
-    assert "theta" not in str(err.value)
+    assert "arima" not in str(err.value)
     conf["training"] = {"model": "blend", "model_conf": {
-        "families": ["prophet", "arima"]}}
-    with pytest.raises(NotImplementedError, match="'arima'"):
+        "families": ["prophet", "arnet"]}}
+    with pytest.raises(NotImplementedError, match="'arnet'"):
         ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    # the default pool itself passes the checks and fails only at the read
+    conf["training"] = {"model": "auto"}
+    with pytest.raises(Exception) as err:
+        ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    assert not isinstance(err.value, NotImplementedError)
     assert calls == []
+
+
+@pytest.mark.parametrize("model", ["auto", "blend"])
+def test_default_pool_trains_on_the_port(ingested, model):
+    """No ``families`` key: the pool is the reference's five default
+    families, arima among them, and the train task scores and fits every
+    one of them on the CPU, then serves the composite artifact."""
+    from distributed_forecasting_tpu_torch.engine.select import (
+        DEFAULT_FAMILIES,
+    )
+    from distributed_forecasting_tpu_torch.serving.loader import (
+        load_forecaster,
+    )
+
+    conf = _train_conf(ingested, model=model, experiment=f"default_{model}",
+                       model_conf={"configs": {"prophet": {
+                           "yearly_order": 0}}})
+    conf["output"]["table"] = f"hackathon.sales.default_{model}"
+    res = ttasks.TrainTask(init_conf=conf, device="cpu").launch()
+    assert (res["n_series"], res["n_failed"]) == (2, 0)
+    _, tracker, _ = _handles(ingested)
+    run = tracker.get_run(res["experiment_id"], res["run_id"])
+    assert run.params()["families"] == list(DEFAULT_FAMILIES)
+    table = pd.read_parquet(os.path.join(run._dir, "artifacts",
+                                         "series_metrics.parquet"))
+    for name in DEFAULT_FAMILIES:
+        assert np.isfinite(table[f"smape_{name}"]).all(), name
+    if model == "auto":
+        assert set(res["chosen_counts"]) <= set(DEFAULT_FAMILIES)
+    else:
+        assert set(res["mean_weights"]) == set(DEFAULT_FAMILIES)
+        np.testing.assert_allclose(sum(res["mean_weights"].values()), 1.0,
+                                   rtol=1e-6)
+    fc = load_forecaster(os.path.join(run._dir, "artifacts", "forecaster"),
+                         device="cpu")
+    out = fc.predict(pd.DataFrame({"store": [1, 1], "item": [2, 1]}),
+                     horizon=30)
+    assert len(out) == 60 and np.isfinite(out["yhat"]).all()
 
 
 def test_pooled_cadence_and_bucketed_refusals(ingested):
