@@ -38,7 +38,14 @@ its own size:
     ``arima_predict`` kernel — CV, artifact and predict; ``order: auto``
     over the 22 orders of its ladder; and ``model: auto`` with no
     ``families`` key (prophet, holt_winters, theta, croston, arima) through
-    the runner: real-data-e2e's etl, then train, deploy and inference.
+    the runner: real-data-e2e's etl, then train, deploy and inference;
+  * the curve model's remaining entry points and the native data plane:
+    the CSV parse and tensorize on the C++ library (``native/``, loaded or
+    built into ``build/torch_kernels/``), span buckets on examples/06's
+    ragged catalog (``fit_forecast_bucketed``, ``training.bucketed``,
+    ``BucketedForecaster``), regressors (``training.regressors``,
+    ``inference.regressors``), the CV artifact (``training.cv_artifact``)
+    and the chunked fit of 20,480 series.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -165,8 +172,34 @@ is not 0:
               launched in every train task, all five families scored per
               series, the registered artifact predicting the inference table
               and the train run's forecast; per-task medians
+ 11. slice 9  the native data plane on the committed dataset: the CSV
+              parse native and pandas (equal frames) and tensorize on both
+              planes (bitwise equal on the card), each timed, the resolved
+              backend native.  Span buckets on examples/06's catalog (10 x
+              50 x 1,826 days, items >= 10 from day 1,570): the bucketed
+              Holt-Winters fit with the counters set to 0 around it (one
+              launch of each kernel a bucket), every hw_score / hw_filter
+              call held to its twin as phase 3 holds them, the curve
+              model's bucketed fit, 20 series of both buckets against the
+              CPU, the train task with ``training.bucketed`` through deploy
+              and inference (the registered artifact is buckets.json and
+              reproduces the inference table), per-bucket fit times and
+              predict latency at 1 / 17 / 500 series.  Regressors on the
+              committed dataset (examples/07's promo calendar, shared, and a
+              seeded per-series price): fit_forecast and a CV pass with
+              xreg, 20 series against the CPU within their conditioning
+              bound, the train task with ``training.regressors`` (a catalog
+              table), inference with ``inference.regressors`` and
+              ``inference.quantiles`` reproduced from the registry, predict
+              latency.  The CV artifact: cv_forecasts.parquet's rows equal
+              the eval masks' sum, its 20-series rows the CPU's frame.  The
+              chunked fit: 20,480 x 1,826 in chunks of 4,096 under both
+              dispatches against the unchunked fit on 8,192 series (2e-4 of
+              each row's scale), wall time and peak memory of each.  Files
+              under ``native/`` are unchanged at the end
 
-The line before the last lists the kernels (launches, error, times, bound);
+The line before the last lists the kernels (launches, error, times, bound;
+launches and error include phase 11's bucketed calls);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -174,8 +207,10 @@ without one it exits 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -622,13 +657,17 @@ def curve_config(batch, port):
     return port["pg"].CurveModelConfig(**conf)
 
 
-def curve_systems(y, mask, day, cfg, port):
+def curve_systems(y, mask, day, cfg, port, xreg=None):
     """The penalized normal equations ``fit`` solves for these rows, built
-    by the same functions: (X, A, b)."""
+    by the same functions: (X, A, b); with ``xreg``, its standardized
+    columns join the design as they do in ``fit``."""
     pg, solve = port["pg"], port["solve"]
     zn, _, _ = pg._fit_target(y, mask, cfg)
     X, layout = pg._design(day, day[0].to(torch.float32),
                            day[-1].to(torch.float32), cfg)
+    if xreg is not None:
+        X, layout = pg.with_regressors(
+            X, layout, pg._standardize_xreg(xreg, mask, cfg)[0])
     lam = pg._prior_precision(layout, cfg, device=y.device)
     A, b = solve.normal_equations(X, zn, mask, lam)
     return X, A, b
@@ -1029,6 +1068,8 @@ def check_workflow(run, port, root: str, spec: dict, device="cuda",
     train_run = tracker.get_run(summary["experiment_id"], summary["run_id"])
     metrics = train_run.metrics()
     assert {"val_coverage", "val_coverage_calibrated"} <= set(metrics)
+    backend = train_run.params()["tensorize_backend"]
+    assert backend == "native", backend
     table = pd.read_parquet(train_run.artifact_path("series_metrics.parquet"))
     scales = table["interval_scale"].to_numpy()
     assert scales.shape == (S,) and np.isfinite(scales).all()
@@ -1063,6 +1104,7 @@ def check_workflow(run, port, root: str, spec: dict, device="cuda",
         forecast_rows=len(forecasts), inference_rows=len(served),
         fit_seconds=metrics["fit_seconds"],
         phases={k: v for k, v in metrics.items() if k.startswith("phase_")},
+        tensorize_backend=backend,
         val_coverage=metrics["val_coverage"],
         val_coverage_calibrated=metrics["val_coverage_calibrated"],
         interval_scale_mean=metrics["interval_scale_mean"],
@@ -1203,6 +1245,30 @@ CROSTON_CHAIN_CYCLES = 16
 CLOCK_HZ = 1.98e9
 
 
+class KernelRecorder:
+    """Records every hw_score and hw_filter call that the Holt-Winters
+    module ``hw`` makes, inputs and output: ``calls[kernel]`` is a list of
+    ``(args, out)``."""
+
+    def __init__(self, hw):
+        self.hw = hw
+        self.calls = {"hw_score": [], "hw_filter": []}
+
+    def __enter__(self):
+        self._orig = {k: getattr(self.hw, k) for k in self.calls}
+        for name, fn in self._orig.items():
+            def call(*args, _fn=fn, _name=name):
+                out = _fn(*args)
+                self.calls[_name].append((args, out))
+                return out
+            setattr(self.hw, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.hw, name, fn)
+
+
 class PoolSpy:
     """For each train task of a pooled workflow: sets the launch counters
     to 0 as the training pipeline starts and reads them as it returns, and
@@ -1212,9 +1278,10 @@ class PoolSpy:
     that module makes, inputs and output, for :func:`pooled_kernel_cases`."""
 
     def __init__(self, training, counters, hw=None):
-        self.training, self.counters, self.hw = training, counters, hw
+        self.training, self.counters = training, counters
         self.launches, self.devices, self.configs = [], {}, {}
-        self.calls = {"hw_score": [], "hw_filter": []}
+        self.recorder = None if hw is None else KernelRecorder(hw)
+        self.calls = {} if hw is None else self.recorder.calls
 
     def __enter__(self):
         tr, spy = self.training, self
@@ -1236,26 +1303,17 @@ class PoolSpy:
             spy.configs = kw.get("configs") or {}
             return params, pool, result
 
-        def recorder(name, fn):
-            def call(*args):
-                out = fn(*args)
-                spy.calls[name].append((args, out))
-                return out
-            return call
-
         tr.TrainingPipeline.fine_grained = fine_spy
         tr.fit_forecast_blend = blend_spy
-        if self.hw is not None:
-            self._hw = (self.hw.hw_score, self.hw.hw_filter)
-            self.hw.hw_score = recorder("hw_score", self._hw[0])
-            self.hw.hw_filter = recorder("hw_filter", self._hw[1])
+        if self.recorder is not None:
+            self.recorder.__enter__()
         return self
 
     def __exit__(self, *exc):
         tr = self.training
         tr.TrainingPipeline.fine_grained, tr.fit_forecast_blend = self._orig
-        if self.hw is not None:
-            self.hw.hw_score, self.hw.hw_filter = self._hw
+        if self.recorder is not None:
+            self.recorder.__exit__(*exc)
 
 
 def pooled_run(port, root: str, spec: dict, counters,
@@ -2594,6 +2652,481 @@ def arima_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 11: span buckets, regressors, the chunked fit, the native plane ---
+
+# examples/06's ragged catalog: 10 stores x 50 items, items >= 10 exist
+# from this day on
+RAGGED = (10, 50)
+RAGGED_LAUNCH = 1570
+# the 50k-series regime cut to 20,480 series (40 stores x 512 items) in
+# chunks of 4,096, compared with the unchunked fit on 8,192 of them
+CHUNKED = (40, 512)
+CHUNK = 4096
+CHUNK_COMPARED = 8192
+# the curve tolerance of the parity tests (tests/test_torch_engine.py):
+# 2e-4 of each row's scale
+CURVE_RTOL = 2e-4
+FORECASTS = "hackathon.sales.finegrain_forecasts"
+SERVED = "hackathon.sales.test_finegrain_forecasts"
+COVARIATES = "hackathon.sales.covariates"
+MODEL = "ForecastingBatchModel"
+DEVICE = "cuda"  # where phase 11 runs and what its checks expect
+
+
+def native_snapshot() -> dict:
+    """sha256 of every file under native/: the port never writes there."""
+    d = os.path.join(ROOT, "native")
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def host_ms(fn, reps: int = 3) -> tuple:
+    """(median host wall ms of ``reps`` calls of ``fn``, the last result);
+    ``fn`` ends in a host pull or synchronizes itself."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def native_plane(port) -> dict:
+    """The committed dataset's CSV through the native parser and through
+    pandas (equal frames; the date column's unit is each parser's own), and
+    tensorize on the native and the pandas planes (bitwise equal on the
+    card), each timed."""
+    data, dataset, native = port["data"], port["dataset"], port["native"]
+    assert data.resolved_backend() == "native", "the native library is off"
+    csv_native_ms, df = host_ms(lambda: data.load_sales_csv(DATA))
+    csv_pandas_ms, df_pd = host_ms(
+        lambda: dataset._coerce_sales_frame(pd.read_csv(DATA)))
+    pd.testing.assert_frame_equal(df, df_pd, check_dtype=False)
+    tz_native_ms, nat = host_ms(lambda: data.tensorize(df, backend="native"))
+    tz_pandas_ms, ref = host_ms(lambda: data.tensorize(df, backend="pandas"))
+    for k in ("y", "mask", "day"):
+        assert getattr(nat, k).device.type == DEVICE, k
+        assert torch.equal(getattr(nat, k), getattr(ref, k)), k
+    assert np.array_equal(nat.keys, ref.keys) and nat.keys.dtype == ref.keys.dtype
+    assert (nat.start_date, nat.freq) == (ref.start_date, ref.freq)
+    out = dict(rows=len(df), shape=[nat.n_series, nat.n_time],
+               library=native._lib()._name, frames_equal=True,
+               tensorize_bitwise=True, reps=3, statistic="median",
+               csv_ms={"native": csv_native_ms, "pandas": csv_pandas_ms},
+               tensorize_ms={"native": tz_native_ms, "pandas": tz_pandas_ms})
+    emit("native_plane", **out)
+    return out
+
+
+def slice_tasks(port, root: str, training: dict, inference: dict) -> dict:
+    """train -> deploy -> inference of the port's task layer on the card in
+    ``root`` (its catalog already holds the input tables), each timed."""
+    types = port["tasks"].TASK_TYPES
+    env = {"env": {"root": root}}
+    confs = {
+        "train": {"input": {"table": "hackathon.sales.raw"},
+                  "output": {"table": FORECASTS},
+                  "training": {"model": "prophet", "horizon": 90, "cv": CV,
+                               "model_conf": {"seasonality_mode":
+                                              "multiplicative",
+                                              "holidays": "US"},
+                               **training}},
+        "deploy": {"deploy": {"experiment": "finegrain_forecasting",
+                              "model_name": MODEL}},
+        "inference": {"input": {"table": "hackathon.sales.raw"},
+                      "output": {"table": SERVED},
+                      "inference": {"model_name": MODEL, "horizon": 90,
+                                    "promote_to": "Staging", **inference}},
+    }
+    out, seconds = {}, {}
+    for name, conf in confs.items():
+        t0 = time.perf_counter()
+        out[name] = types[name](init_conf={**env, **conf},
+                                device=DEVICE).launch()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    catalog, tracker, registry = _store(port, root)
+    run = tracker.get_run(out["train"]["experiment_id"], out["train"]["run_id"])
+    assert out["train"]["n_failed"] == 0, out["train"]
+    params = run.params()
+    assert params["tensorize_backend"] == "native", params
+    registered, version = port["serving"].resolve_from_registry(
+        registry, MODEL, device=DEVICE)
+    assert version.stage == "Staging", version
+    served = catalog.read_table(SERVED)
+    return dict(results=out, seconds=seconds, run=run, params=params,
+                registered=registered, version=version, served=served)
+
+
+def _rel_rows(a, b) -> float:
+    """Largest |a - b| over each row's scale (the max |b| of the row)."""
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+
+def bucketed_phase(port, counters, card_line: str) -> dict:
+    """examples/06's ragged catalog at full width: fit_forecast_bucketed for
+    Holt-Winters (every hw_score / hw_filter call held to its twin, one
+    launch of each a bucket) and the curve model; 20 series of both
+    buckets on the card against the CPU; the train task with
+    ``training.bucketed`` through deploy and inference; per-bucket fit
+    times and BucketedForecaster predict latency."""
+    data, engine, hw = port["data"], port["engine"], port["hw"]
+    df = data.synthetic_store_item_sales(n_stores=RAGGED[0],
+                                         n_items=RAGGED[1], n_days=1826,
+                                         seed=12)
+    dates = pd.to_datetime(df["date"])
+    df = df[(df["item"] < 10) | (dates >= dates.min() + pd.Timedelta(
+        days=RAGGED_LAUNCH))].reset_index(drop=True)
+    batch = data.tensorize(df)
+    cfgs = {"holt_winters": hw.HoltWintersConfig(filter="auto"),
+            "prophet": curve_config(batch, port)}
+    for fn in counters.values():  # counters to 0 just before the HW fit
+        fn.launches = 0
+    with KernelRecorder(hw) as rec:
+        buckets, res_hw = engine.fit_forecast_bucketed(
+            batch, "holt_winters", config=cfgs["holt_winters"], horizon=90)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}  # ... and after
+    shapes = [[sub.n_series, sub.n_time] for _, sub, _ in buckets]
+    emit("launches", path="bucketed_holt_winters", **launches,
+         expected=f"1 of each per bucket: {shapes}")
+    assert launches == {"hw_score": len(buckets), "hw_filter": len(buckets)}
+    assert len(buckets) == 2, shapes
+    cases = {"hw_score": {}, "hw_filter": {}}
+    for kernel, case in (("hw_score", score_case), ("hw_filter", filter_case)):
+        for i, (args, got) in enumerate(rec.calls[kernel]):
+            name = f"bucket{i}_{args[0].shape[0]}x{args[0].shape[1]}"
+            cases[kernel][name] = case(port, name, args, got)
+    _, res_pg = engine.fit_forecast_bucketed(batch, "prophet",
+                                             config=cfgs["prophet"],
+                                             horizon=90)
+    S, T_all = batch.n_series, batch.n_time + 90
+    for name, res in (("holt_winters", res_hw), ("prophet", res_pg)):
+        assert res.yhat.shape == (S, T_all) and res.yhat.device.type == DEVICE
+        assert bool(res.ok.all()), name
+        for k in ("yhat", "lo", "hi"):
+            assert bool(torch.isfinite(getattr(res, k)).all()), (name, k)
+        assert bool((res.lo <= res.yhat).all() & (res.yhat <= res.hi).all())
+        for idx, sub, _ in buckets:  # the rows before a bucket's window
+            lead = batch.n_time - sub.n_time
+            rows = torch.as_tensor(idx, device=res.yhat.device)
+            M = res.yhat[rows]
+            assert torch.equal(M[:, :lead], M[:, lead:lead + 1].expand(
+                -1, lead)), name
+
+    # 20 series, 10 of each bucket, on the card and on the CPU
+    pick = np.concatenate([idx[:10] for idx, _, _ in buckets])
+    sub = batch.take_series(pick)
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    vs_cpu = {}
+    for model, cfg in cfgs.items():
+        bk_gpu, r_gpu = engine.fit_forecast_bucketed(sub, model, config=cfg,
+                                                     horizon=90)
+        bk_cpu, r_cpu = engine.fit_forecast_bucketed(cpu, model, config=cfg,
+                                                     horizon=90)
+        assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
+        agree = torch.ones(len(pick), dtype=torch.bool)
+        if model == "prophet":
+            tol, kappa = max(cond_tolerance(curve_systems(
+                b.y, b.mask, b.day, cfg, port)[1]) for _, b, _ in bk_gpu)
+        else:
+            # the kernel scores within rtol 1e-5 of the twin (phase 3): a
+            # near tie may pick another winner, so the rows are held where
+            # both devices picked the same one
+            tol, kappa = 1e-5, None
+            for (idx, _, p_g), (_, _, p_c) in zip(bk_gpu, bk_cpu):
+                same = torch.ones(len(idx), dtype=torch.bool)
+                for f in ("alpha", "beta", "gamma", "phi"):
+                    same &= getattr(p_g, f).cpu() == getattr(p_c, f)
+                agree[torch.as_tensor(idx)] = same
+        worst = max(_rel_rows(getattr(r_gpu, k).cpu()[agree],
+                              getattr(r_cpu, k)[agree])
+                    for k in ("yhat", "lo", "hi"))
+        assert worst <= tol, (model, worst, tol)
+        vs_cpu[model] = {"max_rel_diff": worst, "tol_rel": tol,
+                         "cond_max": kappa, "rows_held": int(agree.sum())}
+    emit("bucketed_gpu_vs_cpu_20_series", **vs_cpu)
+
+    # the train task with training.bucketed, then deploy and inference
+    with tempfile.TemporaryDirectory() as root:
+        port["data"].DatasetCatalog(os.path.join(root, "warehouse")).save_table(
+            "hackathon.sales.raw", df)
+        t = slice_tasks(port, root, {"bucketed": True}, {})
+        assert int(t["params"]["n_buckets"]) == len(buckets), t["params"]
+        art = t["version"].artifact_dir
+        art = (os.path.join(art, "forecaster")
+               if os.path.isdir(os.path.join(art, "forecaster")) else art)
+        assert os.path.exists(os.path.join(art, "buckets.json")), art
+        fc = t["registered"]
+        assert type(fc).__name__ == "BucketedForecaster"
+        served = t["served"]
+        keys = served[["store", "item"]].drop_duplicates().reset_index(
+            drop=True)
+        got = fc.predict(keys, horizon=90)
+        pd.testing.assert_frame_equal(got, served[got.columns],
+                                      check_dtype=False)
+        rng = np.random.default_rng(3)
+        latency = {}
+        for k in (1, 17, 500):
+            req = _request(batch.keys[rng.permutation(S)[:k]])
+            latency[k], _ = host_ms(lambda: fc.predict(req, horizon=90),
+                                    reps=REPS)
+        workflow = dict(tasks_seconds=t["seconds"],
+                        n_buckets=int(t["params"]["n_buckets"]),
+                        fit_seconds=t["run"].metrics()["fit_seconds"],
+                        tensorize_backend=t["params"]["tensorize_backend"],
+                        inference_rows=len(served), artifact="buckets.json")
+    fit_ms = {model: {f"{sub.n_series}x{sub.n_time}": cuda_ms(
+        lambda sub=sub, model=model, cfg=cfg: engine.fit_forecast(
+            sub, model, config=cfg, horizon=90))
+        for _, sub, _ in buckets} for model, cfg in cfgs.items()}
+    whole_ms = {model: {
+        "bucketed": cuda_ms(lambda model=model, cfg=cfg:
+                            engine.fit_forecast_bucketed(
+                                batch, model, config=cfg, horizon=90)),
+        "full_grid": cuda_ms(lambda model=model, cfg=cfg:
+                             engine.fit_forecast(batch, model, config=cfg,
+                                                 horizon=90))}
+        for model, cfg in cfgs.items()}
+    out = dict(shape=[S, batch.n_time], buckets=shapes, launches=launches,
+               cases=cases, gpu_vs_cpu=vs_cpu, workflow=workflow,
+               fit_ms_per_bucket=fit_ms, fit_ms=whole_ms,
+               predict_ms=latency)
+    emit("bucketed", card=card_line, reps=REPS, statistic="median",
+         **{k: v for k, v in out.items() if k != "cases"})
+    return out
+
+
+def regressor_inputs(batch, horizon: int = 90, seed: int = 7):
+    """examples/07's promo calendar (a 2-day event every 13 days, known
+    into the future), shared, and a per-series price (a step path from a
+    seeded base), as one long table over history + horizon."""
+    rng = np.random.default_rng(seed)
+    S, T_all = batch.n_series, batch.n_time + horizon
+    dates = pd.date_range(batch.start_date, periods=T_all)
+    promo = (np.arange(T_all) % 13 < 2).astype(np.float64)
+    # a discount of 0-15% that steps on about 1% of the days
+    steps = np.cumsum(rng.random((S, T_all)) < 0.01, axis=1) % 4
+    price = np.round(rng.uniform(2.0, 8.0, (S, 1)) * (1.0 - 0.05 * steps), 2)
+    table = pd.DataFrame({
+        "date": np.tile(dates.values, S),
+        "store": np.repeat(batch.keys[:, 0], T_all),
+        "item": np.repeat(batch.keys[:, 1], T_all),
+        "promo": np.tile(promo, S),
+        "price": price.reshape(-1)})
+    return table, pd.DataFrame({"date": dates, "promo": promo})
+
+
+def regressor_phase(port, card_line: str) -> dict:
+    """The committed dataset with examples/07's promo calendar (shared) and
+    a per-series price: fit_forecast and a CV pass with xreg on the card,
+    20 series against the CPU, the train task with ``training.regressors``
+    (the covariates a catalog table), deploy, inference with
+    ``inference.regressors`` and ``inference.quantiles``, and predict
+    latency with per-series xreg."""
+    data, engine, pg = port["data"], port["engine"], port["pg"]
+    df = data.load_sales_csv(DATA)
+    batch = data.tensorize(df)
+    table, calendar = regressor_inputs(batch)
+    cols = ["promo", "price"]
+    xreg = data.tensorize_regressors(table, batch, cols, horizon=90,
+                                     per_series=True)
+    shared = data.tensorize_regressors(calendar, batch, ["promo"], horizon=90)
+    assert xreg.shape == (batch.n_series, batch.n_time + 90, 2)
+    assert shared.shape == (batch.n_time + 90, 1)
+    assert xreg.device.type == DEVICE
+    base = curve_config(batch, port)
+    cfg = dataclasses.replace(base, n_regressors=2, regressor_names=tuple(cols))
+    cfg1 = dataclasses.replace(base, n_regressors=1, regressor_names=("promo",))
+    params, res = engine.fit_forecast(batch, "prophet", config=cfg,
+                                      horizon=90, xreg=xreg)
+    _, res1 = engine.fit_forecast(batch, "prophet", config=cfg1, horizon=90,
+                                  xreg=shared)
+    metrics = engine.cross_validate(batch, "prophet", config=cfg,
+                                    cv=engine.CVConfig(**CV), xreg=xreg)
+    for r in (res, res1):
+        assert bool(r.ok.all()) and bool(torch.isfinite(r.yhat).all())
+    assert metrics["_n_cutoffs"] == 3
+    assert bool(torch.isfinite(metrics["mae"]).all())
+    assert params.reg_mu.shape == (batch.n_series, 2)
+    # the promo column is 0/1: the fit leaves it unstandardized
+    assert bool((params.reg_mu[:, 0] == 0).all())
+
+    sub = batch.take_series(range(20))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    x20 = xreg[:20]
+    _, r_gpu = engine.fit_forecast(sub, "prophet", config=cfg, horizon=90,
+                                   xreg=x20)
+    _, r_cpu = engine.fit_forecast(cpu, "prophet", config=cfg, horizon=90,
+                                   xreg=x20.cpu())
+    assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
+    tol, kappa = cond_tolerance(curve_systems(
+        sub.y, sub.mask, sub.day, cfg, port, xreg=x20[:, :sub.n_time])[1])
+    worst = max(_rel_rows(getattr(r_gpu, k).cpu(), getattr(r_cpu, k))
+                for k in ("yhat", "lo", "hi"))
+    assert worst <= tol, (worst, tol)
+    vs_cpu = {"max_rel_diff": worst, "tol_rel": tol, "cond_max": kappa}
+    emit("regressors_gpu_vs_cpu_20_series", **vs_cpu)
+
+    reg = {"table": COVARIATES, "columns": cols, "per_series": True}
+    quantiles = [0.1, 0.5, 0.9]
+    with tempfile.TemporaryDirectory() as root:
+        catalog = data.DatasetCatalog(os.path.join(root, "warehouse"))
+        catalog.save_table("hackathon.sales.raw", df)
+        catalog.save_table(COVARIATES, table)
+        t = slice_tasks(port, root, {"regressors": reg},
+                        {"regressors": reg, "quantiles": quantiles})
+        assert int(t["params"]["n_regressors"]) == 2, t["params"]
+        served, fc = t["served"], t["registered"]
+        qcols = [f"q{q:g}" for q in quantiles]
+        assert list(served.columns) == ["ds", "store", "item", *qcols]
+        assert np.isfinite(served[qcols].to_numpy()).all()
+        assert (served["q0.1"] <= served["q0.5"]).all()
+        assert (served["q0.5"] <= served["q0.9"]).all()
+        keys = served[["store", "item"]].drop_duplicates().reset_index(
+            drop=True)
+        x_all = data.regressors_for_grid(
+            catalog.read_table(COVARIATES), day0=fc.day0,
+            n_days=fc.day1 + 90 - fc.day0 + 1, regressor_cols=cols,
+            per_series=True, keys=fc.keys, key_names=fc.key_names)
+        assert torch.equal(x_all, xreg)
+        got = fc.predict_quantiles(keys, quantiles=quantiles, horizon=90,
+                                   xreg=x_all)
+        pd.testing.assert_frame_equal(got, served, check_dtype=False)
+        rng = np.random.default_rng(4)
+        latency = {}
+        for k in (1, 17, 500):
+            req = _request(batch.keys[rng.permutation(batch.n_series)[:k]])
+            latency[k], _ = host_ms(
+                lambda: fc.predict(req, horizon=90, xreg=x_all), reps=REPS)
+        workflow = dict(tasks_seconds=t["seconds"],
+                        fit_seconds=t["run"].metrics()["fit_seconds"],
+                        phases={k: v for k, v in t["run"].metrics().items()
+                                if k.startswith("phase_")},
+                        tensorize_backend=t["params"]["tensorize_backend"],
+                        inference_rows=len(served))
+    out = dict(shape=[batch.n_series, batch.n_time], xreg=list(xreg.shape),
+               val_mae=float(metrics["mae"].mean()), gpu_vs_cpu=vs_cpu,
+               workflow=workflow, predict_ms=latency)
+    emit("regressors", card=card_line, reps=REPS, statistic="median", **out)
+    return out
+
+
+def cv_artifact_phase(port) -> dict:
+    """The train task with ``training.cv_artifact`` on the committed
+    dataset: cv_forecasts.parquet holds one row per series, cutoff and
+    observed scored day (the eval masks' sum), and its rows of 20 series
+    equal cv_forecast_frame on the CPU (keys, dates, cutoffs and y exactly,
+    forecasts within the CV systems' conditioning bound)."""
+    data, cv = port["data"], port["cv"]
+    df = data.load_sales_csv(DATA)
+    batch = data.tensorize(df)
+    cfg = curve_config(batch, port)
+    with tempfile.TemporaryDirectory() as root:
+        data.DatasetCatalog(os.path.join(root, "warehouse")).save_table(
+            "hackathon.sales.raw", df)
+        t = slice_tasks(port, root, {"cv_artifact": True}, {})
+        frame = pd.read_parquet(t["run"].artifact_path("cv_forecasts.parquet"))
+        seconds = t["seconds"]
+    cvc = cv.CVConfig(**CV)
+    cuts = cv.cutoff_indices(batch.n_time, cvc)
+    eval_sum = int(cv.cv_windows(batch.mask, batch.day, cuts,
+                                 CV["horizon"])[1].sum())
+    assert len(frame) == eval_sum, (len(frame), eval_sum)
+    sub = batch.take_series(range(20))
+    cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
+                              day=sub.day.cpu())
+    want = cv.cv_forecast_frame(cpu, config=cfg, cv=cvc)
+    keys = set(map(tuple, sub.keys.tolist()))
+    got = frame[[k in keys for k in zip(frame["store"], frame["item"])]]
+    got = got.reset_index(drop=True)
+    exact = ["ds", "store", "item", "cutoff", "y"]
+    pd.testing.assert_frame_equal(got[exact], want[exact], check_dtype=False)
+    _, A, _ = curve_systems(*cv_inputs(sub, cv), sub.day, cfg, port)
+    tol, kappa = cond_tolerance(A)
+    worst = 0.0
+    for col in ("yhat", "yhat_lower", "yhat_upper"):
+        scale = want.groupby(["store", "item", "cutoff"])[col].transform(
+            lambda v: np.abs(v).max()).to_numpy()
+        rel = float((np.abs(got[col].to_numpy() - want[col].to_numpy())
+                     / scale).max())
+        assert rel <= tol, (col, rel, tol)
+        worst = max(worst, rel)
+    out = dict(rows=len(frame), eval_mask_sum=eval_sum,
+               cutoffs=len(cuts), tasks_seconds=seconds,
+               gpu_vs_cpu_20_series={"rows": len(got), "max_rel_diff": worst,
+                                     "tol_rel": tol, "cond_max": kappa})
+    emit("cv_artifact", **out)
+    return out
+
+
+def chunked_phase(port, card_line: str) -> dict:
+    """20,480 series x 1,826 days built as arrays from a seed; the curve
+    model's default configuration chunked by 4,096 (5 chunks) under both
+    dispatches, against the unchunked fit on 8,192 of the series (the
+    curve tolerance); wall time and peak device memory of each."""
+    data, engine = port["data"], port["engine"]
+    t0 = time.perf_counter()
+    batch = data.synthetic_series_batch(n_stores=CHUNKED[0],
+                                        n_items=CHUNKED[1], seed=3)
+    build_s = time.perf_counter() - t0
+    cfg = curve_config(batch, port)
+    runs, got = {}, {}
+    for dispatch in ("scan", "loop"):
+        out = []
+        ms, mib = peak_mib(lambda: out.append(engine.fit_forecast_chunked(
+            batch, "prophet", config=cfg, horizon=90, chunk_size=CHUNK,
+            dispatch=dispatch)))
+        got[dispatch] = out[0][1]
+        runs[dispatch] = {"ms_host": ms, "peak_mib": mib}
+    for k in ("yhat", "lo", "hi", "ok"):  # one host loop either way
+        assert torch.equal(getattr(got["scan"], k), getattr(got["loop"], k))
+    res = got["scan"]
+    assert res.yhat.shape == (batch.n_series, batch.n_time + 90)
+    assert bool(res.ok.all()) and bool(torch.isfinite(res.yhat).all())
+    del got
+    sub = batch.take_series(range(CHUNK_COMPARED))
+    out = []
+    ms, mib = peak_mib(lambda: out.append(engine.fit_forecast(
+        sub, "prophet", config=cfg, horizon=90)))
+    runs[f"unchunked_{CHUNK_COMPARED}"] = {"ms_host": ms, "peak_mib": mib}
+    whole = out[0][1]
+    assert torch.equal(res.ok[:CHUNK_COMPARED], whole.ok)
+    worst = max(_rel_rows(getattr(res, k)[:CHUNK_COMPARED],
+                          getattr(whole, k)) for k in ("yhat", "lo", "hi"))
+    assert worst <= CURVE_RTOL, worst
+    del out, whole
+    ms, mib = peak_mib(lambda: engine.fit_forecast(batch, "prophet",
+                                                   config=cfg, horizon=90))
+    runs[f"unchunked_{batch.n_series}"] = {"ms_host": ms, "peak_mib": mib}
+    out = dict(shape=[batch.n_series, batch.n_time], chunk_size=CHUNK,
+               chunks=-(-batch.n_series // CHUNK), build_seconds=build_s,
+               runs=runs, compared_series=CHUNK_COMPARED,
+               max_rel_diff_vs_unchunked=worst, tol_rel=CURVE_RTOL)
+    emit("chunked", card=card_line, **out)
+    return out
+
+
+def slice9_phase(port, counters, card_line: str) -> dict:
+    """Phase 11: the native data plane, span buckets, regressors, the
+    chunked fit and the CV artifact."""
+    t0 = time.perf_counter()
+    out = {"native": native_plane(port),
+           "bucketed": bucketed_phase(port, counters, card_line),
+           "regressors": regressor_phase(port, card_line),
+           "cv_artifact": cv_artifact_phase(port),
+           "chunked": chunked_phase(port, card_line)}
+    out["seconds"] = time.perf_counter() - t0
+    emit("phase11", seconds=out["seconds"])
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -2613,6 +3146,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     # the port comes from this checkout: without it, fail before any output
     from distributed_forecasting_tpu_torch import data, engine, serving
     from distributed_forecasting_tpu_torch.engine import cv
@@ -2632,7 +3166,9 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.tasks import reconcile as rec_task
     from distributed_forecasting_tpu_torch.utils import config
     from distributed_forecasting_tpu_torch.workflows import runner
+    from distributed_forecasting_tpu_torch.data import dataset, native
 
+    native_before = native_snapshot()
     card_line = card()
     name = torch.cuda.get_device_name(0)
     emit("device", name=name, count=torch.cuda.device_count(),
@@ -2645,7 +3181,7 @@ def main() -> int:
                 croston=croston, season=season, theta=theta,
                 monitoring=monitoring, tasks=tasks, reconcile=hierarchy,
                 reconcile_task=rec_task, arima=arima, kalman=kalman,
-                order=order)
+                order=order, dataset=dataset, native=native)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -2698,14 +3234,28 @@ def main() -> int:
     pooled = pooled_phase(port, counters, card_line)
     complete = complete_phase(port, counters, card_line)
     arima_out = arima_phase(port, card_line)
+    ragged = slice9_phase(port, counters, card_line)["bucketed"]
+    # nothing the smoke ran wrote into native/
+    unchanged = native_snapshot() == native_before
+    git = None  # a checkout with git: its own account of native/ too
+    if os.path.isdir(os.path.join(ROOT, ".git")) and shutil.which("git"):
+        st = subprocess.run(["git", "status", "--porcelain", "native/"],
+                            cwd=ROOT, capture_output=True, text=True)
+        if st.returncode == 0:
+            git = st.stdout
+            unchanged &= git == ""
+    emit("native_dir_unchanged", unchanged=unchanged, git_status=git)
+    assert unchanged, "the run changed files under native/"
     if DEFERRED:
         raise AssertionError("; ".join(DEFERRED))
 
     at = arima_out["times"]
     rows = {k: dict(launches=(launches[k] + pooled["launches"][k]
-                              + complete["launches"][k]),
+                              + complete["launches"][k]
+                              + ragged["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
-                        *cases[k].values(), *pooled["cases"][k].values())),
+                        *cases[k].values(), *pooled["cases"][k].values(),
+                        *ragged["cases"][k].values())),
                     ms=t[k]["ms"], plain_ms=t[f"{k}_twin_ms"],
                     bound_ms=t[k]["bound_ms"], bound_by=t[k]["bound_by"])
             for k in ("hw_score", "hw_filter")}
@@ -2716,6 +3266,7 @@ def main() -> int:
                                        arima_out["cases"][k].values()),
                        ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],
                        bound_ms=timed["bound_ms"], bound_by=timed["bound_by"])
+    emit("smoke", seconds=time.perf_counter() - t_start)
     # no single PyTorch call runs either filter, so no library time
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": origin,

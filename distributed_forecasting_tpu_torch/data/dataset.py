@@ -1,7 +1,9 @@
 """Dataset ingestion + synthetic data generation (port of the reference's
-``data/dataset.py``, pandas path).
+``data/dataset.py``).
 
-:func:`load_sales_csv` and :func:`load_sales_parquet` read the ``(date, store, item, sales)`` long format;
+:func:`load_sales_csv` and :func:`load_sales_parquet` read the ``(date,
+store, item, sales)`` long format, the CSV through the native C++ parser
+(``data/native.py``) where it is available;
 :func:`synthetic_store_item_sales` generates a Kaggle-store-item-demand-shaped
 table with known structure (piecewise-linear trend, weekly + yearly
 multiplicative seasonality, lognormal noise) from a numpy seed — the same
@@ -9,6 +11,8 @@ numbers the reference generates from the same seed.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pandas as pd
@@ -31,9 +35,61 @@ def _coerce_sales_frame(df: pd.DataFrame) -> pd.DataFrame:
 
 
 def load_sales_csv(path: str) -> pd.DataFrame:
-    """Read the ``train.csv`` long format (``.csv.gz`` too — pandas
-    decompresses it)."""
+    """Read the ``train.csv`` long format.
+
+    The native C++ parser does the parse when the library is available and
+    the header names the columns in its positional order; else pandas.  A
+    ``.csv.gz`` file is decompressed to a temporary file so the native
+    parser still parses it (pandas reads gz itself on its path).  A file
+    the native parser calls malformed goes to pandas.
+    """
+    from distributed_forecasting_tpu_torch.data import native
+
+    if path.endswith(".gz") and native.is_available():
+        import gzip
+        import shutil
+        import tempfile
+
+        with tempfile.NamedTemporaryFile(suffix=".csv", delete=False) as tmp:
+            try:
+                with gzip.open(path, "rb") as src:
+                    shutil.copyfileobj(src, tmp)
+                tmp.close()
+                return load_sales_csv(tmp.name)
+            finally:
+                os.unlink(tmp.name)
+
+    if native.is_available() and _native_csv_layout_ok(path):
+        try:
+            day, store, item, sales = native.parse_sales_csv(path)
+        except (ValueError, IOError):
+            return _coerce_sales_frame(pd.read_csv(path))
+        return pd.DataFrame(
+            {
+                "date": (np.datetime64("1970-01-01", "D")
+                         + day.astype("timedelta64[D]")),
+                "store": store,
+                "item": item,
+                "sales": sales,
+            }
+        )
     return _coerce_sales_frame(pd.read_csv(path))
+
+
+def _native_csv_layout_ok(path: str) -> bool:
+    """The C parser is positional (date, store, item, sales) where pandas
+    selects by name: hand it a file only when the header states exactly
+    that order, or there is no header — a reordering such as date, item,
+    store, sales would parse with the keys silently swapped."""
+    try:
+        with open(path, "r") as f:
+            first = f.readline().strip().lstrip("\ufeff")
+    except OSError:
+        return False
+    cols = [c.strip().strip('"').lower() for c in first.split(",")]
+    if cols and cols[0] and not any(ch.isalpha() for ch in "".join(cols)):
+        return True  # headerless numeric/date first row: positional by spec
+    return cols == ["date", "store", "item", "sales"]
 
 
 def load_sales_parquet(path: str) -> pd.DataFrame:

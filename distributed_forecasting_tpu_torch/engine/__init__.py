@@ -1,8 +1,14 @@
 from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
-from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
+from distributed_forecasting_tpu_torch.engine.cv import (
+    CVConfig,
+    cross_validate,
+    cv_forecast_frame,
+)
 from distributed_forecasting_tpu_torch.engine.fit import (
     ForecastResult,
     fit_forecast,
+    fit_forecast_bucketed,
+    fit_forecast_chunked,
     forecast_frame,
 )
 from distributed_forecasting_tpu_torch.engine.select import (
@@ -10,6 +16,7 @@ from distributed_forecasting_tpu_torch.engine.select import (
     select_model,
 )
 
-__all__ = ["CVConfig", "cross_validate", "ForecastResult", "fit_forecast",
-           "fit_forecast_auto", "fit_forecast_blend", "forecast_frame",
-           "select_model"]
+__all__ = ["CVConfig", "cross_validate", "cv_forecast_frame",
+           "ForecastResult", "fit_forecast", "fit_forecast_auto",
+           "fit_forecast_blend", "fit_forecast_bucketed",
+           "fit_forecast_chunked", "forecast_frame", "select_model"]

@@ -1,5 +1,6 @@
 """Rolling-origin cross-validation (port of the reference's ``engine/cv.py``:
-the metric means, with or without split-conformal calibration).
+the metric means, with or without split-conformal calibration, and the raw
+per-cutoff forecasts as a diagnostics frame).
 
 Prophet's ``cross_validation(horizon, period, initial)`` protocol: cutoffs
 every ``period`` steps after ``initial`` steps of history; each cutoff fits
@@ -17,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
+import numpy as np
+import pandas as pd
 import torch
 
 from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
@@ -137,12 +140,52 @@ def _calibration_outputs(y, yhat, lo, hi, eval_masks, model: str, config):
     return scale, cov_c
 
 
+def _frame_from_paths(batch: SeriesBatch, cuts, yhat, lo, hi, eval_masks):
+    """The diagnostics frame from the (C, S, T) paths, on the host: one row
+    per series, cutoff and scored day, ``[ds, *keys, cutoff, y, yhat,
+    yhat_lower, yhat_upper]``, cutoff-major."""
+    em = eval_masks.cpu().numpy() > 0
+    ci, si, ti = np.nonzero(em)
+    dates = batch.dates()
+    y_np = batch.y.cpu().numpy()
+    frame = {"ds": dates.values[ti]}
+    for j, name in enumerate(batch.key_names):
+        frame[name] = batch.keys[si, j]
+    frame["cutoff"] = dates.values[np.asarray(cuts)[ci]]
+    frame["y"] = y_np[si, ti]
+    frame["yhat"] = yhat.cpu().numpy()[ci, si, ti]
+    frame["yhat_lower"] = lo.cpu().numpy()[ci, si, ti]
+    frame["yhat_upper"] = hi.cpu().numpy()[ci, si, ti]
+    return pd.DataFrame(frame)
+
+
+def cv_forecast_frame(
+    batch: SeriesBatch,
+    model: str = "prophet",
+    config=None,
+    cv: CVConfig = CVConfig(),
+    xreg=None,
+) -> pd.DataFrame:
+    """Raw rolling-origin forecasts as a long frame, the shape Prophet's
+    ``diagnostics.cross_validation`` returns: one row per series, cutoff and
+    scored day, ``[ds, *keys, cutoff, y, yhat, yhat_lower, yhat_upper]``.
+    A diagnostics-scale tool: the (C, S, T) paths come to the host.  For
+    the frame and the metric means from one CV pass, use
+    ``cross_validate(..., return_frame=True)``."""
+    config, xreg = _cv_entry(batch, model, config, xreg, "cv_forecast_frame")
+    cuts = cutoff_indices(batch.n_time, cv)
+    yhat, lo, hi, eval_masks, _ = _cv_paths(batch, model, config, cuts,
+                                            cv.horizon, xreg)
+    return _frame_from_paths(batch, cuts, yhat, lo, hi, eval_masks)
+
+
 def cross_validate(
     batch: SeriesBatch,
     model: str = "prophet",
     config=None,
     cv: CVConfig = CVConfig(),
     xreg=None,
+    return_frame: bool = False,
     calibrate: bool = False,
 ):
     """Per-series CV-mean metrics — mse, rmse, mae, mape, smape, mdape,
@@ -157,6 +200,9 @@ def cross_validate(
     ``calibrate=True`` adds ``"_interval_scale"``, the (S,) split-conformal
     band scale from the same paths (``engine/calibrate``), and
     ``"_coverage_calibrated"``, the CV coverage of the band it scales.
+
+    ``return_frame=True`` returns ``(metrics, frame)``: the diagnostics
+    frame of :func:`cv_forecast_frame` from the same paths, one CV pass.
     """
     config, xreg = _cv_entry(batch, model, config, xreg, "cross_validate")
     cuts = cutoff_indices(batch.n_time, cv)
@@ -171,4 +217,6 @@ def cross_validate(
         out["_interval_scale"], out["_coverage_calibrated"] = (
             _calibration_outputs(batch.y, yhat, lo, hi, eval_masks, model,
                                  config))
+    if return_frame:
+        return out, _frame_from_paths(batch, cuts, yhat, lo, hi, eval_masks)
     return out

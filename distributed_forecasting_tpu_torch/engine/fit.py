@@ -1,5 +1,6 @@
 """The fit engine: one batched fit + forecast for every series (port of the
-reference's ``engine/fit.py`` main path).
+reference's ``engine/fit.py``), plus its memory-bounded (chunked) and
+ragged (span-bucketed) entry points.
 
 Per-series fault tolerance follows the reference's fail-safe: a series whose
 forecast has a non-finite value, or with too little history, is flagged
@@ -19,6 +20,7 @@ import torch
 
 from distributed_forecasting_tpu_torch.data.tensorize import (
     SeriesBatch,
+    bucket_by_span,
     ordinals_to_dates,
 )
 from distributed_forecasting_tpu_torch.models import get_model
@@ -208,6 +210,140 @@ def fit_forecast(
                                        min_points)
     return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
                                   day_all=day_all)
+
+
+def fit_forecast_chunked(
+    batch: SeriesBatch,
+    model: str = "prophet",
+    config=None,
+    horizon: int = 90,
+    chunk_size: int = 4096,
+    min_points: int = DEFAULT_MIN_POINTS,
+    dispatch: str = "scan",
+    xreg=None,
+) -> Tuple[object, ForecastResult]:
+    """Memory-bounded fit for very large batches (the 50k-series regime).
+
+    The series axis splits into equal ``chunk_size`` blocks (the last one
+    padded with masked rows), so the device holds one block's intermediates
+    at a time and every chunk runs at one shape.  Per-series parameter
+    fields come back concatenated along axis 0 and cut to S; shared fields
+    (the curve model's 0-d ``t0``/``t1``, empty regressor or AR fields) come
+    from any one chunk.  ``xreg`` is a shared (T + horizon, R) calendar or
+    per-series (S, T + horizon, R) values, padded with the series.
+
+    ``dispatch`` takes the reference's two values, ``'scan'`` (there one
+    compiled ``lax.scan`` over the chunks) and ``'loop'`` (a host loop).  On
+    the card both are one host loop over chunks of one shape: PyTorch
+    launches every chunk's kernels as they come, and no launch round trip
+    is there for a scan to save.
+    """
+    if dispatch not in ("scan", "loop"):
+        raise ValueError(f"unknown dispatch {dispatch!r}; 'scan' or 'loop'")
+    S = batch.n_series
+    if S <= chunk_size:
+        return fit_forecast(batch, model=model, config=config, horizon=horizon,
+                            min_points=min_points, xreg=xreg)
+    fns = get_model(model)
+    config = config if config is not None else fns.config_cls()
+    validate_changepoint_days(config, batch.day)
+    xreg = validate_xreg(fns, model, config, xreg, batch.n_time + horizon,
+                         "fit_forecast_chunked")
+    n_chunks = -(-S // chunk_size)
+    padded = batch.pad_series_to(n_chunks * chunk_size)
+    per_series_x = xreg is not None and xreg.dim() == 3
+    if per_series_x:
+        xreg = xreg.to(batch.y.device)
+        xreg = torch.cat([xreg, xreg.new_zeros(
+            (n_chunks * chunk_size - S,) + tuple(xreg.shape[1:]))])
+
+    chunks = []
+    for c in range(n_chunks):
+        sl = slice(c * chunk_size, (c + 1) * chunk_size)
+        sub = dataclasses.replace(padded, y=padded.y[sl], mask=padded.mask[sl],
+                                  keys=padded.keys[sl])
+        chunks.append(fit_forecast(
+            sub, model=model, config=config, horizon=horizon,
+            min_points=min_points, xreg=xreg[sl] if per_series_x else xreg))
+
+    first = chunks[0][0]
+    params = type(first)(**{
+        f.name: (torch.cat([getattr(p, f.name) for p, _ in chunks])[:S]
+                 if v.dim() > 0 and v.shape[0] == chunk_size else v)
+        for f in dataclasses.fields(first)
+        for v in (getattr(first, f.name),)
+    })
+    cat = lambda k: torch.cat([getattr(r, k) for _, r in chunks])[:S]  # noqa: E731
+    result = ForecastResult(yhat=cat("yhat"), lo=cat("lo"), hi=cat("hi"),
+                            ok=cat("ok"), day_all=chunks[0][1].day_all)
+    return params, result
+
+
+def fit_forecast_bucketed(
+    batch: SeriesBatch,
+    model: str = "prophet",
+    config=None,
+    horizon: int = 90,
+    min_points: int = DEFAULT_MIN_POINTS,
+    max_buckets: int = 4,
+    xreg=None,
+):
+    """Fit a ragged batch in span buckets (``data.tensorize.bucket_by_span``):
+    each bucket fits on its trimmed grid, one ``fit_forecast`` a bucket, so a
+    batch where most series started recently does proportionally less work.
+    Returns ``(buckets, result)``:
+
+    * ``buckets``: ``(indices, sub_batch, params)`` per bucket; the params'
+      time-shaped fields have bucket length, and the sub-batch carries the
+      trimmed grid they were fit on, which ``serving.BucketedForecaster``
+      rebuilds its predictors from;
+    * ``result``: a full-grid ``ForecastResult`` over history + horizon;
+      the rows before a bucket's window (fully masked by construction)
+      carry that series' earliest in-window value.
+
+    A bucket's xreg is the tail ``xreg[T - L:]`` of the full (T + horizon)
+    window.  The reference double-buffers each bucket's host-to-device copy
+    (its ``prefetch_to_device``); here the sub-batches are slices of tensors
+    already on the device, so there is nothing to prefetch.
+    """
+    buckets = bucket_by_span(batch, max_buckets=max_buckets)
+    S, T = batch.n_series, batch.n_time
+    T_all = T + horizon
+    fns = get_model(model)
+    validate_changepoint_days(config, batch.day)
+    xreg = validate_xreg(
+        fns, model, config if config is not None else fns.config_cls(),
+        xreg, T_all, "fit_forecast_bucketed",
+    )
+    if xreg is not None:
+        xreg = xreg.to(batch.y.device)
+    dev = batch.y.device
+    yhat = torch.zeros((S, T_all), device=dev)
+    lo = torch.zeros((S, T_all), device=dev)
+    hi = torch.zeros((S, T_all), device=dev)
+    ok = torch.zeros((S,), dtype=torch.bool, device=dev)
+    bucket_params = []
+    for idx, sub in buckets:
+        rows = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        xr = None
+        if xreg is not None:
+            L = sub.n_time
+            xr = xreg[T - L:] if xreg.dim() == 2 else xreg[rows][:, T - L:]
+        p, r = fit_forecast(sub, model=model, config=config, horizon=horizon,
+                            min_points=min_points, xreg=xr)
+        lead = T_all - r.yhat.shape[1]
+
+        def fill(M):
+            return torch.cat([M[:, :1].expand(len(idx), lead), M], dim=1)
+
+        yhat[rows] = fill(r.yhat)
+        lo[rows] = fill(r.lo)
+        hi[rows] = fill(r.hi)
+        ok[rows] = r.ok
+        bucket_params.append((idx, sub, p))
+    result = ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
+                            day_all=day_grid(batch.day, horizon))
+    return bucket_params, result
 
 
 def long_frame_skeleton(keys, key_names, day_all, freq: str = "D") -> dict:

@@ -6,7 +6,11 @@ allocated path).
 workload: history -> tensorize -> rolling-origin CV (optionally with
 split-conformal band calibration) -> one batched fit + forecast -> one
 tracked run (params, aggregate metrics, the per-series metric table, the
-serving artifact) -> the forecast table.  ``model: auto`` serves each
+serving artifact) -> the forecast table.  Options: the curve model's
+covariates from a catalog table (``regressors``), span buckets on trimmed
+grids for ragged batches (``bucketed``; the artifact is a
+``BucketedForecaster``) and the CV pass's raw forecasts as a run table
+(``cv_artifact``).  ``model: auto`` serves each
 series from the family that won its CV (``engine/select``), ``model:
 blend`` from the per-series weighted pool of all of them
 (``engine/blend``); their artifacts are the composite forecasters of
@@ -37,7 +41,11 @@ import pandas as pd
 
 from distributed_forecasting_tpu_torch.data import holidays as H
 from distributed_forecasting_tpu_torch.data.catalog import DatasetCatalog
-from distributed_forecasting_tpu_torch.data.tensorize import tensorize
+from distributed_forecasting_tpu_torch.data.tensorize import (
+    resolved_backend,
+    tensorize,
+    tensorize_regressors,
+)
 from distributed_forecasting_tpu_torch.engine.calibrate import (
     apply_interval_scale,
 )
@@ -45,6 +53,7 @@ from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
 from distributed_forecasting_tpu_torch.engine.fit import (
     fit_forecast,
+    fit_forecast_bucketed,
     forecast_frame,
 )
 from distributed_forecasting_tpu_torch.engine.order import resolve_order_conf
@@ -60,6 +69,9 @@ from distributed_forecasting_tpu_torch.models.base import (
     MODEL_REGISTRY,
     get_model,
     require_models,
+)
+from distributed_forecasting_tpu_torch.serving.bucketed import (
+    BucketedForecaster,
 )
 from distributed_forecasting_tpu_torch.serving.ensemble import (
     BlendedForecaster,
@@ -119,11 +131,12 @@ def _pool_families(model: str, model_conf) -> tuple:
     return tuple((model_conf or {}).get("families", DEFAULT_FAMILIES))
 
 
-def _check_cadence(freq: str, model: str, model_conf) -> None:
-    """The curve model's weekly/yearly Fourier terms and holiday calendars
-    are calendar-daily: on a week or month grid they raise here, also when
-    the curve model is in a pool, rather than fit a 7-step "weekly"
-    cycle."""
+def _check_cadence(freq: str, model: str, model_conf,
+                   regressors=None) -> None:
+    """The curve model's weekly/yearly Fourier terms, holiday calendars and
+    conf-driven regressor grids are calendar-daily: on a week or month grid
+    they raise here, also when the curve model is in a pool, rather than
+    fit a 7-step "weekly" cycle."""
     if freq == "D":
         return
     bad = ({model} | set(_pool_families(model, model_conf))) & (
@@ -134,6 +147,11 @@ def _check_cadence(freq: str, model: str, model_conf) -> None:
             f"calendar-daily; use the cadence-agnostic families "
             f"(holt_winters/arima/theta/croston) or freq: D (conf names "
             f"{sorted(bad)})"
+        )
+    if regressors:
+        raise ValueError(
+            f"training.freq={freq!r}: conf-driven regressors resolve on a "
+            f"daily calendar grid; use freq: D"
         )
     if isinstance((model_conf or {}).get("holidays"), (str, dict)):
         raise ValueError(
@@ -230,6 +248,21 @@ def _resolve_holidays_conf(
         start, end, calendar=(name or "none"), custom=custom,
         lower_window=lower, upper_window=upper)
     return out
+
+
+def _load_regressors(catalog, regressors: Dict[str, Any], batch,
+                     horizon: int, config):
+    """Conf-driven covariates: read the catalog table, tensorize it onto the
+    batch's grid extended by ``horizon``, and stamp the column count and
+    names into the config.  Returns ``(xreg, config)``."""
+    cols = list(regressors["columns"])
+    xreg = tensorize_regressors(
+        catalog.read_table(regressors["table"]), batch, cols, horizon=horizon,
+        per_series=bool(regressors.get("per_series", False)),
+    )
+    config = dataclasses.replace(config, n_regressors=len(cols),
+                                 regressor_names=tuple(cols))
+    return xreg, config
 
 
 class TrainingPipeline:
@@ -331,16 +364,7 @@ class TrainingPipeline:
                 f"training.bucketed is not supported together with "
                 f"model={model!r} — pooled fits run on the shared grid"
             )
-        if bucketed:
-            raise _not_ported("training.bucketed (fit_forecast_bucketed)",
-                              "Slice 4")
-        if regressors:
-            raise _not_ported("training.regressors (tensorize_regressors)",
-                              "Slice 4")
-        if cv_artifact:
-            raise _not_ported("training.cv_artifact (cv_forecast_frame)",
-                              "Slice 4")
-        _check_cadence(freq, model, model_conf)
+        _check_cadence(freq, model, model_conf, regressors=regressors)
         if pool:
             return self._pool_stages(
                 model, pool, source_table, output_table, model_conf, cv_conf,
@@ -366,30 +390,57 @@ class TrainingPipeline:
                 self.logger.info(
                     "arima order: auto -> selected (p, d, q) = (%d, %d, %d)",
                     config.p, config.d, config.q)
+            xreg = None
+            if regressors:
+                # a catalog table with date (+ the key columns per series)
+                # and the named columns, covering history and horizon
+                with timer.phase("tensorize_regressors"):
+                    xreg, config = _load_regressors(
+                        self.catalog, regressors, batch, horizon, config)
             self.logger.info(
-                "fine-grained fit: %d series x %d days, model=%s on %s",
-                batch.n_series, batch.n_time, model, self.device,
+                "fine-grained fit: %d series x %d days, model=%s%s on %s",
+                batch.n_series, batch.n_time, model,
+                f", {config.n_regressors} regressors" if xreg is not None
+                else "", self.device,
             )
-            return {"timer": timer, "batch": batch, "config": config}
+            return {"timer": timer, "batch": batch, "config": config,
+                    "xreg": xreg}
 
         def dispatch(state: Dict[str, Any]) -> Dict[str, Any]:
             timer, batch, config = state["timer"], state["batch"], state["config"]
+            xreg = state["xreg"]
             t_start = time.time()
             cv = CVConfig(**(cv_conf or {})) if run_cross_validation else None
-            cv_metrics = None
+            cv_metrics = cv_frame = None
+            buckets = params = None
             # CUDA launches are asynchronous: these phases time the host
             # side; the device's time lands in fit_seconds at the pulls
             with device_trace(trace_dir):
                 if run_cross_validation:
                     with timer.phase("cross_validation"):
-                        cv_metrics = cross_validate(
+                        # with cv_artifact, one CV pass gives the metrics
+                        # and the frame
+                        out = cross_validate(
                             batch, model=model, config=config, cv=cv,
+                            xreg=xreg, return_frame=cv_artifact,
                             calibrate=calibrate_intervals,
                         )
+                        cv_metrics, cv_frame = (out if cv_artifact
+                                                else (out, None))
                 with timer.phase("fit_forecast"):
-                    params, result = fit_forecast(
-                        batch, model=model, config=config, horizon=horizon,
-                    )
+                    if bucketed:
+                        # span buckets on trimmed grids; CV above stays on
+                        # the shared grid (a short bucket may not cover the
+                        # CV's initial window, and the masks keep it right)
+                        buckets, result = fit_forecast_bucketed(
+                            batch, model=model, config=config,
+                            horizon=horizon, xreg=xreg,
+                        )
+                    else:
+                        params, result = fit_forecast(
+                            batch, model=model, config=config,
+                            horizon=horizon, xreg=xreg,
+                        )
             interval_scale = None
             if calibrate_intervals:
                 # the table and the artifact ship the calibrated bands; the
@@ -402,8 +453,8 @@ class TrainingPipeline:
                 )
                 result = dataclasses.replace(result, lo=lo_c, hi=hi_c)
             state.update(t_start=t_start, cv=cv, cv_metrics=cv_metrics,
-                         params=params, result=result,
-                         interval_scale=interval_scale)
+                         cv_frame=cv_frame, buckets=buckets, params=params,
+                         result=result, interval_scale=interval_scale)
             return state
 
         def complete(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -437,7 +488,10 @@ class TrainingPipeline:
                     prophet_glm,
                 )
 
-                if model in ("prophet", "curve"):
+                if bucketed:
+                    run.log_params(dataclasses.asdict(config))
+                    run.log_params({"n_buckets": len(state["buckets"])})
+                elif model in ("prophet", "curve"):
                     run.log_params(prophet_glm.extract_params(params, config))
                 else:
                     run.log_params(dataclasses.asdict(config))
@@ -447,10 +501,12 @@ class TrainingPipeline:
                         "n_time": batch.n_time,
                         "horizon": horizon,
                         "n_failed_series": n_failed,
-                        # the host data plane that built the tensor: the
-                        # port has the numpy path only (the reference's
-                        # name for it is "pandas")
-                        "tensorize_backend": "pandas",
+                        # the host data plane that built the tensor (the
+                        # native path is daily only)
+                        "tensorize_backend": (
+                            resolved_backend(n_keys=len(key_cols))
+                            if batch.freq == "D" else "pandas"
+                        ),
                         **_comparability_params(batch, cv),
                     }
                 )
@@ -478,9 +534,17 @@ class TrainingPipeline:
                         float(np.mean(cov_c[ok])) if ok.any() else float("nan"))
                 run.log_metrics(agg)
                 run.log_table("series_metrics.parquet", series_table)
+                if cv_artifact and run_cross_validation:
+                    # the raw per-cutoff forecasts (Prophet's diagnostics
+                    # shape), from the CV pass above
+                    run.log_table("cv_forecasts.parquet", state["cv_frame"])
 
-                forecaster = BatchForecaster.from_fit(
-                    batch, params, model, config, interval_scale=scales)
+                if bucketed:
+                    forecaster = BucketedForecaster.from_bucketed_fit(
+                        state["buckets"], model, config)
+                else:
+                    forecaster = BatchForecaster.from_fit(
+                        batch, params, model, config, interval_scale=scales)
                 forecaster.save(run.artifact_path("forecaster"))
 
                 if per_series_runs:

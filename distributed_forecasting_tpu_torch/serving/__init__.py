@@ -1,3 +1,6 @@
+from distributed_forecasting_tpu_torch.serving.bucketed import (
+    BucketedForecaster,
+)
 from distributed_forecasting_tpu_torch.serving.ensemble import (
     BlendedForecaster,
     MultiModelForecaster,
@@ -11,5 +14,6 @@ from distributed_forecasting_tpu_torch.serving.predictor import (
     UnknownSeriesError,
 )
 
-__all__ = ["BatchForecaster", "BlendedForecaster", "MultiModelForecaster",
+__all__ = ["BatchForecaster", "BlendedForecaster", "BucketedForecaster",
+           "MultiModelForecaster",
            "UnknownSeriesError", "load_forecaster", "resolve_from_registry"]

@@ -34,6 +34,13 @@ from distributed_forecasting_tpu_torch.serving.predictor import (
 _META_FILE = "ensemble.json"
 
 
+def _family_kwargs(name: str, xreg) -> dict:
+    """``xreg`` for a member whose family takes regressors, else nothing."""
+    if xreg is not None and get_model(name).supports_xreg:
+        return {"xreg": xreg}
+    return {}
+
+
 class MultiModelForecaster:
     def __init__(self, forecasters: Dict[str, BatchForecaster],
                  assignment: np.ndarray):
@@ -133,12 +140,20 @@ class MultiModelForecaster:
     def predict(self, request: pd.DataFrame, horizon: int = 90,
                 include_history: bool = False, on_missing: str = "raise",
                 xreg=None) -> pd.DataFrame:
-        """One batched predict per family present in the request."""
+        """One batched predict per family present in the request.  ``xreg``
+        goes to the families that take regressors (the curve model); it
+        raises when no held family does."""
+        if xreg is not None and not any(get_model(n).supports_xreg
+                                        for n in self.models):
+            raise ValueError(
+                f"none of the held families {self.models} accepts "
+                f"exogenous regressors"
+            )
         return self._parts(
             request, on_missing, ["yhat", "yhat_upper", "yhat_lower"],
             lambda name, req: self.forecasters[name].predict(
                 req, horizon=horizon, include_history=include_history,
-                xreg=xreg))
+                **_family_kwargs(name, xreg)))
 
     def predict_quantiles(self, request: pd.DataFrame,
                           quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
@@ -157,7 +172,7 @@ class MultiModelForecaster:
             return self.forecasters[name].predict_quantiles(
                 req, quantiles=quantiles, horizon=horizon,
                 include_history=include_history, on_missing=on_missing,
-                xreg=xreg)
+                **_family_kwargs(name, xreg))
 
         return self._parts(request, on_missing, quantile_columns(quantiles),
                            call)
@@ -310,7 +325,7 @@ class BlendedForecaster:
             request, on_missing, columns,
             lambda name, req: self.forecasters[name].predict(
                 req, horizon=horizon, include_history=include_history,
-                xreg=xreg))
+                **_family_kwargs(name, xreg)))
         if out is None:
             return pd.DataFrame(columns=["ds", *self.key_names, "yhat",
                                          "yhat_upper", "yhat_lower"])
@@ -348,7 +363,8 @@ class BlendedForecaster:
             lambda part: {c: part[c].to_numpy() for c in pcols},
             lambda name, req: self.forecasters[name].predict_quantiles(
                 req, quantiles=priced, horizon=horizon,
-                include_history=include_history, xreg=xreg))
+                include_history=include_history,
+                **_family_kwargs(name, xreg)))
         if out is None:
             return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
         if self.interval_scale is not None:

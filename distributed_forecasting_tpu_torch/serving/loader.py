@@ -3,10 +3,10 @@
 module, ``serving/server.py``; the port has no server, so they live here).
 
 An artifact directory is recognised by its metadata file, as the reference
-does: ``ensemble.json`` (mixed-family), ``blend.json`` (blended), else a
-single-family :class:`BatchForecaster`.  Span-bucketed artifacts
-(``buckets.json``) are refused, naming the ROADMAP item that ports them.
-A composite whose members fail to load raises; nothing falls back.
+does: ``ensemble.json`` (mixed-family), ``blend.json`` (blended),
+``buckets.json`` (span-bucketed), else a single-family
+:class:`BatchForecaster`.  A composite whose members fail to load raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from distributed_forecasting_tpu_torch.serving.bucketed import (
+    BucketedForecaster,
+)
 from distributed_forecasting_tpu_torch.serving.ensemble import (
     BlendedForecaster,
     MultiModelForecaster,
@@ -29,11 +32,7 @@ def load_forecaster(artifact_dir: str, device=None):
     if os.path.exists(os.path.join(artifact_dir, "blend.json")):
         return BlendedForecaster.load(artifact_dir, device=device)
     if os.path.exists(os.path.join(artifact_dir, "buckets.json")):
-        raise NotImplementedError(
-            f"{artifact_dir} holds buckets.json: loading span-bucketed "
-            f"artifacts, serving/bucketed.py (ROADMAP Queue 1: Slice 4, "
-            f"fit_forecast_bucketed) is not ported yet"
-        )
+        return BucketedForecaster.load(artifact_dir, device=device)
     return BatchForecaster.load(artifact_dir, device=device)
 
 

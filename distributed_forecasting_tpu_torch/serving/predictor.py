@@ -72,6 +72,21 @@ def _ladder_value(k: int) -> int:
     return three_quarters if three_quarters >= k else p
 
 
+def _bucket_ladder(sizes) -> tuple:
+    """Every pow2x3 request bucket up to the largest requested size:
+    (1, 2, 3, 4, 6, ..., bucket(max(sizes))).  A composite forecaster
+    splits a request across its members by series, so a listed size can
+    reach a member as any smaller sub-request."""
+    top_bucket = _ladder_value(max(max(int(k), 1) for k in sizes))
+    ladder, b = [], 1
+    while b <= top_bucket:
+        ladder.append(b)
+        if 3 * (b >> 1) > b:  # the 3 * 2^(i-1) rung between b and 2b
+            ladder.append(3 * (b >> 1))
+        b <<= 1
+    return tuple(v for v in ladder if v <= top_bucket)
+
+
 class BatchForecaster:
     """Loads once, predicts every requested series in one batched call."""
 
@@ -230,22 +245,19 @@ class BatchForecaster:
         """Request-size bucket: next pow2x3 ladder value, capped at S."""
         return max(min(_ladder_value(k), self.n_series), k)
 
-    def _refuse_regressors(self, xreg) -> None:
-        """Serving a regressor model needs the future regressor values
-        gathered per request: not ported yet."""
-        if xreg is not None or getattr(self.config, "n_regressors", 0):
-            raise NotImplementedError(
-                "predict with exogenous regressors (xreg) is not ported yet "
-                "(ROADMAP Queue 1: serving with xreg)"
-            )
-
-    def _prepare_request(self, request, horizon, on_missing):
+    def _prepare_request(self, request, horizon, on_missing, xreg):
         """Resolve series, pad the request to its bucket (pad rows repeat
-        the first series and are dropped by the caller), gather parameters
-        and scales, and build the full history + horizon day grid."""
+        the first series and are dropped by the caller), gather parameters,
+        scales and regressor rows, and build the full history + horizon day
+        grid.  Returns ``(sidx, params, day_all, fc_kwargs, scale)``.
+
+        ``xreg``: (T_all, R) shared or (S_trained, T_all, R) per series over
+        the whole ``day0 .. day1 + horizon`` grid; per-series rows are
+        gathered with the request's padded indices.  (The port serves no
+        time-bucketed grid, so the grid is exactly those T_all days.)"""
         sidx = self.series_indices(request, on_missing=on_missing)
         if sidx.size == 0:
-            return sidx, None, None, None
+            return sidx, None, None, None, None
         bucket = self._bucket(int(sidx.size))
         padded = np.concatenate(
             [sidx, np.full(bucket - sidx.size, sidx[0], sidx.dtype)]
@@ -254,7 +266,38 @@ class BatchForecaster:
                                dtype=torch.int32, device=self.device)
         scale = (None if self.interval_scale is None else torch.as_tensor(
             self.interval_scale[padded], device=self.device))
-        return sidx, self.gather_params(padded), day_all, scale
+        fc_kwargs = {}
+        if xreg is not None:
+            if not get_model(self.model).supports_xreg:
+                raise ValueError(
+                    f"model {self.model!r} does not accept exogenous "
+                    f"regressors"
+                )
+            xreg = torch.as_tensor(xreg, dtype=torch.float32,
+                                   device=self.device)
+            if xreg.dim() not in (2, 3):
+                raise ValueError(
+                    f"xreg must be (T_all, R) or (S_trained, T_all, R), got "
+                    f"{xreg.dim()}-D"
+                )
+            T_grid = int(day_all.shape[0])
+            if xreg.shape[-2] != T_grid:
+                raise ValueError(
+                    f"xreg time axis is {xreg.shape[-2]}, expected the full "
+                    f"history+horizon grid {T_grid}"
+                )
+            if xreg.dim() == 3:
+                # a wrong leading dim would serve another series' covariates
+                if xreg.shape[0] != self.n_series:
+                    raise ValueError(
+                        f"per-series xreg leads with {xreg.shape[0]} rows, "
+                        f"expected all {self.n_series} trained series (rows "
+                        f"are gathered down to the request internally)"
+                    )
+                xreg = xreg[torch.as_tensor(padded, dtype=torch.long,
+                                            device=self.device)]
+            fc_kwargs["xreg"] = xreg
+        return sidx, self.gather_params(padded), day_all, fc_kwargs, scale
 
     def _frame_skeleton(self, sidx, day_all):
         """ds + key columns for a long result frame over ``day_all``."""
@@ -266,15 +309,34 @@ class BatchForecaster:
             frame[name] = np.repeat(self.keys[sidx, j], T)
         return frame
 
+    def warmup(self, horizon: int = 90, sizes=(1,)) -> int:
+        """Run one throwaway predict per distinct request bucket of
+        ``sizes`` (clamped to the trained-series count) at this horizon, so
+        first requests find the kernels built and the allocator warm.  A
+        regressor model is warmed with a zero (T_all, R) calendar.  Returns
+        the number of buckets run."""
+        S = self.n_series
+        buckets = sorted({self._bucket(min(max(int(k), 1), S)) for k in sizes})
+        xreg = None
+        R = getattr(self.config, "n_regressors", 0)
+        if R:
+            T_all = self.day1 - self.day0 + horizon + 1
+            xreg = torch.zeros((T_all, R), dtype=torch.float32,
+                               device=self.device)
+        for b in buckets:
+            req = pd.DataFrame(self.keys[:b], columns=self.key_names)
+            self.predict(req, horizon=horizon, xreg=xreg)
+        return len(buckets)
+
     def predict(self, request: pd.DataFrame, horizon: int = 90,
                 include_history: bool = False,
                 on_missing: str = "raise", xreg=None) -> pd.DataFrame:
         """Forecast every requested series ``horizon`` steps past the end of
-        training.  ``request`` needs the key columns only; ``xreg`` (a
-        regressor model's future values) is not ported yet and raises."""
-        self._refuse_regressors(xreg)
-        sidx, params, day_all, scale = self._prepare_request(
-            request, horizon, on_missing)
+        training.  ``request`` needs the key columns only.  ``xreg``: a
+        regressor model's values over the full ``day0 .. day1 + horizon``
+        grid, (T_all, R) shared or (S_trained, T_all, R) per series."""
+        sidx, params, day_all, fc_kwargs, scale = self._prepare_request(
+            request, horizon, on_missing, xreg)
         if sidx.size == 0:
             return pd.DataFrame(
                 columns=["ds", *self.key_names, "yhat", "yhat_upper", "yhat_lower"]
@@ -282,7 +344,7 @@ class BatchForecaster:
         fns = get_model(self.model)
         k = int(sidx.size)
         yhat, lo, hi = fns.forecast(params, day_all, float(self.day1),
-                                    self.config)
+                                    self.config, **fc_kwargs)
         yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
                                             floor=fns.band_floor)
         if not include_history:
@@ -301,8 +363,7 @@ class BatchForecaster:
                           xreg=None) -> pd.DataFrame:
         """Probabilistic forecast: one column per quantile level (``q0.1``,
         ``q0.5``, ...), priced from the predictive distribution the central
-        interval uses."""
-        self._refuse_regressors(xreg)
+        interval uses.  ``xreg`` as for :meth:`predict`."""
         fns = get_model(self.model)
         if fns.forecast_quantiles is None:
             raise ValueError(
@@ -310,8 +371,8 @@ class BatchForecaster:
                 f"implementation"
             )
         quantiles = tuple(float(q) for q in quantiles)
-        sidx, params, day_all, scale = self._prepare_request(
-            request, horizon, on_missing)
+        sidx, params, day_all, fc_kwargs, scale = self._prepare_request(
+            request, horizon, on_missing, xreg)
         qcols = quantile_columns(quantiles)
         if sidx.size == 0:
             return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
@@ -322,7 +383,8 @@ class BatchForecaster:
         if scale is not None and 0.5 not in priced:
             priced = tuple(sorted((*priced, 0.5)))
         yq = fns.forecast_quantiles(params, day_all, float(self.day1),
-                                    self.config, priced)  # (bucket, Q, T_all)
+                                    self.config, priced,
+                                    **fc_kwargs)  # (bucket, Q, T_all)
         if scale is not None:
             med = yq[:, priced.index(0.5), :][:, None, :]
             yq = med + scale[:, None, None] * (yq - med)

@@ -18,9 +18,10 @@ Conf::
       on_missing: raise     # or 'skip' for unseen (store, item)
       quantiles: null       # e.g. [0.1, 0.5, 0.9] -> one q<level> column
                             # per level instead of yhat/yhat_upper/yhat_lower
-
-``inference.regressors`` (a regressor model's future covariates) is not
-ported yet and raises ``NotImplementedError`` naming its ROADMAP item.
+      regressors:           # required when the model was fit with
+        table: hackathon.sales.promo_calendar   # n_regressors > 0: the
+        columns: [promo, price]                 # covariate table, covering
+        per_series: false                       # day0 .. day1 + horizon
 """
 
 from __future__ import annotations
@@ -35,10 +36,6 @@ class InferenceTask(Task):
         out = self.conf.get("output", {})
         inf = self.conf.get("inference", {})
         model_name = inf.get("model_name", "ForecastingBatchModel")
-        if inf.get("regressors"):
-            raise NotImplementedError(
-                "inference.regressors (serving with xreg) is not ported yet "
-                "(ROADMAP Queue 1: Slice 4)")
 
         forecaster, version = resolve_from_registry(
             self.registry, model_name, stage=inf.get("stage"),
@@ -50,9 +47,38 @@ class InferenceTask(Task):
         )
 
         request = self.catalog.read_table(inp.get("table", "hackathon.sales.test_raw"))
+        horizon = int(inf.get("horizon", 90))
+        xreg = None
+        reg = inf.get("regressors")
+        if reg:
+            if not hasattr(forecaster, "day0"):
+                # a bucketed artifact has no single shared grid to resolve
+                # the covariates onto
+                raise ValueError(
+                    "inference.regressors requires a single-batch forecaster "
+                    f"artifact; {type(forecaster).__name__} has no shared "
+                    "day grid"
+                )
+            # the covariates over the artifact's full grid: the future
+            # values the curve model needs, read from the catalog
+            from distributed_forecasting_tpu_torch.data import (
+                regressors_for_grid,
+            )
+
+            xreg = regressors_for_grid(
+                self.catalog.read_table(reg["table"]),
+                day0=forecaster.day0,
+                n_days=forecaster.day1 + horizon - forecaster.day0 + 1,
+                regressor_cols=list(reg["columns"]),
+                per_series=bool(reg.get("per_series", False)),
+                keys=forecaster.keys,
+                key_names=forecaster.key_names,
+                device=self.device,
+            )
         kwargs = dict(
-            horizon=int(inf.get("horizon", 90)),
+            horizon=horizon,
             on_missing=inf.get("on_missing", "raise"),
+            xreg=xreg,
         )
         quantiles = inf.get("quantiles")
         if quantiles:

@@ -40,11 +40,19 @@ device.  Conf::
       path: fine_grained            # or 'allocated' (item-level fit scaled
                                     # to stores by historical share; not
                                     # with regressors or calibrate_intervals)
+      bucketed: false               # ragged batches: fit span buckets on
+                                    # trimmed grids (CV stays on the shared
+                                    # grid); the artifact is buckets.json
+      regressors:                   # covariates of the curve model: a
+        table: hackathon.sales.promo  # catalog table with date (+ the key
+        columns: [promo, price]     # columns when per_series), covering
+        per_series: false           # history and horizon
+      cv_artifact: false            # log cv_forecasts.parquet, the raw
+                                    # per-cutoff forecasts of the CV pass
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item before any data is read: the arnet family (also in a pool), arima's
-``method: mle``, ``tuning.enabled``, ``bucketed``, ``regressors``,
-``cv_artifact``.
+``method: mle``, ``tuning.enabled``.
 """
 
 from __future__ import annotations

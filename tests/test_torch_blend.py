@@ -450,8 +450,13 @@ def test_composite_requests_skip_and_raise(composites):
     mm = tloader.load_forecaster(composites["ensemble"]["port"], device="cpu")
     assert list(mm.predict(unknown, on_missing="skip").columns) == [
         "ds", "store", "item", "yhat", "yhat_upper", "yhat_lower", "model"]
-    with pytest.raises(NotImplementedError, match="xreg"):
-        mm.predict(REQUEST, xreg=np.zeros((40, 1)))
+    # neither held family takes regressors: both packages refuse xreg
+    from distributed_forecasting_tpu.serving import load_forecaster as jload
+
+    ref = jload(composites["ensemble"]["ref"])
+    for fc in (mm, ref):
+        with pytest.raises(ValueError, match="accepts exogenous regressors"):
+            fc.predict(REQUEST, xreg=np.zeros((40, 1)))
 
 
 def test_broken_composite_raises(composites, tmp_path):

@@ -530,3 +530,134 @@ def test_arima_fit_on_the_card_equals_the_cpu(dev):
         w = getattr(want, name)
         torch.testing.assert_close(getattr(res, name).cpu(), w, rtol=0,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+# -- span buckets, the chunked fit and the native data plane ------------------
+
+def _ragged_batch(dev, n_items=12, T=400):
+    """3 stores x 12 items: items 1-4 from day 0, 5-8 from day 150, 9-12 from
+    day 300 (new items), tensorized on the card."""
+    from distributed_forecasting_tpu_torch import data
+
+    df = data.synthetic_store_item_sales(n_stores=3, n_items=n_items,
+                                         n_days=T, seed=13)
+    df["sales"] = df["sales"].round()
+    day = (df["date"] - df["date"].min()).dt.days
+    start = (df["item"] - 1) // 4 * 150
+    return data.tensorize(df[day >= start], device=dev)
+
+
+def test_bucketed_holt_winters_launches_the_kernels_on_every_bucket(
+        dev, monkeypatch):
+    """fit_forecast_bucketed scores and refits each bucket on its trimmed
+    grid through the kernels, one launch of each a bucket; each call is
+    held to its twin as the unbucketed calls are (scores within the
+    tolerance with near-tie argmins, the refit bitwise)."""
+    from distributed_forecasting_tpu_torch.engine import fit
+
+    b = _ragged_batch(dev)
+    calls = {"hw_score": [], "hw_filter": []}
+    for name in calls:
+        orig = getattr(hw, name)
+
+        def record(*args, _orig=orig, _name=name):
+            out = _orig(*args)
+            calls[_name].append((args, out))
+            return out
+
+        monkeypatch.setattr(hw, name, record)
+    before = (fs.hw_score.launches, fs.hw_filter.launches)
+    buckets, res = fit.fit_forecast_bucketed(
+        b, "holt_winters", config=hw.HoltWintersConfig(filter="auto"),
+        horizon=30)
+    assert [sub.n_time for _, sub, _ in buckets] == [128, 256, 400]
+    assert (fs.hw_score.launches - before[0],
+            fs.hw_filter.launches - before[1]) == (3, 3)
+    assert res.yhat.device.type == "cuda" and bool(res.ok.all())
+    for (args, got), (_, sub, _) in zip(calls["hw_score"], buckets):
+        assert args[0].shape == (sub.n_series, sub.n_time)
+        torch.cuda.synchronize()
+        _assert_scores_close(got, fs.hw_score_reference(*args))
+    for args, got in calls["hw_filter"]:
+        y, mask, a, be, g, p, m, mode = args
+        want = hw._filter(y, mask, a, be, g, m, mode, p)
+        for x, w in zip((*got[0], got[1], got[2]), (*want[0], want[1],
+                                                     want[2])):
+            assert torch.equal(x, w)
+
+
+def _cond_tol(b, cfg):
+    """10 * cond(A) * 2^-24: the relative error a backward-stable float32
+    solve of the batch's curve systems may show, with room for 10 ulp."""
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
+    from distributed_forecasting_tpu_torch.ops import solve
+
+    zn, _, _ = pg._fit_target(b.y, b.mask, cfg)
+    X, layout = pg._design(b.day, b.day[0].float(), b.day[-1].float(), cfg)
+    lam = pg._prior_precision(layout, cfg, device=b.y.device)
+    A, _ = solve.normal_equations(X, zn, b.mask, lam)
+    return 10 * float(torch.linalg.cond(A.double()).max()) * 2.0**-24
+
+
+def test_bucketed_curve_model_on_the_card_equals_the_cpu(dev):
+    """Each bucket's curve fit on the card against the same fit on the CPU
+    (the card's library solve against the floored Cholesky twin): within
+    10 * cond(A) * 2^-24 of each row's scale, cond over the buckets."""
+    from distributed_forecasting_tpu_torch.engine import fit
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
+
+    b = _ragged_batch(dev)
+    cfg = pg.CurveModelConfig(yearly_order=0)
+    buckets, got = fit.fit_forecast_bucketed(b, config=cfg, horizon=30)
+    tol = max(_cond_tol(sub, cfg) for _, sub, _ in buckets)
+    cpu = dataclasses.replace(b, y=b.y.cpu(), mask=b.mask.cpu(),
+                              day=b.day.cpu())
+    _, want = fit.fit_forecast_bucketed(cpu, config=cfg, horizon=30)
+    assert torch.equal(got.ok.cpu(), want.ok)
+    for k in ("yhat", "lo", "hi"):
+        w = getattr(want, k)
+        scale = w.abs().amax(dim=1, keepdim=True)
+        assert bool(((getattr(got, k).cpu() - w).abs() <= tol * scale).all())
+
+
+def test_chunked_fit_on_the_card_equals_the_unchunked_fit(dev):
+    """The chunks run at one shape; cuBLAS may pick another GEMM for a
+    chunk than for the whole batch, so the curve model is held within
+    10 * cond(A) * 2^-24 of each row's scale (on an H100 80GB HBM3 at
+    700 W: up to 2.3e-4 of a row's scale on this ragged batch);
+    Holt-Winters, whose kernels compute each row on its own, bitwise."""
+    from distributed_forecasting_tpu_torch.engine import fit
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
+
+    b = _ragged_batch(dev, n_items=20)  # 60 series
+    curve = pg.CurveModelConfig(yearly_order=0)
+    tol = _cond_tol(b, curve)
+    for model, cfg in (("prophet", curve),
+                       ("holt_winters", hw.HoltWintersConfig())):
+        _, whole = fit.fit_forecast(b, model, config=cfg, horizon=30)
+        for dispatch in ("scan", "loop"):
+            _, got = fit.fit_forecast_chunked(b, model, config=cfg,
+                                              horizon=30, chunk_size=16,
+                                              dispatch=dispatch)
+            assert torch.equal(got.ok, whole.ok)
+            for k in ("yhat", "lo", "hi"):
+                a, w = getattr(got, k), getattr(whole, k)
+                if model == "holt_winters":
+                    assert torch.equal(a, w), k
+                else:
+                    scale = w.abs().amax(dim=1, keepdim=True)
+                    assert bool(((a - w).abs() <= tol * scale).all()), k
+
+
+def test_native_tensorize_on_the_card_is_the_pandas_one(dev):
+    from distributed_forecasting_tpu_torch import data
+
+    df = data.synthetic_store_item_sales(n_stores=3, n_items=5, n_days=300,
+                                         seed=3, missing_rate=0.1)
+    assert data.resolved_backend() == "native"
+    nat = data.tensorize(df, backend="native", device=dev)
+    ref = data.tensorize(df, backend="pandas", device=dev)
+    for k in ("y", "mask", "day"):
+        assert getattr(nat, k).device.type == "cuda"
+        assert torch.equal(getattr(nat, k), getattr(ref, k)), k
+    assert (nat.keys == ref.keys).all() and nat.start_date == ref.start_date

@@ -84,11 +84,14 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
     from distributed_forecasting_tpu_torch import convert, data
+    from distributed_forecasting_tpu_torch.data import native
     from distributed_forecasting_tpu_torch.engine import fit_forecast
     from distributed_forecasting_tpu_torch.models import HoltWintersConfig
     from distributed_forecasting_tpu_torch.serving import BatchForecaster
 
     df = data.synthetic_store_item_sales(n_stores=1, n_items=2, n_days=40)
+    csv = str(tmp_path / "sales.csv")
+    df.to_csv(csv, index=False, date_format="%Y-%m-%d")
     calls = {
         "tensorize": lambda d: data.tensorize(df, device=d),
         "synthetic_series_batch": lambda d: data.synthetic_series_batch(
@@ -97,6 +100,12 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
             {"alpha": np.ones(2, np.float32)}, device=d),
         "curve_params_from_numpy": lambda d: convert.curve_params_from_numpy(
             {"beta": np.ones((2, 3), np.float32)}, device=d),
+        "regressors_for_grid": lambda d: data.regressors_for_grid(
+            df.assign(p=1.0), day0=15706, n_days=10, regressor_cols=["p"],
+            per_series=True, keys=np.array([[1, 1]]),
+            key_names=("store", "item"), device=d),
+        "load_and_tensorize_csv": lambda d: native.load_and_tensorize_csv(
+            csv, device=d),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):

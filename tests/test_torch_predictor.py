@@ -207,14 +207,23 @@ def test_curve_gather_params_passes_scalars_and_empty_fields(sales):
 
 
 def test_curve_regressor_serving_waits_for_its_port(sales):
+    """Serving with xreg is ported: a regressor model serves the fit's own
+    forecast from the same covariates (within 1e-5: the request's 1-row
+    product sums in another order than the fit's 12-row one), and refuses
+    to serve without them (test_torch_regressors.py holds it to the
+    reference)."""
     tb = tdata.tensorize(sales, device="cpu")
     T = tb.n_time
     cfg = tpg.CurveModelConfig(n_regressors=1)
-    params, _ = tfit.fit_forecast(tb, config=cfg, horizon=20,
-                                  xreg=torch.zeros(T + 20, 1))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(T + 20, 1)).astype(np.float32))
+    params, result = tfit.fit_forecast(tb, config=cfg, horizon=20, xreg=x)
     fc = tpred.BatchForecaster.from_fit(tb, params, "prophet", cfg)
     req = _request(tb.keys[[0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    got = fc.predict(req, horizon=20, xreg=x, include_history=True)
+    np.testing.assert_allclose(got["yhat"].to_numpy(),
+                               result.yhat[0].numpy(), rtol=1e-5)
+    with pytest.raises(ValueError, match="no xreg"):
         fc.predict(req)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fc.predict_quantiles(req, xreg=torch.zeros(T + 90, 1))
+    with pytest.raises(ValueError, match=r"history\+horizon"):
+        fc.predict_quantiles(req, xreg=torch.zeros(T + 90, 1), horizon=20)

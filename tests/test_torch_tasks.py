@@ -10,9 +10,9 @@ the ingest size and the CV windows; the parity fixture runs without the
 reference's), and one test runs the workflow with it to its end.
 
 Host-side results are equal: table keys, dates, row counts, the logged
-parameter keys and values (but ``tensorize_backend``, which names each
-package's own data plane), the run's metric names, the series table's keys
-and ``fit_ok``, the registry's tags and stage.  Forecast values agree
+parameter keys and values (``tensorize_backend`` included: both packages
+tensorize on the native data plane), the run's metric names, the series
+table's keys and ``fit_ok``, the registry's tags and stage.  Forecast values agree
 within 5e-4 of each series' scale: the curve model's float32 normal
 equations differ between the packages by up to ~1e-4 of the path's scale
 (test_torch_prophet.py), and the band's conformal scale moves by up to its
@@ -21,7 +21,14 @@ means agree within rtol 1e-3; the calibrated coverage within one point per
 series and cutoff (the point on the band's edge).
 
 One test per option the port does not run yet checks that it raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item; the options that came with
+the curve model's remaining entry points (``bucketed``, ``regressors``,
+``cv_artifact``) run there instead.  ``training.bucketed`` (on a ragged
+batch), ``training.regressors`` with ``inference.regressors`` and
+``inference.quantiles``, and ``training.cv_artifact`` run train, deploy and
+inference through both packages at 2 x 4 x 400 days, the curve model
+without yearly terms, CV 200/60/30, horizon 30: tables, params and the CV
+frame's keys are equal, values within 5e-4 of each series' scale as above.
 
 The ``forecasting-blend`` workflow (train with ``model: blend`` over
 prophet, holt_winters at ``season_length: auto`` and croston, calibrated ->
@@ -171,8 +178,7 @@ def test_run_params_metrics_and_series_table_match_reference(runs):
     got, want = (_run(runs[k][1], runs[k][0]) for k in ("port", "ref"))
     gp, wp = got.params(), want.params()
     assert set(gp) == set(wp)
-    assert gp.pop("tensorize_backend") == "pandas"
-    wp.pop("tensorize_backend")
+    assert gp["tensorize_backend"] == "native"
     assert gp == wp
     # metric names: the reference's executor adds its stage timings
     gm, wm = got.metrics(), want.metrics()
@@ -372,10 +378,10 @@ MLE = "P8, ArimaConfig.method='mle'"
     ({"model": "blend", "model_conf": {"families": ["croston", "theta",
                                                      "arnet"]}}, "P8"),
     ({"tuning": {"enabled": True}}, "P8"),
-    ({"bucketed": True}, "Slice 4"),
+    ({"bucketed": True}, None),
     ({"regressors": {"table": "hackathon.sales.promo", "columns": ["p"]}},
-     "Slice 4"),
-    ({"cv_artifact": True}, "Slice 4"),
+     None),
+    ({"cv_artifact": True}, None),
     ({"model": "auto", "model_conf": {
         "families": ["holt_winters", "arnet"],
         "configs": {"holt_winters": {"season_length": "auto"}}}}, "P8"),
@@ -388,11 +394,22 @@ MLE = "P8, ArimaConfig.method='mle'"
         "bucketed", "regressors", "cv_artifact", "season_auto", "arnet",
         "allocated_mle", "auto_mle"])
 def test_unported_training_options_raise(ingested, training, item):
+    """An option still unported raises naming its ROADMAP item; the ported
+    ones (``item`` None) run.  A regressor table missing from the catalog
+    raises the catalog's own error, as in the reference."""
     task = ttasks.TrainTask(init_conf=_train_conf(ingested, **training),
                             device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1: {item}"):
-        task.launch()
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP Queue 1: {item}"):
+            task.launch()
+    elif "regressors" in training:
+        from distributed_forecasting_tpu_torch.data import TableNotFoundError
+
+        with pytest.raises(TableNotFoundError):
+            task.launch()
+    else:
+        assert task.launch()["n_failed"] == 0
 
 
 @pytest.mark.parametrize("training, match", [
@@ -462,24 +479,227 @@ def test_result_neutral_blocks_are_accepted_and_logged(ingested):
 
 @pytest.mark.parametrize("meta, error, match", [
     ("ensemble.json", KeyError, "models"), ("blend.json", KeyError, "models"),
-    ("buckets.json", NotImplementedError, "ROADMAP Queue 1: Slice 4"),
+    ("buckets.json", KeyError, "n_buckets"),
 ], ids=["ensemble", "blend", "bucketed"])
 def test_composite_artifacts_refuse_to_load(tmp_path, meta, error, match):
     """A composite artifact is recognised by its metadata file: a broken
-    one raises (it never loads as a single-family artifact), a bucketed one
-    is not ported."""
+    one raises; it never loads as a single-family artifact."""
     (tmp_path / meta).write_text("{}")
     with pytest.raises(error, match=match):
         tloader.load_forecaster(str(tmp_path), device="cpu")
 
 
 def test_inference_regressors_raise(runs):
-    conf = {"env": {"root": runs["port"][1]},
-            "inference": {"model_name": MODEL,
-                          "regressors": {"table": "t.s.x", "columns": ["p"]}}}
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1: Slice 4"):
-        ttasks.InferenceTask(init_conf=conf, device="cpu").launch()
+    """``inference.regressors`` on an artifact fit without regressors: both
+    packages read the covariate table, then refuse to forecast with it; a
+    table missing from the catalog raises the catalog's error."""
+    from distributed_forecasting_tpu.tasks import InferenceTask
+
+    reg = {"table": "hackathon.sales.promo", "columns": ["promo"]}
+    conf = {"input": {"table": "hackathon.sales.raw"},
+            "inference": {"model_name": MODEL, "horizon": 30,
+                          "promote_to": None, "regressors": reg}}
+    for name in ("port", "ref"):
+        env = {"env": {"root": runs[name][1]}}
+        task = (ttasks.InferenceTask(init_conf={**env, **conf}, device="cpu")
+                if name == "port" else InferenceTask(init_conf={**env, **conf}))
+        with pytest.raises(KeyError):  # the catalog's TableNotFoundError
+            task.launch()
+        dates = pd.date_range("2013-01-01", periods=1000)
+        task.catalog.save_table(reg["table"], pd.DataFrame(
+            {"date": dates, "promo": np.arange(1000) % 2 * 1.0}))
+        with pytest.raises(ValueError, match="n_regressors == 0"):
+            task.launch()
+
+
+# -- bucketed, regressors, cv_artifact: train, deploy, inference --------------
+
+SLICE_TRAINING = {"model": "prophet", "horizon": 30,
+                  "model_conf": {"yearly_order": 0},
+                  "cv": {"initial": 200, "period": 60, "horizon": 30}}
+COVARIATES = {"table": "hackathon.sales.covariates",
+              "columns": ["promo", "price"], "per_series": True}
+
+
+def _slice_inputs(catalog, option):
+    """Reshape the ingested table for ``option``: items 3-4 start at day
+    300 (a ragged batch) for ``bucketed``; a covariate table over history
+    and horizon, made with numpy from a seed, for ``regressors``."""
+    df = catalog.read_table("hackathon.sales.raw")
+    if option == "bucketed":
+        day = (pd.to_datetime(df["date"]) - pd.to_datetime(df["date"]).min()
+               ).dt.days
+        catalog.save_table("hackathon.sales.raw",
+                           df[(df["item"] < 3) | (day >= 300)]
+                           .reset_index(drop=True))
+    if option == "regressors":
+        rng = np.random.default_rng(7)
+        dates = pd.date_range(pd.to_datetime(df["date"]).min(),
+                              periods=400 + 30)
+        promo = (rng.random(len(dates)) < 0.2) * 1.0
+        rows = [pd.DataFrame({"date": dates, "store": s, "item": i,
+                              "promo": promo,
+                              "price": np.round(rng.uniform(1, 5), 2)
+                              + np.cumsum(rng.random(len(dates)) < 0.02)})
+                for s, i in df[["store", "item"]].drop_duplicates()
+                .itertuples(index=False)]
+        catalog.save_table(COVARIATES["table"],
+                           pd.concat(rows, ignore_index=True))
+
+
+def _slice_run(root, package, option):
+    from distributed_forecasting_tpu import tasks as jtasks
+
+    types = jtasks.TASK_TYPES if package == "ref" else ttasks.TASK_TYPES
+    kw = {} if package == "ref" else {"device": "cpu"}
+    env = {"env": {"root": root}}
+    types["ingest"](init_conf={
+        **env, "input": {"synthetic": {"n_stores": 2, "n_items": 4,
+                                       "n_days": 400, "seed": 5}},
+        "output": {"table": "hackathon.sales.raw"}}, **kw).launch()
+    train = types["train"](init_conf={
+        **env, "input": {"table": "hackathon.sales.raw"},
+        "output": {"table": "hackathon.sales.finegrain_forecasts"},
+        "training": {**SLICE_TRAINING, option: (
+            COVARIATES if option == "regressors" else True)}}, **kw)
+    _slice_inputs(train.catalog, option)
+    out = {"train": train.launch()}
+    out["deploy"] = types["deploy"](init_conf={
+        **env, "deploy": {"experiment": "finegrain_forecasting",
+                          "model_name": MODEL}}, **kw).launch()
+    inference = {"model_name": MODEL, "horizon": 30, "promote_to": None}
+    if option == "regressors":
+        inference.update(regressors=COVARIATES, quantiles=[0.1, 0.5, 0.9])
+    out["inference"] = types["inference"](init_conf={
+        **env, "input": {"table": "hackathon.sales.raw"},
+        "output": {"table": "hackathon.sales.test_finegrain_forecasts"},
+        "inference": inference}, **kw).launch()
+    return out
+
+
+@pytest.fixture(scope="module", params=["bucketed", "regressors",
+                                        "cv_artifact"])
+def slice_runs(request, tmp_path_factory):
+    out = {}
+    for package in ("ref", "port"):
+        root = str(tmp_path_factory.mktemp(f"{request.param}_{package}"))
+        out[package] = (_slice_run(root, package, request.param), root)
+    return request.param, out
+
+
+def test_slice_options_run_like_the_reference(slice_runs):
+    option, runs = slice_runs
+    (got, g_root), (want, w_root) = runs["port"], runs["ref"]
+    for k in ("n_series", "n_failed"):
+        assert got["train"][k] == want["train"][k]
+    assert got["train"]["n_series"] == 8
+    assert got["inference"]["rows"] == want["inference"]["rows"]
+    gr = _handles(g_root)[1].get_run(got["train"]["experiment_id"],
+                                     got["train"]["run_id"])
+    wr = _handles(w_root)[1].get_run(want["train"]["experiment_id"],
+                                     want["train"]["run_id"])
+    gp = gr.params()
+    assert gp == wr.params()
+    assert gp["tensorize_backend"] == "native"
+    if option == "bucketed":
+        assert int(gp["n_buckets"]) == 2
+    if option == "regressors":
+        assert int(gp["n_regressors"]) == 2
+    if option == "cv_artifact":
+        _check_cv_artifact(runs)
+    for table in ("hackathon.sales.finegrain_forecasts",
+                  "hackathon.sales.test_finegrain_forecasts"):
+        g = _handles(g_root)[0].read_table(table)
+        w = _handles(w_root)[0].read_table(table)
+        assert list(g.columns) == list(w.columns)
+        keyed = [c for c in ("ds", "store", "item", "y") if c in w.columns]
+        pd.testing.assert_frame_equal(g[keyed], w[keyed])
+        vals = [c for c in w.columns if c.startswith(("yhat", "q0"))]
+        _rows_close(g, w, vals,
+                    w[["store", "item"]].drop_duplicates().to_numpy())
+
+
+def test_slice_artifacts_serve_the_inference_table(slice_runs):
+    """The registered artifact (buckets.json for the bucketed fit) loads in
+    either package and reproduces the port's inference table."""
+    from distributed_forecasting_tpu.data import (
+        regressors_for_grid as jregressors,
+    )
+    from distributed_forecasting_tpu.serving.server import (
+        load_forecaster as jload,
+    )
+
+    option, runs = slice_runs
+    root = runs["port"][1]
+    catalog, _, registry = _handles(root)
+    fc, version = tloader.resolve_from_registry(registry, MODEL, device="cpu")
+    served = catalog.read_table("hackathon.sales.test_finegrain_forecasts")
+    request = served[["store", "item"]].drop_duplicates().reset_index(
+        drop=True)
+    art = version.artifact_dir
+    if os.path.isdir(os.path.join(art, "forecaster")):
+        art = os.path.join(art, "forecaster")
+    if option == "bucketed":
+        assert os.path.exists(os.path.join(art, "buckets.json"))
+        assert type(fc).__name__ == "BucketedForecaster"
+    kw = {"horizon": 30}
+    if option == "regressors":
+        kw["xreg"] = tdata_regressors(catalog, fc)
+        got = fc.predict_quantiles(request, quantiles=[0.1, 0.5, 0.9], **kw)
+    else:
+        got = fc.predict(request, **kw)
+    cols = list(served.columns)
+    pd.testing.assert_frame_equal(got[cols], served, check_dtype=False)
+    ref = jload(art)
+    if option == "regressors":
+        kw["xreg"] = np.asarray(jregressors(
+            catalog.read_table(COVARIATES["table"]), day0=ref.day0,
+            n_days=ref.day1 + 30 - ref.day0 + 1,
+            regressor_cols=COVARIATES["columns"], per_series=True,
+            keys=ref.keys, key_names=ref.key_names))
+        want = ref.predict_quantiles(request, quantiles=[0.1, 0.5, 0.9], **kw)
+    else:
+        want = ref.predict(request, **kw)
+    assert list(want.columns) == cols
+    vals = [c for c in cols if c.startswith(("yhat", "q0"))]
+    _rows_close(got, want, vals, request.to_numpy())
+
+
+def tdata_regressors(catalog, fc):
+    from distributed_forecasting_tpu_torch.data import regressors_for_grid
+
+    return regressors_for_grid(
+        catalog.read_table(COVARIATES["table"]), day0=fc.day0,
+        n_days=fc.day1 + 30 - fc.day0 + 1,
+        regressor_cols=COVARIATES["columns"], per_series=True, keys=fc.keys,
+        key_names=fc.key_names, device="cpu")
+
+
+def _check_cv_artifact(runs):
+    """cv_forecasts.parquet: one row per series, cutoff and scored day (the
+    ingested history has no gaps), keys, dates, cutoffs and y equal to the
+    reference's, forecasts within RTOL of each series' scale."""
+    frames, cutoffs = {}, {}
+    for package in ("port", "ref"):
+        result, root = runs[package]
+        run = _handles(root)[1].get_run(result["train"]["experiment_id"],
+                                        result["train"]["run_id"])
+        frames[package] = pd.read_parquet(
+            run.artifact_path("cv_forecasts.parquet"))
+        cutoffs[package] = run.metrics()["n_cv_cutoffs"]
+    got, want = frames["port"], frames["ref"]
+    assert cutoffs["port"] == cutoffs["ref"] == 3
+    assert list(got.columns) == ["ds", "store", "item", "cutoff", "y", "yhat",
+                                 "yhat_lower", "yhat_upper"]
+    assert len(got) == 8 * 3 * 30
+    keyed = ["ds", "store", "item", "cutoff", "y"]
+    pd.testing.assert_frame_equal(got[keyed], want[keyed])
+    for col in ("yhat", "yhat_lower", "yhat_upper"):
+        scale = want.groupby(["store", "item"])[col].transform(
+            lambda v: np.abs(v).max()).to_numpy()
+        np.testing.assert_array_less(
+            np.abs(got[col].to_numpy() - want[col].to_numpy()),
+            RTOL * scale + 1e-6, err_msg=col)
 
 
 # -- the ingest task's quality report and the conf loaders --------------------
