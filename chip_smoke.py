@@ -45,7 +45,11 @@ its own size:
     ragged catalog (``fit_forecast_bucketed``, ``training.bucketed``,
     ``BucketedForecaster``), regressors (``training.regressors``,
     ``inference.regressors``), the CV artifact (``training.cv_artifact``)
-    and the chunked fit of 20,480 series.
+    and the chunked fit of 20,480 series;
+  * the online scorer: ``python -m
+    distributed_forecasting_tpu_torch.tasks.serve`` on the shipped serve
+    conf, answering /invocations, /observe and /metrics over HTTP with the
+    micro-batching coalescer off and on.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -197,9 +201,36 @@ is not 0:
               dispatches against the unchunked fit on 8,192 series (2e-4 of
               each row's scale), wall time and peak memory of each.  Files
               under ``native/`` are unchanged at the end
+ 12. scorer   the online scorer.  Two artifacts registered in one store:
+              forecasting-e2e's train (the curve model, calibrated) on the
+              committed dataset, and ``model: auto`` with the default
+              families.  conf/tasks/serve_config.yml, derived with the
+              quality store and the SLO evaluator off (not ported), started
+              twice as ``python -m
+              distributed_forecasting_tpu_torch.tasks.serve`` (batching off,
+              and on with 64 / 5 ms); /readyz polled until 200.  Checks:
+              /health's 500 series; bodies for 1, 17 and 500 series (and
+              quantiles) byte-equal to ``_encode_predictions`` of the
+              in-process predict on the card, and within 1e-5 of each row's
+              scale of a CPU copy of the artifact; every response of 32
+              coalescing clients byte-equal to the same request served
+              alone; 429 with Retry-After: 1 under a burst at
+              max_queue_depth 2, 503 for X-Deadline-Ms: 0; /observe's summary
+              and an in-process QualityMonitor's snapshot equal a float64
+              numpy computation over 28 days of 17 series' actuals and the
+              served bands; both children exit on SIGTERM.  The auto
+              artifact behind a scorer in this process, the counters set to
+              0 just before its HTTP requests and read after: arima_predict
+              launches, the served rows byte-equal to the in-process
+              predict.  Times: p50 / p95 / p99 of 200 sequential requests
+              at 1, 17 and 500 series, the device's idle share over the
+              500-series request, requests/s, latency, dispatches per
+              request and the mean coalesced batch under 32 clients with
+              batching off and on
 
 The line before the last lists the kernels (launches, error, times, bound;
-launches and error include phase 11's bucketed calls);
+launches and error include phase 11's bucketed calls and phase 12's
+arima_predict launches through HTTP);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -3127,6 +3158,645 @@ def slice9_phase(port, counters, card_line: str) -> dict:
     return out
 
 
+# -- phase 12: the online scorer (serving/server.py, batcher.py, tasks/serve.py)
+
+SERVE_CONF = os.path.join(ROOT, "conf", "tasks", "serve_config.yml")
+SCORER = "scorer-curve"
+SCORER_MODEL = "ForecastingBatchModel"
+AUTO_MODEL = "ForecastingAutoModel"
+SCORER_HORIZON = 90
+LATENCY_REQUESTS = 200  # sequential requests per request size
+LOAD_CLIENTS = 32  # concurrent 1-series clients
+LOAD_SECONDS = 5.0
+OBSERVE_DAYS, OBSERVE_SERIES = 28, 17
+# card vs CPU on the same stored parameters: only the forecast arithmetic
+# rounds differently (tests/test_torch_predictor.py's rtol and atol)
+SCORER_RTOL = 1e-5
+
+
+def scorer_spec(port) -> dict:
+    """real-data-e2e's catalog and etl (the committed dataset), then
+    forecasting-e2e's train (the curve model, CV 730/360/90, calibrated
+    bands), deploy and inference (which moves the version to Staging),
+    built in memory."""
+    spec = e2e_spec(port, REAL)
+    wf = spec["workflows"][0]
+    wf["name"] = SCORER
+    wf["tasks"] = [t for t in wf["tasks"] if t["task"] != "monitor"]
+    tr = task_conf(spec, "train")
+    tr["training"] = dict(task_conf(e2e_spec(port, E2E), "train")["training"],
+                          experiment="scorer_forecasting")
+    task_conf(spec, "deploy")["deploy"].update(
+        experiment="scorer_forecasting", model_name=SCORER_MODEL)
+    task_conf(spec, "inference")["inference"]["model_name"] = SCORER_MODEL
+    return spec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scorer_conf(port, root: str, model_name: str, batching: dict) -> tuple:
+    """conf/tasks/serve_config.yml with ``env.root``, the model, localhost
+    and a free port, the batching block's fields in ``batching``, and the
+    quality store and SLO evaluator off (not ported: ROADMAP Queue 1,
+    P12).  Written beside the store; returns (path, port, what changed)."""
+    conf = port["config"].load_conf(SERVE_CONF)
+    number = free_port()
+    conf["env"] = {"root": root}
+    conf["serving"].update(model_name=model_name, host="127.0.0.1",
+                           port=number)
+    conf["serving"]["batching"].update(batching)
+    conf["monitoring"]["quality_store"]["enabled"] = False
+    conf["monitoring"]["slo"]["enabled"] = False
+    path = os.path.join(root, f"serve_{number}.yml")
+    with open(path, "w") as f:
+        json.dump(conf, f)  # JSON is YAML
+    changed = {"env.root": root, "serving.model_name": model_name,
+               "serving.host": "127.0.0.1", "serving.port": number,
+               **{f"serving.batching.{k}": v for k, v in batching.items()},
+               "monitoring.quality_store.enabled": False,
+               "monitoring.slo.enabled": False}
+    return path, number, changed
+
+
+class Scorer:
+    """``python -m distributed_forecasting_tpu_torch.tasks.serve`` as a
+    child process: started, polled on /readyz, and stopped with SIGTERM
+    whatever happens in between."""
+
+    def __init__(self, conf_path: str, number: int, log_path: str):
+        self.conf_path, self.port, self.log_path = conf_path, number, log_path
+
+    def __enter__(self):
+        env = dict(os.environ)
+        if DEVICE == "cpu":  # a rehearsal on the CPU
+            env["DFTPU_PLATFORM"] = "cpu"
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_forecasting_tpu_torch.tasks.serve",
+             "--conf-file", self.conf_path],
+            cwd=ROOT, env=env, stdout=self.log, stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+        return self
+
+    def wait_ready(self, timeout: float = 600.0) -> dict:
+        """Poll /readyz until it answers 200: connection refusals (warmup
+        runs before the socket binds, as in the reference) and 503s count
+        as not ready.  Fails if the process exits or never gets ready."""
+        seen = {}
+        while time.perf_counter() - self.t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"the scorer exited with {self.proc.returncode}: "
+                    f"{self.log_tail()}")
+            try:
+                status = http_call(self.port, "GET", "/readyz")[0]
+            except OSError:
+                status = "refused"
+            seen[str(status)] = seen.get(str(status), 0) + 1
+            if status == 200:
+                return {"seconds_to_ready": time.perf_counter() - self.t0,
+                        "readyz_polls": seen}
+            time.sleep(0.1)
+        raise AssertionError(f"the scorer was not ready in {timeout} s: "
+                             f"{self.log_tail()}")
+
+    def log_tail(self, n: int = 3000) -> str:
+        self.log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def __exit__(self, *exc):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+                self.log.close()
+                raise AssertionError("the scorer did not exit on SIGTERM")
+        self.log.close()
+        self.returncode = self.proc.returncode
+
+
+def http_call(number: int, method: str, path: str, payload=None,
+              headers=None, conn=None):
+    """One request -> (status, body bytes, headers); over ``conn`` (a
+    keep-alive ``http.client.HTTPConnection``) when given."""
+    import http.client
+
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", number, timeout=300)
+    try:
+        body = None if payload is None else json.dumps(payload).encode()
+        conn.request(method, path, body=body, headers=dict(headers or {}))
+        r = conn.getresponse()
+        return r.status, r.read(), dict(r.getheaders())
+    finally:
+        if own:
+            conn.close()
+
+
+def _inputs(keys, key_names) -> list:
+    return [dict(zip(key_names, map(int, k))) for k in keys]
+
+
+def _counter(text: str, name: str) -> float:
+    import re
+
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def scorer_metrics(number: int) -> dict:
+    text = http_call(number, "GET", "/metrics")[1].decode()
+    return {k: _counter(text, k) for k in (
+        "serving_requests_total", "serving_dispatches_total",
+        "serving_batch_size_sum", "serving_batch_size_count",
+        "serving_rejections_total", "serving_deadline_shed_total")}
+
+
+def _pcts(ms: list) -> dict:
+    a = np.asarray(ms)
+    return {"n": int(a.size), "p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def scorer_requests(fc) -> dict:
+    """The request sets: 1, 17 (spread over the catalog) and every series."""
+    S = fc.n_series
+    rows = {1: [0], 17: np.linspace(0, S - 1, 17).astype(int).tolist(),
+            S: list(range(S))}
+    return {n: _inputs(fc.keys[r], fc.key_names) for n, r in rows.items()}
+
+
+def scorer_correctness(port, number: int, fc, fc_cpu, requests) -> dict:
+    """Bodies for 1, 17 and all series (and quantiles for 1 and 17) are
+    byte-equal to ``_encode_predictions`` of the in-process predict on the
+    card; the CPU copy of the artifact agrees within SCORER_RTOL of each
+    row's scale."""
+    encode = port["server"]._encode_predictions
+    out, max_abs, max_rel = {}, 0.0, 0.0
+    for n, inputs in requests.items():
+        for quantiles in (None, [0.1, 0.5, 0.9]):
+            if quantiles and n > 17:
+                continue
+            payload = {"inputs": inputs, "horizon": SCORER_HORIZON}
+            frame = pd.DataFrame(inputs)
+            if quantiles:
+                payload["quantiles"] = quantiles
+                call = lambda f: f.predict_quantiles(  # noqa: E731
+                    frame, quantiles=tuple(quantiles), horizon=SCORER_HORIZON)
+            else:
+                call = lambda f: f.predict(frame, horizon=SCORER_HORIZON)  # noqa: E731
+            status, body, _ = http_call(number, "POST", "/invocations", payload)
+            assert status == 200, (status, body[:300])
+            assert body == encode(call(fc), fc.key_names), (n, quantiles)
+            got = pd.DataFrame(json.loads(body)["predictions"])
+            cpu = call(fc_cpu)
+            cols = [c for c in cpu.columns if c not in ("ds", *fc.key_names)]
+            assert list(got.columns) == list(cpu.columns)
+            a = got[cols].to_numpy(np.float64).reshape(n, SCORER_HORIZON, -1)
+            b = cpu[cols].to_numpy(np.float64).reshape(n, SCORER_HORIZON, -1)
+            scale = np.abs(b).max(axis=(1, 2), keepdims=True)
+            err = np.abs(a - b)
+            assert np.isfinite(a).all() and (err <= SCORER_RTOL * (
+                np.abs(b) + scale)).all(), (n, quantiles, float(err.max()))
+            max_abs = max(max_abs, float(err.max()))
+            max_rel = max(max_rel, float((err / np.maximum(scale, 1e-30)).max()))
+            out[f"{n}{'_quantiles' if quantiles else ''}"] = {
+                "rows": len(got), "bytes": len(body), "byte_equal": True}
+    return {"requests": out, "max_abs_err_vs_cpu": max_abs,
+            "max_err_vs_cpu_of_row_scale": max_rel, "rtol": SCORER_RTOL}
+
+
+def scorer_latency(number: int, requests) -> dict:
+    """LATENCY_REQUESTS sequential requests at each size over one
+    keep-alive connection: host wall ms from send to the last body byte."""
+    import http.client
+
+    out = {}
+    for n, inputs in requests.items():
+        conn = http.client.HTTPConnection("127.0.0.1", number, timeout=300)
+        payload = {"inputs": inputs, "horizon": SCORER_HORIZON}
+        ms = []
+        try:
+            http_call(number, "POST", "/invocations", payload, conn=conn)
+            for _ in range(LATENCY_REQUESTS):
+                t0 = time.perf_counter()
+                status = http_call(number, "POST", "/invocations", payload,
+                                   conn=conn)[0]
+                ms.append((time.perf_counter() - t0) * 1e3)
+                assert status == 200, status
+        finally:
+            conn.close()
+        out[str(n)] = _pcts(ms)
+    return out
+
+
+def scorer_breakdown(port, fc, requests) -> dict:
+    """Where a request's time goes, in this process: host wall ms of the
+    predict (it ends in host pulls) and of encoding its body, medians of 20
+    calls (5 for every series) after one warm-up."""
+    encode = port["server"]._encode_predictions
+    out = {}
+    for n, inputs in requests.items():
+        frame = pd.DataFrame(inputs)
+        p_ms, e_ms = [], []
+        for _ in range(1 + (5 if n > 17 else 20)):
+            t0 = time.perf_counter()
+            pred = fc.predict(frame, horizon=SCORER_HORIZON)
+            t1 = time.perf_counter()
+            encode(pred, fc.key_names)
+            p_ms.append((t1 - t0) * 1e3)
+            e_ms.append((time.perf_counter() - t1) * 1e3)
+        out[str(n)] = {"predict_ms": statistics.median(p_ms[1:]),
+                       "encode_ms": statistics.median(e_ms[1:])}
+    return out
+
+
+def scorer_load(number: int, keys, key_names, keep_bodies: bool) -> dict:
+    """LOAD_CLIENTS threads of 1-series requests for LOAD_SECONDS, each with
+    its own seeded key sequence and a new connection a request (with more
+    clients than the scorer's http.workers, keep-alive clients would hold
+    every worker and the rest would wait out the window); the scorer's
+    /metrics read before and after."""
+    import threading
+
+    before = scorer_metrics(number)
+    lat, bodies, bad = [], {}, []
+    lock = threading.Lock()
+    barrier = threading.Barrier(LOAD_CLIENTS)
+
+    def client(i):
+        rng = np.random.default_rng(1000 + i)
+        mine = []
+        try:
+            barrier.wait()
+            stop = time.perf_counter() + LOAD_SECONDS
+            while time.perf_counter() < stop:
+                k = int(rng.integers(len(keys)))
+                payload = {"inputs": _inputs(keys[[k]], key_names),
+                           "horizon": SCORER_HORIZON}
+                t0 = time.perf_counter()
+                status, body, _ = http_call(number, "POST", "/invocations",
+                                            payload)
+                mine.append((time.perf_counter() - t0) * 1e3)
+                with lock:
+                    if status != 200:
+                        bad.append(status)
+                    elif keep_bodies:
+                        bodies.setdefault(k, set()).add(body)
+        finally:
+            with lock:
+                lat.extend(mine)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(LOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(LOAD_SECONDS + 300)
+    wall = time.perf_counter() - t0
+    after = scorer_metrics(number)
+    d = {k: after[k] - before[k] for k in after}
+    assert not bad, f"non-200 answers under load: {sorted(set(bad))}"
+    out = {"clients": LOAD_CLIENTS, "seconds": wall,
+           "requests": len(lat), "requests_per_s": len(lat) / wall,
+           **_pcts(lat),
+           "serving_requests_total": d["serving_requests_total"],
+           "serving_dispatches_total": d["serving_dispatches_total"],
+           "dispatches_per_request": (d["serving_dispatches_total"]
+                                      / max(d["serving_requests_total"], 1)),
+           "mean_batch_size": (d["serving_batch_size_sum"]
+                               / max(d["serving_batch_size_count"], 1))}
+    return out, bodies
+
+
+def scorer_admission(port, fc, number: int) -> dict:
+    """A burst of 64 concurrent all-series requests at a coalescing server
+    (in this process) with max_queue_depth 2: 429s with Retry-After: 1 and
+    200s only; then X-Deadline-Ms: 0 at the child scorer: 503, Retry-After:
+    1, before any dispatch."""
+    import threading
+
+    srv = port["server"].start_server(fc, batching=port["batcher"].BatchingConfig(
+        enabled=True, max_batch_size=64, max_wait_ms=5.0, max_queue_depth=2,
+        request_timeout_s=60.0))
+    answers = []
+    lock = threading.Lock()
+    barrier = threading.Barrier(64)
+    payload = {"inputs": scorer_requests(fc)[fc.n_series],
+               "horizon": SCORER_HORIZON}
+
+    def fire():
+        barrier.wait()
+        status, _, headers = http_call(srv.server_address[1], "POST",
+                                       "/invocations", payload)
+        with lock:
+            answers.append((status, headers.get("Retry-After")))
+
+    try:
+        threads = [threading.Thread(target=fire) for _ in range(64)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        rejected = srv.metrics.rejections.value
+    finally:
+        srv.shutdown()
+    statuses = sorted({s for s, _ in answers})
+    assert len(answers) == 64 and set(statuses) <= {200, 429}, statuses
+    n429 = sum(s == 429 for s, _ in answers)
+    assert n429 >= 1 and n429 == rejected, (n429, rejected)
+    assert all(r == "1" for s, r in answers if s == 429)
+    before = scorer_metrics(number)["serving_deadline_shed_total"]
+    status, body, headers = http_call(
+        number, "POST", "/invocations",
+        {"inputs": scorer_requests(fc)[1], "horizon": SCORER_HORIZON},
+        headers={"X-Deadline-Ms": "0"})
+    assert status == 503 and headers.get("Retry-After") == "1", status
+    assert b"deadline budget exhausted" in body
+    assert scorer_metrics(number)["serving_deadline_shed_total"] == before + 1
+    return {"burst": 64, "answered_200": 64 - n429, "answered_429": n429,
+            "retry_after": "1", "deadline_0": status}
+
+
+def quality64(merged: pd.DataFrame) -> dict:
+    """WAPE, RMSSE and coverage of actuals against served bands: each term
+    in float32 as the monitor forms it, summed per series and then over the
+    series in float64."""
+    acc = dict.fromkeys(("abs_err", "abs_y", "sq_err", "inside", "n",
+                         "naive_sq", "naive_n"), 0.0)
+    for _, g in merged.sort_values(["store", "item", "ds"]).groupby(
+            ["store", "item"], sort=False):
+        y, yhat = g["y"].to_numpy(np.float32), g["yhat"].to_numpy(np.float32)
+        lo = g["yhat_lower"].to_numpy(np.float32)
+        hi = g["yhat_upper"].to_numpy(np.float32)
+        ok = np.isfinite(y) & np.isfinite(yhat)
+        y0 = np.where(ok, y, np.float32(0))
+        err = np.where(ok, y - yhat, np.float32(0))
+        step = (pd.to_datetime(g["ds"]) - pd.Timestamp("1970-01-01")).dt.days
+        adj = ok[1:] & ok[:-1] & (np.diff(step.to_numpy()) == 1)
+        d = np.where(adj, y0[1:] - y0[:-1], np.float32(0))
+        terms = {"abs_err": np.abs(err), "abs_y": np.abs(y0),
+                 "sq_err": err * err,
+                 "inside": (ok & (y0 >= lo) & (y0 <= hi)).astype(np.float32),
+                 "n": ok.astype(np.float32), "naive_sq": d * d,
+                 "naive_n": adj.astype(np.float32)}
+        for k, v in terms.items():
+            acc[k] += float(np.sum(v.astype(np.float64)))
+    return {"wape": acc["abs_err"] / acc["abs_y"],
+            "rmsse": float(np.sqrt((acc["sq_err"] / acc["n"])
+                                   / (acc["naive_sq"] / acc["naive_n"]))),
+            "coverage": acc["inside"] / acc["n"], "observations": acc["n"]}
+
+
+def scorer_observe(port, number: int, fc, actuals: pd.DataFrame) -> dict:
+    """The last OBSERVE_DAYS days of actuals of the 17-series set through
+    POST /observe, and through an in-process QualityMonitor on the card:
+    both summaries equal a float64 numpy computation over the same actuals
+    and the bands the scorer serves for those days (within 1e-12: the
+    float64 sums' order)."""
+    keys = pd.DataFrame(scorer_requests(fc)[17])
+    last = actuals["date"].max()
+    obs = actuals[actuals["date"] > last - pd.Timedelta(days=OBSERVE_DAYS)]
+    obs = obs.merge(keys).rename(columns={"date": "ds", "sales": "y"})
+    obs = obs[["store", "item", "ds", "y"]].assign(
+        ds=lambda d: d["ds"].dt.strftime("%Y-%m-%d"))
+    status, body, _ = http_call(number, "POST", "/observe",
+                                {"observations": obs.to_dict("records")})
+    assert status == 200, (status, body[:300])
+    summary = json.loads(body)
+    horizon = max(1, int((pd.Timestamp(obs["ds"].max())
+                          - pd.Timestamp("1970-01-01")).days) - fc.day1)
+    status, body, _ = http_call(number, "POST", "/invocations", {
+        "inputs": keys.to_dict("records"), "horizon": horizon,
+        "include_history": True})
+    served = pd.DataFrame(json.loads(body)["predictions"])
+    want = quality64(obs.merge(served, on=["store", "item", "ds"]))
+    mon = port["quality"].QualityMonitor(
+        fc, port["quality"].QualityConfig(enabled=True))
+    mon.observe(obs)
+    snap = mon.snapshot()
+    for got in (summary, snap):
+        assert got["observations"] == int(want["observations"]) == len(obs)
+        assert got["series_observed"] == OBSERVE_SERIES
+        for m in ("wape", "rmsse", "coverage"):
+            assert abs(got["metrics"][m] - want[m]) <= 1e-12 * abs(want[m]), (
+                m, got["metrics"][m], want[m])
+    return {"observations": summary["observations"],
+            "series_observed": summary["series_observed"],
+            "served": summary["metrics"], "monitor_snapshot": snap["metrics"],
+            "numpy_float64": {m: want[m] for m in ("wape", "rmsse",
+                                                   "coverage")},
+            "nominal_coverage": summary["nominal_coverage"]}
+
+
+def scorer_auto(port, fc_auto) -> dict:
+    """The ``model: auto`` artifact behind a scorer in this process: every
+    launch counter set to 0 just before the HTTP requests (1 series arima
+    won, 17 with arima's among them, every series) and read just after;
+    arima_predict must have launched, and each body equals the in-process
+    predict's byte for byte."""
+    encode = port["server"]._encode_predictions
+    arima = fc_auto.models.index("arima")
+    won = np.flatnonzero(fc_auto.assignment == arima)
+    assert won.size, "arima won no series: the artifact serves no arima rows"
+    S = fc_auto.n_series
+    rows = {"1_arima": won[:1].tolist(),
+            "17": sorted(set(np.linspace(0, S - 1, 16).astype(int).tolist())
+                         | {int(won[0])}),
+            str(S): list(range(S))}
+    fs, kal = port["fs"], port["kalman"]
+    counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter,
+                "arima_filter": kal.arima_filter,
+                "arima_predict": kal.arima_predict}
+    srv = port["server"].start_server(fc_auto)
+    try:
+        for fn in counters.values():  # counters to 0 just before the path
+            fn.launches = 0
+        bodies = {}
+        for name, r in rows.items():
+            inputs = _inputs(fc_auto.keys[r], fc_auto.key_names)
+            status, body, _ = http_call(
+                srv.server_address[1], "POST", "/invocations",
+                {"inputs": inputs, "horizon": SCORER_HORIZON})
+            assert status == 200, (name, status, body[:300])
+            bodies[name] = (inputs, body)
+        launched = {k: fn.launches for k, fn in counters.items()}  # ... after
+    finally:
+        srv.shutdown()
+    emit("launches", path="scorer", **launched,
+         expected="arima_predict: 1 per request holding a series arima won")
+    # (a rehearsal on the CPU runs the twins, which count nothing)
+    assert launched["arima_predict"] >= 1 or DEVICE == "cpu", launched
+    for name, (inputs, body) in bodies.items():
+        want = encode(fc_auto.predict(pd.DataFrame(inputs),
+                                      horizon=SCORER_HORIZON),
+                      fc_auto.key_names)
+        assert body == want, name
+    served = pd.DataFrame(json.loads(bodies["1_arima"][1])["predictions"])
+    assert set(served["model"]) == {"arima"}
+    return {"family": fc_auto.family, "series_arima_won": int(won.size),
+            "launches": launched, "byte_equal": sorted(bodies)}
+
+
+def rowwise_cost(port, fc) -> dict:
+    """What bit-identical blocks across request buckets cost on the card:
+    the curve model's row-wise design product against the one GEMM it
+    replaces, and the in-order row scan against ``torch.cumsum``, at the
+    serving and training row counts (CUDA events, median of 5 samples of
+    20 back-to-back calls)."""
+    pg = port["pg"]
+    from distributed_forecasting_tpu_torch.models.base import cumsum_rows
+
+    day_all = torch.arange(fc.day0, fc.day1 + SCORER_HORIZON + 1,
+                           dtype=torch.int32, device="cuda")
+    X, layout = pg._design(day_all, fc.params.t0, fc.params.t1, fc.config)
+    F = layout["n_features"]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {"T_all": int(X.shape[0]), "F": F}
+    # the library calls' rows depend on the row count: the first row of
+    # each against the same row computed alone
+    beta = fc.params.beta[:, :F].contiguous()
+    v = torch.rand(500, X.shape[0], device="cuda", generator=g)
+    alone = {"gemm": beta[:1] @ X.T, "cumsum": torch.cumsum(v[:1], 1),
+             "design_product": pg._design_product(beta[:1], X),
+             "cumsum_rows": cumsum_rows(v[:1])}
+    out["row0_max_abs_diff_vs_alone"] = {
+        str(M): {"gemm": float(((beta[:M] @ X.T)[:1] - alone["gemm"])
+                               .abs().max()),
+                 "cumsum": float((torch.cumsum(v[:M], 1)[:1]
+                                  - alone["cumsum"]).abs().max()),
+                 "design_product": float((pg._design_product(beta[:M], X)[:1]
+                                          - alone["design_product"])
+                                         .abs().max()),
+                 "cumsum_rows": float((cumsum_rows(v[:M])[:1]
+                                       - alone["cumsum_rows"]).abs().max())}
+        for M in (2, 8, 24, 64, 500)}
+    for S in (1, 64, 500, 4096):
+        beta = torch.randn(S, F, device="cuda", generator=g)
+        v = torch.rand(S, X.shape[0], device="cuda", generator=g)
+        out[str(S)] = {
+            "design_product_ms": cuda_ms(lambda: pg._design_product(beta, X),
+                                         inner=20),
+            "gemm_ms": cuda_ms(lambda: beta @ X.T, inner=20),
+            "cumsum_rows_ms": cuda_ms(lambda: cumsum_rows(v), inner=20),
+            "torch_cumsum_ms": cuda_ms(lambda: torch.cumsum(v, 1), inner=20)}
+    return out
+
+
+def scorer_phase(port, card_line: str) -> dict:
+    """Phase 12: the online scorer.  Two artifacts registered in one store
+    (the curve model's calibrated one, forecasting-e2e's train on the
+    committed dataset, and a default-pool ``model: auto`` one); the shipped
+    serve conf, derived with the quality store and SLO off, started as
+    ``python -m distributed_forecasting_tpu_torch.tasks.serve`` twice
+    (batching off and on); correctness, latency, coalescing, admission,
+    /observe, and the arima kernel on the serving path."""
+    t_phase = time.perf_counter()
+    reg_module = port["tracking"]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for spec in (scorer_spec(port), auto_spec(port)):
+            name = spec["workflows"][0]["name"]
+            res = port["runner"].WorkflowRunner(
+                spec, env={"root": root}, device=DEVICE).run(name)
+            assert all(r["status"] == "OK" for r in res.values()), res
+        registry = reg_module.ModelRegistry(os.path.join(root, "registry"))
+        load = port["serving"].resolve_from_registry
+        fc, version = load(registry, SCORER_MODEL, stage="Staging",
+                           device=DEVICE)
+        fc_cpu, _ = load(registry, SCORER_MODEL, stage="Staging",
+                         device="cpu")
+        fc_auto, _ = load(registry, AUTO_MODEL, stage="Staging",
+                          device=DEVICE)
+        assert type(fc).__name__ == "BatchForecaster" and fc.coalesce_safe
+        assert fc.interval_scale is not None  # the calibrated artifact
+        confs = {}
+        for mode, batching in (("off", {"enabled": False}),
+                               ("on", {"enabled": True, "max_batch_size": 64,
+                                       "max_wait_ms": 5})):
+            confs[mode] = scorer_conf(port, root, SCORER_MODEL, batching)
+            emit("scorer_conf", batching=mode,
+                 derived_from="conf/tasks/serve_config.yml",
+                 changed=confs[mode][2])
+        requests = scorer_requests(fc)
+        with Scorer(confs["off"][0], confs["off"][1],
+                    os.path.join(root, "scorer_off.log")) as off, \
+                Scorer(confs["on"][0], confs["on"][1],
+                       os.path.join(root, "scorer_on.log")) as on:
+            out["ready"] = {"off": off.wait_ready(), "on": on.wait_ready()}
+            emit("scorer_ready", **out["ready"])
+            status, body, _ = http_call(off.port, "GET", "/health")
+            health = json.loads(body)
+            assert status == 200 and health["n_series"] == SHAPE[0], health
+            assert health["version"] == str(version.version), health
+            out["correctness"] = scorer_correctness(port, off.port, fc,
+                                                    fc_cpu, requests)
+            emit("scorer_correctness", health=health, **out["correctness"])
+
+            out["latency"] = scorer_latency(off.port, requests)
+            out["in_process"] = scorer_breakdown(port, fc, requests)
+            if DEVICE == "cuda":
+                frame = pd.DataFrame(requests[fc.n_series])
+                out["predict_500"] = idle_share(
+                    lambda: port["server"]._encode_predictions(
+                        fc.predict(frame, horizon=SCORER_HORIZON),
+                        fc.key_names))
+                busy = out["predict_500"].get("device_busy_ms")
+                p50 = out["latency"][str(fc.n_series)]["p50_ms"]
+                out["device_idle_share_500_served"] = (
+                    1.0 - busy / p50 if busy else "not measured")
+                out["rowwise"] = rowwise_cost(port, fc)
+                emit("scorer_rowwise_cost", card=card_line,
+                     **out["rowwise"])
+            emit("scorer_latency", card=card_line, batching="off",
+                 horizon=SCORER_HORIZON, by_series=out["latency"],
+                 in_process=out["in_process"],
+                 predict_and_encode_500=out.get("predict_500"),
+                 device_idle_share_500_served=out.get(
+                     "device_idle_share_500_served"))
+
+            load_off, _ = scorer_load(off.port, fc.keys, fc.key_names, False)
+            load_on, bodies = scorer_load(on.port, fc.keys, fc.key_names, True)
+            solo = {k: http_call(off.port, "POST", "/invocations", {
+                "inputs": _inputs(fc.keys[[k]], fc.key_names),
+                "horizon": SCORER_HORIZON})[1] for k in bodies}
+            mismatched = [k for k, seen in bodies.items() if seen != {solo[k]}]
+            assert not mismatched, f"coalesced bodies differ: {mismatched[:5]}"
+            load_on["coalesced_bodies_equal_solo"] = sum(
+                len(v) for v in bodies.values())
+            assert load_on["dispatches_per_request"] < 1.0, load_on
+            out["load"] = {"off": load_off, "on": load_on}
+            emit("scorer_coalescing", card=card_line, **out["load"])
+
+            out["admission"] = scorer_admission(port, fc, off.port)
+            emit("scorer_admission", **out["admission"])
+            actuals = port["data"].load_sales_csv(DATA)
+            out["observe"] = scorer_observe(port, off.port, fc, actuals)
+            emit("scorer_observe", **out["observe"])
+        out["exit"] = {"off": off.returncode, "on": on.returncode}
+        emit("scorer_stopped", signal="SIGTERM", returncodes=out["exit"])
+        out["auto"] = scorer_auto(port, fc_auto)
+        emit("scorer_kernels", **out["auto"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase12", seconds=out["seconds"])
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -3167,6 +3837,8 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.utils import config
     from distributed_forecasting_tpu_torch.workflows import runner
     from distributed_forecasting_tpu_torch.data import dataset, native
+    from distributed_forecasting_tpu_torch.monitoring import quality
+    from distributed_forecasting_tpu_torch.serving import batcher, server
 
     native_before = native_snapshot()
     card_line = card()
@@ -3181,7 +3853,8 @@ def main() -> int:
                 croston=croston, season=season, theta=theta,
                 monitoring=monitoring, tasks=tasks, reconcile=hierarchy,
                 reconcile_task=rec_task, arima=arima, kalman=kalman,
-                order=order, dataset=dataset, native=native)
+                order=order, dataset=dataset, native=native,
+                quality=quality, batcher=batcher, server=server)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -3235,6 +3908,7 @@ def main() -> int:
     complete = complete_phase(port, counters, card_line)
     arima_out = arima_phase(port, card_line)
     ragged = slice9_phase(port, counters, card_line)["bucketed"]
+    scorer = scorer_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -3261,7 +3935,8 @@ def main() -> int:
             for k in ("hw_score", "hw_filter")}
     for k, timed in (("arima_filter", at["arima_filter"]["fit"]),
                      ("arima_predict", at["arima_predict"])):
-        rows[k] = dict(launches=arima_out["launches"][k],
+        rows[k] = dict(launches=(arima_out["launches"][k]
+                                 + scorer["auto"]["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in
                                        arima_out["cases"][k].values()),
                        ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],

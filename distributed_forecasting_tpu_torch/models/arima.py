@@ -35,6 +35,7 @@ import torch
 
 from distributed_forecasting_tpu_torch.models.base import (
     _ndtri,
+    cumsum_rows,
     gaussian_quantiles,
     register_model,
 )
@@ -516,8 +517,8 @@ def _forecast_impl(params: ArimaParams, day_all, config: ArimaConfig, r: int):
     if config.d == 1:
         # integrate from the carried level and variance at the fit grid's
         # end, so the future continues the fitted path without a jump
-        path = params.level_end[:, None] + torch.cumsum(zf, dim=1)
-        var = params.var_end[:, None] + torch.cumsum(vf, dim=1)
+        path = params.level_end[:, None] + cumsum_rows(zf)
+        var = params.var_end[:, None] + cumsum_rows(vf)
     else:
         path, var = zf, vf
 

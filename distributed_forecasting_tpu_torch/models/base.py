@@ -30,6 +30,27 @@ def _ndtri(p, device) -> torch.Tensor:
                                                device=device))
 
 
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, dim=-1)`` in which every row adds its terms in
+    order, whatever the number of rows beside it, so a series' forecast does
+    not depend on the series computed with it (the serving coalescer's
+    contract, ``BatchForecaster.coalesce_safe``).
+
+    On the card PyTorch scans the last axis with a parallel scheme per row,
+    and a tensor with one row through CUB's device-wide scan, so a row's
+    rounding changes with the row count.  Scanned along the leading axis of
+    the transpose, each row gets one thread that adds in sequence; a lone
+    row is scanned beside a copy of itself, which keeps it off CUB.  On the
+    CPU every row is already summed in order."""
+    if x.device.type != "cuda":
+        return torch.cumsum(x, dim=-1)
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    cols = rows.t() if n > 1 else rows.t().expand(-1, 2)
+    out = torch.cumsum(cols.contiguous(), dim=0)[:, :n]
+    return out.t().reshape(x.shape)
+
+
 def gaussian_quantiles(forecast_fn: Callable, floor=None) -> Callable:
     """Exact quantile forecaster for families whose predictive is Gaussian in
     data space (``hi = yhat + z·sd``); the per-step sd is recovered from the

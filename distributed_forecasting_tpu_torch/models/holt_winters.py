@@ -34,6 +34,7 @@ import torch
 
 from distributed_forecasting_tpu_torch.models.base import (
     _ndtri,
+    cumsum_rows,
     gaussian_quantiles,
     history_splice,
     register_model,
@@ -358,7 +359,7 @@ def forecast(params: HWParams, day_all, t_end, config: HoltWintersConfig):
         + params.gamma[:, None] * (torch.remainder(j[None, :], float(m)) == 0)
     )
     cum = torch.cat(
-        [cj.new_zeros((S, 1)), torch.cumsum(cj**2, dim=1)[:, :-1]], dim=1
+        [cj.new_zeros((S, 1)), cumsum_rows(cj**2)[:, :-1]], dim=1
     )
     hclip = torch.clamp(h_unc.to(torch.int32) - 1, 0, T_all - 1).long()
     var_mult = 1.0 + torch.gather(cum, 1, hclip.expand(S, T_all))

@@ -542,6 +542,26 @@ def _ar_correction(params: CurveParams, day_all, t_end, p: int):
     return mean, var, fut
 
 
+# elements of the (rows, F, T) product one chunk of _design_product holds
+_PRODUCT_CHUNK = 1 << 24
+
+
+def _design_product(beta, X):
+    """``beta @ X.T``, (S, F) x (T, F) -> (S, T), with every entry a sum of
+    its F products in the same order whatever S.  One GEMM lets the library
+    pick its algorithm by S, so a series' path would change with the rows
+    computed beside it (the serving coalescer needs it not to,
+    ``BatchForecaster.coalesce_safe``); an elementwise product reduced over
+    its feature axis sums each entry alike.  The product is laid out
+    (rows, F, T), so the reduction reads along T, and rows go in chunks
+    that keep it under ``_PRODUCT_CHUNK`` elements."""
+    XT = X.t().contiguous()
+    step = max(1, _PRODUCT_CHUNK // max(XT.numel(), 1))
+    parts = [(beta[i:i + step, :, None] * XT[None]).sum(1)
+             for i in range(0, beta.shape[0], step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def _t_end_rows(t_end, device) -> torch.Tensor:
     """A scalar or per-row forecast start as a (1, 1) or (S, 1) column."""
     return torch.as_tensor(t_end, dtype=torch.float32, device=device).reshape(-1, 1)
@@ -561,7 +581,7 @@ def _predictive(params: CurveParams, day_all, t_end, config, xreg):
     # regressors: their contribution is added on top
     F0 = layout["n_features"]
     ys = params.y_scale[:, None]
-    zhat = (params.beta[:, :F0] @ X.T) * ys
+    zhat = _design_product(params.beta[:, :F0], X) * ys
     if _check_xreg(xreg, config, "forecast"):
         zhat = zhat + _regressor_contrib(params, xreg, F0) * ys
     t_end = _t_end_rows(t_end, dev)

@@ -1,11 +1,29 @@
 from distributed_forecasting_tpu_torch.monitoring.monitor import (
+    Counter,
+    Gauge,
+    Histogram,
+    LabeledCounter,
+    LabeledGauge,
+    MetricsRegistry,
     MonitorConfig,
     MonitorRegistry,
     degradation_report,
     detect_anomalies,
     drift_report,
+    escape_label_value,
+    render_labels,
     run_monitor,
+)
+from distributed_forecasting_tpu_torch.monitoring.quality import (
+    QualityConfig,
+    QualityMonitor,
+    QualityRuntime,
+    build_quality_runtime,
 )
 
 __all__ = ["MonitorConfig", "MonitorRegistry", "degradation_report",
-           "detect_anomalies", "drift_report", "run_monitor"]
+           "detect_anomalies", "drift_report", "run_monitor",
+           "Counter", "Gauge", "Histogram", "LabeledCounter", "LabeledGauge",
+           "MetricsRegistry", "escape_label_value", "render_labels",
+           "QualityConfig", "QualityMonitor", "QualityRuntime",
+           "build_quality_runtime"]

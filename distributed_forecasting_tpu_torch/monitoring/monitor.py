@@ -24,9 +24,15 @@ intent on the port's own :class:`DatasetCatalog`:
 Everything here is pandas and numpy in float64 on the host; the one number
 taken from torch is the band's z, the float32 inverse normal CDF, as the
 reference takes it from ``jax.scipy.special.ndtri`` (the two are within one
-float32 ulp).  The reference's live
-process metrics (counters, gauges, histograms, ``MetricsRegistry``) are not
-ported (ROADMAP Queue 1: P10).
+float32 ulp).
+
+The reference's live process metrics are here too, at the end: the
+Prometheus primitives (:class:`Counter`, :class:`Gauge`,
+:class:`LabeledCounter`, :class:`Histogram`, :class:`LabeledGauge`) and
+:class:`MetricsRegistry`, whose text exposition is byte-equal to the
+reference's for the same calls.  The scorer's ``GET /metrics`` renders them.
+The training-pipeline and ingest metric sets stay with the executor (ROADMAP
+Queue 1: P11) and streaming ingest (P9).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -500,3 +507,383 @@ def degradation_report(
     out_name = output_table or f"{config.table}_degradation"
     catalog.save_table(out_name, report)
     return report
+
+
+# ---------------------------------------------------------------------------
+# Live process metrics (counters/gauges/histograms + Prometheus exposition)
+#
+# The table-based monitors above close the loop on MODEL quality, offline.
+# The serving path needs the other half of the reference's monitoring story:
+# live process telemetry — request counters, queue depth, latency and
+# coalesced-batch-size distributions — scraped from the scorer itself
+# (serving/server.py's GET /metrics).  These are deliberately tiny,
+# dependency-free, thread-safe primitives in the Prometheus data model, not
+# a client-library vendoring: the image carries no prometheus_client, and a
+# scorer needs exactly counters, gauges and fixed-bucket histograms.
+# ---------------------------------------------------------------------------
+
+
+def _fmt_value(v: float) -> str:
+    """Prometheus sample value: integral floats render as integers."""
+    f = float(v)
+    return str(int(f)) if f.is_integer() and abs(f) < 1e15 else repr(f)
+
+
+def escape_label_value(value) -> str:
+    """Escape a label VALUE per the text exposition format 0.0.4: backslash,
+    double-quote and newline must be escaped inside the quoted value, in
+    this order (escaping the escape character first).  Label values are the
+    one place arbitrary strings (model families, AOT entry names, span
+    kinds) reach the exposition, so un-escaped quotes or newlines would let
+    one hostile or merely unlucky name corrupt the whole scrape."""
+    return (str(value)
+            .replace("\\", "\\\\")
+            .replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(text: str) -> str:
+    """HELP text escaping (format 0.0.4): backslash and newline only —
+    a newline in help text would otherwise terminate the comment line and
+    inject whatever follows as a sample line."""
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def render_labels(labels: Dict[str, str]) -> str:
+    """``{a="x",b="y"}`` with escaped values; empty dict renders nothing."""
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{k}="{escape_label_value(v)}"' for k, v in labels.items()
+    )
+    return "{" + inner + "}"
+
+
+class Counter:
+    """Monotonically increasing counter (thread-safe)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up; use a Gauge")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def render(self, name: str) -> List[str]:
+        return [f"{name} {_fmt_value(self.value)}"]
+
+    def snapshot(self) -> float:
+        return self.value
+
+
+class Gauge:
+    """Settable instantaneous value (thread-safe)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def render(self, name: str) -> List[str]:
+        return [f"{name} {_fmt_value(self.value)}"]
+
+    def snapshot(self) -> float:
+        return self.value
+
+
+class LabeledCounter:
+    """Counter family keyed by label values (thread-safe).
+
+    The plain :class:`Counter` covers fixed-name telemetry; this is the
+    labeled variant for low-cardinality breakdowns (AOT entry × outcome,
+    span kinds).  Values render with :func:`escape_label_value`, so family
+    members named with quotes/backslashes/newlines cannot corrupt the
+    exposition.  Keep label cardinality bounded by construction — every
+    distinct label combination is a live time series.
+    """
+
+    def __init__(self, label_names: Tuple[str, ...]) -> None:
+        if not label_names:
+            raise ValueError("labeled counter needs at least one label")
+        self._label_names = tuple(label_names)
+        self._values: Dict[Tuple[str, ...], float] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up; use a Gauge")
+        if set(labels) != set(self._label_names):
+            raise ValueError(
+                f"expected labels {self._label_names}, got {sorted(labels)}")
+        key = tuple(str(labels[k]) for k in self._label_names)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels) -> float:
+        key = tuple(str(labels[k]) for k in self._label_names)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def render(self, name: str) -> List[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return [
+            name
+            + render_labels(dict(zip(self._label_names, key)))
+            + f" {_fmt_value(v)}"
+            for key, v in items
+        ]
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return {
+            ",".join(f"{k}={v}" for k, v in zip(self._label_names, key)): val
+            for key, val in items
+        }
+
+
+class Histogram:
+    """Fixed-bucket histogram in the Prometheus cumulative-``le`` model.
+
+    Buckets are upper bounds; every observation also lands in the implicit
+    ``+Inf`` bucket, and ``sum``/``count`` ride along so scrapers can derive
+    means and quantile estimates.
+    """
+
+    def __init__(self, buckets: Tuple[float, ...]) -> None:
+        if not buckets:
+            raise ValueError("histogram needs at least one bucket bound")
+        self._uppers = tuple(sorted(float(b) for b in buckets))
+        self._counts = [0] * (len(self._uppers) + 1)  # +1 = +Inf
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        i = len(self._uppers)
+        for j, ub in enumerate(self._uppers):
+            if v <= ub:
+                i = j
+                break
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+
+    def _state(self) -> Tuple[List[int], float]:
+        """One consistent (counts, sum) pair; every read path derives from a
+        single locked snapshot so bucket counts and _sum never tear against
+        a concurrent observe()."""
+        with self._lock:
+            return list(self._counts), self._sum
+
+    @property
+    def count(self) -> int:
+        counts, _ = self._state()
+        return sum(counts)
+
+    @property
+    def sum(self) -> float:
+        _, total = self._state()
+        return total
+
+    def _cumulative(self, counts: List[int]) -> List[Tuple[str, int]]:
+        out, running = [], 0
+        for ub, c in zip(self._uppers, counts):
+            running += c
+            out.append((f"{ub:g}", running))
+        out.append(("+Inf", running + counts[-1]))
+        return out
+
+    def cumulative_buckets(self) -> List[Tuple[str, int]]:
+        counts, _ = self._state()
+        return self._cumulative(counts)
+
+    def render(self, name: str) -> List[str]:
+        counts, total = self._state()
+        lines = [
+            f'{name}_bucket{{le="{le}"}} {c}'
+            for le, c in self._cumulative(counts)
+        ]
+        lines.append(f"{name}_sum {_fmt_value(total)}")
+        lines.append(f"{name}_count {sum(counts)}")
+        return lines
+
+    def snapshot(self) -> Dict:
+        counts, total = self._state()
+        return {
+            "count": sum(counts),
+            "sum": total,
+            "buckets": dict(self._cumulative(counts)),
+        }
+
+    def snapshot_quantiles(
+        self, qs: Tuple[float, ...] = (0.5, 0.95, 0.99)
+    ) -> Dict[float, float]:
+        """Quantile estimates from ONE locked (counts, sum) snapshot — the
+        shared derivation the SLO evaluator and report scripts use instead
+        of re-deriving quantiles from bucket text ad hoc.
+
+        Prometheus ``histogram_quantile`` convention: each quantile reports
+        the upper bound of the bucket its rank falls in (no intra-bucket
+        interpolation — fixed buckets cannot support it honestly), clamped
+        to the highest FINITE bound when the rank lands in +Inf.  An empty
+        histogram reports NaN for every level, which no threshold compares
+        true against — an SLO on an idle endpoint stays quiet.
+        """
+        counts, _ = self._state()
+        total = sum(counts)
+        out: Dict[float, float] = {}
+        for q in qs:
+            if not 0.0 <= q <= 1.0:
+                raise ValueError(f"quantile {q} outside [0, 1]")
+            if total == 0:
+                out[q] = float("nan")
+                continue
+            rank = q * total
+            running = 0
+            value = self._uppers[-1]  # +Inf rank clamps to top finite bound
+            for ub, c in zip(self._uppers, counts):
+                running += c
+                if running >= rank and c:
+                    value = ub
+                    break
+            out[q] = float(value)
+        return out
+
+
+class LabeledGauge:
+    """Gauge family keyed by label values (thread-safe) — the settable
+    counterpart of :class:`LabeledCounter`, for per-rule/per-family live
+    values (SLO burn rates, rolling quality per model family).  Same
+    escaping and cardinality caveats as the labeled counter."""
+
+    def __init__(self, label_names: Tuple[str, ...]) -> None:
+        if not label_names:
+            raise ValueError("labeled gauge needs at least one label")
+        self._label_names = tuple(label_names)
+        self._values: Dict[Tuple[str, ...], float] = {}
+        self._lock = threading.Lock()
+
+    def _key(self, labels: Dict) -> Tuple[str, ...]:
+        if set(labels) != set(self._label_names):
+            raise ValueError(
+                f"expected labels {self._label_names}, got {sorted(labels)}")
+        return tuple(str(labels[k]) for k in self._label_names)
+
+    def set(self, value: float, **labels) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = float(value)
+
+    def value(self, **labels) -> float:
+        key = self._key(labels)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def render(self, name: str) -> List[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return [
+            name
+            + render_labels(dict(zip(self._label_names, key)))
+            + f" {_fmt_value(v)}"
+            for key, v in items
+        ]
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return {
+            ",".join(f"{k}={v}" for k, v in zip(self._label_names, key)): val
+            for key, val in items
+        }
+
+
+class MetricsRegistry:
+    """Named metrics + Prometheus text exposition (format 0.0.4).
+
+    One registry per scorer process; ``render_prometheus()`` is what the
+    ``GET /metrics`` endpoint returns, ``snapshot()`` is the JSON-friendly
+    view tests and in-process consumers use.
+    """
+
+    def __init__(self) -> None:
+        self._metrics: Dict[str, Tuple[str, str, object]] = {}
+        self._lock = threading.Lock()
+
+    def _register(self, name: str, kind: str, help_text: str, metric):
+        with self._lock:
+            if name in self._metrics:
+                raise ValueError(f"metric {name!r} already registered")
+            self._metrics[name] = (kind, help_text, metric)
+        return metric
+
+    def counter(self, name: str, help_text: str = "") -> Counter:
+        return self._register(name, "counter", help_text, Counter())
+
+    def gauge(self, name: str, help_text: str = "") -> Gauge:
+        return self._register(name, "gauge", help_text, Gauge())
+
+    def histogram(
+        self, name: str, buckets: Tuple[float, ...], help_text: str = ""
+    ) -> Histogram:
+        return self._register(name, "histogram", help_text, Histogram(buckets))
+
+    def labeled_counter(
+        self, name: str, label_names: Tuple[str, ...], help_text: str = ""
+    ) -> LabeledCounter:
+        return self._register(
+            name, "counter", help_text, LabeledCounter(label_names))
+
+    def labeled_gauge(
+        self, name: str, label_names: Tuple[str, ...], help_text: str = ""
+    ) -> LabeledGauge:
+        return self._register(
+            name, "gauge", help_text, LabeledGauge(label_names))
+
+    def items(self) -> List[Tuple[str, str, object]]:
+        """(name, kind, metric) triples from one locked registry snapshot —
+        the public walk the scrape loop uses (the metric objects are
+        themselves thread-safe, only the registry dict needs the lock)."""
+        with self._lock:
+            return [(n, k, m) for n, (k, _, m) in self._metrics.items()]
+
+    def render_prometheus(self) -> str:
+        with self._lock:
+            items = list(self._metrics.items())
+        lines: List[str] = []
+        for name, (kind, help_text, metric) in items:
+            if help_text:
+                lines.append(f"# HELP {name} {_escape_help(help_text)}")
+            lines.append(f"# TYPE {name} {kind}")
+            lines.extend(metric.render(name))
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            items = list(self._metrics.items())
+        return {name: metric.snapshot() for name, (_, _, metric) in items}

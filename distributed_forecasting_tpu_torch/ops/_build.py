@@ -14,8 +14,8 @@ cache).  Nothing here runs at import: the first launch builds.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -56,10 +56,24 @@ def build(name: str, sources) -> str:
 SOURCES = ["hw_score.cu", "hw_filter.cu", "arima_kalman.cu"]
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY = None
+# serializes the first build: concurrent first launches (the scorer's
+# handler threads) build and load the library once
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The port's kernel library (every source in ``SOURCES``), built on
-    first call."""
+    first call; thread-safe."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LIBRARY_LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = _load()
+    return _LIBRARY
+
+
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build("dftt_kernels", SOURCES))
     lib.hw_score_launch.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

@@ -1,6 +1,6 @@
 """Masked forecast-accuracy metrics as tensor reductions (port of the
 reference's ``ops/metrics.py``: the functions behind ``compute_all`` and
-``mase``).
+``mase``, and the serving quality monitor's ``quality_terms``).
 
 All functions take ``y, yhat: (..., T)`` and ``mask: (..., T)`` and reduce
 the last axis.  Division guards keep fully-masked rows finite (0, not NaN)
@@ -94,6 +94,41 @@ def coverage(y, lo, hi, mask):
     """Fraction of actuals inside [lo, hi]."""
     inside = ((y >= lo) & (y <= hi)).to(y.dtype)
     return _mean(inside, mask)
+
+
+def quality_terms(y, yhat, lo, hi, step, mask):
+    """Elementwise rolling-quality terms for ``monitoring/quality.py``, one
+    batched pass over every observed series (reference
+    ``ops/metrics.quality_terms``).
+
+    All inputs are ``(..., T)`` tensors on one device: ``y``, ``yhat``,
+    ``lo``, ``hi`` float32, ``step`` the integer period ordinal of each
+    observation, ``mask`` bool.  Returns per-point float32 term tensors; the
+    caller reduces them in float64 on the host, so the rolling sums neither
+    drift nor depend on a device's reduction order.
+
+    Terms: ``abs_err``/``abs_y`` (WAPE numerator/denominator), ``sq_err``
+    (RMSSE numerator), ``inside`` (coverage of the served [lo, hi] band),
+    ``n`` (observation count), ``naive_sq``/``naive_n`` (RMSSE denominator:
+    squared one-step naive differences over consecutive observed periods).
+    """
+    m = mask & torch.isfinite(y) & torch.isfinite(yhat)
+    mf = m.to(torch.float32)
+    y0 = torch.where(m, y, 0.0)
+    err = (y0 - torch.where(m, yhat, 0.0)) * mf
+    inside = ((y0 >= lo) & (y0 <= hi)).to(torch.float32) * mf
+    adj = (m[..., 1:] & m[..., :-1]
+           & ((step[..., 1:] - step[..., :-1]) == 1))
+    d = torch.where(adj, y0[..., 1:] - y0[..., :-1], 0.0)
+    return {
+        "abs_err": torch.abs(err),
+        "abs_y": torch.abs(y0) * mf,
+        "sq_err": err * err,
+        "inside": inside,
+        "n": mf,
+        "naive_sq": d * d,
+        "naive_n": adj.to(torch.float32),
+    }
 
 
 METRIC_FNS = {

@@ -87,8 +87,36 @@ def _bucket_ladder(sizes) -> tuple:
     return tuple(v for v in ladder if v <= top_bucket)
 
 
+def result_block_index(out: pd.DataFrame, key_names) -> tuple:
+    """``(T, {key tuple: block index})`` for a long predict result frame.
+
+    Every serving predict returns one contiguous ``T``-row block per series
+    (``_frame_skeleton`` tiles the dates per series); the micro-batching
+    coalescer (``serving/batcher.py``) scatters a merged result back with
+    this map: request ``r``'s rows are its keys' blocks concatenated in
+    ``r``'s own first-occurrence order, which is what a solo ``predict(r)``
+    returns.
+    """
+    uniq = out[list(key_names)].drop_duplicates()
+    n = len(uniq)
+    if n == 0:
+        return 0, {}
+    T = len(out) // n
+    return T, {tuple(row): i for i, row in enumerate(uniq.itertuples(index=False))}
+
+
 class BatchForecaster:
     """Loads once, predicts every requested series in one batched call."""
+
+    # predict / predict_quantiles return request-order T-row blocks per
+    # series that are BIT-IDENTICAL whatever the request's size bucket: every
+    # family's forecast works row by row, with no sum across series and no
+    # library call whose algorithm depends on the row count (the curve
+    # model's design product, models/prophet_glm._design_product; the
+    # cumulative sums, models/base.cumsum_rows).  The serving coalescer
+    # merges concurrent requests only for forecasters that declare it;
+    # composites (ensemble, bucketed) reorder rows by member and do not.
+    coalesce_safe = True
 
     def __init__(
         self,

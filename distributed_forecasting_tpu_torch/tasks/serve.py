@@ -1,0 +1,135 @@
+"""Serve task: registered model -> HTTP scoring endpoint (port of the
+reference's ``tasks/serve.py``).
+
+Resolves the latest (optionally stage-filtered) version from the registry,
+loads its artifact once onto the task's device (``cuda`` unless
+``DFTPU_PLATFORM=cpu``), warms the request-size buckets and serves
+``/invocations`` (``serving/server.py``)::
+
+    python -m distributed_forecasting_tpu_torch.tasks.serve \\
+        --conf-file conf/tasks/serve_config.yml
+
+Conf::
+
+    serving:
+      model_name: ForecastingBatchModel
+      stage: Staging          # optional latest-version filter
+      host: 0.0.0.0
+      port: 8080
+      warmup_sizes: [1, 8]    # run these request buckets before serving
+      warmup_horizon: 90
+      batching: {...}         # the micro-batching coalescer (strict)
+      http: {...}             # the data plane (strict)
+      tracing: {...}          # strict keys; no effect yet
+    monitoring:
+      quality: {...}          # POST /observe (monitoring/quality.py)
+
+What the port does not have yet, each checked before any artifact loads:
+``serving.ingest.enabled`` (ROADMAP Queue 1: P9), ``serving.anomaly.enabled``
+(P10), ``serving.cache.enabled`` (P12), ``tracing.debug_endpoints: true``
+(P11), ``monitoring.quality_store.enabled`` and ``monitoring.slo.enabled``
+(P12) raise ``NotImplementedError``.  ``tracing.enabled``,
+``compile_cache:`` and ``monitoring.cost`` change no result and are logged as
+having no effect (P11).  The ``fleet:`` and ``sharding:`` blocks belong to
+the fleet task (P12), as in the reference, whose serve task does not read
+them.
+"""
+
+from __future__ import annotations
+
+import time
+
+from distributed_forecasting_tpu_torch.monitoring.quality import (
+    build_quality_runtime,
+    check_unported_monitoring,
+)
+from distributed_forecasting_tpu_torch.serving.batcher import BatchingConfig
+from distributed_forecasting_tpu_torch.serving.dataplane import HttpConfig
+from distributed_forecasting_tpu_torch.serving.loader import resolve_from_registry
+from distributed_forecasting_tpu_torch.serving.server import (
+    UNPORTED_RUNTIMES,
+    serve,
+)
+from distributed_forecasting_tpu_torch.tasks.common import Task
+
+# the reference's serving.tracing keys (monitoring/trace.TraceConfig)
+_TRACING_KEYS = frozenset({"enabled", "ring_size", "jsonl_path", "dump_dir",
+                           "debug_endpoints", "profile_dir",
+                           "max_profile_seconds"})
+
+
+def check_tracing(conf, logger) -> None:
+    """The ``serving.tracing`` block: strict keys, as the reference's
+    ``TraceConfig.from_conf``; the debug endpoints are refused and the rest
+    has no effect until tracing is ported."""
+    conf = conf or {}
+    unknown = set(conf) - _TRACING_KEYS
+    if unknown:
+        raise ValueError(
+            f"unknown tracing conf key(s) {sorted(unknown)}; "
+            f"valid: {sorted(_TRACING_KEYS)}")
+    if conf.get("debug_endpoints"):
+        raise NotImplementedError(
+            "tracing.debug_endpoints: true (/debug/trace, /debug/profile; "
+            "monitoring/trace.py) is not ported yet (ROADMAP Queue 1: P11)")
+    if conf.get("enabled"):
+        logger.info("tracing.enabled: accepted; monitoring/trace.py is not "
+                    "ported, so the block has no effect in the port yet "
+                    "(ROADMAP Queue 1: P11)")
+
+
+class ServeTask(Task):
+    def launch(self) -> None:
+        conf = self.conf.get("serving", {})
+        name = conf.get("model_name", "ForecastingBatchModel")
+        stage = conf.get("stage")
+        # every block is checked before the registry load, so a conf typo
+        # or an unported block fails in milliseconds
+        batching = BatchingConfig.from_conf(conf.get("batching"))
+        check_tracing(conf.get("tracing"), self.logger)
+        http = HttpConfig.from_conf(conf.get("http"))
+        for block, (module, item) in UNPORTED_RUNTIMES.items():
+            if (conf.get(block) or {}).get("enabled"):
+                raise NotImplementedError(
+                    f"serving.{block}.enabled: true ({module}) is not "
+                    f"ported yet (ROADMAP Queue 1: {item})")
+        monitoring = self.conf.get("monitoring")
+        check_unported_monitoring(monitoring, self.logger)
+
+        forecaster, version = resolve_from_registry(
+            self.registry, name, stage=stage, device=self.device)
+        quality = build_quality_runtime(monitoring, forecaster)
+        if quality is not None:
+            self.logger.info("quality observability on (POST /observe)")
+        sizes = conf.get("warmup_sizes")
+        if sizes:
+            t0 = time.perf_counter()
+            n = forecaster.warmup(
+                horizon=int(conf.get("warmup_horizon", 90)),
+                sizes=[int(s) for s in sizes],
+            )
+            self.logger.info("warmed %d request-size bucket(s) in %.1fs", n,
+                             time.perf_counter() - t0)
+        self.logger.info(
+            "serving %s v%s (%d series) on %s, %s:%s (micro-batching %s)",
+            name, version.version, forecaster.n_series, self.device,
+            conf.get("host", "0.0.0.0"), conf.get("port", 8080),
+            "on" if batching.enabled else "off",
+        )
+        serve(
+            forecaster,
+            host=conf.get("host", "0.0.0.0"),
+            port=int(conf.get("port", 8080)),
+            model_version=str(version.version),
+            batching=batching,
+            quality=quality,
+            http=http,
+        )
+
+
+def entrypoint():
+    ServeTask().launch()
+
+
+if __name__ == "__main__":
+    entrypoint()

@@ -661,3 +661,131 @@ def test_native_tensorize_on_the_card_is_the_pandas_one(dev):
         assert getattr(nat, k).device.type == "cuda"
         assert torch.equal(getattr(nat, k), getattr(ref, k)), k
     assert (nat.keys == ref.keys).all() and nat.start_date == ref.start_date
+
+
+# -- the scorer (serving/server.py, batcher.py): a series' rows must be
+# bit-identical whatever the request's size bucket, or the coalescer's
+# merged responses would differ from solo ones.  On the card that needs the
+# curve model's design product and the cumulative sums to work row by row
+# (models/prophet_glm._design_product, models/base.cumsum_rows): one GEMM
+# and torch.cumsum pick their algorithm by the row count.
+
+
+def test_cumsum_rows_adds_each_row_in_order(dev):
+    from distributed_forecasting_tpu_torch.models.base import cumsum_rows
+
+    x = torch.rand(70, 300, device=dev)
+    seq = [x[:, 0]]
+    for j in range(1, x.shape[1]):
+        seq.append(seq[-1] + x[:, j])
+    seq = torch.stack(seq, dim=1)
+    for rows in (1, 2, 8, 70):
+        assert torch.equal(cumsum_rows(x[:rows]), seq[:rows]), rows
+
+
+def _served(dev, model, S=96, T=420):
+    from distributed_forecasting_tpu_torch import data, engine
+    from distributed_forecasting_tpu_torch.models import get_model
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+
+    df = data.synthetic_store_item_sales(n_stores=4, n_items=S // 4,
+                                         n_days=T, seed=17, missing_rate=0.03)
+    batch = data.tensorize(df, device=dev)
+    params, _ = engine.fit_forecast(batch, model, horizon=30)
+    scale = torch.linspace(0.8, 1.3, batch.n_series).numpy()
+    return BatchForecaster.from_fit(batch, params, model,
+                                    get_model(model).config_cls(),
+                                    interval_scale=scale)
+
+
+@pytest.mark.parametrize("model", ["prophet", "holt_winters", "arima"])
+def test_coalesced_blocks_equal_solo_blocks(dev, model):
+    """Each of 8 probed series: its block from a 1-series, an 8-series and a
+    64-series request (buckets 1, 8, 64), byte-equal through the server's
+    encoder, for predict with and without history and for quantiles."""
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.serving.server import (
+        _encode_predictions,
+    )
+
+    fc = _served(dev, model)
+    assert fc.coalesce_safe
+    keys = [tuple(map(int, k)) for k in fc.keys]
+    probe = keys[5:13]
+    calls = (
+        lambda r: fc.predict(r, horizon=30),
+        lambda r: fc.predict(r, horizon=30, include_history=True),
+        lambda r: fc.predict_quantiles(r, quantiles=(0.1, 0.5, 0.9),
+                                       horizon=30),
+    )
+    for call in calls:
+        solo = {k: _encode_predictions(call(pd.DataFrame([k], columns=list(
+            fc.key_names))), fc.key_names) for k in probe}
+        for size in (8, 64):
+            req = keys[:size] if size == 64 else probe
+            assert fc._bucket(len(req)) == size
+            out = call(pd.DataFrame(req, columns=list(fc.key_names)))
+            T = len(out) // len(req)
+            for j, k in enumerate(req):
+                if k in solo:
+                    block = out.iloc[j * T:(j + 1) * T].reset_index(drop=True)
+                    assert _encode_predictions(block, fc.key_names) == solo[k]
+
+
+def test_served_bodies_equal_the_in_process_predict(dev):
+    import json
+    import urllib.request
+
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.serving import server
+
+    fc = _served(dev, "holt_winters")
+    srv = server.start_server(fc)
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/invocations"
+        keys = [dict(zip(fc.key_names, map(int, k))) for k in fc.keys[:17]]
+        for inputs, extra in ((keys[:1], {}), (keys, {}),
+                              (keys, {"quantiles": [0.1, 0.9]})):
+            req = urllib.request.Request(url, data=json.dumps(
+                {"inputs": inputs, "horizon": 30, **extra}).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                body = r.read()
+            frame = pd.DataFrame(inputs)
+            want = (fc.predict_quantiles(frame, quantiles=(0.1, 0.9),
+                                         horizon=30) if extra
+                    else fc.predict(frame, horizon=30))
+            assert body == server._encode_predictions(want, fc.key_names)
+    finally:
+        srv.shutdown()
+
+
+def test_kernel_library_builds_once_from_concurrent_threads(dev, monkeypatch):
+    import threading
+
+    from distributed_forecasting_tpu_torch.ops import _build
+
+    builds = []
+    real_build = _build.build
+
+    def counted(*args, **kwargs):
+        builds.append(args)
+        return real_build(*args, **kwargs)
+
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    monkeypatch.setattr(_build, "build", counted)
+    barrier = threading.Barrier(8)
+    got = [None] * 8
+
+    def first_use(i):
+        barrier.wait()
+        got[i] = _build.library()
+
+    threads = [threading.Thread(target=first_use, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert len(builds) == 1
+    assert got[0] is not None and all(g is got[0] for g in got)

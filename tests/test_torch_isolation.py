@@ -63,8 +63,11 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.engine\n"
         "import distributed_forecasting_tpu_torch.ops._build\n"
         "import distributed_forecasting_tpu_torch.pipelines.training\n"
+        "import distributed_forecasting_tpu_torch.monitoring.quality\n"
         "import distributed_forecasting_tpu_torch.serving\n"
+        "import distributed_forecasting_tpu_torch.serving.server\n"
         "import distributed_forecasting_tpu_torch.tasks\n"
+        "import distributed_forecasting_tpu_torch.tasks.serve\n"
         "import distributed_forecasting_tpu_torch.tracking\n"
         "import distributed_forecasting_tpu_torch.workflows.runner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -126,14 +129,15 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
 
 def test_task_layer_refuses_to_run_without_a_card(no_cuda, tmp_path,
                                                   monkeypatch):
-    """Task, TrainingPipeline and WorkflowRunner resolve their device when
-    built: without a card they raise unless asked for the CPU, by argument
-    or by the DFTPU_PLATFORM switch."""
+    """Task (the serve task's too), TrainingPipeline and WorkflowRunner
+    resolve their device when built: without a card they raise unless asked
+    for the CPU, by argument or by the DFTPU_PLATFORM switch."""
     from distributed_forecasting_tpu_torch.data import DatasetCatalog
     from distributed_forecasting_tpu_torch.pipelines.training import (
         TrainingPipeline,
     )
     from distributed_forecasting_tpu_torch.tasks import CatalogTask
+    from distributed_forecasting_tpu_torch.tasks.serve import ServeTask
     from distributed_forecasting_tpu_torch.tracking import FileTracker
     from distributed_forecasting_tpu_torch.workflows import WorkflowRunner
 
@@ -143,6 +147,7 @@ def test_task_layer_refuses_to_run_without_a_card(no_cuda, tmp_path,
     tracker = FileTracker(str(tmp_path / "t"))
     calls = {
         "Task": lambda d: CatalogTask(init_conf=conf, device=d),
+        "ServeTask": lambda d: ServeTask(init_conf=conf, device=d),
         "TrainingPipeline": lambda d: TrainingPipeline(catalog, tracker,
                                                        device=d),
         "WorkflowRunner": lambda d: WorkflowRunner({"workflows": []},
@@ -156,6 +161,7 @@ def test_task_layer_refuses_to_run_without_a_card(no_cuda, tmp_path,
         assert call("cpu").device.type == "cpu"
     monkeypatch.setenv("DFTPU_PLATFORM", "cpu")
     assert calls["Task"](None).device.type == "cpu"
+    assert calls["ServeTask"](None).device.type == "cpu"
     assert calls["WorkflowRunner"](None).device.type == "cpu"
     # the switch is the task layer's: library entry points ignore it
     with pytest.raises(RuntimeError, match="device='cpu'"):

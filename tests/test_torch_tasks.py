@@ -1238,3 +1238,123 @@ def test_every_workflow_runs_to_its_end(tmp_path, name):
         assert last["n_items"] == 4
     if nodes[-1]["task"] == "monitor":
         assert last["rows"] > 0 and "n_anomalies" in last
+
+
+# -- the serve task (tasks/serve.py) ------------------------------------------
+
+
+def _serve_conf(root, **serving):
+    """conf/tasks/serve_config.yml as shipped, on ``root``, with the quality
+    store and the SLO evaluator (not ported) off, port 0 on localhost."""
+    with open(os.path.join(ROOT, "conf", "tasks", "serve_config.yml")) as f:
+        conf = yaml.safe_load(f)
+    conf["env"] = {"root": root}
+    conf["monitoring"]["quality_store"]["enabled"] = False
+    conf["monitoring"]["slo"]["enabled"] = False
+    conf["serving"].update(host="127.0.0.1", port=0, **serving)
+    return conf
+
+
+@pytest.mark.parametrize("block, item", [
+    ("serving.ingest", "P9"), ("serving.anomaly", "P10"),
+    ("serving.cache", "P12"), ("serving.tracing.debug_endpoints", "P11"),
+    ("monitoring.quality_store", "P12"), ("monitoring.slo", "P12"),
+], ids=["ingest", "anomaly", "cache", "debug_endpoints", "quality_store",
+        "slo"])
+def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
+                                                           monkeypatch,
+                                                           block, item):
+    """The registry under tmp_path is empty: had the task reached the model
+    load, it would fail there instead."""
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    monkeypatch.setattr(tserve, "resolve_from_registry", None)
+    conf = _serve_conf(str(tmp_path))
+    section, *path = block.split(".")
+    node = conf[section]
+    for key in path[:-1]:
+        node = node[key]
+    if path[-1] == "debug_endpoints":
+        node["debug_endpoints"] = True
+    else:
+        node[path[-1]]["enabled"] = True
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1: {item}\)"):
+        tserve.ServeTask(init_conf=conf, device="cpu").launch()
+
+
+@pytest.mark.parametrize("serving, match", [
+    ({"batching": {"max_batchsize": 8}}, "unknown batching conf key"),
+    ({"http": {"pool_sizes": 2}}, "unknown serving.http conf key"),
+    ({"tracing": {"ring": 1}}, "unknown tracing conf key"),
+], ids=["batching", "http", "tracing"])
+def test_serve_task_conf_typos_fail_before_loading(tmp_path, monkeypatch,
+                                                   serving, match):
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    monkeypatch.setattr(tserve, "resolve_from_registry", None)
+    with pytest.raises(ValueError, match=match):
+        tserve.ServeTask(init_conf=_serve_conf(str(tmp_path), **serving),
+                         device="cpu").launch()
+
+
+def test_serve_task_serves_the_registered_model(runs, monkeypatch):
+    """The shipped serve conf (store and SLO off) on the forecasting-e2e
+    store: the task resolves the Staging version, warms, and serves
+    /invocations and /observe; the result-neutral blocks are logged."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.serving import server as tserver
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    started = {}
+
+    def start(forecaster, host, port, **kw):  # serve() without blocking
+        started["srv"] = tserver.start_server(forecaster, host=host,
+                                              port=port, **kw)
+
+    monkeypatch.setattr(tserve, "serve", start)
+    _, root = runs["port"]
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("ServeTask").addHandler(handler)
+    try:
+        tserve.ServeTask(init_conf=_serve_conf(root), device="cpu").launch()
+    finally:
+        logging.getLogger("ServeTask").removeHandler(handler)
+    srv = started["srv"]
+    try:
+        text = [r.getMessage() for r in records]
+        for block in ("compile_cache", "tracing.enabled", "monitoring.cost"):
+            assert any(m.startswith(f"{block}: accepted") and "P11" in m
+                       for m in text), (block, text)
+        assert any(m.startswith("warmed 2 request-size bucket") for m in text)
+        fc = srv.forecaster
+        assert srv.model_version == str(_handles(root)[2].latest_version(
+            MODEL, stage="Staging").version)
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        keys = [dict(zip(fc.key_names, map(int, k))) for k in fc.keys[:2]]
+        req = urllib.request.Request(
+            url + "/invocations",
+            data=json.dumps({"inputs": keys, "horizon": 7}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = r.read()
+        want = tserver._encode_predictions(
+            fc.predict(pd.DataFrame(keys), horizon=7), fc.key_names)
+        assert body == want
+        catalog = _handles(root)[0]
+        hist = catalog.read_table("hackathon.sales.finegrain_forecasts")
+        hist = hist[hist["y"].notna()].tail(20)
+        obs = [{"store": int(r.store), "item": int(r.item),
+                "ds": str(pd.Timestamp(r.ds).date()), "y": float(r.y)}
+               for r in hist.itertuples()]
+        req = urllib.request.Request(
+            url + "/observe", data=json.dumps({"observations": obs}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            summary = json.loads(r.read())
+        assert summary["observations"] == 20
+        assert summary["nominal_coverage"] == 0.95
+    finally:
+        srv.shutdown()
