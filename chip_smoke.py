@@ -204,11 +204,13 @@ is not 0:
  12. scorer   the online scorer.  Two artifacts registered in one store:
               forecasting-e2e's train (the curve model, calibrated) on the
               committed dataset, and ``model: auto`` with the default
-              families.  conf/tasks/serve_config.yml, derived with the
-              quality store and the SLO evaluator off (not ported), started
-              twice as ``python -m
+              families.  conf/tasks/serve_config.yml as shipped (quality
+              store and SLO evaluator on), each child with its own store
+              directory, started twice as ``python -m
               distributed_forecasting_tpu_torch.tasks.serve`` (batching off,
-              and on with 64 / 5 ms); /readyz polled until 200.  Checks:
+              and on with 64 / 5 ms); the batching-off child also runs
+              ``serving.anomaly`` and ticks its scrape loop and SLO
+              evaluator every second; /readyz polled until 200.  Checks:
               /health's 500 series; bodies for 1, 17 and 500 series (and
               quantiles) byte-equal to ``_encode_predictions`` of the
               in-process predict on the card, and within 1e-5 of each row's
@@ -218,19 +220,31 @@ is not 0:
               max_queue_depth 2, 503 for X-Deadline-Ms: 0; /observe's summary
               and an in-process QualityMonitor's snapshot equal a float64
               numpy computation over 28 days of 17 series' actuals and the
-              served bands; both children exit on SIGTERM.  The auto
+              served bands; the latency SLI within one histogram bucket of
+              the client's p95, every rule's SLI on /metrics, no evaluation
+              error, and each burn rate equal to a recomputation from the
+              store's rows; /detect_anomalies (17 series x 28 days, spikes
+              planted) byte-equal to the in-process scorer, within the CPU
+              tests' tolerance of a CPU copy, every spike flagged; both
+              children exit on SIGTERM and the store is read back.  The auto
               artifact behind a scorer in this process, the counters set to
               0 just before its HTTP requests and read after: arima_predict
               launches, the served rows byte-equal to the in-process
-              predict.  Times: p50 / p95 / p99 of 200 sequential requests
+              predict; /detect_anomalies at in-process servers on both
+              artifacts (one arima_predict launch a request on the auto
+              one), and concurrent detection and forecast requests sharing
+              dispatches.  Times: p50 / p95 / p99 of 200 sequential requests
               at 1, 17 and 500 series, the device's idle share over the
               500-series request, requests/s, latency, dispatches per
               request and the mean coalesced batch under 32 clients with
-              batching off and on
+              batching off and on; /detect_anomalies at 17 x 28 and 500 x 20
+              points (sequential) and its predict / host split; one
+              ``scrape_once`` and one ``evaluate_once``; 1-series latency
+              with the store and SLO on against off
 
 The line before the last lists the kernels (launches, error, times, bound;
 launches and error include phase 11's bucketed calls and phase 12's
-arima_predict launches through HTTP);
+arima_predict launches through HTTP, /invocations and /detect_anomalies);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -3200,27 +3214,33 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def scorer_conf(port, root: str, model_name: str, batching: dict) -> tuple:
+def scorer_conf(port, root: str, model_name: str, batching: dict,
+                extra: dict) -> tuple:
     """conf/tasks/serve_config.yml with ``env.root``, the model, localhost
     and a free port, the batching block's fields in ``batching``, and the
-    quality store and SLO evaluator off (not ported: ROADMAP Queue 1,
-    P12).  Written beside the store; returns (path, port, what changed)."""
+    dotted keys of ``extra`` (the quality store's own directory: two
+    processes must never share an append cursor).  Written beside the store;
+    returns (path, port, what changed)."""
     conf = port["config"].load_conf(SERVE_CONF)
     number = free_port()
     conf["env"] = {"root": root}
     conf["serving"].update(model_name=model_name, host="127.0.0.1",
                            port=number)
     conf["serving"]["batching"].update(batching)
-    conf["monitoring"]["quality_store"]["enabled"] = False
-    conf["monitoring"]["slo"]["enabled"] = False
+    for key, value in extra.items():
+        *path, last = key.split(".")
+        node = conf
+        for k in path:
+            node = node[k]
+        assert last in node, key  # only keys the shipped conf has
+        node[last] = value
     path = os.path.join(root, f"serve_{number}.yml")
     with open(path, "w") as f:
         json.dump(conf, f)  # JSON is YAML
     changed = {"env.root": root, "serving.model_name": model_name,
                "serving.host": "127.0.0.1", "serving.port": number,
                **{f"serving.batching.{k}": v for k, v in batching.items()},
-               "monitoring.quality_store.enabled": False,
-               "monitoring.slo.enabled": False}
+               **extra}
     return path, number, changed
 
 
@@ -3380,12 +3400,13 @@ def scorer_correctness(port, number: int, fc, fc_cpu, requests) -> dict:
             "max_err_vs_cpu_of_row_scale": max_rel, "rtol": SCORER_RTOL}
 
 
-def scorer_latency(number: int, requests) -> dict:
+def scorer_latency(number: int, requests) -> tuple:
     """LATENCY_REQUESTS sequential requests at each size over one
-    keep-alive connection: host wall ms from send to the last body byte."""
+    keep-alive connection: host wall ms from send to the last body byte.
+    Returns the percentiles by size and every request's ms."""
     import http.client
 
-    out = {}
+    out, every = {}, []
     for n, inputs in requests.items():
         conn = http.client.HTTPConnection("127.0.0.1", number, timeout=300)
         payload = {"inputs": inputs, "horizon": SCORER_HORIZON}
@@ -3401,7 +3422,8 @@ def scorer_latency(number: int, requests) -> dict:
         finally:
             conn.close()
         out[str(n)] = _pcts(ms)
-    return out
+        every += ms
+    return out, every
 
 
 def scorer_breakdown(port, fc, requests) -> dict:
@@ -3698,14 +3720,464 @@ def rowwise_cost(port, fc) -> dict:
     return out
 
 
+# -- phase 12, slice 11: the store, the SLO evaluator, /detect_anomalies ----
+
+DETECT_DAYS, DETECT_SERIES = 28, 17
+DETECT_FULL_DAYS = 20  # x 500 series: 10,000 points, the shipped maximum
+DETECT_REQUESTS = {17: 50, 500: 10}  # sequential requests per size
+SPIKE_SD = 50.0  # planted spikes, in standard deviations of their series
+SPIKES = 12
+# card vs CPU on one stored artifact: the CPU tests' tolerances of a served
+# predict (tests/test_torch_anomaly.py), as fractions of the data's scale
+DETECT_TOL = {"arima": 1e-3}
+DETECT_TOL_DEFAULT = 1e-5
+SLO_TICK_S = 1.0  # the anomaly child's scrape and evaluation interval
+
+
+def anomaly_conf(port) -> dict:
+    """The shipped ``serving.anomaly`` block, enabled."""
+    block = port["config"].load_conf(SERVE_CONF)["serving"]["anomaly"]
+    return dict(block, enabled=True)
+
+
+def detect_points(actuals: pd.DataFrame, fc, n_series: int, days: int,
+                  seed: int = 12) -> tuple:
+    """The last ``days`` days of actuals of ``n_series`` series spread over
+    the catalog, with SPIKES points moved by SPIKE_SD standard deviations of
+    their series: (points frame, planted mask)."""
+    S = fc.n_series
+    rows = np.linspace(0, S - 1, n_series).astype(int)
+    keys = pd.DataFrame(fc.keys[rows], columns=list(fc.key_names))
+    last = actuals["date"].max()
+    pts = actuals[actuals["date"] > last - pd.Timedelta(days=days)]
+    pts = pts.merge(keys).rename(columns={"date": "ds", "sales": "y"})
+    pts = pts[["store", "item", "ds", "y"]].reset_index(drop=True)
+    sd = actuals.merge(keys).groupby(["store", "item"])["sales"].std()
+    rng = np.random.default_rng(seed)
+    planted = np.zeros(len(pts), dtype=bool)
+    planted[rng.choice(len(pts), SPIKES, replace=False)] = True
+    sign = np.where(np.arange(len(pts)) % 2 == 0, 1.0, -1.0)
+    spread = sd.loc[list(zip(pts["store"], pts["item"]))].to_numpy()
+    pts.loc[planted, "y"] = (pts["y"].to_numpy(np.float64)
+                             + SPIKE_SD * spread * sign)[planted]
+    pts["ds"] = pts["ds"].dt.strftime("%Y-%m-%d")
+    return pts, planted
+
+
+def _family_rows(fc, results) -> list:
+    """Each result's serving family (a composite's winner)."""
+    if not hasattr(fc, "assignment"):
+        return [fc.family] * len(results)
+    index = {tuple(map(int, k)): i for i, k in enumerate(fc.keys)}
+    return [fc.models[fc.assignment[index[(r["store"], r["item"])]]]
+            for r in results]
+
+
+def detect_vs(got: dict, want: dict, fc, scale: float) -> dict:
+    """One detection answer against another on the same points: keys, dates,
+    actuals and counts equal; bands within DETECT_TOL of the data's scale
+    per family; scores within that error's first-order propagation."""
+    for k in ("n_scored", "n_skipped", "threshold"):
+        assert got[k] == want[k], (k, got[k], want[k])
+    worst = {"band": 0.0, "score": 0.0}
+    z = want["threshold"]
+    for fam, g, w in zip(_family_rows(fc, want["results"]), got["results"],
+                         want["results"]):
+        for k in ("store", "item", "ds", "y"):
+            assert g[k] == w[k], (k, g, w)
+        e = DETECT_TOL.get(fam, DETECT_TOL_DEFAULT) * scale
+        for k in ("yhat", "yhat_lower", "yhat_upper"):
+            err = abs(g[k] - w[k])
+            assert err <= e, (fam, k, g, w)
+            worst["band"] = max(worst["band"], err / scale)
+        band = w["yhat_upper"] - w["yhat"]
+        tol = 2 * e * (z + 2 * w["anomaly_score"]) / band + 1e-6
+        err = abs(g["anomaly_score"] - w["anomaly_score"])
+        assert err <= tol, (fam, g, w)
+        worst["score"] = max(worst["score"], err)
+    return {"max_band_err_of_scale": worst["band"],
+            "max_score_abs_err": worst["score"]}
+
+
+def detect_served(port, number: int, fc, fc_cpu, pts, planted,
+                  counters=None) -> dict:
+    """POST /detect_anomalies at ``number``: the body is the in-process
+    scorer's on the card byte for byte, the CPU copy's within detect_vs,
+    and every planted point is flagged.  With ``counters``, each launch
+    counter is set to 0 just before the request and read just after."""
+    anomaly = port["anomaly"]
+    config = anomaly.AnomalyConfig.from_conf(anomaly_conf(port))
+    for fn in (counters or {}).values():
+        fn.launches = 0
+    status, body, _ = http_call(number, "POST", "/detect_anomalies",
+                                {"points": pts.to_dict("records")})
+    launched = {k: fn.launches for k, fn in (counters or {}).items()}
+    assert status == 200, (status, body[:300])
+    mine = anomaly.AnomalyScorer(fc, config).score(pts)
+    assert body == json.dumps(mine).encode(), "served != in-process"
+    out = json.loads(body)
+    cpu = anomaly.AnomalyScorer(fc_cpu, config).score(pts)
+    scale = float(np.abs(pts["y"].to_numpy(np.float64)).max())
+    versus = detect_vs(out, cpu, fc, scale)
+    flags = np.array([r["is_anomaly"] for r in out["results"]])
+    assert out["n_scored"] == len(pts) and flags[planted].all(), (
+        out["n_scored"], int(flags[planted].sum()))
+    return {"points": len(pts), "n_flagged": out["n_flagged"],
+            "planted_flagged": int(flags[planted].sum()),
+            "threshold": out["threshold"], "byte_equal_in_process": True,
+            "cpu": versus, "launches": launched}
+
+
+def scorer_detect(port, fc, fc_cpu, fc_auto, fc_auto_cpu, actuals,
+                  counters) -> dict:
+    """/detect_anomalies at in-process servers on the curve artifact and on
+    the ``model: auto`` one: detect_served's checks, with the launch
+    counters set to 0 just before the auto requests and read just after
+    (one arima_predict a request holding a series arima won); then, with
+    batching on, concurrent detection and forecast requests that share
+    dispatches."""
+    anomaly = port["anomaly"]
+    out = {}
+    for name, f, f_cpu in (("curve", fc, fc_cpu),
+                           ("auto", fc_auto, fc_auto_cpu)):
+        srv = port["server"].start_server(
+            f, anomaly=anomaly.AnomalyScorer(
+                f, anomaly.AnomalyConfig.from_conf(anomaly_conf(port))))
+        try:
+            pts, planted = detect_points(actuals, f, DETECT_SERIES,
+                                         DETECT_DAYS)
+            if name == "auto":
+                arima = f.models.index("arima")
+                won = set(np.flatnonzero(f.assignment == arima).tolist())
+                index = {tuple(map(int, k)): i for i, k in enumerate(f.keys)}
+                rows = {index[(a, b)] for a, b in zip(pts["store"],
+                                                      pts["item"])}
+                assert rows & won, "no arima series among the points"
+            out[name] = detect_served(port, srv.server_address[1], f, f_cpu,
+                                      pts, planted, counters)
+            if name == "auto":
+                # one batched predict a request: one arima_predict launch
+                # (a rehearsal on the CPU runs the twins, which count none)
+                got = out[name]["launches"]["arima_predict"]
+                assert got == 1 or DEVICE == "cpu", out[name]["launches"]
+        finally:
+            srv.shutdown()
+    out["coalescing"] = detect_coalescing(port, fc, actuals)
+    return out
+
+
+def detect_coalescing(port, fc, actuals) -> dict:
+    """Sixteen concurrent clients at a coalescing server in this process,
+    half POST /detect_anomalies of one series, half /invocations of one:
+    fewer dispatches than requests, and every detection body equal to the
+    scorer's answer for that series alone."""
+    import threading
+
+    anomaly = port["anomaly"]
+    config = anomaly.AnomalyConfig.from_conf(anomaly_conf(port))
+    srv = port["server"].start_server(
+        fc, anomaly=anomaly.AnomalyScorer(fc, config),
+        batching=port["batcher"].BatchingConfig(
+            enabled=True, max_batch_size=64, max_wait_ms=50.0,
+            max_queue_depth=64, request_timeout_s=120.0))
+    pts, _ = detect_points(actuals, fc, 8, DETECT_DAYS)
+    per = [g for _, g in pts.groupby(["store", "item"], sort=False)]
+    solo = [json.dumps(anomaly.AnomalyScorer(fc, config).score(g)).encode()
+            for g in per]
+    bodies, statuses = [None] * len(per), []
+    barrier = threading.Barrier(2 * len(per))
+    number = srv.server_address[1]
+
+    def detect(i):
+        barrier.wait()
+        status, bodies[i], _ = http_call(number, "POST", "/detect_anomalies",
+                                         {"points": per[i].to_dict("records")})
+        statuses.append(status)
+
+    def forecast(i):
+        barrier.wait()
+        statuses.append(http_call(number, "POST", "/invocations", {
+            "inputs": _inputs(fc.keys[[i]], fc.key_names),
+            "horizon": SCORER_HORIZON})[0])
+
+    try:
+        threads = ([threading.Thread(target=detect, args=(i,))
+                    for i in range(len(per))]
+                   + [threading.Thread(target=forecast, args=(i,))
+                      for i in range(len(per))])
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        snap = srv.metrics.snapshot()
+    finally:
+        srv.shutdown()
+    assert statuses == [200] * len(threads), statuses
+    assert bodies == solo, "coalesced detection != solo detection"
+    requests = len(threads)
+    assert snap["serving_dispatches_total"] < requests, snap
+    return {"requests": requests,
+            "dispatches": snap["serving_dispatches_total"],
+            "detect_bodies_equal_solo": len(per)}
+
+
+def scorer_detect_latency(number: int, sets: dict) -> dict:
+    """DETECT_REQUESTS sequential POST /detect_anomalies per point set over
+    one keep-alive connection: host wall ms from send to the last byte."""
+    import http.client
+
+    out = {}
+    for name, pts in sets.items():
+        conn = http.client.HTTPConnection("127.0.0.1", number, timeout=300)
+        payload = {"points": pts.to_dict("records")}
+        ms = []
+        try:
+            http_call(number, "POST", "/detect_anomalies", payload, conn=conn)
+            for _ in range(DETECT_REQUESTS[int(name.split("x")[0])]):
+                t0 = time.perf_counter()
+                status = http_call(number, "POST", "/detect_anomalies",
+                                   payload, conn=conn)[0]
+                ms.append((time.perf_counter() - t0) * 1e3)
+                assert status == 200, status
+        finally:
+            conn.close()
+        out[name] = {"points": len(pts), **_pcts(ms)}
+    return out
+
+
+def scorer_detect_split(port, fc, sets: dict) -> dict:
+    """Where a detection's time goes in this process: the predict (bound as
+    the scorer's execute, ending in host pulls) against everything else of
+    ``score`` (the merge and the per-point results), medians of 5 calls
+    after one warm-up."""
+    anomaly = port["anomaly"]
+    scorer = anomaly.AnomalyScorer(
+        fc, anomaly.AnomalyConfig.from_conf(anomaly_conf(port)))
+    spent = []
+
+    def execute(frame, horizon, include_history, quantiles, on_missing,
+                xreg):
+        t0 = time.perf_counter()
+        pred = fc.predict(frame, horizon=horizon,
+                          include_history=include_history,
+                          on_missing=on_missing)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return pred
+
+    scorer.bind_execute(execute)
+    out = {}
+    for name, pts in sets.items():
+        total, predict = [], []
+        for _ in range(6):
+            spent.clear()
+            t0 = time.perf_counter()
+            scorer.score(pts)
+            total.append((time.perf_counter() - t0) * 1e3)
+            predict.append(spent[0])
+        p, t = statistics.median(predict[1:]), statistics.median(total[1:])
+        out[name] = {"score_ms": t, "predict_ms": p, "host_ms": t - p}
+    return out
+
+
+def _samples(text: str, name: str) -> dict:
+    """{label string: value} of one family in a Prometheus exposition."""
+    import re
+
+    return {m.group(1) or "": float(m.group(2)) for m in re.finditer(
+        rf"^{name}(\{{[^}}]*\}})? (\S+)$", text, re.M)}
+
+
+def read_store(directory: str) -> list:
+    """Every row of a quality store, read as plain JSON lines."""
+    rows = []
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("seg-") and name.endswith(".jsonl"):
+            with open(os.path.join(directory, name)) as f:
+                rows += [json.loads(x) for x in f.read().splitlines()
+                         if x.strip()]
+    return rows
+
+
+def slo_latency_check(number: int, client_ms: list) -> dict:
+    """After one evaluation tick: the latency rule's SLI on /metrics lies
+    within one histogram bucket of the client's own p95 over the same
+    sequential requests."""
+    import bisect
+
+    from distributed_forecasting_tpu_torch.serving.batcher import (
+        _LATENCY_BUCKETS,
+    )
+
+    time.sleep(2 * SLO_TICK_S)
+    text = http_call(number, "GET", "/metrics")[1].decode()
+    sli = _samples(text, "dftpu_slo_sli")['{rule="predict_latency_p95"}']
+    p95 = float(np.percentile(np.asarray(client_ms), 95)) / 1e3
+    buckets = [bisect.bisect_left(_LATENCY_BUCKETS, v) for v in (sli, p95)]
+    assert abs(buckets[0] - buckets[1]) <= 1, (sli, p95)
+    return {"sli_p95_s": sli, "client_p95_s": p95,
+            "buckets": [list(_LATENCY_BUCKETS)[i] if i < len(
+                _LATENCY_BUCKETS) else "+Inf" for i in buckets]}
+
+
+def slo_burn_check(number: int, store_dir: str, budget: float,
+                   windows) -> dict:
+    """Every rule's SLI on /metrics, no evaluation error, and each burn-rate
+    gauge equal to mean(bad) / error_budget recomputed from the store's own
+    rows at the tick that set it (one of the last three: the loop ticks
+    every second while this reads)."""
+    time.sleep(2 * SLO_TICK_S)
+    text = http_call(number, "GET", "/metrics")[1].decode()
+    rows = [r for r in read_store(store_dir) if r["name"] == "dftpu_slo_bad"]
+    rules = ("predict_latency_p95", "calibration_coverage",
+             "model_staleness")
+    slis = _samples(text, "dftpu_slo_sli")
+    assert all(f'{{rule="{r}"}}' in slis for r in rules), slis
+    assert _samples(text, "dftpu_slo_evaluation_errors_total") == {"": 0.0}
+    burns = _samples(text, "dftpu_slo_burn_rate")
+    stamps = sorted({r["ts"] for r in rows})[-3:]
+
+    def recompute(now):
+        out = {}
+        for rule in rules:
+            for w, _ in windows:
+                pts = [r["value"] for r in rows
+                       if r["labels"].get("rule") == rule
+                       and r["ts"] >= now - w]
+                out[f'{{rule="{rule}",window="{w:g}s"}}'] = (
+                    (sum(pts) / len(pts)) / budget if pts else 0.0)
+        return out
+
+    match = [now for now in stamps if recompute(now) == burns]
+    assert match, (burns, [recompute(n) for n in stamps])
+    return {"sli": {k[7:-2]: v for k, v in slis.items()},
+            "burn_rates": burns, "recomputed_at_tick": match[-1],
+            "bad_rows": len(rows), "evaluation_errors": 0,
+            "evaluations": _samples(
+                text, "dftpu_slo_evaluations_total")[""]}
+
+
+def store_readback(store_dir: str, stopped_at: float) -> dict:
+    """The anomaly child's store after it stopped (SIGTERM leaves no final
+    scrape: the rows are the 1 s ticks'): serving, quality and SLO series,
+    the newest within a few ticks of the stop."""
+    rows = read_store(store_dir)
+    names = {r["name"] for r in rows}
+    for want in ("serving_requests_total", "serving_request_latency_"
+                 "seconds_p95", "dftpu_quality_wape", "dftpu_slo_bad",
+                 "dftpu_slo_evaluations_total"):
+        assert want in names, (want, sorted(names)[:40])
+    newest = max(r["ts"] for r in rows)
+    assert stopped_at - newest <= 10 * SLO_TICK_S, (stopped_at, newest)
+    return {"rows": len(rows), "series": len(names),
+            "segments": len([n for n in os.listdir(store_dir)
+                             if n.endswith(".jsonl")]),
+            "bytes": sum(os.path.getsize(os.path.join(store_dir, n))
+                         for n in os.listdir(store_dir)),
+            "newest_row_s_before_stop": stopped_at - newest}
+
+
+def evaluate_at_size(port, store_dir: str, slo_block: dict) -> dict:
+    """One ``evaluate_once`` over the anomaly child's store as it stopped
+    (each rule and window reads the segments whole, so its time grows with
+    the store): medians of 3, with the rows and bytes it read."""
+    from distributed_forecasting_tpu_torch.monitoring import slo, store
+
+    st = store.TimeSeriesStore(store_dir)
+    rows, size = len(read_store(store_dir)), st.stats()["bytes"]
+    ev = slo.SLOEvaluator(slo.SLOConfig.from_conf(slo_block), st,
+                          staleness_fn=lambda: time.time())
+    now = time.time()
+    ms = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        ev.evaluate_once(now=now + k)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    st.query()
+    return {"evaluate_once_ms": statistics.median(ms),
+            "one_query_ms": (time.perf_counter() - t0) * 1e3,
+            "rows": rows, "bytes": size}
+
+
+def monitoring_cost(port, fc, root: str) -> dict:
+    """What the store and the SLO evaluator cost the scorer, in this
+    process: 1-series /invocations p50 / p95 at a server with the shipped
+    monitoring blocks (scrape and evaluation every SLO_TICK_S) and at one
+    with the quality monitor alone, LATENCY_REQUESTS each, interleaved in
+    four rounds; then one ``scrape_once`` and one ``evaluate_once`` in ms,
+    with the points each writes."""
+    import http.client
+
+    quality = port["quality"]
+    shipped = port["config"].load_conf(SERVE_CONF)["monitoring"]
+    on_conf = json.loads(json.dumps(shipped))
+    on_conf["quality_store"].update(
+        directory=os.path.join(root, "quality_store_cost"),
+        scrape_interval_s=SLO_TICK_S)
+    on_conf["slo"]["evaluation_interval_s"] = SLO_TICK_S
+    off_conf = {"quality": shipped["quality"]}
+    tracking = os.path.join(root, "mlruns")  # the tasks' tracking root
+    assert os.path.isdir(tracking), tracking
+    servers = {
+        "on": port["server"].start_server(fc, quality=quality.build_quality_runtime(
+            on_conf, fc, tracking_root=tracking)),
+        "off": port["server"].start_server(fc, quality=quality.build_quality_runtime(
+            off_conf, fc)),
+    }
+    payload = {"inputs": scorer_requests(fc)[1], "horizon": SCORER_HORIZON}
+    ms = {"on": [], "off": []}
+    try:
+        conns = {k: http.client.HTTPConnection(
+            "127.0.0.1", srv.server_address[1], timeout=300)
+            for k, srv in servers.items()}
+        for k, c in conns.items():
+            http_call(None, "POST", "/invocations", payload, conn=c)
+        for _ in range(4):
+            for k in ("on", "off"):
+                for _ in range(LATENCY_REQUESTS // 4):
+                    t0 = time.perf_counter()
+                    status = http_call(None, "POST", "/invocations", payload,
+                                       conn=conns[k])[0]
+                    ms[k].append((time.perf_counter() - t0) * 1e3)
+                    assert status == 200, status
+        for c in conns.values():
+            c.close()
+        rt = servers["on"].quality
+        now = time.time()
+        t0 = time.perf_counter()
+        scraped = rt.scrape.scrape_once(now=now + 0.5)
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rt.slo.evaluate_once(now=now + 0.75)
+        evaluate_ms = (time.perf_counter() - t0) * 1e3
+        slo_points = len(rt.store.query(name="dftpu_slo_bad",
+                                        since=now + 0.75, until=now + 0.75))
+        slo_points += len(rt.store.query(name="dftpu_slo_sli",
+                                         since=now + 0.75, until=now + 0.75))
+        assert slo_points == 4, slo_points  # latency and staleness rules
+        store_bytes = rt.store.stats()["bytes"]
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+    return {"invocations_1_series": {k: _pcts(v) for k, v in ms.items()},
+            "scrape_once_ms": scrape_ms, "scrape_points": scraped,
+            "evaluate_once_ms": evaluate_ms, "evaluate_points": slo_points,
+            "store_bytes": store_bytes,
+            "tick_s": SLO_TICK_S}
+
+
 def scorer_phase(port, card_line: str) -> dict:
     """Phase 12: the online scorer.  Two artifacts registered in one store
     (the curve model's calibrated one, forecasting-e2e's train on the
     committed dataset, and a default-pool ``model: auto`` one); the shipped
-    serve conf, derived with the quality store and SLO off, started as
-    ``python -m distributed_forecasting_tpu_torch.tasks.serve`` twice
-    (batching off and on); correctness, latency, coalescing, admission,
-    /observe, and the arima kernel on the serving path."""
+    serve conf, started as ``python -m
+    distributed_forecasting_tpu_torch.tasks.serve`` twice (batching off and
+    on), each with its own quality store directory; the batching-off child
+    also runs the anomaly scorer and ticks its scrape loop and SLO evaluator
+    every second.  Correctness, latency, coalescing, admission, /observe,
+    the SLO gauges against the store's rows, /detect_anomalies, the store
+    read back after the children stop, and the arima kernel on the serving
+    path."""
     t_phase = time.perf_counter()
     reg_module = port["tracking"]
     out = {}
@@ -3723,17 +4195,30 @@ def scorer_phase(port, card_line: str) -> dict:
                          device="cpu")
         fc_auto, _ = load(registry, AUTO_MODEL, stage="Staging",
                           device=DEVICE)
+        fc_auto_cpu, _ = load(registry, AUTO_MODEL, stage="Staging",
+                              device="cpu")
         assert type(fc).__name__ == "BatchForecaster" and fc.coalesce_safe
         assert fc.interval_scale is not None  # the calibrated artifact
+        stores = {m: os.path.join(root, f"quality_store_{m}")
+                  for m in ("off", "on")}
         confs = {}
         for mode, batching in (("off", {"enabled": False}),
                                ("on", {"enabled": True, "max_batch_size": 64,
                                        "max_wait_ms": 5})):
-            confs[mode] = scorer_conf(port, root, SCORER_MODEL, batching)
+            extra = {"monitoring.quality_store.directory": stores[mode]}
+            if mode == "off":
+                extra.update({
+                    "serving.anomaly.enabled": True,
+                    "monitoring.quality_store.scrape_interval_s": SLO_TICK_S,
+                    "monitoring.slo.evaluation_interval_s": SLO_TICK_S})
+            confs[mode] = scorer_conf(port, root, SCORER_MODEL, batching,
+                                      extra)
             emit("scorer_conf", batching=mode,
                  derived_from="conf/tasks/serve_config.yml",
                  changed=confs[mode][2])
+        slo_block = port["config"].load_conf(SERVE_CONF)["monitoring"]["slo"]
         requests = scorer_requests(fc)
+        actuals = port["data"].load_sales_csv(DATA)
         with Scorer(confs["off"][0], confs["off"][1],
                     os.path.join(root, "scorer_off.log")) as off, \
                 Scorer(confs["on"][0], confs["on"][1],
@@ -3748,7 +4233,8 @@ def scorer_phase(port, card_line: str) -> dict:
                                                     fc_cpu, requests)
             emit("scorer_correctness", health=health, **out["correctness"])
 
-            out["latency"] = scorer_latency(off.port, requests)
+            out["latency"], every_ms = scorer_latency(off.port, requests)
+            out["slo_latency"] = slo_latency_check(off.port, every_ms)
             out["in_process"] = scorer_breakdown(port, fc, requests)
             if DEVICE == "cuda":
                 frame = pd.DataFrame(requests[fc.n_series])
@@ -3768,7 +4254,8 @@ def scorer_phase(port, card_line: str) -> dict:
                  in_process=out["in_process"],
                  predict_and_encode_500=out.get("predict_500"),
                  device_idle_share_500_served=out.get(
-                     "device_idle_share_500_served"))
+                     "device_idle_share_500_served"),
+                 slo_latency=out["slo_latency"])
 
             load_off, _ = scorer_load(off.port, fc.keys, fc.key_names, False)
             load_on, bodies = scorer_load(on.port, fc.keys, fc.key_names, True)
@@ -3785,13 +4272,49 @@ def scorer_phase(port, card_line: str) -> dict:
 
             out["admission"] = scorer_admission(port, fc, off.port)
             emit("scorer_admission", **out["admission"])
-            actuals = port["data"].load_sales_csv(DATA)
             out["observe"] = scorer_observe(port, off.port, fc, actuals)
             emit("scorer_observe", **out["observe"])
+            out["slo"] = slo_burn_check(
+                off.port, stores["off"], float(slo_block["error_budget"]),
+                slo_block["windows"])
+            emit("scorer_slo", card=card_line, tick_s=SLO_TICK_S,
+                 latency=out["slo_latency"], **out["slo"])
+
+            sets = {f"{DETECT_SERIES}x{DETECT_DAYS}": detect_points(
+                        actuals, fc, DETECT_SERIES, DETECT_DAYS),
+                    f"{fc.n_series}x{DETECT_FULL_DAYS}": detect_points(
+                        actuals, fc, fc.n_series, DETECT_FULL_DAYS)}
+            first = next(iter(sets))
+            out["detect_child"] = detect_served(port, off.port, fc, fc_cpu,
+                                                *sets[first])
+            frames = {k: v[0] for k, v in sets.items()}
+            out["detect_latency"] = scorer_detect_latency(off.port, frames)
+            out["detect_split"] = scorer_detect_split(port, fc, frames)
+            emit("scorer_detect_latency", card=card_line, batching="off",
+                 served=out["detect_child"], by_points=out["detect_latency"],
+                 in_process=out["detect_split"])
+        stopped_at = time.time()
         out["exit"] = {"off": off.returncode, "on": on.returncode}
         emit("scorer_stopped", signal="SIGTERM", returncodes=out["exit"])
+        # the batching-on child scrapes at the shipped 30 s: it may have
+        # written no row before it stopped
+        out["store"] = {"off": store_readback(stores["off"], stopped_at),
+                        "on": {"rows": len(read_store(stores["on"]))}}
+        out["store"]["off"]["at_size"] = evaluate_at_size(
+            port, stores["off"], slo_block)
+        emit("scorer_store", **out["store"])
         out["auto"] = scorer_auto(port, fc_auto)
         emit("scorer_kernels", **out["auto"])
+        fs, kal = port["fs"], port["kalman"]
+        counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter,
+                    "arima_filter": kal.arima_filter,
+                    "arima_predict": kal.arima_predict}
+        out["detect"] = scorer_detect(port, fc, fc_cpu, fc_auto, fc_auto_cpu,
+                                      actuals, counters)
+        emit("scorer_detect", **out["detect"])
+        out["monitoring_cost"] = monitoring_cost(port, fc, root)
+        emit("scorer_monitoring_cost", card=card_line,
+             **out["monitoring_cost"])
     out["seconds"] = time.perf_counter() - t_phase
     emit("phase12", seconds=out["seconds"])
     return out
@@ -3838,7 +4361,7 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.workflows import runner
     from distributed_forecasting_tpu_torch.data import dataset, native
     from distributed_forecasting_tpu_torch.monitoring import quality
-    from distributed_forecasting_tpu_torch.serving import batcher, server
+    from distributed_forecasting_tpu_torch.serving import anomaly, batcher, server
 
     native_before = native_snapshot()
     card_line = card()
@@ -3854,7 +4377,8 @@ def main() -> int:
                 monitoring=monitoring, tasks=tasks, reconcile=hierarchy,
                 reconcile_task=rec_task, arima=arima, kalman=kalman,
                 order=order, dataset=dataset, native=native,
-                quality=quality, batcher=batcher, server=server)
+                quality=quality, batcher=batcher, server=server,
+                anomaly=anomaly)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -3936,7 +4460,8 @@ def main() -> int:
     for k, timed in (("arima_filter", at["arima_filter"]["fit"]),
                      ("arima_predict", at["arima_predict"])):
         rows[k] = dict(launches=(arima_out["launches"][k]
-                                 + scorer["auto"]["launches"][k]),
+                                 + scorer["auto"]["launches"][k]
+                                 + scorer["detect"]["auto"]["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in
                                        arima_out["cases"][k].values()),
                        ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],

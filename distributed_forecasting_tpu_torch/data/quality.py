@@ -11,19 +11,24 @@ typed report out — row/series counts, duplicate (store, item, date) rows,
 negative / non-finite sales, per-series calendar gap ratio, short and
 constant series.  ``IngestTask`` runs it by default and logs the issues
 (warn-only; ``validate_strict: true`` turns issues into a hard failure).
-The report's fields and issues are the reference's.  The reference also
-publishes each report as a ``dftpu_data_quality_*`` gauge family for its
-HTTP server's ``/metrics``; the port has no server and registers no metric
-family yet, so it publishes nothing.
+The report's fields and issues are the reference's.
+
+Every report also publishes the ``dftpu_data_quality_*`` gauge family (the
+reference's names and help texts), which the scorer appends to its
+``GET /metrics`` once a report has run in its process, so a feed that
+degrades between retrains shows on the same scrape as serving latency.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List
 
 import numpy as np
 import pandas as pd
+
+from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 
 
 @dataclasses.dataclass
@@ -46,6 +51,74 @@ class QualityReport:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# metrics: one module-level registry, last-report-wins gauges
+
+
+_METRICS = MetricsRegistry()
+_G_ROWS = _METRICS.gauge(
+    "dftpu_data_quality_rows", "rows in the last quality-checked feed")
+_G_SERIES = _METRICS.gauge(
+    "dftpu_data_quality_series", "series in the last quality-checked feed")
+_G_DUP = _METRICS.gauge(
+    "dftpu_data_quality_duplicate_rows",
+    "duplicate (store, item, date) rows in the last feed")
+_G_NEG = _METRICS.gauge(
+    "dftpu_data_quality_negative_sales",
+    "negative sales values in the last feed")
+_G_NONFIN = _METRICS.gauge(
+    "dftpu_data_quality_nonfinite_sales",
+    "non-finite sales values in the last feed")
+_G_SHORT = _METRICS.gauge(
+    "dftpu_data_quality_short_series",
+    "series under min_days observed periods in the last feed")
+_G_CONST = _METRICS.gauge(
+    "dftpu_data_quality_constant_series",
+    "zero-variance series in the last feed")
+_G_GAP = _METRICS.gauge(
+    "dftpu_data_quality_gap_ratio",
+    "missing (series, day) cells / span cells in the last feed")
+_G_ISSUES = _METRICS.gauge(
+    "dftpu_data_quality_issues",
+    "issue count from the last quality report (0 == clean feed)")
+_C_REPORTS = _METRICS.counter(
+    "dftpu_data_quality_reports_total", "quality reports computed")
+
+_published = False
+_publish_lock = threading.Lock()
+
+
+def _publish(report: QualityReport) -> None:
+    global _published
+    _G_ROWS.set(report.n_rows)
+    _G_SERIES.set(report.n_series)
+    _G_DUP.set(report.n_duplicate_rows)
+    _G_NEG.set(report.n_negative_sales)
+    _G_NONFIN.set(report.n_nonfinite_sales)
+    _G_SHORT.set(report.n_short_series)
+    _G_CONST.set(report.n_constant_series)
+    _G_GAP.set(report.gap_ratio)
+    _G_ISSUES.set(len(report.issues))
+    _C_REPORTS.inc()
+    with _publish_lock:
+        _published = True
+
+
+def render_data_quality_metrics() -> str:
+    """Prometheus text for the ``dftpu_data_quality_*`` family, or the
+    empty string when no report has run in this process — a serving node
+    that never ingested should not advertise an all-zero "clean feed"."""
+    with _publish_lock:
+        if not _published:
+            return ""
+    return _METRICS.render_prometheus()
+
+
+def data_quality_snapshot() -> dict:
+    """JSON-friendly view of the gauge family (tests, in-process use)."""
+    return _METRICS.snapshot()
 
 
 def quality_report(
@@ -84,6 +157,7 @@ def quality_report(
             n_short_series=0, n_constant_series=0, gap_ratio=0.0,
             issues=["empty feed: 0 rows"],
         )
+        _publish(report)
         return report
 
     # one snapshot frame (normalized dates assigned exactly once), then a
@@ -165,4 +239,5 @@ def quality_report(
         gap_ratio=round(gap_ratio, 4),
         issues=issues,
     )
+    _publish(report)
     return report

@@ -22,17 +22,20 @@ Conf block ``monitoring.quality`` (strict)::
         max_horizon: 365        # observations beyond day1+this are skipped
         nominal_coverage: 0.0   # 0 -> the model config's interval_width
 
-Not here yet: the on-disk metric history (``monitoring.quality_store``) and
-the SLO evaluator (``monitoring.slo``), ROADMAP Queue 1: P12 — enabling
-either raises — and the cost block (``monitoring.cost``), parsed and logged
-as having no effect (P11).  So :class:`QualityRuntime` carries a monitor
-only, and the monitor writes no store rows.
+With a store (``monitoring/store.py``), each observe also appends the
+family's rolling metrics and its worst series as store rows, outside the
+accumulator lock; :func:`build_quality_runtime` wires the monitor, the store,
+the scrape loop and the SLO evaluator (``monitoring/slo.py``) into one
+:class:`QualityRuntime`.  The cost block (``monitoring.cost``) is accepted
+and logged as having no effect (ROADMAP Queue 1: P11), so the scrape loop
+has no cost source.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,6 +46,7 @@ from distributed_forecasting_tpu_torch.data.tensorize import period_ordinals
 from distributed_forecasting_tpu_torch.engine.calibrate import config_interval_width
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.ops.metrics import quality_terms
+from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 #: accumulator columns
 _ACC_FIELDS = ("abs_err", "abs_y", "sq_err", "inside", "n",
@@ -120,13 +124,16 @@ class QualityMonitor:
 
     Thread safety: ``_lock`` guards the accumulator arrays (numpy float64,
     sized to the forecaster's series count once).  The predict, the pandas
-    alignment and the term pass run outside it; only the accumulation and
-    the snapshot reads hold it.
+    alignment, the term pass and the store append run outside it; only the
+    accumulation and the snapshot reads hold it.
     """
 
-    def __init__(self, forecaster, config: Optional[QualityConfig] = None):
+    def __init__(self, forecaster, config: Optional[QualityConfig] = None,
+                 store=None):
         self.forecaster = forecaster
         self.config = config or QualityConfig(enabled=True)
+        self.store = store
+        self.logger = get_logger("QualityMonitor")
         n = int(forecaster.n_series)
         self._lock = threading.Lock()
         self._acc = {f: np.zeros(n, dtype=np.float64) for f in _ACC_FIELDS}
@@ -326,12 +333,38 @@ class QualityMonitor:
 
     # -- publication ---------------------------------------------------------
     def _publish(self, summary: Dict) -> None:
-        """The family gauges from a snapshot (NaN skipped: a gauge must not
-        report 0 for 'no data')."""
+        """Gauges and store rows from a snapshot; all I/O outside the lock
+        (NaN skipped: a gauge must not report 0 for 'no data')."""
         fam = summary["family"]
         for metric, value in summary["metrics"].items():
             if value == value:
                 self.family_metrics.set(value, family=fam, metric=metric)
+        if self.store is None:
+            return
+        at = time.time()  # dflint: disable=nondeterminism — store rows are wall-clock telemetry
+        points = [{
+            "ts": at, "name": f"dftpu_quality_{metric}",
+            "labels": {"family": fam}, "value": value,
+        } for metric, value in summary["metrics"].items() if value == value]
+        points.append({
+            "ts": at, "name": "dftpu_quality_observations",
+            "labels": {"family": fam}, "value": summary["observations"]})
+        for row in summary.get("worst_series", []):
+            labels = {"family": fam}
+            labels.update({k: str(v) for k, v in row.items()
+                           if k not in ("n", "wape", "rmsse", "coverage")})
+            for metric in ("wape", "rmsse", "coverage"):
+                if row.get(metric) is not None:
+                    points.append({
+                        "ts": at, "name": f"dftpu_quality_series_{metric}",
+                        "labels": labels, "value": row[metric]})
+        try:
+            # the store synchronizes internally (one atomic O_APPEND write);
+            # holding the accumulator lock across disk I/O is what the
+            # blocking-under-lock rule catches
+            self.store.append(points)  # dflint: disable=unlocked-shared-state — TimeSeriesStore is internally synchronized; deliberately outside _lock
+        except OSError:
+            self.logger.exception("quality store append failed")
 
 
 def _nanround(v: float, nd: int = 6) -> Optional[float]:
@@ -340,17 +373,23 @@ def _nanround(v: float, nd: int = 6) -> Optional[float]:
 
 
 class QualityRuntime:
-    """The quality stack one serving process owns: the monitor, behind
-    ``POST /observe``, with its exposition on ``/metrics``.  ``store``,
-    ``scrape`` and ``slo`` stay None, and there is no scrape or SLO loop to
-    start or stop, until the store and the SLO evaluator are ported (ROADMAP
-    Queue 1: P12)."""
+    """The wired quality stack one serving process owns: monitor + store +
+    scrape loop + SLO evaluator, with one lifecycle and one exposition.
 
-    def __init__(self, monitor=None):
+    Built by :func:`build_quality_runtime`; the server mounts
+    ``runtime.observe`` behind ``POST /observe``, appends
+    ``runtime.render_metrics()`` to the ``/metrics`` body, and calls
+    ``attach_server_metrics``, ``start()`` and ``stop()`` around its own
+    lifetime.  ``snapshot()`` is the reference's ``/debug/quality`` body; the
+    port serves no debug route until tracing is ported (ROADMAP Queue 1:
+    P11).
+    """
+
+    def __init__(self, monitor=None, store=None, scrape=None, slo=None):
         self.monitor = monitor
-        self.store = None
-        self.scrape = None
-        self.slo = None
+        self.store = store
+        self.scrape = scrape
+        self.slo = slo
 
     def observe(self, observations: pd.DataFrame,
                 on_missing: str = "skip") -> Dict:
@@ -360,47 +399,147 @@ class QualityRuntime:
         return self.monitor.observe(observations, on_missing=on_missing)
 
     def render_metrics(self) -> str:
-        if self.monitor is None:
-            return ""
-        return self.monitor.registry.render_prometheus()
+        parts = []
+        if self.monitor is not None:
+            parts.append(self.monitor.registry.render_prometheus())
+        if self.slo is not None:
+            parts.append(self.slo.registry.render_prometheus())
+        return "".join(parts)
 
     def snapshot(self) -> Dict:
-        return {} if self.monitor is None else {
-            "quality": self.monitor.snapshot()}
+        out: Dict = {}
+        if self.monitor is not None:
+            out["quality"] = self.monitor.snapshot()
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
+        if self.store is not None:
+            out["store"] = self.store.stats()
+        return out
+
+    def attach_server_metrics(self, serving_metrics) -> None:
+        """Late-bind the serving telemetry the runtime cannot see at build
+        time (the latency histogram the latency SLO reads, and the serving
+        registry the scrape loop persists) — called by ``ForecastServer``
+        before ``start()``."""
+        if self.slo is not None:
+            self.slo.bind_latency(serving_metrics.latency)
+        if self.scrape is not None:
+            self.scrape.add_source({}, lambda: serving_metrics.registry)
+
+    def start(self) -> None:
+        if self.scrape is not None:
+            self.scrape.start()
+        if self.slo is not None:
+            self.slo.start()
+
+    def stop(self) -> None:
+        if self.slo is not None:
+            self.slo.stop()
+        if self.scrape is not None:
+            self.scrape.stop(final_scrape=True)
 
 
-def build_quality_runtime(conf: Optional[dict],
-                          forecaster) -> Optional[QualityRuntime]:
-    """The top-level ``monitoring:`` conf block -> a
-    :class:`QualityRuntime`, or None when nothing in it is enabled.
+def build_quality_runtime(
+    conf: Optional[dict],
+    forecaster,
+    latency_histogram=None,
+    extra_registries=None,
+    tracking_root: Optional[str] = None,
+    default_store_dir: Optional[str] = None,
+) -> Optional[QualityRuntime]:
+    """Wire a :class:`QualityRuntime` from the top-level ``monitoring:``
+    conf block; None when nothing in it is enabled.
 
     Keys are checked strictly (``quality``, ``quality_store``, ``slo``,
-    ``tracking_root``, ``cost``).  ``quality_store.enabled`` or
-    ``slo.enabled`` raise ``NotImplementedError`` (ROADMAP Queue 1: P12);
-    ``cost`` has no effect (P11)."""
+    ``tracking_root``, ``cost``).  ``extra_registries``: ``(labels,
+    registry_fn)`` pairs the scrape loop persists beside the quality and SLO
+    registries.  ``tracking_root`` feeds the staleness SLO (the conf's
+    ``monitoring.tracking_root`` wins over it); ``default_store_dir`` backs
+    an empty ``quality_store.directory`` (two processes must never share an
+    append cursor, so each gets its own directory).  ``cost`` has no effect
+    (ROADMAP Queue 1: P11).
+    """
+    from distributed_forecasting_tpu_torch.monitoring.slo import (
+        SLOConfig,
+        SLOEvaluator,
+        latest_run_timestamp,
+    )
+    from distributed_forecasting_tpu_torch.monitoring.store import (
+        QualityStoreConfig,
+        ScrapeLoop,
+        TimeSeriesStore,
+    )
+
     conf = dict(conf or {})
     unknown = set(conf) - _MONITORING_KEYS
     if unknown:
         raise ValueError(
             f"unknown monitoring conf key(s) {sorted(unknown)}; "
             f"valid: {sorted(_MONITORING_KEYS)}")
-    check_unported_monitoring(conf)
+    # conf wins over the caller's default: tasks inject the env's tracking
+    # root, but an explicit monitoring.tracking_root pins the staleness SLO
+    # at another registry (e.g. the production one from a canary)
+    tracking_root = conf.get("tracking_root") or tracking_root
     qconf = QualityConfig.from_conf(conf.get("quality"))
-    if not qconf.enabled:
+    sconf = QualityStoreConfig.from_conf(conf.get("quality_store"))
+    slo_conf = SLOConfig.from_conf(conf.get("slo"))
+    if not (qconf.enabled or sconf.enabled or slo_conf.enabled):
         return None
-    return QualityRuntime(monitor=QualityMonitor(forecaster, config=qconf))
+    if slo_conf.enabled and not sconf.enabled:
+        raise ValueError(
+            "monitoring.slo needs monitoring.quality_store.enabled: "
+            "burn-rate windows are means over STORED good/bad samples")
+
+    store = None
+    scrape = None
+    if sconf.enabled:
+        directory = sconf.directory or default_store_dir
+        if not directory:
+            raise ValueError(
+                "monitoring.quality_store.directory is empty and the "
+                "caller supplied no default root")
+        store = TimeSeriesStore(
+            directory, retention_s=sconf.retention_s,
+            max_segment_bytes=sconf.max_segment_bytes)
+
+    monitor = None
+    if qconf.enabled:
+        monitor = QualityMonitor(forecaster, config=qconf, store=store)
+
+    slo = None
+    if slo_conf.enabled:
+        slo = SLOEvaluator(
+            slo_conf, store,
+            latency_histogram=latency_histogram,
+            coverage_fn=(monitor.coverage if monitor is not None else None),
+            nominal_fn=(
+                (lambda: monitor.nominal_coverage)
+                if monitor is not None else None),
+            staleness_fn=(
+                (lambda: latest_run_timestamp(tracking_root))
+                if tracking_root else None),
+        )
+
+    if store is not None:
+        sources = list(extra_registries or [])
+        if monitor is not None:
+            sources.append(({}, lambda: monitor.registry))
+        if slo is not None:
+            sources.append(({}, lambda: slo.registry))
+        scrape = ScrapeLoop(
+            store, sources,
+            scrape_interval_s=sconf.scrape_interval_s,
+            compact_interval_s=sconf.compact_interval_s)
+
+    return QualityRuntime(monitor=monitor, store=store, scrape=scrape,
+                          slo=slo)
 
 
 def check_unported_monitoring(conf: Optional[dict], logger=None) -> None:
-    """Refuse the ``monitoring:`` blocks the port lacks and log the one that
-    changes no result; runs before any artifact loads."""
+    """Log the ``monitoring.cost`` block, which changes no result: the
+    reference's ``monitoring/cost.py`` is not ported (ROADMAP Queue 1:
+    P11)."""
     conf = conf or {}
-    for block, module in (("quality_store", "monitoring/store.py"),
-                          ("slo", "monitoring/slo.py")):
-        if (conf.get(block) or {}).get("enabled"):
-            raise NotImplementedError(
-                f"monitoring.{block}.enabled: true ({module}) is not ported "
-                f"yet (ROADMAP Queue 1: P12)")
     if conf.get("cost") is not None and logger is not None:
         logger.info("monitoring.cost: accepted; monitoring/cost.py is not "
                     "ported, so the block has no effect in the port yet "

@@ -14,9 +14,14 @@ reference's routes, statuses, headers and bodies:
   GET  /readyz            -> 200 once warmup is done and the batcher is
                              accepting, else 503 with Retry-After: 1
   GET  /schema            -> serving schema + key names
-  GET  /metrics           -> Prometheus text exposition: the serving
-                             counters, gauges and histograms; with a quality
-                             runtime, also the ``dftpu_quality_*`` families
+  GET  /metrics           -> Prometheus text exposition, in the
+                             reference's order: the serving counters, gauges
+                             and histograms; with a quality runtime the
+                             ``dftpu_quality_*`` and ``dftpu_slo_*``
+                             families; with an anomaly scorer the
+                             ``dftpu_anomaly_*`` ones; and, once a
+                             data-quality report has run in the process,
+                             the ``dftpu_data_quality_*`` gauges
   POST /invocations       -> {"inputs": [{"store": 1, "item": 2}, ...],
   POST /predict              "horizon": 90, "include_history": false,
                               "quantiles": [...], "on_missing": "raise"}
@@ -30,22 +35,30 @@ reference's routes, statuses, headers and bodies:
                              actuals scored against what the model serves
                              (``monitoring/quality.py``); 503 without a
                              quality runtime
-  POST /ingest, POST /detect_anomalies
-                          -> 503, as the reference answers without an
-                             ingest or anomaly runtime (neither is ported:
-                             ROADMAP Queue 1: P9, P10)
+  POST /detect_anomalies -> {"points": [{<keys>, "ds", "y"}, ...],
+                              "threshold": 4.0, "on_missing": "skip"}:
+                             actuals scored against the served bands in one
+                             batched predict, through the coalescer when
+                             batching is on (``serving/anomaly.py``); 503
+                             without an anomaly scorer
+  POST /ingest            -> 503, as the reference answers without an
+                             ingest runtime (not ported: ROADMAP Queue 1:
+                             P9)
   GET  /debug/*           -> 404, as the reference answers with
                              ``tracing.debug_endpoints: false`` (tracing is
-                             P11)
+                             P11; ``/debug/quality`` included)
 
 ``serve`` blocks; ``start_server`` returns the live server for tests and
 embedding.  Requests go through the micro-batching coalescer
 (``serving/batcher.py``) when a ``BatchingConfig(enabled=True)`` is given.
 
+With a quality runtime, the server binds the runtime to its own metrics and
+starts its scrape and SLO threads at construction, and ``shutdown`` stops
+them (one final scrape) before the accept loop stops, as the reference does.
+
 Not here: the spans and the flight-recorder dump on a 5xx (P11), the
-streaming-ingest, anomaly and forecast-cache runtimes (P9, P10, P12; their
-parameters take None only), the data-quality gauges on ``/metrics`` (P10)
-and the sharded replicas' ``extra_metrics`` (P12).
+streaming-ingest and forecast-cache runtimes (P9, P12; their parameters take
+None only) and the sharded replicas' ``extra_metrics`` (P12).
 """
 
 from __future__ import annotations
@@ -62,6 +75,9 @@ from typing import Optional
 import numpy as np
 import pandas as pd
 
+from distributed_forecasting_tpu_torch.data.quality import (
+    render_data_quality_metrics,
+)
 from distributed_forecasting_tpu_torch.serving.batcher import (
     BatchingConfig,
     QueueFullError,
@@ -84,7 +100,6 @@ _MAX_QUANTILES = 32  # more levels than any scorer needs
 # modules and ROADMAP items (the serve task refuses their conf blocks too)
 UNPORTED_RUNTIMES = {
     "ingest": ("serving/ingest.py", "P9"),
-    "anomaly": ("serving/anomaly.py", "P10"),
     "cache": ("serving/forecast_cache.py", "P12"),
 }
 
@@ -188,6 +203,9 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             text = self.server.metrics.render()
             if self.server.quality is not None:
                 text += self.server.quality.render_metrics()
+            if self.server.anomaly is not None:
+                text += self.server.anomaly.render_metrics()
+            text += render_data_quality_metrics()
             body = text.encode()
             self.send_response(200)
             self.send_header(
@@ -223,9 +241,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                        extra_headers=(("Retry-After", "60"),))
             return
         if self.path == "/detect_anomalies":
-            self._send(503, {"error": "anomaly detection not enabled "
-                                      "(serving.anomaly conf block)"},
-                       extra_headers=(("Retry-After", "60"),))
+            self._detect_anomalies()
             return
         if self.path not in ("/invocations", "/predict"):
             self._send(404, {"error": f"no route {self.path}"})
@@ -375,6 +391,66 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             self.server.logger.exception("observe failed")
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
+    def _detect_anomalies(self):
+        """POST /detect_anomalies: score actuals against the served bands.
+
+        Body: ``{"points": [{<key cols>, "ds": "...", "y": ...}, ...],
+        "threshold": 4.0, "on_missing": "skip"|"raise"}``.  One batched
+        predict per request (through the coalescer when batching is on),
+        per-point ``anomaly_score`` + ``is_anomaly`` back in request order.
+        503 when no anomaly scorer is configured (``serving.anomaly`` conf
+        block)."""
+        anomaly = self.server.anomaly
+        if anomaly is None:
+            self._send(503, {"error": "anomaly detection not enabled "
+                                      "(serving.anomaly conf block)"},
+                       extra_headers=(("Retry-After", "60"),))
+            return
+        self._trace_id = _trace_id(self.headers.get("X-Trace-Id"))
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(req, dict):
+                self._send(400, {"error": "body must be a JSON object "
+                                          "with 'points'"})
+                return
+            points = req.get("points")
+            if not points or not isinstance(points, list):
+                self._send(400, {"error": "body needs a non-empty "
+                                          "'points' list"})
+                return
+            if len(points) > anomaly.config.max_points_per_request:
+                self._send(400, {
+                    "error": f"request has {len(points)} points; "
+                             f"max_points_per_request="
+                             f"{anomaly.config.max_points_per_request}"})
+                return
+            threshold = req.get("threshold")
+            if threshold is not None:
+                threshold = float(threshold)
+                if not threshold > 0:
+                    self._send(400, {"error": "threshold must be > 0"})
+                    return
+            out = anomaly.score(
+                pd.DataFrame(points),
+                on_missing=req.get("on_missing", "skip"),
+                threshold=threshold)
+            self._send(200, out)
+        except UnknownSeriesError as e:
+            self._send(404, {"error": str(e)})
+        except QueueFullError as e:
+            self._send(429, {"error": str(e)},
+                       extra_headers=(("Retry-After", "1"),))
+        except (TimeoutError, _FutureTimeoutError) as e:
+            self._send(503, {"error": f"request timed out: {e}" if str(e)
+                             else "request timed out"},
+                       extra_headers=(("Retry-After", "1"),))
+        except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
+            self._send(400, {"error": f"{type(e).__name__}: {e}"})
+        except Exception as e:  # noqa: BLE001 — the scorer outlives a request
+            self.server.logger.exception("detect_anomalies failed")
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
 
 class ForecastServer(PooledHTTPServer):
     """The scorer: listen backlog, worker pool, keep-alive and TCP_NODELAY
@@ -392,8 +468,7 @@ class ForecastServer(PooledHTTPServer):
         cache=None,
         http: Optional[HttpConfig] = None,
     ):
-        for name, value in (("ingest", ingest), ("anomaly", anomaly),
-                            ("cache", cache)):
+        for name, value in (("ingest", ingest), ("cache", cache)):
             if value is not None:
                 module, item = UNPORTED_RUNTIMES[name]
                 raise NotImplementedError(
@@ -406,8 +481,23 @@ class ForecastServer(PooledHTTPServer):
         self.metrics = ServingMetrics()
         self.busy_gauge = self.metrics.http_workers_busy
         self.batching = batching
-        # the quality stack (monitoring/quality.QualityRuntime)
+        # the wired quality stack (monitoring/quality.QualityRuntime): its
+        # scrape and SLO loops start here, so every construction path
+        # (serve, start_server, tests) gets the same lifecycle; the latency
+        # SLO and the scrape loop bind to THIS server's metrics
         self.quality = quality
+        if quality is not None:
+            quality.attach_server_metrics(self.metrics)
+            quality.start()
+        # the anomaly scorer (serving/anomaly.AnomalyScorer): detection
+        # batches ride the same coalescing dispatch as forecast traffic
+        self.anomaly = anomaly
+        if anomaly is not None:
+            anomaly.bind_execute(self.execute)
+            self.logger.info(
+                "anomaly detection on: threshold=%.3f stream_scoring=%s",
+                anomaly.threshold,
+                anomaly.config.stream_scoring and ingest is not None)
         # readiness is set once after warmup and cleared at shutdown
         self._ready = threading.Event()
         self.batcher: Optional[RequestBatcher] = None
@@ -482,6 +572,10 @@ class ForecastServer(PooledHTTPServer):
         self._ready.clear()
         if self.batcher is not None:
             self.batcher.close()
+        if self.quality is not None:
+            # stop the SLO and scrape threads and flush one final scrape, so
+            # the on-disk history covers the whole process lifetime
+            self.quality.stop()
         super().shutdown()
 
 

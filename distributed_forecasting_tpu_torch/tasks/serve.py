@@ -21,27 +21,36 @@ Conf::
       batching: {...}         # the micro-batching coalescer (strict)
       http: {...}             # the data plane (strict)
       tracing: {...}          # strict keys; no effect yet
+      anomaly: {...}          # POST /detect_anomalies (serving/anomaly.py)
     monitoring:
       quality: {...}          # POST /observe (monitoring/quality.py)
+      quality_store: {...}    # metric history (monitoring/store.py),
+                              # default <env.root>/quality_store
+      slo: {...}              # burn-rate SLOs (monitoring/slo.py) over the
+                              # store, staleness from the env's tracking root
 
-What the port does not have yet, each checked before any artifact loads:
-``serving.ingest.enabled`` (ROADMAP Queue 1: P9), ``serving.anomaly.enabled``
-(P10), ``serving.cache.enabled`` (P12), ``tracing.debug_endpoints: true``
-(P11), ``monitoring.quality_store.enabled`` and ``monitoring.slo.enabled``
-(P12) raise ``NotImplementedError``.  ``tracing.enabled``,
-``compile_cache:`` and ``monitoring.cost`` change no result and are logged as
-having no effect (P11).  The ``fleet:`` and ``sharding:`` blocks belong to
-the fleet task (P12), as in the reference, whose serve task does not read
-them.
+``conf/tasks/serve_config.yml`` runs as shipped.  What the port does not
+have yet, each checked before any artifact loads: ``serving.ingest.enabled``
+(ROADMAP Queue 1: P9), ``serving.cache.enabled`` (P12) and
+``tracing.debug_endpoints: true`` (P11) raise ``NotImplementedError``.
+``tracing.enabled``, ``compile_cache:`` and ``monitoring.cost`` change no
+result and are logged as having no effect (P11).  The ``fleet:`` and
+``sharding:`` blocks belong to the fleet task (P12), as in the reference,
+whose serve task does not read them.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 from distributed_forecasting_tpu_torch.monitoring.quality import (
     build_quality_runtime,
     check_unported_monitoring,
+)
+from distributed_forecasting_tpu_torch.serving.anomaly import (
+    AnomalyConfig,
+    build_anomaly_runtime,
 )
 from distributed_forecasting_tpu_torch.serving.batcher import BatchingConfig
 from distributed_forecasting_tpu_torch.serving.dataplane import HttpConfig
@@ -88,6 +97,7 @@ class ServeTask(Task):
         batching = BatchingConfig.from_conf(conf.get("batching"))
         check_tracing(conf.get("tracing"), self.logger)
         http = HttpConfig.from_conf(conf.get("http"))
+        AnomalyConfig.from_conf(conf.get("anomaly"))  # fail fast on typos
         for block, (module, item) in UNPORTED_RUNTIMES.items():
             if (conf.get(block) or {}).get("enabled"):
                 raise NotImplementedError(
@@ -98,9 +108,30 @@ class ServeTask(Task):
 
         forecaster, version = resolve_from_registry(
             self.registry, name, stage=stage, device=self.device)
-        quality = build_quality_runtime(monitoring, forecaster)
+        env = self.conf.get("env", {})
+        quality = build_quality_runtime(
+            monitoring,
+            forecaster,
+            tracking_root=self._paths["tracking"],
+            default_store_dir=os.path.join(
+                env.get("root", "./dftpu_store"), "quality_store"),
+        )
         if quality is not None:
-            self.logger.info("quality observability on (POST /observe)")
+            self.logger.info(
+                "quality observability on (monitor=%s store=%s slo=%s)",
+                quality.monitor is not None, quality.store is not None,
+                quality.slo is not None)
+        anomaly = build_anomaly_runtime(
+            conf.get("anomaly"),
+            forecaster,
+            default_store_dir=os.path.join(
+                env.get("root", "./dftpu_store"), "anomaly_stream"),
+        )
+        if anomaly is not None:
+            # the streaming leg needs /ingest (ROADMAP Queue 1: P9)
+            self.logger.info(
+                "anomaly detection on: threshold=%.3f stream=%s",
+                anomaly.threshold, False)
         sizes = conf.get("warmup_sizes")
         if sizes:
             t0 = time.perf_counter()
@@ -123,6 +154,7 @@ class ServeTask(Task):
             model_version=str(version.version),
             batching=batching,
             quality=quality,
+            anomaly=anomaly,
             http=http,
         )
 

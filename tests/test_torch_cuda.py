@@ -761,6 +761,146 @@ def test_served_bodies_equal_the_in_process_predict(dev):
         srv.shutdown()
 
 
+def _detect_points(fc, n_series=8, days=30, seed=4):
+    """The last ``days`` days of the fit and ``days`` past it for
+    ``n_series`` series, actuals drawn around the served band with a spike
+    of 40 band-widths on every seventh point."""
+    import numpy as np
+    import pandas as pd
+
+    keys = [tuple(map(int, k)) for k in fc.keys[:n_series]]
+    frame = pd.DataFrame(keys, columns=list(fc.key_names))
+    pred = fc.predict(frame, horizon=days, include_history=True)
+    pred = pred[pred["ds"] > pred["ds"].max() - pd.Timedelta(days=2 * days)]
+    rng = np.random.default_rng(seed)
+    half = (pred["yhat_upper"] - pred["yhat"]).to_numpy()
+    y = pred["yhat"].to_numpy() + rng.normal(0, 0.5, len(pred)) * half
+    spike = np.arange(len(pred)) % 7 == 3
+    y[spike] += 40 * half[spike]
+    pts = pred[list(fc.key_names) + ["ds"]].assign(
+        ds=pred["ds"].dt.strftime("%Y-%m-%d"), y=y)
+    return pts.reset_index(drop=True), spike
+
+
+@pytest.mark.parametrize("model", ["prophet", "holt_winters", "arima"])
+def test_anomaly_scores_on_the_card_equal_the_cpu(dev, model, tmp_path):
+    """The same artifact on the card and on the CPU scores the same points:
+    keys, dates, actuals and counts equal, bands within the scorer's
+    card-vs-CPU predict tolerance (1e-5 of each series' scale for the curve
+    model and Holt-Winters, 1e-4 for arima's Kalman predict), scores within
+    that error's propagation, every spike flagged on both."""
+    import numpy as np
+
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+    from distributed_forecasting_tpu_torch.serving.anomaly import (
+        AnomalyScorer,
+    )
+
+    fc = _served(dev, model)
+    fc.save(str(tmp_path))
+    cpu = BatchForecaster.load(str(tmp_path), device="cpu")
+    pts, spike = _detect_points(fc)
+    got = AnomalyScorer(fc).score(pts)
+    want = AnomalyScorer(cpu).score(pts)
+    rel = 1e-4 if model == "arima" else 1e-5
+    for k in ("n_scored", "n_skipped", "threshold"):
+        assert got[k] == want[k], k
+    assert got["n_scored"] == len(pts)
+    scale = max(abs(r["yhat_upper"]) for r in want["results"])
+    for g, w in zip(got["results"], want["results"]):
+        for k in ("store", "item", "ds", "y"):
+            assert g[k] == w[k]
+        for k in ("yhat", "yhat_lower", "yhat_upper"):
+            assert abs(g[k] - w[k]) <= rel * scale, (k, g, w)
+        band = w["yhat_upper"] - w["yhat"]
+        tol = 2 * rel * scale * (2.6 + 2 * w["anomaly_score"]) / band + 1e-6
+        assert abs(g["anomaly_score"] - w["anomaly_score"]) <= tol
+    for out in (got, want):
+        flags = np.array([r["is_anomaly"] for r in out["results"]])
+        assert flags[spike].all()
+
+
+@pytest.mark.parametrize("model", ["prophet", "holt_winters", "arima"])
+def test_coalesced_detection_equals_solo_detection(dev, model):
+    """Eight concurrent 1-series /detect_anomalies requests at a coalescing
+    server answer byte for byte what the unbound scorer answers for each
+    alone, in fewer dispatches than requests."""
+    import json
+    import threading
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.serving import server
+    from distributed_forecasting_tpu_torch.serving.anomaly import (
+        AnomalyScorer,
+    )
+    from distributed_forecasting_tpu_torch.serving.batcher import (
+        BatchingConfig,
+    )
+
+    fc = _served(dev, model)
+    pts, _ = _detect_points(fc)
+    per = [g for _, g in pts.groupby(list(fc.key_names), sort=False)]
+    solo = [json.dumps(AnomalyScorer(fc).score(g)).encode() for g in per]
+    srv = server.start_server(
+        fc, anomaly=AnomalyScorer(fc),
+        batching=BatchingConfig(enabled=True, max_batch_size=64,
+                                max_wait_ms=200.0, max_queue_depth=64,
+                                request_timeout_s=120.0))
+    url = f"http://127.0.0.1:{srv.server_address[1]}/detect_anomalies"
+    got = [None] * len(per)
+    barrier = threading.Barrier(len(per))
+
+    def client(i):
+        barrier.wait()
+        req = urllib.request.Request(url, data=json.dumps(
+            {"points": per[i].to_dict("records")}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got[i] = r.read()
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(per))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        dispatches = srv.metrics.dispatches.value
+    finally:
+        srv.shutdown()
+    assert got == solo
+    assert dispatches < len(per)
+
+
+def test_detection_launches_arima_predict_once_a_request(dev):
+    """On a composite whose arima member owns every other series, each
+    scored request holding an arima series launches ``arima_predict`` once;
+    a request of Holt-Winters series alone launches it not at all."""
+    import numpy as np
+
+    from distributed_forecasting_tpu_torch.ops import kalman
+    from distributed_forecasting_tpu_torch.serving import MultiModelForecaster
+    from distributed_forecasting_tpu_torch.serving.anomaly import (
+        AnomalyScorer,
+    )
+
+    members = {m: _served(dev, m) for m in ("arima", "holt_winters")}
+    S = members["arima"].n_series
+    auto = MultiModelForecaster(members, np.arange(S) % 2)
+    pts, spike = _detect_points(members["arima"], n_series=6)
+    scorer = AnomalyScorer(auto)
+    kalman.arima_predict.launches = 0
+    for _ in range(3):
+        out = scorer.score(pts)
+    assert kalman.arima_predict.launches == 3
+    assert all(r["is_anomaly"] for r, s in zip(out["results"], spike) if s)
+    hw_keys = {tuple(map(int, k)) for k in auto.keys[1::2]}
+    hw_only = pts[[tuple(k) in hw_keys for k in pts[list(
+        auto.key_names)].itertuples(index=False, name=None)]]
+    kalman.arima_predict.launches = 0
+    assert scorer.score(hw_only)["n_scored"] == len(hw_only) > 0
+    assert kalman.arima_predict.launches == 0
+
+
 def test_kernel_library_builds_once_from_concurrent_threads(dev, monkeypatch):
     import threading
 

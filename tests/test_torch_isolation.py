@@ -64,6 +64,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.ops._build\n"
         "import distributed_forecasting_tpu_torch.pipelines.training\n"
         "import distributed_forecasting_tpu_torch.monitoring.quality\n"
+        "import distributed_forecasting_tpu_torch.monitoring.slo\n"
+        "import distributed_forecasting_tpu_torch.monitoring.store\n"
+        "import distributed_forecasting_tpu_torch.serving.anomaly\n"
         "import distributed_forecasting_tpu_torch.serving\n"
         "import distributed_forecasting_tpu_torch.serving.server\n"
         "import distributed_forecasting_tpu_torch.tasks\n"

@@ -11,11 +11,17 @@
   rounding, ``tests/test_torch_predictor.py``).
 - The port's accumulators equal a float64 numpy computation over the port's
   own served bands bit for bit.
-- ``build_quality_runtime``: strict keys, the reference's messages; the
-  unported store and SLO refuse, naming their ROADMAP item.
+- ``build_quality_runtime``: strict keys and the reference's messages; with
+  the store and the SLO evaluator on, the same parts are wired as in the
+  reference, the monitor's store rows equal the reference's (but for their
+  wall-clock stamps), and ``render_metrics`` carries the reference's
+  ``dftpu_slo_*`` families.
+- The ``dftpu_data_quality_*`` gauges: after the same ``quality_report``,
+  the port's exposition is byte-equal to the reference's.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,9 +32,11 @@ import torch
 import distributed_forecasting_tpu.data as jdata
 from distributed_forecasting_tpu.engine import fit as jfit
 from distributed_forecasting_tpu.models import holt_winters as jhw
+from distributed_forecasting_tpu.data import quality as jdq
 from distributed_forecasting_tpu.monitoring import quality as jq
 from distributed_forecasting_tpu.ops import metrics as jmetrics
 from distributed_forecasting_tpu.serving import predictor as jpred
+from distributed_forecasting_tpu_torch.data import quality as tdq
 from distributed_forecasting_tpu_torch.monitoring import quality as tq
 from distributed_forecasting_tpu_torch.ops import metrics as tmetrics
 from distributed_forecasting_tpu_torch.serving import predictor as tpred
@@ -264,7 +272,121 @@ def test_build_quality_runtime(artifact):
     with pytest.raises(ValueError) as want:
         jq.build_quality_runtime({"qualty": {}}, fc)
     assert str(got.value) == str(want.value)
-    for block in ("quality_store", "slo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: P12"):
-            tq.build_quality_runtime(
-                {"quality": {"enabled": True}, block: {"enabled": True}}, fc)
+    # the store and the SLO evaluator come together, as in the reference
+    for conf, default in (
+            ({"quality": {"enabled": True}, "slo": {"enabled": True}}, "/x"),
+            ({"quality_store": {"enabled": True}}, None)):
+        with pytest.raises(ValueError) as got:
+            tq.build_quality_runtime(conf, fc, default_store_dir=default)
+        with pytest.raises(ValueError) as want:
+            jq.build_quality_runtime(conf, jpred.BatchForecaster.load(path),
+                                     default_store_dir=default)
+        assert str(got.value) == str(want.value)
+
+
+SLO = {"enabled": True, "evaluation_interval_s": 3600,
+       "rules": [{"name": "p95", "kind": "latency_quantile",
+                  "objective": 0.5},
+                 {"name": "cov", "kind": "coverage", "tolerance": 0.05},
+                 {"name": "stale", "kind": "staleness", "objective": 60}]}
+
+
+def _runtimes(path, tmp_path):
+    conf = {"quality": {"enabled": True, "max_horizon": 90},
+            "quality_store": {"enabled": True, "scrape_interval_s": 3600},
+            "slo": SLO, "cost": {"enabled": True}}
+    tracking = str(tmp_path / "tracking")
+    os.makedirs(os.path.join(tracking, "experiments"))
+    return (
+        tq.build_quality_runtime(
+            conf, tpred.BatchForecaster.load(path, device="cpu"),
+            tracking_root=tracking,
+            default_store_dir=str(tmp_path / "port")),
+        jq.build_quality_runtime(
+            conf, jpred.BatchForecaster.load(path), tracking_root=tracking,
+            default_store_dir=str(tmp_path / "ref")))
+
+
+def test_store_scrape_and_slo_are_wired_like_the_reference(artifact,
+                                                           tmp_path):
+    df, path = artifact
+    port, ref = _runtimes(path, tmp_path)
+    for rt, d in ((port, "port"), (ref, "ref")):
+        assert rt.store.directory == str(tmp_path / d)
+        assert rt.slo.store is rt.store and rt.monitor.store is rt.store
+        assert rt.scrape is not None
+    assert set(port.snapshot()) == set(ref.snapshot()) == {
+        "quality", "slo", "store"}
+    assert port.snapshot()["slo"] == ref.snapshot()["slo"]
+    obs = _observations(df, 1)
+    port.observe(obs)
+    ref.observe(obs)
+    rows = {k: [(p["name"], p["labels"]) for p in rt.store.query()]
+            for k, rt in (("port", port), ("ref", ref))}
+    assert rows["port"] == rows["ref"] and len(rows["port"]) > 4
+    got = [p["value"] for p in port.store.query()]
+    want = [p["value"] for p in ref.store.query()]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    now = 1_700_000_000.0
+    states = [rt.slo.evaluate_once(now=now) for rt in (port, ref)]
+    # no latency histogram bound and no tracking run yet: only the coverage
+    # rule is measurable
+    assert ([(r["name"], r["bad"] is None) for r in states[0]["rules"]]
+            == [("p95", True), ("cov", False), ("stale", True)])
+    assert ([r["bad"] for r in states[0]["rules"]]
+            == [r["bad"] for r in states[1]["rules"]])
+    strip = lambda text: [line.rsplit(" ", 1)[0] if not line.startswith("#")  # noqa: E731
+                          else line for line in text.splitlines()]
+    assert strip(port.render_metrics()) == strip(ref.render_metrics())
+    assert "dftpu_slo_evaluations_total 1" in port.render_metrics()
+    # one scrape at an injected time writes the same series, but for the
+    # reference's cost registry (monitoring.cost has no effect in the port)
+    for rt in (port, ref):
+        rt.scrape.scrape_once(now=now)
+    rows = [[(p["name"], p["labels"]) for p in rt.store.query(since=now)
+             if not p["name"].startswith("dftpu_cost_")]
+            for rt in (port, ref)]
+    assert rows[0] == rows[1]
+    assert ("dftpu_slo_evaluations_total", {}) in rows[0]
+    assert not any(p["name"].startswith("dftpu_cost_")
+                   for p in port.store.query())
+
+
+def test_runtime_start_and_stop_join_both_loops(artifact, tmp_path):
+    _, path = artifact
+    port, _ = _runtimes(path, tmp_path)
+    port.start()
+    threads = (port.scrape._thread, port.slo._thread)
+    assert all(t.is_alive() for t in threads)
+    port.stop()
+    assert not any(t.is_alive() for t in threads)
+    assert port.scrape._thread is None and port.slo._thread is None
+    assert port.store.query(name="dftpu_quality_nominal_coverage")
+
+
+@pytest.mark.parametrize("feed", ["clean", "dirty", "empty"])
+def test_data_quality_gauges_render_like_the_reference(feed):
+    df = jdata.synthetic_store_item_sales(n_stores=2, n_items=2, n_days=90,
+                                          seed=8)
+    if feed == "dirty":
+        df = pd.concat([df, df.head(3)], ignore_index=True)
+        df.loc[[4, 9], "sales"] = [-2.0, np.nan]
+    elif feed == "empty":
+        df = df.head(0)
+    before = (tdq.data_quality_snapshot()["dftpu_data_quality_reports_total"],
+              jdq.data_quality_snapshot()["dftpu_data_quality_reports_total"])
+    got, want = tdq.quality_report(df), jdq.quality_report(df)
+    assert got.to_dict() == want.to_dict()
+    g_text = tdq.render_data_quality_metrics()
+    w_text = jdq.render_data_quality_metrics()
+    assert g_text and w_text
+    # the reports counter is process-wide: compare the rest byte for byte
+    # and the counter by its delta (tests share the module's registry)
+    count = "dftpu_data_quality_reports_total "
+    assert ([x for x in g_text.splitlines() if not x.startswith(count)]
+            == [x for x in w_text.splitlines() if not x.startswith(count)])
+    g_snap, w_snap = tdq.data_quality_snapshot(), jdq.data_quality_snapshot()
+    assert g_snap.pop("dftpu_data_quality_reports_total") == before[0] + 1
+    assert w_snap.pop("dftpu_data_quality_reports_total") == before[1] + 1
+    assert g_snap == w_snap
+    assert g_snap["dftpu_data_quality_issues"] == len(got.issues)

@@ -12,9 +12,21 @@ scale (the reference's own parameters; only the forecast arithmetic rounds
 differently, ``tests/test_torch_predictor.py``).  ``/observe`` summaries
 agree within rtol 1e-5.  ``/metrics`` carries, for every family the port
 registers, the reference's name, type, help text and bucket edges.
+
+A second pair of servers carries the shipped serve conf's runtimes: the
+quality store, the SLO evaluator and an anomaly scorer.  ``POST
+/detect_anomalies`` answers every status of the reference's contract (200,
+400, 404, 429, 503) with its headers and error bodies; a 200 body equals the
+in-process scorer's byte for byte, and the reference's within the curve
+model's predict tolerance (``tests/test_torch_anomaly.py`` states it).
+``/metrics`` appends the ``dftpu_slo_*``, ``dftpu_anomaly_*`` and
+``dftpu_data_quality_*`` families as the reference does, ``/debug/quality``
+is a 404 as in the reference, and ``shutdown`` joins the scrape and SLO
+threads and leaves the final scrape on disk.
 """
 
 import json
+import os
 import re
 import threading
 import urllib.error
@@ -26,12 +38,16 @@ import pytest
 import torch
 
 import distributed_forecasting_tpu.data as jdata
+from distributed_forecasting_tpu.data import quality as jdq
 from distributed_forecasting_tpu.engine import fit as jfit
 from distributed_forecasting_tpu.models import prophet_glm as jpg
 from distributed_forecasting_tpu.monitoring import quality as jq
 from distributed_forecasting_tpu.serving import predictor as jpred
+from distributed_forecasting_tpu.serving import anomaly as janom
 from distributed_forecasting_tpu.serving import server as jserver
+from distributed_forecasting_tpu_torch.data import quality as tdq
 from distributed_forecasting_tpu_torch.monitoring import quality as tq
+from distributed_forecasting_tpu_torch.serving import anomaly as tanom
 from distributed_forecasting_tpu_torch.serving import predictor as tpred
 from distributed_forecasting_tpu_torch.serving import server as tserver
 
@@ -251,7 +267,15 @@ def _families(text):
     return {k: tuple(v[:2]) + (tuple(v[2]),) for k, v in out.items()}
 
 
+def _publish_data_quality(df):
+    """One report in each package, so both expositions carry the
+    process-wide data-quality family whatever ran before in this worker."""
+    assert tdq.quality_report(df).to_dict() == jdq.quality_report(
+        df).to_dict()
+
+
 def test_metrics_families_match_the_reference(servers):
+    _publish_data_quality(servers["df"])
     for srv in (servers["ref"], servers["port"]):
         _raw(srv, "POST", "/invocations", {"inputs": ONE, "horizon": 3})
     w_status, w_body, w_headers = _raw(servers["ref"], "GET", "/metrics")
@@ -395,9 +419,9 @@ def test_readyz_until_marked_ready_and_after_shutdown(servers):
     assert srv.readiness()[0] is False
 
 
-@pytest.mark.parametrize("runtime", ["ingest", "anomaly", "cache"])
+@pytest.mark.parametrize("runtime", ["ingest", "cache"])
 def test_unported_runtimes_are_refused(servers, runtime):
-    item = {"ingest": "P9", "anomaly": "P10", "cache": "P12"}[runtime]
+    item = {"ingest": "P9", "cache": "P12"}[runtime]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: {item}"):
         tserver.ForecastServer(("127.0.0.1", 0), servers["port"].forecaster,
                                **{runtime: object()})
@@ -446,3 +470,281 @@ def test_kernel_library_loads_once_under_concurrent_first_use(monkeypatch):
         t.join(30)
     assert len(loads) == 1
     assert all(g is got[0] for g in got) and got[0] is not None
+
+
+# -- the shipped serve conf's runtimes: store, SLO, anomaly scorer ------------
+
+MONITORING = {
+    "quality": {"enabled": True, "max_horizon": 60},
+    "quality_store": {"enabled": True, "scrape_interval_s": 3600},
+    "slo": {"enabled": True, "evaluation_interval_s": 3600,
+            "rules": [{"name": "predict_latency_p95",
+                       "kind": "latency_quantile", "quantile": 0.95,
+                       "objective": 0.5},
+                      {"name": "calibration_coverage", "kind": "coverage",
+                       "tolerance": 0.05},
+                      {"name": "model_staleness", "kind": "staleness",
+                       "objective": 604800}]},
+}
+ANOMALY = {"enabled": True, "max_points_per_request": 500}
+
+
+@pytest.fixture(scope="module")
+def detecting(servers, tmp_path_factory):
+    root = tmp_path_factory.mktemp("detecting")
+    out = {"df": servers["df"], "scale": servers["scale"], "root": root}
+    for side, pkg_q, pkg_a, srv_mod, fc in (
+            ("ref", jq, janom, jserver, servers["ref"].forecaster),
+            ("port", tq, tanom, tserver, servers["port"].forecaster)):
+        quality = pkg_q.build_quality_runtime(
+            MONITORING, fc, default_store_dir=str(root / f"store_{side}"))
+        anomaly = pkg_a.build_anomaly_runtime(
+            ANOMALY, fc, default_store_dir=str(root / f"stream_{side}"))
+        out[side] = srv_mod.start_server(fc, model_version="3",
+                                         quality=quality, anomaly=anomaly)
+    yield out
+    for side in ("ref", "port"):
+        out[side].shutdown()
+
+
+def _points(df, n_series=3, spikes=(2, 9, 20)):
+    last = df["date"].max()
+    pts = df[df["date"] > last - pd.Timedelta(days=20)]
+    keys = pts[["store", "item"]].drop_duplicates().head(n_series)
+    pts = pts.merge(keys).rename(columns={"date": "ds", "sales": "y"})
+    pts["ds"] = pts["ds"].dt.strftime("%Y-%m-%d")
+    pts = pts[["store", "item", "ds", "y"]].reset_index(drop=True)
+    for i in spikes:
+        pts.at[i, "y"] = float(pts.at[i, "y"]) * 6.0 + 500.0
+    return pts.to_dict("records")
+
+
+DETECT = {
+    "detect": {"points": "PTS"},
+    "detect_threshold": {"points": "PTS", "threshold": 3.5},
+    "detect_unknown_skipped": {"points": "PTS_UNKNOWN"},
+    "detect_unknown_raise": {"points": "PTS_UNKNOWN", "on_missing": "raise"},
+    "detect_all_skipped": {"points": [{"store": 42, "item": 1,
+                                       "ds": "2015-01-01", "y": 1.0}]},
+    "detect_list_body": [1, 2],
+    "detect_no_points": {"threshold": 2.0},
+    "detect_empty_points": {"points": []},
+    "detect_points_not_list": {"points": {"store": 1}},
+    "detect_too_many": {"points": "PTS_MANY"},
+    "detect_threshold_zero": {"points": "PTS", "threshold": 0},
+    "detect_threshold_negative": {"points": "PTS", "threshold": -1.5},
+    "detect_threshold_text": {"points": "PTS", "threshold": "high"},
+    "detect_missing_column": {"points": [{"store": 1, "ds": "2015-01-01",
+                                          "y": 1.0}]},
+    "detect_not_json": b"{oops",
+    "detect_trace_id": {"points": "PTS"},
+}
+
+
+def _detect_payload(df, payload):
+    if isinstance(payload, dict) and isinstance(payload.get("points"), str):
+        pts = _points(df)
+        extra = {"PTS": [], "PTS_UNKNOWN": [
+            {"store": 42, "item": 1, "ds": pts[0]["ds"], "y": 3.0}],
+            "PTS_MANY": pts * 40}[payload["points"]]
+        pts = pts * 0 + extra if payload["points"] == "PTS_MANY" else (
+            pts + extra)
+        return dict(payload, points=pts)
+    return payload
+
+
+def _assert_detections_match(got, want, scale):
+    """The curve model's predict tolerance on the bands, its propagation on
+    the scores, flags equal away from the threshold, the threshold within
+    two float32 ulps (the inverse normal's last digit)."""
+    assert list(got) == list(want)
+    thr = want["threshold"]
+    assert abs(got["threshold"] - thr) <= 2 * np.spacing(np.float32(thr))
+    for k in ("n_scored", "n_flagged", "n_skipped"):
+        assert got[k] == want[k], k
+    for g, w in zip(got["results"], want["results"]):
+        assert list(g) == list(w)
+        for k in ("store", "item", "ds", "y"):
+            assert g[k] == w[k], k
+        for k in ("yhat", "yhat_lower", "yhat_upper"):
+            assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]) + 1e-5 * scale, k
+        e = 1e-5 * abs(w["yhat_upper"]) + 1e-5 * scale
+        tol = (2 * e * (2.6 + 2 * w["anomaly_score"])
+               / (w["yhat_upper"] - w["yhat"]) + 1e-6)
+        assert abs(g["anomaly_score"] - w["anomaly_score"]) <= tol
+        if abs(w["anomaly_score"] - thr) > tol:
+            assert g["is_anomaly"] == w["is_anomaly"]
+
+
+@pytest.mark.parametrize("case", list(DETECT))
+def test_detect_anomalies_answers_like_the_reference(detecting, case):
+    payload = _detect_payload(detecting["df"], DETECT[case])
+    headers = {"X-Trace-Id": "detect-1"} if case == "detect_trace_id" else {}
+    w_status, w_body, w_headers = _raw(detecting["ref"], "POST",
+                                       "/detect_anomalies", payload, headers)
+    g_status, g_body, g_headers = _raw(detecting["port"], "POST",
+                                       "/detect_anomalies", payload, headers)
+    assert g_status == w_status, (g_body, w_body)
+    for h in ("Content-Type", "Retry-After"):
+        assert g_headers.get(h) == w_headers.get(h), h
+    if headers:
+        assert g_headers["X-Trace-Id"] == w_headers["X-Trace-Id"] == "detect-1"
+    else:
+        assert re.fullmatch("[0-9a-f]{16}", g_headers.get("X-Trace-Id", ""))
+    got, want = json.loads(g_body), json.loads(w_body)
+    if w_status == 200:
+        _assert_detections_match(got, want, detecting["scale"])
+        # the served body is the in-process scorer's, byte for byte
+        scorer = tanom.AnomalyScorer(detecting["port"].forecaster,
+                                     tanom.AnomalyConfig.from_conf(ANOMALY))
+        mine = scorer.score(pd.DataFrame(payload["points"]),
+                            on_missing=payload.get("on_missing", "skip"),
+                            threshold=payload.get("threshold"))
+        assert g_body == json.dumps(mine).encode()
+    else:
+        assert got == want
+    expected = {"detect": 200, "detect_unknown_raise": 404,
+                "detect_list_body": 400, "detect_too_many": 400}
+    assert g_status == expected.get(case, g_status)
+
+
+def test_planted_points_are_flagged(detecting):
+    status, body, _ = _raw(detecting["port"], "POST", "/detect_anomalies",
+                           {"points": _points(detecting["df"])})
+    out = json.loads(body)
+    assert status == 200 and out["n_scored"] == 60
+    flagged = [i for i, r in enumerate(out["results"]) if r["is_anomaly"]]
+    assert {2, 9, 20} <= set(flagged)
+
+
+def test_metrics_append_slo_anomaly_and_data_quality(detecting):
+    _publish_data_quality(detecting["df"])
+    for side in ("ref", "port"):
+        _raw(detecting[side], "POST", "/detect_anomalies",
+             {"points": _points(detecting["df"])})
+        _raw(detecting[side], "POST", "/invocations",
+             {"inputs": ONE, "horizon": 3})
+        detecting[side].quality.slo.evaluate_once(now=1_700_000_000.0)
+    w_body = _raw(detecting["ref"], "GET", "/metrics")[1].decode()
+    g_body = _raw(detecting["port"], "GET", "/metrics")[1].decode()
+    want, got = _families(w_body), _families(g_body)
+    added = {n for n in got if n.startswith(("dftpu_slo_", "dftpu_anomaly_",
+                                              "dftpu_data_quality_"))}
+    assert len([n for n in added if n.startswith("dftpu_slo_")]) == 5
+    assert len([n for n in added if n.startswith("dftpu_anomaly_")]) == 8
+    assert len([n for n in added
+                if n.startswith("dftpu_data_quality_")]) == 10
+    for name, fam in got.items():
+        assert want.get(name) == fam, name
+    # the reference's order: serving, quality + SLO, anomaly, data quality
+    order = [g_body.index(f"# TYPE {n} ") for n in (
+        "serving_requests_total", "dftpu_quality_metric", "dftpu_slo_sli",
+        "dftpu_anomaly_requests_total", "dftpu_data_quality_rows")]
+    assert order == sorted(order)
+    assert "dftpu_slo_evaluation_errors_total 0" in g_body
+    assert re.search(r"^dftpu_anomaly_points_total [1-9]", g_body, re.M)
+
+
+def test_debug_quality_is_a_404_as_in_the_reference(detecting):
+    answers = [_raw(detecting[s], "GET", "/debug/quality")
+               for s in ("ref", "port")]
+    assert answers[0][0] == answers[1][0] == 404
+    assert json.loads(answers[0][1]) == json.loads(answers[1][1])
+
+
+def _blocking_band_forecaster(release, started):
+    """A forecaster whose predict blocks until ``release``, then serves one
+    banded row for (1, 1) on 2020-01-01."""
+    inner = _blocking_forecaster(release, started)
+
+    class Banded:
+        key_names, family, n_series, coalesce_safe = (
+            inner.key_names, inner.family, inner.n_series, True)
+
+        def predict(self, frame, horizon=90, **kw):
+            inner.predict(frame, horizon=1)
+            return pd.DataFrame({"ds": pd.to_datetime(["2020-01-01"]),
+                                 "store": 1, "item": 1, "yhat": 1.0,
+                                 "yhat_lower": 0.0, "yhat_upper": 2.0})
+
+    return Banded()
+
+
+def test_detect_anomalies_429_and_503_like_the_reference():
+    """The coalescer's answers reach /detect_anomalies: a full queue is a
+    429 and a request outliving request_timeout_s a 503, each with
+    Retry-After: 1 and the reference's body."""
+    answers = {}
+    for side, mod, anom in (("ref", jserver, janom), ("port", tserver,
+                                                      tanom)):
+        release, started = threading.Event(), threading.Event()
+        fc = _blocking_band_forecaster(release, started)
+        srv = mod.start_server(
+            fc, anomaly=anom.AnomalyScorer(fc),
+            batching=mod.BatchingConfig(enabled=True, max_batch_size=4,
+                                        max_wait_ms=0.0, max_queue_depth=1,
+                                        request_timeout_s=30.0))
+        body = {"points": [{"store": 1, "item": 1, "ds": "2020-01-01",
+                            "y": 1.0}]}
+        done = []
+
+        def fire():
+            done.append(_raw(srv, "POST", "/detect_anomalies", body)[0])
+
+        try:
+            a = threading.Thread(target=fire)
+            a.start()
+            assert started.wait(10)
+            b = threading.Thread(target=fire)
+            b.start()
+            for _ in range(200):
+                if srv.metrics.queue_depth.value >= 1:
+                    break
+                threading.Event().wait(0.01)
+            full = _raw(srv, "POST", "/detect_anomalies", body)
+            release.set()
+            a.join(30)
+            b.join(30)
+        finally:
+            release.set()
+            srv.shutdown()
+        release, started = threading.Event(), threading.Event()
+        fc = _blocking_band_forecaster(release, started)
+        srv = mod.start_server(
+            fc, anomaly=anom.AnomalyScorer(fc),
+            batching=mod.BatchingConfig(enabled=True, max_batch_size=4,
+                                        max_wait_ms=0.0, max_queue_depth=8,
+                                        request_timeout_s=0.1))
+        try:
+            late = _raw(srv, "POST", "/detect_anomalies", body)
+        finally:
+            release.set()
+            srv.shutdown()
+        answers[side] = [(full[0], full[2].get("Retry-After"),
+                          json.loads(full[1])),
+                         (late[0], late[2].get("Retry-After"),
+                          json.loads(late[1])), sorted(done)]
+    assert answers["port"] == answers["ref"]
+    assert [a[:2] for a in answers["port"][:2]] == [(429, "1"), (503, "1")]
+    assert answers["port"][2] == [200, 200]
+
+
+def test_shutdown_joins_the_loops_and_leaves_the_final_scrape(servers,
+                                                              tmp_path):
+    fc = servers["port"].forecaster
+    quality = tq.build_quality_runtime(
+        MONITORING, fc, default_store_dir=str(tmp_path / "store"))
+    srv = tserver.start_server(fc, quality=quality)
+    threads = (quality.scrape._thread, quality.slo._thread)
+    assert all(t.is_alive() for t in threads)
+    assert quality.slo._latency is srv.metrics.latency
+    assert _raw(srv, "POST", "/invocations",
+                {"inputs": ONE, "horizon": 3})[0] == 200
+    assert quality.store.query() == []
+    srv.shutdown()
+    assert not any(t.is_alive() for t in threads)
+    names = {p["name"] for p in quality.store.query()}
+    assert {"serving_requests_total", "serving_request_latency_seconds_p95",
+            "dftpu_slo_evaluations_total",
+            "dftpu_quality_nominal_coverage"} <= names
+    assert os.listdir(str(tmp_path / "store")) == ["seg-00000001.jsonl"]

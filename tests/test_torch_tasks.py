@@ -1244,23 +1244,20 @@ def test_every_workflow_runs_to_its_end(tmp_path, name):
 
 
 def _serve_conf(root, **serving):
-    """conf/tasks/serve_config.yml as shipped, on ``root``, with the quality
-    store and the SLO evaluator (not ported) off, port 0 on localhost."""
+    """conf/tasks/serve_config.yml as shipped, on ``root``, port 0 on
+    localhost."""
     with open(os.path.join(ROOT, "conf", "tasks", "serve_config.yml")) as f:
         conf = yaml.safe_load(f)
     conf["env"] = {"root": root}
-    conf["monitoring"]["quality_store"]["enabled"] = False
-    conf["monitoring"]["slo"]["enabled"] = False
-    conf["serving"].update(host="127.0.0.1", port=0, **serving)
+    conf["serving"].update(host="127.0.0.1", port=0, model_name=MODEL,
+                           **serving)
     return conf
 
 
 @pytest.mark.parametrize("block, item", [
-    ("serving.ingest", "P9"), ("serving.anomaly", "P10"),
-    ("serving.cache", "P12"), ("serving.tracing.debug_endpoints", "P11"),
-    ("monitoring.quality_store", "P12"), ("monitoring.slo", "P12"),
-], ids=["ingest", "anomaly", "cache", "debug_endpoints", "quality_store",
-        "slo"])
+    ("serving.ingest", "P9"), ("serving.cache", "P12"),
+    ("serving.tracing.debug_endpoints", "P11"),
+], ids=["ingest", "cache", "debug_endpoints"])
 def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
                                                            monkeypatch,
                                                            block, item):
@@ -1287,7 +1284,9 @@ def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
     ({"batching": {"max_batchsize": 8}}, "unknown batching conf key"),
     ({"http": {"pool_sizes": 2}}, "unknown serving.http conf key"),
     ({"tracing": {"ring": 1}}, "unknown tracing conf key"),
-], ids=["batching", "http", "tracing"])
+    ({"anomaly": {"enabled": True, "treshold": 1}},
+     "unknown serving.anomaly conf key"),
+], ids=["batching", "http", "tracing", "anomaly"])
 def test_serve_task_conf_typos_fail_before_loading(tmp_path, monkeypatch,
                                                    serving, match):
     from distributed_forecasting_tpu_torch.tasks import serve as tserve
@@ -1299,9 +1298,11 @@ def test_serve_task_conf_typos_fail_before_loading(tmp_path, monkeypatch,
 
 
 def test_serve_task_serves_the_registered_model(runs, monkeypatch):
-    """The shipped serve conf (store and SLO off) on the forecasting-e2e
-    store: the task resolves the Staging version, warms, and serves
-    /invocations and /observe; the result-neutral blocks are logged."""
+    """The shipped serve conf on the forecasting-e2e store: the task resolves
+    the Staging version, warms, starts the quality store's scrape loop and
+    the SLO evaluator (store under ``<env.root>/quality_store``, staleness
+    from the env's tracking root), serves /invocations and /observe, and
+    logs the result-neutral blocks."""
     import json
     import urllib.request
 
@@ -1331,6 +1332,19 @@ def test_serve_task_serves_the_registered_model(runs, monkeypatch):
             assert any(m.startswith(f"{block}: accepted") and "P11" in m
                        for m in text), (block, text)
         assert any(m.startswith("warmed 2 request-size bucket") for m in text)
+        assert ("quality observability on (monitor=True store=True "
+                "slo=True)") in text
+        quality = srv.quality
+        assert quality.store.directory == os.path.join(root, "quality_store")
+        assert os.path.isdir(os.path.join(root, "quality_store"))
+        assert quality.scrape._thread.is_alive()
+        assert quality.slo._thread.is_alive()
+        assert quality.slo._latency is srv.metrics.latency
+        assert srv.anomaly is None  # serving.anomaly ships disabled
+        state = quality.slo.evaluate_once()
+        stale = next(r for r in state["rules"]
+                     if r["name"] == "model_staleness")
+        assert stale["bad"] is False and 0 <= stale["sli"] < 3600
         fc = srv.forecaster
         assert srv.model_version == str(_handles(root)[2].latest_version(
             MODEL, stage="Staging").version)
@@ -1356,5 +1370,69 @@ def test_serve_task_serves_the_registered_model(runs, monkeypatch):
             summary = json.loads(r.read())
         assert summary["observations"] == 20
         assert summary["nominal_coverage"] == 0.95
+    finally:
+        srv.shutdown()
+    assert not quality.scrape._thread and not quality.slo._thread
+    names = {p["name"] for p in quality.store.query()}
+    assert {"dftpu_quality_wape", "serving_requests_total",
+            "dftpu_slo_evaluations_total", "dftpu_slo_bad"} <= names
+
+
+def test_serve_task_runs_the_anomaly_scorer(runs, monkeypatch):
+    """``serving.anomaly.enabled: true`` on the shipped conf: the scorer is
+    built with its stream under ``<env.root>/anomaly_stream`` and answers
+    /detect_anomalies with the in-process scorer's body."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.serving import server as tserver
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    started = {}
+
+    def start(forecaster, host, port, **kw):
+        started["srv"] = tserver.start_server(forecaster, host=host,
+                                              port=port, **kw)
+
+    monkeypatch.setattr(tserve, "serve", start)
+    _, root = runs["port"]
+    conf = _serve_conf(root, warmup_sizes=[1])
+    conf["serving"]["anomaly"]["enabled"] = True
+    conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+        root, "quality_store_anomaly")
+    tserve.ServeTask(init_conf=conf, device="cpu").launch()
+    srv = started["srv"]
+    try:
+        scorer = srv.anomaly
+        assert scorer.store.directory == os.path.join(root, "anomaly_stream")
+        assert scorer._execute == srv.execute
+        fc = srv.forecaster
+        catalog = _handles(root)[0]
+        hist = catalog.read_table("hackathon.sales.finegrain_forecasts")
+        hist = hist[hist["y"].notna()].tail(30)
+        pts = [{"store": int(r.store), "item": int(r.item),
+                "ds": str(pd.Timestamp(r.ds).date()),
+                "y": float(r.y) * (8.0 if i % 10 == 0 else 1.0) + (
+                    200.0 if i % 10 == 0 else 0.0)}
+               for i, r in enumerate(hist.itertuples())]
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        req = urllib.request.Request(
+            url + "/detect_anomalies",
+            data=json.dumps({"points": pts}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = r.read()
+        from distributed_forecasting_tpu_torch.serving.anomaly import (
+            AnomalyScorer,
+        )
+
+        want = AnomalyScorer(fc, scorer.config).score(pd.DataFrame(pts))
+        assert body == json.dumps(want).encode()
+        out = json.loads(body)
+        assert out["n_scored"] == 30
+        assert all(out["results"][i]["is_anomaly"] for i in (0, 10, 20))
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        assert "dftpu_anomaly_requests_total 1" in text
+        assert scorer.store.query(name="dftpu_anomaly_point")
     finally:
         srv.shutdown()
