@@ -49,7 +49,13 @@ its own size:
   * the online scorer: ``python -m
     distributed_forecasting_tpu_torch.tasks.serve`` on the shipped serve
     conf, answering /invocations, /observe and /metrics over HTTP with the
-    micro-batching coalescer off and on.
+    micro-batching coalescer off and on;
+  * automatic data prep (``engine/autoprep.py``, ``ops/clean.py``) on the
+    committed dataset with spikes, zero runs and level shifts planted from
+    a seed: the prep program on the card against a CPU copy, and the train
+    task from the shipped train_config.yml with ``engine.autoprep`` armed
+    (Holt-Winters at ``season_length: auto``, then the curve model with
+    holiday regressors).
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -241,10 +247,38 @@ is not 0:
               points (sequential) and its predict / host split; one
               ``scrape_once`` and one ``evaluate_once``; 1-series latency
               with the store and SLO on against off
+ 13. autoprep the committed dataset with, from a seed, one x8 spike in every
+              series, a 30-day zero run in 50 series and a +20 level shift
+              over the last 826 days in 50 others.  (a) The prep program,
+              every stage on with season and holiday detection, horizon 90,
+              on the card and on a CPU copy: the report's counts, the
+              largest difference of each float output, and the differing
+              discrete outputs, each inside the tie rules (a flag may flip
+              only where its score is within 1e-5 of the threshold, a
+              cp_index only where the top two valid |dev| are within 1e-6 x
+              sum|y m|); repairs and the fit tensor bitwise elsewhere.  (b)
+              The train task from conf/tasks/train_config.yml with the prep
+              armed, season detection, ``model: holt_winters`` and
+              ``season_length: auto``, the counters set to 0 just before it
+              and read after (hw_score and hw_filter must launch); its
+              prep_report (500 rows) and prep_repairs (one row a repaired
+              point) tables and prep_* metrics, the detected 7; run twice,
+              alternating with the prep off.  (c) The curve model (the
+              shipped model conf) with every stage on (holiday regressors,
+              season detection and re-leveling too): n_regressors is the
+              holiday count, its prep tables are logged, the artifact loads
+              and predicts the train table.  (d) Holt-Winters fit on the first
+              1,736 days with and without the cleaning stages: the repaired
+              fit's MAE over the last 90 days of the truth is lower.  (e)
+              The prep program's CUDA-event median of 5 beside its byte
+              bound, its device events and the card's idle share;
+              ``autoprep_batch`` on the host clock; the train task's wall
+              time with the prep on and off
 
 The line before the last lists the kernels (launches, error, times, bound;
-launches and error include phase 11's bucketed calls and phase 12's
-arima_predict launches through HTTP, /invocations and /detect_anomalies);
+launches and error include phase 11's bucketed calls, phase 12's
+arima_predict launches through HTTP, /invocations and /detect_anomalies,
+and phase 13's train task);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -4320,6 +4354,407 @@ def scorer_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 13: automatic data prep (engine/autoprep.py, ops/clean.py) -------
+
+TRAIN_CONF = os.path.join(ROOT, "conf", "tasks", "train_config.yml")
+PREP_SEED = 13
+PREP_SPIKE = 8.0  # one spike a series: its day's sales times this
+PREP_RUNS, PREP_RUN_DAYS = 50, 30  # series with a planted zero run, its days
+PREP_SHIFTS, PREP_SHIFT, PREP_SHIFT_DAYS = 50, 20.0, 826  # other series
+PREP_HOLDOUT = 90  # the last days, kept clean of spikes and zero runs
+PREP_HORIZON = 90
+# every stage on, with season and holiday detection
+PREP_CONF = dict(enabled=True, season_detect=True, holiday_regressors=True)
+# tie rules of the card against the CPU (tests/test_torch_autoprep.py): a
+# flag may flip only where its score is within PREP_FLAG_TIE (relative) of
+# the threshold; a cp_index may differ only where the row's top two valid
+# |dev| are within PREP_CP_TIE * sum|y m| of each other
+PREP_FLAG_TIE = 1e-5
+PREP_CP_TIE = 1e-6
+
+
+def prep_inputs(port):
+    """The committed dataset with, from ``PREP_SEED``: one x8 spike in every
+    series, a 30-day zero run in 50 series and a +20 level shift over the
+    last 826 days in 50 others (spikes and zero runs before the last 90
+    days).  Returns (the contaminated batch, the truth: the data with the
+    shifts and without the spikes and zero runs, the planted rows)."""
+    data = port["data"]
+    batch = data.tensorize(data.load_sales_csv(DATA))
+    S, T = batch.n_series, batch.n_time
+    rng = np.random.default_rng(PREP_SEED)
+    y = batch.y.cpu().numpy().astype(np.float32)
+    rows = rng.permutation(S)
+    runs, shifts = rows[:PREP_RUNS], rows[PREP_RUNS:PREP_RUNS + PREP_SHIFTS]
+    y[shifts, T - PREP_SHIFT_DAYS:] += PREP_SHIFT
+    truth = y.copy()
+    last = T - PREP_HOLDOUT
+    spike_day = rng.integers(7, last - 7, S)
+    y[np.arange(S), spike_day] *= PREP_SPIKE
+    starts = rng.integers(0, last - PREP_RUN_DAYS, PREP_RUNS)
+    for s, t0 in zip(runs, starts):
+        y[s, t0:t0 + PREP_RUN_DAYS] = 0.0
+    mask = batch.mask.cpu().numpy()
+    dirty = dataclasses.replace(
+        batch, y=torch.from_numpy(y * mask).to(batch.y.device))
+    return (dirty, torch.from_numpy(truth * mask).to(batch.y.device),
+            dict(spikes=S, zero_runs=sorted(int(s) for s in runs),
+                 shifts=sorted(int(s) for s in shifts)))
+
+
+def _cusum_top_two(y, mask) -> tuple:
+    """Float64 per row: the gap between the two largest valid |dev| of the
+    CUSUM statistic, and sum |y m|."""
+    m = mask.astype(np.float64)
+    v = y.astype(np.float64) * m
+    n_tot = m.sum(1, keepdims=True)
+    mu = v.sum(1, keepdims=True) / np.maximum(n_tot, 1)
+    dev = np.abs(np.cumsum((y - mu) * m, axis=1))
+    n_left = np.cumsum(m, axis=1)
+    valid = (n_left >= 2) & (n_tot - n_left >= 2)
+    stat = np.sort(np.where(valid, dev, -np.inf), axis=1)
+    return stat[:, -1] - stat[:, -2], np.abs(v).sum(1)
+
+
+def prep_compare(got, want, y_raw: np.ndarray) -> dict:
+    """The prep result on the card (``got``) against the CPU's (``want``)
+    of the same batch ``y_raw``: the largest difference of each float
+    output, the number of differing discrete outputs and how many of them
+    each tie rule covers.  Raises on any difference outside the rules."""
+    g, w = got.report, want.report
+    T = w.n_time
+    tol = T * F32_EPS  # float32 bound of a sum of T terms
+    thr = w.config.outlier_threshold
+    flips = (g.outlier_score > thr) != (w.outlier_score > thr)
+    near = np.abs(w.outlier_score - thr) <= PREP_FLAG_TIE * thr
+    tie_rows = flips.any(axis=1)  # a flip moves its row's repair anchors
+    y_clean_w = np.where(w.repaired, w.repair_value, y_raw)
+    mask_w = want.batch.mask.numpy()
+    gap, mass = _cusum_top_two(y_clean_w, mask_w)
+    scale = np.abs(y_clean_w).max(axis=1)
+    cp_diff = (g.cp_index != w.cp_index) & ~tie_rows
+    found_flip = cp_diff & ((g.cp_index < 0) != (w.cp_index < 0))
+    cp_tie = cp_diff & ~found_flip & (gap <= PREP_CP_TIE * mass)
+    cp_thr = w.config.changepoint_threshold
+    found_tie = found_flip & (np.abs(np.maximum(g.cp_score, w.cp_score)
+                                     - cp_thr) <= tol * cp_thr)
+    same = (g.cp_index == w.cp_index) & ~tie_rows
+    d_shift = np.abs(g.cp_shift - w.cp_shift)
+    d_score = np.abs(g.cp_score - w.cp_score)
+    y_got, y_want = got.batch.y.cpu().numpy(), want.batch.y.numpy()
+    out = {
+        "max_abs_diff": {
+            "outlier_score": float(np.abs(g.outlier_score
+                                          - w.outlier_score).max()),
+            "outlier_scale": float(np.abs(g.outlier_scale
+                                          - w.outlier_scale).max()),
+            "repair_value": float(np.abs(g.repair_value
+                                         - w.repair_value).max()),
+            "cp_shift": float(d_shift.max()), "cp_score": float(d_score.max()),
+            "y_clean": float(np.abs(y_got - y_want).max()),
+            "xreg": float((got.xreg.cpu() - want.xreg).abs().max())
+            if want.xreg is not None else None},
+        "differing": {
+            "masked_zero_cells": int((g.masked_zero_cells
+                                      != w.masked_zero_cells).sum()),
+            "mask_cells": int((got.batch.mask.cpu().numpy() != mask_w).sum()),
+            "outlier_flags": int(flips.sum()),
+            "outlier_flags_within_tie": int((flips & near).sum()),
+            "repaired_cells": int((g.repaired != w.repaired).sum()),
+            "repaired_cells_outside_tie_rows": int(
+                (g.repaired != w.repaired)[~tie_rows].sum()),
+            "cp_index": int((g.cp_index != w.cp_index).sum()),
+            "cp_index_in_tie_rows": int(((g.cp_index != w.cp_index)
+                                         & tie_rows).sum()),
+            "cp_index_within_tie": int(cp_tie.sum() + found_tie.sum()),
+            "season_length": int(g.season_length != w.season_length),
+            "holiday_names": int(g.holiday_names != w.holiday_names)},
+        "season_length": [g.season_length, w.season_length],
+    }
+    d = out["differing"]
+    assert d["masked_zero_cells"] == d["mask_cells"] == 0, d
+    assert d["outlier_flags"] == d["outlier_flags_within_tie"], d
+    assert d["repaired_cells_outside_tie_rows"] == 0, d
+    assert int(cp_diff.sum()) == d["cp_index_within_tie"], d
+    assert d["season_length"] == d["holiday_names"] == 0, d
+    assert (d_shift[same] <= tol * (np.abs(w.cp_shift[same])
+                                    + scale[same])).all(), out
+    assert (d_score[same] <= tol * np.abs(w.cp_score[same]) + 1e-6).all(), out
+    # repairs and the fit tensor: bitwise where no tie moved them (the
+    # interpolation is elementwise and uncontracted on both devices)
+    keep = ~tie_rows
+    assert np.array_equal(g.repair_value[keep], w.repair_value[keep]), out
+    rows = keep & (g.cp_index == w.cp_index)
+    assert np.array_equal(y_got[rows], y_want[rows]) or \
+        w.config.align_level_shifts, out
+    if want.xreg is not None:
+        assert torch.equal(got.xreg.cpu(), want.xreg), out
+    return out
+
+
+def prep_bound(port, S: int, T: int, max_lag: int) -> tuple:
+    """(ms, 'bytes' | 'operations') least time of the prep program: y and
+    mask read once (f32), the cleaned y and mask and the outlier scores
+    written once (f32) with the dropped and repaired maps (bool); the
+    operations are the ACF's transforms (``engine/season.acf_work``; the
+    MAD's sorts are not counted)."""
+    ops, _ = port["season"].acf_work(S, T, max_lag)
+    nbytes = S * T * (4 + 4) + S * T * (3 * 4 + 2 * 1)
+    return bound_ms((ops, nbytes))
+
+
+def prep_train_conf(port, root: str, model: str, autoprep: dict) -> dict:
+    """conf/tasks/train_config.yml with ``env.root``, the model (for
+    Holt-Winters, ``season_length: auto`` in place of the curve model's
+    keys) and the ``engine.autoprep`` fields in ``autoprep``."""
+    conf = port["config"].load_conf(TRAIN_CONF)
+    conf["env"] = {"root": root}
+    conf["training"]["model"] = model
+    if model == "holt_winters":
+        conf["training"]["model_conf"] = {"season_length": "auto"}
+    block = conf["engine"]["autoprep"]
+    for key in autoprep:
+        assert key in block, key  # only keys the shipped conf has
+    block.update(autoprep)
+    return conf
+
+
+def prep_task(port, root: str, conf: dict) -> tuple:
+    """One train task on the card; (seconds, summary, run)."""
+    t0 = time.perf_counter()
+    summary = port["tasks"].TASK_TYPES["train"](init_conf=conf,
+                                                 device=DEVICE).launch()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _, tracker, _ = _store(port, root)
+    return seconds, summary, tracker.get_run(summary["experiment_id"],
+                                             summary["run_id"])
+
+
+def prep_train(port, dirty, counters, found: dict, card_line: str) -> dict:
+    """(b) and (c): the train task from the shipped train_config.yml with
+    ``engine.autoprep.enabled`` and season detection, ``model:
+    holt_winters`` and ``season_length: auto`` (the launch counters set to
+    0 just before it and read just after; both HW kernels must launch; its
+    prep finds what (a) ``found`` on the same batch), alternating
+    with the same task with the prep off; then the curve model (the
+    shipped model conf) with every stage on, ``holiday_regressors: true``
+    and ``align_level_shifts: true`` among them."""
+    ap = port["autoprep"]
+    S, T = dirty.n_series, dirty.n_time
+    raw = dirty.key_frame().merge(pd.DataFrame({"date": dirty.dates()}),
+                                  how="cross")
+    raw["sales"] = dirty.y.cpu().numpy().reshape(-1)
+    raw = raw[dirty.mask.cpu().numpy().reshape(-1) > 0].reset_index(drop=True)
+    on = dict(enabled=True, season_detect=True)
+    out = {"wall_seconds": {"prep_on": [], "prep_off": []}}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            catalog, _, _ = _store(port, root)
+            catalog.save_table("hackathon.sales.raw", raw)
+            for turn in range(2):
+                for k, block in (("prep_on", on),
+                                 ("prep_off", dict(enabled=False))):
+                    conf = prep_train_conf(port, root, "holt_winters", block)
+                    for fn in counters.values():
+                        fn.launches = 0
+                    sec, summary, run = prep_task(port, root, conf)
+                    launches = {k2: fn.launches
+                                for k2, fn in counters.items()}
+                    out["wall_seconds"][k].append(sec)
+                    assert summary["n_failed"] == 0, summary
+                    if k == "prep_on" and turn == 0:
+                        out["launches"] = launches
+                        for name, n in launches.items():
+                            assert n >= 1, f"phase 13 never launched {name}"
+                        metrics = run.metrics()
+                        prep = {m: v for m, v in metrics.items()
+                                if m.startswith("prep_")}
+                        assert set(prep) == {
+                            "prep_masked_zero_cells", "prep_repaired_points",
+                            "prep_series_repaired",
+                            "prep_series_with_changepoint",
+                            "prep_season_length",
+                            "prep_holiday_regressors"}, prep
+                        report = pd.read_parquet(
+                            run.artifact_path("prep_report.parquet"))
+                        repairs = pd.read_parquet(
+                            run.artifact_path("prep_repairs.parquet"))
+                        assert len(report) == S, len(report)
+                        assert len(repairs) == prep["prep_repaired_points"]
+                        for m in ("prep_masked_zero_cells",
+                                  "prep_repaired_points",
+                                  "prep_series_repaired",
+                                  "prep_series_with_changepoint",
+                                  "prep_season_length"):
+                            assert prep[m] == found[m], (m, prep, found)
+                        assert int(run.params()["season_length"]) == 7
+                        assert prep["prep_masked_zero_cells"] >= \
+                            PREP_RUNS * PREP_RUN_DAYS, prep
+                        out.update(metrics=prep,
+                                   phase_autoprep_seconds=metrics[
+                                       "phase_autoprep_seconds"],
+                                   fit_seconds=metrics["fit_seconds"],
+                                   report_rows=len(report),
+                                   repairs_rows=len(repairs))
+                    if k == "prep_off":
+                        assert not any(m.startswith("prep_")
+                                       for m in run.metrics())
+            # (c) the curve model, the shipped model conf, every stage on:
+            # the holiday columns join its regressors
+            conf = prep_train_conf(port, root, "prophet", dict(
+                enabled=True, holiday_regressors=True, season_detect=True,
+                align_level_shifts=True))
+            sec, summary, run = prep_task(port, root, conf)
+            params, metrics = run.params(), run.metrics()
+            n_hol = int(metrics["prep_holiday_regressors"])
+            assert n_hol > 0 and int(params["n_regressors"]) == n_hol, params
+            assert metrics["prep_season_length"] == 7, metrics
+            for name, rows in (("prep_report.parquet", S), (
+                    "prep_repairs.parquet", metrics["prep_repaired_points"])):
+                assert len(pd.read_parquet(run.artifact_path(name))) == rows
+            fc = port["serving"].BatchForecaster.load(
+                run.artifact_path("forecaster"), device=DEVICE)
+            xreg = ap.autoprep_batch(dirty, ap.AutoprepConfig(
+                enabled=True, zero_run_mask=False, outlier_repair=False,
+                changepoints=False, holiday_regressors=True),
+                horizon=PREP_HORIZON).xreg
+            assert xreg.shape == (T + PREP_HORIZON, n_hol)
+            hol_names = ap.autoprep_batch(dirty.take_series([0]),
+                                          ap.AutoprepConfig(
+                enabled=True, zero_run_mask=False, outlier_repair=False,
+                changepoints=False, holiday_regressors=True)).report\
+                .holiday_names
+            assert tuple(fc.config.regressor_names) == hol_names, \
+                fc.config.regressor_names
+            keys = pd.DataFrame(dirty.keys[:20], columns=list(dirty.key_names))
+            got = fc.predict(keys, horizon=PREP_HORIZON, xreg=xreg)
+            table = catalog.read_table(FORECASTS)
+            want = table.merge(got[["ds", "store", "item"]],
+                               on=["ds", "store", "item"])
+            assert len(want) == len(got) == 20 * PREP_HORIZON
+            got = got.merge(want, on=["ds", "store", "item"],
+                            suffixes=("", "_table"))
+            vals = got[["yhat", "yhat_upper", "yhat_lower"]].to_numpy()
+            assert np.isfinite(vals).all()
+            scale = np.abs(got["yhat_table"].to_numpy()).max()
+            diff = float(np.abs(got["yhat"] - got["yhat_table"]).max())
+            assert diff <= SCORER_RTOL * scale, (diff, scale)
+            out["curve_holidays"] = dict(
+                seconds=sec, n_regressors=int(params["n_regressors"]),
+                holiday_regressors=n_hol, predict_vs_table=diff,
+                regressor_names=list(hol_names))
+    finally:
+        ap.configure_autoprep(ap.AutoprepConfig())
+    emit("prep_train", card=card_line, **out)
+    return out
+
+
+def prep_pays(port, dirty, truth) -> dict:
+    """(d) Holt-Winters (m 7) fit on the first T - 90 days of the
+    contaminated batch, with the prep's cleaning stages and without: the
+    repaired fit's MAE over the last 90 days of the truth is lower."""
+    engine, hw, ap = port["engine"], port["hw"], port["autoprep"]
+    last = dirty.n_time - PREP_HOLDOUT
+    train = dataclasses.replace(dirty, y=dirty.y[:, :last].contiguous(),
+                                mask=dirty.mask[:, :last].contiguous(),
+                                day=dirty.day[:last].contiguous())
+    cfg = hw.HoltWintersConfig(season_length=7)
+    mae = {}
+    for name, prep in (("raw", False), ("repaired", ap.AutoprepConfig(
+            enabled=True))):
+        _, res = engine.fit_forecast(train, "holt_winters", config=cfg,
+                                     horizon=PREP_HOLDOUT, autoprep=prep)
+        err = (res.yhat[:, last:] - truth[:, last:]).abs()
+        mae[name] = float((err * dirty.mask[:, last:]).sum()
+                          / dirty.mask[:, last:].sum())
+    out = dict(holdout_days=PREP_HOLDOUT, mae=mae,
+               repaired_better=mae["repaired"] < mae["raw"])
+    emit("prep_pays", **out)
+    assert out["repaired_better"], out
+    return out
+
+
+def prep_times(port, dirty, card_line: str) -> dict:
+    """(e) The prep program (``engine/autoprep._autoprep_impl``, every stage
+    on) at 500 x 1,826: CUDA-event median of 5 beside its bound, its device
+    events and the card's idle share over one call; ``autoprep_batch``
+    whole (the program, the period selection and the host pulls of the
+    report) on the host clock."""
+    ap, season = port["autoprep"], port["season"]
+    cfg = ap.AutoprepConfig(**PREP_CONF)
+    S, T = dirty.n_series, dirty.n_time
+    hol_days, _ = ap._holiday_days_array(dirty, PREP_HORIZON, cfg)
+    hol_days = torch.as_tensor(hol_days, device=dirty.y.device)
+    day0 = int(dirty.day[0])
+    day_all = torch.arange(day0, day0 + T + PREP_HORIZON, dtype=torch.int32,
+                           device=dirty.y.device)
+    max_lag = season.clamp_max_lag(cfg.season_max_lag, T)
+    statics = dict(
+        zero_run_mask=cfg.zero_run_mask, zero_run_min=cfg.zero_run_min,
+        outlier_repair=cfg.outlier_repair,
+        outlier_threshold=cfg.outlier_threshold,
+        outlier_window=cfg.outlier_window, changepoints=cfg.changepoints,
+        changepoint_threshold=cfg.changepoint_threshold,
+        align_level_shifts=cfg.align_level_shifts,
+        season_detect=cfg.season_detect, acf_max_lag=max_lag)
+
+    def program():
+        return ap._autoprep_impl(dirty.y, dirty.mask, day_all, hol_days,
+                                 **statics)
+
+    ms = cuda_ms(program)
+    bound, by = prep_bound(port, S, T, max_lag)
+    profile = idle_share(program, top_n=8)
+    batch_ms, _ = host_ms(lambda: ap.autoprep_batch(dirty, cfg,
+                                                    horizon=PREP_HORIZON),
+                          reps=REPS)
+    out = dict(shape=[S, T], max_lag=max_lag, program_ms=ms, bound_ms=bound,
+               bound_by=by, share_of_bound=bound / ms,
+               autoprep_batch_host_ms=batch_ms,
+               device_events=profile.get("device_events"),
+               idle_share=profile.get("idle_share"), profile=profile,
+               reps=REPS, statistic="median")
+    emit("prep_times", card=card_line, **out)
+    return out
+
+
+def prep_phase(port, counters, card_line: str) -> dict:
+    """Phase 13: automatic data prep on the committed dataset, contaminated
+    from a seed: (a) the prep program on the card against a CPU copy within
+    the tie rules, (b) the train task with the prep on (both HW kernels
+    launched, the artifacts and metrics) and off, (c) the curve model with
+    holiday regressors, (d) the repaired fit beating the raw one on a
+    holdout, (e) times."""
+    t_phase = time.perf_counter()
+    ap = port["autoprep"]
+    dirty, truth, planted = prep_inputs(port)
+    cfg = ap.AutoprepConfig(**PREP_CONF)
+    got = ap.autoprep_batch(dirty, cfg, horizon=PREP_HORIZON)
+    cpu = dataclasses.replace(dirty, y=dirty.y.cpu(), mask=dirty.mask.cpu(),
+                              day=dirty.day.cpu())
+    want = ap.autoprep_batch(cpu, cfg, horizon=PREP_HORIZON)
+    assert got.batch.y.device.type == DEVICE == got.xreg.device.type
+    vs_cpu = prep_compare(got, want, cpu.y.numpy())
+    summary = got.report.summary()
+    assert summary["prep_series_repaired"] >= 0.9 * dirty.n_series, summary
+    assert summary["prep_masked_zero_cells"] >= PREP_RUNS * PREP_RUN_DAYS
+    assert summary["prep_season_length"] == 7, summary
+    emit("prep_gpu_vs_cpu", card=card_line, planted=dict(
+        spikes=planted["spikes"], zero_runs=len(planted["zero_runs"]),
+        shifts=len(planted["shifts"])), summary=summary,
+        shifted_series_found=int((got.report.cp_index[planted["shifts"]]
+                                  >= 0).sum()), **vs_cpu)
+    out = {"gpu_vs_cpu": vs_cpu, "summary": summary,
+           "train": prep_train(port, dirty, counters, summary, card_line),
+           "pays": prep_pays(port, dirty, truth),
+           "times": prep_times(port, dirty, card_line)}
+    out["launches"] = out["train"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase13", seconds=out["seconds"])
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -4362,6 +4797,7 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.data import dataset, native
     from distributed_forecasting_tpu_torch.monitoring import quality
     from distributed_forecasting_tpu_torch.serving import anomaly, batcher, server
+    from distributed_forecasting_tpu_torch.engine import autoprep
 
     native_before = native_snapshot()
     card_line = card()
@@ -4378,7 +4814,7 @@ def main() -> int:
                 reconcile_task=rec_task, arima=arima, kalman=kalman,
                 order=order, dataset=dataset, native=native,
                 quality=quality, batcher=batcher, server=server,
-                anomaly=anomaly)
+                anomaly=anomaly, autoprep=autoprep)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -4433,6 +4869,7 @@ def main() -> int:
     arima_out = arima_phase(port, card_line)
     ragged = slice9_phase(port, counters, card_line)["bucketed"]
     scorer = scorer_phase(port, card_line)
+    prep = prep_phase(port, counters, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -4450,7 +4887,8 @@ def main() -> int:
     at = arima_out["times"]
     rows = {k: dict(launches=(launches[k] + pooled["launches"][k]
                               + complete["launches"][k]
-                              + ragged["launches"][k]),
+                              + ragged["launches"][k]
+                              + prep["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),

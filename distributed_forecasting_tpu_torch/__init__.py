@@ -21,4 +21,8 @@ Layer map of what is ported so far:
                          :mod:`distributed_forecasting_tpu_torch.tasks`,
                          :mod:`distributed_forecasting_tpu_torch.workflows`
   - weights across ..... :mod:`distributed_forecasting_tpu_torch.convert`
+  - plots .............. :mod:`distributed_forecasting_tpu_torch.visualization`
+                         (needs matplotlib; off the card's path)
 """
+
+from distributed_forecasting_tpu_torch.version import __version__  # noqa: F401

@@ -1,3 +1,11 @@
+from distributed_forecasting_tpu_torch.engine.autoprep import (
+    AutoprepConfig,
+    PrepReport,
+    PrepResult,
+    autoprep_batch,
+    autoprep_config,
+    configure_autoprep,
+)
 from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import (
     CVConfig,
@@ -16,7 +24,8 @@ from distributed_forecasting_tpu_torch.engine.select import (
     select_model,
 )
 
-__all__ = ["CVConfig", "cross_validate", "cv_forecast_frame",
+__all__ = ["AutoprepConfig", "PrepReport", "PrepResult", "autoprep_batch",
+           "autoprep_config", "configure_autoprep", "CVConfig", "cross_validate", "cv_forecast_frame",
            "ForecastResult", "fit_forecast", "fit_forecast_auto",
            "fit_forecast_blend", "fit_forecast_bucketed",
            "fit_forecast_chunked", "forecast_frame", "select_model"]

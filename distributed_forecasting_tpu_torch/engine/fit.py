@@ -172,6 +172,33 @@ def validate_changepoint_days(config, day) -> None:
         )
 
 
+def _apply_autoprep(batch: SeriesBatch, autoprep) -> SeriesBatch:
+    """The prep the fit entry points share: when the process-wide
+    ``engine.autoprep`` block is armed (or a config is forced), run its
+    CLEANING stages over the batch.  The stages that shape configs (season
+    detection, holiday regressors) stay off here: the training pipeline
+    owns them.  ``autoprep=False`` skips prep (the pipeline passes it after
+    prepping once)."""
+    if autoprep is False:
+        return batch
+    from distributed_forecasting_tpu_torch.engine.autoprep import (
+        AutoprepConfig,
+        autoprep_batch,
+        autoprep_config,
+    )
+
+    apcfg = autoprep if isinstance(autoprep, AutoprepConfig) \
+        else autoprep_config()
+    if not apcfg.enabled:
+        return batch
+    # the fit sees the repaired tensor; the stored history is untouched
+    apcfg = dataclasses.replace(apcfg, season_detect=False,
+                                holiday_regressors=False)
+    if not apcfg.any_stage:
+        return batch
+    return autoprep_batch(batch, apcfg).batch
+
+
 def fit_forecast(
     batch: SeriesBatch,
     model: str = "prophet",
@@ -179,6 +206,7 @@ def fit_forecast(
     horizon: int = 90,
     min_points: int = DEFAULT_MIN_POINTS,
     xreg=None,
+    autoprep=None,
 ) -> Tuple[object, ForecastResult]:
     """Fit every series of ``batch`` and forecast ``horizon`` steps past the
     end of history, on the batch's device.  Returns ``(params, result)``.
@@ -187,10 +215,17 @@ def fit_forecast(
     (T + horizon, R) shared or (S, T + horizon, R) per series, for a model
     that takes them (the curve model, with ``config.n_regressors == R``):
     the fit sees the history slice, the forecast the whole window.
+
+    ``autoprep``: ``None`` applies the process-wide ``engine.autoprep``
+    CLEANING stages (zero-run masking, outlier repair, level-shift
+    alignment) when that block is armed; ``False`` skips prep; an
+    :class:`~distributed_forecasting_tpu_torch.engine.autoprep.AutoprepConfig`
+    forces one.
     """
     fns = get_model(model)
     validate_grid_cadence(model, batch)
     config = config if config is not None else fns.config_cls()
+    batch = _apply_autoprep(batch, autoprep)
     y, mask, day = batch.y, batch.mask, batch.day
     validate_changepoint_days(config, day)
     xreg = validate_xreg(fns, model, config, xreg, batch.n_time + horizon,
@@ -221,6 +256,7 @@ def fit_forecast_chunked(
     min_points: int = DEFAULT_MIN_POINTS,
     dispatch: str = "scan",
     xreg=None,
+    autoprep=None,
 ) -> Tuple[object, ForecastResult]:
     """Memory-bounded fit for very large batches (the 50k-series regime).
 
@@ -236,14 +272,16 @@ def fit_forecast_chunked(
     compiled ``lax.scan`` over the chunks) and ``'loop'`` (a host loop).  On
     the card both are one host loop over chunks of one shape: PyTorch
     launches every chunk's kernels as they come, and no launch round trip
-    is there for a scan to save.
+    is there for a scan to save.  ``autoprep`` as in :func:`fit_forecast`:
+    the whole batch is prepped once, before it is cut into chunks.
     """
     if dispatch not in ("scan", "loop"):
         raise ValueError(f"unknown dispatch {dispatch!r}; 'scan' or 'loop'")
+    batch = _apply_autoprep(batch, autoprep)
     S = batch.n_series
     if S <= chunk_size:
         return fit_forecast(batch, model=model, config=config, horizon=horizon,
-                            min_points=min_points, xreg=xreg)
+                            min_points=min_points, xreg=xreg, autoprep=False)
     fns = get_model(model)
     config = config if config is not None else fns.config_cls()
     validate_changepoint_days(config, batch.day)
@@ -264,7 +302,8 @@ def fit_forecast_chunked(
                                   keys=padded.keys[sl])
         chunks.append(fit_forecast(
             sub, model=model, config=config, horizon=horizon,
-            min_points=min_points, xreg=xreg[sl] if per_series_x else xreg))
+            min_points=min_points, xreg=xreg[sl] if per_series_x else xreg,
+            autoprep=False))
 
     first = chunks[0][0]
     params = type(first)(**{
@@ -287,6 +326,7 @@ def fit_forecast_bucketed(
     min_points: int = DEFAULT_MIN_POINTS,
     max_buckets: int = 4,
     xreg=None,
+    autoprep=None,
 ):
     """Fit a ragged batch in span buckets (``data.tensorize.bucket_by_span``):
     each bucket fits on its trimmed grid, one ``fit_forecast`` a bucket, so a
@@ -304,8 +344,11 @@ def fit_forecast_bucketed(
     A bucket's xreg is the tail ``xreg[T - L:]`` of the full (T + horizon)
     window.  The reference double-buffers each bucket's host-to-device copy
     (its ``prefetch_to_device``); here the sub-batches are slices of tensors
-    already on the device, so there is nothing to prefetch.
+    already on the device, so there is nothing to prefetch.  ``autoprep``
+    as in :func:`fit_forecast`, once on the shared grid before bucketing
+    (repairs on a trimmed grid would see truncated neighborhoods).
     """
+    batch = _apply_autoprep(batch, autoprep)
     buckets = bucket_by_span(batch, max_buckets=max_buckets)
     S, T = batch.n_series, batch.n_time
     T_all = T + horizon
@@ -330,7 +373,7 @@ def fit_forecast_bucketed(
             L = sub.n_time
             xr = xreg[T - L:] if xreg.dim() == 2 else xreg[rows][:, T - L:]
         p, r = fit_forecast(sub, model=model, config=config, horizon=horizon,
-                            min_points=min_points, xreg=xr)
+                            min_points=min_points, xreg=xr, autoprep=False)
         lead = T_all - r.yhat.shape[1]
 
         def fill(M):

@@ -26,9 +26,9 @@ With a store (``monitoring/store.py``), each observe also appends the
 family's rolling metrics and its worst series as store rows, outside the
 accumulator lock; :func:`build_quality_runtime` wires the monitor, the store,
 the scrape loop and the SLO evaluator (``monitoring/slo.py``) into one
-:class:`QualityRuntime`.  The cost block (``monitoring.cost``) is accepted
-and logged as having no effect (ROADMAP Queue 1: P11), so the scrape loop
-has no cost source.
+:class:`QualityRuntime`.  The cost block (``monitoring.cost``) is parsed
+strictly and logged as having no effect (ROADMAP Queue 1: P11), so the
+scrape loop has no cost source.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import torch
 
 from distributed_forecasting_tpu_torch.data.tensorize import period_ordinals
 from distributed_forecasting_tpu_torch.engine.calibrate import config_interval_width
+from distributed_forecasting_tpu_torch.monitoring.cost import CostConfig
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.ops.metrics import quality_terms
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
@@ -456,8 +457,8 @@ def build_quality_runtime(
     registries.  ``tracking_root`` feeds the staleness SLO (the conf's
     ``monitoring.tracking_root`` wins over it); ``default_store_dir`` backs
     an empty ``quality_store.directory`` (two processes must never share an
-    append cursor, so each gets its own directory).  ``cost`` has no effect
-    (ROADMAP Queue 1: P11).
+    append cursor, so each gets its own directory).  ``cost`` is parsed
+    strictly and has no effect (ROADMAP Queue 1: P11).
     """
     from distributed_forecasting_tpu_torch.monitoring.slo import (
         SLOConfig,
@@ -483,6 +484,7 @@ def build_quality_runtime(
     qconf = QualityConfig.from_conf(conf.get("quality"))
     sconf = QualityStoreConfig.from_conf(conf.get("quality_store"))
     slo_conf = SLOConfig.from_conf(conf.get("slo"))
+    CostConfig.from_conf(conf.get("cost"))
     if not (qconf.enabled or sconf.enabled or slo_conf.enabled):
         return None
     if slo_conf.enabled and not sconf.enabled:
@@ -536,10 +538,11 @@ def build_quality_runtime(
 
 
 def check_unported_monitoring(conf: Optional[dict], logger=None) -> None:
-    """Log the ``monitoring.cost`` block, which changes no result: the
-    reference's ``monitoring/cost.py`` is not ported (ROADMAP Queue 1:
-    P11)."""
+    """Parse the ``monitoring.cost`` block strictly and log it: it changes
+    no result, and the runtime behind it (the reference's
+    ``monitoring/cost.py``) is not ported (ROADMAP Queue 1: P11)."""
     conf = conf or {}
+    CostConfig.from_conf(conf.get("cost"))
     if conf.get("cost") is not None and logger is not None:
         logger.info("monitoring.cost: accepted; monitoring/cost.py is not "
                     "ported, so the block has no effect in the port yet "

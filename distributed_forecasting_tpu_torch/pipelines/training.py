@@ -17,8 +17,16 @@ blend`` from the per-series weighted pool of all of them
 ``serving/ensemble``.  :meth:`TrainingPipeline.allocated` fits one model
 per item and scales the item forecasts to stores by historical share.
 
+With the ``engine.autoprep`` block armed (``tasks/common`` installs it),
+the plain fine-grained path preps the batch once before its config
+(``engine/autoprep``): the fit and the CV pass see the cleaned tensor, a
+detected period replaces ``season_length: auto``, holiday indicator columns
+join the regressors, and the run logs the ``prep_*`` metrics and the
+``prep_report`` / ``prep_repairs`` tables.  The pooled and allocated paths
+get the cleaning stages inside ``fit_forecast``.
+
 The fine-grained path runs in three stages, as the reference's serial
-path does: ``prep`` (read, tensorize, resolve the config), ``dispatch``
+path does: ``prep`` (read, tensorize, prep, resolve the config), ``dispatch``
 (the CV pass and the fit, launched on the card) and ``complete`` (every
 host pull, then the tracking and table writes).  The reference's
 executor, which overlaps the stages of several experiments, is not ported
@@ -38,6 +46,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import pandas as pd
+import torch
 
 from distributed_forecasting_tpu_torch.data import holidays as H
 from distributed_forecasting_tpu_torch.data.catalog import DatasetCatalog
@@ -48,6 +57,10 @@ from distributed_forecasting_tpu_torch.data.tensorize import (
 )
 from distributed_forecasting_tpu_torch.engine.calibrate import (
     apply_interval_scale,
+)
+from distributed_forecasting_tpu_torch.engine.autoprep import (
+    autoprep_batch,
+    autoprep_config,
 )
 from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
@@ -378,10 +391,33 @@ class TrainingPipeline:
             with timer.phase("tensorize"):
                 batch = tensorize(df, key_cols=key_cols, freq=freq,
                                   device=self.device)
+            # automatic data prep BEFORE the config: the fit sees the
+            # cleaned tensor, and a detected season feeds the config as
+            # season_length: auto would, but from the repaired series
+            mconf = model_conf
+            prep_report = prep_xreg = prep_frames = None
+            apcfg = autoprep_config()
+            if apcfg.enabled and apcfg.any_stage:
+                with timer.phase("autoprep"):
+                    prep_res = autoprep_batch(batch, apcfg, horizon=horizon)
+                prep_report = prep_res.report
+                prep_xreg = prep_res.xreg
+                # the artifact frames against the RAW batch, before it is
+                # swapped for the cleaned one: y_raw is the original value
+                prep_frames = {
+                    "prep_report.parquet": prep_report.to_frame(batch),
+                    "prep_repairs.parquet": prep_report.repairs_frame(batch),
+                }
+                batch = prep_res.batch
+                if (prep_res.season_length is not None
+                        and (mconf or {}).get("season_length") == "auto"):
+                    mconf = {**mconf,
+                             "season_length": int(prep_res.season_length)}
+                self.logger.info("autoprep: %s", prep_report.summary())
             # config after tensorize: a named holiday calendar resolves over
             # the batch's actual date range (+ horizon)
             config = _config_from_conf(
-                model, _resolve_model_conf(model, model_conf, batch, horizon,
+                model, _resolve_model_conf(model, mconf, batch, horizon,
                                            cv_conf))
             if (model_conf or {}).get("season_length") == "auto":
                 self.logger.info("season_length: auto -> detected period %d",
@@ -397,6 +433,23 @@ class TrainingPipeline:
                 with timer.phase("tensorize_regressors"):
                     xreg, config = _load_regressors(
                         self.catalog, regressors, batch, horizon, config)
+            if prep_xreg is not None:
+                # the holiday indicator columns join the regressors as a
+                # shared (T + H, R) calendar; their names go into the
+                # config, so the artifact records what the fit saw
+                hnames = tuple(prep_report.holiday_names)
+                if xreg is None:
+                    xreg = prep_xreg
+                elif xreg.dim() == 3:
+                    hx = prep_xreg[None].expand(
+                        (xreg.shape[0],) + tuple(prep_xreg.shape))
+                    xreg = torch.cat([xreg, hx], dim=-1)
+                else:
+                    xreg = torch.cat([xreg, prep_xreg], dim=-1)
+                config = dataclasses.replace(
+                    config,
+                    n_regressors=int(config.n_regressors) + len(hnames),
+                    regressor_names=tuple(config.regressor_names) + hnames)
             self.logger.info(
                 "fine-grained fit: %d series x %d days, model=%s%s on %s",
                 batch.n_series, batch.n_time, model,
@@ -404,7 +457,8 @@ class TrainingPipeline:
                 else "", self.device,
             )
             return {"timer": timer, "batch": batch, "config": config,
-                    "xreg": xreg}
+                    "xreg": xreg, "prep_report": prep_report,
+                    "prep_frames": prep_frames}
 
         def dispatch(state: Dict[str, Any]) -> Dict[str, Any]:
             timer, batch, config = state["timer"], state["batch"], state["config"]
@@ -435,11 +489,13 @@ class TrainingPipeline:
                         buckets, result = fit_forecast_bucketed(
                             batch, model=model, config=config,
                             horizon=horizon, xreg=xreg,
+                            autoprep=False,  # prep() already cleaned
                         )
                     else:
                         params, result = fit_forecast(
                             batch, model=model, config=config,
                             horizon=horizon, xreg=xreg,
+                            autoprep=False,  # prep() already cleaned
                         )
             interval_scale = None
             if calibrate_intervals:
@@ -532,6 +588,15 @@ class TrainingPipeline:
                     series_table["coverage_calibrated"] = cov_c
                     agg["val_coverage_calibrated"] = (
                         float(np.mean(cov_c[ok])) if ok.any() else float("nan"))
+                if state["prep_report"] is not None:
+                    # what autoprep did, per batch (metrics), per series
+                    # (prep_report) and per repaired point (prep_repairs):
+                    # repairs exist in the fit tensor and in these
+                    # artifacts, never in the stored history
+                    agg.update(state["prep_report"].summary())
+                    for name, frame in state["prep_frames"].items():
+                        if len(frame):
+                            run.log_table(name, frame)
                 run.log_metrics(agg)
                 run.log_table("series_metrics.parquet", series_table)
                 if cv_artifact and run_cross_validation:

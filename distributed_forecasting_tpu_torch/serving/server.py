@@ -90,6 +90,9 @@ from distributed_forecasting_tpu_torch.serving.dataplane import (
     KeepAliveHandlerMixin,
     PooledHTTPServer,
 )
+from distributed_forecasting_tpu_torch.serving.forecast_cache import (
+    canonical_quantiles,
+)
 from distributed_forecasting_tpu_torch.serving.predictor import UnknownSeriesError
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
@@ -307,9 +310,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                     return
                 # canonical to 3 decimals, as the reference does (the levels
                 # are a signature of the coalescer)
-                quantiles = tuple(
-                    sorted({round(float(q), 3) for q in quantiles})
-                )
+                quantiles = canonical_quantiles(quantiles)
                 if not all(0.0 < q < 1.0 for q in quantiles):
                     self._send(
                         400,

@@ -15,13 +15,18 @@ with ``device="cpu"`` or, from the command line, the reference's own switch
 ``DFTPU_PLATFORM=cpu``.  It passes the device to the training pipeline and
 to every forecaster it loads.
 
-The reference's other top-level conf blocks:
+The reference's other top-level conf blocks, each parsed as strictly as
+the reference parses it (an unknown key or a bad value raises
+``ValueError``):
+  * ``engine.autoprep`` installs the process-wide autoprep config
+    (``engine/autoprep.configure_autoprep``) that the training pipeline and
+    the fit entry points read;
   * ``compile_cache:`` and ``pipeline:`` change no result (a compile cache,
-    and an executor byte-identical to the serial path); they are accepted
-    and logged as having no effect in the port yet (ROADMAP Queue 1: P11);
+    and an executor byte-identical to the serial path); they are logged as
+    having no effect in the port yet (ROADMAP Queue 1: P11);
   * ``distributed:``, ``precision: {bf16_scoring: true}`` and any
-    ``engine.{windowed, autoprep, gradfit, automl}`` with ``enabled: true``
-    change what runs; they raise ``NotImplementedError`` naming their item.
+    ``engine.{windowed, gradfit, automl}`` with ``enabled: true`` change
+    what runs; they raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -31,6 +36,14 @@ from abc import ABC, abstractmethod
 from typing import Any, Dict, Optional
 
 from distributed_forecasting_tpu_torch.data.catalog import DatasetCatalog
+from distributed_forecasting_tpu_torch.engine.autoprep import configure_autoprep
+from distributed_forecasting_tpu_torch.engine.compile_cache import (
+    CompileCacheConfig,
+)
+from distributed_forecasting_tpu_torch.engine.executor import PipelineConfig
+from distributed_forecasting_tpu_torch.engine.gradfit import GradFitConfig
+from distributed_forecasting_tpu_torch.engine.hyper import AutoMLConfig
+from distributed_forecasting_tpu_torch.engine.windowed import WindowedConfig
 from distributed_forecasting_tpu_torch.tracking import FileTracker, ModelRegistry
 from distributed_forecasting_tpu_torch.utils.config import parse_conf_args
 from distributed_forecasting_tpu_torch.utils.device import (
@@ -41,28 +54,34 @@ from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 _DEFAULT_ROOT = "./dftpu_store"
 
-# engine: blocks -> the reference module and the ROADMAP item porting it
-_ENGINE_BLOCKS = {
-    "windowed": ("engine/windowed.py", "P9"),
-    "autoprep": ("engine/autoprep.py", "P10"),
-    "gradfit": ("engine/gradfit.py", "P8"),
-    "automl": ("engine/select.py, engine/hyper.py", "P8"),
+# engine: blocks whose runtime is not ported -> (parser, the reference
+# module, the ROADMAP item porting it)
+_UNPORTED_ENGINE_BLOCKS = {
+    "windowed": (WindowedConfig.from_conf, "engine/windowed.py", "P9"),
+    "gradfit": (GradFitConfig.from_conf, "engine/gradfit.py", "P8"),
+    "automl": (AutoMLConfig.from_conf, "engine/select.py, engine/hyper.py",
+               "P8"),
 }
+_ENGINE_KEYS = frozenset(_UNPORTED_ENGINE_BLOCKS) | {"autoprep"}
 _PRECISION_KEYS = frozenset({"bf16_scoring"})
 
 
-def _check_unported_blocks(conf: Dict[str, Any], logger) -> None:
-    """Refuse the conf blocks that would change what runs; log the
+def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
+    """Parse every top-level block strictly; install ``engine.autoprep``,
+    refuse the blocks that would change what runs, and log the
     result-neutral ones."""
     if conf.get("distributed"):
         raise NotImplementedError(
             "distributed: multi-process bring-up (parallel/*) is not ported "
             "yet (ROADMAP Queue 1: P12)")
-    for block, what in (("compile_cache", "the compile cache "
-                                          "(engine/compile_cache.py)"),
-                        ("pipeline", "the pipelined executor "
-                                     "(engine/executor.py)")):
+    for block, parse, what in (
+            ("compile_cache",
+             lambda c: CompileCacheConfig.from_conf(c, default_root=root),
+             "the compile cache (engine/compile_cache.py)"),
+            ("pipeline", PipelineConfig.from_conf,
+             "the pipelined executor (engine/executor.py)")):
         if conf.get(block) is not None:
+            parse(conf[block])
             logger.info("%s: accepted; %s is not ported, so the block has no "
                         "effect in the port yet (ROADMAP Queue 1: P11)",
                         block, what)
@@ -79,16 +98,18 @@ def _check_unported_blocks(conf: Dict[str, Any], logger) -> None:
                 "ported yet (ROADMAP Queue 1: P8)")
     eng = conf.get("engine")
     if eng is not None:
-        unknown = set(eng) - set(_ENGINE_BLOCKS)
+        unknown = set(eng) - _ENGINE_KEYS
         if unknown:
             raise ValueError(
                 f"unknown engine conf key(s) {sorted(unknown)}; "
-                f"valid: {sorted(_ENGINE_BLOCKS)}")
-        for name, (module, item) in _ENGINE_BLOCKS.items():
-            if (eng.get(name) or {}).get("enabled"):
+                f"valid: {sorted(_ENGINE_KEYS)}")
+        for name, (parse, module, item) in _UNPORTED_ENGINE_BLOCKS.items():
+            if eng.get(name) is not None and parse(eng[name]).enabled:
                 raise NotImplementedError(
                     f"engine.{name}.enabled: true ({module}) is not ported "
                     f"yet (ROADMAP Queue 1: {item})")
+        if eng.get("autoprep") is not None:
+            configure_autoprep(eng["autoprep"])
 
 
 class Task(ABC):
@@ -118,7 +139,7 @@ class Task(ABC):
             "tracking": env.get("tracking", os.path.join(root, "mlruns")),
             "registry": env.get("registry", os.path.join(root, "registry")),
         }
-        _check_unported_blocks(conf, self.logger)
+        _apply_conf_blocks(conf, root, self.logger)
 
     # lazy infra handles ----------------------------------------------------
     @property

@@ -29,12 +29,13 @@ Conf::
       slo: {...}              # burn-rate SLOs (monitoring/slo.py) over the
                               # store, staleness from the env's tracking root
 
-``conf/tasks/serve_config.yml`` runs as shipped.  What the port does not
-have yet, each checked before any artifact loads: ``serving.ingest.enabled``
-(ROADMAP Queue 1: P9), ``serving.cache.enabled`` (P12) and
-``tracing.debug_endpoints: true`` (P11) raise ``NotImplementedError``.
-``tracing.enabled``, ``compile_cache:`` and ``monitoring.cost`` change no
-result and are logged as having no effect (P11).  The ``fleet:`` and
+``conf/tasks/serve_config.yml`` runs as shipped.  Every block is parsed
+strictly, as the reference parses it, before any artifact loads.  What the
+port does not have yet: ``serving.ingest.enabled`` (ROADMAP Queue 1: P9),
+``serving.cache.enabled`` (P12) and ``tracing.debug_endpoints: true`` (P11)
+raise ``NotImplementedError``.  ``tracing.enabled``, ``compile_cache:`` and
+``monitoring.cost`` change no result and are logged as having no effect
+(P11).  The ``fleet:`` and
 ``sharding:`` blocks belong to the fleet task (P12), as in the reference,
 whose serve task does not read them.
 """
@@ -54,6 +55,8 @@ from distributed_forecasting_tpu_torch.serving.anomaly import (
 )
 from distributed_forecasting_tpu_torch.serving.batcher import BatchingConfig
 from distributed_forecasting_tpu_torch.serving.dataplane import HttpConfig
+from distributed_forecasting_tpu_torch.serving.forecast_cache import CacheConfig
+from distributed_forecasting_tpu_torch.serving.ingest import IngestConfig
 from distributed_forecasting_tpu_torch.serving.loader import resolve_from_registry
 from distributed_forecasting_tpu_torch.serving.server import (
     UNPORTED_RUNTIMES,
@@ -98,8 +101,10 @@ class ServeTask(Task):
         check_tracing(conf.get("tracing"), self.logger)
         http = HttpConfig.from_conf(conf.get("http"))
         AnomalyConfig.from_conf(conf.get("anomaly"))  # fail fast on typos
-        for block, (module, item) in UNPORTED_RUNTIMES.items():
-            if (conf.get(block) or {}).get("enabled"):
+        for block, parse in (("ingest", IngestConfig.from_conf),
+                             ("cache", CacheConfig.from_conf)):
+            if parse(conf.get(block)).enabled:
+                module, item = UNPORTED_RUNTIMES[block]
                 raise NotImplementedError(
                     f"serving.{block}.enabled: true ({module}) is not "
                     f"ported yet (ROADMAP Queue 1: {item})")

@@ -929,3 +929,68 @@ def test_kernel_library_builds_once_from_concurrent_threads(dev, monkeypatch):
         t.join(600)
     assert len(builds) == 1
     assert got[0] is not None and all(g is got[0] for g in got)
+
+
+# -- automatic data prep (engine/autoprep.py, ops/clean.py) -------------------
+#
+# Plain torch on the card (cuFFT for the ACF).  On whole-number sales the
+# outlier stage is exact on both devices, so masks, scores and repairs are
+# bitwise the CPU's; the CUSUM runs on the repaired tensor, where a
+# cp_index may differ only at a tie of its statistic (the top two valid
+# |dev| within 1e-6 * sum|y m|), and its shift and score within T * 2**-24.
+
+def test_autoprep_on_the_card_equals_the_cpu(dev):
+    import numpy as np
+
+    from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
+    from distributed_forecasting_tpu_torch.engine import autoprep as ap
+
+    S, T = 64, 400
+    g = torch.Generator().manual_seed(13)
+    t = torch.arange(T)
+    y = torch.round(torch.clamp(
+        30 + 8 * torch.sin(2 * torch.pi * t / 7)[None, :]
+        + 3 * torch.randn(S, T, generator=g), min=0))
+    y[torch.arange(S), torch.randint(10, T - 10, (S,), generator=g)] *= 8
+    y[:8, 100:130] = 0.0                       # dead feeds
+    y[8:16, 250:] += 20.0                      # level shifts
+    mask = (torch.rand(S, T, generator=g) > 0.05).float()
+    mask[:8, 100:130] = 1.0
+    keys = np.stack([np.ones(S, np.int64), np.arange(1, S + 1)], axis=1)
+    cpu = SeriesBatch(y=y * mask, mask=mask,
+                      day=torch.arange(17000, 17000 + T, dtype=torch.int32),
+                      keys=keys, key_names=("store", "item"),
+                      start_date="2016-07-17")
+    card = dataclasses.replace(cpu, y=cpu.y.to(dev), mask=cpu.mask.to(dev),
+                               day=cpu.day.to(dev))
+    cfg = ap.AutoprepConfig(enabled=True, season_detect=True,
+                            holiday_regressors=True)
+    got = ap.autoprep_batch(card, cfg, horizon=30)
+    want = ap.autoprep_batch(cpu, cfg, horizon=30)
+    gr, wr = got.report, want.report
+    assert got.batch.y.device.type == "cuda" == got.xreg.device.type
+    for f in ("masked_zero_cells", "outlier_score", "outlier_scale",
+              "repaired", "repair_value"):
+        assert np.array_equal(getattr(gr, f), getattr(wr, f)), f
+    assert torch.equal(got.batch.mask.cpu(), want.batch.mask)
+    assert torch.equal(got.xreg.cpu(), want.xreg)
+    assert gr.season_length == wr.season_length == 7
+    assert (gr.masked_zero_cells[:8] == 30).all() and gr.repaired.sum() >= S // 2
+    # the CUSUM's tie rule, on the repaired tensor
+    yc = np.where(wr.repaired, wr.repair_value, cpu.y.numpy()).astype(
+        np.float64) * want.batch.mask.numpy()
+    m = want.batch.mask.numpy().astype(np.float64)
+    n = m.sum(1, keepdims=True)
+    dev_ = np.abs(np.cumsum((yc - yc.sum(1, keepdims=True) / n) * m, 1))
+    left = np.cumsum(m, 1)
+    stat = np.sort(np.where((left >= 2) & (n - left >= 2), dev_, -np.inf), 1)
+    tie = stat[:, -1] - stat[:, -2] <= 1e-6 * np.abs(yc).sum(1)
+    same = gr.cp_index == wr.cp_index
+    assert (same | tie).all()
+    tol = T * 2.0 ** -24
+    scale = np.abs(yc).max(1)
+    assert (np.abs(gr.cp_shift - wr.cp_shift)[same]
+            <= tol * (np.abs(wr.cp_shift) + scale)[same]).all()
+    assert (np.abs(gr.cp_score - wr.cp_score)[same]
+            <= tol * np.abs(wr.cp_score)[same] + 1e-6).all()
+    assert (gr.cp_index[8:16] >= 0).all()

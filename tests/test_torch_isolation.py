@@ -4,7 +4,8 @@
   ``chip_smoke.py`` imports ``jax``/``jaxlib`` or
   ``distributed_forecasting_tpu`` (an AST scan of every import).
 - Importing the whole port in a fresh interpreter leaves ``jax`` out of
-  ``sys.modules``.
+  ``sys.modules``, and ``matplotlib`` too (only ``visualization``'s plot
+  functions import it, when called).
 - Every entry point that places tensors raises when no CUDA device is
   visible, unless the caller passes ``device="cpu"``.
 """
@@ -73,6 +74,21 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.tasks.serve\n"
         "import distributed_forecasting_tpu_torch.tracking\n"
         "import distributed_forecasting_tpu_torch.workflows.runner\n"
+        "import distributed_forecasting_tpu_torch.data.eda\n"
+        "import distributed_forecasting_tpu_torch.engine.autoprep\n"
+        "import distributed_forecasting_tpu_torch.engine.compile_cache\n"
+        "import distributed_forecasting_tpu_torch.engine.executor\n"
+        "import distributed_forecasting_tpu_torch.engine.gradfit\n"
+        "import distributed_forecasting_tpu_torch.engine.hyper\n"
+        "import distributed_forecasting_tpu_torch.engine.windowed\n"
+        "import distributed_forecasting_tpu_torch.monitoring.cost\n"
+        "import distributed_forecasting_tpu_torch.ops.clean\n"
+        "import distributed_forecasting_tpu_torch.serving.forecast_cache\n"
+        "import distributed_forecasting_tpu_torch.serving.ingest\n"
+        "import distributed_forecasting_tpu_torch.tracking.mlflow_compat\n"
+        "import distributed_forecasting_tpu_torch.version\n"
+        "import distributed_forecasting_tpu_torch.visualization\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

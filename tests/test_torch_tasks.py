@@ -438,15 +438,101 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
     ({"distributed": {"num_processes": 2}}, "P12"),
     ({"precision": {"bf16_scoring": True}}, "P8"),
     ({"engine": {"windowed": {"enabled": True}}}, "P9"),
-    ({"engine": {"autoprep": {"enabled": True}}}, "P10"),
+    ({"engine": {"autoprep": {"enabled": True, "outlier_threshold": 5.0}}},
+     None),
     ({"engine": {"gradfit": {"enabled": True}}}, "P8"),
     ({"engine": {"automl": {"enabled": True}}}, "P8"),
 ], ids=["distributed", "bf16", "windowed", "autoprep", "gradfit", "automl"])
 def test_unported_task_blocks_raise(tmp_path, conf, item):
+    """Each unported block raises naming its item; ``engine.autoprep``
+    (``item`` None) is ported: the block arms the process-wide config."""
+    from distributed_forecasting_tpu_torch.engine import autoprep as tap
+
+    init_conf = {"env": {"root": str(tmp_path)}, **conf}
+    if item is None:
+        try:
+            ttasks.CatalogTask(init_conf=init_conf, device="cpu")
+            cfg = tap.autoprep_config()
+            assert cfg.enabled and cfg.outlier_threshold == 5.0
+        finally:
+            tap.configure_autoprep(tap.AutoprepConfig())
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1: {item}"):
-        ttasks.CatalogTask(init_conf={"env": {"root": str(tmp_path)}, **conf},
-                           device="cpu")
+        ttasks.CatalogTask(init_conf=init_conf, device="cpu")
+
+
+def _block_conf(block, value):
+    """A conf holding ``value`` at the dotted ``block`` path."""
+    conf = {}
+    node = conf
+    *parents, leaf = block.split(".")
+    for key in parents:
+        node = node.setdefault(key, {})
+    node[leaf] = value
+    return conf
+
+
+def _reference_parse(block, conf, root):
+    """Where the reference parses ``block``: the Task base for the top-level
+    and engine blocks, the serve task for serving.cache, the ingest
+    runtime's parser for serving.ingest and build_quality_runtime for
+    monitoring.cost (both of which the reference reaches only after the
+    model load)."""
+    from distributed_forecasting_tpu import tasks as jtasks
+    from distributed_forecasting_tpu.monitoring.quality import (
+        build_quality_runtime,
+    )
+    from distributed_forecasting_tpu.serving.ingest import IngestConfig
+    from distributed_forecasting_tpu.tasks.serve import ServeTask
+
+    if block == "serving.cache":
+        ServeTask(init_conf={"env": {"root": root}, **conf}).launch()
+    elif block == "serving.ingest":
+        IngestConfig.from_conf(conf["serving"]["ingest"])
+    elif block == "monitoring.cost":
+        build_quality_runtime(conf["monitoring"], None)
+    else:
+        jtasks.CatalogTask(init_conf={"env": {"root": root}, **conf})
+
+
+BAD_VALUES = {
+    "compile_cache": {"eviction_policy": "fifo"},
+    "pipeline": {"max_in_flight": 0},
+    "engine.windowed": {"window_len": 64},
+    "engine.autoprep": {"zero_run_min": 1},
+    "engine.gradfit": {"series_bucket": 0},
+    "engine.automl": {"eta": 1},
+    "serving.cache": {"max_horizons": 0},
+    "serving.ingest": {"apply_mode": "lazy"},
+    "monitoring.cost": {"saturation_window_s": 0},
+}
+
+
+@pytest.mark.parametrize("bad", ["key", "value"])
+@pytest.mark.parametrize("block", list(BAD_VALUES))
+def test_conf_blocks_parse_like_the_reference(tmp_path, monkeypatch, block,
+                                              bad):
+    """An unknown key, or one bad value, in each strictly parsed block
+    raises the reference's ValueError with the reference's message, before
+    any model load."""
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    value = ({"enabled": False, "typo_key": 1} if bad == "key"
+             else BAD_VALUES[block])
+    conf = _block_conf(block, value)
+    with pytest.raises(ValueError) as want:
+        _reference_parse(block, conf, str(tmp_path / "ref"))
+    monkeypatch.setattr(tserve, "resolve_from_registry", None)
+    init_conf = {"env": {"root": str(tmp_path / "port")}, **conf}
+    with pytest.raises(ValueError) as got:
+        if block.startswith(("serving.", "monitoring.")):
+            tserve.ServeTask(init_conf=init_conf, device="cpu").launch()
+        else:
+            ttasks.CatalogTask(init_conf=init_conf, device="cpu")
+    assert str(got.value) == str(want.value)
+    if bad == "key":
+        assert "typo_key" in str(got.value)
 
 
 def test_result_neutral_blocks_are_accepted_and_logged(ingested):
