@@ -606,7 +606,10 @@ def idle_share(fn, top_n: int = 0) -> dict:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # kernels and copies only: user annotations on the card's timeline
+        # (torch.optim's "Optimizer.step#Adam.step") are not device work
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
         spans = sorted((e.time_range.start, e.time_range.end) for e in device)
         own = {k: [(e.time_range.end - e.time_range.start) / 1e3
                    for e in device if f"{k}_kernel" in e.name]
@@ -3716,7 +3719,10 @@ def rowwise_cost(port, fc) -> dict:
     serving and training row counts (CUDA events, median of 5 samples of
     20 back-to-back calls)."""
     pg = port["pg"]
-    from distributed_forecasting_tpu_torch.models.base import cumsum_rows
+    from distributed_forecasting_tpu_torch.models.base import (
+        cumsum_rows,
+        design_product,
+    )
 
     day_all = torch.arange(fc.day0, fc.day1 + SCORER_HORIZON + 1,
                            dtype=torch.int32, device="cuda")
@@ -3729,14 +3735,14 @@ def rowwise_cost(port, fc) -> dict:
     beta = fc.params.beta[:, :F].contiguous()
     v = torch.rand(500, X.shape[0], device="cuda", generator=g)
     alone = {"gemm": beta[:1] @ X.T, "cumsum": torch.cumsum(v[:1], 1),
-             "design_product": pg._design_product(beta[:1], X),
+             "design_product": design_product(beta[:1], X),
              "cumsum_rows": cumsum_rows(v[:1])}
     out["row0_max_abs_diff_vs_alone"] = {
         str(M): {"gemm": float(((beta[:M] @ X.T)[:1] - alone["gemm"])
                                .abs().max()),
                  "cumsum": float((torch.cumsum(v[:M], 1)[:1]
                                   - alone["cumsum"]).abs().max()),
-                 "design_product": float((pg._design_product(beta[:M], X)[:1]
+                 "design_product": float((design_product(beta[:M], X)[:1]
                                           - alone["design_product"])
                                          .abs().max()),
                  "cumsum_rows": float((cumsum_rows(v[:M])[:1]
@@ -3746,7 +3752,7 @@ def rowwise_cost(port, fc) -> dict:
         beta = torch.randn(S, F, device="cuda", generator=g)
         v = torch.rand(S, X.shape[0], device="cuda", generator=g)
         out[str(S)] = {
-            "design_product_ms": cuda_ms(lambda: pg._design_product(beta, X),
+            "design_product_ms": cuda_ms(lambda: design_product(beta, X),
                                          inner=20),
             "gemm_ms": cuda_ms(lambda: beta @ X.T, inner=20),
             "cumsum_rows_ms": cuda_ms(lambda: cumsum_rows(v), inner=20),
@@ -4755,6 +4761,325 @@ def prep_phase(port, counters, card_line: str) -> dict:
     return out
 
 
+# -- phase 14: arnet on the batched trainer, Monte-Carlo bands, tuning ------
+
+SLICE13_HORIZON = 90
+ARNET_REPS = 3           # timed fits of each arnet trainer
+ARNET_VS_CPU = 20        # series held card against CPU on one schedule
+ARNET_W_ATOL = 2e-4      # weights after 840 Adam steps (tests: 750 steps)
+ARNET_PATH_RTOL = 2e-5   # fitted paths, of each row's scale
+MC_SAMPLES = 1000        # Prophet's own uncertainty_samples default
+MC_HOLDOUT = 90          # days held out to score the bands' coverage
+TUNE_TRIALS = 8
+
+
+def slice13_conf(port, root: str, training: dict) -> dict:
+    """conf/tasks/train_config.yml with ``env.root`` and ``training``
+    updated (its other blocks as shipped)."""
+    conf = port["config"].load_conf(TRAIN_CONF)
+    conf["env"] = {"root": root}
+    conf["training"].update(training)
+    return conf
+
+
+def raw_table(batch) -> pd.DataFrame:
+    """The batch's observed cells as the catalog's raw sales table."""
+    raw = batch.key_frame().merge(pd.DataFrame({"date": batch.dates()}),
+                                  how="cross")
+    raw["sales"] = batch.y.cpu().numpy().reshape(-1)
+    return raw[batch.mask.cpu().numpy().reshape(-1) > 0].reset_index(drop=True)
+
+
+def arnet_fits(port, batch, card_line: str) -> dict:
+    """(a) The default ArnetConfig (lags 28, 30 epochs, batch 64, adam,
+    huber: 840 steps at T 1,826) through ``fit_forecast`` on the family's
+    trainer and with ``engine.gradfit`` armed, bitwise equal; the engine
+    path unpadded (bucket 500), padded to 512 and to 1,024, bitwise equal;
+    times, device events and idle share of the family's fit; 20 series on
+    the card against the CPU on one injected schedule."""
+    eng, gf, an = port["engine"], port["gradfit"], port["arnet"]
+    cfg = an.ArnetConfig()
+    H = SLICE13_HORIZON
+    fit = lambda: eng.fit_forecast(batch, "arnet", cfg, horizon=H)  # noqa: E731
+    trace_ms, (p_in, r_in) = host_ms(fit, reps=ARNET_REPS)
+    profile = idle_share(fit, top_n=6)
+    try:
+        gf.configure_gradfit({"enabled": True})
+        eager_ms, (p_eg, r_eg) = host_ms(fit, reps=ARNET_REPS)
+    finally:
+        gf.configure_gradfit(gf.GradFitConfig())
+    bitwise = {name: bool(torch.equal(getattr(r_eg, name),
+                                      getattr(r_in, name)))
+               for name in ("yhat", "lo", "hi")}
+    bitwise["w"] = bool(torch.equal(p_eg.w, p_in.w))
+    assert all(bitwise.values()), ("engine path != family trainer", bitwise)
+    buckets = {}
+    for base in (500, 512, 1024):
+        p_b, r_b = gf.gradfit_fit_forecast(
+            batch, config=cfg, horizon=H,
+            gcfg=gf.GradFitConfig(enabled=True, series_bucket=base))
+        buckets[base] = bool(torch.equal(p_b.w, p_in.w)
+                             and torch.equal(r_b.yhat, r_in.yhat)
+                             and torch.equal(r_b.hi, r_in.hi))
+    assert all(buckets.values()), ("bucket growth moved a bit", buckets)
+    ok = r_in.ok
+    assert r_in.yhat.shape == (batch.n_series, batch.n_time + H)
+    assert bool(torch.isfinite(r_in.yhat[ok]).all()), "non-finite arnet path"
+    assert bool((r_in.lo <= r_in.hi).all())
+    # one schedule, drawn once on the CPU, trains 20 series on both
+    n, T = ARNET_VS_CPU, batch.n_time
+    sched = gf.minibatch_schedule(torch.Generator().manual_seed(cfg.seed), T,
+                                  cfg.batch_size, cfg.epochs)
+    y, m, d = batch.y[:n], batch.mask[:n], batch.day
+    t0 = time.perf_counter()
+    card = an.fit(y, m, d, cfg, schedule=sched.to(y.device))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = an.fit(y.cpu(), m.cpu(), d.cpu(), cfg, schedule=sched)
+    cpu_s = time.perf_counter() - t0
+    w_err = float((card.w.cpu() - cpu.w).abs().max())
+    scale = cpu.fitted.abs().amax(1, keepdim=True).clamp_min(1.0)
+    path_err = float(((card.fitted.cpu() - cpu.fitted).abs() / scale).max())
+    assert w_err <= ARNET_W_ATOL and path_err <= ARNET_PATH_RTOL, (
+        w_err, path_err)
+    steps = int(sched.shape[0])
+    loop = arnet_step_loop(port, batch, cfg)
+    out = dict(config=dataclasses.asdict(cfg), steps=steps, step_loop=loop,
+               shape=[batch.n_series, T], ok=int(ok.sum()),
+               fit_ms=dict(family_trainer=trace_ms, engine_path=eager_ms,
+                           statistic=f"median of {ARNET_REPS}, host wall"),
+               ms_per_step=trace_ms / steps,
+               device_events=profile.get("device_events"),
+               events_per_step=(profile["device_events"] / steps
+                                if "device_events" in profile else None),
+               idle_share=profile.get("idle_share"), profile=profile,
+               eager_equals_family_trainer=bitwise,
+               bucket_growth_bitwise={str(k): v for k, v in buckets.items()},
+               gpu_vs_cpu_20_series=dict(
+                   schedule="one CPU-drawn schedule for both",
+                   max_abs_err_w=w_err, max_rel_err_fitted=path_err,
+                   card_seconds=card_s, cpu_seconds=cpu_s))
+    emit("arnet_fit", card=card_line, **out)
+    return out
+
+
+def arnet_step_loop(port, batch, cfg) -> dict:
+    """The step loop alone (``gradfit.train_scan`` on the prepped tensors)
+    and the finalize (``params_from_weights`` + ``forecast``), each between
+    CUDA events, once; the loop's least time: every step reads its
+    minibatch tensors once — the lag features in both layouts (2 L B S),
+    targets, weights and the gradient's product (~4 B S) — and does ~4 L B
+    S multiply-adds."""
+    gf, an = port["gradfit"], port["arnet"]
+    y, m, d = batch.y, batch.mask, batch.day
+    z, _, _, xz, valid, _, _ = an.prep_training(y, m, cfg)
+    sched = gf.default_schedule(cfg, batch.n_time, y.device)
+    out = {}
+    loop_ms = once_ms(lambda: out.update(w=gf.train_scan(z, xz, valid, cfg,
+                                                         schedule=sched)[0]))
+    w = out["w"]
+    day_all = port["engine"].fit.day_grid(d, SLICE13_HORIZON)
+
+    def finalize():
+        p = an.params_from_weights(y, m, d, cfg, w["w"], w["beta"], w["b"])
+        an.forecast(p, day_all, d[-1].to(torch.float32), cfg)
+
+    fin_ms = once_ms(finalize)
+    S, L, B = batch.n_series, cfg.lags, cfg.batch_size
+    steps = int(sched.shape[0])
+    bound, by = bound_ms((steps * 4 * L * B * S * 2,
+                          steps * 4 * (2 * L * B * S + 4 * B * S)))
+    return dict(loop_ms=loop_ms, finalize_ms=fin_ms, loop_bound_ms=bound,
+                loop_bound_by=by, loop_share_of_bound=bound / loop_ms)
+
+
+def arnet_cv(port, batch, card_line: str) -> dict:
+    """(b) The CV pass: 3 cutoffs x 500 series as 1,500 rows of one fit."""
+    cv = port["cv"]
+    cfg = port["arnet"].ArnetConfig()
+    ms, m = host_ms(lambda: cv.cross_validate(
+        batch, "arnet", cfg, cv=cv.CVConfig(**CV), calibrate=True), reps=1)
+    means = {k: float(torch.nanmean(v)) for k, v in m.items()
+             if not k.startswith("_")}
+    assert m["_n_cutoffs"] == 3 and all(np.isfinite(list(means.values())))
+    scale = m["_interval_scale"]
+    assert bool(torch.isfinite(scale).all() and (scale > 0).all())
+    out = dict(rows=3 * batch.n_series, wall_ms=ms, cv_means=means,
+               interval_scale_mean=float(scale.mean()))
+    emit("arnet_cv", card=card_line, **out)
+    return out
+
+
+def slice13_tasks(port, batch, counters, card_line: str) -> dict:
+    """(c) The train task with ``model: arnet`` and calibrated bands, then
+    its artifact loaded and asked for every series' forecast; (d) ``model:
+    auto`` over the default pool plus arnet, every launch counter set to 0
+    just before the task and read just after (the Holt-Winters and arima
+    members launch the four hand kernels); (e) the tuned curve path,
+    ``tuning: {enabled: true, n_trials: 8}`` over both modes."""
+    from distributed_forecasting_tpu_torch.serving.loader import (
+        load_forecaster,
+    )
+
+    H = SLICE13_HORIZON
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        catalog, _, _ = _store(port, root)
+        catalog.save_table("hackathon.sales.raw", raw_table(batch))
+        conf = slice13_conf(port, root, dict(
+            model="arnet", model_conf={}, calibrate_intervals=True,
+            experiment="arnet_forecasting"))
+        sec, summary, run = prep_task(port, root, conf)
+        assert summary["n_failed"] < batch.n_series, summary
+        metrics = run.metrics()
+        assert np.isfinite(metrics["val_smape"]) and \
+            np.isfinite(metrics["val_coverage_calibrated"]), metrics
+        table = catalog.read_table("hackathon.sales.finegrain_forecasts")
+        assert len(table) == batch.n_series * (batch.n_time + H)
+        fc = load_forecaster(run.artifact_path("forecaster"), device=DEVICE)
+        keys = table[["store", "item"]].drop_duplicates()
+        t0 = time.perf_counter()
+        served = fc.predict(keys, horizon=H)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        want = table["yhat"].to_numpy().reshape(batch.n_series, -1)[:, -H:]
+        got = served["yhat"].to_numpy().reshape(batch.n_series, H)
+        assert np.array_equal(got, want), float(np.abs(got - want).max())
+        up = table["yhat_upper"].to_numpy().reshape(batch.n_series, -1)[:, -H:]
+        assert np.array_equal(served["yhat_upper"].to_numpy().reshape(
+            batch.n_series, H), up)
+        out["arnet_task"] = dict(
+            seconds=sec, fit_seconds=metrics["fit_seconds"],
+            val_smape=metrics["val_smape"],
+            val_coverage=metrics["val_coverage"],
+            val_coverage_calibrated=metrics["val_coverage_calibrated"],
+            interval_scale_mean=metrics["interval_scale_mean"],
+            n_failed=summary["n_failed"], served_predict_ms=predict_ms,
+            served_equals_table=True)
+        emit("arnet_task", card=card_line, **out["arnet_task"])
+
+        pool = [*DEFAULT_POOL, "arnet"]
+        conf = slice13_conf(port, root, dict(
+            model="auto", model_conf={"families": pool},
+            experiment="auto_arnet_forecasting"))
+        for fn in counters.values():  # counters to 0 just before the task
+            fn.launches = 0
+        sec, summary, run = prep_task(port, root, conf)
+        launched = {k: fn.launches for k, fn in counters.items()}  # after
+        for k, n in launched.items():
+            assert n >= 1, f"the pool with arnet never launched {k}"
+        table = pd.read_parquet(run.artifact_path("series_metrics.parquet"))
+        chosen = table["chosen_model"].value_counts().to_dict()
+        assert set(chosen) <= set(pool), chosen
+        assert "smape_arnet" in table, list(table.columns)
+        out["auto_arnet"] = dict(seconds=sec, families=pool,
+                                 fit_seconds=run.metrics()["fit_seconds"],
+                                 chosen=chosen, launches=launched,
+                                 n_failed=summary["n_failed"])
+        emit("auto_arnet", card=card_line, **out["auto_arnet"])
+
+        conf = slice13_conf(port, root, dict(
+            tuning={"enabled": True, "n_trials": TUNE_TRIALS},
+            experiment="tuned_forecasting"))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sec, summary, run = prep_task(port, root, conf)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        series = pd.read_parquet(run.artifact_path("series_metrics.parquet"))
+        trials = pd.read_parquet(run.artifact_path("trials.parquet"))
+        assert len(trials) == 2 * TUNE_TRIALS, len(trials)
+        assert np.isfinite(summary["metrics"]["val_smape"])
+        out["tuned"] = dict(
+            seconds=sec, fit_seconds=summary["fit_seconds"],
+            peak_mib=peak, trials=len(trials),
+            mode_split=series["best_mode"].value_counts().to_dict(),
+            val_smape=summary["metrics"]["val_smape"],
+            n_failed=summary["n_failed"])
+        emit("tuned", card=card_line, **out["tuned"])
+    return out
+
+
+def monte_carlo(port, batch, card_line: str) -> dict:
+    """(f) The shipped curve conf (multiplicative, US holidays) with
+    ``uncertainty_samples: 1000``, fit on all but the last 90 days:
+    ``fit_forecast`` time and peak memory, and the band's mean width and
+    its coverage of the held-out days beside the analytic band's."""
+    pg, training = port["pg"], port["training"]
+    H = MC_HOLDOUT
+    T = batch.n_time - H
+    fit_b = dataclasses.replace(batch, y=batch.y[:, :T], mask=batch.mask[:, :T],
+                                day=batch.day[:T])
+    conf = training._resolve_holidays_conf(
+        {"seasonality_mode": "multiplicative", "holidays": "US"}, fit_b, H)
+    analytic = pg.CurveModelConfig(**conf)
+    mc = dataclasses.replace(analytic, uncertainty_samples=MC_SAMPLES)
+    eng = port["engine"]
+    wall, peak = peak_mib(lambda: eng.fit_forecast(fit_b, "prophet", mc,
+                                                   horizon=H))
+    ms = once_ms(lambda: eng.fit_forecast(fit_b, "prophet", mc, horizon=H))
+    _, r_mc = eng.fit_forecast(fit_b, "prophet", mc, horizon=H)
+    a_ms = once_ms(lambda: eng.fit_forecast(fit_b, "prophet", analytic,
+                                            horizon=H))
+    _, r_an = eng.fit_forecast(fit_b, "prophet", analytic, horizon=H)
+    assert torch.equal(r_mc.yhat, r_an.yhat), "the point path moved"
+    # the quantile of the paths alone, against reading them once
+    params, _ = eng.fit_forecast(fit_b, "prophet", analytic, horizon=H)
+    day_all = r_mc.day_all
+    _, _, paths = pg._predictive(params, day_all, fit_b.day[-1].to(
+        torch.float32), mc, None)
+    alpha = (1.0 - mc.interval_width) / 2.0
+    q_ms = once_ms(lambda: pg._sample_quantiles(paths, [alpha, 1 - alpha]))
+    q_bound, q_by = bound_ms((0, paths.numel() * 4 + 2 * paths.shape[0]
+                              * paths.shape[2] * 4))
+    draw_ms = once_ms(lambda: pg._predictive(
+        params, day_all, fit_b.day[-1].to(torch.float32), mc, None))
+    del paths
+    truth, held = batch.y[:, T:], batch.mask[:, T:] > 0
+    rows = r_mc.ok & r_an.ok
+
+    def band(r):
+        lo, hi = r.lo[:, T:], r.hi[:, T:]
+        inside = ((truth >= lo) & (truth <= hi) & held)[rows]
+        return dict(mean_width=float((hi - lo)[rows].mean()),
+                    coverage=float(inside.sum() / held[rows].sum()))
+
+    out = dict(samples=MC_SAMPLES, shape=[batch.n_series, T], horizon=H,
+               fit_forecast_ms=ms, analytic_ms=a_ms, first_call_wall_ms=wall,
+               paths_ms=draw_ms, quantile_ms=q_ms, quantile_bound_ms=q_bound,
+               quantile_bound_by=q_by,
+               peak_mib=peak, paths_gib=batch.n_series * MC_SAMPLES
+               * (T + H) * 4 / 2 ** 30, monte_carlo=band(r_mc),
+               analytic=band(r_an), series=int(rows.sum()))
+    assert np.isfinite(out["monte_carlo"]["mean_width"])
+    ratio = out["monte_carlo"]["mean_width"] / out["analytic"]["mean_width"]
+    assert 0.8 < ratio < 1.25, ratio
+    out["width_ratio"] = ratio
+    emit("monte_carlo", card=card_line, **out)
+    return out
+
+
+def slice13_phase(port, card_line: str) -> dict:
+    """Phase 14: the RNG decision's three paths on the committed dataset —
+    arnet (both trainers, the bucket ladder, CV, the train task with
+    calibrated bands and its served artifact, a ``model: auto`` pool with
+    arnet), the Monte-Carlo curve model and the tuned curve path."""
+    t_phase = time.perf_counter()
+    fs, kal = port["fs"], port["kalman"]
+    counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter,
+                "arima_filter": kal.arima_filter,
+                "arima_predict": kal.arima_predict}
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
+    assert (batch.n_series, batch.n_time) == SHAPE
+    out = {"arnet": arnet_fits(port, batch, card_line),
+           "cv": arnet_cv(port, batch, card_line),
+           "monte_carlo": monte_carlo(port, batch, card_line)}
+    out.update(slice13_tasks(port, batch, counters, card_line))
+    out["launches"] = out["auto_arnet"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase14", seconds=out["seconds"])
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -4798,6 +5123,8 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.monitoring import quality
     from distributed_forecasting_tpu_torch.serving import anomaly, batcher, server
     from distributed_forecasting_tpu_torch.engine import autoprep
+    from distributed_forecasting_tpu_torch.engine import gradfit
+    from distributed_forecasting_tpu_torch.models import arnet
 
     native_before = native_snapshot()
     card_line = card()
@@ -4814,7 +5141,8 @@ def main() -> int:
                 reconcile_task=rec_task, arima=arima, kalman=kalman,
                 order=order, dataset=dataset, native=native,
                 quality=quality, batcher=batcher, server=server,
-                anomaly=anomaly, autoprep=autoprep)
+                anomaly=anomaly, autoprep=autoprep, gradfit=gradfit,
+                arnet=arnet)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -4870,6 +5198,7 @@ def main() -> int:
     ragged = slice9_phase(port, counters, card_line)["bucketed"]
     scorer = scorer_phase(port, card_line)
     prep = prep_phase(port, counters, card_line)
+    rng_paths = slice13_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -4888,7 +5217,8 @@ def main() -> int:
     rows = {k: dict(launches=(launches[k] + pooled["launches"][k]
                               + complete["launches"][k]
                               + ragged["launches"][k]
-                              + prep["launches"][k]),
+                              + prep["launches"][k]
+                              + rng_paths["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -4899,7 +5229,8 @@ def main() -> int:
                      ("arima_predict", at["arima_predict"])):
         rows[k] = dict(launches=(arima_out["launches"][k]
                                  + scorer["auto"]["launches"][k]
-                                 + scorer["detect"]["auto"]["launches"][k]),
+                                 + scorer["detect"]["auto"]["launches"][k]
+                                 + rng_paths["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in
                                        arima_out["cases"][k].values()),
                        ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.models.arima import ArimaParams
+from distributed_forecasting_tpu_torch.models.arnet import ArnetParams
 from distributed_forecasting_tpu_torch.models.croston import CrostonParams
 from distributed_forecasting_tpu_torch.models.holt_winters import HWParams
 from distributed_forecasting_tpu_torch.models.prophet_glm import CurveParams
@@ -26,6 +27,7 @@ from distributed_forecasting_tpu_torch.utils.device import resolve_device
 # loads it.
 PARAMS_TYPES = {
     "distributed_forecasting_tpu.models.arima:ArimaParams": ArimaParams,
+    "distributed_forecasting_tpu.models.arnet:ArnetParams": ArnetParams,
     "distributed_forecasting_tpu.models.croston:CrostonParams": CrostonParams,
     "distributed_forecasting_tpu.models.holt_winters:HWParams": HWParams,
     "distributed_forecasting_tpu.models.prophet_glm:CurveParams": CurveParams,
@@ -111,6 +113,16 @@ def arima_params_from_numpy(fields: dict, device=None) -> ArimaParams:
 
 def arima_params_to_numpy(params: ArimaParams) -> dict:
     """The port's ``ArimaParams`` -> numpy fields the reference's takes."""
+    return params_to_numpy(params)
+
+
+def arnet_params_from_numpy(fields: dict, device=None) -> ArnetParams:
+    """The reference's ``ArnetParams`` fields (numpy arrays) -> the port's."""
+    return params_from_numpy(ArnetParams, fields, device)
+
+
+def arnet_params_to_numpy(params: ArnetParams) -> dict:
+    """The port's ``ArnetParams`` -> numpy fields the reference's takes."""
     return params_to_numpy(params)
 
 

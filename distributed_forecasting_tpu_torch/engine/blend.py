@@ -19,7 +19,8 @@ Combination rules, closed-form:
 
 ``fit_forecast_blend(calibrate=True)`` scales the pooled band by a
 split-conformal factor from the pooled CV paths: each family's CV pass runs
-a second time for it, as in the reference.
+a second time for it, as in the reference.  Families that sample draw
+from one ``generator`` in turn (``engine/select``).
 """
 
 from __future__ import annotations
@@ -83,12 +84,13 @@ def blend_weights(
     metric: str = "smape",
     cv: CVConfig = CVConfig(),
     temperature: float = 1.0,
+    generator=None,
 ) -> BlendResult:
     """Per-series inverse-CV-error weights, ``w_f ∝ (1/err_f)^temperature``
     (on the host, from ``select_model``'s score table): temperature > 1
     sharpens the pool toward winner-take-all, < 1 flattens it."""
     sel = select_model(batch, models=models, configs=configs, metric=metric,
-                       cv=cv)
+                       cv=cv, generator=generator)
     table = sel.scores[list(models)].to_numpy(dtype=np.float64)  # (S, F)
     finite = np.isfinite(table)
     if metric in _HIGHER_BETTER:
@@ -110,7 +112,8 @@ def blend_weights(
                        scores=sel.scores, metric=metric, valid=sel.valid)
 
 
-def _blend_conformal_scale(batch, blend: BlendResult, configs, cv) -> np.ndarray:
+def _blend_conformal_scale(batch, blend: BlendResult, configs, cv,
+                           generator=None) -> np.ndarray:
     """Split-conformal scale of the POOLED band: each family's CV paths are
     blended with the per-series weights (the rules the final forecast
     uses), and the pooled residuals are scored against the pooled
@@ -135,7 +138,7 @@ def _blend_conformal_scale(batch, blend: BlendResult, configs, cv) -> np.ndarray
     yhat_b = up_b = eval_masks = None
     for i, name in enumerate(blend.models):
         yhat, _, hi, em, _ = _cv_paths(batch, name, resolved[name], cuts,
-                                       cv.horizon)
+                                       cv.horizon, generator=generator)
         wf = w[:, i][None, :, None]  # broadcast over (C, S, T)
         if yhat_b is None:
             yhat_b, up_b, eval_masks = wf * yhat, wf * (hi - yhat), em
@@ -168,6 +171,7 @@ def fit_forecast_blend(
     blend: Optional[BlendResult] = None,
     temperature: float = 1.0,
     calibrate: bool = False,
+    generator=None,
 ) -> Tuple[Dict[str, object], BlendResult, ForecastResult]:
     """Weight per series, fit every family on the full history, combine.
 
@@ -180,13 +184,15 @@ def fit_forecast_blend(
     configs = configs or {}
     if blend is None:
         blend = blend_weights(batch, models=models, configs=configs,
-                              metric=metric, cv=cv, temperature=temperature)
+                              metric=metric, cv=cv, temperature=temperature,
+                              generator=generator)
     else:
         require_models(blend.models)
     if calibrate and blend.interval_scale is None:
         blend = dataclasses.replace(
             blend,
-            interval_scale=_blend_conformal_scale(batch, blend, configs, cv))
+            interval_scale=_blend_conformal_scale(batch, blend, configs, cv,
+                                                  generator))
 
     params_by_family: Dict[str, object] = {}
     dev = batch.y.device
@@ -194,7 +200,8 @@ def fit_forecast_blend(
     yhat = up = dn = ok = day_all = None
     for i, name in enumerate(blend.models):
         params, res = fit_forecast(batch, model=name,
-                                   config=configs.get(name), horizon=horizon)
+                                   config=configs.get(name), horizon=horizon,
+                                   generator=generator)
         params_by_family[name] = params
         wf = w[:, i][:, None]
         # a family vouches only for the series it carries: a 0.6-weight

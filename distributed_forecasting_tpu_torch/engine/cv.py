@@ -9,8 +9,15 @@ cutoffs.  Train masks differ per cutoff and everything else is shared, so
 the cutoff axis is folded into the series axis: all C cutoffs x S series fit
 as one (C·S, T) batch — one fit and one forecast per CV pass (for
 Holt-Winters one launch of each kernel; for the curve model one Gram GEMM
-and one batched solve).  ``calibrate=True`` adds the per-series conformal
-band scale (``engine/calibrate``) from the same paths.
+and one batched solve).  Stacking is exact for every family: each row's
+fit sees its own train mask, and arnet's trainer sums per-series losses
+with one schedule for all rows; only statistics a family takes over all
+rows of a call (arnet's per-series regressor standardization; a family
+registered with ``per_block_stats``) are kept to each cutoff's block
+(``groups``).  ``calibrate=True`` adds the per-series conformal band scale
+(``engine/calibrate``) from the same paths.  A family that samples (the
+curve model's Monte-Carlo intervals) draws every cutoff's paths from one
+``generator``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
 from distributed_forecasting_tpu_torch.models import get_model
+from distributed_forecasting_tpu_torch.models.base import generator_kwargs
 from distributed_forecasting_tpu_torch.ops import metrics as metrics_ops
 
 
@@ -94,7 +102,7 @@ def _cv_entry(batch: SeriesBatch, model: str, config, xreg, what: str):
 
 
 def _cv_paths(batch: SeriesBatch, model: str, config, cuts, horizon: int,
-              xreg=None):
+              xreg=None, generator=None):
     """Every cutoff's forecast paths and windows:
     ``(yhat, lo, hi, eval_masks, train_masks)``, each (C, S, T), from one
     fit and one forecast over the cutoff-major (C·S, T) rows."""
@@ -109,10 +117,14 @@ def _cv_paths(batch: SeriesBatch, model: str, config, cuts, horizon: int,
     if xreg is not None:
         xreg = xreg.to(y.device)
         kw["xreg"] = xreg.repeat(C, 1, 1) if xreg.dim() == 3 else xreg
+    # a family that takes statistics over all rows of a fit keeps each
+    # cutoff's block of S rows to its own
+    groups = {"groups": C} if fns.per_block_stats else {}
     params = fns.fit(y.repeat(C, 1), train_masks.reshape(C * S, T), day,
-                     config, **kw)
+                     config, **kw, **groups)
     yhat, lo, hi = fns.forecast(params, day, t_ends.repeat_interleave(S),
-                                config, **kw)
+                                config, **kw,
+                                **generator_kwargs(fns, generator))
     yhat, lo, hi = (x.reshape(C, S, T) for x in (yhat, lo, hi))
     return yhat, lo, hi, eval_masks, train_masks
 
@@ -165,6 +177,7 @@ def cv_forecast_frame(
     config=None,
     cv: CVConfig = CVConfig(),
     xreg=None,
+    generator=None,
 ) -> pd.DataFrame:
     """Raw rolling-origin forecasts as a long frame, the shape Prophet's
     ``diagnostics.cross_validation`` returns: one row per series, cutoff and
@@ -175,7 +188,7 @@ def cv_forecast_frame(
     config, xreg = _cv_entry(batch, model, config, xreg, "cv_forecast_frame")
     cuts = cutoff_indices(batch.n_time, cv)
     yhat, lo, hi, eval_masks, _ = _cv_paths(batch, model, config, cuts,
-                                            cv.horizon, xreg)
+                                            cv.horizon, xreg, generator)
     return _frame_from_paths(batch, cuts, yhat, lo, hi, eval_masks)
 
 
@@ -187,6 +200,7 @@ def cross_validate(
     xreg=None,
     return_frame: bool = False,
     calibrate: bool = False,
+    generator=None,
 ):
     """Per-series CV-mean metrics — mse, rmse, mae, mape, smape, mdape,
     coverage, mase — each an (S,) tensor, plus ``"_n_cutoffs"`` (int).
@@ -203,11 +217,14 @@ def cross_validate(
 
     ``return_frame=True`` returns ``(metrics, frame)``: the diagnostics
     frame of :func:`cv_forecast_frame` from the same paths, one CV pass.
+
+    ``generator``: the draws of a family that samples; ``None`` seeds one
+    as the reference seeds its default key.
     """
     config, xreg = _cv_entry(batch, model, config, xreg, "cross_validate")
     cuts = cutoff_indices(batch.n_time, cv)
     yhat, lo, hi, eval_masks, train_masks = _cv_paths(
-        batch, model, config, cuts, cv.horizon, xreg)
+        batch, model, config, cuts, cv.horizon, xreg, generator)
     out = _cv_metric_means(
         batch.y, yhat, lo, hi, eval_masks, train_masks,
         mase_m=metrics_ops.seasonal_naive_lag(batch.freq),

@@ -24,6 +24,8 @@ from distributed_forecasting_tpu_torch.data.tensorize import (
     ordinals_to_dates,
 )
 from distributed_forecasting_tpu_torch.models import get_model
+from distributed_forecasting_tpu_torch.models.base import generator_kwargs
+from distributed_forecasting_tpu_torch.utils.rng import resolve_generator
 
 # a series needs at least this many observed points for its fit to be
 # trusted (else the seasonal-naive fallback)
@@ -116,7 +118,8 @@ def validate_xreg(fns, model: str, config, xreg, expected_T, what: str,
     if not fns.supports_xreg:
         raise ValueError(
             f"model {model!r} does not accept exogenous regressors; "
-            f"use the curve model ('prophet')"
+            f"use the curve model ('prophet') or the AR-Net family "
+            f"('arnet')"
         )
     xreg = torch.as_tensor(xreg, dtype=torch.float32)
     if xreg.dim() not in (2, 3):
@@ -207,9 +210,16 @@ def fit_forecast(
     min_points: int = DEFAULT_MIN_POINTS,
     xreg=None,
     autoprep=None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[object, ForecastResult]:
     """Fit every series of ``batch`` and forecast ``horizon`` steps past the
     end of history, on the batch's device.  Returns ``(params, result)``.
+
+    ``generator``: the draws of a family that samples (the curve model's
+    Monte-Carlo intervals); ``None`` seeds one as the reference seeds its
+    default key (``utils/rng.py``).  An arnet fit routes to the engine
+    path (``engine.gradfit.gradfit_fit_forecast``) when the process-wide
+    ``engine.gradfit`` block is armed.
 
     ``xreg``: exogenous regressor values over history AND horizon,
     (T + horizon, R) shared or (S, T + horizon, R) per series, for a model
@@ -230,17 +240,28 @@ def fit_forecast(
     validate_changepoint_days(config, day)
     xreg = validate_xreg(fns, model, config, xreg, batch.n_time + horizon,
                          "fit_forecast")
+    if model == "arnet":
+        from distributed_forecasting_tpu_torch.engine.gradfit import (
+            gradfit_config,
+            gradfit_fit_forecast,
+        )
+
+        if gradfit_config().enabled:
+            return gradfit_fit_forecast(batch, config=config, horizon=horizon,
+                                        min_points=min_points, xreg=xreg)
     day_all = day_grid(day, horizon)
     t_end = day[-1].to(torch.float32)
+    gkw = generator_kwargs(fns, generator)
     if xreg is not None:
         xreg = xreg.to(y.device)
         T = batch.n_time
         params = fns.fit(y, mask, day, config,
                          xreg=xreg[:T] if xreg.dim() == 2 else xreg[:, :T])
-        yhat, lo, hi = fns.forecast(params, day_all, t_end, config, xreg=xreg)
+        yhat, lo, hi = fns.forecast(params, day_all, t_end, config, xreg=xreg,
+                                    **gkw)
     else:
         params = fns.fit(y, mask, day, config)
-        yhat, lo, hi = fns.forecast(params, day_all, t_end, config)
+        yhat, lo, hi = fns.forecast(params, day_all, t_end, config, **gkw)
     yhat, lo, hi, ok = health_fallback(y, mask, yhat, lo, hi, horizon,
                                        min_points)
     return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
@@ -257,6 +278,7 @@ def fit_forecast_chunked(
     dispatch: str = "scan",
     xreg=None,
     autoprep=None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[object, ForecastResult]:
     """Memory-bounded fit for very large batches (the 50k-series regime).
 
@@ -273,7 +295,9 @@ def fit_forecast_chunked(
     the card both are one host loop over chunks of one shape: PyTorch
     launches every chunk's kernels as they come, and no launch round trip
     is there for a scan to save.  ``autoprep`` as in :func:`fit_forecast`:
-    the whole batch is prepped once, before it is cut into chunks.
+    the whole batch is prepped once, before it is cut into chunks.  One
+    ``generator`` draws for every chunk in turn, where the reference folds
+    its key per chunk.
     """
     if dispatch not in ("scan", "loop"):
         raise ValueError(f"unknown dispatch {dispatch!r}; 'scan' or 'loop'")
@@ -281,12 +305,15 @@ def fit_forecast_chunked(
     S = batch.n_series
     if S <= chunk_size:
         return fit_forecast(batch, model=model, config=config, horizon=horizon,
-                            min_points=min_points, xreg=xreg, autoprep=False)
+                            min_points=min_points, xreg=xreg, autoprep=False,
+                            generator=generator)
     fns = get_model(model)
     config = config if config is not None else fns.config_cls()
     validate_changepoint_days(config, batch.day)
     xreg = validate_xreg(fns, model, config, xreg, batch.n_time + horizon,
                          "fit_forecast_chunked")
+    if generator is None and fns.draws:
+        generator = resolve_generator(None, batch.y.device, 0)
     n_chunks = -(-S // chunk_size)
     padded = batch.pad_series_to(n_chunks * chunk_size)
     per_series_x = xreg is not None and xreg.dim() == 3
@@ -303,7 +330,7 @@ def fit_forecast_chunked(
         chunks.append(fit_forecast(
             sub, model=model, config=config, horizon=horizon,
             min_points=min_points, xreg=xreg[sl] if per_series_x else xreg,
-            autoprep=False))
+            autoprep=False, generator=generator))
 
     first = chunks[0][0]
     params = type(first)(**{
@@ -327,6 +354,7 @@ def fit_forecast_bucketed(
     max_buckets: int = 4,
     xreg=None,
     autoprep=None,
+    generator: Optional[torch.Generator] = None,
 ):
     """Fit a ragged batch in span buckets (``data.tensorize.bucket_by_span``):
     each bucket fits on its trimmed grid, one ``fit_forecast`` a bucket, so a
@@ -346,7 +374,8 @@ def fit_forecast_bucketed(
     (its ``prefetch_to_device``); here the sub-batches are slices of tensors
     already on the device, so there is nothing to prefetch.  ``autoprep``
     as in :func:`fit_forecast`, once on the shared grid before bucketing
-    (repairs on a trimmed grid would see truncated neighborhoods).
+    (repairs on a trimmed grid would see truncated neighborhoods).  One
+    ``generator`` draws for every bucket in turn.
     """
     batch = _apply_autoprep(batch, autoprep)
     buckets = bucket_by_span(batch, max_buckets=max_buckets)
@@ -361,6 +390,8 @@ def fit_forecast_bucketed(
     if xreg is not None:
         xreg = xreg.to(batch.y.device)
     dev = batch.y.device
+    if generator is None and fns.draws:
+        generator = resolve_generator(None, dev, 0)
     yhat = torch.zeros((S, T_all), device=dev)
     lo = torch.zeros((S, T_all), device=dev)
     hi = torch.zeros((S, T_all), device=dev)
@@ -373,7 +404,8 @@ def fit_forecast_bucketed(
             L = sub.n_time
             xr = xreg[T - L:] if xreg.dim() == 2 else xreg[rows][:, T - L:]
         p, r = fit_forecast(sub, model=model, config=config, horizon=horizon,
-                            min_points=min_points, xreg=xr, autoprep=False)
+                            min_points=min_points, xreg=xr, autoprep=False,
+                            generator=generator)
         lead = T_all - r.yhat.shape[1]
 
         def fill(M):

@@ -10,8 +10,11 @@ from its winner.  A family whose CV metric is non-finite for a series can
 never win it, and the fit engine's seasonal-naive fallback still applies.
 
 The reference's budgeted ``successive_halving_select`` is not ported
-(ROADMAP Queue 1: P8).  No family of the port draws random numbers, so
-there is no key to fold per family.
+(ROADMAP Queue 1: P8).  A family that samples (the curve model's
+Monte-Carlo intervals) draws from the one ``generator`` passed in, each CV
+pass and refit in turn, where the reference folds its key per family
+(``utils/rng.py``); arnet draws its minibatch schedule from its config's
+seed in every pass.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ def select_model(
     configs: Optional[Dict[str, object]] = None,
     metric: str = "smape",
     cv: CVConfig = CVConfig(),
+    generator=None,
 ) -> SelectionResult:
     """CV every family, then the per-series argmin of the selection
     metric.  Every family is checked before the first CV pass starts; the
@@ -77,7 +81,8 @@ def select_model(
     configs = configs or {}
     require_models(models)
     scores = [cross_validate(batch, model=name, config=configs.get(name),
-                             cv=cv)[metric] for name in models]
+                             cv=cv, generator=generator)[metric]
+              for name in models]
     table = torch.stack(scores, dim=1).cpu().numpy().astype(np.float64)
     cols = {name: table[:, i] for i, name in enumerate(models)}
     # orient so smaller is better; a non-finite score can never win
@@ -104,6 +109,7 @@ def fit_forecast_auto(
     cv: CVConfig = CVConfig(),
     horizon: int = 90,
     selection: Optional[SelectionResult] = None,
+    generator=None,
 ) -> Tuple[Dict[str, object], SelectionResult, ForecastResult]:
     """Select per series, refit every winning family on the full history,
     and gather the combined forecast.  Returns ``(params_by_family,
@@ -112,7 +118,7 @@ def fit_forecast_auto(
     configs = configs or {}
     if selection is None:
         selection = select_model(batch, models=models, configs=configs,
-                                 metric=metric, cv=cv)
+                                 metric=metric, cv=cv, generator=generator)
     else:
         require_models(selection.models)
     winners = sorted(set(selection.assignment.tolist()))
@@ -123,7 +129,8 @@ def fit_forecast_auto(
     for i in winners:
         name = selection.models[i]
         params, res = fit_forecast(batch, model=name,
-                                   config=configs.get(name), horizon=horizon)
+                                   config=configs.get(name), horizon=horizon,
+                                   generator=generator)
         params_by_family[name] = params
         pick = (assign == i)[:, None]
         if yhat is None:

@@ -9,10 +9,13 @@ Every model family exposes the same two functions over a *batch* of series:
                                                (S, len(day_all))
 
 ``day_all`` covers history + horizon; ``t_end`` is the last *training* day
-(a scalar, or one per series), where forecast uncertainty starts.  No family
-ported so far draws random numbers, so the contract carries no generator.
-Families registered with ``supports_xreg`` (the curve model) also take
-``xreg=`` exogenous regressor values in ``fit`` and ``forecast``.
+(a scalar, or one per series), where forecast uncertainty starts.  Families
+registered with ``supports_xreg`` (the curve model, arnet) also take
+``xreg=`` exogenous regressor values in ``fit`` and ``forecast``.  A family
+registered with ``draws`` (the curve model, whose Monte-Carlo intervals
+sample paths) takes ``generator=`` (a ``torch.Generator``) in ``forecast``
+and ``forecast_quantiles``, where the reference's take a key; arnet's fit
+draws its minibatch schedule from ``config.seed`` (``utils/rng.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,65 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     cols = rows.t() if n > 1 else rows.t().expand(-1, 2)
     out = torch.cumsum(cols.contiguous(), dim=0)[:, :n]
     return out.t().reshape(x.shape)
+
+
+# a sum of fewer terms than this over a non-innermost axis runs in order,
+# one thread an output, whatever PyTorch's CUDA reduction picks for its
+# block shape; from this length on it may split the terms across warps
+_SERIAL_TERMS = 64
+
+
+def sum_leading(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(0)`` for a tensor laid out with the series axis LAST, with
+    each output's terms added in an order that does not depend on the
+    number of series.
+
+    On the card PyTorch's reduction over a leading axis adds each output's
+    terms in order in one thread while there are fewer than 64 of them;
+    from 64 on it may split them across warps, by a block shape it picks
+    from the number of outputs.  So a longer axis is summed in blocks of 32
+    (each in order), then the block sums.  The CPU's vectorized reduction
+    over a leading axis changes its blocking with the size of the trailing
+    axes, so there the series axis goes first and each series' block is
+    summed alike.  A lone series is summed beside a copy of itself (a
+    size-1 axis would be squeezed away, turning the sum into another
+    kind)."""
+    if x.shape[-1] == 1:
+        return sum_leading(x.expand(*x.shape[:-1], 2))[..., :1]
+    if x.device.type != "cuda":
+        return x.movedim(-1, 0).contiguous().sum(1).movedim(0, -1)
+    x = x.contiguous()
+    n = x.shape[0]
+    if n < _SERIAL_TERMS:
+        return x.sum(0)
+    k = n // 32
+    out = sum_leading(x[:k * 32].reshape(k, 32, *x.shape[1:]).sum(1))
+    return out if n % 32 == 0 else out + x[k * 32:].sum(0)
+
+
+# elements of the (rows, F, T) product one chunk of design_product holds
+_PRODUCT_CHUNK = 1 << 24
+
+
+def design_product(beta, X):
+    """``beta @ X.T``, (S, F) x (T, F) -> (S, T), with every entry a sum of
+    its F products in the same order whatever S.  One GEMM lets the library
+    pick its algorithm by S, so a series' path would change with the rows
+    computed beside it (the serving coalescer needs it not to,
+    ``BatchForecaster.coalesce_safe``); an elementwise product reduced over
+    its feature axis sums each entry alike.  The product is laid out
+    (rows, F, T), so the reduction reads along T, and rows go in chunks
+    that keep it under ``_PRODUCT_CHUNK`` elements."""
+    XT = X.t().contiguous()
+    step = max(1, _PRODUCT_CHUNK // max(XT.numel(), 1))
+    parts = [(beta[i:i + step, :, None] * XT[None]).sum(1)
+             for i in range(0, beta.shape[0], step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def t_end_rows(t_end, device) -> torch.Tensor:
+    """A scalar or per-row forecast start as a (1, 1) or (S, 1) column."""
+    return torch.as_tensor(t_end, dtype=torch.float32, device=device).reshape(-1, 1)
 
 
 def gaussian_quantiles(forecast_fn: Callable, floor=None) -> Callable:
@@ -98,34 +160,43 @@ class ModelFns(NamedTuple):
     # engine/calibrate, the blend's pooled band) re-applies it after
     # widening
     band_floor: Optional[float] = None
+    # the forecast draws random numbers and takes ``generator=``
+    draws: bool = False
+    # the fit takes statistics over all rows of a call (arnet standardizes
+    # per-series regressors so) and takes ``groups=``, the number of equal
+    # blocks of rows that must each keep their own: the CV's stacked
+    # cutoffs pass one block a cutoff
+    per_block_stats: bool = False
 
 
 def register_model(name: str, fit: Callable, forecast: Callable,
                    config_cls: type, forecast_quantiles: Callable = None,
                    supports_xreg: bool = False,
-                   band_floor: Optional[float] = None):
+                   band_floor: Optional[float] = None, draws: bool = False,
+                   per_block_stats: bool = False):
     MODEL_REGISTRY[name] = ModelFns(fit=fit, forecast=forecast,
                                     config_cls=config_cls,
                                     forecast_quantiles=forecast_quantiles,
                                     supports_xreg=supports_xreg,
-                                    band_floor=band_floor)
+                                    band_floor=band_floor, draws=draws,
+                                    per_block_stats=per_block_stats)
 
 
-# families of the reference the port has not ported yet
-UNPORTED_FAMILIES = frozenset({"arnet"})
+def generator_kwargs(fns: ModelFns, generator) -> dict:
+    """``{"generator": generator}`` for a family whose forecast draws, when
+    a generator is given; else nothing (the family seeds its own)."""
+    return {"generator": generator} if fns.draws and generator is not None \
+        else {}
 
 
 def get_model(name: str) -> ModelFns:
-    if name in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported yet (ROADMAP Queue 1: P8)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]
 
 
 def require_models(names) -> None:
-    """Check every family of a pool before any work starts: an unported one
-    raises ``NotImplementedError``, an unknown one ``KeyError``."""
+    """Check every family of a pool before any work starts: an unknown one
+    raises ``KeyError``."""
     for name in names:
         get_model(name)

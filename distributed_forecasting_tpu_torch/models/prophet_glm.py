@@ -9,12 +9,17 @@ solve (``ops/solve``).  No iterative optimizer, no per-series Python.
 
 Multiplicative seasonality is fit additively in log space (forecasts are
 mapped back with exp); logistic growth is fit in the logit of
-``(y - floor) / (cap - floor)``.  Intervals are analytic: observation noise
-from the training residuals plus the closed-form variance of Prophet's
+``(y - floor) / (cap - floor)``.  Intervals follow Prophet's trick:
+observation noise from the training residuals plus trend uncertainty from
 simulated future changepoints (Laplace slope changes at the historical
-rate).  The reference's Monte-Carlo paths (``uncertainty_samples > 0``)
-need a random-number decision that is not made yet (ROADMAP, the RNG
-decision): they raise ``NotImplementedError``.
+rate).  By default (``uncertainty_samples == 0``) they are analytic, the
+closed-form variance of that process; with ``uncertainty_samples > 0``
+they are linear quantiles over that many Monte-Carlo paths, drawn from a
+``torch.Generator`` (``generator=``, by default seeded 0 as the reference's
+``PRNGKey(0)``; ``utils/rng.py``) and held to the reference by
+distribution.  ``fit`` takes the reference's prior-scale overrides
+(``prior_scales``), scalars or one per series, for the hyper search
+(``engine/hyper.py``).
 
 ``forecast`` takes ``t_end`` as a scalar or one per row: the CV folds its
 cutoffs into the series axis, so each row's uncertainty (and AR correction)
@@ -29,12 +34,18 @@ from typing import ClassVar, Optional
 import numpy as np
 import torch
 
-from distributed_forecasting_tpu_torch.models.base import _ndtri, register_model
+from distributed_forecasting_tpu_torch.models.base import (
+    _ndtri,
+    design_product,
+    register_model,
+    t_end_rows,
+)
 from distributed_forecasting_tpu_torch.ops.features import (
     curve_design_matrix,
     scaled_time,
     with_regressors,
 )
+from distributed_forecasting_tpu_torch.utils.rng import resolve_generator
 from distributed_forecasting_tpu_torch.ops.solve import (
     fitted_values,
     huber_irls_solve,
@@ -71,7 +82,8 @@ class CurveModelConfig:
     holidays: tuple = ()
     holiday_prior_scale: float = 10.0
     interval_width: float = 0.95
-    # 0 = analytic intervals; > 0 = Monte-Carlo paths (not ported: raises)
+    # 0 = analytic intervals; > 0 = Monte-Carlo quantiles over that many
+    # sample paths
     uncertainty_samples: int = 0
     # AR(p) on the fit residuals, added to the forecast (0 = off)
     ar_order: int = 0
@@ -173,15 +185,21 @@ def _feature_masks(layout, own_scale=(), device=None):
     return tuple(masks[:6]) + (own,)
 
 
-def _prior_precision(layout, cfg: CurveModelConfig, device=None):
-    """Per-feature ridge precision (F,): flat prior on intercept and slope,
+def _prior_precision(layout, cfg: CurveModelConfig, device=None,
+                     cp_scale=None, seas_scale=None, hol_scale=None):
+    """Per-feature ridge precision: flat prior on intercept and slope,
     ``1/scale^2`` on changepoint deltas, seasonality, holidays and
     regressors, each extra seasonality with a scale of its own on its own
-    block.  (The reference's per-series scale overrides serve its hyper
-    search, not ported yet: ROADMAP Queue 1, P8.)"""
+    block.  ``cp_scale`` / ``seas_scale`` / ``hol_scale`` override the
+    config's scales (the hyper search), each a scalar or one per series;
+    the result is (F,), or (S, F) when an override is per series."""
     def prec(scale):
         scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
-        return 1.0 / scale**2
+        return 1.0 / (scale[:, None] if scale.dim() else scale) ** 2
+
+    cp_scale = cfg.changepoint_prior_scale if cp_scale is None else cp_scale
+    seas_scale = cfg.seasonality_prior_scale if seas_scale is None else seas_scale
+    hol_scale = cfg.holiday_prior_scale if hol_scale is None else hol_scale
 
     own_scale = tuple((layout[f"seas_{name}"], ps)
                       for name, _p, _o, ps in _extra_entries(cfg)
@@ -190,12 +208,15 @@ def _prior_precision(layout, cfg: CurveModelConfig, device=None):
         layout, own_scale, device)
     # flat growth: no trend at all, slope and hinges both clamped
     slope_prec = 1e8 if cfg.growth == "flat" else 1e-8
-    cp_scale = 1e-4 if cfg.growth == "flat" else cfg.changepoint_prior_scale
+    if cfg.growth == "flat":
+        cp_scale = torch.full_like(
+            torch.as_tensor(cp_scale, dtype=torch.float32, device=device),
+            1e-4)
     lam = (cp_m * prec(cp_scale)
-           + seas_m * prec(cfg.seasonality_prior_scale)
+           + seas_m * prec(seas_scale)
            + fixed_m * 1e-8
            + slope_m * slope_prec
-           + hol_m * prec(cfg.holiday_prior_scale)
+           + hol_m * prec(hol_scale)
            + reg_m * (1.0 / cfg.regressor_prior_scale**2))
     for m, ps in own:
         lam = lam + m * (1.0 / ps**2)
@@ -361,10 +382,14 @@ def _fit_target(y, mask, config: CurveModelConfig):
     return z / y_scale[:, None], y_scale, cap
 
 
-def fit(y, mask, day, config: CurveModelConfig, xreg=None) -> CurveParams:
+def fit(y, mask, day, config: CurveModelConfig, xreg=None,
+        prior_scales=None) -> CurveParams:
     """Fit all series at once.  y, mask: (S, T); day: (T,) absolute days.
     ``xreg``: regressor values over the same day grid, (T, R) or
-    (S, T, R); required iff ``config.n_regressors > 0``."""
+    (S, T, R); required iff ``config.n_regressors > 0``.
+    ``prior_scales``: ``(changepoint, seasonality)`` or ``(changepoint,
+    seasonality, holiday)`` scale overrides, each a scalar or an (S,)
+    tensor (the hyper search); ``None`` uses the config's."""
     t0 = day[0].to(torch.float32)
     t1 = day[-1].to(torch.float32)
     zn, y_scale, cap = _fit_target(y, mask, config)
@@ -380,7 +405,12 @@ def fit(y, mask, day, config: CurveModelConfig, xreg=None) -> CurveParams:
             reg_sd = reg_sd[None].expand(S, -1).clone()
     else:
         reg_mu, reg_sd = _no_regressors(y.device).values()
-    lam = _prior_precision(layout, config, device=y.device)
+    if prior_scales is None:
+        prior_scales = ()
+    elif len(prior_scales) not in (2, 3):
+        raise ValueError(
+            f"prior_scales takes 2 or 3 scales, got {len(prior_scales)}")
+    lam = _prior_precision(layout, config, y.device, *prior_scales)
     resid_clip = None
     if config.loss == "huber":
         beta, _ = huber_irls_solve(X, zn, mask, lam, delta=config.huber_delta,
@@ -443,11 +473,53 @@ def _trend_deviation_variance(params: CurveParams, t_all, te, cfg):
     so Var[dev(t)] = 2 b^2 p sum_l max(0, t - s_l)^2, with b the mean
     |delta| learned on history.  ``te``: (n, 1) scaled forecast starts,
     n = 1 or one per row.  Returns (S, T_all)."""
+    lam_scale, p_cp, _ = _cp_process(params, t_all, te, cfg)
+    return 2.0 * lam_scale[:, None] ** 2 * p_cp * _lag2(t_all, te)
+
+
+def _cp_process(params: CurveParams, t_all, te, cfg):
+    """The simulated changepoint process's parameters: the Laplace scale b
+    (S,) (the mean |delta| learned on history), the probability p (n, 1)
+    that a site flips on, and the sites (n, L) over each row's window."""
     L = _FUTURE_CP_GRID
     lam_scale = torch.mean(torch.abs(params.beta[:, 2:2 + _n_cp(cfg)]), dim=1)
     span = torch.clamp_min(t_all[-1] - te, 0.0)
     p_cp = torch.clamp(_n_cp(cfg) * span / _cp_range(cfg) / L, 0.0, 1.0)
-    return 2.0 * lam_scale[:, None] ** 2 * p_cp * _lag2(t_all, te)
+    return lam_scale, p_cp, _future_sites(t_all, te)
+
+
+def draw_standard(shape_sites, shape_noise, p_cp, generator):
+    """The Monte-Carlo branch's own draws from ``generator``, in order:
+    ``occur`` (S, N, L), each site on with probability ``p_cp`` (n, 1)
+    (uniforms below p); ``laplace`` (S, N, L), standard Laplace by the
+    inverse CDF of uniforms on [-1 + 2^-24, 1) (as JAX draws it); ``noise``
+    (S, N, T_all) standard normal.  One generator drawn in sequence takes
+    the place of the reference's split and folded keys."""
+    dev = generator.device
+    u = torch.rand(shape_sites, generator=generator, device=dev)
+    occur = (u < p_cp.to(dev).reshape(-1, 1, 1)).to(torch.float32)
+    u = 2.0 * torch.rand(shape_sites, generator=generator, device=dev) - 1.0
+    u = torch.clamp_min(u, -1.0 + 2.0 ** -24)
+    laplace = torch.sign(u) * torch.log1p(-torch.abs(u))
+    noise = torch.randn(shape_noise, generator=generator, device=dev)
+    return occur, laplace, noise
+
+
+def _trend_deviation_samples(params: CurveParams, t_all, te, cfg, draws):
+    """Simulated future trend deviations, Prophet-style, (S, N, T_all),
+    zero at and before each row's forecast start: on a static grid of L
+    candidate sites over the forecast window, each site flips on with the
+    historical changepoint rate and a Laplace slope change of the
+    historical mean |delta| (``draws``' ``occur`` and ``laplace``), and
+    ``dev(t) = sum_l delta_l max(0, t - s_l)``."""
+    occur, laplace = draws[0], draws[1]
+    lam_scale, _p, sites = _cp_process(params, t_all, te, cfg)
+    delta = occur * laplace * lam_scale[:, None, None]             # (S, N, L)
+    lag = torch.clamp_min(t_all[None, None, :] - sites[:, :, None], 0.0)
+    if lag.shape[0] == 1:
+        S, N, L = delta.shape
+        return (delta.reshape(S * N, L) @ lag[0]).reshape(S, N, -1)
+    return torch.bmm(delta, lag)
 
 
 def _regressor_contrib(params: CurveParams, xreg, F0: int):
@@ -542,49 +614,24 @@ def _ar_correction(params: CurveParams, day_all, t_end, p: int):
     return mean, var, fut
 
 
-# elements of the (rows, F, T) product one chunk of _design_product holds
-_PRODUCT_CHUNK = 1 << 24
-
-
-def _design_product(beta, X):
-    """``beta @ X.T``, (S, F) x (T, F) -> (S, T), with every entry a sum of
-    its F products in the same order whatever S.  One GEMM lets the library
-    pick its algorithm by S, so a series' path would change with the rows
-    computed beside it (the serving coalescer needs it not to,
-    ``BatchForecaster.coalesce_safe``); an elementwise product reduced over
-    its feature axis sums each entry alike.  The product is laid out
-    (rows, F, T), so the reduction reads along T, and rows go in chunks
-    that keep it under ``_PRODUCT_CHUNK`` elements."""
-    XT = X.t().contiguous()
-    step = max(1, _PRODUCT_CHUNK // max(XT.numel(), 1))
-    parts = [(beta[i:i + step, :, None] * XT[None]).sum(1)
-             for i in range(0, beta.shape[0], step)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-
-
-def _t_end_rows(t_end, device) -> torch.Tensor:
-    """A scalar or per-row forecast start as a (1, 1) or (S, 1) column."""
-    return torch.as_tensor(t_end, dtype=torch.float32, device=device).reshape(-1, 1)
-
-
-def _predictive(params: CurveParams, day_all, t_end, config, xreg):
-    """Fit-space point path and analytic predictive sd, each (S, T_all)."""
-    if config.uncertainty_samples > 0:
-        raise NotImplementedError(
-            "uncertainty_samples > 0 (Monte-Carlo intervals) is not ported "
-            "yet (ROADMAP Queue 1: the Monte-Carlo branch, after the RNG "
-            "decision); use uncertainty_samples=0, the analytic intervals"
-        )
+def _predictive(params: CurveParams, day_all, t_end, config, xreg,
+                generator=None, draws=None):
+    """Fit-space predictive distribution over ``day_all``: ``(zhat, sd,
+    paths)``, the point path (S, T_all) with either the analytic sd
+    (S, T_all) and ``paths=None`` (``uncertainty_samples == 0``), or
+    Monte-Carlo sample paths (S, N, T_all) and ``sd=None``.  The paths'
+    draws are ``draws`` (``(occur, laplace, noise)`` standard draws, see
+    :func:`draw_standard`) when given, else drawn from ``generator``."""
     dev = params.beta.device
     X, layout = _design(day_all, params.t0, params.t1, config)
     # the base design stays shared (T_all, F0) even with per-series
     # regressors: their contribution is added on top
     F0 = layout["n_features"]
     ys = params.y_scale[:, None]
-    zhat = _design_product(params.beta[:, :F0], X) * ys
+    zhat = design_product(params.beta[:, :F0], X) * ys
     if _check_xreg(xreg, config, "forecast"):
         zhat = zhat + _regressor_contrib(params, xreg, F0) * ys
-    t_end = _t_end_rows(t_end, dev)
+    t_end = t_end_rows(t_end, dev)
     t_all = scaled_time(day_all, params.t0, params.t1)
     te = (t_end - params.t0) / torch.clamp_min(params.t1 - params.t0, 1.0)
     var_obs = params.sigma[:, None] ** 2
@@ -593,8 +640,41 @@ def _predictive(params: CurveParams, day_all, t_end, config, xreg):
                                               config.ar_order)
         zhat = zhat + ar_mean * ys
         var_obs = torch.where(fut, ar_var, var_obs)
+    if config.uncertainty_samples > 0:
+        S, T_all = zhat.shape
+        N = config.uncertainty_samples
+        if draws is None:
+            gen = resolve_generator(generator, dev, 0)
+            draws = draw_standard((S, N, _FUTURE_CP_GRID), (S, N, T_all),
+                                  _cp_process(params, t_all, te, config)[1],
+                                  gen)
+        draws = tuple(torch.as_tensor(d, dtype=torch.float32, device=dev)
+                      for d in draws)
+        # in place: at Prophet's 1,000 samples the (S, N, T_all) paths and
+        # the noise draws are the branch's two large tensors
+        paths = _trend_deviation_samples(params, t_all, te, config, draws)
+        paths.mul_(ys[:, :, None]).add_(zhat[:, None, :])
+        paths.addcmul_(draws[2], (torch.sqrt(var_obs) * ys)[:, None, :])
+        return zhat, None, paths
     var_dev = _trend_deviation_variance(params, t_all, te, config)
-    return zhat, torch.sqrt(var_dev + var_obs) * ys
+    return zhat, torch.sqrt(var_dev + var_obs) * ys, None
+
+
+# rows of Monte-Carlo paths whose quantiles one call takes: each call holds
+# at most this many path elements
+_QUANTILE_CHUNK = 1 << 24
+
+
+def _sample_quantiles(paths, qs) -> torch.Tensor:
+    """Linear-interpolation quantiles (``jnp.quantile``'s default) of the
+    (S, N, T) paths over the sample axis: (S, Q, T), in row blocks that
+    keep each ``torch.quantile`` call under ``_QUANTILE_CHUNK`` elements."""
+    S, N, T = paths.shape
+    step = max(1, _QUANTILE_CHUNK // max(N * T, 1))
+    q = torch.as_tensor(qs, dtype=torch.float32, device=paths.device)
+    parts = [torch.quantile(paths[i:i + step], q, dim=1).permute(1, 0, 2)
+             for i in range(0, S, step)]
+    return torch.cat(parts)
 
 
 def _to_data_space(v, params: CurveParams, config):
@@ -610,30 +690,46 @@ def _to_data_space(v, params: CurveParams, config):
 
 
 def forecast(params: CurveParams, day_all, t_end, config: CurveModelConfig,
-             xreg=None):
+             xreg=None, generator=None, draws=None):
     """(yhat, lo, hi), each (S, T_all), over ``day_all`` (history + future):
     Prophet's ``predict`` on ``make_future_dataframe(include_history=True)``.
     ``t_end``: the forecast start, a scalar or one per row.  ``xreg``:
-    regressor values over ``day_all``, required iff ``n_regressors > 0``."""
-    zhat, sd = _predictive(params, day_all, t_end, config, xreg)
-    z = _ndtri(0.5 + config.interval_width / 2.0, zhat.device)
+    regressor values over ``day_all``, required iff ``n_regressors > 0``.
+    With ``uncertainty_samples > 0`` the band is the central
+    ``interval_width`` of the Monte-Carlo paths, drawn from ``generator``
+    (or given as ``draws``, see :func:`_predictive`)."""
+    zhat, sd, paths = _predictive(params, day_all, t_end, config, xreg,
+                                  generator, draws)
+    if paths is not None:
+        alpha = (1.0 - config.interval_width) / 2.0
+        band = _sample_quantiles(paths, [alpha, 1.0 - alpha])
+        lo, hi = band[:, 0], band[:, 1]
+    else:
+        z = _ndtri(0.5 + config.interval_width / 2.0, zhat.device)
+        lo, hi = zhat - z * sd, zhat + z * sd
     return (_to_data_space(zhat, params, config),
-            _to_data_space(zhat - z * sd, params, config),
-            _to_data_space(zhat + z * sd, params, config))
+            _to_data_space(lo, params, config),
+            _to_data_space(hi, params, config))
 
 
 def forecast_quantiles(params: CurveParams, day_all, t_end,
                        config: CurveModelConfig, quantiles=(0.1, 0.5, 0.9),
-                       xreg=None):
+                       xreg=None, generator=None, draws=None):
     """(S, Q, T_all) forecast quantiles, non-decreasing along Q: each level
-    priced from the fit-space Gaussian and mapped through the monotone
+    priced from the fit-space Gaussian, or with ``uncertainty_samples > 0``
+    taken over the Monte-Carlo paths, and mapped through the monotone
     data-space transform (so under multiplicative seasonality the band is
     Gaussian in log space, not in data space)."""
     if not quantiles or not all(0.0 < q < 1.0 for q in quantiles):
         raise ValueError(f"quantiles must lie in (0, 1), got {quantiles!r}")
-    zhat, sd = _predictive(params, day_all, t_end, config, xreg)
-    zq = zhat[:, None, :] + _ndtri(tuple(quantiles), zhat.device)[None, :, None] \
-        * sd[:, None, :]
+    zhat, sd, paths = _predictive(params, day_all, t_end, config, xreg,
+                                  generator, draws)
+    if paths is not None:
+        zq = _sample_quantiles(paths, tuple(quantiles))
+    else:
+        zq = zhat[:, None, :] \
+            + _ndtri(tuple(quantiles), zhat.device)[None, :, None] \
+            * sd[:, None, :]
     return _to_data_space(zq, params, config)
 
 
@@ -673,7 +769,7 @@ def decompose(params: CurveParams, day_all, config: CurveModelConfig,
             _regressor_contrib(params, xreg, layout["n_features"]) * ys)
     if config.ar_order > 0 and t_end is not None:
         ar_mean, _, _ = _ar_correction(
-            params, day_all, _t_end_rows(t_end, params.beta.device),
+            params, day_all, t_end_rows(t_end, params.beta.device),
             config.ar_order)
         comps["ar"] = ar_mean * ys
     # in name order, as the reference's (jit returns a dict key-sorted):
@@ -736,8 +832,11 @@ class CurveModelConfigAR(CurveModelConfig):
 
 
 register_model("prophet_ar", fit, forecast, CurveModelConfigAR,
-               forecast_quantiles=forecast_quantiles, supports_xreg=True)
+               forecast_quantiles=forecast_quantiles, supports_xreg=True,
+               draws=True)
 register_model("prophet", fit, forecast, CurveModelConfig,
-               forecast_quantiles=forecast_quantiles, supports_xreg=True)
+               forecast_quantiles=forecast_quantiles, supports_xreg=True,
+               draws=True)
 register_model("curve", fit, forecast, CurveModelConfig,
-               forecast_quantiles=forecast_quantiles, supports_xreg=True)
+               forecast_quantiles=forecast_quantiles, supports_xreg=True,
+               draws=True)

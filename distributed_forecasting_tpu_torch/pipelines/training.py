@@ -10,7 +10,11 @@ serving artifact) -> the forecast table.  Options: the curve model's
 covariates from a catalog table (``regressors``), span buckets on trimmed
 grids for ragged batches (``bucketed``; the artifact is a
 ``BucketedForecaster``) and the CV pass's raw forecasts as a run table
-(``cv_artifact``).  ``model: auto`` serves each
+(``cv_artifact``).  ``model: arnet`` trains by batched gradient descent
+(``engine/gradfit``).  ``tuning.enabled`` runs the per-series prior-scale
+search of the curve model instead (``engine/hyper``, the reference's
+tuned path: a refit per seasonality mode, each series served by its
+winning mode).  ``model: auto`` serves each
 series from the family that won its CV (``engine/select``), ``model:
 blend`` from the per-series weighted pool of all of them
 (``engine/blend``); their artifacts are the composite forecasters of
@@ -65,9 +69,17 @@ from distributed_forecasting_tpu_torch.engine.autoprep import (
 from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
 from distributed_forecasting_tpu_torch.engine.fit import (
+    DEFAULT_MIN_POINTS,
+    ForecastResult,
+    day_grid,
     fit_forecast,
     fit_forecast_bucketed,
     forecast_frame,
+    health_fallback,
+)
+from distributed_forecasting_tpu_torch.engine.hyper import (
+    HyperSearchConfig,
+    tune_curve_model,
 )
 from distributed_forecasting_tpu_torch.engine.order import resolve_order_conf
 from distributed_forecasting_tpu_torch.engine.season import (
@@ -77,6 +89,7 @@ from distributed_forecasting_tpu_torch.engine.select import (
     DEFAULT_FAMILIES,
     fit_forecast_auto,
 )
+from distributed_forecasting_tpu_torch.models import prophet_glm
 from distributed_forecasting_tpu_torch.models.arima import _MLE_NOT_PORTED
 from distributed_forecasting_tpu_torch.models.base import (
     MODEL_REGISTRY,
@@ -107,11 +120,6 @@ _METRICS = ("mse", "rmse", "mae", "mape", "smape", "mdape", "coverage",
 _PER_SERIES_RUNS_WARN = 2000
 
 _CALENDAR_DAILY_FAMILIES = frozenset({"prophet", "curve", "prophet_ar"})
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1: {item})")
 
 
 def _comparability_params(batch, cv):
@@ -145,21 +153,21 @@ def _pool_families(model: str, model_conf) -> tuple:
 
 
 def _check_cadence(freq: str, model: str, model_conf,
-                   regressors=None) -> None:
-    """The curve model's weekly/yearly Fourier terms, holiday calendars and
-    conf-driven regressor grids are calendar-daily: on a week or month grid
-    they raise here, also when the curve model is in a pool, rather than
-    fit a 7-step "weekly" cycle."""
+                   regressors=None, tuning=None) -> None:
+    """The curve model's weekly/yearly Fourier terms, holiday calendars,
+    conf-driven regressor grids and the tuned path are calendar-daily: on a
+    week or month grid they raise here, also when the curve model is in a
+    pool, rather than fit a 7-step "weekly" cycle."""
     if freq == "D":
         return
     bad = ({model} | set(_pool_families(model, model_conf))) & (
         _CALENDAR_DAILY_FAMILIES)
-    if bad:
+    if bad or (tuning and tuning.get("enabled")):
         raise ValueError(
-            f"training.freq={freq!r}: the curve model's seasonalities are "
-            f"calendar-daily; use the cadence-agnostic families "
-            f"(holt_winters/arima/theta/croston) or freq: D (conf names "
-            f"{sorted(bad)})"
+            f"training.freq={freq!r}: the curve model's seasonalities and "
+            f"the tuned path are calendar-daily; use the cadence-agnostic "
+            f"families (holt_winters/arima/theta/croston) or freq: D"
+            + (f" (conf names {sorted(bad)})" if bad else "")
         )
     if regressors:
         raise ValueError(
@@ -365,10 +373,20 @@ class TrainingPipeline:
                     "run_cross_validation: the CV residuals ARE the "
                     "calibration set"
                 )
+        if tuned:
+            # the tuned path is the curve model's, whatever ``model`` says
+            _check_cadence(freq, model, model_conf, regressors=regressors,
+                           tuning=tuning)
+            if bucketed:
+                raise ValueError(
+                    "training.bucketed is not supported together with "
+                    "tuning.enabled — the tuned path fits on the shared grid"
+                )
+            return self._tuned_stages(
+                source_table, output_table, model_conf, cv_conf, tuning,
+                experiment, horizon, key_cols, regressors, trace_dir)
         # what the port does not run yet; every family of a pool is checked
         # here, before any data is read
-        if tuned:
-            raise _not_ported("tuning.enabled (engine/hyper.py)", "P8")
         pool = _pool_families(model, model_conf)
         require_models(pool or (model,))
         _refuse_unported_conf(model, model_conf, pool)
@@ -540,10 +558,6 @@ class TrainingPipeline:
                 run_name=f"batched_{model}_fit",
                 tags={"model": model, "partial_model": str(n_failed > 0)},
             ) as run:
-                from distributed_forecasting_tpu_torch.models import (
-                    prophet_glm,
-                )
-
                 if bucketed:
                     run.log_params(dataclasses.asdict(config))
                     run.log_params({"n_buckets": len(state["buckets"])})
@@ -636,6 +650,133 @@ class TrainingPipeline:
                 "n_failed": n_failed,
                 "fit_seconds": fit_seconds,
                 "metrics": dict(agg),
+            }
+
+        return prep, dispatch, complete
+
+    # --------------------------------------------------------------- tuned
+    def _tuned_stages(self, source_table, output_table, model_conf, cv_conf,
+                      tuning, experiment, horizon, key_cols, regressors,
+                      trace_dir):
+        """The stages of the tuned curve-model path (the reference's
+        ``_fine_grained_tuned``, the AutoML notebook's per-series tuning):
+        the search (``engine/hyper.tune_curve_model``), a forecast per
+        mode, each series' winning mode gathered on the device, the
+        fail-safe, then the ``tuned_curve_fit`` run with its trial and
+        per-series tables and the artifact (the majority mode's params)."""
+        def prep() -> Dict[str, Any]:
+            df = self.catalog.read_table(source_table)
+            batch = tensorize(df, key_cols=key_cols, device=self.device)
+            base = _config_from_conf(
+                "prophet", _resolve_holidays_conf(model_conf, batch, horizon))
+            xreg = None
+            if regressors:
+                xreg, base = _load_regressors(self.catalog, regressors, batch,
+                                              horizon, base)
+            search = HyperSearchConfig(
+                n_trials=int(tuning.get("n_trials", 8)),
+                metric=tuning.get("metric", "smape"),
+                seed=int(tuning.get("seed", 0)),
+                adaptive_rounds=int(tuning.get("adaptive_rounds", 1)),
+                zoom_sigma=float(tuning.get("zoom_sigma", 0.8)),
+                zoom_factor=float(tuning.get("zoom_factor", 0.5)),
+            )
+            return {"batch": batch, "base": base, "xreg": xreg,
+                    "search": search, "cv": CVConfig(**(cv_conf or {}))}
+
+        def dispatch(state: Dict[str, Any]) -> Dict[str, Any]:
+            batch, base = state["batch"], state["base"]
+            xreg, search = state["xreg"], state["search"]
+            t_start = time.time()
+            with device_trace(trace_dir):
+                # the search sees the history slice of xreg; the refit
+                # params carry the regressor coefficients for serving
+                tuned = tune_curve_model(batch, base_config=base,
+                                         search=search, cv=state["cv"],
+                                         xreg=xreg)
+                day_all = day_grid(batch.day, horizon)
+                t_end = batch.day[-1].to(torch.float32)
+                modes = list(tuned.mode_params)
+                outs = [prophet_glm.forecast(
+                    params, day_all, t_end,
+                    dataclasses.replace(base, seasonality_mode=mode),
+                    xreg=xreg) for mode, params in tuned.mode_params.items()]
+                # each series' winning mode, gathered on the device
+                sel = np.asarray(tuned.best_mode)
+                pick = torch.as_tensor([modes.index(m) for m in sel],
+                                       device=batch.y.device)
+                rows = torch.arange(pick.shape[0], device=batch.y.device)
+                yhat, lo, hi = (torch.stack([o[i] for o in outs])[pick, rows]
+                                for i in range(3))
+                yhat, lo, hi, ok = health_fallback(
+                    batch.y, batch.mask, yhat, lo, hi, horizon,
+                    min_points=DEFAULT_MIN_POINTS)
+            state.update(t_start=t_start, tuned=tuned, modes=modes, sel=sel,
+                         result=ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
+                                               day_all=day_all))
+            return state
+
+        def complete(state: Dict[str, Any]) -> Dict[str, Any]:
+            batch, search, cv = state["batch"], state["search"], state["cv"]
+            tuned, modes, sel = state["tuned"], state["modes"], state["sel"]
+            result = state["result"]
+            ok = result.ok.cpu().numpy()
+            fit_seconds = time.time() - state["t_start"]
+            n_failed = int((~ok).sum())
+            if n_failed == batch.n_series:
+                raise RuntimeError("no series trained successfully")
+            if n_failed:
+                self.logger.warning(
+                    "tuned partial model: %d series fell back", n_failed)
+            eid = self.tracker.create_experiment(experiment)
+            with self.tracker.start_run(
+                eid, run_name="tuned_curve_fit",
+                tags={"model": "prophet", "tuned": "true",
+                      "partial_model": str(n_failed > 0)},
+            ) as run:
+                run.log_params({
+                    "n_trials": search.n_trials,
+                    "selection_metric": search.metric,
+                    "n_series": batch.n_series,
+                    "horizon": horizon,
+                    **_comparability_params(batch, cv),
+                })
+                # over healthy series with a finite CV score (a series with
+                # no observed CV eval point scores +inf)
+                scores = np.asarray(tuned.best_score)[ok]
+                scores = scores[np.isfinite(scores)]
+                val_score = (float(np.mean(scores)) if scores.size
+                             else float("nan"))
+                run.log_metrics({f"val_{search.metric}": val_score,
+                                 "fit_seconds": fit_seconds,
+                                 "n_failed_series": float(n_failed)})
+                run.log_table("trials.parquet", tuned.trials)
+                series_table = batch.key_frame()
+                series_table["best_mode"] = sel
+                series_table["best_changepoint_prior_scale"] = tuned.best_cp_scale
+                series_table["best_seasonality_prior_scale"] = tuned.best_seas_scale
+                series_table["best_holidays_prior_scale"] = tuned.best_hol_scale
+                series_table[f"best_{search.metric}"] = tuned.best_score
+                run.log_table("series_metrics.parquet", series_table)
+                BatchForecaster.from_fit(
+                    batch, tuned.params, "prophet", tuned.config,
+                ).save(run.artifact_path("forecaster"))
+                run_id = run.run_id
+            version = self.catalog.save_table(output_table,
+                                              forecast_frame(batch, result))
+            self.logger.info(
+                "tuned fit: %d series, %d trials x %d modes x %d rounds in "
+                "%.2fs -> %s v%s", batch.n_series, search.n_trials,
+                len(modes), search.adaptive_rounds, fit_seconds,
+                output_table, version)
+            return {
+                "experiment_id": eid,
+                "run_id": run_id,
+                "table_version": version,
+                "n_series": batch.n_series,
+                "n_failed": n_failed,
+                "fit_seconds": fit_seconds,
+                "metrics": {f"val_{search.metric}": val_score},
             }
 
         return prep, dispatch, complete

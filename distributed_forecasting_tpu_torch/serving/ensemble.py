@@ -25,7 +25,10 @@ import numpy as np
 import pandas as pd
 
 from distributed_forecasting_tpu_torch.engine.blend import blend_band_floor
-from distributed_forecasting_tpu_torch.models.base import get_model
+from distributed_forecasting_tpu_torch.models.base import (
+    generator_kwargs,
+    get_model,
+)
 from distributed_forecasting_tpu_torch.serving.predictor import (
     BatchForecaster,
     quantile_columns,
@@ -34,11 +37,14 @@ from distributed_forecasting_tpu_torch.serving.predictor import (
 _META_FILE = "ensemble.json"
 
 
-def _family_kwargs(name: str, xreg) -> dict:
-    """``xreg`` for a member whose family takes regressors, else nothing."""
-    if xreg is not None and get_model(name).supports_xreg:
-        return {"xreg": xreg}
-    return {}
+def _family_kwargs(name: str, xreg, generator=None) -> dict:
+    """``xreg`` for a member whose family takes regressors, ``generator``
+    for one whose forecast draws, else nothing."""
+    fns = get_model(name)
+    kw = generator_kwargs(fns, generator)
+    if xreg is not None and fns.supports_xreg:
+        kw["xreg"] = xreg
+    return kw
 
 
 class MultiModelForecaster:
@@ -139,7 +145,7 @@ class MultiModelForecaster:
 
     def predict(self, request: pd.DataFrame, horizon: int = 90,
                 include_history: bool = False, on_missing: str = "raise",
-                xreg=None) -> pd.DataFrame:
+                xreg=None, generator=None) -> pd.DataFrame:
         """One batched predict per family present in the request.  ``xreg``
         goes to the families that take regressors (the curve model); it
         raises when no held family does."""
@@ -153,13 +159,13 @@ class MultiModelForecaster:
             request, on_missing, ["yhat", "yhat_upper", "yhat_lower"],
             lambda name, req: self.forecasters[name].predict(
                 req, horizon=horizon, include_history=include_history,
-                **_family_kwargs(name, xreg)))
+                **_family_kwargs(name, xreg, generator)))
 
     def predict_quantiles(self, request: pd.DataFrame,
                           quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
                           include_history: bool = False,
                           on_missing: str = "raise",
-                          xreg=None) -> pd.DataFrame:
+                          xreg=None, generator=None) -> pd.DataFrame:
         """Per-family quantile forecasts; every requested series' winning
         family must price quantiles."""
 
@@ -172,7 +178,7 @@ class MultiModelForecaster:
             return self.forecasters[name].predict_quantiles(
                 req, quantiles=quantiles, horizon=horizon,
                 include_history=include_history, on_missing=on_missing,
-                **_family_kwargs(name, xreg))
+                **_family_kwargs(name, xreg, generator))
 
         return self._parts(request, on_missing, quantile_columns(quantiles),
                            call)
@@ -315,7 +321,7 @@ class BlendedForecaster:
 
     def predict(self, request: pd.DataFrame, horizon: int = 90,
                 include_history: bool = False, on_missing: str = "raise",
-                xreg=None) -> pd.DataFrame:
+                xreg=None, generator=None) -> pd.DataFrame:
         def columns(part):
             yh = part["yhat"].to_numpy()
             return {"yhat": yh, "up": part["yhat_upper"].to_numpy() - yh,
@@ -325,7 +331,7 @@ class BlendedForecaster:
             request, on_missing, columns,
             lambda name, req: self.forecasters[name].predict(
                 req, horizon=horizon, include_history=include_history,
-                **_family_kwargs(name, xreg)))
+                **_family_kwargs(name, xreg, generator)))
         if out is None:
             return pd.DataFrame(columns=["ds", *self.key_names, "yhat",
                                          "yhat_upper", "yhat_lower"])
@@ -345,7 +351,7 @@ class BlendedForecaster:
                           quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
                           include_history: bool = False,
                           on_missing: str = "raise",
-                          xreg=None) -> pd.DataFrame:
+                          xreg=None, generator=None) -> pd.DataFrame:
         for name in self.models:
             if get_model(name).forecast_quantiles is None:
                 raise ValueError(
@@ -364,7 +370,7 @@ class BlendedForecaster:
             lambda name, req: self.forecasters[name].predict_quantiles(
                 req, quantiles=priced, horizon=horizon,
                 include_history=include_history,
-                **_family_kwargs(name, xreg)))
+                **_family_kwargs(name, xreg, generator)))
         if out is None:
             return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
         if self.interval_scale is not None:

@@ -29,6 +29,7 @@ from distributed_forecasting_tpu_torch.convert import (
 from distributed_forecasting_tpu_torch.data.tensorize import ordinals_to_dates
 from distributed_forecasting_tpu_torch.engine.calibrate import apply_interval_scale
 from distributed_forecasting_tpu_torch.models import get_model
+from distributed_forecasting_tpu_torch.models.base import generator_kwargs
 from distributed_forecasting_tpu_torch.utils.config import freeze, to_jsonable
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
 
@@ -112,10 +113,13 @@ class BatchForecaster:
     # series that are BIT-IDENTICAL whatever the request's size bucket: every
     # family's forecast works row by row, with no sum across series and no
     # library call whose algorithm depends on the row count (the curve
-    # model's design product, models/prophet_glm._design_product; the
-    # cumulative sums, models/base.cumsum_rows).  The serving coalescer
-    # merges concurrent requests only for forecasters that declare it;
-    # composites (ensemble, bucketed) reorder rows by member and do not.
+    # model's design product, models/base.design_product; the
+    # cumulative sums, models/base.cumsum_rows; arnet's contractions over a
+    # leading axis).  The serving coalescer merges concurrent requests only
+    # for forecasters that declare it; composites (ensemble, bucketed)
+    # reorder rows by member and do not.  An instance with Monte-Carlo
+    # intervals does not either (``__init__``): a series' draws depend on
+    # the rows drawn beside it.
     coalesce_safe = True
 
     def __init__(
@@ -138,6 +142,8 @@ class BatchForecaster:
         self.day0 = int(day0)  # first training period ordinal
         self.day1 = int(day1)  # last training period ordinal
         self.freq = str(freq)
+        if getattr(config, "uncertainty_samples", 0) > 0:
+            self.coalesce_safe = False
         # (S,) per-series conformal band scale, applied to both half-bands
         self.interval_scale = (
             None if interval_scale is None
@@ -358,11 +364,14 @@ class BatchForecaster:
 
     def predict(self, request: pd.DataFrame, horizon: int = 90,
                 include_history: bool = False,
-                on_missing: str = "raise", xreg=None) -> pd.DataFrame:
+                on_missing: str = "raise", xreg=None,
+                generator=None) -> pd.DataFrame:
         """Forecast every requested series ``horizon`` steps past the end of
         training.  ``request`` needs the key columns only.  ``xreg``: a
         regressor model's values over the full ``day0 .. day1 + horizon``
-        grid, (T_all, R) shared or (S_trained, T_all, R) per series."""
+        grid, (T_all, R) shared or (S_trained, T_all, R) per series.
+        ``generator``: the draws of Monte-Carlo intervals (``None`` seeds
+        one with 0, the reference's default key)."""
         sidx, params, day_all, fc_kwargs, scale = self._prepare_request(
             request, horizon, on_missing, xreg)
         if sidx.size == 0:
@@ -372,7 +381,8 @@ class BatchForecaster:
         fns = get_model(self.model)
         k = int(sidx.size)
         yhat, lo, hi = fns.forecast(params, day_all, float(self.day1),
-                                    self.config, **fc_kwargs)
+                                    self.config, **fc_kwargs,
+                                    **generator_kwargs(fns, generator))
         yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
                                             floor=fns.band_floor)
         if not include_history:
@@ -388,10 +398,10 @@ class BatchForecaster:
                           quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
                           include_history: bool = False,
                           on_missing: str = "raise",
-                          xreg=None) -> pd.DataFrame:
+                          xreg=None, generator=None) -> pd.DataFrame:
         """Probabilistic forecast: one column per quantile level (``q0.1``,
         ``q0.5``, ...), priced from the predictive distribution the central
-        interval uses.  ``xreg`` as for :meth:`predict`."""
+        interval uses.  ``xreg`` and ``generator`` as for :meth:`predict`."""
         fns = get_model(self.model)
         if fns.forecast_quantiles is None:
             raise ValueError(
@@ -411,8 +421,9 @@ class BatchForecaster:
         if scale is not None and 0.5 not in priced:
             priced = tuple(sorted((*priced, 0.5)))
         yq = fns.forecast_quantiles(params, day_all, float(self.day1),
-                                    self.config, priced,
-                                    **fc_kwargs)  # (bucket, Q, T_all)
+                                    self.config, priced, **fc_kwargs,
+                                    **generator_kwargs(fns, generator))
+        # (bucket, Q, T_all)
         if scale is not None:
             med = yq[:, priced.index(0.5), :][:, None, :]
             yq = med + scale[:, None, None] * (yq - med)

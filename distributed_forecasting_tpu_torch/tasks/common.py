@@ -21,12 +21,15 @@ the reference parses it (an unknown key or a bad value raises
   * ``engine.autoprep`` installs the process-wide autoprep config
     (``engine/autoprep.configure_autoprep``) that the training pipeline and
     the fit entry points read;
+  * ``engine.gradfit`` installs the process-wide gradfit config
+    (``engine/gradfit.configure_gradfit``): armed, an arnet fit trains on
+    the engine path;
   * ``compile_cache:`` and ``pipeline:`` change no result (a compile cache,
     and an executor byte-identical to the serial path); they are logged as
     having no effect in the port yet (ROADMAP Queue 1: P11);
   * ``distributed:``, ``precision: {bf16_scoring: true}`` and any
-    ``engine.{windowed, gradfit, automl}`` with ``enabled: true`` change
-    what runs; they raise ``NotImplementedError`` naming their item.
+    ``engine.{windowed, automl}`` with ``enabled: true`` change what runs;
+    they raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from distributed_forecasting_tpu_torch.engine.compile_cache import (
     CompileCacheConfig,
 )
 from distributed_forecasting_tpu_torch.engine.executor import PipelineConfig
-from distributed_forecasting_tpu_torch.engine.gradfit import GradFitConfig
+from distributed_forecasting_tpu_torch.engine.gradfit import configure_gradfit
 from distributed_forecasting_tpu_torch.engine.hyper import AutoMLConfig
 from distributed_forecasting_tpu_torch.engine.windowed import WindowedConfig
 from distributed_forecasting_tpu_torch.tracking import FileTracker, ModelRegistry
@@ -58,18 +61,17 @@ _DEFAULT_ROOT = "./dftpu_store"
 # module, the ROADMAP item porting it)
 _UNPORTED_ENGINE_BLOCKS = {
     "windowed": (WindowedConfig.from_conf, "engine/windowed.py", "P9"),
-    "gradfit": (GradFitConfig.from_conf, "engine/gradfit.py", "P8"),
     "automl": (AutoMLConfig.from_conf, "engine/select.py, engine/hyper.py",
                "P8"),
 }
-_ENGINE_KEYS = frozenset(_UNPORTED_ENGINE_BLOCKS) | {"autoprep"}
+_ENGINE_KEYS = frozenset(_UNPORTED_ENGINE_BLOCKS) | {"autoprep", "gradfit"}
 _PRECISION_KEYS = frozenset({"bf16_scoring"})
 
 
 def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
-    """Parse every top-level block strictly; install ``engine.autoprep``,
-    refuse the blocks that would change what runs, and log the
-    result-neutral ones."""
+    """Parse every top-level block strictly; install ``engine.autoprep`` and
+    ``engine.gradfit``, refuse the blocks that would change what runs, and
+    log the result-neutral ones."""
     if conf.get("distributed"):
         raise NotImplementedError(
             "distributed: multi-process bring-up (parallel/*) is not ported "
@@ -110,6 +112,8 @@ def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
                     f"yet (ROADMAP Queue 1: {item})")
         if eng.get("autoprep") is not None:
             configure_autoprep(eng["autoprep"])
+        if eng.get("gradfit") is not None:
+            configure_gradfit(eng["gradfit"])
 
 
 class Task(ABC):

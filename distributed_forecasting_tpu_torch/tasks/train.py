@@ -49,10 +49,14 @@ device.  Conf::
         per_series: false           # history and horizon
       cv_artifact: false            # log cv_forecasts.parquet, the raw
                                     # per-cutoff forecasts of the CV pass
+      tuning:                       # per-series prior-scale search of the
+        enabled: false              # curve model (engine/hyper.py): n_trials,
+                                    # metric, seed, adaptive_rounds, ...
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item before any data is read: the arnet family (also in a pool), arima's
-``method: mle``, ``tuning.enabled``.
+``model: arnet`` (also in a pool) trains by batched gradient descent
+(``engine/gradfit.py``; ``engine.gradfit`` arms its engine path).  Not
+ported yet, raising ``NotImplementedError`` naming its ROADMAP item before
+any data is read: arima's ``method: mle``.
 """
 
 from __future__ import annotations

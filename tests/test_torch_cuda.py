@@ -19,6 +19,14 @@ held to the floored Cholesky twin (the CPU route) on the card at the main
 path's shapes, within ``10 * cond(A) * 2^-24`` of each row's scale; an
 indefinite system must come out NaN and be flagged by the fail-safe; the
 Gram must build no (S, T, F) intermediate; the solve must not sync.
+
+The arnet family's trainer (``engine/gradfit.py``) runs no hand kernel; its
+invariants are held bit for bit on the card: the engine path equals the
+family's trainer, bucket growth changes nothing, one seed gives one fit,
+and a series trains alone as beside others.  On one injected schedule the
+card's fit is the CPU's within float32 (summation order and Adam's fused
+arithmetic differ).  The curve model's Monte-Carlo branch and the tuned
+path run on the card at small shapes against the CPU on the same draws.
 """
 
 import dataclasses
@@ -667,7 +675,7 @@ def test_native_tensorize_on_the_card_is_the_pandas_one(dev):
 # bit-identical whatever the request's size bucket, or the coalescer's
 # merged responses would differ from solo ones.  On the card that needs the
 # curve model's design product and the cumulative sums to work row by row
-# (models/prophet_glm._design_product, models/base.cumsum_rows): one GEMM
+# (models/base.design_product, models/base.cumsum_rows): one GEMM
 # and torch.cumsum pick their algorithm by the row count.
 
 
@@ -698,7 +706,8 @@ def _served(dev, model, S=96, T=420):
                                     interval_scale=scale)
 
 
-@pytest.mark.parametrize("model", ["prophet", "holt_winters", "arima"])
+@pytest.mark.parametrize("model", ["prophet", "holt_winters", "arima",
+                                   "arnet"])
 def test_coalesced_blocks_equal_solo_blocks(dev, model):
     """Each of 8 probed series: its block from a 1-series, an 8-series and a
     64-series request (buckets 1, 8, 64), byte-equal through the server's
@@ -994,3 +1003,172 @@ def test_autoprep_on_the_card_equals_the_cpu(dev):
     assert (np.abs(gr.cp_score - wr.cp_score)[same]
             <= tol * np.abs(wr.cp_score)[same] + 1e-6).all()
     assert (gr.cp_index[8:16] >= 0).all()
+
+
+# -- slice 13: arnet's trainer, the Monte-Carlo branch, the tuned path --------
+
+def _arnet_batch(dev, S=5, T=400, seed=4, R=0, per_series=False):
+    import numpy as np
+
+    from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
+
+    rng = np.random.default_rng(seed)
+    y = np.zeros((S, T))
+    for t in range(2, T):
+        y[:, t] = 0.5 * y[:, t - 1] - 0.2 * y[:, t - 2] + 0.3 * rng.normal(
+            size=S)
+    y += 20.0 * (1 + np.arange(S))[:, None]
+    mask = (rng.random((S, T)) > 0.05).astype(np.float32)
+    batch = SeriesBatch(
+        y=torch.tensor(y * mask, dtype=torch.float32, device=dev),
+        mask=torch.tensor(mask, device=dev),
+        day=torch.arange(T, dtype=torch.int32, device=dev) + 18000,
+        keys=np.arange(S)[:, None], key_names=("id",),
+        start_date="2019-04-14", freq="D")
+    xreg = None
+    if R:
+        shape = (S, T + 30, R) if per_series else (T + 30, R)
+        xreg = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev)
+    return batch, xreg
+
+
+ARNET_CASES = {"plain": {}, "shared_xreg": dict(R=2),
+               "per_series_xreg": dict(R=2, per_series=True)}
+
+
+@pytest.mark.parametrize("case", list(ARNET_CASES))
+def test_arnet_eager_path_equals_family_trainer_on_the_card(dev, case):
+    from distributed_forecasting_tpu_torch.engine import fit, gradfit
+    from distributed_forecasting_tpu_torch.models import arnet
+
+    for S in (3, 37):
+        batch, xreg = _arnet_batch(dev, S=S, **ARNET_CASES[case])
+        cfg = arnet.ArnetConfig(lags=7, epochs=5,
+                                n_regressors=0 if xreg is None else 2)
+        p_in, r_in = fit.fit_forecast(batch, "arnet", cfg, horizon=30,
+                                      xreg=xreg)
+        p_eg, r_eg = gradfit.gradfit_fit_forecast(
+            batch, config=cfg, horizon=30, xreg=xreg,
+            gcfg=gradfit.GradFitConfig(enabled=True, series_bucket=4))
+        assert p_in.w.device.type == dev.type
+        for name in ("yhat", "lo", "hi"):
+            assert torch.equal(getattr(r_eg, name), getattr(r_in, name))
+        assert torch.equal(p_eg.w, p_in.w) and torch.equal(p_eg.beta,
+                                                           p_in.beta)
+
+
+@pytest.mark.parametrize("case", list(ARNET_CASES))
+def test_arnet_bucket_growth_changes_nothing_on_the_card(dev, case):
+    from distributed_forecasting_tpu_torch.engine import gradfit
+    from distributed_forecasting_tpu_torch.models import arnet
+
+    batch, xreg = _arnet_batch(dev, S=5, **ARNET_CASES[case])
+    cfg = arnet.ArnetConfig(lags=7, epochs=5,
+                            n_regressors=0 if xreg is None else 2)
+    outs = [gradfit.gradfit_fit_forecast(
+        batch, config=cfg, horizon=30, xreg=xreg,
+        gcfg=gradfit.GradFitConfig(enabled=True, series_bucket=base))
+        for base in (8, 16, 64, 512)]
+    for params, res in outs[1:]:
+        assert torch.equal(params.w, outs[0][0].w)
+        assert torch.equal(res.yhat, outs[0][1].yhat)
+
+
+def test_arnet_one_seed_one_fit_and_rows_alone_on_the_card(dev):
+    import dataclasses as dc
+
+    from distributed_forecasting_tpu_torch.engine import fit
+    from distributed_forecasting_tpu_torch.models import arnet
+
+    batch, _ = _arnet_batch(dev, S=40, seed=5)
+    cfg = arnet.ArnetConfig(lags=7, epochs=4, seed=1)
+    full, rf = fit.fit_forecast(batch, "arnet", cfg, horizon=30)
+    again, ra = fit.fit_forecast(batch, "arnet", cfg, horizon=30)
+    assert torch.equal(full.w, again.w) and torch.equal(rf.hi, ra.hi)
+    for n in (1, 2, 17):
+        sub = dc.replace(batch, y=batch.y[:n], mask=batch.mask[:n],
+                         keys=batch.keys[:n])
+        p, r = fit.fit_forecast(sub, "arnet", cfg, horizon=30)
+        assert torch.equal(p.w, full.w[:n])
+        assert torch.equal(r.hi, rf.hi[:n])
+
+
+def test_arnet_card_equals_cpu_on_one_schedule(dev):
+    """The same injected schedule trains both: within float32 of each
+    other (the CPU-vs-reference tolerances of test_torch_arnet.py)."""
+    import numpy as np
+
+    from distributed_forecasting_tpu_torch.engine import gradfit
+    from distributed_forecasting_tpu_torch.models import arnet
+
+    batch, xreg = _arnet_batch(dev, S=8, R=2, per_series=True)
+    cfg = arnet.ArnetConfig(lags=7, epochs=8, n_regressors=2)
+    sched = gradfit.minibatch_schedule(
+        torch.Generator().manual_seed(0), 400, 64, 8)
+    xh = xreg[:, :400]
+    card = arnet.fit(batch.y, batch.mask, batch.day, cfg, xreg=xh,
+                     schedule=sched.to(dev))
+    cpu = arnet.fit(batch.y.cpu(), batch.mask.cpu(), batch.day.cpu(), cfg,
+                    xreg=xh.cpu(), schedule=sched)
+    np.testing.assert_allclose(card.w.cpu().numpy(), cpu.w.numpy(), atol=2e-5)
+    scale = cpu.fitted.abs().amax(1, keepdim=True)
+    assert bool(((card.fitted.cpu() - cpu.fitted).abs()
+                 <= 2e-5 * scale + 1e-7).all())
+
+
+def test_monte_carlo_on_the_card_equals_cpu_on_the_same_draws(dev):
+    """Draws made once on the CPU, handed to both: paths' bands and
+    quantiles within 1e-5 of each row's scale (the analytic path's card
+    tolerance), the quantiles taken along the sample axis on the card."""
+    from distributed_forecasting_tpu_torch import data, engine
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
+
+    df = data.synthetic_store_item_sales(n_stores=2, n_items=8, n_days=400,
+                                         seed=3)
+    card = data.tensorize(df, device=dev)
+    cpu = data.tensorize(df, device="cpu")
+    cfg = pg.CurveModelConfig(uncertainty_samples=300, yearly_order=0)
+    params_c, _ = engine.fit_forecast(cpu, "prophet", cfg, horizon=30)
+    params_g = type(params_c)(**{f.name: getattr(params_c, f.name).to(dev)
+                                 for f in dataclasses.fields(params_c)})
+    day_all = torch.arange(int(cpu.day[0]), int(cpu.day[-1]) + 31,
+                           dtype=torch.int32)
+    te = float(cpu.day[-1])
+    S = cpu.n_series
+    t_all = pg.scaled_time(day_all, params_c.t0, params_c.t1)
+    tes = (torch.tensor([[te]]) - params_c.t0) / (params_c.t1 - params_c.t0)
+    draws = pg.draw_standard((S, 300, 25), (S, 300, day_all.shape[0]),
+                             pg._cp_process(params_c, t_all, tes, cfg)[1],
+                             torch.Generator().manual_seed(2))
+    got = pg.forecast(params_g, day_all.to(dev), te, cfg,
+                      draws=tuple(d.to(dev) for d in draws))
+    want = pg.forecast(params_c, day_all, te, cfg, draws=draws)
+    for g, w in zip(got, want):
+        scale = w.abs().amax(1, keepdim=True)
+        assert bool(((g.cpu() - w).abs() <= 1e-5 * scale + 1e-6).all())
+    q = pg.forecast_quantiles(params_g, day_all.to(dev), te, cfg,
+                              (0.1, 0.5, 0.9),
+                              generator=torch.Generator(dev).manual_seed(0))
+    assert q.device.type == dev.type and bool(torch.isfinite(q).all())
+    assert bool((q[:, 0] <= q[:, 1]).all() and (q[:, 1] <= q[:, 2]).all())
+
+
+def test_tuned_cv_scores_on_the_card_equal_cpu(dev):
+    import numpy as np
+
+    from distributed_forecasting_tpu_torch import data
+    from distributed_forecasting_tpu_torch.engine import cv, hyper
+    from distributed_forecasting_tpu_torch.models import prophet_glm as pg
+
+    df = data.synthetic_store_item_sales(n_stores=2, n_items=3, n_days=400,
+                                         seed=5)
+    conf = cv.CVConfig(initial=250, period=60, horizon=30)
+    cfg = pg.CurveModelConfig(yearly_order=0)
+    scales = [torch.tensor(v) for v in ((0.01, 0.1, 0.4), (0.1, 1.0, 9.0),
+                                        (0.5, 2.0, 5.0))]
+    got = hyper._cv_scores(data.tensorize(df, device=dev), cfg, conf,
+                           *scales, "smape")
+    want = hyper._cv_scores(data.tensorize(df, device="cpu"), cfg, conf,
+                            *scales, "smape")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3)

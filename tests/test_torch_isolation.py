@@ -81,6 +81,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.engine.gradfit\n"
         "import distributed_forecasting_tpu_torch.engine.hyper\n"
         "import distributed_forecasting_tpu_torch.engine.windowed\n"
+        "import distributed_forecasting_tpu_torch.models.arnet\n"
+        "import distributed_forecasting_tpu_torch.ops.optim\n"
+        "import distributed_forecasting_tpu_torch.utils.rng\n"
         "import distributed_forecasting_tpu_torch.monitoring.cost\n"
         "import distributed_forecasting_tpu_torch.ops.clean\n"
         "import distributed_forecasting_tpu_torch.serving.forecast_cache\n"
@@ -122,6 +125,8 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
             {"alpha": np.ones(2, np.float32)}, device=d),
         "curve_params_from_numpy": lambda d: convert.curve_params_from_numpy(
             {"beta": np.ones((2, 3), np.float32)}, device=d),
+        "arnet_params_from_numpy": lambda d: convert.arnet_params_from_numpy(
+            {"w": np.ones((2, 3), np.float32)}, device=d),
         "regressors_for_grid": lambda d: data.regressors_for_grid(
             df.assign(p=1.0), day0=15706, n_days=10, regressor_cols=["p"],
             per_series=True, keys=np.array([[1, 1]]),

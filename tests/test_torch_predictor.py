@@ -128,7 +128,7 @@ def test_unknown_params_type_is_refused(tmp_path):
     np.savez(tmp_path / "p.npz", alpha=np.zeros(2, np.float32))
     with pytest.raises(ValueError, match="no counterpart"):
         tpred.load_params_npz(str(tmp_path / "p.npz"),
-                              "distributed_forecasting_tpu.models.arnet:ArnetParams",
+                              "distributed_forecasting_tpu.models.nope:NopeParams",
                               device="cpu")
 
 

@@ -23,7 +23,8 @@ series and cutoff (the point on the band's edge).
 One test per option the port does not run yet checks that it raises
 ``NotImplementedError`` naming its ROADMAP item; the options that came with
 the curve model's remaining entry points (``bucketed``, ``regressors``,
-``cv_artifact``) run there instead.  ``training.bucketed`` (on a ragged
+``cv_artifact``), and since slice 13 arnet (plain, allocated, in a pool)
+and ``tuning.enabled``, run there instead.  ``training.bucketed`` (on a ragged
 batch), ``training.regressors`` with ``inference.regressors`` and
 ``inference.quantiles``, and ``training.cv_artifact`` run train, deploy and
 inference through both packages at 2 x 4 x 400 days, the curve model
@@ -363,29 +364,34 @@ def ingested(tmp_path_factory):
     return root
 
 
-# arnet is the family still unported; arima's method: mle is its option
-# still unported.  Every case raises before the task reads its input.
+# arima's method: mle is the option still unported: it raises before the
+# task reads its input.  arnet (plain, allocated, in a pool) and the tuned
+# path run since slice 13.
 MLE = "P8, ArimaConfig.method='mle'"
+ARNET = {"lags": 7, "epochs": 3}
 
 
 @pytest.mark.parametrize("training, item", [
-    ({"path": "allocated", "model": "arnet"}, "P8"),
-    ({"model": "auto", "model_conf": {"families": ["holt_winters",
-                                                   "arnet"]}}, "P8"),
+    ({"path": "allocated", "model": "arnet", "model_conf": ARNET}, None),
+    ({"model": "auto", "model_conf": {"families": ["holt_winters", "arnet"],
+                                      "configs": {"arnet": ARNET}}}, None),
     ({"model": "blend", "calibrate_intervals": True,
-      "model_conf": {"families": ["croston", "arnet"]}}, "P8"),
+      "model_conf": {"families": ["croston", "arnet"],
+                     "configs": {"arnet": ARNET}}}, None),
     ({"model": "arima", "model_conf": {"method": "mle"}}, MLE),
     ({"model": "blend", "model_conf": {"families": ["croston", "theta",
-                                                     "arnet"]}}, "P8"),
-    ({"tuning": {"enabled": True}}, "P8"),
+                                                     "arnet"],
+                                       "configs": {"arnet": ARNET}}}, None),
+    ({"tuning": {"enabled": True, "n_trials": 2}}, None),
     ({"bucketed": True}, None),
     ({"regressors": {"table": "hackathon.sales.promo", "columns": ["p"]}},
      None),
     ({"cv_artifact": True}, None),
     ({"model": "auto", "model_conf": {
         "families": ["holt_winters", "arnet"],
-        "configs": {"holt_winters": {"season_length": "auto"}}}}, "P8"),
-    ({"model": "arnet"}, "P8"),
+        "configs": {"holt_winters": {"season_length": "auto"},
+                    "arnet": ARNET}}}, None),
+    ({"model": "arnet", "model_conf": ARNET}, None),
     ({"path": "allocated", "model": "arima",
       "model_conf": {"method": "mle"}}, MLE),
     ({"model": "auto", "model_conf": {"configs": {"arima": {
@@ -395,7 +401,7 @@ MLE = "P8, ArimaConfig.method='mle'"
         "allocated_mle", "auto_mle"])
 def test_unported_training_options_raise(ingested, training, item):
     """An option still unported raises naming its ROADMAP item; the ported
-    ones (``item`` None) run.  A regressor table missing from the catalog
+    ones (``item`` None) run, every series healthy.  A regressor table missing from the catalog
     raises the catalog's own error, as in the reference."""
     task = ttasks.TrainTask(init_conf=_train_conf(ingested, **training),
                             device="cpu")
@@ -408,6 +414,9 @@ def test_unported_training_options_raise(ingested, training, item):
 
         with pytest.raises(TableNotFoundError):
             task.launch()
+    elif training.get("path") == "allocated":
+        # the allocated summary counts items, not failed series
+        assert task.launch()["n_items"] == 2
     else:
         assert task.launch()["n_failed"] == 0
 
@@ -440,22 +449,29 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
     ({"engine": {"windowed": {"enabled": True}}}, "P9"),
     ({"engine": {"autoprep": {"enabled": True, "outlier_threshold": 5.0}}},
      None),
-    ({"engine": {"gradfit": {"enabled": True}}}, "P8"),
+    ({"engine": {"gradfit": {"enabled": True, "series_bucket": 8}}}, None),
     ({"engine": {"automl": {"enabled": True}}}, "P8"),
 ], ids=["distributed", "bf16", "windowed", "autoprep", "gradfit", "automl"])
 def test_unported_task_blocks_raise(tmp_path, conf, item):
-    """Each unported block raises naming its item; ``engine.autoprep``
-    (``item`` None) is ported: the block arms the process-wide config."""
+    """Each unported block raises naming its item; ``engine.autoprep`` and
+    ``engine.gradfit`` (``item`` None) are ported: the block arms the
+    process-wide config."""
     from distributed_forecasting_tpu_torch.engine import autoprep as tap
+    from distributed_forecasting_tpu_torch.engine import gradfit as tgf
 
     init_conf = {"env": {"root": str(tmp_path)}, **conf}
     if item is None:
         try:
             ttasks.CatalogTask(init_conf=init_conf, device="cpu")
-            cfg = tap.autoprep_config()
-            assert cfg.enabled and cfg.outlier_threshold == 5.0
+            if "autoprep" in conf["engine"]:
+                cfg = tap.autoprep_config()
+                assert cfg.enabled and cfg.outlier_threshold == 5.0
+            else:
+                cfg = tgf.gradfit_config()
+                assert cfg.enabled and cfg.series_bucket == 8
         finally:
             tap.configure_autoprep(tap.AutoprepConfig())
+            tgf.configure_gradfit(tgf.GradFitConfig())
         return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1: {item}"):
@@ -1080,10 +1096,11 @@ def test_promote_refuses_a_nan_metric_and_bad_confs(blend_runs, tmp_path):
 
 def test_auto_with_default_families_raises_before_any_fit(tmp_path,
                                                           monkeypatch):
-    """The default pool runs through the port since arima came in; arnet,
-    the one reference family still unported, added to it is refused by the
-    train task, naming arnet alone, before the task reads its input (the
-    table here does not exist) or runs any CV pass."""
+    """Every reference family runs through the port since arnet came in: a
+    family the registry does not know, added to the default pool, is
+    refused by the train task, naming it alone, before the task reads its
+    input (the table here does not exist) or runs any CV pass; the pool
+    with arnet passes the checks and fails only at the read."""
     from distributed_forecasting_tpu_torch.engine import select as tselect
 
     calls = []
@@ -1092,21 +1109,22 @@ def test_auto_with_default_families_raises_before_any_fit(tmp_path,
     conf = {"env": {"root": str(tmp_path)},
             "input": {"table": "no.such.table"},
             "training": {"model": "auto", "model_conf": {
-                "families": [*tselect.DEFAULT_FAMILIES, "arnet"]}}}
-    with pytest.raises(NotImplementedError,
-                       match=r"'arnet' is not ported yet \(ROADMAP Queue 1: "
-                             r"P8\)") as err:
+                "families": [*tselect.DEFAULT_FAMILIES, "arnet", "nope"]}}}
+    with pytest.raises(KeyError, match=r"unknown model 'nope'") as err:
         ttasks.TrainTask(init_conf=conf, device="cpu").launch()
-    assert "arima" not in str(err.value)
+    assert "arima" not in str(err.value).split(";")[0]
     conf["training"] = {"model": "blend", "model_conf": {
-        "families": ["prophet", "arnet"]}}
-    with pytest.raises(NotImplementedError, match="'arnet'"):
+        "families": ["prophet", "nope"]}}
+    with pytest.raises(KeyError, match="'nope'"):
         ttasks.TrainTask(init_conf=conf, device="cpu").launch()
-    # the default pool itself passes the checks and fails only at the read
-    conf["training"] = {"model": "auto"}
-    with pytest.raises(Exception) as err:
-        ttasks.TrainTask(init_conf=conf, device="cpu").launch()
-    assert not isinstance(err.value, NotImplementedError)
+    # the default pool and arnet pass the checks and fail only at the read
+    from distributed_forecasting_tpu_torch.data import TableNotFoundError
+
+    for training in ({"model": "auto"}, {"model": "blend", "model_conf": {
+            "families": [*tselect.DEFAULT_FAMILIES, "arnet"]}}):
+        conf["training"] = training
+        with pytest.raises(TableNotFoundError):
+            ttasks.TrainTask(init_conf=conf, device="cpu").launch()
     assert calls == []
 
 
