@@ -274,11 +274,40 @@ is not 0:
               bound, its device events and the card's idle share;
               ``autoprep_batch`` on the host clock; the train task's wall
               time with the prep on and off
+ 14. draws    the paths that draw random numbers (``slice13_phase``):
+              arnet on both trainers, its CV pass and train task, a pool
+              with arnet, the Monte-Carlo curve model, the tuned path
+ 15. P8's end (``slice14_phase``) on the committed dataset.  (a) The
+              likelihood-gradient kernel (``arima_loglik_grad``,
+              csrc/arima_mle.cu) against its twin bit for bit, and its ssq,
+              ldet and n against arima_filter's bit for bit, at the fit
+              shape (2, 1, 1), the CV pass's 1,500 rows, d = 0, 10% more
+              cells masked, r = 4 and r = 9 (the shared-memory path); its
+              Jacobian against float64 autograd through the plain filter
+              (fit shape, r = 9) within 1e-3 of each row's scale or twice
+              float32 autograd's distance from it; ValueError at r = 70.  (b) fit_forecast and the CV pass with ``method:
+              mle`` with the counters set to 0 around them: 200 gradient
+              launches a fit (one an Adam step), arima_filter and
+              arima_predict launched; outputs finite; 20 series on their
+              last 365 days against the CPU within 1e-4 of scale; the HR and
+              MLE one-step in-sample MSE of every series side by side; the
+              train task with ``model_conf: {method: mle}`` through deploy
+              and inference; ``model: auto`` with an MLE arima.  (c) The
+              bf16 gate: the scan route's bf16 winners differ from float32
+              only inside the bf16 error measured on the two candidates;
+              HW train tasks gated and not under ``filter: scan`` and
+              ``auto`` (byte-equal: the kernel ignores the gate).  (d)
+              ``successive_halving_select`` at ``AutoMLConfig()``'s defaults
+              (hw_score launches in it), a 1e-3 s budget tripping the gate,
+              and the train task with ``engine.automl.enabled`` byte-equal
+              to the task without it.  (e) The kernel's CUDA-event median
+              beside its bound and serial chain, its twin once; the MLE
+              fit's wall time, device events, idle share and host syncs
 
 The line before the last lists the kernels (launches, error, times, bound;
 launches and error include phase 11's bucketed calls, phase 12's
 arima_predict launches through HTTP, /invocations and /detect_anomalies,
-and phase 13's train task);
+phase 13's train task, and phases 14-15's main paths and tasks);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -652,7 +681,8 @@ EVENT_KINDS = {
     "sort": ("Sort", "sort"),
     "memcpy/memset": ("Memcpy", "Memset"),
     "hand kernels": ("hw_score_kernel", "hw_filter_kernel",
-                     "arima_filter_kernel", "arima_predict_kernel"),
+                     "arima_filter_kernel", "arima_predict_kernel",
+                     "arima_loglik_grad_kernel"),
 }
 
 
@@ -5080,6 +5110,534 @@ def slice13_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 15: P8's end — arima method 'mle', the bf16 gate, the sweep --------
+
+# the kernel's Jacobian against torch.autograd through the plain filter in
+# float64 on the card, of each row's scale (its largest entry, at least 1):
+# within this, or within twice what float32 reverse mode (autograd through
+# the same filter in float32: the reference's own method) is off float64 on
+# the same inputs, whichever is larger.  Over 1,826 steps float32 itself is
+# off by up to ~0.35 of a row's scale at r = 9 on the committed dataset, in
+# forward and reverse mode alike (an H100); the CPU tests hold 5e-5 at
+# T = 120
+MLE_JAC_REL = 1e-3
+# card against CPU, the MLE fit: 20 series on their last 365 days and 50
+# Adam steps (the CPU copy runs the plain twin, a Python loop of ~60 small
+# ops a step); every output row within this of its scale.  logf, tanh and
+# the Adam scalars' division round differently on the two devices
+MLE_VS_CPU = (20, 365, 50)
+MLE_REL = 1e-4
+# the gradient step's dependent chain at r = 2: the filter's (~50 cycles,
+# ARIMA_CHAIN_CYCLES) and the tangent's behind it, ~100 cycles a step
+MLE_CHAIN_CYCLES = 100
+AUTOML_TRIP_BUDGET = 1e-3  # seconds: the gate closes after one evaluation
+
+
+def mle_args(port, y, mask, p: int, q: int, d: int = 1, seed: int = 0):
+    """The likelihood-gradient kernel's arguments on (y, mask): the centered
+    differenced series and coefficients from seeded unconstrained PACF
+    parameters (u ~ N(0, 0.25)), as an Adam iterate gives them."""
+    ar = port["arima"]
+    zc, zmask, _ = ar._centered(y, mask, d)
+    g = torch.Generator().manual_seed(seed)
+    u = (0.5 * torch.randn(y.shape[0], p + q, generator=g)).to(y.device)
+    return (zc.contiguous(), zmask.contiguous(),
+            ar._pacf_to_coef(u[:, :p]).contiguous(),
+            ar._pacf_to_coef(u[:, p:]).contiguous(), max(p, q + 1, 1))
+
+
+def autograd_jacobian(port, args, dtype) -> tuple:
+    """(d ssq, d ldet) by torch.autograd through the plain filter
+    (``_kalman_loglik_impl``) in ``dtype``, as float64."""
+    zc, zmask, phi, theta, r = args
+    ph = phi.to(dtype).requires_grad_(True)
+    th = theta.to(dtype).requires_grad_(True)
+    with torch.enable_grad():
+        out = port["arima"]._kalman_loglik_impl(zc.to(dtype), zmask.to(dtype),
+                                                ph, th, r)
+        jac = []
+        for i in range(2):
+            grads = torch.autograd.grad(out[i].sum(), [ph, th],
+                                        retain_graph=i == 0,
+                                        allow_unused=True)
+            jac.append(torch.cat([g if g is not None else torch.zeros_like(x)
+                                  for g, x in zip(grads, (ph, th))],
+                                 dim=1).double())
+    return tuple(jac)
+
+
+def jacobian_vs_autograd(port, args, got) -> dict:
+    """The kernel's Jacobians against float64 autograd through the plain
+    filter on the card, beside float32 autograd's distance from it."""
+    want = autograd_jacobian(port, args, torch.float64)
+    rev32 = autograd_jacobian(port, args, torch.float32)
+    worst, ref, ok = {}, {}, True
+    for name, w, r32 in zip(("dssq", "dldet"), want, rev32):
+        scale = w.abs().amax(dim=1).clamp_min(1.0)
+        rel = lambda a: float(((a - w).abs().amax(dim=1)  # noqa: E731
+                               / scale).max())
+        worst[name] = rel(getattr(got, name).double())
+        ref[name] = rel(r32)
+        ok &= worst[name] <= max(MLE_JAC_REL, 2 * ref[name])
+    return dict(max_rel_to_scale=worst, reverse_mode_f32_rel=ref,
+                limit=MLE_JAC_REL, **{"pass": ok})
+
+
+def mle_kernel_case(port, case: str, args, jacobian: bool = False) -> dict:
+    """arima_loglik_grad on ``args`` against its twin on the same inputs,
+    bit for bit, and its ssq, ldet and n against arima_filter's, bit for
+    bit; with ``jacobian`` its Jacobians against float64 autograd too.
+    Raises on a disagreement."""
+    kal = port["kalman"]
+    zc, zmask, phi, theta, r = args
+    got = kal.arima_loglik_grad(*args)
+    want = kal.arima_loglik_grad_reference(*args)
+    filt = kal.arima_filter(zc, zmask, None, None, phi, theta,
+                            torch.zeros(zc.shape[0], device=zc.device), r, 0)
+    torch.cuda.synchronize()
+    res = compare_bitwise({k: (g, w) for k, g, w in zip(
+        kal.LoglikGrad._fields, got, want)})
+    primal = compare_bitwise({k: (getattr(got, k), getattr(filt, k))
+                              for k in ("ssq", "ldet", "n")})
+    res.update(S=int(zc.shape[0]), T=int(zc.shape[1]), p=int(phi.shape[1]),
+               q=int(theta.shape[1]), r=r,
+               primal_equals_arima_filter=primal["pass"])
+    if jacobian:
+        res["jacobian_vs_autograd_f64"] = jacobian_vs_autograd(port, args, got)
+    emit("kernel_vs_twin", kernel="arima_loglik_grad", case=case, **res)
+    if not (res["pass"] and primal["pass"]
+            and res.get("jacobian_vs_autograd_f64", {"pass": True})["pass"]):
+        raise AssertionError(f"arima_loglik_grad disagrees: {case}")
+    return res
+
+
+def mle_kernel_cases(batch, port) -> dict:
+    """(a) The gradient kernel at the main path's shapes: the fit (2, 1, 1)
+    on 500 x 1,826, the CV pass's 1,500 rows with the cutoffs' train masks,
+    d = 0, 10% more cells masked, r = 4 (p = 4) and r = 9 (p = 9, the
+    shared-memory path); the Jacobian against float64 autograd at the fit
+    shape and at r = 9; the ValueError at r = 70."""
+    rng = np.random.default_rng(2)
+    drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
+                            .astype(np.float32)).to(batch.y.device)
+    full = batch.y * batch.mask
+    cv_y, cv_mask = cv_inputs(batch, port["cv"])
+    cases = {
+        "fit_211": (full, batch.mask, 2, 1, 1),
+        "cv_1500": (cv_y, cv_mask, 2, 1, 1),
+        "d0_201": (full, batch.mask, 2, 1, 0),
+        "masked_10pct": (full * drop, batch.mask * drop, 2, 1, 1),
+        "r4_400": (full, batch.mask, 4, 0, 1),
+        "warp_r9": (full, batch.mask, 9, 0, 1),
+    }
+    out = {}
+    for name, (y, m, p, q, d) in cases.items():
+        out[name] = mle_kernel_case(port, name, mle_args(port, y, m, p, q, d),
+                                    jacobian=name in ("fit_211", "warp_r9"))
+    big = mle_args(port, full[:4], batch.mask[:4], 70, 0)
+    try:
+        port["kalman"].arima_loglik_grad(*big)
+    except ValueError as exc:
+        assert "limit of 64" in str(exc), exc
+        emit("kernel_refuses", kernel="arima_loglik_grad", r=70,
+             error=str(exc))
+    else:
+        raise AssertionError("arima_loglik_grad took r = 70")
+    return out
+
+
+def mle_main_path(port, batch) -> dict:
+    """(b) The MLE main path: fit_forecast(model="arima", method="mle") at
+    the default (2, 1, 1) and 200 steps, then its CV pass (1,500 rows),
+    each timed on the host clock to a synchronize."""
+    engine, ar = port["engine"], port["arima"]
+    cfg = ar.ArimaConfig(method="mle")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, result = engine.fit_forecast(batch, "arima", config=cfg,
+                                         horizon=90)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = engine.cross_validate(batch, "arima", config=cfg,
+                                    cv=engine.CVConfig(**CV))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(cfg=cfg, params=params, result=result, metrics=metrics,
+                fit_seconds=t1 - t0, cv_seconds=t2 - t1)
+
+
+def check_mle_outputs(run, batch) -> dict:
+    """Every parameter finite, the coefficients stationary and moved off
+    u = 0, every series' forecast finite with lo <= yhat <= hi, 3 CV
+    cutoffs with finite metrics."""
+    p, res = run["params"], run["result"]
+    for f in dataclasses.fields(p):
+        assert torch.isfinite(getattr(p, f.name)).all(), f.name
+    assert tuple(p.phi.shape) == (batch.n_series, 2)
+    assert float(p.phi.abs().max()) > 1e-2
+    assert bool(res.ok.all()) and torch.isfinite(res.yhat).all()
+    assert bool((res.lo <= res.yhat).all() and (res.yhat <= res.hi).all())
+    m = run["metrics"]
+    assert m["_n_cutoffs"] == 3
+    means = {k: float(m[k].mean()) for k in ("smape", "mae", "coverage")}
+    assert all(np.isfinite(v) for v in means.values()), means
+    out = dict(n_failed=int((~res.ok).sum()), cv_means=means,
+               phi_mean=p.phi.mean(0).tolist(),
+               theta_mean=p.theta.mean(0).tolist())
+    emit("arima_mle_outputs", **out)
+    return out
+
+
+def mle_vs_cpu(port, batch) -> dict:
+    """20 series on their last 365 days, 50 Adam steps: the MLE fit and
+    forecast on the card and on the CPU (the plain twin), every output row
+    within MLE_REL of its scale."""
+    ar = port["arima"]
+    n, days, steps = MLE_VS_CPU
+    sub = batch.take_series(range(n))
+    y, mask = (x[:, -days:].contiguous() for x in (sub.y, sub.mask))
+    day = sub.day[-days:].contiguous()
+    cfg = ar.ArimaConfig(method="mle", fit_steps=steps)
+    day_all = torch.arange(int(day[0]), int(day[-1]) + 91, dtype=day.dtype,
+                           device=day.device)
+    t0 = time.perf_counter()
+    p_gpu = ar.fit(y, mask, day, cfg)
+    band_gpu = ar.forecast(p_gpu, day_all, None, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p_cpu = ar.fit(y.cpu(), mask.cpu(), day.cpu(), cfg)
+    band_cpu = ar.forecast(p_cpu, day_all.cpu(), None, cfg)
+    t2 = time.perf_counter()
+    pairs = [(f.name, getattr(p_gpu, f.name), getattr(p_cpu, f.name))
+             for f in dataclasses.fields(p_cpu)]
+    pairs += list(zip(("yhat", "lo", "hi"), band_gpu, band_cpu))
+    worst = {}
+    for k, a, b in pairs:
+        if not b.numel():
+            continue
+        rows = b.shape[0] if b.dim() and b.shape[0] == n else 1
+        a, b = a.cpu().reshape(rows, -1), b.reshape(rows, -1)
+        err = (a - b).abs().amax(dim=1)
+        scale = b.abs().amax(dim=1).clamp_min(1.0)
+        bad = err > MLE_REL * scale
+        assert not bad.any(), (k, err[bad].tolist(), scale[bad].tolist())
+        worst[k] = float((err / scale).max())
+    res = dict(series=n, days=days, fit_steps=steps, limit=MLE_REL,
+               max_rel_to_scale=worst, card_seconds=t1 - t0,
+               cpu_seconds=t2 - t1)
+    emit("arima_mle_gpu_vs_cpu_20_series", **res)
+    return res
+
+
+def hr_vs_mle(port, batch, mle_params) -> dict:
+    """The one-step in-sample MSE of the HR and the MLE fit of every series
+    (observed days after the first 5, as the reference's quality test
+    compares them), beside each other."""
+    hr_params, _ = port["engine"].fit_forecast(batch, "arima", horizon=90)
+    y, m = batch.y, batch.mask
+
+    def mse(p):
+        e = ((p.fitted - y) ** 2 * m)[:, 5:].sum(1)
+        return (e / m[:, 5:].sum(1).clamp_min(1.0)).cpu().numpy()
+
+    e_hr, e_mle = mse(hr_params), mse(mle_params)
+    ratio = e_hr / e_mle
+    res = dict(series=int(len(e_hr)), median_mse_hr=float(np.median(e_hr)),
+               median_mse_mle=float(np.median(e_mle)),
+               ratio_hr_over_mle={"median": float(np.median(ratio)),
+                                  "p10": float(np.percentile(ratio, 10)),
+                                  "p90": float(np.percentile(ratio, 90)),
+                                  "max": float(ratio.max())},
+               share_hr_within_10pct=float((e_hr < 1.1 * e_mle).mean()),
+               share_mle_lower=float((e_mle < e_hr).mean()))
+    emit("arima_hr_vs_mle", **res)
+    return res
+
+
+def mle_tasks(port, batch, counters, card_line: str) -> dict:
+    """The train task with ``model: arima, model_conf: {method: mle}``
+    through deploy and inference (the registered artifact predicting the
+    inference table), then ``model: auto`` with ``configs: {arima:
+    {method: mle}}``; the launch counters set to 0 just before each train
+    task and read after (the gradient kernel launches once an Adam step)."""
+    out = {"launches": 0}
+    with tempfile.TemporaryDirectory() as root:
+        catalog, _, _ = _store(port, root)
+        catalog.save_table("hackathon.sales.raw", raw_table(batch))
+        for fn in counters.values():
+            fn.launches = 0
+        run = slice_tasks(port, root, dict(model="arima",
+                                           model_conf={"method": "mle"}), {})
+        launched = {k: fn.launches for k, fn in counters.items()}
+        steps = port["arima"].ArimaConfig().fit_steps
+        # the train task's CV pass and its full fit: one launch a step each;
+        # inference's forecast launches arima_predict
+        assert launched["arima_loglik_grad"] == 2 * steps, launched
+        assert launched["arima_filter"] >= 2 and launched["arima_predict"] >= 1
+        served = run["served"]
+        assert len(served) == batch.n_series * 90, len(served)
+        assert np.isfinite(served[["yhat", "yhat_lower", "yhat_upper"]]
+                           .to_numpy()).all()
+        keys = served[["store", "item"]].drop_duplicates()
+        got = run["registered"].predict(keys, horizon=90)
+        cols = ["ds", "store", "item", "yhat", "yhat_upper", "yhat_lower"]
+        pd.testing.assert_frame_equal(got[cols], served[cols],
+                                      check_dtype=False)
+        metrics = run["run"].metrics()
+        out["task"] = dict(seconds=run["seconds"],
+                           fit_seconds=metrics["fit_seconds"],
+                           val_smape=metrics["val_smape"],
+                           launches=launched, served_equals_registry=True)
+        out["launches"] += launched["arima_loglik_grad"]
+        emit("arima_mle_task", card=card_line, **out["task"])
+
+        conf = slice13_conf(port, root, dict(
+            model="auto", model_conf={"configs": {"arima": {"method": "mle"}}},
+            experiment="auto_mle_forecasting"))
+        for fn in counters.values():
+            fn.launches = 0
+        sec, summary, run = prep_task(port, root, conf)
+        launched = {k: fn.launches for k, fn in counters.items()}
+        assert launched["arima_loglik_grad"] >= steps, launched
+        table = pd.read_parquet(run.artifact_path("series_metrics.parquet"))
+        assert np.isfinite(table["smape_arima"]).all()
+        chosen = table["chosen_model"].value_counts().to_dict()
+        out["auto"] = dict(seconds=sec, fit_seconds=summary["fit_seconds"],
+                           chosen=chosen, launches=launched,
+                           n_failed=summary["n_failed"])
+        out["launches"] += launched["arima_loglik_grad"]
+        emit("auto_mle", card=card_line, **out["auto"])
+    return out
+
+
+def bf16_gate(port, batch, card_line: str) -> dict:
+    """(c) The precision gate.  On the scan route: the bf16 and float32
+    score tables of the default grid, the fit with and without the gate
+    (winners the argmins of their tables; where they differ, the float32
+    gap between the two winners lies inside the bf16 error measured on
+    those two candidates), the refit float32.  Then the HW train task with
+    ``precision.bf16_scoring`` on and off, under ``filter: scan`` (runs to
+    its end) and under ``filter: auto`` (the hw_score kernel, which ignores
+    the gate: the forecast tables byte-equal)."""
+    hw, prec = port["hw"], port["precision"]
+    y, mask, day = batch.y, batch.mask, batch.day
+    cfg = hw.HoltWintersConfig(filter="scan")
+    A, B, G, P = hw._candidate_grid(cfg, device=y.device)
+    bf = torch.bfloat16
+
+    def scores(dt):
+        return hw._filter(y.to(dt), mask.to(dt), A.to(dt)[None],
+                          B.to(dt)[None], G.to(dt)[None], 7, "additive",
+                          P.to(dt)[None], keep_path=False)[1].float()
+
+    scoring_ms = {}
+    for name, dt in (("float32", torch.float32), ("bf16", bf)):
+        scores(dt)  # warm-up
+        scoring_ms[name] = once_ms(lambda: scores(dt))  # noqa: B023
+    m32, m16 = scores(torch.float32), scores(bf)
+    fits = {}
+    try:
+        for on in (False, True):
+            prec.configure_precision(prec.PrecisionConfig(bf16_scoring=on))
+            fits[on] = hw.fit(y, mask, day, cfg)
+    finally:
+        prec.configure_precision(prec.PrecisionConfig())
+    w32, w16 = m32.argmin(1), m16.argmin(1)
+    assert torch.equal(fits[False].alpha, A[w32])
+    assert torch.equal(fits[True].alpha, A[w16])
+    assert fits[True].fitted.dtype == torch.float32
+    rows = torch.arange(batch.n_series, device=y.device)
+    err = (m16 - m32).abs()
+    differ = w16 != w32
+    gap = m32[rows, w16] - m32[rows, w32]
+    inside = gap <= err[rows, w16] + err[rows, w32]
+    assert bool(inside[differ].all())
+    rel_err = (err / m32).amax(1)
+    out = dict(series=batch.n_series, candidates=int(A.shape[0]),
+               winners_differ=int(differ.sum()),
+               bf16_rel_err={"median": float(rel_err.median()),
+                             "max": float(rel_err.max())},
+               scan_scoring_ms=scoring_ms,
+               differ_inside_bf16_error=True)
+    tables, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        catalog, _, _ = _store(port, root)
+        catalog.save_table("hackathon.sales.raw", raw_table(batch))
+        try:
+            for filt in ("scan", "auto"):
+                for on in (False, True):
+                    conf = slice13_conf(port, root, dict(
+                        model="holt_winters", model_conf={"filter": filt},
+                        experiment=f"hw_{filt}_bf16_{on}"))
+                    conf["precision"] = {"bf16_scoring": on}
+                    sec, summary, _ = prep_task(port, root, conf)
+                    assert summary["n_failed"] == 0, summary
+                    seconds[f"{filt}_bf16_{on}"] = sec
+                    tables[filt, on] = catalog.read_table(FORECASTS).drop(
+                        columns=["training_date"])
+        finally:
+            prec.configure_precision(prec.PrecisionConfig())
+    pd.testing.assert_frame_equal(tables["auto", False], tables["auto", True],
+                                  check_exact=True)
+    a, b = (tables["scan", on]["yhat"].to_numpy().reshape(batch.n_series, -1)
+            for on in (False, True))
+    out.update(task_seconds=seconds, auto_byte_equal=True,
+               scan_series_changed=int((a != b).any(axis=1).sum()))
+    emit("bf16_gate", card=card_line, **out)
+    return out
+
+
+def automl_sweep(port, batch, counters, card_line: str) -> dict:
+    """(d) ``successive_halving_select`` with ``AutoMLConfig()``'s defaults
+    (six families, 3 rungs, eta 2, 64 series at rung 0) on the committed
+    dataset, the launch counters set to 0 just before it and read after
+    (hw_score must launch); the rung ladder, survivors and seconds; then a
+    1e-3 s budget trips the gate; then the train task with
+    ``engine.automl.enabled: true`` against the task without it: the
+    forecast tables byte-equal (the train task does not call the sweep)."""
+    sel, hyper = port["select"], port["hyper"]
+    cv = port["engine"].CVConfig(**CV)
+    cfg = hyper.AutoMLConfig()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = sel.successive_halving_select(batch, config=cfg, cv=cv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    assert launched["hw_score"] >= 1, launched
+    board = res.leaderboard
+    assert not res.budget_exhausted and len(res.survivors) == 1
+    rung0 = board[board.rung == 0]
+    assert sorted(rung0.family) == sorted(cfg.families)
+    assert set(rung0.n_series) == {min(cfg.base_series, batch.n_series)}
+    assert set(rung0.n_cutoffs) == {cfg.base_cutoffs}
+    assert board.rung.iloc[-1] == "final"
+    assert res.selection.assignment.shape == (batch.n_series,)
+    tripped = sel.successive_halving_select(
+        batch, config=hyper.AutoMLConfig(
+            budget_device_seconds=AUTOML_TRIP_BUDGET), cv=cv)
+    assert tripped.budget_exhausted and len(tripped.leaderboard) <= len(
+        cfg.families)
+    assert len(set(tripped.selection.chosen.tolist())) == 1
+    tables = []
+    with tempfile.TemporaryDirectory() as root:
+        catalog, _, _ = _store(port, root)
+        catalog.save_table("hackathon.sales.raw", raw_table(batch))
+        try:
+            for armed in (False, True):
+                conf = slice13_conf(port, root, {})
+                conf["engine"]["automl"]["enabled"] = armed
+                prep_task(port, root, conf)
+                assert hyper.automl_config().enabled is armed
+                tables.append(catalog.read_table(FORECASTS).drop(
+                    columns=["training_date"]))
+        finally:
+            hyper.configure_automl(hyper.AutoMLConfig())
+    pd.testing.assert_frame_equal(tables[0], tables[1], check_exact=True)
+    out = dict(
+        seconds=wall, spent_device_seconds=res.spent_device_seconds,
+        survivors=list(res.survivors), launches=launched,
+        leaderboard=board[["family", "rung", "n_series", "n_cutoffs",
+                           "mean_smape", "device_seconds"]].to_dict("records"),
+        chosen=res.selection.counts(),
+        tripped={"budget": AUTOML_TRIP_BUDGET, "rows": len(tripped.leaderboard),
+                 "chosen": tripped.selection.counts()},
+        task_byte_equal=True)
+    emit("automl_sweep", card=card_line, **out)
+    return out
+
+
+def mle_times(port, batch, card_line: str) -> dict:
+    """(e) The gradient kernel alone at the fit and CV shapes (CUDA events,
+    median of 5, each sample 5 back-to-back launches bound beforehand)
+    beside its bound and serial chain, its twin once; the MLE fit_forecast's
+    wall time (median of 3, host clock to a synchronize), its device events,
+    idle share and host syncs."""
+    kal, ar, engine = port["kalman"], port["arima"], port["engine"]
+    full = batch.y * batch.mask
+    k = {}
+    for name, (y, m) in (("fit", (full, batch.mask)),
+                         ("cv", cv_inputs(batch, port["cv"]))):
+        args = mle_args(port, y, m, 2, 1)
+        S, T = (int(d) for d in y.shape)
+        bound, by = bound_ms(kal.arima_loglik_grad_work(S, T, 2, 3))
+        launch, _ = kal._arima_loglik_grad_launcher(*args)
+        k[name] = {"shape": [S, T, 2, 3], "ms": cuda_ms(launch, inner=5),
+                   "bound_ms": bound, "bound_by": by,
+                   "serial_chain_ms": T * MLE_CHAIN_CYCLES / CLOCK_HZ * 1e3}
+        if name == "fit":
+            fit_args = args
+    twin = once_ms(lambda: kal.arima_loglik_grad_reference(*fit_args))
+    cfg = ar.ArimaConfig(method="mle")
+    fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
+        batch, "arima", config=cfg, horizon=90)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_forecast()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = idle_share(fit_forecast, top_n=8)
+    # 200 launches of the gradient kernel a fit: their spread, not the list
+    prof["kernel_ms"] = {name: {"count": len(v), "min": min(v),
+                                "median": statistics.median(v), "max": max(v)}
+                         for name, v in prof.get("kernel_ms", {}).items() if v}
+    t = {"kernel": k, "twin_ms": twin,
+         "fit_forecast_wall_s": statistics.median(walls),
+         "fit_forecast_walls_s": walls, "fit_forecast_profile": prof,
+         "fit_forecast_host_syncs": count_syncs(fit_forecast)}
+    emit("arima_mle_times", card=card_line, reps=REPS, statistic="median",
+         **t)
+    return t
+
+
+def slice14_phase(port, card_line: str) -> dict:
+    """Phase 15: P8's end on the committed dataset — arima ``method: mle``
+    on the likelihood-gradient kernel (its cases, the main path with every
+    launch counter set to 0 just before it and read just after, checks, 20
+    series against the CPU, HR beside MLE, the train task through deploy
+    and inference, ``model: auto`` with an MLE arima), the bf16 scoring
+    gate, and the successive-halving sweep."""
+    t_phase = time.perf_counter()
+    fs, kal = port["fs"], port["kalman"]
+    counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter,
+                "arima_filter": kal.arima_filter,
+                "arima_predict": kal.arima_predict,
+                "arima_loglik_grad": kal.arima_loglik_grad}
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
+    assert (batch.n_series, batch.n_time) == SHAPE
+    out = {"cases": mle_kernel_cases(batch, port)}
+    for fn in counters.values():  # counters to 0 just before the main path
+        fn.launches = 0
+    run = mle_main_path(port, batch)
+    launched = {k: fn.launches for k, fn in counters.items()}  # ... and after
+    steps = run["cfg"].fit_steps
+    emit("launches", path="arima_mle", **launched,
+         expected=f"arima_loglik_grad: {steps} per fit (one an Adam step), "
+                  f"{2 * steps} for fit_forecast + CV pass; arima_filter 2, "
+                  f"arima_predict 2")
+    assert launched["arima_loglik_grad"] == 2 * steps, launched
+    for k in ("arima_filter", "arima_predict"):
+        if launched[k] < 1:
+            raise AssertionError(f"the MLE path never launched {k}")
+    out["launches"] = dict(launched)
+    out["outputs"] = check_mle_outputs(run, batch)
+    emit("arima_mle_main", card=card_line, fit_seconds=run["fit_seconds"],
+         cv_seconds=run["cv_seconds"])
+    out["gpu_vs_cpu"] = mle_vs_cpu(port, batch)
+    out["hr_vs_mle"] = hr_vs_mle(port, batch, run["params"])
+    out["tasks"] = mle_tasks(port, batch, counters, card_line)
+    out["launches"]["arima_loglik_grad"] += out["tasks"]["launches"]
+    out["bf16"] = bf16_gate(port, batch, card_line)
+    out["automl"] = automl_sweep(port, batch, counters, card_line)
+    out["times"] = mle_times(port, batch, card_line)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase15", seconds=out["seconds"])
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -5092,6 +5650,10 @@ KERNELS = {
                      "distributed_forecasting_tpu/models/arima.py:224"),
     "arima_predict": ("distributed_forecasting_tpu_torch/csrc/arima_kalman.cu",
                       "distributed_forecasting_tpu/models/arima.py:587"),
+    # no Pallas origin: the reference's reverse-mode autodiff of its Kalman
+    # scan inside the MLE fit's Adam loop (jax.value_and_grad of nll_one)
+    "arima_loglik_grad": ("distributed_forecasting_tpu_torch/csrc/arima_mle.cu",
+                          "distributed_forecasting_tpu/models/arima.py:418"),
 }
 
 
@@ -5125,6 +5687,8 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.engine import autoprep
     from distributed_forecasting_tpu_torch.engine import gradfit
     from distributed_forecasting_tpu_torch.models import arnet
+    from distributed_forecasting_tpu_torch.engine import hyper, select
+    from distributed_forecasting_tpu_torch.ops import precision
 
     native_before = native_snapshot()
     card_line = card()
@@ -5142,7 +5706,7 @@ def main() -> int:
                 order=order, dataset=dataset, native=native,
                 quality=quality, batcher=batcher, server=server,
                 anomaly=anomaly, autoprep=autoprep, gradfit=gradfit,
-                arnet=arnet)
+                arnet=arnet, hyper=hyper, select=select, precision=precision)
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -5199,6 +5763,7 @@ def main() -> int:
     scorer = scorer_phase(port, card_line)
     prep = prep_phase(port, counters, card_line)
     rng_paths = slice13_phase(port, card_line)
+    p8_end = slice14_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -5218,7 +5783,8 @@ def main() -> int:
                               + complete["launches"][k]
                               + ragged["launches"][k]
                               + prep["launches"][k]
-                              + rng_paths["launches"][k]),
+                              + rng_paths["launches"][k]
+                              + p8_end["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -5230,13 +5796,20 @@ def main() -> int:
         rows[k] = dict(launches=(arima_out["launches"][k]
                                  + scorer["auto"]["launches"][k]
                                  + scorer["detect"]["auto"]["launches"][k]
-                                 + rng_paths["launches"][k]),
+                                 + rng_paths["launches"][k]
+                                 + p8_end["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in
                                        arima_out["cases"][k].values()),
                        ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],
                        bound_ms=timed["bound_ms"], bound_by=timed["bound_by"])
+    mt = p8_end["times"]["kernel"]["fit"]
+    rows["arima_loglik_grad"] = dict(
+        launches=p8_end["launches"]["arima_loglik_grad"],
+        max_abs_err=max(c["max_abs_err"] for c in p8_end["cases"].values()),
+        ms=mt["ms"], plain_ms=p8_end["times"]["twin_ms"],
+        bound_ms=mt["bound_ms"], bound_by=mt["bound_by"])
     emit("smoke", seconds=time.perf_counter() - t_start)
-    # no single PyTorch call runs either filter, so no library time
+    # no single PyTorch call runs a filter or its gradient: no library time
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": origin,
         **rows[k], "library_ms": None,

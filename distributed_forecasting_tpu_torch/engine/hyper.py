@@ -1,6 +1,7 @@
 """Vectorized hyperparameter search of the curve model, the AutoML path's
 equivalent (port of the reference's ``engine/hyper.py``: the
-``engine.automl`` conf block, ``HyperSearchConfig``, ``tune_curve_model``).
+``engine.automl`` conf block and its process-wide install,
+``HyperSearchConfig``, ``tune_curve_model``).
 
 The reference's AutoML notebook tunes each series with hyperopt TPE over
 ``changepoint_prior_scale``, ``seasonality_prior_scale``,
@@ -21,10 +22,10 @@ box.  A trial whose metric is non-finite scores +inf and never wins.
 The trials are drawn from a ``torch.Generator`` seeded ``search.seed``
 (``utils/rng.py``: held to the reference by distribution); the tuner also
 takes the standard draws themselves (``draws``), which is how the tests
-hand it the reference's.  The successive-halving sweep of the
-``engine.automl`` block is not ported (ROADMAP Queue 1: P8): its conf
-class is parsed here and ``enabled: true`` is refused by
-``tasks/common``.
+hand it the reference's.  The ``engine.automl`` block configures the
+cross-family successive-halving sweep,
+``engine/select.successive_halving_select``; ``tasks/common`` installs it
+with :func:`configure_automl`.
 """
 
 from __future__ import annotations
@@ -102,6 +103,23 @@ class AutoMLConfig:
             if f.name in conf and conf[f.name] is not None
         }
         return cls(**kwargs)
+
+
+_active_automl = AutoMLConfig()
+
+
+def configure_automl(conf) -> AutoMLConfig:
+    """Install the process-wide sweep config: an :class:`AutoMLConfig`, or
+    an ``engine.automl`` conf block parsed strictly."""
+    global _active_automl
+    cfg = (conf if isinstance(conf, AutoMLConfig)
+           else AutoMLConfig.from_conf(conf))
+    _active_automl = cfg
+    return cfg
+
+
+def automl_config() -> AutoMLConfig:
+    return _active_automl
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,9 +22,19 @@ The Kalman pass and the forecast recursion run on the card as hand-written
 CUDA kernels (``ops/kalman``); the sequential loops here are their plain
 twins, which the CPU runs.  ``kalman='pscan'`` runs the filter as a parallel
 prefix instead (``ops/pkalman``); its d = 1 integration is the sequential
-loop, as in the reference.  ``method='mle'`` (Adam on the exact likelihood)
-is not ported (ROADMAP Queue 1: P8).  Missing values take the predict-only
-branch of the filter, as state-space models handle gaps.
+loop, as in the reference.  Missing values take the predict-only branch of
+the filter, as state-space models handle gaps.
+
+``method='mle'`` fits the coefficients by ``fit_steps`` steps of Adam on the
+exact concentrated Gaussian likelihood plus a Gaussian prior on the
+unconstrained PACF parameters, every series at once (the reference vmaps
+one Adam per series; the update is elementwise and every row's count the
+same, so one Adam over the stacked rows is the same update).  The
+likelihood and its Jacobian come from one launch a step of
+``ops/kalman.arima_loglik_grad`` (forward-mode tangents of the sequential
+filter, whatever ``kalman`` says, as in the reference), carried into
+autograd by ``ops/kalman.KalmanLoglik``; the PACF map and the prior are
+plain autograd.
 """
 
 from __future__ import annotations
@@ -40,10 +50,12 @@ from distributed_forecasting_tpu_torch.models.base import (
     register_model,
 )
 from distributed_forecasting_tpu_torch.ops.kalman import (
+    KalmanLoglik,
     arima_filter,
     arima_predict,
     first_observed,
 )
+from distributed_forecasting_tpu_torch.ops.optim import adam
 from distributed_forecasting_tpu_torch.ops.pkalman import (
     parallel_kalman_filter,
 )
@@ -53,8 +65,6 @@ from distributed_forecasting_tpu_torch.ops.solve import (
 )
 
 _EPS = 1e-6
-_MLE_NOT_PORTED = ("ArimaConfig.method='mle' is not ported yet (ROADMAP "
-                   "Queue 1: P8, ArimaConfig.method='mle')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,14 +79,15 @@ class ArimaConfig:
     Q: int = 0
     m: int = 7
     interval_width: float = 0.95
-    # 'hr': closed-form Hannan-Rissanen.  'mle' (Adam on the exact Kalman
-    # likelihood) is not ported and raises
+    # 'hr': closed-form Hannan-Rissanen.  'mle': fit_steps steps of Adam on
+    # the exact Kalman likelihood (no seasonal terms)
     method: str = "hr"
     # long-AR order of the HR innovation estimate
     hr_ar_order: int = 20
-    # fields of the reference's 'mle' method, kept so its configs load
     fit_steps: int = 200
     learning_rate: float = 0.05
+    # Gaussian prior on the unconstrained (atanh-PACF) parameters: keeps MAP
+    # solutions off the stationarity boundary
     prior_scale: float = 1.0
     # final filtering pass: 'scan' the sequential filter (on the card the
     # arima_filter kernel); 'pscan' the associative-scan filter
@@ -179,18 +190,19 @@ def _shift(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _ta(ph, a):
-    """T a: (T a)_i = phi_i a_0 + a_{i+1}."""
-    return ph * a[:, :1] + _shift(a, 1)
+    """T a: (T a)_i = phi_i a_0 + a_{i+1} (over the last axis; leading axes
+    broadcast)."""
+    return ph * a[..., :1] + _shift(a, -1)
 
 
 def _tp(ph, P):
     """M = T P: M_il = phi_i P_0l + P_{i+1,l}."""
-    return ph[:, :, None] * P[:, :1, :] + _shift(P, 1)
+    return ph[..., :, None] * P[..., :1, :] + _shift(P, -2)
 
 
 def _tpt(ph, M):
     """T P T' from M = T P: N_ij = M_i0 phi_j + M_{i,j+1}."""
-    return M[:, :, :1] * ph[:, None, :] + _shift(M, 2)
+    return M[..., :, :1] * ph[..., None, :] + _shift(M, -1)
 
 
 def _init_cov(ph, RRt, n_iter: int = 30):
@@ -233,6 +245,79 @@ def _kalman_loglik_impl(z, mask, phi, theta, r: int):
         preds[:, t] = pred
         Fs[:, t] = F
     return ssq, ldet, n, preds, Fs, a, P
+
+
+def arima_loglik_grad_reference(zc, zmask, phi, theta, r: int):
+    """The plain twin of ``ops/kalman.arima_loglik_grad``: the sequential
+    Kalman filter of :func:`_kalman_loglik_impl` (the same operations: its
+    ssq, ldet and n are that filter's) and, carried beside it in forward
+    mode, one tangent (da, dP) per coefficient of (phi_1..phi_p,
+    theta_1..theta_q).  zc, zmask: (S, T); phi (S, p), theta (S, q).
+
+    A phi_i direction has dT = e_i e_0' (``dph`` one-hot), a theta_j
+    direction dR = e_j (``dRv`` one-hot); d(T X) = T dX + dph X_0. and
+    d(M T') = dM T' + M_.0 dph'.  An observed step adds dF = dP_00 (0 where
+    P_00 is floored), dv = -da_0, dK = (dM_.0 - K dF) / F, and the gain
+    terms' tangents to da and dP; a masked step takes the predict branch's.
+    Returns ``(ssq, ldet, n, dssq, dldet)``: (S,) each, and the Jacobians
+    (S, p + q) of ssq and ldet."""
+    S, T = zc.shape
+    p, q = phi.shape[1], theta.shape[1]
+    k = p + q
+    ph, Rv, RRt = _model(phi, theta, r)
+    eye = torch.eye(r, dtype=zc.dtype, device=zc.device)
+    dph = torch.cat([eye[:p], eye.new_zeros((q, r))]).expand(S, k, r)
+    dRv = torch.cat([eye.new_zeros((p, r)), eye[1:q + 1]]).expand(S, k, r)
+    ph1, Rv1 = ph[:, None], Rv[:, None]
+    dRRt = (dRv[..., :, None] * Rv1[..., None, :]
+            + Rv1[..., :, None] * dRv[..., None, :])
+
+    def tangent_tp(dP, P):
+        return _tp(ph1, dP) + dph[..., :, None] * P[:, None, :1, :]
+
+    def tangent_tpt(dM, M):
+        return (_tpt(ph1, dM) + M[:, None, :, :1] * dph[..., None, :]) + dRRt
+
+    P, dP = RRt, dRRt.expand(S, k, r, r)
+    for _ in range(30):  # _init_cov's iterations and their tangents
+        M, dM = _tp(ph, P), tangent_tp(dP, P)
+        P, dP = _tpt(ph, M) + RRt, tangent_tpt(dM, M)
+    a, da = zc.new_zeros((S, r)), zc.new_zeros((S, k, r))
+    ssq, ldet, n = zc.new_zeros(S), zc.new_zeros(S), zc.new_zeros(S)
+    dssq, dldet = zc.new_zeros((S, k)), zc.new_zeros((S, k))
+    obs = zmask > 0
+    for t in range(T):
+        ot = obs[:, t]
+        o1, o2, o3 = ot[:, None], ot[:, None, None], ot[:, None, None, None]
+        pred = a[:, 0]
+        F = torch.clamp_min(P[:, 0, 0], _EPS)
+        v = zc[:, t] - pred
+        dF = torch.where((P[:, 0, 0] > _EPS)[:, None], dP[..., 0, 0], 0.0)
+        dv = -da[..., 0]
+        M, dM = _tp(ph, P), tangent_tp(dP, P)
+        K = M[:, :, 0] / F[:, None]
+        dK = (dM[..., :, 0] - K[:, None] * dF[..., None]) / F[:, None, None]
+        Ta = _ta(ph, a)
+        dTa = _ta(ph1, da) + dph * a[:, None, :1]
+        P_pred, dP_pred = _tpt(ph, M) + RRt, tangent_tpt(dM, M)
+        K1 = K[:, None]
+        KK = K[:, :, None] * K[:, None, :]
+        a = torch.where(o1, Ta + K * v[:, None], Ta)
+        da = torch.where(o2, (dTa + dK * v[:, None, None])
+                         + K1 * dv[..., None], dTa)
+        P = torch.where(o2, P_pred - KK * F[:, None, None], P_pred)
+        dP = torch.where(o3, dP_pred - (
+            (dK[..., :, None] * K1[..., None, :]
+             + K1[..., :, None] * dK[..., None, :]) * F[:, None, None, None]
+            + KK[:, None] * dF[..., None, None]), dP_pred)
+        w = v * v / F
+        ssq = ssq + torch.where(ot, w, 0.0)
+        ldet = ldet + torch.where(ot, torch.log(F), 0.0)
+        n = n + zmask[:, t]
+        dssq = dssq + torch.where(
+            o1, (2.0 * v[:, None] * dv - w[:, None] * dF) / F[:, None], 0.0)
+        dldet = dldet + torch.where(o1, dF / F[:, None], 0.0)
+    return ssq, ldet, n, dssq, dldet
 
 
 def _integrate(y, mask, zhat, Fs, sigma2, y_first):
@@ -402,22 +487,59 @@ def _centered(y, mask, d: int):
     return (z - mean[:, None]) * zmask, zmask, mean
 
 
-def _check_method(config: ArimaConfig) -> None:
-    if config.method == "mle":
-        raise NotImplementedError(_MLE_NOT_PORTED)
-    if config.method != "hr":
-        raise ValueError(
-            f"unknown ARIMA fit method {config.method!r}; 'hr' or 'mle'")
+def _mle_nll(u, zc, zmask, p: int, q: int, r: int, prior_scale: float):
+    """(S,) concentrated Gaussian NLL plus the prior of the unconstrained
+    parameters u (S, p + q), differentiable in u."""
+    phi = _pacf_to_coef(u[:, :p])
+    theta = _pacf_to_coef(u[:, p:p + q])
+    ssq, ldet, n = KalmanLoglik.apply(zc, zmask, phi, theta, r)
+    n = torch.clamp_min(n, 1.0)
+    prior = 0.5 * torch.sum((u / prior_scale) ** 2, dim=1)
+    return (0.5 * n * torch.log(torch.clamp_min(ssq / n, _EPS))
+            + 0.5 * ldet + prior)
+
+
+def _mle_estimate(zc, zmask, config: ArimaConfig, r: int):
+    """``fit_steps`` steps of Adam (``ops/optim.adam``, the reference's
+    update) on :func:`_mle_nll` from u = 0, non-finite gradient entries
+    zeroed; no host sync inside the loop.  Returns the dense ``(phi (S, p),
+    theta (S, q))``."""
+    p, q = config.p, config.q
+    u = zc.new_zeros((zc.shape[0], p + q))
+    if p + q:
+        zc, zmask = zc.contiguous(), zmask.contiguous()
+        opt = adam(config.learning_rate)
+        state = opt.init({"u": u})
+        with torch.enable_grad():
+            for _ in range(config.fit_steps):
+                u.requires_grad_(True)
+                loss = _mle_nll(u, zc, zmask, p, q, r, config.prior_scale)
+                (g,) = torch.autograd.grad(loss.sum(), u)
+                g = torch.where(torch.isfinite(g), g, 0.0)
+                updates, state = opt.update({"u": g}, state)
+                u = u.detach() + updates["u"]
+    u = u.detach()
+    return _pacf_to_coef(u[:, :p]), _pacf_to_coef(u[:, p:p + q])
 
 
 def fit(y, mask, day, config: ArimaConfig) -> ArimaParams:
     """Fit every series at once.  y, mask: (S, T); day: (T,)."""
-    _check_method(config)
     ar_lags, ma_lags, p_eff, q_eff = _lag_sets(config)
     zc, zmask, mean = _centered(y, mask, config.d)
-    K = max(config.hr_ar_order, p_eff + q_eff + config.m)
-    phi, theta = _hannan_rissanen(zc, zmask, ar_lags, ma_lags, p_eff, q_eff,
-                                  K)
+    if config.method == "hr":
+        K = max(config.hr_ar_order, p_eff + q_eff + config.m)
+        phi, theta = _hannan_rissanen(zc, zmask, ar_lags, ma_lags, p_eff,
+                                      q_eff, K)
+    elif config.method == "mle":
+        if config.P or config.Q:
+            raise ValueError(
+                "seasonal (P, Q) terms require method='hr' — the MLE path's "
+                "PACF parameterization is dense in the lag order"
+            )
+        phi, theta = _mle_estimate(zc, zmask, config, _effective_r(config))
+    else:
+        raise ValueError(
+            f"unknown ARIMA fit method {config.method!r}; 'hr' or 'mle'")
     return _finalize(y, mask, day, config, phi, theta, mean, zc, zmask)
 
 

@@ -17,7 +17,10 @@ refits the winner, collecting the fitted path, with
 :func:`~distributed_forecasting_tpu_torch.ops.fused_scan.hw_filter`: on the
 card a CUDA kernel bitwise equal to :func:`_filter`, on the CPU
 :func:`_filter` itself.  So whichever pass 1 ran, the returned state is the
-product of the one step body :func:`_hw_step`.
+product of the one step body :func:`_hw_step`.  With the ``precision``
+gate on (``ops/precision``), the ``scan`` and ``pscan`` scoring passes run
+in bf16 and their MSEs come back as float32; the kernel's scoring ignores
+the gate, as the reference's Pallas route does.
 
 Missing observations (mask == 0) take the predict-only branch, which still
 advances the level by ``phi * trend``.  Forecast intervals use the HW(A,A)
@@ -44,6 +47,7 @@ from distributed_forecasting_tpu_torch.ops.fused_scan import (
     hw_score,
     select_filter,
 )
+from distributed_forecasting_tpu_torch.ops.precision import scoring_dtype
 from distributed_forecasting_tpu_torch.ops.pscan import affine_scan
 
 _EPS = 1e-6
@@ -188,13 +192,18 @@ def _affine_elems(y, mask, alpha, beta, gamma, m, phi=1.0):
     """The additive HW update as per-step affine maps ``x_t = A_t x_{t-1} +
     c_t`` over the state x = [l, b, s_0..s_{m-1}] (d = m + 2), for every
     row: y, mask (S, T); alpha/beta/gamma/phi scalars or (S,).  Returns
-    (A (T, S, d, d), c (T, S, d), x0 (S, d), e (T, m) one-hot slots)."""
+    (A (T, S, d, d), c (T, S, d), x0 (S, d), e (T, m) one-hot slots).
+
+    The slot one-hots and the predict map are float32 whatever y's type, as
+    the reference's ``jnp.eye`` / ``jnp.zeros`` are: with bf16 inputs (the
+    precision gate) the maps come out float32 by type promotion, from
+    bf16-rounded parameters, and x0 stays bf16."""
     S, T = y.shape
     dev, dt = y.device, y.dtype
     d = m + 2
     as_lane = lambda x: torch.as_tensor(x, dtype=dt, device=dev).expand(S)  # noqa: E731
     a, be, g, f = (as_lane(x)[None, :, None] for x in (alpha, beta, gamma, phi))
-    eye_m = torch.eye(m, dtype=dt, device=dev)
+    eye_m = torch.eye(m, dtype=torch.float32, device=dev)
     e = eye_m[torch.arange(T, device=dev) % m]               # (T, m)
     es = e[:, None, :].expand(T, S, m)
     full = lambda v: v.expand(T, S, 1)  # noqa: E731
@@ -215,7 +224,7 @@ def _affine_elems(y, mask, alpha, beta, gamma, m, phi=1.0):
     yt = y.t()[..., None]                                     # (T, S, 1)
     c_obs = torch.cat([a * yt, a * be * yt, es * (g * (1 - a) * yt)], dim=2)
 
-    A_pred = torch.zeros((S, d, d), dtype=dt, device=dev)
+    A_pred = torch.zeros((S, d, d), dtype=torch.float32, device=dev)
     A_pred[:, 0, 0] = 1.0
     A_pred[:, 0, 1] = f[0, :, 0]
     A_pred[:, 1, 1] = f[0, :, 0]
@@ -249,7 +258,7 @@ def parallel_filter(y, mask, alpha, beta, gamma, m, phi=1.0):
     alpha/beta/gamma/phi scalars or (S,).  Returns ``((l, b, s), mse,
     preds)`` as :func:`_filter` does, within float tolerance of it."""
     A, c, x0, e = _affine_elems(y, mask, alpha, beta, gamma, m, phi)
-    states = affine_scan(A, c, x0)                            # (T, S, d)
+    states = affine_scan(A, c, x0.to(A.dtype))                # (T, S, d)
     return _filter_outputs(states, x0, e, y, mask, phi)
 
 
@@ -284,13 +293,20 @@ def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
     which = config.filter
     if which == "auto":
         which = select_filter(y.device.type) if mode == "additive" else "scan"
+    # the precision gate (ops/precision): bf16 scoring on the scan and pscan
+    # routes only; the argmin is its one consumer, the refit stays float32
+    sd = scoring_dtype()
+    scored = (y, mask, A, B, G, P)
+    if sd is not None and which in ("scan", "pscan"):
+        scored = tuple(x.to(sd) for x in scored)
+    sy, smask, sA, sB, sG, sP = scored
     if which == "pallas":
         if mode != "additive":
             raise ValueError("filter='pallas' supports additive seasonality only")
         msec = hw_score(y, mask, A, B, G, P, m)  # (S, C)
     elif which == "scan":
-        _, msec, _ = _filter(y, mask, A[None], B[None], G[None], m, mode,
-                             P[None], keep_path=False)
+        _, msec, _ = _filter(sy, smask, sA[None], sB[None], sG[None], m, mode,
+                             sP[None], keep_path=False)
     elif which == "pscan":
         if mode != "additive":
             raise ValueError(
@@ -300,7 +316,7 @@ def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
         # one candidate at a time: the (T, S, d, d) maps of all C candidates
         # at once would take C times the memory
         msec = torch.stack([
-            parallel_filter(y, mask, A[c], B[c], G[c], m, P[c])[1]
+            parallel_filter(sy, smask, sA[c], sB[c], sG[c], m, sP[c])[1]
             for c in range(A.shape[0])], dim=1)
     else:
         raise ValueError(
@@ -308,7 +324,7 @@ def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
             f"'scan', 'pscan', 'pallas', or 'auto'"
         )
 
-    best = torch.argmin(msec, dim=1)  # (S,)
+    best = torch.argmin(msec.to(torch.float32), dim=1)  # (S,)
     a, b, g, p = A[best], B[best], G[best], P[best]
     (l, t, s), mse, fitted = hw_filter(y, mask, a, b, g, p, m, mode)
     return HWParams(

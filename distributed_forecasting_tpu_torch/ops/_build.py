@@ -53,7 +53,8 @@ def build(name: str, sources) -> str:
 
 # every kernel source, built into one library by one build call (ninja runs
 # one nvcc per source, in parallel)
-SOURCES = ["hw_score.cu", "hw_filter.cu", "arima_kalman.cu"]
+SOURCES = ["hw_score.cu", "hw_filter.cu", "arima_kalman.cu",
+           "arima_mle.cu"]
 
 
 _LIBRARY = None
@@ -87,7 +88,11 @@ def _load() -> ctypes.CDLL:
     lib.arima_predict_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
-    for name in ("hw_score", "hw_filter", "arima_filter", "arima_predict"):
+    lib.arima_loglik_grad_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    for name in ("hw_score", "hw_filter", "arima_filter", "arima_predict",
+                 "arima_loglik_grad"):
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]

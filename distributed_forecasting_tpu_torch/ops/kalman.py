@@ -7,12 +7,17 @@ forecast.  Both replace ``lax.scan`` loops of the reference's
 ``models/arima.py`` (no Pallas origin): in eager PyTorch a scan is a Python
 loop of some twenty launches a step, so the kernels (``csrc/arima_kalman.cu``,
 one thread a series; the note at its top gives the design and the bound)
-take their place on the card.
+take their place on the card.  :func:`arima_loglik_grad` is the MLE fit's
+likelihood and its Jacobian with respect to the coefficients, in forward
+mode (``csrc/arima_mle.cu``, one thread a (series, coefficient)), where the
+reference differentiates its scan in reverse; :class:`KalmanLoglik` carries
+it into autograd.
 
 On a CUDA tensor each wrapper launches its kernel or raises (an r beyond the
 kernels' limit raises ``ValueError``); on a CPU tensor it runs its plain twin
 from ``models/arima`` (``_kalman_loglik_impl`` and ``_integrate``,
-``_predict_path``).  The kernels are bitwise equal to the twins on the card.
+``_predict_path``, ``arima_loglik_grad_reference``).  The kernels are
+bitwise equal to the twins on the card.
 """
 
 from __future__ import annotations
@@ -226,6 +231,116 @@ def arima_predict(phi, theta, a0, P0, sigma2, r: int, H: int):
     return out
 
 
+class LoglikGrad(NamedTuple):
+    """What :func:`arima_loglik_grad` returns."""
+
+    ssq: torch.Tensor    # (S,) sum of squared standardized innovations
+    ldet: torch.Tensor   # (S,) sum of log innovation variances
+    n: torch.Tensor      # (S,) observed steps
+    dssq: torch.Tensor   # (S, p + q) d ssq / d (phi, theta)
+    dldet: torch.Tensor  # (S, p + q) d ldet / d (phi, theta)
+
+
+def arima_loglik_grad_work(S: int, T: int, r: int, k: int) -> tuple:
+    """(float32 operations, bytes) of the least work of one
+    :func:`arima_loglik_grad` call: the primal filter once a row (as
+    :func:`arima_filter_work` counts it without the outputs: 8 r^2 + 5 r + 8
+    a step, 5 r^2 an iteration of P0) and each of the k tangents (T dP, dT P
+    and their sums 4 r^2, the same for d(T P T') 4 r^2, dRR' 3 r^2, the gain
+    terms 8 r^2; dK 3 r, dT a + T da 4 r, the update 4 r; dF, dv and the two
+    sums 12 a step; 11 r^2 an iteration of P0); zc and zmask read once, the
+    coefficients read once, the three (S,) and two (S, k) outputs written
+    once."""
+    primal = S * (T * (8 * r * r + 5 * r + 8) + 30 * 5 * r * r)
+    tangent = S * k * (T * (19 * r * r + 11 * r + 12) + 30 * 11 * r * r)
+    return primal + tangent, 4 * (2 * S * T + S * k + 3 * S + 2 * S * k)
+
+
+def arima_loglik_grad_reference(zc, zmask, phi, theta, r: int) -> LoglikGrad:
+    """The plain twin of :func:`arima_loglik_grad`
+    (``models/arima.arima_loglik_grad_reference``)."""
+    from distributed_forecasting_tpu_torch.models import arima
+
+    return LoglikGrad(*arima.arima_loglik_grad_reference(zc, zmask, phi,
+                                                         theta, r))
+
+
+def _arima_loglik_grad_launcher(zc, zmask, phi, theta, r: int):
+    """Check, allocate and bind the likelihood-gradient kernel: returns
+    ``(launch, out)`` as :func:`_arima_filter_launcher` does; ``launch()``
+    counts on ``arima_loglik_grad.launches``."""
+    from distributed_forecasting_tpu_torch.ops._build import library
+
+    S, T = zc.shape
+    p, q = _coefficients(phi, theta, r)
+    dev = zc.device
+    _check("arima_loglik_grad", dev, {
+        "zc": (zc, (S, T)), "zmask": (zmask, (S, T)), "phi": (phi, (S, p)),
+        "theta": (theta, (S, q))})
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    out = LoglikGrad(new(S), new(S), new(S), new(S, p + q), new(S, p + q))
+    if S == 0:
+        return (lambda: None), out
+    lib = library()
+    tensors = (zc, zmask, phi, theta, *out)
+    args = [*map(_ptr, tensors), S, T, p, q, r, _stream(dev)]
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.arima_loglik_grad_launch(*args)
+        _raise_on("arima_loglik_grad", lib, err,
+                  f"S={S}, T={T}, p={p}, q={q}, r={r}")
+        arima_loglik_grad.launches += 1
+
+    launch.tensors = tensors
+    return launch, out
+
+
+def arima_loglik_grad(zc, zmask, phi, theta, r: int) -> LoglikGrad:
+    """The concentrated likelihood's pieces of every row of the centered
+    differenced series ``zc`` (mask ``zmask``) under its ARMA coefficients,
+    and their Jacobians with respect to the coefficients.
+
+    zc, zmask: (S, T); phi (S, p), theta (S, q); r the state dimension
+    (>= max(p, q + 1)).  Returns :class:`LoglikGrad`; its ssq, ldet and n
+    are :func:`arima_filter`'s.  CUDA tensors launch the kernel
+    (``csrc/arima_mle.cu``, bitwise equal to the twin) or raise; CPU tensors
+    run the twin :func:`arima_loglik_grad_reference`.
+    """
+    _coefficients(phi, theta, r)
+    if zc.device.type == "cpu":
+        return arima_loglik_grad_reference(zc, zmask, phi, theta, r)
+    if zc.device.type != "cuda":
+        raise ValueError(
+            f"arima_loglik_grad runs on cuda or cpu, got {zc.device}")
+    launch, out = _arima_loglik_grad_launcher(zc, zmask, phi, theta, r)
+    launch()
+    return out
+
+
+class KalmanLoglik(torch.autograd.Function):
+    """``(ssq, ldet, n)`` of :func:`arima_loglik_grad` as a differentiable
+    function of (phi, theta): the forward keeps the Jacobians, the backward
+    returns ``g_ssq dssq + g_ldet dldet`` split into phi's and theta's
+    columns (n does not depend on them)."""
+
+    @staticmethod
+    def forward(ctx, zc, zmask, phi, theta, r: int):
+        out = arima_loglik_grad(zc, zmask, phi.detach().contiguous(),
+                                theta.detach().contiguous(), r)
+        ctx.save_for_backward(out.dssq, out.dldet)
+        ctx.p = phi.shape[1]
+        ctx.mark_non_differentiable(out.n)
+        return out.ssq, out.ldet, out.n
+
+    @staticmethod
+    def backward(ctx, g_ssq, g_ldet, g_n):
+        dssq, dldet = ctx.saved_tensors
+        g = g_ssq[:, None] * dssq + g_ldet[:, None] * dldet
+        return None, None, g[:, :ctx.p], g[:, ctx.p:], None
+
+
 # launches of each CUDA kernel in this process (the CPU twins never count)
 arima_filter.launches = 0
 arima_predict.launches = 0
+arima_loglik_grad.launches = 0

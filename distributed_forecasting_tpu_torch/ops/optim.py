@@ -77,12 +77,14 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
               for k, g in grads.items()}
         nu = {k: b2 * state["nu"][k] + (1.0 - b2) * (g * g)
               for k, g in grads.items()}
-        # the reference computes the corrections in float32
+        # the reference computes the corrections in float32; they enter as
+        # Python numbers (float32 values), so a step on the card copies
+        # nothing to it and never waits for it
         c = torch.tensor(float(count), dtype=torch.float32)
-        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** c
-        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** c
-        updates = {k: -lr * (mu[k] / bc1.to(mu[k].device))
-                   / (torch.sqrt(nu[k] / bc2.to(mu[k].device)) + eps)
+        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
+        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
+        updates = {k: -lr * (mu[k] / bc1)
+                   / (torch.sqrt(nu[k] / bc2) + eps)
                    for k in mu}
         return updates, {"count": count, "mu": mu, "nu": nu}
 

@@ -90,7 +90,6 @@ from distributed_forecasting_tpu_torch.engine.select import (
     fit_forecast_auto,
 )
 from distributed_forecasting_tpu_torch.models import prophet_glm
-from distributed_forecasting_tpu_torch.models.arima import _MLE_NOT_PORTED
 from distributed_forecasting_tpu_torch.models.base import (
     MODEL_REGISTRY,
     get_model,
@@ -198,20 +197,6 @@ def _resolve_model_conf(model: str, model_conf: Optional[Dict[str, Any]],
                                        "order_metric")):
         out = resolve_order_conf(out, batch, cv_conf)
     return out
-
-
-def _refuse_unported_conf(model: str, model_conf, pool: tuple) -> None:
-    """Options of a ported family that the port does not run yet raise here,
-    before any data is read: arima's ``method: mle``, plain or as the
-    arima member of a pool."""
-    if model == "arima":
-        confs = [model_conf]
-    elif "arima" in pool:
-        confs = [((model_conf or {}).get("configs") or {}).get("arima")]
-    else:
-        confs = []
-    if any((c or {}).get("method") == "mle" for c in confs):
-        raise NotImplementedError(_MLE_NOT_PORTED)
 
 
 def _resolve_season_conf(
@@ -385,11 +370,9 @@ class TrainingPipeline:
             return self._tuned_stages(
                 source_table, output_table, model_conf, cv_conf, tuning,
                 experiment, horizon, key_cols, regressors, trace_dir)
-        # what the port does not run yet; every family of a pool is checked
-        # here, before any data is read
+        # every family of a pool is checked here, before any data is read
         pool = _pool_families(model, model_conf)
         require_models(pool or (model,))
-        _refuse_unported_conf(model, model_conf, pool)
         if bucketed and pool:
             raise ValueError(
                 f"training.bucketed is not supported together with "
@@ -987,7 +970,6 @@ class TrainingPipeline:
         item-level ``BatchForecaster`` (key ``item``)."""
         _check_cadence(freq, model, model_conf)
         get_model(model)  # an unported family raises before any read
-        _refuse_unported_conf(model, model_conf, ())
         df = self.catalog.read_table(source_table)
 
         item_df = df.groupby(["date", "item"], as_index=False)["sales"].sum()

@@ -24,12 +24,19 @@ the reference parses it (an unknown key or a bad value raises
   * ``engine.gradfit`` installs the process-wide gradfit config
     (``engine/gradfit.configure_gradfit``): armed, an arnet fit trains on
     the engine path;
+  * ``engine.automl`` installs the process-wide sweep config
+    (``engine/hyper.configure_automl``), which
+    ``engine/select.successive_halving_select`` reads; as in the reference,
+    the train task itself does not call the sweep;
+  * ``precision:`` installs the process-wide precision policy
+    (``ops/precision.configure_precision``) before any fit:
+    ``bf16_scoring: true`` scores the HW grid in bf16 on the scan and pscan
+    routes;
   * ``compile_cache:`` and ``pipeline:`` change no result (a compile cache,
     and an executor byte-identical to the serial path); they are logged as
     having no effect in the port yet (ROADMAP Queue 1: P11);
-  * ``distributed:``, ``precision: {bf16_scoring: true}`` and any
-    ``engine.{windowed, automl}`` with ``enabled: true`` change what runs;
-    they raise ``NotImplementedError`` naming their item.
+  * ``distributed:`` and ``engine.windowed`` with ``enabled: true`` change
+    what runs; they raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -45,8 +52,12 @@ from distributed_forecasting_tpu_torch.engine.compile_cache import (
 )
 from distributed_forecasting_tpu_torch.engine.executor import PipelineConfig
 from distributed_forecasting_tpu_torch.engine.gradfit import configure_gradfit
-from distributed_forecasting_tpu_torch.engine.hyper import AutoMLConfig
+from distributed_forecasting_tpu_torch.engine.hyper import configure_automl
 from distributed_forecasting_tpu_torch.engine.windowed import WindowedConfig
+from distributed_forecasting_tpu_torch.ops.precision import (
+    PrecisionConfig,
+    configure_precision,
+)
 from distributed_forecasting_tpu_torch.tracking import FileTracker, ModelRegistry
 from distributed_forecasting_tpu_torch.utils.config import parse_conf_args
 from distributed_forecasting_tpu_torch.utils.device import (
@@ -61,17 +72,22 @@ _DEFAULT_ROOT = "./dftpu_store"
 # module, the ROADMAP item porting it)
 _UNPORTED_ENGINE_BLOCKS = {
     "windowed": (WindowedConfig.from_conf, "engine/windowed.py", "P9"),
-    "automl": (AutoMLConfig.from_conf, "engine/select.py, engine/hyper.py",
-               "P8"),
 }
-_ENGINE_KEYS = frozenset(_UNPORTED_ENGINE_BLOCKS) | {"autoprep", "gradfit"}
-_PRECISION_KEYS = frozenset({"bf16_scoring"})
+# engine: blocks the port installs -> their configure function
+_ENGINE_INSTALLERS = {
+    "autoprep": configure_autoprep,
+    "gradfit": configure_gradfit,
+    "automl": configure_automl,
+}
+_ENGINE_KEYS = frozenset(_UNPORTED_ENGINE_BLOCKS) | frozenset(
+    _ENGINE_INSTALLERS)
 
 
 def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
-    """Parse every top-level block strictly; install ``engine.autoprep`` and
-    ``engine.gradfit``, refuse the blocks that would change what runs, and
-    log the result-neutral ones."""
+    """Parse every top-level block strictly; install ``precision``,
+    ``engine.autoprep``, ``engine.gradfit`` and ``engine.automl``, refuse
+    the blocks that would change what runs, and log the result-neutral
+    ones."""
     if conf.get("distributed"):
         raise NotImplementedError(
             "distributed: multi-process bring-up (parallel/*) is not ported "
@@ -87,17 +103,9 @@ def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
             logger.info("%s: accepted; %s is not ported, so the block has no "
                         "effect in the port yet (ROADMAP Queue 1: P11)",
                         block, what)
-    pr = conf.get("precision")
-    if pr is not None:
-        unknown = set(pr) - _PRECISION_KEYS
-        if unknown:
-            raise ValueError(
-                f"unknown precision conf key(s) {sorted(unknown)}; "
-                f"valid: {sorted(_PRECISION_KEYS)}")
-        if pr.get("bf16_scoring"):
-            raise NotImplementedError(
-                "precision.bf16_scoring: true (ops/precision.py) is not "
-                "ported yet (ROADMAP Queue 1: P8)")
+    # installed before any fit in launch(), as the reference does
+    if conf.get("precision") is not None:
+        configure_precision(PrecisionConfig.from_conf(conf["precision"]))
     eng = conf.get("engine")
     if eng is not None:
         unknown = set(eng) - _ENGINE_KEYS
@@ -110,10 +118,9 @@ def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
                 raise NotImplementedError(
                     f"engine.{name}.enabled: true ({module}) is not ported "
                     f"yet (ROADMAP Queue 1: {item})")
-        if eng.get("autoprep") is not None:
-            configure_autoprep(eng["autoprep"])
-        if eng.get("gradfit") is not None:
-            configure_gradfit(eng["gradfit"])
+        for name, install in _ENGINE_INSTALLERS.items():
+            if eng.get(name) is not None:
+                install(eng[name])
 
 
 class Task(ABC):

@@ -54,9 +54,9 @@ device.  Conf::
                                     # metric, seed, adaptive_rounds, ...
 
 ``model: arnet`` (also in a pool) trains by batched gradient descent
-(``engine/gradfit.py``; ``engine.gradfit`` arms its engine path).  Not
-ported yet, raising ``NotImplementedError`` naming its ROADMAP item before
-any data is read: arima's ``method: mle``.
+(``engine/gradfit.py``; ``engine.gradfit`` arms its engine path); arima's
+``method: mle`` (also in a pool) by Adam on the exact Kalman likelihood,
+its gradient a hand kernel on the card (``ops/kalman.arima_loglik_grad``).
 """
 
 from __future__ import annotations

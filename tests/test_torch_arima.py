@@ -285,10 +285,14 @@ def test_pacf_maps_match_reference():
 
 
 def test_unported_and_invalid_options_raise():
+    """Every option of the reference runs (``method='mle'`` since slice 14:
+    finite coefficients inside the stationary region, ``tests/
+    test_torch_arima_mle.py`` holds it to the reference); invalid ones raise
+    the reference's errors."""
     y, mask, day = (torch.from_numpy(a) for a in _series(S=2, T=60))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1: P8, ArimaConfig.method='mle'"):
-        ta.fit(y, mask, day, ta.ArimaConfig(method="mle"))
+    mle = ta.fit(y, mask, day, ta.ArimaConfig(method="mle", fit_steps=3))
+    assert torch.isfinite(mle.phi).all() and torch.isfinite(mle.fitted).all()
+    assert (ta._coef_to_pacf(mle.phi).abs() < 1).all()
     with pytest.raises(ValueError, match="unknown ARIMA fit method"):
         ta.fit(y, mask, day, ta.ArimaConfig(method="newton"))
     with pytest.raises(ValueError, match="m >= 1"):

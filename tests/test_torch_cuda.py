@@ -27,6 +27,10 @@ and a series trains alone as beside others.  On one injected schedule the
 card's fit is the CPU's within float32 (summation order and Adam's fused
 arithmetic differ).  The curve model's Monte-Carlo branch and the tuned
 path run on the card at small shapes against the CPU on the same draws.
+
+The MLE fit's likelihood-gradient kernel (``csrc/arima_mle.cu``) repeats
+its twin's float32 operations in order: held to it bit for bit, and its
+primal to ``arima_filter``'s.
 """
 
 import dataclasses
@@ -1172,3 +1176,99 @@ def test_tuned_cv_scores_on_the_card_equal_cpu(dev):
     want = hyper._cv_scores(data.tensorize(df, device="cpu"), cfg, conf,
                             *scales, "smape")
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3)
+
+
+# -- the MLE likelihood gradient (csrc/arima_mle.cu) ---------------------------
+#
+# The kernel repeats its twin's float32 operations in order (primal and
+# forward-mode tangents), with no contraction: held to the twin bit for bit,
+# and its primal to arima_filter's.
+
+def _mle_inputs(dev, S, p, q, T=300, seed=4):
+    from distributed_forecasting_tpu_torch.models import arima
+
+    y, mask = _workload(S, T, dev, seed=seed)
+    mask[0, :40] = 0.0
+    mask[1] = 0.0              # an all-masked row
+    mask[2] = 0.0
+    mask[2, T // 2] = 1.0      # one observation
+    zc, zmask, _ = arima._centered(y * mask, mask, 1)
+    g = torch.Generator().manual_seed(seed)
+    u = 0.5 * torch.randn(S, p + q, generator=g)
+    u[3, :1] = 2.0             # |PACF| 0.96: near the stationarity boundary
+    phi = arima._pacf_to_coef(u[:, :p]).to(dev)
+    theta = arima._pacf_to_coef(u[:, p:]).to(dev)
+    return zc.contiguous(), zmask.contiguous(), phi, theta
+
+
+@pytest.mark.parametrize("p, q", [(2, 1), (4, 0), (0, 3), (9, 0)],
+                         ids=["r2", "r4", "r4_theta", "warp_r9"])
+def test_loglik_grad_kernel_equals_twin_bitwise(dev, p, q):
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    r = max(p, q + 1, 1)
+    zc, zmask, phi, theta = _mle_inputs(dev, 64, p, q)
+    before = kalman.arima_loglik_grad.launches
+    got = kalman.arima_loglik_grad(zc, zmask, phi, theta, r)
+    want = kalman.arima_loglik_grad_reference(zc, zmask, phi, theta, r)
+    torch.cuda.synchronize()
+    assert kalman.arima_loglik_grad.launches == before + 1
+    for name, g, w in zip(kalman.LoglikGrad._fields, got, want):
+        assert g.shape == w.shape and torch.equal(g, w), name
+    filt = kalman.arima_filter(zc, zmask, None, None, phi, theta,
+                               torch.zeros(64, device=dev), r, 0)
+    for name in ("ssq", "ldet", "n"):
+        assert torch.equal(getattr(got, name), getattr(filt, name)), name
+    assert not got.dssq[1].any() and torch.isfinite(got.dssq).all()
+
+
+def test_loglik_grad_kernel_refuses_an_r_past_its_limit(dev):
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    zc, zmask, phi, theta = _mle_inputs(dev, 4, 70, 0, T=50)
+    with pytest.raises(ValueError, match="limit of 64"):
+        kalman.arima_loglik_grad(zc, zmask, phi, theta, 70)
+
+
+def test_mle_fit_on_the_card_launches_the_kernel_each_step(dev):
+    """fit_forecast with method='mle' launches the gradient kernel once a
+    step and each arima kernel once; the card's fit is the CPU's within
+    float32 (the Adam scalars divide by reciprocal on the card)."""
+    from distributed_forecasting_tpu_torch.engine import fit
+    from distributed_forecasting_tpu_torch.models.arima import ArimaConfig
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    b = _pool_batch(dev)
+    cfg = ArimaConfig(method="mle", fit_steps=40)
+    before = kalman.arima_loglik_grad.launches
+    params, res = fit.fit_forecast(b, "arima", config=cfg, horizon=30)
+    torch.cuda.synchronize()
+    assert kalman.arima_loglik_grad.launches - before == 40
+    cpu = dataclasses.replace(b, y=b.y.cpu(), mask=b.mask.cpu(),
+                              day=b.day.cpu())
+    want_params, want = fit.fit_forecast(cpu, "arima", config=cfg, horizon=30)
+    torch.testing.assert_close(params.phi.cpu(), want_params.phi, rtol=0,
+                               atol=1e-4)
+    for name in ("yhat", "lo", "hi"):
+        w = getattr(want, name)
+        torch.testing.assert_close(getattr(res, name).cpu(), w, rtol=0,
+                                   atol=1e-3 * float(w.abs().max()))
+
+
+def test_bf16_gate_leaves_the_kernel_route_unchanged(dev):
+    """On the card ``filter: auto`` scores with hw_score, which ignores the
+    precision gate: the gated fit equals the ungated one bitwise."""
+    from distributed_forecasting_tpu_torch.ops import precision
+
+    y, mask = _workload(16, 200, dev)
+    day = torch.arange(16_000, 16_200, dtype=torch.int32, device=dev)
+    fits = {}
+    try:
+        for on in (False, True):
+            precision.configure_precision(
+                precision.PrecisionConfig(bf16_scoring=on))
+            fits[on] = hw.fit(y, mask, day, hw.HoltWintersConfig())
+    finally:
+        precision.configure_precision(precision.PrecisionConfig())
+    for f in ("alpha", "beta", "gamma", "level", "fitted"):
+        assert torch.equal(getattr(fits[False], f), getattr(fits[True], f)), f

@@ -83,6 +83,11 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.engine.windowed\n"
         "import distributed_forecasting_tpu_torch.models.arnet\n"
         "import distributed_forecasting_tpu_torch.ops.optim\n"
+        "import distributed_forecasting_tpu_torch.ops.precision\n"
+        "import distributed_forecasting_tpu_torch.ops.kalman\n"
+        "import distributed_forecasting_tpu_torch.models.arima\n"
+        "import distributed_forecasting_tpu_torch.engine.select\n"
+        "import distributed_forecasting_tpu_torch.engine.order\n"
         "import distributed_forecasting_tpu_torch.utils.rng\n"
         "import distributed_forecasting_tpu_torch.monitoring.cost\n"
         "import distributed_forecasting_tpu_torch.ops.clean\n"

@@ -364,10 +364,12 @@ def ingested(tmp_path_factory):
     return root
 
 
-# arima's method: mle is the option still unported: it raises before the
-# task reads its input.  arnet (plain, allocated, in a pool) and the tuned
-# path run since slice 13.
-MLE = "P8, ArimaConfig.method='mle'"
+# every training option of the reference now runs: arnet (plain, allocated,
+# in a pool) and the tuned path since slice 13, arima's method: mle (plain,
+# allocated, in a pool; few Adam steps: the CPU twin's filter is a Python
+# loop) since slice 14.  ``item`` names a ROADMAP item for an option that
+# would raise; none is left.
+MLE = {"method": "mle", "fit_steps": 5}
 ARNET = {"lags": 7, "epochs": 3}
 
 
@@ -378,7 +380,7 @@ ARNET = {"lags": 7, "epochs": 3}
     ({"model": "blend", "calibrate_intervals": True,
       "model_conf": {"families": ["croston", "arnet"],
                      "configs": {"arnet": ARNET}}}, None),
-    ({"model": "arima", "model_conf": {"method": "mle"}}, MLE),
+    ({"model": "arima", "model_conf": MLE}, None),
     ({"model": "blend", "model_conf": {"families": ["croston", "theta",
                                                      "arnet"],
                                        "configs": {"arnet": ARNET}}}, None),
@@ -392,16 +394,15 @@ ARNET = {"lags": 7, "epochs": 3}
         "configs": {"holt_winters": {"season_length": "auto"},
                     "arnet": ARNET}}}, None),
     ({"model": "arnet", "model_conf": ARNET}, None),
-    ({"path": "allocated", "model": "arima",
-      "model_conf": {"method": "mle"}}, MLE),
-    ({"model": "auto", "model_conf": {"configs": {"arima": {
-        "method": "mle"}}}}, MLE),
+    ({"path": "allocated", "model": "arima", "model_conf": MLE}, None),
+    ({"model": "auto", "model_conf": {"configs": {"arima": MLE}}}, None),
 ], ids=["allocated", "auto", "blend", "arima", "croston", "tuning",
         "bucketed", "regressors", "cv_artifact", "season_auto", "arnet",
         "allocated_mle", "auto_mle"])
 def test_unported_training_options_raise(ingested, training, item):
-    """An option still unported raises naming its ROADMAP item; the ported
-    ones (``item`` None) run, every series healthy.  A regressor table missing from the catalog
+    """An option still unported would raise naming its ROADMAP item; the
+    ported ones (``item`` None: all of them since arima's ``method: mle``)
+    run, every series healthy.  A regressor table missing from the catalog
     raises the catalog's own error, as in the reference."""
     task = ttasks.TrainTask(init_conf=_train_conf(ingested, **training),
                             device="cpu")
@@ -445,33 +446,58 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
 
 @pytest.mark.parametrize("conf, item", [
     ({"distributed": {"num_processes": 2}}, "P12"),
-    ({"precision": {"bf16_scoring": True}}, "P8"),
+    ({"precision": {"bf16_scoring": True}}, None),
     ({"engine": {"windowed": {"enabled": True}}}, "P9"),
     ({"engine": {"autoprep": {"enabled": True, "outlier_threshold": 5.0}}},
      None),
     ({"engine": {"gradfit": {"enabled": True, "series_bucket": 8}}}, None),
-    ({"engine": {"automl": {"enabled": True}}}, "P8"),
+    ({"engine": {"automl": {"enabled": True, "rungs": 2}}}, None),
 ], ids=["distributed", "bf16", "windowed", "autoprep", "gradfit", "automl"])
-def test_unported_task_blocks_raise(tmp_path, conf, item):
-    """Each unported block raises naming its item; ``engine.autoprep`` and
-    ``engine.gradfit`` (``item`` None) are ported: the block arms the
-    process-wide config."""
+def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
+    """Each unported block raises naming its item; ``precision``,
+    ``engine.autoprep``, ``engine.gradfit`` and ``engine.automl`` (``item``
+    None) are ported: the block arms the process-wide config.  As in the
+    reference, the train task does not call the sweep: armed, its forecast
+    is byte-equal to the unarmed one."""
     from distributed_forecasting_tpu_torch.engine import autoprep as tap
     from distributed_forecasting_tpu_torch.engine import gradfit as tgf
+    from distributed_forecasting_tpu_torch.engine import hyper as thyper
+    from distributed_forecasting_tpu_torch.ops import precision as tprec
 
     init_conf = {"env": {"root": str(tmp_path)}, **conf}
     if item is None:
         try:
             ttasks.CatalogTask(init_conf=init_conf, device="cpu")
-            if "autoprep" in conf["engine"]:
+            if "precision" in conf:
+                assert tprec.get_precision().bf16_scoring
+                assert tprec.scoring_dtype() is torch.bfloat16
+            elif "autoprep" in conf["engine"]:
                 cfg = tap.autoprep_config()
                 assert cfg.enabled and cfg.outlier_threshold == 5.0
-            else:
+            elif "gradfit" in conf["engine"]:
                 cfg = tgf.gradfit_config()
                 assert cfg.enabled and cfg.series_bucket == 8
+            else:
+                cfg = thyper.automl_config()
+                assert cfg.enabled and cfg.rungs == 2
+                tables = []
+                for armed in (False, True):
+                    thyper.configure_automl(thyper.AutoMLConfig())
+                    task_conf = _train_conf(ingested)
+                    if armed:
+                        task_conf.update(conf)
+                    task = ttasks.TrainTask(init_conf=task_conf, device="cpu")
+                    assert thyper.automl_config().enabled is armed
+                    task.launch()
+                    tables.append(task.catalog.read_table(
+                        "hackathon.sales.finegrain_forecasts").drop(
+                            columns=["training_date"]))
+                pd.testing.assert_frame_equal(tables[0], tables[1])
         finally:
             tap.configure_autoprep(tap.AutoprepConfig())
             tgf.configure_gradfit(tgf.GradFitConfig())
+            thyper.configure_automl(thyper.AutoMLConfig())
+            tprec.configure_precision(tprec.PrecisionConfig())
         return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1: {item}"):
