@@ -55,7 +55,12 @@ its own size:
     a seed: the prep program on the card against a CPU copy, and the train
     task from the shipped train_config.yml with ``engine.autoprep`` armed
     (Holt-Winters at ``season_length: auto``, then the curve model with
-    holiday regressors).
+    holiday regressors);
+  * streaming ingest: the serve task with ``serving.ingest`` on over
+    Holt-Winters, theta and croston artifacts of the committed dataset —
+    ``POST /ingest`` into the write-ahead log, the batched state update,
+    a forced background refit (for Holt-Winters ``hw_score`` over its
+    96-candidate grid, then ``hw_filter``) with its replay.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -303,11 +308,39 @@ is not 0:
               to the task without it.  (e) The kernel's CUDA-event median
               beside its bound and serial chain, its twin once; the MLE
               fit's wall time, device events, idle share and host syncs
+ 16. stream   streaming ingest (``slice15_phase``) on the committed
+              dataset.  (a) Holt-Winters (96 candidates), theta and croston
+              fit on the card with the counters set to 0 just before, each
+              registered with its history.npz sidecar; per family the
+              serve task (``ServeTask.server_args``, the shipped conf with
+              ``serving.ingest`` on, sync apply, refit on but only forced)
+              in this process: 60 days posted one a request (500 points),
+              a 30-day burst (15,000 points), then 10 days with a forced
+              refit whose snapshot is taken after the 5th, so the install
+              replays 5; after every POST /invocations (17 series) is
+              byte-equal to a mirror store fed the same points; the refit
+              launches hw_score and hw_filter once each (Holt-Winters) and
+              its install equals fit-then-update bit for bit; /metrics
+              counts what was posted.  (b) Bitwise on the card: k = 1, 7,
+              40 streamed days (40 through the store, across a time-bucket
+              boundary) equal the hw_filter fit of the extended series
+              (one pinned candidate); 30 days in one apply equal 30
+              applies of one day, and padding columns leave the carry, for
+              each family; two interval-mode followers of one WAL converge.
+              (c) 20 series streamed on the card and on the CPU from the
+              card's fit: states within 1e-5 of each row's scale, routing
+              counts equal.  (d) POST /ingest p50 / p95, apply_pending at
+              K 1 and at the burst (host wall, CUDA events, idle share), the
+              refit's wall time and both kernels at its shape,
+              /invocations for 500 series idle and during refits, and the
+              apply at 20,480 series at K 1 and at a bucket crossing with
+              peak device memory
 
 The line before the last lists the kernels (launches, error, times, bound;
 launches and error include phase 11's bucketed calls, phase 12's
 arima_predict launches through HTTP, /invocations and /detect_anomalies,
-phase 13's train task, and phases 14-15's main paths and tasks);
+phase 13's train task, phases 14-15's main paths and tasks, and phase 16's
+fit and forced refit);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -323,6 +356,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5638,6 +5672,700 @@ def slice14_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 16: streaming ingest (serving/ingest.py, engine/state_store.py,
+# serving/refit.py, ops/update.py, the serve task's serving.ingest block)
+
+STREAM_FAMILIES = ("holt_winters", "theta", "croston")
+STREAM_SEED = 17
+STREAM_DAILY = 60         # days posted one a request, every series each
+STREAM_BURST = 30         # then one request of 30 days
+STREAM_AROUND_REFIT = 10  # then 10 days, a forced refit snapshotting after 5
+STREAM_CHECKED = 17       # series each /invocations check asks for
+STREAM_HORIZON = 28
+STREAM_BUCKET = 32        # serving.ingest.time_bucket as shipped
+STREAM_PINNED_K = (1, 7, 40)
+STREAM_VS_CPU = 20        # series streamed on the card and on the CPU
+STREAM_TOL = 1e-5         # card vs CPU, of each row's scale
+STREAM_BIG = (40, 512)    # 20,480 series, as phase 11 builds them
+STREAM_LATENCY = 100      # sequential 500-series /invocations, each leg
+STREAM_APPLY_REPS = 5
+# no refit fires by itself during the run (the phase forces one), and the
+# 30-day burst (15,000 points) fits in one request
+STREAM_CONF = {"serving.ingest.enabled": True,
+               "serving.ingest.apply_mode": "sync",
+               "serving.ingest.max_points_per_request": 15000,
+               "serving.ingest.refit.enabled": True,
+               "serving.ingest.refit.max_applied_points": 10 ** 9,
+               "serving.ingest.refit.max_staleness_s": 1e9}
+
+
+def stream_tail(batch, days: int, seed: int = STREAM_SEED) -> np.ndarray:
+    """(S, days) held-out daily values after the grid: each series' value
+    52 weeks earlier (same weekday) times lognormal noise from ``seed``,
+    rounded as sales are."""
+    rng = np.random.default_rng(seed)
+    y = batch.y.cpu().numpy()
+    T = y.shape[1]
+    base = np.concatenate([y, np.zeros((y.shape[0], days), np.float32)], 1)
+    for j in range(days):
+        base[:, T + j] = np.round(base[:, T + j - 364]
+                                  * rng.lognormal(0.0, 0.1, y.shape[0]))
+    return base[:, T:].astype(np.float32)
+
+
+def day_points(fc, first_day: int, vals: np.ndarray) -> list:
+    """``/ingest`` records for days ``first_day ..`` of ``vals`` (S, k),
+    every series (the compact ``k`` / ``d`` form the WAL writes)."""
+    keys = fc.keys.tolist()
+    return [{"k": [int(v) for v in keys[s]], "d": first_day + j,
+             "y": float(vals[s, j])}
+            for j in range(vals.shape[1]) for s in range(vals.shape[0])]
+
+
+def store_points(first_day: int, vals: np.ndarray) -> list:
+    return [(s, first_day + j, float(vals[s, j]))
+            for j in range(vals.shape[1]) for s in range(vals.shape[0])]
+
+
+def stream_artifacts(port, root: str, batch) -> dict:
+    """Fit each streamed family on the committed dataset (Holt-Winters on
+    its 96-candidate grid: hw_score, then hw_filter), save the artifact
+    with its ``history.npz`` sidecar (the training y / mask, as whoever
+    registers a streamed model writes it) and register it in Staging."""
+    registry = port["tracking"].ModelRegistry(os.path.join(root, "registry"))
+    out = {}
+    for model in STREAM_FAMILIES:
+        fns = port["models"].get_model(model)
+        cfg = fns.config_cls()
+        t0 = time.perf_counter()
+        params = fns.fit(batch.y, batch.mask, batch.day, cfg)
+        fit_s = time.perf_counter() - t0
+        art = os.path.join(root, "artifacts", model)
+        port["serving"].BatchForecaster.from_fit(
+            batch, params, model, cfg).save(art)
+        np.savez(os.path.join(art, "history.npz"), y=batch.y.cpu().numpy(),
+                 mask=batch.mask.cpu().numpy())
+        name = f"Stream_{model}"
+        version = registry.register_model(name, art)
+        registry.transition_stage(name, version.version, "Staging")
+        out[model] = {"name": name, "artifact": art, "fit_seconds": fit_s}
+    return out
+
+
+def stream_serve_conf(port, root: str, model: str, name: str) -> tuple:
+    """The shipped serve conf with ``serving.ingest`` on (:data:`STREAM_CONF`),
+    the family's model, its own WAL and quality-store directories."""
+    conf = port["config"].load_conf(SERVE_CONF)
+    conf["env"] = {"root": root}
+    conf["serving"].update(model_name=name, host="127.0.0.1", port=0)
+    changed = {**STREAM_CONF,
+               "serving.ingest.wal_dir": os.path.join(root, f"wal_{model}"),
+               "monitoring.quality_store.directory":
+                   os.path.join(root, f"quality_{model}")}
+    for key, value in changed.items():
+        *path, last = key.split(".")
+        node = conf
+        for k in path:
+            node = node[k]
+        assert last in node, key  # only keys the shipped conf has
+        node[last] = value
+    changed.update({"env.root": root, "serving.model_name": name,
+                    "serving.host": "127.0.0.1", "serving.port": 0})
+    return conf, changed
+
+
+def _post_ms(number: int, path: str, payload) -> tuple:
+    t0 = time.perf_counter()
+    status, body, _ = http_call(number, "POST", path, payload)
+    return status, json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def _invocations(number: int, fc, idx) -> bytes:
+    req = {"inputs": _inputs(fc.keys[idx], fc.key_names),
+           "horizon": STREAM_HORIZON}
+    status, body, _ = http_call(number, "POST", "/invocations", req)
+    assert status == 200, body[:300]
+    return body
+
+
+def stream_served(port, root: str, model: str, art: dict, batch, tail,
+                  counters) -> dict:
+    """(a) One family behind the serve task: /ingest day by day, a burst,
+    then a forced refit in the middle of 10 more days.  A mirror (the same
+    artifact loaded again, its own state store fed the same points) says
+    what /invocations must answer after every apply; the refit's install
+    is recomputed as fit-then-update."""
+    serving, server = port["serving"], port["server"]
+    conf, changed = stream_serve_conf(port, root, model, art["name"])
+    task = port["serve_task"].ServeTask(init_conf=conf, device=DEVICE)
+    kw = task.server_args()
+    ingest = kw["ingest"]
+    assert ingest is not None and ingest.refit is not None
+    assert ingest.store.can_refit and kw["forecaster"].time_bucket == \
+        STREAM_BUCKET
+    srv = server.start_server(**kw)
+    number = srv.server_address[1]
+    fc = srv.forecaster
+    mirror_fc = serving.BatchForecaster.load(art["artifact"], device=DEVICE)
+    mirror = port["state_store"].SeriesStateStore(
+        mirror_fc, time_bucket=STREAM_BUCKET, history_y=batch.y.cpu().numpy(),
+        history_mask=batch.mask.cpu().numpy(), device=DEVICE)
+    S = fc.n_series
+    idx = np.linspace(0, S - 1, min(STREAM_CHECKED, S)).astype(int)
+    req = pd.DataFrame(fc.keys[idx], columns=list(fc.key_names))
+    encode = server._encode_predictions
+    day1 = int(fc.day1)
+    post_ms, checked, posted = [], 0, 0
+
+    def post_and_check(first: int, vals) -> dict:
+        nonlocal checked, posted
+        pts = day_points(fc, first, vals)
+        status, ack, ms = _post_ms(number, "/ingest", {"points": pts})
+        assert status == 200, ack
+        assert ack["written"] == len(pts), ack
+        assert ack["applied"]["days"] == first + vals.shape[1] - 1 - \
+            mirror.day_cur, ack
+        posted += len(pts)
+        mirror.ingest(store_points(first, vals))
+        mirror.apply_pending()
+        assert int(fc.day1) == mirror.day_cur
+        got = _invocations(number, fc, idx)
+        want = encode(mirror_fc.predict(req, horizon=STREAM_HORIZON),
+                      fc.key_names)
+        assert got == want, "/invocations does not reflect the apply"
+        checked += 1
+        return {"ms": ms, "ack": ack}
+
+    try:
+        j = 0
+        for _ in range(STREAM_DAILY):
+            post_ms.append(post_and_check(day1 + 1 + j, tail[:, j:j + 1])["ms"])
+            j += 1
+        burst = post_and_check(day1 + 1 + j, tail[:, j:j + STREAM_BURST])
+        j += STREAM_BURST
+        half = STREAM_AROUND_REFIT // 2
+        for _ in range(half):
+            post_and_check(day1 + 1 + j, tail[:, j:j + 1])
+            j += 1
+        # the forced refit: its snapshot is taken, then 5 more days apply
+        # (checked against the mirror: the refit has not installed), then
+        # the fit runs and the install replays them
+        store, sched = ingest.store, ingest.refit
+        stages = store.refit_stages
+        snapped, go = threading.Event(), threading.Event()
+
+        def gated():
+            prep, dispatch, complete = stages()
+
+            def prep_then_wait():
+                out = prep()
+                snapped.set()
+                go.wait(600)
+                return out
+            return prep_then_wait, dispatch, complete
+
+        store.refit_stages = gated
+        for fn in counters.values():  # counters to 0 around the refit
+            fn.launches = 0
+        result, errors = {}, []
+
+        def refit():
+            try:
+                t0 = time.perf_counter()
+                result["trigger"] = sched.maybe_refit(force=True)
+                result["done"] = sched.wait(timeout=600)
+                result["seconds"] = time.perf_counter() - t0
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                errors.append(exc)
+
+        th = threading.Thread(target=refit)
+        th.start()
+        assert snapped.wait(600), "the refit never took its snapshot"
+        day_snap = store.day_cur
+        for _ in range(STREAM_AROUND_REFIT - half):
+            post_and_check(day1 + 1 + j, tail[:, j:j + 1])
+            j += 1
+        go.set()
+        th.join(600)
+        store.refit_stages = stages
+        if errors:
+            raise errors[0]
+        refit_launches = {k: fn.launches for k, fn in counters.items()}
+        if model == "holt_winters":
+            assert refit_launches == {"hw_score": 1, "hw_filter": 1}, \
+                refit_launches
+        else:
+            assert refit_launches == {"hw_score": 0, "hw_filter": 0}
+        assert result["trigger"] == "forced"
+        assert result["done"]["day_snap"] == day_snap
+        replay = check_refit_install(port, store, model, day_snap)
+        text = http_call(number, "GET", "/metrics")[1].decode()
+        metrics = {k: _counter(text, k) for k in (
+            "dftpu_ingest_points_total", "dftpu_ingest_applied_points_total",
+            "dftpu_ingest_wal_appends_total", "dftpu_ingest_refits_total",
+            "dftpu_ingest_applied_day", "dftpu_ingest_late_points_total",
+            "dftpu_ingest_unknown_series_total")}
+        n_posts = STREAM_DAILY + 1 + STREAM_AROUND_REFIT
+        assert metrics == {
+            "dftpu_ingest_points_total": posted,
+            "dftpu_ingest_applied_points_total": posted,
+            "dftpu_ingest_wal_appends_total": n_posts,
+            "dftpu_ingest_refits_total": 1,
+            "dftpu_ingest_applied_day": day1 + j,
+            "dftpu_ingest_late_points_total": 0,
+            "dftpu_ingest_unknown_series_total": 0}, metrics
+        after = json.loads(_invocations(number, fc, idx))["predictions"]
+        first = pd.Timestamp(after[0]["ds"])
+        assert first == pd.Timestamp("1970-01-01") + pd.Timedelta(
+            days=day1 + j + 1)
+        assert all(np.isfinite(r["yhat"]) for r in after)
+    finally:
+        srv.shutdown()
+    out = {"changed": changed, "posts": n_posts, "points": posted,
+           "invocations_checked_bytes_equal": checked,
+           "post_ms": _pcts(post_ms), "burst_post_ms": burst["ms"],
+           "burst_ack": burst["ack"], "refit": {
+               "launches": refit_launches, "day_snap": day_snap,
+               "replayed_days": replay["replayed_days"],
+               "install_equals_fit_then_update": replay["bitwise"],
+               "seconds_incl_gate": result["seconds"]},
+           "metrics": metrics, "fit_seconds": art["fit_seconds"]}
+    emit("stream_served", model=model, **{k: v for k, v in out.items()
+                                          if k != "changed"})
+    return out
+
+
+def check_refit_install(port, store, model: str, day_snap: int) -> dict:
+    """The refit's install, recomputed: the family's fit of the history up
+    to the snapshot, then the update of the days applied after it.  Every
+    field equals the installed one bit for bit."""
+    fns = port["models"].get_model(model)
+    t_snap = day_snap - store.day0 + 1
+    t_now = store.day_cur - store.day0 + 1
+    dev = store.device
+    y = torch.as_tensor(store._y[:, :t_now], device=dev)
+    m = torch.as_tensor(store._mask[:, :t_now], device=dev)
+    day = torch.arange(store.day0, day_snap + 1, dtype=torch.int32,
+                       device=dev)
+    p0 = fns.fit(y[:, :t_snap], m[:, :t_snap], day, store.config)
+    aux = fns.init_update_aux(p0, y=y[:, :t_snap], mask=m[:, :t_snap])
+    delta = t_now - t_snap
+    p1, _, preds = fns.update_state(
+        p0, aux, y[:, t_snap:], m[:, t_snap:], np.ones(delta),
+        np.arange(day_snap + 1, day_snap + 1 + delta), store.config,
+        day0=store.day0)
+    got = store._params
+    same = {}
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(p1, f.name)
+        if f.name == "fitted":
+            b = torch.cat([p0.fitted, preds], 1)
+            a = a[:, :t_now]
+        same[f.name] = bool(torch.equal(a, b))
+    assert all(same.values()), same
+    return {"replayed_days": delta, "bitwise": same}
+
+
+def stream_exactness(port, batch, arts: dict, tail) -> dict:
+    """(b) The exactness contract on the card, bit for bit."""
+    hw, update = port["hw"], port["update"]
+    serving, state_store = port["serving"], port["state_store"]
+    y, mask, day = batch.y, batch.mask, batch.day
+    T = batch.n_time
+    out = {"hw_stream_equals_hw_filter_fit": {}}
+    # Holt-Winters, one pinned candidate: the streamed days are the
+    # dataset's own last days, the reference fit the kernel's on them
+    cfg = hw.HoltWintersConfig(n_alpha=1, n_beta=1, n_gamma=1)
+    T0 = T - max(STREAM_PINNED_K)
+    p0 = hw.fit(y[:, :T0], mask[:, :T0], day[:T0], cfg)
+    aux0 = hw.init_update_aux(p0, mask=mask[:, :T0])
+    for k in STREAM_PINNED_K:
+        ref = hw.fit(y[:, :T0 + k], mask[:, :T0 + k], day[:T0 + k], cfg)
+        if k < max(STREAM_PINNED_K):
+            got, _, preds = update.apply_update(
+                "holt_winters", cfg, p0, aux0, y[:, T0:T0 + k],
+                mask[:, T0:T0 + k], np.ones(k),
+                day[T0:T0 + k].cpu().numpy(), day0=int(day[0]))
+            fitted = preds
+        else:  # through the store, across a time-bucket boundary
+            fc = serving.BatchForecaster(
+                "holt_winters", cfg, p0, batch.keys, batch.key_names,
+                int(day[0]), int(day[T0 - 1]), freq=batch.freq)
+            store = state_store.SeriesStateStore(
+                fc, time_bucket=STREAM_BUCKET,
+                history_y=y[:, :T0].cpu().numpy(),
+                history_mask=mask[:, :T0].cpu().numpy(), device=DEVICE)
+            cap0 = int(store._params.fitted.shape[1])
+            yn, mn = y[:, T0:].cpu().numpy(), mask[:, T0:].cpu().numpy()
+            store.ingest([(s, int(day[T0]) + j, float(yn[s, j]))
+                          for j in range(k) for s in range(yn.shape[0])
+                          if mn[s, j] > 0])
+            assert store.apply_pending()["days"] == k
+            got = store._params
+            assert got.fitted.shape[1] > cap0 >= T0  # grew one bucket
+            fitted = got.fitted[:, T0:T0 + k]
+            assert not torch.any(got.fitted[:, T0 + k:])
+        eq = {n: bool(torch.equal(getattr(got, n), getattr(ref, n)))
+              for n in ("level", "trend", "season")}
+        eq["preds"] = bool(torch.equal(fitted, ref.fitted[:, T0:T0 + k]))
+        assert all(eq.values()), (k, eq)
+        out["hw_stream_equals_hw_filter_fit"][k] = eq
+    # each family: k days in one apply equal k applies of one day, and
+    # padding columns leave every carry unchanged
+    out["chained_equals_single"], out["padding_unchanged"] = {}, {}
+    k = STREAM_BURST
+    for model in STREAM_FAMILIES:
+        stores = []
+        for _ in range(2):
+            fc = serving.BatchForecaster.load(arts[model]["artifact"],
+                                              device=DEVICE)
+            stores.append(state_store.SeriesStateStore(
+                fc, time_bucket=STREAM_BUCKET, device=DEVICE))
+        d1 = stores[0].day_cur
+        for j in range(k):
+            stores[0].ingest(store_points(d1 + 1 + j, tail[:, j:j + 1]))
+            stores[0].apply_pending()
+        stores[1].ingest(store_points(d1 + 1, tail[:, :k]))
+        stores[1].apply_pending()
+        a, b = stores
+        eq = all(torch.equal(getattr(a._params, f.name),
+                             getattr(b._params, f.name))
+                 for f in dataclasses.fields(a._params))
+        eq &= all(torch.equal(a._aux[key], b._aux[key]) for key in a._aux)
+        assert eq, model
+        out["chained_equals_single"][model] = eq
+        # padding: 5 real columns alone, and with 3 padding columns
+        fns = port["models"].get_model(model)
+        p, aux = b._params, b._aux
+        vals = torch.as_tensor(tail[:, k:k + 5], device=DEVICE)
+        ones = torch.ones_like(vals)
+        days = np.arange(b.day_cur + 1, b.day_cur + 6)
+        plain = fns.update_state(p, aux, vals, ones, np.ones(5), days,
+                                 b.config, day0=b.day0)
+        padded = fns.update_state(
+            p, aux, torch.nn.functional.pad(vals, (0, 3)),
+            torch.nn.functional.pad(ones, (0, 3)),
+            np.r_[np.ones(5), np.zeros(3)], np.r_[days, np.zeros(3, int)],
+            b.config, day0=b.day0)
+        eq = all(torch.equal(getattr(plain[0], f.name),
+                             getattr(padded[0], f.name))
+                 for f in dataclasses.fields(plain[0]))
+        eq &= all(torch.equal(plain[1][key], padded[1][key])
+                  for key in plain[1])
+        eq &= bool(torch.equal(plain[2], padded[2][:, :5]))
+        assert eq, model
+        out["padding_unchanged"][model] = eq
+    out["followers_converge"] = stream_followers(port, arts, tail)
+    emit("stream_exactness", **out)
+    return out
+
+
+def stream_followers(port, arts: dict, tail) -> bool:
+    """Two interval-mode runtimes following one WAL directory (their own
+    follower threads) converge to the same bits."""
+    serving, ingest = port["serving"], port["ingest"]
+    root = tempfile.mkdtemp(prefix="stream_wal_")
+    try:
+        conf = {"enabled": True, "apply_mode": "interval",
+                "apply_interval_ms": 20, "wal_dir": root}
+        fcs = [serving.BatchForecaster.load(arts["holt_winters"]["artifact"],
+                                            device=DEVICE) for _ in range(2)]
+        rts = [ingest.build_ingest_runtime(conf, fc, device=DEVICE)
+               for fc in fcs]
+        for rt in rts:
+            rt.start()
+        try:
+            d1 = int(fcs[0].day1)
+            for j in range(10):
+                rts[j % 2].submit(day_points(fcs[0], d1 + 1 + j,
+                                             tail[:, j:j + 1]))
+            deadline = time.perf_counter() + 120
+            while (any(int(fc.day1) != d1 + 10 for fc in fcs)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.02)
+        finally:
+            for rt in rts:
+                rt.stop()
+        a, b = (fc._state_snapshot()[0] for fc in fcs)
+        same = all(int(fc.day1) == d1 + 10 for fc in fcs) and all(
+            torch.equal(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+        assert same, "two followers of one WAL did not converge"
+        return same
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def stream_vs_cpu(port, batch, arts: dict, tail) -> dict:
+    """(c) 20 series through the same stream on the card and on the CPU,
+    from the card's fit: the states within 1e-5 of each row's scale, the
+    routing counts equal."""
+    serving, state_store, convert = (port["serving"], port["state_store"],
+                                     port["convert"])
+    n = STREAM_VS_CPU
+    idx = np.arange(n)
+    scale = np.maximum(np.abs(batch.y[:n].cpu().numpy()).max(1), 1.0)
+    out = {}
+    for model in STREAM_FAMILIES:
+        full = serving.BatchForecaster.load(arts[model]["artifact"],
+                                            device=DEVICE)
+        params = full.gather_params(idx)
+        stores, routed = {}, {}
+        for dev in (DEVICE, "cpu"):
+            p = convert.params_from_numpy(
+                type(params), convert.params_to_numpy(params), dev)
+            fc = serving.BatchForecaster(model, full.config, p, full.keys[:n],
+                                         full.key_names, full.day0, full.day1,
+                                         freq=full.freq)
+            st = state_store.SeriesStateStore(
+                fc, time_bucket=STREAM_BUCKET,
+                history_y=batch.y[:n].cpu().numpy(),
+                history_mask=batch.mask[:n].cpu().numpy(), device=dev)
+            d1 = st.day_cur
+            counts = []
+            for j in range(STREAM_DAILY):
+                counts.append(st.ingest(store_points(d1 + 1 + j,
+                                                     tail[:n, j:j + 1])))
+                st.apply_pending()
+            j = STREAM_DAILY
+            # a late point, one before the grid, one past the horizon
+            extra = [(0, d1 - 3, 5.0), (1, st.day0 - 1, 5.0),
+                     (2, st.day_cur + 10 ** 4, 5.0)]
+            counts.append(st.ingest(
+                store_points(d1 + 1 + j, tail[:n, j:j + STREAM_BURST])
+                + extra))
+            st.apply_pending()
+            stores[dev], routed[dev] = st, counts
+        assert routed[DEVICE] == routed["cpu"], model
+        a, b = stores[DEVICE]._params, stores["cpu"]._params
+        worst = 0.0
+        for f in dataclasses.fields(a):
+            ga, gb = getattr(a, f.name).cpu(), getattr(b, f.name)
+            if ga.dim() == 0:
+                continue
+            rows = torch.as_tensor(scale).reshape((-1,) + (1,) * (ga.dim() - 1))
+            worst = max(worst, float(((ga - gb).abs() / rows).max()))
+        assert worst <= STREAM_TOL, (model, worst)
+        out[model] = {"max_rel_diff": worst, "tol": STREAM_TOL,
+                      "routed_equal": True, "last_routed": routed["cpu"][-1]}
+    emit("stream_gpu_vs_cpu_20_series", **out)
+    return out
+
+
+def _apply_timed(store, points) -> dict:
+    """One apply of ``points``: the host wall (ending in a synchronize) and
+    the device time between two CUDA events around it."""
+    store.ingest(points)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    applied = store.apply_pending()
+    stop.record()
+    torch.cuda.synchronize()
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3,
+            "events_ms": start.elapsed_time(stop), "days": applied["days"]}
+
+
+def stream_apply_times(port, batch, arts: dict, tail) -> dict:
+    """(d) ``apply_pending`` at K 1 and at the 30-day burst, each family:
+    medians of :data:`STREAM_APPLY_REPS`, the device's idle share over one
+    K 1 apply, the update's launches."""
+    serving, state_store = port["serving"], port["state_store"]
+    out = {}
+    for model in STREAM_FAMILIES:
+        fc = serving.BatchForecaster.load(arts[model]["artifact"],
+                                          device=DEVICE)
+        st = state_store.SeriesStateStore(fc, time_bucket=STREAM_BUCKET,
+                                          device=DEVICE)
+        j, k1, burst = 0, [], []
+        for _ in range(STREAM_APPLY_REPS):
+            k1.append(_apply_timed(st, store_points(st.day_cur + 1,
+                                                    tail[:, j:j + 1])))
+            j += 1
+        st.ingest(store_points(st.day_cur + 1, tail[:, j:j + 1]))
+        trace = idle_share(st.apply_pending)
+        j += 1
+        for _ in range(3):
+            burst.append(_apply_timed(st, store_points(
+                st.day_cur + 1, tail[:, j:j + STREAM_BURST])))
+            j += STREAM_BURST
+        out[model] = {
+            "k1_wall_ms": statistics.median(r["wall_ms"] for r in k1),
+            "k1_events_ms": statistics.median(r["events_ms"] for r in k1),
+            "k1_idle_share": trace.get("idle_share"),
+            "k1_device_events": trace.get("device_events"),
+            "burst_wall_ms": statistics.median(r["wall_ms"] for r in burst),
+            "burst_events_ms": statistics.median(r["events_ms"]
+                                                 for r in burst),
+            "burst_days": STREAM_BURST}
+    return out
+
+
+def stream_refit_times(port, batch, arts: dict, tail, card_line) -> dict:
+    """(d) The refit's wall time, its two kernels at the refit's shapes,
+    and /invocations for all 500 series idle against during refits."""
+    serving, ingest, server, fs = (port["serving"], port["ingest"],
+                                   port["server"], port["fs"])
+    fc = serving.BatchForecaster.load(arts["holt_winters"]["artifact"],
+                                      device=DEVICE)
+    root = tempfile.mkdtemp(prefix="stream_refit_")
+    rt = ingest.build_ingest_runtime(
+        {"enabled": True, "wal_dir": root, "apply_mode": "sync",
+         "max_points_per_request": 15000,
+         "refit": {"enabled": True, "max_applied_points": 10 ** 9,
+                   "max_staleness_s": 1e9, "check_interval_s": 3600}},
+        fc, history_y=batch.y.cpu().numpy(),
+        history_mask=batch.mask.cpu().numpy(), device=DEVICE)
+    rt.submit(day_points(fc, int(fc.day1) + 1, tail[:, :STREAM_BURST]))
+    sched = rt.refit
+    out = {}
+    try:
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sched.maybe_refit(force=True)
+            sched.wait(600)
+            walls.append(time.perf_counter() - t0)
+        out["refit_wall_s"] = statistics.median(walls)
+        trace = idle_share(lambda: (sched.maybe_refit(force=True),
+                                    sched.wait(600)))
+        out["refit_idle_share"] = trace.get("idle_share")
+        out["refit_kernel_ms_traced"] = trace.get("kernel_ms")
+        # the kernels alone at the refit's shapes
+        st = rt.store
+        t_now = st.day_cur - st.day0 + 1
+        y = torch.as_tensor(st._y[:, :t_now], device=DEVICE)
+        m = torch.as_tensor(st._mask[:, :t_now], device=DEVICE)
+        A, B, G, P = port["hw"]._candidate_grid(fc.config, device=DEVICE)
+        # (the wrappers: the initial state's plain ops, then the kernel)
+        out["hw_score_wrapper_ms"] = cuda_ms(
+            lambda: fs.hw_score(y, m, A, B, G, P, 7))
+        p = st._params
+        out["hw_filter_wrapper_ms"] = cuda_ms(lambda: fs.hw_filter(
+            y, m, p.alpha, p.beta, p.gamma, p.phi, 7, "additive"))
+        out["shape"] = [int(y.shape[0]), t_now, int(A.shape[0])]
+        srv = server.start_server(fc, ingest=rt)
+        number = srv.server_address[1]
+        body = {"inputs": _inputs(fc.keys, fc.key_names),
+                "horizon": STREAM_HORIZON}
+        try:
+            http_call(number, "POST", "/invocations", body)  # warm
+            idle = [_post_ms(number, "/invocations", body)[2]
+                    for _ in range(STREAM_LATENCY)]
+            stop, refits = threading.Event(), []
+
+            def churn():
+                while not stop.is_set():
+                    sched.maybe_refit(force=True)
+                    sched.wait(600)
+                    refits.append(1)
+
+            th = threading.Thread(target=churn)
+            th.start()
+            busy = [_post_ms(number, "/invocations", body)[2]
+                    for _ in range(STREAM_LATENCY)]
+            stop.set()
+            th.join(600)
+        finally:
+            srv.shutdown()
+        out["invocations_500_idle"] = _pcts(idle)
+        out["invocations_500_during_refits"] = _pcts(busy)
+        out["refits_during"] = len(refits)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def stream_big(port, card_line) -> dict:
+    """(d) The apply at 20,480 series (built as phase 11 builds them;
+    Holt-Winters on its default grid), at K 1 and at a time-bucket
+    crossing (the host history grows one bucket: a copy of both (S, T)
+    buffers), with the peak device memory of each."""
+    data, serving, state_store = (port["data"], port["serving"],
+                                  port["state_store"])
+    batch = data.synthetic_series_batch(n_stores=STREAM_BIG[0],
+                                        n_items=STREAM_BIG[1], seed=3,
+                                        device=DEVICE)
+    fns = port["models"].get_model("holt_winters")
+    cfg = fns.config_cls()
+    t0 = time.perf_counter()
+    params = fns.fit(batch.y, batch.mask, batch.day, cfg)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fc = serving.BatchForecaster.from_fit(batch, params, "holt_winters", cfg)
+    st = state_store.SeriesStateStore(
+        fc, time_bucket=STREAM_BUCKET, history_y=batch.y.cpu().numpy(),
+        history_mask=batch.mask.cpu().numpy(), device=DEVICE)
+    tail = stream_tail(batch, STREAM_BURST + 1)
+    cap0 = st._y.shape[1]
+    t_len = st.day_cur - st.day0 + 1
+    out = {"shape": [batch.n_series, batch.n_time], "fit_seconds": fit_s}
+    res = {}
+    ms, mib = peak_mib(lambda: res.update(
+        _apply_timed(st, store_points(st.day_cur + 1, tail[:, :1]))))
+    out["k1"] = {**res, "peak_mib": mib}
+    k = cap0 - t_len  # the rest of the bucket, then one column past it
+    res = {}
+    ms, mib = peak_mib(lambda: res.update(_apply_timed(
+        st, store_points(st.day_cur + 1, tail[:, 1:1 + k]))))
+    assert st._y.shape[1] > cap0, "no bucket crossed"
+    out["bucket_crossing"] = {**res, "peak_mib": mib,
+                              "history_cap": [cap0, int(st._y.shape[1])]}
+    emit("stream_big", card=card_line, **out)
+    return out
+
+
+def slice15_phase(port, card_line: str) -> dict:
+    """Phase 16: streaming ingest on the committed dataset.  (a) The serve
+    task with ``serving.ingest`` on for Holt-Winters, theta and croston
+    artifacts: /ingest day by day, a 30-day burst, a forced refit with its
+    replay; (b) the exactness contract bit for bit; (c) 20 series card vs
+    CPU; (d) times."""
+    t_phase = time.perf_counter()
+    fs = port["fs"]
+    counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter}
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                   device=DEVICE)
+    assert (batch.n_series, batch.n_time) == SHAPE
+    tail = stream_tail(batch, STREAM_DAILY + STREAM_BURST
+                       + STREAM_AROUND_REFIT)
+    root = tempfile.mkdtemp(prefix="stream_")
+    out = {"launches": {k: 0 for k in counters}}
+    try:
+        for fn in counters.values():  # counters to 0 just before the path
+            fn.launches = 0
+        arts = stream_artifacts(port, root, batch)
+        fit_launches = {k: fn.launches for k, fn in counters.items()}
+        assert fit_launches == {"hw_score": 1, "hw_filter": 1}, fit_launches
+        served = {model: stream_served(port, root, model, arts[model], batch,
+                                       tail, counters)
+                  for model in STREAM_FAMILIES}
+        for k in counters:
+            out["launches"][k] = fit_launches[k] + sum(
+                s["refit"]["launches"][k] for s in served.values())
+        emit("launches", path="streaming", **out["launches"],
+             expected="hw_score, hw_filter: 1 for the Holt-Winters fit, "
+                      "1 for its forced refit; 0 for the update")
+        out["served"] = served
+        out["exactness"] = stream_exactness(port, batch, arts, tail)
+        out["gpu_vs_cpu"] = stream_vs_cpu(port, batch, arts, tail)
+        applies = stream_apply_times(port, batch, arts, tail)
+        refits = stream_refit_times(port, batch, arts, tail, card_line)
+        big = stream_big(port, card_line)
+        out["times"] = {"post_ingest_500": {m: served[m]["post_ms"]
+                                            for m in STREAM_FAMILIES},
+                        "apply": applies, "refit": refits, "big": big}
+        emit("stream_times", card=card_line,
+             **{k: v for k, v in out["times"].items() if k != "big"})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase16", seconds=out["seconds"])
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -5657,17 +6385,14 @@ KERNELS = {
 }
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-    # the port comes from this checkout: without it, fail before any output
+def load_port() -> dict:
+    """The port's modules the phases use, by name (a phase run alone takes
+    this dict, after ``ops._build.library()``)."""
     from distributed_forecasting_tpu_torch import data, engine, serving
     from distributed_forecasting_tpu_torch.engine import cv
     from distributed_forecasting_tpu_torch.models import holt_winters as hw
     from distributed_forecasting_tpu_torch.models import prophet_glm as pg
-    from distributed_forecasting_tpu_torch.ops import _build, fused_scan as fs
+    from distributed_forecasting_tpu_torch.ops import fused_scan as fs
     from distributed_forecasting_tpu_torch.ops import solve
     from distributed_forecasting_tpu_torch.pipelines import training
     from distributed_forecasting_tpu_torch import tracking
@@ -5689,15 +6414,13 @@ def main() -> int:
     from distributed_forecasting_tpu_torch.models import arnet
     from distributed_forecasting_tpu_torch.engine import hyper, select
     from distributed_forecasting_tpu_torch.ops import precision
+    from distributed_forecasting_tpu_torch import convert, models
+    from distributed_forecasting_tpu_torch.engine import state_store
+    from distributed_forecasting_tpu_torch.ops import update
+    from distributed_forecasting_tpu_torch.serving import ingest
+    from distributed_forecasting_tpu_torch.tasks import serve as serve_task
 
-    native_before = native_snapshot()
-    card_line = card()
-    name = torch.cuda.get_device_name(0)
-    emit("device", name=name, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
-    print(card_line, flush=True)
-
-    port = dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
+    return dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
                 pg=pg, solve=solve, training=training, tracking=tracking,
                 cal=cal, config=config, runner=runner, blend=blend,
                 croston=croston, season=season, theta=theta,
@@ -5706,7 +6429,28 @@ def main() -> int:
                 order=order, dataset=dataset, native=native,
                 quality=quality, batcher=batcher, server=server,
                 anomaly=anomaly, autoprep=autoprep, gradfit=gradfit,
-                arnet=arnet, hyper=hyper, select=select, precision=precision)
+                arnet=arnet, hyper=hyper, select=select, precision=precision,
+                convert=convert, models=models, state_store=state_store,
+                update=update, ingest=ingest, serve_task=serve_task)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    # the port comes from this checkout: without it, fail before any output
+    port = load_port()
+    from distributed_forecasting_tpu_torch.ops import _build
+    fs = port["fs"]
+    data = port["data"]
+    native_before = native_snapshot()
+    card_line = card()
+    name = torch.cuda.get_device_name(0)
+    emit("device", name=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    print(card_line, flush=True)
+
     t0 = time.perf_counter()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
@@ -5764,6 +6508,7 @@ def main() -> int:
     prep = prep_phase(port, counters, card_line)
     rng_paths = slice13_phase(port, card_line)
     p8_end = slice14_phase(port, card_line)
+    streaming = slice15_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -5784,7 +6529,8 @@ def main() -> int:
                               + ragged["launches"][k]
                               + prep["launches"][k]
                               + rng_paths["launches"][k]
-                              + p8_end["launches"][k]),
+                              + p8_end["launches"][k]
+                              + streaming["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),

@@ -144,3 +144,13 @@ def theta_params_from_numpy(fields: dict, device=None) -> ThetaParams:
 def theta_params_to_numpy(params: ThetaParams) -> dict:
     """The port's ``ThetaParams`` -> numpy fields the reference's takes."""
     return params_to_numpy(params)
+
+
+def update_aux_from_numpy(aux: dict, device=None) -> dict:
+    """The reference's streaming update carries (``init_update_aux``'s dict
+    of numpy arrays: ``sse``, ``n_obs`` and, for croston, ``q`` / ``b``)
+    -> the port's, float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in aux.items()}
+

@@ -15,13 +15,16 @@ registered with ``supports_xreg`` (the curve model, arnet) also take
 registered with ``draws`` (the curve model, whose Monte-Carlo intervals
 sample paths) takes ``generator=`` (a ``torch.Generator``) in ``forecast``
 and ``forecast_quantiles``, where the reference's take a key; arnet's fit
-draws its minibatch schedule from ``config.seed`` (``utils/rng.py``).
+draws its minibatch schedule from ``config.seed`` (``utils/rng.py``).  The
+state-space families (holt_winters, theta, croston) register the streaming
+``update_state`` / ``init_update_aux`` pair (see :class:`ModelFns`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 MODEL_REGISTRY: dict = {}
@@ -167,19 +170,64 @@ class ModelFns(NamedTuple):
     # blocks of rows that must each keep their own: the CV's stacked
     # cutoffs pass one block a cutoff
     per_block_stats: bool = False
+    # the streaming update (serving/ingest):
+    #   update_state(params, aux, y_new, mask_new, valid, day_new, config,
+    #                day0=None) -> (params', aux', preds)
+    # continues the family's filter over K appended day-columns with the
+    # step function its fit runs, so a streamed state is the fit's bit for
+    # bit.  y_new / mask_new: (S, K) on the params' device; valid / day_new:
+    # (K,) on the host (1 for a real appended day, 0 for padding, which is
+    # skipped; absolute day ordinals); day0: the first training day as a
+    # host int (None reads params.day0).  preds: (S, K) one-step-ahead
+    # fitted values of the new columns (0 in padding columns).
+    # ``params'.fitted`` is the caller's: the state store splices preds in.
+    update_state: Callable = None
+    # init_update_aux(params, y=None, mask=None) -> dict of the carries the
+    # fit does not keep in params (sse / n_obs for sigma, croston's q, TSB's
+    # b); exact with the training (y, mask), approximate without
+    init_update_aux: Callable = None
+
+
+def streamed_columns(valid, day_new) -> tuple:
+    """``(columns, days)`` of an update's real appended columns, in order:
+    the indices where the host array ``valid`` is positive and their day
+    ordinals from ``day_new``, as Python ints.  Padding columns (valid 0)
+    are left out: a family's update skips them, which leaves its carry
+    unchanged, as the reference's gating does."""
+    valid = np.asarray(valid)
+    cols = np.flatnonzero(valid > 0)
+    days = np.asarray(day_new).astype(np.int64)[cols]
+    return cols.tolist(), days.tolist()
+
+
+def first_day(params, day0=None) -> int:
+    """The first training day as a host int: ``day0`` when the caller has
+    it (the state store does, so an apply reads nothing back from the
+    card), else ``params.day0``."""
+    return int(day0) if day0 is not None else int(float(params.day0))
+
+
+def advance_t_fit_end(t_fit_end, days):
+    """``max(t_fit_end, days)`` as the new 0-d ``t_fit_end`` tensor; the
+    days are host ints, so no value is read back from the card."""
+    return t_fit_end.clamp_min(float(max(days))) if days else t_fit_end
 
 
 def register_model(name: str, fit: Callable, forecast: Callable,
                    config_cls: type, forecast_quantiles: Callable = None,
                    supports_xreg: bool = False,
                    band_floor: Optional[float] = None, draws: bool = False,
-                   per_block_stats: bool = False):
+                   per_block_stats: bool = False,
+                   update_state: Callable = None,
+                   init_update_aux: Callable = None):
     MODEL_REGISTRY[name] = ModelFns(fit=fit, forecast=forecast,
                                     config_cls=config_cls,
                                     forecast_quantiles=forecast_quantiles,
                                     supports_xreg=supports_xreg,
                                     band_floor=band_floor, draws=draws,
-                                    per_block_stats=per_block_stats)
+                                    per_block_stats=per_block_stats,
+                                    update_state=update_state,
+                                    init_update_aux=init_update_aux)
 
 
 def generator_kwargs(fns: ModelFns, generator) -> dict:

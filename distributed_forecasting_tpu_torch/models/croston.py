@@ -11,7 +11,9 @@ The recurrence is one Python loop over T, each step a dozen elementwise
 launches on (S,) state vectors (seven for TSB), with no host sync: every
 series advances at once.  The per-step demand flags and the ``alpha * y`` terms are computed
 for the whole (S, T) grid before the loop; the squared one-step errors are
-summed over the fitted path after it.
+summed over the fitted path after it.  Each step is :func:`_croston_step`
+or :func:`_tsb_step`, which streaming ingest's :func:`update_state` runs
+over new days too.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ import torch
 
 from distributed_forecasting_tpu_torch.models.base import (
     _ndtri,
+    advance_t_fit_end,
     gaussian_quantiles,
     history_splice,
     register_model,
+    streamed_columns,
 )
 
 _EPS = 1e-6
@@ -68,6 +72,39 @@ def _check_variant(config: CrostonConfig) -> None:
         )
 
 
+def _croston_step(z, p, q, ay, mt, demand, keep, alpha: float,
+                  variant: str, out):
+    """One Croston / SBA step on (S,) lanes: writes the one-step rate into
+    ``out`` and returns ``(z', p', q')``.  ``ay`` is ``alpha * y``,
+    ``demand`` the step's demand flag, ``keep`` 0 at a demand and 1 else
+    (``q * keep`` restarts the interval count as ``where(demand, 0, q)``
+    does, exactly: q is a finite count).  The fit's loop and
+    :func:`update_state` both step through here, so a streamed state is
+    the fit's bit for bit."""
+    if variant == "sba":
+        rate = z / torch.clamp_min(p, 1.0)
+        torch.mul(rate, 1.0 - alpha / 2.0, out=out)
+    else:
+        torch.div(z, torch.clamp_min(p, 1.0), out=out)
+    q_new = q + mt  # observed periods since the last demand
+    z = torch.where(demand, ay + (1 - alpha) * z, z)
+    p = torch.where(demand, alpha * q_new + (1 - alpha) * p, p)
+    return z, p, q_new * keep
+
+
+def _tsb_step(z, b, ay, b_in, observed, demand, alpha: float, beta: float,
+              out):
+    """One TSB step on (S,) lanes: writes the one-step rate ``z * b`` into
+    ``out`` and returns ``(z', b')``.  The probability moves every observed
+    period (``b_in`` is ``beta * 1[demand]``), the size only at demands;
+    shared by the fit and :func:`update_state` as :func:`_croston_step`
+    is."""
+    torch.mul(z, b, out=out)
+    b = torch.where(observed, b_in + (1 - beta) * b, b)
+    z = torch.where(demand, ay + (1 - alpha) * z, z)
+    return z, b
+
+
 def fit(y, mask, day, config: CrostonConfig) -> CrostonParams:
     """Fit every series at once.  y, mask: (S, T); day: (T,)."""
     _check_variant(config)
@@ -88,9 +125,8 @@ def fit(y, mask, day, config: CrostonConfig) -> CrostonParams:
         observed = (mask > 0).t().contiguous()
         b = n_demands / n_obs
         for t in range(T):
-            torch.mul(z, b, out=path[t])
-            b = torch.where(observed[t], b_in[t] + (1 - bta) * b, b)
-            z = torch.where(d_t[t], ay[t] + (1 - a) * z, z)
+            z, b = _tsb_step(z, b, ay[t], b_in[t], observed[t], d_t[t], a,
+                             bta, out=path[t])
         p = 1.0 / torch.clamp_min(b, _EPS)
     else:
         m_t = mask.t().contiguous()
@@ -100,16 +136,8 @@ def fit(y, mask, day, config: CrostonConfig) -> CrostonParams:
         p = n_obs / n_demands
         q = torch.zeros_like(p)
         for t in range(T):
-            if config.variant == "sba":
-                rate = z / torch.clamp_min(p, 1.0)
-                torch.mul(rate, 1.0 - a / 2.0, out=path[t])
-            else:
-                torch.div(z, torch.clamp_min(p, 1.0), out=path[t])
-            q_new = q + m_t[t]  # observed periods since the last demand
-            d = d_t[t]
-            z = torch.where(d, ay[t] + (1 - a) * z, z)
-            p = torch.where(d, a * q_new + (1 - a) * p, p)
-            q = q_new * keep[t]
+            z, p, q = _croston_step(z, p, q, ay[t], m_t[t], d_t[t], keep[t],
+                                    a, config.variant, out=path[t])
     fitted = path.t().contiguous()
     err = (y - fitted) * mask
     sigma = torch.sqrt(torch.sum(err * err, dim=1)
@@ -145,6 +173,85 @@ def forecast(params: CrostonParams, day_all, t_end, config: CrostonConfig):
     return yhat, lo, hi
 
 
+def update_state(params: CrostonParams, aux, y_new, mask_new, valid,
+                 day_new, config: CrostonConfig, day0=None):
+    """Continue the Croston / SBA / TSB filter over appended day-columns
+    (the streaming update; ``models/base.ModelFns.update_state``).
+
+    Each real column runs :func:`_croston_step` or :func:`_tsb_step` on the
+    fit's per-step inputs (``alpha * y``, the demand flag, ``keep``,
+    ``beta * 1[demand]``, formed as the fit forms them), so the state
+    continues the fit's bit for bit.  The carries the fit does not keep
+    live in aux: ``q`` (Croston / SBA periods since the last demand) and
+    ``b`` (TSB's demand probability; params keep only 1/b).  aux keeps both
+    keys whatever the variant.  Padding columns (``valid`` 0) are skipped,
+    as the reference's ``mask * valid == 0`` steps keep the carry.
+    ``day0`` is unused: the recursion has no calendar."""
+    _check_variant(config)
+    a = config.alpha
+    cols, days = streamed_columns(valid, day_new)
+    S, K = y_new.shape
+    preds = y_new.new_zeros(S, K)
+    z, p, q, b = params.z_level, params.p_level, aux["q"], aux["b"]
+    sse, n = aux["sse"], aux["n_obs"]
+    demand = (y_new > _EPS) & (mask_new > 0)
+    ay = a * y_new
+    if config.variant == "tsb":
+        bta = config.beta
+        b_in = torch.where(demand, bta * 1.0, 0.0)
+        observed = mask_new > 0
+        for j in cols:
+            z, b = _tsb_step(z, b, ay[:, j], b_in[:, j], observed[:, j],
+                             demand[:, j], a, bta, out=preds[:, j])
+        if cols:
+            p = 1.0 / torch.clamp_min(b, _EPS)
+    else:
+        keep = (~demand).to(y_new.dtype)
+        for j in cols:
+            z, p, q = _croston_step(z, p, q, ay[:, j], mask_new[:, j],
+                                    demand[:, j], keep[:, j], a,
+                                    config.variant, out=preds[:, j])
+    for j in cols:
+        err = (y_new[:, j] - preds[:, j]) * mask_new[:, j]
+        sse = sse + err * err
+        n = n + mask_new[:, j]
+    sigma = torch.sqrt(sse / torch.clamp_min(n, 1.0))
+    params2 = dataclasses.replace(
+        params, z_level=z, p_level=p, sigma=sigma,
+        t_fit_end=advance_t_fit_end(params.t_fit_end, days))
+    return params2, {"sse": sse, "n_obs": n, "q": q, "b": b}, preds
+
+
+def init_update_aux(params: CrostonParams, y=None, mask=None):
+    """The carries the fit does not keep in params.
+
+    With (y, mask): ``q`` is the count of observed periods after the last
+    demand (exact in float32: 0/1 sums); without, 0 (as if a demand closed
+    the training window).  ``b`` is ``1 / max(p_level, eps)``: unused by
+    Croston / SBA and a reciprocal round trip for TSB, after which aux
+    carries it exactly.  (sse, n_obs) as in the other families."""
+    dev = params.sigma.device
+    if mask is not None:
+        maskf = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+        n = maskf.sum(1)
+    else:
+        maskf = None
+        n = torch.full_like(params.sigma, float(params.fitted.shape[1]))
+    sse = params.sigma**2 * torch.clamp_min(n, 1.0)
+    b = 1.0 / torch.clamp_min(params.p_level, _EPS)
+    if y is not None and maskf is not None:
+        yf = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        nz = ((yf > _EPS) & (maskf > 0)).to(torch.float32)
+        # the positions after the last demand are those whose reversed
+        # running count of demands is still 0
+        trailing = (torch.cumsum(nz.flip(1), dim=1) == 0).to(torch.float32)
+        q = torch.sum(maskf.flip(1) * trailing, dim=1)
+    else:
+        q = torch.zeros_like(params.sigma)
+    return {"sse": sse, "n_obs": n, "q": q, "b": b}
+
+
 register_model("croston", fit, forecast, CrostonConfig,
                forecast_quantiles=gaussian_quantiles(forecast, floor=0.0),
-               band_floor=0.0)
+               band_floor=0.0,
+               update_state=update_state, init_update_aux=init_update_aux)

@@ -25,6 +25,12 @@ the gate, as the reference's Pallas route does.
 Missing observations (mask == 0) take the predict-only branch, which still
 advances the level by ``phi * trend``.  Forecast intervals use the HW(A,A)
 class-1 variance recursion on the one-step residual scale.
+
+Streaming ingest continues a fitted state over new days with
+:func:`update_state`, a loop of :func:`_hw_step` as :func:`_filter` runs
+it: the streamed state is the fit's of the extended series bit for bit
+(on the card, the ``hw_filter`` kernel's) when the fit picks the same
+candidate.
 """
 
 from __future__ import annotations
@@ -37,10 +43,13 @@ import torch
 
 from distributed_forecasting_tpu_torch.models.base import (
     _ndtri,
+    advance_t_fit_end,
     cumsum_rows,
+    first_day,
     gaussian_quantiles,
     history_splice,
     register_model,
+    streamed_columns,
 )
 from distributed_forecasting_tpu_torch.ops.fused_scan import (
     hw_filter,
@@ -286,6 +295,9 @@ def _candidate_grid(cfg: HoltWintersConfig, device=None):
 
 def fit(y, mask, day, config: HoltWintersConfig) -> HWParams:
     """Grid-search fit of all series at once.  y, mask: (S, T); day: (T,)."""
+    # the kernels read whole rows: a column slice of a longer history
+    # (a streamed series' snapshot, a CV window) is copied once
+    y, mask = y.contiguous(), mask.contiguous()
     m = config.season_length
     mode = config.seasonality_mode
     A, B, G, P = _candidate_grid(config, device=y.device)
@@ -385,5 +397,64 @@ def forecast(params: HWParams, day_all, t_end, config: HoltWintersConfig):
     return yhat, yhat - z * sd, yhat + z * sd
 
 
+def update_state(params: HWParams, aux, y_new, mask_new, valid, day_new,
+                 config: HoltWintersConfig, day0=None):
+    """Continue the HW filter over appended day-columns (the streaming
+    update; ``models/base.ModelFns.update_state``).
+
+    Each real column runs :func:`_hw_step` as :func:`_filter` calls it, on
+    a private (m, S) copy of the season: so level, trend and season after
+    k columns equal a fit of the extended series bit for bit when the fit
+    picks the same candidate (on the card the fit's refit is the
+    ``hw_filter`` kernel, bitwise :func:`_filter`).  Padding columns
+    (``valid`` 0) are skipped: HW's masked branch still advances the
+    level, so padding must not run the step at all.  ``sigma`` continues
+    from aux's running (sse, n_obs); ``params.fitted`` is passed through
+    unread.  No installed tensor is written: the update reads ``params``
+    and returns new tensors."""
+    m = config.season_length
+    mode = config.seasonality_mode
+    cols, days = streamed_columns(valid, day_new)
+    d0 = first_day(params, day0)
+    S, K = y_new.shape
+    l, b = params.level, params.trend
+    # (m, S) slot rows, a private copy: _hw_step writes a slot in place,
+    # and the installed season may be a view of this very layout
+    s = params.season.t().clone(memory_format=torch.contiguous_format)
+    sse, n = aux["sse"], aux["n_obs"]
+    obs = mask_new > 0
+    preds = y_new.new_zeros(S, K)
+    for j, d in zip(cols, days):
+        yt, mt = y_new[:, j], mask_new[:, j]
+        # training rows are indexed (day - day0): the slot of day d
+        l, b, pred = _hw_step(l, b, s, yt, obs[:, j], (d - d0) % m,
+                              params.alpha, params.beta, params.gamma,
+                              params.phi, mode)
+        err = (yt - pred) * mt
+        sse = sse + err * err
+        n = n + mt
+        preds[:, j] = pred
+    sigma = torch.sqrt(sse / torch.clamp_min(n, 1.0))
+    params2 = dataclasses.replace(
+        params, level=l, trend=b, season=s.t().contiguous(), sigma=sigma,
+        t_fit_end=advance_t_fit_end(params.t_fit_end, days))
+    return params2, {"sse": sse, "n_obs": n}, preds
+
+
+def init_update_aux(params: HWParams, y=None, mask=None):
+    """The carries the fit does not keep: ``n_obs`` (exact from the
+    training mask, else the grid length) and ``sse`` recovered as
+    ``sigma^2 * max(n, 1)`` — the square of a square root, so a streamed
+    sigma agrees with a refit's within float tolerance while the filter
+    state stays bitwise."""
+    if mask is not None:
+        n = torch.as_tensor(mask, dtype=torch.float32,
+                            device=params.sigma.device).sum(1)
+    else:
+        n = torch.full_like(params.sigma, float(params.fitted.shape[1]))
+    return {"sse": params.sigma**2 * torch.clamp_min(n, 1.0), "n_obs": n}
+
+
 register_model("holt_winters", fit, forecast, HoltWintersConfig,
-               forecast_quantiles=gaussian_quantiles(forecast))
+               forecast_quantiles=gaussian_quantiles(forecast),
+               update_state=update_state, init_update_aux=init_update_aux)

@@ -18,20 +18,26 @@ select, no host sync), writing the one-step predictions into a preallocated
 (T + 1, S, A) buffer.  The fitted paths, the SSEs, the argmin and sigma are
 computed for every candidate after the loop, and the winner's path is
 gathered from them (the reference runs the winner's SES a second time; the
-gathered path is the same floats, element for element).
+gathered path is the same floats, element for element).  Streaming ingest
+continues the selected alpha's SES over new days (:func:`update_state`)
+through the same step, :func:`_ses_step`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.models.base import (
     _ndtri,
+    advance_t_fit_end,
+    first_day,
     gaussian_quantiles,
     history_splice,
     register_model,
+    streamed_columns,
 )
 
 _EPS = 1e-6
@@ -75,6 +81,20 @@ def _seasonal_indices(y, mask, dow, m: int):
     return idx / torch.clamp_min(idx.mean(dim=1, keepdim=True), _EPS)
 
 
+def _ses_step(level, az, observed, one_minus, out=None, carry=None):
+    """One masked SES step on any lane shape: ``(1 - alpha) * level +
+    alpha * z`` where observed, else ``level`` (whose value is the step's
+    one-step prediction).  ``az`` is ``alpha * z`` and ``one_minus`` is
+    ``1 - alpha``, formed by the caller.  :func:`ses_paths` (the fit, on
+    (S, A) lanes) and :func:`update_state` (one alpha a row, on (S,)) both
+    step through here, so a streamed level is the fit's bit for bit.
+    ``out`` / ``carry`` are optional buffers for the result and the
+    unmasked update."""
+    carry = torch.mul(one_minus, level, out=carry)
+    carry.add_(az)
+    return torch.where(observed, carry, level, out=out)
+
+
 def ses_paths(z, mask, alpha):
     """Masked SES of every row under every smoothing constant.
 
@@ -101,9 +121,8 @@ def ses_paths(z, mask, alpha):
     buf[0] = l0[:, None]
     carry = z.new_empty(S, A)
     for t in range(T):
-        torch.mul(one_minus, buf[t], out=carry)
-        carry.add_(az[t])
-        torch.where(observed[t], carry, buf[t], out=buf[t + 1])
+        _ses_step(buf[t], az[t], observed[t], one_minus, out=buf[t + 1],
+                  carry=carry)
     return buf
 
 
@@ -215,5 +234,68 @@ def forecast(params: ThetaParams, day_all, t_end, config: ThetaConfig):
     return yhat, yhat - z * sd, yhat + z * sd
 
 
+def update_state(params: ThetaParams, aux, y_new, mask_new, valid, day_new,
+                 config: ThetaConfig, day0=None):
+    """Continue the theta SES over appended day-columns (the streaming
+    update; ``models/base.ModelFns.update_state``).
+
+    The decomposition the fit estimated — seasonal indices, OLS trend,
+    the selected alpha — stays frozen (re-estimating it is the refit's
+    job); only the SES level and the (sse, n_obs) running moments move.
+    The theta line, the step (:func:`_ses_step`) and the fitted value are
+    the fit's expressions element for element, so the level after k
+    columns continues the fit's filter bit for bit.  Padding columns
+    (``valid`` 0) are skipped, which is what the reference's ``mask *
+    valid == 0`` steps do: a masked SES step keeps the carry."""
+    m = config.season_length
+    cols, days = streamed_columns(valid, day_new)
+    d0 = first_day(params, day0)
+    S, K = y_new.shape
+    dev = y_new.device
+    preds = y_new.new_zeros(S, K)
+    level, sse, n = params.level, aux["sse"], aux["n_obs"]
+    if cols:
+        take = torch.as_tensor(cols, dtype=torch.long).to(dev)
+        day = np.asarray(days, np.int64)
+        dow = torch.as_tensor(day % m).to(dev)
+        # days since the first training day: exact integers in float32
+        t = torch.as_tensor((day - d0).astype(np.float32)).to(dev)
+        y, mask = y_new[:, take], mask_new[:, take]
+        si = params.seas[:, dow]                            # (S, k)
+        y_sa = y / torch.clamp_min(si, _EPS)
+        trend = params.intercept[:, None] + params.slope[:, None] * t[None, :]
+        th = config.theta
+        zline = th * y_sa + (1.0 - th) * trend
+        az = params.alpha[:, None] * zline
+        one_minus = 1.0 - params.alpha
+        observed = mask > 0
+        w_ses = 1.0 / th
+        for j in range(len(cols)):
+            pred = level
+            level = _ses_step(level, az[:, j], observed[:, j], one_minus)
+            fitted = (w_ses * pred + (1.0 - w_ses) * trend[:, j]) * si[:, j]
+            err = (y[:, j] - fitted) * mask[:, j]
+            sse = sse + err * err
+            n = n + mask[:, j]
+            preds[:, cols[j]] = fitted
+    sigma = torch.sqrt(sse / torch.clamp_min(n, 1.0))
+    params2 = dataclasses.replace(
+        params, level=level, sigma=sigma,
+        t_fit_end=advance_t_fit_end(params.t_fit_end, days))
+    return params2, {"sse": sse, "n_obs": n}, preds
+
+
+def init_update_aux(params: ThetaParams, y=None, mask=None):
+    """(sse, n_obs) for sigma's continuation; see the holt_winters
+    counterpart for the square-root round trip."""
+    if mask is not None:
+        n = torch.as_tensor(mask, dtype=torch.float32,
+                            device=params.sigma.device).sum(1)
+    else:
+        n = torch.full_like(params.sigma, float(params.fitted.shape[1]))
+    return {"sse": params.sigma**2 * torch.clamp_min(n, 1.0), "n_obs": n}
+
+
 register_model("theta", fit, forecast, ThetaConfig,
-               forecast_quantiles=gaussian_quantiles(forecast))
+               forecast_quantiles=gaussian_quantiles(forecast),
+               update_state=update_state, init_update_aux=init_update_aux)

@@ -2,6 +2,7 @@ from distributed_forecasting_tpu_torch.monitoring.monitor import (
     Counter,
     Gauge,
     Histogram,
+    IngestMetrics,
     LabeledCounter,
     LabeledGauge,
     MetricsRegistry,
@@ -35,7 +36,8 @@ from distributed_forecasting_tpu_torch.monitoring.store import (
 
 __all__ = ["MonitorConfig", "MonitorRegistry", "degradation_report",
            "detect_anomalies", "drift_report", "run_monitor",
-           "Counter", "Gauge", "Histogram", "LabeledCounter", "LabeledGauge",
+           "Counter", "Gauge", "Histogram", "IngestMetrics",
+           "LabeledCounter", "LabeledGauge",
            "MetricsRegistry", "escape_label_value", "render_labels",
            "QualityConfig", "QualityMonitor", "QualityRuntime",
            "build_quality_runtime",

@@ -30,9 +30,10 @@ The reference's live process metrics are here too, at the end: the
 Prometheus primitives (:class:`Counter`, :class:`Gauge`,
 :class:`LabeledCounter`, :class:`Histogram`, :class:`LabeledGauge`) and
 :class:`MetricsRegistry`, whose text exposition is byte-equal to the
-reference's for the same calls.  The scorer's ``GET /metrics`` renders them.
-The training-pipeline and ingest metric sets stay with the executor (ROADMAP
-Queue 1: P11) and streaming ingest (P9).
+reference's for the same calls.  The scorer's ``GET /metrics`` renders them,
+and :class:`IngestMetrics` (the ``dftpu_ingest_*`` set of the streaming
+ingest path).  The training-pipeline metric set stays with the executor
+(ROADMAP Queue 1: P11).
 """
 
 from __future__ import annotations
@@ -887,3 +888,92 @@ class MetricsRegistry:
         with self._lock:
             items = list(self._metrics.items())
         return {name: metric.snapshot() for name, (_, _, metric) in items}
+
+
+# the reference's pipeline stage buckets (monitoring/monitor._STAGE_BUCKETS),
+# which its ingest histograms share
+_INGEST_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0)
+
+
+class IngestMetrics:
+    """Telemetry for the streaming ingest path (``dftpu_ingest_*``).
+
+    One instance per :class:`serving.ingest.IngestRuntime`, its registry
+    appended to the serving ``GET /metrics`` exposition.  Same discipline
+    as the serving metrics: attributes are created once here, the metric
+    objects themselves are thread-safe, so the HTTP handler threads, the
+    WAL follower, and the refit scheduler observe freely.
+
+    Fleet note: ``wal_bytes`` / ``wal_segments`` / ``applied_day`` describe
+    SHARED state when replicas converge over one WAL directory — the
+    reference's fleet aggregator max-merges them instead of summing (the
+    fleet is ROADMAP Queue 1: P12).  ``tail_window_refits_total`` counts
+    the windowed path's refits (P9's second half) and stays 0 until it is
+    ported.
+    """
+
+    def __init__(self) -> None:
+        self.registry = MetricsRegistry()
+        self.points_total = self.registry.counter(
+            "dftpu_ingest_points_total",
+            "observation points accepted into the WAL")
+        self.late_points_total = self.registry.counter(
+            "dftpu_ingest_late_points_total",
+            "points at or before the applied day (history-only until the "
+            "next full refit)")
+        self.unknown_series_total = self.registry.counter(
+            "dftpu_ingest_unknown_series_total",
+            "points dropped because their key matches no fitted series")
+        self.out_of_range_total = self.registry.counter(
+            "dftpu_ingest_out_of_range_total",
+            "points dropped before the WAL because their day falls before "
+            "the training grid or beyond the max_pending_days horizon")
+        self.wal_appends_total = self.registry.counter(
+            "dftpu_ingest_wal_appends_total",
+            "WAL append batches written (one O_APPEND write each)")
+        self.applied_points_total = self.registry.counter(
+            "dftpu_ingest_applied_points_total",
+            "points applied to model state via batched update dispatches")
+        self.refits_total = self.registry.counter(
+            "dftpu_ingest_refits_total",
+            "background full refits completed and swapped in")
+        self.tail_window_refits_total = self.registry.counter(
+            "dftpu_ingest_tail_window_refits_total",
+            "windowed refits that re-fit only the tail window, reusing "
+            "frozen per-window stats for the untouched prefix "
+            "(engine.windowed streaming path)")
+        self.wal_bytes = self.registry.gauge(
+            "dftpu_ingest_wal_bytes",
+            "total bytes across WAL segments (shared in fleet mode: "
+            "max-merged by the aggregator)")
+        self.wal_segments = self.registry.gauge(
+            "dftpu_ingest_wal_segments",
+            "number of WAL segment files (shared in fleet mode: "
+            "max-merged by the aggregator)")
+        self.dirty_series = self.registry.gauge(
+            "dftpu_ingest_dirty_series",
+            "series with pending unapplied points")
+        self.pending_days = self.registry.gauge(
+            "dftpu_ingest_pending_days",
+            "distinct future days waiting in the pending buffer")
+        self.applied_day = self.registry.gauge(
+            "dftpu_ingest_applied_day",
+            "absolute day ordinal the model state is current through "
+            "(shared in fleet mode: max-merged by the aggregator)")
+        self.refit_backlog = self.registry.gauge(
+            "dftpu_ingest_refit_backlog",
+            "points applied incrementally since the last full refit")
+        self.update_seconds = self.registry.histogram(
+            "dftpu_ingest_update_seconds", _INGEST_BUCKETS,
+            "wall seconds per batched state-update dispatch")
+        self.refit_seconds = self.registry.histogram(
+            "dftpu_ingest_refit_seconds", _INGEST_BUCKETS,
+            "wall seconds per background full refit (fit + replay + swap)")
+        self.ingest_shutdown_stuck_total = self.registry.counter(
+            "dftpu_ingest_shutdown_stuck_total",
+            "shutdowns where the WAL follower thread outlived its join "
+            "timeout and was leaked (daemon) instead of drained")
+        self.refit_shutdown_stuck_total = self.registry.counter(
+            "dftpu_refit_shutdown_stuck_total",
+            "shutdowns where the refit scheduler thread outlived its join "
+            "timeout and was leaked (daemon) instead of drained")

@@ -23,9 +23,9 @@ device, in two legs that share one scorer:
   ``dftpu_anomaly_*`` counters and appending flagged points to a JSONL
   anomaly stream on the quality-store machinery
   (:class:`monitoring.store.TimeSeriesStore`).  A scoring failure never
-  fails the ingest — the WAL append already happened.  :meth:`score_ingest`
-  is here and tested, but has no caller until ``serving/ingest.py`` is
-  ported (ROADMAP Queue 1: P9).
+  fails the ingest — the WAL append already happened.  ``ForecastServer``
+  binds :meth:`score_ingest` to the ingest runtime (``serving/ingest.py``)
+  when both are on.
 
 Scoring contract (same sigma recovery as ``monitoring/monitor.py``'s
 batch ``detect_anomalies``): ``sigma = (yhat_upper - yhat) / z_w`` from

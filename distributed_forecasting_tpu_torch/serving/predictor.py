@@ -7,6 +7,11 @@ parameter rows and runs one batched forecast on the parameters' device.
 Unknown keys raise (or are skipped).  The artifact directory has the
 reference's layout — ``params.npz``, ``forecaster.json`` and an optional
 ``interval_scale.npy`` — so artifacts load in either package.
+
+Streaming ingest (``serving/ingest.py``) installs new filter state through
+:meth:`BatchForecaster.swap_state`: ``(params, day1)`` change together under
+one lock, and every predict reads them through one snapshot, so a request
+sees the whole old state or the whole new one.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -32,6 +38,7 @@ from distributed_forecasting_tpu_torch.models import get_model
 from distributed_forecasting_tpu_torch.models.base import generator_kwargs
 from distributed_forecasting_tpu_torch.utils.config import freeze, to_jsonable
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
+from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 _PARAMS_FILE = "params.npz"
 _META_FILE = "forecaster.json"
@@ -52,6 +59,11 @@ def load_params_npz(path: str, params_type: str, device=None):
     with np.load(path) as z:
         fields = {k: z[k] for k in z.files}
     return params_from_numpy(cls, fields, device)
+
+
+def _device_of(params) -> torch.device:
+    """The device a param dataclass lives on (its first field's)."""
+    return getattr(params, dataclasses.fields(params)[0].name).device
 
 
 class UnknownSeriesError(KeyError):
@@ -157,11 +169,24 @@ class BatchForecaster:
                 f"per trained series — got {self.interval_scale.shape}"
             )
         self._index = {tuple(k): i for i, k in enumerate(self.keys.tolist())}
+        # streaming state swap (serving/ingest): _state_lock makes (params,
+        # day1) one unit; held only for the swap and the snapshot, never
+        # across device work or I/O
+        self._state_lock = threading.Lock()
+        # install counter: every swap_state bumps it, so derived data can
+        # tell the state it was computed from apart from a newer one;
+        # listeners run after the swap, outside the lock
+        self._state_gen = 0
+        self._state_listeners: list = []
+        # time-grid bucket (engine/state_store sets it when streaming is
+        # attached): the predict grid's history end pads up to a multiple
+        # of this many days and the padded rows are trimmed before they
+        # are served; 1 is the exact grid
+        self.time_bucket = 1
 
     @property
     def device(self) -> torch.device:
-        first = dataclasses.fields(self.params)[0].name
-        return getattr(self.params, first).device
+        return _device_of(self._state_snapshot()[0])
 
     @property
     def n_series(self) -> int:
@@ -191,8 +216,11 @@ class BatchForecaster:
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
+        # one (params, day1) unit: a save racing a streaming apply must not
+        # write new params beside an old day1
+        params, day1 = self._state_snapshot()
         params_type = save_params_npz(os.path.join(directory, _PARAMS_FILE),
-                                      self.params)
+                                      params)
         scale_path = os.path.join(directory, _SCALE_FILE)
         if self.interval_scale is not None:
             np.save(scale_path, self.interval_scale)
@@ -206,7 +234,7 @@ class BatchForecaster:
             "key_names": list(self.key_names),
             "keys": self.keys.tolist(),
             "day0": self.day0,
-            "day1": self.day1,
+            "day1": day1,
             "freq": self.freq,
             "serving_schema": self.serving_schema,
         }
@@ -262,17 +290,60 @@ class BatchForecaster:
                 )
         return np.asarray(idx, dtype=np.int64)
 
-    def gather_params(self, sidx: np.ndarray):
+    # -- streaming state ------------------------------------------------------
+    def swap_state(self, params=None, day1: Optional[int] = None) -> None:
+        """Install new filter state: the streaming apply's and the refit's
+        commit point.  ``params`` (when given) is a param dataclass of the
+        same type; ``day1`` moves the last observed day the forecast grid
+        ends at.  A concurrent predict sees the whole old state or the whole
+        new one (:meth:`_state_snapshot`).  Every install bumps the state
+        generation, then calls the registered listeners outside the lock."""
+        with self._state_lock:
+            if params is not None:
+                self.params = params
+            if day1 is not None:
+                self.day1 = int(day1)
+            self._state_gen += 1
+            listeners = tuple(self._state_listeners)
+        for fn in listeners:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a listener must not fail the write
+                get_logger("BatchForecaster").exception(
+                    "state listener failed (state swap itself committed)")
+
+    def register_state_listener(self, fn) -> None:
+        """Call ``fn()`` after every committed :meth:`swap_state`, on the
+        writer's thread, outside the state lock."""
+        with self._state_lock:
+            self._state_listeners.append(fn)
+
+    def state_generation(self) -> int:
+        """The install counter (0 until the first :meth:`swap_state`)."""
+        with self._state_lock:
+            return self._state_gen
+
+    def _state_snapshot(self):
+        """``(params, day1)`` as one consistent unit; see
+        :meth:`swap_state`."""
+        with self._state_lock:
+            return self.params, self.day1
+
+    def gather_params(self, sidx: np.ndarray, params=None):
         """Row-gather the requested series out of the parameters: fields
         whose leading axis is the series axis are indexed, others (0-d
         fields such as the curve model's ``t0``/``t1``, its empty (0, 0)
-        regressor and AR fields) pass."""
+        regressor and AR fields) pass.  ``params`` overrides the installed
+        state (a request passes its own snapshot)."""
         S = self.n_series
-        take = torch.as_tensor(sidx, dtype=torch.long, device=self.device)
-        return type(self.params)(**{
+        if params is None:
+            params, _ = self._state_snapshot()
+        take = torch.as_tensor(sidx, dtype=torch.long,
+                               device=_device_of(params))
+        return type(params)(**{
             f.name: (v[take] if v.dim() >= 1 and v.shape[0] == S else v)
-            for f in dataclasses.fields(self.params)
-            for v in (getattr(self.params, f.name),)
+            for f in dataclasses.fields(params)
+            for v in (getattr(params, f.name),)
         })
 
     def _bucket(self, k: int) -> int:
@@ -282,24 +353,35 @@ class BatchForecaster:
     def _prepare_request(self, request, horizon, on_missing, xreg):
         """Resolve series, pad the request to its bucket (pad rows repeat
         the first series and are dropped by the caller), gather parameters,
-        scales and regressor rows, and build the full history + horizon day
-        grid.  Returns ``(sidx, params, day_all, fc_kwargs, scale)``.
+        scales and regressor rows, and build the history + horizon day grid.
+        Returns ``(sidx, params, day_all, fc_kwargs, scale, t_end,
+        n_real)``: ``(params, t_end)`` come from one state snapshot, and
+        ``n_real`` is the count of grid rows the caller keeps — with
+        ``time_bucket > 1`` the history end pads up to a bucket multiple
+        and the trailing rows are trimmed before any ``include_history``
+        logic.
 
         ``xreg``: (T_all, R) shared or (S_trained, T_all, R) per series over
-        the whole ``day0 .. day1 + horizon`` grid; per-series rows are
-        gathered with the request's padded indices.  (The port serves no
-        time-bucketed grid, so the grid is exactly those T_all days.)"""
+        the ``day0 .. day1 + horizon`` grid (or over the padded grid);
+        per-series rows are gathered with the request's padded indices."""
         sidx = self.series_indices(request, on_missing=on_missing)
         if sidx.size == 0:
-            return sidx, None, None, None, None
+            return sidx, None, None, None, None, None, 0
+        params_snap, day1_snap = self._state_snapshot()
+        dev = _device_of(params_snap)
+        span = day1_snap - self.day0 + 1
+        if self.time_bucket > 1:
+            b = int(self.time_bucket)
+            span = ((span + b - 1) // b) * b
+        n_real = day1_snap - self.day0 + horizon + 1
         bucket = self._bucket(int(sidx.size))
         padded = np.concatenate(
             [sidx, np.full(bucket - sidx.size, sidx[0], sidx.dtype)]
         )
-        day_all = torch.arange(self.day0, self.day1 + horizon + 1,
-                               dtype=torch.int32, device=self.device)
+        day_all = torch.arange(self.day0, self.day0 + span + horizon,
+                               dtype=torch.int32, device=dev)
         scale = (None if self.interval_scale is None else torch.as_tensor(
-            self.interval_scale[padded], device=self.device))
+            self.interval_scale[padded], device=dev))
         fc_kwargs = {}
         if xreg is not None:
             if not get_model(self.model).supports_xreg:
@@ -307,18 +389,22 @@ class BatchForecaster:
                     f"model {self.model!r} does not accept exogenous "
                     f"regressors"
                 )
-            xreg = torch.as_tensor(xreg, dtype=torch.float32,
-                                   device=self.device)
+            xreg = torch.as_tensor(xreg, dtype=torch.float32, device=dev)
             if xreg.dim() not in (2, 3):
                 raise ValueError(
                     f"xreg must be (T_all, R) or (S_trained, T_all, R), got "
                     f"{xreg.dim()}-D"
                 )
             T_grid = int(day_all.shape[0])
-            if xreg.shape[-2] != T_grid:
+            if xreg.shape[-2] == n_real and n_real != T_grid:
+                # time-bucketed grid: regressors cover the real rows; the
+                # padded rows are trimmed from the output, never served
+                xreg = torch.nn.functional.pad(
+                    xreg, (0, 0, 0, T_grid - n_real))
+            elif xreg.shape[-2] != T_grid:
                 raise ValueError(
                     f"xreg time axis is {xreg.shape[-2]}, expected the full "
-                    f"history+horizon grid {T_grid}"
+                    f"history+horizon grid {n_real}"
                 )
             if xreg.dim() == 3:
                 # a wrong leading dim would serve another series' covariates
@@ -329,9 +415,10 @@ class BatchForecaster:
                         f"are gathered down to the request internally)"
                     )
                 xreg = xreg[torch.as_tensor(padded, dtype=torch.long,
-                                            device=self.device)]
+                                            device=dev)]
             fc_kwargs["xreg"] = xreg
-        return sidx, self.gather_params(padded), day_all, fc_kwargs, scale
+        return (sidx, self.gather_params(padded, params=params_snap),
+                day_all, fc_kwargs, scale, day1_snap, n_real)
 
     def _frame_skeleton(self, sidx, day_all):
         """ds + key columns for a long result frame over ``day_all``."""
@@ -354,7 +441,8 @@ class BatchForecaster:
         xreg = None
         R = getattr(self.config, "n_regressors", 0)
         if R:
-            T_all = self.day1 - self.day0 + horizon + 1
+            _, day1 = self._state_snapshot()
+            T_all = day1 - self.day0 + horizon + 1
             xreg = torch.zeros((T_all, R), dtype=torch.float32,
                                device=self.device)
         for b in buckets:
@@ -372,17 +460,22 @@ class BatchForecaster:
         grid, (T_all, R) shared or (S_trained, T_all, R) per series.
         ``generator``: the draws of Monte-Carlo intervals (``None`` seeds
         one with 0, the reference's default key)."""
-        sidx, params, day_all, fc_kwargs, scale = self._prepare_request(
-            request, horizon, on_missing, xreg)
+        (sidx, params, day_all, fc_kwargs, scale, t_end,
+         n_real) = self._prepare_request(request, horizon, on_missing, xreg)
         if sidx.size == 0:
             return pd.DataFrame(
                 columns=["ds", *self.key_names, "yhat", "yhat_upper", "yhat_lower"]
             )
         fns = get_model(self.model)
         k = int(sidx.size)
-        yhat, lo, hi = fns.forecast(params, day_all, float(self.day1),
+        yhat, lo, hi = fns.forecast(params, day_all, float(t_end),
                                     self.config, **fc_kwargs,
                                     **generator_kwargs(fns, generator))
+        if n_real < int(day_all.shape[0]):
+            # the time-bucket padding rows go BEFORE the history trim, so
+            # [-horizon:] ends on the real last day
+            day_all = day_all[:n_real]
+            yhat, lo, hi = yhat[:, :n_real], lo[:, :n_real], hi[:, :n_real]
         yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
                                             floor=fns.band_floor)
         if not include_history:
@@ -409,8 +502,8 @@ class BatchForecaster:
                 f"implementation"
             )
         quantiles = tuple(float(q) for q in quantiles)
-        sidx, params, day_all, fc_kwargs, scale = self._prepare_request(
-            request, horizon, on_missing, xreg)
+        (sidx, params, day_all, fc_kwargs, scale, t_end,
+         n_real) = self._prepare_request(request, horizon, on_missing, xreg)
         qcols = quantile_columns(quantiles)
         if sidx.size == 0:
             return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
@@ -420,10 +513,13 @@ class BatchForecaster:
         priced = quantiles
         if scale is not None and 0.5 not in priced:
             priced = tuple(sorted((*priced, 0.5)))
-        yq = fns.forecast_quantiles(params, day_all, float(self.day1),
+        yq = fns.forecast_quantiles(params, day_all, float(t_end),
                                     self.config, priced, **fc_kwargs,
                                     **generator_kwargs(fns, generator))
         # (bucket, Q, T_all)
+        if n_real < int(day_all.shape[0]):
+            day_all = day_all[:n_real]
+            yq = yq[:, :, :n_real]
         if scale is not None:
             med = yq[:, priced.index(0.5), :][:, None, :]
             yq = med + scale[:, None, None] * (yq - med)

@@ -18,7 +18,9 @@ reference's routes, statuses, headers and bodies:
                              reference's order: the serving counters, gauges
                              and histograms; with a quality runtime the
                              ``dftpu_quality_*`` and ``dftpu_slo_*``
-                             families; with an anomaly scorer the
+                             families; with an ingest runtime the
+                             ``dftpu_ingest_*`` ones; with an anomaly
+                             scorer the
                              ``dftpu_anomaly_*`` ones; and, once a
                              data-quality report has run in the process,
                              the ``dftpu_data_quality_*`` gauges
@@ -34,19 +36,27 @@ reference's routes, statuses, headers and bodies:
   POST /observe           -> {"observations": [{<keys>, "ds", "y"}, ...]}:
                              actuals scored against what the model serves
                              (``monitoring/quality.py``); 503 without a
-                             quality runtime
+                             quality runtime; with ``observe_feeds_ingest``
+                             the actuals also enter the ingest WAL
   POST /detect_anomalies -> {"points": [{<keys>, "ds", "y"}, ...],
                               "threshold": 4.0, "on_missing": "skip"}:
                              actuals scored against the served bands in one
                              batched predict, through the coalescer when
                              batching is on (``serving/anomaly.py``); 503
                              without an anomaly scorer
-  POST /ingest            -> 503, as the reference answers without an
-                             ingest runtime (not ported: ROADMAP Queue 1:
-                             P9)
+  POST /ingest            -> {"points": [{<keys> | "keys": {...} |
+                              "k": [...], "ds": ... | "d": <ordinal>,
+                              "y": ...}, ...]}: appended to the write-ahead
+                             log (``serving/ingest.py``); the ack counts
+                             written / unknown_series / malformed /
+                             out_of_range, and in sync mode ``applied``
+                             (the next /invocations already reflects the
+                             points); 400 for a bad body or too many
+                             points, 503 without an ingest runtime
   GET  /debug/*           -> 404, as the reference answers with
                              ``tracing.debug_endpoints: false`` (tracing is
-                             P11; ``/debug/quality`` included)
+                             P11; ``/debug/quality`` and ``/debug/ingest``
+                             included)
 
 ``serve`` blocks; ``start_server`` returns the live server for tests and
 embedding.  Requests go through the micro-batching coalescer
@@ -55,10 +65,14 @@ embedding.  Requests go through the micro-batching coalescer
 With a quality runtime, the server binds the runtime to its own metrics and
 starts its scrape and SLO threads at construction, and ``shutdown`` stops
 them (one final scrape) before the accept loop stops, as the reference does.
+An ingest runtime is started at construction too (its WAL follower in
+interval mode, its refit scheduler) and stopped in ``shutdown``; with an
+anomaly scorer whose ``stream_scoring`` is on, every validated /ingest
+batch is scored against the current bands before it applies.
 
 Not here: the spans and the flight-recorder dump on a 5xx (P11), the
-streaming-ingest and forecast-cache runtimes (P9, P12; their parameters take
-None only) and the sharded replicas' ``extra_metrics`` (P12).
+forecast-cache runtime (P12; its parameter takes None only) and the
+sharded replicas' ``extra_metrics`` (P12).
 """
 
 from __future__ import annotations
@@ -102,7 +116,6 @@ _MAX_QUANTILES = 32  # more levels than any scorer needs
 # the runtimes the reference's server takes and the port lacks: their
 # modules and ROADMAP items (the serve task refuses their conf blocks too)
 UNPORTED_RUNTIMES = {
-    "ingest": ("serving/ingest.py", "P9"),
     "cache": ("serving/forecast_cache.py", "P12"),
 }
 
@@ -206,6 +219,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             text = self.server.metrics.render()
             if self.server.quality is not None:
                 text += self.server.quality.render_metrics()
+            if self.server.ingest is not None:
+                text += self.server.ingest.render_metrics()
             if self.server.anomaly is not None:
                 text += self.server.anomaly.render_metrics()
             text += render_data_quality_metrics()
@@ -239,9 +254,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             self._observe()
             return
         if self.path == "/ingest":
-            self._send(503, {"error": "streaming ingest not enabled "
-                                      "(serving.ingest conf block)"},
-                       extra_headers=(("Retry-After", "60"),))
+            self._ingest()
             return
         if self.path == "/detect_anomalies":
             self._detect_anomalies()
@@ -383,6 +396,15 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             summary = quality.observe(
                 pd.DataFrame(observations),
                 on_missing=req.get("on_missing", "skip"))
+            ingest = self.server.ingest
+            if ingest is not None and ingest.config.observe_feeds_ingest:
+                # the scoring feedback loop doubles as an ingest source; a
+                # feed failure must not fail the observe (scoring is done)
+                try:
+                    summary["ingest"] = ingest.submit(observations)
+                except Exception:  # noqa: BLE001
+                    self.server.logger.exception(
+                        "observe -> ingest feed failed")
             self._send(200, summary)
         except UnknownSeriesError as e:
             self._send(404, {"error": str(e)})
@@ -452,6 +474,40 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             self.server.logger.exception("detect_anomalies failed")
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
+    def _ingest(self):
+        """POST /ingest: new observations into the streaming WAL.
+
+        Body: ``{"points": [{<key cols> | "keys": {...} | "k": [...],
+        "ds": "..." | "d": <ordinal>, "y": ...}, ...]}``.  The append is
+        durable before the response; in sync mode the response's
+        ``applied`` block means the next /invocations already reflects the
+        points — one batched update, no refit."""
+        ingest = self.server.ingest
+        if ingest is None:
+            self._send(503, {"error": "streaming ingest not enabled "
+                                      "(serving.ingest conf block)"},
+                       extra_headers=(("Retry-After", "60"),))
+            return
+        self._trace_id = _trace_id(self.headers.get("X-Trace-Id"))
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(req, dict):
+                self._send(400, {"error": "body must be a JSON object "
+                                          "with 'points'"})
+                return
+            points = req.get("points")
+            if not points or not isinstance(points, list):
+                self._send(400, {"error": "body needs a non-empty "
+                                          "'points' list"})
+                return
+            self._send(200, ingest.submit(points))
+        except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
+            self._send(400, {"error": f"{type(e).__name__}: {e}"})
+        except Exception as e:  # noqa: BLE001 — the scorer outlives a request
+            self.server.logger.exception("ingest failed")
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
 
 class ForecastServer(PooledHTTPServer):
     """The scorer: listen backlog, worker pool, keep-alive and TCP_NODELAY
@@ -469,12 +525,11 @@ class ForecastServer(PooledHTTPServer):
         cache=None,
         http: Optional[HttpConfig] = None,
     ):
-        for name, value in (("ingest", ingest), ("cache", cache)):
-            if value is not None:
-                module, item = UNPORTED_RUNTIMES[name]
-                raise NotImplementedError(
-                    f"{name}= ({module}) is not ported yet "
-                    f"(ROADMAP Queue 1: {item})")
+        if cache is not None:
+            module, item = UNPORTED_RUNTIMES["cache"]
+            raise NotImplementedError(
+                f"cache= ({module}) is not ported yet "
+                f"(ROADMAP Queue 1: {item})")
         super().__init__(addr, _Handler, http=http)
         self.forecaster = forecaster
         self.model_version = model_version
@@ -490,11 +545,24 @@ class ForecastServer(PooledHTTPServer):
         if quality is not None:
             quality.attach_server_metrics(self.metrics)
             quality.start()
+        # the streaming ingest runtime (serving/ingest.IngestRuntime): its
+        # WAL follower and refit scheduler start here and stop in shutdown
+        self.ingest = ingest
+        if ingest is not None:
+            ingest.start()
+            self.logger.info(
+                "streaming ingest on: wal_dir=%s apply_mode=%s refit=%s",
+                ingest.wal.directory, ingest.config.apply_mode,
+                "on" if ingest.refit is not None else "off")
         # the anomaly scorer (serving/anomaly.AnomalyScorer): detection
         # batches ride the same coalescing dispatch as forecast traffic
         self.anomaly = anomaly
         if anomaly is not None:
             anomaly.bind_execute(self.execute)
+            if ingest is not None and anomaly.config.stream_scoring:
+                # the streaming leg: every validated /ingest batch is
+                # scored against the current bands before it applies
+                ingest.anomaly = anomaly
             self.logger.info(
                 "anomaly detection on: threshold=%.3f stream_scoring=%s",
                 anomaly.threshold,
@@ -573,6 +641,9 @@ class ForecastServer(PooledHTTPServer):
         self._ready.clear()
         if self.batcher is not None:
             self.batcher.close()
+        if self.ingest is not None:
+            # stop the follower and refit threads; the WAL stays on disk
+            self.ingest.stop()
         if self.quality is not None:
             # stop the SLO and scrape threads and flush one final scrape, so
             # the on-disk history covers the whole process lifetime

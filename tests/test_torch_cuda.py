@@ -1272,3 +1272,161 @@ def test_bf16_gate_leaves_the_kernel_route_unchanged(dev):
         precision.configure_precision(precision.PrecisionConfig())
     for f in ("alpha", "beta", "gamma", "level", "fitted"):
         assert torch.equal(getattr(fits[False], f), getattr(fits[True], f)), f
+
+
+# -- streaming ingest: the update continues the card's fit ------------------
+
+_PINNED = dict(n_alpha=1, n_beta=1, n_gamma=1, damped=False)
+
+
+@pytest.mark.parametrize("k", [1, 7, 40])
+def test_hw_stream_equals_the_hw_filter_fit_on_the_card(dev, k):
+    """A pinned 1-candidate grid (``filter: auto``: hw_score, then the
+    hw_filter kernel): k streamed columns through ``update_state`` (the
+    port's ``_hw_step`` loop, PyTorch's elementwise kernels) equal the
+    kernel's fit of the extended series bit for bit."""
+    from distributed_forecasting_tpu_torch.ops.update import apply_update
+
+    T = 300
+    y, mask = _workload(8, T + k, dev, seed=k)
+    day = torch.arange(16_000, 16_000 + T + k, dtype=torch.int32, device=dev)
+    cfg = hw.HoltWintersConfig(**_PINNED)
+    before = fs.hw_filter.launches
+    params = hw.fit(y[:, :T], mask[:, :T], day[:T], cfg)
+    assert fs.hw_filter.launches == before + 1
+    aux = hw.init_update_aux(params, mask=mask[:, :T])
+    got, _, preds = apply_update(
+        "holt_winters", cfg, params, aux, y[:, T:], mask[:, T:],
+        [1.0] * k, day[T:].cpu().numpy(), day0=16_000)
+    ref = hw.fit(y, mask, day, cfg)
+    for name in ("level", "trend", "season"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert torch.equal(preds, ref.fitted[:, T:])
+
+
+def _streamed_store(dev, model, S=16, T=200, bucket=32, seed=3):
+    from distributed_forecasting_tpu_torch.data import (
+        synthetic_store_item_sales,
+        tensorize,
+    )
+    from distributed_forecasting_tpu_torch.engine.state_store import (
+        SeriesStateStore,
+    )
+    from distributed_forecasting_tpu_torch.models.base import get_model
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+
+    batch = tensorize(synthetic_store_item_sales(
+        n_stores=2, n_items=S // 2, n_days=T, seed=seed), device=dev)
+    fns = get_model(model)
+    cfg = fns.config_cls(**(_PINNED if model == "holt_winters" else {}))
+    params = fns.fit(batch.y, batch.mask, batch.day, cfg)
+    fc = BatchForecaster.from_fit(batch, params, model, cfg)
+    store = SeriesStateStore(fc, time_bucket=bucket,
+                             history_y=batch.y.cpu().numpy(),
+                             history_mask=batch.mask.cpu().numpy(),
+                             device=dev)
+    return batch, fc, store
+
+
+@pytest.mark.parametrize("model", ["holt_winters", "theta", "croston"])
+def test_stream_chained_and_across_a_bucket_on_the_card(dev, model):
+    """One day at a time across a time-bucket boundary equals the same days
+    in one apply, bit for bit, for each family; the padded fitted buffer
+    grows one bucket and its padding stays 0."""
+    import numpy as np
+
+    stores = [_streamed_store(dev, model) for _ in range(2)]
+    rng = np.random.default_rng(9)
+    k = 40  # 200 days + 40 crosses the 224 cap
+    S = stores[0][2].n_series
+    vals = rng.gamma(4.0, 10.0, (S, k))
+    day1 = stores[0][2].day_cur
+    for j in range(k):
+        stores[0][2].ingest([(s, day1 + 1 + j, float(vals[s, j]))
+                             for s in range(S) if (s + j) % 5])
+        stores[0][2].apply_pending()
+    stores[1][2].ingest([(s, day1 + 1 + j, float(vals[s, j]))
+                         for j in range(k) for s in range(S) if (s + j) % 5])
+    assert stores[1][2].apply_pending()["days"] == k
+    a, b = stores[0][2]._params, stores[1][2]._params
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    assert a.fitted.shape[1] == 256
+    assert not torch.any(a.fitted[:, 240:])
+
+
+def test_stream_during_refit_on_the_card(dev):
+    """A forced refit on the scheduler's stream while days apply on the
+    default stream: one hw_score and one hw_filter launch, the install
+    replays the days applied meanwhile and equals fit-then-update bitwise,
+    and predicts during the refit see whole states."""
+    import threading
+
+    import numpy as np
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.engine.executor import device_pull
+    from distributed_forecasting_tpu_torch.serving.refit import (
+        RefitConfig,
+        RefitScheduler,
+    )
+
+    batch, fc, store = _streamed_store(dev, "holt_winters", S=64, T=400)
+    sched = RefitScheduler(store, RefitConfig(
+        enabled=True, max_applied_points=10**9, max_staleness_s=1e9,
+        check_interval_s=60))
+    S = store.n_series
+    rng = np.random.default_rng(2)
+    prep, dispatch, complete = store.refit_stages()
+    counts = (fs.hw_score.launches, fs.hw_filter.launches)
+    prepared = prep()
+    day_snap = prepared["day_snap"]
+    for _ in range(5):  # applied between the snapshot and the install
+        d = store.day_cur + 1
+        store.ingest([(s, d, float(rng.gamma(4.0, 10.0))) for s in range(S)])
+        store.apply_pending()
+    req = pd.DataFrame(fc.keys[:3], columns=list(fc.key_names))
+    answers = []
+    reader = threading.Thread(target=lambda: answers.extend(
+        fc.predict(req, horizon=7) for _ in range(20)))
+    reader.start()
+    state, done = sched._executor._dispatch(dispatch, prepared)
+    device_pull(done)  # the event recorded on the refit stream
+    complete(state)
+    reader.join()
+    sched.stop()
+    assert (fs.hw_score.launches - counts[0],
+            fs.hw_filter.launches - counts[1]) == (1, 1)
+    assert all(np.isfinite(a.yhat).all() for a in answers)
+    t_snap = day_snap - store.day0 + 1
+    y = torch.as_tensor(store._y[:, :t_snap], device=dev)
+    m = torch.as_tensor(store._mask[:, :t_snap], device=dev)
+    p0 = hw.fit(y, m, torch.arange(store.day0, day_snap + 1,
+                                   dtype=torch.int32, device=dev),
+                store.config)
+    p1, _, _ = hw.update_state(
+        p0, hw.init_update_aux(p0, mask=m),
+        torch.as_tensor(store._y[:, t_snap:t_snap + 5], device=dev),
+        torch.as_tensor(store._mask[:, t_snap:t_snap + 5], device=dev),
+        [1.0] * 5, list(range(day_snap + 1, day_snap + 6)), store.config)
+    for name in ("level", "trend", "season", "alpha"):
+        assert torch.equal(getattr(store._params, name),
+                           getattr(p1, name)), name
+
+
+@pytest.mark.parametrize("model", ["holt_winters", "theta", "croston"])
+def test_time_bucket_predict_byte_equal_on_the_card(dev, model):
+    """A padded predict grid (``time_bucket`` 32) trims to the exact grid's
+    bytes on the card: every family's forecast works row by row in time."""
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+
+    batch, fc, _ = _streamed_store(dev, model, T=210)
+    exact = BatchForecaster.from_fit(batch, fc.params, model, fc.config)
+    req = pd.DataFrame(batch.keys[:5], columns=list(batch.key_names))
+    for hist in (False, True):
+        a = exact.predict(req, horizon=30, include_history=hist)
+        b = fc.predict(req, horizon=30, include_history=hist)
+        assert fc.time_bucket == 32
+        pd.testing.assert_frame_equal(a, b, check_exact=True)

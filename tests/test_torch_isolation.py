@@ -93,6 +93,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.ops.clean\n"
         "import distributed_forecasting_tpu_torch.serving.forecast_cache\n"
         "import distributed_forecasting_tpu_torch.serving.ingest\n"
+        "import distributed_forecasting_tpu_torch.serving.refit\n"
+        "import distributed_forecasting_tpu_torch.engine.state_store\n"
+        "import distributed_forecasting_tpu_torch.ops.update\n"
         "import distributed_forecasting_tpu_torch.tracking.mlflow_compat\n"
         "import distributed_forecasting_tpu_torch.version\n"
         "import distributed_forecasting_tpu_torch.visualization\n"
@@ -132,6 +135,8 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
             {"beta": np.ones((2, 3), np.float32)}, device=d),
         "arnet_params_from_numpy": lambda d: convert.arnet_params_from_numpy(
             {"w": np.ones((2, 3), np.float32)}, device=d),
+        "update_aux_from_numpy": lambda d: convert.update_aux_from_numpy(
+            {"sse": np.ones(2, np.float32)}, device=d),
         "regressors_for_grid": lambda d: data.regressors_for_grid(
             df.assign(p=1.0), day0=15706, n_days=10, regressor_cols=["p"],
             per_series=True, keys=np.array([[1, 1]]),
@@ -154,6 +159,22 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchForecaster.load(str(tmp_path))
     assert BatchForecaster.load(str(tmp_path), device="cpu").device.type == "cpu"
+    # streaming ingest: the state store and the runtime that builds it
+    from distributed_forecasting_tpu_torch.engine.state_store import (
+        SeriesStateStore,
+    )
+    from distributed_forecasting_tpu_torch.serving.ingest import (
+        build_ingest_runtime,
+    )
+
+    conf = {"enabled": True, "wal_dir": str(tmp_path / "wal")}
+    for make in (lambda d: SeriesStateStore(fc, device=d),
+                 lambda d: build_ingest_runtime(conf, fc, device=d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(None)
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            make("cuda")
+    assert SeriesStateStore(fc, device="cpu").device.type == "cpu"
 
 
 def test_task_layer_refuses_to_run_without_a_card(no_cuda, tmp_path,

@@ -29,6 +29,7 @@ import json
 import os
 import re
 import threading
+import types
 import urllib.error
 import urllib.request
 
@@ -421,8 +422,23 @@ def test_readyz_until_marked_ready_and_after_shutdown(servers):
 
 @pytest.mark.parametrize("runtime", ["ingest", "cache"])
 def test_unported_runtimes_are_refused(servers, runtime):
-    item = {"ingest": "P9", "cache": "P12"}[runtime]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1: {item}"):
+    """``cache=`` (P12) is refused; ``ingest=`` is ported: the server takes
+    the runtime, starts it at construction and stops it in ``shutdown``
+    (``tests/test_torch_ingest.py`` drives a real one)."""
+    if runtime == "ingest":
+        calls = []
+        ingest = types.SimpleNamespace(
+            start=lambda: calls.append("start"),
+            stop=lambda: calls.append("stop"),
+            wal=types.SimpleNamespace(directory="wal"),
+            config=types.SimpleNamespace(apply_mode="sync"), refit=None)
+        srv = tserver.start_server(servers["port"].forecaster,
+                                   ingest=ingest)
+        assert srv.ingest is ingest and calls == ["start"]
+        srv.shutdown()
+        assert calls == ["start", "stop"]
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: P12"):
         tserver.ForecastServer(("127.0.0.1", 0), servers["port"].forecaster,
                                **{runtime: object()})
 

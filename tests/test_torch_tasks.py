@@ -1385,17 +1385,22 @@ def _serve_conf(root, **serving):
 
 
 @pytest.mark.parametrize("block, item", [
-    ("serving.ingest", "P9"), ("serving.cache", "P12"),
+    ("serving.ingest", None), ("serving.cache", "P12"),
     ("serving.tracing.debug_endpoints", "P11"),
 ], ids=["ingest", "cache", "debug_endpoints"])
 def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
                                                            monkeypatch,
                                                            block, item):
     """The registry under tmp_path is empty: had the task reached the model
-    load, it would fail there instead."""
+    load, it would fail there instead.  ``serving.ingest`` is ported: its
+    block parses and the task goes on to the load (here a stub that
+    raises)."""
     from distributed_forecasting_tpu_torch.tasks import serve as tserve
 
-    monkeypatch.setattr(tserve, "resolve_from_registry", None)
+    def load(*args, **kwargs):
+        raise LookupError("reached the model load")
+
+    monkeypatch.setattr(tserve, "resolve_from_registry", load)
     conf = _serve_conf(str(tmp_path))
     section, *path = block.split(".")
     node = conf[section]
@@ -1405,6 +1410,10 @@ def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
         node["debug_endpoints"] = True
     else:
         node[path[-1]]["enabled"] = True
+    if item is None:
+        with pytest.raises(LookupError, match="reached the model load"):
+            tserve.ServeTask(init_conf=conf, device="cpu").launch()
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1: {item}\)"):
         tserve.ServeTask(init_conf=conf, device="cpu").launch()
@@ -1566,3 +1575,98 @@ def test_serve_task_runs_the_anomaly_scorer(runs, monkeypatch):
         assert scorer.store.query(name="dftpu_anomaly_point")
     finally:
         srv.shutdown()
+
+
+def _register_streamed(root, sidecar: bool):
+    """A Holt-Winters artifact fit by the port on a synthetic table,
+    registered in Staging under ``root`` (with a ``history.npz`` sidecar of
+    its training y / mask when ``sidecar``, as whoever registers a
+    streamed model writes it)."""
+    from distributed_forecasting_tpu_torch.data import (
+        synthetic_store_item_sales,
+        tensorize,
+    )
+    from distributed_forecasting_tpu_torch.models.base import get_model
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+
+    batch = tensorize(synthetic_store_item_sales(n_stores=2, n_items=3,
+                                                 n_days=200, seed=4),
+                      device="cpu")
+    fns = get_model("holt_winters")
+    cfg = fns.config_cls()
+    params = fns.fit(batch.y, batch.mask, batch.day, cfg)
+    art = os.path.join(root, "artifact")
+    BatchForecaster.from_fit(batch, params, "holt_winters", cfg).save(art)
+    if sidecar:
+        np.savez(os.path.join(art, "history.npz"), y=batch.y.numpy(),
+                 mask=batch.mask.numpy())
+    registry = _handles(root)[2]
+    version = registry.register_model(MODEL, art)
+    registry.transition_stage(MODEL, version.version, "Staging")
+    return batch
+
+
+@pytest.mark.parametrize("sidecar", [True, False],
+                         ids=["sidecar", "no_sidecar"])
+def test_serve_task_runs_streaming_ingest(tmp_path, monkeypatch, sidecar):
+    """The shipped serve conf with ``serving.ingest.enabled: true`` and its
+    refit block on: the task builds the runtime (WAL under
+    ``<env.root>/ingest_wal``); with the ``history.npz`` sidecar the refit
+    scheduler runs, without it the refit block is dropped with the
+    reference's warning and the incremental path serves alone.  POST
+    /ingest then freshens /invocations."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.serving import server as tserver
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    root = str(tmp_path)
+    _register_streamed(root, sidecar)
+    conf = _serve_conf(root, warmup_sizes=[1])
+    conf["serving"]["ingest"]["enabled"] = True
+    conf["serving"]["ingest"]["refit"]["enabled"] = True
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("ServeTask").addHandler(handler)
+    try:
+        kw = tserve.ServeTask(init_conf=conf, device="cpu").server_args()
+    finally:
+        logging.getLogger("ServeTask").removeHandler(handler)
+    text = [r.getMessage() for r in records]
+    ingest = kw["ingest"]
+    assert ingest.wal.directory == os.path.join(root, "ingest_wal")
+    warning = ("serving.ingest.refit is enabled but the artifact has no "
+               "history.npz sidecar; serving incremental-only")
+    if sidecar:
+        assert ingest.refit is not None and ingest.store.can_refit
+        assert warning not in text
+    else:
+        assert ingest.refit is None and not ingest.store.can_refit
+        assert warning in text
+    kw.update(port=0, host="127.0.0.1")
+    srv = tserver.start_server(**kw)
+    try:
+        fc = srv.forecaster
+        day1 = int(fc.day1)
+        keys = [dict(zip(fc.key_names, map(int, k))) for k in fc.keys]
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        points = [{**k, "d": day1 + 1, "y": 20.0} for k in keys]
+        req = urllib.request.Request(
+            url + "/ingest", data=json.dumps({"points": points}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            ack = json.loads(r.read())
+        assert ack["written"] == len(keys)
+        assert ack["applied"]["points"] == len(keys)
+        req = urllib.request.Request(
+            url + "/invocations",
+            data=json.dumps({"inputs": keys[:1], "horizon": 3}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            preds = json.loads(r.read())["predictions"]
+        first = pd.Timestamp(preds[0]["ds"])
+        assert first == pd.Timestamp("1970-01-01") + pd.Timedelta(
+            days=day1 + 2)
+    finally:
+        srv.shutdown()
+
