@@ -287,17 +287,23 @@ is not 0:
               csrc/arima_mle.cu) against its twin bit for bit, and its ssq,
               ldet and n against arima_filter's bit for bit, at the fit
               shape (2, 1, 1), the CV pass's 1,500 rows, d = 0, 10% more
-              cells masked, r = 4 and r = 9 (the shared-memory path); its
+              cells masked, r = 4, 8 and 9 (the shared-memory path); its
               Jacobian against float64 autograd through the plain filter
               (fit shape, r = 9) within 1e-3 of each row's scale or twice
-              float32 autograd's distance from it; ValueError at r = 70.  (b) fit_forecast and the CV pass with ``method:
-              mle`` with the counters set to 0 around them: 200 gradient
-              launches a fit (one an Adam step), arima_filter and
-              arima_predict launched; outputs finite; 20 series on their
-              last 365 days against the CPU within 1e-4 of scale; the HR and
-              MLE one-step in-sample MSE of every series side by side; the
-              train task with ``model_conf: {method: mle}`` through deploy
-              and inference; ``model: auto`` with an MLE arima.  (c) The
+              float32 autograd's distance from it; ValueError at r = 70.
+              The fit kernel (``arima_mle_fit``) against its twin bit for
+              bit (u, phi, theta) after 2 Adam steps at the fit shape and
+              the CV pass's rows, and at r = 8 and 9 (1 step); ValueError
+              at r = 70.  (b) fit_forecast and the CV pass with
+              ``method: mle`` with the counters set to 0 around them: one
+              arima_mle_fit launch a fit (all 200 Adam steps), no
+              arima_loglik_grad launch, arima_filter and arima_predict
+              launched; outputs finite; 20 series on their last 365 days
+              against the CPU within 1e-4 of scale; the HR and MLE one-step
+              in-sample MSE of every series side by side; the train task
+              with ``model_conf: {method: mle}`` through deploy and
+              inference (2 fit launches: CV and fit); ``model: auto`` with
+              an MLE arima.  (c) The
               bf16 gate: the scan route's bf16 winners differ from float32
               only inside the bf16 error measured on the two candidates;
               HW train tasks gated and not under ``filter: scan`` and
@@ -305,9 +311,12 @@ is not 0:
               ``successive_halving_select`` at ``AutoMLConfig()``'s defaults
               (hw_score launches in it), a 1e-3 s budget tripping the gate,
               and the train task with ``engine.automl.enabled`` byte-equal
-              to the task without it.  (e) The kernel's CUDA-event median
-              beside its bound and serial chain, its twin once; the MLE
-              fit's wall time, device events, idle share and host syncs
+              to the task without it.  (e) Both kernels' CUDA-event medians
+              beside their bounds, serial chains and cycles a time step
+              (the fit kernel as the main path launches it: 200 steps),
+              the fit's per-step time over its first and last 20 steps,
+              the twins once; the MLE fit's wall time, device events, idle
+              share and host syncs
  16. stream   streaming ingest (``slice15_phase``) on the committed
               dataset.  (a) Holt-Winters (96 candidates), theta and croston
               fit on the card with the counters set to 0 just before, each
@@ -649,30 +658,85 @@ def check_stages(staged, params, result) -> None:
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
-def idle_share(fn, top_n: int = 0) -> dict:
+# The trace's margins and attempts.  Once a process has made many
+# launches, Kineto drops device events of a trace as "Out-of-range" of its
+# window (its log's count; it also warns of kernels stamped before their
+# own launch calls), erratically: a probe's kernels were lost in some
+# traces and not in the next (PERF.md section 7), and late in the smoke
+# the MLE fit's trace lost its hand kernels.
+# So the trace opens TRACE_HEAD_S before the measured call and closes
+# TRACE_TAIL_S after a marker kernel (aten's spin_kernel, under a host
+# annotation) that ends it, and a trace that misses the marker or a hand
+# kernel the call launched is taken again, up to TRACE_ATTEMPTS times,
+# then reported "not measured".
+TRACE_HEAD_S = 1.0
+TRACE_TAIL_S = 0.5
+TRACE_ATTEMPTS = 3
+TAIL_MARK = "chip_smoke.trace_tail"
+
+
+def hand_launches() -> dict:
+    """The launch counter of every hand kernel (:data:`KERNELS`)."""
+    from distributed_forecasting_tpu_torch.ops import fused_scan, kalman
+
+    return {k: getattr(fused_scan if k.startswith("hw_") else kalman,
+                       k).launches for k in KERNELS}
+
+
+def idle_share(fn, top_n: int = 0,
+               margins: tuple = (TRACE_HEAD_S, TRACE_TAIL_S),
+               attempts: int = TRACE_ATTEMPTS) -> dict:
     """The device's busy time (union of kernel intervals in a torch.profiler
     trace) over the host wall time of one ``fn()`` ending in a synchronize,
     the traced durations of the port's own kernels in it, the device events
     counted and timed by kind (:data:`EVENT_KINDS`), and the ``top_n``
-    device event names by time with their counts.  Reports
-    ``not measured`` if the trace holds no device time (the profiler is
-    optional on the card's machine; the rest of the run does not rest on
-    it)."""
+    device event names by time with their counts; ``tail_lag_ms``, the
+    marker kernel's start on the device's clock less its annotation's start
+    on the host's; ``margins`` the seconds the trace stays open before
+    the call and after the marker.  A trace that misses the marker or a
+    hand kernel ``fn()`` launched (the counters say how many) is taken
+    again with another call, ``attempts`` in all (1 where ``fn`` changes
+    state); ``attempt`` says which one is reported.  Reports ``not
+    measured`` if none is whole, or if the trace holds no device time (the
+    profiler is optional on the card's machine; the rest of the run does
+    not rest on it)."""
+    for attempt in range(1, attempts + 1):
+        res = _trace(fn, top_n, margins)
+        res["attempt"] = attempt
+        if res.get("reason") != "the trace dropped events":
+            break
+    return res
+
+
+def _trace(fn, top_n: int, margins: tuple) -> dict:
+    """One trace of ``fn()`` for :func:`idle_share`."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     try:
         torch.cuda.synchronize()
+        before = hand_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(margins[0])
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+            with record_function(TAIL_MARK):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(margins[1])
+        launched = {k: n - before[k] for k, n in hand_launches().items()}
+        events = prof.events()
         # kernels and copies only: user annotations on the card's timeline
         # (torch.optim's "Optimizer.step#Adam.step") are not device work
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+        device = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation]
+        tail = [e for e in device if "spin_kernel" in e.name]
+        device = [e for e in device if "spin_kernel" not in e.name]
+        mark = [e for e in events if e.name == TAIL_MARK
+                and e.device_type == DeviceType.CPU]
         spans = sorted((e.time_range.start, e.time_range.end) for e in device)
         own = {k: [(e.time_range.end - e.time_range.start) / 1e3
                    for e in device if f"{k}_kernel" in e.name]
@@ -683,6 +747,16 @@ def idle_share(fn, top_n: int = 0) -> dict:
             names[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
     except Exception as exc:  # noqa: BLE001 — reported, not hidden
         return {"idle_share": "not measured", "reason": repr(exc)}
+    missing = {k: n - len(own[k]) for k, n in launched.items()
+               if len(own[k]) < n}
+    lag_ms = ((tail[0].time_range.start - mark[0].time_range.start) / 1e3
+              if tail and mark else "not measured")
+    if not tail or missing:
+        return {"idle_share": "not measured",
+                "reason": "the trace dropped events",
+                "tail_marker_traced": bool(tail),
+                "hand_kernels_missing": missing,
+                "device_events_traced": len(spans), "tail_lag_ms": lag_ms}
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -700,7 +774,8 @@ def idle_share(fn, top_n: int = 0) -> dict:
         by_kind[kind] = (c + n, t + ms)
     return {"idle_share": 1.0 - busy_ms / wall, "device_busy_ms": busy_ms,
             "wall_ms_profiled": wall, "device_events": len(spans),
-            "kernel_ms": own,
+            "kernel_ms": own, "hand_launches": launched,
+            "tail_lag_ms": lag_ms,
             "events_by_kind": {k: {"count": n, "ms": ms}
                                for k, (n, ms) in sorted(by_kind.items())},
             "top_device_events": [{"name": k[:120], "count": n, "ms": ms}
@@ -716,7 +791,7 @@ EVENT_KINDS = {
     "memcpy/memset": ("Memcpy", "Memset"),
     "hand kernels": ("hw_score_kernel", "hw_filter_kernel",
                      "arima_filter_kernel", "arima_predict_kernel",
-                     "arima_loglik_grad_kernel"),
+                     "arima_loglik_grad_kernel", "arima_mle_fit_kernel"),
 }
 
 
@@ -5164,6 +5239,16 @@ MLE_REL = 1e-4
 # the gradient step's dependent chain at r = 2: the filter's (~50 cycles,
 # ARIMA_CHAIN_CYCLES) and the tangent's behind it, ~100 cycles a step
 MLE_CHAIN_CYCLES = 100
+# the fit kernel against its twin at the main path's shapes: a few Adam
+# steps (the twin runs ~75 launches a time step, ~2.8 s a step at T 1,826,
+# so the main path's 200 steps would take ~9 minutes); the card tests hold
+# 200 steps at T 150.  The kernels line's arima_mle_fit row gives the main
+# path's 200-step launch (ms, bound) and this compared call (its steps, the
+# kernel's and the twin's time, the error)
+MLE_FIT_STEPS_COMPARED = 2
+# the fit's per-step time at its first and its last 20 steps: fits of 20,
+# steps - 20 and steps
+MLE_STEP_WINDOW = 20
 AUTOML_TRIP_BUDGET = 1e-3  # seconds: the gate closes after one evaluation
 
 
@@ -5248,8 +5333,8 @@ def mle_kernel_case(port, case: str, args, jacobian: bool = False) -> dict:
 def mle_kernel_cases(batch, port) -> dict:
     """(a) The gradient kernel at the main path's shapes: the fit (2, 1, 1)
     on 500 x 1,826, the CV pass's 1,500 rows with the cutoffs' train masks,
-    d = 0, 10% more cells masked, r = 4 (p = 4) and r = 9 (p = 9, the
-    shared-memory path); the Jacobian against float64 autograd at the fit
+    d = 0, 10% more cells masked, r = 4 (p = 4), r = 8 (p = 8: P and dP in
+    shared memory) and r = 9 (p = 9, the shared-memory path); the Jacobian against float64 autograd at the fit
     shape and at r = 9; the ValueError at r = 70."""
     rng = np.random.default_rng(2)
     drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
@@ -5262,6 +5347,7 @@ def mle_kernel_cases(batch, port) -> dict:
         "d0_201": (full, batch.mask, 2, 1, 0),
         "masked_10pct": (full * drop, batch.mask * drop, 2, 1, 1),
         "r4_400": (full, batch.mask, 4, 0, 1),
+        "r8_800": (full, batch.mask, 8, 0, 1),
         "warp_r9": (full, batch.mask, 9, 0, 1),
     }
     out = {}
@@ -5277,6 +5363,62 @@ def mle_kernel_cases(batch, port) -> dict:
              error=str(exc))
     else:
         raise AssertionError("arima_loglik_grad took r = 70")
+    return out
+
+
+def mle_fit_case(port, case: str, y, mask, p: int, q: int,
+                 steps: int = MLE_FIT_STEPS_COMPARED) -> dict:
+    """arima_mle_fit on the centered series of (y, mask) against its twin
+    (``mle_fit_reference``) on the same inputs, bit for bit (u, and phi and
+    theta mapped from it); the twin's time (CUDA events, once).  Raises on
+    a disagreement."""
+    kal, ar = port["kalman"], port["arima"]
+    zc, zmask, _ = ar._centered(y, mask, 1)
+    zc, zmask = zc.contiguous(), zmask.contiguous()
+    r = max(p, q + 1, 1)
+    cfg = ar.ArimaConfig()
+    fit = (zc, zmask, p, q, r, steps, cfg.learning_rate, cfg.prior_scale)
+    box = {}
+    twin_ms = once_ms(lambda: box.update(u=kal.mle_fit_reference(*fit)))
+    want = box["u"]
+    launch, got = kal._mle_fit_launcher(*fit)
+    launch()
+    torch.cuda.synchronize()
+    res = compare_bitwise({
+        "u": (got, want),
+        "phi": (ar._pacf_to_coef(got[:, :p]), ar._pacf_to_coef(want[:, :p])),
+        "theta": (ar._pacf_to_coef(got[:, p:]),
+                  ar._pacf_to_coef(want[:, p:]))})
+    res.update(S=int(zc.shape[0]), T=int(zc.shape[1]), p=p, q=q, r=r,
+               steps=steps, twin_ms=twin_ms,
+               rows_differ=int((got != want).any(dim=1).sum()))
+    emit("kernel_vs_twin", kernel="arima_mle_fit", case=case, **res)
+    if not res["pass"]:
+        raise AssertionError(f"arima_mle_fit disagrees: {case}")
+    return res
+
+
+def mle_fit_cases(batch, port) -> dict:
+    """The fit kernel at the main path's shapes: the fit (2, 1, 1) on 500 x
+    1,826 and the CV pass's 1,500 rows, MLE_FIT_STEPS_COMPARED Adam steps;
+    r = 8 (p = 8) and r = 9 (p = 9, the shared-memory path), one step each;
+    the ValueError at r = 70."""
+    full = batch.y * batch.mask
+    cv_y, cv_mask = cv_inputs(batch, port["cv"])
+    out = {"fit_211": mle_fit_case(port, "fit_211", full, batch.mask, 2, 1),
+           "cv_1500": mle_fit_case(port, "cv_1500", cv_y, cv_mask, 2, 1),
+           "r8_800": mle_fit_case(port, "r8_800", full, batch.mask, 8, 0,
+                                  steps=1),
+           "warp_r9": mle_fit_case(port, "warp_r9", full, batch.mask, 9, 0,
+                                   steps=1)}
+    zc, zmask, *_ = mle_args(port, full[:4], batch.mask[:4], 70, 0)
+    try:
+        port["kalman"].arima_mle_fit(zc, zmask, 70, 0, 70, 2, 0.05, 1.0)
+    except ValueError as exc:
+        assert "limit of 64" in str(exc), exc
+        emit("kernel_refuses", kernel="arima_mle_fit", r=70, error=str(exc))
+    else:
+        raise AssertionError("arima_mle_fit took r = 70")
     return out
 
 
@@ -5393,8 +5535,8 @@ def mle_tasks(port, batch, counters, card_line: str) -> dict:
     through deploy and inference (the registered artifact predicting the
     inference table), then ``model: auto`` with ``configs: {arima:
     {method: mle}}``; the launch counters set to 0 just before each train
-    task and read after (the gradient kernel launches once an Adam step)."""
-    out = {"launches": 0}
+    task and read after (a fit is one launch of arima_mle_fit)."""
+    out = {"launches": {"arima_mle_fit": 0, "arima_loglik_grad": 0}}
     with tempfile.TemporaryDirectory() as root:
         catalog, _, _ = _store(port, root)
         catalog.save_table("hackathon.sales.raw", raw_table(batch))
@@ -5403,10 +5545,10 @@ def mle_tasks(port, batch, counters, card_line: str) -> dict:
         run = slice_tasks(port, root, dict(model="arima",
                                            model_conf={"method": "mle"}), {})
         launched = {k: fn.launches for k, fn in counters.items()}
-        steps = port["arima"].ArimaConfig().fit_steps
-        # the train task's CV pass and its full fit: one launch a step each;
+        # the train task's CV pass and its full fit: one launch each;
         # inference's forecast launches arima_predict
-        assert launched["arima_loglik_grad"] == 2 * steps, launched
+        assert launched["arima_mle_fit"] == 2, launched
+        assert launched["arima_loglik_grad"] == 0, launched
         assert launched["arima_filter"] >= 2 and launched["arima_predict"] >= 1
         served = run["served"]
         assert len(served) == batch.n_series * 90, len(served)
@@ -5422,7 +5564,8 @@ def mle_tasks(port, batch, counters, card_line: str) -> dict:
                            fit_seconds=metrics["fit_seconds"],
                            val_smape=metrics["val_smape"],
                            launches=launched, served_equals_registry=True)
-        out["launches"] += launched["arima_loglik_grad"]
+        for k in out["launches"]:
+            out["launches"][k] += launched[k]
         emit("arima_mle_task", card=card_line, **out["task"])
 
         conf = slice13_conf(port, root, dict(
@@ -5432,14 +5575,17 @@ def mle_tasks(port, batch, counters, card_line: str) -> dict:
             fn.launches = 0
         sec, summary, run = prep_task(port, root, conf)
         launched = {k: fn.launches for k, fn in counters.items()}
-        assert launched["arima_loglik_grad"] >= steps, launched
+        # the pool's CV pass and its full fit: one arima fit launch each
+        assert launched["arima_mle_fit"] == 2, launched
+        assert launched["arima_loglik_grad"] == 0, launched
         table = pd.read_parquet(run.artifact_path("series_metrics.parquet"))
         assert np.isfinite(table["smape_arima"]).all()
         chosen = table["chosen_model"].value_counts().to_dict()
         out["auto"] = dict(seconds=sec, fit_seconds=summary["fit_seconds"],
                            chosen=chosen, launches=launched,
                            n_failed=summary["n_failed"])
-        out["launches"] += launched["arima_loglik_grad"]
+        for k in out["launches"]:
+            out["launches"][k] += launched[k]
         emit("auto_mle", card=card_line, **out["auto"])
     return out
 
@@ -5582,28 +5728,57 @@ def automl_sweep(port, batch, counters, card_line: str) -> dict:
     return out
 
 
-def mle_times(port, batch, card_line: str) -> dict:
+def mle_times(port, batch, fit_cases, card_line: str) -> dict:
     """(e) The gradient kernel alone at the fit and CV shapes (CUDA events,
     median of 5, each sample 5 back-to-back launches bound beforehand)
-    beside its bound and serial chain, its twin once; the MLE fit_forecast's
-    wall time (median of 3, host clock to a synchronize), its device events,
-    idle share and host syncs."""
+    beside its bound and serial chain, its twin once; the fit kernel per
+    fit at the fit and CV shapes (median of 5) as the main path launches it
+    (all its steps), and its per-step time over the first and the last
+    MLE_STEP_WINDOW steps of a fit (fits of 20, steps - 20 and steps
+    steps); the compared call of the fit kernel (``fit_cases``' fit shape)
+    timed again, beside its twin's time; the MLE fit_forecast's wall time
+    (median of 3, host clock to a synchronize), its device events, idle
+    share and host syncs."""
     kal, ar, engine = port["kalman"], port["arima"], port["engine"]
+    cfg = ar.ArimaConfig(method="mle")
+    steps = cfg.fit_steps
     full = batch.y * batch.mask
-    k = {}
+    k, fit = {}, {}
     for name, (y, m) in (("fit", (full, batch.mask)),
                          ("cv", cv_inputs(batch, port["cv"]))):
         args = mle_args(port, y, m, 2, 1)
         S, T = (int(d) for d in y.shape)
         bound, by = bound_ms(kal.arima_loglik_grad_work(S, T, 2, 3))
         launch, _ = kal._arima_loglik_grad_launcher(*args)
-        k[name] = {"shape": [S, T, 2, 3], "ms": cuda_ms(launch, inner=5),
-                   "bound_ms": bound, "bound_by": by,
-                   "serial_chain_ms": T * MLE_CHAIN_CYCLES / CLOCK_HZ * 1e3}
+        ms = cuda_ms(launch, inner=5)
+        k[name] = {"shape": [S, T, 2, 3], "ms": ms, "bound_ms": bound,
+                   "bound_by": by,
+                   "serial_chain_ms": T * MLE_CHAIN_CYCLES / CLOCK_HZ * 1e3,
+                   "cycles_per_step": ms * 1e-3 * CLOCK_HZ / T}
         if name == "fit":
             fit_args = args
+        zc, zmask = args[:2]
+        fit_call = (zc, zmask, 2, 1, 2, steps, cfg.learning_rate,
+                    cfg.prior_scale)
+        launch, _ = kal._mle_fit_launcher(*fit_call)
+        ms = cuda_ms(launch)
+        bound, by = bound_ms(kal.mle_fit_work(S, T, 2, 2, 1, steps))
+        fit[name] = {"shape": [S, T, 2, 1], "steps": steps, "ms": ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "serial_chain_ms": (steps * T * MLE_CHAIN_CYCLES
+                                         / CLOCK_HZ * 1e3),
+                     "cycles_per_step": ms * 1e-3 * CLOCK_HZ / (steps * T)}
+        if name == "fit":
+            # the first and the last MLE_STEP_WINDOW steps of a fit
+            w = {}
+            for n in (MLE_STEP_WINDOW, steps - MLE_STEP_WINDOW):
+                launch, _ = kal._mle_fit_launcher(
+                    *fit_call[:5], n, *fit_call[6:])
+                w[n] = cuda_ms(launch)
+            fit[name]["step_ms_first"] = w[MLE_STEP_WINDOW] / MLE_STEP_WINDOW
+            fit[name]["step_ms_last"] = (
+                (ms - w[steps - MLE_STEP_WINDOW]) / MLE_STEP_WINDOW)
     twin = once_ms(lambda: kal.arima_loglik_grad_reference(*fit_args))
-    cfg = ar.ArimaConfig(method="mle")
     fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
         batch, "arima", config=cfg, horizon=90)
     walls = []
@@ -5614,13 +5789,24 @@ def mle_times(port, batch, card_line: str) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     prof = idle_share(fit_forecast, top_n=8)
-    # 200 launches of the gradient kernel a fit: their spread, not the list
     prof["kernel_ms"] = {name: {"count": len(v), "min": min(v),
                                 "median": statistics.median(v), "max": max(v)}
                          for name, v in prof.get("kernel_ms", {}).items() if v}
-    t = {"kernel": k, "twin_ms": twin,
+    # one trace with no margins and no second attempt: what a bare trace
+    # keeps this late in the process
+    bare = idle_share(fit_forecast, margins=(0.0, 0.0), attempts=1)
+    bare.pop("kernel_ms", None)
+    # the compared call (the fit shape, MLE_FIT_STEPS_COMPARED steps):
+    # kernel and twin
+    row = fit_cases["fit_211"]
+    launch, _ = kal._mle_fit_launcher(*fit_args[:2], 2, 1, 2, row["steps"],
+                                      cfg.learning_rate, cfg.prior_scale)
+    t = {"kernel": k, "fit_kernel": fit, "twin_ms": twin,
+         "compared": {"steps": row["steps"], "ms": cuda_ms(launch),
+                      "plain_ms": row["twin_ms"]},
          "fit_forecast_wall_s": statistics.median(walls),
          "fit_forecast_walls_s": walls, "fit_forecast_profile": prof,
+         "fit_forecast_profile_bare": bare,
          "fit_forecast_host_syncs": count_syncs(fit_forecast)}
     emit("arima_mle_times", card=card_line, reps=REPS, statistic="median",
          **t)
@@ -5639,20 +5825,22 @@ def slice14_phase(port, card_line: str) -> dict:
     counters = {"hw_score": fs.hw_score, "hw_filter": fs.hw_filter,
                 "arima_filter": kal.arima_filter,
                 "arima_predict": kal.arima_predict,
-                "arima_loglik_grad": kal.arima_loglik_grad}
+                "arima_loglik_grad": kal.arima_loglik_grad,
+                "arima_mle_fit": kal.arima_mle_fit}
     batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
     assert (batch.n_series, batch.n_time) == SHAPE
-    out = {"cases": mle_kernel_cases(batch, port)}
+    out = {"cases": mle_kernel_cases(batch, port),
+           "fit_cases": mle_fit_cases(batch, port)}
     for fn in counters.values():  # counters to 0 just before the main path
         fn.launches = 0
     run = mle_main_path(port, batch)
     launched = {k: fn.launches for k, fn in counters.items()}  # ... and after
-    steps = run["cfg"].fit_steps
     emit("launches", path="arima_mle", **launched,
-         expected=f"arima_loglik_grad: {steps} per fit (one an Adam step), "
-                  f"{2 * steps} for fit_forecast + CV pass; arima_filter 2, "
-                  f"arima_predict 2")
-    assert launched["arima_loglik_grad"] == 2 * steps, launched
+         expected="arima_mle_fit: 1 per fit (all its Adam steps), 2 for "
+                  "fit_forecast + CV pass; arima_loglik_grad 0; "
+                  "arima_filter 2, arima_predict 2")
+    assert launched["arima_mle_fit"] == 2, launched
+    assert launched["arima_loglik_grad"] == 0, launched
     for k in ("arima_filter", "arima_predict"):
         if launched[k] < 1:
             raise AssertionError(f"the MLE path never launched {k}")
@@ -5663,10 +5851,11 @@ def slice14_phase(port, card_line: str) -> dict:
     out["gpu_vs_cpu"] = mle_vs_cpu(port, batch)
     out["hr_vs_mle"] = hr_vs_mle(port, batch, run["params"])
     out["tasks"] = mle_tasks(port, batch, counters, card_line)
-    out["launches"]["arima_loglik_grad"] += out["tasks"]["launches"]
+    for k, n in out["tasks"]["launches"].items():
+        out["launches"][k] += n
     out["bf16"] = bf16_gate(port, batch, card_line)
     out["automl"] = automl_sweep(port, batch, counters, card_line)
-    out["times"] = mle_times(port, batch, card_line)
+    out["times"] = mle_times(port, batch, out["fit_cases"], card_line)
     out["seconds"] = time.perf_counter() - t_phase
     emit("phase15", seconds=out["seconds"])
     return out
@@ -6185,7 +6374,7 @@ def stream_apply_times(port, batch, arts: dict, tail) -> dict:
                                                     tail[:, j:j + 1])))
             j += 1
         st.ingest(store_points(st.day_cur + 1, tail[:, j:j + 1]))
-        trace = idle_share(st.apply_pending)
+        trace = idle_share(st.apply_pending, attempts=1)
         j += 1
         for _ in range(3):
             burst.append(_apply_timed(st, store_points(
@@ -6230,7 +6419,7 @@ def stream_refit_times(port, batch, arts: dict, tail, card_line) -> dict:
             walls.append(time.perf_counter() - t0)
         out["refit_wall_s"] = statistics.median(walls)
         trace = idle_share(lambda: (sched.maybe_refit(force=True),
-                                    sched.wait(600)))
+                                    sched.wait(600)), attempts=1)
         out["refit_idle_share"] = trace.get("idle_share")
         out["refit_kernel_ms_traced"] = trace.get("kernel_ms")
         # the kernels alone at the refit's shapes
@@ -6382,6 +6571,10 @@ KERNELS = {
     # scan inside the MLE fit's Adam loop (jax.value_and_grad of nll_one)
     "arima_loglik_grad": ("distributed_forecasting_tpu_torch/csrc/arima_mle.cu",
                           "distributed_forecasting_tpu/models/arima.py:418"),
+    # no Pallas origin: the reference's lax.scan of fit_steps Adam steps
+    # (fit_one), each a value_and_grad of nll_one
+    "arima_mle_fit": ("distributed_forecasting_tpu_torch/csrc/arima_mle.cu",
+                      "distributed_forecasting_tpu/models/arima.py:427"),
 }
 
 
@@ -6554,6 +6747,17 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"] for c in p8_end["cases"].values()),
         ms=mt["ms"], plain_ms=p8_end["times"]["twin_ms"],
         bound_ms=mt["bound_ms"], bound_by=mt["bound_by"])
+    # ms and bound_ms: the main path's launch (200 steps at the fit shape);
+    # max_abs_err and plain_ms: the compared calls (compared_steps steps:
+    # the twin takes ~2.8 s a step), with the kernel's time on that call
+    fm, fc = p8_end["times"]["fit_kernel"]["fit"], p8_end["times"]["compared"]
+    rows["arima_mle_fit"] = dict(
+        launches=p8_end["launches"]["arima_mle_fit"],
+        max_abs_err=max(c["max_abs_err"]
+                        for c in p8_end["fit_cases"].values()),
+        ms=fm["ms"], plain_ms=fc["plain_ms"], bound_ms=fm["bound_ms"],
+        bound_by=fm["bound_by"], steps=fm["steps"],
+        compared_steps=fc["steps"], compared_ms=fc["ms"])
     emit("smoke", seconds=time.perf_counter() - t_start)
     # no single PyTorch call runs a filter or its gradient: no library time
     print(json.dumps({"kernels": [{

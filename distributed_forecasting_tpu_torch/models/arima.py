@@ -29,12 +29,14 @@ the filter, as state-space models handle gaps.
 exact concentrated Gaussian likelihood plus a Gaussian prior on the
 unconstrained PACF parameters, every series at once (the reference vmaps
 one Adam per series; the update is elementwise and every row's count the
-same, so one Adam over the stacked rows is the same update).  The
-likelihood and its Jacobian come from one launch a step of
-``ops/kalman.arima_loglik_grad`` (forward-mode tangents of the sequential
-filter, whatever ``kalman`` says, as in the reference), carried into
-autograd by ``ops/kalman.KalmanLoglik``; the PACF map and the prior are
-plain autograd.
+same, so one Adam over the stacked rows is the same update).  On the card
+the whole fit is one launch of ``ops/kalman.arima_mle_fit``: each step maps
+u to the coefficients and, in forward mode, to the Jacobian's columns,
+runs the sequential filter (whatever ``kalman`` says, as in the reference)
+with one tangent per coordinate of u, forms the loss's gradient and takes
+the Adam step.  Its plain twin :func:`mle_fit_reference` writes the same
+operations in torch (:func:`_pacf_directions`,
+:func:`arima_loglik_grad_reference`, :func:`_mle_grad`, ``ops/optim.adam``).
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ from distributed_forecasting_tpu_torch.models.base import (
     register_model,
 )
 from distributed_forecasting_tpu_torch.ops.kalman import (
-    KalmanLoglik,
     arima_filter,
+    arima_mle_fit,
     arima_predict,
     first_observed,
 )
@@ -247,27 +249,69 @@ def _kalman_loglik_impl(z, mask, phi, theta, r: int):
     return ssq, ldet, n, preds, Fs, a, P
 
 
-def arima_loglik_grad_reference(zc, zmask, phi, theta, r: int):
+def _pacf_jacobian(u: torch.Tensor):
+    """The Monahan map of ``u`` (S, m) (:func:`_pacf_to_coef`) and its
+    forward-mode tangent along each coordinate: ``(coef (S, m), dcoef (S, m,
+    m))`` with ``dcoef[:, j]`` = d coef / d u_j.  Through tanh (derivative
+    (1 - t)(1 + t)) and the Durbin-Levinson recursion: the MLE kernel's
+    operations (``csrc/arima_mle.cu``, ``Model::pacf``), in its order."""
+    S, m = u.shape
+    t = torch.tanh(u)
+    dt = torch.diag_embed((1.0 - t) * (1.0 + t))  # (S, direction, j)
+    coef, dcoef = u.new_zeros((S, m)), u.new_zeros((S, m, m))
+    for j in range(m):
+        prev, dprev = coef[:, :j], dcoef[:, :, :j]
+        rj, drj = t[:, j:j + 1], dt[:, :, j:j + 1]
+        new = prev - rj * prev.flip(1)
+        dnew = dprev - (drj * prev.flip(1)[:, None]
+                        + rj[:, :, None] * dprev.flip(2))
+        coef = torch.cat([new, rj, coef[:, j + 1:]], dim=1)
+        dcoef = torch.cat([dnew, drj, dcoef[:, :, j + 1:]], dim=2)
+    return coef, dcoef
+
+
+def _pacf_directions(u: torch.Tensor, p: int, q: int, r: int):
+    """``(phi (S, p), theta (S, q), dph (S, p + q, r), dRv (S, p + q, r))``:
+    the coefficients at u and, for each coordinate u_j, the tangents of T's
+    first column and of the loading R = (1, theta, 0..) along it (column j
+    of the map's Jacobian, zero where u_j belongs to the other
+    polynomial)."""
+    S, k = u.shape[0], p + q
+    phi, dphi = _pacf_jacobian(u[:, :p])
+    theta, dtheta = _pacf_jacobian(u[:, p:p + q])
+    dph, dRv = u.new_zeros((S, k, r)), u.new_zeros((S, k, r))
+    dph[:, :p, :p] = dphi
+    dRv[:, p:, 1:q + 1] = dtheta
+    return phi, theta, dph, dRv
+
+
+def arima_loglik_grad_reference(zc, zmask, phi, theta, r: int, dph=None,
+                                dRv=None):
     """The plain twin of ``ops/kalman.arima_loglik_grad``: the sequential
     Kalman filter of :func:`_kalman_loglik_impl` (the same operations: its
     ssq, ldet and n are that filter's) and, carried beside it in forward
-    mode, one tangent (da, dP) per coefficient of (phi_1..phi_p,
-    theta_1..theta_q).  zc, zmask: (S, T); phi (S, p), theta (S, q).
+    mode, one tangent (da, dP) per direction.  zc, zmask: (S, T); phi (S,
+    p), theta (S, q).  A direction is a pair (dph, dRv), tangents of T's
+    first column and of the loading R; by default one per coefficient of
+    (phi_1..phi_p, theta_1..theta_q), one-hot; else ``dph``, ``dRv`` (S, k,
+    r) dense, as the MLE fit's map gives them (:func:`_pacf_directions`).
 
-    A phi_i direction has dT = e_i e_0' (``dph`` one-hot), a theta_j
-    direction dR = e_j (``dRv`` one-hot); d(T X) = T dX + dph X_0. and
-    d(M T') = dM T' + M_.0 dph'.  An observed step adds dF = dP_00 (0 where
-    P_00 is floored), dv = -da_0, dK = (dM_.0 - K dF) / F, and the gain
-    terms' tangents to da and dP; a masked step takes the predict branch's.
-    Returns ``(ssq, ldet, n, dssq, dldet)``: (S,) each, and the Jacobians
-    (S, p + q) of ssq and ldet."""
+    d(T X) = T dX + dph X_0. and d(M T') = dM T' + M_.0 dph'.  An observed
+    step adds dF = dP_00 (0 where P_00 is floored), dv = -da_0, dK = (dM_.0
+    - K dF) rF with rF = 1 / F (one reciprocal a step on the tangent side,
+    as the kernel computes it), and the gain terms' tangents to da and dP;
+    a masked step takes the predict branch's.  Returns ``(ssq, ldet, n,
+    dssq, dldet)``: (S,) each, and the derivatives (S, k) of ssq and ldet
+    along each direction."""
     S, T = zc.shape
     p, q = phi.shape[1], theta.shape[1]
-    k = p + q
     ph, Rv, RRt = _model(phi, theta, r)
-    eye = torch.eye(r, dtype=zc.dtype, device=zc.device)
-    dph = torch.cat([eye[:p], eye.new_zeros((q, r))]).expand(S, k, r)
-    dRv = torch.cat([eye.new_zeros((p, r)), eye[1:q + 1]]).expand(S, k, r)
+    if dph is None:
+        k = p + q
+        eye = torch.eye(r, dtype=zc.dtype, device=zc.device)
+        dph = torch.cat([eye[:p], eye.new_zeros((q, r))]).expand(S, k, r)
+        dRv = torch.cat([eye.new_zeros((p, r)), eye[1:q + 1]]).expand(S, k, r)
+    k = dph.shape[1]
     ph1, Rv1 = ph[:, None], Rv[:, None]
     dRRt = (dRv[..., :, None] * Rv1[..., None, :]
             + Rv1[..., :, None] * dRv[..., None, :])
@@ -294,9 +338,10 @@ def arima_loglik_grad_reference(zc, zmask, phi, theta, r: int):
         v = zc[:, t] - pred
         dF = torch.where((P[:, 0, 0] > _EPS)[:, None], dP[..., 0, 0], 0.0)
         dv = -da[..., 0]
+        rF = F.reciprocal()[:, None]
         M, dM = _tp(ph, P), tangent_tp(dP, P)
         K = M[:, :, 0] / F[:, None]
-        dK = (dM[..., :, 0] - K[:, None] * dF[..., None]) / F[:, None, None]
+        dK = (dM[..., :, 0] - K[:, None] * dF[..., None]) * rF[..., None]
         Ta = _ta(ph, a)
         dTa = _ta(ph1, da) + dph * a[:, None, :1]
         P_pred, dP_pred = _tpt(ph, M) + RRt, tangent_tpt(dM, M)
@@ -315,8 +360,8 @@ def arima_loglik_grad_reference(zc, zmask, phi, theta, r: int):
         ldet = ldet + torch.where(ot, torch.log(F), 0.0)
         n = n + zmask[:, t]
         dssq = dssq + torch.where(
-            o1, (2.0 * v[:, None] * dv - w[:, None] * dF) / F[:, None], 0.0)
-        dldet = dldet + torch.where(o1, dF / F[:, None], 0.0)
+            o1, (2.0 * v[:, None] * dv - w[:, None] * dF) * rF, 0.0)
+        dldet = dldet + torch.where(o1, dF * rF, 0.0)
     return ssq, ldet, n, dssq, dldet
 
 
@@ -487,38 +532,57 @@ def _centered(y, mask, d: int):
     return (z - mean[:, None]) * zmask, zmask, mean
 
 
-def _mle_nll(u, zc, zmask, p: int, q: int, r: int, prior_scale: float):
-    """(S,) concentrated Gaussian NLL plus the prior of the unconstrained
-    parameters u (S, p + q), differentiable in u."""
-    phi = _pacf_to_coef(u[:, :p])
-    theta = _pacf_to_coef(u[:, p:p + q])
-    ssq, ldet, n = KalmanLoglik.apply(zc, zmask, phi, theta, r)
-    n = torch.clamp_min(n, 1.0)
-    prior = 0.5 * torch.sum((u / prior_scale) ** 2, dim=1)
-    return (0.5 * n * torch.log(torch.clamp_min(ssq / n, _EPS))
-            + 0.5 * ldet + prior)
+def _mle_grad(u, ssq, n, dssq, dldet, prior_scale: float):
+    """The gradient in u (S, k) of the loss the MLE fit minimizes, the
+    concentrated Gaussian NLL plus the prior of the unconstrained
+    parameters, 0.5 n log(max(ssq / n, eps)) + 0.5 ldet + 0.5 |u /
+    prior_scale|^2 with n floored at 1 (the reference's ``nll_one``), from
+    the filter's sums and their derivatives along each u_j; the clamp's
+    gradient is zero, a non-finite entry is zeroed.  The MLE kernel's
+    operations, in its order."""
+    c = ssq / torch.clamp_min(n, 1.0)
+    gs = torch.where(c > _EPS, 0.5 * c.reciprocal(), 0.0)
+    g = ((gs[:, None] * dssq + 0.5 * dldet)
+         + u * (1.0 / (prior_scale * prior_scale)))
+    return torch.where(torch.isfinite(g), g, 0.0)
+
+
+def mle_fit_reference(zc, zmask, p: int, q: int, r: int, steps: int,
+                      learning_rate: float, prior_scale: float,
+                      path: bool = False):
+    """The plain twin of ``ops/kalman.arima_mle_fit``: ``steps`` steps of
+    Adam (``ops/optim.adam``, the reference's update; one Adam over the
+    stacked rows is the reference's vmapped per-series Adam) from u = 0 on
+    the unconstrained PACF parameters u (S, p + q).  Each step maps u to
+    the coefficients and the tangent directions (:func:`_pacf_directions`),
+    runs the filter with them (:func:`arima_loglik_grad_reference`) and
+    steps along :func:`_mle_grad`.  Returns u, or with ``path`` the list of
+    u after each step."""
+    u = zc.new_zeros((zc.shape[0], p + q))
+    opt = adam(learning_rate)
+    state = opt.init({"u": u})
+    us = []
+    for _ in range(steps):
+        phi, theta, dph, dRv = _pacf_directions(u, p, q, r)
+        ssq, _, n, dssq, dldet = arima_loglik_grad_reference(
+            zc, zmask, phi, theta, r, dph, dRv)
+        g = _mle_grad(u, ssq, n, dssq, dldet, prior_scale)
+        updates, state = opt.update({"u": g}, state)
+        u = u + updates["u"]
+        us.append(u)
+    return us if path else u
 
 
 def _mle_estimate(zc, zmask, config: ArimaConfig, r: int):
-    """``fit_steps`` steps of Adam (``ops/optim.adam``, the reference's
-    update) on :func:`_mle_nll` from u = 0, non-finite gradient entries
-    zeroed; no host sync inside the loop.  Returns the dense ``(phi (S, p),
-    theta (S, q))``."""
+    """``fit_steps`` steps of Adam on the MAP loss from u = 0: one launch of
+    ``ops/kalman.arima_mle_fit`` on the card, its twin on the CPU.  Returns
+    the dense ``(phi (S, p), theta (S, q))``."""
     p, q = config.p, config.q
     u = zc.new_zeros((zc.shape[0], p + q))
     if p + q:
-        zc, zmask = zc.contiguous(), zmask.contiguous()
-        opt = adam(config.learning_rate)
-        state = opt.init({"u": u})
-        with torch.enable_grad():
-            for _ in range(config.fit_steps):
-                u.requires_grad_(True)
-                loss = _mle_nll(u, zc, zmask, p, q, r, config.prior_scale)
-                (g,) = torch.autograd.grad(loss.sum(), u)
-                g = torch.where(torch.isfinite(g), g, 0.0)
-                updates, state = opt.update({"u": g}, state)
-                u = u.detach() + updates["u"]
-    u = u.detach()
+        u = arima_mle_fit(zc.contiguous(), zmask.contiguous(), p, q, r,
+                          config.fit_steps, config.learning_rate,
+                          config.prior_scale)
     return _pacf_to_coef(u[:, :p]), _pacf_to_coef(u[:, p:p + q])
 
 

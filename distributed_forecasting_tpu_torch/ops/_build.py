@@ -28,7 +28,8 @@ BUILD_DIR = (os.path.join(_ROOT, "build", "torch_kernels")
 # math, and no fused multiply-add contraction (--fmad=false): every float
 # operation rounds on its own, exactly as the plain PyTorch twin's
 # elementwise ops do, so the refit kernel (csrc/hw_filter.cu) and the ARIMA
-# kernels (csrc/arima_kalman.cu) reproduce their twins bit for bit.  The
+# kernels (csrc/arima_kalman.cu, csrc/arima_mle.cu) reproduce their twins
+# bit for bit.  The
 # scoring kernel writes its multiply-adds out as
 # __fmaf_rn where it wants them.
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
@@ -91,8 +92,12 @@ def _load() -> ctypes.CDLL:
     lib.arima_loglik_grad_launch.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
+    lib.arima_mle_fit_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 7
+        + [ctypes.c_void_p]
+    )
     for name in ("hw_score", "hw_filter", "arima_filter", "arima_predict",
-                 "arima_loglik_grad"):
+                 "arima_loglik_grad", "arima_mle_fit"):
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]

@@ -9,14 +9,15 @@ loop of some twenty launches a step, so the kernels (``csrc/arima_kalman.cu``,
 one thread a series; the note at its top gives the design and the bound)
 take their place on the card.  :func:`arima_loglik_grad` is the MLE fit's
 likelihood and its Jacobian with respect to the coefficients, in forward
-mode (``csrc/arima_mle.cu``, one thread a (series, coefficient)), where the
-reference differentiates its scan in reverse; :class:`KalmanLoglik` carries
-it into autograd.
+mode, where the reference differentiates its scan in reverse;
+:func:`arima_mle_fit` the whole MLE fit, every Adam step of it in one
+launch (both ``csrc/arima_mle.cu``).
 
 On a CUDA tensor each wrapper launches its kernel or raises (an r beyond the
 kernels' limit raises ``ValueError``); on a CPU tensor it runs its plain twin
 from ``models/arima`` (``_kalman_loglik_impl`` and ``_integrate``,
-``_predict_path``, ``arima_loglik_grad_reference``).  The kernels are
+``_predict_path``, ``arima_loglik_grad_reference``,
+``mle_fit_reference``).  The kernels are
 bitwise equal to the twins on the card.
 """
 
@@ -31,6 +32,12 @@ from distributed_forecasting_tpu_torch.ops.fused_scan import (
     _ptr,
     _raise_on,
     _stream,
+)
+from distributed_forecasting_tpu_torch.ops.optim import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_EPS,
+    bias_corrections,
 )
 
 
@@ -77,10 +84,14 @@ def arima_predict_work(S: int, H: int, r: int) -> tuple:
             4 * (S * (2 * r + r * r + 1) + 2 * S * H))
 
 
+def _check_order(p: int, q: int, r: int) -> None:
+    if min(p, q) < 0 or r < max(p, q + 1, 1):
+        raise ValueError(f"r={r} is below max(p={p}, q={q} + 1)")
+
+
 def _coefficients(phi, theta, r: int):
     p, q = phi.shape[1], theta.shape[1]
-    if r < max(p, q + 1, 1):
-        raise ValueError(f"r={r} is below max(p={p}, q={q} + 1)")
+    _check_order(p, q, r)
     return p, q
 
 
@@ -318,29 +329,110 @@ def arima_loglik_grad(zc, zmask, phi, theta, r: int) -> LoglikGrad:
     return out
 
 
-class KalmanLoglik(torch.autograd.Function):
-    """``(ssq, ldet, n)`` of :func:`arima_loglik_grad` as a differentiable
-    function of (phi, theta): the forward keeps the Jacobians, the backward
-    returns ``g_ssq dssq + g_ldet dldet`` split into phi's and theta's
-    columns (n does not depend on them)."""
+def mle_fit_work(S: int, T: int, r: int, p: int, q: int,
+                 steps: int) -> tuple:
+    """(float32 operations, bytes) of the least work of one
+    :func:`arima_mle_fit` call: ``steps`` evaluations as
+    :func:`arima_loglik_grad_work` counts one, and each step's map and
+    update a row — tanh and its derivative 4 k, the Durbin-Levinson
+    recursion 2 m (m - 1) for m = p, q and its tangents 4 m (m - 1) a
+    direction along that polynomial, the gradient 8 k and Adam 11 k; zc and
+    zmask read once, the bias corrections read once, u written once."""
+    k = p + q
+    ops, _ = arima_loglik_grad_work(S, T, r, k)
+    dl = sum(2 * m * (m - 1) + 4 * m * m * (m - 1) for m in (p, q))
+    ops = steps * (ops + S * (4 * k + dl + 19 * k))
+    return ops, 4 * (2 * S * T + 2 * steps + S * k)
 
-    @staticmethod
-    def forward(ctx, zc, zmask, phi, theta, r: int):
-        out = arima_loglik_grad(zc, zmask, phi.detach().contiguous(),
-                                theta.detach().contiguous(), r)
-        ctx.save_for_backward(out.dssq, out.dldet)
-        ctx.p = phi.shape[1]
-        ctx.mark_non_differentiable(out.n)
-        return out.ssq, out.ldet, out.n
 
-    @staticmethod
-    def backward(ctx, g_ssq, g_ldet, g_n):
-        dssq, dldet = ctx.saved_tensors
-        g = g_ssq[:, None] * dssq + g_ldet[:, None] * dldet
-        return None, None, g[:, :ctx.p], g[:, ctx.p:], None
+def adam_bias_table(steps: int) -> torch.Tensor:
+    """(steps, 2) float32: the bias corrections of Adam's steps 1..steps,
+    each computed as ``ops/optim.adam`` computes it."""
+    return torch.tensor([bias_corrections(c, ADAM_B1, ADAM_B2)
+                         for c in range(1, steps + 1)],
+                        dtype=torch.float32).reshape(steps, 2)
+
+
+def _check_fit(p: int, q: int, r: int, steps: int) -> None:
+    _check_order(p, q, r)
+    if steps < 0:
+        raise ValueError(f"arima_mle_fit: steps must be >= 0, got {steps}")
+
+
+def mle_fit_reference(zc, zmask, p: int, q: int, r: int, steps: int,
+                      learning_rate: float, prior_scale: float):
+    """The plain twin of :func:`arima_mle_fit`
+    (``models/arima.mle_fit_reference``)."""
+    from distributed_forecasting_tpu_torch.models import arima
+
+    return arima.mle_fit_reference(zc, zmask, p, q, r, steps, learning_rate,
+                                   prior_scale)
+
+
+def _mle_fit_launcher(zc, zmask, p: int, q: int, r: int, steps: int,
+                      learning_rate: float, prior_scale: float):
+    """Check, allocate and bind the fit kernel: returns ``(launch, u)`` as
+    :func:`_arima_filter_launcher` does; ``launch()`` counts on
+    ``arima_mle_fit.launches``.  With no coordinate or no step there is
+    nothing to launch: u stays 0."""
+    from distributed_forecasting_tpu_torch.ops._build import library
+
+    S, T = zc.shape
+    k = p + q
+    _check_fit(p, q, r, steps)
+    dev = zc.device
+    _check("arima_mle_fit", dev, {"zc": (zc, (S, T)),
+                                  "zmask": (zmask, (S, T))})
+    u = torch.zeros((S, k), dtype=torch.float32, device=dev)
+    if S == 0 or k == 0 or steps == 0:
+        return (lambda: None), u
+    lib = library()
+    # pinned, so the copy to the card does not wait for the host
+    bc = adam_bias_table(steps).pin_memory().to(dev, non_blocking=True)
+    tensors = (zc, zmask, bc, u)
+    scalars = [ADAM_B1, 1.0 - ADAM_B1, ADAM_B2, 1.0 - ADAM_B2,
+               -learning_rate, ADAM_EPS, 1.0 / (prior_scale * prior_scale)]
+    args = [*map(_ptr, tensors), S, T, p, q, r, steps, *scalars,
+            _stream(dev)]
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.arima_mle_fit_launch(*args)
+        _raise_on("arima_mle_fit", lib, err,
+                  f"S={S}, T={T}, p={p}, q={q}, r={r}, steps={steps}")
+        arima_mle_fit.launches += 1
+
+    launch.tensors = tensors
+    return launch, u
+
+
+def arima_mle_fit(zc, zmask, p: int, q: int, r: int, steps: int,
+                  learning_rate: float, prior_scale: float) -> torch.Tensor:
+    """The MLE fit of every row of the centered differenced series ``zc``
+    (mask ``zmask``, (S, T)): ``steps`` steps of Adam (``ops/optim.adam``
+    at ``learning_rate``) from u = 0 on the unconstrained PACF parameters u
+    (S, p + q) of the ARMA(p, q) coefficients, minimizing the concentrated
+    Gaussian NLL plus a Gaussian prior of scale ``prior_scale`` on u; r the
+    state dimension (>= max(p, q + 1)).  Returns u after the last step.
+
+    CUDA tensors run the whole fit in one launch of the kernel
+    (``csrc/arima_mle.cu``, bitwise equal to the twin on the card) or
+    raise; CPU tensors run the twin :func:`mle_fit_reference`.
+    """
+    _check_fit(p, q, r, steps)
+    if zc.device.type == "cpu":
+        return mle_fit_reference(zc, zmask, p, q, r, steps, learning_rate,
+                                 prior_scale)
+    if zc.device.type != "cuda":
+        raise ValueError(f"arima_mle_fit runs on cuda or cpu, got {zc.device}")
+    launch, u = _mle_fit_launcher(zc, zmask, p, q, r, steps, learning_rate,
+                                  prior_scale)
+    launch()
+    return u
 
 
 # launches of each CUDA kernel in this process (the CPU twins never count)
 arima_filter.launches = 0
 arima_predict.launches = 0
 arima_loglik_grad.launches = 0
+arima_mle_fit.launches = 0

@@ -61,8 +61,21 @@ def momentum(learning_rate: float, decay: float = 0.9) -> Transform:
     return Transform(init, update)
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Transform:
+def bias_corrections(count: int, b1: float, b2: float) -> tuple:
+    """Adam's bias corrections ``(1 - b1^count, 1 - b2^count)`` at step
+    ``count``, computed in float32 as the reference does.  They are Python
+    numbers (float32 values), so a step on the card copies nothing to it
+    and never waits for it."""
+    c = torch.tensor(float(count), dtype=torch.float32)
+    return (float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c),
+            float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c))
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax's defaults
+
+
+def adam(learning_rate: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
+         eps: float = ADAM_EPS) -> Transform:
     """Adam with the standard bias correction (Kingma & Ba 2015)."""
     lr = learning_rate
 
@@ -77,12 +90,7 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
               for k, g in grads.items()}
         nu = {k: b2 * state["nu"][k] + (1.0 - b2) * (g * g)
               for k, g in grads.items()}
-        # the reference computes the corrections in float32; they enter as
-        # Python numbers (float32 values), so a step on the card copies
-        # nothing to it and never waits for it
-        c = torch.tensor(float(count), dtype=torch.float32)
-        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
-        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
+        bc1, bc2 = bias_corrections(count, b1, b2)
         updates = {k: -lr * (mu[k] / bc1)
                    / (torch.sqrt(nu[k] / bc2) + eps)
                    for k in mu}

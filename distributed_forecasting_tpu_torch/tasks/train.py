@@ -56,7 +56,8 @@ device.  Conf::
 ``model: arnet`` (also in a pool) trains by batched gradient descent
 (``engine/gradfit.py``; ``engine.gradfit`` arms its engine path); arima's
 ``method: mle`` (also in a pool) by Adam on the exact Kalman likelihood,
-its gradient a hand kernel on the card (``ops/kalman.arima_loglik_grad``).
+the whole fit one launch of a hand kernel on the card
+(``ops/kalman.arima_mle_fit``).
 """
 
 from __future__ import annotations

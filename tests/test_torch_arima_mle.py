@@ -1,8 +1,9 @@
 """Port parity: arima ``method='mle'``, the likelihood-gradient kernel's plain
 twin (``models/arima.arima_loglik_grad_reference``, the forward-mode
-tangents of the sequential Kalman filter), ``ops/kalman.KalmanLoglik``, and
-the MLE fit through ``fit``, the CV pass and ``order: auto``, against the
-JAX reference on the CPU.
+tangents of the sequential Kalman filter), the loss's gradient in u as the
+fit kernel forms it, and the MLE fit (the fit kernel's twin
+``models/arima.mle_fit_reference`` on the CPU) through ``fit``, the CV pass
+and ``order: auto``, against the JAX reference on the CPU.
 
 Tolerances and why:
 - Jacobians (d ssq, d ldet by phi and theta): within 5e-5 of each row's
@@ -12,10 +13,12 @@ Tolerances and why:
   the references' reverse mode add the same terms in other orders, so
   they differ by float32 rounding: measured 1e-5 of scale at most over
   these cases (a coefficient at |PACF| 0.96 included).
+- The loss's gradient in u: within 5e-5 of each row's scale, as the
+  Jacobians (the same terms in other orders).
 - The MLE fit (30 Adam steps): phi, theta within 1e-5; sigma2, the fitted
   path, its variance and the forecast band within 1e-4 of the row's scale.
   Adam's update is the reference's, so only the gradient's rounding is
-  left; measured 3e-7 of scale.
+  left.
 - The primal ssq, ldet and n are bitwise the sequential filter's: the
   twin runs the same operations.
 """
@@ -131,8 +134,12 @@ def test_twin_jacobian_matches_autograd_and_jax(order, seed):
 
 @pytest.mark.parametrize("order", ["211", "012"])
 def test_nll_gradient_matches_jax_grad_of_reference(order):
-    """The whole loss: ``KalmanLoglik``'s backward through the PACF map and
-    the prior, against ``jax.grad`` of the reference's ``nll_one``."""
+    """The whole loss's gradient in u as the fit forms it: the map's
+    Jacobian columns as the filter's directions
+    (``_pacf_directions``), the twin's tangents along them and the
+    hand-written gradient (``_mle_grad``), against ``jax.grad`` of the
+    reference's ``nll_one``; the loss from the twin's pieces against its
+    value."""
     p, q = ORDERS[order]
     r = max(p, q + 1, 1)
     z, m, u = _rows(p, q, seed=3)
@@ -149,12 +156,15 @@ def test_nll_gradient_matches_jax_grad_of_reference(order):
 
     want_val, want = jax.vmap(jax.value_and_grad(nll_one))(
         jnp.asarray(u), jnp.asarray(z), jnp.asarray(m))
-    ut = torch.from_numpy(u).requires_grad_(True)
-    val = ta._mle_nll(ut, torch.from_numpy(z), torch.from_numpy(m), p, q, r,
-                      cfg.prior_scale)
-    (got,) = torch.autograd.grad(val.sum(), ut)
-    np.testing.assert_allclose(val.detach().numpy(), np.asarray(want_val),
-                               rtol=1e-6)
+    ut = torch.from_numpy(u)
+    phi, theta, dph, dRv = ta._pacf_directions(ut, p, q, r)
+    ssq, ldet, n, dssq, dldet = ta.arima_loglik_grad_reference(
+        torch.from_numpy(z), torch.from_numpy(m), phi, theta, r, dph, dRv)
+    got = ta._mle_grad(ut, ssq, n, dssq, dldet, cfg.prior_scale)
+    nn = torch.clamp_min(n, 1.0)
+    val = (0.5 * nn * torch.log(torch.clamp_min(ssq / nn, ta._EPS))
+           + 0.5 * ldet + 0.5 * torch.sum((ut / cfg.prior_scale) ** 2, 1))
+    np.testing.assert_allclose(val.numpy(), np.asarray(want_val), rtol=1e-6)
     _assert_rows_close(got.numpy(), np.asarray(want), "nll grad")
 
 

@@ -28,9 +28,10 @@ card's fit is the CPU's within float32 (summation order and Adam's fused
 arithmetic differ).  The curve model's Monte-Carlo branch and the tuned
 path run on the card at small shapes against the CPU on the same draws.
 
-The MLE fit's likelihood-gradient kernel (``csrc/arima_mle.cu``) repeats
-its twin's float32 operations in order: held to it bit for bit, and its
-primal to ``arima_filter``'s.
+The MLE fit's kernels (``csrc/arima_mle.cu``) repeat their twins' float32
+operations in order: the likelihood gradient is held to its twin bit for
+bit, and its primal to ``arima_filter``'s; the whole fit (one launch) to
+``mle_fit_reference`` bit for bit after 1, 30 and 200 steps.
 """
 
 import dataclasses
@@ -1201,8 +1202,10 @@ def _mle_inputs(dev, S, p, q, T=300, seed=4):
     return zc.contiguous(), zmask.contiguous(), phi, theta
 
 
-@pytest.mark.parametrize("p, q", [(2, 1), (4, 0), (0, 3), (9, 0)],
-                         ids=["r2", "r4", "r4_theta", "warp_r9"])
+@pytest.mark.parametrize("p, q", [(2, 1), (4, 0), (0, 3), (7, 6), (8, 0),
+                                  (9, 0)],
+                         ids=["r2", "r4", "r4_theta", "r7_shared_dP",
+                              "r8_shared_P", "warp_r9"])
 def test_loglik_grad_kernel_equals_twin_bitwise(dev, p, q):
     from distributed_forecasting_tpu_torch.ops import kalman
 
@@ -1231,19 +1234,26 @@ def test_loglik_grad_kernel_refuses_an_r_past_its_limit(dev):
 
 
 def test_mle_fit_on_the_card_launches_the_kernel_each_step(dev):
-    """fit_forecast with method='mle' launches the gradient kernel once a
-    step and each arima kernel once; the card's fit is the CPU's within
+    """fit_forecast with method='mle' runs its whole fit in one launch of
+    ``arima_mle_fit`` (none of ``arima_loglik_grad``) and each arima kernel
+    once, and so does its CV pass; the card's fit is the CPU's within
     float32 (the Adam scalars divide by reciprocal on the card)."""
-    from distributed_forecasting_tpu_torch.engine import fit
+    from distributed_forecasting_tpu_torch.engine import cv, fit
     from distributed_forecasting_tpu_torch.models.arima import ArimaConfig
     from distributed_forecasting_tpu_torch.ops import kalman
 
     b = _pool_batch(dev)
     cfg = ArimaConfig(method="mle", fit_steps=40)
-    before = kalman.arima_loglik_grad.launches
+    kalman.arima_mle_fit.launches = kalman.arima_loglik_grad.launches = 0
     params, res = fit.fit_forecast(b, "arima", config=cfg, horizon=30)
     torch.cuda.synchronize()
-    assert kalman.arima_loglik_grad.launches - before == 40
+    assert kalman.arima_mle_fit.launches == 1
+    assert kalman.arima_loglik_grad.launches == 0
+    cv.cross_validate(b, "arima", config=cfg, cv=cv.CVConfig(
+        initial=200, period=100, horizon=30))
+    torch.cuda.synchronize()
+    assert kalman.arima_mle_fit.launches == 2
+    assert kalman.arima_loglik_grad.launches == 0
     cpu = dataclasses.replace(b, y=b.y.cpu(), mask=b.mask.cpu(),
                               day=b.day.cpu())
     want_params, want = fit.fit_forecast(cpu, "arima", config=cfg, horizon=30)
@@ -1253,6 +1263,62 @@ def test_mle_fit_on_the_card_launches_the_kernel_each_step(dev):
         w = getattr(want, name)
         torch.testing.assert_close(getattr(res, name).cpu(), w, rtol=0,
                                    atol=1e-3 * float(w.abs().max()))
+
+
+# The fit kernel against its twin on the card: the same operations in the
+# same order (the map, the filter and its tangents, the gradient, Adam with
+# the card's reciprocal-of-scalar divisions), so u, and the coefficients
+# torch maps it to, are bit for bit the twin's after every step.  The twin
+# runs ~75 launches a time step, so these cases keep T at 150.
+_FIT_STEPS = (1, 30, 200)
+_TWIN_PATHS = {}
+
+
+@pytest.mark.parametrize("p, q", [(2, 1), (4, 0), (0, 3), (8, 0), (9, 0)],
+                         ids=["r2", "r4", "r4_theta", "r8_shared_P",
+                              "warp_r9"])
+def test_mle_fit_kernel_equals_twin_bitwise(dev, p, q):
+    from distributed_forecasting_tpu_torch.models import arima
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    r = max(p, q + 1, 1)
+    zc, zmask, _, _ = _mle_inputs(dev, 40, p, q, T=150)
+    cfg = arima.ArimaConfig()
+    if (p, q) not in _TWIN_PATHS:  # the twin's path, once per order
+        _TWIN_PATHS[p, q] = arima.mle_fit_reference(
+            zc, zmask, p, q, r, max(_FIT_STEPS), cfg.learning_rate,
+            cfg.prior_scale, path=True)
+    want = _TWIN_PATHS[p, q]
+    for steps in _FIT_STEPS:
+        before = kalman.arima_mle_fit.launches
+        launch, got = kalman._mle_fit_launcher(
+            zc, zmask, p, q, r, steps, cfg.learning_rate, cfg.prior_scale)
+        launch()
+        torch.cuda.synchronize()
+        assert kalman.arima_mle_fit.launches == before + 1
+        w = want[steps - 1]
+        differ = (got != w).any(dim=1)
+        assert not differ.any(), (steps, int(differ.sum()),
+                                  float((got - w).abs().max()))
+        for fn, sl in ((arima._pacf_to_coef, slice(0, p)),
+                       (arima._pacf_to_coef, slice(p, p + q))):
+            assert torch.equal(fn(got[:, sl]), fn(w[:, sl])), steps
+    assert torch.isfinite(got).all()
+    assert float(got.abs().max()) > 1e-2  # the fit moved off u = 0
+
+
+def test_mle_fit_kernel_refuses_what_it_has_no_instance_for(dev):
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    zc, zmask, _, _ = _mle_inputs(dev, 4, 70, 0, T=50)
+    with pytest.raises(ValueError, match="limit of 64"):
+        kalman.arima_mle_fit(zc, zmask, 70, 0, 70, 2, 0.05, 1.0)
+    # nothing to fit: no launch, u = 0
+    before = kalman.arima_mle_fit.launches
+    assert not kalman.arima_mle_fit(zc, zmask, 2, 1, 2, 0, 0.05, 1.0).any()
+    assert kalman.arima_mle_fit(zc, zmask, 0, 0, 1, 5, 0.05, 1.0).shape == (
+        4, 0)
+    assert kalman.arima_mle_fit.launches == before
 
 
 def test_bf16_gate_leaves_the_kernel_route_unchanged(dev):
