@@ -93,7 +93,15 @@ is not 0:
               within 10 * cond(A) * 2^-24), ok flags equal
   6. times    CUDA-event medians of 5 runs after a warm-up.  Holt-Winters:
               both kernels at the fit, CV and damped shapes beside their
-              bounds, both twins, fit_forecast broken down into scoring,
+              bounds, each timed host-paced (``ms``: 20 launches of the
+              bound launcher between two events) and on the device
+              (``device_ms``: the same with a sleep kernel queued first, so
+              that the host has enqueued them all before the first runs;
+              None where it had not);
+              hw_filter's cycles a step by the slope of its device time over
+              T = 1,826 / 3,652 / 7,304 (additive and multiplicative m 7,
+              additive m 30) and its chain (``HW_CHAIN_CYCLES``, read from
+              its SASS); both twins, fit_forecast broken down into scoring,
               refit, forecast and fail-safe (a staged copy of it whose
               outputs must equal fit_forecast's), the CV pass, one
               500-series predict, and the device's idle share over one
@@ -176,7 +184,11 @@ is not 0:
               every counter set to 0 just before it and read just after
               (both arima kernels must launch); checks as phase 5's and a
               20-series card-vs-CPU run within 1e-3 of each output's scale;
-              times: both kernels beside their bounds and their twins (once),
+              times: both kernels beside their bounds and their twins
+              (once), host-paced and on the device; arima_predict also
+              beside an empty kernel launched the same way (the launch
+              floor), its chain (``ARIMA_PREDICT_CHAIN_CYCLES``) and the
+              host's part of a call,
               fit_forecast and the CV pass (idle share, host syncs), one HW
               ``filter='pscan'`` and one ``kalman='pscan'`` fit with their
               peak memory.  ``order: auto`` on the committed dataset (all 22
@@ -345,7 +357,15 @@ is not 0:
               apply at 20,480 series at K 1 and at a bucket crossing with
               peak device memory
 
-The line before the last lists the kernels (launches, error, times, bound;
+``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
+kernels and runs only ``kernel_times``: hw_filter's slope, its probe
+(this checkout only) and its times at 500 rows, one wave plus one row and
+20,480 rows, arima_predict against its launch floor and hw_score's two
+times, on the port found in DIR (a checkout of another commit) or in this
+one, so that two commits compare in one call on one card.
+
+The line before the last lists the kernels (launches, error, times,
+``covered``, bound; only numbers this run measured or computed;
 launches and error include phase 11's bucketed calls, phase 12's
 arima_predict launches through HTTP, /invocations and /detect_anomalies,
 phase 13's train task, phases 14-15's main paths and tasks, and phase 16's
@@ -356,6 +376,7 @@ without one it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -412,6 +433,43 @@ def cuda_ms(fn, reps: int = REPS, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+# the device-paced timing's lead: torch.cuda._sleep cycles queued before the
+# start event, ~10 ms at the boost clock, longer than the host takes to
+# enqueue the timed launches (device_ms checks that it was, and tries once
+# more with a lead 8 times as long where it was not)
+DEVICE_SLEEP_CYCLES = 20_000_000
+
+
+def device_ms(fn, reps: int = REPS, inner: int = 20) -> dict:
+    """Median device time of one ``fn()`` with the host out of the way: a
+    sleep kernel queued first holds the stream while the host enqueues the
+    start event, ``inner`` launches and the stop event, so the launches run
+    back to back on the device.  ``covered``: in every sample the host had
+    enqueued them all before the sleep ended (the sleep's own events say
+    how long it ran); where it had not, the times are the host's pace and
+    ``device_ms`` is None."""
+    fn()
+    torch.cuda.synchronize()
+    for lead in (DEVICE_SLEEP_CYCLES, 8 * DEVICE_SLEEP_CYCLES):
+        times, covered = [], True
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(lead)
+            t0 = time.perf_counter()
+            ev[1].record()
+            for _ in range(inner):
+                fn()
+            ev[2].record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            covered &= enqueue_ms < ev[0].elapsed_time(ev[1])
+            times.append(ev[1].elapsed_time(ev[2]) / inner)
+        if covered:
+            return {"device_ms": statistics.median(times), "covered": True}
+    return {"device_ms": None, "covered": False}
 
 
 def bound_ms(work: tuple) -> tuple:
@@ -821,7 +879,8 @@ def timings(run, port, card_line: str) -> dict:
         ms = cuda_ms(launch, inner=20)
         C = int(grid[0].numel())
         bound, by = bound_ms(fs.hw_score_work(mask, C, m))
-        return {"ms": ms, "bound_ms": bound, "bound_by": by,
+        return {"ms": ms, **device_ms(launch), "bound_ms": bound,
+                "bound_by": by,
                 "shape": [int(y.shape[0]), int(y.shape[1]), C, m]}
 
     def refit(y, mask, cfg):
@@ -830,7 +889,9 @@ def timings(run, port, card_line: str) -> dict:
         ms = cuda_ms(launch, inner=20)
         S, T = (int(d) for d in y.shape)
         bound, by = bound_ms(fs.hw_filter_work(S, T, m))
-        return {"ms": ms, "bound_ms": bound, "bound_by": by, "shape": [S, T, m]}
+        return {"ms": ms, **device_ms(launch), "bound_ms": bound,
+                "bound_by": by, "shape": [S, T, m],
+                "sass_chain_ms": T * HW_CHAIN_CYCLES / CLOCK_HZ * 1e3}
 
     shapes = {"fit": (y, mask, cfg), "cv": (cv_y, cv_mask, cfg),
               "damped": (y, mask, hw.HoltWintersConfig(damped=True))}
@@ -859,8 +920,10 @@ def timings(run, port, card_line: str) -> dict:
     }
     fit_forecast()
     t["fit_forecast_profile"] = idle_share(fit_forecast)
+    t["hw_filter_slope"] = hw_filter_slope(port, batch)
     emit("times", card=card_line, reps=REPS, statistic="median",
-         hw_score=k_score, hw_filter=k_filter, **t)
+         hw_score=k_score, hw_filter=k_filter,
+         hw_chain_cycles_read_from_sass=HW_CHAIN_CYCLES, **t)
     return dict(t, hw_score=k_score["fit"], hw_filter=k_filter["fit"])
 
 
@@ -1460,8 +1523,8 @@ BLEND = "forecasting-blend"
 POOLED_TASKS = {REAL: E2E_TASKS, BLEND: TASKS + ["promote"]}
 # the croston recurrence's dependent chain per step: the size (and interval)
 # update, a multiply, an add and a select, ~16 cycles; T such steps at the
-# card's 1.98 GHz boost clock, whatever the width (as hw_filter.cu:37-43
-# reckons its own chain)
+# card's 1.98 GHz boost clock, whatever the width (as HW_CHAIN_CYCLES counts
+# hw_filter's)
 CROSTON_CHAIN_CYCLES = 16
 CLOCK_HZ = 1.98e9
 
@@ -2748,7 +2811,7 @@ def arima_timings(run, port, card_line: str) -> dict:
         bound, by = bound_ms(kal.arima_filter_work(S, T, args[7], args[8]))
         launch, _ = kal._arima_filter_launcher(*args)
         k[name] = {"shape": [S, T, args[7], args[8]],
-                   "ms": cuda_ms(launch, inner=20),
+                   "ms": cuda_ms(launch, inner=20), **device_ms(launch),
                    "bound_ms": bound, "bound_by": by,
                    "serial_chain_ms": T * ARIMA_CHAIN_CYCLES / CLOCK_HZ * 1e3}
         if name == "fit":
@@ -2768,9 +2831,9 @@ def arima_timings(run, port, card_line: str) -> dict:
     sigma2 = out.ssq / torch.clamp_min(out.n, 1.0)
     pargs = (fit_args[4], fit_args[5], out.a_T, out.P_T, sigma2, 2, 91)
     bound, by = bound_ms(kal.arima_predict_work(batch.n_series, 91, 2))
-    launch, _ = kal._arima_predict_launcher(*pargs)
-    predict = {"shape": [batch.n_series, 91, 2],
-               "ms": cuda_ms(launch, inner=20),
+    from distributed_forecasting_tpu_torch.ops import _build
+    predict = {**arima_predict_floor(port, pargs,
+                                     measurement_entries(_build.library())),
                "bound_ms": bound, "bound_by": by}
     twin_predict = once_ms(lambda: kal.arima_predict_reference(*pargs))
     # the Hannan-Rissanen estimate alone, at the fit and CV shapes
@@ -5751,7 +5814,8 @@ def mle_times(port, batch, fit_cases, card_line: str) -> dict:
         bound, by = bound_ms(kal.arima_loglik_grad_work(S, T, 2, 3))
         launch, _ = kal._arima_loglik_grad_launcher(*args)
         ms = cuda_ms(launch, inner=5)
-        k[name] = {"shape": [S, T, 2, 3], "ms": ms, "bound_ms": bound,
+        k[name] = {"shape": [S, T, 2, 3], "ms": ms,
+                   **device_ms(launch, inner=5), "bound_ms": bound,
                    "bound_by": by,
                    "serial_chain_ms": T * MLE_CHAIN_CYCLES / CLOCK_HZ * 1e3,
                    "cycles_per_step": ms * 1e-3 * CLOCK_HZ / T}
@@ -5764,6 +5828,7 @@ def mle_times(port, batch, fit_cases, card_line: str) -> dict:
         ms = cuda_ms(launch)
         bound, by = bound_ms(kal.mle_fit_work(S, T, 2, 2, 1, steps))
         fit[name] = {"shape": [S, T, 2, 1], "steps": steps, "ms": ms,
+                     **device_ms(launch, reps=3, inner=1),
                      "bound_ms": bound, "bound_by": by,
                      "serial_chain_ms": (steps * T * MLE_CHAIN_CYCLES
                                          / CLOCK_HZ * 1e3),
@@ -6555,6 +6620,250 @@ def slice15_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- kernel times on the device: cycles a step, chains, the launch floor -----
+
+# hw_filter at T = 1,826 x each of these tiles of the committed rows: the
+# slope of its device time over T is its cycles a step (at CLOCK_HZ), the
+# intercept its launch, prologue and epilogue
+SLOPE_TILES = (1, 2, 4)
+SLOPE_CASES = (("additive_m7", 7, "additive"),
+               ("multiplicative_m7", 7, "multiplicative"),
+               ("additive_m30", 30, "additive"))
+# hw_filter's serial chain a step, read from the SASS of its m 7 additive
+# step loop (scripts/cuda_kernel_report.py --chain
+# hw_filter_kernelILi7ELb0ELb0ELi480E: 784 cycles a 28-step block): the
+# longest dependent path the loop carries from b at step t to b at step
+# t + 1, 7 instructions (FMUL FADD FMUL FADD FADD FMUL FADD: the select is a
+# predicated write) at 4 cycles each; the same 7 in the first design's loop
+HW_CHAIN_CYCLES = 28
+# arima_predict's chain a forecast step at r 2, read the same way from its
+# chain warp's loop (--chain arima_predict_kernelILi2E: 80 cycles a 4-step
+# trip), 5 instructions from P_00 to the next P_00
+ARIMA_PREDICT_CHAIN_CYCLES = 20
+PROBE_FIELDS = 7  # csrc/hw_filter.cu: what a probe block records
+
+
+def measurement_entries(lib):
+    """Bind the library's measurement-only C entries, where it has them
+    (csrc/arima_kalman.cu's empty kernel, csrc/hw_filter.cu's probe
+    instance); no module of the port calls them."""
+    if hasattr(lib, "arima_empty_launch"):
+        lib.arima_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.arima_empty_launch.restype = ctypes.c_int
+    if hasattr(lib, "hw_filter_probe_launch"):
+        lib.hw_filter_probe_launch.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.hw_filter_probe_launch.restype = ctypes.c_int
+    return lib
+
+
+def hw_filter_probe(lib, y, mask, won, init, m: int, mode: str,
+                    want) -> dict:
+    """One launch of hw_filter's measurement instance on the same inputs as
+    the launcher whose outputs are ``want``: the consumer's cycles a step
+    in its step loop and in the chunk barriers, the prologue's cycles, the
+    SM clock (clock64 over the global timer), and whether its outputs equal
+    the kernel's bit for bit."""
+    S, T = (int(d) for d in y.shape)
+    dev = y.device
+    blocks = (S + 31) // 32
+    probe = torch.zeros(blocks * PROBE_FIELDS, dtype=torch.int64, device=dev)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    outs = (new(S), new(S), new(S, m), new(S), new(S, T))
+    tensors = (y, mask, *won, *init, *outs, probe)
+    args = [ctypes.c_void_p(x.data_ptr()) for x in tensors]
+    args += [S, T, m, int(mode == "multiplicative"),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)]
+    for _ in range(2):  # the second launch is read
+        with torch.cuda.device(dev):
+            err = lib.hw_filter_probe_launch(*args)
+        assert err == 0, f"hw_filter_probe_launch: {err}"
+    torch.cuda.synchronize()
+    p = probe.cpu().numpy().reshape(blocks, PROBE_FIELDS).astype(np.float64)
+    (l, b, s), mse, path = want
+    equal = all(torch.equal(torch.nan_to_num(a, nan=0.0),
+                            torch.nan_to_num(w, nan=0.0))
+                for a, w in zip(outs, (l, b, s, mse, path)))
+    loop, waited = p[:, 2] - p[:, 1], p[:, 3]
+    return {"cycles_per_step": float(np.median((loop - waited) / T)),
+            "barrier_cycles_per_step": float(np.median(waited / T)),
+            "prologue_cycles": float(np.median(p[:, 1] - p[:, 0])),
+            "clock_ghz": float(np.median((p[:, 2] - p[:, 0])
+                                         / (p[:, 5] - p[:, 4]))),
+            "blocks": blocks, "sms": int(len(np.unique(p[:, 6]))),
+            "equals_kernel": bool(equal)}
+
+
+def hw_filter_slope(port, batch, lib=None) -> dict:
+    """hw_filter's device time (:func:`device_ms`) and host-paced time
+    (:func:`cuda_ms`) at the fit width and T = 1,826 x :data:`SLOPE_TILES`
+    for each of :data:`SLOPE_CASES` (the default grid's winners on the
+    committed rows, tiled along time); the least-squares slope in cycles a
+    step and the intercept (None where a device time is); the chain read
+    from the SASS and its share of the time; and, given ``lib`` with the
+    probe entry, the probe instance's split at T = 1,826."""
+    hw, fs = port["hw"], port["fs"]
+    probe_ok = lib is not None and hasattr(lib, "hw_filter_probe_launch")
+    out = {}
+    for name, m, mode in SLOPE_CASES:
+        grid = hw._candidate_grid(hw.HoltWintersConfig(season_length=m),
+                                  device=batch.y.device)
+        best = fs.hw_score(batch.y, batch.mask, *grid, m).argmin(1)
+        won = tuple(x[best].contiguous() for x in grid)
+        rows = []
+        for k in SLOPE_TILES:
+            y = batch.y.repeat(1, k).contiguous()
+            mask = batch.mask.repeat(1, k).contiguous()
+            init = [x.contiguous() for x in hw._init_state(y, mask, m, mode)]
+            launch, result = fs._hw_filter_launcher(y, mask, *won, *init,
+                                                    mode)
+            row = {"T": int(y.shape[1]), **device_ms(launch),
+                   "ms": cuda_ms(launch, inner=20)}
+            if k == 1 and probe_ok:
+                row["probe"] = hw_filter_probe(lib, y, mask, won, init, m,
+                                               mode, result)
+            rows.append(row)
+        T = rows[0]["T"]
+        chain = T * HW_CHAIN_CYCLES / CLOCK_HZ * 1e3
+        out[name] = {"S": int(batch.y.shape[0]), "m": m, "mode": mode,
+                     "rows": rows, "cycles_per_step": None,
+                     "intercept_ms": None, "sass_chain_ms": chain,
+                     "chain_share": None}
+        if all(r["covered"] for r in rows):
+            slope, icpt = np.polyfit([r["T"] for r in rows],
+                                     [r["device_ms"] for r in rows], 1)
+            out[name].update(cycles_per_step=float(slope) * 1e-3 * CLOCK_HZ,
+                             intercept_ms=float(icpt),
+                             chain_share=chain / rows[0]["device_ms"])
+    return out
+
+
+# hw_filter across fleet sizes (kernel_times): the fit width, one row past
+# one block an SM, and the streaming phase's 20,480 series, all at
+# T 1,826, m 7, additive (the rows of the committed data repeated)
+FLEET_ROWS = (500, "wave+1", 20_480)
+
+
+def hw_filter_fleet(port, batch) -> dict:
+    """hw_filter's device time and host-paced time at each of
+    :data:`FLEET_ROWS` ("wave+1": 32 rows an SM, plus one), with its blocks
+    and the card's SMs: the kernel takes fifteen producer warps a block
+    while its grid fits one wave of them, seven past it."""
+    hw, fs = port["hw"], port["fs"]
+    sms = torch.cuda.get_device_properties(batch.y.device).multi_processor_count
+    grid = hw._candidate_grid(hw.HoltWintersConfig(), device=batch.y.device)
+    best = fs.hw_score(batch.y, batch.mask, *grid, 7).argmin(1)
+    out = []
+    for rows in FLEET_ROWS:
+        S = 32 * sms + 1 if rows == "wave+1" else rows
+        idx = torch.arange(S, device=batch.y.device) % batch.y.shape[0]
+        y, mask = batch.y[idx].contiguous(), batch.mask[idx].contiguous()
+        won = tuple(x[best[idx]].contiguous() for x in grid)
+        init = [x.contiguous() for x in hw._init_state(y, mask, 7,
+                                                       "additive")]
+        launch, _ = fs._hw_filter_launcher(y, mask, *won, *init, "additive")
+        out.append({"S": S, "blocks": (S + 31) // 32, "sms": sms,
+                    **device_ms(launch), "ms": cuda_ms(launch, inner=20)})
+    return out
+
+
+def arima_predict_floor(port, pargs, lib) -> dict:
+    """arima_predict at ``pargs`` timed two ways (host-paced ``ms``, and
+    ``device_ms``), beside an empty kernel launched the same way (the bound
+    Python launcher's ``torch.cuda.device``, ctypes call and status check)
+    timed both ways; its byte bound, its chain (H x
+    ARIMA_PREDICT_CHAIN_CYCLES), the largest of the three as
+    ``floor_bound_ms`` and its share of the device time; and the host's
+    part, the wall time of one ``arima_predict()`` call with no sync."""
+    kal = port["kalman"]
+    phi, theta, a0, P0, sigma2, r, H = pargs
+    S = int(a0.shape[0])
+    dev = a0.device
+    launch, _ = kal._arima_predict_launcher(*pargs)
+    out = {"shape": [S, H, r], "ms": cuda_ms(launch, inner=20),
+           **device_ms(launch)}
+    host = []
+    for _ in range(5):
+        for _ in range(40):
+            t0 = time.perf_counter()
+            kal.arima_predict(*pargs)
+            host.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    bytes_ms, _ = bound_ms(kal.arima_predict_work(S, H, r))
+    chain_ms = H * ARIMA_PREDICT_CHAIN_CYCLES / CLOCK_HZ * 1e3
+    out.update(host_call_us=statistics.median(host), bytes_bound_ms=bytes_ms,
+               sass_chain_ms=chain_ms)
+    if hasattr(lib, "arima_empty_launch"):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        blocks = (S + 31) // 32
+
+        def empty():
+            with torch.cuda.device(dev):
+                err = lib.arima_empty_launch(blocks, stream)
+            if err:
+                raise RuntimeError(f"arima_empty_launch: {err}")
+
+        e = device_ms(empty)
+        floors = {"bytes": bytes_ms, "chain": chain_ms}
+        if e["covered"]:
+            floors["launch floor"] = e["device_ms"]
+        by = max(floors, key=floors.get)
+        out.update(empty_ms=cuda_ms(empty, inner=20),
+                   empty_device_ms=e["device_ms"],
+                   empty_covered=e["covered"],
+                   floor_bound_ms=floors[by], floor_bound_by=by,
+                   floor_share=(floors[by] / out["device_ms"]
+                                if out["covered"] else None))
+    return out
+
+
+def predict_args(port, batch) -> tuple:
+    """arima_predict's arguments on the main path's forecast at the fit
+    shape: the default (2, 1, 1) fit's state after the grid, H 91."""
+    kal = port["kalman"]
+    fit_args = arima_args(port, batch.y * batch.mask, batch.mask,
+                          port["arima"].ArimaConfig())
+    out = kal.arima_filter(*fit_args)
+    sigma2 = out.ssq / torch.clamp_min(out.n, 1.0)
+    return (fit_args[4], fit_args[5], out.a_T, out.P_T, sigma2,
+            fit_args[7], 91)
+
+
+def kernel_times(port, card_line: str, probe: bool = True) -> dict:
+    """``chip_smoke.py --kernel-times``: hw_filter's slope and, with
+    ``probe``, split (:func:`hw_filter_slope`), its times across fleet sizes
+    (:func:`hw_filter_fleet`), arima_predict against its launch floor
+    (:func:`arima_predict_floor`) and hw_score's two times at the fit
+    shape, nothing else.  Runs against whichever copy of the port
+    ``--package-root`` put first on the path (the probe is skipped for
+    another copy, whose entry may take other arguments, and the empty
+    kernel where its library lacks it), so that two commits can be compared
+    in one call on one card."""
+    from distributed_forecasting_tpu_torch.ops import _build
+
+    data, hw, fs = port["data"], port["hw"], port["fs"]
+    lib = measurement_entries(_build.library())
+    batch = data.tensorize(data.load_sales_csv(DATA))
+    grid = hw._candidate_grid(hw.HoltWintersConfig(), device=batch.y.device)
+    init = [x.contiguous() for x in hw._init_state(batch.y, batch.mask, 7,
+                                                   "additive")]
+    launch, _ = fs._hw_score_launcher(batch.y, batch.mask, *grid, *init)
+    out = {"package": os.path.dirname(os.path.dirname(
+               os.path.abspath(fs.__file__))),
+           "hw_filter": hw_filter_slope(port, batch,
+                                        lib if probe else None),
+           "hw_filter_fleet": hw_filter_fleet(port, batch),
+           "arima_predict": arima_predict_floor(
+               port, predict_args(port, batch), lib),
+           "hw_score": {"ms": cuda_ms(launch, inner=20),
+                        **device_ms(launch)}}
+    emit("kernel_times", card=card_line, reps=REPS, statistic="median",
+         hw_chain_cycles_read_from_sass=HW_CHAIN_CYCLES,
+         arima_predict_chain_cycles_read_from_sass=ARIMA_PREDICT_CHAIN_CYCLES,
+         clock_hz=CLOCK_HZ, **out)
+    return out
+
+
 KERNELS = {
     "hw_score": ("distributed_forecasting_tpu_torch/csrc/hw_score.cu",
                  "distributed_forecasting_tpu/ops/fused_scan.py:199"),
@@ -6627,10 +6936,28 @@ def load_port() -> dict:
                 update=update, ingest=ingest, serve_task=serve_task)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA GPU (see the module docstring).")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build and time the kernels (kernel_times)")
+    ap.add_argument("--package-root",
+                    help="import the port from this directory (a checkout "
+                         "of another commit) instead of this one")
+    ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if ns.package_root:
+        sys.path.insert(0, os.path.abspath(ns.package_root))
+    if ns.kernel_times:
+        port = load_port()
+        card_line = card()
+        print(card_line, flush=True)
+        kernel_times(port, card_line, probe=not ns.package_root)
+        return 0
     t_start = time.perf_counter()
     # the port comes from this checkout: without it, fail before any output
     port = load_port()
@@ -6727,9 +7054,12 @@ def main() -> int:
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
-                    ms=t[k]["ms"], plain_ms=t[f"{k}_twin_ms"],
+                    ms=t[k]["ms"], device_ms=t[k]["device_ms"],
+                    covered=t[k]["covered"], plain_ms=t[f"{k}_twin_ms"],
                     bound_ms=t[k]["bound_ms"], bound_by=t[k]["bound_by"])
             for k in ("hw_score", "hw_filter")}
+    rows["hw_filter"]["cycles_per_step"] = (
+        t["hw_filter_slope"]["additive_m7"]["cycles_per_step"])
     for k, timed in (("arima_filter", at["arima_filter"]["fit"]),
                      ("arima_predict", at["arima_predict"])):
         rows[k] = dict(launches=(arima_out["launches"][k]
@@ -6739,13 +7069,19 @@ def main() -> int:
                                  + p8_end["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in
                                        arima_out["cases"][k].values()),
-                       ms=timed["ms"], plain_ms=at[f"{k}_twin_ms"],
+                       ms=timed["ms"], device_ms=timed["device_ms"],
+                       covered=timed["covered"], plain_ms=at[f"{k}_twin_ms"],
                        bound_ms=timed["bound_ms"], bound_by=timed["bound_by"])
+    ap = at["arima_predict"]
+    rows["arima_predict"].update(
+        launch_floor_device_ms=ap["empty_device_ms"],
+        host_call_us=ap["host_call_us"])
     mt = p8_end["times"]["kernel"]["fit"]
     rows["arima_loglik_grad"] = dict(
         launches=p8_end["launches"]["arima_loglik_grad"],
         max_abs_err=max(c["max_abs_err"] for c in p8_end["cases"].values()),
-        ms=mt["ms"], plain_ms=p8_end["times"]["twin_ms"],
+        ms=mt["ms"], device_ms=mt["device_ms"], covered=mt["covered"],
+        plain_ms=p8_end["times"]["twin_ms"],
         bound_ms=mt["bound_ms"], bound_by=mt["bound_by"])
     # ms and bound_ms: the main path's launch (200 steps at the fit shape);
     # max_abs_err and plain_ms: the compared calls (compared_steps steps:
@@ -6755,7 +7091,9 @@ def main() -> int:
         launches=p8_end["launches"]["arima_mle_fit"],
         max_abs_err=max(c["max_abs_err"]
                         for c in p8_end["fit_cases"].values()),
-        ms=fm["ms"], plain_ms=fc["plain_ms"], bound_ms=fm["bound_ms"],
+        ms=fm["ms"], device_ms=fm["device_ms"], covered=fm["covered"],
+        plain_ms=fc["plain_ms"],
+        bound_ms=fm["bound_ms"],
         bound_by=fm["bound_by"], steps=fm["steps"],
         compared_steps=fc["steps"], compared_ms=fc["ms"])
     emit("smoke", seconds=time.perf_counter() - t_start)

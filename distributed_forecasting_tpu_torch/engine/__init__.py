@@ -6,11 +6,28 @@ from distributed_forecasting_tpu_torch.engine.autoprep import (
     autoprep_config,
     configure_autoprep,
 )
-from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
+from distributed_forecasting_tpu_torch.engine.blend import (
+    BlendResult,
+    blend_weights,
+    fit_forecast_blend,
+)
+from distributed_forecasting_tpu_torch.engine.calibrate import (
+    apply_interval_scale,
+    conformal_interval_scale,
+)
+from distributed_forecasting_tpu_torch.engine.compile_cache import (
+    CompileCacheConfig,
+)
 from distributed_forecasting_tpu_torch.engine.cv import (
     CVConfig,
     cross_validate,
     cv_forecast_frame,
+)
+from distributed_forecasting_tpu_torch.engine.executor import (
+    ExperimentHandle,
+    PipelineConfig,
+    TrainingExecutor,
+    device_pull,
 )
 from distributed_forecasting_tpu_torch.engine.fit import (
     ForecastResult,
@@ -18,6 +35,7 @@ from distributed_forecasting_tpu_torch.engine.fit import (
     fit_forecast_bucketed,
     fit_forecast_chunked,
     forecast_frame,
+    seasonal_naive,
 )
 from distributed_forecasting_tpu_torch.engine.hyper import (
     AutoMLConfig,
@@ -27,6 +45,10 @@ from distributed_forecasting_tpu_torch.engine.hyper import (
     configure_automl,
     tune_curve_model,
 )
+from distributed_forecasting_tpu_torch.engine.order import select_arima_order
+from distributed_forecasting_tpu_torch.engine.season import (
+    detect_season_length,
+)
 from distributed_forecasting_tpu_torch.engine.select import (
     AutoMLResult,
     SelectionResult,
@@ -34,6 +56,7 @@ from distributed_forecasting_tpu_torch.engine.select import (
     select_model,
     successive_halving_select,
 )
+from distributed_forecasting_tpu_torch.engine.windowed import WindowedConfig
 
 __all__ = ["AutoprepConfig", "PrepReport", "PrepResult", "autoprep_batch",
            "autoprep_config", "configure_autoprep", "CVConfig", "cross_validate", "cv_forecast_frame",
@@ -42,4 +65,9 @@ __all__ = ["AutoprepConfig", "PrepReport", "PrepResult", "autoprep_batch",
            "fit_forecast_chunked", "forecast_frame", "select_model",
            "SelectionResult", "AutoMLResult", "successive_halving_select",
            "HyperSearchConfig", "TuneResult", "tune_curve_model",
-           "AutoMLConfig", "configure_automl", "automl_config"]
+           "AutoMLConfig", "configure_automl", "automl_config",
+           "seasonal_naive", "apply_interval_scale",
+           "conformal_interval_scale", "detect_season_length",
+           "select_arima_order", "BlendResult", "blend_weights",
+           "ExperimentHandle", "PipelineConfig", "TrainingExecutor",
+           "device_pull", "CompileCacheConfig", "WindowedConfig"]

@@ -1,0 +1,3 @@
+from distributed_forecasting_tpu_torch.ops import features, metrics, solve
+
+__all__ = ["features", "metrics", "solve"]

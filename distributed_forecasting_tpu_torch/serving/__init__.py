@@ -16,6 +16,9 @@ from distributed_forecasting_tpu_torch.serving.ensemble import (
     BlendedForecaster,
     MultiModelForecaster,
 )
+from distributed_forecasting_tpu_torch.serving.forecast_cache import (
+    CacheConfig,
+)
 from distributed_forecasting_tpu_torch.serving.loader import (
     load_forecaster,
     resolve_from_registry,
@@ -31,6 +34,7 @@ from distributed_forecasting_tpu_torch.serving.server import (
 )
 
 __all__ = ["BatchForecaster", "BatchingConfig", "BlendedForecaster",
+           "CacheConfig",
            "BucketedForecaster", "ForecastServer", "HttpConfig",
            "MultiModelForecaster", "PooledHTTPServer", "QueueFullError",
            "RequestBatcher", "ServingMetrics", "ShuttingDownError",

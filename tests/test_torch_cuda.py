@@ -212,6 +212,78 @@ def test_filter_kernel_equals_twin_on_cv_train_masks(dev, mode):
     _assert_filter_equals_twin(y_cv, train, _winners(S, dev, seed=1), 7, mode)
 
 
+def _same_bits_or_nan(got, want):
+    """Equal element for element, NaN where the other has NaN."""
+    return (got.shape == want.shape
+            and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(torch.nan_to_num(got, nan=0.0, posinf=float("inf"),
+                                             neginf=float("-inf")),
+                            torch.nan_to_num(want, nan=0.0,
+                                             posinf=float("inf"),
+                                             neginf=float("-inf"))))
+
+
+# what the chunk ring and the producers' copies can break: a history
+# shorter than one chunk (63 steps at m 7, 64 otherwise),
+# one season (T = m, None below: the shortest history the initial state
+# takes; T = 1 is the season-of-one test's), a length that is a multiple of
+# neither the chunk nor m, one row, a second block holding one row
+FILTER_EDGES = {"T40": (70, 40), "Tm": (70, None), "T200": (70, 200),
+                "S1": (1, 300), "S33": (33, 300)}
+FILTER_INSTANCES = {"m7": (7, "additive"), "m7_mult": (7, "multiplicative"),
+                    "m30": (30, "additive")}
+
+
+@pytest.mark.parametrize("instance", list(FILTER_INSTANCES))
+@pytest.mark.parametrize("edge", list(FILTER_EDGES))
+def test_filter_kernel_equals_twin_at_the_ring_edges(dev, edge, instance):
+    S, T = FILTER_EDGES[edge]
+    m, mode = FILTER_INSTANCES[instance]
+    T = T or m
+    y, mask = _workload(S, T, dev, seed=T + S)
+    _assert_filter_equals_twin(y, mask, _winners(S, dev, seed=S), m, mode)
+
+
+@pytest.mark.parametrize("instance", list(FILTER_INSTANCES))
+def test_filter_kernel_equals_twin_on_masked_rows_and_nan(dev, instance):
+    """A row masked throughout, and NaN in y: on an observed step it runs
+    through the row's state, on a masked step only into its MSE."""
+    m, mode = FILTER_INSTANCES[instance]
+    S, T = 40, 300
+    y, mask = _workload(S, T, dev, seed=11)
+    mask[3] = 0.0
+    y[3] = 0.0
+    y[5, 100], mask[5, 100] = float("nan"), 1.0
+    y[6, 50], mask[6, 50] = float("nan"), 0.0
+    y[33, 299], mask[33, 299] = float("nan"), 1.0
+    params = _winners(S, dev, seed=2)
+    (l, b, s), mse, path = fs.hw_filter(y, mask, *params, m, mode)
+    a, be, g, p = params
+    (l2, b2, s2), mse2, path2 = hw._filter(y, mask, a, be, g, m, mode, p)
+    torch.cuda.synchronize()
+    assert bool(mse.isnan()[5]) and bool(mse.isnan()[6])
+    for got, want in ((l, l2), (b, b2), (s, s2), (mse, mse2), (path, path2)):
+        assert _same_bits_or_nan(got, want)
+
+
+@pytest.mark.parametrize("mode", ["additive", "multiplicative"])
+def test_filter_kernel_equals_twin_past_one_wave(dev, mode):
+    """At m 7 a grid larger than one wave of fifteen-producer blocks (one
+    an SM) runs seven producers a block: one row past one block an SM."""
+    S = 32 * torch.cuda.get_device_properties(dev).multi_processor_count + 1
+    y, mask = _workload(S, 200, dev, seed=5)
+    _assert_filter_equals_twin(y, mask, _winners(S, dev, seed=5), 7, mode)
+
+
+@pytest.mark.parametrize("T", [1, 200])
+@pytest.mark.parametrize("mode", ["additive", "multiplicative"])
+def test_filter_kernel_takes_a_season_of_one(dev, mode, T):
+    """m = 1 runs on the shared-memory season, whose next slot is the
+    current one."""
+    y, mask = _workload(35, T, dev, seed=1)
+    _assert_filter_equals_twin(y, mask, _winners(35, dev, seed=3), 1, mode)
+
+
 def test_fit_refits_through_the_filter_kernel(dev):
     y, mask = _workload(5, 120, dev, seed=4)
     day = torch.arange(16_000, 16_120, dtype=torch.int32, device=dev)
@@ -506,6 +578,27 @@ def test_arima_predict_kernel_equals_twin_bitwise(dev, case):
         torch.cuda.synchronize()
         assert kalman.arima_predict.launches == before + 1
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [2, 33, 70])
+@pytest.mark.parametrize("case", ["211", "d0", "seasonal_r8"])
+def test_arima_predict_kernel_equals_twin_at_chunk_edges(dev, case, S):
+    """The two warps' hand-over of each 32-step vf tile: one chunk (H 1,
+    31, 32), two (33, 64), three (65), many (2,001); a block of two rows,
+    and a second block of one row."""
+    from distributed_forecasting_tpu_torch.models import arima
+    from distributed_forecasting_tpu_torch.ops import kalman
+
+    cfg = arima.ArimaConfig(**ARIMA_CASES[case])
+    args = _arima_inputs(dev, cfg, S=S, seed=S)
+    out = kalman.arima_filter_reference(*args)
+    sigma2 = out.ssq / torch.clamp_min(out.n, 1.0)
+    pargs = (args[4], args[5], out.a_T, out.P_T, sigma2, args[7])
+    for H in (1, 31, 32, 33, 64, 65, 2001):
+        got = kalman.arima_predict(*pargs, H)
+        want = kalman.arima_predict_reference(*pargs, H)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), H
 
 
 def test_arima_kernels_refuse_an_r_past_their_limit(dev):

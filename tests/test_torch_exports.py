@@ -1,0 +1,99 @@
+"""The port's packages export what the reference's export.
+
+For every package of ``distributed_forecasting_tpu`` whose ``__init__``
+declares ``__all__`` (read with ``ast``: no reference module is imported),
+each name is either an attribute of the port's package after it is
+imported, or listed in :data:`PENDING` under the label of the ROADMAP item
+that ports it.  A pending name must not be exported yet, so a slice that
+ports one takes it off the list.  Packages the port does not have yet are
+pending as a whole.
+"""
+
+import ast
+import importlib
+import importlib.util
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REFERENCE = os.path.join(ROOT, "distributed_forecasting_tpu")
+PORT = "distributed_forecasting_tpu_torch"
+
+# every reference package with an __all__ (test_the_package_list_is_whole)
+PACKAGES = ["analysis", "data", "engine", "models", "monitoring", "ops",
+            "parallel", "pipelines", "reconcile", "serving", "tasks",
+            "tracking", "utils", "workflows"]
+
+# reference packages the port does not have yet, by label
+PENDING_PACKAGES = {"analysis": "P13", "parallel": "P12"}
+
+# names of a reference __all__ the port does not export yet, by package and
+# label (ROADMAP Queue 1)
+PENDING = {
+    "engine": {
+        "P9": ["WindowedSeriesStateStore", "configure_windowed",
+               "plan_windows", "should_window", "windowed_config",
+               "windowed_fit_forecast"],
+        "P11": ["AOTStore", "aot_call", "cache_stats",
+                "configure_compile_cache", "configure_pipeline",
+                "pipeline_config", "prefetch_to_device", "sanctioned_pull"],
+    },
+    "monitoring": {
+        "P11": ["FlightRecorder", "ProfilerSession", "SpanRecord",
+                "TraceConfig", "TraceContext", "Tracer", "configure_tracing",
+                "device_annotation", "dump_flight_recorder", "get_tracer",
+                "to_chrome_trace", "write_chrome_trace"],
+    },
+    "serving": {
+        "P12": ["ConnectionPool", "FleetConfig", "FleetSupervisor",
+                "ForecastCache", "FrontDoorServer", "aggregate_prometheus",
+                "build_forecast_cache", "start_fleet"],
+    },
+    "utils": {
+        "P11": ["apply_platform_override"],
+    },
+}
+
+
+def reference_all(package: str):
+    """The ``__all__`` of the reference's ``package/__init__.py``, or None
+    where it declares none."""
+    path = os.path.join(REFERENCE, package, "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    return None
+
+
+def test_the_package_list_is_whole():
+    found = sorted(
+        d for d in os.listdir(REFERENCE)
+        if os.path.isfile(os.path.join(REFERENCE, d, "__init__.py"))
+        and reference_all(d) is not None)
+    assert found == sorted(PACKAGES)
+    assert set(PENDING) <= set(PACKAGES) - set(PENDING_PACKAGES)
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_port_exports_what_the_reference_exports(package):
+    names = reference_all(package)
+    assert names, f"the reference's {package} exports nothing"
+    if package in PENDING_PACKAGES:
+        assert importlib.util.find_spec(f"{PORT}.{package}") is None, (
+            f"{PORT}.{package} exists now: take it off PENDING_PACKAGES "
+            f"({PENDING_PACKAGES[package]}) and list what it lacks")
+        return
+    module = importlib.import_module(f"{PORT}.{package}")
+    pending = {n: label for label, ns in PENDING.get(package, {}).items()
+               for n in ns}
+    assert set(pending) <= set(names), "a pending name the reference lacks"
+    missing = [n for n in names if n not in pending and not hasattr(module, n)]
+    assert missing == [], f"{PORT}.{package} does not export {missing}"
+    ported = [f"{n} ({pending[n]})" for n in pending if hasattr(module, n)]
+    assert ported == [], (
+        f"{PORT}.{package} exports {ported}: take them off PENDING")
+    assert set(getattr(module, "__all__", [])) >= set(names) - set(pending)
