@@ -60,7 +60,12 @@ its own size:
     Holt-Winters, theta and croston artifacts of the committed dataset —
     ``POST /ingest`` into the write-ahead log, the batched state update,
     a forced background refit (for Holt-Winters ``hw_score`` over its
-    96-candidate grid, then ``hw_filter``) with its replay.
+    96-candidate grid, then ``hw_filter``) with its replay;
+  * windowed (DARIMA) arima fitting of ultra-long series (500 x 100,000
+    and 1 x 1,000,000 periods from a seed): the window statistics, the WLS
+    combine, the tail window's ``arima_filter`` pass and the
+    ``arima_predict`` forecast, the tail-window streaming refit, and the
+    train task with ``engine.windowed`` armed.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -356,6 +361,33 @@ is not 0:
               /invocations for 500 series idle and during refits, and the
               apply at 20,480 series at K 1 and at a bucket crossing with
               peak device memory
+ 17. windowed windowed (DARIMA) arima fitting (``slice17_phase``) at the
+              shipped ``engine.windowed`` block (W 8,192, overlap 256,
+              min_windows 4) on AR(2) + level series from a seed.  (a)
+              fit_forecast(model="arima") at 500 x 100,000 with the block
+              armed (13 windows; the tail-window grid checked, ok all
+              true), then the sequential whole-series fit with it disarmed,
+              the counters set to 0 around the first call of each (one
+              launch of each arima kernel); both walls (CUDA events,
+              median of 5), idle shares, peak memory, the windowed stages
+              (gather, window statistics, combine, finalize) beside their
+              bounds, and the reference's horizon parity (10%).  (b)
+              arima_filter on the finalize's inputs (500, 8,192, r 2, d 1)
+              and arima_predict at the windowed forecast's length (H 29)
+              against their twins bit for bit, then timed.  (c) 20 x
+              40,000 windowed on the card and on the CPU within ARIMA_REL.
+              (d) 1 x 1,000,000 (126 windows): ok, finite, the int32 grid
+              exact, wall time.  (e) WindowedSeriesStateStore at 500 x
+              100,000 driven by RefitScheduler: a cold refit (13 windows'
+              statistics), 3 days x 500 points ingested, a warm refit (one
+              window's statistics, two tail-window refits on /metrics), a
+              fresh store's cold refit bitwise equal to the warm one, a
+              late point recomputing all 13; the refits' walls.  (f)
+              catalog -> ingest (20 series x 40,000 days) -> train with
+              conf/tasks/train_config.yml, ``model: arima``, CV off and the
+              block armed: the frame over tail window + horizon, the
+              artifact anchored at the history's first day (as the
+              reference anchors it) predicting the frame's future rows
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -368,8 +400,10 @@ The line before the last lists the kernels (launches, error, times,
 ``covered``, bound; only numbers this run measured or computed;
 launches and error include phase 11's bucketed calls, phase 12's
 arima_predict launches through HTTP, /invocations and /detect_anomalies,
-phase 13's train task, phases 14-15's main paths and tasks, and phase 16's
-fit and forced refit);
+phase 13's train task, phases 14-15's main paths and tasks, phase 16's
+fit and forced refit, and phase 17's fits, tail refits, train task and
+artifact predict; the arima rows add phase 17's kernel times at the
+window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -2583,18 +2617,21 @@ def arima_main_path(port, tmp: str) -> dict:
                 quantiles=quantiles, seconds=time.perf_counter() - t0)
 
 
-def arima_vs_cpu(port, batch, n: int = 20) -> dict:
+def arima_vs_cpu(port, batch, n: int = 20, horizon: int = 90,
+                 phase: str = "arima_gpu_vs_cpu_20_series") -> dict:
     """A 20-series arima fit_forecast on the card and on the CPU: every row
     of every output within ARIMA_REL of that row's own scale (its largest
     magnitude, at least 1: the unit of the dimensionless coefficients, where
-    a phi near 0 carries the solves' absolute rounding), ok flags equal."""
+    a phi near 0 carries the solves' absolute rounding), ok flags and day
+    grids equal."""
     engine = port["engine"]
     sub = batch.take_series(range(n))
     cpu = dataclasses.replace(sub, y=sub.y.cpu(), mask=sub.mask.cpu(),
                               day=sub.day.cpu())
-    p_gpu, r_gpu = engine.fit_forecast(sub, "arima", horizon=90)
-    p_cpu, r_cpu = engine.fit_forecast(cpu, "arima", horizon=90)
+    p_gpu, r_gpu = engine.fit_forecast(sub, "arima", horizon=horizon)
+    p_cpu, r_cpu = engine.fit_forecast(cpu, "arima", horizon=horizon)
     assert torch.equal(r_gpu.ok.cpu(), r_cpu.ok)
+    assert torch.equal(r_gpu.day_all.cpu(), r_cpu.day_all)
     worst = {}
     pairs = [(k, getattr(r_gpu, k), getattr(r_cpu, k))
              for k in ("yhat", "lo", "hi")]
@@ -2610,8 +2647,9 @@ def arima_vs_cpu(port, batch, n: int = 20) -> dict:
         bad = err > ARIMA_REL * scale
         assert not bad.any(), (k, err[bad].tolist(), scale[bad].tolist())
         worst[k] = float((err / scale).max())
-    res = dict(series=n, max_rel_to_scale=worst, limit=ARIMA_REL)
-    emit("arima_gpu_vs_cpu_20_series", **res)
+    res = dict(series=n, T_all=int(r_cpu.day_all.shape[0]),
+               max_rel_to_scale=worst, limit=ARIMA_REL)
+    emit(phase, **res)
     return res
 
 
@@ -6620,6 +6658,413 @@ def slice15_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 17: windowed (DARIMA) arima fitting --------------------------------
+
+WIN_SHAPE = (500, 100_000)  # windowed against sequential, and streaming
+WIN_ULTRA = 1_000_000       # the reference's ultra-long case, one series
+WIN_VS_CPU = (20, 40_000)   # card against CPU
+WIN_TASK = (2, 10, 40_000)  # the train task's stores, items and days
+WIN_HORIZON = 28            # the reference's windowed tests' horizon
+WIN_SEED = 23
+WIN_NEW_DAYS = 3            # days ingested before the warm refit
+# tests/unit/test_windowed.py: the windowed horizon within 10% of the
+# sequential one's RMS level (max-abs gap), docs/windowed.md's contract
+PARITY_REL_TOL = 0.10
+WIN_KERNELS = ("arima_filter", "arima_predict")
+
+
+def windowed_block(port) -> dict:
+    """conf/tasks/train_config.yml's ``engine.windowed`` block, armed."""
+    block = port["config"].load_conf(TRAIN_CONF)["engine"]["windowed"]
+    return {**block, "enabled": True}
+
+
+def ar2_batch(port, S: int, T: int, seed: int):
+    """(S, T) AR(2) + level series, phi (0.55, 0.20) around 10, the
+    recursion of the reference's ``_ar2_batch`` (tests/unit/test_windowed.py)
+    over every row at once (scipy's ``lfilter``); day ordinals 0..T-1."""
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(seed)
+    eps = rng.normal(0.0, 1.0, (S, T))
+    eps[:, :2] = 0.0  # y_0 = y_1 = 0, as the reference's loop leaves them
+    y = lfilter([1.0], [1.0, -0.55, -0.20], eps, axis=1) + 10.0
+    return port["data"].SeriesBatch(
+        y=torch.tensor(y, dtype=torch.float32, device=DEVICE),
+        mask=torch.ones((S, T), device=DEVICE),
+        day=torch.arange(T, dtype=torch.int32, device=DEVICE),
+        keys=np.arange(S)[:, None], key_names=("series",),
+        start_date="1970-01-01")
+
+
+def _counted(counters, fn):
+    """``fn()`` with the counters set to 0 just before it and read just
+    after: (its result, the launches)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def windowed_stages(port, batch, cfg, wcfg) -> dict:
+    """The windowed fit's stages on ``batch``, each a callable: the gather
+    of the (S*K, W) window batch, the window statistics, the combine and the
+    finalize, with the inputs the next stage takes."""
+    win, comb_mod = port["windowed"], port["combine"]
+    W = wcfg.window_len
+    starts = win.plan_windows(batch.n_time, W, wcfg.overlap)
+    t0 = starts[-1]
+    yw, mw = win._gather_windows(batch.y, batch.mask, starts, W)
+    stats = port["arima"].window_stats(yw, mw, cfg)
+    comb = comb_mod.combine_estimates("arima", stats, len(starts))
+    tail = (batch.y[:, t0:t0 + W], batch.mask[:, t0:t0 + W],
+            batch.day[t0:t0 + W])
+    return dict(
+        starts=starts, yw=yw, stats=stats, comb=comb, tail=tail,
+        gather=lambda: win._gather_windows(batch.y, batch.mask, starts, W),
+        window_stats=lambda: port["arima"].window_stats(yw, mw, cfg),
+        combine=lambda: comb_mod.combine_estimates("arima", stats,
+                                                   len(starts)),
+        finalize=lambda: win._finalize(cfg, *tail, comb["coef"],
+                                       comb["mean"], WIN_HORIZON,
+                                       win.DEFAULT_MIN_POINTS))
+
+
+def windowed_vs_sequential(port, block, counters, card_line: str) -> dict:
+    """(a) fit_forecast(model="arima") at WIN_SHAPE with the shipped block
+    armed (the counters around the first call: one launch of each arima
+    kernel), the route checked, then the sequential whole-series fit with
+    the block disarmed; both walls (CUDA events, median of 5), idle shares,
+    peak memory, the windowed stages apart beside their bounds, and the
+    reference's horizon parity between the two forecasts."""
+    engine, win, ar = port["engine"], port["windowed"], port["arima"]
+    S, T = WIN_SHAPE
+    batch = ar2_batch(port, S, T, WIN_SEED)
+    cfg = ar.ArimaConfig()
+    wcfg = win.configure_windowed(block)
+    fit = lambda: engine.fit_forecast(  # noqa: E731
+        batch, "arima", config=cfg, horizon=WIN_HORIZON)
+    (params, res), launched = _counted(counters, fit)
+    assert launched == {"arima_filter": 1, "arima_predict": 1}, launched
+    W, H = wcfg.window_len, WIN_HORIZON
+    assert res.day_all.shape[0] == W + H, "the windowed route was not taken"
+    assert bool(res.ok.all()) and bool(torch.isfinite(res.yhat).all())
+    st = windowed_stages(port, batch, cfg, wcfg)
+    SK = int(st["yw"].shape[0])
+    ar_lags, ma_lags, p_eff, q_eff = ar._lag_sets(cfg)
+    stats_bound, stats_by = bound_ms(ar.hr_work(
+        SK, W, max(cfg.hr_ar_order, p_eff + q_eff + cfg.m),
+        len(ar_lags) + len(ma_lags)))
+    out = {"shape": [S, T], "windows": len(st["starts"]), "rows": SK,
+           "windowed": {"ms": cuda_ms(fit), "profile": idle_share(fit),
+                        "peak_mib": peak_mib(fit)[1],
+                        "stages_ms": {k: cuda_ms(st[k]) for k in (
+                            "gather", "window_stats", "combine",
+                            "finalize")},
+                        "window_stats_bound_ms": stats_bound,
+                        "window_stats_bound_by": stats_by,
+                        "windows_read_once_ms": 2 * 4 * SK * W / HBM_BPS
+                        * 1e3}}
+    win.configure_windowed(win.WindowedConfig())  # disarmed: sequential
+    seq = lambda: engine.fit_forecast(  # noqa: E731
+        batch, "arima", config=cfg, horizon=H)
+    (_, seq_res), seq_launched = _counted(counters, seq)
+    assert seq_launched == launched, seq_launched
+    assert seq_res.day_all.shape[0] == T + H and bool(seq_res.ok.all())
+    assert int(seq_res.day_all[-1]) == int(res.day_all[-1])
+    out["sequential"] = {"ms": cuda_ms(seq), "profile": idle_share(seq),
+                         "peak_mib": peak_mib(seq)[1]}
+    seq_h = seq_res.yhat[:, -H:].double()
+    win_h = res.yhat[:, -H:].double()
+    rel = float((seq_h - win_h).abs().max() / seq_h.pow(2).mean().sqrt())
+    assert rel < PARITY_REL_TOL, rel
+    out["horizon_parity"] = {"rel": rel, "limit": PARITY_REL_TOL}
+    out["sequential_over_windowed"] = (out["sequential"]["ms"]
+                                       / out["windowed"]["ms"])
+    out["launches"] = {k: launched[k] + seq_launched[k] for k in launched}
+    emit("windowed_vs_sequential", card=card_line, reps=REPS,
+         statistic="median", **out)
+    return dict(out, batch=batch, params=params, result=res, stages=st)
+
+
+def windowed_kernels(port, st, card_line: str) -> dict:
+    """(b) arima_filter on the finalize's inputs (the tail window, the
+    combined coefficients) and arima_predict at the windowed forecast's
+    length, each against its twin bit for bit, then timed (host-paced and
+    on the device) beside its bound."""
+    ar, kal = port["arima"], port["kalman"]
+    cfg = ar.ArimaConfig()
+    y_t, m_t, _ = st["tail"]
+    mean = st["comb"]["mean"]
+    phi, theta = ar.coef_to_poly(st["comb"]["coef"], *ar._lag_sets(cfg))
+    z, zm = ar._difference(y_t, m_t, cfg.d)
+    r = ar._effective_r(cfg)
+    args = (((z - mean[:, None]) * zm).contiguous(), zm.contiguous(),
+            y_t.contiguous(), m_t.contiguous(), phi.contiguous(),
+            theta.contiguous(), mean.contiguous(), r, cfg.d)
+    S, W = (int(n) for n in y_t.shape)
+    H = WIN_HORIZON + 1  # the forecast path past a W-long fit grid
+    cases = {"arima_filter": {f"windowed_W{W}": arima_filter_case(
+                 port, f"windowed_W{W}", args)},
+             "arima_predict": {f"windowed_H{H}": arima_predict_case(
+                 port, f"windowed_H{H}", args, H)}}
+    launch, fout = kal._arima_filter_launcher(*args)
+    bound, by = bound_ms(kal.arima_filter_work(S, W, r, cfg.d))
+    times = {"arima_filter": {
+        "shape": [S, W, r, cfg.d], "ms": cuda_ms(launch, inner=20),
+        **device_ms(launch), "bound_ms": bound, "bound_by": by,
+        "serial_chain_ms": W * ARIMA_CHAIN_CYCLES / CLOCK_HZ * 1e3}}
+    launch()
+    sigma2 = fout.ssq / torch.clamp_min(fout.n, 1.0)
+    plaunch, _ = kal._arima_predict_launcher(phi, theta, fout.a_T, fout.P_T,
+                                             sigma2, r, H)
+    bound, by = bound_ms(kal.arima_predict_work(S, H, r))
+    times["arima_predict"] = {"shape": [S, H, r],
+                              "ms": cuda_ms(plaunch, inner=20),
+                              **device_ms(plaunch), "bound_ms": bound,
+                              "bound_by": by}
+    emit("windowed_kernel_times", card=card_line, reps=REPS,
+         statistic="median", **times)
+    return {"cases": cases, "times": times}
+
+
+def windowed_ultra(port, block, counters, card_line: str) -> dict:
+    """(d) The reference's ultra-long case: one series of WIN_ULTRA periods
+    through windowed_fit_forecast at the shipped block; ok, finite, the
+    tail-anchored grid exact (int32 ordinals), its wall time."""
+    win = port["windowed"]
+    T = WIN_ULTRA
+    batch = ar2_batch(port, 1, T, WIN_SEED + 1)
+    wcfg = win.WindowedConfig(**block)
+    t0 = time.perf_counter()
+    (_, res), launched = _counted(counters, lambda: win.windowed_fit_forecast(
+        batch, horizon=WIN_HORIZON, wconfig=wcfg))
+    wall = time.perf_counter() - t0
+    W = wcfg.window_len
+    assert launched == {"arima_filter": 1, "arima_predict": 1}, launched
+    assert bool(res.ok.all()) and bool(torch.isfinite(res.yhat).all())
+    assert res.day_all.dtype == batch.day.dtype == torch.int32
+    assert torch.equal(res.day_all.cpu(), torch.arange(
+        T - W, T + WIN_HORIZON, dtype=torch.int32))
+    out = {"shape": [1, T], "windows": len(win.plan_windows(
+               T, W, wcfg.overlap)),
+           "first_call_wall_s": wall, "launches": launched,
+           "ms": cuda_ms(lambda: win.windowed_fit_forecast(
+               batch, horizon=WIN_HORIZON, wconfig=wcfg))}
+    emit("windowed_ultra_long", card=card_line, **out)
+    return out
+
+
+def _refit_wall(sched) -> float:
+    t0 = time.perf_counter()
+    assert sched.maybe_refit(force=True) == "forced"
+    sched.wait(600)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def windowed_streaming(port, a, block, counters, card_line: str) -> dict:
+    """(e) WindowedSeriesStateStore at WIN_SHAPE on (a)'s windowed params,
+    driven by RefitScheduler (its own CUDA stream): a cold refit, then
+    WIN_NEW_DAYS days of every series ingested and applied and a warm refit
+    (one window's statistics computed, two tail-window refits counted on
+    /metrics); a fresh store fed the same points refits cold to the same
+    params bit for bit; a late point in a frozen window recomputes every
+    window.  The refits' walls on the host clock."""
+    win, serving = port["windowed"], port["serving"]
+    batch, params = a["batch"], a["params"]
+    wcfg = win.WindowedConfig(**block)
+    S, T = WIN_SHAPE
+    W = wcfg.window_len
+    y, mask = batch.y.cpu().numpy(), batch.mask.cpu().numpy()
+    rng = np.random.default_rng(WIN_SEED + 2)
+    new = rng.normal(10.0, 1.0, (S, WIN_NEW_DAYS))
+    points = [(s, T + d, float(new[s, d])) for d in range(WIN_NEW_DAYS)
+              for s in range(S)]
+
+    def store(metrics=None):
+        fc = serving.BatchForecaster("arima", port["arima"].ArimaConfig(),
+                                     params, batch.keys, batch.key_names,
+                                     day0=T - W, day1=T - 1)
+        st = win.WindowedSeriesStateStore(fc, y, mask, history_day0=0,
+                                          wconfig=wcfg, metrics=metrics,
+                                          device=DEVICE)
+        return st, port["refit"].RefitScheduler(
+            st, port["refit"].RefitConfig())
+
+    def counting(st):
+        calls = []
+        orig = st._window_stats_one
+        st._window_stats_one = lambda ys, ms: calls.append(1) or orig(ys, ms)
+        return calls
+
+    metrics = port["monitoring"].IngestMetrics()
+    warm, sched = store(metrics)
+    out, launches = {}, {k: 0 for k in WIN_KERNELS}
+    try:
+        K = len(win.plan_windows(T, W, wcfg.overlap))
+        calls = counting(warm)
+        out["cold_refit_s"], launched = _counted(
+            counters, lambda: _refit_wall(sched))
+        assert len(calls) == K and launched == {
+            "arima_filter": 1, "arima_predict": 0}, (len(calls), launched)
+        launches["arima_filter"] += 1
+        assert warm.ingest(points)["accepted"] == len(points)
+        assert warm.apply_pending() == {"days": WIN_NEW_DAYS,
+                                        "points": len(points)}
+        calls.clear()
+        out["warm_refit_s"], launched = _counted(
+            counters, lambda: _refit_wall(sched))
+        launches["arima_filter"] += launched["arima_filter"]
+        assert len(calls) == 1, len(calls)
+        assert metrics.tail_window_refits_total.value == 2
+        assert metrics.refits_total.value == 2
+        text = metrics.registry.render_prometheus()
+        assert "dftpu_ingest_tail_window_refits_total 2" in text
+        out["warm_refits_s"] = [_refit_wall(sched) for _ in range(3)]
+
+        cold, sched_cold = store()
+        try:
+            cold.ingest(points)
+            cold.apply_pending()
+            out["fresh_store_cold_refit_s"] = _refit_wall(sched_cold)
+        finally:
+            sched_cold.stop()
+        unequal = [f.name for f in dataclasses.fields(warm._params)
+                   if not torch.equal(getattr(warm._params, f.name),
+                                      getattr(cold._params, f.name))]
+        assert unequal == [], f"warm refit differs from cold: {unequal}"
+        out["warm_equals_cold_bitwise"] = True
+
+        assert warm.ingest([(0, 100, 42.0)])["late"] == 1
+        calls.clear()
+        out["late_point_refit_s"] = _refit_wall(sched)
+        assert len(calls) == K, (len(calls), K)
+        out.update(windows=K, stats_calls_after_late_point=len(calls),
+                   tail_window_refits_total=metrics.tail_window_refits_total
+                   .value)
+    finally:
+        sched.stop()
+    out["launches"] = launches
+    emit("windowed_streaming", card=card_line, shape=[S, T], **out)
+    return out
+
+
+def windowed_train_task(port, block, counters, card_line: str) -> dict:
+    """(f) catalog -> ingest -> train on the card: WIN_TASK's synthetic
+    daily series, conf/tasks/train_config.yml with ``model: arima``, CV
+    off and ``engine.windowed`` armed at its shipped values (the counters
+    set to 0 just before the train task and read after the registered
+    artifact's predict).  The run routes windowed (one launch of each arima
+    kernel), writes its frame over tail window + horizon and its artifact,
+    anchored as the reference anchors it; the artifact predicts the
+    frame's future rows."""
+    types, win = port["tasks"].TASK_TYPES, port["windowed"]
+    n_stores, n_items, n_days = WIN_TASK
+    W = int(block["window_len"])
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        env = {"env": {"root": root}}
+        t0 = time.perf_counter()
+        types["catalog"](init_conf={**env, **port["config"].load_conf(
+            os.path.join(ROOT, "conf", "tasks", "catalog_config.yml"))},
+                         device=DEVICE).launch()
+        types["ingest"](init_conf={**env, "input": {"synthetic": {
+            "n_stores": n_stores, "n_items": n_items, "n_days": n_days}},
+            "output": {"table": "hackathon.sales.raw"}},
+            device=DEVICE).launch()
+        out["ingest_s"] = time.perf_counter() - t0
+        conf = slice13_conf(port, root, dict(
+            model="arima", model_conf={}, run_cross_validation=False))
+        conf["engine"]["windowed"] = block
+        horizon = conf["training"]["horizon"]
+        try:
+            def train():
+                t1 = time.perf_counter()
+                summary = types["train"](init_conf=conf,
+                                         device=DEVICE).launch()
+                out["train_s"] = time.perf_counter() - t1
+                catalog, tracker, _ = _store(port, root)
+                run = tracker.get_run(summary["experiment_id"],
+                                      summary["run_id"])
+                fc = port["serving"].BatchForecaster.load(
+                    run.artifact_path("forecaster"), device=DEVICE)
+                t1 = time.perf_counter()
+                served = fc.predict(pd.DataFrame(
+                    fc.keys, columns=list(fc.key_names)), horizon=horizon)
+                out["artifact_predict_s"] = time.perf_counter() - t1
+                return summary, run, fc, served
+            (summary, run, fc, served), launched = _counted(counters, train)
+        finally:
+            win.configure_windowed(win.WindowedConfig())
+        assert summary["n_failed"] == 0, summary
+        assert launched == {"arima_filter": 1, "arima_predict": 2}, launched
+        S = n_stores * n_items
+        table = _store(port, root)[0].read_table(FORECASTS)
+        assert len(table) == S * (W + horizon), len(table)
+        params = run.params()
+        assert int(params["n_time"]) == n_days, params
+        first, last = pd.Timestamp("2013-01-01"), pd.Timestamp(
+            "2013-01-01") + pd.Timedelta(days=n_days - 1)
+        assert table["ds"].min() == last - pd.Timedelta(days=W - 1)
+        assert table["ds"].max() == last + pd.Timedelta(days=horizon)
+        # anchored as the reference's train task anchors it: day0 at the
+        # history's first day, the params' own day0 at the tail window
+        assert fc.day0 == (first - pd.Timestamp("1970-01-01")).days
+        assert float(fc.params.day0) == fc.day1 - W + 1
+        future = table[table["ds"] > last].sort_values(
+            ["store", "item", "ds"])
+        got = served.sort_values(["store", "item", "ds"])
+        worst = float(np.max(np.abs(got["yhat"].to_numpy()
+                                    - future["yhat"].to_numpy())
+                             / np.maximum(np.abs(future["yhat"].to_numpy()),
+                                          1.0)))
+        assert worst <= ARIMA_REL, worst
+        out.update(series=S, n_time=n_days, rows=len(table),
+                   fit_seconds=run.metrics()["fit_seconds"],
+                   launches=launched, artifact_vs_table_rel=worst)
+    emit("windowed_train_task", card=card_line, **out)
+    return out
+
+
+def slice17_phase(port, card_line: str) -> dict:
+    """Phase 17: windowed (DARIMA) arima fitting.  (a) windowed against
+    sequential at WIN_SHAPE; (b) both arima kernels against their twins and
+    timed at the window's shapes; (c) 20 series card against CPU; (d) the
+    ultra-long case; (e) the tail-window streaming refit; (f) the train
+    task.  The counters are set to 0 around each main path."""
+    t_phase = time.perf_counter()
+    kal, win = port["kalman"], port["windowed"]
+    counters = {k: getattr(kal, k) for k in WIN_KERNELS}
+    block = windowed_block(port)
+    out = {"launches": {k: 0 for k in WIN_KERNELS}}
+    try:
+        a = windowed_vs_sequential(port, block, counters, card_line)
+        b = windowed_kernels(port, a["stages"], card_line)
+        win.configure_windowed(block)
+        out["gpu_vs_cpu"] = arima_vs_cpu(
+            port, ar2_batch(port, *WIN_VS_CPU, WIN_SEED + 3),
+            n=WIN_VS_CPU[0], horizon=WIN_HORIZON,
+            phase="windowed_gpu_vs_cpu_20_series")
+        assert out["gpu_vs_cpu"]["T_all"] == block["window_len"] + WIN_HORIZON
+    finally:
+        win.configure_windowed(win.WindowedConfig())
+    d = windowed_ultra(port, block, counters, card_line)
+    e = windowed_streaming(port, a, block, counters, card_line)
+    f = windowed_train_task(port, block, counters, card_line)
+    for part in (a, d, e, f):
+        for k in WIN_KERNELS:
+            out["launches"][k] += part["launches"][k]
+    emit("launches", path="windowed", **out["launches"],
+         expected="arima_filter: 1 per fit and per tail refit; arima_predict"
+                  ": 1 per fit and per predict")
+    out.update(cases=b["cases"], times=dict(b["times"], ultra_ms=d["ms"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase17", seconds=out["seconds"])
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -6921,6 +7366,9 @@ def load_port() -> dict:
     from distributed_forecasting_tpu_torch.ops import update
     from distributed_forecasting_tpu_torch.serving import ingest
     from distributed_forecasting_tpu_torch.tasks import serve as serve_task
+    from distributed_forecasting_tpu_torch.engine import windowed
+    from distributed_forecasting_tpu_torch.ops import combine
+    from distributed_forecasting_tpu_torch.serving import refit
 
     return dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
                 pg=pg, solve=solve, training=training, tracking=tracking,
@@ -6933,7 +7381,8 @@ def load_port() -> dict:
                 anomaly=anomaly, autoprep=autoprep, gradfit=gradfit,
                 arnet=arnet, hyper=hyper, select=select, precision=precision,
                 convert=convert, models=models, state_store=state_store,
-                update=update, ingest=ingest, serve_task=serve_task)
+                update=update, ingest=ingest, serve_task=serve_task,
+                windowed=windowed, combine=combine, refit=refit)
 
 
 def main(argv=None) -> int:
@@ -7029,6 +7478,7 @@ def main(argv=None) -> int:
     rng_paths = slice13_phase(port, card_line)
     p8_end = slice14_phase(port, card_line)
     streaming = slice15_phase(port, card_line)
+    windowed = slice17_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -7066,12 +7516,16 @@ def main(argv=None) -> int:
                                  + scorer["auto"]["launches"][k]
                                  + scorer["detect"]["auto"]["launches"][k]
                                  + rng_paths["launches"][k]
-                                 + p8_end["launches"][k]),
-                       max_abs_err=max(c["max_abs_err"] for c in
-                                       arima_out["cases"][k].values()),
+                                 + p8_end["launches"][k]
+                                 + windowed["launches"][k]),
+                       max_abs_err=max(c["max_abs_err"] for c in (
+                           *arima_out["cases"][k].values(),
+                           *windowed["cases"][k].values())),
                        ms=timed["ms"], device_ms=timed["device_ms"],
                        covered=timed["covered"], plain_ms=at[f"{k}_twin_ms"],
-                       bound_ms=timed["bound_ms"], bound_by=timed["bound_by"])
+                       bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+                       windowed_shape=windowed["times"][k]["shape"],
+                       windowed_device_ms=windowed["times"][k]["device_ms"])
     ap = at["arima_predict"]
     rows["arima_predict"].update(
         launch_floor_device_ms=ap["empty_device_ms"],

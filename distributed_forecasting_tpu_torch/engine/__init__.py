@@ -56,7 +56,15 @@ from distributed_forecasting_tpu_torch.engine.select import (
     select_model,
     successive_halving_select,
 )
-from distributed_forecasting_tpu_torch.engine.windowed import WindowedConfig
+from distributed_forecasting_tpu_torch.engine.windowed import (
+    WindowedConfig,
+    WindowedSeriesStateStore,
+    configure_windowed,
+    plan_windows,
+    should_window,
+    windowed_config,
+    windowed_fit_forecast,
+)
 
 __all__ = ["AutoprepConfig", "PrepReport", "PrepResult", "autoprep_batch",
            "autoprep_config", "configure_autoprep", "CVConfig", "cross_validate", "cv_forecast_frame",
@@ -70,4 +78,6 @@ __all__ = ["AutoprepConfig", "PrepReport", "PrepResult", "autoprep_batch",
            "conformal_interval_scale", "detect_season_length",
            "select_arima_order", "BlendResult", "blend_weights",
            "ExperimentHandle", "PipelineConfig", "TrainingExecutor",
-           "device_pull", "CompileCacheConfig", "WindowedConfig"]
+           "device_pull", "CompileCacheConfig", "WindowedConfig",
+           "WindowedSeriesStateStore", "configure_windowed", "plan_windows",
+           "should_window", "windowed_config", "windowed_fit_forecast"]

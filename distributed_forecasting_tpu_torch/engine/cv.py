@@ -220,8 +220,27 @@ def cross_validate(
 
     ``generator``: the draws of a family that samples; ``None`` seeds one
     as the reference seeds its default key.
+
+    An arima batch whose history reaches the armed ``engine.windowed``
+    threshold raises ``ValueError``, as in the reference (whose
+    ``cv_forecast_frame`` does not check, nor does this one's).
     """
     config, xreg = _cv_entry(batch, model, config, xreg, "cross_validate")
+    if model == "arima":
+        from distributed_forecasting_tpu_torch.engine.windowed import (
+            should_window,
+        )
+
+        if should_window(batch.n_time):
+            # every cutoff would re-run the sequential whole-series fit the
+            # windowed threshold exists to avoid
+            raise ValueError(
+                f"cross_validate on {batch.n_time} periods crosses the "
+                f"engine.windowed auto-activation threshold; rolling-origin "
+                f"CV re-fits the full sequential path per cutoff and is not "
+                f"supported in the windowed regime — CV on a subsampled "
+                f"history, or disable engine.windowed"
+            )
     cuts = cutoff_indices(batch.n_time, cv)
     yhat, lo, hi, eval_masks, train_masks = _cv_paths(
         batch, model, config, cuts, cv.horizon, xreg, generator)

@@ -219,7 +219,10 @@ def fit_forecast(
     Monte-Carlo intervals); ``None`` seeds one as the reference seeds its
     default key (``utils/rng.py``).  An arnet fit routes to the engine
     path (``engine.gradfit.gradfit_fit_forecast``) when the process-wide
-    ``engine.gradfit`` block is armed.
+    ``engine.gradfit`` block is armed; an arima ``method='hr'`` fit without
+    ``xreg`` to ``engine.windowed.windowed_fit_forecast`` when the
+    ``engine.windowed`` block is armed and the history reaches its
+    threshold (its result covers the tail window + horizon).
 
     ``xreg``: exogenous regressor values over history AND horizon,
     (T + horizon, R) shared or (S, T + horizon, R) per series, for a model
@@ -236,6 +239,21 @@ def fit_forecast(
     validate_grid_cadence(model, batch)
     config = config if config is not None else fns.config_cls()
     batch = _apply_autoprep(batch, autoprep)
+    if (model == "arima" and xreg is None
+            and getattr(config, "method", None) == "hr"):
+        # ultra-long auto-activation (the engine.windowed conf block): at
+        # or above its threshold the fit runs over windows of the history
+        # (engine/windowed.py); the result's grid covers the tail window +
+        # horizon
+        from distributed_forecasting_tpu_torch.engine.windowed import (
+            should_window,
+            windowed_fit_forecast,
+        )
+
+        if should_window(batch.n_time):
+            return windowed_fit_forecast(
+                batch, model=model, config=config, horizon=horizon,
+                generator=generator, min_points=min_points)
     y, mask, day = batch.y, batch.mask, batch.day
     validate_changepoint_days(config, day)
     xreg = validate_xreg(fns, model, config, xreg, batch.n_time + horizon,
@@ -439,13 +457,16 @@ def forecast_frame(
     training_date: Optional[str] = None,
 ) -> pd.DataFrame:
     """Long output table ``[ds, store, item, y, yhat, yhat_upper,
-    yhat_lower, training_date]``."""
+    yhat_lower, training_date]`` over ``result.day_all``.  A windowed fit's
+    grid starts at its tail window, not at the history's first day: ``y``
+    then holds the history from that day on."""
     S = batch.n_series
     T_all = int(result.day_all.shape[0])
-    T_hist = batch.n_time
+    skip = int(result.day_all[0]) - int(batch.day[0])
+    T_hist = batch.n_time - skip
     y_full = np.full((S, T_all), np.nan)
-    y_hist = batch.y.cpu().numpy()
-    m_hist = batch.mask.cpu().numpy() > 0
+    y_hist = batch.y[:, skip:].cpu().numpy()
+    m_hist = batch.mask[:, skip:].cpu().numpy() > 0
     y_full[:, :T_hist] = np.where(m_hist, y_hist, np.nan)
 
     frame = long_frame_skeleton(batch.keys, batch.key_names, result.day_all,

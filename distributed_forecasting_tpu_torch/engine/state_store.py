@@ -71,6 +71,18 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def store_device(forecaster, device) -> torch.device:
+    """The device a store of ``forecaster`` lives on: ``device`` (the card
+    unless the caller passes ``device="cpu"``), where the forecaster's
+    parameters must already be."""
+    dev, fdev = resolve_device(device), forecaster.device
+    if fdev.type != dev.type or dev.index not in (None, fdev.index):
+        raise ValueError(
+            f"the forecaster's parameters are on {fdev}, the state "
+            f"store on {dev}; load the artifact onto the store's device")
+    return fdev
+
+
 def _pad_time(fitted: torch.Tensor, cap: int) -> torch.Tensor:
     """A new (S, cap) tensor holding ``fitted`` and zeros after it."""
     S, t = fitted.shape
@@ -95,12 +107,7 @@ class SeriesStateStore:
                 f"model {forecaster.model!r} has no streaming update kernel; "
                 f"ingest supports holt_winters, theta, and croston"
             )
-        dev, fdev = resolve_device(device), forecaster.device
-        if fdev.type != dev.type or dev.index not in (None, fdev.index):
-            raise ValueError(
-                f"the forecaster's parameters are on {fdev}, the state "
-                f"store on {dev}; load the artifact onto the store's device")
-        self.device = fdev
+        self.device = store_device(forecaster, device)
         self._fc = forecaster
         self._fns = fns
         self.model = forecaster.model

@@ -908,8 +908,8 @@ class IngestMetrics:
     SHARED state when replicas converge over one WAL directory — the
     reference's fleet aggregator max-merges them instead of summing (the
     fleet is ROADMAP Queue 1: P12).  ``tail_window_refits_total`` counts
-    the windowed path's refits (P9's second half) and stays 0 until it is
-    ported.
+    the tail-window refits of ``engine/windowed.WindowedSeriesStateStore``
+    (beside ``refits_total``, which counts them too).
     """
 
     def __init__(self) -> None:

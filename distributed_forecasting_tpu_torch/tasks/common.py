@@ -35,8 +35,11 @@ the reference parses it (an unknown key or a bad value raises
   * ``compile_cache:`` and ``pipeline:`` change no result (a compile cache,
     and an executor byte-identical to the serial path); they are logged as
     having no effect in the port yet (ROADMAP Queue 1: P11);
-  * ``distributed:`` and ``engine.windowed`` with ``enabled: true`` change
-    what runs; they raise ``NotImplementedError`` naming their item.
+  * ``engine.windowed`` installs the process-wide windowed config
+    (``engine/windowed.configure_windowed``): armed, an arima fit whose
+    history reaches its threshold runs over windows;
+  * ``distributed:`` changes what runs; it raises ``NotImplementedError``
+    naming its item.
 """
 
 from __future__ import annotations
@@ -53,7 +56,9 @@ from distributed_forecasting_tpu_torch.engine.compile_cache import (
 from distributed_forecasting_tpu_torch.engine.executor import PipelineConfig
 from distributed_forecasting_tpu_torch.engine.gradfit import configure_gradfit
 from distributed_forecasting_tpu_torch.engine.hyper import configure_automl
-from distributed_forecasting_tpu_torch.engine.windowed import WindowedConfig
+from distributed_forecasting_tpu_torch.engine.windowed import (
+    configure_windowed,
+)
 from distributed_forecasting_tpu_torch.ops.precision import (
     PrecisionConfig,
     configure_precision,
@@ -68,25 +73,18 @@ from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 _DEFAULT_ROOT = "./dftpu_store"
 
-# engine: blocks whose runtime is not ported -> (parser, the reference
-# module, the ROADMAP item porting it)
-_UNPORTED_ENGINE_BLOCKS = {
-    "windowed": (WindowedConfig.from_conf, "engine/windowed.py", "P9"),
-}
 # engine: blocks the port installs -> their configure function
 _ENGINE_INSTALLERS = {
+    "windowed": configure_windowed,
     "autoprep": configure_autoprep,
     "gradfit": configure_gradfit,
     "automl": configure_automl,
 }
-_ENGINE_KEYS = frozenset(_UNPORTED_ENGINE_BLOCKS) | frozenset(
-    _ENGINE_INSTALLERS)
 
 
 def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
-    """Parse every top-level block strictly; install ``precision``,
-    ``engine.autoprep``, ``engine.gradfit`` and ``engine.automl``, refuse
-    the blocks that would change what runs, and log the result-neutral
+    """Parse every top-level block strictly; install ``precision`` and the
+    ``engine`` blocks, refuse ``distributed``, and log the result-neutral
     ones."""
     if conf.get("distributed"):
         raise NotImplementedError(
@@ -108,16 +106,11 @@ def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
         configure_precision(PrecisionConfig.from_conf(conf["precision"]))
     eng = conf.get("engine")
     if eng is not None:
-        unknown = set(eng) - _ENGINE_KEYS
+        unknown = set(eng) - set(_ENGINE_INSTALLERS)
         if unknown:
             raise ValueError(
                 f"unknown engine conf key(s) {sorted(unknown)}; "
-                f"valid: {sorted(_ENGINE_KEYS)}")
-        for name, (parse, module, item) in _UNPORTED_ENGINE_BLOCKS.items():
-            if eng.get(name) is not None and parse(eng[name]).enabled:
-                raise NotImplementedError(
-                    f"engine.{name}.enabled: true ({module}) is not ported "
-                    f"yet (ROADMAP Queue 1: {item})")
+                f"valid: {sorted(_ENGINE_INSTALLERS)}")
         for name, install in _ENGINE_INSTALLERS.items():
             if eng.get(name) is not None:
                 install(eng[name])

@@ -32,9 +32,6 @@ PENDING_PACKAGES = {"analysis": "P13", "parallel": "P12"}
 # label (ROADMAP Queue 1)
 PENDING = {
     "engine": {
-        "P9": ["WindowedSeriesStateStore", "configure_windowed",
-               "plan_windows", "should_window", "windowed_config",
-               "windowed_fit_forecast"],
         "P11": ["AOTStore", "aot_call", "cache_stats",
                 "configure_compile_cache", "configure_pipeline",
                 "pipeline_config", "prefetch_to_device", "sanctioned_pull"],

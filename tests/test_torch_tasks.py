@@ -447,7 +447,7 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
 @pytest.mark.parametrize("conf, item", [
     ({"distributed": {"num_processes": 2}}, "P12"),
     ({"precision": {"bf16_scoring": True}}, None),
-    ({"engine": {"windowed": {"enabled": True}}}, "P9"),
+    ({"engine": {"windowed": {"enabled": True, "window_len": 4096}}}, None),
     ({"engine": {"autoprep": {"enabled": True, "outlier_threshold": 5.0}}},
      None),
     ({"engine": {"gradfit": {"enabled": True, "series_bucket": 8}}}, None),
@@ -455,13 +455,14 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
 ], ids=["distributed", "bf16", "windowed", "autoprep", "gradfit", "automl"])
 def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
     """Each unported block raises naming its item; ``precision``,
-    ``engine.autoprep``, ``engine.gradfit`` and ``engine.automl`` (``item``
-    None) are ported: the block arms the process-wide config.  As in the
-    reference, the train task does not call the sweep: armed, its forecast
-    is byte-equal to the unarmed one."""
+    ``engine.windowed``, ``engine.autoprep``, ``engine.gradfit`` and
+    ``engine.automl`` (``item`` None) are ported: the block arms the
+    process-wide config.  As in the reference, the train task does not call
+    the sweep: armed, its forecast is byte-equal to the unarmed one."""
     from distributed_forecasting_tpu_torch.engine import autoprep as tap
     from distributed_forecasting_tpu_torch.engine import gradfit as tgf
     from distributed_forecasting_tpu_torch.engine import hyper as thyper
+    from distributed_forecasting_tpu_torch.engine import windowed as twin
     from distributed_forecasting_tpu_torch.ops import precision as tprec
 
     init_conf = {"env": {"root": str(tmp_path)}, **conf}
@@ -471,6 +472,10 @@ def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
             if "precision" in conf:
                 assert tprec.get_precision().bf16_scoring
                 assert tprec.scoring_dtype() is torch.bfloat16
+            elif "windowed" in conf["engine"]:
+                cfg = twin.windowed_config()
+                assert cfg.enabled and cfg.window_len == 4096
+                assert twin.should_window(4096 * cfg.min_windows)
             elif "autoprep" in conf["engine"]:
                 cfg = tap.autoprep_config()
                 assert cfg.enabled and cfg.outlier_threshold == 5.0
@@ -494,6 +499,7 @@ def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
                             columns=["training_date"]))
                 pd.testing.assert_frame_equal(tables[0], tables[1])
         finally:
+            twin.configure_windowed(twin.WindowedConfig())
             tap.configure_autoprep(tap.AutoprepConfig())
             tgf.configure_gradfit(tgf.GradFitConfig())
             thyper.configure_automl(thyper.AutoMLConfig())
