@@ -65,7 +65,11 @@ its own size:
     and 1 x 1,000,000 periods from a seed): the window statistics, the WLS
     combine, the tail window's ``arima_filter`` pass and the
     ``arima_predict`` forecast, the tail-window streaming refit, and the
-    train task with ``engine.windowed`` armed.
+    train task with ``engine.windowed`` armed;
+  * the training runtime: the shipped train conf through the pipelined
+    executor, ``run_many`` of four families, the kernel library's
+    ``compile_cache`` store in fresh processes, the cost registry and the
+    tracer.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -135,13 +139,13 @@ is not 0:
               sync).  A
               20-series cross_validate(calibrate=True) on the card equals
               the CPU's: ranks equal, scales within their scores' change
-  8. blend    real-data-e2e five times in one env.root (the monitor scans
+  8. blend    real-data-e2e three times in one env.root (the monitor scans
               drift from the second run on; then the monitor task rerun on
               the CPU over the same stored table must write equal tables,
               and its four scans are timed), then forecasting-blend twice in
               one env.root (the second promote decides by its rule against
-              the first run's champion) and three more times, each workflow
-              five times in all for the per-task medians, with the launch
+              the first run's champion) and once more, each workflow
+              three times in all for the per-task medians, with the launch
               counters set to 0
               as each train task starts: both kernels must launch in every
               one (3 each).  The first train task of each workflow records
@@ -159,11 +163,11 @@ is not 0:
               forecasting-blend's ``season_length: auto``) is 7; a
               20-series ``fit_forecast_blend(calibrate=True)`` on the card
               agrees with the CPU (see ``pool_vs_cpu``).  Times: per task
-              and ``fit_seconds`` (medians of 5 runs), the train task's
+              and ``fit_seconds`` (medians of 3 runs), the train task's
               dispatch stage (CUDA events, median of 5; idle share; the
               host syncs PyTorch reports), the croston recurrence at the
               fit and CV shapes beside its bounds, and season detection
-  9. complete allocated-baseline and hierarchical-m5, each five times in
+  9. complete allocated-baseline and hierarchical-m5, each three times in
               one env.root, the launch counters set to 0 before each run
               (neither launches a hand kernel).  Checks: every task OK on the
               card; the allocated table's columns and rows are the
@@ -176,7 +180,7 @@ is not 0:
               the card agrees with the CPU (winners equal where the SSEs are
               apart); a 20-series blend over [holt_winters, theta, croston]
               agrees with the CPU (see ``pool_check``) and launches both
-              kernels.  Times: per task (medians of 5), the SES loop and the
+              kernels.  Times: per task (medians of 3), the SES loop and the
               theta fit at the fit and CV shapes (launches, idle share, host
               syncs, bounds), and the MinT solve at n = 500
 
@@ -261,7 +265,7 @@ is not 0:
               predict; /detect_anomalies at in-process servers on both
               artifacts (one arima_predict launch a request on the auto
               one), and concurrent detection and forecast requests sharing
-              dispatches.  Times: p50 / p95 / p99 of 200 sequential requests
+              dispatches.  Times: p50 / p95 / p99 of 100 sequential requests
               at 1, 17 and 500 series, the device's idle share over the
               500-series request, requests/s, latency, dispatches per
               request and the mean coalesced batch under 32 clients with
@@ -388,6 +392,31 @@ is not 0:
               block armed: the frame over tail window + horizon, the
               artifact anchored at the history's first day (as the
               reference anchors it) predicting the frame's future rows
+ 18. runtime  the training runtime (``slice19_phase``) on the committed
+              dataset.  (a) conf/tasks/train_config.yml as shipped (the
+              curve model) and with ``model: holt_winters``, each pipelined
+              and with ``async_tracking: false``, twice each in turns, the
+              counters set to 0 around each task: the forecast table, the
+              tracked params, tags, series table and non-timing metrics
+              and the artifact byte-identical; the ``pipeline_*`` run
+              metrics logged; hw_score and hw_filter launched through the
+              executor.  (b) ``run_many`` of Holt-Winters, arima, theta and
+              the curve model (CV 730/360/90, horizon 90) pipelined and
+              serial in turns: walls, ``stage_metrics``, each experiment
+              byte-identical between the modes, and one pipelined run
+              traced for the card's idle share beside the executor's
+              ``pipeline_device_idle_fraction``.  (c) The kernel library's
+              ``compile_cache`` store in fresh processes: cold (nvcc),
+              then at once warm (nvcc refused), a truncated entry (in a
+              copy of the store) and a changed source (each rebuilt), each
+              child holding hw_score against its twin.
+              (d) A fresh cost registry: every kernel row's FLOPs and bytes
+              equal its ``*_work`` count; the HW fit's charged seconds
+              beside CUDA events.  (e) Tracing: a flight-recorder dump with
+              the ``pipeline.*``, ``aot.call`` and ``windowed.*`` kinds, a
+              ``ProfilerSession`` capture where a ``device_annotation``
+              encloses an hw_score launch, the train task's wall with the
+              tracer on and off
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -401,9 +430,9 @@ The line before the last lists the kernels (launches, error, times,
 launches and error include phase 11's bucketed calls, phase 12's
 arima_predict launches through HTTP, /invocations and /detect_anomalies,
 phase 13's train task, phases 14-15's main paths and tasks, phase 16's
-fit and forced refit, and phase 17's fits, tail refits, train task and
-artifact predict; the arima rows add phase 17's kernel times at the
-window's shapes);
+fit and forced refit, phase 17's fits, tail refits, train task and
+artifact predict, and phase 18's train tasks and ``run_many``; the arima
+rows add phase 17's kernel times at the window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -433,6 +462,9 @@ RTOL, ATOL = 1e-5, 1e-6
 # H100 SXM published peaks: HBM bytes/s, float32 (non-tensor-core) FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 REPS = 5
+# runs of each workflow of phases 8-9 for the per-task medians, and samples
+# of each monitor scan (host work: each run costs seconds)
+WORKFLOW_RUNS = 3
 # the committed dataset: 500 (store, item) series x 1,826 days
 SHAPE = (500, 1826)
 # rolling-origin CV: 3 cutoffs at T = 1,826 (engine.CVConfig's fields)
@@ -2002,7 +2034,7 @@ def monitor_rerun(port, root: str, spec: dict, card_line: str) -> dict:
     a task on the CPU over the same stored forecast table: its summary and
     its four output tables (profile, flagged rows, drift, degradation)
     must equal the card run's.  Then each of the four scans timed as the
-    task calls it (host clock, median of 5: pandas and numpy on the host,
+    task calls it (host clock, median of 3: pandas and numpy on the host,
     its table write included)."""
     mon = port["monitoring"]
     node = next(t for t in spec["workflows"][0]["tasks"]
@@ -2032,7 +2064,7 @@ def monitor_rerun(port, root: str, spec: dict, card_line: str) -> dict:
     times = {}
     for k, fn in scans.items():
         samples = []
-        for _ in range(REPS):
+        for _ in range(WORKFLOW_RUNS):
             t0 = time.perf_counter()
             fn()
             samples.append((time.perf_counter() - t0) * 1e3)
@@ -2041,12 +2073,13 @@ def monitor_rerun(port, root: str, spec: dict, card_line: str) -> dict:
            "rows": len(df), "versions": len(catalog.table_versions(table)),
            "cpu_rerun_equal": True, "summary": summary,
            "scan_ms_host": times}
-    emit("monitor", card=card_line, reps=REPS, statistic="median", **out)
+    emit("monitor", card=card_line, reps=WORKFLOW_RUNS, statistic="median",
+         **out)
     return out
 
 
 def pooled_phase(port, counters, card_line: str) -> dict:
-    """Phase 8: real-data-e2e (five runs in one env root, the monitor's
+    """Phase 8: real-data-e2e (three runs in one env root, the monitor's
     drift scan from the second on, then its monitor rerun on the CPU),
     then forecasting-blend twice in one env root (the second promote
     against the first's champion) and three more times, for the per-task
@@ -2075,13 +2108,13 @@ def pooled_phase(port, counters, card_line: str) -> dict:
                 out["times"] = timed
                 # the repeats share the root: from the second run on the
                 # monitored table has a baseline and the drift scan runs
-                while len(checked) < REPS:
+                while len(checked) < WORKFLOW_RUNS:
                     checked.append(check_pooled(
                         pooled_run(port, root, spec, counters), port, root,
                         spec, len(checked) + 1))
                 out["monitor"] = monitor_rerun(port, root, spec, card_line)
             del first
-        while len(checked) < REPS:
+        while len(checked) < WORKFLOW_RUNS:
             with tempfile.TemporaryDirectory() as root:
                 checked.append(check_pooled(
                     pooled_run(port, root, spec, counters), port, root, spec,
@@ -2399,7 +2432,7 @@ def complete_timings(port, batch, nodes, mint_call, card_line: str) -> dict:
 
 def complete_phase(port, counters, card_line: str) -> dict:
     """Phase 9: allocated-baseline and hierarchical-m5 at their own sizes,
-    each five times in one env root, the launch counters set to 0 before
+    each three times in one env root, the launch counters set to 0 before
     each run (neither launches a hand kernel: the curve model and theta);
     checks, per-task medians, the SES loop's and the MinT solve's times, a
     20-node theta card-vs-CPU run, and a 20-series blend over
@@ -2411,7 +2444,7 @@ def complete_phase(port, counters, card_line: str) -> dict:
         spec = e2e_spec(port, name)
         with tempfile.TemporaryDirectory() as root:
             checked = []
-            for _ in range(REPS):
+            for _ in range(WORKFLOW_RUNS):
                 run = complete_run(port, root, spec, counters)
                 checked.append(check(run, port, root, spec))
             if name == HIER:
@@ -3456,7 +3489,7 @@ SCORER = "scorer-curve"
 SCORER_MODEL = "ForecastingBatchModel"
 AUTO_MODEL = "ForecastingAutoModel"
 SCORER_HORIZON = 90
-LATENCY_REQUESTS = 200  # sequential requests per request size
+LATENCY_REQUESTS = 100  # sequential requests per request size
 LOAD_CLIENTS = 32  # concurrent 1-series clients
 LOAD_SECONDS = 5.0
 OBSERVE_DAYS, OBSERVE_SERIES = 28, 17
@@ -4004,7 +4037,7 @@ def rowwise_cost(port, fc) -> dict:
 
 DETECT_DAYS, DETECT_SERIES = 28, 17
 DETECT_FULL_DAYS = 20  # x 500 series: 10,000 points, the shipped maximum
-DETECT_REQUESTS = {17: 50, 500: 10}  # sequential requests per size
+DETECT_REQUESTS = {17: 25, 500: 5}  # sequential requests per size
 SPIKE_SD = 50.0  # planted spikes, in standard deviations of their series
 SPIKES = 12
 # card vs CPU on one stored artifact: the CPU tests' tolerances of a served
@@ -5004,7 +5037,7 @@ def prep_phase(port, counters, card_line: str) -> dict:
 # -- phase 14: arnet on the batched trainer, Monte-Carlo bands, tuning ------
 
 SLICE13_HORIZON = 90
-ARNET_REPS = 3           # timed fits of each arnet trainer
+ARNET_REPS = 2           # timed fits of each arnet trainer
 ARNET_VS_CPU = 20        # series held card against CPU on one schedule
 ARNET_W_ATOL = 2e-4      # weights after 840 Adam steps (tests: 750 steps)
 ARNET_PATH_RTOL = 2e-5   # fitted paths, of each row's scale
@@ -5981,6 +6014,9 @@ STREAM_TOL = 1e-5         # card vs CPU, of each row's scale
 STREAM_BIG = (40, 512)    # 20,480 series, as phase 11 builds them
 STREAM_LATENCY = 100      # sequential 500-series /invocations, each leg
 STREAM_APPLY_REPS = 5
+# runs of each workflow of phases 8-9 for the per-task medians, and samples
+# of each monitor scan (host work: each run costs seconds)
+WORKFLOW_RUNS = 3
 # no refit fires by itself during the run (the phase forces one), and the
 # 30-day burst (15,000 points) fits in one request
 STREAM_CONF = {"serving.ingest.enabled": True,
@@ -6726,7 +6762,7 @@ def windowed_stages(port, batch, cfg, wcfg) -> dict:
         window_stats=lambda: port["arima"].window_stats(yw, mw, cfg),
         combine=lambda: comb_mod.combine_estimates("arima", stats,
                                                    len(starts)),
-        finalize=lambda: win._finalize(cfg, *tail, comb["coef"],
+        finalize=lambda: win._finalize("arima", cfg, *tail, comb["coef"],
                                        comb["mean"], WIN_HORIZON,
                                        win.DEFAULT_MIN_POINTS))
 
@@ -7065,6 +7101,597 @@ def slice17_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 18: the training runtime (slice 19) ---------------------------------
+
+RUNTIME_FAMILIES = ("holt_winters", "arima", "theta", "prophet")
+RUNTIME_HORIZON = 90
+RUNTIME_REPS = 2           # pipelined / serial run_many pairs (in turns)
+RUNTIME_TRACE_REPS = 2     # tracer on / off train-task pairs (in turns)
+RUNTIME_COST_REPS = 5      # HW fits timed for the cost registry
+RUNTIME_WINDOWED = (20, 8192, 1024, 64)  # S, T, W, overlap of (e)'s fit
+ANNOTATION = "chip_smoke.hw_score"
+# the timings of a run, outside the byte-identity contract
+RUNTIME_TIMINGS = ("fit_seconds", "series_per_second")
+
+
+def _timing(name: str) -> bool:
+    return name in RUNTIME_TIMINGS or name.startswith(("phase_",
+                                                       "pipeline_"))
+
+
+def _frames_identical(a: pd.DataFrame, b: pd.DataFrame) -> bool:
+    """Same columns, dtypes and values, NaNs in the same places."""
+    if list(a.columns) != list(b.columns) or len(a) != len(b):
+        return False
+    for col in a.columns:
+        x, y = a[col].to_numpy(), b[col].to_numpy()
+        if x.dtype != y.dtype:
+            return False
+        if x.dtype.kind in "fc":
+            if not np.array_equal(x, y, equal_nan=True):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def _dirs_identical(a: str, b: str) -> bool:
+    """Every file under ``a`` and ``b`` byte for byte."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if os.path.isdir(pa):
+            if not _dirs_identical(pa, pb):
+                return False
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    return False
+    return True
+
+
+def runtime_spec(model: str, table: str, experiment: str) -> dict:
+    """One run_many experiment on the committed dataset at the reference
+    workload's size: ``model`` (the curve model with the shipped model
+    conf), CV 730/360/90, horizon 90."""
+    model_conf = (port_train_conf()["training"]["model_conf"]
+                  if model == "prophet" else {})
+    return dict(source_table="hackathon.sales.raw", output_table=table,
+                model=model, model_conf=model_conf, cv_conf=dict(CV),
+                horizon=RUNTIME_HORIZON, experiment=experiment)
+
+
+def port_train_conf() -> dict:
+    import yaml
+
+    with open(TRAIN_CONF) as f:
+        return yaml.safe_load(f)
+
+
+def runtime_runs_identical(port, roots: tuple, runs: tuple,
+                           table: str) -> dict:
+    """Two runs of one experiment, each in its own env root: the forecast
+    table, the tracked params, tags, series table and non-timing metrics,
+    and the artifact, byte for byte; the timings are left out."""
+    (ra, rb), out = runs, {}
+    ca, ta, _ = _store(port, roots[0])
+    cb, tb, _ = _store(port, roots[1])
+    out["table"] = _frames_identical(ca.read_table(table),
+                                     cb.read_table(table))
+    a = ta.get_run(ra["experiment_id"], ra["run_id"])
+    b = tb.get_run(rb["experiment_id"], rb["run_id"])
+    out["params"] = a.params() == b.params()
+    out["tags"] = a.meta()["tags"] == b.meta()["tags"]
+    ma, mb = a.metrics(), b.metrics()
+    out["metric_names"] = set(ma) == set(mb)
+    out["metrics"] = ({k: v for k, v in ma.items() if not _timing(k)}
+                      == {k: v for k, v in mb.items() if not _timing(k)})
+    out["series_table"] = _frames_identical(
+        pd.read_parquet(a.artifact_path("series_metrics.parquet")),
+        pd.read_parquet(b.artifact_path("series_metrics.parquet")))
+    out["artifact"] = _dirs_identical(a.artifact_path("forecaster"),
+                                      b.artifact_path("forecaster"))
+    return out
+
+
+def runtime_train_tasks(port, batch, card_line: str) -> dict:
+    """(a) conf/tasks/train_config.yml as shipped (the curve model), then
+    with ``model: holt_winters``, each pipelined (``pipeline`` as shipped)
+    and with ``async_tracking: false``, two of each in turns, the six
+    counters set to 0 just before each task and read after: the frames,
+    artifacts and tracking
+    rows are byte-identical, the pipelined run logs the reference's
+    ``pipeline_*`` run metrics, and the Holt-Winters tasks launch hw_score
+    and hw_filter through the executor."""
+    ex_mod, kal, fs = port["executor"], port["kalman"], port["fs"]
+    counters = {k: getattr(fs if k.startswith("hw_") else kal, k)
+                for k in KERNELS}
+    raw = raw_table(batch)
+    out = {"launches": {k: 0 for k in KERNELS}}
+    pipes = {"serial": {"async_tracking": False}, "pipelined": {}}
+    for model in ("prophet", "holt_winters"):
+        kept, walls, launched = {}, {"serial": [], "pipelined": []}, {}
+        # in turns, so that neither mode has the warm-up to itself
+        for mode in ("serial", "pipelined", "pipelined", "serial"):
+            root = tempfile.mkdtemp(prefix=f"dftt-a-{model}-{mode}-")
+            _store(port, root)[0].save_table("hackathon.sales.raw", raw)
+            conf = port_train_conf()
+            conf["env"] = {"root": root}
+            if model == "holt_winters":
+                conf["training"].update(model=model, model_conf={})
+            conf["pipeline"].update(pipes[mode])
+            try:
+                (summary, dt), n = _counted(counters, lambda: _timed_task(
+                    port, conf))
+            finally:
+                ex_mod.configure_pipeline(ex_mod.PipelineConfig())
+            walls[mode].append(dt)
+            launched.setdefault(mode, n)
+            for k in KERNELS:
+                out["launches"][k] += n[k]
+            if mode in kept:
+                shutil.rmtree(root, ignore_errors=True)
+            else:
+                kept[mode] = (root, summary)
+        roots = (kept["serial"][0], kept["pipelined"][0])
+        same = runtime_runs_identical(
+            port, roots, (kept["serial"][1], kept["pipelined"][1]),
+            FORECASTS)
+        piped = _store(port, roots[1])[1].get_run(
+            kept["pipelined"][1]["experiment_id"],
+            kept["pipelined"][1]["run_id"]).metrics()
+        logged = {k: piped[k] for k in sorted(piped)
+                  if k.startswith("pipeline_")}
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+        assert all(same.values()), (model, same)
+        assert set(logged) == {"pipeline_prep_seconds",
+                               "pipeline_dispatch_seconds",
+                               "pipeline_pull_seconds"}, logged
+        if model == "holt_winters":
+            for mode in launched:
+                assert launched[mode]["hw_score"] >= 1, launched
+                assert launched[mode]["hw_filter"] >= 1, launched
+        out[model] = dict(identical=same, pipeline_metrics=logged,
+                          wall_s=walls, launches=launched)
+    emit("runtime_train_task", card=card_line, **{
+        k: v for k, v in out.items() if k != "launches"})
+    return out
+
+
+def _timed_task(port, conf) -> tuple:
+    t0 = time.perf_counter()
+    summary = port["tasks"].TASK_TYPES["train"](init_conf=conf,
+                                                 device=DEVICE).launch()
+    torch.cuda.synchronize()
+    return summary, time.perf_counter() - t0
+
+
+def runtime_run_many(port, batch, card_line: str) -> dict:
+    """(b) ``run_many`` of RUNTIME_FAMILIES on the committed dataset,
+    pipelined (``max_in_flight`` 2) and serial (``async_tracking: false``)
+    in turns, RUNTIME_REPS of each, each run in its own env root with the
+    counters set to 0 around it: the walls, ``stage_metrics`` and the idle
+    fraction the executor reports; each experiment's table, artifact and
+    tracking rows byte-identical between the first pipelined and the first
+    serial run; then one pipelined run traced (``idle_share``) for the
+    device's idle share beside the executor's lower bound."""
+    ex_mod, kal, fs = port["executor"], port["kalman"], port["fs"]
+    counters = {k: getattr(fs if k.startswith("hw_") else kal, k)
+                for k in KERNELS}
+    raw = raw_table(batch)
+    specs = [runtime_spec(m, f"runtime.fc.{m}", f"runtime_{m}")
+             for m in RUNTIME_FAMILIES]
+    cfgs = {"pipelined": ex_mod.PipelineConfig(max_in_flight=2),
+            "serial": ex_mod.PipelineConfig(async_tracking=False)}
+
+    def one(mode):
+        root = tempfile.mkdtemp(prefix=f"dftt-b-{mode}-")
+        catalog, tracker, _ = _store(port, root)
+        catalog.save_table("hackathon.sales.raw", raw)
+        pipe = port["training"].TrainingPipeline(catalog, tracker,
+                                                 device=DEVICE)
+        t0 = time.perf_counter()
+        got = pipe.run_many(specs, pipeline=cfgs[mode])
+        torch.cuda.synchronize()
+        return root, got, time.perf_counter() - t0
+
+    out = {"launches": {k: 0 for k in KERNELS}, "wall_s": {
+        "pipelined": [], "serial": []}, "stage_metrics": {}}
+    kept = {}
+    for mode in ("serial", "pipelined", "pipelined", "serial")[
+            :2 * RUNTIME_REPS]:
+        (root, got, wall), n = _counted(counters, lambda: one(mode))
+        out["wall_s"][mode].append(wall)
+        out["stage_metrics"].setdefault(mode, []).append(got["pipeline"])
+        for k in KERNELS:
+            out["launches"][k] += n[k]
+        assert len(got["results"]) == len(specs)
+        if mode in kept:
+            shutil.rmtree(root, ignore_errors=True)
+        else:
+            kept[mode] = (root, got)
+    same = {}
+    for i, spec in enumerate(specs):
+        same[spec["model"]] = runtime_runs_identical(
+            port, (kept["serial"][0], kept["pipelined"][0]),
+            (kept["serial"][1]["results"][i],
+             kept["pipelined"][1]["results"][i]), spec["output_table"])
+    for root, _ in kept.values():
+        shutil.rmtree(root, ignore_errors=True)
+    assert all(all(v.values()) for v in same.values()), same
+    assert out["launches"]["hw_score"] >= 1 and \
+        out["launches"]["arima_filter"] >= 1, out["launches"]
+
+    traced = {}
+
+    def traced_run():
+        root, got, wall = one("pipelined")
+        traced.update(root=root, stage=got["pipeline"], wall=wall)
+
+    share = idle_share(traced_run, attempts=2)
+    shutil.rmtree(traced.get("root", ""), ignore_errors=True)
+    out.update(identical=same, traced=share,
+               traced_executor_idle_fraction=traced.get("stage", {}).get(
+                   "pipeline_device_idle_fraction"),
+               pipelined_over_serial=(statistics.median(
+                   out["wall_s"]["pipelined"]) / statistics.median(
+                   out["wall_s"]["serial"])))
+    emit("runtime_run_many", card=card_line, families=RUNTIME_FAMILIES,
+         **{k: v for k, v in out.items() if k != "launches"})
+    return out
+
+
+# what a library-store child process runs: configure the store, load the
+# library (optionally from another copy of the sources, optionally with
+# the nvcc build refused), launch hw_score once against its twin, and print
+# the load's seconds, the build count, the cache's counts and outcomes and
+# the span kinds its flight recorder holds
+STORE_CHILD = r"""
+import json, sys, time
+import torch
+from distributed_forecasting_tpu_torch.engine import compile_cache as cc
+from distributed_forecasting_tpu_torch.monitoring import trace
+from distributed_forecasting_tpu_torch.ops import _build
+from distributed_forecasting_tpu_torch.ops import fused_scan as fs
+store, csrc, no_nvcc = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+if csrc:
+    _build.CSRC = csrc
+if no_nvcc:
+    import torch.utils.cpp_extension as ext
+    def refused(*a, **k):
+        raise RuntimeError("nvcc invoked on a warm store")
+    ext.load = refused
+tr = trace.configure_tracing(trace.TraceConfig(enabled=True))
+cc.configure_compile_cache(cc.CompileCacheConfig(enabled=True,
+                                                 directory=store))
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+_build.library()
+seconds = time.perf_counter() - t0
+g = torch.Generator().manual_seed(3)
+y = (10 + torch.randn(64, 400, generator=g)).cuda()
+mask = (torch.rand(64, 400, generator=g) > 0.1).float().cuda()
+grid = [torch.full((8,), v, device="cuda") for v in (0.3, 0.1, 0.2, 1.0)]
+got = fs.hw_score(y, mask, *grid, 7)
+want = fs.hw_score_reference(y, mask, *grid, 7)
+err = float((got - want).abs().max() / want.abs().max())
+print(json.dumps({"seconds": seconds, "builds": _build.builds,
+                  "stats": cc.cache_stats(),
+                  "outcomes": cc._entry_requests.snapshot(),
+                  "hw_score_rel_err": err,
+                  "spans": sorted({s.name for s in tr.recorder.snapshot()})}))
+"""
+
+
+def _store_children(*args) -> list:
+    """Run one STORE_CHILD process for each ``(store, csrc, no_nvcc)``, all
+    at once, and return their reports in order."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", STORE_CHILD, store, csrc,
+         "1" if no_nvcc else "0"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for store, csrc, no_nvcc in args]
+    outs = []
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"library-store child failed: {stderr}")
+        out = json.loads(stdout.strip().splitlines()[-1])
+        assert out["hw_score_rel_err"] <= 1e-5, out
+        outs.append(out)
+    return outs
+
+
+def runtime_compile_cache(port, card_line: str) -> dict:
+    """(c) the kernel library's store, each step a fresh process: an empty
+    store (cold: nvcc builds, the library is stored), the same store (warm:
+    loaded with the build refused), the entry truncated (error: rebuilt),
+    one source changed in a copy of csrc/ (a new key: rebuilt).  After the
+    cold child the other three run at once, the truncated entry in a copy
+    of the store (two builds and the warm load share the host's cores).
+    Each child launches hw_score once against its twin."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dftt-c-") as tmp:
+        store = os.path.join(tmp, "compile_cache")
+        kernels = os.path.join(store, "kernels")
+        (cold,) = _store_children((store, "", False))
+        out["cold"] = cold
+        assert cold["builds"] == 1 and cold["stats"]["misses"] == 1 \
+            and cold["stats"]["stores"] == 1, cold
+        damaged = os.path.join(tmp, "damaged")
+        shutil.copytree(store, damaged)
+        (entry,) = [n for n in os.listdir(kernels) if n.endswith(".aot")]
+        path = os.path.join(damaged, "kernels", entry)
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.truncate(size // 2)
+        csrc = os.path.join(tmp, "csrc")
+        shutil.copytree(port["build"].CSRC, csrc)
+        with open(os.path.join(csrc, port["build"].SOURCES[0]), "a") as f:
+            f.write("\n// a changed source: a new key\n")
+        warm, trunc, changed = _store_children(
+            (store, "", True), (damaged, "", False), (store, csrc, False))
+        out["warm"] = warm
+        assert warm["builds"] == 0 and warm["stats"]["hits"] == 1 \
+            and warm["stats"]["misses"] == 0, warm
+        out["truncated"], out["changed_source"] = trunc, changed
+        assert trunc["builds"] == 1 and trunc["stats"]["errors"] == 1, trunc
+        assert any("outcome=error" in k for k in trunc["outcomes"]), trunc
+        assert changed["builds"] == 1 and changed["stats"]["misses"] == 1 \
+            and changed["stats"]["errors"] == 0, changed
+        out["entries"] = sorted(n for n in os.listdir(kernels)
+                                if n.endswith(".aot"))
+        assert len(out["entries"]) == 2, out["entries"]
+        out["entry_bytes"] = size
+    emit("runtime_compile_cache", card=card_line,
+         cold_load_s=cold["seconds"], warm_load_s=warm["seconds"],
+         truncated_load_s=trunc["seconds"],
+         changed_source_load_s=changed["seconds"], **out)
+    return out
+
+
+def _program_rows(cm, entry: str) -> dict:
+    rows = {}
+    for field in ("flops", "bytes_accessed"):
+        for label, v in cm.program[field].snapshot().items():
+            e, key = (part.partition("=")[2] for part in label.split(","))
+            if e == entry:
+                rows.setdefault(key, {})[field] = v
+    return rows
+
+
+def runtime_cost(port, batch, card_line: str) -> dict:
+    """(d) a fresh cost registry, then Holt-Winters, arima and the curve
+    model's fit_forecast at the fit shape: every kernel row's FLOPs and
+    bytes equal its ``*_work`` count at the row's shape (hw_score's on the
+    batch's mask, the only one at that shape here); then RUNTIME_COST_REPS
+    Holt-Winters fits, each between two CUDA events, beside the seconds the
+    registry charged ``fit_forecast:holt_winters``."""
+    cost, fs, kal, solve = (port["cost"], port["fs"], port["kalman"],
+                            port["solve"])
+    with cost._state_lock:
+        cost._cost_metrics = None  # a fresh registry for this check
+    eng = port["engine"]
+    hw_cfg = port["hw"].HoltWintersConfig()
+    eng.fit_forecast(batch, model="holt_winters", config=hw_cfg,
+                     horizon=RUNTIME_HORIZON)
+    eng.fit_forecast(batch, model="arima", horizon=RUNTIME_HORIZON)
+    eng.fit_forecast(batch, model="prophet", config=curve_config(batch, port),
+                     horizon=RUNTIME_HORIZON)
+    torch.cuda.synchronize()
+    cm = cost.cost_metrics()
+
+    def dims(key):
+        return [int(x) for x in key.split(":")[0].split("x")]
+
+    def param(key, name):
+        return next(int(p[len(name):]) for p in key.split(":")[1:]
+                    if p.startswith(name))
+
+    counts = {
+        "hw_score": lambda k: fs.hw_score_work(batch.mask, param(k, "C"),
+                                               param(k, "m")),
+        "hw_filter": lambda k: fs.hw_filter_work(*dims(k), param(k, "m")),
+        "arima_filter": lambda k: kal.arima_filter_work(
+            *dims(k), param(k, "r"), param(k, "d")),
+        "arima_predict": lambda k: kal.arima_predict_work(*dims(k),
+                                                          param(k, "r")),
+        "masked_gram": lambda k: solve.gram_work(*dims(k), param(k, "F")),
+        "batched_cho_solve": lambda k: solve.cho_solve_work(
+            *dims(k), param(k, "F")),
+    }
+    out = {"rows": {}}
+    for entry, count in counts.items():
+        rows = _program_rows(cm, entry)
+        assert rows, f"no cost row for {entry}"
+        for key, got in rows.items():
+            ops, nbytes = count(key)
+            want = {"flops": float(ops), "bytes_accessed": float(nbytes)}
+            assert got == want, (entry, key, got, want)
+            out["rows"][f"{entry}|{key}"] = got
+    label = "entry=fit_forecast:holt_winters,family=holt_winters"
+    s0 = cm.device_seconds_total.snapshot().get(label, 0.0)
+    n0 = cm.dispatches_total.snapshot().get(label, 0.0)
+    events = []
+    for _ in range(RUNTIME_COST_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.fit_forecast(batch, model="holt_winters", config=hw_cfg,
+                         horizon=RUNTIME_HORIZON)
+        stop.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(stop))
+    n = cm.dispatches_total.snapshot()[label] - n0
+    assert n == RUNTIME_COST_REPS, n
+    recorded = (cm.device_seconds_total.snapshot()[label] - s0) / n * 1e3
+    out.update(hw_fit_recorded_ms=recorded,
+               hw_fit_cuda_event_ms=statistics.median(events),
+               hw_fit_cuda_event_ms_all=events,
+               recorded_over_events=recorded / statistics.mean(events),
+               cost_table=[r for r in cm.cost_table() if r["entry"] in (
+                   "hw_score", "hw_filter", "fit_forecast:holt_winters")])
+    emit("runtime_cost", card=card_line, **out)
+    return out
+
+
+def _annotation_encloses_kernel(path: str, name: str, kernel: str) -> dict:
+    """In a Chrome trace exported by ``torch.profiler``: whether a
+    ``name`` range encloses a ``kernel`` launch — on the device timeline (a
+    ``gpu_user_annotation`` around the kernel) or on the host's (the host
+    range around the ``cudaLaunchKernel`` whose correlation id is the
+    kernel's)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = [e for e in events if kernel in e.get("name", "")
+               and e.get("cat") == "kernel"]
+    gpu = [e for e in events if e.get("name") == name
+           and e.get("cat") == "gpu_user_annotation"]
+    host = [e for e in events if e.get("name") == name
+            and e.get("cat") == "user_annotation"]
+    corr = {e.get("args", {}).get("correlation") for e in kernels}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("args", {}).get("correlation") in corr]
+
+    def inside(a, b):
+        return a["ts"] <= b["ts"] and b["ts"] + b.get("dur", 0) <= \
+            a["ts"] + a.get("dur", 0)
+
+    return {"kernels": len(kernels), "gpu_annotations": len(gpu),
+            "host_annotations": len(host),
+            "device_timeline": any(inside(a, k) for a in gpu
+                                   for k in kernels),
+            "host_timeline": any(inside(a, ln) for a in host
+                                 for ln in launches)}
+
+
+def runtime_tracing(port, batch, card_line: str) -> dict:
+    """(e) tracing on: a pipelined Holt-Winters train task and a small
+    windowed arima fit; the flight recorder dumped as a Chrome trace holds
+    the ``pipeline.*``, ``aot.call`` and ``windowed.*`` kinds (the
+    ``aot.load`` / ``aot.compile`` kinds come from (c)'s children).  A
+    ``ProfilerSession`` capture while another thread launches hw_score
+    inside ``device_annotation(ANNOTATION)``: the annotation encloses a
+    launch
+    (head and tail margins, TRACE_ATTEMPTS tries, as ``idle_share``).  The
+    train task's wall with the tracer on and off, in turns."""
+    trace, win = port["trace"], port["windowed"]
+    out = {}
+    raw = raw_table(batch)
+    with tempfile.TemporaryDirectory(prefix="dftt-e-") as tmp:
+        def task(tag):
+            root = os.path.join(tmp, tag)
+            _store(port, root)[0].save_table("hackathon.sales.raw", raw)
+            conf = port_train_conf()
+            conf["env"] = {"root": root}
+            conf["training"].update(model="holt_winters", model_conf={})
+            return _timed_task(port, conf)[1]
+
+        tr = trace.configure_tracing(trace.TraceConfig(
+            enabled=True, ring_size=1 << 16, dump_dir=tmp))
+        try:
+            task("traced")
+            S, T, W, ov = RUNTIME_WINDOWED
+            wb = ar2_batch(port, S, T, WIN_SEED + 7)
+            win.windowed_fit_forecast(
+                wb, model="arima", horizon=WIN_HORIZON,
+                wconfig=win.WindowedConfig(enabled=True, window_len=W,
+                                           overlap=ov, min_windows=4))
+            torch.cuda.synchronize()
+            path = trace.dump_flight_recorder("phase18", tracer=tr)
+        finally:
+            trace.configure_tracing(trace.TraceConfig())
+        with open(path) as f:
+            kinds = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                            if e.get("ph") == "X"})
+        want = {"pipeline.prep", "pipeline.dispatch", "pipeline.pull",
+                "pipeline.complete", "aot.call", "windowed.fit",
+                "windowed.combine", "windowed.finalize"}
+        assert want <= set(kinds), kinds
+        out["flight_recorder_kinds"] = kinds
+
+        fs = port["fs"]
+        grid = port["hw"]._candidate_grid(port["hw"].HoltWintersConfig(),
+                                          device=batch.y.device)
+        sess = trace.ProfilerSession(os.path.join(tmp, "prof"),
+                                     max_seconds=30.0)
+        def launches():
+            # inside the capture's window, after its head margin
+            time.sleep(TRACE_HEAD_S)
+            t_end = time.perf_counter() + 1.0
+            while time.perf_counter() < t_end:
+                with trace.device_annotation(ANNOTATION):
+                    fs.hw_score(batch.y, batch.mask, *grid, 7)
+                torch.cuda.synchronize()
+
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            # the capture on this thread (the profiler's own), the annotated
+            # launches on another: the session records every thread
+            th = threading.Thread(target=launches)
+            th.start()
+            captured = sess.capture(TRACE_HEAD_S + 1.0 + TRACE_TAIL_S)
+            th.join(120)
+            assert not th.is_alive()
+            found = _annotation_encloses_kernel(
+                os.path.join(captured, "trace.json"), ANNOTATION,
+                "hw_score_kernel")
+            found["attempt"] = attempt
+            if found["device_timeline"] or found["host_timeline"]:
+                break
+        assert found["device_timeline"] or found["host_timeline"], found
+        out["profiler_capture"] = found
+
+        walls = {"on": [], "off": []}
+        for i, mode in enumerate(("off", "on", "on", "off")[
+                :2 * RUNTIME_TRACE_REPS]):
+            trace.configure_tracing(trace.TraceConfig(enabled=mode == "on"))
+            try:
+                walls[mode].append(task(f"wall{i}-{mode}"))
+            finally:
+                trace.configure_tracing(trace.TraceConfig())
+        out["train_task_wall_s"] = walls
+        out["tracer_on_over_off"] = (statistics.median(walls["on"])
+                                     / statistics.median(walls["off"]))
+    emit("runtime_tracing", card=card_line, **out)
+    return out
+
+
+def slice19_phase(port, card_line: str) -> dict:
+    """Phase 18: the training runtime.  (a) the shipped train conf
+    pipelined against serial; (b) run_many of four families; (c) the
+    kernel library's store in fresh processes; (d) the cost registry;
+    (e) tracing.  The launches of (a) and (b), the main paths here, are
+    added to the kernels line."""
+    t_phase = time.perf_counter()
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
+    parts, seconds = {}, {}
+    for name, run in (
+            ("train_tasks", lambda: runtime_train_tasks(port, batch,
+                                                        card_line)),
+            ("run_many", lambda: runtime_run_many(port, batch, card_line)),
+            ("compile_cache", lambda: runtime_compile_cache(port,
+                                                            card_line)),
+            ("cost", lambda: runtime_cost(port, batch, card_line)),
+            ("tracing", lambda: runtime_tracing(port, batch, card_line))):
+        t0 = time.perf_counter()
+        parts[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    out = {"launches": {k: parts["train_tasks"]["launches"][k]
+                        + parts["run_many"]["launches"][k]
+                        for k in KERNELS}, **parts}
+    emit("launches", path="runtime", **out["launches"],
+         expected="hw_score, hw_filter: each HW train task and HW "
+                  "experiment; arima_filter, arima_predict: each arima "
+                  "experiment")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase18", seconds=out["seconds"], parts=seconds)
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -7369,6 +7996,12 @@ def load_port() -> dict:
     from distributed_forecasting_tpu_torch.engine import windowed
     from distributed_forecasting_tpu_torch.ops import combine
     from distributed_forecasting_tpu_torch.serving import refit
+    from distributed_forecasting_tpu_torch.engine import (
+        compile_cache,
+        executor,
+    )
+    from distributed_forecasting_tpu_torch.monitoring import cost, trace
+    from distributed_forecasting_tpu_torch.ops import _build
 
     return dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
                 pg=pg, solve=solve, training=training, tracking=tracking,
@@ -7382,7 +8015,9 @@ def load_port() -> dict:
                 arnet=arnet, hyper=hyper, select=select, precision=precision,
                 convert=convert, models=models, state_store=state_store,
                 update=update, ingest=ingest, serve_task=serve_task,
-                windowed=windowed, combine=combine, refit=refit)
+                windowed=windowed, combine=combine, refit=refit,
+                compile_cache=compile_cache, executor=executor, cost=cost,
+                trace=trace, build=_build)
 
 
 def main(argv=None) -> int:
@@ -7479,6 +8114,7 @@ def main(argv=None) -> int:
     p8_end = slice14_phase(port, card_line)
     streaming = slice15_phase(port, card_line)
     windowed = slice17_phase(port, card_line)
+    runtime = slice19_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -7500,7 +8136,8 @@ def main(argv=None) -> int:
                               + prep["launches"][k]
                               + rng_paths["launches"][k]
                               + p8_end["launches"][k]
-                              + streaming["launches"][k]),
+                              + streaming["launches"][k]
+                              + runtime["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -7517,7 +8154,8 @@ def main(argv=None) -> int:
                                  + scorer["detect"]["auto"]["launches"][k]
                                  + rng_paths["launches"][k]
                                  + p8_end["launches"][k]
-                                 + windowed["launches"][k]),
+                                 + windowed["launches"][k]
+                                 + runtime["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),

@@ -16,7 +16,11 @@ from distributed_forecasting_tpu_torch.engine.calibrate import (
     conformal_interval_scale,
 )
 from distributed_forecasting_tpu_torch.engine.compile_cache import (
+    AOTStore,
     CompileCacheConfig,
+    aot_call,
+    cache_stats,
+    configure_compile_cache,
 )
 from distributed_forecasting_tpu_torch.engine.cv import (
     CVConfig,
@@ -27,7 +31,11 @@ from distributed_forecasting_tpu_torch.engine.executor import (
     ExperimentHandle,
     PipelineConfig,
     TrainingExecutor,
+    configure_pipeline,
     device_pull,
+    pipeline_config,
+    prefetch_to_device,
+    sanctioned_pull,
 )
 from distributed_forecasting_tpu_torch.engine.fit import (
     ForecastResult,
@@ -78,6 +86,9 @@ __all__ = ["AutoprepConfig", "PrepReport", "PrepResult", "autoprep_batch",
            "conformal_interval_scale", "detect_season_length",
            "select_arima_order", "BlendResult", "blend_weights",
            "ExperimentHandle", "PipelineConfig", "TrainingExecutor",
-           "device_pull", "CompileCacheConfig", "WindowedConfig",
+           "device_pull", "configure_pipeline", "pipeline_config",
+           "prefetch_to_device", "sanctioned_pull", "AOTStore",
+           "CompileCacheConfig", "aot_call", "cache_stats",
+           "configure_compile_cache", "WindowedConfig",
            "WindowedSeriesStateStore", "configure_windowed", "plan_windows",
            "should_window", "windowed_config", "windowed_fit_forecast"]

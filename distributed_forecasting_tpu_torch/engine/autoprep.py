@@ -14,11 +14,13 @@ the result is
   (``repairs_frame``) for run artifacts,
 * an optional batch season length and holiday regressor matrix.
 
-The program is one Python function over torch tensors, called directly:
-the reference's AOT executable store is not ported (ROADMAP Queue 1: P11),
-and the series axis is not padded to a power of two (the reference pads
-only to key its AOT entry; its ACF batch mean weights empty rows 0, so the
-unpadded result is the same).
+The program is one Python function over torch tensors, called through
+``engine/compile_cache.aot_call`` under the reference's entry
+``autoprep:<Sb>x<T>`` (Sb the series count's power-of-two bucket, as the
+reference names it); the series axis is not padded to that bucket (the
+reference pads only to key its executable store, which the port has no
+counterpart of; its ACF batch mean weights empty rows 0, so the unpadded
+result is the same).
 
 When every stage gate is off the call short-circuits before any device
 work and returns the input batch object itself: identity with no prep is
@@ -37,6 +39,7 @@ from distributed_forecasting_tpu_torch.data.holidays import (
     holiday_spec_for_range,
 )
 from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
+from distributed_forecasting_tpu_torch.engine.compile_cache import aot_call
 from distributed_forecasting_tpu_torch.engine.season import (
     acf_scores_per_series,
     clamp_max_lag,
@@ -309,10 +312,7 @@ def autoprep_batch(
     acf_max_lag = clamp_max_lag(cfg.season_max_lag, T) \
         if cfg.season_detect else 1
 
-    (y_clean, mask_clean, dropped, score, scale, repaired, cp_index,
-     cp_shift, cp_score, acf, hol) = _autoprep_impl(
-        batch.y, batch.mask, day_all,
-        torch.as_tensor(hol_days, device=dev),
+    statics = dict(
         zero_run_mask=cfg.zero_run_mask, zero_run_min=cfg.zero_run_min,
         outlier_repair=cfg.outlier_repair,
         outlier_threshold=cfg.outlier_threshold,
@@ -320,6 +320,13 @@ def autoprep_batch(
         changepoint_threshold=cfg.changepoint_threshold,
         align_level_shifts=cfg.align_level_shifts,
         season_detect=cfg.season_detect, acf_max_lag=acf_max_lag)
+    Sb = 1 << max(batch.n_series - 1, 0).bit_length()
+    (y_clean, mask_clean, dropped, score, scale, repaired, cp_index,
+     cp_shift, cp_score, acf, hol) = aot_call(
+        f"autoprep:{Sb}x{T}", _autoprep_impl,
+        args=(batch.y, batch.mask, day_all,
+              torch.as_tensor(hol_days, device=dev)),
+        static_kwargs=statics)
 
     season_length = None
     if cfg.season_detect and acf_max_lag >= 4:

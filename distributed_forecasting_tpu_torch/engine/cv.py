@@ -242,17 +242,37 @@ def cross_validate(
                 f"history, or disable engine.windowed"
             )
     cuts = cutoff_indices(batch.n_time, cv)
-    yhat, lo, hi, eval_masks, train_masks = _cv_paths(
-        batch, model, config, cuts, cv.horizon, xreg, generator)
-    out = _cv_metric_means(
-        batch.y, yhat, lo, hi, eval_masks, train_masks,
-        mase_m=metrics_ops.seasonal_naive_lag(batch.freq),
+    # the reference's AOT entry point (engine/compile_cache.aot_call): an
+    # aot.call span and the dispatch charged to the cost registry
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        aot_call,
     )
+
+    out, paths = aot_call(
+        f"cv{'_calibrate' if calibrate else ''}:{model}", _cv_impl,
+        args=(batch,),
+        static_kwargs=dict(model=model, config=config, cuts=cuts,
+                           horizon=cv.horizon, calibrate=calibrate,
+                           mase_m=metrics_ops.seasonal_naive_lag(batch.freq)),
+        dynamic_kwargs=dict(xreg=xreg, generator=generator),
+    )
+    if return_frame:
+        return out, _frame_from_paths(batch, cuts, *paths)
+    return out
+
+
+def _cv_impl(batch, model, config, cuts, horizon, calibrate, mase_m,
+             xreg=None, generator=None):
+    """Every cutoff's paths, the per-series metric means (and, with
+    ``calibrate``, the conformal scale and its coverage): ``(metrics,
+    (yhat, lo, hi, eval_masks))``."""
+    yhat, lo, hi, eval_masks, train_masks = _cv_paths(
+        batch, model, config, cuts, horizon, xreg, generator)
+    out = _cv_metric_means(batch.y, yhat, lo, hi, eval_masks, train_masks,
+                           mase_m=mase_m)
     out["_n_cutoffs"] = len(cuts)
     if calibrate:
         out["_interval_scale"], out["_coverage_calibrated"] = (
             _calibration_outputs(batch.y, yhat, lo, hi, eval_masks, model,
                                  config))
-    if return_frame:
-        return out, _frame_from_paths(batch, cuts, yhat, lo, hi, eval_masks)
-    return out
+    return out, (yhat, lo, hi, eval_masks)

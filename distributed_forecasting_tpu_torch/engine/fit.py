@@ -23,6 +23,7 @@ from distributed_forecasting_tpu_torch.data.tensorize import (
     bucket_by_span,
     ordinals_to_dates,
 )
+from distributed_forecasting_tpu_torch.engine.compile_cache import aot_call
 from distributed_forecasting_tpu_torch.models import get_model
 from distributed_forecasting_tpu_torch.models.base import generator_kwargs
 from distributed_forecasting_tpu_torch.utils.rng import resolve_generator
@@ -267,12 +268,30 @@ def fit_forecast(
         if gradfit_config().enabled:
             return gradfit_fit_forecast(batch, config=config, horizon=horizon,
                                         min_points=min_points, xreg=xreg)
+    # the reference's AOT entry point (engine/compile_cache.aot_call): an
+    # aot.call span and the dispatch charged to the cost registry
+    params, yhat, lo, hi, ok, day_all = aot_call(
+        f"fit_forecast:{model}", _fit_forecast_impl,
+        args=(y, mask, day),
+        static_kwargs=dict(model=model, config=config, horizon=horizon,
+                           min_points=min_points),
+        dynamic_kwargs=dict(xreg=xreg, generator=generator),
+    )
+    return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
+                                  day_all=day_all)
+
+
+def _fit_forecast_impl(y, mask, day, model, config, horizon, min_points,
+                       xreg=None, generator=None):
+    """The family's fit, its forecast over history + horizon and the
+    fail-safe: ``(params, yhat, lo, hi, ok, day_all)``."""
+    fns = get_model(model)
     day_all = day_grid(day, horizon)
     t_end = day[-1].to(torch.float32)
     gkw = generator_kwargs(fns, generator)
     if xreg is not None:
         xreg = xreg.to(y.device)
-        T = batch.n_time
+        T = y.shape[1]
         params = fns.fit(y, mask, day, config,
                          xreg=xreg[:T] if xreg.dim() == 2 else xreg[:, :T])
         yhat, lo, hi = fns.forecast(params, day_all, t_end, config, xreg=xreg,
@@ -282,8 +301,7 @@ def fit_forecast(
         yhat, lo, hi = fns.forecast(params, day_all, t_end, config, **gkw)
     yhat, lo, hi, ok = health_fallback(y, mask, yhat, lo, hi, horizon,
                                        min_points)
-    return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
-                                  day_all=day_all)
+    return params, yhat, lo, hi, ok, day_all
 
 
 def fit_forecast_chunked(

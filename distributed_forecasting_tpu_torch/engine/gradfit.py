@@ -32,21 +32,24 @@ gather, the step):
 * :func:`gradfit_fit_forecast` — the engine path ``fit_forecast`` routes
   to when the ``engine.gradfit`` conf block is armed: the series axis
   padded to the ``series_bucket`` ladder, minibatches assembled on the
-  host and copied ``prefetch_depth`` steps ahead from pinned memory, then
-  the same finalize and forecast as the family.
+  host and copied ``prefetch_depth`` steps ahead from pinned memory
+  (``engine/executor.prefetch_to_device``), each step through
+  ``engine/compile_cache.aot_call`` (entry ``gradfit_step:arnet``), the
+  loop's interval charged to the cost registry after the sanctioned
+  pull, then the same finalize and forecast as the family
+  (``gradfit_finalize:arnet``).
 
 The schedule comes from a ``torch.Generator`` seeded with
 ``config.seed`` (``utils/rng.py``: the random-number decision), and every
 trainer takes it as an argument too, which is how the tests hand the
-reference's schedule to the port.  The reference's AOT store entries and
-cost counters (``gradfit_step:arnet``, ``gradfit_finalize:arnet``) are not
-ported (ROADMAP Queue 1: P11).
+reference's schedule to the port.  ``donate`` has no effect: torch's
+optimizer updates the weights in place.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
+import time
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -314,38 +317,28 @@ def _host_batches(zp, zt, vt, xt, schedule: np.ndarray, lags: int
                xb_t, vt[idx])
 
 
-def _prefetch(batches, depth: int, device) -> Iterator[tuple]:
-    """Copy each host minibatch to ``device`` ``depth`` steps before it is
-    used: pinned host memory and non-blocking copies on the card, so the
-    host assembles the next batches while the card runs the step."""
-    pin = torch.device(device).type == "cuda"
-    queue = collections.deque()
-
-    def to_device(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=pin)
-
-    for item in batches:
-        zb, lag, lag_t, xb, xb_t, vb = (to_device(a) for a in item)
-        queue.append((zb, (lag, lag_t), (xb, xb_t), vb))
-        if len(queue) > depth:
-            yield queue.popleft()
-    while queue:
-        yield queue.popleft()
-
-
 def host_train(y, mask, day, config, xreg_hist=None,
                gcfg: Optional[GradFitConfig] = None, schedule=None) -> dict:
     """The engine path's epoch loop.  Pads the series axis to the
     ``series_bucket`` ladder (padded rows train to zero and are sliced
     off), assembles the minibatches on the host from the schedule (by
     default :func:`default_schedule` on the batch's device, brought to the
-    host once), copies them ahead (:func:`_prefetch`) and advances all
-    series with one :func:`train_step` each.  Returns the (S,)-row weights
-    in the reference's layout."""
+    host once), copies them ahead (``engine/executor.prefetch_to_device``)
+    and advances all series with one :func:`train_step` each (the
+    ``gradfit_step:arnet`` entry); the loop's interval, through the
+    sanctioned pull, is charged to the cost registry.  Returns the
+    (S,)-row weights in the reference's layout."""
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        aot_call,
+    )
+    from distributed_forecasting_tpu_torch.engine.executor import (
+        device_pull,
+        prefetch_to_device,
+    )
     from distributed_forecasting_tpu_torch.models import arnet
+    from distributed_forecasting_tpu_torch.monitoring.cost import (
+        cost_metrics,
+    )
 
     gcfg = gcfg if gcfg is not None else _active_config
     dev = y.device
@@ -366,9 +359,20 @@ def host_train(y, mask, day, config, xreg_hist=None,
 
     wp = init_weights(S + pad, config.lags, xz.shape[-1], dev)
     opt = make_optimizer(config, list(wp.values()))
+    t0 = time.perf_counter()
     batches = _host_batches(*host, schedule, config.lags)
-    for zb, lagb, xb, vb in _prefetch(batches, gcfg.prefetch_depth, dev):
-        train_step(wp, opt, zb, lagb, xb, vb, config)
+    for zb, lag, lag_t, xb, xb_t, vb in prefetch_to_device(
+            batches, depth=gcfg.prefetch_depth, device=dev):
+        aot_call("gradfit_step:arnet", train_step,
+                 args=(wp, opt, zb, (lag, lag_t), (xb, xb_t), vb),
+                 static_kwargs=dict(config=config))
+    done = None
+    if dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record()
+    device_pull(done)
+    cost_metrics().record_dispatch("gradfit_step:arnet", "arnet",
+                                   time.perf_counter() - t0)
     out = _reference_layout(wp)
     return {k: v[:S] for k, v in out.items()}
 
@@ -382,11 +386,10 @@ def gradfit_fit_forecast(batch, config=None, horizon: int = 90,
     family's own finalize (``arnet.params_from_weights``), forecast and the
     fail-safe.  ``xreg`` covers history + horizon, as for
     ``fit_forecast``.  Returns ``(params, ForecastResult)``."""
-    from distributed_forecasting_tpu_torch.engine.fit import (
-        ForecastResult,
-        day_grid,
-        health_fallback,
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        aot_call,
     )
+    from distributed_forecasting_tpu_torch.engine.fit import ForecastResult
     from distributed_forecasting_tpu_torch.models import arnet
 
     config = config if config is not None else arnet.ArnetConfig()
@@ -398,12 +401,36 @@ def gradfit_fit_forecast(batch, config=None, horizon: int = 90,
         xreg_hist = xreg[:T] if xreg.dim() == 2 else xreg[:, :T]
     wp = host_train(y, mask, day, config, xreg_hist=xreg_hist, gcfg=gcfg,
                     schedule=schedule)
-    params = arnet.params_from_weights(y, mask, day, config, wp["w"],
-                                       wp["beta"], wp["b"], xreg=xreg_hist)
+    params, yhat, lo, hi, ok, day_all = aot_call(
+        "gradfit_finalize:arnet", _finalize_impl,
+        args=(y, mask, day, wp["w"], wp["beta"], wp["b"]),
+        static_kwargs=dict(config=config, horizon=horizon,
+                           min_points=min_points),
+        dynamic_kwargs=dict(xreg=xreg))
+    return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
+                                  day_all=day_all)
+
+
+def _finalize_impl(y, mask, day, w, beta, b, config, horizon, min_points,
+                   xreg=None):
+    """The post-training tail: the family's finalize
+    (``arnet.params_from_weights``), its forecast and the fail-safe —
+    ``(params, yhat, lo, hi, ok, day_all)``."""
+    from distributed_forecasting_tpu_torch.engine.fit import (
+        day_grid,
+        health_fallback,
+    )
+    from distributed_forecasting_tpu_torch.models import arnet
+
+    T = y.shape[1]
+    xreg_hist = None
+    if xreg is not None:
+        xreg_hist = xreg[:T] if xreg.dim() == 2 else xreg[:, :T]
+    params = arnet.params_from_weights(y, mask, day, config, w, beta, b,
+                                       xreg=xreg_hist)
     day_all = day_grid(day, horizon)
     yhat, lo, hi = arnet.forecast(params, day_all, day[-1].to(torch.float32),
                                   config, xreg=xreg)
     yhat, lo, hi, ok = health_fallback(y, mask, yhat, lo, hi, horizon,
                                        min_points)
-    return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
-                                  day_all=day_all)
+    return params, yhat, lo, hi, ok, day_all

@@ -162,8 +162,11 @@ def successive_halving_select(
     :func:`select_model` pass for the per-series assignment.
 
     The budget is a launch gate: every evaluation is timed to completion
-    (the host pull of its metric waits for the card) and added to the
-    sweep's meter; no evaluation starts once the meter reads >= the budget.
+    (the host pull of its metric waits for the card) and charged with
+    ``monitoring/cost.record_dispatch`` (entry ``automl:cv:<family>``,
+    ``automl:final`` for the full pass), which the sweep's attribution
+    scope sums into its meter; no evaluation starts once the meter reads
+    >= the budget.
     The sweep then returns the best ranking so far with
     ``budget_exhausted=True`` and a uniform assignment of the best family.
 
@@ -174,6 +177,7 @@ def successive_halving_select(
     """
     from distributed_forecasting_tpu_torch.engine.gradfit import series_bucket
     from distributed_forecasting_tpu_torch.engine.hyper import automl_config
+    from distributed_forecasting_tpu_torch.monitoring.cost import cost_metrics
 
     cfg = config if config is not None else automl_config()
     configs = configs or {}
@@ -183,84 +187,90 @@ def successive_halving_select(
     survivors = list(cfg.families)
     ranking: Dict[str, float] = {}
     exhausted = False
-    # the sweep's meter: seconds to completion of each evaluation.  The
-    # reference charges them to monitoring/cost's attribution scope through
-    # record_dispatch; the port's cost registry is ROADMAP Queue 1's P11
-    spent = 0.0
+    # the sweep's meter: each evaluation's seconds to completion, charged to
+    # the cost registry (entries automl:cv:<family> and automl:final) and
+    # summed by this thread's attribution scope
+    cm = cost_metrics()
 
-    def eval_once(fam, sub, cv_r, rung):
-        nonlocal spent
-        t0 = time.perf_counter()
-        res = cross_validate(sub, model=fam, config=configs.get(fam),
-                             cv=cv_r, generator=generator)
-        vals = res[cfg.metric].cpu().numpy().astype(np.float64)
-        dt = time.perf_counter() - t0
-        spent += dt
-        finite = np.isfinite(vals)
-        score = float(np.mean(vals[finite])) if finite.any() else float("inf")
-        if cfg.metric in _HIGHER_BETTER:
-            score = -score if np.isfinite(score) else float("inf")
-        rows.append({
-            "family": fam, "rung": rung, "n_series": sub.n_series,
-            "n_cutoffs": int(res["_n_cutoffs"]),
-            f"mean_{cfg.metric}": (score if cfg.metric not in _HIGHER_BETTER
-                                   else -score),
-            "device_seconds": dt,
-            "cumulative_device_seconds": spent,
-        })
-        return score
+    with cm.attribution() as acc:
 
-    for r in range(cfg.rungs):
-        if len(survivors) <= 1:
-            break
-        n_sub = min(S, series_bucket(
-            min(S, cfg.base_series * cfg.eta ** r), cfg.base_series))
-        sub = _rung_subset(batch, n_sub)
-        cv_r = _rung_cv(cv, batch.n_time, cfg.base_cutoffs * cfg.eta ** r)
-        scores: Dict[str, float] = {}
-        for fam in survivors:
-            if spent >= cfg.budget_device_seconds:
-                exhausted = True
+        def eval_once(fam, sub, cv_r, rung):
+            t0 = time.perf_counter()
+            res = cross_validate(sub, model=fam, config=configs.get(fam),
+                                 cv=cv_r, generator=generator)
+            # the host pull waits for the card: dt is the evaluation's
+            # time to completion
+            vals = res[cfg.metric].cpu().numpy().astype(np.float64)
+            dt = time.perf_counter() - t0
+            cm.record_dispatch(f"automl:cv:{fam}", fam, dt)
+            finite = np.isfinite(vals)
+            score = (float(np.mean(vals[finite])) if finite.any()
+                     else float("inf"))
+            if cfg.metric in _HIGHER_BETTER:
+                score = -score if np.isfinite(score) else float("inf")
+            rows.append({
+                "family": fam, "rung": rung, "n_series": sub.n_series,
+                "n_cutoffs": int(res["_n_cutoffs"]),
+                f"mean_{cfg.metric}": (score if cfg.metric not in
+                                       _HIGHER_BETTER else -score),
+                "device_seconds": dt,
+                "cumulative_device_seconds": acc["device_seconds"],
+            })
+            return score
+
+        for r in range(cfg.rungs):
+            if len(survivors) <= 1:
                 break
-            scores[fam] = eval_once(fam, sub, cv_r, r)
-        ranking.update(scores)
-        if exhausted:
-            # families the gate cut off keep their previous rung's rank
-            break
-        order = sorted(survivors, key=lambda f: scores[f])
-        keep = max(1, -(-len(survivors) // cfg.eta))  # ceil division
-        survivors = order[:keep]
+            n_sub = min(S, series_bucket(
+                min(S, cfg.base_series * cfg.eta ** r), cfg.base_series))
+            sub = _rung_subset(batch, n_sub)
+            cv_r = _rung_cv(cv, batch.n_time, cfg.base_cutoffs * cfg.eta ** r)
+            scores: Dict[str, float] = {}
+            for fam in survivors:
+                if acc["device_seconds"] >= cfg.budget_device_seconds:
+                    exhausted = True
+                    break
+                scores[fam] = eval_once(fam, sub, cv_r, r)
+            ranking.update(scores)
+            if exhausted:
+                # families the gate cut off keep their previous rung's rank
+                break
+            order = sorted(survivors, key=lambda f: scores[f])
+            keep = max(1, -(-len(survivors) // cfg.eta))  # ceil division
+            survivors = order[:keep]
 
-    if not exhausted and spent < cfg.budget_device_seconds:
-        t0 = time.perf_counter()
-        selection = select_model(batch, models=tuple(survivors),
-                                 configs=configs, metric=cfg.metric, cv=cv,
-                                 generator=generator)
-        dt = time.perf_counter() - t0
-        spent += dt
-        rows.append({
-            "family": "+".join(survivors), "rung": "final", "n_series": S,
-            "n_cutoffs": -1,
-            f"mean_{cfg.metric}": float(np.nanmean(np.where(
-                np.isfinite(selection.best_score), selection.best_score,
-                np.nan))),
-            "device_seconds": dt,
-            "cumulative_device_seconds": spent,
-        })
-    else:
-        exhausted = True
-        # the budget closed before the full pass: the best-ranked family
-        # for every series (a usable assignment, never a crash)
-        best = min(ranking, key=ranking.get) if ranking else survivors[0]
-        sc = ranking.get(best, float("inf"))
-        selection = SelectionResult(
-            models=(best,), assignment=np.zeros(S, dtype=int),
-            best_score=np.full(S, sc),
-            scores=pd.DataFrame({best: np.full(S, sc)}), metric=cfg.metric)
+        if not exhausted and acc["device_seconds"] < cfg.budget_device_seconds:
+            t0 = time.perf_counter()
+            selection = select_model(batch, models=tuple(survivors),
+                                     configs=configs, metric=cfg.metric,
+                                     cv=cv, generator=generator)
+            dt = time.perf_counter() - t0
+            cm.record_dispatch("automl:final", "select", dt)
+            rows.append({
+                "family": "+".join(survivors), "rung": "final",
+                "n_series": S, "n_cutoffs": -1,
+                f"mean_{cfg.metric}": float(np.nanmean(np.where(
+                    np.isfinite(selection.best_score), selection.best_score,
+                    np.nan))),
+                "device_seconds": dt,
+                "cumulative_device_seconds": acc["device_seconds"],
+            })
+        else:
+            exhausted = True
+            # the budget closed before the full pass: the best-ranked
+            # family for every series (a usable assignment, never a crash)
+            best = min(ranking, key=ranking.get) if ranking else survivors[0]
+            sc = ranking.get(best, float("inf"))
+            selection = SelectionResult(
+                models=(best,), assignment=np.zeros(S, dtype=int),
+                best_score=np.full(S, sc),
+                scores=pd.DataFrame({best: np.full(S, sc)}),
+                metric=cfg.metric)
 
     return AutoMLResult(
         leaderboard=pd.DataFrame(rows), survivors=tuple(survivors),
-        selection=selection, spent_device_seconds=float(spent),
+        selection=selection,
+        spent_device_seconds=float(acc["device_seconds"]),
         budget_exhausted=exhausted, metric=cfg.metric)
 
 

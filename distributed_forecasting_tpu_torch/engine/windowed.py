@@ -20,11 +20,14 @@ Three stages, as in the reference:
   ``arima_filter`` launch over (S, W) on the card), forecast (one
   ``arima_predict`` launch) and apply the health fallback.
 
-The reference runs each stage as an AOT-cached entry point under a span
-(``windowed_fit:arima``, ``windowed_combine:arima``,
-``windowed_finalize:arima``, ``windowed_refit:arima``); the AOT store and
-the spans are not ported yet (ROADMAP Queue 1: P11), so each stage here is
-a plain call.  The finalize always filters with ``kalman='scan'``: W sits
+Each stage runs at the reference's entry point
+(``engine/compile_cache.aot_call``: ``windowed_fit:arima``,
+``windowed_combine:arima``, ``windowed_finalize:arima``,
+``windowed_refit:arima``) under its span (``windowed.fit``,
+``windowed.combine``, ``windowed.finalize``, ``windowed.refit``) and a
+``device_annotation`` of the entry, which marks its kernels in a
+``torch.profiler`` trace.  The finalize always filters with
+``kalman='scan'``: W sits
 far below the parallel filter's long-series tier.  The reference's
 ``ops/fused_scan.select_filter`` also reads the windowed scan length to
 rule ``pscan`` out; the port's ``select_filter`` reads no shape and never
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.data.tensorize import SeriesBatch
+from distributed_forecasting_tpu_torch.engine.compile_cache import aot_call
 from distributed_forecasting_tpu_torch.engine.fit import (
     DEFAULT_MIN_POINTS,
     ForecastResult,
@@ -68,6 +72,10 @@ from distributed_forecasting_tpu_torch.engine.state_store import (
 )
 from distributed_forecasting_tpu_torch.models import arima
 from distributed_forecasting_tpu_torch.models.base import get_model
+from distributed_forecasting_tpu_torch.monitoring.trace import (
+    device_annotation,
+    get_tracer,
+)
 from distributed_forecasting_tpu_torch.ops.combine import combine_estimates
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
@@ -221,7 +229,19 @@ def _gather_windows(y, mask, starts: Tuple[int, ...], W: int):
     return yw.reshape(S * K, W), mw.reshape(S * K, W)
 
 
-def _tail_params(config, y_tail, mask_tail, day_tail, coef, mean):
+def _window_fit(model: str, config, yw, mw) -> dict:
+    """One batched per-window statistics call at the AOT entry
+    ``windowed_fit:<model>``."""
+    entry = f"windowed_fit:{model}"
+    with get_tracer().span("windowed.fit", model=model,
+                           rows=int(yw.shape[0]),
+                           window_len=int(yw.shape[1])):
+        with device_annotation(entry):
+            return aot_call(entry, arima.window_stats, args=(yw, mw),
+                            static_kwargs={"config": config})
+
+
+def _tail_params(y_tail, mask_tail, day_tail, coef, mean, config):
     """Combined coefficients -> tail-anchored params: the stabilized
     polynomials, then the Kalman and integration pass over the tail window
     (``arima_filter`` on the card)."""
@@ -231,12 +251,26 @@ def _tail_params(config, y_tail, mask_tail, day_tail, coef, mean):
                                        phi, theta, mean)
 
 
-def _finalize(config, y_tail, mask_tail, day_tail, coef, mean, horizon: int,
-              min_points: int):
-    """Tail-anchored params, forecast and health fallback (the reference's
-    ``_windowed_finalize_impl``); the forecast is one ``arima_predict``
-    launch on the card."""
-    params = _tail_params(config, y_tail, mask_tail, day_tail, coef, mean)
+def _finalize(model: str, config, y_tail, mask_tail, day_tail, coef, mean,
+              horizon: int, min_points: int):
+    """The tail finalize at the AOT entry ``windowed_finalize:<model>``."""
+    entry = f"windowed_finalize:{model}"
+    with get_tracer().span("windowed.finalize", model=model,
+                           series=int(y_tail.shape[0]),
+                           window_len=int(y_tail.shape[1])):
+        with device_annotation(entry):
+            return aot_call(
+                entry, _windowed_finalize_impl,
+                args=(y_tail, mask_tail, day_tail, coef, mean),
+                static_kwargs=dict(config=config, horizon=horizon,
+                                   min_points=min_points))
+
+
+def _windowed_finalize_impl(y_tail, mask_tail, day_tail, coef, mean, config,
+                            horizon: int, min_points: int):
+    """Tail-anchored params, forecast and health fallback; the forecast is
+    one ``arima_predict`` launch on the card."""
+    params = _tail_params(y_tail, mask_tail, day_tail, coef, mean, config)
     day_all = day_grid(day_tail, horizon)
     t_end = day_tail[-1].to(torch.float32)
     yhat, lo, hi = arima.forecast(params, day_all, t_end, config)
@@ -282,12 +316,12 @@ def windowed_fit_forecast(
     y, mask, day = batch.y, batch.mask, batch.day
 
     yw, mw = _gather_windows(y, mask, starts, W)
-    stats = arima.window_stats(yw, mw, config)
+    stats = _window_fit(model, config, yw, mw)
     comb = combine_estimates(model, stats, len(starts))
 
     t0 = starts[-1]
     params, yhat, lo, hi, ok, day_all = _finalize(
-        config, y[:, t0:t0 + W], mask[:, t0:t0 + W], day[t0:t0 + W],
+        model, config, y[:, t0:t0 + W], mask[:, t0:t0 + W], day[t0:t0 + W],
         comb["coef"], comb["mean"], horizon, min_points)
     return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
                                   day_all=day_all)
@@ -315,8 +349,9 @@ class WindowedSeriesStateStore(SeriesStateStore):
 
     ``device``: where the store lives, the card unless the caller passes
     ``device="cpu"``; the forecaster's parameters must already be there.
-    Not here yet, as in the base store: the ``refit.swap`` and
-    ``windowed.refit`` spans (ROADMAP Queue 1: P11).
+    A refit's statistics and tail params run at the ``windowed_fit`` and
+    ``windowed_refit`` entries under their spans; the ``refit.swap`` span
+    is the scorer's, ROADMAP Queue 1's P11 (second half).
     """
 
     def __init__(self, forecaster, history_y, history_mask,
@@ -483,9 +518,9 @@ class WindowedSeriesStateStore(SeriesStateStore):
             day_tail = torch.arange(
                 self.day0 + tail_start, self.day0 + tail_start + W,
                 dtype=torch.int32, device=dev)
-            params = _tail_params(self.config, to_device(ys, dev),
-                                  to_device(ms, dev), day_tail, comb["coef"],
-                                  comb["mean"])
+            params = self._refit_params(to_device(ys, dev),
+                                        to_device(ms, dev), day_tail,
+                                        comb["coef"], comb["mean"])
             return {**prepared, "params": params,
                     "fresh": {s: fresh[s] for s in prepared["missing"]}}
 
@@ -500,7 +535,18 @@ class WindowedSeriesStateStore(SeriesStateStore):
     def _window_stats_one(self, ys, ms):
         """One window's statistics at the (S, W) shape (a method, so that
         a test can count the calls)."""
-        return arima.window_stats(ys, ms, self.config)
+        return _window_fit(self.model, self.config, ys, ms)
+
+    def _refit_params(self, ys, ms, day_tail, coef, mean):
+        """The tail-anchored params at the AOT entry
+        ``windowed_refit:<model>``."""
+        entry = f"windowed_refit:{self.model}"
+        with get_tracer().span("windowed.refit", model=self.model,
+                               series=int(ys.shape[0])):
+            with device_annotation(entry):
+                return aot_call(entry, _tail_params,
+                                args=(ys, ms, day_tail, coef, mean),
+                                static_kwargs={"config": self.config})
 
     def _install_tail_refit(self, state) -> None:
         """Freeze-and-swap, under ``_apply_gate`` (the caller holds it)."""

@@ -33,6 +33,20 @@ from distributed_forecasting_tpu_torch.monitoring.store import (
     TimeSeriesStore,
     flatten_registry_snapshot,
 )
+from distributed_forecasting_tpu_torch.monitoring.trace import (
+    FlightRecorder,
+    ProfilerSession,
+    SpanRecord,
+    TraceConfig,
+    TraceContext,
+    Tracer,
+    configure_tracing,
+    device_annotation,
+    dump_flight_recorder,
+    get_tracer,
+    to_chrome_trace,
+    write_chrome_trace,
+)
 
 __all__ = ["MonitorConfig", "MonitorRegistry", "degradation_report",
            "detect_anomalies", "drift_report", "run_monitor",
@@ -43,4 +57,8 @@ __all__ = ["MonitorConfig", "MonitorRegistry", "degradation_report",
            "build_quality_runtime",
            "SLOConfig", "SLOEvaluator", "SLORule", "latest_run_timestamp",
            "QualityStoreConfig", "ScrapeLoop", "TimeSeriesStore",
-           "flatten_registry_snapshot"]
+           "flatten_registry_snapshot",
+           "FlightRecorder", "ProfilerSession", "SpanRecord", "TraceConfig",
+           "TraceContext", "Tracer", "configure_tracing",
+           "device_annotation", "dump_flight_recorder", "get_tracer",
+           "to_chrome_trace", "write_chrome_trace"]

@@ -31,9 +31,9 @@ Prometheus primitives (:class:`Counter`, :class:`Gauge`,
 :class:`LabeledCounter`, :class:`Histogram`, :class:`LabeledGauge`) and
 :class:`MetricsRegistry`, whose text exposition is byte-equal to the
 reference's for the same calls.  The scorer's ``GET /metrics`` renders them,
-and :class:`IngestMetrics` (the ``dftpu_ingest_*`` set of the streaming
-ingest path).  The training-pipeline metric set stays with the executor
-(ROADMAP Queue 1: P11).
+:class:`PipelineMetrics` (the training executor's occupancy set,
+``engine/executor.py``) and :class:`IngestMetrics` (the ``dftpu_ingest_*``
+set of the streaming ingest path).
 """
 
 from __future__ import annotations
@@ -893,6 +893,78 @@ class MetricsRegistry:
 # the reference's pipeline stage buckets (monitoring/monitor._STAGE_BUCKETS),
 # which its ingest histograms share
 _INGEST_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0)
+
+
+# ---------------------------------------------------------------------------
+# training-pipeline metrics (engine/executor.py)
+# ---------------------------------------------------------------------------
+
+#: stage latencies span ~1 ms closures in tests to multi-second artifact
+#: serialization in production — log-spaced like the serving buckets
+_STAGE_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0)
+
+
+class PipelineMetrics:
+    """Occupancy instrumentation for the pipelined training executor.
+
+    One registry per process, appended to the serving ``GET /metrics``
+    exposition next to the compile-cache registry.  All attribute writes
+    happen in ``__init__``; the metric objects are themselves thread-safe,
+    so the executor's writer thread and caller thread can observe freely.
+    """
+
+    def __init__(self) -> None:
+        self.registry = MetricsRegistry()
+        self.experiments_total = self.registry.counter(
+            "pipeline_experiments_total",
+            "experiments submitted to the training executor")
+        self.errors_total = self.registry.counter(
+            "pipeline_errors_total",
+            "experiments whose completion stage raised")
+        self.in_flight = self.registry.gauge(
+            "pipeline_in_flight",
+            "experiments dispatched but not yet completed")
+        self.device_idle_fraction = self.registry.gauge(
+            "pipeline_device_idle_fraction",
+            "fraction of the dispatch window the device sat idle "
+            "(lower bound; see docs/pipeline.md)")
+        self.stage_seconds = {
+            stage: self.registry.histogram(
+                f"pipeline_stage_{stage}_seconds", _STAGE_BUCKETS,
+                f"wall seconds spent in pipeline stage '{stage}' per "
+                f"experiment")
+            for stage in ("prep", "dispatch", "pull", "complete")
+        }
+
+    def inc_experiments(self) -> None:
+        self.experiments_total.inc()
+
+    def inc_errors(self) -> None:
+        self.errors_total.inc()
+
+    def set_in_flight(self, value: float) -> None:
+        self.in_flight.set(float(value))
+
+    def set_device_idle_fraction(self, value: float) -> None:
+        self.device_idle_fraction.set(float(value))
+
+    def observe_stage(self, stage: str, seconds: float) -> None:
+        hist = self.stage_seconds.get(stage)
+        if hist is not None:
+            hist.observe(seconds)
+
+
+_pipeline_metrics_lock = threading.Lock()
+_pipeline_metrics: Optional[PipelineMetrics] = None
+
+
+def pipeline_metrics() -> PipelineMetrics:
+    """Process-wide :class:`PipelineMetrics` singleton (lazy)."""
+    global _pipeline_metrics
+    with _pipeline_metrics_lock:
+        if _pipeline_metrics is None:
+            _pipeline_metrics = PipelineMetrics()
+        return _pipeline_metrics
 
 
 class IngestMetrics:

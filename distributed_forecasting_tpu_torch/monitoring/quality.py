@@ -27,8 +27,9 @@ family's rolling metrics and its worst series as store rows, outside the
 accumulator lock; :func:`build_quality_runtime` wires the monitor, the store,
 the scrape loop and the SLO evaluator (``monitoring/slo.py``) into one
 :class:`QualityRuntime`.  The cost block (``monitoring.cost``) is parsed
-strictly and logged as having no effect (ROADMAP Queue 1: P11), so the
-scrape loop has no cost source.
+strictly and logged as having no effect: the scorer's cost charges and the
+store's ``dftpu_cost_*`` rows are ROADMAP Queue 1's P11 (second half), so
+the scrape loop has no cost source.
 """
 
 from __future__ import annotations
@@ -539,11 +540,11 @@ def build_quality_runtime(
 
 def check_unported_monitoring(conf: Optional[dict], logger=None) -> None:
     """Parse the ``monitoring.cost`` block strictly and log it: it changes
-    no result, and the runtime behind it (the reference's
-    ``monitoring/cost.py``) is not ported (ROADMAP Queue 1: P11)."""
+    no result, and the scorer's use of ``monitoring/cost.py`` (its charges,
+    ``/debug/cost``, the store rows) is not ported (ROADMAP Queue 1: P11)."""
     conf = conf or {}
     CostConfig.from_conf(conf.get("cost"))
     if conf.get("cost") is not None and logger is not None:
-        logger.info("monitoring.cost: accepted; monitoring/cost.py is not "
-                    "ported, so the block has no effect in the port yet "
-                    "(ROADMAP Queue 1: P11)")
+        logger.info("monitoring.cost: accepted; the scorer's cost charges "
+                    "are not ported, so the block has no effect in the port "
+                    "yet (ROADMAP Queue 1: P11)")

@@ -8,13 +8,23 @@ stream as PyTorch's current CUDA stream.  In a checkout of the repo the
 library goes to ``build/torch_kernels/`` at the checkout's root; an
 installed copy of the package builds into PyTorch's own extensions
 directory (``TORCH_EXTENSIONS_DIR``, or its default under the user's
-cache).  Nothing here runs at import: the first launch builds.
+cache).  Where a ``compile_cache`` store is configured
+(``engine/compile_cache.configure_compile_cache``) the library loads
+through it instead: a warm store loads the stored library without
+``nvcc``; a cold one builds into a private temporary directory and stores
+the result under a key that covers every source, the flags, the toolchain
+and the card (:func:`library_backend`).  Nothing here runs at import: the
+first launch builds or loads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
+import subprocess
+import tempfile
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,20 +46,28 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17"]
 
 
-def build(name: str, sources) -> str:
+def build(name: str, sources, build_directory=None) -> str:
     """Compile ``sources`` (file names under ``csrc/``) into the shared
-    library ``name`` and return its path."""
+    library ``name`` in ``build_directory`` (default :data:`BUILD_DIR`) and
+    return its path."""
     from torch.utils.cpp_extension import load
 
-    if BUILD_DIR is not None:
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    build_directory = build_directory or BUILD_DIR
+    if build_directory is not None:
+        os.makedirs(build_directory, exist_ok=True)
+    global builds
+    builds += 1
     return load(
         name=name,
         sources=[os.path.join(CSRC, s) for s in sources],
         extra_cuda_cflags=CUDA_FLAGS,
-        build_directory=BUILD_DIR,
+        build_directory=build_directory,
         is_python_module=False,
     )
+
+
+# build() calls in this process (a warm store makes none)
+builds = 0
 
 
 # every kernel source, built into one library by one build call (ninja runs
@@ -65,8 +83,8 @@ _LIBRARY_LOCK = threading.Lock()
 
 
 def library() -> ctypes.CDLL:
-    """The port's kernel library (every source in ``SOURCES``), built on
-    first call; thread-safe."""
+    """The port's kernel library (every source in ``SOURCES``), built or
+    loaded from the configured store on first call; thread-safe."""
     global _LIBRARY
     if _LIBRARY is None:
         with _LIBRARY_LOCK:
@@ -75,8 +93,87 @@ def library() -> ctypes.CDLL:
     return _LIBRARY
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library (it is
+    process-wide: a store configured later cannot serve this process)."""
+    return _LIBRARY is not None
+
+
+def source_digests() -> dict:
+    """sha256 of every source in :data:`SOURCES`, by file name."""
+    out = {}
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def nvcc_version() -> str:
+    """``nvcc --version`` of the toolkit ``torch.utils.cpp_extension``
+    builds with; "none" where it finds none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if nvcc is None or not os.path.exists(nvcc):
+        return "none"
+    return subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
+def device_identity() -> dict:
+    """The card the library is built for: its name and compute
+    capability."""
+    import torch
+
+    return {"device": torch.cuda.get_device_name(0),
+            "capability": list(torch.cuda.get_device_capability(0))}
+
+
+def library_backend() -> dict:
+    """Everything the built library depends on: the sources' digests, the
+    flags, ``nvcc --version``, torch's version and its CUDA version, and
+    the card (the store key's backend part)."""
+    import torch
+
+    return {"sources": source_digests(), "flags": list(CUDA_FLAGS),
+            "nvcc": nvcc_version(), "torch": torch.__version__,
+            "torch_cuda": torch.version.cuda, **device_identity()}
+
+
+def _open() -> ctypes.CDLL:
+    """The library: through the configured store (memo, disk, or a build
+    that is then stored), else built into :data:`BUILD_DIR`."""
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        fingerprint,
+        get_config,
+        get_store,
+    )
+    from distributed_forecasting_tpu_torch.ops.precision import (
+        fingerprint_extra,
+    )
+
+    store = get_store()
+    if store is None:
+        return ctypes.CDLL(build("dftt_kernels", SOURCES))
+    backend = library_backend()
+    key = fingerprint("kernel_library", backend=backend,
+                      extra=fingerprint_extra())
+    tmp = tempfile.mkdtemp(prefix="dftt-build-")
+    try:
+        return store.get_or_compile(
+            key, "kernel_library",
+            lambda: build(f"dftt_kernels_{key[:16]}", SOURCES, tmp),
+            min_compile_time_s=get_config().min_compile_time_s,
+            meta={"sources": backend["sources"]})
+    finally:
+        # a loaded library outlives its file
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build("dftt_kernels", SOURCES))
+    """The library with every launcher's argument and result types
+    declared."""
+    lib = _open()
     lib.hw_score_launch.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )

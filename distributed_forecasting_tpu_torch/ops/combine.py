@@ -80,7 +80,21 @@ def wls_combine(stats: dict, n_windows: int) -> dict:
 
 
 def combine_estimates(model: str, stats: dict, n_windows: int) -> dict:
-    """One batched WLS combine.  ``model`` names the family, as in the
-    reference, whose AOT key ``windowed_combine:<model>`` and
-    ``windowed.combine`` span are not here yet (ROADMAP Queue 1: P11)."""
-    return wls_combine(stats, int(n_windows))
+    """One batched WLS combine at the reference's AOT entry
+    ``windowed_combine:<model>`` (``engine/compile_cache.aot_call``), under
+    the ``windowed.combine`` span."""
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        aot_call,
+    )
+    from distributed_forecasting_tpu_torch.monitoring.trace import (
+        device_annotation,
+        get_tracer,
+    )
+
+    entry = f"windowed_combine:{model}"
+    with get_tracer().span("windowed.combine", model=model,
+                           rows=int(stats["coef"].shape[0]),
+                           n_windows=int(n_windows)):
+        with device_annotation(entry):
+            return aot_call(entry, wls_combine, args=(stats,),
+                            static_kwargs={"n_windows": int(n_windows)})

@@ -99,6 +99,15 @@ def hw_filter_work(S: int, T: int, m: int) -> tuple:
     return ops, nbytes
 
 
+def _record_work(entry: str, key: str, work) -> None:
+    """Publish ``work()`` — a kernel's (operations, bytes) count — as the
+    cost registry's program costs of (``entry``, shape ``key``), once per
+    key (``monitoring/cost.CostMetrics.record_work``)."""
+    from distributed_forecasting_tpu_torch.monitoring.cost import cost_metrics
+
+    cost_metrics().record_work(entry, key, work)
+
+
 def _check(kernel: str, dev, expected: dict) -> None:
     """Raise unless every tensor is float32 on ``dev``, contiguous, of its
     shape."""
@@ -199,10 +208,14 @@ def hw_score(y, mask, alpha, beta, gamma, phi, m: int):
     tensors run the plain twin :func:`hw_score_reference`.  The kernel's
     scores agree with the twin's within rtol 1e-5 / atol 1e-6.
     """
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hw_score runs on cuda or cpu, got {y.device}")
+    S, T = y.shape
+    C = alpha.shape[0]
+    _record_work("hw_score", f"{S}x{T}:C{C}:m{m}",
+                 lambda: hw_score_work(mask, C, m))
     if y.device.type == "cpu":
         return hw_score_reference(y, mask, alpha, beta, gamma, phi, m)
-    if y.device.type != "cuda":
-        raise ValueError(f"hw_score runs on cuda or cpu, got {y.device}")
     from distributed_forecasting_tpu_torch.models.holt_winters import _init_state
 
     # the staging copies read whole aligned 16-byte segments
@@ -274,10 +287,13 @@ def hw_filter(y, mask, alpha, beta, gamma, phi, m: int, mode: str):
         _init_state,
     )
 
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hw_filter runs on cuda or cpu, got {y.device}")
+    S, T = y.shape
+    _record_work("hw_filter", f"{S}x{T}:m{m}:{mode}",
+                 lambda: hw_filter_work(S, T, m))
     if y.device.type == "cpu":
         return _filter(y, mask, alpha, beta, gamma, m, mode, phi)
-    if y.device.type != "cuda":
-        raise ValueError(f"hw_filter runs on cuda or cpu, got {y.device}")
     l0, b0, s0 = _init_state(y, mask, m, mode)
     return _hw_filter_cuda(y, mask, alpha, beta, gamma, phi, l0.contiguous(),
                            b0.contiguous(), s0.contiguous(), mode)

@@ -31,6 +31,7 @@ from distributed_forecasting_tpu_torch.ops.fused_scan import (
     _check,
     _ptr,
     _raise_on,
+    _record_work,
     _stream,
 )
 from distributed_forecasting_tpu_torch.ops.optim import (
@@ -178,11 +179,14 @@ def arima_filter(zc, zmask, y, mask, phi, theta, mean, r: int,
     (``csrc/arima_kalman.cu``, bitwise equal to the twin) or raise; CPU
     tensors run the twin :func:`arima_filter_reference`.
     """
+    if zc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"arima_filter runs on cuda or cpu, got {zc.device}")
+    S, T = zc.shape
+    _record_work("arima_filter", f"{S}x{T}:r{r}:d{d}",
+                 lambda: arima_filter_work(S, T, r, d))
     if zc.device.type == "cpu":
         return arima_filter_reference(zc, zmask, y, mask, phi, theta, mean,
                                       r, d)
-    if zc.device.type != "cuda":
-        raise ValueError(f"arima_filter runs on cuda or cpu, got {zc.device}")
     launch, out = _arima_filter_launcher(zc, zmask, y, mask, phi, theta,
                                          mean, r, d)
     launch()
@@ -233,10 +237,13 @@ def arima_predict(phi, theta, a0, P0, sigma2, r: int, H: int):
     Returns ``(zf, vf)``, (S, H) each: the predicted first state component
     and its variance times sigma2 (S,).  CUDA tensors launch the kernel or
     raise; CPU tensors run the twin :func:`arima_predict_reference`."""
+    if a0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"arima_predict runs on cuda or cpu, got {a0.device}")
+    S = a0.shape[0]
+    _record_work("arima_predict", f"{S}x{H}:r{r}",
+                 lambda: arima_predict_work(S, H, r))
     if a0.device.type == "cpu":
         return arima_predict_reference(phi, theta, a0, P0, sigma2, r, H)
-    if a0.device.type != "cuda":
-        raise ValueError(f"arima_predict runs on cuda or cpu, got {a0.device}")
     launch, out = _arima_predict_launcher(phi, theta, a0, P0, sigma2, r, H)
     launch()
     return out
@@ -318,12 +325,15 @@ def arima_loglik_grad(zc, zmask, phi, theta, r: int) -> LoglikGrad:
     (``csrc/arima_mle.cu``, bitwise equal to the twin) or raise; CPU tensors
     run the twin :func:`arima_loglik_grad_reference`.
     """
-    _coefficients(phi, theta, r)
-    if zc.device.type == "cpu":
-        return arima_loglik_grad_reference(zc, zmask, phi, theta, r)
-    if zc.device.type != "cuda":
+    p, q = _coefficients(phi, theta, r)
+    if zc.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"arima_loglik_grad runs on cuda or cpu, got {zc.device}")
+    S, T = zc.shape
+    _record_work("arima_loglik_grad", f"{S}x{T}:r{r}:k{p + q}",
+                 lambda: arima_loglik_grad_work(S, T, r, p + q))
+    if zc.device.type == "cpu":
+        return arima_loglik_grad_reference(zc, zmask, phi, theta, r)
     launch, out = _arima_loglik_grad_launcher(zc, zmask, phi, theta, r)
     launch()
     return out
@@ -420,11 +430,14 @@ def arima_mle_fit(zc, zmask, p: int, q: int, r: int, steps: int,
     raise; CPU tensors run the twin :func:`mle_fit_reference`.
     """
     _check_fit(p, q, r, steps)
+    if zc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"arima_mle_fit runs on cuda or cpu, got {zc.device}")
+    S, T = zc.shape
+    _record_work("arima_mle_fit", f"{S}x{T}:r{r}:p{p}:q{q}:steps{steps}",
+                 lambda: mle_fit_work(S, T, r, p, q, steps))
     if zc.device.type == "cpu":
         return mle_fit_reference(zc, zmask, p, q, r, steps, learning_rate,
                                  prior_scale)
-    if zc.device.type != "cuda":
-        raise ValueError(f"arima_mle_fit runs on cuda or cpu, got {zc.device}")
     launch, u = _mle_fit_launcher(zc, zmask, p, q, r, steps, learning_rate,
                                   prior_scale)
     launch()

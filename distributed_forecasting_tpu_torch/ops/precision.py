@@ -22,8 +22,10 @@ conf block (``tasks/common.Task``, before any fit) or by
     precision:
       bf16_scoring: true
 
-:func:`fingerprint_extra` is the reference's key extra for its AOT store
-(ROADMAP Queue 1: P11); nothing in the port calls it yet.
+:func:`fingerprint_extra` is the reference's key extra for its AOT store;
+in the port it folds into the kernel library's store key
+(``ops/_build._open``, ``engine/compile_cache.fingerprint``) where the
+policy is not the default.
 """
 
 from __future__ import annotations

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from distributed_forecasting_tpu_torch.ops.fused_scan import _record_work
 from distributed_forecasting_tpu_torch.ops.metrics import masked_median
 
 _CHOL_FLOOR = 1e-12  # pivot floor: keeps a PSD-but-singular system finite
@@ -66,6 +67,9 @@ def masked_gram(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     intermediate.  X: (T, F) shared design; w: (S, T) weights.  Returns
     (S, F, F): one GEMM with the symmetric Kronecker half, then unpacked."""
     F = X.shape[-1]
+    S, T = w.shape[0], X.shape[0]
+    _record_work("masked_gram", f"{S}x{T}:F{F}",
+                 lambda: gram_work(S, T, F))
     iu, ju, pos = _sym_index(F, X.device)
     kr = X[:, iu] * X[:, ju]                       # (T, F(F+1)/2)
     packed = w @ kr                                # (S, F(F+1)/2)
@@ -170,6 +174,10 @@ def batched_cho_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     column Cholesky on the CPU; on the card ``cholesky_ex`` and two
     triangular solves, with no host sync and failed rows NaN.
     A: (S, F, F), b: (S, F) -> (S, F)."""
+    F = A.shape[-1]
+    S = A.numel() // max(F * F, 1)
+    _record_work("batched_cho_solve", f"{S}:F{F}",
+                 lambda: cho_solve_work(S, F))
     if A.device.type == "cpu":
         return _solve_cholesky_floored(A, b)
     L, info = torch.linalg.cholesky_ex(A)

@@ -29,13 +29,18 @@ join the regressors, and the run logs the ``prep_*`` metrics and the
 ``prep_report`` / ``prep_repairs`` tables.  The pooled and allocated paths
 get the cleaning stages inside ``fit_forecast``.
 
-The fine-grained path runs in three stages, as the reference's serial
-path does: ``prep`` (read, tensorize, prep, resolve the config), ``dispatch``
-(the CV pass and the fit, launched on the card) and ``complete`` (every
-host pull, then the tracking and table writes).  The reference's
-executor, which overlaps the stages of several experiments, is not ported
-(ROADMAP Queue 1: P11); its contract makes the pipelined path
-byte-identical to this one.
+The fine-grained path (plain, tuned and pooled) runs in three stages:
+``prep`` (read, tensorize, prep, resolve the config), ``dispatch`` (the CV
+pass and the fit, launched on the card) and ``complete`` (every host pull,
+then the tracking and table writes), through the training executor
+(``engine/executor.py``) under the process-wide ``pipeline:`` config: with
+``async_tracking`` on, ``complete`` runs on the executor's writer thread
+after the dispatch's event, and :meth:`TrainingPipeline.run_many` overlaps
+one experiment's completion with the next one's prep and dispatch.  The
+plain path logs the executor's ``pipeline_prep_seconds`` /
+``pipeline_dispatch_seconds`` / ``pipeline_pull_seconds`` beside its
+``phase_*`` metrics; every table, artifact and other tracking row is
+byte-identical to the serial path (``async_tracking: false``).
 
 Options the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item that ports them; none is ignored.
@@ -68,6 +73,7 @@ from distributed_forecasting_tpu_torch.engine.autoprep import (
 )
 from distributed_forecasting_tpu_torch.engine.blend import fit_forecast_blend
 from distributed_forecasting_tpu_torch.engine.cv import CVConfig, cross_validate
+from distributed_forecasting_tpu_torch.engine.executor import TrainingExecutor
 from distributed_forecasting_tpu_torch.engine.fit import (
     DEFAULT_MIN_POINTS,
     ForecastResult,
@@ -282,16 +288,62 @@ class TrainingPipeline:
         self.device = resolve_device(device)
         self.logger = get_logger("TrainingPipeline")
 
+    # -------------------------------------------------------------- pipeline
+    def _run_stages(self, name: str, stages, executor):
+        """Route one experiment's ``(prep, dispatch, complete)`` stages.
+
+        With a caller-owned executor (:meth:`run_many`), submit and return
+        the :class:`~distributed_forecasting_tpu_torch.engine.executor.
+        ExperimentHandle` — the caller flushes and collects.  Standalone,
+        run through a local executor under the process-wide ``pipeline:``
+        config and block for the result, so the call stays synchronous."""
+        prep, dispatch, complete = stages
+        if executor is not None:
+            return executor.submit(name, prep, dispatch, complete)
+        ex = TrainingExecutor()
+        with ex:
+            handle = ex.submit(name, prep, dispatch, complete)
+        return handle.result()
+
+    def run_many(self, specs, pipeline=None) -> Dict[str, Any]:
+        """Pipeline several independent experiments through one executor.
+
+        ``specs``: keyword dicts for :meth:`fine_grained`.  While experiment
+        *i*'s completion (host pulls, artifacts, tracker writes, table save)
+        drains on the writer thread, experiment *i+1* is already reading,
+        tensorizing and dispatching.  Completions keep submission order, so
+        tracker and catalog writes are ordered as in a serial loop.
+        ``pipeline``: a :class:`PipelineConfig` (default the process-wide
+        one).
+
+        Returns ``{"results": [...], "pipeline": stage_metrics}`` with the
+        results in submission order.  The first completion failure is
+        re-raised after the pipeline drains (the other experiments still
+        complete; their handles carry their own outcomes)."""
+        ex = TrainingExecutor(config=pipeline)
+        with ex:
+            handles = [self.fine_grained(**spec, _executor=ex)
+                       for spec in specs]
+        return {
+            "results": [h.result() for h in handles],
+            "pipeline": ex.stage_metrics(),
+        }
+
     # ------------------------------------------------------------------ fine
     def fine_grained(self, source_table: str, output_table: str,
-                     **options) -> Dict[str, Any]:
-        """Run the fine-grained path: ``prep``, ``dispatch`` and ``complete``
-        in order (:meth:`fine_grained_stages` takes the same arguments).
-        Returns the run summary: ids, table version, series counts,
-        ``fit_seconds`` and the logged metrics."""
-        prep, dispatch, complete = self.fine_grained_stages(
-            source_table, output_table, **options)
-        return complete(dispatch(prep()))
+                     _executor=None, **options) -> Dict[str, Any]:
+        """Run the fine-grained path's ``prep``, ``dispatch`` and
+        ``complete`` (:meth:`fine_grained_stages` takes the same arguments)
+        through the training executor.  Returns the run summary: ids, table
+        version, series counts, ``fit_seconds`` and the logged metrics.
+        ``_executor``: :meth:`run_many`'s executor; the experiment is then
+        submitted to it and its handle returned (option errors still raise
+        here)."""
+        stages = self.fine_grained_stages(source_table, output_table,
+                                          **options)
+        return self._run_stages(
+            options.get("experiment", "finegrain_forecasting"), stages,
+            _executor)
 
     def fine_grained_stages(
         self,
@@ -567,6 +619,13 @@ class TrainingPipeline:
                        "series_per_second":
                            batch.n_series / max(fit_seconds, 1e-9)}
                 agg.update(timer.metrics())
+                ps = state.get("pipeline_stage_seconds")
+                if ps:
+                    # the executor's stage timings beside the phase_*
+                    # summary (timings sit outside the byte-identity
+                    # contract)
+                    agg.update({f"pipeline_{k}_seconds": round(float(v), 4)
+                                for k, v in ps.items()})
                 series_table = batch.key_frame()
                 series_table["fit_ok"] = ok
                 if cv_host is not None:

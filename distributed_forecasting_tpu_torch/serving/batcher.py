@@ -32,10 +32,10 @@ for bad requests; nothing falls back to another device.
 
 Telemetry uses the Prometheus primitives of ``monitoring/monitor.py`` and is
 rendered by the server's ``GET /metrics``: request, dispatch, rejection and
-timeout counters, a queue-depth gauge, latency and batch-size histograms.
-The reference's spans and thread-sanitizer hooks are not here (ROADMAP
-Queue 1: P11, P12), nor are the compile-cache, training-pipeline and cost
-registries it appends to ``/metrics`` (P11).
+timeout counters, a queue-depth gauge, latency and batch-size histograms,
+followed by the compile-cache, training-pipeline and cost registries, as
+the reference appends them.  The reference's spans and thread-sanitizer
+hooks are not here (ROADMAP Queue 1: P11, P12).
 """
 
 from __future__ import annotations
@@ -109,7 +109,23 @@ class ServingMetrics:
             "requests coalesced into each dispatch")
 
     def render(self) -> str:
-        return self.registry.render_prometheus()
+        # the compile-cache, training-pipeline and cost registries ride
+        # along, as in the reference: store hits and misses, executor
+        # occupancy and the dftpu_cost_* families on one endpoint
+        from distributed_forecasting_tpu_torch.engine.compile_cache import (
+            metrics_registry,
+        )
+        from distributed_forecasting_tpu_torch.monitoring.cost import (
+            cost_metrics,
+        )
+        from distributed_forecasting_tpu_torch.monitoring.monitor import (
+            pipeline_metrics,
+        )
+
+        return (self.registry.render_prometheus()
+                + metrics_registry().render_prometheus()
+                + pipeline_metrics().registry.render_prometheus()
+                + cost_metrics().registry.render_prometheus())
 
     def snapshot(self) -> dict:
         return self.registry.snapshot()

@@ -32,9 +32,13 @@ the reference parses it (an unknown key or a bad value raises
     (``ops/precision.configure_precision``) before any fit:
     ``bf16_scoring: true`` scores the HW grid in bf16 on the scan and pscan
     routes;
-  * ``compile_cache:`` and ``pipeline:`` change no result (a compile cache,
-    and an executor byte-identical to the serial path); they are logged as
-    having no effect in the port yet (ROADMAP Queue 1: P11);
+  * ``compile_cache:`` installs the kernel library's store
+    (``engine/compile_cache.configure_compile_cache``; a store configured
+    after the library loaded in this process is logged and counted, and
+    serves the next process);
+  * ``pipeline:`` installs the process-wide executor config
+    (``engine/executor.configure_pipeline``) the training pipeline runs its
+    stages under;
   * ``engine.windowed`` installs the process-wide windowed config
     (``engine/windowed.configure_windowed``): armed, an arima fit whose
     history reaches its threshold runs over windows;
@@ -52,8 +56,12 @@ from distributed_forecasting_tpu_torch.data.catalog import DatasetCatalog
 from distributed_forecasting_tpu_torch.engine.autoprep import configure_autoprep
 from distributed_forecasting_tpu_torch.engine.compile_cache import (
     CompileCacheConfig,
+    configure_compile_cache,
 )
-from distributed_forecasting_tpu_torch.engine.executor import PipelineConfig
+from distributed_forecasting_tpu_torch.engine.executor import (
+    PipelineConfig,
+    configure_pipeline,
+)
 from distributed_forecasting_tpu_torch.engine.gradfit import configure_gradfit
 from distributed_forecasting_tpu_torch.engine.hyper import configure_automl
 from distributed_forecasting_tpu_torch.engine.windowed import (
@@ -70,6 +78,9 @@ from distributed_forecasting_tpu_torch.utils.device import (
     resolve_device,
 )
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
+from distributed_forecasting_tpu_torch.utils.platform import (
+    apply_platform_override,
+)
 
 _DEFAULT_ROOT = "./dftpu_store"
 
@@ -83,24 +94,21 @@ _ENGINE_INSTALLERS = {
 
 
 def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
-    """Parse every top-level block strictly; install ``precision`` and the
-    ``engine`` blocks, refuse ``distributed``, and log the result-neutral
-    ones."""
+    """Parse every top-level block strictly; install ``compile_cache``,
+    ``pipeline``, ``precision`` and the ``engine`` blocks, and refuse
+    ``distributed``."""
     if conf.get("distributed"):
         raise NotImplementedError(
             "distributed: multi-process bring-up (parallel/*) is not ported "
             "yet (ROADMAP Queue 1: P12)")
-    for block, parse, what in (
-            ("compile_cache",
-             lambda c: CompileCacheConfig.from_conf(c, default_root=root),
-             "the compile cache (engine/compile_cache.py)"),
-            ("pipeline", PipelineConfig.from_conf,
-             "the pipelined executor (engine/executor.py)")):
-        if conf.get(block) is not None:
-            parse(conf[block])
-            logger.info("%s: accepted; %s is not ported, so the block has no "
-                        "effect in the port yet (ROADMAP Queue 1: P11)",
-                        block, what)
+    # installed before the task body, so its first kernel launch loads the
+    # library through the store
+    if conf.get("compile_cache") is not None:
+        configure_compile_cache(
+            CompileCacheConfig.from_conf(conf["compile_cache"],
+                                         default_root=root))
+    if conf.get("pipeline") is not None:
+        configure_pipeline(PipelineConfig.from_conf(conf["pipeline"]))
     # installed before any fit in launch(), as the reference does
     if conf.get("precision") is not None:
         configure_precision(PrecisionConfig.from_conf(conf["precision"]))
@@ -126,6 +134,9 @@ class Task(ABC):
         device=None,
     ):
         self.logger = get_logger(self.__class__.__name__)
+        plat = apply_platform_override()
+        if plat:
+            self.logger.info("platform override: %s (DFTPU_PLATFORM)", plat)
         self.device = resolve_device(platform_device(device))
         if init_conf is not None:
             self.conf = init_conf

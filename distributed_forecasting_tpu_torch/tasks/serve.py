@@ -36,9 +36,12 @@ Conf::
 ``serving.ingest.enabled: true``.  Every block is parsed strictly, as the
 reference parses it, before any artifact loads.  What the port does not
 have yet: ``serving.cache.enabled`` (ROADMAP Queue 1: P12) and
-``tracing.debug_endpoints: true`` (P11) raise ``NotImplementedError``.  ``tracing.enabled``, ``compile_cache:`` and
-``monitoring.cost`` change no result and are logged as having no effect
-(P11).  The ``fleet:`` and
+``tracing.debug_endpoints: true`` (P11) raise ``NotImplementedError``.
+``tracing.enabled`` and ``monitoring.cost`` change no result and are
+logged as having no effect (P11: the scorer's spans and charges).
+``compile_cache:`` is armed by the Task base: the first kernel launch
+loads the kernel library through its store, and the cache's counts are
+logged after the warmup.  The ``fleet:`` and
 ``sharding:`` blocks belong to the fleet task (P12), as in the reference,
 whose serve task does not read them.
 """
@@ -50,6 +53,7 @@ import time
 
 import numpy as np
 
+from distributed_forecasting_tpu_torch.engine.compile_cache import cache_stats
 from distributed_forecasting_tpu_torch.monitoring.quality import (
     build_quality_runtime,
     check_unported_monitoring,
@@ -81,7 +85,7 @@ _TRACING_KEYS = frozenset({"enabled", "ring_size", "jsonl_path", "dump_dir",
 def check_tracing(conf, logger) -> None:
     """The ``serving.tracing`` block: strict keys, as the reference's
     ``TraceConfig.from_conf``; the debug endpoints are refused and the rest
-    has no effect until tracing is ported."""
+    has no effect until the scorer's spans are ported."""
     conf = conf or {}
     unknown = set(conf) - _TRACING_KEYS
     if unknown:
@@ -91,9 +95,9 @@ def check_tracing(conf, logger) -> None:
     if conf.get("debug_endpoints"):
         raise NotImplementedError(
             "tracing.debug_endpoints: true (/debug/trace, /debug/profile; "
-            "monitoring/trace.py) is not ported yet (ROADMAP Queue 1: P11)")
+            "serving/server.py) is not ported yet (ROADMAP Queue 1: P11)")
     if conf.get("enabled"):
-        logger.info("tracing.enabled: accepted; monitoring/trace.py is not "
+        logger.info("tracing.enabled: accepted; the scorer's spans are not "
                     "ported, so the block has no effect in the port yet "
                     "(ROADMAP Queue 1: P11)")
 
@@ -162,6 +166,10 @@ class ServeTask(Task):
             )
             self.logger.info("warmed %d request-size bucket(s) in %.1fs", n,
                              time.perf_counter() - t0)
+            stats = cache_stats()
+            self.logger.info(
+                "compile cache after warmup: %d hit(s), %d miss(es)",
+                stats["hits"], stats["misses"])
         self.logger.info(
             "serving %s v%s (%d series) on %s, %s:%s (micro-batching %s)",
             name, version.version, forecaster.n_series, self.device,

@@ -31,24 +31,10 @@ PENDING_PACKAGES = {"analysis": "P13", "parallel": "P12"}
 # names of a reference __all__ the port does not export yet, by package and
 # label (ROADMAP Queue 1)
 PENDING = {
-    "engine": {
-        "P11": ["AOTStore", "aot_call", "cache_stats",
-                "configure_compile_cache", "configure_pipeline",
-                "pipeline_config", "prefetch_to_device", "sanctioned_pull"],
-    },
-    "monitoring": {
-        "P11": ["FlightRecorder", "ProfilerSession", "SpanRecord",
-                "TraceConfig", "TraceContext", "Tracer", "configure_tracing",
-                "device_annotation", "dump_flight_recorder", "get_tracer",
-                "to_chrome_trace", "write_chrome_trace"],
-    },
     "serving": {
         "P12": ["ConnectionPool", "FleetConfig", "FleetSupervisor",
                 "ForecastCache", "FrontDoorServer", "aggregate_prometheus",
                 "build_forecast_cache", "start_fleet"],
-    },
-    "utils": {
-        "P11": ["apply_platform_override"],
     },
 }
 

@@ -90,6 +90,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.engine.order\n"
         "import distributed_forecasting_tpu_torch.utils.rng\n"
         "import distributed_forecasting_tpu_torch.monitoring.cost\n"
+        "import distributed_forecasting_tpu_torch.monitoring.trace\n"
+        "import distributed_forecasting_tpu_torch.utils.platform\n"
         "import distributed_forecasting_tpu_torch.ops.clean\n"
         "import distributed_forecasting_tpu_torch.serving.forecast_cache\n"
         "import distributed_forecasting_tpu_torch.serving.ingest\n"
