@@ -69,7 +69,13 @@ its own size:
   * the training runtime: the shipped train conf through the pipelined
     executor, ``run_many`` of four families, the kernel library's
     ``compile_cache`` store in fresh processes, the cost registry and the
-    tracer.
+    tracer;
+  * the scorer's runtime: the serve task with ``tracing.debug_endpoints``
+    over Holt-Winters (streaming ingest on) and arima artifacts — span
+    trees from ``http.request`` to ``aot.call``, ``/debug/trace``,
+    ``/debug/profile`` during a refit (``hw_score``, ``hw_filter``) and
+    arima traffic (``arima_predict``), the flight-recorder dump of a 503,
+    ``/debug/cost`` and the ``dftpu_cost_*`` store rows.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -139,15 +145,14 @@ is not 0:
               sync).  A
               20-series cross_validate(calibrate=True) on the card equals
               the CPU's: ranks equal, scales within their scores' change
-  8. blend    real-data-e2e three times in one env.root (the monitor scans
-              drift from the second run on; then the monitor task rerun on
-              the CPU over the same stored table must write equal tables,
-              and its four scans are timed), then forecasting-blend twice in
-              one env.root (the second promote decides by its rule against
-              the first run's champion) and once more, each workflow
-              three times in all for the per-task medians, with the launch
-              counters set to 0
-              as each train task starts: both kernels must launch in every
+  8. blend    real-data-e2e WORKFLOW_RUNS (2) times in one env.root (the
+              monitor scans drift from the second run on; then the monitor
+              task rerun on the CPU over the same stored table must write
+              equal tables, and its four scans are timed), then
+              forecasting-blend twice in one env.root (the second promote
+              decides by its rule against the first run's champion), each
+              workflow WORKFLOW_RUNS times in all for the per-task medians,
+              with the launch counters set to 0 as each train task starts: both kernels must launch in every
               one (3 each).  The first train task of each workflow records
               its hw_score and hw_filter calls (forecasting-blend's at
               100 x 1,096 and the CV pass's 200 rows, the detected m = 7),
@@ -163,12 +168,13 @@ is not 0:
               forecasting-blend's ``season_length: auto``) is 7; a
               20-series ``fit_forecast_blend(calibrate=True)`` on the card
               agrees with the CPU (see ``pool_vs_cpu``).  Times: per task
-              and ``fit_seconds`` (medians of 3 runs), the train task's
+              and ``fit_seconds`` (medians of WORKFLOW_RUNS runs), the
+              train task's
               dispatch stage (CUDA events, median of 5; idle share; the
               host syncs PyTorch reports), the croston recurrence at the
               fit and CV shapes beside its bounds, and season detection
-  9. complete allocated-baseline and hierarchical-m5, each three times in
-              one env.root, the launch counters set to 0 before each run
+  9. complete allocated-baseline and hierarchical-m5, each WORKFLOW_RUNS
+              times in one env.root, the launch counters set to 0 before each run
               (neither launches a hand kernel).  Checks: every task OK on the
               card; the allocated table's columns and rows are the
               reference's, each item's store shares sum to 1 and each
@@ -180,7 +186,8 @@ is not 0:
               the card agrees with the CPU (winners equal where the SSEs are
               apart); a 20-series blend over [holt_winters, theta, croston]
               agrees with the CPU (see ``pool_check``) and launches both
-              kernels.  Times: per task (medians of 3), the SES loop and the
+              kernels.  Times: per task (medians of WORKFLOW_RUNS), the SES
+              loop and the
               theta fit at the fit and CV shapes (launches, idle share, host
               syncs, bounds), and the MinT solve at n = 500
 
@@ -417,6 +424,37 @@ is not 0:
               ``ProfilerSession`` capture where a ``device_annotation``
               encloses an hw_score launch, the train task's wall with the
               tracer on and off
+ 19. scorer runtime (``slice20_phase``) on the committed dataset:
+              Holt-Winters (its history sidecar, ``serving.ingest`` on) and
+              arima fit on the card, the launch counters set to 0 just
+              before the fits and read after (e), each served in this
+              process from conf/tasks/serve_config.yml with batching, the
+              anomaly scorer and ``serving.tracing`` (debug endpoints,
+              profile, dump and JSONL directories) on.  (a) /invocations,
+              /observe, /detect_anomalies and /ingest on the Holt-Winters
+              scorer and /invocations on the arima one, each with a client
+              X-Trace-Id: ``/debug/trace`` holds its tree under that id
+              (``http.request`` root with status 200, ``batcher.*``,
+              ``serving.predict``, ``aot.call``, ``quality.observe``,
+              ``anomaly.score``, ``ingest.append``, ``state.update``), on two
+              threads or more where the coalescer runs, the dispatch a child
+              of the root.  (b) In a fresh child process serving both
+              artifacts again, ``/debug/profile?seconds=2`` while a forced
+              refit and arima traffic run (a second capture answers 409):
+              hw_score and hw_filter inside the refit's
+              ``pipeline_dispatch:refit:forced`` annotation, arima_predict
+              inside ``serving_predict:arima``; ``refit.swap`` in the ring.
+              (c) A request held past ``request_timeout_s`` answers 503
+              and leaves a ``flight-*-http-503.trace.json`` dump.  (d) The
+              seconds charged to ``serving_predict:arima`` over 20 predicts
+              at 1, 5, 100 and 500 series against CUDA events at the same
+              instants (0.8-1.2x) and around the whole call, the pad rows
+              charged equal to the sum of (bucket - k), ``/debug/cost``'s
+              ``serving_predict*`` rows, the ``dftpu_cost_*`` store rows
+              after one scrape.  (e) /invocations p50 / p95 at 1 and 500
+              series (horizon 7) with tracing on and off, 100 each, in
+              turns of 10;
+              one ``device_annotation`` and one span timed alone
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -431,8 +469,9 @@ launches and error include phase 11's bucketed calls, phase 12's
 arima_predict launches through HTTP, /invocations and /detect_anomalies,
 phase 13's train task, phases 14-15's main paths and tasks, phase 16's
 fit and forced refit, phase 17's fits, tail refits, train task and
-artifact predict, and phase 18's train tasks and ``run_many``; the arima
-rows add phase 17's kernel times at the window's shapes);
+artifact predict, phase 18's train tasks and ``run_many``, and phase
+19's fits, forced refit and predicts; the arima rows add phase 17's kernel
+times at the window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -463,8 +502,9 @@ RTOL, ATOL = 1e-5, 1e-6
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 REPS = 5
 # runs of each workflow of phases 8-9 for the per-task medians, and samples
-# of each monitor scan (host work: each run costs seconds)
-WORKFLOW_RUNS = 3
+# of each monitor scan (host work: each run costs seconds); 2 keeps the
+# drift scan (it runs from a store's second run on)
+WORKFLOW_RUNS = 2
 # the committed dataset: 500 (store, item) series x 1,826 days
 SHAPE = (500, 1826)
 # rolling-origin CV: 3 cutoffs at T = 1,826 (engine.CVConfig's fields)
@@ -2079,11 +2119,11 @@ def monitor_rerun(port, root: str, spec: dict, card_line: str) -> dict:
 
 
 def pooled_phase(port, counters, card_line: str) -> dict:
-    """Phase 8: real-data-e2e (three runs in one env root, the monitor's
-    drift scan from the second on, then its monitor rerun on the CPU),
-    then forecasting-blend twice in one env root (the second promote
-    against the first's champion) and three more times, for the per-task
-    medians; the first train task of each workflow's kernel calls against
+    """Phase 8: real-data-e2e (WORKFLOW_RUNS runs in one env root, the
+    monitor's drift scan from the second on, then its monitor rerun on the
+    CPU), then forecasting-blend twice in one env root (the second promote
+    against the first's champion) and up to WORKFLOW_RUNS runs, for the
+    per-task medians; the first train task of each workflow's kernel calls against
     their twins; checks, times, and the 20-series card-vs-CPU blend."""
     out = {"launches": {k: 0 for k in counters},
            "cases": {k: {} for k in counters}}
@@ -2432,7 +2472,7 @@ def complete_timings(port, batch, nodes, mint_call, card_line: str) -> dict:
 
 def complete_phase(port, counters, card_line: str) -> dict:
     """Phase 9: allocated-baseline and hierarchical-m5 at their own sizes,
-    each three times in one env root, the launch counters set to 0 before
+    each WORKFLOW_RUNS times in one env root, the launch counters set to 0 before
     each run (neither launches a hand kernel: the curve model and theta);
     checks, per-task medians, the SES loop's and the MinT solve's times, a
     20-node theta card-vs-CPU run, and a 20-series blend over
@@ -3985,12 +4025,15 @@ def scorer_auto(port, fc_auto) -> dict:
             "launches": launched, "byte_equal": sorted(bodies)}
 
 
+ROWWISE_REPS = 3  # samples of each rowwise_cost timing
+
+
 def rowwise_cost(port, fc) -> dict:
     """What bit-identical blocks across request buckets cost on the card:
     the curve model's row-wise design product against the one GEMM it
     replaces, and the in-order row scan against ``torch.cumsum``, at the
-    serving and training row counts (CUDA events, median of 5 samples of
-    20 back-to-back calls)."""
+    serving and training row counts (CUDA events, median of ROWWISE_REPS
+    samples of 20 back-to-back calls)."""
     pg = port["pg"]
     from distributed_forecasting_tpu_torch.models.base import (
         cumsum_rows,
@@ -4026,10 +4069,13 @@ def rowwise_cost(port, fc) -> dict:
         v = torch.rand(S, X.shape[0], device="cuda", generator=g)
         out[str(S)] = {
             "design_product_ms": cuda_ms(lambda: design_product(beta, X),
-                                         inner=20),
-            "gemm_ms": cuda_ms(lambda: beta @ X.T, inner=20),
-            "cumsum_rows_ms": cuda_ms(lambda: cumsum_rows(v), inner=20),
-            "torch_cumsum_ms": cuda_ms(lambda: torch.cumsum(v, 1), inner=20)}
+                                         reps=ROWWISE_REPS, inner=20),
+            "gemm_ms": cuda_ms(lambda: beta @ X.T, reps=ROWWISE_REPS,
+                               inner=20),
+            "cumsum_rows_ms": cuda_ms(lambda: cumsum_rows(v),
+                                      reps=ROWWISE_REPS, inner=20),
+            "torch_cumsum_ms": cuda_ms(lambda: torch.cumsum(v, 1),
+                                       reps=ROWWISE_REPS, inner=20)}
     return out
 
 
@@ -5037,7 +5083,7 @@ def prep_phase(port, counters, card_line: str) -> dict:
 # -- phase 14: arnet on the batched trainer, Monte-Carlo bands, tuning ------
 
 SLICE13_HORIZON = 90
-ARNET_REPS = 2           # timed fits of each arnet trainer
+ARNET_REPS = 1           # timed fits of each arnet trainer
 ARNET_VS_CPU = 20        # series held card against CPU on one schedule
 ARNET_W_ATOL = 2e-4      # weights after 840 Adam steps (tests: 750 steps)
 ARNET_PATH_RTOL = 2e-5   # fitted paths, of each row's scale
@@ -6015,8 +6061,9 @@ STREAM_BIG = (40, 512)    # 20,480 series, as phase 11 builds them
 STREAM_LATENCY = 100      # sequential 500-series /invocations, each leg
 STREAM_APPLY_REPS = 5
 # runs of each workflow of phases 8-9 for the per-task medians, and samples
-# of each monitor scan (host work: each run costs seconds)
-WORKFLOW_RUNS = 3
+# of each monitor scan (host work: each run costs seconds); 2 keeps the
+# drift scan (it runs from a store's second run on)
+WORKFLOW_RUNS = 2
 # no refit fires by itself during the run (the phase forces one), and the
 # 30-day burst (15,000 points) fits in one request
 STREAM_CONF = {"serving.ingest.enabled": True,
@@ -6055,14 +6102,15 @@ def store_points(first_day: int, vals: np.ndarray) -> list:
             for j in range(vals.shape[1]) for s in range(vals.shape[0])]
 
 
-def stream_artifacts(port, root: str, batch) -> dict:
-    """Fit each streamed family on the committed dataset (Holt-Winters on
-    its 96-candidate grid: hw_score, then hw_filter), save the artifact
-    with its ``history.npz`` sidecar (the training y / mask, as whoever
+def stream_artifacts(port, root: str, batch,
+                     families: tuple = STREAM_FAMILIES) -> dict:
+    """Fit each family on the committed dataset (Holt-Winters on its
+    96-candidate grid: hw_score, then hw_filter), save the artifact with
+    its ``history.npz`` sidecar (the training y / mask, as whoever
     registers a streamed model writes it) and register it in Staging."""
     registry = port["tracking"].ModelRegistry(os.path.join(root, "registry"))
     out = {}
-    for model in STREAM_FAMILIES:
+    for model in families:
         fns = port["models"].get_model(model)
         cfg = fns.config_cls()
         t0 = time.perf_counter()
@@ -7692,6 +7740,574 @@ def slice19_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 19: the scorer's runtime -------------------------------------------
+
+RT_FAMILIES = ("holt_winters", "arima")
+RT_HORIZON = 28
+RT_CHECKED = 17            # series of the traced requests
+RT_DAYS = 14               # days of actuals the traced /observe and
+                           # /detect_anomalies send for each of them
+RT_TIMEOUT_S = 2.0         # the arima scorer's request_timeout_s, for (c)
+RT_PROFILE_S = 2.0         # the /debug/profile window of (b)
+RT_COST_SIZES = (1, 5, 100, 500)  # request sizes of (d): pads 0, 1, 28, 0
+RT_COST_REPS = 20          # direct predicts of each size in (d)
+RT_LAT_REQUESTS = 100      # (e): /invocations per size and tracing mode
+RT_LAT_HORIZON = 7         # (e)'s horizon: the 500-series body's encoding
+                           # (host JSON) stays a few tens of ms
+RT_LAT_BLOCK = 10          # requests in a row before the mode flips
+RT_ANNOTATION_CALLS = 20_000
+RT_DEVICE_SECONDS = (0.8, 1.2)  # charged over CUDA-event seconds, (d)
+
+
+def rt_serve_conf(port, root: str, model: str, name: str, tmp: str) -> tuple:
+    """The shipped serve conf for one artifact of (a)-(e): Holt-Winters with
+    ``serving.ingest`` on (:func:`stream_serve_conf`), arima without (no
+    streaming update) and with ``request_timeout_s`` RT_TIMEOUT_S; both
+    with batching, the anomaly scorer, and ``serving.tracing`` with
+    ``debug_endpoints``, ``profile_dir``, ``dump_dir`` and ``jsonl_path``
+    under ``tmp``; each its own store and stream directories."""
+    if model == "holt_winters":
+        conf, changed = stream_serve_conf(port, root, model, name)
+    else:
+        conf = port["config"].load_conf(SERVE_CONF)
+        conf["env"] = {"root": root}
+        conf["serving"].update(model_name=name, host="127.0.0.1", port=0)
+        changed = {"env.root": root, "serving.model_name": name,
+                   "serving.host": "127.0.0.1", "serving.port": 0,
+                   "serving.batching.request_timeout_s": RT_TIMEOUT_S,
+                   "monitoring.quality_store.directory":
+                       os.path.join(root, f"quality_{model}")}
+    changed.update({
+        "serving.batching.enabled": True,
+        "serving.anomaly.enabled": True,
+        "serving.anomaly.stream_store_dir":
+            os.path.join(root, f"anomaly_{model}"),
+        "serving.tracing.debug_endpoints": True,
+        "serving.tracing.profile_dir": os.path.join(tmp, "profile"),
+        "serving.tracing.dump_dir": os.path.join(tmp, "dumps"),
+        "serving.tracing.jsonl_path": os.path.join(tmp, "trace.jsonl")})
+    for key, value in changed.items():
+        *path, last = key.split(".")
+        node = conf
+        for k in path:
+            node = node[k]
+        if key.startswith(("serving.", "monitoring.")):
+            assert last in node, key  # only keys the shipped conf has
+        node[last] = value
+    return conf, changed
+
+
+def rt_spans(number: int) -> list:
+    """``GET /debug/trace`` -> its complete events."""
+    status, body, _ = http_call(number, "GET", "/debug/trace")
+    assert status == 200, body[:300]
+    return [e for e in json.loads(body)["traceEvents"] if e.get("ph") == "X"]
+
+
+def rt_route(number: int, path: str, payload, trace_id: str, want: set,
+             threads: int) -> dict:
+    """One traced request: 200, its X-Trace-Id echoed; under that id the
+    ``want`` kinds on at least ``threads`` threads, one ``http.request``
+    root with ``status`` 200 and every other span's parent in the tree."""
+    status, body, head = http_call(number, "POST", path, payload,
+                                   headers={"X-Trace-Id": trace_id})
+    assert status == 200, body[:300]
+    assert head.get("X-Trace-Id") == trace_id, head
+    time.sleep(0.2)  # the root span closes after the response is written
+    mine = [e for e in rt_spans(number)
+            if e["args"].get("trace_id") == trace_id]
+    kinds = {e["name"] for e in mine}
+    assert want <= kinds, (path, sorted(kinds))
+    roots = [e for e in mine if e["name"] == "http.request"]
+    assert len(roots) == 1 and roots[0]["args"]["parent_id"] is None
+    assert roots[0]["args"]["status"] == 200
+    ids = {e["args"]["span_id"] for e in mine}
+    assert all(e["args"]["parent_id"] in ids for e in mine
+               if e is not roots[0]), path
+    tids = {e["tid"] for e in mine}
+    assert len(tids) >= threads, (path, tids)
+    out = {"kinds": sorted(kinds), "spans": len(mine), "threads": len(tids)}
+    if "batcher.dispatch" in kinds:
+        dispatch = next(e for e in mine if e["name"] == "batcher.dispatch")
+        out["dispatch_parent_is_root"] = (dispatch["args"]["parent_id"]
+                                          == roots[0]["args"]["span_id"])
+        out["dispatch_device_seconds"] = dispatch["args"]["device_seconds"]
+    return out
+
+
+def rt_actuals(fc, batch, n_series: int, days: int) -> list:
+    """The last ``days`` training days of ``n_series`` series as
+    ``{<keys>, ds, y}`` rows (observed cells only)."""
+    idx = np.linspace(0, fc.n_series - 1, n_series).astype(int)
+    y = batch.y[idx, -days:].cpu().numpy()
+    m = batch.mask[idx, -days:].cpu().numpy()
+    dates = pd.Timestamp("1970-01-01") + pd.to_timedelta(
+        batch.day[-days:].cpu().numpy().astype(np.int64), unit="D")
+    return [{**dict(zip(fc.key_names, map(int, fc.keys[s]))),
+             "ds": str(dates[j].date()), "y": float(y[i, j])}
+            for i, s in enumerate(idx) for j in range(days) if m[i, j] > 0]
+
+
+def rt_trees(servers: dict, batch) -> dict:
+    """(a) The correlated span trees of /invocations, /observe,
+    /detect_anomalies and /ingest on the Holt-Winters scorer and
+    /invocations on the arima one.  /observe predicts on its handler
+    thread (the reference's QualityMonitor), so one thread is its tree's
+    whole; the routes through the coalescer hold two or more."""
+    hw_srv, ar_srv = servers["holt_winters"], servers["arima"]
+    hw, ar = hw_srv.server_address[1], ar_srv.server_address[1]
+    fc = hw_srv.forecaster
+    idx = np.linspace(0, fc.n_series - 1, RT_CHECKED).astype(int)
+    inputs = _inputs(fc.keys[idx], fc.key_names)
+    actuals = rt_actuals(fc, batch, RT_CHECKED, RT_DAYS)
+    day = int(fc.day1) + 1
+    served = {"invocations": (hw, "/invocations",
+                              {"inputs": inputs, "horizon": RT_HORIZON},
+                              {"batcher.queue_wait", "batcher.dispatch",
+                               "serving.predict", "aot.call"}, 2),
+              "observe": (hw, "/observe", {"observations": actuals},
+                          {"quality.observe", "serving.predict", "aot.call"},
+                          1),
+              "detect_anomalies": (hw, "/detect_anomalies",
+                                   {"points": actuals},
+                                   {"anomaly.score", "batcher.queue_wait",
+                                    "batcher.dispatch", "serving.predict",
+                                    "aot.call"}, 2),
+              "ingest": (hw, "/ingest",
+                         {"points": day_points(
+                             fc, day, np.full((fc.n_series, 1), 7.0,
+                                              np.float32))},
+                         {"ingest.append", "anomaly.score",
+                          "batcher.dispatch", "serving.predict",
+                          "state.update", "aot.call"}, 2),
+              "arima_invocations": (ar, "/invocations",
+                                    {"inputs": inputs,
+                                     "horizon": RT_HORIZON},
+                                    {"batcher.queue_wait",
+                                     "batcher.dispatch", "serving.predict",
+                                     "aot.call"}, 2)}
+    out = {}
+    for i, (route, (number, path, payload, want, threads)) in enumerate(
+            served.items()):
+        out[route] = rt_route(number, path, payload, f"smoke20route{i}",
+                              {"http.request", *want}, threads)
+    for route in ("invocations", "arima_invocations"):
+        assert out[route]["dispatch_parent_is_root"], out[route]
+    return out
+
+
+def rt_profile(servers: dict) -> dict:
+    """(b) ``GET /debug/profile?seconds=RT_PROFILE_S`` on one thread; a
+    second capture meanwhile (409); a forced Holt-Winters refit and arima
+    /invocations traffic inside the window.  The capture's Chrome trace
+    must hold hw_score and hw_filter inside the refit's
+    ``pipeline_dispatch:refit:forced`` annotation and arima_predict inside
+    ``serving_predict:arima`` (host or device timeline, as phase 18's
+    capture).  Kineto may drop a window's records late in a process
+    (PERF.md section 7): a capture missing one is taken again, up to
+    TRACE_ATTEMPTS times."""
+    hw_srv, ar_srv = servers["holt_winters"], servers["arima"]
+    hw, ar = hw_srv.server_address[1], ar_srv.server_address[1]
+    fc = ar_srv.forecaster
+    payload = {"inputs": _inputs(fc.keys[:8], fc.key_names),
+               "horizon": RT_HORIZON}
+    want = {"hw_score": ("pipeline_dispatch:refit:forced", "hw_score_kernel"),
+            "hw_filter": ("pipeline_dispatch:refit:forced",
+                          "hw_filter_kernel"),
+            "arima_predict": ("serving_predict:arima",
+                              "arima_predict_kernel")}
+    refit = hw_srv.ingest.refit
+    tries = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        got, stop = {}, threading.Event()
+        t_try = time.perf_counter()
+
+        def capture():
+            got["capture"] = http_call(
+                hw, "GET", f"/debug/profile?seconds={RT_PROFILE_S}")
+
+        def traffic():
+            # paced, so the capture's host events stay few to export
+            n = 0
+            while not stop.wait(0.02):
+                assert http_call(ar, "POST", "/invocations", payload)[0] == 200
+                n += 1
+            got["arima_requests"] = n
+
+        th = threading.Thread(target=capture)
+        th.start()
+        time.sleep(0.5)  # the capture is running
+        busy = http_call(ar, "GET", "/debug/profile?seconds=1")
+        assert busy[0] == 409, busy[:2]
+        tr = threading.Thread(target=traffic)
+        tr.start()
+        t0 = time.perf_counter()
+        assert refit.maybe_refit(force=True) == "forced"
+        done = refit.wait(timeout=120)
+        refit_s = time.perf_counter() - t0
+        th.join(120)
+        stop.set()
+        tr.join(120)
+        assert not th.is_alive() and not tr.is_alive()
+        status, body, _ = got["capture"]
+        assert status == 200, body[:300]
+        path = os.path.join(json.loads(body)["capture_dir"], "trace.json")
+        found = {k: _annotation_encloses_kernel(path, name, kernel)
+                 for k, (name, kernel) in want.items()}
+        ok = all(f["device_timeline"] or f["host_timeline"]
+                 for f in found.values())
+        tries.append({"seconds": time.perf_counter() - t_try,
+                      "kernels": {k: f["kernels"] for k, f in found.items()},
+                      "enclosed": {k: f["device_timeline"]
+                                   or f["host_timeline"]
+                                   for k, f in found.items()}})
+        if ok:
+            break
+    assert ok, (found, tries)
+    return {"attempt": attempt, "tries": tries, "kernels": found,
+            "refit_day_snap":
+            done["day_snap"], "refit_wall_s": refit_s,
+            "arima_requests_in_window": got["arima_requests"],
+            "second_capture_status": busy[0]}
+
+
+# (b) runs in a fresh process: late in the smoke's long process the
+# capture kept the default stream's kernels and lost every record of the
+# refit's own stream, three attempts running, while a fresh process keeps
+# both (PERF.md, section 7); a process's first capture records no device
+# activity at all, so the child takes a throwaway one first
+RT_PROFILE_CHILD = r"""
+import json, sys
+import chip_smoke as cs
+port = cs.load_port()
+port["build"].library()
+servers = {}
+try:
+    for model, path in json.loads(sys.argv[1]).items():
+        with open(path) as f:
+            conf = json.load(f)
+        kw = port["serve_task"].ServeTask(init_conf=conf,
+                                         device=sys.argv[2]).server_args()
+        servers[model] = port["server"].start_server(**kw)
+    tracer = port["trace"].get_tracer()
+    tracer.profiler.capture(0.5)
+    out = cs.rt_profile(servers)
+    out["ring_kinds"] = sorted({s.name for s in tracer.recorder.snapshot()})
+    out["launches"] = cs.hand_launches()
+finally:
+    for srv in servers.values():
+        srv.shutdown()
+print(json.dumps(out))
+"""
+
+
+def rt_profile_child(confs: dict, root: str, tmp: str) -> dict:
+    """(b) in a child process (RT_PROFILE_CHILD): both scorers started
+    again from ``confs`` with their own WAL, store, stream and trace
+    directories, then :func:`rt_profile`; its report, the child's span
+    kinds (``refit.swap`` among them) and launch counts."""
+    import copy
+
+    paths = {}
+    for model, conf in confs.items():
+        conf = copy.deepcopy(conf)
+        conf["serving"]["ingest"]["wal_dir"] = os.path.join(
+            root, f"wal_{model}_child")
+        conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+            root, f"quality_{model}_child")
+        conf["serving"]["anomaly"]["stream_store_dir"] = os.path.join(
+            root, f"anomaly_{model}_child")
+        conf["serving"]["tracing"].update(
+            jsonl_path=None, profile_dir=os.path.join(tmp, "profile_child"),
+            dump_dir=os.path.join(tmp, "dumps_child"))
+        paths[model] = os.path.join(root, f"serve_{model}_child.json")
+        with open(paths[model], "w") as f:
+            json.dump(conf, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, "-c", RT_PROFILE_CHILD,
+                           json.dumps(paths), DEVICE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the profile child failed: {proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "refit.swap" in out["ring_kinds"], out["ring_kinds"]
+    return out
+
+
+def rt_dump(servers: dict, tmp: str) -> dict:
+    """(c) An arima /invocations held past RT_TIMEOUT_S (its predict waits
+    on the forecaster's state lock, held here) answers 503 with
+    Retry-After, and the handler leaves a ``flight-*-http-503`` dump with
+    events once the response is written."""
+    import re
+
+    srv = servers["arima"]
+    fc = srv.forecaster
+    dumps = os.path.join(tmp, "dumps")
+    before = set(os.listdir(dumps)) if os.path.isdir(dumps) else set()
+    payload = {"inputs": _inputs(fc.keys[:1], fc.key_names), "horizon": 7}
+    t0 = time.perf_counter()
+    with fc._state_lock:
+        status, body, head = http_call(srv.server_address[1], "POST",
+                                       "/invocations", payload)
+    waited = time.perf_counter() - t0
+    assert status == 503 and head.get("Retry-After") == "1", (status, body)
+    deadline = time.time() + 10
+    new = []
+    while time.time() < deadline and not new:
+        new = [f for f in (set(os.listdir(dumps)) - before
+                           if os.path.isdir(dumps) else ())
+               if re.fullmatch(r"flight-\d{8}T\d{6}-\d+-http-503\.trace\.json",
+                               f)]
+        time.sleep(0.05)
+    assert len(new) == 1, new
+    with open(os.path.join(dumps, new[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert events
+    return {"status": status, "waited_s": waited, "dump": new[0],
+            "events": len(events)}
+
+
+def rt_cost(port, servers: dict, card_line: str) -> dict:
+    """(d) RT_COST_REPS direct predicts of the arima forecaster at each of
+    RT_COST_SIZES (and 5 quantile predicts): the seconds the registry
+    charged ``serving_predict:arima`` against CUDA events recorded at the
+    same two host instants (the predictor's two clock reads: dispatch, and
+    after the pulls), so every device interval the charge covers ends
+    before its second event, within RT_DEVICE_SECONDS; the events around
+    each whole predict call beside them; the pad rows charged equal to the
+    sum of (bucket - k).  ``/debug/cost`` then has a row for every
+    ``serving_predict*`` entry, and one scrape tick writes the
+    ``dftpu_cost_*`` rows into the quality store."""
+    from distributed_forecasting_tpu_torch.serving import predictor as pred
+
+    cost = port["cost"]
+    cm = cost.cost_metrics()
+    srv = servers["arima"]
+    fc = srv.forecaster
+    entry = "serving_predict:arima"
+    label = f"entry={entry},family=arima"
+    pad_label = f"entry={entry},kind=pad"
+    clock = pred.trace_clock
+    out = {"sizes": {}}
+    for k in RT_COST_SIZES:
+        req = pd.DataFrame(fc.keys[:k], columns=list(fc.key_names))
+        fc.predict(req, horizon=RT_HORIZON)  # warm
+        torch.cuda.synchronize()
+        s0 = cm.device_seconds_total.snapshot().get(label, 0.0)
+        n0 = cm.dispatches_total.snapshot().get(label, 0.0)
+        p0 = cm.padding_rows_total.snapshot().get(pad_label, 0.0)
+        marks, whole = [], []
+
+        def evented():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            return clock()
+
+        pred.trace_clock = evented
+        try:
+            for _ in range(RT_COST_REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fc.predict(req, horizon=RT_HORIZON)
+                stop.record()
+                whole.append((start, stop))
+        finally:
+            pred.trace_clock = clock
+        torch.cuda.synchronize()
+        assert len(marks) == 2 * RT_COST_REPS, len(marks)
+        charged = cm.device_seconds_total.snapshot()[label] - s0
+        n = cm.dispatches_total.snapshot()[label] - n0
+        pads = cm.padding_rows_total.snapshot().get(pad_label, 0.0) - p0
+        assert n == RT_COST_REPS, n
+        bucket = fc._bucket(k)
+        assert pads == RT_COST_REPS * (bucket - k), (k, pads)
+        event_s = sum(marks[2 * i].elapsed_time(marks[2 * i + 1])
+                      for i in range(RT_COST_REPS)) / 1e3
+        whole_s = sum(a.elapsed_time(b) for a, b in whole) / 1e3
+        ratio = charged / event_s
+        lo, hi = RT_DEVICE_SECONDS
+        assert lo <= ratio <= hi, (k, charged, event_s)
+        out["sizes"][str(k)] = {
+            "bucket": bucket, "pad_rows": pads,
+            "charged_ms_per_predict": charged / n * 1e3,
+            "events_ms_per_predict": event_s / n * 1e3,
+            "whole_predict_events_ms": whole_s / n * 1e3,
+            "charged_over_events": ratio,
+            "charged_over_whole_predict": charged / whole_s}
+    for _ in range(5):
+        fc.predict_quantiles(pd.DataFrame(fc.keys[:5],
+                                          columns=list(fc.key_names)),
+                             quantiles=(0.1, 0.9), horizon=RT_HORIZON)
+    status, body, _ = http_call(srv.server_address[1], "GET", "/debug/cost")
+    assert status == 200, body[:300]
+    rows = {r["entry"]: r for r in json.loads(body)["entries"]}
+    entries = sorted(e for e in rows if e.startswith("serving_predict"))
+    want = {f"serving_predict:{m}" for m in RT_FAMILIES} | {
+        "serving_predict_quantiles:arima"}
+    assert want <= set(entries), entries
+    assert all(rows[e]["dispatches"] > 0 and rows[e]["device_seconds"] > 0
+               for e in entries), [rows[e] for e in entries]
+    out["debug_cost"] = {e: {"dispatches": rows[e]["dispatches"],
+                             "device_seconds": rows[e]["device_seconds"]}
+                         for e in entries}
+    quality = servers["holt_winters"].quality
+    at = time.time()
+    quality.scrape.scrape_once(now=at)
+    stored = [p for p in quality.store.query(since=at)
+              if p["name"].startswith("dftpu_cost_")]
+    names = {p["name"] for p in stored}
+    assert {"dftpu_cost_device_seconds_total", "dftpu_cost_dispatches_total",
+            "dftpu_cost_padding_rows_total",
+            "dftpu_cost_watermark_device_bytes"} <= names, sorted(names)
+    device_bytes = next(p["value"] for p in stored
+                        if p["name"] == "dftpu_cost_watermark_device_bytes")
+    assert device_bytes > 0
+    out["store_rows"] = {"rows": len(stored), "names": sorted(names),
+                         "device_bytes": device_bytes}
+    emit("scorer_runtime_cost", card=card_line, **out)
+    return out
+
+
+def rt_latency(port, servers: dict, on_conf, card_line: str) -> dict:
+    """(e) /invocations on the arima scorer at 1 and 500 series, horizon
+    RT_LAT_HORIZON, RT_LAT_REQUESTS each with the shipped tracing block
+    (``on_conf``) and with ``tracing.enabled: false``, flipped every
+    RT_LAT_BLOCK requests over one keep-alive connection: p50 / p95.
+    Beside them, what the predict path pays on every call either way: one
+    ``device_annotation`` (``torch.profiler.record_function``, no profiler
+    running) and one span, each timed over RT_ANNOTATION_CALLS calls."""
+    import http.client
+
+    trace = port["trace"]
+    srv = servers["arima"]
+    number, fc = srv.server_address[1], srv.forecaster
+    out = {}
+    try:
+        for n in (1, fc.n_series):
+            payload = {"inputs": _inputs(fc.keys[:n], fc.key_names),
+                       "horizon": RT_LAT_HORIZON}
+            ms = {"on": [], "off": []}
+            conn = http.client.HTTPConnection("127.0.0.1", number,
+                                              timeout=300)
+            try:
+                http_call(number, "POST", "/invocations", payload, conn=conn)
+                for block in range(2 * RT_LAT_REQUESTS // RT_LAT_BLOCK):
+                    mode = ("on", "off")[block % 2]
+                    trace.configure_tracing(
+                        on_conf if mode == "on"
+                        else trace.TraceConfig(enabled=False))
+                    for _ in range(RT_LAT_BLOCK):
+                        t0 = time.perf_counter()
+                        status = http_call(number, "POST", "/invocations",
+                                           payload, conn=conn)[0]
+                        ms[mode].append((time.perf_counter() - t0) * 1e3)
+                        assert status == 200, status
+            finally:
+                conn.close()
+            out[str(n)] = {m: _pcts(v) for m, v in ms.items()}
+            out[str(n)]["p50_on_minus_off_ms"] = (
+                out[str(n)]["on"]["p50_ms"] - out[str(n)]["off"]["p50_ms"])
+        tracer = trace.configure_tracing(on_conf)
+        off = trace.Tracer(trace.TraceConfig(enabled=False))
+        per_call = {}
+        for what, make in (
+                ("device_annotation_us",
+                 lambda: trace.device_annotation("serving_predict:arima")),
+                ("span_on_us", lambda: tracer.span("serving.predict", k=1)),
+                ("span_off_us", lambda: off.span("serving.predict", k=1))):
+            t0 = time.perf_counter()
+            for _ in range(RT_ANNOTATION_CALLS):
+                with make():
+                    pass
+            per_call[what] = (time.perf_counter() - t0) / \
+                RT_ANNOTATION_CALLS * 1e6
+        out["per_call"] = per_call
+    finally:
+        trace.configure_tracing(trace.TraceConfig())
+    emit("scorer_runtime_latency", card=card_line, horizon=RT_LAT_HORIZON,
+         **out)
+    return out
+
+
+def slice20_phase(port, card_line: str) -> dict:
+    """Phase 19: the scorer's runtime.  Holt-Winters (with its history
+    sidecar, ``serving.ingest`` on) and arima fit on the committed
+    dataset and served in this process from the shipped serve conf with
+    the debug endpoints, a profile, dump and JSONL directory, batching and
+    the anomaly scorer on (:func:`rt_serve_conf`), the launch counters set
+    to 0 before the fits and read after (e).  (a) correlated span trees,
+    (b) a profiler capture of a refit and arima traffic, (c) the 503 dump,
+    (d) the cost charges against CUDA events, /debug/cost and the store
+    rows, (e) /invocations with tracing on and off."""
+    t_phase = time.perf_counter()
+    trace = port["trace"]
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                   device=DEVICE)
+    assert (batch.n_series, batch.n_time) == SHAPE
+    root = tempfile.mkdtemp(prefix="scorer_rt_")
+    tmp = os.path.join(root, "trace")
+    servers, confs, out, seconds = {}, {}, {}, {}
+    try:
+        for k in KERNELS:  # counters to 0 just before the path
+            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
+            getattr(launchers, k).launches = 0
+        arts = stream_artifacts(port, root, batch, families=RT_FAMILIES)
+        for model in RT_FAMILIES:
+            conf, changed = rt_serve_conf(port, root, model,
+                                          arts[model]["name"], tmp)
+            confs[model] = conf
+            kw = port["serve_task"].ServeTask(
+                init_conf=conf, device=DEVICE).server_args()
+            assert (kw["ingest"] is not None) == (model == "holt_winters")
+            servers[model] = port["server"].start_server(**kw)
+        tracer = trace.get_tracer()
+        on_conf = trace.TraceConfig.from_conf(
+            port["config"].load_conf(SERVE_CONF)["serving"]["tracing"])
+        assert tracer.config.debug_endpoints and tracer.config.enabled
+        for name, run in (
+                ("trees", lambda: rt_trees(servers, batch)),
+                ("profile", lambda: rt_profile_child(confs, root, tmp)),
+                ("dump", lambda: rt_dump(servers, tmp)),
+                ("cost", lambda: rt_cost(port, servers, card_line)),
+                ("latency", lambda: rt_latency(port, servers, on_conf,
+                                               card_line))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            seconds[name] = time.perf_counter() - t0
+        # this process's launches and the profile child's (its refit)
+        child = out["profile"].pop("launches")
+        out["launches"] = {k: n + child[k]
+                           for k, n in hand_launches().items()}
+        with open(os.path.join(tmp, "trace.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        out["jsonl"] = {"lines": len(lines),
+                        "kinds": sorted({r["name"] for r in lines})}
+        assert "http.request" in out["jsonl"]["kinds"], out["jsonl"]
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+        trace.configure_tracing(trace.TraceConfig())
+        shutil.rmtree(root, ignore_errors=True)
+    launches = out["launches"]
+    emit("launches", path="scorer_runtime", **launches,
+         expected="hw_score, hw_filter: the Holt-Winters fit and its forced "
+                  "refit; arima_filter: the arima fit; arima_predict: every "
+                  "arima predict")
+    assert launches["hw_score"] >= 2 and launches["hw_filter"] >= 2
+    assert launches["arima_filter"] >= 1
+    assert launches["arima_predict"] >= RT_COST_REPS * len(RT_COST_SIZES)
+    emit("scorer_runtime", card=card_line, trees=out["trees"],
+         profile=out["profile"], dump=out["dump"], jsonl=out["jsonl"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("phase19", seconds=out["seconds"], parts=seconds)
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -8115,6 +8731,7 @@ def main(argv=None) -> int:
     streaming = slice15_phase(port, card_line)
     windowed = slice17_phase(port, card_line)
     runtime = slice19_phase(port, card_line)
+    scorer_rt = slice20_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -8137,7 +8754,8 @@ def main(argv=None) -> int:
                               + rng_paths["launches"][k]
                               + p8_end["launches"][k]
                               + streaming["launches"][k]
-                              + runtime["launches"][k]),
+                              + runtime["launches"][k]
+                              + scorer_rt["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -8155,7 +8773,8 @@ def main(argv=None) -> int:
                                  + rng_paths["launches"][k]
                                  + p8_end["launches"][k]
                                  + windowed["launches"][k]
-                                 + runtime["launches"][k]),
+                                 + runtime["launches"][k]
+                                 + scorer_rt["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),

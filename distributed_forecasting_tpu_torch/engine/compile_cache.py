@@ -545,23 +545,29 @@ def get_config() -> Optional[CompileCacheConfig]:
 
 def aot_call(entry: str, fn, args: tuple = (),
              static_kwargs: Optional[dict] = None,
-             dynamic_kwargs: Optional[dict] = None):
+             dynamic_kwargs: Optional[dict] = None,
+             charge: bool = True):
     """``fn(*args, **dynamic_kwargs, **static_kwargs)`` at one of the
     reference's AOT entry points: under an ``aot.call`` span, its dispatch
     seconds (host clock, call to return: the device may still be running
     work the call queued) charged to the cost registry under ``entry`` and
-    the family after its ``:``.  Nothing is compiled or stored: eager
-    PyTorch has no per-shape program (the module docstring)."""
+    the family after its ``:``.  ``charge=False`` is for a caller that
+    charges the entry itself over a longer interval (the serving predict
+    meters dispatch through its host pulls): one call, one dispatch.
+    Nothing is compiled or stored: eager PyTorch has no per-shape program
+    (the module docstring)."""
     from distributed_forecasting_tpu_torch.monitoring.cost import cost_metrics
 
     with get_tracer().span("aot.call", entry=entry, outcome="eager"):
         t0 = time.perf_counter()
         out = fn(*args, **(dynamic_kwargs or {}), **(static_kwargs or {}))
         seconds = time.perf_counter() - t0
-    # registry only: an enclosing meter (the sweep's attribution scope)
-    # already times the evaluation this call is part of
-    cost_metrics().record_dispatch(entry, entry.partition(":")[2] or entry,
-                                   seconds, attribute=False)
+    if charge:
+        # registry only: an enclosing meter (the sweep's attribution
+        # scope) already times the evaluation this call is part of
+        cost_metrics().record_dispatch(
+            entry, entry.partition(":")[2] or entry, seconds,
+            attribute=False)
     return out
 
 

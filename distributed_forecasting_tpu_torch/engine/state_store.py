@@ -35,8 +35,11 @@ serving reads them, with ``record_stream`` before they are installed, so
 the caching allocator does not reuse their memory for the next refit while
 a predict still reads it.
 
+The refit's install (the state swap) runs under a ``refit.swap`` span
+(``model``, ``day_snap``, ``replayed_days``).
+
 Not here yet: the reference's ``failpoint(...)`` sites and the dftsan
-attach (ROADMAP Queue 1: P12), the ``refit.swap`` span (P11).
+attach (ROADMAP Queue 1: P12).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.models.base import get_model
+from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.ops.update import apply_update
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
@@ -381,13 +385,15 @@ class SeriesStateStore:
                 day0=self.day0)
             fitted[:, t_snap:t_snap + delta] = preds
         params = dataclasses.replace(params, fitted=fitted)
-        with self._lock:
-            self._params = params
-            self._aux = aux
-            self._applied_since_refit = 0
-            self._late_points = 0
-            self._last_refit_monotonic = time.monotonic()
-        self._fc.swap_state(params=params, day1=day_now)
+        with get_tracer().span("refit.swap", model=self.model,
+                               day_snap=day_snap, replayed_days=delta):
+            with self._lock:
+                self._params = params
+                self._aux = aux
+                self._applied_since_refit = 0
+                self._late_points = 0
+                self._last_refit_monotonic = time.monotonic()
+            self._fc.swap_state(params=params, day1=day_now)
         if self.metrics is not None:
             self.metrics.refits_total.inc()
             self.metrics.refit_seconds.observe(

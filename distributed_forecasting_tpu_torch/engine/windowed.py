@@ -350,8 +350,8 @@ class WindowedSeriesStateStore(SeriesStateStore):
     ``device``: where the store lives, the card unless the caller passes
     ``device="cpu"``; the forecaster's parameters must already be there.
     A refit's statistics and tail params run at the ``windowed_fit`` and
-    ``windowed_refit`` entries under their spans; the ``refit.swap`` span
-    is the scorer's, ROADMAP Queue 1's P11 (second half).
+    ``windowed_refit`` entries under their spans, and its install under a
+    ``refit.swap`` span (``tail_window=True``).
     """
 
     def __init__(self, forecaster, history_y, history_mask,
@@ -560,13 +560,16 @@ class WindowedSeriesStateStore(SeriesStateStore):
         w_fit = int(params.fitted.shape[1])
         params = dataclasses.replace(params, fitted=_pad_time(
             params.fitted, time_cap(w_fit, self.time_bucket)))
-        with self._lock:
-            self._frozen.update(state["fresh"])
-            day_now = self._day_cur
-            self._params = params
-            self._applied_since_refit = 0
-            self._last_refit_monotonic = time.monotonic()
-        self._fc.swap_state(params=params, day1=day_now)
+        with get_tracer().span("refit.swap", model=self.model,
+                               day_snap=int(state["day_snap"]),
+                               tail_window=True):
+            with self._lock:
+                self._frozen.update(state["fresh"])
+                day_now = self._day_cur
+                self._params = params
+                self._applied_since_refit = 0
+                self._last_refit_monotonic = time.monotonic()
+            self._fc.swap_state(params=params, day1=day_now)
         if self.metrics is not None:
             self.metrics.refits_total.inc()
             if getattr(self.metrics, "tail_window_refits_total",

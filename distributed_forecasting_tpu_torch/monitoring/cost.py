@@ -35,8 +35,11 @@ calls.  Conf block
         peak_bytes_per_s: 0.0    # placement in cost_table
         saturation_window_s: 60
 
-The serve task parses the block; the scorer's charges, ``/debug/cost`` and
-the store rows are ROADMAP Queue 1's P11 (second half).
+The serve task applies the block (``monitoring/quality.
+build_quality_runtime`` calls :func:`configure_cost`); the scorer charges
+every predict's dispatch and padding, ``/debug/cost`` serves
+:meth:`CostMetrics.snapshot`, and the quality store's scrape persists the
+registry.
 """
 
 from __future__ import annotations

@@ -27,9 +27,10 @@ family's rolling metrics and its worst series as store rows, outside the
 accumulator lock; :func:`build_quality_runtime` wires the monitor, the store,
 the scrape loop and the SLO evaluator (``monitoring/slo.py``) into one
 :class:`QualityRuntime`.  The cost block (``monitoring.cost``) is parsed
-strictly and logged as having no effect: the scorer's cost charges and the
-store's ``dftpu_cost_*`` rows are ROADMAP Queue 1's P11 (second half), so
-the scrape loop has no cost source.
+strictly and applied process-wide (``monitoring/cost.configure_cost``) even
+when no runtime is built, so attribution and ``/debug/cost`` work without a store;
+with a store and the block enabled, the scrape loop also samples the
+memory watermarks and persists the ``dftpu_cost_*`` registry.
 """
 
 from __future__ import annotations
@@ -45,8 +46,13 @@ import torch
 
 from distributed_forecasting_tpu_torch.data.tensorize import period_ordinals
 from distributed_forecasting_tpu_torch.engine.calibrate import config_interval_width
-from distributed_forecasting_tpu_torch.monitoring.cost import CostConfig
+from distributed_forecasting_tpu_torch.monitoring.cost import (
+    CostConfig,
+    configure_cost,
+    cost_metrics,
+)
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
+from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.ops.metrics import quality_terms
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
@@ -221,15 +227,17 @@ class QualityMonitor:
             self.observations_skipped.inc(n_in)
             return self.snapshot(series=False)
 
-        req = obs[key_names].drop_duplicates()
-        pred = fc.predict(req, horizon=horizon, include_history=True,
-                          on_missing=on_missing)
-        pred = pred[key_names + ["ds", "yhat", "yhat_lower", "yhat_upper"]]
-        merged = obs.merge(
-            pred.assign(_ord=period_ordinals(pred["ds"], freq))
-                .drop(columns=["ds"]),
-            on=key_names + ["_ord"], how="inner")
-        scored = self._score(merged, key_names)
+        with get_tracer().span("quality.observe", rows=n_in):
+            req = obs[key_names].drop_duplicates()
+            pred = fc.predict(req, horizon=horizon, include_history=True,
+                              on_missing=on_missing)
+            pred = pred[key_names + ["ds", "yhat", "yhat_lower",
+                                     "yhat_upper"]]
+            merged = obs.merge(
+                pred.assign(_ord=period_ordinals(pred["ds"], freq))
+                    .drop(columns=["ds"]),
+                on=key_names + ["_ord"], how="inner")
+            scored = self._score(merged, key_names)
         self.observations_total.inc(scored)
         self.observations_skipped.inc(n_in - scored)
         # the worst series ride the response
@@ -382,9 +390,7 @@ class QualityRuntime:
     ``runtime.observe`` behind ``POST /observe``, appends
     ``runtime.render_metrics()`` to the ``/metrics`` body, and calls
     ``attach_server_metrics``, ``start()`` and ``stop()`` around its own
-    lifetime.  ``snapshot()`` is the reference's ``/debug/quality`` body; the
-    port serves no debug route until tracing is ported (ROADMAP Queue 1:
-    P11).
+    lifetime.  ``snapshot()`` is the ``/debug/quality`` body.
     """
 
     def __init__(self, monitor=None, store=None, scrape=None, slo=None):
@@ -458,8 +464,8 @@ def build_quality_runtime(
     registries.  ``tracking_root`` feeds the staleness SLO (the conf's
     ``monitoring.tracking_root`` wins over it); ``default_store_dir`` backs
     an empty ``quality_store.directory`` (two processes must never share an
-    append cursor, so each gets its own directory).  ``cost`` is parsed
-    strictly and has no effect (ROADMAP Queue 1: P11).
+    append cursor, so each gets its own directory).  ``cost`` is applied
+    process-wide before anything else is built, runtime or not.
     """
     from distributed_forecasting_tpu_torch.monitoring.slo import (
         SLOConfig,
@@ -485,7 +491,10 @@ def build_quality_runtime(
     qconf = QualityConfig.from_conf(conf.get("quality"))
     sconf = QualityStoreConfig.from_conf(conf.get("quality_store"))
     slo_conf = SLOConfig.from_conf(conf.get("slo"))
-    CostConfig.from_conf(conf.get("cost"))
+    # the cost layer applies even when nothing below builds a runtime:
+    # attribution and /debug/cost work without a store
+    cconf = CostConfig.from_conf(conf.get("cost"))
+    configure_cost(cconf)
     if not (qconf.enabled or sconf.enabled or slo_conf.enabled):
         return None
     if slo_conf.enabled and not sconf.enabled:
@@ -529,6 +538,15 @@ def build_quality_runtime(
             sources.append(({}, lambda: monitor.registry))
         if slo is not None:
             sources.append(({}, lambda: slo.registry))
+        if cconf.enabled:
+            # the memory watermarks refresh on the scrape tick, so the
+            # store keeps a queryable capacity history
+            def _cost_source():
+                cm = cost_metrics()
+                cm.sample_watermarks()
+                return cm.registry
+
+            sources.append(({}, _cost_source))
         scrape = ScrapeLoop(
             store, sources,
             scrape_interval_s=sconf.scrape_interval_s,
@@ -536,15 +554,3 @@ def build_quality_runtime(
 
     return QualityRuntime(monitor=monitor, store=store, scrape=scrape,
                           slo=slo)
-
-
-def check_unported_monitoring(conf: Optional[dict], logger=None) -> None:
-    """Parse the ``monitoring.cost`` block strictly and log it: it changes
-    no result, and the scorer's use of ``monitoring/cost.py`` (its charges,
-    ``/debug/cost``, the store rows) is not ported (ROADMAP Queue 1: P11)."""
-    conf = conf or {}
-    CostConfig.from_conf(conf.get("cost"))
-    if conf.get("cost") is not None and logger is not None:
-        logger.info("monitoring.cost: accepted; the scorer's cost charges "
-                    "are not ported, so the block has no effect in the port "
-                    "yet (ROADMAP Queue 1: P11)")

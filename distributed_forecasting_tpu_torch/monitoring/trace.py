@@ -40,8 +40,9 @@ Conf (``serving.tracing``)::
       profile_dir: null        # torch.profiler capture root
       max_profile_seconds: 60
 
-The serve task parses the block; recording from the scorer's paths is
-ROADMAP Queue 1's P11 (second half).
+The serve task configures the process-wide tracer from the block
+(:func:`configure_tracing`); the training path and the scorer record into
+it, and the scorer's ``/debug/trace`` and ``/debug/profile`` read it.
 """
 
 from __future__ import annotations

@@ -18,9 +18,11 @@ This module owns the call's discipline:
   family never reads ``fitted`` (it rides through ``dataclasses.replace``
   as a reference, no copy) and the state store owns ``aux``, replacing it
   with the returned one; neither needs a placeholder tensor.
-
-Not here yet: the AOT store's ``state_update:<model>`` entry and the
-``state.update`` span (ROADMAP Queue 1: P11).
+- **tracing**: the call runs under a ``state.update`` span (``model``,
+  ``series``, and ``k_alloc``, the ladder's rung for K, as the reference
+  reports its padded width) with ``device_annotation("state_update:<model>")``
+  through ``engine/compile_cache.aot_call`` at that entry, as in the
+  reference.
 """
 
 from __future__ import annotations
@@ -54,5 +56,27 @@ def apply_update(model: str, config, params, aux, y_new, mask_new, valid,
             f"supports the state-space families (holt_winters, theta, "
             f"croston)"
         )
-    return fns.update_state(params, aux, y_new, mask_new, valid, day_new,
-                            config, day0=day0)
+    # imported here: the engine and monitoring packages import this module
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        aot_call,
+    )
+    from distributed_forecasting_tpu_torch.monitoring.trace import (
+        device_annotation,
+        get_tracer,
+    )
+
+    entry = f"state_update:{model}"
+    with get_tracer().span(
+        "state.update",
+        model=model,
+        series=int(y_new.shape[0]),
+        # the reference's padded column count: the ladder's rung for K
+        k_alloc=column_bucket(int(y_new.shape[1])),
+    ):
+        with device_annotation(entry):
+            return aot_call(
+                entry, fns.update_state,
+                args=(params, aux, y_new, mask_new, valid, day_new),
+                static_kwargs={"config": config},
+                dynamic_kwargs={"day0": day0},
+            )

@@ -38,8 +38,9 @@ interval.  Bands are the CALIBRATED ones — ``BatchForecaster.predict``
 applies the conformal ``interval_scale`` (``engine/calibrate.py``) — so
 detection severity tracks the shipped coverage, not the raw model band.
 The predict runs on the forecaster's device; the scoring is float64 numpy on
-the host, as in the reference.  The reference's ``anomaly.score`` span is
-not recorded: tracing is ROADMAP Queue 1: P11.
+the host, as in the reference.  The predict and merge run under an
+``anomaly.score`` span (``rows``, ``source``: ``endpoint`` or ``ingest``),
+the ``/ingest`` leg's too.
 
 Conf block ``serving.anomaly`` (strict)::
 
@@ -66,6 +67,7 @@ from distributed_forecasting_tpu_torch.data.tensorize import period_ordinals
 from distributed_forecasting_tpu_torch.engine.calibrate import config_interval_width
 from distributed_forecasting_tpu_torch.models.base import _ndtri
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
+from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 _EPS = 1e-9
@@ -223,13 +225,15 @@ class AnomalyScorer:
             return {"results": [], "n_scored": 0, "n_flagged": 0,
                     "n_skipped": n_in, "threshold": sev}
 
-        req = obs[key_names].drop_duplicates()
-        pred = self._predict(req, horizon, on_missing)
-        pred = pred[key_names + ["ds", "yhat", "yhat_lower", "yhat_upper"]]
-        merged = obs.merge(
-            pred.assign(_ord=period_ordinals(pred["ds"], freq))
-                .drop(columns=["ds"]),
-            on=key_names + ["_ord"], how="inner")
+        with get_tracer().span("anomaly.score", rows=n_in, source=source):
+            req = obs[key_names].drop_duplicates()
+            pred = self._predict(req, horizon, on_missing)
+            pred = pred[key_names + ["ds", "yhat", "yhat_lower",
+                                     "yhat_upper"]]
+            merged = obs.merge(
+                pred.assign(_ord=period_ordinals(pred["ds"], freq))
+                    .drop(columns=["ds"]),
+                on=key_names + ["_ord"], how="inner")
         merged = merged.sort_values("_row", kind="stable")
         y = merged["y"].to_numpy(float)
         yhat = merged["yhat"].to_numpy(float)

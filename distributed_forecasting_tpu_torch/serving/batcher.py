@@ -34,8 +34,15 @@ Telemetry uses the Prometheus primitives of ``monitoring/monitor.py`` and is
 rendered by the server's ``GET /metrics``: request, dispatch, rejection and
 timeout counters, a queue-depth gauge, latency and batch-size histograms,
 followed by the compile-cache, training-pipeline and cost registries, as
-the reference appends them.  The reference's spans and thread-sanitizer
-hooks are not here (ROADMAP Queue 1: P11, P12).
+the reference appends them.
+
+Tracing (``monitoring/trace.py``): ``submit`` captures the handler's trace
+context; the scheduler thread records each request's
+``batcher.queue_wait`` on the trace clock (``expired=True`` for one that
+timed out queued) and opens ``batcher.dispatch`` under the first request's
+context, with every member's trace id and the chunk's device seconds from
+the cost registry's attribution scope.  The reference's thread-sanitizer
+hooks are not here (ROADMAP Queue 1: P12).
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from typing import Optional
 import pandas as pd
 
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
+from distributed_forecasting_tpu_torch.monitoring.trace import clock as trace_clock
+from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.serving.predictor import result_block_index
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
@@ -183,6 +192,10 @@ class _Pending:
     future: Future
     enqueued_at: float
     deadline: float
+    # the submitting request's TraceContext (None when tracing is off or the
+    # caller had no open span): the scheduler thread adopts it, so the
+    # merged dispatch lands in the submitter's trace
+    trace_ctx: object = None
 
     def signature(self, coalesce_safe: bool):
         """Requests merge iff their predict call and merge semantics match;
@@ -222,6 +235,8 @@ class RequestBatcher:
     ) -> Future:
         """Enqueue a parsed request; the returned future resolves to the
         result frame (or the exception a solo call would have raised)."""
+        # time.monotonic is the trace clock (monitoring.trace.clock), so
+        # enqueued_at is also the queue-wait span's start
         now = time.monotonic()
         item = _Pending(
             frame=frame,
@@ -233,6 +248,7 @@ class RequestBatcher:
             future=Future(),
             enqueued_at=now,
             deadline=now + self.config.request_timeout_s,
+            trace_ctx=get_tracer().current(),
         )
         with self._cond:
             if self._closed:
@@ -292,11 +308,15 @@ class RequestBatcher:
 
     def _process(self, batch: list) -> None:
         now = time.monotonic()
+        tracer = get_tracer()
         live: dict = {}
         for item in batch:
             if now > item.deadline:
                 # expired while queued: fail fast instead of spending a
                 # dispatch on a response nobody is waiting for
+                tracer.record_span(
+                    "batcher.queue_wait", item.enqueued_at, now,
+                    ctx=item.trace_ctx, expired=True)
                 item.future.set_exception(TimeoutError(
                     f"request timed out after "
                     f"{self.config.request_timeout_s:g}s in queue"))
@@ -327,11 +347,43 @@ class RequestBatcher:
 
     def _dispatch(self, chunk: list) -> None:
         self.metrics.batch_size.observe(len(chunk))
+        tracer = get_tracer()
+        now = trace_clock()
+        for item in chunk:
+            # every trace shows its queue wait: enqueued_at was read from
+            # the same clock, so the span is exact
+            tracer.record_span("batcher.queue_wait", item.enqueued_at, now,
+                               ctx=item.trace_ctx)
+        # the scheduler thread adopts the FIRST request's trace; merged
+        # neighbours are correlated through trace_ids (one dispatch span
+        # cannot have parents in N traces)
+        with tracer.context(chunk[0].trace_ctx):
+            with tracer.span(
+                "batcher.dispatch",
+                batch_size=len(chunk),
+                merged=len(chunk) > 1,
+                trace_ids=[item.trace_ctx.trace_id for item in chunk
+                           if item.trace_ctx is not None],
+            ) as span:
+                # the predictor charges each dispatch's device seconds to
+                # the cost registry; the attribution scope sums this
+                # thread's charges, so the span carries the chunk's total
+                # even when a solo retry fans it out into many dispatches
+                from distributed_forecasting_tpu_torch.monitoring.cost import (
+                    cost_metrics,
+                )
+
+                with cost_metrics().attribution() as acc:
+                    self._dispatch_inner(chunk, span)
+                span.set_attribute("device_seconds", acc["device_seconds"])
+
+    def _dispatch_inner(self, chunk: list, span) -> None:
         if len(chunk) == 1:
             item = chunk[0]
             try:
                 item.future.set_result(self._call(item, item.frame))
             except Exception as e:  # noqa: BLE001 - scatter to the waiter
+                span.set_attribute("outcome", f"error:{type(e).__name__}")
                 item.future.set_exception(e)
             return
         try:
@@ -343,6 +395,7 @@ class RequestBatcher:
             self.logger.exception(
                 "merged dispatch of %d requests failed; retrying solo",
                 len(chunk))
+            span.set_attribute("outcome", "solo-retry")
             for item in chunk:
                 try:
                     item.future.set_result(self._call(item, item.frame))

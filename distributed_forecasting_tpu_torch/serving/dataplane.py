@@ -12,9 +12,9 @@
   finish and closes keep-alive connections after their current request.
 
 Not here: the client half (``ConnectionPool``, ``pooled_get`` and the
-``_set_nodelay`` they call, which serve the fleet's front door; ROADMAP
-Queue 1: P12), the thread sanitizer's ``attach`` calls (P12) and the
-``http.conn_acquire`` span (P11).
+``_set_nodelay`` they call, which serve the fleet's front door, with the
+pool's ``http.conn_acquire`` span; ROADMAP Queue 1: P12) and the thread
+sanitizer's ``attach`` calls (P12).
 ``pool_size`` is parsed for the front door's outbound pool and read by
 nothing here.
 """

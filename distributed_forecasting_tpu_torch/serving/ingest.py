@@ -25,10 +25,13 @@ Locks: the append lock covers the segment-cursor bookkeeping only — the
 the disk.  Followers are serialized by a capacity-1 semaphore, because a
 poll spans file reads and a device update.
 
+The append runs under an ``ingest.append`` span (``points``,
+``wal_dir``); :meth:`IngestRuntime.snapshot` is the ``/debug/ingest``
+body.
+
 Not here yet: the reference's failpoints (``wal.roll``,
 ``wal.append.enospc``) and the dftsan attach (ROADMAP Queue 1: P12), the
-``ingest.append`` span and ``/debug/ingest`` (P11), the sharded replicas'
-WAL facade (P12).
+sharded replicas' WAL facade (P12).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from distributed_forecasting_tpu_torch.monitoring.store import (
     segment_indices,
     segment_path,
 )
+from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.serving.refit import (
     RefitConfig,
     RefitScheduler,
@@ -339,7 +343,9 @@ class IngestRuntime:
                "malformed": malformed, "out_of_range": out_of_range}
         if rows:
             # outside _poll_gate, so appends never queue behind an apply
-            self.wal.append(rows)
+            with get_tracer().span("ingest.append", points=len(rows),
+                                   wal_dir=self.wal.directory):
+                self.wal.append(rows)
             self.metrics.points_total.inc(len(rows))
             self.metrics.wal_appends_total.inc()
         if unknown:

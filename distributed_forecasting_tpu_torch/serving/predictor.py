@@ -12,6 +12,14 @@ Streaming ingest (``serving/ingest.py``) installs new filter state through
 :meth:`BatchForecaster.swap_state`: ``(params, day1)`` change together under
 one lock, and every predict reads them through one snapshot, so a request
 sees the whole old state or the whole new one.
+
+Each predict is a ``serving.predict`` / ``serving.predict_quantiles`` span
+(``monitoring/trace.py``) around a dispatch annotated with its entry name
+(``serving_predict:<model>``, the profiler's marker) and run through
+``engine/compile_cache.aot_call``; the host interval from dispatch through
+the ``.cpu()`` pulls is its ``device_seconds``, charged with the bucket's
+padding rows to the cost registry (``monitoring/cost.py``).  Nothing
+synchronizes the device: the pulls wait on this stream's work only.
 """
 
 from __future__ import annotations
@@ -36,6 +44,12 @@ from distributed_forecasting_tpu_torch.data.tensorize import ordinals_to_dates
 from distributed_forecasting_tpu_torch.engine.calibrate import apply_interval_scale
 from distributed_forecasting_tpu_torch.models import get_model
 from distributed_forecasting_tpu_torch.models.base import generator_kwargs
+from distributed_forecasting_tpu_torch.monitoring.cost import cost_metrics
+from distributed_forecasting_tpu_torch.monitoring.trace import clock as trace_clock
+from distributed_forecasting_tpu_torch.monitoring.trace import (
+    device_annotation,
+    get_tracer,
+)
 from distributed_forecasting_tpu_torch.utils.config import freeze, to_jsonable
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
@@ -350,6 +364,24 @@ class BatchForecaster:
         """Request-size bucket: next pow2x3 ladder value, capped at S."""
         return max(min(_ladder_value(k), self.n_series), k)
 
+    def _aot_entry(self, kind: str) -> str:
+        """The entry name of this forecaster's predict programs
+        (``<kind>:<model>``): the cost registry's row and the profiler
+        annotation.  The reference appends ``@mesh<n>`` for a sharded
+        predict; the port's predict is single-device (P12)."""
+        return f"{kind}:{self.model}"
+
+    def _charge(self, entry: str, span, t_disp: float, k: int) -> None:
+        """Charge one dispatch: the host interval since ``t_disp`` as its
+        device seconds (on the span and in the cost registry) and the
+        bucket's pad rows."""
+        dev = trace_clock() - t_disp
+        span.set_attribute("device_seconds", dev)
+        cm = cost_metrics()
+        cm.record_dispatch(entry, self.model, dev)
+        bucket = self._bucket(k)
+        cm.record_padding(entry, bucket, bucket - k)
+
     def _prepare_request(self, request, horizon, on_missing, xreg):
         """Resolve series, pad the request to its bucket (pad rows repeat
         the first series and are dropped by the caller), gather parameters,
@@ -466,26 +498,51 @@ class BatchForecaster:
             return pd.DataFrame(
                 columns=["ds", *self.key_names, "yhat", "yhat_upper", "yhat_lower"]
             )
+        from distributed_forecasting_tpu_torch.engine.compile_cache import (
+            aot_call,
+        )
+
         fns = get_model(self.model)
         k = int(sidx.size)
-        yhat, lo, hi = fns.forecast(params, day_all, float(t_end),
-                                    self.config, **fc_kwargs,
-                                    **generator_kwargs(fns, generator))
-        if n_real < int(day_all.shape[0]):
-            # the time-bucket padding rows go BEFORE the history trim, so
-            # [-horizon:] ends on the real last day
-            day_all = day_all[:n_real]
-            yhat, lo, hi = yhat[:, :n_real], lo[:, :n_real], hi[:, :n_real]
-        yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
-                                            floor=fns.band_floor)
-        if not include_history:
-            day_all = day_all[-horizon:]
-            yhat, lo, hi = yhat[:, -horizon:], lo[:, -horizon:], hi[:, -horizon:]
-        frame = self._frame_skeleton(sidx, day_all)
-        frame["yhat"] = yhat[:k].cpu().numpy().reshape(-1)
-        frame["yhat_upper"] = hi[:k].cpu().numpy().reshape(-1)
-        frame["yhat_lower"] = lo[:k].cpu().numpy().reshape(-1)
-        return pd.DataFrame(frame)
+        entry = self._aot_entry("serving_predict")
+        with get_tracer().span(
+            "serving.predict", model=self.model, k=k,
+            bucket=self._bucket(k), horizon=int(horizon),
+        ) as span:
+            # device-time attribution: the interval from dispatch through
+            # the .cpu() pulls below, on the span clock
+            t_disp = trace_clock()
+            # the annotation marks this dispatch on a profiler capture's
+            # timeline, named like the entry
+            with device_annotation(entry):
+                yhat, lo, hi = aot_call(
+                    entry, fns.forecast,
+                    args=(params, day_all, float(t_end)),
+                    static_kwargs={"config": self.config},
+                    dynamic_kwargs={**fc_kwargs,
+                                    **generator_kwargs(fns, generator)},
+                    charge=False,
+                )
+            if n_real < int(day_all.shape[0]):
+                # the time-bucket padding rows go BEFORE the history trim,
+                # so [-horizon:] ends on the real last day
+                day_all = day_all[:n_real]
+                yhat, lo, hi = (yhat[:, :n_real], lo[:, :n_real],
+                                hi[:, :n_real])
+            yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
+                                                floor=fns.band_floor)
+            if not include_history:
+                day_all = day_all[-horizon:]
+                yhat, lo, hi = (yhat[:, -horizon:], lo[:, -horizon:],
+                                hi[:, -horizon:])
+            frame = self._frame_skeleton(sidx, day_all)
+            # the pulls are the host's wait: inside the span, so device
+            # time shows as serving.predict time
+            frame["yhat"] = yhat[:k].cpu().numpy().reshape(-1)
+            frame["yhat_upper"] = hi[:k].cpu().numpy().reshape(-1)
+            frame["yhat_lower"] = lo[:k].cpu().numpy().reshape(-1)
+            self._charge(entry, span, t_disp, k)
+            return pd.DataFrame(frame)
 
     def predict_quantiles(self, request: pd.DataFrame,
                           quantiles=(0.1, 0.5, 0.9), horizon: int = 90,
@@ -508,31 +565,41 @@ class BatchForecaster:
         if sidx.size == 0:
             return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
         k = int(sidx.size)
-        # conformal scaling spreads every level around the median, so the
-        # median is priced alongside when calibration is on
-        priced = quantiles
-        if scale is not None and 0.5 not in priced:
-            priced = tuple(sorted((*priced, 0.5)))
-        yq = fns.forecast_quantiles(params, day_all, float(t_end),
-                                    self.config, priced, **fc_kwargs,
-                                    **generator_kwargs(fns, generator))
-        # (bucket, Q, T_all)
-        if n_real < int(day_all.shape[0]):
-            day_all = day_all[:n_real]
-            yq = yq[:, :, :n_real]
-        if scale is not None:
-            med = yq[:, priced.index(0.5), :][:, None, :]
-            yq = med + scale[:, None, None] * (yq - med)
-            if fns.band_floor is not None:
-                # widening must not undo the family's clamp of the levels
-                yq = torch.clamp_min(yq, fns.band_floor)
-        if priced != quantiles:
-            yq = yq[:, [priced.index(q) for q in quantiles], :]
-        if not include_history:
-            day_all = day_all[-horizon:]
-            yq = yq[:, :, -horizon:]
-        yq = yq[:k].cpu().numpy()
-        frame = self._frame_skeleton(sidx, day_all)
-        for qi, col in enumerate(qcols):
-            frame[col] = yq[:, qi, :].reshape(-1)
-        return pd.DataFrame(frame)
+        entry = self._aot_entry("serving_predict_quantiles")
+        with get_tracer().span(
+            "serving.predict_quantiles", model=self.model, k=k,
+            bucket=self._bucket(k), horizon=int(horizon),
+            n_quantiles=len(quantiles),
+        ) as span:
+            # conformal scaling spreads every level around the median, so
+            # the median is priced alongside when calibration is on
+            priced = quantiles
+            if scale is not None and 0.5 not in priced:
+                priced = tuple(sorted((*priced, 0.5)))
+            t_disp = trace_clock()
+            with device_annotation(entry):
+                yq = fns.forecast_quantiles(
+                    params, day_all, float(t_end), self.config, priced,
+                    **fc_kwargs, **generator_kwargs(fns, generator))
+            # (bucket, Q, T_all)
+            if n_real < int(day_all.shape[0]):
+                day_all = day_all[:n_real]
+                yq = yq[:, :, :n_real]
+            if scale is not None:
+                med = yq[:, priced.index(0.5), :][:, None, :]
+                yq = med + scale[:, None, None] * (yq - med)
+                if fns.band_floor is not None:
+                    # widening must not undo the family's clamp of the
+                    # levels
+                    yq = torch.clamp_min(yq, fns.band_floor)
+            if priced != quantiles:
+                yq = yq[:, [priced.index(q) for q in quantiles], :]
+            if not include_history:
+                day_all = day_all[-horizon:]
+                yq = yq[:, :, -horizon:]
+            yq = yq[:k].cpu().numpy()
+            self._charge(entry, span, t_disp, k)
+            frame = self._frame_skeleton(sidx, day_all)
+            for qi, col in enumerate(qcols):
+                frame[col] = yq[:, qi, :].reshape(-1)
+            return pd.DataFrame(frame)

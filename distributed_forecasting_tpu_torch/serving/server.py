@@ -53,10 +53,17 @@ reference's routes, statuses, headers and bodies:
                              (the next /invocations already reflects the
                              points); 400 for a bad body or too many
                              points, 503 without an ingest runtime
-  GET  /debug/*           -> 404, as the reference answers with
-                             ``tracing.debug_endpoints: false`` (tracing is
-                             P11; ``/debug/quality`` and ``/debug/ingest``
-                             included)
+  GET  /debug/trace       -> the flight recorder's spans as a Chrome trace
+  GET  /debug/profile     -> ?seconds=N: one torch.profiler capture into
+                             tracing.profile_dir ({"capture_dir": ...});
+                             400 for a bad number, 503 without a
+                             profile_dir, 409 while another capture runs
+  GET  /debug/quality     -> the quality runtime's snapshot (503 without one)
+  GET  /debug/ingest      -> the ingest runtime's snapshot (503 without one)
+  GET  /debug/cost        -> the cost registry's table (503 with the
+                             monitoring.cost block disabled); every
+                             /debug/* route is 404 unless
+                             tracing.debug_endpoints is set
 
 ``serve`` blocks; ``start_server`` returns the live server for tests and
 embedding.  Requests go through the micro-batching coalescer
@@ -70,9 +77,17 @@ interval mode, its refit scheduler) and stopped in ``shutdown``; with an
 anomaly scorer whose ``stream_scoring`` is on, every validated /ingest
 batch is scored against the current bands before it applies.
 
-Not here: the spans and the flight-recorder dump on a 5xx (P11), the
-forecast-cache runtime (P12; its parameter takes None only) and the
-sharded replicas' ``extra_metrics`` (P12).
+Tracing (``monitoring/trace.py``), as in the reference: each request on
+``/invocations`` / ``/predict``, ``/observe``, ``/detect_anomalies`` and
+``/ingest`` is an ``http.request`` root span (``method``, ``path``,
+``status``) whose trace id — the client's X-Trace-Id when it is a safe
+token, else a fresh one — is echoed as X-Trace-Id; the batcher, predictor,
+anomaly scorer, ingest runtime and state store open their spans under it.
+An ``/invocations`` answered 5xx dumps the flight recorder
+(``tracing.dump_dir``) after its response is written.
+
+Not here: the forecast-cache runtime (P12; its parameter takes None only)
+and the sharded replicas' ``extra_metrics`` (P12).
 """
 
 from __future__ import annotations
@@ -81,7 +96,6 @@ import json
 import threading
 import time
 import urllib.parse
-import uuid
 from concurrent.futures import TimeoutError as _FutureTimeoutError
 from http.server import BaseHTTPRequestHandler
 from typing import Optional
@@ -91,6 +105,16 @@ import pandas as pd
 
 from distributed_forecasting_tpu_torch.data.quality import (
     render_data_quality_metrics,
+)
+from distributed_forecasting_tpu_torch.monitoring.cost import (
+    cost_metrics,
+    get_cost_config,
+)
+from distributed_forecasting_tpu_torch.monitoring.trace import (
+    ProfilerBusyError,
+    dump_flight_recorder,
+    get_tracer,
+    to_chrome_trace,
 )
 from distributed_forecasting_tpu_torch.serving.batcher import (
     BatchingConfig,
@@ -134,14 +158,6 @@ def _encode_predictions(out: pd.DataFrame, key_names) -> bytes:
     }).encode()
 
 
-def _trace_id(raw: Optional[str]) -> str:
-    """The request's correlation id, echoed as X-Trace-Id: the client's when
-    it is a sane token, else a fresh 16-hex id, as the reference's tracer
-    mints one for every request (the port records no spans yet: ROADMAP
-    Queue 1: P11)."""
-    return _safe_trace_id(raw) or uuid.uuid4().hex[:16]
-
-
 def _safe_trace_id(raw: Optional[str]) -> Optional[str]:
     """Accept a client's X-Trace-Id only when it is a sane token — a hostile
     header must not ride into logs."""
@@ -158,12 +174,14 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
 
     # per request (with keep-alive one handler serves many requests)
     _trace_id: Optional[str] = None
+    _status: int = 0
 
     def _send(self, code: int, payload: dict, extra_headers=()) -> None:
         self._send_bytes(code, json.dumps(payload).encode(),
                          extra_headers=extra_headers)
 
     def _send_bytes(self, code: int, body: bytes, extra_headers=()) -> None:
+        self._status = code
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
@@ -194,8 +212,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                                       else (("Retry-After", "1"),)))
             return
         if parsed.path.startswith("/debug/"):
-            # the reference's answer with tracing.debug_endpoints: false
-            self._send(404, {"error": f"no route {parsed.path}"})
+            self._debug(parsed)
             return
         if self.path == "/health":
             self._send(
@@ -234,6 +251,68 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         else:
             self._send(404, {"error": f"no route {self.path}"})
 
+    def _debug(self, parsed) -> None:
+        """The introspection routes, off unless tracing.debug_endpoints is
+        set (they expose internals, and a capture holds its handler thread
+        for seconds)."""
+        tracer = get_tracer()
+        if not tracer.config.debug_endpoints:
+            self._send(404, {"error": f"no route {parsed.path}"})
+            return
+        if parsed.path == "/debug/trace":
+            # the recent spans as a Chrome trace: save the body, open it in
+            # ui.perfetto.dev
+            spans = tracer.recorder.snapshot()
+            self._send(200, to_chrome_trace(
+                spans, metadata={"n_spans": len(spans)}))
+        elif parsed.path == "/debug/profile":
+            query = urllib.parse.parse_qs(parsed.query)
+            try:
+                seconds = float(query.get("seconds", ["3"])[0])
+            except ValueError:
+                self._send(400, {"error": "seconds must be a number"})
+                return
+            if not tracer.profiler.available:
+                self._send(503, {"error": "profiler capture not configured "
+                                          "(tracing.profile_dir is unset)"},
+                           extra_headers=(("Retry-After", "60"),))
+                return
+            try:
+                # holds THIS handler thread for the window; the other
+                # workers go on serving, so the capture sees live traffic
+                out = tracer.profiler.capture(seconds)
+            except ProfilerBusyError as e:
+                self._send(409, {"error": str(e)})
+                return
+            self._send(200, {"capture_dir": out, "seconds": seconds})
+        elif parsed.path == "/debug/quality":
+            quality = self.server.quality
+            if quality is None:
+                self._send(503, {"error": "quality monitoring not enabled "
+                                          "(monitoring.quality conf block)"},
+                           extra_headers=(("Retry-After", "60"),))
+                return
+            self._send(200, quality.snapshot())
+        elif parsed.path == "/debug/ingest":
+            ingest = self.server.ingest
+            if ingest is None:
+                self._send(503, {"error": "streaming ingest not enabled "
+                                          "(serving.ingest conf block)"},
+                           extra_headers=(("Retry-After", "60"),))
+                return
+            self._send(200, ingest.snapshot())
+        elif parsed.path == "/debug/cost":
+            cconf = get_cost_config()
+            if not cconf.enabled:
+                self._send(503, {"error": "cost observability disabled "
+                                          "(monitoring.cost conf block)"},
+                           extra_headers=(("Retry-After", "60"),))
+                return
+            # the per-entry cost table, watermarks sampled afresh
+            self._send(200, cost_metrics().snapshot(cconf))
+        else:
+            self._send(404, {"error": f"no route {parsed.path}"})
+
     def do_POST(self):
         # deadline shed: work whose X-Deadline-Ms budget is already spent
         # gets its 503 before parsing or dispatch
@@ -264,12 +343,28 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             return
         metrics = self.server.metrics
         metrics.requests.inc()
-        self._trace_id = _trace_id(self.headers.get("X-Trace-Id"))
+        tracer = get_tracer()
+        self._trace_id = _safe_trace_id(self.headers.get("X-Trace-Id"))
         t0 = time.monotonic()
         try:
-            self._invoke()
+            with tracer.root_span(
+                "http.request", trace_id=self._trace_id,
+                method="POST", path=self.path,
+            ) as root:
+                self._trace_id = root.trace_id or self._trace_id
+                self._invoke()
+                root.set_attribute("status", self._status)
         finally:
             metrics.latency.observe(time.monotonic() - t0)
+            if self._status >= 500:
+                # a failed or timed-out request leaves the last spans on
+                # disk; the response is already written, so a slow dump
+                # directory delays no client
+                path = dump_flight_recorder(f"http-{self._status}")
+                if path:
+                    self.server.logger.warning(
+                        "status %d: flight recorder dumped to %s",
+                        self._status, path)
 
     def _invoke(self):
         metrics = self.server.metrics
@@ -380,32 +475,40 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                                       "(monitoring.quality conf block)"},
                        extra_headers=(("Retry-After", "60"),))
             return
-        self._trace_id = _trace_id(self.headers.get("X-Trace-Id"))
+        tracer = get_tracer()
+        self._trace_id = _safe_trace_id(self.headers.get("X-Trace-Id"))
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            req = json.loads(self.rfile.read(length) or b"{}")
-            if not isinstance(req, dict):
-                self._send(400, {"error": "body must be a JSON object "
-                                          "with 'observations'"})
-                return
-            observations = req.get("observations")
-            if not observations:
-                self._send(400, {"error": "body needs a non-empty "
-                                          "'observations' list"})
-                return
-            summary = quality.observe(
-                pd.DataFrame(observations),
-                on_missing=req.get("on_missing", "skip"))
-            ingest = self.server.ingest
-            if ingest is not None and ingest.config.observe_feeds_ingest:
-                # the scoring feedback loop doubles as an ingest source; a
-                # feed failure must not fail the observe (scoring is done)
-                try:
-                    summary["ingest"] = ingest.submit(observations)
-                except Exception:  # noqa: BLE001
-                    self.server.logger.exception(
-                        "observe -> ingest feed failed")
-            self._send(200, summary)
+            with tracer.root_span(
+                "http.request", trace_id=self._trace_id,
+                method="POST", path="/observe",
+            ) as root:
+                self._trace_id = root.trace_id or self._trace_id
+                length = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(req, dict):
+                    self._send(400, {"error": "body must be a JSON object "
+                                              "with 'observations'"})
+                    return
+                observations = req.get("observations")
+                if not observations:
+                    self._send(400, {"error": "body needs a non-empty "
+                                              "'observations' list"})
+                    return
+                summary = quality.observe(
+                    pd.DataFrame(observations),
+                    on_missing=req.get("on_missing", "skip"))
+                ingest = self.server.ingest
+                if ingest is not None and ingest.config.observe_feeds_ingest:
+                    # the scoring feedback loop doubles as an ingest source;
+                    # a feed failure must not fail the observe (scoring is
+                    # done)
+                    try:
+                        summary["ingest"] = ingest.submit(observations)
+                    except Exception:  # noqa: BLE001
+                        self.server.logger.exception(
+                            "observe -> ingest feed failed")
+                self._send(200, summary)
+                root.set_attribute("status", self._status)
         except UnknownSeriesError as e:
             self._send(404, {"error": str(e)})
         except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
@@ -429,36 +532,45 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                                       "(serving.anomaly conf block)"},
                        extra_headers=(("Retry-After", "60"),))
             return
-        self._trace_id = _trace_id(self.headers.get("X-Trace-Id"))
+        tracer = get_tracer()
+        self._trace_id = _safe_trace_id(self.headers.get("X-Trace-Id"))
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            req = json.loads(self.rfile.read(length) or b"{}")
-            if not isinstance(req, dict):
-                self._send(400, {"error": "body must be a JSON object "
-                                          "with 'points'"})
-                return
-            points = req.get("points")
-            if not points or not isinstance(points, list):
-                self._send(400, {"error": "body needs a non-empty "
-                                          "'points' list"})
-                return
-            if len(points) > anomaly.config.max_points_per_request:
-                self._send(400, {
-                    "error": f"request has {len(points)} points; "
-                             f"max_points_per_request="
-                             f"{anomaly.config.max_points_per_request}"})
-                return
-            threshold = req.get("threshold")
-            if threshold is not None:
-                threshold = float(threshold)
-                if not threshold > 0:
-                    self._send(400, {"error": "threshold must be > 0"})
+            with tracer.root_span(
+                "http.request", trace_id=self._trace_id,
+                method="POST", path="/detect_anomalies",
+            ) as root:
+                self._trace_id = root.trace_id or self._trace_id
+                length = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(req, dict):
+                    self._send(400, {"error": "body must be a JSON object "
+                                              "with 'points'"})
                     return
-            out = anomaly.score(
-                pd.DataFrame(points),
-                on_missing=req.get("on_missing", "skip"),
-                threshold=threshold)
-            self._send(200, out)
+                points = req.get("points")
+                if not points or not isinstance(points, list):
+                    self._send(400, {"error": "body needs a non-empty "
+                                              "'points' list"})
+                    return
+                if len(points) > anomaly.config.max_points_per_request:
+                    self._send(400, {
+                        "error": f"request has {len(points)} points; "
+                                 f"max_points_per_request="
+                                 f"{anomaly.config.max_points_per_request}"})
+                    return
+                threshold = req.get("threshold")
+                if threshold is not None:
+                    threshold = float(threshold)
+                    if not threshold > 0:
+                        self._send(400, {"error": "threshold must be > 0"})
+                        return
+                out = anomaly.score(
+                    pd.DataFrame(points),
+                    on_missing=req.get("on_missing", "skip"),
+                    threshold=threshold)
+                root.set_attribute("points", len(points))
+                root.set_attribute("flagged", out["n_flagged"])
+                self._send(200, out)
+                root.set_attribute("status", self._status)
         except UnknownSeriesError as e:
             self._send(404, {"error": str(e)})
         except QueueFullError as e:
@@ -488,20 +600,29 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                                       "(serving.ingest conf block)"},
                        extra_headers=(("Retry-After", "60"),))
             return
-        self._trace_id = _trace_id(self.headers.get("X-Trace-Id"))
+        tracer = get_tracer()
+        self._trace_id = _safe_trace_id(self.headers.get("X-Trace-Id"))
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            req = json.loads(self.rfile.read(length) or b"{}")
-            if not isinstance(req, dict):
-                self._send(400, {"error": "body must be a JSON object "
-                                          "with 'points'"})
-                return
-            points = req.get("points")
-            if not points or not isinstance(points, list):
-                self._send(400, {"error": "body needs a non-empty "
-                                          "'points' list"})
-                return
-            self._send(200, ingest.submit(points))
+            with tracer.root_span(
+                "http.request", trace_id=self._trace_id,
+                method="POST", path="/ingest",
+            ) as root:
+                self._trace_id = root.trace_id or self._trace_id
+                length = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(req, dict):
+                    self._send(400, {"error": "body must be a JSON object "
+                                              "with 'points'"})
+                    return
+                points = req.get("points")
+                if not points or not isinstance(points, list):
+                    self._send(400, {"error": "body needs a non-empty "
+                                              "'points' list"})
+                    return
+                out = ingest.submit(points)
+                root.set_attribute("points", len(points))
+                self._send(200, out)
+                root.set_attribute("status", self._status)
         except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
             self._send(400, {"error": f"{type(e).__name__}: {e}"})
         except Exception as e:  # noqa: BLE001 — the scorer outlives a request

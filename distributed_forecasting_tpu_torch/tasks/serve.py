@@ -20,7 +20,8 @@ Conf::
       warmup_horizon: 90
       batching: {...}         # the micro-batching coalescer (strict)
       http: {...}             # the data plane (strict)
-      tracing: {...}          # strict keys; no effect yet
+      tracing: {...}          # spans, flight recorder, /debug/*
+                              # (monitoring/trace.py)
       anomaly: {...}          # POST /detect_anomalies (serving/anomaly.py)
       ingest: {...}           # POST /ingest (serving/ingest.py): the WAL,
                               # default <env.root>/ingest_wal; refits need
@@ -31,17 +32,18 @@ Conf::
                               # default <env.root>/quality_store
       slo: {...}              # burn-rate SLOs (monitoring/slo.py) over the
                               # store, staleness from the env's tracking root
+      cost: {...}             # dftpu_cost_* charges, /debug/cost and the
+                              # store's cost rows (monitoring/cost.py)
 
 ``conf/tasks/serve_config.yml`` runs as shipped, and with
 ``serving.ingest.enabled: true``.  Every block is parsed strictly, as the
-reference parses it, before any artifact loads.  What the port does not
-have yet: ``serving.cache.enabled`` (ROADMAP Queue 1: P12) and
-``tracing.debug_endpoints: true`` (P11) raise ``NotImplementedError``.
-``tracing.enabled`` and ``monitoring.cost`` change no result and are
-logged as having no effect (P11: the scorer's spans and charges).
-``compile_cache:`` is armed by the Task base: the first kernel launch
-loads the kernel library through its store, and the cache's counts are
-logged after the warmup.  The ``fleet:`` and
+reference parses it, before any artifact loads; the tracer is then
+configured from ``serving.tracing`` and the cost layer from
+``monitoring.cost``, as the reference's task does.  What the port does not
+have yet: ``serving.cache.enabled`` (ROADMAP Queue 1: P12) raises
+``NotImplementedError``.  ``compile_cache:`` is armed by the Task base:
+the first kernel launch loads the kernel library through its store, and
+the cache's counts are logged after the warmup.  The ``fleet:`` and
 ``sharding:`` blocks belong to the fleet task (P12), as in the reference,
 whose serve task does not read them.
 """
@@ -54,9 +56,13 @@ import time
 import numpy as np
 
 from distributed_forecasting_tpu_torch.engine.compile_cache import cache_stats
+from distributed_forecasting_tpu_torch.monitoring.cost import CostConfig
 from distributed_forecasting_tpu_torch.monitoring.quality import (
     build_quality_runtime,
-    check_unported_monitoring,
+)
+from distributed_forecasting_tpu_torch.monitoring.trace import (
+    TraceConfig,
+    configure_tracing,
 )
 from distributed_forecasting_tpu_torch.serving.anomaly import (
     AnomalyConfig,
@@ -76,31 +82,6 @@ from distributed_forecasting_tpu_torch.serving.server import (
 )
 from distributed_forecasting_tpu_torch.tasks.common import Task
 
-# the reference's serving.tracing keys (monitoring/trace.TraceConfig)
-_TRACING_KEYS = frozenset({"enabled", "ring_size", "jsonl_path", "dump_dir",
-                           "debug_endpoints", "profile_dir",
-                           "max_profile_seconds"})
-
-
-def check_tracing(conf, logger) -> None:
-    """The ``serving.tracing`` block: strict keys, as the reference's
-    ``TraceConfig.from_conf``; the debug endpoints are refused and the rest
-    has no effect until the scorer's spans are ported."""
-    conf = conf or {}
-    unknown = set(conf) - _TRACING_KEYS
-    if unknown:
-        raise ValueError(
-            f"unknown tracing conf key(s) {sorted(unknown)}; "
-            f"valid: {sorted(_TRACING_KEYS)}")
-    if conf.get("debug_endpoints"):
-        raise NotImplementedError(
-            "tracing.debug_endpoints: true (/debug/trace, /debug/profile; "
-            "serving/server.py) is not ported yet (ROADMAP Queue 1: P11)")
-    if conf.get("enabled"):
-        logger.info("tracing.enabled: accepted; the scorer's spans are not "
-                    "ported, so the block has no effect in the port yet "
-                    "(ROADMAP Queue 1: P11)")
-
 
 class ServeTask(Task):
     def launch(self) -> None:
@@ -117,17 +98,18 @@ class ServeTask(Task):
         # every block is checked before the registry load, so a conf typo
         # or an unported block fails in milliseconds
         batching = BatchingConfig.from_conf(conf.get("batching"))
-        check_tracing(conf.get("tracing"), self.logger)
+        tracing = TraceConfig.from_conf(conf.get("tracing"))
         http = HttpConfig.from_conf(conf.get("http"))
         AnomalyConfig.from_conf(conf.get("anomaly"))  # fail fast on typos
         IngestConfig.from_conf(conf.get("ingest"))
+        monitoring = self.conf.get("monitoring")
+        CostConfig.from_conf((monitoring or {}).get("cost"))
         if CacheConfig.from_conf(conf.get("cache")).enabled:
             module, item = UNPORTED_RUNTIMES["cache"]
             raise NotImplementedError(
                 f"serving.cache.enabled: true ({module}) is not ported yet "
                 f"(ROADMAP Queue 1: {item})")
-        monitoring = self.conf.get("monitoring")
-        check_unported_monitoring(monitoring, self.logger)
+        configure_tracing(tracing)
 
         forecaster, version = resolve_from_registry(
             self.registry, name, stage=stage, device=self.device)

@@ -1589,3 +1589,122 @@ def test_time_bucket_predict_byte_equal_on_the_card(dev, model):
         b = fc.predict(req, horizon=30, include_history=hist)
         assert fc.time_bucket == 32
         pd.testing.assert_frame_equal(a, b, check_exact=True)
+
+
+# -- the scorer's runtime on the card (monitoring/trace.py, cost.py) ----------
+
+def test_predict_device_seconds_match_cuda_events(dev, monkeypatch):
+    """The seconds a predict charges to ``serving_predict:<model>`` are the
+    host interval from dispatch through the pulls: CUDA events recorded at
+    the same two instants agree within 0.8-1.2x (no device work the predict
+    queued outlives the charge), and the span carries the same number."""
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.monitoring import cost, trace
+    from distributed_forecasting_tpu_torch.serving import predictor
+
+    fc = _served(dev, "arima")
+    req = pd.DataFrame(fc.keys[:40], columns=list(fc.key_names))
+    fc.predict(req, horizon=28)
+    torch.cuda.synchronize()
+    marks, clock = [], predictor.trace_clock
+
+    def evented():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return clock()
+
+    monkeypatch.setattr(predictor, "trace_clock", evented)
+    cm = cost.cost_metrics()
+    label = "entry=serving_predict:arima,family=arima"
+    s0 = cm.device_seconds_total.snapshot().get(label, 0.0)
+    tracer = trace.configure_tracing(trace.TraceConfig(enabled=True))
+    try:
+        for _ in range(10):
+            fc.predict(req, horizon=28)
+    finally:
+        trace.configure_tracing(trace.TraceConfig())
+    torch.cuda.synchronize()
+    charged = cm.device_seconds_total.snapshot()[label] - s0
+    events = sum(marks[2 * i].elapsed_time(marks[2 * i + 1])
+                 for i in range(10)) / 1e3
+    assert len(marks) == 20
+    assert 0.8 <= charged / events <= 1.2, (charged, events)
+    spans = [s for s in tracer.recorder.snapshot()
+             if s.name == "serving.predict"]
+    assert len(spans) == 10
+    assert sum(s.attrs["device_seconds"] for s in spans) == pytest.approx(
+        charged)
+
+
+def test_sample_watermarks_read_cuda_memory_stats(dev):
+    """The device watermarks are the caching allocator's counts of the card
+    in use: ``torch.cuda.memory_stats()``'s allocated bytes, current and
+    peak."""
+    from distributed_forecasting_tpu_torch.monitoring.cost import CostMetrics
+
+    held = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cm = CostMetrics()
+    cm.sample_watermarks()
+    stats = torch.cuda.memory_stats()
+    assert cm.device_bytes.value == stats["allocated_bytes.all.current"]
+    assert cm.device_peak_bytes.value == stats["allocated_bytes.all.peak"]
+    assert cm.device_bytes.value >= held.numel()
+    assert cm.host_rss_bytes.value > 0
+
+
+def test_profiler_capture_holds_arima_predict_in_its_annotation(dev,
+                                                                 tmp_path):
+    """A ``ProfilerSession`` capture while another thread predicts on an
+    arima artifact: an ``arima_predict`` kernel lies inside the
+    ``serving_predict:arima`` annotation (on the device's timeline or,
+    through its launch's correlation id, the host's).  Kineto may drop a
+    window's records in a long process, so the capture is taken up to
+    three times."""
+    import json
+    import os
+    import threading
+    import time
+
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.monitoring.trace import (
+        ProfilerSession,
+    )
+
+    fc = _served(dev, "arima")
+    req = pd.DataFrame(fc.keys[:8], columns=list(fc.key_names))
+    fc.predict(req, horizon=28)
+    sess = ProfilerSession(str(tmp_path), max_seconds=10.0)
+
+    def predicts():
+        time.sleep(0.5)
+        t_end = time.perf_counter() + 0.5
+        while time.perf_counter() < t_end:
+            fc.predict(req, horizon=28)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        th = threading.Thread(target=predicts)
+        th.start()
+        out = sess.capture(1.5)
+        th.join(60)
+        with open(os.path.join(out, "trace.json")) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "arima_predict_kernel" in e.get("name", "")]
+        marks = [e for e in events if e.get("name") == "serving_predict:arima"]
+        corr = {k.get("args", {}).get("correlation") for k in kernels}
+        launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                    and e.get("args", {}).get("correlation") in corr]
+
+        def inside(a, b):
+            return a["ts"] <= b["ts"] and (b["ts"] + b.get("dur", 0)
+                                           <= a["ts"] + a.get("dur", 0))
+
+        found = any(inside(a, b) for a in marks for b in kernels + launches)
+        if found:
+            break
+    assert found, (len(kernels), len(marks))

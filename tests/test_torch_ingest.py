@@ -3,8 +3,9 @@
 ``POST /ingest``).
 
 The reference's ``tests/unit/test_ingest.py`` cases, on the port (all but
-the fleet's max-merge of the shared-WAL gauges, ROADMAP Queue 1: P12, and
-the trace report's streaming rollup, P11), then the port against the
+the fleet's max-merge of the shared-WAL gauges, ROADMAP Queue 1: P12; the
+trace report's streaming rollup over the port's spans is in
+``tests/test_torch_scorer_trace.py``), then the port against the
 reference on the CPU:
 
 - host results exactly: the WAL's segment bytes for the same submits (and
@@ -843,7 +844,8 @@ def test_post_ingest_freshens_invocations(ingest_servers):
     ds_b = pd.to_datetime(pd.DataFrame(json.loads(before)["predictions"]).ds)
     ds_a = pd.to_datetime(pd.DataFrame(json.loads(after)["predictions"]).ds)
     assert ds_a.min() == ds_b.min() + pd.Timedelta(days=1)
-    # /debug/* stays dark: tracing and its debug endpoints are P11
+    # /debug/* stays dark with tracing.debug_endpoints off (the default),
+    # the reference's answer too
     assert _raw(srv, "/debug/ingest")[0] == 404
 
 

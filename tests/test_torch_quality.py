@@ -339,8 +339,10 @@ def test_store_scrape_and_slo_are_wired_like_the_reference(artifact,
                           else line for line in text.splitlines()]
     assert strip(port.render_metrics()) == strip(ref.render_metrics())
     assert "dftpu_slo_evaluations_total 1" in port.render_metrics()
-    # one scrape at an injected time writes the same series, but for the
-    # reference's cost registry (monitoring.cost has no effect in the port)
+    # one scrape at an injected time writes the same series; the cost
+    # registry rides the scrape in both (monitoring.cost is on by default):
+    # its unlabeled families (saturation, watermarks) are the same rows,
+    # its labeled ones hold whatever entries each process has charged
     for rt in (port, ref):
         rt.scrape.scrape_once(now=now)
     rows = [[(p["name"], p["labels"]) for p in rt.store.query(since=now)
@@ -348,8 +350,12 @@ def test_store_scrape_and_slo_are_wired_like_the_reference(artifact,
             for rt in (port, ref)]
     assert rows[0] == rows[1]
     assert ("dftpu_slo_evaluations_total", {}) in rows[0]
-    assert not any(p["name"].startswith("dftpu_cost_")
-                   for p in port.store.query())
+    cost_rows = [sorted(p["name"] for p in rt.store.query(since=now)
+                        if p["name"].startswith("dftpu_cost_")
+                        and not p["labels"])
+                 for rt in (port, ref)]
+    assert cost_rows[0] == cost_rows[1]
+    assert "dftpu_cost_watermark_host_rss_bytes" in cost_rows[0]
 
 
 def test_runtime_start_and_stop_join_both_loops(artifact, tmp_path):

@@ -21,14 +21,16 @@ in-process scorer's byte for byte, and the reference's within the curve
 model's predict tolerance (``tests/test_torch_anomaly.py`` states it).
 ``/metrics`` appends the ``dftpu_slo_*``, ``dftpu_anomaly_*`` and
 ``dftpu_data_quality_*`` families as the reference does, ``/debug/quality``
-is a 404 as in the reference, and ``shutdown`` joins the scrape and SLO
-threads and leaves the final scrape on disk.
+is a 404 as in the reference with ``tracing.debug_endpoints`` off, and
+``shutdown`` joins the scrape and SLO threads and leaves the final scrape
+on disk.
 """
 
 import json
 import os
 import re
 import threading
+import time
 import types
 import urllib.error
 import urllib.request
@@ -756,6 +758,13 @@ def test_shutdown_joins_the_loops_and_leaves_the_final_scrape(servers,
     assert quality.slo._latency is srv.metrics.latency
     assert _raw(srv, "POST", "/invocations",
                 {"inputs": ONE, "horizon": 3})[0] == 200
+    # the handler records the request's latency after its response is
+    # written (and its root span closed): wait for it, so the final scrape
+    # below races nothing
+    deadline = time.monotonic() + 10
+    while srv.metrics.latency.count < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert srv.metrics.latency.count == 1
     assert quality.store.query() == []
     srv.shutdown()
     assert not any(t.is_alive() for t in threads)

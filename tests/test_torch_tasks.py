@@ -1411,16 +1411,24 @@ def _serve_conf(root, **serving):
 
 @pytest.mark.parametrize("block, item", [
     ("serving.ingest", None), ("serving.cache", "P12"),
-    ("serving.tracing.debug_endpoints", "P11"),
+    ("serving.tracing.debug_endpoints", "served"),
 ], ids=["ingest", "cache", "debug_endpoints"])
 def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
                                                            monkeypatch,
+                                                           request,
                                                            block, item):
     """The registry under tmp_path is empty: had the task reached the model
     load, it would fail there instead.  ``serving.ingest`` is ported: its
     block parses and the task goes on to the load (here a stub that
-    raises)."""
+    raises).  ``tracing.debug_endpoints: true`` is ported too: on the
+    forecasting-e2e store the task starts and ``/debug/trace`` answers
+    with the ``http.request`` span of a request before it."""
     from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    if item == "served":
+        _serve_with_debug_endpoints(request.getfixturevalue("runs"),
+                                    monkeypatch)
+        return
 
     def load(*args, **kwargs):
         raise LookupError("reached the model load")
@@ -1431,10 +1439,7 @@ def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
     node = conf[section]
     for key in path[:-1]:
         node = node[key]
-    if path[-1] == "debug_endpoints":
-        node["debug_endpoints"] = True
-    else:
-        node[path[-1]]["enabled"] = True
+    node[path[-1]]["enabled"] = True
     if item is None:
         with pytest.raises(LookupError, match="reached the model load"):
             tserve.ServeTask(init_conf=conf, device="cpu").launch()
@@ -1442,6 +1447,57 @@ def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1: {item}\)"):
         tserve.ServeTask(init_conf=conf, device="cpu").launch()
+
+
+def _serve_with_debug_endpoints(runs, monkeypatch):
+    """The shipped serve conf with ``tracing.debug_endpoints: true`` on the
+    port's forecasting-e2e store: the task configures the tracer, starts,
+    and ``GET /debug/trace`` holds the span tree of a ``/invocations``
+    sent before it."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.monitoring import trace as ttrace
+    from distributed_forecasting_tpu_torch.serving import server as tserver
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    started = {}
+
+    def start(forecaster, host, port, **kw):
+        started["srv"] = tserver.start_server(forecaster, host=host,
+                                              port=port, **kw)
+
+    monkeypatch.setattr(tserve, "serve", start)
+    _, root = runs["port"]
+    conf = _serve_conf(root, warmup_sizes=[1])
+    conf["serving"]["tracing"]["debug_endpoints"] = True
+    conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+        root, "quality_store_debug")
+    try:
+        tserve.ServeTask(init_conf=conf, device="cpu").launch()
+        srv = started["srv"]
+        assert ttrace.get_tracer().config.debug_endpoints
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            fc = srv.forecaster
+            key = dict(zip(fc.key_names, map(int, fc.keys[0])))
+            req = urllib.request.Request(
+                url + "/invocations",
+                data=json.dumps({"inputs": [key], "horizon": 7}).encode(),
+                headers={"X-Trace-Id": "debugtrace01"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert r.headers["X-Trace-Id"] == "debugtrace01"
+            with urllib.request.urlopen(url + "/debug/trace",
+                                        timeout=60) as r:
+                assert r.status == 200
+                doc = json.loads(r.read())
+        finally:
+            srv.shutdown()
+    finally:
+        ttrace.configure_tracing(ttrace.TraceConfig())
+    mine = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"
+            and e["args"].get("trace_id") == "debugtrace01"}
+    assert {"http.request", "serving.predict", "aot.call"} <= mine, mine
 
 
 @pytest.mark.parametrize("serving, match", [
@@ -1466,11 +1522,13 @@ def test_serve_task_serves_the_registered_model(runs, monkeypatch):
     the Staging version, warms, starts the quality store's scrape loop and
     the SLO evaluator (store under ``<env.root>/quality_store``, staleness
     from the env's tracking root), serves /invocations and /observe, and
-    logs the result-neutral blocks."""
+    configures the tracer and the cost layer from their blocks."""
     import json
     import urllib.request
 
     from distributed_forecasting_tpu_torch.engine import compile_cache as tcc
+    from distributed_forecasting_tpu_torch.monitoring import cost as tcost
+    from distributed_forecasting_tpu_torch.monitoring import trace as ttrace
     from distributed_forecasting_tpu_torch.serving import server as tserver
     from distributed_forecasting_tpu_torch.tasks import serve as tserve
 
@@ -1495,10 +1553,15 @@ def test_serve_task_serves_the_registered_model(runs, monkeypatch):
         text = [r.getMessage() for r in records]
         # compile_cache is armed by the Task base (its store under the env
         # root, the cache's counts logged after the warmup); tracing and
-        # the cost block are the scorer's half of P11
-        for block in ("tracing.enabled", "monitoring.cost"):
-            assert any(m.startswith(f"{block}: accepted") and "P11" in m
-                       for m in text), (block, text)
+        # the cost block take effect: the tracer and the cost layer are
+        # configured from the shipped blocks and nothing logs them as
+        # having no effect
+        assert not any("no effect" in m for m in text), text
+        tracer = ttrace.get_tracer()
+        assert tracer.config == ttrace.TraceConfig.from_conf(
+            _serve_conf(root)["serving"]["tracing"])
+        assert tcost.get_cost_config() == tcost.CostConfig.from_conf(
+            _serve_conf(root)["monitoring"]["cost"])
         assert not any(m.startswith("compile_cache: accepted")
                        for m in text), text
         assert tcc.get_store().directory == os.path.join(
