@@ -75,7 +75,13 @@ its own size:
     trees from ``http.request`` to ``aot.call``, ``/debug/trace``,
     ``/debug/profile`` during a refit (``hw_score``, ``hw_filter``) and
     arima traffic (``arima_predict``), the flight-recorder dump of a 503,
-    ``/debug/cost`` and the ``dftpu_cost_*`` store rows.
+    ``/debug/cost`` and the ``dftpu_cost_*`` store rows;
+  * the serving fleet: the fleet task (front door, supervisor, 2 replica
+    processes on the card, series sharding with per-shard WALs) on a
+    Holt-Winters artifact — scatter-gather bodies byte-equal to one
+    scorer's, an ingest and the refit it forces inside a replica
+    (``hw_score``, ``hw_filter``), replicas killed mid-stream and their
+    warm boots from the shared kernel store.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -170,7 +176,7 @@ is not 0:
               agrees with the CPU (see ``pool_vs_cpu``).  Times: per task
               and ``fit_seconds`` (medians of WORKFLOW_RUNS runs), the
               train task's
-              dispatch stage (CUDA events, median of 5; idle share; the
+              dispatch stage (CUDA events, median of 3; idle share; the
               host syncs PyTorch reports), the croston recurrence at the
               fit and CV shapes beside its bounds, and season detection
   9. complete allocated-baseline and hierarchical-m5, each WORKFLOW_RUNS
@@ -446,15 +452,46 @@ is not 0:
               inside ``serving_predict:arima``; ``refit.swap`` in the ring.
               (c) A request held past ``request_timeout_s`` answers 503
               and leaves a ``flight-*-http-503.trace.json`` dump.  (d) The
-              seconds charged to ``serving_predict:arima`` over 20 predicts
+              seconds charged to ``serving_predict:arima`` over 10 predicts
               at 1, 5, 100 and 500 series against CUDA events at the same
               instants (0.8-1.2x) and around the whole call, the pad rows
               charged equal to the sum of (bucket - k), ``/debug/cost``'s
               ``serving_predict*`` rows, the ``dftpu_cost_*`` store rows
               after one scrape.  (e) /invocations p50 / p95 at 1 and 500
-              series (horizon 7) with tracing on and off, 100 each, in
+              series (horizon 7) with tracing on and off, 60 each, in
               turns of 10;
               one ``device_annotation`` and one span timed alone
+ 20. fleet    the serving fleet (``slice21_phase``) on the committed
+              dataset: a Holt-Winters artifact with its history sidecar,
+              served by ``python -m
+              distributed_forecasting_tpu_torch.tasks.fleet`` on the
+              shipped serve conf with 2 replicas, sharding (8 shards,
+              replication 2), ingest with refits, breakers after 3
+              failures and a fresh kernel store (``FLEET_CONF``), beside a
+              single ``tasks.serve`` scorer in this process on the same
+              conf.  (a) /invocations of 1, 17 and 500 series through the
+              front door byte-equal to the single scorer's (the 1-series
+              request routed to one shard, the others scattered), and
+              p50 / p95 through the front door and straight to a replica.
+              (b) One /ingest of 500 points for one shard's series: every
+              owner applies it (``dftpu_shard_ingest_points_total``,
+              ``dftpu_ingest_applied_points_total``).  (c) Its backlog
+              forces a refit in each replica: replica 0's
+              ``/debug/profile`` capture holds hw_score and hw_filter
+              inside ``pipeline_dispatch:refit:backlog``; the forecasts
+              after it are byte-equal to the single scorer's, which
+              applied the same points and refit.  (d) SIGKILL to replica 1
+              while one keep-alive client streams: every request answers
+              200 on the same connection; then replica 0 too.  (e) Each
+              replica's cold and warm boot and its stages (its ready
+              line), restart-to-ready, the restarted library a store hit
+              with no miss (no ``nvcc``).  (f) The fleet /metrics is
+              ``aggregate_prometheus`` of the replicas' scrapes, and the
+              front-door process holds no CUDA context.  After the
+              restarts (each replica replays the shard WAL and refits on
+              its backlog) the forecasts are byte-equal again; a SIGTERM
+              drains the fleet and each replica's drain line gives its
+              launches
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -470,7 +507,8 @@ arima_predict launches through HTTP, /invocations and /detect_anomalies,
 phase 13's train task, phases 14-15's main paths and tasks, phase 16's
 fit and forced refit, phase 17's fits, tail refits, train task and
 artifact predict, phase 18's train tasks and ``run_many``, and phase
-19's fits, forced refit and predicts; the arima rows add phase 17's kernel
+19's fits, forced refit and predicts, and the launches phase 20's
+replicas logged at their drain; the arima rows add phase 17's kernel
 times at the window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
@@ -2015,9 +2053,14 @@ def count_syncs(fn) -> list:
             for w in caught if "synchroniz" in str(w.message)]
 
 
+# samples of the pooled train task's dispatch (each ~8 s on the card)
+POOLED_DISPATCH_REPS = 3
+
+
 def pooled_timings(port, root: str, spec: dict, card_line: str) -> dict:
     """Phase 8's device times on the real dataset: the train task's dispatch
-    stage (CUDA events, median of 5; the device's idle share; its host
+    stage (CUDA events, median of POOLED_DISPATCH_REPS; the device's idle
+    share; its host
     syncs), the croston recurrence at the fit and CV shapes beside its
     bounds, and season detection (the ACF alone on the card, and the whole
     detection with its host pull)."""
@@ -2026,7 +2069,8 @@ def pooled_timings(port, root: str, spec: dict, card_line: str) -> dict:
     state = prep()
     batch = state["batch"]
     dispatch(dict(state))  # warm-up
-    t = {"dispatch_ms": cuda_ms(lambda: dispatch(dict(state))),
+    t = {"dispatch_ms": cuda_ms(lambda: dispatch(dict(state)),
+                                reps=POOLED_DISPATCH_REPS),
          "dispatch_profile": idle_share(lambda: dispatch(dict(state)),
                                         top_n=12),
          "dispatch_host_syncs": count_syncs(lambda: dispatch(dict(state)))}
@@ -7750,8 +7794,8 @@ RT_DAYS = 14               # days of actuals the traced /observe and
 RT_TIMEOUT_S = 2.0         # the arima scorer's request_timeout_s, for (c)
 RT_PROFILE_S = 2.0         # the /debug/profile window of (b)
 RT_COST_SIZES = (1, 5, 100, 500)  # request sizes of (d): pads 0, 1, 28, 0
-RT_COST_REPS = 20          # direct predicts of each size in (d)
-RT_LAT_REQUESTS = 100      # (e): /invocations per size and tracing mode
+RT_COST_REPS = 10          # direct predicts of each size in (d)
+RT_LAT_REQUESTS = 60       # (e): /invocations per size and tracing mode
 RT_LAT_HORIZON = 7         # (e)'s horizon: the 500-series body's encoding
                            # (host JSON) stays a few tens of ms
 RT_LAT_BLOCK = 10          # requests in a row before the mode flips
@@ -8308,6 +8352,618 @@ def slice20_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 20: the serving fleet -----------------------------------------------
+
+FLEET_HORIZON = 28          # /invocations horizon of (a), (c) and (d)
+FLEET_SIZES = (1, 17, 500)
+FLEET_LATENCY = {1: 40, 17: 40, 500: 20}  # sequential requests a size, leg
+FLEET_STREAM = (15, 30)     # (d): keep-alive requests before / after the kill
+FLEET_POINTS = 500          # (b): one ingest of this many points
+FLEET_PROFILE_S = 2.0       # (c): the capture's window around the ingest
+FLEET_BOOT_S = 600.0        # a cold replica boot builds the kernel library
+# gauges whose value depends on the scraper's own connections
+FLEET_OBSERVER_GAUGES = ("dftpu_http_workers_busy",)
+FLEET_CONF = {"serving.fleet.enabled": True,
+              "serving.fleet.replicas": 2,
+              "serving.sharding.enabled": True,
+              "serving.resilience.breaker_failures": 3,
+              "serving.ingest.enabled": True,
+              # a replica follows the shared WAL on an interval (the fleet
+              # default); the single process applies in the POST
+              "serving.ingest.apply_mode": None,
+              "serving.ingest.refit.enabled": True,
+              # (b)'s ingest is the backlog that forces (c)'s refit
+              "serving.ingest.refit.max_applied_points": FLEET_POINTS,
+              "serving.ingest.refit.max_staleness_s": 1e9,
+              "serving.ingest.refit.check_interval_s": 0.5,
+              "serving.tracing.debug_endpoints": True,
+              "compile_cache.enabled": True}
+
+
+def fleet_conf(port, root: str, name: str, number: int) -> dict:
+    """The shipped serve conf for phase 20: :data:`FLEET_CONF` on top, the
+    model, localhost, the front door on ``number``, and its own WAL,
+    quality-store, profile and (fresh) kernel-store directories under
+    ``root``."""
+    conf = port["config"].load_conf(SERVE_CONF)
+    conf["env"] = {"root": root}
+    conf["serving"].update(model_name=name, host="127.0.0.1", port=number)
+    changed = {**FLEET_CONF,
+               "serving.ingest.wal_dir": os.path.join(root, "wal_fleet"),
+               "serving.tracing.profile_dir": os.path.join(root, "profile"),
+               "monitoring.quality_store.directory":
+                   os.path.join(root, "quality_fleet"),
+               "compile_cache.directory": os.path.join(root, "kernels")}
+    for key, value in changed.items():
+        *path, last = key.split(".")
+        node = conf
+        for k in path:
+            node = node[k]
+        assert last in node, key  # only keys the shipped conf has
+        node[last] = value
+    return conf
+
+
+class FleetProcess:
+    """``python -m distributed_forecasting_tpu_torch.tasks.fleet`` as a
+    child process in a session of its own (its replica children with it):
+    started, polled through the front door, drained with SIGTERM, and the
+    whole process group killed whatever happens in between."""
+
+    def __init__(self, conf_path: str, number: int, log_path: str):
+        self.conf_path, self.port, self.log_path = conf_path, number, log_path
+
+    def __enter__(self):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        env["DFTPU_PLATFORM"] = "cpu" if DEVICE == "cpu" else "cuda"
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "distributed_forecasting_tpu_torch.tasks.fleet",
+             "--conf-file", self.conf_path], cwd=ROOT, env=env,
+            stdout=self.log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def replicas(self) -> list:
+        return json.loads(http_call(self.port, "GET", "/fleet")[1])[
+            "replicas"]
+
+    def wait(self, ready, timeout: float = FLEET_BOOT_S) -> list:
+        """Poll ``/fleet`` until ``ready(replicas)``; connection refusals
+        (the front door binds once a replica is ready) count as not
+        yet.  Fails if the task exits or the wait runs out."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"the fleet task exited with {self.proc.returncode}: "
+                    f"{self.log_tail()}")
+            try:
+                reps = self.replicas()
+                if ready(reps):
+                    return reps
+            except (OSError, ValueError, KeyError):
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"the fleet was not ready in {timeout} s: "
+                             f"{self.log_tail()}")
+
+    def pid_of(self, replica_port: int) -> int:
+        """The pid of the replica child serving ``replica_port`` (a child
+        of the task whose ``--conf`` names the port, read from /proc)."""
+        for pid in (int(d) for d in os.listdir("/proc") if d.isdigit()):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    ppid = int(f.read().rpartition(")")[2].split()[1])
+                if ppid != self.proc.pid:
+                    continue
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().split(b"\0")
+            except (OSError, ValueError, IndexError):
+                continue
+            if b"--conf" in argv:
+                rconf = json.loads(argv[argv.index(b"--conf") + 1])
+                if int(rconf["port"]) == int(replica_port):
+                    return pid
+        raise AssertionError(f"no replica child on port {replica_port}")
+
+    def log_text(self) -> str:
+        self.log.flush()
+        with open(self.log_path) as f:
+            return f.read()
+
+    def log_tail(self, n: int = 4000) -> str:
+        return self.log_text()[-n:]
+
+    def drain(self, timeout: float = 60.0) -> float:
+        """SIGTERM the task (it drains the front door and every replica);
+        returns the seconds the drain took."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        self.proc.wait(timeout)
+        return time.perf_counter() - t0
+
+    def __exit__(self, *exc):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                pass
+        try:  # the task and any replica it left behind
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait(30)
+        self.log.close()
+
+
+def boot_lines(log: str, number: int) -> list:
+    """The ready lines a replica on ``number`` logged (one a boot): the
+    seconds from its ``main`` to ready, the stages' seconds, and
+    compile-cache hits and misses."""
+    import re
+
+    out = []
+    for m in re.finditer(
+            rf"replica ready on 127\.0\.0\.1:{number} on (\S+) in "
+            rf"([0-9.]+)s \(([^;]*); compile cache (\d+) hit\(s\), "
+            rf"(\d+) miss\(es\)\)", log):
+        stages = {k: float(v.rstrip("s")) for k, v in (
+            part.split() for part in m.group(3).split(", ") if part)}
+        out.append({"device": m.group(1), "seconds": float(m.group(2)),
+                    "stages": stages, "cache_hits": int(m.group(4)),
+                    "cache_misses": int(m.group(5))})
+    return out
+
+
+def drain_launches(log: str) -> list:
+    """Each drained replica's hand-kernel launch counts (its drain line)."""
+    import re
+
+    return [json.loads(m.group(1)) for m in re.finditer(
+        r"drained; hand-kernel launches in this process: (\{[^}]*\})", log)]
+
+
+def fleet_points(fc, shard: int, num_shards: int, first_day: int,
+                 n: int, seed: int) -> list:
+    """``n`` ``/ingest`` records (``k`` / ``d`` form) for the series of one
+    shard, day by day from ``first_day``, values from ``seed``."""
+    from distributed_forecasting_tpu_torch.serving.sharding import (
+        shard_of_key,
+    )
+
+    keys = [k for k in fc.keys.tolist() if shard_of_key(k, num_shards)
+            == shard]
+    rng = np.random.default_rng(seed)
+    out = []
+    day = first_day
+    while len(out) < n:
+        for k in keys[:n - len(out)]:
+            out.append({"k": [int(v) for v in k], "d": day,
+                        "y": float(np.round(rng.lognormal(3.5, 0.3)))})
+        day += 1
+    return out
+
+
+def _metric(text: str, name: str) -> float:
+    """Sum of every sample of ``name`` (any labels) in an exposition."""
+    import re
+
+    return sum(float(m.group(1)) for m in re.finditer(
+        rf"^{name}(?:\{{[^}}]*\}})? (\S+)$", text, re.M))
+
+
+def _samples_of(text: str) -> dict:
+    return {line.rpartition(" ")[0]: float(line.rpartition(" ")[2])
+            for line in text.splitlines()
+            if line and not line.startswith("#")}
+
+
+def fleet_requests(fc, size: int) -> dict:
+    return {"inputs": _inputs(fc.keys[:size][::-1], fc.key_names),
+            "horizon": FLEET_HORIZON}
+
+
+def fleet_latency(front: int, direct: int, fc, card_line: str) -> dict:
+    """(a)'s times: /invocations p50 / p95 at each size through the front
+    door and straight to a replica, in turns; the scatter-gather
+    overhead is the front door's p50 over the direct one."""
+    out = {}
+    for size, n in FLEET_LATENCY.items():
+        req = fleet_requests(fc, size)
+        ms = {"front_door": [], "direct": []}
+        for _ in range(n):
+            for leg, number in (("front_door", front), ("direct", direct)):
+                t0 = time.perf_counter()
+                status, body, _ = http_call(number, "POST", "/invocations",
+                                            req)
+                ms[leg].append((time.perf_counter() - t0) * 1e3)
+                assert status == 200, body[:300]
+        got = {leg: _pcts(v) for leg, v in ms.items()}
+        got["overhead_p50_ms"] = (got["front_door"]["p50_ms"]
+                                  - got["direct"]["p50_ms"])
+        out[size] = got
+    emit("fleet_latency", card=card_line, horizon=FLEET_HORIZON,
+         sizes=out)
+    return out
+
+
+def fleet_refit(fleet, single, fc, replicas, num_shards: int) -> dict:
+    """(b) and (c): one ``/ingest`` of FLEET_POINTS points for the series
+    of one shard through the front door (and the same body to the single
+    process) while replica 0 runs ``/debug/profile`` (a throwaway capture
+    first: a process's first records no device activity).  Every owner
+    applies the points; the backlog trigger (max_applied_points) forces a
+    refit in each replica, whose capture must hold hw_score and hw_filter
+    inside ``pipeline_dispatch:refit:backlog``.  A capture that misses
+    them is taken again with the next days' points, up to
+    TRACE_ATTEMPTS."""
+    from distributed_forecasting_tpu_torch.serving.sharding import (
+        shard_of_key,
+    )
+
+    r0 = replicas[0]["port"]
+    shard = shard_of_key(fc.keys[0].tolist(), num_shards)
+    owners = [r["port"] for r in replicas if shard in r["shards"]]
+    t0 = time.perf_counter()
+    status, body, _ = http_call(r0, "GET", "/debug/profile?seconds=0.5")
+    assert status == 200, body[:300]
+    seconds = {"throwaway_capture": time.perf_counter() - t0}
+    want = {"hw_score": "hw_score_kernel", "hw_filter": "hw_filter_kernel"}
+    tries, day = [], int(fc.day1) + 1
+    refits0 = {p: _metric(http_call(p, "GET", "/metrics")[1].decode(),
+                          "dftpu_ingest_refits_total") for p in owners}
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        points = fleet_points(fc, shard, num_shards, day, FLEET_POINTS,
+                              seed=31 + attempt)
+        day = max(p["d"] for p in points) + 1
+        got = {}
+
+        def capture():
+            got["capture"] = http_call(
+                r0, "GET", f"/debug/profile?seconds={FLEET_PROFILE_S}")
+
+        th = threading.Thread(target=capture)
+        t_cap = time.perf_counter()
+        th.start()
+        time.sleep(0.3)  # the capture is running
+        t0 = time.perf_counter()
+        status, body, headers = http_call(fleet.port, "POST", "/ingest",
+                                          {"points": points})
+        post_ms = (time.perf_counter() - t0) * 1e3
+        assert status == 200, body[:300]
+        ack = json.loads(body)
+        assert ack["written"] == FLEET_POINTS, ack
+        assert headers.get("X-Fleet-Shard") == str(shard), headers
+        status, body, _ = http_call(single.server_address[1], "POST",
+                                    "/ingest", {"points": points})
+        assert status == 200 and json.loads(body)["written"] == \
+            FLEET_POINTS, body[:300]
+        th.join(60)
+        assert not th.is_alive()
+        seconds[f"capture_{attempt}"] = time.perf_counter() - t_cap
+        status, body, _ = got["capture"]
+        assert status == 200, body[:300]
+        path = os.path.join(json.loads(body)["capture_dir"], "trace.json")
+        found = {k: _annotation_encloses_kernel(
+            path, "pipeline_dispatch:refit:backlog", kernel)
+            for k, kernel in want.items()}
+        ok = all(f["device_timeline"] or f["host_timeline"]
+                 for f in found.values())
+        tries.append({"post_ms": post_ms,
+                      "kernels": {k: f["kernels"] for k, f in found.items()},
+                      "enclosed": {k: f["device_timeline"]
+                                   or f["host_timeline"]
+                                   for k, f in found.items()}})
+        if ok:
+            break
+    assert ok, (found, tries)
+    # every owner applied every point and refit once an ingest; the single
+    # process did the same
+    t0 = time.perf_counter()
+    deadline = time.perf_counter() + 60
+    while True:
+        texts = {p: http_call(p, "GET", "/metrics")[1].decode()
+                 for p in owners}
+        done = all(_metric(t, "dftpu_ingest_refits_total") - refits0[p]
+                   >= attempt for p, t in texts.items())
+        if done or time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    assert done, {p: _metric(t, "dftpu_ingest_refits_total")
+                  for p, t in texts.items()}
+    applied = {}
+    for p, t in texts.items():
+        applied[p] = {
+            "applied_points": _metric(t, "dftpu_ingest_applied_points_total"),
+            "late_points": _metric(t, "dftpu_ingest_late_points_total"),
+            "shard_points": _metric(t, "dftpu_shard_ingest_points_total"),
+            "refits": _metric(t, "dftpu_ingest_refits_total")}
+        assert applied[p]["shard_points"] == attempt * FLEET_POINTS, applied
+        assert applied[p]["applied_points"] == attempt * FLEET_POINTS, \
+            applied
+    seconds["replica_refits"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refit = single.ingest.refit
+    deadline = time.perf_counter() + 60
+    while refit.snapshot()["refits_done"] < attempt and \
+            time.perf_counter() < deadline:
+        refit.wait(timeout=60)
+        time.sleep(0.05)
+    assert refit.snapshot()["refits_done"] >= attempt, refit.snapshot()
+    seconds["single_refit"] = time.perf_counter() - t0
+    return {"shard": shard, "owners": owners, "attempt": attempt,
+            "seconds": seconds,
+            "tries": tries, "applied": applied,
+            "single_refits": refit.snapshot()["refits_done"],
+            "kernels": found}
+
+
+def fleet_equal(front: int, single: int, fc, when: str) -> dict:
+    """Front-door /invocations bodies at 1, 17 and 500 series byte-equal
+    to the single process's; the 1-series request routed to one shard,
+    the others scattered."""
+    out = {}
+    for size in FLEET_SIZES:
+        req = fleet_requests(fc, size)
+        status, body, headers = http_call(front, "POST", "/invocations", req)
+        want = http_call(single, "POST", "/invocations", req)
+        assert status == want[0] == 200, body[:300]
+        assert body == want[1], (when, size, len(body), len(want[1]))
+        route = ("shard" if "X-Fleet-Shard" in headers
+                 else f"scatter {headers.get('X-Fleet-Scatter')}")
+        assert (route == "shard") == (size == 1), (size, headers)
+        out[size] = {"bytes": len(body), "route": route}
+    return out
+
+
+def fleet_kill(fleet, fc, replicas, card_line: str) -> dict:
+    """(d) and (e): one keep-alive client streams /invocations (1 and 17
+    series in turns) through the front door; after FLEET_STREAM[0]
+    requests replica 1 gets SIGKILL, and every request still answers 200
+    on the same connection.  Replica 0 is killed when the stream ends, so
+    each replica boots warm; both restarts are timed from the kill to
+    ready in /fleet, their boots read from their ready lines, their kernel
+    library a store hit with no miss."""
+    import http.client
+    import signal
+
+    conn = http.client.HTTPConnection("127.0.0.1", fleet.port, timeout=300)
+    reqs = [fleet_requests(fc, 1), fleet_requests(fc, 17)]
+    statuses, killed, sockets = [], {}, set()
+    victim = replicas[1]
+    try:
+        for i in range(sum(FLEET_STREAM)):
+            if i == FLEET_STREAM[0]:
+                pid = fleet.pid_of(victim["port"])
+                os.kill(pid, signal.SIGKILL)
+                killed[victim["index"]] = (time.perf_counter(), pid)
+            status, _, headers = http_call(
+                fleet.port, "POST", "/invocations", reqs[i % 2], conn=conn)
+            assert headers.get("Connection", "").lower() != "close"
+            statuses.append(status)
+            # http.client dials again after a closed response: one local
+            # address over the stream is one connection
+            sockets.add(conn.sock.getsockname() if conn.sock else None)
+    finally:
+        conn.close()
+    assert statuses == [200] * len(statuses), statuses
+    assert len(sockets) == 1 and None not in sockets, sockets
+    other = replicas[0]
+    pid = fleet.pid_of(other["port"])
+    os.kill(pid, signal.SIGKILL)
+    killed[other["index"]] = (time.perf_counter(), pid)
+    ready_at = {}
+    t_end = time.perf_counter() + FLEET_BOOT_S
+    while len(ready_at) < len(killed) and time.perf_counter() < t_end:
+        try:
+            for r in fleet.replicas():
+                if (r["index"] in killed and r["index"] not in ready_at
+                        and r["ready"] and r["restarts"] >= 1):
+                    ready_at[r["index"]] = time.perf_counter()
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+    assert len(ready_at) == len(killed), fleet.log_tail()
+    log = fleet.log_text()
+    out = {"stream_requests": len(statuses),
+           "client_connections": len(sockets),
+           "replicas": {}}
+    for r in replicas:
+        boots = boot_lines(log, r["port"])
+        assert len(boots) == 2, (r["port"], boots)
+        cold, warm = boots
+        text = http_call(r["port"], "GET", "/metrics")[1].decode()
+        samples = _samples_of(text)
+        outcomes = {o: samples.get(
+            'compile_cache_entry_requests_total{entry="kernel_library",'
+            f'outcome="{o}"}}', 0.0) for o in ("hit", "miss", "error")}
+        if DEVICE == "cuda":  # the restart loaded the store's library
+            assert (warm["cache_hits"], warm["cache_misses"]) == (1, 0), warm
+            assert outcomes == {"hit": 1.0, "miss": 0.0, "error": 0.0}, \
+                outcomes
+        restart = ready_at[r["index"]] - killed[r["index"]][0]
+        out["replicas"][r["index"]] = {
+            "port": r["port"], "cold_boot": cold, "warm_boot": warm,
+            "restart_to_ready_s": restart,
+            # the respawn, the interpreter's start and the imports (and the
+            # supervisor's next poll): the restart outside the boot's main
+            "restart_outside_main_s": restart - warm["seconds"],
+            "kernel_library_after_restart": outcomes}
+    emit("fleet_restart", card=card_line, **out)
+    return out
+
+
+def fleet_front_door(fleet, replicas) -> dict:
+    """(f): the fleet ``/metrics`` is ``aggregate_prometheus`` of the
+    replicas' scrapes (every sample present; each value equal wherever
+    the replicas' own values held still across the front door's scrape,
+    :data:`FLEET_OBSERVER_GAUGES` aside) plus the supervisor's families, and the front-door process holds no
+    CUDA context (its log line, and the count of ``nvidia-smi``'s compute
+    processes)."""
+    from distributed_forecasting_tpu_torch.serving.fleet import (
+        aggregate_prometheus,
+    )
+
+    before = [http_call(r["port"], "GET", "/metrics")[1].decode()
+              for r in replicas]
+    front = http_call(fleet.port, "GET", "/metrics")[1].decode()
+    after = [http_call(r["port"], "GET", "/metrics")[1].decode()
+             for r in replicas]
+    want = _samples_of(aggregate_prometheus(before))
+    got = _samples_of(front)
+    missing = sorted(set(want) - set(got))
+    assert not missing, missing[:10]
+    # busy workers count the connections open to a replica, which
+    # depend on who scrapes: the front door's pooled legs or this client
+    steady = [k for k in want if not k.startswith(FLEET_OBSERVER_GAUGES)
+              and all(_samples_of(b).get(k) == _samples_of(a).get(k)
+                      for b, a in zip(before, after))]
+    differ = [k for k in steady if got[k] != want[k]]
+    assert not differ, [(k, got[k], want[k]) for k in differ[:10]]
+    assert "fleet_replicas_ready 2" in front
+    notes = [line for line in fleet.log_text().splitlines()
+             if "CUDA initialized in this process" in line]
+    assert notes and all(line.endswith("CUDA initialized in this "
+                                       "process: False)") for line in notes)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True) if shutil.which("nvidia-smi") else None
+    pids = ([int(p) for p in smi.stdout.split()]
+            if smi is not None and smi.returncode == 0 else [])
+    # this process and each replica hold a context; a container's pid
+    # namespace may show every pid as 1, so the count is what tells
+    if pids:
+        assert fleet.proc.pid not in pids or set(pids) == {1}, pids
+        assert len(pids) <= len(replicas) + 1, pids
+    return {"samples": len(want), "steady_equal": len(steady),
+            "moving": len(want) - len(steady),
+            "front_door_log": notes[-1].rpartition("(")[2].rstrip(")"),
+            "nvidia_smi_compute_processes": len(pids),
+            "nvidia_smi_compute_pids": pids}
+
+
+def slice21_phase(port, card_line: str) -> dict:
+    """Phase 20: the serving fleet.  A Holt-Winters artifact of the
+    committed dataset (uncut, history sidecar) registered in Staging; the
+    fleet task started as a user starts it on the shipped serve conf with
+    :data:`FLEET_CONF` (2 replicas, 8 shards x replication 2, ingest with
+    refits, breakers after 3 failures, a fresh kernel store), beside a
+    single ``tasks.serve`` scorer in this process on the same conf
+    without the fleet.  (a) byte-equal bodies and latency, (b)-(c) the
+    ingest and the refit in a replica, (d)-(e) kills and warm boots, (f)
+    the front door, then a drain: each replica's launches from its drain
+    line."""
+    t_phase = time.perf_counter()
+    trace = port["trace"]
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                   device=DEVICE)
+    assert (batch.n_series, batch.n_time) == SHAPE
+    root = tempfile.mkdtemp(prefix="fleet_")
+    out, seconds, single = {}, {}, None
+    try:
+        art = stream_artifacts(port, root, batch,
+                               families=("holt_winters",))["holt_winters"]
+        number = free_port()
+        conf = fleet_conf(port, root, art["name"], number)
+        conf_path = os.path.join(root, "fleet.json")
+        with open(conf_path, "w") as f:
+            json.dump(conf, f)  # JSON is YAML
+        with FleetProcess(conf_path, number,
+                          os.path.join(root, "fleet.log")) as fleet:
+            # the single process, meanwhile: the same conf, no fleet, its
+            # own WAL and store, the library already loaded here
+            sconf = json.loads(json.dumps(conf))
+            sconf["serving"]["fleet"]["enabled"] = False
+            sconf["serving"]["port"] = 0
+            sconf["serving"]["tracing"]["debug_endpoints"] = False
+            sconf["serving"]["ingest"].update(
+                apply_mode="sync", wal_dir=os.path.join(root, "wal_single"))
+            sconf["monitoring"]["quality_store"]["directory"] = \
+                os.path.join(root, "quality_single")
+            sconf["compile_cache"]["enabled"] = False
+            kw = port["serve_task"].ServeTask(init_conf=sconf,
+                                              device=DEVICE).server_args()
+            single = port["server"].start_server(**kw)
+            fc = single.forecaster
+            t0 = time.perf_counter()
+            replicas = fleet.wait(lambda reps: len(reps) == 2 and all(
+                r["ready"] for r in reps))
+            seconds["cold_boot"] = time.perf_counter() - fleet.t0
+            owned = sorted({k for r in replicas for k in r["shards"]})
+            assert owned == list(range(conf["serving"]["sharding"][
+                "num_shards"])), replicas
+            num_shards = conf["serving"]["sharding"]["num_shards"]
+            for name, run in (
+                    ("forecasts", lambda: fleet_equal(
+                        fleet.port, single.server_address[1], fc,
+                        "before the ingest")),
+                    ("latency", lambda: fleet_latency(
+                        fleet.port, replicas[0]["port"], fc, card_line)),
+                    ("refit", lambda: fleet_refit(
+                        fleet, single, fc, replicas, num_shards)),
+                    ("forecasts_after_refit", lambda: fleet_equal(
+                        fleet.port, single.server_address[1], fc,
+                        "after the refit")),
+                    ("restart", lambda: fleet_kill(fleet, fc, replicas,
+                                                   card_line)),
+                    ("front_door", lambda: fleet_front_door(
+                        fleet, replicas))):
+                t0 = time.perf_counter()
+                out[name] = run()
+                seconds[name] = time.perf_counter() - t0
+            # the restarted replicas replayed the shard WAL and refit on
+            # its backlog: the forecasts still equal the single process's
+            t0 = time.perf_counter()
+            deadline = time.perf_counter() + 60
+            while not all(_metric(http_call(r["port"], "GET", "/metrics")[
+                    1].decode(), "dftpu_ingest_refits_total") >= 1
+                    for r in replicas) and time.perf_counter() < deadline:
+                time.sleep(0.1)
+            out["forecasts_after_restart"] = fleet_equal(
+                fleet.port, single.server_address[1], fc,
+                "after the restarts")
+            seconds["after_restart"] = time.perf_counter() - t0
+            seconds["drain"] = fleet.drain()
+            log = fleet.log_text()
+        assert fleet.proc.returncode == 0, log[-3000:]
+        launches = drain_launches(log)
+        assert len(launches) == 2, log[-3000:]
+        out["launches"] = {k: sum(d[k] for d in launches) for k in KERNELS}
+        out["launches_by_replica"] = launches
+    finally:
+        if single is not None:
+            single.shutdown()
+        trace.configure_tracing(trace.TraceConfig())
+        shutil.rmtree(root, ignore_errors=True)
+    launches = out["launches"]
+    emit("launches", path="fleet", **launches,
+         expected="hw_score, hw_filter: one refit a replica after its "
+                  "restart (the replayed backlog); the refits before the "
+                  "kills died with their processes (the capture shows "
+                  "them); arima_predict: none (a Holt-Winters artifact)")
+    if DEVICE == "cuda":
+        assert launches["hw_score"] >= 2 and launches["hw_filter"] >= 2
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("fleet", card=card_line, forecasts=out["forecasts"],
+         refit={k: out["refit"][k] for k in (
+             "shard", "owners", "attempt", "tries", "applied",
+             "single_refits", "seconds")},
+         front_door=out["front_door"],
+         after_restart=out["forecasts_after_restart"])
+    emit("phase20", card=card_line, seconds=out["seconds"], parts=seconds)
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -8732,6 +9388,7 @@ def main(argv=None) -> int:
     windowed = slice17_phase(port, card_line)
     runtime = slice19_phase(port, card_line)
     scorer_rt = slice20_phase(port, card_line)
+    fleet = slice21_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -8755,7 +9412,8 @@ def main(argv=None) -> int:
                               + p8_end["launches"][k]
                               + streaming["launches"][k]
                               + runtime["launches"][k]
-                              + scorer_rt["launches"][k]),
+                              + scorer_rt["launches"][k]
+                              + fleet["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -8774,7 +9432,8 @@ def main(argv=None) -> int:
                                  + p8_end["launches"][k]
                                  + windowed["launches"][k]
                                  + runtime["launches"][k]
-                                 + scorer_rt["launches"][k]),
+                                 + scorer_rt["launches"][k]
+                                 + fleet["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),

@@ -38,6 +38,15 @@ nothing — and the store serves the next process.  With no store
 configured, the library builds into ``build/torch_kernels/`` of a checkout
 (or PyTorch's extensions directory).
 
+The store's three failpoint sites (``monitoring/failpoints.py``) are the
+reference's: ``aot.load`` and ``aot.store`` at the plain sites, and the
+data site ``aot.load.payload``, where ``corrupt`` flips a byte of the
+stored library (or ``corrupt truncate`` cuts it), which is then discarded,
+labelled ``error`` and rebuilt.  ``DFTPU_COMPILE_CACHE=<dir>`` installs
+the store without a conf block (:func:`enable_from_env`): the fleet task
+hands it to every replica it spawns, so each replica and each restart
+loads the library from the task's store.
+
 Hit / miss / error / store counts and the load and build seconds are
 ``compile_cache_*`` metrics on the serving ``GET /metrics``.  Conf block
 (``tasks/common.Task`` parses it for every task)::
@@ -64,6 +73,10 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
+from distributed_forecasting_tpu_torch.monitoring.failpoints import (
+    failpoint,
+    failpoint_data,
+)
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.utils import get_logger
@@ -329,6 +342,9 @@ class AOTStore:
         record = json.loads(head)
         if record.get("format") != _FORMAT_VERSION:
             raise ValueError(f"store format {record.get('format')!r}")
+        # data site: "corrupt" / "corrupt truncate" mangle the payload
+        # where bit rot would land, upstream of the size and sha checks
+        payload = failpoint_data("aot.load.payload", payload)
         if len(payload) != record["size"]:
             raise ValueError(f"payload of {len(payload)} bytes, header says "
                              f"{record['size']}")
@@ -344,6 +360,9 @@ class AOTStore:
             return None
         t0 = time.perf_counter()
         try:
+            # inside the try, so an injected fault takes the path a real
+            # corrupt entry takes: discard, count an error, rebuild
+            failpoint("aot.load")
             payload = self.read(key)
             if payload is None:  # removed between the two lookups
                 return None
@@ -368,8 +387,10 @@ class AOTStore:
         store directory, flushed and fsync'd, then published with the
         atomic ``os.replace`` — a concurrent reader sees either no entry or
         a whole one, and the last of two concurrent writers wins with an
-        identical payload."""
+        identical payload (N fleet replicas booting on a cold store each
+        build and publish the same library)."""
         try:
+            failpoint("aot.store")
             record = {
                 "format": _FORMAT_VERSION,
                 "key": key,
@@ -394,7 +415,9 @@ class AOTStore:
             finally:
                 if os.path.exists(tmp):
                     os.remove(tmp)
-        except OSError as e:  # the store is an optimization, never a crash
+        # the store is an optimization, never a crash (an injected
+        # failpoint error included)
+        except Exception as e:  # noqa: BLE001
             _errors.inc()
             _logger.warning("failed to store %s: %s: %s", entry,
                             type(e).__name__, e)
@@ -535,6 +558,17 @@ def configure_compile_cache(
     return store
 
 
+def enable_from_env() -> Optional[AOTStore]:
+    """Install the store from ``DFTPU_COMPILE_CACHE=<dir>`` — the
+    conf-less hook of fleet replicas and scripts.  No-op when the variable
+    is unset or a conf block already configured the cache."""
+    directory = os.environ.get("DFTPU_COMPILE_CACHE")
+    if not directory or _active_config is not None:
+        return _active_store
+    return configure_compile_cache(
+        CompileCacheConfig(enabled=True, directory=directory))
+
+
 def get_store() -> Optional[AOTStore]:
     return _active_store
 
@@ -577,6 +611,7 @@ __all__ = [
     "aot_call",
     "cache_stats",
     "configure_compile_cache",
+    "enable_from_env",
     "fingerprint",
     "get_config",
     "get_store",

@@ -38,8 +38,11 @@ a predict still reads it.
 The refit's install (the state swap) runs under a ``refit.swap`` span
 (``model``, ``day_snap``, ``replayed_days``).
 
-Not here yet: the reference's ``failpoint(...)`` sites and the dftsan
-attach (ROADMAP Queue 1: P12).
+The reference's two failpoint sites (``monitoring/failpoints.py``) are
+here: ``state.swap`` between the store's commit and the forecaster's swap
+(the worst moment of an apply, which WAL replay must heal) and
+``refit.install`` before a refit mutates anything.  The thread
+sanitizer's ``attach`` is not here (ROADMAP Queue 1: P13).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.models.base import get_model
+from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.ops.update import apply_update
 from distributed_forecasting_tpu_torch.utils.device import resolve_device
@@ -278,6 +282,10 @@ class SeriesStateStore:
                 self._aux = aux2
                 self._day_cur = max_day
                 self._applied_since_refit += n_points
+            # fault site between the store's commit and the forecaster's:
+            # a crash here (store advanced, serving snapshot not yet
+            # swapped) is what WAL replay must heal
+            failpoint("state.swap")
             self._fc.swap_state(params=params2, day1=max_day)
             if self.metrics is not None:
                 self.metrics.update_seconds.observe(time.monotonic() - t0)
@@ -354,6 +362,9 @@ class SeriesStateStore:
 
     def _install_refit(self, state) -> None:
         """Replay and swap, under ``_apply_gate`` (the caller holds it)."""
+        # fault site before any mutation: an injected failure leaves the
+        # last good state installed
+        failpoint("refit.install")
         day_snap = int(state["day_snap"])
         params = state["params"]
         if self.device.type == "cuda":

@@ -978,8 +978,8 @@ class IngestMetrics:
 
     Fleet note: ``wal_bytes`` / ``wal_segments`` / ``applied_day`` describe
     SHARED state when replicas converge over one WAL directory — the
-    reference's fleet aggregator max-merges them instead of summing (the
-    fleet is ROADMAP Queue 1: P12).  ``tail_window_refits_total`` counts
+    fleet aggregator (``serving/fleet.aggregate_prometheus``) max-merges
+    them instead of summing.  ``tail_window_refits_total`` counts
     the tail-window refits of ``engine/windowed.WindowedSeriesStateStore``
     (beside ``refits_total``, which counts them too).
     """

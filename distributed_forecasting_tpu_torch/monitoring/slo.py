@@ -25,9 +25,9 @@ store, the burn rate over window W is ``mean(bad over W) / error_budget``,
 and a rule FIRES only when every configured window burns past its
 threshold — the short window proves it's happening NOW, the long window
 proves it's not a blip.  It CLEARS when the shortest window recovers.
-Results surface as ``dftpu_slo_*`` gauges on ``/metrics`` (the reference's
-fleet front door max-merges them, so an SLO firing anywhere is firing
-fleet-wide; the port's fleet is ROADMAP Queue 1: P12).
+Results surface as ``dftpu_slo_*`` gauges on ``/metrics`` (the fleet front
+door, ``serving/fleet.py``, max-merges them, so an SLO firing anywhere is
+firing fleet-wide).
 
 Conf::
 

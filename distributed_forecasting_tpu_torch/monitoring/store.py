@@ -24,10 +24,9 @@ store that serves those reads:
     counters and gauges as they are, histograms as ``_count``/``_sum`` plus
     p50/p95/p99 from ``Histogram.snapshot_quantiles()``.
 
-The reference's two fault-injection sites (``wal.read`` in
-:func:`read_segments_from`, ``store.append`` in
-:meth:`TimeSeriesStore.append`) are not here: failpoints come with
-``monitoring/failpoints.py`` (ROADMAP Queue 1: P12).
+The reference's two fault-injection sites are here
+(``monitoring/failpoints.py``): ``wal.read`` in :func:`read_segments_from`
+and ``store.append`` in :meth:`TimeSeriesStore.append`.
 
 Conf block ``monitoring.quality_store`` (strict — unknown keys raise)::
 
@@ -51,6 +50,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 _SEG_RE = re.compile(r"^seg-(\d{8})\.jsonl$")
@@ -92,6 +92,7 @@ def read_segments_from(
     are single ``O_APPEND`` writes of whole lines, reads consume whole
     lines, and the pair is torn-line tolerant end to end.
     """
+    failpoint("wal.read")
     new_cursor = dict(cursor or {})
     lines: List[str] = []
     for idx in segment_indices(directory):
@@ -212,6 +213,7 @@ class TimeSeriesStore:
                 self._seg_bytes = 0
             path = self._seg_path(self._seg)
             self._seg_bytes += len(payload)
+        failpoint("store.append")
         fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
         try:
             os.write(fd, payload)

@@ -9,12 +9,20 @@ from distributed_forecasting_tpu_torch.serving.bucketed import (
     BucketedForecaster,
 )
 from distributed_forecasting_tpu_torch.serving.dataplane import (
+    ConnectionPool,
     HttpConfig,
     PooledHTTPServer,
 )
 from distributed_forecasting_tpu_torch.serving.ensemble import (
     BlendedForecaster,
     MultiModelForecaster,
+)
+from distributed_forecasting_tpu_torch.serving.fleet import (
+    FleetConfig,
+    FleetSupervisor,
+    FrontDoorServer,
+    aggregate_prometheus,
+    start_fleet,
 )
 from distributed_forecasting_tpu_torch.serving.forecast_cache import (
     CacheConfig,
@@ -34,7 +42,8 @@ from distributed_forecasting_tpu_torch.serving.server import (
 )
 
 __all__ = ["BatchForecaster", "BatchingConfig", "BlendedForecaster",
-           "CacheConfig",
+           "CacheConfig", "ConnectionPool", "FleetConfig", "FleetSupervisor",
+           "FrontDoorServer", "aggregate_prometheus", "start_fleet",
            "BucketedForecaster", "ForecastServer", "HttpConfig",
            "MultiModelForecaster", "PooledHTTPServer", "QueueFullError",
            "RequestBatcher", "ServingMetrics", "ShuttingDownError",

@@ -15,8 +15,8 @@ device, in two legs that share one scorer:
   when micro-batching is on — the same ``execute`` path /invocations
   uses, so concurrent detection requests coalesce into shared device
   dispatches) and every point comes back with ``anomaly_score`` +
-  ``is_anomaly``.  (The reference's sharded front door, which routes the
-  batch per shard, is ROADMAP Queue 1: P12.)
+  ``is_anomaly``.  (A sharded fleet's front door, ``serving/fleet.py``,
+  routes the batch per shard and merges the owners' answers.)
 * **Streaming leg** — with ``stream_scoring`` on, every validated
   ``/ingest`` batch is scored against the CURRENT bands before the state
   update applies (a point must not vouch for itself), emitting

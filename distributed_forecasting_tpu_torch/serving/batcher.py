@@ -42,7 +42,7 @@ context; the scheduler thread records each request's
 timed out queued) and opens ``batcher.dispatch`` under the first request's
 context, with every member's trace id and the chunk's device seconds from
 the cost registry's attribution scope.  The reference's thread-sanitizer
-hooks are not here (ROADMAP Queue 1: P12).
+hooks are not here (ROADMAP Queue 1: P13).
 """
 
 from __future__ import annotations

@@ -29,9 +29,17 @@ The append runs under an ``ingest.append`` span (``points``,
 ``wal_dir``); :meth:`IngestRuntime.snapshot` is the ``/debug/ingest``
 body.
 
-Not here yet: the reference's failpoints (``wal.roll``,
-``wal.append.enospc``) and the dftsan attach (ROADMAP Queue 1: P12), the
-sharded replicas' WAL facade (P12).
+Fleet replicas (``serving/replica.py``) share ``wal_dir`` and follow it
+in ``interval`` mode; a sharded replica passes ``wal_factory`` to
+:func:`build_ingest_runtime`, which substitutes the per-shard facade
+(``serving/sharding.ShardedWAL``, ``wal_dir/shard-<k>/``).  The append
+carries the reference's failpoints (``monitoring/failpoints.py``):
+``wal.roll`` when the append opens a new segment and
+``wal.append.enospc`` before every write, both inside the write's ``try``
+so an injected ``OSError`` takes the cursor compensation a real ENOSPC
+takes; the follower read carries ``wal.read``
+(``monitoring/store.read_segments_from``).  The thread sanitizer's attach
+is ROADMAP Queue 1: P13.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from distributed_forecasting_tpu_torch.data.tensorize import period_ordinals
 from distributed_forecasting_tpu_torch.engine.state_store import (
     SeriesStateStore,
 )
+from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.monitoring.monitor import IngestMetrics
 from distributed_forecasting_tpu_torch.monitoring.store import (
     read_segments_from,
@@ -185,15 +194,22 @@ class WriteAheadLog:
         payload = "".join(
             json.dumps(r, separators=(",", ":")) + "\n" for r in records
         ).encode()
+        rolled = False
         with self._lock:
             if self._seg_bytes >= self.max_segment_bytes:
                 self._seg += 1
                 self._seg_bytes = 0
+                rolled = True
             seg = self._seg
             path = segment_path(self.directory, seg)
             self._seg_bytes += len(payload)
         written = 0
         try:
+            # fault sites inside the try: an injected OSError takes the
+            # cursor compensation a real ENOSPC / EIO takes
+            if rolled:
+                failpoint("wal.roll")
+            failpoint("wal.append.enospc")
             fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
             try:
                 while written < len(payload):
@@ -462,14 +478,16 @@ def build_ingest_runtime(conf: Optional[dict], forecaster,
                          quality=None,
                          default_wal_dir: Optional[str] = None,
                          device=None,
+                         wal_factory=None,
                          ) -> Optional[IngestRuntime]:
     """``serving.ingest`` conf block -> a runtime ready to start (or None
     when the block is absent or disabled).  ``history_y`` /
     ``history_mask`` enable full refits; without them only the incremental
     path runs (a bare-artifact deployment).  ``device``: where the state
-    lives, the card unless the caller passes ``device="cpu"``.  (The
-    reference's ``wal_factory``, the sharded replicas' per-shard log, is
-    ROADMAP Queue 1: P12.)"""
+    lives, the card unless the caller passes ``device="cpu"``.
+    ``wal_factory(wal_dir, max_segment_bytes)`` overrides the log's
+    construction: sharded replicas substitute the per-shard facade
+    (``serving/sharding.ShardedWAL``), which duck-types the single log."""
     config = IngestConfig.from_conf(conf)
     if not config.enabled:
         return None
@@ -482,7 +500,11 @@ def build_ingest_runtime(conf: Optional[dict], forecaster,
         forecaster, time_bucket=config.time_bucket,
         history_y=history_y, history_mask=history_mask, metrics=metrics,
         max_pending_days=config.max_pending_days, device=device)
-    wal = WriteAheadLog(wal_dir, max_segment_bytes=config.max_segment_bytes)
+    if wal_factory is not None:
+        wal = wal_factory(wal_dir, config.max_segment_bytes)
+    else:
+        wal = WriteAheadLog(wal_dir,
+                            max_segment_bytes=config.max_segment_bytes)
     refit_scheduler = None
     if config.refit:
         refit_config = RefitConfig.from_conf(config.refit)

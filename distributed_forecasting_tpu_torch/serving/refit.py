@@ -18,8 +18,10 @@ stream), the replay and the swap on the executor's writer thread:
 Serving keeps answering from the last state throughout: the swap is the
 only moment the applies and the refit contend.  For a Holt-Winters
 artifact on the card a refit is one ``hw_score`` launch over the grid and
-one ``hw_filter`` launch for the winners.  Not here yet: the
-``refit.submit`` failpoint (ROADMAP Queue 1: P12).
+one ``hw_filter`` launch for the winners.  The ``refit.submit``
+failpoint (``monitoring/failpoints.py``) sits inside the submit's claim
+window, so an injected failure takes the path a failing ``refit_stages``
+takes.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from distributed_forecasting_tpu_torch.engine.executor import (
     PipelineConfig,
     TrainingExecutor,
 )
+from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 # stop()'s drain patience before declaring the scheduler thread stuck
@@ -161,6 +164,9 @@ class RefitScheduler:
                 return None
             self._submitting = True
         try:
+            # inside the claim window: an injected failure takes the
+            # finally path a failing refit_stages() takes
+            failpoint("refit.submit")
             prep, dispatch, complete = self.store.refit_stages()
             handle = self._executor.submit(
                 f"refit:{trigger}", prep, dispatch, complete)

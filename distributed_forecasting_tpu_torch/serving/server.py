@@ -21,7 +21,10 @@ reference's routes, statuses, headers and bodies:
                              families; with an ingest runtime the
                              ``dftpu_ingest_*`` ones; with an anomaly
                              scorer the
-                             ``dftpu_anomaly_*`` ones; and, once a
+                             ``dftpu_anomaly_*`` ones; with
+                             ``extra_metrics`` (a sharded fleet replica's
+                             ``dftpu_shard_*`` registry) its render; and,
+                             once a
                              data-quality report has run in the process,
                              the ``dftpu_data_quality_*`` gauges
   POST /invocations       -> {"inputs": [{"store": 1, "item": 2}, ...],
@@ -86,8 +89,8 @@ anomaly scorer, ingest runtime and state store open their spans under it.
 An ``/invocations`` answered 5xx dumps the flight recorder
 (``tracing.dump_dir``) after its response is written.
 
-Not here: the forecast-cache runtime (P12; its parameter takes None only)
-and the sharded replicas' ``extra_metrics`` (P12).
+Not here: the forecast-cache runtime (ROADMAP Queue 1: P12, second half;
+its parameter takes None only).
 """
 
 from __future__ import annotations
@@ -240,6 +243,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 text += self.server.ingest.render_metrics()
             if self.server.anomaly is not None:
                 text += self.server.anomaly.render_metrics()
+            if self.server.extra_metrics is not None:
+                text += self.server.extra_metrics.render()
             text += render_data_quality_metrics()
             body = text.encode()
             self.send_response(200)
@@ -642,6 +647,7 @@ class ForecastServer(PooledHTTPServer):
         batching: Optional[BatchingConfig] = None,
         quality=None,
         ingest=None,
+        extra_metrics=None,
         anomaly=None,
         cache=None,
         http: Optional[HttpConfig] = None,
@@ -658,6 +664,10 @@ class ForecastServer(PooledHTTPServer):
         self.metrics = ServingMetrics()
         self.busy_gauge = self.metrics.http_workers_busy
         self.batching = batching
+        # extra exposition appended to GET /metrics — any object with a
+        # ``render() -> str`` (a sharded replica's
+        # serving/sharding.ShardMetrics)
+        self.extra_metrics = extra_metrics
         # the wired quality stack (monitoring/quality.QualityRuntime): its
         # scrape and SLO loops start here, so every construction path
         # (serve, start_server, tests) gets the same lifecycle; the latency
@@ -784,13 +794,14 @@ def start_server(
     anomaly=None,
     cache=None,
     http: Optional[HttpConfig] = None,
+    extra_metrics=None,
 ) -> ForecastServer:
     """Start serving on a background thread; returns the server (its
     ``server_address[1]`` is the bound port — port=0 picks a free one).
     ``ready=False`` starts with /readyz at 503 until ``mark_ready()``."""
     srv = ForecastServer((host, port), forecaster, model_version, batching,
                          quality=quality, ingest=ingest, anomaly=anomaly,
-                         cache=cache, http=http)
+                         cache=cache, http=http, extra_metrics=extra_metrics)
     if ready:
         srv.mark_ready()
     t = threading.Thread(target=srv.serve_forever, daemon=True)

@@ -40,12 +40,13 @@ Conf::
 reference parses it, before any artifact loads; the tracer is then
 configured from ``serving.tracing`` and the cost layer from
 ``monitoring.cost``, as the reference's task does.  What the port does not
-have yet: ``serving.cache.enabled`` (ROADMAP Queue 1: P12) raises
-``NotImplementedError``.  ``compile_cache:`` is armed by the Task base:
-the first kernel launch loads the kernel library through its store, and
-the cache's counts are logged after the warmup.  The ``fleet:`` and
-``sharding:`` blocks belong to the fleet task (P12), as in the reference,
-whose serve task does not read them.
+have yet: ``serving.cache.enabled`` (ROADMAP Queue 1: P12, second half)
+raises ``NotImplementedError``.  ``compile_cache:`` is armed by the Task
+base: the first kernel launch loads the kernel library through its store,
+and the cache's counts are logged after the warmup.  The ``fleet:``,
+``sharding:`` and ``resilience:`` blocks belong to the fleet task
+(``tasks/fleet.py``: N replica processes of this scorer behind one front
+door), as in the reference, whose serve task does not read them.
 """
 
 from __future__ import annotations

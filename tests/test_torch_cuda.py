@@ -868,6 +868,50 @@ def test_served_bodies_equal_the_in_process_predict(dev):
         srv.shutdown()
 
 
+@pytest.mark.parametrize("model", ["holt_winters", "arima"])
+def test_a_card_resident_subset_predicts_bitwise_the_full_forecast(dev,
+                                                                  model):
+    """``subset_for_shards`` of a forecaster on the card to a proper subset
+    of its shards (3 of 8): the gathered parameters stay on the card, and
+    for every owned key predict (with and without history) and
+    predict_quantiles are bitwise the full forecaster's; the subset's arima
+    forecast runs the ``arima_predict`` kernel."""
+    import numpy as np
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.ops import kalman
+    from distributed_forecasting_tpu_torch.serving.sharding import (
+        shard_of_key,
+        subset_for_shards,
+    )
+
+    fc = _served(dev, model)
+    owned = [1, 4, 6]
+    sub, idx = subset_for_shards(fc, owned, 8)
+    assert 0 < len(idx) < fc.n_series
+    assert sub.n_series == len(idx)
+    assert all(shard_of_key(k, 8) in owned for k in sub.keys.tolist())
+    for f in dataclasses.fields(sub.params):
+        v = getattr(sub.params, f.name)
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == dev.type, f.name
+    req = pd.DataFrame(np.asarray(fc.keys)[idx][::-1],
+                       columns=list(fc.key_names))
+    for kw in ({"horizon": 30}, {"horizon": 7, "include_history": True}):
+        launches = kalman.arima_predict.launches
+        got = sub.predict(req, **kw)
+        if model == "arima" and "include_history" not in kw \
+                and dev.type == "cuda":
+            assert kalman.arima_predict.launches > launches
+        want = fc.predict(req, **kw)
+        assert got.columns.tolist() == want.columns.tolist()
+        for col in got.columns:
+            assert np.array_equal(got[col].to_numpy(), want[col].to_numpy())
+    q = sub.predict_quantiles(req, quantiles=(0.1, 0.5, 0.9), horizon=30)
+    assert q.equals(fc.predict_quantiles(req, quantiles=(0.1, 0.5, 0.9),
+                                         horizon=30))
+
+
 def _detect_points(fc, n_series=8, days=30, seed=4):
     """The last ``days`` days of the fit and ``days`` past it for
     ``n_series`` series, actuals drawn around the served band with a spike
@@ -1708,3 +1752,53 @@ def test_profiler_capture_holds_arima_predict_in_its_annotation(dev,
         if found:
             break
     assert found, (len(kernels), len(marks))
+
+
+def test_corrupt_stored_library_is_rebuilt_on_a_warm_boot(dev, tmp_path):
+    """The chaos case ``aot_corrupt_warm_boot`` on the real kernel library
+    (``tests/test_torch_chaos.py`` runs it on a stub): a cold store builds
+    the library with nvcc, a warm one loads it without building, one
+    flipped byte (``aot.load.payload=corrupt``) is discarded, counted as an
+    error, labelled ``error`` and rebuilt with every launcher, and the next
+    clean boot loads the rebuilt entry without building."""
+    from distributed_forecasting_tpu_torch.engine import compile_cache as cc
+    from distributed_forecasting_tpu_torch.monitoring import failpoints as fp
+    from distributed_forecasting_tpu_torch.ops import _build
+
+    key = cc.fingerprint("kernel_library", backend=_build.library_backend())
+    builds = []
+
+    def build():
+        builds.append(1)
+        return _build.build(f"dftt_chaos_{len(builds)}", _build.SOURCES,
+                            str(tmp_path / f"build-{len(builds)}"))
+
+    def boot():
+        return cc.AOTStore(str(tmp_path / "kernels")).get_or_compile(
+            key, "kernel_library", build)
+
+    launchers = [f"{k}_launch" for k in (
+        "hw_score", "hw_filter", "arima_filter", "arima_predict",
+        "arima_loglik_grad", "arima_mle_fit")]
+    boot()
+    assert len(builds) == 1
+    boot()
+    assert len(builds) == 1  # warm: loaded, not built
+    errors = cc.cache_stats()["errors"]
+    labelled = cc._entry_requests.snapshot().get(
+        "entry=kernel_library,outcome=error", 0)
+    fp.configure("aot.load.payload=corrupt:1")
+    try:
+        rebuilt = boot()
+        assert fp.fired("aot.load.payload") == 1
+    finally:
+        fp.deactivate()
+    assert len(builds) == 2
+    assert cc.cache_stats()["errors"] == errors + 1
+    assert cc._entry_requests.snapshot()[
+        "entry=kernel_library,outcome=error"] == labelled + 1
+    assert all(hasattr(rebuilt, name) for name in launchers)
+    hits = cc.cache_stats()["hits"]
+    again = boot()
+    assert all(hasattr(again, name) for name in launchers)
+    assert len(builds) == 2 and cc.cache_stats()["hits"] == hits + 1

@@ -32,9 +32,7 @@ PENDING_PACKAGES = {"analysis": "P13", "parallel": "P12"}
 # label (ROADMAP Queue 1)
 PENDING = {
     "serving": {
-        "P12": ["ConnectionPool", "FleetConfig", "FleetSupervisor",
-                "ForecastCache", "FrontDoorServer", "aggregate_prometheus",
-                "build_forecast_cache", "start_fleet"],
+        "P12": ["ForecastCache", "build_forecast_cache"],
     },
 }
 

@@ -1768,3 +1768,100 @@ def test_serve_task_runs_streaming_ingest(tmp_path, monkeypatch, sidecar):
     finally:
         srv.shutdown()
 
+
+
+# -- the fleet task (tasks/fleet.py) ------------------------------------------
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fleet_task_hands_its_children_the_store_failpoints_and_device(
+        tmp_path, monkeypatch, device):
+    """The shipped serve conf, unchanged apart from the env root, sharding
+    on and a failpoint spec, run by ``FleetTask`` with
+    ``subprocess.Popen`` replaced by fakes that record what each replica
+    child is started with and answer ``/readyz`` on its port: every child
+    runs ``-m distributed_forecasting_tpu_torch.serving.replica`` with its
+    shard assignment, the kernel store's directory, the failpoint spec
+    and seed, and the task's device switch (``cpu`` only when the task
+    was asked for the CPU; ``torch.cuda.is_available`` is patched for the
+    ``cuda`` case, so nothing touches a card).  The front door answers and
+    holds no CUDA context."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.engine import compile_cache as tcc
+    from distributed_forecasting_tpu_torch.monitoring import failpoints as fp
+    from distributed_forecasting_tpu_torch.serving import fleet as tfleet
+    from distributed_forecasting_tpu_torch.tasks.fleet import FleetTask
+    from distributed_forecasting_tpu_torch.tracking import ModelRegistry
+    from test_torch_fleet import _FakeProc, _make_fake_replica
+
+    if device == "cuda":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    root = str(tmp_path)
+    art = tmp_path / "artifact"
+    art.mkdir()
+    (art / "meta.json").write_text("{}")
+    registry = ModelRegistry(os.path.join(root, "registry"))
+    version = registry.register_model(MODEL, str(art))
+    registry.transition_stage(MODEL, version.version, "Staging")
+    conf = _serve_conf(root)
+    conf["serving"]["sharding"]["enabled"] = True
+    conf["serving"]["resilience"].update(
+        failpoints="wal.read=sleep 1:0.5", failpoint_seed=5)
+    conf["serving"]["fleet"].update(health_poll_interval_s=0.05)
+    children = []
+
+    def popen(argv, env):
+        rconf = json.loads(argv[argv.index("--conf") + 1])
+        children.append((argv, env, rconf))
+        return _FakeProc(_make_fake_replica(rconf["port"]))
+
+    monkeypatch.setattr(tfleet.subprocess, "Popen", popen)
+    task = FleetTask(init_conf=conf, device=None if device == "cuda"
+                     else "cpu")
+    sup, front = task.start()
+    try:
+        assert len(children) == 2
+        owned = set()
+        for argv, env, rconf in children:
+            assert argv[1:3] == ["-m",
+                                 "distributed_forecasting_tpu_torch.serving."
+                                 "replica"]
+            assert env["DFTPU_COMPILE_CACHE"] == os.path.join(
+                root, "compile_cache")
+            assert env["DFTPU_FAILPOINTS"] == "wal.read=sleep 1:0.5"
+            assert env["DFTPU_FAILPOINTS_SEED"] == "5"
+            assert env["DFTPU_PLATFORM"] == device
+            assert rconf["artifact_dir"] == version.artifact_dir
+            assert rconf["sharding"]["num_shards"] == 8
+            assert rconf["monitoring"]["tracking_root"] == os.path.join(
+                root, "mlruns")
+            owned |= set(rconf["shards"])
+        assert owned == set(range(8))
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{front.server_address[1]}/readyz",
+                timeout=30) as r:
+            assert json.loads(r.read())["ready_replicas"] == 2
+        assert not torch.cuda.is_initialized()
+        assert "CUDA initialized in this process: False" in task.cuda_note()
+    finally:
+        front.shutdown()
+        sup.stop()
+        fp.deactivate()
+        tcc.configure_compile_cache(tcc.CompileCacheConfig(enabled=False))
+
+
+def test_fleet_task_refuses_conf_typos_before_the_registry(tmp_path):
+    from distributed_forecasting_tpu_torch.tasks.fleet import FleetTask
+
+    for block, bad, match in (
+            ("fleet", {"replica": 2}, "serving.fleet"),
+            ("sharding", {"num_shard": 4}, "serving.sharding"),
+            ("resilience", {"breaker_failues": 3}, "serving.resilience"),
+            ("http", {"pool_sizes": 2}, "serving.http")):
+        conf = _serve_conf(str(tmp_path))
+        conf["serving"][block] = bad
+        with pytest.raises(ValueError, match=match):
+            FleetTask(init_conf=conf, device="cpu").start(
+                spawn_fn=lambda *a: None)
