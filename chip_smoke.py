@@ -81,7 +81,13 @@ its own size:
     Holt-Winters artifact — scatter-gather bodies byte-equal to one
     scorer's, an ingest and the refit it forces inside a replica
     (``hw_score``, ``hw_filter``), replicas killed mid-stream and their
-    warm boots from the shared kernel store.
+    warm boots from the shared kernel store;
+  * the materialized forecast cache: the serve task with ``serving.cache``
+    on over arima, Holt-Winters (streaming ingest on), theta and curve-model
+    artifacts beside the same scorers with it off — full-S rebuilds
+    (arima's launches ``arima_predict``), hit against dispatch, the
+    rebuilds an ``/ingest`` apply and a forced refit pay, persistence and
+    adoption at a restart, and two fleets of 2 replicas, cache on and off.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -176,7 +182,7 @@ is not 0:
               agrees with the CPU (see ``pool_vs_cpu``).  Times: per task
               and ``fit_seconds`` (medians of WORKFLOW_RUNS runs), the
               train task's
-              dispatch stage (CUDA events, median of 3; idle share; the
+              dispatch stage (CUDA events, one sample; idle share; the
               host syncs PyTorch reports), the croston recurrence at the
               fit and CV shapes beside its bounds, and season detection
   9. complete allocated-baseline and hierarchical-m5, each WORKFLOW_RUNS
@@ -278,7 +284,7 @@ is not 0:
               predict; /detect_anomalies at in-process servers on both
               artifacts (one arima_predict launch a request on the auto
               one), and concurrent detection and forecast requests sharing
-              dispatches.  Times: p50 / p95 / p99 of 100 sequential requests
+              dispatches.  Times: p50 / p95 / p99 of 20 sequential requests
               at 1, 17 and 500 series, the device's idle share over the
               500-series request, requests/s, latency, dispatches per
               request and the mean coalesced batch under 32 clients with
@@ -492,6 +498,31 @@ is not 0:
               its backlog) the forecasts are byte-equal again; a SIGTERM
               drains the fleet and each replica's drain line gives its
               launches
+ 21. cache    the materialized forecast cache (``slice22_phase``) on the
+              committed dataset: arima, Holt-Winters (history sidecar,
+              ``serving.ingest`` on as phase 16 serves it), theta and the
+              curve model fit and served by ``tasks.serve`` from the
+              shipped conf twice, ``serving.cache`` on (quantile set 0.1,
+              0.5, 0.9) and off, horizon 90.  (b) Every family's bodies at
+              1, 17 and 500 series, point and quantiles, byte-equal on and
+              off, each read twice on (the gather, then the encoded-body
+              memo, which launches no kernel).  (f) Meanwhile two fleets
+              of the theta artifact (2 replicas each, cache on and off)
+              boot: front-door bodies byte-equal, each on-replica's frames
+              under its own ``replica-<port>`` directory, the front door's
+              ``dftpu_cache_entry_age_seconds`` the max of the replicas'.
+              (a) Full-S rebuild wall and CUDA-event ms per family and
+              signature (an arima rebuild launches arima_predict once).
+              (c) arima /invocations p50 / p95 at 1, 17 and 500 series,
+              hit against dispatch, and 32 clients for 2 s on and off.
+              (d) Six one-day /ingest applies to the Holt-Winters scorers
+              on and off (p50 / p95; ``swap_state`` to the republished
+              frames), then a forced refit: after each write the first
+              reads equal a fresh dispatch on the new state, the rebuilds
+              ran on the writer's thread and on the default stream.  (e)
+              Persist ms and bytes per 500-series entry, adoption at a
+              restart of the task (no rebuild, byte-equal), and a copied
+              frame discarded under state one streamed day moved
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -507,15 +538,18 @@ arima_predict launches through HTTP, /invocations and /detect_anomalies,
 phase 13's train task, phases 14-15's main paths and tasks, phase 16's
 fit and forced refit, phase 17's fits, tail refits, train task and
 artifact predict, phase 18's train tasks and ``run_many``, and phase
-19's fits, forced refit and predicts, and the launches phase 20's
-replicas logged at their drain; the arima rows add phase 17's kernel
-times at the window's shapes);
+19's fits, forced refit and predicts, the launches phase 20's
+replicas logged at their drain, and phase 21's fits, dispatches,
+rebuilds and forced refit; the arima rows add phase 17's kernel times at
+the window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -539,6 +573,7 @@ RTOL, ATOL = 1e-5, 1e-6
 # H100 SXM published peaks: HBM bytes/s, float32 (non-tensor-core) FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 REPS = 5
+TWIN_REPS = 2  # samples of a launch-bound plain twin's ~0.6 s call
 # runs of each workflow of phases 8-9 for the per-task medians, and samples
 # of each monitor scan (host work: each run costs seconds); 2 keeps the
 # drift scan (it runs from a store's second run on)
@@ -1052,9 +1087,10 @@ def timings(run, port, card_line: str) -> dict:
     stages = [ms for ms, _ in runs[1:]]
     t = {
         "hw_score_twin_ms": cuda_ms(lambda: fs.hw_score_reference(
-            y, mask, *grid, 7)),
+            y, mask, *grid, 7), reps=TWIN_REPS),
         "hw_filter_twin_ms": cuda_ms(lambda: hw._filter(
-            y, mask, p.alpha, p.beta, p.gamma, 7, "additive", p.phi)),
+            y, mask, p.alpha, p.beta, p.gamma, 7, "additive", p.phi),
+            reps=TWIN_REPS),
         "fit_forecast_ms": cuda_ms(fit_forecast),
         "fit_forecast_stages_ms": {k: statistics.median(s[k] for s in stages)
                                    for k in stages[0]},
@@ -2054,7 +2090,7 @@ def count_syncs(fn) -> list:
 
 
 # samples of the pooled train task's dispatch (each ~8 s on the card)
-POOLED_DISPATCH_REPS = 3
+POOLED_DISPATCH_REPS = 1
 
 
 def pooled_timings(port, root: str, spec: dict, card_line: str) -> dict:
@@ -3573,9 +3609,9 @@ SCORER = "scorer-curve"
 SCORER_MODEL = "ForecastingBatchModel"
 AUTO_MODEL = "ForecastingAutoModel"
 SCORER_HORIZON = 90
-LATENCY_REQUESTS = 100  # sequential requests per request size
+LATENCY_REQUESTS = 20  # sequential requests per request size
 LOAD_CLIENTS = 32  # concurrent 1-series clients
-LOAD_SECONDS = 5.0
+LOAD_SECONDS = 3.0
 OBSERVE_DAYS, OBSERVE_SERIES = 28, 17
 # card vs CPU on the same stored parameters: only the forecast arithmetic
 # rounds differently (tests/test_torch_predictor.py's rtol and atol)
@@ -3841,8 +3877,9 @@ def scorer_breakdown(port, fc, requests) -> dict:
     return out
 
 
-def scorer_load(number: int, keys, key_names, keep_bodies: bool) -> dict:
-    """LOAD_CLIENTS threads of 1-series requests for LOAD_SECONDS, each with
+def scorer_load(number: int, keys, key_names, keep_bodies: bool,
+                seconds: float = LOAD_SECONDS) -> dict:
+    """LOAD_CLIENTS threads of 1-series requests for ``seconds``, each with
     its own seeded key sequence and a new connection a request (with more
     clients than the scorer's http.workers, keep-alive clients would hold
     every worker and the rest would wait out the window); the scorer's
@@ -3859,7 +3896,7 @@ def scorer_load(number: int, keys, key_names, keep_bodies: bool) -> dict:
         mine = []
         try:
             barrier.wait()
-            stop = time.perf_counter() + LOAD_SECONDS
+            stop = time.perf_counter() + seconds
             while time.perf_counter() < stop:
                 k = int(rng.integers(len(keys)))
                 payload = {"inputs": _inputs(keys[[k]], key_names),
@@ -3883,7 +3920,7 @@ def scorer_load(number: int, keys, key_names, keep_bodies: bool) -> dict:
     for t in threads:
         t.start()
     for t in threads:
-        t.join(LOAD_SECONDS + 300)
+        t.join(seconds + 300)
     wall = time.perf_counter() - t0
     after = scorer_metrics(number)
     d = {k: after[k] - before[k] for k in after}
@@ -4445,7 +4482,7 @@ def slo_burn_check(number: int, store_dir: str, budget: float,
             for w, _ in windows:
                 pts = [r["value"] for r in rows
                        if r["labels"].get("rule") == rule
-                       and r["ts"] >= now - w]
+                       and now - w <= r["ts"] <= now]
                 out[f'{{rule="{rule}",window="{w:g}s"}}'] = (
                     (sum(pts) / len(pts)) / budget if pts else 0.0)
         return out
@@ -6102,7 +6139,7 @@ STREAM_PINNED_K = (1, 7, 40)
 STREAM_VS_CPU = 20        # series streamed on the card and on the CPU
 STREAM_TOL = 1e-5         # card vs CPU, of each row's scale
 STREAM_BIG = (40, 512)    # 20,480 series, as phase 11 builds them
-STREAM_LATENCY = 100      # sequential 500-series /invocations, each leg
+STREAM_LATENCY = 20       # sequential 500-series /invocations, each leg
 STREAM_APPLY_REPS = 5
 # runs of each workflow of phases 8-9 for the per-task medians, and samples
 # of each monitor scan (host work: each run costs seconds); 2 keeps the
@@ -8356,7 +8393,7 @@ def slice20_phase(port, card_line: str) -> dict:
 
 FLEET_HORIZON = 28          # /invocations horizon of (a), (c) and (d)
 FLEET_SIZES = (1, 17, 500)
-FLEET_LATENCY = {1: 40, 17: 40, 500: 20}  # sequential requests a size, leg
+FLEET_LATENCY = {1: 20, 17: 20, 500: 20}  # sequential requests a size, leg
 FLEET_STREAM = (15, 30)     # (d): keep-alive requests before / after the kill
 FLEET_POINTS = 500          # (b): one ingest of this many points
 FLEET_PROFILE_S = 2.0       # (c): the capture's window around the ingest
@@ -8964,6 +9001,601 @@ def slice21_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 21: the materialized forecast cache --------------------------------
+
+CACHE_FAMILIES = ("arima", "holt_winters", "theta", "prophet")
+CACHE_HORIZON = 90            # the shipped warmup horizon and phase 12's
+CACHE_QSET = [0.1, 0.5, 0.9]  # the one quantile set served cached
+CACHE_REBUILD_REPS = 3        # full-S rebuilds timed per signature
+CACHE_LATENCY = {1: 20, 17: 20, 500: 20}  # requests a size and leg, (c)
+CACHE_LOAD_SECONDS = 1.5      # each leg of (c)'s 32-client load
+CACHE_HOT_KEYS = 64           # the keys (c)'s load draws, spread over S
+CACHE_INGEST_DAYS = 6         # (d): one-day POSTs to each scorer
+
+
+def cache_serve_conf(port, root: str, model: str, name: str, tag: str,
+                     cache: bool, mmap_dir=None) -> dict:
+    """The shipped serve conf for one scorer of phase 21: ``serving.cache``
+    on (with the quantile set ``CACHE_QSET``) or off, the model, localhost,
+    and the scorer's own quality-store (and, for Holt-Winters behind
+    ``serving.ingest`` as phase 16 serves it, WAL) directories."""
+    if model == "holt_winters":
+        conf, _ = stream_serve_conf(port, root, f"{model}_{tag}", name)
+    else:
+        conf = port["config"].load_conf(SERVE_CONF)
+        conf["env"] = {"root": root}
+        conf["serving"].update(model_name=name, host="127.0.0.1", port=0)
+        conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+            root, f"quality_{model}_{tag}")
+    block = conf["serving"]["cache"]
+    assert {"enabled", "quantile_sets", "mmap_dir"} <= set(block)
+    block.update(enabled=cache, quantile_sets=[CACHE_QSET], mmap_dir=mmap_dir)
+    return conf
+
+
+class _CacheProbe:
+    """Wraps a cache's rebuild and persist: the wall ms of each, whether
+    each rebuild's predict ran on the default stream and on which thread,
+    and rebuilds that raised (the metric does not count them)."""
+
+    def __init__(self, cache):
+        self.cache, self.rebuilds, self.persists = cache, [], []
+        inner_rebuild, inner_persist = cache._rebuild_locked, cache._persist
+
+        def rebuild(sig):
+            before = cache.metrics.rebuilds.value
+            default = (DEVICE != "cuda" or torch.cuda.current_stream()
+                       == torch.cuda.default_stream())
+            t0 = time.perf_counter()
+            ok = inner_rebuild(sig)
+            self.rebuilds.append({
+                "sig": [sig[0], sig[1] is not None],
+                "ms": (time.perf_counter() - t0) * 1e3, "published": ok,
+                "error": cache.metrics.rebuilds.value == before,
+                "default_stream": default,
+                "thread": threading.current_thread().name})
+            return ok
+
+        def persist(entry):
+            t0 = time.perf_counter()
+            inner_persist(entry)
+            self.persists.append((time.perf_counter() - t0) * 1e3)
+
+        cache._rebuild_locked, cache._persist = rebuild, persist
+
+    def check(self) -> None:
+        bad = [r for r in self.rebuilds
+               if r["error"] or not r["default_stream"]]
+        assert not bad, (
+            f"rebuilds that raised or left the default stream: {bad}")
+
+
+def _cache_counts(cache) -> dict:
+    m = cache.metrics
+    return {"hits": m.hits.value, "rebuilds": m.rebuilds.value,
+            "invalidations": m.invalidations.value,
+            "evictions": m.evictions.value, "persists": m.persists.value,
+            "loads": m.loads.value, "load_errors": m.load_errors.value,
+            "misses": {r: m.misses.value(reason=r) for r in (
+                "cold", "stale", "rebuilding", "bypass", "horizon_cap")}}
+
+
+def cache_payloads(fc) -> dict:
+    """``/invocations`` bodies of phase 21: 1, 17 and every series, point
+    and ``CACHE_QSET`` quantiles, at ``CACHE_HORIZON``."""
+    out = {}
+    for n, inputs in scorer_requests(fc).items():
+        out[f"{n}"] = {"inputs": inputs, "horizon": CACHE_HORIZON}
+        out[f"{n}q"] = {"inputs": inputs, "horizon": CACHE_HORIZON,
+                        "quantiles": CACHE_QSET}
+    return out
+
+
+def cache_equal(pairs: dict) -> dict:
+    """(b) Every family's bodies byte-equal with the cache on (twice: the
+    gather, then the encoded-body memo) and off, at 1, 17 and 500 series;
+    a read served from the cache launches no kernel."""
+    out = {}
+    for model, (on, off) in pairs.items():
+        payloads = cache_payloads(on.forecaster)
+        for name, payload in payloads.items():
+            status, want, _ = http_call(off.server_address[1], "POST",
+                                        "/invocations", payload)
+            assert status == 200, want[:300]
+            for read in ("gather", "memo"):
+                before = hand_launches()
+                status, got, _ = http_call(on.server_address[1], "POST",
+                                           "/invocations", payload)
+                assert status == 200, got[:300]
+                assert got == want, (model, name, read)
+                if read == "memo":
+                    assert hand_launches() == before, (model, name)
+        counts = _cache_counts(on.cache)
+        assert counts["rebuilds"] == 2 and counts["hits"] == 12, counts
+        out[model] = {"bodies": list(payloads), **counts}
+    return out
+
+
+def _event_ms(fn) -> tuple:
+    """(result, wall ms, CUDA-event ms on the current stream) of one
+    ``fn()``; the event ms is None on the CPU."""
+    if DEVICE == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return (res, (time.perf_counter() - t0) * 1e3,
+                start.elapsed_time(stop))
+    t0 = time.perf_counter()
+    res = fn()
+    return res, (time.perf_counter() - t0) * 1e3, None
+
+
+def cache_rebuilds(pairs: dict, card_line: str) -> dict:
+    """(a) Full-S rebuild ms per family at ``CACHE_HORIZON``, point and
+    quantile set: wall and CUDA-event medians of ``CACHE_REBUILD_REPS``;
+    an arima rebuild launches arima_predict once."""
+    out = {}
+    for model, (on, _) in pairs.items():
+        cache = on.cache
+        for label, sig in (("point", (CACHE_HORIZON, None)),
+                           ("quantiles", (CACHE_HORIZON, tuple(CACHE_QSET)))):
+            wall, event = [], []
+            for _ in range(CACHE_REBUILD_REPS):
+                before = hand_launches()
+                ok, w, e = _event_ms(lambda: cache.rebuild(sig))
+                assert ok, (model, label)
+                wall.append(w)
+                event.append(e)
+                if model == "arima" and DEVICE == "cuda":
+                    after = hand_launches()
+                    assert after["arima_predict"] == \
+                        before["arima_predict"] + 1, (before, after)
+            out.setdefault(model, {})[label] = {
+                "wall_ms": statistics.median(wall),
+                "cuda_event_ms": (None if None in event
+                                  else statistics.median(event)),
+                "bytes": cache._entries[sig].nbytes}
+    emit("cache_rebuild", card=card_line, horizon=CACHE_HORIZON,
+         series=SHAPE[0], reps=CACHE_REBUILD_REPS, **out)
+    return out
+
+
+def cache_latency(pairs: dict, card_line: str) -> dict:
+    """(c) The arima scorer, cache on (encoded-body memo hits) against off
+    (a dispatch: arima_predict, then the encoding): /invocations p50 / p95
+    at 1, 17 and 500 series over one keep-alive connection each, in
+    turns, after one untimed read of each size on each leg; then 32
+    clients of 1-series requests for ``CACHE_LOAD_SECONDS`` against each,
+    drawn from ``CACHE_HOT_KEYS`` keys (a dashboard's popular series),
+    each memoized first.  (a) republished the entry, so the warm-up reads
+    fill its memo; the timed and the loaded reads are asserted to be memo
+    hits: the same entry, no memo added, no miss."""
+    import http.client
+
+    on, off = pairs["arima"]
+    fc, cache = on.forecaster, on.cache
+    sig = (CACHE_HORIZON, None)
+    out = {}
+    conns = {leg: http.client.HTTPConnection(
+        "127.0.0.1", srv.server_address[1], timeout=300)
+        for leg, srv in (("on", on), ("off", off))}
+
+    def call(leg, payload):
+        status = http_call(0, "POST", "/invocations", payload,
+                           conn=conns[leg])[0]
+        assert status == 200, status
+
+    try:
+        requests = {n: {"inputs": inputs, "horizon": CACHE_HORIZON}
+                    for n, inputs in scorer_requests(fc).items()}
+        for payload in requests.values():
+            for leg in ("on", "off"):
+                call(leg, payload)
+        hot = np.unique(np.linspace(0, fc.n_series - 1,
+                                    CACHE_HOT_KEYS).astype(int))
+        for k in hot:  # the load's keys (row 0 is the 1-series request's)
+            call("on", {"inputs": _inputs(fc.keys[[k]], fc.key_names),
+                        "horizon": CACHE_HORIZON})
+        entry = cache._entries[sig]
+        memo = len(entry.body_memo)
+        assert memo == len(hot) + 2, memo  # + the 17 and 500 subsets
+        start = _cache_counts(cache)
+        hits = 0
+        for n, payload in requests.items():
+            ms = {"on": [], "off": []}
+            for _ in range(CACHE_LATENCY[n]):
+                for leg in ("on", "off"):
+                    t0 = time.perf_counter()
+                    call(leg, payload)
+                    ms[leg].append((time.perf_counter() - t0) * 1e3)
+            hits += CACHE_LATENCY[n]
+            out[str(n)] = {leg: _pcts(v) for leg, v in ms.items()}
+            out[str(n)]["p50_off_over_on"] = (out[str(n)]["off"]["p50_ms"]
+                                              / out[str(n)]["on"]["p50_ms"])
+    finally:
+        for conn in conns.values():
+            conn.close()
+    for leg, srv in (("on", on), ("off", off)):
+        out[f"load_{leg}"], _ = scorer_load(
+            srv.server_address[1], fc.keys[hot], fc.key_names,
+            keep_bodies=False, seconds=CACHE_LOAD_SECONDS)
+    hits += out["load_on"]["requests"]
+    end = _cache_counts(cache)
+    assert cache._entries[sig] is entry and len(entry.body_memo) == memo
+    assert end["hits"] - start["hits"] == hits, (start, end, hits)
+    assert end["misses"] == start["misses"], (start, end)
+    out["memo_hits"] = hits
+    emit("cache_latency", card=card_line, model="arima",
+         horizon=CACHE_HORIZON, **out)
+    return out
+
+
+def cache_writes(port, pairs: dict, batch, card_line: str) -> dict:
+    """(d) The Holt-Winters scorers behind ``serving.ingest``: one-day
+    POSTs to the cache-on and cache-off scorer in turns (the apply pays
+    the rebuilds on the writer's thread), then a forced refit in the
+    cache-on one.  After every write the first reads (17 and 500 series,
+    point and quantiles) equal ``_encode_predictions`` of a fresh
+    dispatch on the new state, and the cache-off scorer's bodies."""
+    on, off = pairs["holt_winters"]
+    fc, encode = on.forecaster, port["server"]._encode_predictions
+    probe = on.cache._probe
+    swaps, writers = [], []
+    inner_swap = fc.swap_state
+
+    def swap_state(*a, **k):  # the install, then the listeners' rebuilds
+        t0 = time.perf_counter()
+        inner_swap(*a, **k)
+        swaps.append((time.perf_counter() - t0) * 1e3)
+        writers.append(threading.current_thread().name)
+
+    fc.swap_state = swap_state
+    payloads = {k: v for k, v in cache_payloads(fc).items()
+                if int(k.rstrip("q")) > 1}  # 17 and every series
+
+    def fresh_reads(when: str) -> int:
+        # each read a hit on the republished frame, not a dispatch
+        start = _cache_counts(on.cache)
+        for name, payload in payloads.items():
+            req = pd.DataFrame([[r[k] for k in fc.key_names]
+                                for r in payload["inputs"]],
+                               columns=list(fc.key_names))
+            if "quantiles" in payload:
+                want = encode(fc.predict_quantiles(
+                    req, quantiles=tuple(CACHE_QSET),
+                    horizon=CACHE_HORIZON), fc.key_names)
+            else:
+                want = encode(fc.predict(req, horizon=CACHE_HORIZON),
+                              fc.key_names)
+            got = http_call(on.server_address[1], "POST", "/invocations",
+                            payload)[1]
+            assert got == want, (when, name)
+            assert http_call(off.server_address[1], "POST", "/invocations",
+                             payload)[1] == want or when == "refit", (
+                when, name)
+        end = _cache_counts(on.cache)
+        assert end["hits"] - start["hits"] == len(payloads), (when, end)
+        assert end["misses"] == start["misses"], (when, start, end)
+        return len(payloads)
+
+    tail = stream_tail(batch, CACHE_INGEST_DAYS)
+    day1 = int(fc.day1)
+    ms = {"on": [], "off": []}
+    before = _cache_counts(on.cache)
+    first_rebuild = len(probe.rebuilds)
+    for d in range(CACHE_INGEST_DAYS):
+        points = day_points(fc, day1 + 1 + d, tail[:, d:d + 1])
+        for leg, srv in (("on", on), ("off", off)):
+            status, ack, t = _post_ms(srv.server_address[1], "/ingest",
+                                      {"points": points})
+            assert status == 200 and ack["applied"]["points"] == len(points)
+            ms[leg].append(t)
+        if d == 0:
+            checked = fresh_reads("ingest")
+    after_ingest = _cache_counts(on.cache)
+    refit = on.ingest.refit
+    n_swaps = len(swaps)
+    t0 = time.perf_counter()
+    assert refit.maybe_refit(force=True) == "forced"
+    refit.wait(timeout=600)
+    refit_s = time.perf_counter() - t0
+    assert len(swaps) == n_swaps + 1, "the refit installed no state"
+    checked += fresh_reads("refit")
+    after_refit = _cache_counts(on.cache)
+    # the refit's install rebuilt both entries on the writer's thread
+    refit_rebuilds = probe.rebuilds[-2:]
+    assert [r["thread"] for r in refit_rebuilds] == [writers[-1]] * 2, (
+        refit_rebuilds, writers[-1])
+    # every write's rebuilds published: none superseded or refused
+    written = probe.rebuilds[first_rebuild:]
+    assert len(written) == 2 * (CACHE_INGEST_DAYS + 1), written
+    assert all(r["published"] for r in written), written
+    out = {
+        "ingest_ms": {leg: _pcts(v) for leg, v in ms.items()},
+        "ingest_p50_on_minus_off_ms": (np.percentile(ms["on"], 50)
+                                       - np.percentile(ms["off"], 50)),
+        "swap_to_republished_ms": {"ingest": swaps[:n_swaps],
+                                   "refit": swaps[n_swaps]},
+        "ingest": {k: after_ingest[k] - before[k]
+                   for k in ("invalidations", "rebuilds")},
+        "refit": {k: after_refit[k] - after_ingest[k]
+                  for k in ("invalidations", "rebuilds")},
+        "refit_seconds": refit_s,
+        "writer_threads": {"ingest": sorted(set(writers[:n_swaps])),
+                           "refit": writers[-1]},
+        "reads_checked": checked}
+    assert out["ingest"]["invalidations"] == 2 * CACHE_INGEST_DAYS, out
+    assert out["refit"]["invalidations"] == 2, out
+    emit("cache_writes", card=card_line, **out)
+    return out
+
+
+def cache_persist(port, root: str, art: dict, batch,
+                  card_line: str) -> dict:
+    """(e) The theta scorer with ``serving.cache.mmap_dir`` set: persist ms
+    and bytes of its two 500-series entries; the task restarted on the
+    same registered state adopts both (its ms) and serves them with no
+    rebuild, byte-equal; a copy of one frame is discarded by a cache over
+    the state a streaming apply of one day moved to."""
+    serving, server = port["serving"], port["server"]
+    mmap_dir = os.path.join(root, "cache_persist")
+
+    def task_args(tag):
+        conf = cache_serve_conf(port, root, "theta", art["name"], tag, True,
+                                mmap_dir=mmap_dir)
+        return port["serve_task"].ServeTask(init_conf=conf,
+                                            device=DEVICE).server_args()
+
+    kw = task_args("persist")
+    probe = _CacheProbe(kw["cache"])
+    first = server.start_server(**kw)
+    S = first.forecaster.n_series
+    payloads = {k: v for k, v in cache_payloads(first.forecaster).items()
+                if int(k.rstrip("q")) == S}  # every series, both entries
+    try:
+        bodies = {k: http_call(first.server_address[1], "POST",
+                               "/invocations", p)[1]
+                  for k, p in payloads.items()}
+    finally:
+        first.shutdown()
+    probe.check()
+    files = sorted(os.listdir(mmap_dir))
+    assert len(files) == 4 and len(probe.persists) == 2, files
+    sizes = {}
+    for f in files:
+        stem = f.split(".")[0]
+        sizes[stem] = sizes.get(stem, 0) + os.path.getsize(
+            os.path.join(mmap_dir, f))
+    adopt = {}
+    inner = serving.ForecastCache._load_persisted
+
+    def timed(self):
+        t0 = time.perf_counter()
+        inner(self)
+        adopt["ms"] = (time.perf_counter() - t0) * 1e3
+
+    serving.ForecastCache._load_persisted = timed
+    try:  # the restart: a new task over the same registered version
+        kw = task_args("restart")
+    finally:
+        serving.ForecastCache._load_persisted = inner
+    cache = kw["cache"]
+    assert (cache.metrics.loads.value, cache.metrics.load_errors.value) \
+        == (2, 0), _cache_counts(cache)
+    second = server.start_server(**kw)
+    try:
+        for k, p in payloads.items():
+            got = http_call(second.server_address[1], "POST",
+                            "/invocations", p)[1]
+            assert got == bodies[k], k
+        assert cache.metrics.rebuilds.value == 0
+        assert cache.metrics.hits.value == len(payloads)
+    finally:
+        second.shutdown()
+    # changed state: one streamed day moves the artifact's state; a cache
+    # over it boots on a copy of the persisted point frame
+    stale = os.path.join(root, "cache_stale")
+    os.makedirs(stale)
+    for suffix in (".npy", ".meta.json"):
+        shutil.copy(os.path.join(mmap_dir, f"h{CACHE_HORIZON}{suffix}"),
+                    stale)
+    moved = serving.BatchForecaster.load(art["artifact"], device=DEVICE)
+    store = port["state_store"].SeriesStateStore(
+        moved, time_bucket=STREAM_BUCKET, history_y=batch.y.cpu().numpy(),
+        history_mask=batch.mask.cpu().numpy(), device=DEVICE)
+    tail = stream_tail(batch, 1)
+    store.ingest(store_points(moved.day1 + 1, tail))
+    assert store.apply_pending()["points"] == moved.n_series
+    discarded = serving.build_forecast_cache(
+        {"enabled": True, "mmap_dir": stale}, moved)
+    assert (discarded.metrics.loads.value,
+            discarded.metrics.load_errors.value) == (0, 1)
+    assert os.listdir(stale) == []
+    out = {"persist_ms": probe.persists, "bytes_by_entry": sizes,
+           "adopt_ms": adopt["ms"], "adopted": 2, "discarded_stale": 1,
+           "restart_rebuilds": 0}
+    emit("cache_persist", card=card_line, series=SHAPE[0], **out)
+    return out
+
+
+def cache_fleet_conf(port, root: str, name: str, number: int,
+                     cache: bool) -> dict:
+    """The shipped serve conf as a fleet of 2 replicas (no sharding, no
+    ingest, as shipped) on the front door ``number``, with the cache on
+    (``mmap_dir`` unset: each replica persists under its own
+    ``<artifact_dir>/forecast_cache/replica-<port>``) or off, and the
+    kernel library loaded from this checkout's build directory (the
+    compile-cache store off: this process built it)."""
+    conf = port["config"].load_conf(SERVE_CONF)
+    conf["env"] = {"root": root}
+    conf["serving"].update(model_name=name, host="127.0.0.1", port=number)
+    conf["serving"]["fleet"].update(enabled=True, replicas=2)
+    conf["serving"]["cache"].update(enabled=cache,
+                                    quantile_sets=[CACHE_QSET])
+    conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+        root, f"quality_fleet_{'on' if cache else 'off'}")
+    conf["compile_cache"]["enabled"] = False
+    return conf
+
+
+def cache_fleet(fleets: dict, fc, art_dir: str) -> dict:
+    """(f) The two fleets, cache on and off: front-door bodies byte-equal
+    at 1, 17 and 500 series, point and quantiles, each request twice on
+    (round-robin puts it on both replicas); each cache-on replica
+    persisted into its own ``replica-<port>`` directory; the front door's
+    ``/metrics`` max-merges ``dftpu_cache_entry_age_seconds`` and sums the
+    hits of the replicas' scrapes."""
+    reps = {leg: f.wait(lambda r: len(r) == 2 and all(x["ready"]
+                                                       for x in r))
+            for leg, f in fleets.items()}
+    on, off = fleets["on"].port, fleets["off"].port
+    for name, payload in cache_payloads(fc).items():
+        want = http_call(off, "POST", "/invocations", payload)
+        assert want[0] == 200, want[1][:300]
+        for _ in range(2):
+            got = http_call(on, "POST", "/invocations", payload)
+            assert got[:2] == want[:2], name
+    dirs = {}
+    for r in reps["on"]:
+        d = os.path.join(art_dir, "forecast_cache", f"replica-{r['port']}")
+        dirs[r["port"]] = sorted(os.listdir(d))
+        assert len(dirs[r["port"]]) == 4, dirs  # 2 entries: npy + meta
+    scrapes = [http_call(r["port"], "GET", "/metrics")[1].decode()
+               for r in reps["on"]]
+    front = http_call(on, "GET", "/metrics")[1].decode()
+    ages = [_metric(t, "dftpu_cache_entry_age_seconds") for t in scrapes]
+    merged = _metric(front, "dftpu_cache_entry_age_seconds")
+    hits = [_metric(t, "dftpu_cache_hits_total") for t in scrapes]
+    # the max of the replicas' ages, read a few ms later; a sum would sit
+    # a whole min(ages) above it
+    assert min(ages) > 0 and abs(merged - max(ages)) < min(ages), (
+        merged, ages)
+    assert _metric(front, "dftpu_cache_hits_total") == sum(hits) > 0
+    assert _metric(front, "dftpu_cache_entries") == 4
+    return {"bodies": len(cache_payloads(fc)), "replica_dirs": dirs,
+            "entry_age_s": {"replicas": ages, "front_door": merged},
+            "hits": hits}
+
+
+def slice22_phase(port, card_line: str) -> dict:
+    """Phase 21: the materialized forecast cache.  arima, Holt-Winters
+    (history sidecar, ``serving.ingest`` on), theta and the curve model
+    fit on the committed dataset and served in this process by the serve
+    task from the shipped conf twice, ``serving.cache`` on (quantile set
+    ``CACHE_QSET``) and off (:func:`cache_serve_conf`), the launch
+    counters set to 0 before the fits and read after (f); two fleets of
+    the theta artifact boot meanwhile.  (b) byte-equal bodies, (f) the
+    fleets, then the timed parts: (a) rebuilds, (c) hit against dispatch,
+    (d) writes, (e) persistence."""
+    t_phase = time.perf_counter()
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                   device=DEVICE)
+    assert (batch.n_series, batch.n_time) == SHAPE
+    root = tempfile.mkdtemp(prefix="cache_")
+    pairs, out, seconds, probes = {}, {}, {}, []
+    try:
+        for k in KERNELS:  # counters to 0 just before the path
+            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
+            getattr(launchers, k).launches = 0
+        t0 = time.perf_counter()
+        # theta first: the fleets boot on it while the rest fit
+        arts = stream_artifacts(port, root, batch, families=("theta",))
+        theta = arts["theta"]
+        registry = port["tracking"].ModelRegistry(
+            os.path.join(root, "registry"))
+        art_dir = registry.latest_version(theta["name"]).artifact_dir
+        fleets = {}
+        with contextlib.ExitStack() as stack:
+            for leg in ("on", "off"):
+                number = free_port()
+                path = os.path.join(root, f"fleet_{leg}.json")
+                with open(path, "w") as f:
+                    json.dump(cache_fleet_conf(port, root, theta["name"],
+                                               number, leg == "on"), f)
+                fleets[leg] = stack.enter_context(FleetProcess(
+                    path, number, os.path.join(root, f"fleet_{leg}.log")))
+            arts.update(stream_artifacts(
+                port, root, batch,
+                families=tuple(f for f in CACHE_FAMILIES if f != "theta")))
+            seconds["fits"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for model in CACHE_FAMILIES:
+                servers = []
+                for leg in ("on", "off"):
+                    conf = cache_serve_conf(port, root, model,
+                                            arts[model]["name"], leg,
+                                            leg == "on")
+                    kw = port["serve_task"].ServeTask(
+                        init_conf=conf, device=DEVICE).server_args()
+                    assert (kw["cache"] is not None) == (leg == "on")
+                    servers.append(port["server"].start_server(**kw))
+                pairs[model] = tuple(servers)
+                probe = _CacheProbe(servers[0].cache)
+                servers[0].cache._probe = probe
+                probes.append(probe)
+            seconds["servers"] = time.perf_counter() - t0
+            for name, run in (
+                    ("equal", lambda: cache_equal(pairs)),
+                    ("fleet", lambda: cache_fleet(
+                        fleets, pairs["theta"][0].forecaster, art_dir))):
+                t0 = time.perf_counter()
+                out[name] = run()
+                seconds[name] = time.perf_counter() - t0
+            seconds["fleet_boot"] = time.perf_counter() - fleets["on"].t0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(fleets)) as pool:
+                drains = dict(zip(fleets, pool.map(lambda f: f.drain(),
+                                                   fleets.values())))
+            seconds["fleet_drain"] = time.perf_counter() - t0
+            logs = {leg: f.log_text() for leg, f in fleets.items()}
+        for leg, f in fleets.items():
+            assert f.proc.returncode == 0, logs[leg][-3000:]
+        fleet_launches = [d for log in logs.values()
+                          for d in drain_launches(log)]
+        assert len(fleet_launches) == 4, logs["on"][-3000:]
+        out["fleet"]["drain_seconds"] = drains
+        for name, run in (
+                ("rebuild", lambda: cache_rebuilds(pairs, card_line)),
+                ("latency", lambda: cache_latency(pairs, card_line)),
+                ("writes", lambda: cache_writes(port, pairs, batch,
+                                                card_line)),
+                ("persist", lambda: cache_persist(port, root, theta, batch,
+                                                  card_line))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            seconds[name] = time.perf_counter() - t0
+        for probe in probes:
+            probe.check()
+        out["rebuild_calls"] = sum(len(p.rebuilds) for p in probes)
+        out["launches"] = {k: n + sum(d[k] for d in fleet_launches)
+                           for k, n in hand_launches().items()}
+    finally:
+        for srv in (s for pair in pairs.values() for s in pair):
+            srv.shutdown()
+        port["trace"].configure_tracing(port["trace"].TraceConfig())
+        shutil.rmtree(root, ignore_errors=True)
+    launches = out["launches"]
+    emit("launches", path="forecast_cache", **launches,
+         expected="hw_score, hw_filter: the Holt-Winters fit and its forced "
+                  "refit; arima_filter: the arima fit; arima_predict: every "
+                  "arima dispatch and cache rebuild (a cached read "
+                  "launches none)")
+    if DEVICE == "cuda":
+        assert launches["hw_score"] >= 2 and launches["hw_filter"] >= 2
+        assert launches["arima_filter"] >= 1
+        assert launches["arima_predict"] >= 2 * CACHE_REBUILD_REPS
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("forecast_cache", card=card_line, equal=out["equal"],
+         fleet=out["fleet"], rebuild_calls=out["rebuild_calls"])
+    emit("phase21", card=card_line, seconds=out["seconds"], parts=seconds)
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -9389,6 +10021,7 @@ def main(argv=None) -> int:
     runtime = slice19_phase(port, card_line)
     scorer_rt = slice20_phase(port, card_line)
     fleet = slice21_phase(port, card_line)
+    cache = slice22_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -9413,7 +10046,8 @@ def main(argv=None) -> int:
                               + streaming["launches"][k]
                               + runtime["launches"][k]
                               + scorer_rt["launches"][k]
-                              + fleet["launches"][k]),
+                              + fleet["launches"][k]
+                              + cache["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -9433,7 +10067,8 @@ def main(argv=None) -> int:
                                  + windowed["launches"][k]
                                  + runtime["launches"][k]
                                  + scorer_rt["launches"][k]
-                                 + fleet["launches"][k]),
+                                 + fleet["launches"][k]
+                                 + cache["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),

@@ -26,6 +26,8 @@ from distributed_forecasting_tpu_torch.serving.fleet import (
 )
 from distributed_forecasting_tpu_torch.serving.forecast_cache import (
     CacheConfig,
+    ForecastCache,
+    build_forecast_cache,
 )
 from distributed_forecasting_tpu_torch.serving.loader import (
     load_forecaster,
@@ -43,7 +45,8 @@ from distributed_forecasting_tpu_torch.serving.server import (
 
 __all__ = ["BatchForecaster", "BatchingConfig", "BlendedForecaster",
            "CacheConfig", "ConnectionPool", "FleetConfig", "FleetSupervisor",
-           "FrontDoorServer", "aggregate_prometheus", "start_fleet",
+           "ForecastCache", "FrontDoorServer", "aggregate_prometheus",
+           "build_forecast_cache", "start_fleet",
            "BucketedForecaster", "ForecastServer", "HttpConfig",
            "MultiModelForecaster", "PooledHTTPServer", "QueueFullError",
            "RequestBatcher", "ServingMetrics", "ShuttingDownError",

@@ -491,8 +491,8 @@ def default_spawn_fn(
             # anomaly scoring conf: each replica scores its own shards'
             # points; the front door scatter-gathers /detect_anomalies
             "anomaly": serving_conf.get("anomaly"),
-            # materialized forecast cache: the replica refuses an enabled
-            # block, as the serve task does (ROADMAP Queue 1: P12)
+            # materialized forecast cache: each replica caches its owned
+            # shards and persists under its own replica-<port> directory
             "cache": serving_conf.get("cache"),
             # HTTP data plane: one serving.http block tunes keep-alive,
             # worker-pool size and idle timeout on replica AND front door

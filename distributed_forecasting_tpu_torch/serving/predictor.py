@@ -343,6 +343,14 @@ class BatchForecaster:
         with self._state_lock:
             return self.params, self.day1
 
+    def _state_snapshot_versioned(self):
+        """``(params, day1, generation)`` as one consistent unit: the
+        forecast cache's read form (``serving/forecast_cache.py``), so a
+        derived frame is tagged with exactly the generation its state
+        belongs to."""
+        with self._state_lock:
+            return self.params, self.day1, self._state_gen
+
     def gather_params(self, sidx: np.ndarray, params=None):
         """Row-gather the requested series out of the parameters: fields
         whose leading axis is the series axis are indexed, others (0-d

@@ -13,7 +13,9 @@ The conf object carries: ``artifact_dir`` (the saved forecaster to load),
 ``monitoring/quality.py``; the replica suffixes the store directory with
 its port so replicas never share an append cursor), an optional
 ``anomaly`` block (its stream directory suffixed the same way), an
-optional ``cache`` block, and an optional ``ingest`` block
+optional ``cache`` block (the forecast cache, persisting by default under
+``<artifact_dir>/forecast_cache/replica-<port>``), and an optional
+``ingest`` block
 (``serving/ingest.py``).  Unlike the quality store, the ingest WAL
 directory is SHARED across the fleet: each replica appends ``O_APPEND``
 whole lines and follows the log with its own cursor in ``interval`` apply
@@ -38,16 +40,17 @@ replayed, and the backlog replay happens BEFORE ``/readyz`` flips (the
 supervisor's hand-off gate).
 
 Boot order is the contract the supervisor routes on: load and subset to
-the owned shards, bind the port with ``/readyz`` at 503, warm the bucket
-ladder, replay the owned WAL backlog, then flip ready — a replica never
+the owned shards, build the forecast cache (it adopts its persisted
+frames, then subscribes to state installs), bind the port with
+``/readyz`` at 503, warm the bucket ladder, replay the owned WAL backlog
+(an apply invalidates adopted frames), then flip ready — a replica never
 receives traffic before it is warm and current.  The ready line logs the
 boot's seconds by stage.  SIGTERM drains gracefully: /readyz flips to
 503, queued requests finish, then the socket closes, and the drain line
 logs the launch count of every hand kernel in the process.
 
 Not here: ``mesh_devices > 1`` (a predict sharded over a device mesh
-needs ``parallel/*``, ROADMAP Queue 1: P12's second half) and an enabled
-``cache`` block (``serving/forecast_cache.py``, the same item); both raise
+needs ``parallel/*``, ROADMAP Queue 1: P12's second half) raises
 ``NotImplementedError``.  The thread sanitizer's ``attach`` is P13.
 """
 
@@ -114,6 +117,7 @@ def main(argv=None) -> None:
     from distributed_forecasting_tpu_torch.serving.dataplane import HttpConfig
     from distributed_forecasting_tpu_torch.serving.forecast_cache import (
         CacheConfig,
+        build_forecast_cache,
     )
     from distributed_forecasting_tpu_torch.serving.loader import (
         load_forecaster,
@@ -131,10 +135,7 @@ def main(argv=None) -> None:
     # the replica at boot instead of silently serving defaults
     batching = BatchingConfig.from_conf(conf.get("batching"))
     http = HttpConfig.from_conf(conf.get("http"))
-    if CacheConfig.from_conf(conf.get("cache")).enabled:
-        raise NotImplementedError(
-            f"serving.cache.enabled: true (serving/forecast_cache.py) is not "
-            f"ported yet ({_PENDING})")
+    CacheConfig.from_conf(conf.get("cache"))
 
     device = resolve_device(platform_device())  # the card unless asked
     stages = {}
@@ -283,6 +284,20 @@ def main(argv=None) -> None:
         if anomaly is not None:
             logger.info("anomaly scoring on: threshold=%.3f",
                         anomaly.threshold)
+    cache = None
+    if conf.get("cache"):
+        # per-replica persistence directory: a sharded replica's frames
+        # cover only its owned series, and two replicas must never adopt
+        # each other's payloads
+        cache = build_forecast_cache(
+            conf["cache"],
+            forecaster,
+            default_mmap_dir=os.path.join(
+                conf["artifact_dir"], "forecast_cache", f"replica-{port}"),
+        )
+        if cache is not None:
+            logger.info("forecast cache on: %d persisted frame(s) adopted",
+                        int(cache.metrics.loads.value))
     srv = start_server(
         forecaster,
         host=conf.get("host", "127.0.0.1"),
@@ -294,6 +309,7 @@ def main(argv=None) -> None:
         ingest=ingest,
         anomaly=anomaly,
         extra_metrics=shard_metrics,
+        cache=cache,
         http=http,
     )
     sizes = conf.get("warmup_sizes")

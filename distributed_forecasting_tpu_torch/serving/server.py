@@ -21,7 +21,8 @@ reference's routes, statuses, headers and bodies:
                              families; with an ingest runtime the
                              ``dftpu_ingest_*`` ones; with an anomaly
                              scorer the
-                             ``dftpu_anomaly_*`` ones; with
+                             ``dftpu_anomaly_*`` ones; with a forecast
+                             cache the ``dftpu_cache_*`` ones; with
                              ``extra_metrics`` (a sharded fleet replica's
                              ``dftpu_shard_*`` registry) its render; and,
                              once a
@@ -89,8 +90,11 @@ anomaly scorer, ingest runtime and state store open their spans under it.
 An ``/invocations`` answered 5xx dumps the flight recorder
 (``tracing.dump_dir``) after its response is written.
 
-Not here: the forecast-cache runtime (ROADMAP Queue 1: P12, second half;
-its parameter takes None only).
+With a forecast cache (``serving/forecast_cache.py``), ``/invocations``
+first asks it for the encoded body (``lookup_response``): a current-epoch
+hit returns bytes the same ``_encode_predictions`` made, so the body is
+byte-equal to a dispatch's; a miss or an inadmissible request dispatches.
+``/metrics`` then carries the ``dftpu_cache_*`` families.
 """
 
 from __future__ import annotations
@@ -139,13 +143,6 @@ from distributed_forecasting_tpu_torch.utils.logging import get_logger
 
 _MAX_HORIZON = 3650  # 10 years daily: beyond any sane scoring request
 _MAX_QUANTILES = 32  # more levels than any scorer needs
-
-# the runtimes the reference's server takes and the port lacks: their
-# modules and ROADMAP items (the serve task refuses their conf blocks too)
-UNPORTED_RUNTIMES = {
-    "cache": ("serving/forecast_cache.py", "P12"),
-}
-
 
 def _encode_predictions(out: pd.DataFrame, key_names) -> bytes:
     """A forecast frame -> the exact ``/invocations`` 200 response body.
@@ -243,6 +240,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 text += self.server.ingest.render_metrics()
             if self.server.anomaly is not None:
                 text += self.server.anomaly.render_metrics()
+            if self.server.cache is not None:
+                text += self.server.cache.render_metrics()
             if self.server.extra_metrics is not None:
                 text += self.server.extra_metrics.render()
             text += render_data_quality_metrics()
@@ -433,6 +432,23 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                     return
             include_history = bool(req.get("include_history", False))
             on_missing = req.get("on_missing", "raise")
+            key_names = self.server.forecaster.key_names
+            if self.server.cache is not None:
+                # the encoded-body fast path: a current-epoch hit skips the
+                # frame assembly and the encoding; its memoized bytes come
+                # from the same _encode_predictions as the dispatch below
+                body = self.server.cache.lookup_response(
+                    frame,
+                    horizon=horizon,
+                    include_history=include_history,
+                    quantiles=quantiles,
+                    on_missing=on_missing,
+                    xreg=xreg,
+                    encode=lambda f: _encode_predictions(f, key_names),
+                )
+                if body is not None:
+                    self._send_bytes(200, body)
+                    return
             out = self.server.execute(
                 frame,
                 horizon=horizon,
@@ -440,9 +456,11 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 quantiles=quantiles,
                 on_missing=on_missing,
                 xreg=xreg,
+                # the lookup above already consulted (and counted) the
+                # cache; a second one would count the miss twice
+                use_cache=False,
             )
-            self._send_bytes(200, _encode_predictions(
-                out, self.server.forecaster.key_names))
+            self._send_bytes(200, _encode_predictions(out, key_names))
         except UnknownSeriesError as e:
             self._send(404, {"error": str(e)})
         except QueueFullError as e:
@@ -652,11 +670,6 @@ class ForecastServer(PooledHTTPServer):
         cache=None,
         http: Optional[HttpConfig] = None,
     ):
-        if cache is not None:
-            module, item = UNPORTED_RUNTIMES["cache"]
-            raise NotImplementedError(
-                f"cache= ({module}) is not ported yet "
-                f"(ROADMAP Queue 1: {item})")
         super().__init__(addr, _Handler, http=http)
         self.forecaster = forecaster
         self.model_version = model_version
@@ -698,6 +711,17 @@ class ForecastServer(PooledHTTPServer):
                 "anomaly detection on: threshold=%.3f stream_scoring=%s",
                 anomaly.threshold,
                 anomaly.config.stream_scoring and ingest is not None)
+        # the materialized forecast cache (serving/forecast_cache.py):
+        # reads are row gathers out of a current-epoch frame, misses and
+        # exotic requests dispatch; it subscribed itself to swap_state at
+        # construction, so the server only consults and exposes it
+        self.cache = cache
+        if cache is not None:
+            self.logger.info(
+                "forecast cache on: max_horizons=%d quantile_sets=%d "
+                "mmap_dir=%s max_bytes=%d",
+                cache.config.max_horizons, len(cache.config.quantile_sets),
+                cache.config.mmap_dir, cache.config.max_bytes)
         # readiness is set once after warmup and cleared at shutdown
         self._ready = threading.Event()
         self.batcher: Optional[RequestBatcher] = None
@@ -718,10 +742,26 @@ class ForecastServer(PooledHTTPServer):
         quantiles,
         on_missing: str,
         xreg,
+        use_cache: bool = True,
     ):
         """Run one parsed /invocations request: through the coalescer when
         batching is on, as a direct forecaster call otherwise (both feed the
-        same dispatch and batch-size metrics)."""
+        same dispatch and batch-size metrics).  The forecast cache answers
+        first: a current-epoch hit is a row gather (no dispatch, no batch
+        metrics), a None a miss that dispatches below.  ``use_cache=False``
+        skips it: the HTTP handler passes that after its own encoded-body
+        lookup consulted (and counted) the cache for this request."""
+        if use_cache and self.cache is not None:
+            cached = self.cache.lookup(
+                frame,
+                horizon=horizon,
+                include_history=include_history,
+                quantiles=quantiles,
+                on_missing=on_missing,
+                xreg=xreg,
+            )
+            if cached is not None:
+                return cached
         if self.batcher is not None:
             fut = self.batcher.submit(
                 frame,

@@ -23,6 +23,7 @@ Conf::
       tracing: {...}          # spans, flight recorder, /debug/*
                               # (monitoring/trace.py)
       anomaly: {...}          # POST /detect_anomalies (serving/anomaly.py)
+      cache: {...}            # the forecast cache (serving/forecast_cache.py)
       ingest: {...}           # POST /ingest (serving/ingest.py): the WAL,
                               # default <env.root>/ingest_wal; refits need
                               # a history.npz sidecar beside the artifact
@@ -39,14 +40,17 @@ Conf::
 ``serving.ingest.enabled: true``.  Every block is parsed strictly, as the
 reference parses it, before any artifact loads; the tracer is then
 configured from ``serving.tracing`` and the cost layer from
-``monitoring.cost``, as the reference's task does.  What the port does not
-have yet: ``serving.cache.enabled`` (ROADMAP Queue 1: P12, second half)
-raises ``NotImplementedError``.  ``compile_cache:`` is armed by the Task
-base: the first kernel launch loads the kernel library through its store,
-and the cache's counts are logged after the warmup.  The ``fleet:``,
-``sharding:`` and ``resilience:`` blocks belong to the fleet task
-(``tasks/fleet.py``: N replica processes of this scorer behind one front
-door), as in the reference, whose serve task does not read them.
+``monitoring.cost``, as the reference's task does.  ``serving.cache``
+builds the materialized forecast cache (``serving/forecast_cache.py``;
+in memory unless ``mmap_dir`` is set) after the warmup, as the reference
+does; a forecaster that is not coalesce-safe (an ensemble, a bucketed
+artifact, Monte-Carlo intervals) serves uncached.  ``compile_cache:`` is
+armed by the Task base: the first kernel launch loads the kernel library
+through its store, and the store's counts are logged after the warmup.
+The ``fleet:``, ``sharding:`` and ``resilience:`` blocks belong to the
+fleet task (``tasks/fleet.py``: N replica processes of this scorer behind
+one front door), as in the reference, whose serve task does not read
+them.
 """
 
 from __future__ import annotations
@@ -71,16 +75,16 @@ from distributed_forecasting_tpu_torch.serving.anomaly import (
 )
 from distributed_forecasting_tpu_torch.serving.batcher import BatchingConfig
 from distributed_forecasting_tpu_torch.serving.dataplane import HttpConfig
-from distributed_forecasting_tpu_torch.serving.forecast_cache import CacheConfig
+from distributed_forecasting_tpu_torch.serving.forecast_cache import (
+    CacheConfig,
+    build_forecast_cache,
+)
 from distributed_forecasting_tpu_torch.serving.ingest import (
     IngestConfig,
     build_ingest_runtime,
 )
 from distributed_forecasting_tpu_torch.serving.loader import resolve_from_registry
-from distributed_forecasting_tpu_torch.serving.server import (
-    UNPORTED_RUNTIMES,
-    serve,
-)
+from distributed_forecasting_tpu_torch.serving.server import serve
 from distributed_forecasting_tpu_torch.tasks.common import Task
 
 
@@ -105,11 +109,7 @@ class ServeTask(Task):
         IngestConfig.from_conf(conf.get("ingest"))
         monitoring = self.conf.get("monitoring")
         CostConfig.from_conf((monitoring or {}).get("cost"))
-        if CacheConfig.from_conf(conf.get("cache")).enabled:
-            module, item = UNPORTED_RUNTIMES["cache"]
-            raise NotImplementedError(
-                f"serving.cache.enabled: true ({module}) is not ported yet "
-                f"(ROADMAP Queue 1: {item})")
+        CacheConfig.from_conf(conf.get("cache"))
         configure_tracing(tracing)
 
         forecaster, version = resolve_from_registry(
@@ -159,6 +159,11 @@ class ServeTask(Task):
             conf.get("host", "0.0.0.0"), conf.get("port", 8080),
             "on" if batching.enabled else "off",
         )
+        cache = build_forecast_cache(conf.get("cache"), forecaster)
+        if cache is not None:
+            self.logger.info(
+                "forecast cache on: max_horizons=%d quantile_sets=%d",
+                cache.config.max_horizons, len(cache.config.quantile_sets))
         return dict(
             forecaster=forecaster,
             host=conf.get("host", "0.0.0.0"),
@@ -168,6 +173,7 @@ class ServeTask(Task):
             quality=quality,
             ingest=ingest,
             anomaly=anomaly,
+            cache=cache,
             http=http,
         )
 

@@ -40,8 +40,14 @@ case of one parametrised test and deterministic from its seed:
                          front-door-built response, and the sharded-routing
                          headers never appear on round-robin traffic.
 
-The reference's ``cache_kill9_mid_persist`` waits for the port's forecast
-cache (ROADMAP Queue 1: P12, second half).
+  cache_kill9_mid_persist
+                         a process SIGKILLed inside the forecast cache's
+                         persist window (a child self-arms
+                         ``cache.persist=kill9`` before a state install):
+                         only meta files with their payload remain, an
+                         orphan payload is ignored, a fresh boot adopts the
+                         committed frame and serves byte-equal forecasts,
+                         and a torn payload is discarded for dispatch.
 """
 
 import http.client
@@ -175,6 +181,125 @@ def aot_corrupt_warm_boot(tmp, seed):
     s2 = cc.cache_stats()
     assert boot() == control
     assert cc.cache_stats()["hits"] == s2["hits"] + 1 and len(builds) == 2
+
+
+_CACHE_CHILD = r"""
+import sys
+
+import pandas as pd
+
+from distributed_forecasting_tpu_torch.data import (
+    synthetic_store_item_sales,
+    tensorize,
+)
+from distributed_forecasting_tpu_torch.models import ThetaConfig
+from distributed_forecasting_tpu_torch.models.base import get_model
+from distributed_forecasting_tpu_torch.monitoring import failpoints as fp
+from distributed_forecasting_tpu_torch.serving import BatchForecaster
+from distributed_forecasting_tpu_torch.serving.forecast_cache import (
+    build_forecast_cache,
+)
+
+mmap_dir, seed = sys.argv[1], int(sys.argv[2])
+df = synthetic_store_item_sales(n_stores=2, n_items=2, n_days=120, seed=seed)
+batch = tensorize(df, device="cpu")
+cfg = ThetaConfig()
+params = get_model("theta").fit(batch.y, batch.mask, batch.day, cfg)
+fc = BatchForecaster.from_fit(batch, params, "theta", cfg)
+cache = build_forecast_cache({"enabled": True, "mmap_dir": mmap_dir}, fc)
+req = pd.DataFrame(fc.keys, columns=fc.key_names)
+frame = cache.lookup(req, 14, False, None, "raise", None)
+assert frame is not None
+# the parent holds its own dispatch to this: the recovery checks rest on a
+# predict that is bitwise the same across processes
+print("REF " + frame.to_csv(index=False).encode().hex(), flush=True)
+print("PERSISTED " + str(int(cache.metrics.persists.value)), flush=True)
+# the next persist SIGKILLs this process inside the durable write: after
+# the rebuilt frame went live in memory, before its commit record lands
+fp.configure("cache.persist=kill9")
+fc.swap_state(day1=fc.day1)  # epoch bump -> rebuild -> persist
+print("SURVIVED", flush=True)
+"""
+
+
+def _theta_forecaster(seed):
+    """The child's forecaster, fitted again in this process."""
+    from distributed_forecasting_tpu_torch.data import (
+        synthetic_store_item_sales,
+        tensorize,
+    )
+    from distributed_forecasting_tpu_torch.models import ThetaConfig
+    from distributed_forecasting_tpu_torch.models.base import get_model
+    from distributed_forecasting_tpu_torch.serving import BatchForecaster
+
+    df = synthetic_store_item_sales(n_stores=2, n_items=2, n_days=120,
+                                    seed=seed)
+    batch = tensorize(df, device="cpu")
+    cfg = ThetaConfig()
+    params = get_model("theta").fit(batch.y, batch.mask, batch.day, cfg)
+    return BatchForecaster.from_fit(batch, params, "theta", cfg)
+
+
+def cache_kill9_mid_persist(tmp, seed):
+    import pandas as pd
+
+    from distributed_forecasting_tpu_torch.serving.forecast_cache import (
+        build_forecast_cache,
+    )
+
+    mmap_dir = os.path.join(tmp, "cache_kill9")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CACHE_CHILD, mmap_dir, str(seed)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == -9, proc.stderr[-500:]
+    assert "SURVIVED" not in proc.stdout, "the kill9 failpoint never fired"
+    lines = proc.stdout.splitlines()
+    ref_csv = next(bytes.fromhex(line.split()[1]).decode()
+                   for line in lines if line.startswith("REF "))
+    persists = next(int(line.split()[1])
+                    for line in lines if line.startswith("PERSISTED "))
+    assert persists >= 1, "the first epoch's persist never landed"
+    # meta last: the crash can leave a payload without its meta, never a
+    # meta without its payload
+    names = set(os.listdir(mmap_dir))
+    for name in names:
+        if name.endswith(".meta.json"):
+            assert name[:-len(".meta.json")] + ".npy" in names, name
+    # the other crash shape, by hand: an orphan payload (died between the
+    # payload's rename and the meta's write), which the loader ignores
+    with open(os.path.join(mmap_dir, "h99.npy"), "wb") as f:
+        f.write(b"orphan payload, no commit record")
+
+    fc = _theta_forecaster(seed)
+    req = pd.DataFrame(fc.keys, columns=fc.key_names)
+    assert fc.predict(req, horizon=14).to_csv(index=False) == ref_csv, (
+        "the predict is not bitwise the same across processes: the checks "
+        "below would mean nothing")
+    # clean recovery: the committed first-epoch frame is adopted (same
+    # state, same fingerprint) and serves byte-equal forecasts
+    boot = build_forecast_cache({"enabled": True, "mmap_dir": mmap_dir}, fc)
+    assert (boot.metrics.loads.value, boot.metrics.load_errors.value) == (
+        1, 0)
+    got = boot.lookup(req, 14, False, None, "raise", None)
+    assert got is not None and got.to_csv(index=False) == ref_csv
+    assert boot.metrics.rebuilds.value == 0  # served from the adopted frame
+    # torn recovery: one flipped payload byte under a commit record; the
+    # digest check discards it and the read falls through to a dispatch
+    ppath = os.path.join(mmap_dir, "h14.npy")
+    with open(ppath, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(ppath, "wb") as f:
+        f.write(bytes(blob))
+    torn = build_forecast_cache({"enabled": True, "mmap_dir": mmap_dir}, fc)
+    assert (torn.metrics.loads.value, torn.metrics.load_errors.value) == (
+        0, 1)
+    assert not os.path.exists(ppath), "the torn payload was not discarded"
+    got = torn.lookup(req, 14, False, None, "raise", None)
+    if got is None:  # a miss while the inline rebuild's gate was held
+        got = fc.predict(req, horizon=14)
+    assert got.to_csv(index=False) == ref_csv
 
 
 def _post(front, headers=None, timeout=10.0):
@@ -317,6 +442,7 @@ SCENARIOS = {
     "breaker_trip_recover": breaker_trip_recover,
     "keepalive_kill9_mid_stream": keepalive_kill9_mid_stream,
     "error_contract_headers": error_contract_headers,
+    "cache_kill9_mid_persist": cache_kill9_mid_persist,
 }
 
 

@@ -29,12 +29,9 @@ PACKAGES = ["analysis", "data", "engine", "models", "monitoring", "ops",
 PENDING_PACKAGES = {"analysis": "P13", "parallel": "P12"}
 
 # names of a reference __all__ the port does not export yet, by package and
-# label (ROADMAP Queue 1)
-PENDING = {
-    "serving": {
-        "P12": ["ForecastCache", "build_forecast_cache"],
-    },
-}
+# label (ROADMAP Queue 1); every package the port has exports all of its
+# reference's names now
+PENDING = {}
 
 
 def reference_all(package: str):

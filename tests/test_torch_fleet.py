@@ -645,14 +645,72 @@ def test_a_replica_without_a_card_raises_and_never_serves(tmp_path):
     assert "no CUDA device is visible" in proc.stderr
 
 
-@pytest.mark.parametrize("conf, match", [
-    ({"mesh_devices": 4}, "P12, second half"),
-    ({"cache": {"enabled": True}}, "P12, second half"),
-    ({"batching": {"max_batchsize": 3}}, "unknown batching conf key"),
+@pytest.mark.parametrize("conf, error, match", [
+    ({"mesh_devices": 4}, NotImplementedError, "P12, second half"),
+    ({"cache": {"enabled": True}}, FileNotFoundError, "forecaster.json"),
+    ({"batching": {"max_batchsize": 3}}, ValueError,
+     "unknown batching conf key"),
 ], ids=["mesh", "cache", "typo"])
-def test_a_replica_refuses_what_the_port_lacks(tmp_path, conf, match):
+def test_a_replica_refuses_what_the_port_lacks(tmp_path, monkeypatch, conf,
+                                               error, match):
+    """``mesh_devices > 1`` waits for ``parallel/*`` and a conf typo fails
+    at the parse.  An enabled ``cache`` block is ported: it parses, and the
+    replica goes on to the model load (an empty directory here)."""
     from distributed_forecasting_tpu_torch.serving import replica
 
+    monkeypatch.setenv("DFTPU_PLATFORM", "cpu")
     full = {"artifact_dir": str(tmp_path), "port": 1, **conf}
-    with pytest.raises((NotImplementedError, ValueError), match=match):
+    with pytest.raises(error, match=match):
         replica.main(["--conf", json.dumps(full)])
+
+
+class _ReachedIngest(Exception):
+    pass
+
+
+def test_the_replica_history_sidecar_lookup_departs_from_the_reference(
+        tmp_path, monkeypatch):
+    """A pinned difference.  A registered version whose artifact sits in a
+    ``forecaster/`` subdirectory, with ``history.npz`` at the version's
+    root (where both serve tasks look first): both fleet tasks hand the
+    replica the subdirectory.  The reference's replica looks there and in
+    its ``forecaster/`` only, so it misses the sidecar and builds its
+    ingest runtime without history (no full refits); the port's
+    ``replica._history`` also looks in the version's directory and finds
+    it.  Each replica is driven to its ingest runtime's construction,
+    where a stub records the history it was handed."""
+    from distributed_forecasting_tpu.serving import ingest as jingest
+    from distributed_forecasting_tpu.serving import replica as jreplica
+    from distributed_forecasting_tpu_torch.serving import ingest as tingest
+    from distributed_forecasting_tpu_torch.serving import replica as treplica
+
+    batch, fc = _tiny_hw()
+    version = tmp_path / "version"
+    fc.save(str(version / "forecaster"))
+    y, mask = batch.y.numpy(), batch.mask.numpy()
+    np.savez(str(version / "history.npz"), y=y, mask=mask)
+    for pkg in ("distributed_forecasting_tpu", PORT_PKG):
+        # both fleet tasks pick the subdirectory when it exists
+        with open(os.path.join(ROOT, pkg, "tasks", "fleet.py")) as f:
+            assert ('os.path.join(version.artifact_dir, "forecaster")'
+                    in f.read())
+    seen = {}
+
+    def stub(name):
+        def build(ingest_conf, forecaster, history_y=None, history_mask=None,
+                  **kw):
+            seen[name] = (history_y, history_mask)
+            raise _ReachedIngest(name)
+        return build
+
+    monkeypatch.setattr(jingest, "build_ingest_runtime", stub("reference"))
+    monkeypatch.setattr(tingest, "build_ingest_runtime", stub("port"))
+    monkeypatch.setenv("DFTPU_PLATFORM", "cpu")
+    conf = json.dumps({"artifact_dir": str(version / "forecaster"),
+                       "port": 1, "ingest": {"enabled": True}})
+    for name, mod in (("reference", jreplica), ("port", treplica)):
+        with pytest.raises(_ReachedIngest, match=name):
+            mod.main(["--conf", conf])
+    assert seen["reference"] == (None, None)  # the reference's miss
+    got_y, got_mask = seen["port"]  # the port's hit
+    assert np.array_equal(got_y, y) and np.array_equal(got_mask, mask)

@@ -424,9 +424,13 @@ def test_readyz_until_marked_ready_and_after_shutdown(servers):
 
 @pytest.mark.parametrize("runtime", ["ingest", "cache"])
 def test_unported_runtimes_are_refused(servers, runtime):
-    """``cache=`` (P12) is refused; ``ingest=`` is ported: the server takes
-    the runtime, starts it at construction and stops it in ``shutdown``
-    (``tests/test_torch_ingest.py`` drives a real one)."""
+    """Both runtimes are ported, so nothing is refused.  ``ingest=``: the
+    server takes the runtime, starts it at construction and stops it in
+    ``shutdown`` (``tests/test_torch_ingest.py`` drives a real one).
+    ``cache=``: the server takes a real ``ForecastCache``, answers a
+    repeated ``/invocations`` from it with the dispatched body, and
+    ``/metrics`` carries its ``dftpu_cache_*`` families
+    (``tests/test_torch_forecast_cache.py`` holds the rest)."""
     if runtime == "ingest":
         calls = []
         ingest = types.SimpleNamespace(
@@ -440,9 +444,37 @@ def test_unported_runtimes_are_refused(servers, runtime):
         srv.shutdown()
         assert calls == ["start", "stop"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: P12"):
-        tserver.ForecastServer(("127.0.0.1", 0), servers["port"].forecaster,
-                               **{runtime: object()})
+    from distributed_forecasting_tpu_torch.serving.forecast_cache import (
+        ForecastCache,
+        build_forecast_cache,
+    )
+
+    # a forecaster of its own over the same state: the cache subscribes to
+    # its state installs
+    src = servers["port"].forecaster
+    fc = tpred.BatchForecaster(
+        src.model, src.config, src.params, src.keys, src.key_names,
+        src.day0, src.day1, interval_scale=src.interval_scale,
+        freq=src.freq)
+    cache = build_forecast_cache({"enabled": True}, fc)
+    assert isinstance(cache, ForecastCache)
+    want = _raw(servers["port"], "POST", "/invocations",
+                {"inputs": TWO, "horizon": 5})
+    srv = tserver.start_server(fc, cache=cache)
+    try:
+        assert srv.cache is cache
+        for _ in range(2):  # a cold miss rebuilds inline, then a memo hit
+            got = _raw(srv, "POST", "/invocations",
+                       {"inputs": TWO, "horizon": 5})
+            assert got[:2] == want[:2]
+        assert cache.metrics.hits.value == 2
+        assert cache.metrics.rebuilds.value == 1
+        text = _raw(srv, "GET", "/metrics")[1].decode()
+        assert "dftpu_cache_hits_total 2" in text
+        assert "# TYPE dftpu_cache_entry_age_seconds gauge" in text
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 def test_encode_predictions_and_trace_ids_match_the_reference(servers):

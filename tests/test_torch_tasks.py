@@ -1410,7 +1410,7 @@ def _serve_conf(root, **serving):
 
 
 @pytest.mark.parametrize("block, item", [
-    ("serving.ingest", None), ("serving.cache", "P12"),
+    ("serving.ingest", None), ("serving.cache", None),
     ("serving.tracing.debug_endpoints", "served"),
 ], ids=["ingest", "cache", "debug_endpoints"])
 def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
@@ -1418,11 +1418,12 @@ def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
                                                            request,
                                                            block, item):
     """The registry under tmp_path is empty: had the task reached the model
-    load, it would fail there instead.  ``serving.ingest`` is ported: its
-    block parses and the task goes on to the load (here a stub that
-    raises).  ``tracing.debug_endpoints: true`` is ported too: on the
-    forecasting-e2e store the task starts and ``/debug/trace`` answers
-    with the ``http.request`` span of a request before it."""
+    load, it would fail there instead.  ``serving.ingest`` and
+    ``serving.cache`` are ported: each block parses and the task goes on to
+    the load (here a stub that raises).  ``tracing.debug_endpoints: true``
+    is ported too: on the forecasting-e2e store the task starts and
+    ``/debug/trace`` answers with the ``http.request`` span of a request
+    before it."""
     from distributed_forecasting_tpu_torch.tasks import serve as tserve
 
     if item == "served":
@@ -1440,12 +1441,7 @@ def test_serve_task_refuses_unported_blocks_before_loading(tmp_path,
     for key in path[:-1]:
         node = node[key]
     node[path[-1]]["enabled"] = True
-    if item is None:
-        with pytest.raises(LookupError, match="reached the model load"):
-            tserve.ServeTask(init_conf=conf, device="cpu").launch()
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1: {item}\)"):
+    with pytest.raises(LookupError, match="reached the model load"):
         tserve.ServeTask(init_conf=conf, device="cpu").launch()
 
 
@@ -1500,13 +1496,72 @@ def _serve_with_debug_endpoints(runs, monkeypatch):
     assert {"http.request", "serving.predict", "aot.call"} <= mine, mine
 
 
+def test_serve_task_serves_through_the_forecast_cache(runs, monkeypatch):
+    """The shipped serve conf with ``serving.cache`` on (one quantile set)
+    on the port's forecasting-e2e store: the task builds the cache and
+    hands it to the server; a point and a quantile ``/invocations`` each
+    answer twice from it with the body of the forecaster's own dispatch,
+    and ``/metrics`` carries the ``dftpu_cache_*`` families."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu_torch.serving import server as tserver
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    started = {}
+
+    def start(forecaster, host, port, **kw):
+        started["srv"] = tserver.start_server(forecaster, host=host,
+                                              port=port, **kw)
+
+    monkeypatch.setattr(tserve, "serve", start)
+    _, root = runs["port"]
+    conf = _serve_conf(root, warmup_sizes=[1])
+    conf["serving"]["cache"].update(enabled=True,
+                                    quantile_sets=[[0.9, 0.1, 0.5]])
+    conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+        root, "quality_store_cache")
+    tserve.ServeTask(init_conf=conf, device="cpu").launch()
+    srv = started["srv"]
+    try:
+        fc, cache = srv.forecaster, srv.cache
+        assert cache is not None and cache.config.mmap_dir is None
+        assert cache.config.quantile_sets == ((0.1, 0.5, 0.9),)
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        inputs = [dict(zip(fc.key_names, map(int, k))) for k in fc.keys[:3]]
+        req = pd.DataFrame(fc.keys[:3], columns=list(fc.key_names))
+        for body, want in (
+                ({"inputs": inputs, "horizon": 7},
+                 fc.predict(req, horizon=7)),
+                ({"inputs": inputs, "horizon": 7,
+                  "quantiles": [0.5, 0.1, 0.9]},
+                 fc.predict_quantiles(req, quantiles=(0.1, 0.5, 0.9),
+                                      horizon=7))):
+            for _ in range(2):
+                call = urllib.request.Request(
+                    url + "/invocations", data=json.dumps(body).encode())
+                with urllib.request.urlopen(call, timeout=60) as r:
+                    assert r.read() == tserver._encode_predictions(
+                        want, fc.key_names)
+        assert cache.metrics.hits.value == 4
+        assert cache.metrics.rebuilds.value == 2
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        assert "dftpu_cache_hits_total 4" in text
+        assert "dftpu_cache_entries 2" in text
+    finally:
+        srv.shutdown()
+
+
 @pytest.mark.parametrize("serving, match", [
     ({"batching": {"max_batchsize": 8}}, "unknown batching conf key"),
     ({"http": {"pool_sizes": 2}}, "unknown serving.http conf key"),
     ({"tracing": {"ring": 1}}, "unknown tracing conf key"),
     ({"anomaly": {"enabled": True, "treshold": 1}},
      "unknown serving.anomaly conf key"),
-], ids=["batching", "http", "tracing", "anomaly"])
+    ({"cache": {"enabled": True, "max_horizon": 4}},
+     "unknown serving.cache conf key"),
+], ids=["batching", "http", "tracing", "anomaly", "cache"])
 def test_serve_task_conf_typos_fail_before_loading(tmp_path, monkeypatch,
                                                    serving, match):
     from distributed_forecasting_tpu_torch.tasks import serve as tserve
