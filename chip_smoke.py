@@ -87,7 +87,14 @@ its own size:
     artifacts beside the same scorers with it off — full-S rebuilds
     (arima's launches ``arima_predict``), hit against dispatch, the
     rebuilds an ``/ingest`` apply and a forced refit pay, persistence and
-    adoption at a restart, and two fleets of 2 replicas, cache on and off.
+    adoption at a restart, and two fleets of 2 replicas, cache on and off;
+  * the series mesh (``parallel/*`` over ``torch.distributed``): one NCCL
+    rank on the card through ``make_mesh()``, and two processes sharing the
+    card over gloo, each brought up by ``initialize_distributed`` — the
+    reference's multi-host scenario (hash-owned shards, a global metric
+    mean by all-reduce), sharded fits and CV, the bottom-level gather, the
+    time-sharded scans over one series of 2^20 steps and the windowed arima
+    fit of 500 x 100,000 over the mesh.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
@@ -473,7 +480,8 @@ is not 0:
               distributed_forecasting_tpu_torch.tasks.fleet`` on the
               shipped serve conf with 2 replicas, sharding (8 shards,
               replication 2), ingest with refits, breakers after 3
-              failures and a fresh kernel store (``FLEET_CONF``), beside a
+              failures and the kernel store phase 18 filled
+              (``FLEET_CONF``; the cold build is measured there), beside a
               single ``tasks.serve`` scorer in this process on the same
               conf.  (a) /invocations of 1, 17 and 500 series through the
               front door byte-equal to the single scorer's (the 1-series
@@ -489,9 +497,9 @@ is not 0:
               applied the same points and refit.  (d) SIGKILL to replica 1
               while one keep-alive client streams: every request answers
               200 on the same connection; then replica 0 too.  (e) Each
-              replica's cold and warm boot and its stages (its ready
-              line), restart-to-ready, the restarted library a store hit
-              with no miss (no ``nvcc``).  (f) The fleet /metrics is
+              replica's first and restarted boot and their stages (its
+              ready lines), restart-to-ready, the restarted library a
+              store hit with no miss (no ``nvcc``).  (f) The fleet /metrics is
               ``aggregate_prometheus`` of the replicas' scrapes, and the
               front-door process holds no CUDA context.  After the
               restarts (each replica replays the shard WAL and refits on
@@ -523,6 +531,35 @@ is not 0:
               Persist ms and bytes per 500-series entry, adoption at a
               restart of the task (no rebuild, byte-equal), and a copied
               frame discarded under state one streamed day moved
+ 22. parallel ``parallel/*`` over ``torch.distributed``
+              (``slice23_phase``; its first line says which part measures
+              what).  (a) One rank over NCCL on cuda:0 (``make_mesh()``):
+              ``sharded_fit_forecast`` of Holt-Winters, arima and the curve
+              model and ``sharded_cv_metrics`` of Holt-Winters with
+              ``global_metric_means`` on the committed dataset, the launch
+              counters set to 0 before and read after; each against the
+              unsharded fit / CV pass on the card (bitwise for
+              Holt-Winters, arima and the CV means, the curve model within
+              ``CURVE_RTOL``), the means against a float64 host mean;
+              sharded and unsharded walls in turns and the sharded fit's
+              idle share.  (b) ``PAR_WORLD`` (2) processes of ``python3
+              chip_smoke.py --parallel-rank PLAN`` on the one card over
+              gloo, each through ``initialize_distributed`` and loading the
+              library this run built (no ``nvcc``): ``host_local_frame`` of
+              the CSV, its shard's fit and the global mean MAPE by one
+              all-reduce (equal on both, within 1e-4 of one process's);
+              ``sharded_fit_forecast``, ``sharded_cv_metrics`` and the
+              means over the 2-rank mesh (within 1e-5 of (a)'s);
+              ``gather_bottom_sharded`` of the forecasts (bitwise (a)'s);
+              ``affine_scan_time_sharded``, ``parallel_filter_time_sharded``
+              (m 7) and ``parallel_kalman_filter_time_sharded`` on one
+              series of 2^20 steps, half a rank, against ``affine_scan``
+              and the ``hw_filter`` / ``arima_filter`` kernels over the
+              whole series (``PAR_*_TOL``); ``windowed_fit_forecast`` of
+              500 x 100,000 over the mesh, equal on both ranks and within
+              2e-4 of the unsharded fit.  Each rank's wall a step and the
+              collectives' share of it.  A rank that exits nonzero or
+              disagrees fails the phase
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -540,14 +577,16 @@ fit and forced refit, phase 17's fits, tail refits, train task and
 artifact predict, phase 18's train tasks and ``run_many``, and phase
 19's fits, forced refit and predicts, the launches phase 20's
 replicas logged at their drain, and phase 21's fits, dispatches,
-rebuilds and forced refit; the arima rows add phase 17's kernel times at
-the window's shapes);
+rebuilds and forced refit, and phase 22's sharded path and its two
+ranks' launches; the arima rows add phase 17's kernel times at the
+window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import ctypes
@@ -965,28 +1004,34 @@ def _trace(fn, top_n: int, margins: tuple) -> dict:
             torch.cuda.synchronize()
             time.sleep(margins[1])
         launched = {k: n - before[k] for k, n in hand_launches().items()}
-        events = prof.events()
+        # the profiler's raw records, (name, device, start us, end us, user
+        # annotation): building its FunctionEvent list instead costs ~70 us
+        # an event in Python (tens of seconds for an arnet fit's trace)
+        events = [(e.name(), e.device_type(), e.start_ns() / 1e3,
+                   e.end_ns() / 1e3, e.is_user_annotation())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.name() not in ("[memory]", "[OutOfMemory]")
+                  and not getattr(e, "is_hidden_event", lambda: False)()]
         # kernels and copies only: user annotations on the card's timeline
         # (torch.optim's "Optimizer.step#Adam.step") are not device work
-        device = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation]
-        tail = [e for e in device if "spin_kernel" in e.name]
-        device = [e for e in device if "spin_kernel" not in e.name]
-        mark = [e for e in events if e.name == TAIL_MARK
-                and e.device_type == DeviceType.CPU]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-        own = {k: [(e.time_range.end - e.time_range.start) / 1e3
-                   for e in device if f"{k}_kernel" in e.name]
+        device = [e for e in events if e[1] == DeviceType.CUDA and not e[4]]
+        tail = [e for e in device if "spin_kernel" in e[0]]
+        device = [e for e in device if "spin_kernel" not in e[0]]
+        mark = [e for e in events if e[0] == TAIL_MARK
+                and e[1] == DeviceType.CPU]
+        spans = sorted((e[2], e[3]) for e in device)
+        own = {k: [(e[3] - e[2]) / 1e3 for e in device
+                   if f"{k}_kernel" in e[0]]
                for k in KERNELS}
         names = {}
         for e in device:
-            n, ms = names.get(e.name, (0, 0.0))
-            names[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+            n, ms = names.get(e[0], (0, 0.0))
+            names[e[0]] = (n + 1, ms + (e[3] - e[2]) / 1e3)
     except Exception as exc:  # noqa: BLE001 — reported, not hidden
         return {"idle_share": "not measured", "reason": repr(exc)}
     missing = {k: n - len(own[k]) for k, n in launched.items()
                if len(own[k]) < n}
-    lag_ms = ((tail[0].time_range.start - mark[0].time_range.start) / 1e3
+    lag_ms = ((tail[0][2] - mark[0][2]) / 1e3
               if tail and mark else "not measured")
     if not tail or missing:
         return {"idle_share": "not measured",
@@ -7534,6 +7579,11 @@ def _store_children(*args) -> list:
     return outs
 
 
+# the kernel store phase 18's cold child filled: phase 20's fleet boots
+# from it (the cold build is measured once, in phase 18)
+KERNEL_STORE = None
+
+
 def runtime_compile_cache(port, card_line: str) -> dict:
     """(c) the kernel library's store, each step a fresh process: an empty
     store (cold: nvcc builds, the library is stored), the same store (warm:
@@ -7541,10 +7591,13 @@ def runtime_compile_cache(port, card_line: str) -> dict:
     one source changed in a copy of csrc/ (a new key: rebuilt).  After the
     cold child the other three run at once, the truncated entry in a copy
     of the store (two builds and the warm load share the host's cores).
-    Each child launches hw_score once against its twin."""
+    Each child launches hw_score once against its twin.  The store is kept
+    for the run as :data:`KERNEL_STORE`."""
+    global KERNEL_STORE
     out = {}
+    store = tempfile.mkdtemp(prefix="dftt-store-")
+    atexit.register(shutil.rmtree, store, True)
     with tempfile.TemporaryDirectory(prefix="dftt-c-") as tmp:
-        store = os.path.join(tmp, "compile_cache")
         kernels = os.path.join(store, "kernels")
         (cold,) = _store_children((store, "", False))
         out["cold"] = cold
@@ -7575,6 +7628,7 @@ def runtime_compile_cache(port, card_line: str) -> dict:
                                 if n.endswith(".aot"))
         assert len(out["entries"]) == 2, out["entries"]
         out["entry_bytes"] = size
+    KERNEL_STORE = store
     emit("runtime_compile_cache", card=card_line,
          cold_load_s=cold["seconds"], warm_load_s=warm["seconds"],
          truncated_load_s=trunc["seconds"],
@@ -8397,7 +8451,7 @@ FLEET_LATENCY = {1: 20, 17: 20, 500: 20}  # sequential requests a size, leg
 FLEET_STREAM = (15, 30)     # (d): keep-alive requests before / after the kill
 FLEET_POINTS = 500          # (b): one ingest of this many points
 FLEET_PROFILE_S = 2.0       # (c): the capture's window around the ingest
-FLEET_BOOT_S = 600.0        # a cold replica boot builds the kernel library
+FLEET_BOOT_S = 600.0        # a replica on a cold store builds the library
 # gauges whose value depends on the scraper's own connections
 FLEET_OBSERVER_GAUGES = ("dftpu_http_workers_busy",)
 FLEET_CONF = {"serving.fleet.enabled": True,
@@ -8420,8 +8474,9 @@ FLEET_CONF = {"serving.fleet.enabled": True,
 def fleet_conf(port, root: str, name: str, number: int) -> dict:
     """The shipped serve conf for phase 20: :data:`FLEET_CONF` on top, the
     model, localhost, the front door on ``number``, and its own WAL,
-    quality-store, profile and (fresh) kernel-store directories under
-    ``root``."""
+    quality-store and profile directories under ``root``; the kernel store
+    phase 18 filled (:data:`KERNEL_STORE`), or a fresh one under ``root``
+    when phase 20 runs alone."""
     conf = port["config"].load_conf(SERVE_CONF)
     conf["env"] = {"root": root}
     conf["serving"].update(model_name=name, host="127.0.0.1", port=number)
@@ -8430,7 +8485,8 @@ def fleet_conf(port, root: str, name: str, number: int) -> dict:
                "serving.tracing.profile_dir": os.path.join(root, "profile"),
                "monitoring.quality_store.directory":
                    os.path.join(root, "quality_fleet"),
-               "compile_cache.directory": os.path.join(root, "kernels")}
+               "compile_cache.directory": (KERNEL_STORE or
+                                           os.path.join(root, "kernels"))}
     for key, value in changed.items():
         *path, last = key.split(".")
         node = conf
@@ -8818,7 +8874,7 @@ def fleet_kill(fleet, fc, replicas, card_line: str) -> dict:
     for r in replicas:
         boots = boot_lines(log, r["port"])
         assert len(boots) == 2, (r["port"], boots)
-        cold, warm = boots
+        first, warm = boots
         text = http_call(r["port"], "GET", "/metrics")[1].decode()
         samples = _samples_of(text)
         outcomes = {o: samples.get(
@@ -8830,7 +8886,7 @@ def fleet_kill(fleet, fc, replicas, card_line: str) -> dict:
                 outcomes
         restart = ready_at[r["index"]] - killed[r["index"]][0]
         out["replicas"][r["index"]] = {
-            "port": r["port"], "cold_boot": cold, "warm_boot": warm,
+            "port": r["port"], "first_boot": first, "warm_boot": warm,
             "restart_to_ready_s": restart,
             # the respawn, the interpreter's start and the imports (and the
             # supervisor's next poll): the restart outside the boot's main
@@ -8894,9 +8950,9 @@ def slice21_phase(port, card_line: str) -> dict:
     committed dataset (uncut, history sidecar) registered in Staging; the
     fleet task started as a user starts it on the shipped serve conf with
     :data:`FLEET_CONF` (2 replicas, 8 shards x replication 2, ingest with
-    refits, breakers after 3 failures, a fresh kernel store), beside a
-    single ``tasks.serve`` scorer in this process on the same conf
-    without the fleet.  (a) byte-equal bodies and latency, (b)-(c) the
+    refits, breakers after 3 failures, the kernel store phase 18 filled),
+    beside a single ``tasks.serve`` scorer in this process on the same
+    conf without the fleet.  (a) byte-equal bodies and latency, (b)-(c) the
     ingest and the refit in a replica, (d)-(e) kills and warm boots, (f)
     the front door, then a drain: each replica's launches from its drain
     line."""
@@ -8935,7 +8991,7 @@ def slice21_phase(port, card_line: str) -> dict:
             t0 = time.perf_counter()
             replicas = fleet.wait(lambda reps: len(reps) == 2 and all(
                 r["ready"] for r in reps))
-            seconds["cold_boot"] = time.perf_counter() - fleet.t0
+            seconds["first_boot"] = time.perf_counter() - fleet.t0
             owned = sorted({k for r in replicas for k in r["shards"]})
             assert owned == list(range(conf["serving"]["sharding"][
                 "num_shards"])), replicas
@@ -9596,6 +9652,567 @@ def slice22_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 22: parallel/* over torch.distributed -----------------------------
+
+PAR_WORLD = 2              # (b): two processes on the one card, over gloo
+PAR_SCAN_T = 1 << 20       # (b): one series of two years of minutes
+PAR_SCAN_SEED = 29
+PAR_HW = (0.3, 0.1, 0.2, 7)               # alpha, beta, gamma, m
+PAR_ARMA = ((0.6, -0.2), (0.3,))          # phi, theta of the Kalman case
+PAR_RANK_TIMEOUT_S = 600.0
+PAR_KERNELS = ("hw_score", "hw_filter", "arima_filter", "arima_predict")
+# tolerances, each the reference's own for the same comparison: the affine
+# scan's the multi-host worker's bound (max abs), the Holt-Winters and
+# Kalman filters' its time-sharded tests' (rtol, atol); the MSE and the
+# likelihood sums against the sequential filter's own per-step terms
+# summed in float64 (a sequential float32 sum over 2^20 steps is not a
+# reference).  Holt-Winters' level and season are held as l + s_j, what
+# the forecasts read, at the level's tolerance: the additive state has an
+# invariant direction (level + d, every season - d; eigenvalue 1) along
+# which float32 rounding is never damped, so over 2^20 steps l and s drift
+# apart by equal and opposite amounts in both filters (0.028 in the level
+# on the card, PERF.md), while l + s_j stays within ~1e-6 of float64
+PAR_AFFINE_ATOL = 1e-3
+PAR_HW_TOL = {"preds": (1e-3, 1e-2), "l_plus_s": (1e-4, 0.0),
+              "b": (1e-3, 1e-4), "mse": (1e-4, 0.0)}
+PAR_KALMAN_TOL = {"ssq": (1e-3, 0.0), "ldet": (1e-3, 1e-3),
+                  "preds": (1e-3, 1e-3), "Fs": (1e-3, 1e-4),
+                  "a_T": (1e-3, 1e-3), "P_T": (1e-3, 1e-4)}
+PAR_MAPE_RTOL = 1e-4      # the reference's: 2 ranks' mean against 1 process
+PAR_MEAN_RTOL = 1e-5      # float32 tree sums of 500 against float64
+PAR_WIN_TOL = 2e-4        # the reference's windowed mesh case
+
+
+def par_scan_inputs(T: int, device) -> dict:
+    """The time-sharded scans' one series of T steps, from a seed, float32
+    on ``device``: an affine problem (spectral radius below 1, the
+    reference's), a weekly series with a trend and a 1,000-step gap across
+    the ranks' boundary, and an ARMA(2, 1) series with another."""
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(PAR_SCAN_SEED)
+    d = 3
+    A = (0.9 * rng.uniform(-1, 1, (T, d, d)) / d
+         + 0.5 * np.eye(d)).astype(np.float32)
+    c = rng.normal(size=(T, d)).astype(np.float32)
+    x0 = rng.normal(size=d).astype(np.float32)
+    t = np.arange(T)
+    y = (50 + 1e-5 * t + 8 * np.sin(2 * np.pi * t / PAR_HW[3])
+         + rng.normal(0, 1.5, T))
+    ymask = np.ones(T, np.float32)
+    ymask[T // 2 - 500:T // 2 + 500] = 0.0
+    (p1, p2), (t1,) = PAR_ARMA
+    z = lfilter([1.0, t1], [1.0, -p1, -p2], rng.normal(0, 1.0, T + 50))[50:]
+    zmask = np.ones(T, np.float32)
+    zmask[T // 2 - 300:T // 2 + 200] = 0.0
+    out = dict(A=A, c=c, x0=x0, y=(y * ymask)[None], ymask=ymask[None],
+               z=(z * zmask)[None], zmask=zmask[None])
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in out.items()}
+
+
+def par_kalman_system(port, S: int, device):
+    """T_mat, RRt, P0 of the ARMA(2, 1) case for ``S`` rows, and (phi,
+    theta, r)."""
+    ar = port["arima"]
+    ph = torch.tensor([PAR_ARMA[0]] * S, device=device)
+    th = torch.tensor([PAR_ARMA[1]] * S, device=device)
+    r = max(len(PAR_ARMA[0]), len(PAR_ARMA[1]) + 1)
+    T_mat, _ = ar._build_ssm(ph, th, r)
+    p_pad, _, RRt = ar._model(ph, th, r)
+    return (T_mat, RRt, ar._init_cov(p_pad, RRt)), (ph, th, r)
+
+
+class _CollectiveClock:
+    """Wall seconds and calls of the port's two collectives in this process
+    (``parallel/mesh.all_reduce_sum`` / ``all_gather_rows``), each timed
+    between device synchronizations: installed by patching the names every
+    caller reads."""
+
+    def __init__(self, sync):
+        from distributed_forecasting_tpu_torch.parallel import mesh, sharded
+
+        self.sync = sync
+        self.seconds, self.calls = 0.0, 0
+        self._patched = []
+        for mod, name in ((mesh, "all_reduce_sum"), (mesh, "all_gather_rows"),
+                          (sharded, "all_reduce_sum")):
+            fn = getattr(mod, name)
+            self._patched.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def timed(*args, **kwargs):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.sync()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return timed
+
+    def reset(self) -> None:
+        self.seconds, self.calls = 0.0, 0
+
+
+def parallel_rank(plan: dict) -> dict:
+    """One rank of (b): brought up through ``initialize_distributed`` (what
+    the ``distributed:`` block calls), the library loaded from the build the
+    parent made (no ``nvcc``), then each step of the reference's multi-host
+    scenario at full width, timed with its collectives.  Writes its arrays
+    to ``rank<r>.npz`` in ``plan["out"]`` and returns its report."""
+    global DEVICE
+    DEVICE = plan["device"]  # what ar2_batch places on
+    port = load_port()
+    from distributed_forecasting_tpu_torch import parallel as par
+    from distributed_forecasting_tpu_torch.ops import metrics as M
+    from distributed_forecasting_tpu_torch.ops import pkalman, pscan
+    from distributed_forecasting_tpu_torch.parallel import mesh as pmesh
+    from distributed_forecasting_tpu_torch.parallel.distributed import (
+        host_local_frame,
+    )
+    import torch.distributed as dist
+
+    rank, world = plan["rank"], plan["world"]
+    dev_arg = "cpu" if plan["device"] == "cpu" else None
+    par.initialize_distributed(f"127.0.0.1:{plan['port']}", world, rank,
+                               device=dev_arg)
+    dev = pmesh._RANK_DEVICE
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        port["build"].library()
+    library_s = time.perf_counter() - t0
+    mesh = par.make_mesh(world)
+    # from the parent's spawn to a rank with its group, mesh and library
+    ready_s = time.time() - plan["spawned_at"]
+    group = pmesh.mesh_group(mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for k in KERNELS:
+        getattr(port["fs"] if k.startswith("hw_") else port["kalman"],
+                k).launches = 0
+    clock = _CollectiveClock(sync)
+    steps, arrays = {}, {}
+
+    def step(name, fn):
+        clock.reset()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t
+        steps[name] = {"wall_s": wall, "collective_s": clock.seconds,
+                       "collectives": clock.calls,
+                       "collective_share": clock.seconds / wall}
+        return out
+
+    eng, data = port["engine"], port["data"]
+    df = data.load_sales_csv(plan["data"])
+    H = plan["horizon"]
+
+    def local_fit():
+        # the reference's worker: this rank's hash-owned series, tensorized
+        # alone, fit, and the global mean MAPE through one all-reduce
+        b = data.tensorize(host_local_frame(df), device=dev)
+        _, res = eng.fit_forecast(b, "holt_winters", horizon=H)
+        mape = M.mape(b.y, res.yhat[:, :b.n_time], b.mask)
+        tot = pmesh.all_reduce_sum(torch.stack(
+            [mape.sum(), torch.tensor(float(mape.shape[0]), device=dev)]),
+            group)
+        return b.n_series, bool(res.ok.all()), float(tot[0] / tot[1])
+
+    n_local, local_ok, mape_mean = step("host_local_fit", local_fit)
+    batch = data.tensorize(df, device=dev)
+    assert (batch.n_series, batch.n_time) == tuple(plan["shape"])
+    _, res = step("sharded_fit", lambda: par.sharded_fit_forecast(
+        batch, "holt_winters", horizon=H, mesh=mesh))
+    cvm = step("sharded_cv", lambda: par.sharded_cv_metrics(
+        batch, "holt_winters", cv=port["cv"].CVConfig(**plan["cv"]),
+        mesh=mesh))
+    ok = torch.ones(cvm["mape"].shape[0], dtype=torch.bool, device=dev)
+    means = step("global_means", lambda: par.global_metric_means(
+        cvm, ok, mesh))
+    arrays["bottoms"] = step(
+        "gather_bottoms", lambda: port["reconcile"].gather_bottom_sharded(
+            res.yhat, mesh, "series")).cpu().numpy()
+
+    T = plan["scan_t"]
+    inp = par_scan_inputs(T, dev)
+    mine = slice(rank * T // world, (rank + 1) * T // world)
+    blk = T // world  # one associative scan of the rank's steps
+    arrays["affine"] = step(
+        "affine_scan_time_sharded", lambda: pscan.affine_scan_time_sharded(
+            inp["A"][mine], inp["c"][mine], inp["x0"], mesh,
+            block_size=blk)).cpu().numpy()
+    a, b_, g, m = PAR_HW
+    (l, bb, s), mse, preds = step(
+        "hw_filter_time_sharded",
+        lambda: port["hw"].parallel_filter_time_sharded(
+            inp["y"][:, mine], inp["ymask"][:, mine], a, b_, g, m, mesh))
+    arrays.update(hw_l=l.cpu().numpy(), hw_b=bb.cpu().numpy(),
+                  hw_s=s.cpu().numpy(), hw_mse=mse.cpu().numpy(),
+                  hw_preds=preds.cpu().numpy())
+    system, _ = par_kalman_system(port, 1, dev)
+    kal = step("kalman_time_sharded",
+               lambda: pkalman.parallel_kalman_filter_time_sharded(
+                   inp["z"][:, mine], inp["zmask"][:, mine], *system, mesh,
+                   block_size=blk))
+    for name, v in zip(("ssq", "ldet", "n", "preds", "Fs", "a_T", "P_T"),
+                       kal):
+        arrays[f"kalman_{name}"] = v.cpu().numpy()
+
+    win = port["windowed"]
+    wcfg = win.WindowedConfig.from_conf(plan["win_block"])
+    S_w, T_w = plan["win_shape"]
+    wbatch = ar2_batch(port, S_w, T_w, plan["win_seed"])
+    wp, wr = step("windowed_mesh", lambda: win.windowed_fit_forecast(
+        wbatch, "arima", horizon=plan["win_horizon"], mesh=mesh,
+        wconfig=wcfg))
+    launches = {k: getattr(port["fs"] if k.startswith("hw_")
+                           else port["kalman"], k).launches for k in KERNELS}
+    digest = hashlib.sha256()
+    for x in (wr.yhat, wr.lo, wr.hi, wr.ok, wp.phi, wp.theta, wp.sigma2):
+        digest.update(x.cpu().numpy().tobytes())
+    report = {"rank": rank, "backend": dist.get_backend(),
+              "device": str(dev), "library_s": library_s,
+              "ready_s": ready_s, "steps": steps,
+              "launches": launches, "n_local_series": n_local,
+              "local_all_ok": local_ok, "global_mean_mape": mape_mean,
+              "means": {k: float(v) for k, v in means.items()},
+              "cv_rows": int(cvm["mape"].shape[0]),
+              "windowed_digest": digest.hexdigest()}
+    if rank == 0:
+        # the comparison after the timed steps: the unsharded windowed fit
+        up, ur = win.windowed_fit_forecast(
+            wbatch, "arima", horizon=plan["win_horizon"], wconfig=wcfg)
+        diff = {k: float((getattr(wr, k) - getattr(ur, k)).abs().max())
+                for k in ("yhat", "lo", "hi")}
+        diff.update({f.name: float((getattr(wp, f.name)
+                                    - getattr(up, f.name)).abs().max())
+                     for f in dataclasses.fields(up)})
+        report["windowed_vs_unsharded"] = {
+            "max_abs": diff, "ok_equal": bool(torch.equal(wr.ok, ur.ok)),
+            "day_all_equal": bool(torch.equal(wr.day_all, ur.day_all)),
+            "shape": list(wr.yhat.shape)}
+    np.savez(os.path.join(plan["out"], f"rank{rank}.npz"), **arrays)
+    dist.destroy_process_group()
+    return report
+
+
+def parallel_one_rank(port, card_line: str) -> dict:
+    """(a) One rank over NCCL on the card, through ``make_mesh()`` (a
+    one-rank group this process brings up): ``sharded_fit_forecast`` of
+    Holt-Winters, arima and the curve model and ``sharded_cv_metrics`` of
+    Holt-Winters with ``global_metric_means``, the launch counters set to 0
+    just before and read just after; each against the unsharded fit / CV
+    on the card (bitwise for Holt-Winters and arima, the curve model within
+    ``CURVE_RTOL`` of each row's scale), the means against a float64 host
+    mean; sharded and unsharded walls as CUDA-event medians and the idle
+    share of the sharded fit.  The group is torn down at the end."""
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch import parallel as par
+    from distributed_forecasting_tpu_torch.parallel import mesh as pmesh
+
+    eng, cvmod = port["engine"], port["cv"]
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                   device=DEVICE)
+    assert (batch.n_series, batch.n_time) == SHAPE
+    cv = cvmod.CVConfig(**CV)
+    configs = {"holt_winters": None, "arima": None,
+               "prophet": curve_config(batch, port)}
+    out = {}
+    mesh = par.make_mesh(device=DEVICE)
+    try:
+        backend = dist.get_backend()
+        if DEVICE == "cuda":
+            assert backend == "nccl", backend
+        for k in KERNELS:
+            getattr(port["fs"] if k.startswith("hw_") else port["kalman"],
+                    k).launches = 0
+        sharded = {m: par.sharded_fit_forecast(batch, m, config=c, mesh=mesh)
+                   for m, c in configs.items()}
+        cvm = par.sharded_cv_metrics(batch, "holt_winters", cv=cv, mesh=mesh)
+        ok = sharded["holt_winters"][1].ok
+        means = par.global_metric_means(cvm, ok, mesh)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        launches = hand_launches()
+        plain = {m: eng.fit_forecast(batch, m, c)
+                 for m, c in configs.items()}
+        plain_cv = cvmod.cross_validate(batch, "holt_winters", cv=cv)
+        checks = {}
+        for m in ("holt_winters", "arima"):
+            checks[m] = {k: bool(torch.equal(getattr(sharded[m][1], k),
+                                             getattr(plain[m][1], k)))
+                         for k in ("yhat", "lo", "hi", "ok")}
+            assert all(checks[m].values()), (m, checks[m])
+        got, want = sharded["prophet"][1], plain["prophet"][1]
+        scale = want.yhat.abs().amax(1, keepdim=True).clamp_min(1.0)
+        rel = {k: float(((getattr(got, k) - getattr(want, k)).abs()
+                         / scale).max()) for k in ("yhat", "lo", "hi")}
+        assert max(rel.values()) <= CURVE_RTOL, rel
+        assert torch.equal(got.ok, want.ok)
+        checks["prophet"] = {"max_rel_of_row_scale": rel,
+                             "tolerance": CURVE_RTOL}
+        checks["cv_bitwise"] = {k: bool(torch.equal(cvm[k], plain_cv[k]))
+                                for k in cvm if not k.startswith("_")}
+        assert all(checks["cv_bitwise"].values()), checks["cv_bitwise"]
+        okh = ok.cpu().numpy()
+        host = {k: float(np.mean(cvm[k].double().cpu().numpy()[okh]))
+                for k in means}
+        mean_rel = {k: abs(float(means[k]) - host[k]) / max(abs(host[k]),
+                                                          1e-12)
+                    for k in means}
+        assert max(mean_rel.values()) <= PAR_MEAN_RTOL, mean_rel
+        checks["means_vs_float64"] = {"max_rel": max(mean_rel.values()),
+                                      "tolerance": PAR_MEAN_RTOL}
+        from distributed_forecasting_tpu_torch.ops import metrics as M
+
+        one_mape = M.mape(batch.y, plain["holt_winters"][1].yhat[
+            :, :batch.n_time], batch.mask).double()
+        times = {}
+        if DEVICE == "cuda":
+            hw = lambda: par.sharded_fit_forecast(  # noqa: E731
+                batch, "holt_winters", mesh=mesh)
+            times = {
+                "fit_ms": _turns_ms({
+                    "sharded": hw, "unsharded": lambda: eng.fit_forecast(
+                        batch, "holt_winters")}),
+                "cv_ms": _turns_ms({
+                    "sharded": lambda: par.sharded_cv_metrics(
+                        batch, "holt_winters", cv=cv, mesh=mesh),
+                    "unsharded": lambda: cvmod.cross_validate(
+                        batch, "holt_winters", cv=cv)}),
+                "sharded_fit_profile": idle_share(hw)}
+        out = {"backend": backend, "launches": launches, "checks": checks,
+               "means": {k: float(v) for k, v in means.items()},
+               "one_process_mean_mape": float(one_mape.mean()),
+               "hw_yhat": sharded["holt_winters"][1].yhat, "times": times}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        pmesh._RANK_DEVICE = None
+    emit("parallel_one_rank", card=card_line, backend=out["backend"],
+         device=str(batch.y.device), launches=out["launches"],
+         checks=out["checks"], means=out["means"], reps=REPS,
+         statistic="median", **out["times"])
+    for k in PAR_KERNELS:
+        if DEVICE == "cuda":
+            assert out["launches"][k] >= 1, (k, out["launches"])
+    return out
+
+
+def parallel_two_ranks(port, one: dict, card_line: str) -> dict:
+    """(b) ``PAR_WORLD`` processes on the one card over gloo (NCCL refuses
+    two ranks on one device), each ``python3 chip_smoke.py
+    --parallel-rank`` with its plan (:func:`parallel_rank`), started at
+    once; their output to files.  Fails if a rank exits nonzero or runs
+    past ``PAR_RANK_TIMEOUT_S``.  Then the checks: both ranks' gathered
+    bottoms bitwise (a)'s sharded forecasts; the global MAPE mean equal on
+    both and within ``PAR_MAPE_RTOL`` of one process's; the 2-rank CV means
+    within ``PAR_MEAN_RTOL`` of (a)'s; the time-sharded scans against the
+    sequential filters on the card (``hw_filter``, ``arima_filter``) and the
+    unsharded ``affine_scan``; the windowed fit over the mesh equal on both
+    ranks and within ``PAR_WIN_TOL`` of the unsharded one."""
+    from distributed_forecasting_tpu_torch.ops import pscan
+
+    lib = os.path.join(port["build"].BUILD_DIR or "", "dftt_kernels.so")
+    stamp = os.stat(lib).st_mtime_ns if os.path.exists(lib) else None
+    tmp = tempfile.mkdtemp(prefix="dftt-par-")
+    number = free_port()
+    procs, files, reports = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(PAR_WORLD):
+            plan = {"rank": r, "world": PAR_WORLD, "port": number,
+                    "out": tmp, "device": DEVICE, "data": DATA,
+                    "shape": list(SHAPE), "horizon": 90, "cv": CV,
+                    "scan_t": PAR_SCAN_T, "win_shape": list(WIN_SHAPE),
+                    "win_seed": WIN_SEED, "win_horizon": WIN_HORIZON,
+                    "win_block": windowed_block(port),
+                    "spawned_at": time.time()}
+            fo = open(os.path.join(tmp, f"rank{r}.out"), "w")
+            fe = open(os.path.join(tmp, f"rank{r}.err"), "w")
+            files += [fo, fe]
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--parallel-rank", json.dumps(plan)], cwd=ROOT,
+                stdout=fo, stderr=fe))
+        deadline = time.perf_counter() + PAR_RANK_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                p.wait(max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {r} ran past "
+                                     f"{PAR_RANK_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            with open(os.path.join(tmp, f"rank{r}.err")) as f:
+                err = f.read()
+            with open(os.path.join(tmp, f"rank{r}.out")) as f:
+                lines = f.read().strip().splitlines()
+            assert p.returncode == 0 and lines, (
+                f"rank {r} exited {p.returncode}: {err[-3000:]}")
+            reports.append(json.loads(lines[-1]))
+        arrays = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                  for r in range(PAR_WORLD)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if stamp is not None:
+        assert os.stat(lib).st_mtime_ns == stamp, "a rank rebuilt the library"
+    checks = {}
+    if DEVICE == "cuda":
+        assert all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+                   for r in reports), reports
+    want = one["hw_yhat"].cpu().numpy()
+    for r, a in enumerate(arrays):
+        assert np.array_equal(a["bottoms"], want), f"rank {r}'s bottoms"
+    checks["bottoms_bitwise_one_rank"] = True
+    mapes = [r["global_mean_mape"] for r in reports]
+    assert len(set(mapes)) == 1, mapes
+    one_mape = one["one_process_mean_mape"]
+    checks["global_mean_mape"] = {"ranks": mapes, "one_process": one_mape,
+                                  "rel": abs(mapes[0] - one_mape) / one_mape}
+    assert checks["global_mean_mape"]["rel"] <= PAR_MAPE_RTOL, checks
+    assert sum(r["n_local_series"] for r in reports) == SHAPE[0]
+    assert all(r["local_all_ok"] for r in reports)
+    for r in reports[1:]:
+        assert r["means"] == reports[0]["means"], (r["means"], reports[0])
+    mean_rel = {k: abs(v - one["means"][k]) / max(abs(one["means"][k]),
+                                                  1e-12)
+                for k, v in reports[0]["means"].items()}
+    checks["cv_means_vs_one_rank"] = max(mean_rel.values())
+    assert checks["cv_means_vs_one_rank"] <= PAR_MEAN_RTOL, mean_rel
+    assert [r["cv_rows"] for r in reports] == [SHAPE[0] // PAR_WORLD] * 2
+
+    # the time-sharded scans against the sequential filters on the card
+    dev = torch.device(DEVICE)
+    T = PAR_SCAN_T
+    inp = par_scan_inputs(T, dev)
+    states = np.concatenate([a["affine"] for a in arrays])
+    ref = pscan.affine_scan(inp["A"], inp["c"], inp["x0"],
+                            block_size=T).cpu().numpy()
+    checks["affine_max_abs"] = float(np.abs(states - ref).max())
+    assert checks["affine_max_abs"] <= PAR_AFFINE_ATOL, checks
+    al, be, ga, m = PAR_HW
+    one_row = lambda v: torch.full((1,), v, device=dev)  # noqa: E731
+    (l, b, s), _, fitted = port["fs"].hw_filter(
+        inp["y"], inp["ymask"], one_row(al), one_row(be), one_row(ga),
+        one_row(1.0), m, "additive")
+    err = ((inp["y"] - fitted) * inp["ymask"]).double()
+    mse64 = (err * err).sum() / inp["ymask"].double().sum().clamp_min(1.0)
+    hw_want = {"preds": fitted, "l_plus_s": l[:, None] + s, "b": b,
+               "mse": mse64}
+    hw_got = {"preds": np.concatenate([a["hw_preds"] for a in arrays], 1)}
+    for k in ("l", "b", "s", "mse"):
+        for a in arrays[1:]:
+            assert np.array_equal(a[f"hw_{k}"], arrays[0][f"hw_{k}"]), k
+        hw_got[k] = arrays[0][f"hw_{k}"]
+    hw_got["l_plus_s"] = hw_got["l"][:, None] + hw_got["s"]
+    checks["hw_filter"] = _par_close(hw_got, hw_want, PAR_HW_TOL)
+    system, (ph, th, r) = par_kalman_system(port, 1, dev)
+    seq = port["kalman"].arima_filter(
+        inp["z"], inp["zmask"], None, None, ph, th,
+        torch.zeros(1, device=dev), r, 0)
+    obs = inp["zmask"] > 0
+    v = (inp["z"] - seq.preds).double()
+    kal_want = {"ssq": torch.where(obs, v * v / seq.Fs.double(), 0.0).sum(1),
+                "ldet": torch.where(obs, seq.Fs.double().log(), 0.0).sum(1),
+                "preds": seq.preds, "Fs": seq.Fs, "a_T": seq.a_T,
+                "P_T": seq.P_T}
+    kal_got = {k: np.concatenate([a[f"kalman_{k}"] for a in arrays], 1)
+               for k in ("preds", "Fs")}
+    for k in ("ssq", "ldet", "n", "a_T", "P_T"):
+        for a in arrays[1:]:
+            assert np.array_equal(a[f"kalman_{k}"],
+                                  arrays[0][f"kalman_{k}"]), k
+        kal_got[k] = arrays[0][f"kalman_{k}"]
+    assert float(kal_got["n"][0]) == float(inp["zmask"].sum())
+    checks["kalman_filter"] = _par_close(kal_got, kal_want, PAR_KALMAN_TOL)
+    assert len({r["windowed_digest"] for r in reports}) == 1
+    wv = reports[0]["windowed_vs_unsharded"]
+    assert wv["ok_equal"] and wv["day_all_equal"], wv
+    checks["windowed_vs_unsharded"] = wv
+    assert max(wv["max_abs"].values()) <= PAR_WIN_TOL, wv
+    launches = {k: sum(r["launches"][k] for r in reports) for k in KERNELS}
+    out = {"wall_s": wall, "ranks": [
+        {k: r[k] for k in ("rank", "backend", "device", "library_s",
+                           "ready_s", "steps", "launches")}
+        for r in reports], "checks": checks, "launches": launches}
+    emit("parallel_two_ranks", card=card_line, world=PAR_WORLD,
+         scan_steps=T, windowed_shape=list(WIN_SHAPE), **out)
+    return out
+
+
+def _turns_ms(fns: dict, reps: int = REPS) -> dict:
+    """Each callable's median device time over ``reps`` turns, every turn
+    one call of each in order between two CUDA events, after a warm-up
+    call of each (two paths compared in turns on one card)."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(stop))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _par_close(got: dict, want: dict, tol: dict) -> dict:
+    """Each output within its (rtol, atol); the largest error of each."""
+    out = {}
+    for k, (rtol, atol) in tol.items():
+        w = np.asarray(want[k].cpu().numpy() if torch.is_tensor(want[k])
+                       else want[k], np.float64)
+        g = np.asarray(got[k], np.float64).reshape(w.shape)
+        err = np.abs(g - w)
+        out[k] = {"max_abs": float(err.max()),
+                  "max_rel": float((err / np.maximum(np.abs(w), 1e-30)).max()),
+                  "rtol": rtol, "atol": atol}
+        assert np.all(err <= atol + rtol * np.abs(w)), (k, out[k])
+    return out
+
+
+def slice23_phase(port, card_line: str) -> dict:
+    """Phase 22: ``parallel/*`` over ``torch.distributed``.  (a)
+    :func:`parallel_one_rank`, then (b) :func:`parallel_two_ranks`; the
+    phase's launches are (a)'s counted main path and (b)'s ranks'."""
+    t_phase = time.perf_counter()
+    emit("parallel", card=card_line,
+         measures="(a) one rank over NCCL on cuda:0: the sharded entry "
+                  "points against the unsharded ones, no cross-rank "
+                  "traffic; (b) two ranks over gloo on the same card: the "
+                  "collectives between two processes")
+    one = parallel_one_rank(port, card_line)
+    t_b = time.perf_counter()
+    two = parallel_two_ranks(port, one, card_line)
+    launches = {k: one["launches"][k] + two["launches"][k] for k in KERNELS}
+    emit("launches", path="parallel", **launches,
+         expected="(a): hw_score and hw_filter 2 (the sharded fit, the CV "
+                  "pass), arima_filter and arima_predict 1; (b): each rank's "
+                  "local fit, sharded fit and CV pass (hw_score, hw_filter "
+                  "3 each) and windowed fit (arima_filter, arima_predict 1 "
+                  "each)")
+    out = {"launches": launches, "seconds": time.perf_counter() - t_phase,
+           "parts": {"one_rank": t_b - t_phase,
+                     "two_ranks": time.perf_counter() - t_b}}
+    emit("phase22", card=card_line, seconds=out["seconds"],
+         parts=out["parts"])
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -9934,7 +10551,14 @@ def main(argv=None) -> int:
     ap.add_argument("--package-root",
                     help="import the port from this directory (a checkout "
                          "of another commit) instead of this one")
+    ap.add_argument("--parallel-rank", metavar="PLAN",
+                    help="run one rank of phase 22 (b) from its JSON plan "
+                         "(parallel_rank); the phase starts these itself")
     ns = ap.parse_args(argv)
+    if ns.parallel_rank:
+        print(json.dumps(parallel_rank(json.loads(ns.parallel_rank))),
+              flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -10022,6 +10646,7 @@ def main(argv=None) -> int:
     scorer_rt = slice20_phase(port, card_line)
     fleet = slice21_phase(port, card_line)
     cache = slice22_phase(port, card_line)
+    parallel = slice23_phase(port, card_line)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -10047,7 +10672,8 @@ def main(argv=None) -> int:
                               + runtime["launches"][k]
                               + scorer_rt["launches"][k]
                               + fleet["launches"][k]
-                              + cache["launches"][k]),
+                              + cache["launches"][k]
+                              + parallel["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -10068,7 +10694,8 @@ def main(argv=None) -> int:
                                  + runtime["launches"][k]
                                  + scorer_rt["launches"][k]
                                  + fleet["launches"][k]
-                                 + cache["launches"][k]),
+                                 + cache["launches"][k]
+                                 + parallel["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),
@@ -10083,7 +10710,8 @@ def main(argv=None) -> int:
         host_call_us=ap["host_call_us"])
     mt = p8_end["times"]["kernel"]["fit"]
     rows["arima_loglik_grad"] = dict(
-        launches=p8_end["launches"]["arima_loglik_grad"],
+        launches=(p8_end["launches"]["arima_loglik_grad"]
+                  + parallel["launches"]["arima_loglik_grad"]),
         max_abs_err=max(c["max_abs_err"] for c in p8_end["cases"].values()),
         ms=mt["ms"], device_ms=mt["device_ms"], covered=mt["covered"],
         plain_ms=p8_end["times"]["twin_ms"],
@@ -10093,7 +10721,8 @@ def main(argv=None) -> int:
     # the twin takes ~2.8 s a step), with the kernel's time on that call
     fm, fc = p8_end["times"]["fit_kernel"]["fit"], p8_end["times"]["compared"]
     rows["arima_mle_fit"] = dict(
-        launches=p8_end["launches"]["arima_mle_fit"],
+        launches=(p8_end["launches"]["arima_mle_fit"]
+                  + parallel["launches"]["arima_mle_fit"]),
         max_abs_err=max(c["max_abs_err"]
                         for c in p8_end["fit_cases"].values()),
         ms=fm["ms"], device_ms=fm["device_ms"], covered=fm["covered"],

@@ -300,20 +300,28 @@ def windowed_fit_forecast(
 
     ``generator`` is what the port's ``fit_forecast`` takes where the
     reference takes ``key``; arima draws nothing, so it is not read.
-    ``mesh``: the reference's device mesh, whose sharded path is not ported
-    yet (ROADMAP Queue 1: P12).
+
+    ``mesh``: a series mesh (``parallel.make_mesh``).  Each rank takes its
+    block of the series padded to a mesh multiple, with all their windows
+    (windows are rows of their series), and runs the window statistics,
+    the combine and the tail finalize on it; then the params and results
+    are all-gathered and trimmed to the batch's S, so every rank returns
+    the whole result, as the reference's replicated one.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "windowed_fit_forecast(mesh=...) shards the window batch over a "
-            "device mesh; parallel/* is not ported yet (ROADMAP Queue 1: "
-            "P12)")
     wcfg = wconfig if wconfig is not None else _active_config
     config = _validate_model(model, config)
     _check_window_len(config, wcfg.window_len)
     W = wcfg.window_len
     starts = plan_windows(batch.n_time, W, wcfg.overlap)
     y, mask, day = batch.y, batch.mask, batch.day
+    S = batch.n_series
+    if mesh is not None:
+        from distributed_forecasting_tpu_torch.parallel.sharded import (
+            shard_batch,
+        )
+
+        local = shard_batch(batch, mesh)
+        y, mask, day = local.y, local.mask, local.day
 
     yw, mw = _gather_windows(y, mask, starts, W)
     stats = _window_fit(model, config, yw, mw)
@@ -323,8 +331,36 @@ def windowed_fit_forecast(
     params, yhat, lo, hi, ok, day_all = _finalize(
         model, config, y[:, t0:t0 + W], mask[:, t0:t0 + W], day[t0:t0 + W],
         comb["coef"], comb["mean"], horizon, min_points)
+    if mesh is not None:
+        params, (yhat, lo, hi, ok) = _gather_series(
+            mesh, y.shape[0], S, params, (yhat, lo, hi, ok))
     return params, ForecastResult(yhat=yhat, lo=lo, hi=hi, ok=ok,
                                   day_all=day_all)
+
+
+def _gather_series(mesh, rows: int, S: int, params, results):
+    """Every rank's ``rows``-row block of the params and results,
+    all-gathered in rank order and trimmed to ``S``: each per-series leaf
+    (leading axis ``rows``) becomes the whole batch's; the rest (the
+    grid's scalars) is replicated already.  ``ok`` travels as float32."""
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        mesh_group,
+    )
+
+    group = mesh_group(mesh)
+
+    def gather(x):
+        if x.dim() == 0 or x.shape[0] != rows:
+            return x
+        if x.dtype == torch.bool:
+            return all_gather_rows(x.to(torch.float32), group)[:S] > 0
+        return all_gather_rows(x, group)[:S]
+
+    params = dataclasses.replace(params, **{
+        f.name: gather(getattr(params, f.name))
+        for f in dataclasses.fields(params)})
+    return params, tuple(gather(x) for x in results)
 
 
 # ---------------------------------------------------------------------------

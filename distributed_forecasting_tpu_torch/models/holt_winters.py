@@ -197,11 +197,13 @@ def _filter(y, mask, alpha, beta, gamma, m, mode, phi, keep_path=True):
     return (l, b, s.movedim(0, -1)), mse, preds
 
 
-def _affine_elems(y, mask, alpha, beta, gamma, m, phi=1.0):
+def _affine_elems(y, mask, alpha, beta, gamma, m, phi=1.0, offset: int = 0):
     """The additive HW update as per-step affine maps ``x_t = A_t x_{t-1} +
     c_t`` over the state x = [l, b, s_0..s_{m-1}] (d = m + 2), for every
     row: y, mask (S, T); alpha/beta/gamma/phi scalars or (S,).  Returns
     (A (T, S, d, d), c (T, S, d), x0 (S, d), e (T, m) one-hot slots).
+    ``offset``: the series step of y's first column (a later rank's slice
+    of a time-sharded filter), which sets the seasonal slots.
 
     The slot one-hots and the predict map are float32 whatever y's type, as
     the reference's ``jnp.eye`` / ``jnp.zeros`` are: with bf16 inputs (the
@@ -213,7 +215,7 @@ def _affine_elems(y, mask, alpha, beta, gamma, m, phi=1.0):
     as_lane = lambda x: torch.as_tensor(x, dtype=dt, device=dev).expand(S)  # noqa: E731
     a, be, g, f = (as_lane(x)[None, :, None] for x in (alpha, beta, gamma, phi))
     eye_m = torch.eye(m, dtype=torch.float32, device=dev)
-    e = eye_m[torch.arange(T, device=dev) % m]               # (T, m)
+    e = eye_m[(torch.arange(T, device=dev) + offset) % m]    # (T, m)
     es = e[:, None, :].expand(T, S, m)
     full = lambda v: v.expand(T, S, 1)  # noqa: E731
 
@@ -269,6 +271,62 @@ def parallel_filter(y, mask, alpha, beta, gamma, m, phi=1.0):
     A, c, x0, e = _affine_elems(y, mask, alpha, beta, gamma, m, phi)
     states = affine_scan(A, c, x0.to(A.dtype))                # (T, S, d)
     return _filter_outputs(states, x0, e, y, mask, phi)
+
+
+def parallel_filter_time_sharded(y, mask, alpha, beta, gamma, m, mesh,
+                                 axis_name: str = "series", phi=1.0):
+    """:func:`parallel_filter` with the time axis sharded over the ranks of
+    ``mesh`` (``ops/pscan.affine_scan_time_sharded``): one very long
+    series' filter pass spans every device, T growing with the mesh.  Each
+    rank passes its own ``T / D`` consecutive steps of y and mask (S, T/D)
+    and the same parameters.  Returns ``((l, b, s), mse, preds)`` as
+    :func:`parallel_filter` does: preds this rank's steps (S, T/D); the
+    final state and the MSE the whole series', equal on every rank.
+
+    The initial state comes from the first two seasonal cycles, which the
+    first rank holds (it needs ``T / D >= 2 m``) and sends with one
+    all-gather; the MSE's sums and the last rank's final state ride one
+    all-reduce.  A global T the mesh does not divide raises ``ValueError``
+    (pad at the ops level with identity maps); masked steps are not
+    state-preserving (the predict map still advances the level by ``phi *
+    trend``), so a mask-0 tail drifts the final state.  The reference
+    caches one jitted closure per mesh; eager PyTorch has no program to
+    cache, so the port has the function and no cache.
+    """
+    from distributed_forecasting_tpu_torch.ops.pscan import (
+        _affine_scan_time_sharded,
+    )
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        all_reduce_sum,
+        mesh_group,
+        mesh_rank,
+        mesh_size,
+    )
+
+    S, T = y.shape
+    if T < 2 * m:
+        raise ValueError(
+            f"each rank holds {T} steps; the time-sharded filter needs at "
+            f"least two seasonal cycles ({2 * m}) on the first rank")
+    group = mesh_group(mesh, axis_name)
+    rank = mesh_rank(mesh, axis_name)
+    A, c, x0, e = _affine_elems(y, mask, alpha, beta, gamma, m, phi,
+                                offset=rank * T)
+    # the first rank's initial state, on every rank
+    x0 = all_gather_rows(x0[None], group)[0]
+    states, x_eff = _affine_scan_time_sharded(A, c, x0.to(A.dtype), mesh,
+                                              axis_name, 1024)
+    (l, b, s), _, preds = _filter_outputs(states, x_eff, e, y, mask, phi)
+    err = (y - preds) * mask
+    xT = torch.cat([l[:, None], b[:, None], s], dim=1)
+    last = rank == mesh_size(mesh, axis_name) - 1
+    local = torch.cat([torch.sum(err * err, dim=1)[:, None],
+                       torch.sum(mask, dim=1)[:, None].to(err.dtype),
+                       xT if last else torch.zeros_like(xT)], dim=1)
+    total = all_reduce_sum(local, group)
+    mse = total[:, 0] / torch.clamp_min(total[:, 1], 1.0)
+    return (total[:, 2], total[:, 3], total[:, 4:]), mse, preds
 
 
 def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Parallel Kalman filtering by an associative scan over filtering elements
-(port of the reference's ``ops/pkalman.py``; the cross-device
-``parallel_kalman_filter_time_sharded`` is not ported, ROADMAP Queue 1:
-P12).
+(port of the reference's ``ops/pkalman.py``, with the time axis
+sharded over the ranks of a mesh in
+:func:`parallel_kalman_filter_time_sharded`).
 
 Kalman filtering is not an affine recurrence in the state (the gain depends
 on the covariance's Riccati recursion), but Särkkä & García-Fernández
@@ -98,11 +98,13 @@ def _identity_elements(n: int, r: int, dtype, device=None) -> _Elements:
     )
 
 
-def _build_elements(z, mask, T_mat, RRt, P0):
+def _build_elements(z, mask, T_mat, RRt, P0, first: bool = True):
     """Per-step filtering elements of the masked, noise-free observation
     state space.  Returns ``(elems, S0, Sq, t_row)``: the (T, S, ...)
     elements, the prior's and the transition noise's observation variances
-    (S,) and the transition's first row (S, r)."""
+    (S,) and the transition's first row (S, r).  ``first=False``: the steps
+    do not start the series (a later rank's slice of a time-sharded
+    filter), so step 0 is a transition step like the others."""
     r = T_mat.shape[-1]
     dt, dev = z.dtype, z.device
     eye = torch.eye(r, dtype=dt, device=dev)
@@ -129,8 +131,9 @@ def _build_elements(z, mask, T_mat, RRt, P0):
     t_row = T_mat[:, 0]
     J_obs = outer(t_row, t_row) / Sq[:, None, None]
 
-    zt = z[:, 1:].t()[..., None]                     # (T-1, S, 1)
-    mt = (mask[:, 1:] > 0).t()[..., None]            # (T-1, S, 1)
+    lo = 1 if first else 0
+    zt = z[:, lo:].t()[..., None]                    # (T-lo, S, 1)
+    mt = (mask[:, lo:] > 0).t()[..., None]           # (T-lo, S, 1)
     mtm = mt[..., None]
     A_rest = torch.where(mtm, A_obs[None], T_mat[None])
     b_rest = torch.where(mt, Kq[None] * zt, 0.0)
@@ -138,25 +141,30 @@ def _build_elements(z, mask, T_mat, RRt, P0):
     eta_rest = torch.where(mt, t_row[None] * (zt / Sq[None, :, None]), 0.0)
     J_rest = torch.where(mtm, J_obs[None], 0.0)
 
-    elems = _Elements(
-        A=torch.cat([A0[None], A_rest]),
-        b=torch.cat([b0[None], b_rest]),
-        C=torch.cat([C0[None], C_rest]),
-        eta=torch.cat([eta0[None], eta_rest]),
-        J=torch.cat([J0[None], J_rest]),
-    )
+    elems = _Elements(A=A_rest, b=b_rest, C=C_rest, eta=eta_rest, J=J_rest)
+    if first:
+        elems = _Elements(*(torch.cat([e0[None], e]) for e0, e in zip(
+            (A0, b0, C0, eta0, J0), elems)))
     return elems, S0, Sq, t_row
 
 
-def _filter_outputs(m_filt, P_filt, z, mask, T_mat, RRt, P0, S0, Sq, t_row):
+def _filter_outputs(m_filt, P_filt, z, mask, T_mat, RRt, P0, S0, Sq, t_row,
+                    before=None):
     """``(ssq, ldet, n, preds, Fs, a_T, P_T)`` from the filtered (T, S, ...)
-    trajectory; preds and Fs come back (S, T)."""
-    m_prev = torch.cat([torch.zeros_like(m_filt[:1]), m_filt[:-1]])
-    P_prev = torch.cat([P0[None], P_filt[:-1]])
+    trajectory; preds and Fs come back (S, T).  ``before``: the filtered
+    (mean, covariance) just before the first step, for steps that do not
+    start the series; ``None`` for steps that do (the prior at step 0)."""
+    if before is None:
+        m_before, P_before = torch.zeros_like(m_filt[0]), P0
+    else:
+        m_before, P_before = before
+    m_prev = torch.cat([m_before.expand_as(m_filt[0])[None], m_filt[:-1]])
+    P_prev = torch.cat([P_before.expand_as(P_filt[0])[None], P_filt[:-1]])
     preds = torch.sum(m_prev * t_row, dim=-1).t()          # (S, T)
-    preds[:, 0] = 0.0                                       # prior mean zero
     Fs = torch.sum(_mv(P_prev, t_row) * t_row, dim=-1).t() + Sq[:, None]
-    Fs[:, 0] = S0
+    if before is None:
+        preds[:, 0] = 0.0                                   # prior mean zero
+        Fs[:, 0] = S0
     Fs = torch.clamp_min(Fs, _EPS)
 
     v = z - preds
@@ -187,3 +195,57 @@ def parallel_kalman_filter(z, mask, T_mat, RRt, P0, block_size: int = 256):
     )
     return _filter_outputs(m_filt, P_filt, z, mask, T_mat, RRt, P0,
                            S0, Sq, t_row)
+
+
+def parallel_kalman_filter_time_sharded(z, mask, T_mat, RRt, P0, mesh,
+                                        axis_name: str = "series",
+                                        block_size: int = 256):
+    """:func:`parallel_kalman_filter` with the time axis sharded over the
+    ranks of ``mesh``: one very long series' exact filter pass spans every
+    device.  Each rank passes its own ``T / D`` consecutive steps of z and
+    mask (S, T/D), and T_mat, RRt, P0 (S, r, r) replicated.
+
+    The 5-tuple filtering elements are associative, so they ride
+    ``ops/pscan.time_sharded_prefix``: each rank compose-reduces its steps,
+    the D totals ride one all-gather, each rank re-runs its blocked prefix
+    from the carried element (whose b and C are the filtered mean and
+    covariance just before its first step).  Returns ``(ssq, ldet, n,
+    preds, Fs, a_T, P_T)`` as the sequential filter does: preds and Fs
+    this rank's steps (S, T/D); the likelihood pieces (S,) and the
+    predictive state after the grid (S, r), (S, r, r) the whole series',
+    equal on every rank (one all-reduce).  A global T the mesh does not
+    divide raises ``ValueError``.
+
+    The reference caches one jitted closure per mesh; eager PyTorch builds
+    no program to cache, so the port has the function and no cache.
+    """
+    from distributed_forecasting_tpu_torch.ops.pscan import (
+        _time_sharded_prefix,
+    )
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_reduce_sum,
+        mesh_group,
+        mesh_rank,
+        mesh_size,
+    )
+
+    r = T_mat.shape[-1]
+    rank = mesh_rank(mesh, axis_name)
+    last = rank == mesh_size(mesh, axis_name) - 1
+    elems, S0, Sq, t_row = _build_elements(z, mask, T_mat, RRt, P0,
+                                           first=rank == 0)
+    (m_filt, P_filt), prev = _time_sharded_prefix(
+        _compose, elems, _identity_elements(1, r, z.dtype, z.device),
+        mesh, axis_name, block_size, lambda full: (full.b, full.C), (),
+        False)
+    ssq, ldet, n, preds, Fs, a_T, P_T = _filter_outputs(
+        m_filt, P_filt, z, mask, T_mat, RRt, P0, S0, Sq, t_row,
+        before=None if rank == 0 else (prev.b, prev.C))
+    # the sums over every rank's steps; the last rank's predictive state
+    S = z.shape[0]
+    state = torch.cat([a_T, P_T.reshape(S, r * r)], dim=1)
+    local = torch.cat([torch.stack([ssq, ldet, n.to(ssq.dtype)], dim=1),
+                       state if last else torch.zeros_like(state)], dim=1)
+    total = all_reduce_sum(local, mesh_group(mesh, axis_name))
+    return (total[:, 0], total[:, 1], total[:, 2].to(n.dtype), preds, Fs,
+            total[:, 3:3 + r], total[:, 3 + r:].reshape(S, r, r))

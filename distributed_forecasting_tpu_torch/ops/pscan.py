@@ -1,7 +1,6 @@
 """Parallel-prefix (associative scan) linear-recurrence solvers (port of the
-reference's ``ops/pscan.py``: the on-device scans; the cross-device
-``time_sharded_prefix`` and ``affine_scan_time_sharded`` are not ported,
-ROADMAP Queue 1: P12).
+reference's ``ops/pscan.py``: the on-device scans, and the time-sharded
+scans over the ranks of a series mesh, ``parallel/``).
 
 Every filter used here (exponential smoothing, Holt-Winters, the Kalman mean
 recursion) is an affine recurrence ``x_t = A_t x_{t-1} + c_t``, and the
@@ -22,6 +21,11 @@ reference batches the per-series functions with ``vmap``).
 Used by ``models/holt_winters.parallel_filter`` (``filter='pscan'``, d =
 season_length + 2), by ``ops/pkalman`` (the Kalman filtering elements) and
 by ``models/arima``'s ``kalman='pscan'`` integration.
+
+:func:`time_sharded_prefix` runs any of these scans with the time axis
+split over the ranks of a mesh (sequence parallelism for one very long
+series): each rank passes its own ``T / D`` consecutive steps and gets back
+its own steps' outputs.
 """
 
 from __future__ import annotations
@@ -177,3 +181,144 @@ def prefer_pscan(backend: str, n_series: int, n_time: int,
         return False
     return (n_time >= _PSCAN_MIN_TIME
             and n_series * max(lanes, 1) <= _PSCAN_MAX_LANES)
+
+
+# -- the time axis sharded over the ranks of a mesh ---------------------------
+
+def _flat_gather(carry, group):
+    """All ranks' ``carry`` elements (a tuple of tensors), stacked along a
+    new leading rank axis, from one all-gather of their flattened leaves."""
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+    )
+
+    flat = torch.cat([x.reshape(-1) for x in carry])
+    rows = all_gather_rows(flat[None], group)                 # (D, n)
+    out, at = [], 0
+    for x in carry:
+        out.append(rows[:, at:at + x.numel()].reshape((-1, *x.shape)))
+        at += x.numel()
+    return type(carry)(*out) if hasattr(carry, "_fields") else tuple(out)
+
+
+def _time_sharded_prefix(compose, elems, identity, mesh, axis_name,
+                         block_size, project, project_args,
+                         carry_to_project):
+    """:func:`time_sharded_prefix`'s outputs and the carried element, the
+    composition of every step on the ranks before this one (the identity
+    on the first rank)."""
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        mesh_group,
+        mesh_rank,
+        mesh_size,
+    )
+
+    if project is None:
+        project = lambda full: full  # noqa: E731
+    group = mesh_group(mesh, axis_name)
+    D, r = mesh_size(mesh, axis_name), mesh_rank(mesh, axis_name)
+    T = elems[0].shape[0]
+    steps = all_gather_rows(
+        torch.tensor([T], dtype=torch.int64, device=elems[0].device), group)
+    if bool((steps != T).any()):
+        raise ValueError(
+            f"the mesh's {D} devices must divide the time axis "
+            f"T={int(steps.sum())} evenly (the ranks hold {steps.tolist()} "
+            f"steps); pad with identity elements to a multiple")
+    # 1. this rank's steps reduced to one element
+    total = blocked_total(compose, elems, identity)
+    # 2. one all-gather of the D totals; the exclusive prefix of the ranks
+    # before this one
+    pref = associative_scan(compose, _flat_gather(total, group))
+    ident = _map(lambda i: i[0], identity)
+    prev = ident if r == 0 else _map(lambda p: p[r - 1], pref)
+    # 3. this rank's blocked prefix from the carried element
+    if carry_to_project:
+        out = blocked_prefix(
+            compose, elems, identity, block_size,
+            project=lambda full: project(full, prev, *project_args))
+    else:
+        out = blocked_prefix(
+            compose, elems, identity, block_size,
+            project=lambda full: project(full, *project_args), initial=prev)
+    return out, prev
+
+
+def time_sharded_prefix(compose, elems, identity, mesh,
+                        axis_name: str = "series", block_size: int = 1024,
+                        project=None, project_args=(),
+                        carry_to_project: bool = False):
+    """Two-phase prefix scan of any associative operator with the leading
+    (time) axis sharded over the ranks of ``mesh``: cross-device sequence
+    parallelism for whatever :func:`blocked_prefix` runs (affine maps,
+    Kalman 5-tuples, ...).  Each rank passes its own ``T / D`` consecutive
+    steps (rank order is time order) and gets back its own steps' outputs.
+
+      1. each rank compose-reduces its steps to one total element
+         (:func:`blocked_total`);
+      2. the D totals ride one all-gather, and each rank takes the
+         exclusive prefix of the ranks before it;
+      3. each rank re-runs its blocked prefix with that carry as
+         ``initial``, projecting per-step outputs as usual.
+
+    ``project(full, *project_args)`` maps full prefix elements to per-step
+    outputs.  With ``carry_to_project=True`` the carry is not composed into
+    the per-step elements; the projection is called as ``project(full,
+    carry, *project_args)`` instead (the affine scan folds it into x0
+    once).  Ranks holding different step counts (a global T the mesh does
+    not divide) raise ``ValueError`` on every rank; pad with identity
+    elements upstream.
+    """
+    return _time_sharded_prefix(compose, elems, identity, mesh, axis_name,
+                                block_size, project, project_args,
+                                carry_to_project)[0]
+
+
+def _affine_scan_time_sharded(A, c, x0, mesh, axis_name: str,
+                              block_size: int):
+    """:func:`affine_scan_time_sharded`'s states and this rank's effective
+    initial state (the state before its first step)."""
+    d = c.shape[-1]
+    lead = (1,) * (c.dim() - 1)
+    identity = (torch.eye(d, dtype=A.dtype, device=A.device).view(*lead, d, d),
+                c.new_zeros((*lead, d)))
+
+    def to_states(full, carry, x0_rep):
+        # fold the carried prefix into x0 once, then project the local
+        # cumulative maps: no per-step carry composition
+        A_cum, c_cum = full
+        return ((A_cum @ _fold(carry, x0_rep)[None, ..., None])[..., 0]
+                + c_cum,)
+
+    (states,), prev = _time_sharded_prefix(
+        _compose, (A, c), identity, mesh, axis_name, block_size,
+        project=to_states, project_args=(x0,), carry_to_project=True)
+    return states, _fold(prev, x0)
+
+
+def _fold(carry, x0):
+    prevA, prevc = carry
+    return (prevA @ x0[..., None])[..., 0] + prevc
+
+
+def affine_scan_time_sharded(A: torch.Tensor, c: torch.Tensor,
+                             x0: torch.Tensor, mesh,
+                             axis_name: str = "series",
+                             block_size: int = 1024) -> torch.Tensor:
+    """:func:`affine_scan` with the time axis sharded over the ranks of
+    ``mesh``: each rank passes its own ``T / D`` steps of A (T/D, *B, d, d)
+    and c (T/D, *B, d), and x0 (*B, d) replicated (the state before the
+    series' first step), and gets back its own steps' states (T/D, *B, d).
+
+    Two passes over local data and one tiny collective (D elements of d^2 +
+    d floats a lane): T can exceed one device's memory by the mesh factor.
+    Each rank reduces its steps to one affine map, the D maps are
+    all-gathered, and each rank folds the composition of the ranks before
+    it into x0 once and projects its blocked prefix from there
+    (:func:`time_sharded_prefix` with ``carry_to_project``).  Pad a T the
+    mesh does not divide with identity maps (A = I, c = 0: padded states
+    repeat the last real state).
+    """
+    return _affine_scan_time_sharded(A, c, x0, mesh, axis_name,
+                                     block_size)[0]

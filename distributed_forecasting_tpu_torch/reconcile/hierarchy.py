@@ -1,5 +1,5 @@
 """Hierarchical forecast reconciliation (port of the reference's
-``reconcile/hierarchy.py``, without the sharded gather).
+``reconcile/hierarchy.py``).
 
   * :class:`Hierarchy` — the store x item two-level hierarchy as a static
     summing matrix ``S_mat`` (rows: total, per-store, per-item, bottom),
@@ -14,9 +14,9 @@
     (``torch.linalg.cholesky`` / ``cholesky_solve``), which raises when the
     system is not positive definite.
 
-Everything runs on the device of the forecasts it is given.  The
-reference's ``gather_bottom_sharded`` (an all-gather of series-sharded
-bottoms) is not ported (ROADMAP Queue 1: P12).
+Everything runs on the device of the forecasts it is given.
+:func:`gather_bottom_sharded` all-gathers series-sharded bottom forecasts
+over the series mesh (``parallel/``), so every rank can aggregate.
 """
 
 from __future__ import annotations
@@ -129,6 +129,20 @@ def coherency_error(h: Hierarchy, all_levels: torch.Tensor) -> torch.Tensor:
     """Max absolute violation of the aggregation constraints (0 = coherent)."""
     bottom = all_levels[-h.n_bottom:]
     return torch.max(torch.abs(all_levels - aggregate_bottom_up(h, bottom)))
+
+
+def gather_bottom_sharded(bottom_local: torch.Tensor, mesh,
+                          axis_name: str = "series") -> torch.Tensor:
+    """All-gather the series-sharded bottom forecasts: each rank passes its
+    block of rows (``parallel.shard_batch``'s layout) and every rank gets
+    the whole bottom level, in rank order, for aggregation — the one
+    collective of this module."""
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        mesh_group,
+    )
+
+    return all_gather_rows(bottom_local, mesh_group(mesh, axis_name))
 
 
 def reconciliation_report(

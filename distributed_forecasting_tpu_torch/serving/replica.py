@@ -50,7 +50,8 @@ boot's seconds by stage.  SIGTERM drains gracefully: /readyz flips to
 logs the launch count of every hand kernel in the process.
 
 Not here: ``mesh_devices > 1`` (a predict sharded over a device mesh
-needs ``parallel/*``, ROADMAP Queue 1: P12's second half) raises
+needs follower ranks that receive every request from the serving rank,
+ROADMAP Queue 1: P12's second half, item 1.6) raises
 ``NotImplementedError``.  The thread sanitizer's ``attach`` is P13.
 """
 
@@ -98,7 +99,8 @@ def main(argv=None) -> None:
     if int(conf.get("mesh_devices") or 0) > 1:
         raise NotImplementedError(
             f"mesh_devices={conf['mesh_devices']}: a replica's predict "
-            f"sharded over a device mesh needs parallel/* ({_PENDING})")
+            f"sharded over a device mesh needs follower ranks fed by the "
+            f"serving rank ({_PENDING}, item 1.6)")
 
     from distributed_forecasting_tpu_torch.engine.compile_cache import (
         cache_stats,

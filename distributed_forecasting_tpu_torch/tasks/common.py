@@ -42,8 +42,19 @@ the reference parses it (an unknown key or a bad value raises
   * ``engine.windowed`` installs the process-wide windowed config
     (``engine/windowed.configure_windowed``): armed, an arima fit whose
     history reaches its threshold runs over windows;
-  * ``distributed:`` changes what runs; it raises ``NotImplementedError``
-    naming its item.
+  * ``distributed:`` brings this process into a ``torch.distributed``
+    group (``parallel/mesh.initialize_distributed``) from the reference's
+    three keys, before the task body::
+
+        distributed:
+          num_processes: 4
+          coordinator_address: host0:1234
+          process_id: 0            # usually injected per host
+
+    A single-process block (``num_processes`` absent, 0 or 1) is a no-op,
+    and a second task in the process with the same block joins nothing
+    again.  The rank runs on the task's device: a card of its own when
+    each rank on the host has one (NCCL), else gloo.
 """
 
 from __future__ import annotations
@@ -71,6 +82,9 @@ from distributed_forecasting_tpu_torch.ops.precision import (
     PrecisionConfig,
     configure_precision,
 )
+from distributed_forecasting_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+)
 from distributed_forecasting_tpu_torch.tracking import FileTracker, ModelRegistry
 from distributed_forecasting_tpu_torch.utils.config import parse_conf_args
 from distributed_forecasting_tpu_torch.utils.device import (
@@ -93,14 +107,19 @@ _ENGINE_INSTALLERS = {
 }
 
 
-def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger) -> None:
-    """Parse every top-level block strictly; install ``compile_cache``,
-    ``pipeline``, ``precision`` and the ``engine`` blocks, and refuse
-    ``distributed``."""
-    if conf.get("distributed"):
-        raise NotImplementedError(
-            "distributed: multi-process bring-up (parallel/*) is not ported "
-            "yet (ROADMAP Queue 1: P12)")
+def _apply_conf_blocks(conf: Dict[str, Any], root: str, logger,
+                       device) -> None:
+    """Parse every top-level block strictly; bring up ``distributed``, and
+    install ``compile_cache``, ``pipeline``, ``precision`` and the
+    ``engine`` blocks."""
+    dist = conf.get("distributed")
+    if dist:
+        initialize_distributed(
+            coordinator_address=dist.get("coordinator_address"),
+            num_processes=dist.get("num_processes"),
+            process_id=dist.get("process_id"),
+            device=device,
+        )
     # installed before the task body, so its first kernel launch loads the
     # library through the store
     if conf.get("compile_cache") is not None:
@@ -154,7 +173,7 @@ class Task(ABC):
             "tracking": env.get("tracking", os.path.join(root, "mlruns")),
             "registry": env.get("registry", os.path.join(root, "registry")),
         }
-        _apply_conf_blocks(conf, root, self.logger)
+        _apply_conf_blocks(conf, root, self.logger, self.device)
 
     # lazy infra handles ----------------------------------------------------
     @property

@@ -1802,3 +1802,36 @@ def test_corrupt_stored_library_is_rebuilt_on_a_warm_boot(dev, tmp_path):
     again = boot()
     assert all(hasattr(again, name) for name in launchers)
     assert len(builds) == 2 and cc.cache_stats()["hits"] == hits + 1
+
+
+def test_one_rank_nccl_sharded_fit_is_the_unsharded_fit(dev):
+    """``parallel/``: a one-rank NCCL mesh on the card
+    (``make_mesh()``), the Holt-Winters ``sharded_fit_forecast`` of the
+    committed dataset (500 x 1,826) bit for bit the unsharded fit, and the
+    kernels' launch counters moved by the sharded fit."""
+    import os
+
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch import data, engine, parallel
+    from distributed_forecasting_tpu_torch.parallel import mesh as pmesh
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csv = os.path.join(root, "datasets", "store_item_demand.csv.gz")
+    b = data.tensorize(data.load_sales_csv(csv), device=dev)
+    assert (b.n_series, b.n_time) == (500, 1826)
+    assert not dist.is_initialized()
+    try:
+        mesh = parallel.make_mesh()
+        assert dist.get_backend() == "nccl"
+        fs.hw_score.launches = fs.hw_filter.launches = 0
+        _, got = parallel.sharded_fit_forecast(b, "holt_winters", mesh=mesh)
+        torch.cuda.synchronize()
+        assert fs.hw_score.launches == 1 and fs.hw_filter.launches == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        pmesh._RANK_DEVICE = None
+    _, want = engine.fit_forecast(b, "holt_winters")
+    for k in ("yhat", "lo", "hi", "ok"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k

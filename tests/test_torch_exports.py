@@ -26,12 +26,12 @@ PACKAGES = ["analysis", "data", "engine", "models", "monitoring", "ops",
             "tracking", "utils", "workflows"]
 
 # reference packages the port does not have yet, by label
-PENDING_PACKAGES = {"analysis": "P13", "parallel": "P12"}
+PENDING_PACKAGES = {"analysis": "P13"}
 
 # names of a reference __all__ the port does not export yet, by package and
-# label (ROADMAP Queue 1); every package the port has exports all of its
-# reference's names now
-PENDING = {}
+# label (ROADMAP Queue 1): the serving predict over a mesh waits for the
+# replica whose predict spans ranks (P12, item 1.6)
+PENDING = {"parallel": {"P12": ["shard_forecast_inputs"]}}
 
 
 def reference_all(package: str):

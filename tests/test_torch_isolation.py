@@ -93,6 +93,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import distributed_forecasting_tpu_torch.monitoring.trace\n"
         "import distributed_forecasting_tpu_torch.utils.platform\n"
         "import distributed_forecasting_tpu_torch.ops.clean\n"
+        "import distributed_forecasting_tpu_torch.parallel\n"
         "import distributed_forecasting_tpu_torch.serving.forecast_cache\n"
         "import distributed_forecasting_tpu_torch.serving.ingest\n"
         "import distributed_forecasting_tpu_torch.serving.refit\n"
@@ -122,6 +123,10 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
     from distributed_forecasting_tpu_torch.data import native
     from distributed_forecasting_tpu_torch.engine import fit_forecast
     from distributed_forecasting_tpu_torch.models import HoltWintersConfig
+    from distributed_forecasting_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+    )
     from distributed_forecasting_tpu_torch.serving import BatchForecaster
 
     df = data.synthetic_store_item_sales(n_stores=1, n_items=2, n_days=40)
@@ -145,6 +150,10 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda, tmp_path):
             key_names=("store", "item"), device=d),
         "load_and_tensorize_csv": lambda d: native.load_and_tensorize_csv(
             csv, device=d),
+        # the series mesh and a rank's bring-up: refused before any group
+        "make_mesh": lambda d: make_mesh(device=d),
+        "initialize_distributed": lambda d: initialize_distributed(
+            "127.0.0.1:1", 2, 0, device=d),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -447,7 +447,8 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
 
 
 @pytest.mark.parametrize("conf, item", [
-    ({"distributed": {"num_processes": 2}}, "P12"),
+    ({"distributed": {"num_processes": 2, "coordinator_address": "h0:9999",
+                      "process_id": 1}}, None),
     ({"precision": {"bf16_scoring": True}}, None),
     ({"engine": {"windowed": {"enabled": True, "window_len": 4096}}}, None),
     ({"engine": {"autoprep": {"enabled": True, "outlier_threshold": 5.0}}},
@@ -455,12 +456,17 @@ def test_invalid_combinations_raise_the_references_errors(ingested, training,
     ({"engine": {"gradfit": {"enabled": True, "series_bucket": 8}}}, None),
     ({"engine": {"automl": {"enabled": True, "rungs": 2}}}, None),
 ], ids=["distributed", "bf16", "windowed", "autoprep", "gradfit", "automl"])
-def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
-    """Each unported block raises naming its item; ``precision``,
-    ``engine.windowed``, ``engine.autoprep``, ``engine.gradfit`` and
-    ``engine.automl`` (``item`` None) are ported: the block arms the
-    process-wide config.  As in the reference, the train task does not call
-    the sweep: armed, its forecast is byte-equal to the unarmed one."""
+def test_unported_task_blocks_raise(tmp_path, ingested, monkeypatch, conf,
+                                    item):
+    """Each unported block raises naming its item; ``distributed``,
+    ``precision``, ``engine.windowed``, ``engine.autoprep``,
+    ``engine.gradfit`` and ``engine.automl`` (``item`` None) are ported:
+    the block arms the process-wide config, or, for ``distributed``, brings
+    the process into a group through ``initialize_distributed`` with the
+    reference's three keys (the reference's
+    ``test_task_distributed_conf_plumbing``, held against it).  As in the
+    reference, the train task does not call the sweep: armed, its forecast
+    is byte-equal to the unarmed one."""
     from distributed_forecasting_tpu_torch.engine import autoprep as tap
     from distributed_forecasting_tpu_torch.engine import gradfit as tgf
     from distributed_forecasting_tpu_torch.engine import hyper as thyper
@@ -468,6 +474,9 @@ def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
     from distributed_forecasting_tpu_torch.ops import precision as tprec
 
     init_conf = {"env": {"root": str(tmp_path)}, **conf}
+    if "distributed" in conf:
+        _distributed_block_plumbing(monkeypatch, tmp_path, conf)
+        return
     if item is None:
         try:
             ttasks.CatalogTask(init_conf=init_conf, device="cpu")
@@ -510,6 +519,44 @@ def test_unported_task_blocks_raise(tmp_path, ingested, conf, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1: {item}"):
         ttasks.CatalogTask(init_conf=init_conf, device="cpu")
+
+
+def _distributed_block_plumbing(monkeypatch, tmp_path, conf):
+    """A task without the block joins no group; with it, the port forwards
+    the reference's three keys to ``init_process_group`` (the gloo backend
+    for a CPU task, the coordinator as a tcp:// init method) where the
+    reference forwards them to ``jax.distributed.initialize``."""
+    import jax
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu.parallel import mesh as jmesh
+    from distributed_forecasting_tpu.tasks.catalog import CatalogTask
+    from distributed_forecasting_tpu_torch.parallel import mesh as tmesh
+
+    jcalls, tcalls = [], []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: jcalls.append(kw))
+    monkeypatch.setattr(jmesh, "_DISTRIBUTED_UP", False)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **kw: tcalls.append(kw))
+    monkeypatch.setattr(tmesh, "_DISTRIBUTED_UP", False)
+    monkeypatch.setattr(tmesh, "_RANK_DEVICE", None)
+    env = {"env": {"root": str(tmp_path)}}
+    CatalogTask(init_conf=env)
+    ttasks.CatalogTask(init_conf=env, device="cpu")
+    assert jcalls == tcalls == []
+    CatalogTask(init_conf={**env, **conf})
+    ttasks.CatalogTask(init_conf={**env, **conf}, device="cpu")
+    # a second task in the process joins nothing again
+    ttasks.CatalogTask(init_conf={**env, **conf}, device="cpu")
+    (want,) = jcalls
+    assert want == {"coordinator_address": "h0:9999", "num_processes": 2,
+                    "process_id": 1}
+    assert tcalls == [{
+        "backend": "gloo",
+        "init_method": f"tcp://{want['coordinator_address']}",
+        "world_size": want["num_processes"], "rank": want["process_id"]}]
 
 
 def _block_conf(block, value):

@@ -27,9 +27,10 @@ reference's ``_ar2_batch`` makes them.  Tolerances and why:
 - the streaming refit, warm cache against cold: bitwise (the same calls at
   the (S, W) shape over the same slices).
 
-The reference's 8-way mesh case is P12's: here ``mesh=`` raises
-``NotImplementedError`` naming it.  Its 10^6-period case runs on the card
-(``chip_smoke.py`` phase 17).
+The reference's 8-way mesh case runs over three ranks in
+``test_torch_parallel.py``; here a one-rank mesh is the unsharded fit bit
+for bit.  Its 10^6-period case runs on the card (``chip_smoke.py`` phase
+17).
 """
 
 import dataclasses
@@ -164,8 +165,25 @@ def test_config_and_plan_errors_match_reference():
     with pytest.raises(ValueError, match="too short for the HR long-AR"):
         windowed_fit_forecast(batch, config=ArimaConfig(hr_ar_order=200),
                               wconfig=SMALL)
-    with pytest.raises(NotImplementedError, match="P12"):
-        windowed_fit_forecast(batch, wconfig=SMALL, mesh=object())
+    # the mesh path is ported: on a one-rank mesh (a gloo group over an
+    # in-process store) it is the unsharded fit bit for bit, whole
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch.parallel import mesh as tmesh
+
+    joined = not dist.is_initialized()
+    try:
+        p1, r1 = windowed_fit_forecast(batch, wconfig=SMALL,
+                                       mesh=tmesh.make_mesh(device="cpu"))
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+            tmesh._RANK_DEVICE = None
+    p0, r0 = windowed_fit_forecast(batch, wconfig=SMALL)
+    for f in dataclasses.fields(p0):
+        assert torch.equal(getattr(p1, f.name), getattr(p0, f.name)), f.name
+    for k in ("yhat", "lo", "hi", "ok", "day_all"):
+        assert torch.equal(getattr(r1, k), getattr(r0, k)), k
 
 
 def test_should_window_threshold():
