@@ -94,15 +94,23 @@ its own size:
     reference's multi-host scenario (hash-owned shards, a global metric
     mean by all-reduce), sharded fits and CV, the bottom-level gather, the
     time-sharded scans over one series of 2^20 steps and the windowed arima
-    fit of 500 x 100,000 over the mesh.
+    fit of 500 x 100,000 over the mesh;
+  * a replica's predict over a mesh of ranks: the fleet task with one
+    replica at ``mesh_devices: 2`` (a serving rank and a forked follower
+    sharing the card over gloo) beside the same fleet at 0, bodies
+    byte-equal at 1, 17 and 500 series, an apply and a forced refit on the
+    serving rank of a Holt-Winters replica, a follower's death and its
+    replica's restart.
 
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
 
   1. device   the card's name, and its name and power limit from nvidia-smi
-  2. build    every kernel built from csrc/ in one build call (seconds)
+  2. build    every kernel built from csrc/ in one build call (seconds),
+              phase 18 (c)'s cold library-store child building beside it
   3. kernels  each kernel against its plain twin on the card at the main
-              path's shapes.  hw_score (default grid, damped grid, 10% more
+              path's shapes (each twin run once for the cases that share
+              its shapes: the twins work row by row, ``stacked_twins``).  hw_score (default grid, damped grid, 10% more
               cells masked, a 30-day season, and the CV pass's 1,500 rows
               with the three cutoffs' train masks): rtol 1e-5 / atol 1e-6,
               argmins equal or near ties within that tolerance.  hw_filter
@@ -560,6 +568,31 @@ is not 0:
               2e-4 of the unsharded fit.  Each rank's wall a step and the
               collectives' share of it.  A rank that exits nonzero or
               disagrees fails the phase
+ 23. mesh     a replica's predict over a mesh of ranks (``slice24_phase``;
+              its first line says what it measures: two ranks sharing the
+              card over gloo, the protocol's cost, not a speedup).  Arima
+              and Holt-Winters artifacts of the committed dataset; three
+              fleets boot at once, beside phase 21's (``main`` starts them
+              before phase 21, which waits for them before its timed
+              parts), on the shipped serve conf with one
+              replica each (``mesh_fleet_conf``): arima at ``mesh_devices``
+              2 and at 0, and Holt-Winters at 2 with ``serving.ingest`` on
+              and a refit forced by a backlog of 500 points, beside a
+              single Holt-Winters scorer in this process applying in the
+              POST.  (a) /invocations at 1, 17 and 500 series (horizon 28),
+              point and quantiles 0.1 / 0.5 / 0.9, byte-equal between the
+              two arima fleets, and p50 / p95 of each at each size (20
+              requests a size and fleet, in turns).  (c)
+              SIGKILL to the mesh replica's follower: the replica leaves
+              /readyz and exits 75, and while the supervisor restarts it
+              (b) runs: one /ingest of 500 points to the Holt-Winters
+              fleet and the single scorer, applied on the serving rank
+              with a refit there (hw_score, hw_filter), bodies byte-equal
+              to the single scorer's before and after; the other two
+              fleets drain.  The restarted replica answers the same bytes;
+              a SIGTERM drains it, and no pid of any replica or follower
+              of the phase is left.  Both ranks' launches come from the
+              drain lines (arima_predict on each rank of the arima mesh)
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -577,8 +610,9 @@ fit and forced refit, phase 17's fits, tail refits, train task and
 artifact predict, phase 18's train tasks and ``run_many``, and phase
 19's fits, forced refit and predicts, the launches phase 20's
 replicas logged at their drain, and phase 21's fits, dispatches,
-rebuilds and forced refit, and phase 22's sharded path and its two
-ranks' launches; the arima rows add phase 17's kernel times at the
+rebuilds and forced refit, phase 22's sharded path and its two
+ranks' launches, and phase 23's fits, single scorer and every rank's
+drained launches; the arima rows add phase 17's kernel times at the
 window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
@@ -744,12 +778,73 @@ def compare_filter(got, want) -> dict:
             "pass": all(equal.values())}
 
 
-def score_case(port, case: str, args, got) -> dict:
+def _take_rows(out, at: int, n: int):
+    """Rows ``[at, at + n)`` of every tensor in a twin's output (a tensor,
+    or a tuple or named tuple of them, nested, with ``None`` kept)."""
+    if out is None:
+        return None
+    if isinstance(out, torch.Tensor):
+        return out[at:at + n]
+    parts = [_take_rows(x, at, n) for x in out]
+    return type(out)(*parts) if hasattr(out, "_fields") else type(out)(parts)
+
+
+def stacked_twins(twin, calls: dict, rows: int, key) -> dict:
+    """``twin``'s output for each of ``calls`` (name -> args whose first
+    ``rows`` entries lead with the series axis), from one twin call for
+    each group of calls that ``key(args)`` puts together, their rows
+    stacked.  Each twin works row by row, so a call's rows of the stacked
+    call are what a call of its own gives; the comparisons that read them
+    are bitwise or tolerance-grade as before, so a twin that did not would
+    fail them.  One stacked call costs what one call costs: the twins are
+    bound by their launches, not by their rows."""
+    groups = {}
+    for name, args in calls.items():
+        groups.setdefault(key(args), []).append(name)
+    out = {}
+    for names in groups.values():
+        first = calls[names[0]]
+        want = twin(*(torch.cat([calls[n][i] for n in names])
+                      for i in range(rows)), *first[rows:])
+        at = 0
+        for n in names:
+            k = int(calls[n][0].shape[0])
+            out[n] = _take_rows(want, at, k)
+            at += k
+    return out
+
+
+def _grid_key(args) -> tuple:
+    """hw_score's calls that one twin call covers: one T, season and grid."""
+    return (int(args[0].shape[1]), args[6],
+            tuple(x.cpu().numpy().tobytes() for x in args[2:6]))
+
+
+def score_twins(port, calls: dict) -> dict:
+    """hw_score_reference's scores for each of ``calls`` (args y, mask,
+    alpha, beta, gamma, phi, m), stacked where they share a T, season and
+    grid (:func:`stacked_twins`)."""
+    return stacked_twins(port["fs"].hw_score_reference, calls, 2, _grid_key)
+
+
+def filter_twins(port, calls: dict) -> dict:
+    """``_filter``'s outputs for each of ``calls`` (args y, mask, alpha,
+    beta, gamma, phi, m, mode; one parameter set a row), stacked where they
+    share a T, season and mode (:func:`stacked_twins`)."""
+    hw = port["hw"]
+    return stacked_twins(
+        lambda y, mask, a, b, g, p, m, mode: hw._filter(y, mask, a, b, g, m,
+                                                        mode, p),
+        calls, 6, lambda args: (int(args[0].shape[1]), args[6], args[7]))
+
+
+def score_case(port, case: str, args, got, want=None) -> dict:
     """hw_score's output ``got`` on ``args`` (y, mask, alpha, beta, gamma,
-    phi, m) against hw_score_reference on the same inputs; raises on a
-    disagreement."""
+    phi, m) against hw_score_reference on the same inputs (``want``, where
+    the caller ran it); raises on a disagreement."""
     y, mask, a, b, g, p, m = args
-    want = port["fs"].hw_score_reference(y, mask, a, b, g, p, m)
+    if want is None:
+        want = port["fs"].hw_score_reference(y, mask, a, b, g, p, m)
     res = compare_scores(got, want)
     res.update(S=int(y.shape[0]), T=int(y.shape[1]), C=int(a.numel()), m=m)
     emit("kernel_vs_twin", kernel="hw_score", case=case, **res)
@@ -758,12 +853,13 @@ def score_case(port, case: str, args, got) -> dict:
     return res
 
 
-def filter_case(port, case: str, args, got) -> dict:
+def filter_case(port, case: str, args, got, want=None) -> dict:
     """hw_filter's output ``got`` on ``args`` (y, mask, alpha, beta, gamma,
-    phi, m, mode) against _filter on the same inputs; raises on a
-    disagreement."""
+    phi, m, mode) against _filter on the same inputs (``want``, where the
+    caller ran it); raises on a disagreement."""
     y, mask, a, b, g, p, m, mode = args
-    want = port["hw"]._filter(y, mask, a, b, g, m, mode, p)
+    if want is None:
+        want = port["hw"]._filter(y, mask, a, b, g, m, mode, p)
     res = compare_filter(got, want)
     res.update(S=int(y.shape[0]), T=int(y.shape[1]), m=m, mode=mode)
     emit("kernel_vs_twin", kernel="hw_filter", case=case, **res)
@@ -774,7 +870,8 @@ def filter_case(port, case: str, args, got) -> dict:
 
 def kernel_cases(batch, port) -> dict:
     """Phase 3: each kernel against its twin on the card.  hw_filter refits
-    the winners of the kernel's own scores, as ``fit`` does."""
+    the winners of the kernel's own scores, as ``fit`` does.  The twins run
+    stacked where cases share their shapes (:func:`stacked_twins`)."""
     hw, fs = port["hw"], port["fs"]
     rng = np.random.default_rng(0)
     drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
@@ -790,14 +887,17 @@ def kernel_cases(batch, port) -> dict:
         "cv_1500": (hw.HoltWintersConfig(), *cv_inputs(batch, port["cv"])),
     }
     out, winners = {"hw_score": {}, "hw_filter": {}}, {}
+    args = {name: (y, mask, *hw._candidate_grid(cfg, device=y.device),
+                   cfg.season_length)
+            for name, (cfg, y, mask) in cases.items()}
+    wants = score_twins(port, args)
     for name, (cfg, y, mask) in cases.items():
-        args = (y, mask, *hw._candidate_grid(cfg, device=y.device),
-                cfg.season_length)
-        got = fs.hw_score(*args)
+        got = fs.hw_score(*args[name])
         torch.cuda.synchronize()
-        out["hw_score"][name] = score_case(port, name, args, got)
+        out["hw_score"][name] = score_case(port, name, args[name], got,
+                                           wants[name])
         best = got.argmin(1)
-        winners[name] = (y, mask, *(x[best] for x in args[2:6]),
+        winners[name] = (y, mask, *(x[best] for x in args[name][2:6]),
                          cfg.season_length)
 
     refits = {
@@ -807,10 +907,12 @@ def kernel_cases(batch, port) -> dict:
         "season_m30": (*winners["season_m30"], "additive"),
         "cv_1500": (*winners["cv_1500"], "additive"),
     }
+    wants = filter_twins(port, refits)
     for name, args in refits.items():
         got = fs.hw_filter(*args)
         torch.cuda.synchronize()
-        out["hw_filter"][name] = filter_case(port, name, args, got)
+        out["hw_filter"][name] = filter_case(port, name, args, got,
+                                             wants[name])
     return out
 
 
@@ -1850,13 +1952,15 @@ def pooled_kernel_cases(port, run, path: str) -> dict:
     it detected or was given and the default grid), the output the path
     got held against the twin on the same inputs, as phase 3 holds it."""
     out = {"hw_score": {}, "hw_filter": {}}
-    for kernel, case in (("hw_score", score_case),
-                         ("hw_filter", filter_case)):
+    for kernel, case, twins in (("hw_score", score_case, score_twins),
+                                ("hw_filter", filter_case, filter_twins)):
         calls = run["calls"][kernel]
         assert len(calls) == run["launches"][kernel], (kernel, len(calls))
-        for i, (args, got) in enumerate(calls):
-            name = f"{path}_call{i}_{args[0].shape[0]}x{args[0].shape[1]}"
-            out[kernel][name] = case(port, name, args, got)
+        named = {f"{path}_call{i}_{args[0].shape[0]}x{args[0].shape[1]}":
+                 (args, got) for i, (args, got) in enumerate(calls)}
+        wants = twins(port, {n: a for n, (a, _) in named.items()})
+        for name, (args, got) in named.items():
+            out[kernel][name] = case(port, name, args, got, wants[name])
     return out
 
 
@@ -2700,13 +2804,15 @@ def compare_bitwise(pairs: dict) -> dict:
             "pass": all(equal.values())}
 
 
-def arima_filter_case(port, case: str, args) -> dict:
-    """arima_filter on ``args`` against its twin on the same inputs, bit for
-    bit (the kernel repeats the twin's float32 operations in order, built
-    without contraction); raises on a disagreement."""
+def arima_filter_case(port, case: str, args, want=None) -> dict:
+    """arima_filter on ``args`` against its twin on the same inputs
+    (``want``, where the caller ran it), bit for bit (the kernel repeats the
+    twin's float32 operations in order, built without contraction); raises
+    on a disagreement."""
     kal = port["kalman"]
     got = kal.arima_filter(*args)
-    want = kal.arima_filter_reference(*args)
+    if want is None:
+        want = kal.arima_filter_reference(*args)
     torch.cuda.synchronize()
     res = compare_bitwise({k: (g, w) for k, g, w in zip(
         kal.FilterOutputs._fields, got, want) if w is not None})
@@ -2742,7 +2848,9 @@ def arima_kernel_cases(batch, port) -> dict:
     cells masked, weekly seasonal P = Q = 1 (r = 8), m = 52 with P = 1
     (r = 52, the shared-memory path); the forecast recursion at H = 91 and
     at a serving grid longer than the fit grid (H = 2,001); and the
-    ValueError for an r past the kernels' limit."""
+    ValueError for an r past the kernels' limit.  The filter's twin runs
+    stacked where cases share their order and shapes (:func:`stacked_twins`).
+    """
     ar = port["arima"]
     rng = np.random.default_rng(0)
     drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
@@ -2759,10 +2867,16 @@ def arima_kernel_cases(batch, port) -> dict:
         "warp_r52": (ar.ArimaConfig(p=1, q=1, P=1, m=52), full, batch.mask),
     }
     out = {"arima_filter": {}, "arima_predict": {}}
-    args = {}
-    for name, (cfg, y, mask) in cases.items():
-        args[name] = arima_args(port, y, mask, cfg)
-        out["arima_filter"][name] = arima_filter_case(port, name, args[name])
+    args = {name: arima_args(port, y, mask, cfg)
+            for name, (cfg, y, mask) in cases.items()}
+    # one twin call for the cases of one order, d and T (stacked_twins)
+    wants = stacked_twins(
+        port["kalman"].arima_filter_reference, args, 7,
+        lambda a: (int(a[0].shape[1]), int(a[4].shape[1]),
+                   int(a[5].shape[1]), a[7], a[8]))
+    for name in cases:
+        out["arima_filter"][name] = arima_filter_case(port, name, args[name],
+                                                      wants[name])
     for name, key, H in (("fit_H91", "fit_211", 91),
                          ("serving_H2001", "fit_211", 2001),
                          ("seasonal_r8_H91", "seasonal_r8", 91),
@@ -5608,15 +5722,24 @@ def jacobian_vs_autograd(port, args, got) -> dict:
                 limit=MLE_JAC_REL, **{"pass": ok})
 
 
-def mle_kernel_case(port, case: str, args, jacobian: bool = False) -> dict:
+def mle_kernel_case(port, case: str, args, jacobian: bool = False,
+                    want=None) -> dict:
     """arima_loglik_grad on ``args`` against its twin on the same inputs,
     bit for bit, and its ssq, ldet and n against arima_filter's, bit for
     bit; with ``jacobian`` its Jacobians against float64 autograd too.
-    Raises on a disagreement."""
+    ``want``: the twin's rows of ``args`` where the caller ran it (on
+    several cases' rows at once: the twin is row-independent); else the
+    twin runs here, timed (``twin_ms``, CUDA events).  Raises on a
+    disagreement."""
     kal = port["kalman"]
     zc, zmask, phi, theta, r = args
     got = kal.arima_loglik_grad(*args)
-    want = kal.arima_loglik_grad_reference(*args)
+    twin_ms = None
+    if want is None:
+        box = {}
+        twin_ms = once_ms(lambda: box.update(
+            want=kal.arima_loglik_grad_reference(*args)))
+        want = box["want"]
     filt = kal.arima_filter(zc, zmask, None, None, phi, theta,
                             torch.zeros(zc.shape[0], device=zc.device), r, 0)
     torch.cuda.synchronize()
@@ -5625,7 +5748,7 @@ def mle_kernel_case(port, case: str, args, jacobian: bool = False) -> dict:
     primal = compare_bitwise({k: (getattr(got, k), getattr(filt, k))
                               for k in ("ssq", "ldet", "n")})
     res.update(S=int(zc.shape[0]), T=int(zc.shape[1]), p=int(phi.shape[1]),
-               q=int(theta.shape[1]), r=r,
+               q=int(theta.shape[1]), r=r, twin_ms=twin_ms,
                primal_equals_arima_filter=primal["pass"])
     if jacobian:
         res["jacobian_vs_autograd_f64"] = jacobian_vs_autograd(port, args, got)
@@ -5641,7 +5764,10 @@ def mle_kernel_cases(batch, port) -> dict:
     on 500 x 1,826, the CV pass's 1,500 rows with the cutoffs' train masks,
     d = 0, 10% more cells masked, r = 4 (p = 4), r = 8 (p = 8: P and dP in
     shared memory) and r = 9 (p = 9, the shared-memory path); the Jacobian against float64 autograd at the fit
-    shape and at r = 9; the ValueError at r = 70."""
+    shape and at r = 9; the ValueError at r = 70.  The twin runs once for
+    the CV pass's and the masked case's rows together (one (p, q, d), one
+    T; the twin is row-independent, so each case's rows are what a twin of
+    its own rows gives) and alone, timed, for every other case."""
     rng = np.random.default_rng(2)
     drop = torch.from_numpy((rng.random(tuple(batch.y.shape)) >= 0.1)
                             .astype(np.float32)).to(batch.y.device)
@@ -5656,10 +5782,20 @@ def mle_kernel_cases(batch, port) -> dict:
         "r8_800": (full, batch.mask, 8, 0, 1),
         "warp_r9": (full, batch.mask, 9, 0, 1),
     }
+    args = {name: mle_args(port, y, m, p, q, d)
+            for name, (y, m, p, q, d) in cases.items()}
+    stacked = ("cv_1500", "masked_10pct")
+    rows = [int(args[n][0].shape[0]) for n in stacked]
+    joint = port["kalman"].arima_loglik_grad_reference(
+        *(torch.cat([args[n][i] for n in stacked]) for i in range(4)),
+        args[stacked[0]][4])
+    wants = {n: type(joint)(*(x[a:a + k] for x in joint))
+             for n, a, k in zip(stacked, (0, rows[0]), rows)}
     out = {}
-    for name, (y, m, p, q, d) in cases.items():
-        out[name] = mle_kernel_case(port, name, mle_args(port, y, m, p, q, d),
-                                    jacobian=name in ("fit_211", "warp_r9"))
+    for name in cases:
+        out[name] = mle_kernel_case(port, name, args[name],
+                                    jacobian=name in ("fit_211", "warp_r9"),
+                                    want=wants.get(name))
     big = mle_args(port, full[:4], batch.mask[:4], 70, 0)
     try:
         port["kalman"].arima_loglik_grad(*big)
@@ -6034,7 +6170,7 @@ def automl_sweep(port, batch, counters, card_line: str) -> dict:
     return out
 
 
-def mle_times(port, batch, fit_cases, card_line: str) -> dict:
+def mle_times(port, batch, kernel_cases, fit_cases, card_line: str) -> dict:
     """(e) The gradient kernel alone at the fit and CV shapes (CUDA events,
     median of 5, each sample 5 back-to-back launches bound beforehand)
     beside its bound and serial chain, its twin once; the fit kernel per
@@ -6044,7 +6180,8 @@ def mle_times(port, batch, fit_cases, card_line: str) -> dict:
     steps); the compared call of the fit kernel (``fit_cases``' fit shape)
     timed again, beside its twin's time; the MLE fit_forecast's wall time
     (median of 3, host clock to a synchronize), its device events, idle
-    share and host syncs."""
+    share and host syncs.  The gradient twin's time is (a)'s fit case's
+    (``kernel_cases``), on the same inputs."""
     kal, ar, engine = port["kalman"], port["arima"], port["engine"]
     cfg = ar.ArimaConfig(method="mle")
     steps = cfg.fit_steps
@@ -6086,7 +6223,9 @@ def mle_times(port, batch, fit_cases, card_line: str) -> dict:
             fit[name]["step_ms_first"] = w[MLE_STEP_WINDOW] / MLE_STEP_WINDOW
             fit[name]["step_ms_last"] = (
                 (ms - w[steps - MLE_STEP_WINDOW]) / MLE_STEP_WINDOW)
-    twin = once_ms(lambda: kal.arima_loglik_grad_reference(*fit_args))
+    # the twin's time on these inputs: (a)'s fit case ran it on the same
+    # mle_args (same data, same seed), CUDA events
+    twin = kernel_cases["fit_211"]["twin_ms"]
     fit_forecast = lambda: engine.fit_forecast(  # noqa: E731
         batch, "arima", config=cfg, horizon=90)
     walls = []
@@ -6163,7 +6302,8 @@ def slice14_phase(port, card_line: str) -> dict:
         out["launches"][k] += n
     out["bf16"] = bf16_gate(port, batch, card_line)
     out["automl"] = automl_sweep(port, batch, counters, card_line)
-    out["times"] = mle_times(port, batch, out["fit_cases"], card_line)
+    out["times"] = mle_times(port, batch, out["cases"], out["fit_cases"],
+                             card_line)
     out["seconds"] = time.perf_counter() - t_phase
     emit("phase15", seconds=out["seconds"])
     return out
@@ -7561,45 +7701,79 @@ print(json.dumps({"seconds": seconds, "builds": _build.builds,
 """
 
 
+def _start_store_child(store: str, csrc: str, no_nvcc: bool) -> tuple:
+    """Start one STORE_CHILD process on ``(store, csrc, no_nvcc)``; its
+    output goes to files beside the store (a child started long before it
+    is read must not stall on a full pipe)."""
+    base = tempfile.mkdtemp(prefix="dftt-child-")
+    atexit.register(shutil.rmtree, base, True)
+    out = open(os.path.join(base, "out"), "w+")
+    err = open(os.path.join(base, "err"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", STORE_CHILD, store, csrc,
+         "1" if no_nvcc else "0"], cwd=ROOT, stdout=out, stderr=err,
+        text=True)
+    return proc, out, err
+
+
+def _store_child_report(child: tuple) -> dict:
+    """A started STORE_CHILD's report, once it has exited."""
+    proc, out, err = child
+    proc.wait(timeout=600)
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"library-store child failed: {stderr}")
+    rep = json.loads(stdout.strip().splitlines()[-1])
+    assert rep["hw_score_rel_err"] <= 1e-5, rep
+    return rep
+
+
 def _store_children(*args) -> list:
     """Run one STORE_CHILD process for each ``(store, csrc, no_nvcc)``, all
     at once, and return their reports in order."""
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", STORE_CHILD, store, csrc,
-         "1" if no_nvcc else "0"], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for store, csrc, no_nvcc in args]
-    outs = []
-    for p in procs:
-        stdout, stderr = p.communicate(timeout=600)
-        if p.returncode != 0:
-            raise AssertionError(f"library-store child failed: {stderr}")
-        out = json.loads(stdout.strip().splitlines()[-1])
-        assert out["hw_score_rel_err"] <= 1e-5, out
-        outs.append(out)
-    return outs
+    children = [_start_store_child(*a) for a in args]
+    return [_store_child_report(c) for c in children]
 
 
 # the kernel store phase 18's cold child filled: phase 20's fleet boots
 # from it (the cold build is measured once, in phase 18)
 KERNEL_STORE = None
+# phase 18 (c)'s cold child (its store and its process), started beside
+# phase 2's build by ``start_cold_store_child``: the two nvcc builds share
+# the host, and (c) reads the child's report when it runs
+COLD_CHILD = None
+
+
+def start_cold_store_child() -> None:
+    """Start (c)'s cold child now: a fresh process on an empty store."""
+    global COLD_CHILD
+    store = tempfile.mkdtemp(prefix="dftt-store-")
+    atexit.register(shutil.rmtree, store, True)
+    COLD_CHILD = (store, _start_store_child(store, "", False))
 
 
 def runtime_compile_cache(port, card_line: str) -> dict:
     """(c) the kernel library's store, each step a fresh process: an empty
     store (cold: nvcc builds, the library is stored), the same store (warm:
     loaded with the build refused), the entry truncated (error: rebuilt),
-    one source changed in a copy of csrc/ (a new key: rebuilt).  After the
-    cold child the other three run at once, the truncated entry in a copy
-    of the store (two builds and the warm load share the host's cores).
-    Each child launches hw_score once against its twin.  The store is kept
-    for the run as :data:`KERNEL_STORE`."""
+    one source changed in a copy of csrc/ (a new key: rebuilt).  The cold
+    child ran beside phase 2's build (:func:`start_cold_store_child`; here
+    when the phase runs alone); after it the other three run at once, the
+    truncated entry in a copy of the store (two builds and the warm load
+    share the host's cores).  Each child launches hw_score once against
+    its twin.  The store is kept for the run as :data:`KERNEL_STORE`."""
     global KERNEL_STORE
     out = {}
-    store = tempfile.mkdtemp(prefix="dftt-store-")
-    atexit.register(shutil.rmtree, store, True)
+    if COLD_CHILD is None:
+        start_cold_store_child()
+    store, child = COLD_CHILD
     with tempfile.TemporaryDirectory(prefix="dftt-c-") as tmp:
         kernels = os.path.join(store, "kernels")
-        (cold,) = _store_children((store, "", False))
+        cold = _store_child_report(child)
         out["cold"] = cold
         assert cold["builds"] == 1 and cold["stats"]["misses"] == 1 \
             and cold["stats"]["stores"] == 1, cold
@@ -7630,7 +7804,8 @@ def runtime_compile_cache(port, card_line: str) -> dict:
         out["entry_bytes"] = size
     KERNEL_STORE = store
     emit("runtime_compile_cache", card=card_line,
-         cold_load_s=cold["seconds"], warm_load_s=warm["seconds"],
+         cold_load_s=cold["seconds"], cold_beside="phase 2's build",
+         warm_load_s=warm["seconds"],
          truncated_load_s=trunc["seconds"],
          changed_source_load_s=changed["seconds"], **out)
     return out
@@ -8136,10 +8311,11 @@ print(json.dumps(out))
 """
 
 
-def rt_profile_child(confs: dict, root: str, tmp: str) -> dict:
+def rt_profile_child(confs: dict, root: str, tmp: str):
     """(b) in a child process (RT_PROFILE_CHILD): both scorers started
     again from ``confs`` with their own WAL, store, stream and trace
-    directories, then :func:`rt_profile`; its report, the child's span
+    directories, then :func:`rt_profile`.  Starts the child and returns a
+    function that waits for it and returns its report, the child's span
     kinds (``refit.swap`` among them) and launch counts."""
     import copy
 
@@ -8161,14 +8337,26 @@ def rt_profile_child(confs: dict, root: str, tmp: str) -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (ROOT, env.get("PYTHONPATH")) if p)
-    proc = subprocess.run([sys.executable, "-c", RT_PROFILE_CHILD,
-                           json.dumps(paths), DEVICE], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"the profile child failed: {proc.stderr[-4000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "refit.swap" in out["ring_kinds"], out["ring_kinds"]
-    return out
+    # files, not pipes: the child logs every request while this process
+    # is busy elsewhere, and a full pipe would stall it
+    logs = [open(os.path.join(root, f"profile_child.{k}"), "w+")
+            for k in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, "-c", RT_PROFILE_CHILD,
+                             json.dumps(paths), DEVICE], cwd=ROOT, env=env,
+                            stdout=logs[0], stderr=logs[1], text=True)
+
+    def finish() -> dict:
+        proc.wait(timeout=600)
+        stdout, stderr = (f.seek(0) or f.read() for f in logs)
+        for f in logs:
+            f.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"the profile child failed: {stderr[-4000:]}")
+        out = json.loads(stdout.strip().splitlines()[-1])
+        assert "refit.swap" in out["ring_kinds"], out["ring_kinds"]
+        return out
+
+    return finish
 
 
 def rt_dump(servers: dict, tmp: str) -> dict:
@@ -8404,10 +8592,15 @@ def slice20_phase(port, card_line: str) -> dict:
         on_conf = trace.TraceConfig.from_conf(
             port["config"].load_conf(SERVE_CONF)["serving"]["tracing"])
         assert tracer.config.debug_endpoints and tracer.config.enabled
+        # (b)'s child boots and runs while (a) and (c), which time nothing,
+        # run here; (d) and (e) time, so they wait for it
+        t0 = time.perf_counter()
+        profile = rt_profile_child(confs, root, tmp)
+        seconds["profile_start"] = time.perf_counter() - t0
         for name, run in (
                 ("trees", lambda: rt_trees(servers, batch)),
-                ("profile", lambda: rt_profile_child(confs, root, tmp)),
                 ("dump", lambda: rt_dump(servers, tmp)),
+                ("profile", profile),
                 ("cost", lambda: rt_cost(port, servers, card_line)),
                 ("latency", lambda: rt_latency(port, servers, on_conf,
                                                card_line))):
@@ -9538,7 +9731,7 @@ def cache_fleet(fleets: dict, fc, art_dir: str) -> dict:
             "hits": hits}
 
 
-def slice22_phase(port, card_line: str) -> dict:
+def slice22_phase(port, card_line: str, before_timing=None) -> dict:
     """Phase 21: the materialized forecast cache.  arima, Holt-Winters
     (history sidecar, ``serving.ingest`` on), theta and the curve model
     fit on the committed dataset and served in this process by the serve
@@ -9546,8 +9739,9 @@ def slice22_phase(port, card_line: str) -> dict:
     ``CACHE_QSET``) and off (:func:`cache_serve_conf`), the launch
     counters set to 0 before the fits and read after (f); two fleets of
     the theta artifact boot meanwhile.  (b) byte-equal bodies, (f) the
-    fleets, then the timed parts: (a) rebuilds, (c) hit against dispatch,
-    (d) writes, (e) persistence."""
+    fleets, ``before_timing()`` (``main`` passes a wait for phase 23's
+    fleets, which boot beside these), then the timed parts: (a) rebuilds,
+    (c) hit against dispatch, (d) writes, (e) persistence."""
     t_phase = time.perf_counter()
     batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
                                    device=DEVICE)
@@ -9615,6 +9809,10 @@ def slice22_phase(port, card_line: str) -> dict:
                           for d in drain_launches(log)]
         assert len(fleet_launches) == 4, logs["on"][-3000:]
         out["fleet"]["drain_seconds"] = drains
+        if before_timing is not None:
+            t0 = time.perf_counter()
+            before_timing()
+            seconds["before_timing"] = time.perf_counter() - t0
         for name, run in (
                 ("rebuild", lambda: cache_rebuilds(pairs, card_line)),
                 ("latency", lambda: cache_latency(pairs, card_line)),
@@ -10213,6 +10411,402 @@ def slice23_phase(port, card_line: str) -> dict:
     return out
 
 
+# -- phase 23: a replica's predict over a mesh of ranks ----------------------
+
+MESH_RANKS = 2              # a serving rank and one follower on the card
+MESH_SIZES = (1, 17, 500)
+MESH_HORIZON = 28
+MESH_QSET = [0.1, 0.5, 0.9]
+MESH_LATENCY = 20           # sequential /invocations a size and fleet, (a)
+MESH_POINTS = 500           # (b): one ingest, the backlog that forces a refit
+
+
+def mesh_fleet_conf(port, root: str, name: str, number: int, mesh: int,
+                    tag: str, ingest: bool) -> dict:
+    """The shipped serve conf as a fleet of one replica at ``mesh_devices``
+    ``mesh`` on the front door ``number``: no cache and no sharding, as
+    shipped; with ``ingest``, ``serving.ingest`` on (the fleet's interval
+    follower) with a refit forced by a backlog of :data:`MESH_POINTS`;
+    the kernel library loaded from this checkout's build directory (the
+    compile-cache store off: this process built it)."""
+    conf = port["config"].load_conf(SERVE_CONF)
+    conf["env"] = {"root": root}
+    conf["serving"].update(model_name=name, host="127.0.0.1", port=number)
+    conf["serving"]["fleet"].update(enabled=True, replicas=1,
+                                    mesh_devices=mesh)
+    conf["serving"]["ingest"].update(
+        enabled=ingest, apply_mode=None,
+        wal_dir=os.path.join(root, f"wal_{tag}"))
+    conf["serving"]["ingest"]["refit"].update(
+        enabled=ingest, max_applied_points=MESH_POINTS,
+        max_staleness_s=1e9, check_interval_s=0.5)
+    conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+        root, f"quality_{tag}")
+    conf["compile_cache"]["enabled"] = False
+    return conf
+
+
+def follower_pids(replica_pid: int) -> list:
+    """Pids of a replica's follower ranks: its child processes, the ones it
+    forked (read from /proc)."""
+    out = []
+    for pid in (int(d) for d in os.listdir("/proc") if d.isdigit()):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rpartition(")")[2].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == replica_pid:
+            out.append(pid)
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    """The pid runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def mesh_drains(log: str) -> list:
+    """Each drained replica's launches: its own and its follower ranks'
+    (the drain line)."""
+    import re
+
+    return [{"rank0": json.loads(m.group(1)),
+             "followers": json.loads(m.group(2))} for m in re.finditer(
+        r"drained; hand-kernel launches in this process: (\{[^}]*\}); in "
+        r"its follower ranks: (\[[^\]]*\])", log)]
+
+
+def mesh_payloads(fc) -> dict:
+    """(a)'s bodies: 1, 17 and 500 series at :data:`MESH_HORIZON`, point
+    and :data:`MESH_QSET` quantiles."""
+    out = {}
+    for size in MESH_SIZES:
+        inputs = _inputs(fc.keys[:size][::-1], fc.key_names)
+        out[f"{size}"] = {"inputs": inputs, "horizon": MESH_HORIZON}
+        out[f"{size}q"] = {"inputs": inputs, "horizon": MESH_HORIZON,
+                           "quantiles": MESH_QSET}
+    return out
+
+
+def mesh_bodies(number: int, payloads: dict) -> dict:
+    out = {}
+    for name, payload in payloads.items():
+        status, body, _ = http_call(number, "POST", "/invocations", payload)
+        assert status == 200, (name, body[:300])
+        out[name] = body
+    return out
+
+
+def mesh_latency(fleets: dict, fc, card_line: str) -> dict:
+    """(a)'s times: /invocations p50 / p95 at each size through each
+    fleet's front door, the fleets in turns."""
+    out = {}
+    for size in MESH_SIZES:
+        req = {"inputs": _inputs(fc.keys[:size][::-1], fc.key_names),
+               "horizon": MESH_HORIZON}
+        ms = {leg: [] for leg in fleets}
+        for _ in range(MESH_LATENCY):
+            for leg, f in fleets.items():
+                t0 = time.perf_counter()
+                status, body, _ = http_call(f.port, "POST", "/invocations",
+                                            req)
+                ms[leg].append((time.perf_counter() - t0) * 1e3)
+                assert status == 200, body[:300]
+        out[size] = {leg: _pcts(v) for leg, v in ms.items()}
+    emit("mesh_latency", card=card_line, horizon=MESH_HORIZON, sizes=out)
+    return out
+
+
+def mesh_ingest(fleet, single, fc) -> dict:
+    """(b): bodies of the mesh replica byte-equal to the single scorer's,
+    then one /ingest of :data:`MESH_POINTS` points (the next day of the
+    first 500 series) to both; the replica applies them on its serving
+    rank and the backlog forces a refit there (hw_score, hw_filter), the
+    single scorer applies in the POST and refits too; the bodies after
+    are byte-equal again."""
+    payloads = {k: v for k, v in mesh_payloads(fc).items()
+                if not k.endswith("q")}
+    number = single.server_address[1]
+    before = mesh_bodies(fleet.port, payloads)
+    assert before == mesh_bodies(number, payloads), "before the apply"
+    rep = fleet.replicas()[0]["port"]
+    day = int(fc._state_snapshot()[1]) + 1
+    points = [{"k": [int(v) for v in k], "d": day,
+               "y": float(np.round(np.random.default_rng(37).lognormal(
+                   3.5, 0.3)))} for k in fc.keys[:MESH_POINTS].tolist()]
+    t0 = time.perf_counter()
+    for target in (fleet.port, number):
+        status, body, _ = http_call(target, "POST", "/ingest",
+                                    {"points": points})
+        assert status == 200 and json.loads(body)["written"] == \
+            MESH_POINTS, body[:300]
+    deadline = time.perf_counter() + 120
+    while True:
+        text = http_call(rep, "GET", "/metrics")[1].decode()
+        applied = _metric(text, "dftpu_ingest_applied_points_total")
+        refits = _metric(text, "dftpu_ingest_refits_total")
+        if (applied >= MESH_POINTS and refits >= 1) or \
+                time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    assert applied == MESH_POINTS and refits >= 1, (applied, refits)
+    refit = single.ingest.refit
+    while refit.snapshot()["refits_done"] < 1 and \
+            time.perf_counter() < deadline:
+        refit.wait(timeout=60)
+        time.sleep(0.05)
+    assert refit.snapshot()["refits_done"] >= 1, refit.snapshot()
+    seconds = time.perf_counter() - t0
+    after = mesh_bodies(fleet.port, payloads)
+    assert after == mesh_bodies(number, payloads), "after the apply"
+    assert after != before
+    return {"applied": applied, "replica_refits": refits,
+            "single_refits": refit.snapshot()["refits_done"],
+            "apply_and_refit_seconds": seconds,
+            "bytes": {k: len(v) for k, v in after.items()}}
+
+
+def mesh_kill(fleet) -> dict:
+    """(c), first half: SIGKILL the follower of the fleet's one replica and
+    wait for the replica to leave (it exits 75: its rank can no longer
+    dispatch in step).  Returns the kill's time and both pids."""
+    import signal
+
+    (rep,) = fleet.replicas()
+    replica = fleet.pid_of(rep["port"])
+    (follower,) = follower_pids(replica)
+    t0 = time.perf_counter()
+    os.kill(follower, signal.SIGKILL)
+    while pid_alive(replica):
+        assert time.perf_counter() - t0 < 60, "the replica outlived its rank"
+        time.sleep(0.02)
+    return {"t_kill": t0, "replica_exit_s": time.perf_counter() - t0,
+            "pids": [replica, follower]}
+
+
+def mesh_restarted(fleet, kill: dict, payloads: dict, want: dict,
+                   card_line: str) -> dict:
+    """(c), second half: the supervisor restarted the replica (one restart,
+    ready again, a new follower), the log says why the old one left
+    /readyz, and the bodies equal ``want`` again."""
+    reps = fleet.wait(lambda r: r[0]["restarts"] >= 1 and r[0]["ready"])
+    restart_s = time.perf_counter() - kill["t_kill"]
+    assert reps[0]["restarts"] == 1, reps
+    replica, follower = kill["pids"]
+    log = fleet.log_text()
+    assert f"follower rank 1 (pid {follower}) exited with -9; the replica " \
+           f"leaves /readyz and exits 75" in log, log[-3000:]
+    assert mesh_bodies(fleet.port, payloads) == want, "after the restart"
+    new = fleet.pid_of(reps[0]["port"])
+    (new_follower,) = follower_pids(new)
+    out = {"replica_exit_s": kill["replica_exit_s"],
+           "restart_to_ready_s": restart_s,
+           "pids": [replica, follower, new, new_follower]}
+    emit("mesh_restart", card=card_line, **out)
+    return out
+
+
+MESH_LEGS = {"mesh": ("arima", MESH_RANKS, False),
+             "plain": ("arima", 0, False),
+             "ingest": ("holt_winters", MESH_RANKS, True)}
+
+
+def start_mesh_fleets(port) -> dict:
+    """Phase 23's fits and its three fleets (:data:`MESH_LEGS`), started
+    before phase 21 so that they boot beside phase 21's two fleets: a boot
+    waits on its processes' start-up, not on the card.  Phase 21 waits for
+    them (:func:`mesh_fleets_ready`) before its timed parts; phase 22 runs
+    beside them idle.  The launch counters go to 0 just before the fits
+    and are read just after them.  Returns the state
+    :func:`slice24_phase` takes; :func:`stop_mesh_fleets` ends it."""
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                   device=DEVICE)
+    assert (batch.n_series, batch.n_time) == SHAPE
+    st = {"root": tempfile.mkdtemp(prefix="mesh_"),
+          "stack": contextlib.ExitStack(), "fleets": {}}
+    try:
+        for k in KERNELS:  # counters to 0 just before the fits
+            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
+            getattr(launchers, k).launches = 0
+        t0 = time.perf_counter()
+        st["arts"] = stream_artifacts(port, st["root"], batch,
+                                      families=("arima", "holt_winters"))
+        st["fits_s"] = time.perf_counter() - t0
+        st["fit_launches"] = hand_launches()  # ... and after them
+        st["t_boot"] = time.perf_counter()
+        for leg, (model, mesh, ingest) in MESH_LEGS.items():
+            number = free_port()
+            conf = mesh_fleet_conf(port, st["root"],
+                                   st["arts"][model]["name"], number, mesh,
+                                   leg, ingest)
+            path = os.path.join(st["root"], f"fleet_{leg}.json")
+            with open(path, "w") as f:
+                json.dump(conf, f)  # JSON is YAML
+            st["fleets"][leg] = st["stack"].enter_context(FleetProcess(
+                path, number, os.path.join(st["root"], f"fleet_{leg}.log")))
+    except BaseException:
+        stop_mesh_fleets(st)
+        raise
+    emit("mesh_fleets_started", legs=list(MESH_LEGS),
+         beside="phase 21's two fleets boot beside these; phase 21 waits "
+                "for them before its timed parts, phase 22 runs beside them "
+                "idle")
+    return st
+
+
+def mesh_fleets_ready(st: dict) -> dict:
+    """Wait until each of phase 23's fleets has its one replica ready;
+    returns the seconds from their start until each was seen ready (an
+    upper bound: the first look may come after it)."""
+    if "ready_s" not in st:
+        ready = {}
+        for leg, f in st["fleets"].items():
+            f.wait(lambda r: len(r) == 1 and r[0]["ready"])
+            ready[leg] = time.perf_counter() - st["t_boot"]
+        st["ready_s"] = ready
+    return st["ready_s"]
+
+
+def stop_mesh_fleets(st: dict) -> None:
+    """End phase 23's fleets (SIGTERM, then their process groups killed)
+    and remove their directory."""
+    try:
+        st["stack"].close()
+    finally:
+        shutil.rmtree(st["root"], ignore_errors=True)
+
+
+def slice24_phase(port, card_line: str, started: dict = None) -> dict:
+    """Phase 23: a replica's predict over a mesh of ranks.  The fleet task
+    with one replica at ``mesh_devices`` :data:`MESH_RANKS` (a serving rank
+    and one follower process on cuda:0 over gloo) on an arima artifact of
+    the committed dataset, beside the same fleet at ``mesh_devices`` 0 and
+    a Holt-Winters fleet at :data:`MESH_RANKS` with ``serving.ingest`` on
+    (:func:`start_mesh_fleets`: ``started``, or started here), and a single
+    ``tasks.serve`` scorer of the Holt-Winters artifact in this process.
+    (a) Byte-equal bodies and p50 / p95 at 1, 17 and 500 series; (c) the
+    follower's death, and while its replica restarts (b) an apply and a
+    forced refit on the ingest fleet's serving rank and the other two
+    fleets' drains; then the restarted replica's bodies and its drain.
+    The drain lines give every rank's launches, and no process of a
+    replica is left after its drain."""
+    t_phase = time.perf_counter()
+    emit("mesh_predict", card=card_line,
+         measures="two ranks of one replica sharing the one card over gloo: "
+                  "the mesh predict protocol's cost and its bytes against "
+                  "one device, not a speedup")
+    own = started is None
+    if own:
+        started = start_mesh_fleets(port)
+    root, arts, fleets = started["root"], started["arts"], started["fleets"]
+    out, seconds, single, logs = {}, {"fits": started["fits_s"]}, None, {}
+    try:
+        for k in KERNELS:  # counters to 0 just before the path
+            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
+            getattr(launchers, k).launches = 0
+        # the single Holt-Winters scorer: the ingest fleet's conf, no
+        # fleet, applying in the POST
+        sconf = mesh_fleet_conf(port, root, arts["holt_winters"]["name"],
+                                0, 0, "single", True)
+        sconf["serving"]["fleet"]["enabled"] = False
+        sconf["serving"]["ingest"]["apply_mode"] = "sync"
+        single = port["server"].start_server(**port["serve_task"].ServeTask(
+            init_conf=sconf, device=DEVICE).server_args())
+        t0 = time.perf_counter()
+        out["boot"] = {"ready_s": mesh_fleets_ready(started)}
+        seconds["boot_wait"] = time.perf_counter() - t0
+        for leg, f in fleets.items():
+            (rep,) = f.replicas()
+            (line,) = boot_lines(f.log_text(), rep["port"])
+            out["boot"][leg] = {"seconds": line["seconds"],
+                                "stages": line["stages"]}
+        fc = port["serving"].BatchForecaster.load(
+            arts["arima"]["artifact"], device=DEVICE)
+        payloads = mesh_payloads(fc)
+        t0 = time.perf_counter()
+        want = mesh_bodies(fleets["plain"].port, payloads)
+        got = mesh_bodies(fleets["mesh"].port, payloads)
+        assert got == want, [k for k in want if got[k] != want[k]]
+        out["equal"] = {k: len(v) for k, v in want.items()}
+        seconds["equal"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["latency"] = mesh_latency(
+            {"mesh": fleets["mesh"], "plain": fleets["plain"]}, fc,
+            card_line)
+        seconds["latency"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kill = mesh_kill(fleets["mesh"])
+        # while the replica restarts: (b), then the other fleets' drains
+        t1 = time.perf_counter()
+        out["ingest"] = mesh_ingest(fleets["ingest"], single,
+                                    single.forecaster)
+        seconds["ingest"] = time.perf_counter() - t1
+        pids = []
+        for leg in ("ingest", "plain"):
+            (rep,) = fleets[leg].replicas()
+            pids.append(fleets[leg].pid_of(rep["port"]))
+        pids += follower_pids(pids[0])  # the ingest replica's follower
+        for leg in ("ingest", "plain"):
+            fleets[leg].drain()
+            logs[leg] = fleets[leg].log_text()
+        out["restart"] = mesh_restarted(fleets["mesh"], kill, payloads,
+                                        want, card_line)
+        seconds["kill_to_checked"] = time.perf_counter() - t0
+        pids += out["restart"]["pids"]
+        t0 = time.perf_counter()
+        fleets["mesh"].drain()
+        logs["mesh"] = fleets["mesh"].log_text()
+        seconds["drain"] = time.perf_counter() - t0
+        # SIGTERM drained each replica and its follower: none is left
+        left = [p for p in pids if pid_alive(p)]
+        assert not left, (left, pids)
+        for leg, f in fleets.items():
+            assert f.proc.returncode == 0, logs[leg][-3000:]
+        drains = {leg: mesh_drains(logs[leg]) for leg in fleets}
+        assert [len(d) for d in drains.values()] == [1, 1, 1], drains
+        assert [len(d[0]["followers"]) for d in drains.values()] == [
+            MESH_RANKS - 1, 0, MESH_RANKS - 1], drains
+        out["drains"] = drains
+        if DEVICE == "cuda":
+            # both ranks of the arima replica (the restarted one: its warmup
+            # and the bodies after the restart) launched arima_predict; the
+            # refit launched hw_score and hw_filter on the serving rank
+            mesh = drains["mesh"][0]
+            assert mesh["rank0"]["arima_predict"] > 0, mesh
+            assert mesh["followers"][0]["arima_predict"] > 0, mesh
+            ing = drains["ingest"][0]
+            assert ing["rank0"]["hw_score"] >= 1, ing
+            assert ing["rank0"]["hw_filter"] >= 1, ing
+            assert ing["followers"][0]["hw_score"] == 0, ing
+        fleet_launches = [d for ds in drains.values() for dr in ds
+                          for d in (dr["rank0"], *dr["followers"])]
+        out["launches"] = {k: n + started["fit_launches"][k]
+                           + sum(d[k] for d in fleet_launches)
+                           for k, n in hand_launches().items()}
+    finally:
+        if single is not None:
+            single.shutdown()
+        port["trace"].configure_tracing(port["trace"].TraceConfig())
+        if own:
+            stop_mesh_fleets(started)
+    launches = out["launches"]
+    emit("launches", path="mesh_predict", **launches,
+         expected="hw_score, hw_filter: the Holt-Winters fit and its two "
+                  "refits (the single scorer's, the serving rank's); "
+                  "arima_filter: the arima fit; arima_predict: the mesh "
+                  "replica's dispatches on both ranks and the plain "
+                  "replica's, from their drain lines")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("mesh", card=card_line, equal=out["equal"], boot=out["boot"],
+         ingest=out["ingest"], drains=out["drains"])
+    emit("phase23", card=card_line, seconds=out["seconds"], parts=seconds)
+    return out
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -10584,9 +11178,12 @@ def main(argv=None) -> int:
     print(card_line, flush=True)
 
     t0 = time.perf_counter()
+    # phase 18 (c)'s cold child builds beside this build (see there)
+    start_cold_store_child()
     _build.library()
     emit("build", kernels=list(KERNELS), sources=_build.SOURCES,
-         seconds=time.perf_counter() - t0)
+         seconds=time.perf_counter() - t0,
+         beside="phase 18 (c)'s cold library-store child, building too")
 
     batch = data.tensorize(data.load_sales_csv(DATA))
     cases = kernel_cases(batch, port)
@@ -10645,8 +11242,15 @@ def main(argv=None) -> int:
     runtime = slice19_phase(port, card_line)
     scorer_rt = slice20_phase(port, card_line)
     fleet = slice21_phase(port, card_line)
-    cache = slice22_phase(port, card_line)
-    parallel = slice23_phase(port, card_line)
+    # phase 23's fleets boot beside phase 21's (see start_mesh_fleets)
+    mesh_fleets = start_mesh_fleets(port)
+    try:
+        cache = slice22_phase(port, card_line, before_timing=lambda:
+                              mesh_fleets_ready(mesh_fleets))
+        parallel = slice23_phase(port, card_line)
+        mesh = slice24_phase(port, card_line, mesh_fleets)
+    finally:
+        stop_mesh_fleets(mesh_fleets)
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -10673,7 +11277,8 @@ def main(argv=None) -> int:
                               + scorer_rt["launches"][k]
                               + fleet["launches"][k]
                               + cache["launches"][k]
-                              + parallel["launches"][k]),
+                              + parallel["launches"][k]
+                              + mesh["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -10695,7 +11300,8 @@ def main(argv=None) -> int:
                                  + scorer_rt["launches"][k]
                                  + fleet["launches"][k]
                                  + cache["launches"][k]
-                                 + parallel["launches"][k]),
+                                 + parallel["launches"][k]
+                                 + mesh["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),
@@ -10711,7 +11317,8 @@ def main(argv=None) -> int:
     mt = p8_end["times"]["kernel"]["fit"]
     rows["arima_loglik_grad"] = dict(
         launches=(p8_end["launches"]["arima_loglik_grad"]
-                  + parallel["launches"]["arima_loglik_grad"]),
+                  + parallel["launches"]["arima_loglik_grad"]
+                  + mesh["launches"]["arima_loglik_grad"]),
         max_abs_err=max(c["max_abs_err"] for c in p8_end["cases"].values()),
         ms=mt["ms"], device_ms=mt["device_ms"], covered=mt["covered"],
         plain_ms=p8_end["times"]["twin_ms"],
@@ -10722,7 +11329,8 @@ def main(argv=None) -> int:
     fm, fc = p8_end["times"]["fit_kernel"]["fit"], p8_end["times"]["compared"]
     rows["arima_mle_fit"] = dict(
         launches=(p8_end["launches"]["arima_mle_fit"]
-                  + parallel["launches"]["arima_mle_fit"]),
+                  + parallel["launches"]["arima_mle_fit"]
+                  + mesh["launches"]["arima_mle_fit"]),
         max_abs_err=max(c["max_abs_err"]
                         for c in p8_end["fit_cases"].values()),
         ms=fm["ms"], device_ms=fm["device_ms"], covered=fm["covered"],

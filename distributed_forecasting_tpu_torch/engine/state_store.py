@@ -42,7 +42,8 @@ The reference's two failpoint sites (``monitoring/failpoints.py``) are
 here: ``state.swap`` between the store's commit and the forecaster's swap
 (the worst moment of an apply, which WAL replay must heal) and
 ``refit.install`` before a refit mutates anything.  The thread
-sanitizer's ``attach`` is not here (ROADMAP Queue 1: P13).
+sanitizer (``monitoring/sanitizer.py``, a no-op unless armed) guards
+the pending-points buffer with ``_lock``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 
 from distributed_forecasting_tpu_torch.models.base import get_model
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.ops.update import apply_update
@@ -160,6 +162,10 @@ class SeriesStateStore:
         # history_splice gathers days <= t_fit_end only)
         forecaster.time_bucket = self.time_bucket
         forecaster.swap_state(params=self._params, day1=self._day_cur)
+        # dftsan (no-op unless DFTPU_TSAN armed): the pending-points buffer
+        # every ingest / apply / stats path reads or mutates
+        sanitizer.attach(self, cls=SeriesStateStore, guards={
+            "_lock": ("_pending",)})
 
     # -- introspection -------------------------------------------------------
     @property

@@ -25,8 +25,9 @@ The time-sharded scans (``ops/pscan.affine_scan_time_sharded``,
 to the time axis: each rank passes its own ``T / D`` steps and gets back
 its own steps' outputs.
 
-``shard_forecast_inputs`` is not ported yet (ROADMAP Queue 1: P12, item
-1.6, with the replica whose predict spans ranks).
+``shard_forecast_inputs`` follows it for a predict's inputs: the serving
+rank of a replica's mesh holds them and every rank gets its block
+(``serving/predictor.py``, ``serving/replica.py``).
 """
 
 from distributed_forecasting_tpu_torch.parallel.mesh import (
@@ -36,6 +37,7 @@ from distributed_forecasting_tpu_torch.parallel.mesh import (
 from distributed_forecasting_tpu_torch.parallel.sharded import (
     global_metric_means,
     shard_batch,
+    shard_forecast_inputs,
     sharded_cv_metrics,
     sharded_fit_forecast,
 )
@@ -47,4 +49,5 @@ __all__ = [
     "sharded_fit_forecast",
     "sharded_cv_metrics",
     "global_metric_means",
+    "shard_forecast_inputs",
 ]

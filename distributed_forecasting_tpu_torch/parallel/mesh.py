@@ -9,7 +9,8 @@ same layout SPMD, one process (rank) per device, over ``torch.distributed``:
 
   * :func:`initialize_distributed` brings a rank into the process group
     from the reference's three conf keys (``tasks/common.py``'s
-    ``distributed:`` block calls it);
+    ``distributed:`` block calls it), or from a store the caller holds
+    (a replica's own ranks, ``serving/replica.py``);
   * :func:`make_mesh` returns a 1-D ``DeviceMesh`` named ``"series"`` over
     the group's ranks (bringing up a one-rank group itself when the
     process has none);
@@ -58,50 +59,70 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     device=None,
-) -> None:
-    """Multi-process bring-up from the ``distributed:`` conf block.
+    store=None,
+    timeout=None,
+) -> Optional[torch.device]:
+    """Multi-process bring-up from the ``distributed:`` conf block, or from
+    a store the caller holds.
 
     Wraps ``torch.distributed.init_process_group`` with the init method
     ``tcp://<coordinator_address>`` (``env://`` when no address is given),
-    ``world_size=num_processes`` and ``rank=process_id``.  A no-op for
-    ``num_processes`` of None, 0 or 1 (the common single-process case), and
-    idempotent: a workflow builds one task per node, each of which may
-    carry the same block.
+    or with ``store``, a ``torch.distributed.TCPStore`` the caller started
+    (a serving replica starts one on a free port for its own ranks, so two
+    replicas of one fleet never meet in a group), ``world_size=
+    num_processes`` and ``rank=process_id``; ``timeout`` bounds each
+    collective.  A no-op for ``num_processes`` of None, 0 or 1 (the common
+    single-process case), and idempotent: a workflow builds one task per
+    node, each of which may carry the same block.
 
     Each rank runs on ``cuda:<local rank % device_count>`` unless
     ``device="cpu"``; the local rank is ``LOCAL_RANK`` when a launcher sets
     it, else ``process_id``, and the ranks on this host are
     ``LOCAL_WORLD_SIZE``, else ``num_processes`` (set it on a multi-host
-    run).  The backend follows :func:`choose_backend`, and is logged.
+    run; with a ``store`` every rank is on this host and the environment
+    is not read).  So on one host rank ``r`` has ``cuda:r`` under NCCL, and with one
+    card every rank has ``cuda:0`` under gloo.  The backend follows
+    :func:`choose_backend`, and is logged.  Returns the rank's device (None
+    for the no-op).
     """
     global _DISTRIBUTED_UP, _RANK_DEVICE
     if num_processes in (None, 0, 1):
-        return
+        return None
     if _DISTRIBUTED_UP:
-        return
+        return _RANK_DEVICE
     import torch.distributed as dist
 
     dev = resolve_device(device)
     if dist.is_initialized():  # brought up outside this wrapper
         _DISTRIBUTED_UP, _RANK_DEVICE = True, dev
-        return
+        return dev
     world = int(num_processes)
     rank = -1 if process_id is None else int(process_id)
-    local_rank = int(os.environ.get("LOCAL_RANK", max(rank, 0)))
-    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if store is not None:  # the caller's own ranks, all on this host
+        local_rank, local_ranks = max(rank, 0), world
+    else:
+        local_rank = int(os.environ.get("LOCAL_RANK", max(rank, 0)))
+        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     count = torch.cuda.device_count() if dev.type == "cuda" else 0
     backend = choose_backend(dev.type, local_ranks, count)
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank % count)
         torch.cuda.set_device(dev)
-    init_method = (f"tcp://{coordinator_address}" if coordinator_address
-                   else "env://")
+    if store is not None:
+        how = {"store": store}
+    else:
+        how = {"init_method": (f"tcp://{coordinator_address}"
+                               if coordinator_address else "env://")}
     _logger.info("torch.distributed: rank %s of %d on %s, backend %s "
                  "(%d rank(s) on this host, %d card(s)), %s", process_id,
-                 world, dev, backend, local_ranks, count, init_method)
-    dist.init_process_group(backend=backend, init_method=init_method,
-                            world_size=world, rank=rank)
+                 world, dev, backend, local_ranks, count,
+                 how.get("init_method", "a store the caller holds"))
+    if timeout is not None:
+        how["timeout"] = timeout
+    dist.init_process_group(backend=backend, world_size=world, rank=rank,
+                            **how)
     _DISTRIBUTED_UP, _RANK_DEVICE = True, dev
+    return dev
 
 
 def _single_rank_group(dev: torch.device) -> None:

@@ -16,9 +16,9 @@ the stacked (sum, count) over healthy rows, in place of the reference's
 ``psum`` (which replaced the original system's mean of per-group metric
 frames).
 
-``shard_forecast_inputs`` (the serving predict over a mesh) is not ported:
-it waits for its consumer, a replica whose predict spans ranks (ROADMAP
-Queue 1: P12, item 1.6).
+:func:`shard_forecast_inputs` is the serving analogue of
+:func:`shard_batch`: the serving rank of a replica's mesh sends every rank
+its block of a predict's gathered inputs (``serving/predictor.py``).
 """
 
 from __future__ import annotations
@@ -82,6 +82,131 @@ def _shard_xreg(xreg: torch.Tensor, orig_S: int, mesh) -> torch.Tensor:
     if pad:
         xreg = torch.cat([xreg, xreg.new_zeros((pad,) + xreg.shape[1:])])
     return xreg[first:first + rows].to(dev)
+
+
+def _leaf_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bytes, flat, from a dense copy (a leaf may be a broadcast
+    view)."""
+    return x.detach().clone(memory_format=torch.contiguous_format) \
+        .reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(buf: torch.Tensor, shape, dtype: str) -> torch.Tensor:
+    """The tensor whose bytes :func:`_leaf_bytes` gave (copied, so its
+    storage starts aligned for ``dtype``)."""
+    return buf.clone().view(getattr(torch, dtype)).reshape(shape)
+
+
+def shard_forecast_inputs(params, day_all, scale, fc_kwargs, mesh,
+                          bucket):
+    """Send every rank of ``mesh`` its block of a bucket-ladder predict's
+    gathered inputs; returns this rank's ``(params, day_all, scale,
+    fc_kwargs)``.
+
+    The reference places the same inputs with ``NamedSharding``: every
+    leaf whose leading axis is the request ``bucket`` (already padded to a
+    mesh multiple by ``BatchForecaster._bucket``) shards on the series axis,
+    and the day grid, shared covariates and scalar or global leaves
+    replicate.  Here the serving rank (rank 0 of the mesh) holds them and
+    every rank calls this function (SPMD, ``parallel/__init__``): rank ``r`` gets rows
+    ``[r * bucket / D, (r + 1) * bucket / D)`` of the params' row leaves,
+    ``scale`` and a per-series (bucket, T_all, R) ``xreg``, and the rest
+    whole, even a shared (T_all, R) calendar whose ``T_all`` equals the
+    bucket (the reference's explicit ``xreg`` rule).  Forecasts are
+    per-series independent, so the family's single-device forecast on each
+    block gives the rows the single-device predict gives.
+
+    On the other ranks pass ``None`` for the four inputs and the bucket:
+    the shapes and dtypes come from rank 0 in one small header
+    (``broadcast_object_list``), then one ``scatter`` carries the row
+    blocks and one ``broadcast`` the replicated leaves, each as one byte
+    buffer on the rank's device.
+    """
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch.convert import (
+        params_class,
+        params_type_name,
+    )
+
+    group = mesh_group(mesh)
+    n, rank = mesh_size(mesh), mesh_rank(mesh)
+    dev = mesh_device(mesh)
+    root = dist.get_global_rank(group, 0)
+    if rank == 0:
+        if bucket % n:
+            raise ValueError(
+                f"request bucket {bucket} is not a multiple of the mesh size "
+                f"{n}; buckets must be padded to mesh multiples before "
+                f"sharding")
+        leaves = [("params", f.name, getattr(params, f.name))
+                  for f in dataclasses.fields(params)]
+        leaves.append(("day_all", "", day_all))
+        if scale is not None:
+            leaves.append(("scale", "", torch.as_tensor(scale)))
+        leaves += [("kw", k, torch.as_tensor(v))
+                   for k, v in (fc_kwargs or {}).items()]
+
+        def is_row(slot, name, x):
+            if slot == "scale":
+                return True
+            if slot == "day_all":
+                return False
+            if slot == "kw" and name == "xreg":
+                # explicit, not by shape: a shared (T_all, R) calendar
+                # with T_all == bucket still replicates
+                return x.dim() == 3
+            return x.dim() >= 1 and x.shape[0] == bucket
+
+        header = {"params_type": params_type_name(params), "bucket": bucket,
+                  "leaves": [(slot, name, tuple(x.shape),
+                              str(x.dtype).rpartition(".")[2],
+                              is_row(slot, name, x))
+                             for slot, name, x in leaves]}
+    else:
+        header = None
+    box = [header]
+    dist.broadcast_object_list(box, src=root, group=group)
+    header = box[0]
+    rows = header["bucket"] // n
+    specs = header["leaves"]
+    row_bytes = [int(torch.Size((rows,) + tuple(shape[1:])).numel())
+                 * getattr(torch, dtype).itemsize if row else 0
+                 for _, _, shape, dtype, row in specs]
+    rep_bytes = [int(torch.Size(shape).numel()) * getattr(torch, dtype).itemsize
+                 if not row else 0 for _, _, shape, dtype, row in specs]
+    row_buf = torch.empty(sum(row_bytes), dtype=torch.uint8, device=dev)
+    rep_buf = torch.empty(sum(rep_bytes), dtype=torch.uint8, device=dev)
+    if rank == 0:
+        blocks = [torch.cat([_leaf_bytes(x[r * rows:(r + 1) * rows])
+                             for (_, _, x), (*_, row) in zip(leaves, specs)
+                             if row] or [row_buf[:0]]).to(dev)
+                  for r in range(n)]
+        rep_buf = torch.cat([_leaf_bytes(x)
+                             for (_, _, x), (*_, row) in zip(leaves, specs)
+                             if not row] or [rep_buf]).to(dev)
+    if row_buf.numel():
+        dist.scatter(row_buf, blocks if rank == 0 else None, src=root,
+                     group=group)
+    if rep_buf.numel():
+        dist.broadcast(rep_buf, src=root, group=group)
+    out = {"params": {}, "kw": {}}
+    row_at = rep_at = 0
+    for (slot, name, shape, dtype, row), nr, nb in zip(specs, row_bytes,
+                                                        rep_bytes):
+        if row:
+            x = _from_bytes(row_buf[row_at:row_at + nr],
+                            (rows,) + tuple(shape[1:]), dtype)
+            row_at += nr
+        else:
+            x = _from_bytes(rep_buf[rep_at:rep_at + nb], shape, dtype)
+            rep_at += nb
+        if slot in out:
+            out[slot][name] = x
+        else:
+            out[slot] = x
+    params = params_class(header["params_type"])(**out["params"])
+    return params, out["day_all"], out.get("scale"), out["kw"]
 
 
 def sharded_fit_forecast(

@@ -41,8 +41,9 @@ context; the scheduler thread records each request's
 ``batcher.queue_wait`` on the trace clock (``expired=True`` for one that
 timed out queued) and opens ``batcher.dispatch`` under the first request's
 context, with every member's trace id and the chunk's device seconds from
-the cost registry's attribution scope.  The reference's thread-sanitizer
-hooks are not here (ROADMAP Queue 1: P13).
+the cost registry's attribution scope.  The thread sanitizer
+(``monitoring/sanitizer.py``, a no-op unless armed) guards the queue and the
+closed flag with ``_cond``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from typing import Optional
 
 import pandas as pd
 
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.monitoring.trace import clock as trace_clock
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
@@ -219,6 +221,11 @@ class RequestBatcher:
         self._queue: deque = deque()
         self._cond = threading.Condition()
         self._closed = False
+        # dftsan (no-op unless DFTPU_TSAN armed): before the scheduler
+        # thread starts, so producers and the scheduler share the wrapped
+        # condition
+        sanitizer.attach(self, cls=RequestBatcher, guards={
+            "_cond": ("_queue", "_closed")})
         self._thread = threading.Thread(
             target=self._run, name="dftpu-batcher", daemon=True)
         self._thread.start()

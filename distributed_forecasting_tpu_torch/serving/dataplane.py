@@ -24,7 +24,9 @@ front door.
   are handling a request.  Shutdown stops admission, lets queued requests
   finish and closes keep-alive connections after their current request.
 
-The thread sanitizer's ``attach`` calls are ROADMAP Queue 1: P13.
+The thread sanitizer (``monitoring/sanitizer.py``, a no-op unless armed)
+guards :class:`ConnectionPool`'s idle lists and closed flag with its
+``_lock``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import time
 from http.server import ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
 from distributed_forecasting_tpu_torch.utils.logging import get_logger
@@ -121,6 +124,10 @@ class ConnectionPool:
             "dftpu_http_pool_evicted_total",
             "pooled connections closed instead of reused (unhealthy "
             "release, idle expiry, overflow, breaker/drain purge)")
+        # dftsan (no-op unless DFTPU_TSAN armed): the idle lists every
+        # forward / probe / scatter leg checks out of concurrently
+        sanitizer.attach(self, cls=ConnectionPool, guards={
+            "_lock": ("_idle", "_closed")})
 
     def acquire(self, host: str, port: int, timeout: float):
         """Check out a connection to ``host:port`` -> ``(conn, reused)``.

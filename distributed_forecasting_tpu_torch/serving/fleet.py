@@ -26,7 +26,9 @@ restart, loads the library without ``nvcc``.
 Lock discipline: the supervisor takes its lock only to snapshot or update
 replica state; every blocking action — health probes, process spawn/wait,
 sleeps — happens OUTSIDE the critical section on the snapshot.  The
-thread sanitizer's ``attach`` calls are ROADMAP Queue 1: P13.
+thread sanitizer (``monitoring/sanitizer.py``, a no-op unless armed) guards
+the supervisor's replica table, round-robin cursor and shard assignments
+with ``_lock``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 from http.server import BaseHTTPRequestHandler
 from typing import Callable, List, Optional
 
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
@@ -90,9 +93,8 @@ class FleetConfig:
     proxy_timeout_s: float = 120.0    # per-attempt forward timeout
     retry_window_s: float = 10.0      # front-door budget to find a replica
     mesh_devices: int = 0             # >1: each replica shards predict over
-                                      # a device mesh of this size (the
-                                      # port's replica refuses it: P12's
-                                      # second half)
+                                      # a mesh of this many ranks (its own
+                                      # follower processes, replica.py)
 
     def __post_init__(self):
         if self.replicas < 1:
@@ -641,6 +643,10 @@ class FleetSupervisor:
             "dftpu_fleet_hedge_cancelled_total",
             "losing duplicate legs discarded after first-response-wins")
         self._g_total.set(config.replicas)
+        # dftsan (no-op unless DFTPU_TSAN armed): the routing tables, read
+        # and rewritten by the poll loop, the front door and resize
+        sanitizer.attach(self, cls=FleetSupervisor, guards={
+            "_lock": ("_replicas", "_rr", "_assignments")})
 
     # -- introspection (snapshot under lock, return plain data) -------------
     @property

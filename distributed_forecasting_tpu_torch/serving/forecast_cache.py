@@ -57,8 +57,8 @@ Telemetry: ``dftpu_cache_*`` counters (hits, misses by reason,
 invalidations, rebuilds, evictions, persist and load outcomes), entry-count
 and resident-bytes gauges, and an entry-age gauge the fleet aggregator
 max-merges.  Lookups, rebuilds, persists and loads are ``cache.*`` spans.
-The thread sanitizer's ``attach`` of the reference waits for
-``monitoring/sanitizer.py`` (ROADMAP Queue 1: P13).
+The thread sanitizer (``monitoring/sanitizer.py``, a no-op unless armed)
+guards the entry table and its byte accounting with ``_lock``.
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.monitoring.monitor import MetricsRegistry
 from distributed_forecasting_tpu_torch.monitoring.trace import get_tracer
@@ -267,6 +268,10 @@ class ForecastCache:
         # subscribe after the persisted adoption, so a boot-time WAL replay
         # (a replica replays before ready) invalidates adopted entries too
         forecaster.register_state_listener(self._on_state_install)
+        # dftsan (no-op unless DFTPU_TSAN armed): the entry table and byte
+        # accounting every lookup / install / invalidate touches
+        sanitizer.attach(self, cls=ForecastCache, guards={
+            "_lock": ("_entries", "_horizons", "_bytes")})
 
     # -- read path -----------------------------------------------------------
 

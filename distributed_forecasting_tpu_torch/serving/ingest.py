@@ -38,8 +38,9 @@ carries the reference's failpoints (``monitoring/failpoints.py``):
 ``wal.append.enospc`` before every write, both inside the write's ``try``
 so an injected ``OSError`` takes the cursor compensation a real ENOSPC
 takes; the follower read carries ``wal.read``
-(``monitoring/store.read_segments_from``).  The thread sanitizer's attach
-is ROADMAP Queue 1: P13.
+(``monitoring/store.read_segments_from``).  The thread sanitizer
+(``monitoring/sanitizer.py``, a no-op unless armed) guards the WAL's append
+cursor pair with its ``_lock``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from distributed_forecasting_tpu_torch.data.tensorize import period_ordinals
 from distributed_forecasting_tpu_torch.engine.state_store import (
     SeriesStateStore,
 )
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.failpoints import failpoint
 from distributed_forecasting_tpu_torch.monitoring.monitor import IngestMetrics
 from distributed_forecasting_tpu_torch.monitoring.store import (
@@ -155,6 +157,9 @@ class WriteAheadLog:
         self._lock = threading.Lock()  # segment-cursor bookkeeping ONLY
         self._seg = seg
         self._seg_bytes = seg_bytes
+        # dftsan (no-op unless DFTPU_TSAN armed): the append cursor pair
+        sanitizer.attach(self, cls=WriteAheadLog, guards={
+            "_lock": ("_seg", "_seg_bytes")})
 
     @staticmethod
     def _seal_torn_tail(path: str) -> int:

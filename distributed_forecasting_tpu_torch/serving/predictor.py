@@ -20,6 +20,31 @@ Each predict is a ``serving.predict`` / ``serving.predict_quantiles`` span
 the ``.cpu()`` pulls is its ``device_seconds``, charged with the bucket's
 padding rows to the cost registry (``monitoring/cost.py``).  Nothing
 synchronizes the device: the pulls wait on this stream's work only.
+
+**Mesh predict** (:meth:`BatchForecaster.enable_mesh`).  The reference's
+predict spans a mesh from one controller; here the serving rank (rank 0 of
+a replica's own ``torch.distributed`` group, ``serving/replica.py``) holds
+the forecaster and the other ranks run :func:`serve_mesh_followers`, holding
+no forecast state.  A dispatch takes one state snapshot, pads the request
+to a bucket that is a multiple of the mesh size, sends a small header
+(model, config, grid, trims), sends each rank its block of the gathered
+rows (``parallel.shard_forecast_inputs``), and every rank runs the family's
+single-device forecast on its block and applies the per-row time trims and
+interval scale (:func:`_block_outputs`, the single-device path's own);
+the serving rank all-gathers the kept rows and encodes them exactly as a
+single-device predict does, so the bodies are byte-equal.  Every
+dispatch's collectives run under ``_mesh_lock``: warmup, the coalescer, the
+forecast cache's writer thread and a refit's republish all predict, and
+the ranks must see one dispatch's messages at a time.  A block that raises
+(a malformed request raises on every rank) still takes part in the gather,
+flagged, so the ranks stay in step: the serving rank raises the error to
+the caller and the followers log it and serve on.  Only row-independent
+forecasters have a mesh predict: not one with Monte-Carlo intervals
+(``coalesce_safe`` False) and not the composites.
+
+The thread sanitizer (``monitoring/sanitizer.py``, a no-op unless armed)
+guards ``(params, day1)``, the state generation and the listener table with
+``_state_lock``, and records ``_mesh_lock``'s order.
 """
 
 from __future__ import annotations
@@ -42,8 +67,10 @@ from distributed_forecasting_tpu_torch.convert import (
 )
 from distributed_forecasting_tpu_torch.data.tensorize import ordinals_to_dates
 from distributed_forecasting_tpu_torch.engine.calibrate import apply_interval_scale
+from distributed_forecasting_tpu_torch.engine.compile_cache import aot_call
 from distributed_forecasting_tpu_torch.models import get_model
 from distributed_forecasting_tpu_torch.models.base import generator_kwargs
+from distributed_forecasting_tpu_torch.monitoring import sanitizer
 from distributed_forecasting_tpu_torch.monitoring.cost import cost_metrics
 from distributed_forecasting_tpu_torch.monitoring.trace import clock as trace_clock
 from distributed_forecasting_tpu_torch.monitoring.trace import (
@@ -112,6 +139,186 @@ def _bucket_ladder(sizes) -> tuple:
             ladder.append(3 * (b >> 1))
         b <<= 1
     return tuple(v for v in ladder if v <= top_bucket)
+
+
+def _mesh_size(mesh) -> int:
+    """Ranks along the mesh's series axis."""
+    from distributed_forecasting_tpu_torch.parallel.mesh import mesh_size
+
+    return int(mesh_size(mesh))
+
+
+def _kept_steps(header: dict) -> int:
+    """Time steps a dispatch's response keeps (after the grid's padding
+    rows and, without ``include_history``, the history are trimmed)."""
+    kept = min(header["n_real"], header["t_grid"])
+    return kept if header["include_history"] else header["horizon"]
+
+
+def _block_outputs(fns, header: dict, params, day_all, scale, fc_kwargs,
+                   gen_kwargs: dict) -> torch.Tensor:
+    """One dispatch's forecast of ``params``' rows with the per-row
+    finishing a response needs: the time-bucket padding trimmed, the
+    interval scale applied, the history trimmed.  Returns (rows, 3, T_keep)
+    (``yhat``, ``yhat_upper``, ``yhat_lower``) for a point predict, (rows,
+    Q, T_keep) for quantiles.  Every operation works row by row, so a block
+    of a bucket gives the bucket's rows bit for bit: the single-device
+    predict runs it on the whole bucket, each rank of a mesh on its block."""
+    n_real, t_end, config = header["n_real"], header["t_end"], header["config"]
+    horizon = header["horizon"]
+    if header["op"] == "predict":
+        yhat, lo, hi = aot_call(
+            header["entry"], fns.forecast, args=(params, day_all, t_end),
+            static_kwargs={"config": config},
+            dynamic_kwargs={**fc_kwargs, **gen_kwargs}, charge=False)
+        if n_real < int(day_all.shape[0]):
+            # the time-bucket padding rows go BEFORE the history trim, so
+            # [-horizon:] ends on the real last day
+            yhat, lo, hi = (yhat[:, :n_real], lo[:, :n_real],
+                            hi[:, :n_real])
+        yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
+                                            floor=fns.band_floor)
+        out = torch.stack([yhat, hi, lo], dim=1)
+    else:
+        priced, quantiles = header["priced"], header["quantiles"]
+        out = fns.forecast_quantiles(params, day_all, t_end, config, priced,
+                                     **fc_kwargs, **gen_kwargs)
+        # (rows, Q, T_all)
+        if n_real < int(day_all.shape[0]):
+            out = out[:, :, :n_real]
+        if scale is not None:
+            med = out[:, priced.index(0.5), :][:, None, :]
+            out = med + scale[:, None, None] * (out - med)
+            if fns.band_floor is not None:
+                # widening must not undo the family's clamp of the levels
+                out = torch.clamp_min(out, fns.band_floor)
+        if priced != quantiles:
+            out = out[:, [priced.index(q) for q in quantiles], :]
+    if not header["include_history"]:
+        out = out[:, :, -horizon:]
+    return out
+
+
+def _send_header(mesh, header: dict) -> dict:
+    """The serving rank's dispatch header to every rank of ``mesh`` (pass
+    ``None`` on the others); returns it on every rank."""
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch.parallel.mesh import mesh_group
+
+    group = mesh_group(mesh)
+    box = [header]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
+def _gather_blocks(mesh, fns, header: dict, params, day_all, scale,
+                   fc_kwargs, gen_kwargs: dict) -> tuple:
+    """One dispatch over ``mesh`` after its header (:func:`_send_header`),
+    run on every rank in the same order: the rank's block of the inputs,
+    the block's outputs, and one all-gather of every rank's kept rows in
+    rank order, each rank's rows followed by a flag that says whether its
+    forecast raised.  A rank whose forecast raises still takes part in the
+    gather (zeros of the agreed shape), so the ranks stay in step.
+
+    Returns ``(rows, fault, failed)``: the bucket's kept rows, this rank's
+    exception or None, and the ranks whose forecast raised.  An error of a
+    collective itself propagates: the ranks are then out of step."""
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        mesh_device,
+        mesh_group,
+    )
+    from distributed_forecasting_tpu_torch.parallel.sharded import (
+        shard_forecast_inputs,
+    )
+
+    params, day_all, scale, fc_kwargs = shard_forecast_inputs(
+        params, day_all, scale, fc_kwargs, mesh, header["bucket"])
+    fault = None
+    try:
+        block = _block_outputs(fns, header, params, day_all, scale,
+                               fc_kwargs, gen_kwargs)
+    except Exception as e:  # noqa: BLE001 — reported after the gather
+        fault = e
+        width = 3 if header["op"] == "predict" else len(header["quantiles"])
+        block = torch.zeros(
+            (header["bucket"] // _mesh_size(mesh), width,
+             _kept_steps(header)), dtype=torch.float32,
+            device=mesh_device(mesh))
+    flag = block.new_full((1,), float(fault is not None))
+    out = all_gather_rows(torch.cat([block.reshape(-1), flag]),
+                          mesh_group(mesh)).view(_mesh_size(mesh), -1)
+    failed = torch.nonzero(out[:, -1]).flatten().tolist()
+    rows = out[:, :-1].reshape((-1,) + tuple(block.shape[1:]))
+    return rows, fault, failed
+
+
+def _mesh_dispatch(mesh, fns, header: dict, params, day_all, scale,
+                   fc_kwargs, gen_kwargs: dict) -> torch.Tensor:
+    """The serving rank's side of :func:`_gather_blocks`: the bucket's kept
+    rows, or the error of its own block (the request's, as on one device),
+    or an error naming the follower ranks whose block raised."""
+    rows, fault, failed = _gather_blocks(mesh, fns, header, params, day_all,
+                                         scale, fc_kwargs, gen_kwargs)
+    if fault is not None:
+        raise fault
+    if failed:
+        raise RuntimeError(
+            f"mesh rank(s) {failed} raised on their block of this dispatch "
+            f"(see their log); the ranks stay in step")
+    return rows
+
+
+def serve_mesh_followers(mesh, report=None) -> int:
+    """A follower rank's loop (ranks 1 .. D - 1 of a replica's mesh): block
+    on the serving rank's next header, run the same family forecast on this
+    rank's block of the inputs, send the kept rows, and repeat until the
+    stop message (:meth:`BatchForecaster.stop_mesh`).  The rank holds no
+    forecast state: every dispatch's parameter rows come from the serving
+    rank's one snapshot.  A block that raises (a malformed request raises
+    on every rank) is logged and the loop goes on: the gather kept the
+    ranks in step, and the serving rank answers the request with the
+    error.  On the stop message every rank sends ``report()`` (this rank's
+    hand-kernel launch counts, for the replica's drain line) to every
+    other.  Returns the dispatches served, failed ones included."""
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        mesh_group,
+        mesh_rank,
+    )
+
+    served = 0
+    while True:
+        header = _send_header(mesh, None)
+        if header["op"] == "stop":
+            reports = [None] * dist.get_world_size(mesh_group(mesh))
+            dist.all_gather_object(reports, report() if report else {},
+                                   group=mesh_group(mesh))
+            return served
+        _, fault, _ = _gather_blocks(mesh, get_model(header["model"]),
+                                     header, None, None, None, None, {})
+        if fault is not None:
+            get_logger("BatchForecaster").error(
+                "mesh rank %d: its block of a %s dispatch (%s) raised %r; "
+                "serving on", mesh_rank(mesh), header["op"], header["entry"],
+                fault)
+        served += 1
+
+
+def mesh_refusal(forecaster) -> Optional[str]:
+    """Why ``forecaster`` has no mesh predict, or None when it has one: a
+    composite (ensemble, bucketed) reorders rows by member, and a forecaster
+    with Monte-Carlo intervals draws each series' paths beside the others'
+    (``coalesce_safe``)."""
+    if not isinstance(forecaster, BatchForecaster):
+        return "a composite: its members reorder the rows"
+    if not forecaster.coalesce_safe:
+        return ("Monte-Carlo intervals: a series' draws depend on the rows "
+                "beside it")
+    return None
 
 
 def result_block_index(out: pd.DataFrame, key_names) -> tuple:
@@ -197,6 +404,16 @@ class BatchForecaster:
         # of this many days and the padded rows are trimmed before they
         # are served; 1 is the exact grid
         self.time_bucket = 1
+        # the mesh every predict shards its series axis over (enable_mesh),
+        # or None; _mesh_lock holds one dispatch's collectives together
+        self._mesh = None
+        self._mesh_lock = threading.Lock()
+        # dftsan (no-op unless DFTPU_TSAN armed): the atomic state unit plus
+        # the generation counter and listener table swap_state mutates;
+        # the mesh lock's order is recorded
+        sanitizer.attach(self, cls=BatchForecaster, guards={
+            "_state_lock": ("params", "day1", "_state_gen",
+                            "_state_listeners")}, locks=("_mesh_lock",))
 
     @property
     def device(self) -> torch.device:
@@ -368,16 +585,109 @@ class BatchForecaster:
             for v in (getattr(params, f.name),)
         })
 
+    # -- mesh-parallel predict ------------------------------------------------
+    @property
+    def mesh(self):
+        """The mesh predict shards over, or None (single-device)."""
+        return self._mesh
+
+    def enable_mesh(self, mesh) -> None:
+        """Shard every predict's series axis over ``mesh``, from its rank 0
+        (the serving rank; ranks 1 .. D - 1 run :func:`serve_mesh_followers`).
+
+        Request buckets round up to mesh multiples (:meth:`_bucket`), and
+        each dispatch runs over the mesh (the module docstring).  The output
+        is byte-identical to the single-device predict: forecasts are
+        per-series independent, so the blocks change placement, not math.
+        Warmup goes through the same bucketing and the same dispatch.  A
+        forecaster with Monte-Carlo intervals is refused: its draws depend
+        on the rows drawn beside it (``coalesce_safe``)."""
+        from distributed_forecasting_tpu_torch.parallel.mesh import mesh_rank
+
+        refusal = mesh_refusal(self)
+        if refusal is not None:
+            raise ValueError(f"{self.model!r} has no mesh predict "
+                             f"({refusal}); serve it on one device")
+        if _mesh_size(mesh) < 1:
+            raise ValueError("mesh has no devices")
+        if mesh_rank(mesh) != 0:
+            raise ValueError(
+                "the serving rank is rank 0 of the mesh; the other ranks "
+                "run serve_mesh_followers")
+        self._mesh = mesh  # deploy-time toggle, flipped before traffic
+
+    def disable_mesh(self) -> None:
+        """Back to single-device predict (mesh-size-1 buckets).  The
+        followers keep waiting for the next header: end them with
+        :meth:`stop_mesh`."""
+        self._mesh = None  # deploy-time toggle
+
+    def stop_mesh(self) -> list:
+        """Send the followers the stop message (they return from
+        :func:`serve_mesh_followers`) and go back to single-device predict;
+        returns each follower rank's report, in rank order.  Waits for a
+        dispatch in flight to finish."""
+        import torch.distributed as dist
+
+        from distributed_forecasting_tpu_torch.parallel.mesh import mesh_group
+
+        with self._mesh_lock:
+            mesh, self._mesh = self._mesh, None
+            if mesh is None:
+                return []
+            _send_header(mesh, {"op": "stop"})
+            reports = [None] * dist.get_world_size(mesh_group(mesh))
+            dist.all_gather_object(reports, {}, group=mesh_group(mesh))
+        return reports[1:]
+
     def _bucket(self, k: int) -> int:
-        """Request-size bucket: next pow2x3 ladder value, capped at S."""
-        return max(min(_ladder_value(k), self.n_series), k)
+        """Request-size bucket: next pow2x3 ladder value, capped at S, then
+        (with a mesh) rounded up to a mesh multiple so every rank gets a
+        block of one size (the padding rows repeat the first series like
+        any other bucket padding)."""
+        bucket = max(min(_ladder_value(k), self.n_series), k)
+        mesh = self._mesh
+        if mesh is not None:
+            n = _mesh_size(mesh)
+            bucket = ((bucket + n - 1) // n) * n
+        return bucket
 
     def _aot_entry(self, kind: str) -> str:
         """The entry name of this forecaster's predict programs
-        (``<kind>:<model>``): the cost registry's row and the profiler
-        annotation.  The reference appends ``@mesh<n>`` for a sharded
-        predict; the port's predict is single-device (P12)."""
-        return f"{kind}:{self.model}"
+        (``<kind>:<model>``, ``@mesh<n>`` appended over a mesh): the cost
+        registry's row and the profiler annotation."""
+        entry = f"{kind}:{self.model}"
+        mesh = self._mesh
+        if mesh is not None:
+            entry += f"@mesh{_mesh_size(mesh)}"
+        return entry
+
+    def _dispatch(self, fns, header: dict, params, day_all, scale,
+                  fc_kwargs, gen_kwargs: dict) -> torch.Tensor:
+        """The bucket's kept outputs (:func:`_block_outputs`): on this
+        device, or over the mesh under ``_mesh_lock``."""
+        if self._mesh is None:
+            return _block_outputs(fns, header, params, day_all, scale,
+                                  fc_kwargs, gen_kwargs)
+        with self._mesh_lock:
+            mesh = self._mesh
+            if mesh is None:  # stopped meanwhile (the replica's drain)
+                return _block_outputs(fns, header, params, day_all, scale,
+                                      fc_kwargs, gen_kwargs)
+            return _mesh_dispatch(mesh, fns, _send_header(mesh, header),
+                                  params, day_all, scale, fc_kwargs,
+                                  gen_kwargs)
+
+    def _header(self, op: str, entry: str, bucket: int, day_all, t_end,
+                n_real: int, horizon: int, include_history: bool,
+                priced=None, quantiles=None) -> dict:
+        """What every rank needs to run its block of one dispatch."""
+        return {"op": op, "entry": entry, "model": self.model,
+                "config": self.config, "t_end": float(t_end),
+                "bucket": int(bucket), "n_real": int(n_real),
+                "t_grid": int(day_all.shape[0]), "horizon": int(horizon),
+                "include_history": bool(include_history),
+                "priced": priced, "quantiles": quantiles}
 
     def _charge(self, entry: str, span, t_disp: float, k: int) -> None:
         """Charge one dispatch: the host interval since ``t_disp`` as its
@@ -460,6 +770,13 @@ class BatchForecaster:
         return (sidx, self.gather_params(padded, params=params_snap),
                 day_all, fc_kwargs, scale, day1_snap, n_real)
 
+    @staticmethod
+    def _kept_days(day_all, header: dict):
+        """The day grid a dispatch's response keeps (:func:`_kept_steps`)."""
+        day_all = day_all[:header["n_real"]]
+        return day_all if header["include_history"] else \
+            day_all[-header["horizon"]:]
+
     def _frame_skeleton(self, sidx, day_all):
         """ds + key columns for a long result frame over ``day_all``."""
         T = day_all.shape[0]
@@ -506,49 +823,33 @@ class BatchForecaster:
             return pd.DataFrame(
                 columns=["ds", *self.key_names, "yhat", "yhat_upper", "yhat_lower"]
             )
-        from distributed_forecasting_tpu_torch.engine.compile_cache import (
-            aot_call,
-        )
-
         fns = get_model(self.model)
         k = int(sidx.size)
+        bucket = self._bucket(k)
         entry = self._aot_entry("serving_predict")
+        header = self._header("predict", entry, bucket, day_all, t_end,
+                              n_real, horizon, include_history)
         with get_tracer().span(
             "serving.predict", model=self.model, k=k,
-            bucket=self._bucket(k), horizon=int(horizon),
+            bucket=bucket, horizon=int(horizon),
         ) as span:
             # device-time attribution: the interval from dispatch through
-            # the .cpu() pulls below, on the span clock
+            # the .cpu() pull below, on the span clock
             t_disp = trace_clock()
             # the annotation marks this dispatch on a profiler capture's
             # timeline, named like the entry
             with device_annotation(entry):
-                yhat, lo, hi = aot_call(
-                    entry, fns.forecast,
-                    args=(params, day_all, float(t_end)),
-                    static_kwargs={"config": self.config},
-                    dynamic_kwargs={**fc_kwargs,
-                                    **generator_kwargs(fns, generator)},
-                    charge=False,
-                )
-            if n_real < int(day_all.shape[0]):
-                # the time-bucket padding rows go BEFORE the history trim,
-                # so [-horizon:] ends on the real last day
-                day_all = day_all[:n_real]
-                yhat, lo, hi = (yhat[:, :n_real], lo[:, :n_real],
-                                hi[:, :n_real])
-            yhat, lo, hi = apply_interval_scale(yhat, lo, hi, scale,
-                                                floor=fns.band_floor)
-            if not include_history:
-                day_all = day_all[-horizon:]
-                yhat, lo, hi = (yhat[:, -horizon:], lo[:, -horizon:],
-                                hi[:, -horizon:])
-            frame = self._frame_skeleton(sidx, day_all)
-            # the pulls are the host's wait: inside the span, so device
-            # time shows as serving.predict time
-            frame["yhat"] = yhat[:k].cpu().numpy().reshape(-1)
-            frame["yhat_upper"] = hi[:k].cpu().numpy().reshape(-1)
-            frame["yhat_lower"] = lo[:k].cpu().numpy().reshape(-1)
+                out = self._dispatch(fns, header, params, day_all, scale,
+                                     fc_kwargs,
+                                     generator_kwargs(fns, generator))
+            frame = self._frame_skeleton(sidx, self._kept_days(
+                day_all, header))
+            # the pull is the host's wait: inside the span, so device time
+            # shows as serving.predict time
+            out = out[:k].cpu().numpy()
+            frame["yhat"] = out[:, 0].reshape(-1)
+            frame["yhat_upper"] = out[:, 1].reshape(-1)
+            frame["yhat_lower"] = out[:, 2].reshape(-1)
             self._charge(entry, span, t_disp, k)
             return pd.DataFrame(frame)
 
@@ -573,41 +874,30 @@ class BatchForecaster:
         if sidx.size == 0:
             return pd.DataFrame(columns=["ds", *self.key_names, *qcols])
         k = int(sidx.size)
+        bucket = self._bucket(k)
         entry = self._aot_entry("serving_predict_quantiles")
+        # conformal scaling spreads every level around the median, so the
+        # median is priced alongside when calibration is on
+        priced = quantiles
+        if scale is not None and 0.5 not in priced:
+            priced = tuple(sorted((*priced, 0.5)))
+        header = self._header("quantiles", entry, bucket, day_all, t_end,
+                              n_real, horizon, include_history,
+                              priced=priced, quantiles=quantiles)
         with get_tracer().span(
             "serving.predict_quantiles", model=self.model, k=k,
-            bucket=self._bucket(k), horizon=int(horizon),
+            bucket=bucket, horizon=int(horizon),
             n_quantiles=len(quantiles),
         ) as span:
-            # conformal scaling spreads every level around the median, so
-            # the median is priced alongside when calibration is on
-            priced = quantiles
-            if scale is not None and 0.5 not in priced:
-                priced = tuple(sorted((*priced, 0.5)))
             t_disp = trace_clock()
             with device_annotation(entry):
-                yq = fns.forecast_quantiles(
-                    params, day_all, float(t_end), self.config, priced,
-                    **fc_kwargs, **generator_kwargs(fns, generator))
-            # (bucket, Q, T_all)
-            if n_real < int(day_all.shape[0]):
-                day_all = day_all[:n_real]
-                yq = yq[:, :, :n_real]
-            if scale is not None:
-                med = yq[:, priced.index(0.5), :][:, None, :]
-                yq = med + scale[:, None, None] * (yq - med)
-                if fns.band_floor is not None:
-                    # widening must not undo the family's clamp of the
-                    # levels
-                    yq = torch.clamp_min(yq, fns.band_floor)
-            if priced != quantiles:
-                yq = yq[:, [priced.index(q) for q in quantiles], :]
-            if not include_history:
-                day_all = day_all[-horizon:]
-                yq = yq[:, :, -horizon:]
+                yq = self._dispatch(fns, header, params, day_all, scale,
+                                    fc_kwargs,
+                                    generator_kwargs(fns, generator))
             yq = yq[:k].cpu().numpy()
             self._charge(entry, span, t_disp, k)
-            frame = self._frame_skeleton(sidx, day_all)
+            frame = self._frame_skeleton(sidx, self._kept_days(
+                day_all, header))
             for qi, col in enumerate(qcols):
                 frame[col] = yq[:, qi, :].reshape(-1)
             return pd.DataFrame(frame)

@@ -49,10 +49,29 @@ boot's seconds by stage.  SIGTERM drains gracefully: /readyz flips to
 503, queued requests finish, then the socket closes, and the drain line
 logs the launch count of every hand kernel in the process.
 
-Not here: ``mesh_devices > 1`` (a predict sharded over a device mesh
-needs follower ranks that receive every request from the serving rank,
-ROADMAP Queue 1: P12's second half, item 1.6) raises
-``NotImplementedError``.  The thread sanitizer's ``attach`` is P13.
+**A mesh of ranks** (``mesh_devices`` D > 1). The replica is rank 0, the
+serving rank, of a ``torch.distributed`` group of its own: it starts a
+``TCPStore`` on a free port (so two replicas of one fleet never meet in one
+group) and forks D - 1 follower processes before it touches CUDA
+(:class:`MeshRanks`), which bring up the card and the kernel library, join
+the group and run ``serving/predictor.serve_mesh_followers``: they hold no
+forecast state, and every predict's rows come from the serving rank's one
+snapshot (``BatchForecaster.enable_mesh``), so ingest, the WAL and refits
+stay on the serving rank. Rank ``r`` runs on ``cuda:r`` over NCCL where the
+host has a card for each rank, else over gloo on ``cuda:<r % cards>``
+(every rank on ``cuda:0`` with one card); on the CPU under
+``DFTPU_PLATFORM=cpu``
+(``parallel/mesh.initialize_distributed``). ``/readyz`` flips after the
+group is up and the warmup ladder has run through it. A follower that
+cannot load the library, cannot join, or dies takes the replica down with a
+nonzero exit (out of ``/readyz``; the supervisor's restart brings it back),
+and a follower dies with its replica (a parent-death signal, and its
+sockets into the group close). SIGTERM drains the queue first, then sends
+the followers the stop message and joins them; the drain line also carries
+each follower's hand-kernel launches. A composite artifact or a forecaster
+with Monte-Carlo intervals has no mesh predict (its rows are not
+independent): the replica serves it on one device with the reference's
+warning, and ends its followers before they join.
 """
 
 from __future__ import annotations
@@ -64,7 +83,16 @@ import signal
 import threading
 import time
 
-_PENDING = "ROADMAP Queue 1: P12, second half"
+# a follower's group timeout: it waits for the next request between
+# dispatches, so an idle replica must not time it out
+MESH_GROUP_TIMEOUT_S = 30 * 24 * 3600.0
+# the followers' boot (CUDA, the library, the rendezvous) before the
+# replica gives up on its group
+MESH_BOOT_TIMEOUT_S = 300.0
+# a drain's wait for the followers to leave after the stop message
+MESH_DRAIN_TIMEOUT_S = 10.0
+# the replica's exit code when a follower rank dies
+MESH_FOLLOWER_DIED = 75
 
 
 def _history(artifact_dir: str):
@@ -88,6 +116,272 @@ def _history(artifact_dir: str):
     return None, None
 
 
+class _Follower:
+    """A forked follower process: what the replica uses of ``Popen``."""
+
+    def __init__(self, pid: int):
+        self.pid, self.returncode = pid, None
+        self._lock = threading.Lock()
+
+    def poll(self):
+        with self._lock:
+            if self.returncode is None:
+                pid, status = os.waitpid(self.pid, os.WNOHANG)
+                if pid:
+                    self.returncode = os.waitstatus_to_exitcode(status)
+            return self.returncode
+
+    def wait(self, timeout: float) -> int:
+        deadline = time.monotonic() + timeout
+        while self.poll() is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"follower pid {self.pid} still runs")
+            time.sleep(0.02)
+        return self.returncode
+
+    def kill(self) -> None:
+        if self.poll() is None:
+            try:
+                os.kill(self.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+class MeshRanks:
+    """The serving rank's side of a replica's mesh: the follower processes,
+    their rendezvous store and a watcher thread.
+
+    The followers are forked before this process touches CUDA or starts a
+    thread (call it first; both are checked), so each starts with the
+    interpreter and the imports already loaded and brings up CUDA, the
+    library and its rank on its own while this rank loads the artifact.
+    Python's fork warning still shows: the imports' idle native pools
+    (numpy's BLAS threads) count as threads, and reset in the child through
+    their own at-fork handlers.  Each learns the port of the ``TCPStore``
+    this rank then starts on a free port through a pipe.  A follower that
+    exits before :meth:`drain` (a failed boot or a death) ends the replica
+    with :data:`MESH_FOLLOWER_DIED`, after its ``/readyz`` flips to 503
+    (the server, once :meth:`serving` names it)."""
+
+    def __init__(self, world: int, port: int, logger):
+        import datetime
+        import sys
+
+        import torch
+        import torch.distributed as dist
+
+        if torch.cuda.is_initialized():
+            raise RuntimeError(
+                "the mesh's followers fork before this process uses CUDA; "
+                "start MeshRanks first")
+        if threading.active_count() != 1:
+            # a fork copies only this thread: a lock another thread holds
+            # (a logging handler's, a tracer exporter's) stays held in the
+            # follower, which can then hang in its boot
+            raise RuntimeError(
+                f"the mesh's followers fork from a process with one Python "
+                f"thread; {threading.active_count()} are running "
+                f"({[t.name for t in threading.enumerate()]}): start "
+                f"MeshRanks before any thread")
+        self.world, self.logger = int(world), logger
+        self._server = None
+        self._up = threading.Event()
+        self._stop = threading.Event()
+        self.procs, pipes = [], []
+        sys.stdout.flush()
+        sys.stderr.flush()
+        parent = os.getpid()
+        for rank in range(1, self.world):
+            read, write = os.pipe()
+            pid = os.fork()
+            if pid == 0:  # the follower: never returns into the replica
+                code = 1
+                try:
+                    os.close(write)
+                    for fd in pipes:
+                        os.close(fd)
+                    code = follower_main({
+                        "world": self.world, "rank": rank, "parent": parent,
+                        "replica_port": int(port), "store_fd": read})
+                except BaseException:  # noqa: BLE001 — logged, exits nonzero
+                    logger.exception("follower rank %d failed", rank)
+                finally:
+                    os._exit(code)
+            os.close(read)
+            pipes.append(write)
+            self.procs.append(_Follower(pid))
+        self.store = dist.TCPStore(
+            "127.0.0.1", 0, world_size=self.world, is_master=True,
+            timeout=datetime.timedelta(seconds=MESH_BOOT_TIMEOUT_S),
+            wait_for_workers=False)
+        for fd in pipes:
+            os.write(fd, str(int(self.store.port)).encode())
+            os.close(fd)
+        self._t0 = time.monotonic()
+        self._watcher = threading.Thread(target=self._watch,
+                                         name="mesh-followers", daemon=True)
+        self._watcher.start()
+
+    @property
+    def pids(self) -> list:
+        return [p.pid for p in self.procs]
+
+    def join(self, device):
+        """Bring rank 0 into the group on ``device`` (blocks until every
+        follower has joined) and return the mesh."""
+        import datetime
+
+        from distributed_forecasting_tpu_torch.parallel.mesh import (
+            initialize_distributed,
+            make_mesh,
+        )
+
+        initialize_distributed(
+            num_processes=self.world, process_id=0, device=device,
+            store=self.store,
+            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+        mesh = make_mesh(self.world)
+        self._up.set()
+        return mesh
+
+    def serving(self, server) -> None:
+        """The server whose ``/readyz`` a follower's death flips first."""
+        self._server = server
+
+    def _watch(self) -> None:
+        while not self._stop.wait(0.2):
+            for rank, proc in enumerate(self.procs, start=1):
+                rc = proc.poll()
+                if rc is not None:
+                    self._fail(f"follower rank {rank} (pid {proc.pid}) "
+                               f"exited with {rc}")
+            if not self._up.is_set() and \
+                    time.monotonic() - self._t0 > MESH_BOOT_TIMEOUT_S:
+                self._fail(f"the mesh of {self.world} ranks was not up in "
+                           f"{MESH_BOOT_TIMEOUT_S:.0f} s")
+
+    def _fail(self, why: str) -> None:
+        """Leave /readyz, end the other followers and exit nonzero: the
+        ranks can no longer dispatch in step (the main thread may be
+        blocked inside a collective, so this exits from here)."""
+        import logging
+
+        if self._server is not None:
+            self._server.mark_unready()
+        self.logger.error("%s; the replica leaves /readyz and exits %d",
+                          why, MESH_FOLLOWER_DIED)
+        for proc in self.procs:
+            proc.kill()
+        logging.shutdown()
+        os._exit(MESH_FOLLOWER_DIED)
+
+    def drain_unjoined(self) -> None:
+        """End followers that will not be needed (a forecaster with no mesh
+        predict): they hold nothing, so they are killed before they join."""
+        self._stop.set()
+        self._watcher.join()
+        for proc in self.procs:
+            proc.kill()
+            proc.wait(MESH_DRAIN_TIMEOUT_S)
+
+    def drain(self, forecaster) -> list:
+        """After the server's drain: stop the watcher, send the followers
+        the stop message, join them within :data:`MESH_DRAIN_TIMEOUT_S`
+        (killing any left) and leave the group.  Returns each follower's
+        hand-kernel launch counts, in rank order."""
+        import torch.distributed as dist
+
+        self._stop.set()
+        self._watcher.join()
+        reports = forecaster.stop_mesh()
+        deadline = time.monotonic() + MESH_DRAIN_TIMEOUT_S
+        for proc in self.procs:
+            try:
+                proc.wait(max(deadline - time.monotonic(), 0.1))
+            except TimeoutError:
+                self.logger.error("follower pid %d outlived the drain; "
+                                  "killed", proc.pid)
+                proc.kill()
+                proc.wait(MESH_DRAIN_TIMEOUT_S)
+        dist.destroy_process_group()
+        return reports
+
+
+def _die_with_parent(parent: int) -> None:
+    """SIGKILL this process when its parent (the replica) dies: Linux's
+    parent-death signal, set before anything else, then a check that the
+    parent did not die first."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(1, int(signal.SIGKILL)) != 0:  # PR_SET_PDEATHSIG
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != parent:
+        os._exit(MESH_FOLLOWER_DIED)
+
+
+def follower_main(plan: dict) -> int:
+    """A follower rank of a replica's mesh, forked by :class:`MeshRanks`:
+    bring up CUDA and the kernel library on the card, read the store's port
+    from the replica, join its group, serve dispatches until the stop
+    message, then log the drain line with this process's hand-kernel
+    launches.  It ignores SIGINT and SIGTERM: its lifetime is its
+    replica's (the stop message, or the parent-death signal)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from distributed_forecasting_tpu_torch.engine.compile_cache import (
+        enable_from_env,
+    )
+    from distributed_forecasting_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+    from distributed_forecasting_tpu_torch.serving.predictor import (
+        serve_mesh_followers,
+    )
+    from distributed_forecasting_tpu_torch.utils.device import (
+        platform_device,
+        resolve_device,
+    )
+    from distributed_forecasting_tpu_torch.utils.logging import get_logger
+
+    _die_with_parent(int(plan["parent"]))
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    rank, world = int(plan["rank"]), int(plan["world"])
+    logger = get_logger("fleet-replica-follower")
+    t0 = time.perf_counter()
+    device = resolve_device(platform_device())
+    enable_from_env()
+    if device.type == "cuda":
+        from distributed_forecasting_tpu_torch.ops import _build
+
+        _build.library()
+    got = os.read(int(plan["store_fd"]), 32)
+    os.close(int(plan["store_fd"]))
+    if not got:  # the replica failed before it started the store
+        return MESH_FOLLOWER_DIED
+    store = dist.TCPStore(
+        "127.0.0.1", int(got), world_size=world, is_master=False,
+        timeout=datetime.timedelta(seconds=MESH_BOOT_TIMEOUT_S))
+    dev = initialize_distributed(
+        num_processes=world, process_id=rank, device=device, store=store,
+        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    mesh = make_mesh(world)
+    logger.info("follower rank %d of %d of the replica on port %d ready on "
+                "%s in %.3fs", rank, world, int(plan["replica_port"]), dev,
+                time.perf_counter() - t0)
+    served = serve_mesh_followers(mesh, report=_launches)
+    dist.destroy_process_group()
+    logger.info("follower rank %d of the replica on port %d drained after "
+                "%d dispatch(es); hand-kernel launches in this process: %s",
+                rank, int(plan["replica_port"]), served,
+                json.dumps(_launches()))
+    return 0
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--conf", required=True,
@@ -95,12 +389,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     conf = json.loads(args.conf)
     t_boot = time.perf_counter()
-
-    if int(conf.get("mesh_devices") or 0) > 1:
-        raise NotImplementedError(
-            f"mesh_devices={conf['mesh_devices']}: a replica's predict "
-            f"sharded over a device mesh needs follower ranks fed by the "
-            f"serving rank ({_PENDING}, item 1.6)")
 
     from distributed_forecasting_tpu_torch.engine.compile_cache import (
         cache_stats,
@@ -124,6 +412,9 @@ def main(argv=None) -> None:
     from distributed_forecasting_tpu_torch.serving.loader import (
         load_forecaster,
     )
+    from distributed_forecasting_tpu_torch.serving.predictor import (
+        mesh_refusal,
+    )
     from distributed_forecasting_tpu_torch.serving.server import start_server
     from distributed_forecasting_tpu_torch.utils.device import (
         platform_device,
@@ -139,6 +430,11 @@ def main(argv=None) -> None:
     http = HttpConfig.from_conf(conf.get("http"))
     CacheConfig.from_conf(conf.get("cache"))
 
+    mesh_devices = int(conf.get("mesh_devices") or 0)
+    # the followers fork before this process touches CUDA and bring up
+    # their card and library while this rank loads
+    ranks = (MeshRanks(mesh_devices, port, logger)
+             if mesh_devices > 1 else None)
     device = resolve_device(platform_device())  # the card unless asked
     stages = {}
     enable_from_env()  # DFTPU_COMPILE_CACHE: the store all replicas share
@@ -203,6 +499,23 @@ def main(argv=None) -> None:
             logger.warning(
                 "%s cannot subset to a shard assignment; serving the "
                 "full series set", type(forecaster).__name__)
+
+    if ranks is not None:
+        refusal = mesh_refusal(forecaster)
+        if refusal is not None:
+            # the reference's behaviour for composites, and the port's for
+            # Monte-Carlo intervals too: rows that are not independent
+            logger.warning("%s has no mesh-parallel predict (%s); serving "
+                           "single-device", type(forecaster).__name__,
+                           refusal)
+            ranks.drain_unjoined()
+            ranks = None
+        else:
+            t0 = time.perf_counter()
+            forecaster.enable_mesh(ranks.join(device))
+            stages["mesh"] = time.perf_counter() - t0
+            logger.info("mesh-parallel predict over %d rank(s): follower "
+                        "pid(s) %s", mesh_devices, ranks.pids)
 
     mon_conf = conf.get("monitoring")
     quality = None
@@ -314,6 +627,8 @@ def main(argv=None) -> None:
         cache=cache,
         http=http,
     )
+    if ranks is not None:
+        ranks.serving(srv)
     sizes = conf.get("warmup_sizes")
     if sizes:
         t0 = time.perf_counter()
@@ -352,8 +667,10 @@ def main(argv=None) -> None:
     logger.info("draining replica on port %d", port)
     srv.shutdown()  # /readyz -> 503, batcher drains, accept loop stops
     srv.server_close()
+    followers = [] if ranks is None else ranks.drain(forecaster)
     logger.info("replica on port %d drained; hand-kernel launches in this "
-                "process: %s", port, json.dumps(_launches()))
+                "process: %s; in its follower ranks: %s", port,
+                json.dumps(_launches()), json.dumps(followers))
 
 
 def _launches() -> dict:

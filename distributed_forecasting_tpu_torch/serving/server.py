@@ -797,6 +797,10 @@ class ForecastServer(PooledHTTPServer):
         """Flip /readyz to 200 — called by the launcher after warmup."""
         self._ready.set()
 
+    def mark_unready(self) -> None:
+        """Flip /readyz back to 503 (a replica whose mesh lost a rank)."""
+        self._ready.clear()
+
     def readiness(self):
         """(ready, reason) for /readyz: warmup done and batcher accepting."""
         if not self._ready.is_set():

@@ -29,8 +29,9 @@ reads, plus::
         drain_timeout_s: 10      # SIGTERM -> SIGKILL grace on drain
         proxy_timeout_s: 120     # per-attempt forward timeout
         retry_window_s: 10       # front-door budget to find a ready replica
-        mesh_devices: 0          # >1 is refused by the replica (P12's
-                                 # second half)
+        mesh_devices: 0          # >1: each replica is rank 0 of a mesh
+                                 # of this many ranks (follower processes
+                                 # it spawns, serving/replica.py)
       sharding:                  # series partition (serving/sharding.py)
         enabled: false
         num_shards: 8            # fixed key->shard partition count

@@ -1835,3 +1835,91 @@ def test_one_rank_nccl_sharded_fit_is_the_unsharded_fit(dev):
     _, want = engine.fit_forecast(b, "holt_winters")
     for k in ("yhat", "lo", "hi", "ok"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def _mesh_serving_rank(out) -> None:
+    """The serving rank of a two-rank mesh, in a fresh process (its
+    follower forks before CUDA starts here): fits, predicts on one device
+    and over the mesh, and puts ``(mismatches, follower report)`` or the
+    error on ``out``."""
+    import logging
+    import os
+    import traceback
+
+    try:
+        import numpy as np
+        import pandas as pd
+        import torch.distributed as dist
+
+        from distributed_forecasting_tpu_torch import data, engine
+        from distributed_forecasting_tpu_torch.models import get_model
+        from distributed_forecasting_tpu_torch.ops import _build
+        from distributed_forecasting_tpu_torch.serving import BatchForecaster
+        from distributed_forecasting_tpu_torch.serving.replica import (
+            MeshRanks,
+        )
+
+        ranks = MeshRanks(2, 0, logging.getLogger("mesh-test"))
+        dev = torch.device("cuda")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        csv = os.path.join(root, "datasets", "store_item_demand.csv.gz")
+        b = data.tensorize(data.load_sales_csv(csv), device=dev)
+        _build.library()
+        fcs = {}
+        for model in ("arima", "holt_winters"):
+            params, _ = engine.fit_forecast(b, model, horizon=28)
+            fcs[model] = BatchForecaster.from_fit(
+                b, params, model, get_model(model).config_cls())
+        calls = {f"{k}": (lambda fc, r: fc.predict(r, horizon=28))
+                 for k in (1, 17, 500)}
+        calls["500q"] = lambda fc, r: fc.predict_quantiles(
+            r, quantiles=(0.1, 0.5, 0.9), horizon=28)
+        keys = np.asarray(b.keys)[::-1]
+
+        def run(fc):
+            return {name: call(fc, pd.DataFrame(
+                keys[:int(name.rstrip("q"))], columns=list(b.key_names)))
+                for name, call in calls.items()}
+
+        want = {model: run(fc) for model, fc in fcs.items()}
+        mesh = ranks.join(dev)
+        assert dist.get_backend() == "gloo"
+        got = {}
+        for model, fc in fcs.items():
+            fc.enable_mesh(mesh)
+            got[model] = run(fc)
+            fc.disable_mesh()
+        fcs["arima"].enable_mesh(mesh)
+        (report,) = ranks.drain(fcs["arima"])
+        bad = [(model, name, col) for model in fcs for name in calls
+               for col in want[model][name].columns
+               if got[model][name].columns.tolist()
+               != want[model][name].columns.tolist()
+               or got[model][name][col].to_numpy().tobytes()
+               != want[model][name][col].to_numpy().tobytes()]
+        out.put((bad, report, len(calls)))
+    except BaseException:  # noqa: BLE001 — the parent fails with it
+        out.put(traceback.format_exc())
+
+
+def test_a_two_rank_mesh_predict_on_one_card_is_byte_equal(dev):
+    """A replica's mesh on the card: a fresh process is the serving rank
+    and ``serving/replica.MeshRanks`` forks one follower, both on cuda:0
+    over gloo (one card).  Arima and Holt-Winters artifacts of the
+    committed dataset: predict at 1, 17 and 500 series and
+    predict_quantiles at 500, byte-equal to the single-device predict;
+    the follower launched ``arima_predict`` for its blocks (its drain
+    report)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_mesh_serving_rank, args=(out,))
+    proc.start()
+    result = out.get(timeout=600)
+    proc.join(60)
+    assert not isinstance(result, str), result
+    bad, report, n_calls = result
+    assert bad == [], bad
+    assert report["arima_predict"] >= n_calls, report
+    assert proc.exitcode == 0

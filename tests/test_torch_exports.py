@@ -29,9 +29,8 @@ PACKAGES = ["analysis", "data", "engine", "models", "monitoring", "ops",
 PENDING_PACKAGES = {"analysis": "P13"}
 
 # names of a reference __all__ the port does not export yet, by package and
-# label (ROADMAP Queue 1): the serving predict over a mesh waits for the
-# replica whose predict spans ranks (P12, item 1.6)
-PENDING = {"parallel": {"P12": ["shard_forecast_inputs"]}}
+# label (ROADMAP Queue 1): none outside the pending packages
+PENDING = {}
 
 
 def reference_all(package: str):

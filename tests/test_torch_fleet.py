@@ -16,7 +16,10 @@ Prometheus aggregation, and one fleet of real replica processes.
   days), sharded: both replicas become ready, front-door ``/invocations``
   bodies at 1 and 8 series are byte-equal to a single in-process scorer's
   on the same artifact, the replicas' ``/metrics`` carry the shard
-  gauges, and a drain stops both children.
+  gauges, and a drain stops both children.  Another boots one replica at
+  ``mesh_devices: 2`` (a follower rank) beside one at ``mesh_devices: 0``:
+  byte-equal bodies, a follower's death restarts its replica, and the
+  drain leaves no follower alive.
 """
 
 import ast
@@ -645,17 +648,132 @@ def test_a_replica_without_a_card_raises_and_never_serves(tmp_path):
     assert "no CUDA device is visible" in proc.stderr
 
 
+def _children(pid: int) -> list:
+    """Pids of ``pid``'s child processes (read from /proc): a replica's are
+    its forked followers."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rpartition(")")[2].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid:
+            out.append(int(d))
+    return out
+
+
+def _alive(pid: int) -> bool:
+    """The pid runs and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def test_a_mesh_replica_serves_byte_equal_bodies_restarts_and_drains(
+        tmp_path):
+    """A fleet of one replica at ``mesh_devices: 2`` under
+    ``DFTPU_PLATFORM=cpu`` (a serving rank and one follower process over
+    gloo) beside the same fleet at ``mesh_devices: 0``: point and quantile
+    bodies at 1 and 8 series are byte-equal; a SIGKILLed follower takes
+    its replica out of /readyz with a nonzero exit and the supervisor's
+    restart brings it back serving the same bytes; a SIGKILLed replica's
+    follower ends on its own; the drain leaves no follower alive."""
+    import signal
+
+    batch, fc = _tiny_hw()
+    art = str(tmp_path / "forecaster")
+    fc.save(art)
+    env = {"DFTPU_PLATFORM": "cpu",
+           "DFTPU_COMPILE_CACHE": str(tmp_path / "cc")}
+    conf = {"warmup_sizes": [1, 8], "warmup_horizon": 5}
+    fleets = {}
+    for mesh in (2, 0):
+        cfg = FleetConfig(enabled=True, replicas=1, mesh_devices=mesh,
+                          health_poll_interval_s=0.1, restart_backoff_s=0.2,
+                          ready_timeout_s=180.0, drain_timeout_s=30.0,
+                          retry_window_s=30.0)
+        fleets[mesh] = start_fleet(cfg, artifact_dir=art, serving_conf=conf,
+                                   env_extra=env, wait=False)
+    keys = [{n: int(v) for n, v in zip(fc.key_names, k)} for k in fc.keys]
+    payloads = [{"inputs": keys[:1], "horizon": 5},
+                {"inputs": keys[::-1], "horizon": 5},
+                {"inputs": keys[::-1], "horizon": 5,
+                 "quantiles": [0.1, 0.5, 0.9]}]
+
+    def bodies(mesh):
+        port = fleets[mesh][1].server_address[1]
+        out = []
+        for p in payloads:
+            status, _, body = _post(port, "/invocations", p)
+            assert status == 200, body[:300]
+            out.append(body)
+        return out
+
+    def replica_proc(sup):
+        with sup._lock:
+            return sup._replicas[0].proc
+
+    try:
+        for mesh, (sup, _) in fleets.items():
+            assert sup.wait_ready(min_ready=1, timeout=180.0), (
+                mesh, sup.describe())
+        want = bodies(0)
+        assert bodies(2) == want
+        sup = fleets[2][0]
+        proc = replica_proc(sup)
+        (follower,) = _children(proc.pid)
+        os.kill(follower, signal.SIGKILL)
+        assert proc.wait(60) == 75  # the replica's "a follower died" exit
+
+        def restarted(n):
+            deadline = time.monotonic() + 180.0
+            while not (sup.describe()[0]["restarts"] >= n
+                       and sup.ready_count() == 1):
+                assert time.monotonic() < deadline, sup.describe()
+                time.sleep(0.1)
+            return replica_proc(sup)
+
+        second = restarted(1)
+        assert second is not proc and bodies(2) == want
+        (second_follower,) = _children(second.pid)
+        # the replica SIGKILLed: its follower ends on its own (the
+        # parent-death signal), and the supervisor restarts the replica
+        os.kill(second.pid, signal.SIGKILL)
+        deadline = time.monotonic() + 30.0
+        while _alive(second_follower) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not _alive(second_follower)
+        third = restarted(2)
+        assert bodies(2) == want
+        (third_follower,) = _children(third.pid)
+    finally:
+        for sup, front in fleets.values():
+            front.shutdown()
+            sup.stop()
+    assert third.returncode == 0  # drained
+    deadline = time.monotonic() + 30.0
+    while _alive(third_follower) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert not any(_alive(p) for p in (follower, second_follower,
+                                       third_follower))
+
+
 @pytest.mark.parametrize("conf, error, match", [
-    ({"mesh_devices": 4}, NotImplementedError, "P12, second half"),
     ({"cache": {"enabled": True}}, FileNotFoundError, "forecaster.json"),
     ({"batching": {"max_batchsize": 3}}, ValueError,
      "unknown batching conf key"),
-], ids=["mesh", "cache", "typo"])
+], ids=["cache", "typo"])
 def test_a_replica_refuses_what_the_port_lacks(tmp_path, monkeypatch, conf,
                                                error, match):
-    """``mesh_devices > 1`` waits for ``parallel/*`` and a conf typo fails
-    at the parse.  An enabled ``cache`` block is ported: it parses, and the
-    replica goes on to the model load (an empty directory here)."""
+    """A conf typo fails at the parse.  An enabled ``cache`` block is
+    ported: it parses, and the replica goes on to the model load (an empty
+    directory here).  ``mesh_devices > 1`` is ported too
+    (``test_a_mesh_replica_serves_byte_equal_bodies_restarts_and_drains``)."""
     from distributed_forecasting_tpu_torch.serving import replica
 
     monkeypatch.setenv("DFTPU_PLATFORM", "cpu")

@@ -604,6 +604,29 @@ def test_initialize_distributed_plumbing(no_group):
                          "world_size": 4, "rank": 2}]
 
 
+def test_initialize_distributed_from_a_store(no_group, monkeypatch):
+    """A store the caller holds (a replica's own ranks) is forwarded in
+    place of an init method, with the timeout; every rank is on this host,
+    so a launcher's ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` are not read."""
+    import datetime
+
+    from distributed_forecasting_tpu_torch.parallel import (
+        initialize_distributed,
+    )
+
+    monkeypatch.setenv("LOCAL_RANK", "5")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    store, timeout = object(), datetime.timedelta(seconds=7)
+    dev = initialize_distributed(num_processes=3, process_id=1,
+                                 device="cpu", store=store, timeout=timeout)
+    assert dev == torch.device("cpu")
+    assert no_group == [{"backend": "gloo", "store": store, "timeout": timeout,
+                         "world_size": 3, "rank": 1}]
+    assert initialize_distributed(num_processes=3, process_id=1,
+                                  device="cpu", store=store) == dev
+    assert len(no_group) == 1
+
+
 @pytest.mark.parametrize("device_type, local_ranks, cards, backend", [
     ("cpu", 3, 0, "gloo"),
     ("cpu", 1, 8, "gloo"),
