@@ -593,6 +593,35 @@ is not 0:
               a SIGTERM drains it, and no pid of any replica or follower
               of the phase is left.  Both ranks' launches come from the
               drain lines (arima_predict on each rank of the arima mesh)
+ 24. tsan     the thread sanitizer armed on the card, and the Prophet MAP
+              oracle (``slice25_phase``).  (a) Two processes armed as the
+              reference's ``make tsan`` arms its tests (``TSAN_ENV``:
+              ``DFTPU_TSAN=1``, a report directory, the ``sanitizer.yield``
+              failpoint at 5% with seed 42), booted beside phase 21's
+              fleets (``main`` starts them with ``start_tsan``) on phase
+              23's artifacts and the shipped serve conf: a fleet of two
+              replicas (8 shards x replication 2) serving the Holt-Winters
+              artifact with ingest, a backlog refit, the coalescer and the
+              cache on, and a single scorer (``TSAN_SCORER_CHILD``) of the
+              arima artifact with the coalescer and the cache on.  Their
+              bodies at 1, 17 and 500 series are byte-equal to disarmed
+              scorers' in this process on the same artifacts, before and
+              after the drive: ``TSAN_CLIENTS`` threads for
+              ``TSAN_DRIVE_S`` seconds of /invocations at 1, 17 and 500
+              series and /metrics scrapes, one /ingest of 500 points
+              (to the disarmed Holt-Winters scorer too) whose backlog forces
+              a refit in both replicas (hw_score, hw_filter); the scorer
+              launches arima_predict.  SIGTERM ends every armed process,
+              each writing its report at exit; the port's dftsan CLI in a
+              child joins them with the static lock model and must exit 0
+              with no unsuppressed error, and every one of the seven
+              ``sanitizer.attach`` classes must appear in the reports.
+              (b) ``models/prophet_map.cv_mape`` (float64 numpy / scipy)
+              over the first 50 series in a child started with (a)'s
+              processes, against the curve model's CV on the card over
+              the same series: ``scripts/prophet_parity.compare``'s summary
+              keys (``oracle_mape``, never ``prophet_mape``); a non-finite
+              oracle result fails the phase
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
@@ -612,7 +641,8 @@ artifact predict, phase 18's train tasks and ``run_many``, and phase
 replicas logged at their drain, and phase 21's fits, dispatches,
 rebuilds and forced refit, phase 22's sharded path and its two
 ranks' launches, and phase 23's fits, single scorer and every rank's
-drained launches; the arima rows add phase 17's kernel times at the
+drained launches, and phase 24's disarmed scorers and armed processes'
+launches; the arima rows add phase 17's kernel times at the
 window's shapes);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
@@ -8696,11 +8726,13 @@ class FleetProcess:
     started, polled through the front door, drained with SIGTERM, and the
     whole process group killed whatever happens in between."""
 
-    def __init__(self, conf_path: str, number: int, log_path: str):
+    def __init__(self, conf_path: str, number: int, log_path: str,
+                 env: dict = None):
         self.conf_path, self.port, self.log_path = conf_path, number, log_path
+        self.env = env or {}  # added to the task's (and its replicas')
 
     def __enter__(self):
-        env = dict(os.environ)
+        env = dict(os.environ, **self.env)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (ROOT, env.get("PYTHONPATH")) if p)
         env["DFTPU_PLATFORM"] = "cpu" if DEVICE == "cpu" else "cuda"
@@ -10807,6 +10839,552 @@ def slice24_phase(port, card_line: str, started: dict = None) -> dict:
     emit("phase23", card=card_line, seconds=out["seconds"], parts=seconds)
     return out
 
+# -- phase 24: the sanitizer armed on the card; the Prophet MAP oracle -------
+
+# the reference's `make tsan` settings: armed at import, a report a process
+# at exit, every instrumented acquire and release a 5% chance of a 1 ms
+# sleep from a seeded draw
+TSAN_ENV = {"DFTPU_TSAN": "1",
+            "DFTPU_FAILPOINTS": "sanitizer.yield=sleep 1:0.05",
+            "DFTPU_FAILPOINTS_SEED": "42"}
+TSAN_SIZES = (1, 17, 500)
+TSAN_HORIZON = 28
+TSAN_CLIENTS = 8          # client threads of (a)'s drive
+TSAN_DRIVE_S = 10.0       # seconds of (a)'s drive
+TSAN_POINTS = 500         # one /ingest, the backlog that forces the refit
+TSAN_SCRAPE_EVERY = 5     # a client's /metrics scrape every n requests
+# the classes that call sanitizer.attach: every one must show in the reports
+TSAN_CLASSES = ("SeriesStateStore", "ForecastCache", "ConnectionPool",
+                "WriteAheadLog", "RequestBatcher", "BatchForecaster",
+                "FleetSupervisor")
+TSAN_REPORTS = 4          # the fleet task, its two replicas, the scorer
+ORACLE_SERIES = 50        # scripts/prophet_parity.py --real's default
+
+TSAN_SCORER_CHILD = r"""
+import json, signal, sys, threading
+from distributed_forecasting_tpu_torch.ops import fused_scan, kalman
+from distributed_forecasting_tpu_torch.serving import server
+from distributed_forecasting_tpu_torch.tasks import serve
+with open(sys.argv[1]) as f:
+    conf = json.load(f)
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+srv = server.start_server(**serve.ServeTask(
+    init_conf=conf, device=sys.argv[2]).server_args())
+stop.wait()
+srv.shutdown()
+srv.server_close()
+print(json.dumps({k: getattr(m, k).launches for m, ks in (
+    (fused_scan, ("hw_score", "hw_filter")),
+    (kalman, ("arima_filter", "arima_predict", "arima_loglik_grad",
+              "arima_mle_fit"))) for k in ks}), flush=True)
+"""
+
+ORACLE_CHILD = r"""
+import json, sys, time
+import numpy as np
+import pandas as pd
+from distributed_forecasting_tpu_torch.data.dataset import load_sales_csv
+from distributed_forecasting_tpu_torch.models import prophet_map as pm
+df = load_sales_csv(sys.argv[1])
+keys = df[["store", "item"]].drop_duplicates().sort_values(
+    ["store", "item"]).head(int(sys.argv[2]))
+out = []
+t0 = time.perf_counter()
+for store, item in keys.itertuples(index=False):
+    sub = df[(df["store"] == store) & (df["item"] == item)]
+    day = (pd.to_datetime(sub["date"]) - pd.Timestamp("1970-01-01")
+           ).dt.days.to_numpy(np.float64)
+    try:
+        mape = pm.cv_mape(day, sub["sales"].to_numpy(np.float64))
+    except Exception as e:  # recorded: a non-finite result fails the phase
+        print(f"oracle failed on ({store}, {item}): {e!r}", file=sys.stderr)
+        mape = float("nan")
+    out.append({"key": [int(store), int(item)], "mape": mape})
+print(json.dumps({"series": out, "wall_s": time.perf_counter() - t0}))
+"""
+
+DFTSAN_CHILD = r"""
+import json, sys, time
+from distributed_forecasting_tpu_torch.analysis import dftsan
+spent = {}
+def timed(name, fn):
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+    return run
+dftsan.build_project = timed("build_project", dftsan.build_project)
+dftsan.get_lock_analysis = timed("lock_model", dftsan.get_lock_analysis)
+rc = dftsan.main(sys.argv[1:])
+print(json.dumps({"static_model_s": spent}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _child(code: str, args: list, log_dir: str, name: str,
+           env: dict = None) -> tuple:
+    """Start ``python -c code args`` from the checkout's root with its
+    output in files under ``log_dir`` (a child read long after it started
+    must not stall on a full pipe)."""
+    full = dict(os.environ, **(env or {}))
+    full["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, full.get("PYTHONPATH")) if p)
+    logs = [open(os.path.join(log_dir, f"{name}.{k}"), "w+")
+            for k in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, "-c", code, *args], cwd=ROOT,
+                            env=full, stdout=logs[0], stderr=logs[1],
+                            text=True)
+    return proc, logs
+
+
+def _child_output(child: tuple, timeout: float) -> tuple:
+    """(exit code, stdout, stderr) of a started :func:`_child`."""
+    proc, logs = child
+    proc.wait(timeout=timeout)
+    stdout, stderr = (f.seek(0) or f.read() for f in logs)
+    for f in logs:
+        f.close()
+    return proc.returncode, stdout, stderr
+
+
+def tsan_conf(port, root: str, name: str, number: int, tag: str,
+              fleet: bool) -> dict:
+    """The shipped serve conf for (a): with ``fleet``, phase 20's fleet
+    (:data:`FLEET_CONF`: two replicas, 8 shards x 2, ingest with the
+    backlog refit at :data:`TSAN_POINTS`) on the front door ``number``;
+    else a single scorer on ``number`` (0: a free port).  Both with the
+    coalescer and the forecast cache on, their own WAL and store
+    directories, and the kernel library loaded from this checkout's build
+    directory (the compile-cache store off: this process built it)."""
+    conf = fleet_conf(port, root, name, number)
+    conf["serving"]["fleet"]["enabled"] = fleet
+    conf["serving"]["sharding"]["enabled"] = fleet
+    conf["serving"]["ingest"].update(
+        enabled=fleet, wal_dir=os.path.join(root, f"wal_{tag}"))
+    conf["serving"]["ingest"]["refit"]["max_applied_points"] = TSAN_POINTS
+    conf["serving"]["batching"]["enabled"] = True
+    conf["serving"]["cache"]["enabled"] = True
+    conf["serving"]["tracing"]["debug_endpoints"] = False
+    conf["monitoring"]["quality_store"]["directory"] = os.path.join(
+        root, f"quality_{tag}")
+    conf["compile_cache"]["enabled"] = False
+    return conf
+
+
+def start_tsan(port, arts: dict = None, root: str = None) -> dict:
+    """(a)'s armed processes and (b)'s oracle child, started so that they
+    boot beside phase 21's fleets (``main`` calls this after
+    :func:`start_mesh_fleets`, on its artifacts in its ``root``); fits
+    its own Holt-Winters and arima artifacts when given none.  Returns the
+    state :func:`slice25_phase` takes; :func:`stop_tsan` ends it."""
+    st = {"tmp": tempfile.mkdtemp(prefix="tsan_"),
+          "stack": contextlib.ExitStack(), "fit_launches": None}
+    try:
+        st["reports"] = os.path.join(st["tmp"], "reports")
+        os.makedirs(st["reports"])
+        env = dict(TSAN_ENV, DFTPU_TSAN_REPORT_DIR=st["reports"])
+        one = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                "MKL_NUM_THREADS")}
+        st["oracle"] = _child(ORACLE_CHILD, [DATA, str(ORACLE_SERIES)],
+                              st["tmp"], "oracle", env=one)
+        st["t_oracle"] = time.perf_counter()
+        if arts is None:
+            batch = port["data"].tensorize(port["data"].load_sales_csv(DATA),
+                                           device=DEVICE)
+            root = os.path.join(st["tmp"], "store")
+            before = hand_launches()
+            arts = stream_artifacts(port, root, batch,
+                                    families=("arima", "holt_winters"))
+            st["fit_launches"] = {k: n - before[k]
+                                  for k, n in hand_launches().items()}
+        st["root"], st["arts"] = root, arts
+        st["t_boot"] = time.perf_counter()
+        number = free_port()
+        conf = tsan_conf(port, root, arts["holt_winters"]["name"], number,
+                         "tsan_fleet", True)
+        path = os.path.join(st["tmp"], "fleet.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)  # JSON is YAML
+        st["fleet"] = st["stack"].enter_context(FleetProcess(
+            path, number, os.path.join(st["tmp"], "fleet.log"), env=env))
+        st["scorer_port"] = free_port()
+        conf = tsan_conf(port, root, arts["arima"]["name"],
+                         st["scorer_port"], "tsan_scorer", False)
+        path = os.path.join(st["tmp"], "scorer.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        st["scorer"] = _child(TSAN_SCORER_CHILD, [path, DEVICE], st["tmp"],
+                              "scorer", env=env)
+    except BaseException:
+        stop_tsan(st)
+        raise
+    emit("tsan_started", beside="phase 21's fleets boot beside these",
+         armed=TSAN_ENV, oracle_series=ORACLE_SERIES)
+    return st
+
+
+def tsan_ready(st: dict) -> dict:
+    """Wait until (a)'s fleet has both replicas ready and its scorer
+    answers /readyz; returns the seconds from their start until each was
+    seen ready (an upper bound)."""
+    if "ready_s" not in st:
+        ready = {}
+        st["fleet"].wait(lambda r: len(r) == 2 and all(x["ready"] for x in r))
+        ready["fleet"] = time.perf_counter() - st["t_boot"]
+        t0 = time.perf_counter()
+        while True:
+            proc = st["scorer"][0]
+            if proc.poll() is not None:
+                raise AssertionError(
+                    "the armed scorer exited with "
+                    f"{_child_output(st['scorer'], 10)}")
+            try:
+                if http_call(st["scorer_port"], "GET", "/readyz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.perf_counter() - t0 < FLEET_BOOT_S, "scorer boot"
+            time.sleep(0.05)
+        ready["scorer"] = time.perf_counter() - st["t_boot"]
+        st["ready_s"] = ready
+    return st["ready_s"]
+
+
+def stop_tsan(st: dict) -> None:
+    """End whatever of (a) and (b) still runs and remove its directory."""
+    import signal
+
+    try:
+        st["stack"].close()
+    finally:
+        for key in ("scorer", "oracle", "dftsan"):
+            if key in st and st[key][0].poll() is None:
+                st[key][0].send_signal(signal.SIGTERM)
+                try:
+                    st[key][0].wait(30)
+                except subprocess.TimeoutExpired:
+                    st[key][0].kill()
+                    st[key][0].wait(30)
+        shutil.rmtree(st["tmp"], ignore_errors=True)
+
+
+def fleet_conf_shards(fleet) -> int:
+    """``serving.sharding.num_shards`` of a started fleet's conf."""
+    with open(fleet.conf_path) as f:
+        return int(json.load(f)["serving"]["sharding"]["num_shards"])
+
+
+def tsan_bodies(number: int, fc) -> dict:
+    """/invocations bodies at :data:`TSAN_SIZES` series, horizon
+    :data:`TSAN_HORIZON`, from the scorer on ``number``."""
+    out = {}
+    for size in TSAN_SIZES:
+        req = {"inputs": _inputs(fc.keys[:size][::-1], fc.key_names),
+               "horizon": TSAN_HORIZON}
+        status, body, _ = http_call(number, "POST", "/invocations", req)
+        assert status == 200, (size, body[:300])
+        out[size] = body
+    return out
+
+
+def tsan_drive(targets: dict, fcs: dict, ingest) -> dict:
+    """:data:`TSAN_CLIENTS` threads for :data:`TSAN_DRIVE_S` seconds, each
+    on one of ``targets`` (name -> port) in turn: /invocations at
+    :data:`TSAN_SIZES` series and a /metrics scrape every
+    :data:`TSAN_SCRAPE_EVERY` requests; ``ingest()`` runs on this thread
+    a second in.  Every answer must be a 200."""
+    names = sorted(targets)
+    counts = {n: {"invocations": 0, "metrics": 0} for n in names}
+    errors, lock = [], threading.Lock()
+    deadline = time.perf_counter() + TSAN_DRIVE_S
+
+    def client(i: int) -> None:
+        name = names[i % len(names)]
+        fc, k = fcs[name], i
+        try:
+            while time.perf_counter() < deadline:
+                size = TSAN_SIZES[k % len(TSAN_SIZES)]
+                k += 1
+                req = {"inputs": _inputs(fc.keys[:size][::-1], fc.key_names),
+                       "horizon": TSAN_HORIZON}
+                status, body, _ = http_call(targets[name], "POST",
+                                            "/invocations", req)
+                assert status == 200, (name, size, body[:300])
+                kind = "invocations"
+                if k % TSAN_SCRAPE_EVERY == 0:
+                    status, body, _ = http_call(targets[name], "GET",
+                                                "/metrics")
+                    assert status == 200, (name, body[:300])
+                    with lock:
+                        counts[name]["metrics"] += 1
+                with lock:
+                    counts[name][kind] += 1
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(TSAN_CLIENTS)]
+    for th in threads:
+        th.start()
+    time.sleep(1.0)
+    ingested = ingest()
+    for th in threads:
+        th.join(TSAN_DRIVE_S + 300)
+    assert not any(th.is_alive() for th in threads), "a client hangs"
+    assert not errors, errors[:3]
+    return {"requests": counts, "ingest": ingested}
+
+
+def tsan_refits(replicas: list, single) -> dict:
+    """Wait until each replica and the disarmed single scorer have run the
+    refit the ingest's backlog forces."""
+    t0 = time.perf_counter()
+    deadline = t0 + 60
+    while True:
+        refits = {r["port"]: _metric(http_call(r["port"], "GET", "/metrics")[
+            1].decode(), "dftpu_ingest_refits_total") for r in replicas}
+        single_done = single.ingest.refit.snapshot()["refits_done"]
+        if (all(n >= 1 for n in refits.values()) and single_done >= 1) or \
+                time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    assert all(n >= 1 for n in refits.values()) and single_done >= 1, (
+        refits, single_done)
+    return {"replicas": refits, "single": single_done,
+            "seconds": time.perf_counter() - t0}
+
+
+def tsan_dynamic(port, st: dict) -> dict:
+    """(a): bodies against disarmed scorers, the drive, the bodies again,
+    SIGTERM to every armed process; returns the drains' launches and
+    starts the dftsan CLI child over the reports (``st["dftsan"]``)."""
+    out, seconds, servers = {}, {}, {}
+    root, arts = st["root"], st["arts"]
+    try:
+        # the disarmed scorers, in this process (not armed: TSAN_ENV goes
+        # to the children only), on the same artifacts and confs
+        t0 = time.perf_counter()
+        for model, tag, ingest in (("holt_winters", "tsan_hw_plain", True),
+                                   ("arima", "tsan_arima_plain", False)):
+            conf = tsan_conf(port, root, arts[model]["name"], 0, tag, False)
+            conf["serving"]["ingest"].update(enabled=ingest,
+                                             apply_mode="sync")
+            servers[model] = port["server"].start_server(
+                **port["serve_task"].ServeTask(
+                    init_conf=conf, device=DEVICE).server_args())
+        seconds["disarmed_boot"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ready_s"] = tsan_ready(st)
+        seconds["ready_wait"] = time.perf_counter() - t0
+        fleet, single = st["fleet"], servers["holt_winters"]
+        replicas = fleet.replicas()
+        fcs = {"fleet": single.forecaster,
+               "scorer": servers["arima"].forecaster}
+        targets = {"fleet": fleet.port, "scorer": st["scorer_port"]}
+        plain = {"fleet": single.server_address[1],
+                 "scorer": servers["arima"].server_address[1]}
+
+        def equal(when: str) -> dict:
+            got = {}
+            for name in targets:
+                armed = tsan_bodies(targets[name], fcs[name])
+                want = tsan_bodies(plain[name], fcs[name])
+                assert armed == want, (when, name, [
+                    k for k in want if armed[k] != want[k]])
+                got[name] = {k: len(v) for k, v in armed.items()}
+            return got
+
+        t0 = time.perf_counter()
+        out["equal_before"] = equal("before the drive")
+        seconds["equal_before"] = time.perf_counter() - t0
+
+        def ingest() -> dict:
+            # one shard's series, as phase 20 posts them: both replicas own
+            # it (replication 2) and refit on the backlog
+            from distributed_forecasting_tpu_torch.serving.sharding import (
+                shard_of_key,
+            )
+
+            fc = single.forecaster
+            shards = fleet_conf_shards(fleet)
+            points = fleet_points(fc, shard_of_key(fc.keys[0].tolist(),
+                                                   shards), shards,
+                                  int(fc.day1) + 1, TSAN_POINTS, seed=41)
+            acks = {}
+            for name, number in (("fleet", fleet.port),
+                                 ("single", single.server_address[1])):
+                status, body, _ = http_call(number, "POST", "/ingest",
+                                            {"points": points})
+                assert status == 200, (name, body[:300])
+                acks[name] = json.loads(body)["written"]
+            assert acks == {"fleet": TSAN_POINTS, "single": TSAN_POINTS}, acks
+            return acks
+
+        t0 = time.perf_counter()
+        out["drive"] = tsan_drive(targets, fcs, ingest)
+        seconds["drive"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["refits"] = tsan_refits(replicas, single)
+        seconds["refits"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["equal_after"] = equal("after the drive and the refit")
+        seconds["equal_after"] = time.perf_counter() - t0
+        # SIGTERM: each armed process drains and writes its report at exit
+        t0 = time.perf_counter()
+        seconds["fleet_drain"] = fleet.drain()
+        log = fleet.log_text()
+        assert fleet.proc.returncode == 0, log[-3000:]
+        drains = drain_launches(log)
+        assert len(drains) == 2, log[-3000:]
+        import signal
+
+        st["scorer"][0].send_signal(signal.SIGTERM)
+        rc, stdout, stderr = _child_output(st["scorer"], 60)
+        assert rc == 0, stderr[-3000:]
+        drains.append(json.loads(stdout.strip().splitlines()[-1]))
+        seconds["drains"] = time.perf_counter() - t0
+        out["drains"] = drains
+        if DEVICE == "cuda":
+            # each replica's backlog refit ran both HW kernels; the scorer's
+            # dispatches ran arima_predict
+            for d in drains[:2]:
+                assert d["hw_score"] >= 1 and d["hw_filter"] >= 1, drains
+            assert drains[2]["arima_predict"] >= 1, drains
+        st["t_dftsan"] = time.perf_counter()
+        st["dftsan"] = _child(DFTSAN_CHILD, [st["reports"], "--format",
+                                              "json"], st["tmp"], "dftsan")
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+        port["trace"].configure_tracing(port["trace"].TraceConfig())
+    out["seconds"] = seconds
+    return out
+
+
+def tsan_findings(st: dict) -> dict:
+    """The dftsan CLI child's verdict over (a)'s reports, read with the
+    port's own ``analysis.dftsan.load_reports`` too: reports, locks, edges
+    and violations observed, the attach classes seen, each rule's finding
+    count, the static model's build time."""
+    from distributed_forecasting_tpu_torch.analysis.dftsan import (
+        load_reports,
+    )
+
+    rc, stdout, stderr = _child_output(st["dftsan"], 600)
+    wall = time.perf_counter() - st["t_dftsan"]
+    assert rc == 0, (rc, stdout[-3000:], stderr[-3000:])
+    verdict = json.loads(stdout)
+    spent = json.loads(stderr.strip().splitlines()[-1])["static_model_s"]
+    merged, loaded = load_reports([st["reports"]])
+    classes = sorted({lid[1] for lid in merged["locks"] if lid[1]})
+    rules = {}
+    for f in verdict["findings"]:
+        rules[f["rule"]] = rules.get(f["rule"], 0) + 1
+    out = {"reports": len(loaded), "locks": len(merged["locks"]),
+           "edges": len(merged["edges"]),
+           "violations": len(merged["violations"]),
+           "modeled_edges": verdict["observed"]["modeled_edges"],
+           "classes": classes, "rules": rules,
+           "findings": [f"{f['path']}:{f['line']}: [{f['rule']}] "
+                        f"{f['message']}" for f in verdict["findings"]],
+           "counts": verdict["counts"], "suppressed": verdict["suppressed"],
+           "baselined": verdict["baselined"],
+           "static_model_s": spent, "cli_s": wall}
+    assert len(loaded) == TSAN_REPORTS, loaded
+    assert verdict["counts"]["error"] == 0, verdict["findings"]
+    missing = sorted(set(TSAN_CLASSES) - set(classes))
+    assert not missing, (missing, classes)
+    return out
+
+
+def oracle_compare(port, st: dict, card_line: str) -> dict:
+    """(b): the oracle child's per-series CV MAPE against the curve
+    model's CV on the card over the same series, summarized as
+    ``scripts/prophet_parity.compare`` summarizes (its keys; the oracle's
+    never say ``prophet``)."""
+    rc, stdout, stderr = _child_output(st["oracle"], 600)
+    assert rc == 0, stderr[-3000:]
+    oracle = json.loads(stdout.strip().splitlines()[-1])
+    oracle_wall = oracle["wall_s"]
+    df = port["data"].load_sales_csv(DATA)
+    keys = df[["store", "item"]].drop_duplicates().sort_values(
+        ["store", "item"]).head(ORACLE_SERIES)
+    batch = port["data"].tensorize(df.merge(keys, on=["store", "item"]),
+                                   device=DEVICE)
+    t0 = time.perf_counter()
+    glm = port["cv"].cross_validate(batch, model="prophet",
+                                    cv=port["cv"].CVConfig())["mape"]
+    glm = glm.cpu().numpy().astype(np.float64)
+    t_glm = time.perf_counter() - t0
+    by_key = {tuple(r["key"]): r["mape"] for r in oracle["series"]}
+    ref = np.asarray([by_key[tuple(int(v) for v in k)]
+                      for k in batch.keys.tolist()], dtype=np.float64)
+    assert ref.size == ORACLE_SERIES and np.isfinite(ref).all(), ref
+    ok = np.isfinite(ref) & np.isfinite(glm)
+    p_mean, g_mean = float(ref[ok].mean()), float(glm[ok].mean())
+    rel = (g_mean - p_mean) / p_mean
+    return {"dataset": f"real-shaped dataset, first {ORACLE_SERIES} series",
+            "estimator": "prophet_map_oracle",
+            "oracle_mape": round(p_mean, 5), "glm_mape": round(g_mean, 5),
+            "rel_delta": round(rel, 5), "within_5pct": bool(rel <= 0.05),
+            "n_series": int(ok.sum()),
+            "glm_wins": int((glm[ok] <= ref[ok]).sum()),
+            "oracle_wall_s": round(oracle_wall, 1),
+            "glm_wall_s": round(t_glm, 2), "card": card_line}
+
+
+def slice25_phase(port, card_line: str, started: dict = None) -> dict:
+    """Phase 24: (a) the sanitizer armed on the card over the serving paths
+    that launch the hand kernels, its reports joined by the port's dftsan;
+    (b) the Prophet MAP oracle against the curve model's CV (the module
+    docstring).  ``started``: :func:`start_tsan`'s state, or started
+    here."""
+    t_phase = time.perf_counter()
+    own = started is None
+    if own:
+        started = start_tsan(port)
+    out, seconds = {}, {}
+    try:
+        for k in KERNELS:  # counters to 0 just before the path
+            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
+            getattr(launchers, k).launches = 0
+        t0 = time.perf_counter()
+        out["dynamic"] = tsan_dynamic(port, started)
+        seconds["dynamic"] = time.perf_counter() - t0
+        # (b) on this thread while the dftsan child builds its model
+        t0 = time.perf_counter()
+        out["oracle"] = oracle_compare(port, started, card_line)
+        seconds["oracle"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dftsan"] = tsan_findings(started)
+        seconds["dftsan_wait"] = time.perf_counter() - t0
+        here = hand_launches()  # ... and after it
+    finally:
+        stop_tsan(started)
+    fit = started["fit_launches"] or {k: 0 for k in KERNELS}
+    out["launches"] = {k: here[k] + fit[k] + sum(
+        d[k] for d in out["dynamic"]["drains"]) for k in KERNELS}
+    emit("launches", path="tsan", **out["launches"],
+         expected="hw_score, hw_filter: the disarmed Holt-Winters scorer's "
+                  "refit and each armed replica's (from their drain "
+                  "lines); arima_predict: both arima scorers' dispatches "
+                  "(the armed one's from its exit line)")
+    out["seconds"] = time.perf_counter() - t_phase
+    dyn = out["dynamic"]
+    emit("tsan", card=card_line, ready_s=dyn["ready_s"],
+         equal_before=dyn["equal_before"], equal_after=dyn["equal_after"],
+         drive=dyn["drive"], refits=dyn["refits"], drains=dyn["drains"],
+         **out["dftsan"])
+    emit("oracle", **out["oracle"])
+    emit("phase24", card=card_line, seconds=out["seconds"],
+         parts={**seconds, **dyn["seconds"]})
+    return out
+
+
 # -- kernel times on the device: cycles a step, chains, the launch floor -----
 
 # hw_filter at T = 1,826 x each of these tiles of the committed rows: the
@@ -11242,13 +11820,19 @@ def main(argv=None) -> int:
     runtime = slice19_phase(port, card_line)
     scorer_rt = slice20_phase(port, card_line)
     fleet = slice21_phase(port, card_line)
-    # phase 23's fleets boot beside phase 21's (see start_mesh_fleets)
+    # phases 23's and 24's processes boot beside phase 21's fleets (see
+    # start_mesh_fleets, start_tsan); phase 24's on phase 23's artifacts
     mesh_fleets = start_mesh_fleets(port)
     try:
-        cache = slice22_phase(port, card_line, before_timing=lambda:
-                              mesh_fleets_ready(mesh_fleets))
-        parallel = slice23_phase(port, card_line)
-        mesh = slice24_phase(port, card_line, mesh_fleets)
+        tsan = start_tsan(port, mesh_fleets["arts"], mesh_fleets["root"])
+        try:
+            cache = slice22_phase(port, card_line, before_timing=lambda: (
+                mesh_fleets_ready(mesh_fleets), tsan_ready(tsan)))
+            parallel = slice23_phase(port, card_line)
+            mesh = slice24_phase(port, card_line, mesh_fleets)
+            sanitized = slice25_phase(port, card_line, tsan)
+        finally:
+            stop_tsan(tsan)
     finally:
         stop_mesh_fleets(mesh_fleets)
     # nothing the smoke ran wrote into native/
@@ -11278,7 +11862,8 @@ def main(argv=None) -> int:
                               + fleet["launches"][k]
                               + cache["launches"][k]
                               + parallel["launches"][k]
-                              + mesh["launches"][k]),
+                              + mesh["launches"][k]
+                              + sanitized["launches"][k]),
                     max_abs_err=max(c["max_abs_err"] for c in (
                         *cases[k].values(), *pooled["cases"][k].values(),
                         *ragged["cases"][k].values())),
@@ -11301,7 +11886,8 @@ def main(argv=None) -> int:
                                  + fleet["launches"][k]
                                  + cache["launches"][k]
                                  + parallel["launches"][k]
-                                 + mesh["launches"][k]),
+                                 + mesh["launches"][k]
+                                 + sanitized["launches"][k]),
                        max_abs_err=max(c["max_abs_err"] for c in (
                            *arima_out["cases"][k].values(),
                            *windowed["cases"][k].values())),
@@ -11318,7 +11904,8 @@ def main(argv=None) -> int:
     rows["arima_loglik_grad"] = dict(
         launches=(p8_end["launches"]["arima_loglik_grad"]
                   + parallel["launches"]["arima_loglik_grad"]
-                  + mesh["launches"]["arima_loglik_grad"]),
+                  + mesh["launches"]["arima_loglik_grad"]
+                  + sanitized["launches"]["arima_loglik_grad"]),
         max_abs_err=max(c["max_abs_err"] for c in p8_end["cases"].values()),
         ms=mt["ms"], device_ms=mt["device_ms"], covered=mt["covered"],
         plain_ms=p8_end["times"]["twin_ms"],
@@ -11330,7 +11917,8 @@ def main(argv=None) -> int:
     rows["arima_mle_fit"] = dict(
         launches=(p8_end["launches"]["arima_mle_fit"]
                   + parallel["launches"]["arima_mle_fit"]
-                  + mesh["launches"]["arima_mle_fit"]),
+                  + mesh["launches"]["arima_mle_fit"]
+                  + sanitized["launches"]["arima_mle_fit"]),
         max_abs_err=max(c["max_abs_err"]
                         for c in p8_end["fit_cases"].values()),
         ms=fm["ms"], device_ms=fm["device_ms"], covered=fm["covered"],

@@ -126,6 +126,7 @@ def _lib() -> Optional[ctypes.CDLL]:
         # the one build is the critical section: concurrent first callers
         # wait for it instead of racing the compiler
         if not _TRIED:
+            # dflint: disable=blocking-under-lock (intentional build barrier)
             _LIB = _build_and_load()
             _TRIED = True
         return _LIB

@@ -329,10 +329,13 @@ class CostMetrics:
         """Publish a kernel's ``(operations, bytes)`` count as the program
         costs of (``entry``, ``key``), the first time that pair is seen:
         ``work()`` runs once (a count may read its data, e.g. the mask of
-        ``hw_score_work``), later calls cost one set lookup."""
-        if (entry, key) in self._programs_seen:
-            return
-        self._programs_seen.add((entry, key))
+        ``hw_score_work``), later calls cost one set lookup.  The claim is
+        taken under the lock so two threads cannot both run ``work()``; the
+        count itself runs outside it (it may wait on the device)."""
+        with self._lock:
+            if (entry, key) in self._programs_seen:
+                return
+            self._programs_seen.add((entry, key))
         self.record_program(entry, work_costs(work()), key=key)
 
     # -- watermarks ----------------------------------------------------------

@@ -100,6 +100,7 @@ _enabled = False
 _armed: Dict[str, _Armed] = {}
 _fired: Dict[str, int] = {}
 # re-seeded by every configure(): the seed is the reproducibility contract
+# dflint: disable=nondeterminism — re-seeded by every configure()
 _rng = random.Random(0)
 
 

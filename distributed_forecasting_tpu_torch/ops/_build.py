@@ -89,6 +89,10 @@ def library() -> ctypes.CDLL:
     if _LIBRARY is None:
         with _LIBRARY_LOCK:
             if _LIBRARY is None:
+                # the one build (or store load) is the critical section:
+                # every concurrent first launch waits for the single nvcc
+                # run instead of racing it; later calls skip the lock
+                # dflint: disable=blocking-under-lock (intentional build barrier)
                 _LIBRARY = _load()
     return _LIBRARY
 

@@ -1139,6 +1139,7 @@ class _FrontDoorHandler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             # the aggregation legs deliberately run under probe_timeout_s,
             # not the request budget: a scrape should see every replica
             # even when the scraper sent a tight X-Deadline-Ms
+            # dflint: disable=deadline-propagation — probe-budgeted scrape
             self._metrics()
         else:
             # /health, /schema, ... answer the same on any replica
@@ -1310,6 +1311,7 @@ class _FrontDoorHandler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         sup = self.server.supervisor
         # once-per-boot cached /schema discovery bounded by probe_timeout_s;
         # not per-request work, so it does not spend the request's budget
+        # dflint: disable=deadline-propagation — probe-budgeted discovery
         names = self._schema_key_names()
         if names is None:
             return False
@@ -1507,9 +1509,11 @@ class _FrontDoorHandler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         # merge dispatches on the path, not the plan's field name
         if plan.field == "inputs":
             status, merged = merge_invocation_responses(
+                # dflint: disable=deadline-propagation — cached discovery
                 plan, self._schema_key_names() or (), responses)
         elif self.path == "/detect_anomalies":
             status, merged = merge_detect_responses(
+                # dflint: disable=deadline-propagation — cached discovery
                 plan, self._schema_key_names() or (), responses)
         else:
             status, merged = merge_ingest_responses(plan, responses)

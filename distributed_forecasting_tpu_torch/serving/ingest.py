@@ -366,6 +366,7 @@ class IngestRuntime:
             # outside _poll_gate, so appends never queue behind an apply
             with get_tracer().span("ingest.append", points=len(rows),
                                    wal_dir=self.wal.directory):
+                # dflint: disable=unlocked-shared-state — WriteAheadLog is internally synchronized
                 self.wal.append(rows)
             self.metrics.points_total.inc(len(rows))
             self.metrics.wal_appends_total.inc()
@@ -428,7 +429,10 @@ class IngestRuntime:
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
         if self.config.apply_mode == "interval" and self._thread is None:
+            # lifecycle fields, touched only by the owning thread
+            # dflint: disable=unlocked-shared-state — lifecycle field
             self._stop.clear()
+            # dflint: disable=unlocked-shared-state — lifecycle field
             self._thread = threading.Thread(
                 target=self._run, name="ingest-follower", daemon=True)
             self._thread.start()
@@ -463,6 +467,7 @@ class IngestRuntime:
                     "leaking it (daemon) — shutdown is NOT clean",
                     _JOIN_TIMEOUT_S)
             else:
+                # dflint: disable=unlocked-shared-state — lifecycle field
                 self._thread = None
 
     # -- exposition ----------------------------------------------------------

@@ -589,6 +589,7 @@ class BatchForecaster:
     @property
     def mesh(self):
         """The mesh predict shards over, or None (single-device)."""
+        # dflint: disable=unlocked-shared-state — one reference read
         return self._mesh
 
     def enable_mesh(self, mesh) -> None:
@@ -614,13 +615,17 @@ class BatchForecaster:
             raise ValueError(
                 "the serving rank is rank 0 of the mesh; the other ranks "
                 "run serve_mesh_followers")
-        self._mesh = mesh  # deploy-time toggle, flipped before traffic
+        # under _mesh_lock like stop_mesh's flip: a dispatch in flight
+        # finishes on the mesh it started on
+        with self._mesh_lock:
+            self._mesh = mesh
 
     def disable_mesh(self) -> None:
         """Back to single-device predict (mesh-size-1 buckets).  The
         followers keep waiting for the next header: end them with
-        :meth:`stop_mesh`."""
-        self._mesh = None  # deploy-time toggle
+        :meth:`stop_mesh`.  Waits for a dispatch in flight to finish."""
+        with self._mesh_lock:
+            self._mesh = None
 
     def stop_mesh(self) -> list:
         """Send the followers the stop message (they return from
@@ -646,6 +651,9 @@ class BatchForecaster:
         block of one size (the padding rows repeat the first series like
         any other bucket padding)."""
         bucket = max(min(_ladder_value(k), self.n_series), k)
+        # one reference read: a bucket rounded for a mesh stays valid on one
+        # device, and enable_mesh runs before traffic
+        # dflint: disable=unlocked-shared-state — snapshot, see above
         mesh = self._mesh
         if mesh is not None:
             n = _mesh_size(mesh)
@@ -657,6 +665,7 @@ class BatchForecaster:
         (``<kind>:<model>``, ``@mesh<n>`` appended over a mesh): the cost
         registry's row and the profiler annotation."""
         entry = f"{kind}:{self.model}"
+        # dflint: disable=unlocked-shared-state — one reference read (a label)
         mesh = self._mesh
         if mesh is not None:
             entry += f"@mesh{_mesh_size(mesh)}"
@@ -666,6 +675,7 @@ class BatchForecaster:
                   fc_kwargs, gen_kwargs: dict) -> torch.Tensor:
         """The bucket's kept outputs (:func:`_block_outputs`): on this
         device, or over the mesh under ``_mesh_lock``."""
+        # dflint: disable=unlocked-shared-state — fast path; re-read under the lock
         if self._mesh is None:
             return _block_outputs(fns, header, params, day_all, scale,
                                   fc_kwargs, gen_kwargs)

@@ -133,11 +133,14 @@ class _Follower:
 
     def wait(self, timeout: float) -> int:
         deadline = time.monotonic() + timeout
-        while self.poll() is None:
+        while True:
+            # poll's value, read under the lock: returncode is not re-read
+            rc = self.poll()
+            if rc is not None:
+                return rc
             if time.monotonic() > deadline:
                 raise TimeoutError(f"follower pid {self.pid} still runs")
             time.sleep(0.02)
-        return self.returncode
 
     def kill(self) -> None:
         if self.poll() is None:

@@ -26,7 +26,7 @@ PACKAGES = ["analysis", "data", "engine", "models", "monitoring", "ops",
             "tracking", "utils", "workflows"]
 
 # reference packages the port does not have yet, by label
-PENDING_PACKAGES = {"analysis": "P13"}
+PENDING_PACKAGES = {}
 
 # names of a reference __all__ the port does not export yet, by package and
 # label (ROADMAP Queue 1): none outside the pending packages

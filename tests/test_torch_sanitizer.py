@@ -1,7 +1,7 @@
 """The port's thread sanitizer (``monitoring/sanitizer.py``) against the
 reference's runtime cases (``tests/unit/test_dftsan.py``), its seven
-``attach`` sites under armed workloads, and its report read by the
-reference's ``analysis/dftsan.load_reports``.
+``attach`` sites under armed workloads, and its report read by the port's
+``analysis/dftsan.load_reports`` (and the reference's).
 
 * The runtime cases: a disarmed ``attach`` leaves the object as a build
   without the sanitizer would (checked structurally: the reference's
@@ -17,8 +17,9 @@ reference's ``analysis/dftsan.load_reports``.
   the forecaster's ``_mesh_lock`` under concurrent predicts and a cache
   rebuild on a one-rank mesh, the coalescer, the connection pool, and the
   fleet supervisor over in-process replicas.
-* The written report has the reference's layout: its ``load_reports``
-  reads it and merges counts across files.
+* The written report has the reference's layout: the port's own
+  ``analysis/dftsan.load_reports`` reads it and merges counts across
+  files, and the reference's reads it too (the format check).
 """
 
 import threading
@@ -230,7 +231,8 @@ def test_disarmed_lock_path_fires_no_failpoints(san):
     assert failpoints.fired("sanitizer.yield") == 0
 
 
-# -- the report, read by the reference's analysis -----------------------------
+# -- the report, read by the port's analysis (and once by the reference's, as
+# a check that the format is the reference's) ----------------------------------
 
 def test_report_roundtrip_through_dir_with_the_reference_loader(san,
                                                                tmp_path):
@@ -248,7 +250,9 @@ def test_report_roundtrip_through_dir_with_the_reference_loader(san,
 
 
 def test_load_reports_merges_the_port_s_counts(san, tmp_path):
-    from distributed_forecasting_tpu.analysis.dftsan import load_reports
+    from distributed_forecasting_tpu_torch.analysis.dftsan import (
+        load_reports,
+    )
 
     obj = _Plain()
     obj.count = 1
@@ -263,13 +267,15 @@ def test_load_reports_merges_the_port_s_counts(san, tmp_path):
 def test_env_arms_the_sanitizer_and_its_atexit_report(tmp_path):
     """``DFTPU_TSAN=1`` and ``DFTPU_TSAN_REPORT_DIR`` in a fresh process:
     an attached forecaster records its locks, and the pid-named report at
-    exit loads through the reference's reader with the port's lock ids."""
+    exit loads through the port's own reader with the port's lock ids."""
     import json
     import os
     import subprocess
     import sys
 
-    from distributed_forecasting_tpu.analysis.dftsan import load_reports
+    from distributed_forecasting_tpu_torch.analysis.dftsan import (
+        load_reports,
+    )
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
