@@ -622,12 +622,33 @@ is not 0:
               the same series: ``scripts/prophet_parity.compare``'s summary
               keys (``oracle_mape``, never ``prophet_mape``); a non-finite
               oracle result fails the phase
+  phase 25    the croston and theta recurrences on their hand kernels
+              (``csrc/ses.cu``, ``slice26_phase``): (a) croston_filter
+              (every variant) and ses_filter (the seven alphas) against
+              their twins on the card, bit for bit, at the fit shape
+              (500 x 1,826), the CV pass's (1,500 rows with their train
+              masks) and in the streaming update's forms (the error sums;
+              theta's scored form, one alpha a row), each twin run once,
+              each kernel's time beside its bound and the twin's; each
+              kernel's slope over T (cycles a step) at the fit shape
+              tiled 1, 2 and 4 times; (b) the main path through the entry
+              points with both counters set to 0 just before it and read
+              after: ``engine.fit_forecast`` of croston under each variant
+              and of theta, ``cross_validate`` of each, one streaming
+              ``apply_update`` of each, exactly one launch a fit, a CV pass
+              and an update; finite outputs, 20 series card vs CPU; (c) the
+              earlier phases' numbers now on the kernels: phase 8's blend
+              dispatch (time, idle share, device events), phase 9's theta
+              fit, phase 16's /ingest p99 per family, and each phase's
+              launches of the two kernels (phases 8, 9, 10 and 16 fit
+              croston or theta and must have launched them)
 
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` builds the
 kernels and runs only ``kernel_times``: hw_filter's slope, its probe
 (this checkout only) and its times at 500 rows, one wave plus one row and
-20,480 rows, arima_predict against its launch floor and hw_score's two
-times, on the port found in DIR (a checkout of another commit) or in this
+20,480 rows, arima_predict against its launch floor, hw_score's two
+times and croston_filter's and ses_filter's slopes over T, on the port
+found in DIR (a checkout of another commit) or in this
 one, so that two commits compare in one call on one card.
 
 The line before the last lists the kernels (launches, error, times,
@@ -643,7 +664,8 @@ rebuilds and forced refit, phase 22's sharded path and its two
 ranks' launches, and phase 23's fits, single scorer and every rank's
 drained launches, and phase 24's disarmed scorers and armed processes'
 launches; the arima rows add phase 17's kernel times at the
-window's shapes);
+window's shapes; croston_filter's and ses_filter's launches are phase
+25's main path, with every phase's launches of them beside);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits 1 and prints no result.
 """
@@ -1083,12 +1105,18 @@ TRACE_ATTEMPTS = 3
 TAIL_MARK = "chip_smoke.trace_tail"
 
 
+def wrapper(k: str):
+    """The wrapper of hand kernel ``k`` (:data:`KERNELS`), which carries its
+    launch counter."""
+    from distributed_forecasting_tpu_torch.ops import fused_scan, kalman, ses
+
+    return getattr(fused_scan if k.startswith("hw_") else
+                   ses if k in SES_KERNELS else kalman, k)
+
+
 def hand_launches() -> dict:
     """The launch counter of every hand kernel (:data:`KERNELS`)."""
-    from distributed_forecasting_tpu_torch.ops import fused_scan, kalman
-
-    return {k: getattr(fused_scan if k.startswith("hw_") else kalman,
-                       k).launches for k in KERNELS}
+    return {k: wrapper(k).launches for k in KERNELS}
 
 
 def idle_share(fn, top_n: int = 0,
@@ -1205,7 +1233,8 @@ EVENT_KINDS = {
     "memcpy/memset": ("Memcpy", "Memset"),
     "hand kernels": ("hw_score_kernel", "hw_filter_kernel",
                      "arima_filter_kernel", "arima_predict_kernel",
-                     "arima_loglik_grad_kernel", "arima_mle_fit_kernel"),
+                     "arima_loglik_grad_kernel", "arima_mle_fit_kernel",
+                     "croston_filter_kernel", "ses_filter_kernel"),
 }
 
 
@@ -1878,10 +1907,12 @@ def workflow_timings(port, root: str, spec: dict, card_line: str) -> dict:
 REAL = "real-data-e2e"
 BLEND = "forecasting-blend"
 POOLED_TASKS = {REAL: E2E_TASKS, BLEND: TASKS + ["promote"]}
-# the croston recurrence's dependent chain per step: the size (and interval)
-# update, a multiply, an add and a select, ~16 cycles; T such steps at the
-# card's 1.98 GHz boost clock, whatever the width (as HW_CHAIN_CYCLES counts
-# hw_filter's)
+# the croston recurrence's dependent chain per step (csrc/ses.cu): the size
+# and interval updates, each a multiply, an add and a select (the SASS of
+# croston_filter_kernel, scripts/cuda_kernel_report.py --chain, carries
+# them as FMUL, FADD and a predicated select), ~16 cycles; T such steps at
+# the card's 1.98 GHz boost clock, whatever the width (as HW_CHAIN_CYCLES
+# counts hw_filter's)
 CROSTON_CHAIN_CYCLES = 16
 CLOCK_HZ = 1.98e9
 
@@ -2301,7 +2332,8 @@ def pooled_timings(port, root: str, spec: dict, card_line: str) -> dict:
     for k, (y, mask) in shapes.items():
         S, T = (int(d) for d in y.shape)
         fit = lambda: cr.fit(y, mask, batch.day, cfg)  # noqa: E731
-        bound, by = bound_ms(cr.fit_work(S, T))
+        bound, by = bound_ms(port["ses"].croston_filter_work(
+            S, T, cfg.variant))
         prof = idle_share(fit)
         t["croston"][k] = {
             "shape": [S, T], "ms": cuda_ms(fit), "bound_ms": bound,
@@ -2445,9 +2477,9 @@ HIER = "hierarchical-m5"
 # the reference's allocated table (pipelines/training.py allocated)
 ALLOC_COLUMNS = ["ds", "store", "item", "y", "yhat", "yhat_upper",
                  "yhat_lower", "training_date"]
-# the SES step's dependent chain: (1 - alpha) * level, the add and the
-# select, ~12 cycles; T such steps at the boost clock, whatever the width
-# (as hw_filter.cu:37-43 reckons its own chain)
+# the SES step's dependent chain (ses_filter_kernel): (1 - alpha) * level,
+# the add and the select, ~12 cycles; T such steps at the boost clock,
+# whatever the width (as hw_filter.cu:37-43 reckons its own chain)
 SES_CHAIN_CYCLES = 12
 
 
@@ -2688,7 +2720,7 @@ def complete_timings(port, batch, nodes, mint_call, card_line: str) -> dict:
         z = th._lines(y, mask, batch.day, cfg)[5]
         ses = lambda: th.ses_paths(z, mask, alphas)  # noqa: E731
         fit = lambda: th.fit(y, mask, batch.day, cfg)  # noqa: E731
-        bound, by = bound_ms(th.ses_work(S, T, A))
+        bound, by = bound_ms(port["ses"].ses_filter_work(S, T, A))
         prof = idle_share(ses)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2731,8 +2763,9 @@ def complete_timings(port, batch, nodes, mint_call, card_line: str) -> dict:
 
 def complete_phase(port, counters, card_line: str) -> dict:
     """Phase 9: allocated-baseline and hierarchical-m5 at their own sizes,
-    each WORKFLOW_RUNS times in one env root, the launch counters set to 0 before
-    each run (neither launches a hand kernel: the curve model and theta);
+    each WORKFLOW_RUNS times in one env root, the Holt-Winters launch
+    counters set to 0 before each run (neither launches a Holt-Winters
+    kernel: the curve model and theta, whose SES is ses_filter's);
     checks, per-task medians, the SES loop's and the MinT solve's times, a
     20-node theta card-vs-CPU run, and a 20-series blend over
     [holt_winters, theta, croston] on the card against the CPU, which
@@ -2760,7 +2793,8 @@ def complete_phase(port, counters, card_line: str) -> dict:
         for c in checked:
             assert all(n == 0 for n in c["launches"].values()), c["launches"]
         emit("launches", path=name, per_run=[c["launches"] for c in checked],
-             expected="0: the curve model and theta run no hand kernel")
+             expected="0: the curve model and theta launch neither "
+                      "Holt-Winters kernel (theta launches ses_filter)")
         med = lambda key: statistics.median(c[key] for c in checked)  # noqa: E731
         emit("complete_workflow", **checked[0], runs=len(checked),
              median_seconds=med("seconds"),
@@ -7549,9 +7583,8 @@ def runtime_train_tasks(port, batch, card_line: str) -> dict:
     rows are byte-identical, the pipelined run logs the reference's
     ``pipeline_*`` run metrics, and the Holt-Winters tasks launch hw_score
     and hw_filter through the executor."""
-    ex_mod, kal, fs = port["executor"], port["kalman"], port["fs"]
-    counters = {k: getattr(fs if k.startswith("hw_") else kal, k)
-                for k in KERNELS}
+    ex_mod = port["executor"]
+    counters = {k: wrapper(k) for k in KERNELS}
     raw = raw_table(batch)
     out = {"launches": {k: 0 for k in KERNELS}}
     pipes = {"serial": {"async_tracking": False}, "pipelined": {}}
@@ -7622,9 +7655,8 @@ def runtime_run_many(port, batch, card_line: str) -> dict:
     tracking rows byte-identical between the first pipelined and the first
     serial run; then one pipelined run traced (``idle_share``) for the
     device's idle share beside the executor's lower bound."""
-    ex_mod, kal, fs = port["executor"], port["kalman"], port["fs"]
-    counters = {k: getattr(fs if k.startswith("hw_") else kal, k)
-                for k in KERNELS}
+    ex_mod = port["executor"]
+    counters = {k: wrapper(k) for k in KERNELS}
     raw = raw_table(batch)
     specs = [runtime_spec(m, f"runtime.fc.{m}", f"runtime_{m}")
              for m in RUNTIME_FAMILIES]
@@ -8607,8 +8639,7 @@ def slice20_phase(port, card_line: str) -> dict:
     servers, confs, out, seconds = {}, {}, {}, {}
     try:
         for k in KERNELS:  # counters to 0 just before the path
-            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
-            getattr(launchers, k).launches = 0
+            wrapper(k).launches = 0
         arts = stream_artifacts(port, root, batch, families=RT_FAMILIES)
         for model in RT_FAMILIES:
             conf, changed = rt_serve_conf(port, root, model,
@@ -9782,8 +9813,7 @@ def slice22_phase(port, card_line: str, before_timing=None) -> dict:
     pairs, out, seconds, probes = {}, {}, {}, []
     try:
         for k in KERNELS:  # counters to 0 just before the path
-            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
-            getattr(launchers, k).launches = 0
+            wrapper(k).launches = 0
         t0 = time.perf_counter()
         # theta first: the fleets boot on it while the rest fit
         arts = stream_artifacts(port, root, batch, families=("theta",))
@@ -10019,8 +10049,7 @@ def parallel_rank(plan: dict) -> dict:
     group = pmesh.mesh_group(mesh)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in KERNELS:
-        getattr(port["fs"] if k.startswith("hw_") else port["kalman"],
-                k).launches = 0
+        wrapper(k).launches = 0
     clock = _CollectiveClock(sync)
     steps, arrays = {}, {}
 
@@ -10098,8 +10127,7 @@ def parallel_rank(plan: dict) -> dict:
     wp, wr = step("windowed_mesh", lambda: win.windowed_fit_forecast(
         wbatch, "arima", horizon=plan["win_horizon"], mesh=mesh,
         wconfig=wcfg))
-    launches = {k: getattr(port["fs"] if k.startswith("hw_")
-                           else port["kalman"], k).launches for k in KERNELS}
+    launches = hand_launches()
     digest = hashlib.sha256()
     for x in (wr.yhat, wr.lo, wr.hi, wr.ok, wp.phi, wp.theta, wp.sigma2):
         digest.update(x.cpu().numpy().tobytes())
@@ -10158,8 +10186,7 @@ def parallel_one_rank(port, card_line: str) -> dict:
         if DEVICE == "cuda":
             assert backend == "nccl", backend
         for k in KERNELS:
-            getattr(port["fs"] if k.startswith("hw_") else port["kalman"],
-                    k).launches = 0
+            wrapper(k).launches = 0
         sharded = {m: par.sharded_fit_forecast(batch, m, config=c, mesh=mesh)
                    for m, c in configs.items()}
         cvm = par.sharded_cv_metrics(batch, "holt_winters", cv=cv, mesh=mesh)
@@ -10663,8 +10690,7 @@ def start_mesh_fleets(port) -> dict:
           "stack": contextlib.ExitStack(), "fleets": {}}
     try:
         for k in KERNELS:  # counters to 0 just before the fits
-            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
-            getattr(launchers, k).launches = 0
+            wrapper(k).launches = 0
         t0 = time.perf_counter()
         st["arts"] = stream_artifacts(port, st["root"], batch,
                                       families=("arima", "holt_winters"))
@@ -10739,8 +10765,7 @@ def slice24_phase(port, card_line: str, started: dict = None) -> dict:
     out, seconds, single, logs = {}, {"fits": started["fits_s"]}, None, {}
     try:
         for k in KERNELS:  # counters to 0 just before the path
-            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
-            getattr(launchers, k).launches = 0
+            wrapper(k).launches = 0
         # the single Holt-Winters scorer: the ingest fleet's conf, no
         # fleet, applying in the POST
         sconf = mesh_fleet_conf(port, root, arts["holt_winters"]["name"],
@@ -10862,7 +10887,7 @@ ORACLE_SERIES = 50        # scripts/prophet_parity.py --real's default
 
 TSAN_SCORER_CHILD = r"""
 import json, signal, sys, threading
-from distributed_forecasting_tpu_torch.ops import fused_scan, kalman
+from distributed_forecasting_tpu_torch.ops import fused_scan, kalman, ses
 from distributed_forecasting_tpu_torch.serving import server
 from distributed_forecasting_tpu_torch.tasks import serve
 with open(sys.argv[1]) as f:
@@ -10877,7 +10902,8 @@ srv.server_close()
 print(json.dumps({k: getattr(m, k).launches for m, ks in (
     (fused_scan, ("hw_score", "hw_filter")),
     (kalman, ("arima_filter", "arima_predict", "arima_loglik_grad",
-              "arima_mle_fit"))) for k in ks}), flush=True)
+              "arima_mle_fit")),
+    (ses, ("croston_filter", "ses_filter"))) for k in ks}), flush=True)
 """
 
 ORACLE_CHILD = r"""
@@ -11350,8 +11376,7 @@ def slice25_phase(port, card_line: str, started: dict = None) -> dict:
     out, seconds = {}, {}
     try:
         for k in KERNELS:  # counters to 0 just before the path
-            launchers = port["fs"] if k.startswith("hw_") else port["kalman"]
-            getattr(launchers, k).launches = 0
+            wrapper(k).launches = 0
         t0 = time.perf_counter()
         out["dynamic"] = tsan_dynamic(port, started)
         seconds["dynamic"] = time.perf_counter() - t0
@@ -11382,6 +11407,297 @@ def slice25_phase(port, card_line: str, started: dict = None) -> dict:
     emit("oracle", **out["oracle"])
     emit("phase24", card=card_line, seconds=out["seconds"],
          parts={**seconds, **dyn["seconds"]})
+    return out
+
+
+# -- phase 25: the croston and theta recurrences on their kernels (ses.cu) ---
+
+SES_VARIANTS = ("croston", "sba", "tsb")
+# held-out days the streaming forms are compared and applied over
+SES_STREAM_DAYS = 7
+# each kernel's device time at the fit shape tiled this many times over T:
+# the slope over T is its cycles a step (as SLOPE_TILES for hw_filter)
+SES_SLOPE_TILES = (1, 2, 4)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal element for element, NaN where the other has NaN."""
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def ses_shape_cases(port, y, mask, day) -> dict:
+    """The kernels' inputs for one (y, mask) grid, time-major, as the fits
+    form them: croston under every variant from the fit's own carries,
+    and theta's SES of the seven alphas from its theta line and head
+    means."""
+    cr, th = port["croston"], port["theta"]
+    tm = lambda x: x.t().contiguous()  # noqa: E731
+    out = {}
+    for v in SES_VARIANTS:
+        out[f"croston_{v}"] = ("croston_filter", (
+            tm(y), tm(mask), cr.initial_carry(y, mask, v),
+            cr.CrostonConfig(variant=v), None))
+    cfg = th.ThetaConfig()
+    zl = th._lines(y, mask, day, cfg)[5]
+    alpha = torch.tensor(cfg.alphas, device=y.device)[None].expand(
+        y.shape[0], len(cfg.alphas)).contiguous()
+    out["theta"] = ("ses_filter", (tm(zl), tm(mask), th.head_level(zl, mask),
+                                   alpha, None))
+    return out
+
+
+def ses_stream_cases(port, batch) -> dict:
+    """The streaming update's forms over SES_STREAM_DAYS held-out days (one
+    a gap): croston's with its squared-error sums, every variant, and
+    theta's scored form (one alpha a row), from seeded carries."""
+    cr, th = port["croston"], port["theta"]
+    g = torch.Generator().manual_seed(25)
+    S, dev = batch.n_series, batch.y.device
+    tm = lambda x: x.t().contiguous()  # noqa: E731
+    rnd = lambda lo, hi: (lo + (hi - lo) * torch.rand(  # noqa: E731
+        S, generator=g)).to(dev)
+    y = torch.as_tensor(stream_tail(batch, SES_STREAM_DAYS), device=dev)
+    m = torch.ones_like(y)
+    m[:, 2] = 0.0
+    out = {}
+    for v in SES_VARIANTS:
+        carry = ((rnd(1, 20), rnd(0.05, 1)) if v == "tsb"
+                 else (rnd(1, 20), rnd(1, 10), rnd(0, 5).round()))
+        out[f"stream_croston_{v}"] = ("croston_filter", (
+            tm(y), tm(m), carry, cr.CrostonConfig(variant=v),
+            (rnd(0, 1e4), rnd(100, 1000).round())))
+    alphas = torch.tensor(th.ThetaConfig().alphas)
+    one = alphas[torch.randint(0, len(alphas), (S,), generator=g)]
+    ones = torch.ones_like(y)
+    out["stream_theta"] = ("ses_filter", (
+        tm(y * 0.9 + 2.0), tm(m), rnd(1, 50), one[:, None].to(dev),
+        (tm(y), tm(ones * rnd(5, 50)[:, None]),
+         tm(ones * rnd(0.5, 1.5)[:, None]), 2.0, rnd(0, 1e4),
+         rnd(100, 1000).round())))
+    return out
+
+
+def _ses_call(port, kernel, case, twin=False) -> tuple:
+    """One call of ``kernel`` (or its twin) on a case: its outputs, flat."""
+    ses = port["ses"]
+    if kernel == "croston_filter":
+        y, mask, carry, cfg, sums = case
+        fn = ses.croston_filter_reference if twin else ses.croston_filter
+        path, c, s = fn(y, mask, carry, cfg.alpha, cfg.variant, cfg.beta,
+                        sums=sums)
+        return (path, *c, *(s or ()))
+    fn = ses.ses_filter_reference if twin else ses.ses_filter
+    out = fn(*case[:4], scored=case[4])
+    return out if case[4] is not None else (out,)
+
+
+def _ses_launch(port, kernel, case):
+    """The bound launch of a case (``ops/ses._*_launcher``): timed calls
+    then only launch."""
+    ses = port["ses"]
+    if kernel == "croston_filter":
+        y, mask, carry, cfg, sums = case
+        return ses._croston_filter_launcher(y, mask, carry, cfg.alpha,
+                                            cfg.variant, cfg.beta, sums)[0]
+    return ses._ses_filter_launcher(*case)[0]
+
+
+def _ses_work(port, kernel, case) -> tuple:
+    """(operations, bytes) of a case (``ops/ses.*_work``)."""
+    T, S = case[0].shape
+    if kernel == "croston_filter":
+        return port["ses"].croston_filter_work(S, T, case[3].variant,
+                                               case[4] is not None)
+    return port["ses"].ses_filter_work(S, T, case[3].shape[1],
+                                       case[4] is not None)
+
+
+def ses_kernel_cases(port, cases: dict) -> dict:
+    """Each kernel against its twin on the card, bit for bit, case by case;
+    each twin runs once (its time one CUDA-event interval), the kernel's
+    time is the median of REPS samples of 20 back-to-back bound launches,
+    beside the device-paced time and the bound of the case's work."""
+    out = {k: {} for k in SES_KERNELS}
+    for name, (kernel, case) in cases.items():
+        got = _ses_call(port, kernel, case)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = _ses_call(port, kernel, case, twin=True)
+        stop.record()
+        torch.cuda.synchronize()
+        equal = all(_same_bits(a, b) for a, b in zip(got, want))
+        err = max(float((a - b).abs().nan_to_num(0.0).max())
+                  for a, b in zip(got, want))
+        launch = _ses_launch(port, kernel, case)
+        bound, by = bound_ms(_ses_work(port, kernel, case))
+        T, S = case[0].shape
+        out[kernel][name] = {
+            "shape": [S, T] + ([case[3].shape[1]] if kernel == "ses_filter"
+                               else []),
+            "bitwise": equal, "max_abs_err": err,
+            "ms": cuda_ms(launch, inner=20), **device_ms(launch),
+            "plain_ms": start.elapsed_time(stop), "bound_ms": bound,
+            "bound_by": by, "pass": equal}
+        if not equal:
+            DEFERRED.append(f"{kernel} differs from its twin at {name}")
+    return out
+
+
+def ses_slopes(port, batch) -> dict:
+    """SBA's and the seven-alpha SES's device times at the fit shape with
+    T tiled SES_SLOPE_TILES times: the slope over T in cycles a step at
+    CLOCK_HZ, beside the chain read from the SASS."""
+    times = {"croston_filter": [], "ses_filter": []}
+    steps = []
+    for n in SES_SLOPE_TILES:
+        y, mask = batch.y.repeat(1, n), batch.mask.repeat(1, n)
+        day = torch.arange(y.shape[1], device=y.device)
+        cases = ses_shape_cases(port, y, mask, day)
+        steps.append(int(y.shape[1]))
+        for name in ("croston_sba", "theta"):
+            kernel, case = cases[name]
+            launch = _ses_launch(port, kernel, case)
+            times[kernel].append(device_ms(launch)["device_ms"]
+                                 or cuda_ms(launch, inner=20))
+        del cases
+    out = {}
+    for kernel, chain in (("croston_filter", CROSTON_CHAIN_CYCLES),
+                          ("ses_filter", SES_CHAIN_CYCLES)):
+        slope, icpt = np.polyfit(steps, times[kernel], 1)
+        out[kernel] = {"T": steps, "device_ms": times[kernel],
+                       "cycles_per_step": slope * 1e-3 * CLOCK_HZ,
+                       "intercept_ms": icpt,
+                       "chain_cycles_per_step": chain}
+    return out
+
+
+def ses_main_path(port, batch) -> dict:
+    """The slice's main path through the entry points a user calls, at the
+    full width: ``engine.fit_forecast`` of croston under each variant and
+    of theta, ``engine.cv.cross_validate`` of each (one CV pass), and one
+    streaming apply (``ops/update.apply_update``) of SES_STREAM_DAYS
+    held-out days from each family's fit."""
+    eng, cvm, upd = port["engine"], port["cv"], port["update"]
+    cr, th, models = port["croston"], port["theta"], port["models"]
+    out = {}
+    for v in SES_VARIANTS:
+        out[f"croston_{v}"] = eng.fit_forecast(
+            batch, "croston", cr.CrostonConfig(variant=v), horizon=90)
+    out["theta"] = eng.fit_forecast(batch, "theta", th.ThetaConfig(),
+                                    horizon=90)
+    for model in ("croston", "theta"):
+        out[f"{model}_cv"] = cvm.cross_validate(batch, model,
+                                                cv=cvm.CVConfig(**CV))
+    y_new = torch.as_tensor(stream_tail(batch, SES_STREAM_DAYS),
+                            device=batch.y.device)
+    m_new = torch.ones_like(y_new)
+    days = np.arange(int(batch.day[-1]) + 1,
+                     int(batch.day[-1]) + 1 + SES_STREAM_DAYS)
+    for model, key in (("croston", "croston_sba"), ("theta", "theta")):
+        params = out[key][0]
+        fns = models.get_model(model)
+        aux = fns.init_update_aux(params, y=batch.y, mask=batch.mask)
+        out[f"{model}_update"] = upd.apply_update(
+            model, fns.config_cls(), params, aux, y_new, m_new,
+            np.ones(SES_STREAM_DAYS, np.float32), days)
+    return out
+
+
+def ses_check(port, batch, run: dict) -> dict:
+    """What the main path gave: finite forecasts of the grid's shape on
+    every healthy row, finite CV metrics, updated states of the right
+    shape; then 20 series on the CPU (the twins) against the card within
+    1e-5 of each row's scale (the kernels are bitwise their twins; the
+    means before them reduce in another order on each device)."""
+    S, T = batch.n_series, batch.n_time
+    for key in ("croston_croston", "croston_sba", "croston_tsb", "theta"):
+        _, res = run[key]
+        assert res.yhat.shape == (S, T + 90), (key, res.yhat.shape)
+        assert bool(res.ok.any()), key
+        assert bool(torch.isfinite(res.yhat[res.ok]).all()), key
+    for key in ("croston_cv", "theta_cv"):
+        assert bool(torch.isfinite(run[key]["rmse"]).all()), key
+    for key in ("croston_update", "theta_update"):
+        params, aux, preds = run[key]
+        assert preds.shape == (S, SES_STREAM_DAYS), preds.shape
+        assert bool(torch.isfinite(preds).all()), key
+    eng, cr, th = port["engine"], port["croston"], port["theta"]
+    cpu = dataclasses.replace(batch, y=batch.y[:20].cpu(),
+                              mask=batch.mask[:20].cpu(),
+                              day=batch.day.cpu(), keys=batch.keys[:20])
+    scale = cpu.y.abs().amax(1, keepdim=True).clamp_min(1.0)
+    worst = {}
+    for key, model, cfg in (("croston_sba", "croston", cr.CrostonConfig()),
+                            ("theta", "theta", th.ThetaConfig())):
+        want = eng.fit_forecast(cpu, model, cfg, horizon=90)[1]
+        got = run[key][1]
+        err = float(((got.yhat[:20].cpu() - want.yhat).abs()
+                     / scale).max())
+        assert err <= 1e-5, (key, err)
+        worst[key] = err
+    return {"rows": 20, "max_rel_diff": worst}
+
+
+def slice26_phase(port, card_line: str, earlier: dict) -> dict:
+    """Phase 25: the croston and theta recurrences on their hand kernels
+    (``csrc/ses.cu``).  (a) Each kernel against its twin on the card, bit
+    for bit, at the fit and CV shapes (every croston variant) and in the
+    streaming update's forms, with its times beside its bounds and the
+    twin's time; the slopes over T.  (b) The main path through the entry
+    points, the counters set to 0 just before it and read after: one
+    launch a fit, a CV pass and an update.  (c) Of the earlier phases, now
+    on the kernels: the blend dispatch's time, idle share and device
+    events (phase 8), the theta fit's time (phase 9), the /ingest p99 per
+    family (phase 16), and each phase's launches of the two kernels."""
+    t_phase = time.perf_counter()
+    batch = port["data"].tensorize(port["data"].load_sales_csv(DATA))
+    assert (batch.n_series, batch.n_time) == SHAPE
+    cases = ses_shape_cases(port, batch.y, batch.mask, batch.day)
+    cv_y, cv_mask = cv_inputs(batch, port["cv"])
+    cases.update({f"cv_{k}": v for k, v in ses_shape_cases(
+        port, cv_y, cv_mask, batch.day).items()})
+    cases = {(k if k.startswith("cv_") else f"fit_{k}"): v
+             for k, v in cases.items()}
+    cases.update(ses_stream_cases(port, batch))
+    out = {"cases": ses_kernel_cases(port, cases)}
+    del cases
+    out["slopes"] = ses_slopes(port, batch)
+    for k in SES_KERNELS:  # counters to 0 just before the path
+        wrapper(k).launches = 0
+    t0 = time.perf_counter()
+    run = ses_main_path(port, batch)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    out["launches"] = {k: wrapper(k).launches for k in SES_KERNELS}  # after
+    expected = {"croston_filter": len(SES_VARIANTS) + 2, "ses_filter": 3}
+    emit("launches", path="ses", **out["launches"],
+         expected="croston_filter: 1 a fit (3 variants), 1 for the CV "
+                  "pass, 1 for the update; ses_filter: 1 for the fit, 1 "
+                  "for the CV pass, 1 for the update")
+    assert out["launches"] == expected, (out["launches"], expected)
+    out["check"] = ses_check(port, batch, run)
+    del run
+    pooled, complete, streaming = (earlier["pooled"], earlier["complete"],
+                                   earlier["streaming"])
+    dispatch = pooled["times"]["dispatch_profile"]
+    out["earlier"] = {
+        "blend_dispatch": {
+            "ms": pooled["times"]["dispatch_ms"],
+            "idle_share": dispatch.get("idle_share"),
+            "device_events": dispatch.get("device_events"),
+            "hand_launches": dispatch.get("hand_launches"),
+            "events_by_kind": dispatch.get("events_by_kind")},
+        "croston_fit": pooled["times"]["croston"],
+        "theta_fit": complete["times"]["theta_fit"],
+        "ses": complete["times"]["ses"],
+        "post_ingest_500": streaming["times"]["post_ingest_500"],
+        "launches_by_phase": earlier["launches_by_phase"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("slice26", card=card_line, cases=out["cases"], slopes=out["slopes"],
+         main_path_s=path_s, check=out["check"], **out["earlier"])
+    emit("phase25", card=card_line, seconds=out["seconds"])
     return out
 
 
@@ -11598,8 +11914,9 @@ def kernel_times(port, card_line: str, probe: bool = True) -> dict:
     """``chip_smoke.py --kernel-times``: hw_filter's slope and, with
     ``probe``, split (:func:`hw_filter_slope`), its times across fleet sizes
     (:func:`hw_filter_fleet`), arima_predict against its launch floor
-    (:func:`arima_predict_floor`) and hw_score's two times at the fit
-    shape, nothing else.  Runs against whichever copy of the port
+    (:func:`arima_predict_floor`), hw_score's two times at the fit shape,
+    and croston_filter's and ses_filter's slopes over T
+    (:func:`ses_slopes`), nothing else.  Runs against whichever copy of the port
     ``--package-root`` put first on the path (the probe is skipped for
     another copy, whose entry may take other arguments, and the empty
     kernel where its library lacks it), so that two commits can be compared
@@ -11622,6 +11939,8 @@ def kernel_times(port, card_line: str, probe: bool = True) -> dict:
                port, predict_args(port, batch), lib),
            "hw_score": {"ms": cuda_ms(launch, inner=20),
                         **device_ms(launch)}}
+    if port["ses"] is not None:  # a copy that has the kernels
+        out["ses"] = ses_slopes(port, batch)
     emit("kernel_times", card=card_line, reps=REPS, statistic="median",
          hw_chain_cycles_read_from_sass=HW_CHAIN_CYCLES,
          arima_predict_chain_cycles_read_from_sass=ARIMA_PREDICT_CHAIN_CYCLES,
@@ -11649,7 +11968,17 @@ KERNELS = {
     # (fit_one), each a value_and_grad of nll_one
     "arima_mle_fit": ("distributed_forecasting_tpu_torch/csrc/arima_mle.cu",
                       "distributed_forecasting_tpu/models/arima.py:427"),
+    # no Pallas origin: the reference's Croston / SBA lax.scan (TSB's at
+    # :127, the streaming update's at :210 and :231)
+    "croston_filter": ("distributed_forecasting_tpu_torch/csrc/ses.cu",
+                       "distributed_forecasting_tpu/models/croston.py:142"),
+    # no Pallas origin: theta's SES lax.scan (_ses_path; the streaming
+    # update's at :236)
+    "ses_filter": ("distributed_forecasting_tpu_torch/csrc/ses.cu",
+                   "distributed_forecasting_tpu/models/theta.py:104"),
 }
+# the kernels of ops/ses.py (the croston and theta recurrences)
+SES_KERNELS = ("croston_filter", "ses_filter")
 
 
 def load_port() -> dict:
@@ -11695,6 +12024,10 @@ def load_port() -> dict:
     )
     from distributed_forecasting_tpu_torch.monitoring import cost, trace
     from distributed_forecasting_tpu_torch.ops import _build
+    try:
+        from distributed_forecasting_tpu_torch.ops import ses
+    except ImportError:  # a copy from before csrc/ses.cu (--package-root)
+        ses = None
 
     return dict(data=data, engine=engine, cv=cv, serving=serving, hw=hw, fs=fs,
                 pg=pg, solve=solve, training=training, tracking=tracking,
@@ -11710,7 +12043,7 @@ def load_port() -> dict:
                 update=update, ingest=ingest, serve_task=serve_task,
                 windowed=windowed, combine=combine, refit=refit,
                 compile_cache=compile_cache, executor=executor, cost=cost,
-                trace=trace, build=_build)
+                trace=trace, build=_build, ses=ses)
 
 
 def main(argv=None) -> int:
@@ -11807,34 +12140,70 @@ def main(argv=None) -> int:
         wt = workflow_timings(port, root, spec, card_line)
         conformal_vs_cpu(port, wt["state"]["batch"], wt["state"]["config"],
                          wt["cv_conf"])
-    pooled = pooled_phase(port, counters, card_line)
-    complete = complete_phase(port, counters, card_line)
-    arima_out = arima_phase(port, card_line)
-    ragged = slice9_phase(port, counters, card_line)["bucketed"]
-    scorer = scorer_phase(port, card_line)
-    prep = prep_phase(port, counters, card_line)
-    rng_paths = slice13_phase(port, card_line)
-    p8_end = slice14_phase(port, card_line)
-    streaming = slice15_phase(port, card_line)
-    windowed = slice17_phase(port, card_line)
-    runtime = slice19_phase(port, card_line)
-    scorer_rt = slice20_phase(port, card_line)
-    fleet = slice21_phase(port, card_line)
+    by_phase = {}  # each phase's launches of the croston and theta kernels
+
+    def tracked(name, fn):
+        """``fn()``, with its launches of SES_KERNELS: the phase's own
+        count where it reports one (the phases that set every counter to
+        0 themselves), else the counters' difference across it."""
+        before = {k: wrapper(k).launches for k in SES_KERNELS}
+        res = fn()
+        own = res.get("launches", {}) if isinstance(res, dict) else {}
+        by_phase[name] = {k: own[k] if k in own
+                          else wrapper(k).launches - before[k]
+                          for k in SES_KERNELS}
+        return res
+
+    pooled = tracked("8_pooled", lambda: pooled_phase(port, counters,
+                                                      card_line))
+    complete = tracked("9_complete", lambda: complete_phase(port, counters,
+                                                            card_line))
+    arima_out = tracked("10_arima", lambda: arima_phase(port, card_line))
+    ragged = tracked("11_slice9", lambda: slice9_phase(port, counters,
+                                                       card_line))["bucketed"]
+    scorer = tracked("12_scorer", lambda: scorer_phase(port, card_line))
+    prep = tracked("13_prep", lambda: prep_phase(port, counters, card_line))
+    rng_paths = tracked("14_slice13", lambda: slice13_phase(port, card_line))
+    p8_end = tracked("15_slice14", lambda: slice14_phase(port, card_line))
+    streaming = tracked("16_streaming", lambda: slice15_phase(port,
+                                                             card_line))
+    windowed = tracked("17_windowed", lambda: slice17_phase(port, card_line))
+    runtime = tracked("18_runtime", lambda: slice19_phase(port, card_line))
+    scorer_rt = tracked("19_scorer_runtime", lambda: slice20_phase(
+        port, card_line))
+    fleet = tracked("20_fleet", lambda: slice21_phase(port, card_line))
     # phases 23's and 24's processes boot beside phase 21's fleets (see
     # start_mesh_fleets, start_tsan); phase 24's on phase 23's artifacts
     mesh_fleets = start_mesh_fleets(port)
     try:
         tsan = start_tsan(port, mesh_fleets["arts"], mesh_fleets["root"])
         try:
-            cache = slice22_phase(port, card_line, before_timing=lambda: (
-                mesh_fleets_ready(mesh_fleets), tsan_ready(tsan)))
-            parallel = slice23_phase(port, card_line)
-            mesh = slice24_phase(port, card_line, mesh_fleets)
-            sanitized = slice25_phase(port, card_line, tsan)
+            cache = tracked("21_cache", lambda: slice22_phase(
+                port, card_line, before_timing=lambda: (
+                    mesh_fleets_ready(mesh_fleets), tsan_ready(tsan))))
+            parallel = tracked("22_parallel", lambda: slice23_phase(
+                port, card_line))
+            mesh = tracked("23_mesh", lambda: slice24_phase(
+                port, card_line, mesh_fleets))
+            sanitized = tracked("24_tsan", lambda: slice25_phase(
+                port, card_line, tsan))
         finally:
             stop_tsan(tsan)
     finally:
         stop_mesh_fleets(mesh_fleets)
+    # the phases that fit croston or theta on the card must have launched
+    # the kernels: phase 8's blends (croston), phase 9's theta workflow and
+    # pool, phase 10's model: auto, phase 16's streamed families
+    emit("launches", path="ses_by_phase", **by_phase,
+         expected="croston_filter and ses_filter >= 1 in phases 8, 9, 10 "
+                  "and 16 (each fits croston or theta on the card)")
+    for phase in ("8_pooled", "9_complete", "10_arima", "16_streaming"):
+        for k, n in by_phase[phase].items():
+            if n < 1 and not (phase == "8_pooled" and k == "ses_filter"):
+                DEFERRED.append(f"phase {phase} never launched {k}")
+    ses_out = slice26_phase(port, card_line, {
+        "pooled": pooled, "complete": complete, "streaming": streaming,
+        "launches_by_phase": by_phase})
     # nothing the smoke ran wrote into native/
     unchanged = native_snapshot() == native_before
     git = None  # a checkout with git: its own account of native/ too
@@ -11926,6 +12295,18 @@ def main(argv=None) -> int:
         bound_ms=fm["bound_ms"],
         bound_by=fm["bound_by"], steps=fm["steps"],
         compared_steps=fc["steps"], compared_ms=fc["ms"])
+    for k in SES_KERNELS:
+        fit = ses_out["cases"][k]["fit_croston_sba" if k == "croston_filter"
+                                  else "fit_theta"]
+        rows[k] = dict(
+            launches=ses_out["launches"][k],
+            max_abs_err=max(c["max_abs_err"]
+                            for c in ses_out["cases"][k].values()),
+            ms=fit["ms"], device_ms=fit["device_ms"], covered=fit["covered"],
+            plain_ms=fit["plain_ms"], bound_ms=fit["bound_ms"],
+            bound_by=fit["bound_by"], shape=fit["shape"],
+            cycles_per_step=ses_out["slopes"][k]["cycles_per_step"],
+            launches_by_phase={p: n[k] for p, n in by_phase.items()})
     emit("smoke", seconds=time.perf_counter() - t_start)
     # no single PyTorch call runs a filter or its gradient: no library time
     print(json.dumps({"kernels": [{

@@ -7,13 +7,12 @@ with SES and forecasts their ratio; SBA multiplies the ratio by the
 demand *probability* every observed period instead, so a run of zero days
 decays the forecast toward zero where Croston/SBA freeze at the last rate.
 
-The recurrence is one Python loop over T, each step a dozen elementwise
-launches on (S,) state vectors (seven for TSB), with no host sync: every
-series advances at once.  The per-step demand flags and the ``alpha * y`` terms are computed
-for the whole (S, T) grid before the loop; the squared one-step errors are
-summed over the fitted path after it.  Each step is :func:`_croston_step`
-or :func:`_tsb_step`, which streaming ingest's :func:`update_state` runs
-over new days too.
+The recurrence runs in :func:`ops.ses.croston_filter`: one launch of a
+hand-written CUDA kernel a fit, a CV pass or a streaming update on the
+card, its plain twin (a Python loop over T of elementwise steps on the (S,)
+carries) on the CPU.  The fit and :func:`update_state` run the same step,
+so a streamed state continues the fit's bit for bit.  The squared one-step
+errors of the fit are summed over its fitted path after the filter.
 """
 
 from __future__ import annotations
@@ -30,9 +29,10 @@ from distributed_forecasting_tpu_torch.models.base import (
     register_model,
     streamed_columns,
 )
+from distributed_forecasting_tpu_torch.ops import ses
+from distributed_forecasting_tpu_torch.ops.ses import croston_filter
 
 _EPS = 1e-6
-_VARIANTS = ("croston", "sba", "tsb")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,79 +65,33 @@ def _rate(z, p, alpha: float, variant: str):
 
 
 def _check_variant(config: CrostonConfig) -> None:
-    if config.variant not in _VARIANTS:
-        raise ValueError(
-            f"unknown CrostonConfig.variant {config.variant!r}; "
-            f"'croston', 'sba', or 'tsb'"
-        )
+    ses._check_variant(config.variant)
 
 
-def _croston_step(z, p, q, ay, mt, demand, keep, alpha: float,
-                  variant: str, out):
-    """One Croston / SBA step on (S,) lanes: writes the one-step rate into
-    ``out`` and returns ``(z', p', q')``.  ``ay`` is ``alpha * y``,
-    ``demand`` the step's demand flag, ``keep`` 0 at a demand and 1 else
-    (``q * keep`` restarts the interval count as ``where(demand, 0, q)``
-    does, exactly: q is a finite count).  The fit's loop and
-    :func:`update_state` both step through here, so a streamed state is
-    the fit's bit for bit."""
-    if variant == "sba":
-        rate = z / torch.clamp_min(p, 1.0)
-        torch.mul(rate, 1.0 - alpha / 2.0, out=out)
-    else:
-        torch.div(z, torch.clamp_min(p, 1.0), out=out)
-    q_new = q + mt  # observed periods since the last demand
-    z = torch.where(demand, ay + (1 - alpha) * z, z)
-    p = torch.where(demand, alpha * q_new + (1 - alpha) * p, p)
-    return z, p, q_new * keep
-
-
-def _tsb_step(z, b, ay, b_in, observed, demand, alpha: float, beta: float,
-              out):
-    """One TSB step on (S,) lanes: writes the one-step rate ``z * b`` into
-    ``out`` and returns ``(z', b')``.  The probability moves every observed
-    period (``b_in`` is ``beta * 1[demand]``), the size only at demands;
-    shared by the fit and :func:`update_state` as :func:`_croston_step`
-    is."""
-    torch.mul(z, b, out=out)
-    b = torch.where(observed, b_in + (1 - beta) * b, b)
-    z = torch.where(demand, ay + (1 - alpha) * z, z)
-    return z, b
+def initial_carry(y, mask, variant: str) -> tuple:
+    """The fit's initial carries for y, mask (S, T): the mean demand size
+    and, for Croston / SBA, the mean interval and a zero period count
+    ``(z, p, q)``; for TSB the demand probability ``(z, b)``."""
+    demand = (y > _EPS) & (mask > 0)                      # (S, T)
+    n_demands = torch.clamp_min(demand.sum(1).to(torch.float32), 1.0)
+    z = torch.where(demand, y, 0.0).sum(1) / n_demands    # (S,)
+    n_obs = torch.clamp_min(mask.sum(1), 1.0)
+    if variant == "tsb":
+        return z, n_demands / n_obs
+    return z, n_obs / n_demands, torch.zeros_like(z)
 
 
 def fit(y, mask, day, config: CrostonConfig) -> CrostonParams:
     """Fit every series at once.  y, mask: (S, T); day: (T,)."""
     _check_variant(config)
-    a = config.alpha
-    S, T = y.shape
-    demand = (y > _EPS) & (mask > 0)                      # (S, T)
-    n_demands = torch.clamp_min(demand.sum(1).to(torch.float32), 1.0)
-    z = torch.where(demand, y, 0.0).sum(1) / n_demands    # (S,)
-    n_obs = torch.clamp_min(mask.sum(1), 1.0)
+    carry = initial_carry(y, mask, config.variant)
     # time-major copies: each step reads and writes one contiguous row
-    ay = (a * y).t().contiguous()
-    d_t = demand.t().contiguous()
-    path = y.new_empty(T, S)
+    path, carry, _ = croston_filter(
+        y.t().contiguous(), mask.t().contiguous(), carry, config.alpha,
+        config.variant, config.beta)
+    z, p = carry[0], carry[1]
     if config.variant == "tsb":
-        bta = config.beta
-        # the probability's update term beta * 1[demand], for every step
-        b_in = torch.where(d_t, bta * 1.0, 0.0)
-        observed = (mask > 0).t().contiguous()
-        b = n_demands / n_obs
-        for t in range(T):
-            z, b = _tsb_step(z, b, ay[t], b_in[t], observed[t], d_t[t], a,
-                             bta, out=path[t])
-        p = 1.0 / torch.clamp_min(b, _EPS)
-    else:
-        m_t = mask.t().contiguous()
-        # 0 at a demand, else 1: q * keep restarts the interval count as
-        # where(demand, 0, q) does, exactly (q is a finite count)
-        keep = (~d_t).to(y.dtype)
-        p = n_obs / n_demands
-        q = torch.zeros_like(p)
-        for t in range(T):
-            z, p, q = _croston_step(z, p, q, ay[t], m_t[t], d_t[t], keep[t],
-                                    a, config.variant, out=path[t])
+        p = 1.0 / torch.clamp_min(p, _EPS)
     fitted = path.t().contiguous()
     err = (y - fitted) * mask
     sigma = torch.sqrt(torch.sum(err * err, dim=1)
@@ -146,14 +100,6 @@ def fit(y, mask, day, config: CrostonConfig) -> CrostonParams:
         z_level=z, p_level=p, sigma=sigma, fitted=fitted,
         day0=day[0].to(torch.float32), t_fit_end=day[-1].to(torch.float32),
     )
-
-
-def fit_work(S: int, T: int) -> tuple:
-    """(float32 operations, bytes) of :func:`fit`'s least work: y and mask
-    read once, the (S, T) fitted path and the (S,) states written once;
-    about twelve operations a step (rate, SBA factor, interval count, two
-    smoothing updates, three selects, the squared error and its sum)."""
-    return 12 * S * T, 4 * (3 * S * T + 3 * S)
 
 
 def forecast(params: CrostonParams, day_all, t_end, config: CrostonConfig):
@@ -178,43 +124,37 @@ def update_state(params: CrostonParams, aux, y_new, mask_new, valid,
     """Continue the Croston / SBA / TSB filter over appended day-columns
     (the streaming update; ``models/base.ModelFns.update_state``).
 
-    Each real column runs :func:`_croston_step` or :func:`_tsb_step` on the
-    fit's per-step inputs (``alpha * y``, the demand flag, ``keep``,
-    ``beta * 1[demand]``, formed as the fit forms them), so the state
-    continues the fit's bit for bit.  The carries the fit does not keep
-    live in aux: ``q`` (Croston / SBA periods since the last demand) and
-    ``b`` (TSB's demand probability; params keep only 1/b).  aux keeps both
-    keys whatever the variant.  Padding columns (``valid`` 0) are skipped,
-    as the reference's ``mask * valid == 0`` steps keep the carry.
-    ``day0`` is unused: the recursion has no calendar."""
+    The real columns go through :func:`ops.ses.croston_filter` in one call,
+    from the carries and the running (sse, n_obs): the filter forms the
+    per-step inputs as the fit does, so the state continues the fit's bit
+    for bit.  The carries the fit does not keep live in aux: ``q`` (Croston
+    / SBA periods since the last demand) and ``b`` (TSB's demand
+    probability; params keep only 1/b).  aux keeps both keys whatever the
+    variant.  Padding columns (``valid`` 0) are skipped, as the reference's
+    ``mask * valid == 0`` steps keep the carry.  ``day0`` is unused: the
+    recursion has no calendar."""
     _check_variant(config)
-    a = config.alpha
     cols, days = streamed_columns(valid, day_new)
     S, K = y_new.shape
     preds = y_new.new_zeros(S, K)
     z, p, q, b = params.z_level, params.p_level, aux["q"], aux["b"]
     sse, n = aux["sse"], aux["n_obs"]
-    demand = (y_new > _EPS) & (mask_new > 0)
-    ay = a * y_new
-    if config.variant == "tsb":
-        bta = config.beta
-        b_in = torch.where(demand, bta * 1.0, 0.0)
-        observed = mask_new > 0
-        for j in cols:
-            z, b = _tsb_step(z, b, ay[:, j], b_in[:, j], observed[:, j],
-                             demand[:, j], a, bta, out=preds[:, j])
-        if cols:
+    if cols:
+        take = torch.as_tensor(cols, dtype=torch.long).to(y_new.device)
+        tsb = config.variant == "tsb"
+        carry = (z, b) if tsb else (z, p, q)
+        path, carry, (sse, n) = croston_filter(
+            y_new[:, take].t().contiguous(),
+            mask_new[:, take].t().contiguous(),
+            tuple(c.contiguous() for c in carry), config.alpha,
+            config.variant, config.beta,
+            sums=(sse.contiguous(), n.contiguous()))
+        preds[:, take] = path.t()
+        if tsb:
+            z, b = carry
             p = 1.0 / torch.clamp_min(b, _EPS)
-    else:
-        keep = (~demand).to(y_new.dtype)
-        for j in cols:
-            z, p, q = _croston_step(z, p, q, ay[:, j], mask_new[:, j],
-                                    demand[:, j], keep[:, j], a,
-                                    config.variant, out=preds[:, j])
-    for j in cols:
-        err = (y_new[:, j] - preds[:, j]) * mask_new[:, j]
-        sse = sse + err * err
-        n = n + mask_new[:, j]
+        else:
+            z, p, q = carry
     sigma = torch.sqrt(sse / torch.clamp_min(n, 1.0))
     params2 = dataclasses.replace(
         params, z_level=z, p_level=p, sigma=sigma,

@@ -12,15 +12,16 @@ an added drift of half the linear-trend slope, which is how it is computed:
     4. forecast = the ``1/th`` mix of the flat SES forecast and the trend
        line, reseasonalized.
 
-The SES recursion is one Python loop over T on an (S, A) state, A the alpha
-grid: each step is the masked SES step alone (a multiply, an add and a
-select, no host sync), writing the one-step predictions into a preallocated
-(T + 1, S, A) buffer.  The fitted paths, the SSEs, the argmin and sigma are
-computed for every candidate after the loop, and the winner's path is
-gathered from them (the reference runs the winner's SES a second time; the
-gathered path is the same floats, element for element).  Streaming ingest
-continues the selected alpha's SES over new days (:func:`update_state`)
-through the same step, :func:`_ses_step`.
+The SES of the whole alpha grid runs in :func:`ops.ses.ses_filter`, one
+launch of a hand-written CUDA kernel a fit, a CV pass or a streaming update
+on the card, its plain twin (a Python loop over T of the masked SES step on
+the (S, A) lanes) on the CPU, into a (T + 1, S, A) buffer of one-step
+predictions.  The fitted paths, the SSEs, the argmin and sigma are computed
+for every candidate after it, and the winner's path is gathered from them
+(the reference runs the winner's SES a second time; the gathered path is
+the same floats, element for element).  Streaming ingest continues the
+selected alpha's SES over new days (:func:`update_state`) through the same
+step, so a streamed level is the fit's bit for bit.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from distributed_forecasting_tpu_torch.models.base import (
     register_model,
     streamed_columns,
 )
+from distributed_forecasting_tpu_torch.ops.ses import ses_filter
 
 _EPS = 1e-6
 # observed values the SES level starts from (their mean)
@@ -81,20 +83,6 @@ def _seasonal_indices(y, mask, dow, m: int):
     return idx / torch.clamp_min(idx.mean(dim=1, keepdim=True), _EPS)
 
 
-def _ses_step(level, az, observed, one_minus, out=None, carry=None):
-    """One masked SES step on any lane shape: ``(1 - alpha) * level +
-    alpha * z`` where observed, else ``level`` (whose value is the step's
-    one-step prediction).  ``az`` is ``alpha * z`` and ``one_minus`` is
-    ``1 - alpha``, formed by the caller.  :func:`ses_paths` (the fit, on
-    (S, A) lanes) and :func:`update_state` (one alpha a row, on (S,)) both
-    step through here, so a streamed level is the fit's bit for bit.
-    ``out`` / ``carry`` are optional buffers for the result and the
-    unmasked update."""
-    carry = torch.mul(one_minus, level, out=carry)
-    carry.add_(az)
-    return torch.where(observed, carry, level, out=out)
-
-
 def ses_paths(z, mask, alpha):
     """Masked SES of every row under every smoothing constant.
 
@@ -102,36 +90,24 @@ def ses_paths(z, mask, alpha):
     the (T + 1, S, A) buffer whose row t is the one-step prediction of step
     t (the level before it) and whose last row is the final level.  The
     level starts at the mean of each row's first seven *observed* values
-    and moves only where ``mask > 0``.
+    and moves only where ``mask > 0`` (:func:`ops.ses.ses_filter`).
     """
     S, T = z.shape
     alpha = torch.as_tensor(alpha, dtype=z.dtype, device=z.device)
     if alpha.dim() == 1:
         alpha = alpha[None, :]
-    A = alpha.shape[1]
-    alpha = alpha.expand(S, A)
+    alpha = alpha.expand(S, alpha.shape[1]).contiguous()
+    # time-major: each step reads one contiguous row
+    return ses_filter(z.t().contiguous(), mask.t().contiguous(),
+                      head_level(z, mask), alpha)
+
+
+def head_level(z, mask):
+    """(S,) the SES level's start: the mean of each row's first seven
+    observed values of z (0 for a row with none)."""
     head = torch.where(torch.cumsum(mask, dim=1) <= _HEAD, mask, 0.0)
-    l0 = (torch.sum(torch.where(mask > 0, z, 0.0) * head, dim=1)
-          / torch.clamp_min(head.sum(1), 1.0))
-    one_minus = 1.0 - alpha
-    # time-major: each step reads and writes contiguous (S, A) slices
-    az = alpha[None] * z.t()[:, :, None]                   # (T, S, A)
-    observed = (mask > 0).t()[:, :, None]                  # (T, S, 1)
-    buf = z.new_empty(T + 1, S, A)
-    buf[0] = l0[:, None]
-    carry = z.new_empty(S, A)
-    for t in range(T):
-        _ses_step(buf[t], az[t], observed[t], one_minus, out=buf[t + 1],
-                  carry=carry)
-    return buf
-
-
-def ses_work(S: int, T: int, A: int) -> tuple:
-    """(float32 operations, bytes) of :func:`ses_paths`' least work: z and
-    mask read once, the (T + 1, S, A) buffer written once; four operations
-    a (row, candidate, step): ``alpha * z``, ``(1 - alpha) * level``, the
-    add and the select."""
-    return 4 * S * A * T, 4 * (2 * S * T + S * A * (T + 1))
+    return (torch.sum(torch.where(mask > 0, z, 0.0) * head, dim=1)
+            / torch.clamp_min(head.sum(1), 1.0))
 
 
 def _lines(y, mask, day, config: ThetaConfig):
@@ -242,9 +218,10 @@ def update_state(params: ThetaParams, aux, y_new, mask_new, valid, day_new,
     The decomposition the fit estimated — seasonal indices, OLS trend,
     the selected alpha — stays frozen (re-estimating it is the refit's
     job); only the SES level and the (sse, n_obs) running moments move.
-    The theta line, the step (:func:`_ses_step`) and the fitted value are
-    the fit's expressions element for element, so the level after k
-    columns continues the fit's filter bit for bit.  Padding columns
+    The theta line is the fit's expression element for element, and the
+    real columns go through :func:`ops.ses.ses_filter` in one call (the
+    fit's step, with the fitted values and the error sums), so the level
+    after k columns continues the fit's filter bit for bit.  Padding columns
     (``valid`` 0) are skipped, which is what the reference's ``mask *
     valid == 0`` steps do: a masked SES step keeps the carry."""
     m = config.season_length
@@ -266,18 +243,15 @@ def update_state(params: ThetaParams, aux, y_new, mask_new, valid, day_new,
         trend = params.intercept[:, None] + params.slope[:, None] * t[None, :]
         th = config.theta
         zline = th * y_sa + (1.0 - th) * trend
-        az = params.alpha[:, None] * zline
-        one_minus = 1.0 - params.alpha
-        observed = mask > 0
-        w_ses = 1.0 / th
-        for j in range(len(cols)):
-            pred = level
-            level = _ses_step(level, az[:, j], observed[:, j], one_minus)
-            fitted = (w_ses * pred + (1.0 - w_ses) * trend[:, j]) * si[:, j]
-            err = (y[:, j] - fitted) * mask[:, j]
-            sse = sse + err * err
-            n = n + mask[:, j]
-            preds[:, cols[j]] = fitted
+        # time-major, one alpha a row
+        tm = lambda x: x.t().contiguous()  # noqa: E731
+        buf, fitted, sse, n = ses_filter(
+            tm(zline), tm(mask), level.contiguous(),
+            params.alpha[:, None].contiguous(),
+            scored=(tm(y), tm(trend), tm(si), th, sse.contiguous(),
+                    n.contiguous()))
+        level = buf[-1, :, 0]
+        preds[:, take] = fitted.t()
     sigma = torch.sqrt(sse / torch.clamp_min(n, 1.0))
     params2 = dataclasses.replace(
         params, level=level, sigma=sigma,

@@ -624,6 +624,25 @@ def get_tracer() -> Tracer:
         return _tracer
 
 
+def enable_from_env() -> Optional[Tracer]:
+    """Turn full tracing on from ``DFTPU_TRACE_DIR=<dir>``, the hook for
+    runs with no conf (benchmark subprocesses, smoke runs): spans to
+    ``<dir>/trace.jsonl``, flight-recorder dumps to ``<dir>``, profiler
+    captures to ``<dir>/profile`` and the debug endpoints on.  Returns the
+    installed tracer, or None (and changes nothing) when the variable is
+    unset or empty."""
+    directory = os.environ.get("DFTPU_TRACE_DIR")
+    if not directory:
+        return None
+    return configure_tracing(TraceConfig(
+        enabled=True,
+        jsonl_path=os.path.join(directory, "trace.jsonl"),
+        dump_dir=directory,
+        profile_dir=os.path.join(directory, "profile"),
+        debug_endpoints=True,
+    ))
+
+
 __all__ = [
     "FlightRecorder",
     "ProfilerBusyError",
@@ -637,6 +656,7 @@ __all__ = [
     "configure_tracing",
     "device_annotation",
     "dump_flight_recorder",
+    "enable_from_env",
     "get_tracer",
     "new_trace_id",
     "to_chrome_trace",

@@ -37,9 +37,9 @@ BUILD_DIR = (os.path.join(_ROOT, "build", "torch_kernels")
 # sm_90a: Hopper with its architecture-specific instructions.  No fast
 # math, and no fused multiply-add contraction (--fmad=false): every float
 # operation rounds on its own, exactly as the plain PyTorch twin's
-# elementwise ops do, so the refit kernel (csrc/hw_filter.cu) and the ARIMA
-# kernels (csrc/arima_kalman.cu, csrc/arima_mle.cu) reproduce their twins
-# bit for bit.  The
+# elementwise ops do, so the refit kernel (csrc/hw_filter.cu), the ARIMA
+# kernels (csrc/arima_kalman.cu, csrc/arima_mle.cu) and the croston and
+# theta recurrences (csrc/ses.cu) reproduce their twins bit for bit.  The
 # scoring kernel writes its multiply-adds out as
 # __fmaf_rn where it wants them.
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
@@ -73,7 +73,7 @@ builds = 0
 # every kernel source, built into one library by one build call (ninja runs
 # one nvcc per source, in parallel)
 SOURCES = ["hw_score.cu", "hw_filter.cu", "arima_kalman.cu",
-           "arima_mle.cu"]
+           "arima_mle.cu", "ses.cu"]
 
 
 _LIBRARY = None
@@ -197,8 +197,17 @@ def _load() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 7
         + [ctypes.c_void_p]
     )
+    lib.croston_filter_launch.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        + [ctypes.c_void_p]
+    )
+    lib.ses_filter_launch.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+        + [ctypes.c_void_p]
+    )
     for name in ("hw_score", "hw_filter", "arima_filter", "arima_predict",
-                 "arima_loglik_grad", "arima_mle_fit"):
+                 "arima_loglik_grad", "arima_mle_fit", "croston_filter",
+                 "ses_filter"):
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]

@@ -1,10 +1,12 @@
 """Masked forecast-accuracy metrics as tensor reductions (port of the
 reference's ``ops/metrics.py``: the functions behind ``compute_all`` and
-``mase``, and the serving quality monitor's ``quality_terms``).
+``mase``, ``wape``, ``rmsse`` and ``pinball``, and the serving quality
+monitor's ``quality_terms``).
 
 All functions take ``y, yhat: (..., T)`` and ``mask: (..., T)`` and reduce
 the last axis.  Division guards keep fully-masked rows finite (0, not NaN)
-for the ``METRIC_FNS`` set; ``mase`` returns NaN on a zero naive scale.
+for the ``METRIC_FNS`` set; ``mase``, ``wape`` and ``rmsse`` return NaN on a
+zero denominator.
 """
 
 from __future__ import annotations
@@ -96,6 +98,31 @@ def coverage(y, lo, hi, mask):
     return _mean(inside, mask)
 
 
+def wape(y, yhat, mask):
+    """Weighted absolute percentage error: sum|err| / sum|y| under the
+    mask (volume-weighted, the retail headline metric); NaN where the
+    masked actuals sum to zero, as :func:`mase` does."""
+    num = torch.sum(torch.abs(y - yhat) * mask, dim=-1)
+    denom = torch.sum(torch.abs(y) * mask, dim=-1)
+    return torch.where(denom > _EPS, num / torch.clamp_min(denom, _EPS),
+                       torch.nan)
+
+
+def rmsse(y, yhat, eval_mask, train_mask, m: int = 1):
+    """Root mean squared scaled error (the M5 accuracy metric): the
+    eval-window MSE over the lag-``m`` naive MSE on the training window,
+    square-rooted; NaN where the naive scale is zero."""
+    dy = y[..., m:] - y[..., :-m]
+    both = train_mask[..., m:] * train_mask[..., :-m]
+    scale = torch.sum(dy * dy * both, dim=-1) / torch.clamp_min(
+        torch.sum(both, dim=-1), 1.0
+    )
+    mse_eval = _mean((y - yhat) ** 2, eval_mask)
+    return torch.where(scale > _EPS,
+                       torch.sqrt(mse_eval / torch.clamp_min(scale, _EPS)),
+                       torch.nan)
+
+
 def quality_terms(y, yhat, lo, hi, step, mask):
     """Elementwise rolling-quality terms for ``monitoring/quality.py``, one
     batched pass over every observed series (reference
@@ -131,6 +158,14 @@ def quality_terms(y, yhat, lo, hi, step, mask):
     }
 
 
+def pinball(y, yhat_q, mask, q: float):
+    """Pinball (quantile) loss at level ``q`` (the M5 uncertainty
+    metric): the masked mean of ``q * (y - f)`` for under-forecasts and
+    ``(1 - q) * (f - y)`` for over-forecasts of the q-quantile ``yhat_q``."""
+    diff = y - yhat_q
+    return _mean(torch.maximum(q * diff, (q - 1.0) * diff), mask)
+
+
 METRIC_FNS = {
     "mse": mse,
     "rmse": rmse,
@@ -139,6 +174,9 @@ METRIC_FNS = {
     "smape": smape,
     "mdape": mdape,
 }
+# wape / rmsse / mase stay out of METRIC_FNS: they return NaN on a zero
+# denominator (meaningless, not perfect), while METRIC_FNS keeps fully
+# masked rows finite (0; callers filter on the valid count)
 
 
 def compute_all(y, yhat, mask, lo=None, hi=None) -> dict:

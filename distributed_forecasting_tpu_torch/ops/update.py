@@ -3,8 +3,10 @@
 
 Every dirty series' newly arrived day-columns go through the family's
 ``update_state`` (registered on ``models/base.ModelFns``) in one call per
-apply: a loop over the new columns of the step function the family's fit
-runs, each step a handful of elementwise launches over the (S,) lanes.
+apply, running the step function the family's fit runs over the new
+columns: Holt-Winters as a loop of elementwise launches over the (S,)
+lanes, croston and theta as one launch of their filter kernel
+(``ops/ses.py``) on the card.
 This module owns the call's discipline:
 
 - **column bucketing** (:func:`column_bucket`): the reference pads the K

@@ -31,6 +31,7 @@ from distributed_forecasting_tpu_torch.models.base import (
 )
 from distributed_forecasting_tpu_torch.serving.predictor import (
     BatchForecaster,
+    _bucket_ladder,
     quantile_columns,
 )
 
@@ -123,6 +124,17 @@ class MultiModelForecaster:
                                           device=device)
                for name in meta["models"]}
         return cls(fcs, np.asarray(meta["assignment"]))
+
+    def warmup(self, horizon: int = 90, sizes=(1,)) -> int:
+        """Warm every family's predict path (``BatchForecaster.warmup``).
+        A mixed request splits by per-series assignment, so a member can
+        receive any smaller sub-request: every family warms the whole
+        bucket ladder up to the largest requested size, which covers any
+        split of a listed size.  Returns the buckets run, summed over the
+        families."""
+        return sum(self.forecasters[m].warmup(horizon=horizon,
+                                              sizes=_bucket_ladder(sizes))
+                   for m in self.models)
 
     def _parts(self, request, on_missing, columns, call):
         """One ``call(forecaster, request)`` per family present in the
@@ -292,6 +304,14 @@ class BlendedForecaster:
         scale = np.load(scale_path) if os.path.exists(scale_path) else None
         return cls(fcs, weights, models=tuple(meta["models"]),
                    interval_scale=scale)
+
+    def warmup(self, horizon: int = 90, sizes=(1,)) -> int:
+        """Every family serves every requested series, so each warms the
+        requested sizes themselves (no ladder, unlike
+        :meth:`MultiModelForecaster.warmup`).  Returns the buckets run,
+        summed over the families."""
+        return sum(self.forecasters[m].warmup(horizon=horizon, sizes=sizes)
+                   for m in self.models)
 
     def _pool(self, request, on_missing, columns, call):
         """Every family's frame for the requested series, combined by the

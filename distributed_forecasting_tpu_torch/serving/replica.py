@@ -679,12 +679,13 @@ def main(argv=None) -> None:
 def _launches() -> dict:
     """The launch counter of every hand kernel's wrapper in this process
     (each counts where it launches its kernel on the card)."""
-    from distributed_forecasting_tpu_torch.ops import fused_scan, kalman
+    from distributed_forecasting_tpu_torch.ops import fused_scan, kalman, ses
 
     return {name: getattr(mod, name).launches for mod, names in (
         (fused_scan, ("hw_score", "hw_filter")),
         (kalman, ("arima_filter", "arima_predict", "arima_loglik_grad",
-                  "arima_mle_fit"))) for name in names}
+                  "arima_mle_fit")),
+        (ses, ("croston_filter", "ses_filter"))) for name in names}
 
 
 if __name__ == "__main__":

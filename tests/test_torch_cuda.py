@@ -471,20 +471,54 @@ def test_blend_on_the_card_launches_both_kernels_three_times(dev):
 
 
 def test_croston_on_the_card_equals_the_cpu(dev):
-    """The recurrence runs the same float32 operations on either device:
-    equal within rtol 1e-6 / atol 1e-6 of the data's scale (the initial
-    means and the squared-error sum reduce in a different order)."""
+    """The recurrence runs the same float32 operations on either device
+    (the kernel on the card, its twin on the CPU): the fit, then the
+    streaming update of its last 30 days from the fit of the rest, equal
+    within rtol 1e-6 / atol 1e-6 of the data's scale (the initial means and
+    the squared-error sum reduce in a different order).  The fit and the
+    update launch the kernel once each; theta's fit and update likewise."""
+    import numpy as np
+
     from distributed_forecasting_tpu_torch.models import croston as cr
+    from distributed_forecasting_tpu_torch.models import theta as th
+    from distributed_forecasting_tpu_torch.ops import ses
 
     b = _pool_batch(dev)
-    for variant in ("croston", "sba", "tsb"):
-        cfg = cr.CrostonConfig(variant=variant)
-        got = cr.fit(b.y, b.mask, b.day, cfg)
-        want = cr.fit(b.y.cpu(), b.mask.cpu(), b.day.cpu(), cfg)
-        scale = float(b.y.abs().max())
-        for f in ("z_level", "p_level", "sigma", "fitted"):
-            torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
-                                       rtol=1e-6, atol=1e-6 * scale)
+    T = b.y.shape[1] - 30
+    scale = float(b.y.abs().max())
+    days = b.day[T:].cpu().numpy()
+    for mod, cfgs, kernel, fields in (
+            (cr, [cr.CrostonConfig(variant=v) for v in ("croston", "sba",
+                                                        "tsb")],
+             ses.croston_filter, ("z_level", "p_level", "sigma", "fitted")),
+            (th, [th.ThetaConfig()], ses.ses_filter,
+             ("level", "alpha", "sigma", "fitted"))):
+        for cfg in cfgs:
+            out = {}
+            for where in ("cuda", "cpu"):
+                y, m, d = (x.to(where) for x in (b.y, b.mask, b.day))
+                before = kernel.launches
+                p = mod.fit(y[:, :T], m[:, :T], d[:T], cfg)
+                aux = mod.init_update_aux(p, y[:, :T].cpu().numpy(),
+                                          m[:, :T].cpu().numpy())
+                p2, aux2, preds = mod.update_state(
+                    p, aux, y[:, T:], m[:, T:], np.ones(30, np.float32),
+                    days, cfg)
+                assert kernel.launches - before == (2 if where == "cuda"
+                                                    else 0)
+                out[where] = (p, p2, preds, aux2)
+            (p, p2, preds, aux2), (q, q2, qpreds, qaux2) = (out["cuda"],
+                                                            out["cpu"])
+            for f in fields:
+                for got, want in ((p, q), (p2, q2)):
+                    torch.testing.assert_close(
+                        getattr(got, f).cpu(), getattr(want, f), rtol=1e-6,
+                        atol=1e-6 * scale)
+            torch.testing.assert_close(preds.cpu(), qpreds, rtol=1e-6,
+                                       atol=1e-6 * scale)
+            for k in aux2:
+                torch.testing.assert_close(aux2[k].cpu(), qaux2[k],
+                                           rtol=1e-6, atol=1e-6 * scale)
 
 
 def test_season_detection_on_the_card_equals_the_cpu(dev):
@@ -495,6 +529,162 @@ def test_season_detection_on_the_card_equals_the_cpu(dev):
     want = season.acf_scores_impl(b.y.cpu(), b.mask.cpu(), 133)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
     assert season.detect_season_length(b) == 7
+
+
+# -- the croston and theta recurrences (csrc/ses.cu) ---------------------------
+#
+# Both kernels repeat their twins' float32 operations in order (no
+# contraction, IEEE division, the host's float32 constants): held to the
+# twins (ops/ses.*_reference, run on the card) bit for bit.
+
+def _intermittent(S, T, dev, seed=0, edges=True):
+    """Intermittent demand (about half the days zero, ~10% masked) with,
+    where the shape allows, an all-zero row, a fully masked row, NaN in y
+    on an observed and on a masked day, and a non-binary mask."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.round(torch.rand(S, T, generator=g) * 20.0)
+    y = torch.where(torch.rand(S, T, generator=g) < 0.5, 0.0, y)
+    mask = (torch.rand(S, T, generator=g) > 0.1).float()
+    if edges and S >= 8 and T >= 3:
+        y[1] = 0.0
+        mask[2] = 0.0
+        y[3, T // 2], mask[3, T // 2] = float("nan"), 1.0
+        y[4, 1], mask[4, 1] = float("nan"), 0.0
+        mask[5, ::2] = 0.5
+        mask[6] = 0.25
+    return y.to(dev), mask.to(dev)
+
+
+def _croston_carry(y, mask, variant):
+    """The fit's initial carries for time-major y, mask."""
+    from distributed_forecasting_tpu_torch.models.croston import initial_carry
+
+    return tuple(c.contiguous() for c in initial_carry(y.t(), mask.t(),
+                                                       variant))
+
+
+def _assert_all_same_bits(got, want):
+    for a, b in zip(got, want):
+        assert _same_bits_or_nan(a, b)
+
+
+def _croston_equals_twin(y_t, m_t, variant, sums=False, alpha=0.1, beta=0.1):
+    from distributed_forecasting_tpu_torch.ops import ses
+
+    carry = _croston_carry(y_t, m_t, variant)
+    S = y_t.shape[1]
+    s0 = ((torch.rand(S, device=y_t.device) * 10).contiguous(),
+          torch.full((S,), 3.0, device=y_t.device)) if sums else None
+    before = ses.croston_filter.launches
+    path, c, sm = ses.croston_filter(y_t, m_t, carry, alpha, variant, beta,
+                                     sums=s0)
+    assert ses.croston_filter.launches == before + 1
+    path2, c2, sm2 = ses.croston_filter_reference(y_t, m_t, carry, alpha,
+                                                  variant, beta, sums=s0)
+    torch.cuda.synchronize()
+    _assert_all_same_bits((path, *c, *(sm or ())),
+                          (path2, *c2, *(sm2 or ())))
+
+
+CROSTON_SHAPES = {"fit": (500, 1826), "cv": (1500, 1706), "T1": (40, 1),
+                  "T2": (40, 2), "wave": (132 * 32 * 32 + 1, 40)}
+
+
+@pytest.mark.parametrize("shape", list(CROSTON_SHAPES))
+@pytest.mark.parametrize("variant", ["croston", "sba", "tsb"])
+def test_croston_filter_kernel_equals_twin_bitwise(dev, variant, shape):
+    """The fit and CV shapes (the CV rows with their train masks: every
+    cutoff's tail masked), T 1 and 2, and more rows than one wave of
+    32-row blocks; the edge rows of :func:`_intermittent`."""
+    S, T = CROSTON_SHAPES[shape]
+    y, mask = _intermittent(S, T, dev, seed=S + T, edges=shape != "wave")
+    if shape == "cv":
+        cut = torch.tensor([1326, 1516, 1706], device=dev).repeat_interleave(
+            S // 3)
+        mask = mask * (torch.arange(T, device=dev)[None, :] < cut[:, None])
+    _croston_equals_twin(y.t().contiguous(), mask.t().contiguous(), variant)
+
+
+@pytest.mark.parametrize("variant", ["croston", "sba", "tsb"])
+@pytest.mark.parametrize("T", [1, 2, 37])
+def test_croston_filter_kernel_sums_equal_twin_bitwise(dev, variant, T):
+    """The streaming update's form: the squared one-step error and the
+    count summed on from given (sse, n_obs), a non-default alpha and beta."""
+    y, mask = _intermittent(40, T, dev, seed=T)
+    _croston_equals_twin(y.t().contiguous(), mask.t().contiguous(), variant,
+                         sums=True, alpha=0.3, beta=0.2)
+
+
+def _ses_inputs(S, T, dev, seed=0, edges=True):
+    y, mask = _intermittent(S, T, dev, seed=seed, edges=edges)
+    z = torch.where(torch.isnan(y), y, y * 1.7 - 3.0)       # a theta line
+    l0 = (torch.rand(S, generator=torch.Generator().manual_seed(seed))
+          * 10.0).to(dev)
+    return z.t().contiguous(), mask.t().contiguous(), l0
+
+
+SES_SHAPES = {"fit": (500, 1826), "cv": (1683, 1706), "T1": (40, 1),
+              "T2": (40, 2), "wave": (20_000, 40)}
+
+
+@pytest.mark.parametrize("shape", list(SES_SHAPES))
+def test_ses_filter_kernel_equals_twin_bitwise(dev, shape):
+    """Theta's seven alphas shared across rows (A 7; past one wave of
+    32-lane blocks at 140,000 lanes), the fit and CV shapes, T 1 and 2."""
+    from distributed_forecasting_tpu_torch.models.theta import ThetaConfig
+    from distributed_forecasting_tpu_torch.ops import ses
+
+    S, T = SES_SHAPES[shape]
+    z, mask, l0 = _ses_inputs(S, T, dev, seed=S + T, edges=shape != "wave")
+    alpha = torch.tensor(ThetaConfig().alphas, device=dev)[None].expand(
+        S, 7).contiguous()
+    before = ses.ses_filter.launches
+    buf = ses.ses_filter(z, mask, l0, alpha)
+    assert ses.ses_filter.launches == before + 1
+    want = ses.ses_filter_reference(z, mask, l0, alpha)
+    torch.cuda.synchronize()
+    assert _same_bits_or_nan(buf, want)
+
+
+@pytest.mark.parametrize("T", [1, 2, 37])
+def test_ses_filter_kernel_scored_equals_twin_bitwise(dev, T):
+    """One alpha a row (A 1), the streaming update's form: the levels, the
+    fitted values and the error sums."""
+    from distributed_forecasting_tpu_torch.ops import ses
+
+    S = 40
+    z, mask, l0 = _ses_inputs(S, T, dev, seed=T)
+    g = torch.Generator().manual_seed(T)
+    alpha = torch.tensor([0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.8])[
+        torch.randint(0, 7, (S,), generator=g)][:, None].to(dev)
+    y = (torch.rand(T, S, generator=g) * 30).to(dev)
+    trend = (torch.rand(T, S, generator=g) * 5 + 10).to(dev)
+    si = (torch.rand(T, S, generator=g) + 0.5).to(dev)
+    scored = (y, trend, si, 2.0, torch.rand(S, generator=g).to(dev),
+              torch.full((S,), 5.0, device=dev))
+    got = ses.ses_filter(z, mask, l0, alpha, scored=scored)
+    want = ses.ses_filter_reference(z, mask, l0, alpha, scored=scored)
+    torch.cuda.synchronize()
+    _assert_all_same_bits(got, want)
+
+
+def test_ses_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from distributed_forecasting_tpu_torch.ops import ses
+
+    z, mask, l0 = _ses_inputs(8, 20, dev)
+    alpha = torch.full((8, 7), 0.1, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ses.ses_filter(z.double(), mask, l0, alpha)
+    with pytest.raises(ValueError, match="contiguous"):
+        ses.ses_filter(z, mask, l0, alpha[:, ::2])
+    with pytest.raises(ValueError, match="one alpha a row"):
+        ses.ses_filter(z, mask, l0, alpha, scored=(z, z, z, 2.0, l0, l0))
+    carry = _croston_carry(z, mask, "sba")
+    with pytest.raises(ValueError, match="carry"):
+        ses.croston_filter(z, mask, carry[:2], 0.1, "sba")
+    with pytest.raises(ValueError, match="on cuda"):
+        ses.croston_filter(z, mask, tuple(c.cpu() for c in carry), 0.1,
+                           "sba")
 
 
 # -- the arima family's kernels (csrc/arima_kalman.cu) ------------------------

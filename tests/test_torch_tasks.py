@@ -1024,6 +1024,78 @@ def blend_runs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("model", ["blend", "auto"])
+def test_serve_task_warms_and_serves_a_pooled_artifact(blend_runs, model,
+                                                       monkeypatch):
+    """The shipped serve conf (``warmup_sizes: [1, 8]``) on a ``model:
+    blend`` or ``model: auto`` artifact: the task warms every member and
+    serves /invocations.  The warmup runs as many buckets as the
+    reference's composite warmup counts on the same artifact (its members'
+    predicts stubbed: the count is the composite's logic, the reference's
+    ``BatchForecaster.warmup`` counts the buckets it runs): the whole
+    ladder to 8 in every family for auto, the two sizes for blend."""
+    import json
+    import urllib.request
+
+    from distributed_forecasting_tpu.serving import ensemble as jensemble
+    from distributed_forecasting_tpu.serving import predictor as jpredictor
+    from distributed_forecasting_tpu_torch.serving import ensemble as tens
+    from distributed_forecasting_tpu_torch.serving import predictor as tpred
+    from distributed_forecasting_tpu_torch.serving import server as tserver
+    from distributed_forecasting_tpu_torch.tasks import serve as tserve
+
+    _, root = blend_runs[model, "port"]
+    conf = _serve_conf(root)
+    assert conf["serving"]["warmup_sizes"] == [1, 8]
+    conf["serving"].update(model_name=BLEND_MODEL, stage="Production",
+                           warmup_horizon=30)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    task = tserve.ServeTask(init_conf=conf, device="cpu")
+    task.logger.addHandler(handler)
+    try:
+        kw = task.server_args()
+    finally:
+        task.logger.removeHandler(handler)
+    fc = kw.pop("forecaster")
+    kind = tens.BlendedForecaster if model == "blend" else \
+        tens.MultiModelForecaster
+    assert isinstance(fc, kind)
+    warmed = [r.getMessage() for r in records
+              if r.getMessage().startswith("warmed ")]
+    assert len(warmed) == 1, warmed
+
+    version = _handles(root)[2].latest_version(BLEND_MODEL,
+                                               stage="Production")
+    art = os.path.join(version.artifact_dir, "forecaster")
+    art = art if os.path.isdir(art) else version.artifact_dir
+    monkeypatch.setattr(jpredictor.BatchForecaster, "predict",
+                        lambda self, *a, **k: None)
+    jkind = jensemble.BlendedForecaster if model == "blend" else \
+        jensemble.MultiModelForecaster
+    want = jkind.load(art).warmup(horizon=30, sizes=[1, 8])
+    assert warmed[0].startswith(f"warmed {want} request-size bucket")
+    sizes = [1, 8] if model == "blend" else list(tpred._bucket_ladder([8]))
+    assert fc.warmup(horizon=30, sizes=[1, 8]) == sum(
+        m.warmup(horizon=30, sizes=sizes) for m in fc.forecasters.values())
+
+    srv = tserver.start_server(fc, host="127.0.0.1", port=0, **{
+        k: v for k, v in kw.items() if k not in ("host", "port")})
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        keys = [dict(zip(fc.key_names, map(int, k))) for k in fc.keys[:3]]
+        req = urllib.request.Request(
+            url + "/invocations",
+            data=json.dumps({"inputs": keys, "horizon": 7}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = r.read()
+        assert body == tserver._encode_predictions(
+            fc.predict(pd.DataFrame(keys), horizon=7), fc.key_names)
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.parametrize("model", ["blend", "auto"])
 def test_pooled_workflow_runs_like_the_reference(blend_runs, model):
     (got, root), (want, _) = blend_runs[model, "port"], blend_runs[model,
                                                                     "ref"]

@@ -287,3 +287,41 @@ def test_profiler_capture_holds_another_threads_annotation(tmp_path):
     names = [e.get("name") for e in events]
     assert "pipeline_dispatch:e0" in names
     assert not sess._active
+
+
+@pytest.mark.parametrize("value", [None, ""], ids=["unset", "empty"])
+def test_enable_from_env_is_a_noop_without_the_variable(monkeypatch, value,
+                                                        global_tracing):
+    before = global_tracing(ttrace.TraceConfig(enabled=True, ring_size=8))
+    if value is None:
+        monkeypatch.delenv("DFTPU_TRACE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("DFTPU_TRACE_DIR", value)
+    assert ttrace.enable_from_env() is None
+    assert jtrace.enable_from_env() is None
+    assert ttrace.get_tracer() is before
+
+
+def test_enable_from_env_installs_the_reference_config(monkeypatch, tmp_path,
+                                                       global_tracing):
+    """``DFTPU_TRACE_DIR`` set: the installed tracer's config is the
+    reference's for the same directory, and its spans reach the JSONL file
+    under it."""
+    monkeypatch.setenv("DFTPU_TRACE_DIR", str(tmp_path))
+    want = jtrace.enable_from_env()
+    try:
+        tr = ttrace.enable_from_env()
+        assert tr is ttrace.get_tracer()
+        assert dataclasses.asdict(tr.config) == dataclasses.asdict(
+            want.config)
+        assert tr.config.debug_endpoints and tr.config.enabled
+        assert tr.config.profile_dir == os.path.join(str(tmp_path),
+                                                     "profile")
+        with tr.span("from-env"):
+            pass
+    finally:
+        jtrace.configure_tracing(jtrace.TraceConfig())
+    ttrace.configure_tracing(ttrace.TraceConfig())  # flushes the exporter
+    with open(tmp_path / "trace.jsonl") as f:
+        names = [json.loads(line)["name"] for line in f]
+    assert "from-env" in names
